@@ -1,0 +1,37 @@
+"""debias_vision_lang_torch -- the PyTorch + CUDA port of
+``debias_vision_lang_tpu`` for one NVIDIA H100 (Hopper, sm_90a).
+
+    import debias_vision_lang_torch as debias_clip
+    model, preprocess, tokenizer, alias = debias_clip.DebiasCLIP.from_cfg(
+        {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False}, device="cuda")
+    results = debias_clip.measure_bias(model, preprocess, tokenizer, "gender",
+                                       opts={"dtype": "bfloat16"})
+
+The configuration carriers and the architecture registry are the JAX
+package's own (``debias_vision_lang_tpu.core``, which imports no jax).  The
+port imports torch and never jax.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "measure_bias": ("debias_vision_lang_torch.eval.measure", "measure_bias"),
+    "eval_ranking": ("debias_vision_lang_torch.eval.measure", "eval_ranking"),
+    "gen_prompts": ("debias_vision_lang_torch.eval.measure", "gen_prompts"),
+    "DebiasCLIP": ("debias_vision_lang_torch.models.debias", "DebiasCLIP"),
+    "model_loader": ("debias_vision_lang_torch.models.loader", "model_loader"),
+    "ClipLike": ("debias_vision_lang_torch.models.loader", "ClipLike"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

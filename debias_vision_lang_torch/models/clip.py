@@ -1,0 +1,275 @@
+"""CLIP dual encoder (ViT image tower + causal text tower) as ``nn.Module``s.
+
+Counterpart of ``debias_vision_lang_tpu/models/clip.py`` ("vit" towers).
+The text tower is exposed piecewise -- ``embed_tokens`` / ``add_positional``
+/ ``run_text_transformer`` / ``project_eot`` -- because prompt injection
+(models/debias.py) happens between embedding and transformer.
+
+Fused-block gate (as ``_use_fused_blocks``): a bfloat16 tower runs its
+layers through ``ops/fused_block.py`` -- the CUDA kernels on a CUDA tensor,
+their plain twins on a CPU tensor; a float32 tower runs the plain
+``layers.transformer``.  ``fused=`` overrides the choice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from debias_vision_lang_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
+
+from ..ops.fused_block import fused_transformer
+from ..vision.preprocess import CLIP_MEAN, CLIP_STD
+from .layers import (LayerNorm, causal_mask, init_resblocks, layer_norm,
+                     make_resblocks, quick_gelu, transformer)
+
+ROADMAP_OTHER_TOWERS = "ROADMAP.md queue 1 item 4 (other towers)"
+
+
+def _vector(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape))
+
+
+class PatchConv(nn.Module):
+    """Patch projection stored as a matrix: kernel [patch*patch*3, width],
+    input rows in (row, col, channel) order."""
+
+    def __init__(self, patch_dim: int, width: int):
+        super().__init__()
+        self.kernel = _vector(patch_dim, width)
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        if cfg.kind != "vit":
+            raise NotImplementedError(
+                f"vision tower kind {cfg.kind!r}: the port runs OpenAI ViT "
+                f"towers; {ROADMAP_OTHER_TOWERS}")
+        self.cfg = cfg
+        w = cfg.width
+        self.conv1 = PatchConv(cfg.patch_size * cfg.patch_size * 3, w)
+        self.class_embedding = _vector(w)
+        self.positional_embedding = _vector(cfg.seq_len, w)
+        self.ln_pre = LayerNorm(w)
+        self.resblocks = make_resblocks(cfg.layers, w)
+        self.ln_post = LayerNorm(w)
+        self.proj = _vector(w, cfg.embed_dim)
+
+    def forward(self, images: torch.Tensor, dtype=None,
+                fused: Optional[bool] = None) -> torch.Tensor:
+        if is_patch_staging(images, self.cfg):
+            return encode_image_vit_p8(self, images, dtype=dtype or torch.bfloat16,
+                                       fused=fused)
+        return encode_image_vit(self, images, dtype=dtype or torch.float32,
+                                fused=fused)
+
+
+class TextTransformer(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = _vector(cfg.vocab_size, cfg.width)
+        self.positional_embedding = _vector(cfg.context_length, cfg.width)
+        self.resblocks = make_resblocks(cfg.layers, cfg.width)
+        self.ln_final = LayerNorm(cfg.width)
+        self.text_projection = _vector(cfg.width, cfg.embed_dim)
+
+    def forward(self, text: torch.Tensor, dtype=torch.float32,
+                fused: Optional[bool] = None) -> torch.Tensor:
+        x = add_positional(self, embed_tokens(self, text, dtype))
+        x = run_text_transformer(self, x, fused=fused)
+        return project_eot(self, x, text)
+
+
+class CLIP(nn.Module):
+    """Vanilla CLIP bundle (``models/loader.py::CLIP`` in the JAX package)."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = VisionTransformer(cfg.vision)
+        self.text = TextTransformer(cfg.text)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def encode_image(self, images, dtype=None, fused=None) -> torch.Tensor:
+        return self.visual(images, dtype=dtype, fused=fused)
+
+    def encode_text(self, text, dtype=torch.float32, fused=None) -> torch.Tensor:
+        return self.text(text, dtype=dtype, fused=fused)
+
+    def forward(self, images, text, dtype=None):
+        img = self.encode_image(images, dtype=dtype).float()
+        txt = self.encode_text(text, dtype=dtype or torch.float32).float()
+        return logits(img, txt, self.logit_scale)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_clip_params(cfg: CLIPConfig,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Random float32 parameters (OpenAI CLIP's init scheme, as the JAX
+    package's ``init_clip_params``) as a ``CLIP(cfg)`` state dict, on the
+    CPU.  The numbers differ from jax.random's for the same seed."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = CLIP(cfg)
+    v, t = model.visual, model.text
+    vc = cfg.vision
+    scale = vc.width ** -0.5
+
+    def nrm(p: nn.Parameter, std: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    with torch.no_grad():
+        nrm(v.conv1.kernel, v.conv1.kernel.shape[0] ** -0.5)
+        nrm(v.class_embedding, scale)
+        nrm(v.positional_embedding, scale)
+        init_resblocks(v.resblocks, generator)
+        nrm(v.proj, scale)
+        nrm(t.token_embedding, 0.02)
+        nrm(t.positional_embedding, 0.01)
+        init_resblocks(t.resblocks, generator)
+        nrm(t.text_projection, cfg.text.width ** -0.5)
+    return model.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# Vision tower
+# ---------------------------------------------------------------------------
+
+
+def _use_fused_blocks(dtype, fused: Optional[bool]) -> bool:
+    return dtype == torch.bfloat16 if fused is None else bool(fused)
+
+
+def patch_embed(kernel: torch.Tensor, images: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, 3] NHWC -> [B, num_patches, width], contracting the split
+    patch dims directly (no patchified copy); f32 accumulation, rounded to
+    the images' dtype."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    x5 = images.reshape(b, gh, patch, gw, patch * c)
+    k3 = kernel.to(images.dtype).reshape(patch, patch * c, kernel.shape[-1])
+    out = torch.einsum("bgpwq,pqd->bgwd", x5.float(), k3.float())
+    return out.reshape(b, gh * gw, k3.shape[-1]).to(images.dtype)
+
+
+def fold_preprocess_into_patch(kernel: torch.Tensor, mean=None, std=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absorb CLIP's Normalize into the patch weights: conv(normalize(u8)) ==
+    u8 @ W' + b' with W'[i] = W[i] / (255 std[c]) and b' = sum_i
+    (-mean[c] / std[c]) W[i] (c = channel of input row i).  f32 results."""
+    k = kernel.float()
+    mean = torch.tensor(CLIP_MEAN if mean is None else mean, dtype=torch.float32,
+                        device=k.device)
+    std = torch.tensor(CLIP_STD if std is None else std, dtype=torch.float32,
+                       device=k.device)
+    c = torch.arange(k.shape[0], device=k.device) % 3
+    w_f = k * (1.0 / (255.0 * std))[c][:, None]
+    b_f = (-mean / std)[c] @ k
+    return w_f, b_f
+
+
+def _vit_trunk(v: VisionTransformer, x: torch.Tensor, dtype,
+               fused: Optional[bool]) -> torch.Tensor:
+    """cls / positions / pre-LN -> transformer -> post-LN / projection."""
+    cfg = v.cfg
+    cls = v.class_embedding.to(dtype).expand(x.shape[0], 1, cfg.width)
+    x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
+    x = layer_norm(v.ln_pre, x)
+    if _use_fused_blocks(dtype, fused):
+        x = fused_transformer(v.resblocks, x, cfg.heads, act_kind="quick_gelu")
+    else:
+        x = transformer(v.resblocks, x, cfg.heads, act=quick_gelu)
+    x = layer_norm(v.ln_post, x[:, 0, :])
+    return x @ v.proj.to(dtype)
+
+
+def encode_image_vit(v: VisionTransformer, images: torch.Tensor, *,
+                     dtype=torch.float32, fused: Optional[bool] = None
+                     ) -> torch.Tensor:
+    """ViT forward from normalized [B, H, W, 3] images -> [B, embed_dim]."""
+    x = patch_embed(v.conv1.kernel, images.to(dtype), v.cfg.patch_size)
+    return _vit_trunk(v, x, dtype, fused)
+
+
+def encode_image_vit_p8(v: VisionTransformer, patches_u8: torch.Tensor, *,
+                        dtype=torch.bfloat16, fused: Optional[bool] = None
+                        ) -> torch.Tensor:
+    """ViT forward from patch-contiguous uint8 staging [B, P, patch*patch*3]:
+    the normalize is folded into the patch weights and the stem is one
+    matmul (uint8 values are exact in bfloat16)."""
+    cfg = v.cfg
+    w_f, b_f = fold_preprocess_into_patch(v.conv1.kernel, cfg.image_mean,
+                                          cfg.image_std)
+    x = torch.matmul(patches_u8.to(dtype).float(), w_f.to(dtype).float())
+    x = x.to(dtype) + b_f.to(dtype)
+    return _vit_trunk(v, x, dtype, fused)
+
+
+def is_patch_staging(images: torch.Tensor, cfg: VisionConfig) -> bool:
+    """True iff ``images`` is the uint8 [B, (n/patch)^2, patch^2*3] staging."""
+    return (images.dim() == 3 and images.dtype == torch.uint8
+            and images.shape[-1] == cfg.patch_size * cfg.patch_size * 3
+            and images.shape[-2] == (cfg.image_size // cfg.patch_size) ** 2)
+
+
+# ---------------------------------------------------------------------------
+# Text tower, piecewise
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(t: TextTransformer, text: torch.Tensor,
+                 dtype=torch.float32) -> torch.Tensor:
+    return t.token_embedding.to(dtype)[text]
+
+
+def add_positional(t: TextTransformer, x: torch.Tensor) -> torch.Tensor:
+    return x + t.positional_embedding.to(x.dtype)[: x.shape[1]]
+
+
+def run_text_transformer(t: TextTransformer, x: torch.Tensor,
+                         fused: Optional[bool] = None) -> torch.Tensor:
+    """Causal transformer over embedded text, then the final LayerNorm."""
+    if _use_fused_blocks(x.dtype, fused):
+        x = fused_transformer(t.resblocks, x, t.cfg.heads, causal=True)
+    else:
+        x = transformer(t.resblocks, x, t.cfg.heads,
+                        mask=causal_mask(x.shape[1], x.device))
+    return layer_norm(t.ln_final, x)
+
+
+def project_eot(t: TextTransformer, x: torch.Tensor,
+                text: torch.Tensor) -> torch.Tensor:
+    """Pool at the EOT position (argmax of the ids: EOT is the largest id)."""
+    return pool_and_project(t, x, text.argmax(-1))
+
+
+def pool_and_project(t: TextTransformer, x: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    pooled = x[torch.arange(x.shape[0], device=x.device), idx]
+    return pooled @ t.text_projection.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True),
+                           min=eps)
+
+
+def logits(img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor):
+    """(logits_per_image, logits_per_text) from unnormalized embeddings."""
+    per_image = logit_scale.exp() * l2_normalize(img) @ l2_normalize(txt).T
+    return per_image, per_image.T

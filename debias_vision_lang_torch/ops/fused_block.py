@@ -1,0 +1,275 @@
+"""Fused transformer-block entry points: a hand-written CUDA kernel for each,
+and the plain PyTorch twin that specifies its math.
+
+Counterpart of ``debias_vision_lang_tpu/ops/fused_block.py``:
+
+  attention_block:  out = x + (MHA(LN1(x)) @ Wo + bo)
+  mlp_block:        out = x + b2 + act(LN2(x) @ W1 + b1) @ W2
+
+Each wrapper takes the tensor's device as the route: a CPU tensor runs the
+plain twin, a CUDA tensor launches the kernel (``csrc/fused_block.cu``) or
+raises -- nothing falls back.  The twins round exactly where the TPU
+kernels round (``_kernel_math_resblock`` is their common specification):
+f32 LayerNorm rounded to the input dtype, f32-accumulated products, qkv /
+probabilities / per-head outputs / MLP hidden rounded to the input dtype,
+an f32 softmax normalised before PV, f32 residual adds with one rounding.
+At float32 every rounding is the identity, so the twins are the fp32
+reference math too.
+
+``LAUNCHES`` counts kernel launches (CPU twins never count), so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from ..models.layers import causal_mask, ln_f32, quick_gelu
+
+LAUNCHES: Dict[str, int] = {"attention_block": 0,
+                            "attention_block_causal": 0,
+                            "mlp_block": 0}
+ACT_KINDS = ("quick_gelu", "gelu")
+MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain twins (the specification)
+# ---------------------------------------------------------------------------
+
+
+def erf_gelu(h: torch.Tensor) -> torch.Tensor:
+    """Exact gelu through the Abramowitz & Stegun 7.1.26 polynomial, the
+    same formula the TPU kernel and the CUDA kernel evaluate (|erf err| <=
+    1.5e-7).  ``h`` is f32."""
+    x = h * 0.7071067811865476
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erf = torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+    return h * 0.5 * (1.0 + erf)
+
+
+def _act(h: torch.Tensor, act_kind: str) -> torch.Tensor:
+    if act_kind == "quick_gelu":
+        return quick_gelu(h)
+    if act_kind == "gelu":
+        return erf_gelu(h)
+    raise ValueError(f"act_kind must be one of {ACT_KINDS}, got {act_kind!r}")
+
+
+def _dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with the weight rounded to a's dtype and f32 accumulation."""
+    return torch.matmul(a.float(), w.to(a.dtype).float())
+
+
+def attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, *, heads: int,
+                          causal: bool = False) -> torch.Tensor:
+    b, s, d = x.shape
+    hd = d // heads
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b)
+    qkv = (_dot_f32(xn, wqkv) + bqkv.float()).to(dt)
+    q, k, v = (t.reshape(b, s, heads, hd).float()
+               for t in qkv.split(d, dim=-1))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
+    if causal:
+        sc = sc + causal_mask(s, x.device)
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(dt)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v).to(dt).reshape(b, s, d)
+    proj = _dot_f32(o, wo) + bo.float()
+    return (x.float() + proj).to(dt)
+
+
+def mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2, *,
+                    act_kind: str = "quick_gelu") -> torch.Tensor:
+    xn = ln_f32(x, ln_s, ln_b)
+    h = _act(_dot_f32(xn, w1) + b1.float(), act_kind).to(x.dtype)
+    return (x.float() + b2.float() + _dot_f32(h, w2)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA route
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import load
+
+        lib = load("fused_block")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dvl_attention_block.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.dvl_attention_block.restype = i
+        lib.dvl_mlp_block.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.dvl_mlp_block.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernels now rather than at first use."""
+    _lib()
+
+
+def _operand(t: torch.Tensor, dtype, shape, name: str,
+             device) -> torch.Tensor:
+    """Cast/copy a parameter to the kernel's dtype, contiguous and 16-byte
+    aligned; shape and device are checked, never repaired."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    t = t.to(dtype).contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def _check_x(x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA fused-block kernels take bfloat16 "
+                        f"activations, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
+    _check_x(x)
+    b, s, d = x.shape
+    if d % heads or d // heads != 64:
+        raise ValueError(f"the CUDA attention core takes head dim 64, got "
+                         f"D={d} heads={heads}")
+    if s > MAX_SEQ:
+        raise ValueError(f"sequence length {s} > {MAX_SEQ}")
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
+           _operand(ln_b, f32, (d,), "ln_bias", dev),
+           _operand(wqkv, bf, (d, 3 * d), "wqkv", dev),
+           _operand(bqkv, f32, (3 * d,), "bqkv", dev),
+           _operand(wo, bf, (d, d), "wo", dev),
+           _operand(bo, f32, (d,), "bo", dev)]
+    out = torch.empty_like(x)
+    xn = torch.empty((b * s, d), dtype=bf, device=dev)
+    qkv = torch.empty((b * s, 3 * d), dtype=bf, device=dev)
+    attn = torch.empty((b * s, d), dtype=bf, device=dev)
+    err = _lib().dvl_attention_block(
+        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        b, s, d, heads, int(causal), _stream_ptr(dev))
+    _raise_on(err, "dvl_attention_block")
+    LAUNCHES["attention_block_causal" if causal else "attention_block"] += 1
+    return out
+
+
+def _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind):
+    _check_x(x)
+    b, s, d = x.shape
+    f = w1.shape[-1]
+    if d % 32 or f % 32:
+        raise ValueError(f"the CUDA MLP takes D and F divisible by 32, got "
+                         f"D={d} F={f}")
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
+           _operand(ln_b, f32, (d,), "ln_bias", dev),
+           _operand(w1, bf, (d, f), "w1", dev),
+           _operand(b1, f32, (f,), "b1", dev),
+           _operand(w2, bf, (f, d), "w2", dev),
+           _operand(b2, f32, (d,), "b2", dev)]
+    out = torch.empty_like(x)
+    xn = torch.empty((b * s, d), dtype=bf, device=dev)
+    hidden = torch.empty((b * s, f), dtype=bf, device=dev)
+    err = _lib().dvl_mlp_block(
+        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+        xn.data_ptr(), hidden.data_ptr(), b * s, d, f,
+        ACT_KINDS.index(act_kind), _stream_ptr(dev))
+    _raise_on(err, "dvl_mlp_block")
+    LAUNCHES["mlp_block"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def _route(x: torch.Tensor) -> str:
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type
+    raise ValueError(f"fused blocks run on cpu (plain twin) or cuda "
+                     f"(kernel), got {x.device}")
+
+
+def attention_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, *, heads: int,
+                    causal: bool = False) -> torch.Tensor:
+    """x: [B, S, D] -> x + attn(LN(x)); ``causal`` applies CLIP's text mask."""
+    if _route(x) == "cpu":
+        return attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                     heads=heads, causal=causal)
+    return _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads,
+                                 causal)
+
+
+def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, *,
+              act_kind: str = "quick_gelu") -> torch.Tensor:
+    """x: [B, S, D] -> x + mlp(LN(x))."""
+    if act_kind not in ACT_KINDS:
+        raise ValueError(f"act_kind must be one of {ACT_KINDS}, "
+                         f"got {act_kind!r}")
+    if _route(x) == "cpu":
+        return mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2,
+                               act_kind=act_kind)
+    return _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind)
+
+
+def _block_args(block):
+    a, m = block.attn, block.mlp
+    return ((block.ln_1.scale, block.ln_1.bias, a.wqkv, a.bqkv, a.wo, a.bo),
+            (block.ln_2.scale, block.ln_2.bias, m.w1, m.b1, m.w2, m.b2))
+
+
+def fused_resblock(block, x: torch.Tensor, heads: int, *,
+                   act_kind: str = "quick_gelu",
+                   causal: bool = False) -> torch.Tensor:
+    """One pre-LN residual block (a ``models.layers.ResidualBlock``) through
+    the two fused entry points."""
+    attn_args, mlp_args = _block_args(block)
+    x = attention_block(x, *attn_args, heads=heads, causal=causal)
+    return mlp_block(x, *mlp_args, act_kind=act_kind)
+
+
+def fused_transformer(blocks, x: torch.Tensor, heads: int, *,
+                      act_kind: str = "quick_gelu",
+                      causal: bool = False) -> torch.Tensor:
+    for block in blocks:
+        x = fused_resblock(block, x, heads, act_kind=act_kind, causal=causal)
+    return x
