@@ -3,13 +3,17 @@ pipeline on one device.
 
 Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
   1. host threads decode and stage uint8 batches (data/loader.py); on the
-     bfloat16 rung of a ViT they are patch-contiguous [B, P, patch^2*3];
+     bfloat16 and int8 rungs of a ViT they are patch-contiguous
+     [B, P, patch^2*3];
   2. each batch goes through the image tower (bfloat16: the fused-block
-     kernels; float32: the plain tower after the device preprocess);
-  3. the prompts are tokenized once and encoded by the text tower in
-     float32 on both rungs, as the JAX package does, then L2-normalized
-     (image embeddings are deliberately NOT normalized, as in the
-     reference);
+     kernels; "int8" / "int8-text": the bundle wrapped once in
+     ``ops/quant.QuantizedCLIP``, the int8 fused-block kernels with bfloat16
+     activations between them; float32: the plain tower after the device
+     preprocess);
+  3. the prompts are tokenized once and encoded by the text tower (the
+     wrapped bundle's: float32 on every rung but "int8-text", which runs
+     the int8 text tower), then L2-normalized (image embeddings are
+     deliberately NOT normalized, as in the reference);
   4. scores = prompts @ images.T and MaxSkew / NDKL in one device pass
      (metrics/ranking.py), or the numpy oracle with engine="oracle".
 """
@@ -29,17 +33,10 @@ from debias_vision_lang_tpu.core.config import Dotdict, EvalConfig
 
 from ..data.loader import HostLoader
 from ..metrics import ranking
+from ..ops.quant import resolve_compute
 from ..vision.preprocess import Preprocess, preprocess_batch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_ROADMAP_INT8 = "ROADMAP.md queue 1 item 3 (the int8 ladder)"
 _ROADMAP_VIDEO = "ROADMAP.md queue 1 item 4 (other towers: Frozen-in-Time video)"
-_NOT_YET = {
-    "int8": _ROADMAP_INT8,
-    "int8-text": _ROADMAP_INT8,
-    "auto": "ROADMAP.md queue 1 item 8 (the 'auto' rung, chosen from H100 "
-            "measurements)",
-}
 
 
 def gen_prompts(prompt_path=None) -> List[str]:
@@ -63,15 +60,6 @@ def _resolve_opts(opts) -> EvalConfig:
         return opts
     fields = {f.name for f in dataclasses.fields(EvalConfig)}
     return EvalConfig(**{k: v for k, v in dict(opts).items() if k in fields})
-
-
-def compute_dtype(dtype: str) -> torch.dtype:
-    if dtype in _NOT_YET:
-        raise NotImplementedError(f"dtype={dtype!r} is not ported yet: "
-                                  f"{_NOT_YET[dtype]}")
-    if dtype not in DTYPES:
-        raise ValueError(f"unknown dtype {dtype!r}: expected one of {sorted(DTYPES)}")
-    return DTYPES[dtype]
 
 
 def model_device(model) -> torch.device:
@@ -99,8 +87,9 @@ def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
                               host_transform: Optional[Callable] = None,
                               dtype: str = "float32"):
     """Embed every image: (labels [N] numpy, embeddings [N, D] float32 on the
-    model's device), unnormalized."""
-    dt = compute_dtype(dtype)
+    model's device), unnormalized.  "int8" / "int8-text" wrap the model
+    (idempotently: measure_bias passes it wrapped already)."""
+    model, dt = resolve_compute(model, dtype)
     device = model_device(model)
     vis = vision_cfg(model)
     stats = {} if vis is None else {"mean": vis.image_mean, "std": vis.image_std}
@@ -188,7 +177,10 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
         for key, item in _NOT_YET_OPTS.items():
             if extra.get(key):
                 raise NotImplementedError(f"opts[{key!r}] is not ported yet: {item}")
-    dt = compute_dtype(cfg.dtype)
+    # resolve the precision ladder once, so both towers honour it: the int8
+    # rungs wrap the bundle here, and the prompts run through the wrapped
+    # model (int8 text only under "int8-text")
+    cliplike, dt = resolve_compute(cliplike, cfg.dtype)
 
     dataset_name = extra.get("dataset", "fairface")
     if dataset_name == "video":
@@ -213,8 +205,9 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
              equal_split=extra.get("equal_split", True),
              data_path=extra.get("data_path"), download=False)
 
-    # bfloat16 ViT at its native resolution: stage patch-contiguous uint8 so
-    # the stem is one matmul with the normalize folded into the weights
+    # bfloat16 or int8 ViT at its native resolution: stage patch-contiguous
+    # uint8 so the stem is one matmul with the normalize folded into the
+    # weights (integer-exact on the int8 rungs)
     vis = vision_cfg(cliplike)
     patch = None
     if (dt == torch.bfloat16 and host_transform is None and vis is not None

@@ -73,21 +73,30 @@ def _dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.to(a.dtype).float())
 
 
-def attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, *, heads: int,
-                          causal: bool = False) -> torch.Tensor:
-    b, s, d = x.shape
+def attention_core(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """The per-head attention of the TPU kernels: qkv [B, S, 3D] (q | k | v)
+    -> [B, S, D] in qkv's dtype.  f32 scores and softmax, probabilities
+    normalised and rounded before PV, per-head outputs rounded."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
     hd = d // heads
-    dt = x.dtype
-    xn = ln_f32(x, ln_s, ln_b)
-    qkv = (_dot_f32(xn, wqkv) + bqkv.float()).to(dt)
+    dt = qkv.dtype
     q, k, v = (t.reshape(b, s, heads, hd).float()
                for t in qkv.split(d, dim=-1))
     sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
     if causal:
-        sc = sc + causal_mask(s, x.device)
+        sc = sc + causal_mask(s, qkv.device)
     e = torch.exp(sc - sc.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dt)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v).to(dt).reshape(b, s, d)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v).to(dt).reshape(b, s, d)
+
+
+def attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, *, heads: int,
+                          causal: bool = False) -> torch.Tensor:
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b)
+    qkv = (_dot_f32(xn, wqkv) + bqkv.float()).to(dt)
+    o = attention_core(qkv, heads, causal)
     proj = _dot_f32(o, wo) + bo.float()
     return (x.float() + proj).to(dt)
 

@@ -1,5 +1,6 @@
 """The PyTorch port imports torch and never jax: a fresh interpreter runs a
-tiny CPU forward through the port and must end with no jax module loaded.
+tiny CPU forward through the port (bf16 and, through QuantizedCLIP, int8)
+and must end with no jax module loaded.
 Also the port's surface and its stdlib byte tokenizer."""
 
 import pathlib
@@ -43,6 +44,13 @@ with torch.no_grad():
     txt = txt / txt.norm(dim=-1, keepdim=True)
 res = dvl.eval_ranking(np.array([0, 1, 0, 1]), img, txt, "ndkl")
 assert img.shape == (4, 16) and all(np.isfinite(list(res.values())))
+from debias_vision_lang_torch.ops.quant import QuantizedCLIP
+qmodel = QuantizedCLIP(model, quantize_text=True)
+with torch.no_grad():
+    img8 = qmodel.encode_image(torch.from_numpy(patchify_u8(u8, 8))).float()
+    txt8 = qmodel.encode_text(torch.from_numpy(ByteTokenizer()(prompts))).float()
+assert img8.shape == (4, 16) and txt8.shape == (5, 16)
+assert bool(torch.isfinite(img8).all()) and bool(torch.isfinite(txt8).all())
 print("jax" in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))[:3])
 """
 
@@ -63,6 +71,8 @@ def test_no_jax_import_in_sources():
 
 def test_kernel_sources_ship():
     assert (PORT / "csrc" / "fused_block.cu").exists()
+    assert (PORT / "csrc" / "fused_block_q.cu").exists()
+    assert (PORT / "csrc" / "common.cuh").exists()
 
 
 @pytest.mark.parametrize("name", ["measure_bias", "eval_ranking", "gen_prompts",

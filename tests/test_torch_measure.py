@@ -3,6 +3,9 @@ CPU: prompts, ranking metrics (vs the numpy oracle, atol 1e-5), the host
 loader (batches equal), and measure_bias end to end on a synthetic FairFace
 (float32 metrics within 1e-5; bfloat16 image embeddings at cosine >= 0.999
 against JAX's bfloat16 XLA path, the JAX package's own fused-vs-XLA bar).
+The int8 rungs: image embeddings at cosine >= 0.999 against JAX's int8
+path, and measure_bias(dtype="int8" / "int8-text") metrics equal to the
+numpy oracle on the port's own embeddings within 1e-5.
 """
 
 import jax
@@ -23,6 +26,7 @@ from debias_vision_lang_torch.metrics import ranking
 from debias_vision_lang_torch.models import clip as tclip
 from debias_vision_lang_torch.models.convert import params_from_jax, to_jax_tree
 from debias_vision_lang_torch.models.debias import DebiasCLIP as TDebiasCLIP
+from debias_vision_lang_torch.ops import quant as tquant
 from debias_vision_lang_torch.vision.preprocess import Preprocess as TPreprocess
 
 torch.set_num_threads(1)
@@ -221,14 +225,69 @@ class TestMeasureBias:
         assert set(got) == {"ndkl"}
 
 
+class TestInt8Rungs:
+    def test_int8_embeddings_match_jax(self, fairface, models):
+        from debias_vision_lang_tpu.data.loader import HostLoader as JHostLoader
+        from debias_vision_lang_tpu.eval.measure import get_labels_img_embeddings
+
+        jmodel, tmodel = models
+        ds = FairFace(mode="val", iat_type="gender", data_path=fairface, download=False)
+        kw = {"batch_size": 8, "num_workers": 2, "native_n_px": 32, "native_patch": 8}
+        jl, je = get_labels_img_embeddings(JHostLoader(ds, **kw), jmodel, n_px=32,
+                                           dtype="int8")
+        tl, te = tmeasure.get_labels_img_embeddings(HostLoader(ds, **kw), tmodel,
+                                                    n_px=32, dtype="int8")
+        np.testing.assert_array_equal(tl, jl)
+        assert te.shape == (24, 32) and te.dtype == torch.float32
+        assert _cos_rows(te.numpy(), np.asarray(je)).min() >= 0.999
+
+    @pytest.mark.parametrize("dtype", ["int8", "int8-text"])
+    def test_metrics_equal_oracle(self, fairface, models, dtype):
+        _, tmodel = models
+        opts = {**OPTS, "data_path": fairface, "dtype": dtype}
+        got = tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender", opts=opts)
+        # the same pipeline by hand, ranked by the numpy oracle
+        qmodel, _ = tquant.resolve_compute(tmodel, dtype)
+        ds = FairFace(mode="val", iat_type="gender", data_path=fairface, download=False)
+        labels, img = tmeasure.get_labels_img_embeddings(
+            HostLoader(ds, batch_size=8, num_workers=2, native_n_px=32, native_patch=8),
+            qmodel, n_px=32, dtype=dtype)
+        prm = tmeasure.get_prompt_embeddings(qmodel, tok, tmeasure.gen_prompts())
+        for ev in ("maxskew", "ndkl"):
+            want = oracle.eval_ranking_oracle(labels, img.numpy(), prm.numpy(), ev, 10)
+            for k in want:
+                assert np.isfinite(got[ev][k])
+                assert got[ev][k] == pytest.approx(want[k], abs=1e-5)
+
+    @pytest.mark.parametrize("dtype,text_layers", [("int8", 0), ("int8-text", 2)])
+    def test_runs_p8_through_int8_blocks(self, fairface, models, monkeypatch, dtype,
+                                         text_layers):
+        from debias_vision_lang_torch.ops import fused_block_q as fbq
+
+        _, tmodel = models
+        calls = []
+        orig = fbq.attention_block_q
+        monkeypatch.setattr(fbq, "attention_block_q",
+                            lambda *a, **k: calls.append(k["causal"]) or orig(*a, **k))
+        staged = []
+        orig_p8 = tquant.patch_embed_q_p8
+        monkeypatch.setattr(tquant, "patch_embed_q_p8",
+                            lambda *a, **k: staged.append(1) or orig_p8(*a, **k))
+        tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender",
+                              opts={**OPTS, "data_path": fairface, "dtype": dtype})
+        assert len(staged) == 3  # 24 images / batch 8, all patch-staged
+        assert calls.count(False) == 3 * CFG.vision.layers
+        assert calls.count(True) == text_layers  # 319 prompts in one text batch
+
+
 class TestOptsChecked:
     @pytest.mark.parametrize("opts,exc,match", [
         ({"topnn": 5}, ValueError, "topnn"),
         ({"prompts": np.array([], dtype=str)}, ValueError, "empty"),
         ({"prompts": []}, ValueError, "empty"),
-        ({"dtype": "int8"}, NotImplementedError, "int8 ladder"),
-        ({"dtype": "int8-text"}, NotImplementedError, "int8 ladder"),
-        ({"dtype": "auto"}, NotImplementedError, "auto"),
+        ({"dtype": "int8"}, NotImplementedError, "OpenAI ViT towers"),
+        ({"dtype": "int8-text"}, NotImplementedError, "OpenAI ViT towers"),
+        ({"dtype": "auto"}, NotImplementedError, "queue 1 item 8"),
         ({"dtype": "float16"}, ValueError, "unknown dtype"),
         ({"mesh": "auto"}, NotImplementedError, "distribution"),
         ({"sharded_metrics": True}, NotImplementedError, "distribution"),
