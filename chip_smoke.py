@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit, torch / CUDA versions, optional hosts
      packages (information only);
-  2. build the hand-written kernels (csrc/fused_block.cu and
-     csrc/fused_block_q.cu, one nvcc each, started together, sm_90a);
+  2. build the hand-written kernels (csrc/fused_block.cu,
+     csrc/fused_block_q.cu and csrc/attention.cu, one nvcc each, started
+     together, sm_90a);
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at the main path's B=256 image shapes and at the bf16
@@ -41,19 +42,54 @@ Phases (any failure exits non-zero before the final line):
      oracle, int8 image embeddings against the float32 plain path (cosine);
   8. the int8 text tower ("int8-text"): 12 causal int8 launches, cosine
      against the float32 text tower;
-  9. timings: kernels vs twins, image-tower img/s with the bf16 kernels, the
+  9. K5 phase: attention_pallas (csrc/attention.cu) against its twin
+     attention_kernel_math, TF32 off, float32 and bfloat16, at the image
+     shapes B=8 and B=64 (H=12, S=197) with a zero and a random additive
+     mask, and the text shapes B=319 (the sensitive prompts) and B=64 (a
+     caption batch), H=8, S=77, with CLIP's causal mask; bars 2e-5 of the
+     twin's largest magnitude at float32, one bf16 ulp at bfloat16; timed;
+ 10. training on the K5 path: a copy of the phase-4 model in
+     AdversarialTrainer.create(use_pallas=True), float32, batch 64, the 319
+     prompts as the sensitive set, 64 caption tokens; 3 steps; the K5 launch
+     count must be 60 per step (two image passes of 12 layers, the 319-prompt
+     text tower for the adversary's scores and again with the 64 captions in
+     the prompt step, 12 layers each; the backward recomputes through the
+     twin and launches nothing), no K1-K4 launch, finite losses, moved
+     tokens; the same three steps with use_pallas=False (no kernel), whose
+     first token gradient and update must each have a cosine of at least
+     0.9999 with the K5 path's;
+ 11. training on the bf16 fused path (train_dtype and embed_dtype
+     "bfloat16"): per step K1 non-causal and K2 24 times in the two embed
+     passes, causal K1 36 times in the text passes (K2 36 more); the token
+     gradient of the bf16 text tower reaches the prompt array (cosine with
+     the float32 gradient >= 0.99), and so does the first prompt step's
+     (cosine >= 0.99 with the float32 step's); the first update, Adam's
+     ~lr x sign(g), flips the sign of at most 5% of the elements of the
+     float32 step's update (its cosine is reported);
+ 12. run_training at full width on a seeded synthetic FairFace layout in a
+     temporary directory (256 train and 128 val images at 224 px, batch 64,
+     one epoch of 4 steps, one eval at step 4 and the final one),
+     use_pallas=True, once through the frozen-embedding cache and once
+     decoding every batch: K5 launch counts as the two paths imply, the
+     checkpoint and the .pt export (a bare float32 tensor) written, and the
+     two runs end with identical losses and tokens;
+ 13. timings: kernels vs twins, image-tower img/s with the bf16 kernels, the
      int8 kernels, the plain int8 path (torch._int_mm products), the plain
-     bf16 path and the float32 path.
+     bf16 path and the float32 path, and ms per training step on the float32
+     plain, K5 and bf16-kernel paths.
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import copy
+import csv
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +103,10 @@ CODE_SHARE_MAX = 1e-3  # int8 codes of a block's quantized rows that differ from
 # codes of the row by up to one more step than the element's own flip
 CODE_DIFF_MAX = {"xq": 1, "hq": 1, "aq": 2}
 TOPNS = (1.0, 0.1)  # whole ranking (measure_bias's default) and the top 10%
+TRAIN_BATCH, TRAIN_STEPS = 64, 3
+UPDATE_COS_K5 = 0.9999  # first token gradient and update, K5 vs the plain float32 path
+UPDATE_COS_BF16 = 0.99  # token gradients, bf16 vs float32
+UPDATE_FLIP_MAX_BF16 = 0.05  # first token update, bf16 vs float32: share of sign flips
 
 
 def check(cond, msg):
@@ -119,7 +159,8 @@ def print_ptxas(lib: str, log: str) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
                       r"(gemm_q_kernel|gemm_kernel|attention_core_kernel|layer_norm_kernel|"
-                      r"quant_rows_kernel)(?:I(13__nv_bfloat16|f)?Li(\d+)E)?", line)
+                      r"quant_rows_kernel|attention_bf16_kernel|attention_f32_kernel)"
+                      r"(?:I(13__nv_bfloat16|f)?Li(\d+)E)?", line)
         if m:
             args = [a for a in ({"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2)),
                                 m.group(3)) if a]
@@ -344,6 +385,161 @@ def cosine_check(tag, got, ref):
     check(cos.min().item() >= COS_MIN, f"{tag}: drift from float32")
 
 
+def kernel_phase_attn(A, device):
+    """attention_pallas (K5) against attention_kernel_math at the image and
+    text shapes, float32 and bfloat16, timed.  Returns one dict per case."""
+    import torch
+    from debias_vision_lang_torch.models.layers import causal_mask
+
+    g = torch.Generator().manual_seed(3)
+    cases = [(8, 12, 197, "zero"), (8, 12, 197, "random"), (64, 12, 197, "zero"),
+             (64, 12, 197, "random"), (319, 8, 77, "causal"), (64, 8, 77, "causal")]
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, s, kind in cases:
+            q, k, v = (torch.randn(b, h, s, 64, generator=g).to(device, dtype)
+                       for _ in range(3))
+            mask = {"zero": lambda: torch.zeros(s, s),
+                    "random": lambda: torch.randn(s, s, generator=g),
+                    "causal": lambda: causal_mask(s)}[kind]().to(device)
+            got = A.attention_pallas(q, k, v, mask)
+            ref = A.attention_kernel_math(q, k, v, mask)
+            err = (got.float() - ref.float()).abs().max().item()
+            mag = ref.float().abs().max().item()
+            f32 = dtype == torch.float32
+            tol = 2e-5 * mag if f32 else ulp_bf16(mag)
+            tag = (f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s} "
+                   f"mask={kind}")
+            print(f"kernel {tag}: max_abs_err {err} (tolerance {tol} = "
+                  f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag})")
+            check(got.dtype == dtype and math.isfinite(err) and err <= tol,
+                  f"{tag}: kernel disagrees with its twin")
+            out.append({"tag": tag, "dtype": "f32" if f32 else "bf16", "b": b, "s": s,
+                        "mask": kind, "err": err,
+                        "ms": cuda_ms(lambda: A.attention_pallas(q, k, v, mask)),
+                        "plain_ms": cuda_ms(lambda: A.attention_kernel_math(q, k, v, mask))})
+    torch.cuda.synchronize()
+    return out
+
+
+def reset_all(*modules):
+    for m in modules:
+        m.reset_launches()
+
+
+def launches_of(*modules):
+    out = {}
+    for m in modules:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def train_batches(tokenizer, vis, device):
+    """TRAIN_STEPS seeded (images, labels, caption images, caption tokens)
+    batches, images preprocessed on the card (float32 NHWC)."""
+    import torch
+    from debias_vision_lang_torch.vision.preprocess import preprocess_batch
+
+    faces = SyntheticFaces(2 * TRAIN_BATCH * TRAIN_STEPS, seed=100)
+
+    def images(start):
+        u8 = np.stack([faces.load_image(start + j) for j in range(TRAIN_BATCH)])
+        return preprocess_batch(torch.from_numpy(u8).to(device), vis.image_size,
+                                mean=vis.image_mean, std=vis.image_std)
+
+    out = []
+    for i in range(TRAIN_STEPS):
+        base = 2 * TRAIN_BATCH * i
+        caps = tokenizer([f"a photo of person number {base + j}" for j in range(TRAIN_BATCH)])
+        out.append((images(base), (np.arange(TRAIN_BATCH) % 2).astype(np.float32),
+                    images(base + TRAIN_BATCH), caps))
+    return out
+
+
+def run_trainer(model0, sens, batches, counters, **kw):
+    """TRAIN_STEPS trainer steps on a copy of ``model0``; the launch counts
+    are set to 0 just before and read just after.  ``kw``: use_pallas and
+    the TrainConfig fields."""
+    import torch
+    from debias_vision_lang_torch.models.adversary import Adversary
+    from debias_vision_lang_torch.train.adversarial import AdversarialTrainer, TrainConfig
+
+    use_pallas = kw.pop("use_pallas", None)
+    model = copy.deepcopy(model0)
+    adv = Adversary.from_cfg({"ADV_N_INPUT": len(sens), "ADV_HIDDEN_SIZE": 32, "SEED": 0})
+    trainer = AdversarialTrainer.create(model, adv, TrainConfig(batch_size=TRAIN_BATCH, **kw),
+                                        sens, use_pallas=use_pallas)
+    start = model.debias_tokens.detach().clone()
+    metrics, times, updates, grads = [], [], [], []
+    adam_step = trainer.prompt_opt.step
+
+    def recording_step(g):  # keeps the first prompt step's token gradient
+        if not grads:
+            grads.append(g[0].detach().flatten().clone())
+        adam_step(g)
+
+    trainer.prompt_opt.step = recording_step
+    torch.cuda.synchronize()
+    reset_all(*counters)
+    for batch in batches:
+        before = model.debias_tokens.detach().clone()
+        t0 = time.perf_counter()
+        metrics.append(trainer.step(*batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        updates.append((model.debias_tokens.detach() - before).flatten())
+    counts = launches_of(*counters)
+    moved = (model.debias_tokens.detach() - start).abs().max().item()
+    return {"trainer": trainer, "model": model, "metrics": metrics, "times": times,
+            "updates": updates, "grad": grads[0], "counts": counts, "moved": moved}
+
+
+def cosine(a, b) -> float:
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                                                 dim=0).item()
+
+
+def check_run(tag, run):
+    for i, m in enumerate(run["metrics"]):
+        print(f"{tag} step {i + 1}: loss {m['loss']} adv_loss {m['adv_loss']} "
+              f"contrastive {m['contrastive_loss']} adversary_bce {m['adversary_bce']} "
+              f"({run['times'][i] * 1e3:.1f} ms host clock)")
+        check(all(math.isfinite(m[k]) for k in ("loss", "adv_loss", "contrastive_loss",
+                                               "adversary_bce")), f"{tag}: non-finite loss")
+    print(f"{tag}: launches {run['counts']}; tokens moved by up to {run['moved']}")
+    check(run["moved"] > 0, f"{tag}: the prompt array did not move")
+
+
+def write_fairface(root, n_train, n_val, px=224, seed=0):
+    """A seeded synthetic FairFace layout (labels/{mode}/{mode}_labels.csv,
+    imgs/train_val/...), genders alternating so the balanced split keeps
+    every row."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    races = ["White", "Southeast Asian", "Middle Eastern", "Black", "Indian",
+             "Latino_Hispanic", "East Asian"]
+    ages = ["0-2", "3-9", "10-19", "20-29", "30-39", "40-49", "50-59", "60-69",
+            "more than 70"]
+    os.makedirs(os.path.join(root, "imgs", "train_val", "synth"))
+    for mode, n in (("train", n_train), ("val", n_val)):
+        rows = []
+        for i in range(n):
+            f = f"synth/{mode}_{i}.jpg"
+            Image.fromarray(rng.integers(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(root, "imgs", "train_val", f), quality=95)
+            rows.append({"file": f, "age": ages[i % 9],
+                         "gender": "Male" if i % 2 else "Female", "race": races[i % 7]})
+        d = os.path.join(root, "labels", mode)
+        os.makedirs(d)
+        with open(os.path.join(d, f"{mode}_labels.csv"), "w", newline="") as fh:
+            w = csv.DictWriter(fh, fieldnames=["file", "age", "gender", "race"])
+            w.writeheader()
+            w.writerows(rows)
+
+
 def main() -> int:
     try:
         import torch
@@ -361,6 +557,7 @@ def main() -> int:
     from debias_vision_lang_torch.data.loader import HostLoader
     from debias_vision_lang_torch.models.debias import DebiasCLIP
     from debias_vision_lang_torch.ops import _build
+    from debias_vision_lang_torch.ops import attention as A
     from debias_vision_lang_torch.ops import fused_block as fb
     from debias_vision_lang_torch.ops import fused_block_q as fbq
     from debias_vision_lang_torch.ops.quant import resolve_compute
@@ -383,12 +580,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    _build.load_all(["fused_block", "fused_block_q"])
+    _build.load_all(["fused_block", "fused_block_q", "attention"])
     fb.build()
     fbq.build()
+    A.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.BUILD_SECONDS or 'cached'})")
-    for lib in ("fused_block", "fused_block_q"):
+    for lib in ("fused_block", "fused_block_q", "attention"):
         print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
 
     # 3. bf16 kernels against their twins
@@ -494,7 +692,135 @@ def main() -> int:
           "the int8 text tower did not run the causal int8 kernels")
     cosine_check("int8 text tower vs float32", txt8, txt32)
 
-    # 9. timings
+    # 9. K5 against its twin
+    attn_cases = kernel_phase_attn(A, device)
+
+    # 10-11. training on the K5 path, the plain float32 path and the bf16
+    # fused path, from copies of the phase-4 model
+    counters = (fb, fbq, A)
+    sens = tokenizer(prompts)
+    batches = train_batches(tokenizer, vis, device)
+    run_k5 = run_trainer(model, sens, batches, counters, use_pallas=True)
+    check_run("train K5 (use_pallas=True, float32)", run_k5)
+    k5_per_step = 2 * LAYERS + 3 * LAYERS
+    check(run_k5["counts"]["attention_pallas"] == TRAIN_STEPS * k5_per_step,
+          f"K5 launched {run_k5['counts']['attention_pallas']} times in {TRAIN_STEPS} "
+          f"steps, expected {TRAIN_STEPS * k5_per_step}")
+    check(sum(v for k, v in run_k5["counts"].items() if k != "attention_pallas") == 0,
+          "the K5 training path launched fused-block kernels")
+    k5_model = run_k5.pop("model")
+    del run_k5["trainer"]
+    run_plain = run_trainer(model, sens, batches, counters, use_pallas=False)
+    check_run("train plain (float32)", run_plain)
+    check(sum(run_plain["counts"].values()) == 0, "the plain float32 path launched kernels")
+    cos_k5 = cosine(run_k5["updates"][0], run_plain["updates"][0])
+    cos_k5_g = cosine(run_k5["grad"], run_plain["grad"])
+    print(f"first prompt step, K5 path vs plain float32: token gradient cosine "
+          f"{cos_k5_g:.7f}, token update cosine {cos_k5:.7f} (bar {UPDATE_COS_K5} on both); "
+          f"losses {run_k5['metrics'][0]['loss']} vs {run_plain['metrics'][0]['loss']}")
+    check(min(cos_k5, cos_k5_g) >= UPDATE_COS_K5,
+          "the K5 path's step drifts from the plain path's")
+    del run_plain["trainer"], run_plain["model"], k5_model
+
+    run_bf16 = run_trainer(model, sens, batches, counters, train_dtype="bfloat16",
+                           embed_dtype="bfloat16")
+    check_run("train bf16 fused blocks", run_bf16)
+    want = {"attention_block": TRAIN_STEPS * 2 * LAYERS,
+            "attention_block_causal": TRAIN_STEPS * 3 * LAYERS,
+            "mlp_block": TRAIN_STEPS * 5 * LAYERS, "attention_pallas": 0,
+            "attention_block_q": 0, "attention_block_q_causal": 0, "mlp_block_q": 0}
+    check(run_bf16["counts"] == want,
+          f"bf16 training launches {run_bf16['counts']}, expected {want}")
+    # Adam's first update is ~lr x sign(g): near-zero gradient elements flip
+    # its sign, so the update is held by the share of flips, not its cosine
+    u16, u32 = run_bf16["updates"][0], run_plain["updates"][0]
+    cos_bf16 = cosine(u16, u32)
+    flips = (u16.sign() != u32.sign()).double().mean().item()
+    cos_bf16_g = cosine(run_bf16["grad"], run_plain["grad"])
+    print(f"first prompt step, bf16 vs float32: token gradient cosine {cos_bf16_g:.6f} "
+          f"(bar {UPDATE_COS_BF16}), token update sign flips {flips:.6f} of the elements "
+          f"(bar {UPDATE_FLIP_MAX_BF16}), token update cosine {cos_bf16:.6f}")
+    check(cos_bf16_g >= UPDATE_COS_BF16, "the bf16 gradient drifts from the float32 one")
+    check(flips <= UPDATE_FLIP_MAX_BF16, "the bf16 update drifts from the float32 one")
+    bf16_model = run_bf16.pop("model")
+    del run_bf16["trainer"]
+    w = torch.randn(len(prompts), vis.embed_dim, generator=torch.Generator().manual_seed(5)
+                    ).to(device)
+    grads = {}
+    reset_all(*counters)
+    for dt in (torch.bfloat16, torch.float32):
+        out = bf16_model.encode_text(tokens, dtype=dt).float()
+        grads[dt] = torch.autograd.grad((out * w).sum(), bf16_model.debias_tokens)[0]
+    torch.cuda.synchronize()
+    cos_g = cosine(grads[torch.bfloat16], grads[torch.float32])
+    print(f"token gradient of the bf16 text tower (causal K1 launches "
+          f"{fb.LAUNCHES['attention_block_causal']}): norm "
+          f"{grads[torch.bfloat16].norm().item():.6g}, cosine with float32 {cos_g:.6f}")
+    check(fb.LAUNCHES["attention_block_causal"] == LAYERS and grads[torch.bfloat16].norm() > 0
+          and cos_g >= UPDATE_COS_BF16, "the bf16 token gradient does not reach the prompts")
+    del bf16_model, grads
+    torch.cuda.empty_cache()
+
+    # 12. run_training at full width, cached and decoding
+    from debias_vision_lang_torch.train.loop import run_training
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        ff_root = os.path.join(tmp, "fairface")
+        write_fairface(ff_root, 256, 128)
+        print(f"synthetic FairFace (256 train + 128 val at 224 px) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        runs = {}
+        for cached in (True, False):
+            m = copy.deepcopy(model)
+            torch.cuda.synchronize()
+            reset_all(*counters)
+            t0 = time.perf_counter()
+            res = run_training(model=m, tokenizer=tokenizer, attribute="gender", epochs=1,
+                               batch_size=TRAIN_BATCH, data_path=ff_root,
+                               checkpoint_dir=os.path.join(tmp, f"ckpt_{cached}"),
+                               eval_every=4, eval_n_samples=None, use_pallas=True,
+                               progress=False, cache_frozen_embeddings=cached)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches_of(*counters)
+            export = torch.load(res["export"], map_location="cpu", weights_only=True)
+            ckpt = torch.load(os.path.join(res["checkpoint_dir"], "step_4.pt"),
+                              map_location="cpu", weights_only=True)
+            log = os.path.join(res["checkpoint_dir"], "logs", "metrics.jsonl")
+            losses = [r["loss"] for r in map(json.loads, open(log)) if "loss" in r]
+            print(f"run_training {'cached' if cached else 'decode'}: {res['steps']} steps "
+                  f"in {wall:.2f} s (host clock, includes decode and 2 evals), best NDKL "
+                  f"{res['best_ndkl']}, losses {losses}, launches {counts}")
+            # cached: 4 embed-cache batches x 12 image layers + 4 steps x 36 text;
+            # decode: 4 steps x (24 image + 36 text); the evals run float32 plain
+            k5 = 4 * LAYERS + 4 * 3 * LAYERS if cached else 4 * 5 * LAYERS
+            check(res["steps"] == 4 and res["embed_cache"] is cached,
+                  f"run_training {cached}: {res['steps']} steps, cache {res['embed_cache']}")
+            check(counts["attention_pallas"] == k5,
+                  f"run_training launched K5 {counts['attention_pallas']} times, expected {k5}")
+            check(math.isfinite(res["best_ndkl"]) and all(map(math.isfinite, losses)),
+                  "run_training: non-finite loss or NDKL")
+            check(type(export) is torch.Tensor and export.dtype == torch.float32
+                  and tuple(export.shape) == (2, 512) and export.is_contiguous(),
+                  f"the .pt export is not a bare [2, 512] float32 tensor: {type(export)}")
+            check(ckpt["meta"]["step"] == 4 and torch.equal(ckpt["debias_tokens"],
+                                                             m.debias_tokens.detach().cpu()),
+                  "the step-4 checkpoint does not hold the trained tokens")
+            runs[cached] = (export, losses, wall)
+            del m
+        diff = (runs[True][0] - runs[False][0]).abs().max().item()
+        print(f"run_training cached vs decode: max token difference {diff}, losses "
+              f"{'equal' if runs[True][1] == runs[False][1] else 'differ'}")
+        check(diff == 0 and runs[True][1] == runs[False][1],
+              "the cached and decode runs of run_training end apart")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 13. timings
     for row, counts in [(r, launches) for r in rows] + [(r, launches_q) for r in rows_q]:
         row["launches"] = counts[row["name"]]
         print(f"time {row['name']} B={BATCH} S=197 D=768: kernel {row['ms']:.4f} ms, "
@@ -512,9 +838,28 @@ def main() -> int:
             ms = cuda_ms(lambda: tower.encode_image(p8, **kw), iters=5)
             print(f"image tower B={BATCH} {label}: {ms:.3f} ms/batch, "
                   f"{BATCH / ms * 1e3:.1f} img/s ({card})")
+    for c in attn_cases:
+        print(f"time {c['tag']}: kernel {c['ms']:.4f} ms, plain twin {c['plain_ms']:.4f} ms "
+              f"({card})")
+    for tag, run in (("plain float32", run_plain), ("K5 (use_pallas=True) float32", run_k5),
+                     ("bf16 kernels", run_bf16)):
+        steady = sum(run["times"][1:]) / len(run["times"][1:]) * 1e3
+        print(f"train step B={TRAIN_BATCH} + 319 prompts, {tag}: {steady:.1f} ms/step "
+              f"(mean of steps 2-{TRAIN_STEPS}; all {[round(t * 1e3, 1) for t in run['times']]}"
+              f"; host clock) ({card})")
+    for cached in (True, False):
+        print(f"run_training {'cached' if cached else 'decode'}: {runs[cached][2]:.2f} s "
+              f"({card})")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    print(json.dumps({"kernels": rows + rows_q}))
+    k5 = next(c for c in attn_cases if c["dtype"] == "f32" and c["b"] == 319)
+    row_k5 = {"name": "attention_pallas", "route": "cuda",
+              "source": "debias_vision_lang_torch/csrc/attention.cu",
+              "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
+              "launches": run_k5["counts"]["attention_pallas"],
+              "max_abs_err": k5["err"], "ms": k5["ms"],
+              "plain_ms": k5["plain_ms"]}
+    print(json.dumps({"kernels": rows + rows_q + [row_k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@
         {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False}, device="cuda")
     results = debias_clip.measure_bias(model, preprocess, tokenizer, "gender",
                                        opts={"dtype": "bfloat16"})
+    summary = debias_clip.run_training(model=model, tokenizer=tokenizer,
+                                       data_path="/path/to/fairface", epochs=1)
 
 The configuration carriers and the architecture registry are the JAX
 package's own (``debias_vision_lang_tpu.core``, which imports no jax).  The
@@ -21,6 +23,10 @@ _LAZY = {
     "DebiasCLIP": ("debias_vision_lang_torch.models.debias", "DebiasCLIP"),
     "model_loader": ("debias_vision_lang_torch.models.loader", "model_loader"),
     "ClipLike": ("debias_vision_lang_torch.models.loader", "ClipLike"),
+    "Adversary": ("debias_vision_lang_torch.models.adversary", "Adversary"),
+    "AdversarialTrainer": ("debias_vision_lang_torch.train.adversarial",
+                           "AdversarialTrainer"),
+    "run_training": ("debias_vision_lang_torch.train.loop", "run_training"),
 }
 
 

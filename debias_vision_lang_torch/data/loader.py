@@ -109,6 +109,17 @@ class HostLoader:
             labels = np.concatenate([labels, np.zeros(pad, np.int32)])
         return Batch(images, labels, num_valid)
 
+    def iter_index_batches(self) -> Iterator[Batch]:
+        """One epoch of Batch tuples whose ``images`` hold ROW INDICES (int64
+        [B]) instead of pixels, in the order and batching ``__iter__`` would
+        give this epoch (the training loop's frozen-embedding cache gathers
+        precomputed rows with them).  Pad positions hold index 0: a consumer
+        of a partial batch masks by ``num_valid``."""
+        order, bounds = self._epoch_plan()
+        for s, e in bounds:
+            idx = order[s:e].astype(np.int64)
+            yield self._pad(idx, self._labels(idx), e - s)
+
     def __iter__(self) -> Iterator[Batch]:
         order, bounds = self._epoch_plan()
         if not bounds:

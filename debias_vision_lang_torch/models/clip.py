@@ -7,8 +7,10 @@ The text tower is exposed piecewise -- ``embed_tokens`` / ``add_positional``
 
 Fused-block gate (as ``_use_fused_blocks``): a bfloat16 tower runs its
 layers through ``ops/fused_block.py`` -- the CUDA kernels on a CUDA tensor,
-their plain twins on a CPU tensor; a float32 tower runs the plain
-``layers.transformer``.  ``fused=`` overrides the choice.
+their plain twins on a CPU tensor; a float32 tower, or any tower asked for
+``use_pallas`` (the attention kernel), runs the plain ``layers.transformer``.
+``fused=`` overrides the choice.  With grad mode on and any input needing
+a gradient, the fused tower is the differentiable ``fused_transformer_diff``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from debias_vision_lang_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
 
-from ..ops.fused_block import fused_transformer
+from ..ops.fused_block import fused_transformer, fused_transformer_diff
 from ..vision.preprocess import CLIP_MEAN, CLIP_STD
 from .layers import (LayerNorm, causal_mask, init_resblocks, layer_norm,
                      make_resblocks, quick_gelu, transformer)
@@ -60,12 +62,13 @@ class VisionTransformer(nn.Module):
         self.proj = _vector(w, cfg.embed_dim)
 
     def forward(self, images: torch.Tensor, dtype=None,
-                fused: Optional[bool] = None) -> torch.Tensor:
+                fused: Optional[bool] = None, use_pallas: Optional[bool] = None,
+                remat: bool = False) -> torch.Tensor:
+        kw = {"fused": fused, "use_pallas": use_pallas, "remat": remat}
         if is_patch_staging(images, self.cfg):
             return encode_image_vit_p8(self, images, dtype=dtype or torch.bfloat16,
-                                       fused=fused)
-        return encode_image_vit(self, images, dtype=dtype or torch.float32,
-                                fused=fused)
+                                       **kw)
+        return encode_image_vit(self, images, dtype=dtype or torch.float32, **kw)
 
 
 class TextTransformer(nn.Module):
@@ -79,9 +82,11 @@ class TextTransformer(nn.Module):
         self.text_projection = _vector(cfg.width, cfg.embed_dim)
 
     def forward(self, text: torch.Tensor, dtype=torch.float32,
-                fused: Optional[bool] = None) -> torch.Tensor:
+                fused: Optional[bool] = None, use_pallas: Optional[bool] = None,
+                remat: bool = False) -> torch.Tensor:
         x = add_positional(self, embed_tokens(self, text, dtype))
-        x = run_text_transformer(self, x, fused=fused)
+        x = run_text_transformer(self, x, fused=fused, use_pallas=use_pallas,
+                                 remat=remat)
         return project_eot(self, x, text)
 
 
@@ -95,11 +100,15 @@ class CLIP(nn.Module):
         self.text = TextTransformer(cfg.text)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
-    def encode_image(self, images, dtype=None, fused=None) -> torch.Tensor:
-        return self.visual(images, dtype=dtype, fused=fused)
+    def encode_image(self, images, dtype=None, fused=None, use_pallas=None,
+                     remat=False) -> torch.Tensor:
+        return self.visual(images, dtype=dtype, fused=fused,
+                           use_pallas=use_pallas, remat=remat)
 
-    def encode_text(self, text, dtype=torch.float32, fused=None) -> torch.Tensor:
-        return self.text(text, dtype=dtype, fused=fused)
+    def encode_text(self, text, dtype=torch.float32, fused=None,
+                    use_pallas=None, remat=False) -> torch.Tensor:
+        return self.text(text, dtype=dtype, fused=fused, use_pallas=use_pallas,
+                         remat=remat)
 
     def forward(self, images, text, dtype=None):
         img = self.encode_image(images, dtype=dtype).float()
@@ -146,8 +155,24 @@ def init_clip_params(cfg: CLIPConfig,
 # ---------------------------------------------------------------------------
 
 
-def _use_fused_blocks(dtype, fused: Optional[bool]) -> bool:
-    return dtype == torch.bfloat16 if fused is None else bool(fused)
+def _use_fused_blocks(dtype, use_pallas: Optional[bool] = None,
+                      fused: Optional[bool] = None) -> bool:
+    """As JAX ``clip.py::_use_fused_blocks``: ``fused`` decides when given;
+    otherwise ``use_pallas`` turns the fused blocks off at every dtype, and
+    bfloat16 turns them on (on every device: a CPU tensor runs the twins)."""
+    if fused is not None:
+        return bool(fused)
+    if use_pallas:
+        return False
+    return dtype == torch.bfloat16
+
+
+def _fused_tower(blocks, x: torch.Tensor, heads: int, **kw) -> torch.Tensor:
+    """The fused blocks, differentiable when a gradient can flow."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in blocks.parameters())):
+        return fused_transformer_diff(blocks, x, heads, **kw)
+    return fused_transformer(blocks, x, heads, **kw)
 
 
 def patch_embed(kernel: torch.Tensor, images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -179,30 +204,34 @@ def fold_preprocess_into_patch(kernel: torch.Tensor, mean=None, std=None
 
 
 def _vit_trunk(v: VisionTransformer, x: torch.Tensor, dtype,
-               fused: Optional[bool]) -> torch.Tensor:
+               fused: Optional[bool], use_pallas: Optional[bool] = None,
+               remat: bool = False) -> torch.Tensor:
     """cls / positions / pre-LN -> transformer -> post-LN / projection."""
     cfg = v.cfg
     cls = v.class_embedding.to(dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
     x = layer_norm(v.ln_pre, x)
-    if _use_fused_blocks(dtype, fused):
-        x = fused_transformer(v.resblocks, x, cfg.heads, act_kind="quick_gelu")
+    if _use_fused_blocks(dtype, use_pallas, fused):
+        x = _fused_tower(v.resblocks, x, cfg.heads, act_kind="quick_gelu")
     else:
-        x = transformer(v.resblocks, x, cfg.heads, act=quick_gelu)
+        x = transformer(v.resblocks, x, cfg.heads, act=quick_gelu,
+                        use_pallas=use_pallas, remat=remat)
     x = layer_norm(v.ln_post, x[:, 0, :])
     return x @ v.proj.to(dtype)
 
 
 def encode_image_vit(v: VisionTransformer, images: torch.Tensor, *,
-                     dtype=torch.float32, fused: Optional[bool] = None
+                     dtype=torch.float32, fused: Optional[bool] = None,
+                     use_pallas: Optional[bool] = None, remat: bool = False
                      ) -> torch.Tensor:
     """ViT forward from normalized [B, H, W, 3] images -> [B, embed_dim]."""
     x = patch_embed(v.conv1.kernel, images.to(dtype), v.cfg.patch_size)
-    return _vit_trunk(v, x, dtype, fused)
+    return _vit_trunk(v, x, dtype, fused, use_pallas, remat)
 
 
 def encode_image_vit_p8(v: VisionTransformer, patches_u8: torch.Tensor, *,
-                        dtype=torch.bfloat16, fused: Optional[bool] = None
+                        dtype=torch.bfloat16, fused: Optional[bool] = None,
+                        use_pallas: Optional[bool] = None, remat: bool = False
                         ) -> torch.Tensor:
     """ViT forward from patch-contiguous uint8 staging [B, P, patch*patch*3]:
     the normalize is folded into the patch weights and the stem is one
@@ -212,7 +241,7 @@ def encode_image_vit_p8(v: VisionTransformer, patches_u8: torch.Tensor, *,
                                           cfg.image_std)
     x = torch.matmul(patches_u8.to(dtype).float(), w_f.to(dtype).float())
     x = x.to(dtype) + b_f.to(dtype)
-    return _vit_trunk(v, x, dtype, fused)
+    return _vit_trunk(v, x, dtype, fused, use_pallas, remat)
 
 
 def is_patch_staging(images: torch.Tensor, cfg: VisionConfig) -> bool:
@@ -237,13 +266,16 @@ def add_positional(t: TextTransformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def run_text_transformer(t: TextTransformer, x: torch.Tensor,
-                         fused: Optional[bool] = None) -> torch.Tensor:
+                         fused: Optional[bool] = None,
+                         use_pallas: Optional[bool] = None,
+                         remat: bool = False) -> torch.Tensor:
     """Causal transformer over embedded text, then the final LayerNorm."""
-    if _use_fused_blocks(x.dtype, fused):
-        x = fused_transformer(t.resblocks, x, t.cfg.heads, causal=True)
+    if _use_fused_blocks(x.dtype, use_pallas, fused):
+        x = _fused_tower(t.resblocks, x, t.cfg.heads, causal=True)
     else:
         x = transformer(t.resblocks, x, t.cfg.heads,
-                        mask=causal_mask(x.shape[1], x.device))
+                        mask=causal_mask(x.shape[1], x.device),
+                        use_pallas=use_pallas, remat=remat)
     return layer_norm(t.ln_final, x)
 
 

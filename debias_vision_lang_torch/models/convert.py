@@ -134,3 +134,21 @@ def params_from_openai_state_dict(sd: Mapping[str, Any]
     _blocks_from_openai(sd, "visual.transformer.resblocks", "visual.resblocks", out)
     _blocks_from_openai(sd, "transformer.resblocks", "text.resblocks", out)
     return out
+
+
+def adversary_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX adversary params ``{"layers": [{"kernel", "bias"}, ...]}`` ->
+    ``Adversary`` state dict (the same [in, out] layout, no transpose)."""
+    return {f"layers.{i}.{k}": _tensor(layer[k])
+            for i, layer in enumerate(tree["layers"]) for k in ("kernel", "bias")}
+
+
+def save_debias_prompt_pt(prompt_embeddings, path: str) -> None:
+    """Export prompt embeddings in the reference's .pt format: a bare,
+    contiguous float32 CPU tensor written by ``torch.save`` (drop-in for the
+    reference hub loader, model/clip.py:75-81)."""
+    if isinstance(prompt_embeddings, torch.Tensor):
+        arr = prompt_embeddings.detach().float().cpu().numpy()
+    else:
+        arr = np.asarray(prompt_embeddings, np.float32)
+    torch.save(torch.from_numpy(np.ascontiguousarray(arr, np.float32).copy()), path)

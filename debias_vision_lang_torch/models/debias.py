@@ -8,14 +8,17 @@ reference's parity quirks kept:
   * EOT pooling uses ``argmax(text) + P`` clamped to the last slot, for
     every placement mode.
   * ``zeros`` init is the embedding OF TOKEN ID 0, not zero vectors.
-The freezing policy (``trainable_mask``) and training wait for the
-training slice (ROADMAP.md queue 1 items 1-2).
+The freezing policy (``trainable_mask``, the reference's requires_grad
+walk, model/model.py:291-334) is a dict of 0/1 multipliers keyed by the
+CLIP module's parameter names; the port's resblocks are one module per
+layer, so the JAX package's per-layer slice masks become per-module ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+import re
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,6 +88,81 @@ def debias_eot_index(text: torch.Tensor, num_debias_tokens: int,
     return torch.clamp(text.argmax(-1) + num_debias_tokens, max=seq_len - 1)
 
 
+# ---------------------------------------------------------------------------
+# Freezing as gradient masks (reference: model/model.py:36-82, 291-334)
+# ---------------------------------------------------------------------------
+
+_PROJ = ("text.ln_final.", "text.text_projection", "visual.ln_post.", "visual.proj")
+_LAYER = re.compile(r"(visual|text)\.resblocks\.(\d+)\.")
+
+
+def _classify(name: str) -> str:
+    if name == "logit_scale" or name.startswith(_PROJ):
+        return "proj"
+    if name.startswith("visual.resblocks."):
+        return "image"
+    if name.startswith("text.resblocks."):
+        return "text"
+    if name.startswith("text.token_embedding"):
+        return "tokens"
+    return "other"
+
+
+def classify_params(clip: CLIP) -> Tuple[Dict[str, int], List[Dict[str, Any]]]:
+    """The reference's ``clip_layers`` surface: ``({type: count}, [{"type",
+    "index", "param", "name"}, ...])`` over the CLIP module's named
+    parameters, types proj / image / text / tokens / other; the image and
+    text counts are the towers' layer counts (``layer_counts``)."""
+    metadata = {k: 0 for k in ("text", "image", "proj", "tokens", "other")}
+    classed: List[Dict[str, Any]] = []
+    for name, param in clip.named_parameters():
+        kind = _classify(name)
+        classed.append({"type": kind, "index": metadata[kind], "param": param,
+                        "name": name})
+        metadata[kind] += 1
+    metadata.update(layer_counts(clip))
+    return metadata, classed
+
+
+def layer_counts(clip: CLIP) -> Dict[str, int]:
+    """Per-tower resblock counts (reference metadata, model/model.py:74-80)."""
+    return {"image": len(clip.visual.resblocks), "text": len(clip.text.resblocks)}
+
+
+def trainable_mask(clip: CLIP, debias_cfg: DebiasConfig) -> Dict[str, float]:
+    """{parameter name: 1.0 or 0.0}, 1.0 where the reference would leave
+    ``requires_grad=True``: the 'proj' group (ln_final, text_projection,
+    logit_scale, visual.ln_post, visual.proj) iff not ``freeze_proj``; the
+    top ``n_train_{vid,text}_layers`` resblocks of each tower; nothing
+    else (token and positional embeddings, stems, ...)."""
+    counts = layer_counts(clip)
+    n_text, n_vid = debias_cfg.n_train_text_layers, debias_cfg.n_train_vid_layers
+    if not (counts["text"] >= n_text >= 0):
+        raise ValueError(
+            f"Number of trained text layers should be between 0 (no layers) and "
+            f"{counts['text']} (all layers), not {n_text}")
+    if not (counts["image"] >= n_vid >= 0):
+        raise ValueError(
+            f"Number of trained vid layers should be between 0 (no layers) and "
+            f"{counts['image']} (all layers), not {n_vid}")
+    proj_on = 0.0 if debias_cfg.freeze_proj else 1.0
+    n_train = {"visual": (counts["image"], n_vid), "text": (counts["text"], n_text)}
+    mask: Dict[str, float] = {}
+    for name, _ in clip.named_parameters():
+        layer = _LAYER.match(name)
+        if layer:
+            n_layers, n = n_train[layer.group(1)]
+            mask[name] = 1.0 if int(layer.group(2)) >= n_layers - n else 0.0
+        else:
+            mask[name] = proj_on if _classify(name) == "proj" else 0.0
+    return mask
+
+
+def apply_grad_mask(grads: Mapping[str, torch.Tensor],
+                    mask: Mapping[str, float]) -> Dict[str, torch.Tensor]:
+    return {name: g * mask[name] for name, g in grads.items()}
+
+
 class DebiasCLIP(nn.Module):
     """CLIP + prompt array; ``from_cfg`` mirrors the reference's UPPERCASE
     dict constructor and returns ``(model, preprocess, tokenizer, alias)``."""
@@ -105,23 +183,30 @@ class DebiasCLIP(nn.Module):
         return self.clip.logit_scale
 
     def encode_text(self, text: torch.Tensor, dtype=torch.float32,
-                    fused: Optional[bool] = None) -> torch.Tensor:
+                    fused: Optional[bool] = None, use_pallas: Optional[bool] = None,
+                    remat: bool = False) -> torch.Tensor:
         """Debiased text encoding: [B, 77] ids -> [B, embed_dim]."""
         t = self.clip.text
         raw = clip_model.add_positional(t, clip_model.embed_tokens(t, text, dtype))
         x = inject_prompts(raw, self.debias_tokens, text, self.debias_cfg.debias_pos)
-        x = clip_model.run_text_transformer(t, x, fused=fused)
+        x = clip_model.run_text_transformer(t, x, fused=fused, use_pallas=use_pallas,
+                                            remat=remat)
         idx = debias_eot_index(text, self.debias_tokens.shape[0], x.shape[1])
         return clip_model.pool_and_project(t, x, idx)
 
     def encode_image(self, images: torch.Tensor, dtype=None,
-                     fused: Optional[bool] = None) -> torch.Tensor:
-        return self.clip.encode_image(images, dtype=dtype, fused=fused)
+                     fused: Optional[bool] = None, use_pallas: Optional[bool] = None,
+                     remat: bool = False) -> torch.Tensor:
+        return self.clip.encode_image(images, dtype=dtype, fused=fused,
+                                      use_pallas=use_pallas, remat=remat)
 
     def forward(self, images, text, dtype=None):
         img = self.encode_image(images, dtype=dtype).float()
         txt = self.encode_text(text, dtype=dtype or torch.float32).float()
         return clip_model.logits(img, txt, self.logit_scale)
+
+    def trainable_mask(self) -> Dict[str, float]:
+        return trainable_mask(self.clip, self.debias_cfg)
 
     @staticmethod
     def from_cfg(cfg: Union[dict, Dotdict],

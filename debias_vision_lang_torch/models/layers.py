@@ -8,6 +8,10 @@ Parameters are float32; ``dtype`` at the call selects the compute precision
 (float32 is the parity rung, bfloat16 the speed rung).  At bfloat16 the
 plain attention follows ``ops/attention.py::attention_bshd``: bf16 scores,
 an f32-summed and bf16-rounded softmax denominator, f32-accumulated PV.
+``use_pallas=True`` takes the heads-first branch through
+``ops/attention.py::attention`` (the CUDA kernel ``attention_pallas`` on a
+CUDA tensor); ``remat=True`` checkpoints each block
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does per layer.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class LayerNorm(nn.Module):
@@ -125,26 +130,43 @@ def attention_bshd(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor
 
 
 def multi_head_attention(p: Attention, x: torch.Tensor, heads: int,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         use_pallas: Optional[bool] = None) -> torch.Tensor:
     b, s, d = x.shape
     qkv = linear(x, p.wqkv, p.bqkv)
     q, k, v = (t.reshape(b, s, heads, d // heads) for t in qkv.split(d, -1))
-    o = attention_bshd(q, k, v, mask).reshape(b, s, d)
+    if use_pallas:
+        from ..ops.attention import attention
+
+        o = attention(*(t.transpose(1, 2) for t in (q, k, v)), mask,
+                      use_pallas=True)
+        o = o.transpose(1, 2).reshape(b, s, d)
+    else:
+        o = attention_bshd(q, k, v, mask).reshape(b, s, d)
     return linear(o, p.wo, p.bo)
 
 
 def resblock(p: ResidualBlock, x: torch.Tensor, heads: int,
              mask: Optional[torch.Tensor] = None,
-             act: Callable = quick_gelu) -> torch.Tensor:
+             act: Callable = quick_gelu,
+             use_pallas: Optional[bool] = None) -> torch.Tensor:
     """One pre-LN residual attention block, plain math in x's dtype."""
-    x = x + multi_head_attention(p.attn, layer_norm(p.ln_1, x), heads, mask)
+    x = x + multi_head_attention(p.attn, layer_norm(p.ln_1, x), heads, mask,
+                                 use_pallas=use_pallas)
     h = act(linear(layer_norm(p.ln_2, x), p.mlp.w1, p.mlp.b1))
     return x + linear(h, p.mlp.w2, p.mlp.b2)
 
 
 def transformer(blocks: nn.ModuleList, x: torch.Tensor, heads: int,
                 mask: Optional[torch.Tensor] = None,
-                act: Callable = quick_gelu) -> torch.Tensor:
+                act: Callable = quick_gelu,
+                use_pallas: Optional[bool] = None,
+                remat: bool = False) -> torch.Tensor:
     for blk in blocks:
-        x = resblock(blk, x, heads, mask=mask, act=act)
+        if remat:
+            x = checkpoint(resblock, blk, x, heads, mask, act, use_pallas,
+                           use_reentrant=False)
+        else:
+            x = resblock(blk, x, heads, mask=mask, act=act,
+                         use_pallas=use_pallas)
     return x

@@ -18,6 +18,12 @@ reference math too.
 
 ``LAUNCHES`` counts kernel launches (CPU twins never count), so a run can
 show that its main path went through the kernels.
+
+``fused_resblock_diff`` / ``fused_transformer_diff`` make the blocks
+differentiable (as ``_fused_resblock_diff``, a custom VJP in the JAX
+package): the forward is the two entry points above -- the kernels on a
+CUDA tensor -- and the backward recomputes the block through the plain
+twins, the kernels' own math, and differentiates that.
 """
 
 from __future__ import annotations
@@ -86,7 +92,9 @@ def attention_core(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
     if causal:
         sc = sc + causal_mask(s, qkv.device)
-    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    # the row max is stop-gradiented, as in _kernel_math_resblock: it changes
+    # no gradient, and keeps the twin the same function as JAX's
+    e = torch.exp(sc - sc.amax(-1, keepdim=True).detach())
     p = (e / e.sum(-1, keepdim=True)).to(dt)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v).to(dt).reshape(b, s, d)
 
@@ -281,4 +289,65 @@ def fused_transformer(blocks, x: torch.Tensor, heads: int, *,
                       causal: bool = False) -> torch.Tensor:
     for block in blocks:
         x = fused_resblock(block, x, heads, act_kind=act_kind, causal=causal)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Differentiable blocks: kernel forward, twin-recompute backward
+# ---------------------------------------------------------------------------
+
+
+def resblock_plain(x, params, heads: int, act_kind: str = "quick_gelu",
+                   causal: bool = False) -> torch.Tensor:
+    """The two twins in a row (the port of ``_kernel_math_resblock``);
+    ``params`` are the 12 block tensors in ``_block_args`` order."""
+    y = attention_block_plain(x, *params[:6], heads=heads, causal=causal)
+    return mlp_block_plain(y, *params[6:], act_kind=act_kind)
+
+
+class _FusedResblockFn(torch.autograd.Function):
+    """Forward through ``attention_block`` + ``mlp_block`` (the kernels on a
+    CUDA tensor), backward by autograd through ``resblock_plain``
+    recomputed from the saved inputs: the gradients of the function the
+    forward evaluated, for ``x`` and each of the 12 block tensors."""
+
+    @staticmethod
+    def forward(ctx, heads, act_kind, causal, x, *params):
+        ctx.cfg = (heads, act_kind, causal)
+        ctx.save_for_backward(x, *params)
+        y = attention_block(x, *params[:6], heads=heads, causal=causal)
+        return mlp_block(y, *params[6:], act_kind=act_kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, act_kind, causal = ctx.cfg
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = resblock_plain(inputs[0], inputs[1:], heads, act_kind, causal)
+            wanted = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (None, None, None) + tuple(next(grads) if n else None for n in need)
+
+
+def fused_resblock_diff(block, x: torch.Tensor, heads: int, *,
+                        act_kind: str = "quick_gelu",
+                        causal: bool = False) -> torch.Tensor:
+    """``fused_resblock`` with a backward (``_FusedResblockFn``)."""
+    if act_kind not in ACT_KINDS:
+        raise ValueError(f"act_kind must be one of {ACT_KINDS}, "
+                         f"got {act_kind!r}")
+    attn_args, mlp_args = _block_args(block)
+    return _FusedResblockFn.apply(heads, act_kind, causal, x, *attn_args,
+                                  *mlp_args)
+
+
+def fused_transformer_diff(blocks, x: torch.Tensor, heads: int, *,
+                           act_kind: str = "quick_gelu",
+                           causal: bool = False) -> torch.Tensor:
+    """Differentiable fused tower: one ``fused_resblock_diff`` per block."""
+    for block in blocks:
+        x = fused_resblock_diff(block, x, heads, act_kind=act_kind,
+                                causal=causal)
     return x

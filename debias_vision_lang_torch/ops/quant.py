@@ -123,7 +123,7 @@ def transformer_q(blocks: nn.ModuleList, x: torch.Tensor, heads: int, *,
     """The int8 tower: the fused int8 blocks on bfloat16 activations (or
     ``fused=True``), the plain int8 layers otherwise (``causal`` as CLIP's
     additive text mask there)."""
-    if _use_fused_blocks(x.dtype, fused):
+    if _use_fused_blocks(x.dtype, fused=fused):
         return fused_transformer_q(blocks, x, heads, act_kind=act_kind,
                                    causal=causal)
     mask = causal_mask(x.shape[1], x.device) if causal else None

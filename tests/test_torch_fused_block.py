@@ -5,7 +5,10 @@ CPU: the port's plain twins against the Pallas kernels run with
 ``interpret=True`` (as tests/test_fused_block.py runs them) -- float32 at
 the JAX package's own fused-vs-XLA bar (atol 2e-5), bfloat16 within one
 bf16 ulp of the output's magnitude -- and whole blocks against
-``_kernel_math_resblock``.  The int8 twins (ops/fused_block_q.py) against
+``_kernel_math_resblock``; the differentiable blocks
+(``fused_resblock_diff``) against ``jax.vjp`` of ``_kernel_math_resblock``
+for x and all 12 block tensors, float32 at 2e-5 of the largest magnitude and
+bfloat16 at a per-tensor cosine of at least 0.9999.  The int8 twins (ops/fused_block_q.py) against
 the int8 Pallas kernels, single-chain (bb=1) and chain (bb=3) variants:
 float32 at atol 1e-4, bfloat16 within one bf16 ulp.  CUDA (marker
 ``cuda``, skipped without a card): the hand-written kernels against the
@@ -179,6 +182,80 @@ class TestWholeBlock:
         h = np.linspace(-6, 6, 97).astype(np.float32)
         np.testing.assert_allclose(_np32(fb.erf_gelu(_torch(h))),
                                    np.asarray(_erf_gelu(_jnp(h))), atol=1e-6)
+
+
+_PARAM_ORDER = [("ln_1", "scale"), ("ln_1", "bias"), ("attn", "wqkv"), ("attn", "bqkv"),
+                ("attn", "wo"), ("attn", "bo"), ("ln_2", "scale"), ("ln_2", "bias"),
+                ("mlp", "w1"), ("mlp", "b1"), ("mlp", "w2"), ("mlp", "b2")]
+
+
+def _cosine(a, b):
+    a, b = _np32(a).ravel().astype(np.float64), _np32(b).ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+class TestDifferentiableBlock:
+    """The fused blocks' backward: gradients of the function the forward
+    evaluated, as JAX's custom VJP gives them."""
+
+    @pytest.mark.parametrize("causal", [False, True], ids=["image", "text"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_grads_match_jax_vjp(self, layer, x_np, causal, dtype):
+        import jax
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.fused_block import _kernel_math_resblock
+
+        g_np = np.random.default_rng(9).normal(size=x_np.shape).astype(np.float32)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        jp = {grp: {k: _jnp(v) for k, v in sub.items()} for grp, sub in layer.items()}
+        _, vjp = jax.vjp(lambda p, y: _kernel_math_resblock(p, y, H, "quick_gelu", causal),
+                         jp, _jnp(x_np, jdt))
+        want_p, want_x = vjp(_jnp(g_np, jdt))
+
+        blk = _port_block(layer)
+        x = _torch(x_np, tdt).requires_grad_(True)
+        out = fb.fused_resblock_diff(blk, x, H, causal=causal)
+        assert out.dtype == tdt
+        params = [getattr(getattr(blk, grp), k) for grp, k in _PARAM_ORDER]
+        got_x, *got_p = torch.autograd.grad(out, [x] + params, _torch(g_np, tdt))
+        pairs = [("x", got_x, want_x)] + [
+            (f"{grp}.{k}", gp, want_p[grp][k]) for (grp, k), gp in zip(_PARAM_ORDER, got_p)]
+        for name, got, want in pairs:
+            assert got.shape == tuple(np.shape(want)), name
+            if dtype == "float32":
+                want = _np32(want)
+                err = np.abs(_np32(got) - want).max()
+                assert err <= 2e-5 * np.abs(want).max(), (name, err)
+            else:
+                assert _cosine(got, want) >= 0.9999, (name, _cosine(got, want))
+
+    def test_forward_is_the_fused_block(self, layer, x_np):
+        blk = _port_block(layer)
+        x = _torch(x_np).requires_grad_(True)
+        torch.testing.assert_close(fb.fused_resblock_diff(blk, x, H, causal=True),
+                                   fb.fused_resblock(blk, x.detach(), H, causal=True),
+                                   rtol=0, atol=0)
+
+    def test_frozen_params_get_no_grad(self, layer, x_np):
+        blk = _port_block(layer)
+        blk.requires_grad_(False)
+        x = _torch(x_np).requires_grad_(True)
+        fb.fused_transformer_diff([blk, blk], x, H).sum().backward()
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        assert all(p.grad is None for p in blk.parameters())
+
+    def test_clip_towers_route_through_it(self):
+        """A bf16 tower with grad mode on and a gradient to carry runs the
+        differentiable blocks; under no_grad the plain fused tower."""
+        from debias_vision_lang_torch.models import clip as clip_model
+
+        blocks = torch.nn.ModuleList([_port_block(_layer_np(np.random.default_rng(4), D))])
+        x = _torch(np.random.default_rng(5).normal(size=(2, 5, D)), torch.bfloat16)
+        y = clip_model._fused_tower(blocks, x, H)
+        assert y.grad_fn is not None and "FusedResblock" in type(y.grad_fn).__name__
+        with torch.no_grad():
+            assert clip_model._fused_tower(blocks, x, H).grad_fn is None
 
 
 class TestRouting:
@@ -380,6 +457,28 @@ def test_cuda_rejects_float32_activations(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         fb.mlp_block(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"],
                      *layer["mlp"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,heads,causal", [(3, 197, 768, 12, False), (4, 77, 512, 8, True)])
+def test_cuda_gradients_flow_through_the_kernels(cuda, b, s, d, heads, causal):
+    """The kernel route (forward on the CUDA kernels) gives x and every block
+    tensor a gradient, equal to the twin route's on the same card."""
+    blk = _port_block(_layer_np(np.random.default_rng(6), d)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(b, s, d)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16).requires_grad_(True)
+    g = torch.randn(b, s, d, device=cuda).to(torch.bfloat16)
+    params = [getattr(getattr(blk, grp), k) for grp, k in _PARAM_ORDER]
+    fb.reset_launches()
+    out = fb.fused_resblock_diff(blk, x, heads, causal=causal)
+    got = torch.autograd.grad(out, [x] + params, g)
+    assert fb.LAUNCHES["attention_block_causal" if causal else "attention_block"] == 1
+    assert fb.LAUNCHES["mlp_block"] == 1
+    want = torch.autograd.grad(fb.resblock_plain(x, params, heads, causal=causal),
+                               [x] + params, g)
+    for a, w in zip(got, want):
+        assert a is not None and bool(torch.isfinite(a).all()) and a.abs().max() > 0
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
 
 
 def _cuda_q_block(d, device):

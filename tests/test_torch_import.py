@@ -1,6 +1,7 @@
 """The PyTorch port imports torch and never jax: a fresh interpreter runs a
 tiny CPU forward through the port (bf16 and, through QuantizedCLIP, int8)
-and must end with no jax module loaded.
+and one adversarial trainer step (bf16 training through the differentiable
+fused blocks), and must end with no jax module loaded.
 Also the port's surface and its stdlib byte tokenizer."""
 
 import pathlib
@@ -51,6 +52,17 @@ with torch.no_grad():
     txt8 = qmodel.encode_text(torch.from_numpy(ByteTokenizer()(prompts))).float()
 assert img8.shape == (4, 16) and txt8.shape == (5, 16)
 assert bool(torch.isfinite(img8).all()) and bool(torch.isfinite(txt8).all())
+from debias_vision_lang_tpu.core.config import TrainConfig
+from debias_vision_lang_torch.train.adversarial import AdversarialTrainer
+adv = dvl.Adversary.from_cfg({"ADV_N_INPUT": 5, "ADV_HIDDEN_SIZE": 8, "SEED": 0})
+trainer = dvl.AdversarialTrainer.create(
+    model, adv, TrainConfig(train_dtype="bfloat16", embed_dtype="bfloat16"),
+    ByteTokenizer()(prompts))
+before = model.debias_tokens.detach().clone()
+imgs = np.random.default_rng(1).normal(size=(4, 32, 32, 3)).astype(np.float32)
+m = trainer.step(imgs, np.array([0, 1, 0, 1]), imgs[::-1].copy(),
+                 ByteTokenizer()(["a", "b", "c", "d"]))
+assert np.isfinite(m["loss"]) and not torch.equal(before, model.debias_tokens.detach())
 print("jax" in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))[:3])
 """
 
@@ -72,11 +84,13 @@ def test_no_jax_import_in_sources():
 def test_kernel_sources_ship():
     assert (PORT / "csrc" / "fused_block.cu").exists()
     assert (PORT / "csrc" / "fused_block_q.cu").exists()
+    assert (PORT / "csrc" / "attention.cu").exists()
     assert (PORT / "csrc" / "common.cuh").exists()
 
 
 @pytest.mark.parametrize("name", ["measure_bias", "eval_ranking", "gen_prompts",
-                                  "DebiasCLIP", "model_loader", "ClipLike"])
+                                  "DebiasCLIP", "model_loader", "ClipLike", "Adversary",
+                                  "AdversarialTrainer", "run_training"])
 def test_lazy_surface(name):
     import debias_vision_lang_torch as dvl
 
