@@ -8,15 +8,23 @@ Phases (any failure exits non-zero before the final line):
      packages (information only);
   2. build the hand-written kernels (csrc/fused_block.cu,
      csrc/fused_block_q.cu and csrc/attention.cu, one nvcc each, started
-     together, sm_90a);
+     together, sm_90a); count the HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions in the bf16 library's SASS (cuobjdump), and fail if either
+     is 0: a build that fell back to mma.sync cannot pass unseen;
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
-     causal) shapes, at the main path's B=256 image shapes and at the bf16
+     causal) shapes, at every key bucket of the wgmma attention core (S = 1,
+     7, 257, 320, causal and not, B=2 D=512 H=8), at a ragged M (B=3 S=77:
+     231 rows, not a multiple of the GEMM's 128-row tile) for both blocks and
+     both activations, at the main path's B=256 image shapes and at the bf16
      text tower's B=319 shapes; tolerance: max |kernel - twin| <= one bf16
-     ulp of the twin's largest magnitude.  At B=8 each block also runs on a
-     residual stream scaled by 1/16, where the output is mostly the block's
-     own contribution, so the bar is tight against the attention / MLP math
-     and not only against the residual;
+     ulp of the twin's largest magnitude.  At B=8 and at the ragged M each
+     block also runs on a residual stream scaled by 1/16, where the output is
+     mostly the block's own contribution, so the bar is tight against the
+     attention / MLP math and not only against the residual.  At B=256 the
+     two blocks are split by sub-kernel with torch.profiler (LN, QKV GEMM,
+     core, out GEMM; LN, up GEMM, down GEMM), each GEMM with its TFLOP/s and
+     share of the bf16 peak;
   4. main path: a ViT-B/16 DebiasCLIP (2 prepended prompt tokens, random
      init from seed 0, full width and depth) through HostLoader (batch 256,
      patch-contiguous staging), get_labels_img_embeddings(dtype="bfloat16"),
@@ -47,7 +55,9 @@ Phases (any failure exits non-zero before the final line):
      shapes B=8 and B=64 (H=12, S=197) with a zero and a random additive
      mask, and the text shapes B=319 (the sensitive prompts) and B=64 (a
      caption batch), H=8, S=77, with CLIP's causal mask; bars 2e-5 of the
-     twin's largest magnitude at float32, one bf16 ulp at bfloat16; timed;
+     twin's largest magnitude at float32, one bf16 ulp at bfloat16; timed,
+     beside F.scaled_dot_product_attention with the same additive mask at
+     the same shapes and dtype (the yardstick; the port never calls it);
  10. training on the K5 path: a copy of the phase-4 model in
      AdversarialTrainer.create(use_pallas=True), float32, batch 64, the 319
      prompts as the sensitive set, 64 caption tokens; 3 steps; the K5 launch
@@ -73,12 +83,16 @@ Phases (any failure exits non-zero before the final line):
      decoding every batch: K5 launch counts as the two paths imply, the
      checkpoint and the .pt export (a bare float32 tensor) written, and the
      two runs end with identical losses and tokens;
- 13. timings: kernels vs twins, image-tower img/s with the bf16 kernels, the
-     int8 kernels, the plain int8 path (torch._int_mm products), the plain
-     bf16 path and the float32 path, and ms per training step on the float32
-     plain, K5 and bf16-kernel paths.
-The line before the last is the card's ``nvidia-smi`` name and power limit;
-the last line is {"ok": true, "device": {...}}.
+ 13. timings: kernels vs twins and their bounds, image-tower img/s with the
+     bf16 kernels, the int8 kernels, the plain int8 path (torch._int_mm
+     products), the plain bf16 path and the float32 path, and ms per
+     training step on the float32 plain, K5 and bf16-kernel paths.
+The kernels line gives each kernel's launches, error, time, plain-twin time,
+its bound (the larger of its operations over the H100 SXM's dense peak for
+their type and its bytes, each input read once and each output written once,
+over 3.35 TB/s) and the library call's time where one PyTorch call computes
+the same function.  The line before the last is the card's ``nvidia-smi``
+name and power limit; the last line is {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -107,6 +121,10 @@ TRAIN_BATCH, TRAIN_STEPS = 64, 3
 UPDATE_COS_K5 = 0.9999  # first token gradient and update, K5 vs the plain float32 path
 UPDATE_COS_BF16 = 0.99  # token gradients, bf16 vs float32
 UPDATE_FLIP_MAX_BF16 = 0.05  # first token update, bf16 vs float32: share of sign flips
+# NVIDIA H100 SXM, dense: tensor-core bf16 and int8, float32 outside the tensor
+# cores, and HBM3 bandwidth (the bounds in the kernels line)
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond, msg):
@@ -118,6 +136,38 @@ def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def bound(ops: dict, nbytes: float):
+    """(ms, what bounds it): the larger of the operations over the peak for
+    their type and the bytes over the memory rate."""
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_block_work(b, s, d, causal=False, weights="bf16"):
+    """Operations by type and bytes of one attention block: the QKV and out
+    projections in the weights' type, the core (Q K^T and P V over the key
+    pairs the mask keeps) in bf16; x and out bf16, each read / written once."""
+    m = b * s
+    pairs = s * (s + 1) / 2 if causal else s * s
+    wb, extra = (1, (3 * d + d) * 4) if weights == "int8" else (2, 0)
+    ops = {weights: 2 * m * d * 3 * d + 2 * m * d * d}
+    ops["bf16"] = ops.get("bf16", 0) + 4 * b * pairs * d
+    return ops, 2 * m * d * 2 + 4 * d * d * wb + 6 * d * 4 + extra
+
+
+def mlp_block_work(b, s, d, f, weights="bf16"):
+    m = b * s
+    wb, extra = (1, (f + d) * 4) if weights == "int8" else (2, 0)
+    return {weights: 4 * m * d * f}, 2 * m * d * 2 + 2 * d * f * wb + (3 * d + f) * 4 + extra
+
+
+def attention_work(b, h, s, dtype_bytes, dtype):
+    """K5: softmax(q k^T / 8 + mask) v over [B, H, S, 64] with an [S, S] f32
+    additive mask (every pair is computed: the mask is data)."""
+    return {dtype: 4 * b * h * s * s * 64}, 4 * b * h * s * 64 * dtype_bytes + s * s * 4
 
 
 def ulp_bf16(mag: float) -> float:
@@ -158,7 +208,8 @@ def print_ptxas(lib: str, log: str) -> None:
     name = spill = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(gemm_q_kernel|gemm_kernel|attention_core_kernel|layer_norm_kernel|"
+                      r"(gemm_q_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
+                      r"attention_core_kernel|layer_norm_kernel|"
                       r"quant_rows_kernel|attention_bf16_kernel|attention_f32_kernel)"
                       r"(?:I(13__nv_bfloat16|f)?Li(\d+)E)?", line)
         if m:
@@ -172,6 +223,38 @@ def print_ptxas(lib: str, log: str) -> None:
         if m and name:
             print(f"ptxas {lib} {name}: {m.group(1)} registers, {spill} bytes spill stores")
             name = None
+
+
+def find_cuobjdump():
+    import shutil
+
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    try:
+        import triton
+
+        cand = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                            "cuobjdump")
+        return cand if os.path.exists(cand) else None
+    except ImportError:
+        return None
+
+
+def sass_check(path) -> None:
+    """HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in the bf16
+    library's SASS; either at 0 fails the run."""
+    tool = find_cuobjdump()
+    if tool is None:
+        print("sass: no cuobjdump found (PATH, /usr/local/cuda/bin, triton's package): "
+              "the wgmma/TMA instruction count is not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    print(f"sass {os.path.basename(str(path))}: {counts} (cuobjdump {tool})")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          "the bf16 library has no wgmma (HGMMA) or no TMA load (UTMALDG) in its SASS")
 
 
 def block_params(d, device, seed):
@@ -192,10 +275,49 @@ def block_params(d, device, seed):
     return attn, mlp
 
 
-def kernel_phase(fb, device):
-    """Kernel vs twin at the B=8 shapes, at the main path's B=256 image
-    shapes and at the text tower's B=319 shapes (timed).  Returns the JSON
-    rows without launch counts, and the text-shape times."""
+GEMM_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out GEMM",
+              "gemm_wgmma_kernel<2>": "up GEMM", "gemm_wgmma_kernel<3>": "up GEMM",
+              "gemm_wgmma_kernel<4>": "down GEMM"}
+
+
+def subkernel_split(name, fn, gemm_flops, card, iters=5):
+    """ms per call of each device kernel of one block call (torch.profiler),
+    and each GEMM's TFLOP/s and share of the bf16 peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us <= 0:
+            continue
+        key = re.sub(r"^.*?(\w+_kernel)(?:<(\d+)>)?.*$", lambda m: m.group(1) + (
+            f"<{m.group(2)}>" if m.group(2) else ""), ev.key)
+        label = GEMM_NAMES.get(key, {"layer_norm_kernel": "LN"}.get(
+            key, "core" if key.startswith("attention_wgmma_kernel") else key))
+        ms = us / iters / 1e3
+        text = f"{label} {ms:.4f} ms"
+        if label in gemm_flops:
+            tflops = gemm_flops[label] / ms / 1e9
+            text += f" ({tflops:.1f} TFLOP/s, {tflops / (PEAK['bf16'] / 1e12):.1%} of bf16 peak)"
+        parts.append((label, ms, text))
+    order = ["LN", "QKV GEMM", "core", "out GEMM", "up GEMM", "down GEMM"]
+    parts.sort(key=lambda p: order.index(p[0]) if p[0] in order else len(order))
+    print(f"split {name}: " + "; ".join(p[2] for p in parts)
+          + f"; sum {sum(p[1] for p in parts):.4f} ms ({card})")
+
+
+def kernel_phase(fb, device, card):
+    """Kernel vs twin at the B=8 shapes, at every key bucket of the attention
+    core, at a ragged M, at the main path's B=256 image shapes (timed, split
+    by sub-kernel) and at the text tower's B=319 shapes (timed).  Returns the
+    JSON rows without launch counts, and the text-shape times."""
     import torch
 
     def compare(name, x, got, ref):
@@ -219,6 +341,25 @@ def kernel_phase(fb, device):
                     fb.attention_block_plain(x, *attn, heads=heads, causal=causal))
             compare(f"mlp_block {tag} F={4 * d} quick_gelu", x,
                     fb.mlp_block(x, *mlp), fb.mlp_block_plain(x, *mlp))
+    # every key bucket of the wgmma core (32, 80, 200, 256, 256 + 64 keys)
+    attn, mlp = block_params(512, device, seed=5)
+    for s_ in (1, 7, 257, 320):
+        for causal in (False, True):
+            x = torch.randn(2, s_, 512, generator=g).to(device, torch.bfloat16)
+            compare(f"attention_block B=2 S={s_} D=512 H=8 causal={causal}", x,
+                    fb.attention_block(x, *attn, heads=8, causal=causal),
+                    fb.attention_block_plain(x, *attn, heads=8, causal=causal))
+    # a ragged M: 3 x 77 = 231 rows against the GEMM's 128-row tile
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(3, 77, 512, generator=g) * scale).to(device, torch.bfloat16)
+        tag = f"B=3 S=77 D=512 x~N(0,{scale}^2) (ragged M)"
+        for causal in (False, True):
+            compare(f"attention_block {tag} H=8 causal={causal}", x,
+                    fb.attention_block(x, *attn, heads=8, causal=causal),
+                    fb.attention_block_plain(x, *attn, heads=8, causal=causal))
+        for act in fb.ACT_KINDS:
+            compare(f"mlp_block {tag} F=2048 {act}", x, fb.mlp_block(x, *mlp, act_kind=act),
+                    fb.mlp_block_plain(x, *mlp, act_kind=act))
     torch.cuda.synchronize()
 
     attn, mlp = block_params(768, device, seed=7)
@@ -232,11 +373,21 @@ def kernel_phase(fb, device):
                       kern(x, *args, **kw), plain(x, *args, **kw))
         ms = cuda_ms(lambda: kern(x, *args, **kw))
         plain_ms = cuda_ms(lambda: plain(x, *args, **kw))
+        bound_ms, bound_by = bound(*(attention_block_work(BATCH, 197, 768) if name ==
+                                     "attention_block" else mlp_block_work(BATCH, 197, 768, 3072)))
         rows.append({"name": name, "route": "cuda",
                      "source": "debias_vision_lang_torch/csrc/fused_block.cu",
                      "replaces": f"debias_vision_lang_tpu/ops/fused_block.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    m = BATCH * 197
+    subkernel_split(f"attention_block B={BATCH} S=197 D=768 H=12",
+                    lambda: fb.attention_block(x, *attn, heads=12),
+                    {"QKV GEMM": 2 * m * 768 * 2304, "out GEMM": 2 * m * 768 * 768}, card)
+    subkernel_split(f"mlp_block B={BATCH} S=197 D=768 F=3072",
+                    lambda: fb.mlp_block(x, *mlp),
+                    {"up GEMM": 2 * m * 768 * 3072, "down GEMM": 2 * m * 768 * 3072}, card)
     # the bf16 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -333,11 +484,15 @@ def kernel_phase_q(fbq, device):
                       block, kw)
         ms = cuda_ms(lambda: kern(x, *block[0], **kw, **block[1]))
         plain_ms = cuda_ms(lambda: plain(x, *block[0], **kw))
+        bound_ms, bound_by = bound(*(
+            attention_block_work(BATCH, 197, 768, weights="int8") if name == "attention_block_q"
+            else mlp_block_work(BATCH, 197, 768, 3072, weights="int8")))
         rows.append({"name": name, "route": "cuda",
                      "source": "debias_vision_lang_torch/csrc/fused_block_q.cu",
                      "replaces": f"debias_vision_lang_tpu/ops/fused_block_q.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
     # the int8 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = q_block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -414,10 +569,16 @@ def kernel_phase_attn(A, device):
                   f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag})")
             check(got.dtype == dtype and math.isfinite(err) and err <= tol,
                   f"{tag}: kernel disagrees with its twin")
-            out.append({"tag": tag, "dtype": "f32" if f32 else "bf16", "b": b, "s": s,
+            lib_mask = mask.to(dtype)
+            out.append({"tag": tag, "dtype": "f32" if f32 else "bf16", "b": b, "h": h, "s": s,
                         "mask": kind, "err": err,
                         "ms": cuda_ms(lambda: A.attention_pallas(q, k, v, mask)),
-                        "plain_ms": cuda_ms(lambda: A.attention_kernel_math(q, k, v, mask))})
+                        "plain_ms": cuda_ms(lambda: A.attention_kernel_math(q, k, v, mask)),
+                        "library_ms": cuda_ms(lambda: torch.nn.functional.
+                                              scaled_dot_product_attention(
+                                                  q, k, v, attn_mask=lib_mask)),
+                        "bound": bound(*attention_work(b, h, s, 4 if f32 else 2,
+                                                       "f32" if f32 else "bf16"))})
     torch.cuda.synchronize()
     return out
 
@@ -588,9 +749,10 @@ def main() -> int:
           f"(nvcc {_build.BUILD_SECONDS or 'cached'})")
     for lib in ("fused_block", "fused_block_q", "attention"):
         print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
+    sass_check(_build.LIB_PATHS["fused_block"])
 
     # 3. bf16 kernels against their twins
-    rows, text_ms = kernel_phase(fb, device)
+    rows, text_ms = kernel_phase(fb, device, card)
 
     # 4. main path
     t0 = time.perf_counter()
@@ -824,10 +986,19 @@ def main() -> int:
     for row, counts in [(r, launches) for r in rows] + [(r, launches_q) for r in rows_q]:
         row["launches"] = counts[row["name"]]
         print(f"time {row['name']} B={BATCH} S=197 D=768: kernel {row['ms']:.4f} ms, "
-              f"plain twin {row['plain_ms']:.4f} ms ({card})")
+              f"plain twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; the kernel at {row['bound_ms'] / row['ms']:.1%} of it) "
+              f"({card})")
+    text_work = {"attention_block causal": attention_block_work(319, 77, 512, causal=True),
+                 "mlp_block": mlp_block_work(319, 77, 512, 2048),
+                 "attention_block_q causal": attention_block_work(319, 77, 512, causal=True,
+                                                                  weights="int8"),
+                 "mlp_block_q": mlp_block_work(319, 77, 512, 2048, weights="int8")}
     for name, (k_ms, p_ms) in {**text_ms, **text_ms_q}.items():
+        b_ms, b_by = bound(*text_work[name])
         print(f"time {name} B=319 S=77 D=512: kernel {k_ms:.4f} ms, plain twin "
-              f"{p_ms:.4f} ms ({card})")
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the kernel at "
+              f"{b_ms / k_ms:.1%} of it) ({card})")
     with torch.no_grad():
         for label, tower, kw in (
                 ("kernels (bf16)", model, {"dtype": torch.bfloat16}),
@@ -839,8 +1010,10 @@ def main() -> int:
             print(f"image tower B={BATCH} {label}: {ms:.3f} ms/batch, "
                   f"{BATCH / ms * 1e3:.1f} img/s ({card})")
     for c in attn_cases:
-        print(f"time {c['tag']}: kernel {c['ms']:.4f} ms, plain twin {c['plain_ms']:.4f} ms "
-              f"({card})")
+        print(f"time {c['tag']}: kernel {c['ms']:.4f} ms, plain twin {c['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {c['library_ms']:.4f} ms, bound "
+              f"{c['bound'][0]:.4f} ms ({c['bound'][1]}; the kernel at "
+              f"{c['bound'][0] / c['ms']:.1%} of it) ({card})")
     for tag, run in (("plain float32", run_plain), ("K5 (use_pallas=True) float32", run_k5),
                      ("bf16 kernels", run_bf16)):
         steady = sum(run["times"][1:]) / len(run["times"][1:]) * 1e3
@@ -858,7 +1031,8 @@ def main() -> int:
               "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
               "launches": run_k5["counts"]["attention_pallas"],
               "max_abs_err": k5["err"], "ms": k5["ms"],
-              "plain_ms": k5["plain_ms"]}
+              "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
+              "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]}
     print(json.dumps({"kernels": rows + rows_q + [row_k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

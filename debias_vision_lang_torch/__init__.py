@@ -9,9 +9,12 @@
     summary = debias_clip.run_training(model=model, tokenizer=tokenizer,
                                        data_path="/path/to/fairface", epochs=1)
 
-The configuration carriers and the architecture registry are the JAX
-package's own (``debias_vision_lang_tpu.core``, which imports no jax).  The
-port imports torch and never jax.
+The port stands alone: it keeps its own copies of what it shares with the
+JAX package (``core/`` configuration and registry, ``native/`` host ingest,
+``data/datasets.py``, the ``text/`` BPE tokenizer, ``metrics/oracle.py``,
+the prompt assets), imports torch, and imports neither jax nor anything of
+``debias_vision_lang_tpu``.  Its entry points run on the card unless given
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

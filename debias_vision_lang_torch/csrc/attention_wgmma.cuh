@@ -1,0 +1,240 @@
+// The bf16 attention core of dvl_attention_block (csrc/fused_block.cu) on
+// Hopper's wgmma, fed by TMA.  Same function as the mma.sync core of
+// common.cuh (which the int8 block keeps): packed qkv [B*S, 3D] (q | k | v,
+// head h at columns 64h .. 64h+63 of each third) -> attn [B*S, D]; f32
+// scores * scale (+ CLIP's causal mask), row max, exp, normalised by the f32
+// row sum and rounded to bf16 BEFORE P @ V (not an online softmax: at bf16
+// that is another function), P @ V accumulated in f32, one rounding.
+//
+// One block (one warpgroup, 128 threads) per (head, image):
+//   * thread 0 asks the TMA for the head's K and V once (boxes of up to 256
+//     keys x 64 dims through a [B, S, 3D] tensor map, so keys past S arrive
+//     as zeros) and for the first two query tiles (64 rows each, double
+//     buffered); K, V and each query buffer land on mbarriers of their own,
+//     so the first Q K^T starts while V is still in flight;
+//   * the warpgroup walks the query tiles: Q K^T is an SS-wgmma m64nNKk16
+//     (NK = the key count rounded up to a bucket: 32, 80, 200, 256, or 256 +
+//     64 up to 320) whose f32 accumulators hold each query's whole score row
+//     in registers; the softmax runs on them (a row is spread over the four
+//     threads of a quad; a warp whose 16 rows all lie past S skips it); the
+//     probabilities, scaled by the reciprocal of the f32 row sum and rounded
+//     to bf16, are packed from the accumulator layout into the A fragments
+//     of an RS-wgmma m64n64k16 per 16 keys, with V read from shared memory
+//     as an MN-major operand (the transpose bit), so V is never transposed
+//     by hand.  The reciprocal differs from the twin's division by at most
+//     one f32 ulp before the bf16 rounding.
+// Bound on an H100 at ViT-B/16 B=256: 30.5 GFLOP of products (0.031 ms at
+// the bf16 peak) against 0.31 GB of qkv read and attn written (0.093 ms at
+// 3.35 TB/s): bytes.  What this design does about it: each head's K and V
+// are read from device memory once (the mma.sync core read them once per 64
+// queries), and no product waits for a load it does not need.
+
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int CORE_THREADS = 128;
+constexpr int CORE_QBOX = 64 * 64;  // bf16 elements of one 64-query x 64-dim tile (8 KB)
+constexpr int CORE_MAX_SEQ = 320;
+
+// wgmma N of Q K^T: the key count rounded up to the compiled bucket.
+__host__ inline int core_keys(int s) {
+  return s <= 32 ? 32 : s <= 80 ? 80 : s <= 200 ? 200 : s <= 256 ? 256 : CORE_MAX_SEQ;
+}
+
+// Keys per K / V box: all NK in one box up to the TMA's 256, else two.
+__host__ __device__ constexpr int core_kv_box(int nk) { return nk <= 256 ? nk : nk / 2; }
+
+// K and V (NK keys each), two query tiles, 1 KB for alignment.
+__host__ inline size_t core_smem_bytes(int nk) {
+  return (size_t)(2 * nk * 64 + 2 * CORE_QBOX) * 2 + 1024;
+}
+
+template <int NK>
+__device__ __forceinline__ void qk_wgmma(float (&sc)[NK / 2], uint64_t dq, uint64_t dk) {
+  if constexpr (NK <= 256) {
+    wgmma_ss<NK>(sc, dq, dk);
+  } else {  // keys 0..255, then 256..NK-1 (1024 B per 8 keys)
+    wgmma_ss<256>(*reinterpret_cast<float(*)[128]>(&sc[0]), dq, dk);
+    wgmma_ss<NK - 256>(*reinterpret_cast<float(*)[NK / 2 - 128]>(&sc[128]), dq,
+                       dk + (256 / 8) * (1024 >> 4));
+  }
+}
+
+// Up to 200 keys, three blocks share an SM (68 KB of shared memory each):
+// hold the registers to that.
+template <int NK>
+__global__ void __launch_bounds__(CORE_THREADS, NK <= 200 ? 3 : 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_kv, bf16* __restrict__ attn, int S,
+                       int D, float scale, int causal) {
+  constexpr int KB = core_kv_box(NK);  // keys per K / V box
+  constexpr int NT = NK / 8;           // 8-key column chunks of a score row
+  constexpr int NJ = (NK + 15) / 16;   // 16-key steps of P @ V
+  __shared__ uint64_t bars[4];         // K, V, query buffers 0 and 1
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Vs = Ks + NK * 64;
+  bf16* Qs = Vs + NK * 64;  // [2][64][64]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int nq = (S + 63) / 64;
+
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], NK * 64 * 2);
+    for (int i = 0; i < NK / KB; ++i)
+      tma_load_3d(Ks + i * KB * 64, &tm_kv, &bars[0], D + h * 64, i * KB, b);
+    for (int i = 0; i < 2 && i < nq; ++i) {
+      mbar_expect_tx(&bars[2 + i], CORE_QBOX * 2);
+      tma_load_3d(Qs + i * CORE_QBOX, &tm_q, &bars[2 + i], h * 64, i * 64, b);
+    }
+    mbar_expect_tx(&bars[1], NK * 64 * 2);
+    for (int i = 0; i < NK / KB; ++i)
+      tma_load_3d(Vs + i * KB * 64, &tm_kv, &bars[1], 2 * D + h * 64, i * KB, b);
+  }
+  const uint64_t dk = desc_sw128(Ks);
+  const uint64_t dv = desc_sw128(Vs, 1024);
+  mbar_wait(&bars[0], 0);
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int buf = qt & 1;
+    mbar_wait(&bars[2 + buf], (qt >> 1) & 1);
+    const int row_lo = qt * 64 + warp * 16 + g, row_hi = row_lo + 8;
+
+    // S = Q K^T over the whole (bucketed) key range, 4 K-steps of 16 dims.
+    float sc[NK / 2];
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) sc[i] = 0.f;
+    const uint64_t dq = desc_sw128(Qs + buf * CORE_QBOX);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) qk_wgmma<NK>(sc, dq + 2 * kk, dk + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // the buffer is read: bring in the query tile after next
+    if (tid == 0 && qt + 2 < nq) {
+      mbar_expect_tx(&bars[2 + buf], CORE_QBOX * 2);
+      tma_load_3d(Qs + buf * CORE_QBOX, &tm_q, &bars[2 + buf], h * 64, (qt + 2) * 64, b);
+    }
+
+    // P, normalised and rounded, as the A fragments of the PV steps: step j
+    // takes score chunks 2j (a0, a1) and 2j + 1 (a2, a3); chunk nt holds
+    // keys nt*8 + 2t, +1 of rows g (lo) and g + 8 (hi).
+    uint32_t pa[NJ * 4];
+#pragma unroll
+    for (int i = 0; i < NJ * 4; ++i) pa[i] = 0u;
+    if (qt * 64 + warp * 16 < S) {
+      float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nt * 8 + 2 * t + e;
+          const bool in = col < S;
+          float& lo = sc[nt * 4 + e];
+          float& hi = sc[nt * 4 + 2 + e];
+          lo = (in && (!causal || col <= row_lo)) ? lo * scale : -INFINITY;
+          hi = (in && (!causal || col <= row_hi)) ? hi * scale : -INFINITY;
+          m_lo = fmaxf(m_lo, lo);
+          m_hi = fmaxf(m_hi, hi);
+        }
+      }
+      m_lo = quad_max(m_lo);
+      m_hi = quad_max(m_hi);
+      float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& lo = sc[nt * 4 + e];
+          float& hi = sc[nt * 4 + 2 + e];
+          lo = lo == -INFINITY ? 0.f : expf(lo - m_lo);
+          hi = hi == -INFINITY ? 0.f : expf(hi - m_hi);
+          s_lo += lo;
+          s_hi += hi;
+        }
+      }
+      const float r_lo = 1.0f / quad_sum(s_lo), r_hi = 1.0f / quad_sum(s_hi);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        pa[2 * nt] = pack_bf16(sc[nt * 4] * r_lo, sc[nt * 4 + 1] * r_lo);
+        pa[2 * nt + 1] = pack_bf16(sc[nt * 4 + 2] * r_hi, sc[nt * 4 + 3] * r_hi);
+      }
+    }
+    if (qt == 0) mbar_wait(&bars[1], 0);
+
+    // O = P V over every 16-key step (P is 0 past S and past the mask).
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      wgmma_rs_n64_tb(o, *reinterpret_cast<const uint32_t(*)[4]>(&pa[4 * j]),
+                      dv + j * (16 * 128 >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+
+    bf16* out = attn + ((long long)b * S) * D + h * 64 + 2 * t;
+#pragma unroll
+    for (int on = 0; on < 8; ++on) {
+      if (row_lo < S)
+        *reinterpret_cast<uint32_t*>(out + (long long)row_lo * D + on * 8) =
+            pack_bf16(o[on * 4], o[on * 4 + 1]);
+      if (row_hi < S)
+        *reinterpret_cast<uint32_t*>(out + (long long)row_hi * D + on * 8) =
+            pack_bf16(o[on * 4 + 2], o[on * 4 + 3]);
+    }
+  }
+}
+
+template <int NK>
+cudaError_t launch_core_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                              int causal, cudaStream_t st) {
+  CUtensorMap tm_q, tm_kv;
+  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)3 * D * 2, (uint64_t)S * 3 * D * 2};
+  const uint32_t box_q[3] = {64, 64, 1}, box_kv[3] = {64, (uint32_t)core_kv_box(NK), 1};
+  cudaError_t e = make_tensor_map(&tm_q, qkv, 3, dims, strides, box_q);
+  if (e != cudaSuccess) return e;
+  e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
+  if (e != cudaSuccess) return e;
+  const size_t smem = core_smem_bytes(NK);
+  e = cudaFuncSetAttribute(attention_wgmma_kernel<NK>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attention_wgmma_kernel<NK><<<dim3(heads, B), CORE_THREADS, smem, st>>>(
+      tm_q, tm_kv, attn, S, D, 1.0f / sqrtf((float)(D / heads)), causal);
+  return cudaGetLastError();
+}
+
+// qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
+cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                                   int causal, cudaStream_t st) {
+  if (S < 1 || S > CORE_MAX_SEQ || D != heads * 64) return cudaErrorInvalidValue;
+  switch (core_keys(S)) {
+    case 32: return launch_core_wgmma<32>(qkv, attn, B, S, D, heads, causal, st);
+    case 80: return launch_core_wgmma<80>(qkv, attn, B, S, D, heads, causal, st);
+    case 200: return launch_core_wgmma<200>(qkv, attn, B, S, D, heads, causal, st);
+    case 256: return launch_core_wgmma<256>(qkv, attn, B, S, D, heads, causal, st);
+    default: return launch_core_wgmma<320>(qkv, attn, B, S, D, heads, causal, st);
+  }
+}
+
+}  // namespace

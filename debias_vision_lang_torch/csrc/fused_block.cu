@@ -11,43 +11,47 @@
 // in ops/fused_block.py are the specification): LayerNorm in f32, rounded to
 // bf16; every product accumulated in f32; qkv, probabilities, per-head
 // attention output and the MLP hidden rounded to bf16 where the TPU kernel
-// rounds them; softmax normalised (divided by the f32 row sum) and rounded
-// BEFORE the PV product (two passes over a whole score row, not an online
-// softmax); residual adds in f32 with one final rounding.
+// rounds them; softmax normalised by the f32 row sum and rounded BEFORE the
+// PV product (two passes over a whole score row, not an online softmax);
+// residual adds in f32 with one final rounding.
 //
 // What bounds them on an H100: at ViT-B/16 batch 256 the four projections
 // (QKV, out, up, down: ~2.8 GFLOP per image per layer) are tensor-core work
-// and take ~80% of a layer; LayerNorm, bias, activation and residual are
-// bandwidth work on the [B*S, D] activations; the attention core is small
-// (S <= 320) and bound by latency unless many warps share each SM.  The
-// design (PERF.md has the measured split):
-//   * one tiled GEMM (128x128x32 block tile, 8 warps of 64x32, ldmatrix +
-//     mma.sync m16n8k16 bf16 with f32 accumulators, a four-stage cp.async
-//     ring) whose epilogue fuses bias, activation, residual and the bf16
-//     rounding on the accumulator registers, so no f32 intermediate ever
-//     reaches device memory;
-//   * a LayerNorm kernel (one warp per row) that writes the bf16 LN output
-//     the TPU kernel keeps in VMEM -- one bf16 round trip, same rounding;
-//   * an attention-core kernel per (64 query rows, head, batch item): K and
-//     V^T of the head in shared memory; each warp keeps the whole f32 score
-//     rows of its 16 queries in mma.sync registers (so a 197x197 f32 tile
-//     never has to fit anywhere), normalises them and feeds the bf16
-//     probabilities to PV straight from registers.
-// wgmma, TMA and a fused LN prologue are later work.  The LayerNorm kernel,
-// the attention core and the fragment helpers live in common.cuh, which the
-// int8 blocks (fused_block_q.cu) share.
+// and take most of a layer; LayerNorm, bias, activation and residual are
+// bandwidth work on the [B*S, D] activations; the attention core is bound by
+// its qkv traffic.  The design (PERF.md has the measured split):
+//   * one warp-specialised GEMM for the four projections: a 128x128 block
+//     tile, K-step 64, a ring of 3 stages (96 KB of shared memory) that one
+//     producer thread fills by TMA (128-byte swizzle, mbarrier completion),
+//     two consumer warpgroups that run wgmma m64n128k16 (bf16 -> f32) on the
+//     stages that have arrived and hand each stage back through a second
+//     mbarrier; a producer of one warp, not a warpgroup, leaves the registers
+//     to the consumers (setmaxnreg needs whole warpgroups), and two blocks
+//     share an SM so that one block's epilogue overlaps the other's
+//     products; the epilogue stages the f32 tile in the freed ring and
+//     fuses bias, activation, residual and the bf16 rounding into coalesced
+//     row stores, so no f32 intermediate reaches device memory.
+//     The weights come in K-major ([N, K], a copy the wrapper keeps per
+//     parameter version) so both operands are K-major; N % 128 == 0 and
+//     K % 64 == 0 (the wrapper raises otherwise); the ragged M edge is
+//     zero-filled by the TMA and masked on store;
+//   * the LayerNorm kernel of common.cuh (one warp per row, bf16 out);
+//   * the wgmma attention core of attention_wgmma.cuh: one block per (head,
+//     image), K and V loaded once by TMA, whole f32 score rows in wgmma
+//     accumulators, P fed to an RS-wgmma from registers.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() (0 on success).
+// returns a cudaError_t (0 on success).
 
+#include "attention_wgmma.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// GEMM: C[M, N] = epilogue(A[M, K] @ W[K, N]); A, W, C bf16 row-major, f32
-// accumulation.  K % 32 == 0 and N % 8 == 0 (checked by the wrapper); the
-// ragged M and N edges are zero-filled on load and masked on store.
+// GEMM: C[M, N] = epilogue(A[M, K] @ Wt[N, K]^T); A, Wt, C bf16 row-major
+// (Wt is the weight [K, N] stored K-major), f32 accumulation.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -58,13 +62,15 @@ enum Epilogue {
   EPI_RESID_BIAS = 4,  // bf16((resid + bias) + acc)               (mlp down)
 };
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
-constexpr int LDA_S = BK + 8;   // 40 bf16 = 80 B rows: ldmatrix rows hit distinct banks
-constexpr int LDB_S = BN + 8;   // 136 bf16 = 272 B rows
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (M) x 4 (N), 64x32 each
-constexpr int A_STAGE = BM * LDA_S;  // elements
-constexpr int B_STAGE = BK * LDB_S;
-constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;  // 75,776 B: 2 blocks/SM
+constexpr int GBM = 128, GBN = 128, GBK = 64, GSTAGES = 3;
+constexpr int G_A_BYTES = GBM * GBK * 2;  // 16 KB
+constexpr int G_B_BYTES = GBN * GBK * 2;  // 16 KB
+constexpr int GEMM_THREADS = 288;         // 2 consumer warpgroups + 1 producer warp
+// Two blocks share an SM (97 KB of shared memory and at most 112 registers a
+// thread), so one block's epilogue runs beside the other's products.
+constexpr int GEMM_SMEM = GSTAGES * (G_A_BYTES + G_B_BYTES) + 1024 + 2 * GSTAGES * 8;
+constexpr int GEPI_LD = GBN + 8;  // f32 row stride of the staged epilogue tile
+static_assert(2 * 64 * GEPI_LD * 4 <= GSTAGES * (G_A_BYTES + G_B_BYTES), "staging fits the ring");
 
 template <int EPI>
 __device__ __forceinline__ float epilogue(float acc, float bias, float resid) {
@@ -76,114 +82,131 @@ __device__ __forceinline__ float epilogue(float acc, float bias, float resid) {
 }
 
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const float* __restrict__ bias, const bf16* __restrict__ resid,
-            bf16* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                  const float* __restrict__ bias, const bf16* __restrict__ resid,
+                  bf16* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sA = reinterpret_cast<bf16*>(smem);                        // [stage][128][64]
+  bf16* sB = reinterpret_cast<bf16*>(smem + GSTAGES * G_A_BYTES);  // [stage][128][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GSTAGES * (G_A_BYTES + G_B_BYTES));
+  uint64_t* empty = full + GSTAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 2;  // 0..1 -> 64 rows each
-  const int warp_n = warp & 3;   // 0..3 -> 32 cols each
-  const long long m0 = (long long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int kt, int stage) {
-    bf16* as = As + stage * A_STAGE;
-    bf16* bs = Bs + stage * B_STAGE;
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += GEMM_THREADS) {  // 512 chunks
-      const int r = c >> 2, cc = (c & 3) * 8;
-      const long long gm = m0 + r;
-      const bool ok = gm < M;
-      cp_async16(as + r * LDA_S + cc, ok ? A + gm * K + k0 + cc : A, ok);
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;  // consumer warpgroup c
+  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
+  const int nk = K / GBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
     }
-#pragma unroll
-    for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {  // 512 chunks
-      const int r = c >> 4, cc = (c & 15) * 8;
-      const int gn = n0 + cc;
-      const bool ok = gn < N;
-      cp_async16(bs + r * LDB_S + cc, ok ? W + (long long)(k0 + r) * N + gn : W, ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  // STAGES-deep cp.async ring: one commit group per K tile (empty groups at
-  // the tail keep the count uniform, so wait_group<STAGES-2> = "tile kt in").
-  const int nk = K / BK;
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load_tile(st, st);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt visible to all; stage (kt-1) % STAGES free
-    const int pre = kt + STAGES - 1;
-    if (pre < nk) load_tile(pre, pre % STAGES);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * A_STAGE + (warp_m * 64 + (lane & 15)) * LDA_S +
-                     (lane >> 4) * 8;
-    const bf16* bs = Bs + (kt % STAGES) * B_STAGE + (lane & 15) * LDB_S + warp_n * 32 +
-                     (lane >> 4) * 8;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) ldsm_x4(af[mt], as + mt * 16 * LDA_S + ks);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) ldsm_x4_t(bfr[np], bs + ks * LDB_S + np * 16);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_16816(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // Epilogue on the accumulators: thread holds columns n, n+1 of rows g and
-  // g + 8 of each 16x8 tile; one bf16 pair store each.
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = n0 + warp_n * 32 + nt * 8 + 2 * t;
-      if (n >= N) continue;
-      const float2 bb = *reinterpret_cast<const float2*>(bias + n);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long m = m0 + warp_m * 64 + mt * 16 + g + half * 8;
-        if (m >= M) continue;
-        float2 rr = make_float2(0.f, 0.f);
-        if (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS)
-          rr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + m * N + n));
-        *reinterpret_cast<uint32_t*>(C + m * N + n) =
-            pack_bf16(epilogue<EPI>(acc[mt][nt][2 * half], bb.x, rr.x),
-                      epilogue<EPI>(acc[mt][nt][2 * half + 1], bb.y, rr.y));
+  if (c == 2) {  // the producer warp: one thread keeps the ring full
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % GSTAGES;
+        mbar_wait(&empty[s], ((kt / GSTAGES) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(&full[s], G_A_BYTES + G_B_BYTES);
+        tma_load_2d(sA + s * GBM * GBK, &tm_a, &full[s], kt * GBK, m0);
+        tma_load_2d(sB + s * GBN * GBK, &tm_b, &full[s], kt * GBK, n0);
       }
     }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows 64c .. 64c+63 of the tile, all columns
+  float acc[GBN / 2];
+#pragma unroll
+  for (int i = 0; i < GBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % GSTAGES;
+    mbar_wait(&full[s], (kt / GSTAGES) & 1);
+    const uint64_t da = desc_sw128(sA + s * GBM * GBK + c * 64 * GBK);
+    const uint64_t db = desc_sw128(sB + s * GBN * GBK);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GBK / 16; ++kk) wgmma_ss<GBN>(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    fence_regs(acc);
+    if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % GSTAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue.  Once both consumers are past their last product the ring is
+  // free: each stages its 64 x 128 f32 half there (rows padded to 136
+  // floats: a warp's float2 stores land in distinct banks), then each warp
+  // finishes two rows at a time -- lane l takes columns 8(l % 16) .. +7 of
+  // row 2i + l / 16, so the residual read and the bf16 store are 256
+  // contiguous bytes per row -- applying bias, activation and residual in f32
+  // with one rounding.
+  named_barrier(1, 256);
+  float* stage = reinterpret_cast<float*>(smem) + c * 64 * GEPI_LD;
+  {
+    const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+    for (int j = 0; j < GBN / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(stage + (warp * 16 + g + 8 * half) * GEPI_LD + j * 8 + 2 * t) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+  named_barrier(2 + c, 128);
+  const int col = (tid & 15) * 8, n = n0 + col;
+  float bb[8];
+  *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+  *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+#pragma unroll 4
+  for (int r = tid >> 4; r < 64; r += 8) {
+    const long long m = (long long)m0 + c * 64 + r;
+    if (m >= M) continue;
+    float v[8], rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col);
+    *reinterpret_cast<float4*>(v + 4) =
+        *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col + 4);
+    if (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * N + n);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f2 = __bfloat1622float2(p[i]);
+        rr[2 * i] = f2.x;
+        rr[2 * i + 1] = f2.y;
+      }
+    }
+    uint4 packed;
+    uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pw[i] = pack_bf16(epilogue<EPI>(v[2 * i], bb[2 * i], rr[2 * i]),
+                        epilogue<EPI>(v[2 * i + 1], bb[2 * i + 1], rr[2 * i + 1]));
+    *reinterpret_cast<uint4*>(C + m * N + n) = packed;
   }
 }
 
 template <int EPI>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* resid,
+cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const bf16* resid,
                         bf16* C, int M, int N, int K, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(gemm_kernel<EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (M < 1 || N % GBN || K % GBK || K < GBK) return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b;  // both K-major: boxes of 64 K x 128 rows
+  const uint64_t stride[1] = {(uint64_t)K * 2};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t box_a[2] = {GBK, GBM}, box_b[2] = {GBK, GBN};
+  cudaError_t e = make_tensor_map(&tm_a, A, 2, dims_a, stride, box_a);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(A, W, bias, resid, C, M, N, K);
+  e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride, box_b);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           GEMM_SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(N / GBN, (M + GBM - 1) / GBM);
+  gemm_wgmma_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(tm_a, tm_b, bias, resid, C, M, N, K);
   return cudaGetLastError();
 }
 
@@ -191,9 +214,11 @@ cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const b
 
 extern "C" {
 
-// out = x + (MHA(LN(x)) @ wo + bo); x, out [B, S, D] bf16; wqkv [D, 3D],
-// wo [D, D] bf16; ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch (bf16):
-// xn [B*S, D], qkv [B*S, 3D], attn [B*S, D].  D == heads * 64, S <= 320.
+// out = x + (MHA(LN(x)) @ wo + bo); x, out [B, S, D] bf16; the weights
+// K-major bf16, wqkv [3D, D] and wo [D, D] (the transposes of the
+// parameters); ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch (bf16):
+// xn [B*S, D], qkv [B*S, 3D], attn [B*S, D].  D == heads * 64,
+// D % 128 == 0, 1 <= S <= 320.
 int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                         const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                         void* qkv, void* attn, int B, int S, int D, int heads, int causal,
@@ -208,8 +233,8 @@ int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const
                             static_cast<const float*>(bqkv), nullptr, static_cast<bf16*>(qkv), M,
                             3 * D, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D, heads,
-                       causal, st);
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
+                             heads, causal, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
                                   static_cast<const float*>(bo), static_cast<const bf16*>(x),
@@ -217,9 +242,11 @@ int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const
   return (int)e;
 }
 
-// out = x + b2 + act(LN(x) @ w1 + b1) @ w2; x, out [M, D] bf16; w1 [D, F],
-// w2 [F, D] bf16; ln_s, ln_b, b2 [D] and b1 [F] f32.  Scratch (bf16):
-// xn [M, D], hidden [M, F].  act_kind 0 = quick_gelu, 1 = erf gelu (A&S).
+// out = x + b2 + act(LN(x) @ w1 + b1) @ w2; x, out [M, D] bf16; the weights
+// K-major bf16, w1 [F, D] and w2 [D, F] (the transposes of the
+// parameters); ln_s, ln_b, b2 [D] and b1 [F] f32.  Scratch (bf16):
+// xn [M, D], hidden [M, F].  D % 128 == 0, F % 128 == 0.  act_kind
+// 0 = quick_gelu, 1 = erf gelu (A&S).
 int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                   const void* b1, const void* w2, const void* b2, void* out, void* xn,
                   void* hidden, int M, int D, int F, int act_kind, void* stream) {
@@ -242,6 +269,5 @@ int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void*
                                   static_cast<bf16*>(out), M, D, F, st);
   return (int)e;
 }
-
 
 }  // extern "C"

@@ -1,10 +1,9 @@
 """Host-ingest loader: threaded image decode -> fixed-shape uint8 batches.
 
-Counterpart of ``debias_vision_lang_tpu/data/loader.py::HostLoader`` (that
-module's fallbacks import the jax half of preprocess; this copy uses the
-port's own numpy host preprocess).  Native batch ingest (decode + PIL-exact
-resize + crop in C++, ``debias_vision_lang_tpu.native``, free of jax) is
-used when it builds and the dataset has file paths.
+Counterpart of ``debias_vision_lang_tpu/data/loader.py::HostLoader``, on the
+port's own numpy host preprocess.  Native batch ingest (decode + PIL-exact
+resize + crop in C++, the port's own ``native`` package) is used when it
+builds and the dataset has file paths.
 
 The last partial batch is padded to the fixed batch size and carries a
 validity count so consumers drop the padding.
@@ -78,7 +77,7 @@ class HostLoader:
     def _native_active(self) -> bool:
         if self.native_n_px is None or not getattr(self.dataset, "_img_fnames", None):
             return False
-        from debias_vision_lang_tpu import native
+        from .. import native
 
         return native.available()
 
@@ -161,7 +160,7 @@ class HostLoader:
     def _iter_native(self, order: np.ndarray, bounds) -> Iterator[Batch]:
         """Whole batches through the C++ runtime on a single-slot executor,
         so the next batch decodes while the device consumes this one."""
-        from debias_vision_lang_tpu import native
+        from .. import native
 
         n_px = self.native_n_px
 

@@ -42,7 +42,7 @@ class ImageCaptionPairs:
 
     def load_image(self, index: int) -> np.ndarray:
         if self.image_size is not None:
-            from debias_vision_lang_tpu import native
+            from .. import native
 
             if native.available():
                 out, ok = native.ingest_batch_files_u8([self._path(index)],
@@ -86,7 +86,7 @@ class ImageCaptionPairs:
     def load_batch(self, idx: np.ndarray, tokenizer: Callable
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Decode + tokenize the given rows: (images_u8 [B,H,W,3], tokens)."""
-        from debias_vision_lang_tpu import native
+        from .. import native
 
         if self.image_size is not None and native.available():
             paths = [self._path(int(i)) for i in idx]

@@ -22,17 +22,15 @@ from __future__ import annotations
 
 import csv
 import dataclasses
-import functools
-import importlib.util
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from debias_vision_lang_tpu.core.config import Dotdict, EvalConfig
-
+from ..core.config import Dotdict, EvalConfig
+from ..core.paths import resolve_asset
 from ..data.loader import HostLoader
-from ..metrics import ranking
+from ..metrics import oracle, ranking
 from ..ops.quant import resolve_compute
 from ..vision.preprocess import Preprocess, preprocess_batch
 
@@ -43,8 +41,6 @@ def gen_prompts(prompt_path=None) -> List[str]:
     """Every non-blank template x every concept (11 x 29 = 319 for the
     shipped CSV), read with the stdlib csv module."""
     if prompt_path is None:
-        from debias_vision_lang_tpu.core.paths import resolve_asset
-
         prompt_path = resolve_asset("prompt_templates.csv")
     with open(prompt_path, newline="", encoding="utf-8") as f:
         rows = list(csv.DictReader(f))
@@ -113,19 +109,6 @@ def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
     return np.concatenate(labels), torch.cat(embs, dim=0)
 
 
-@functools.cache
-def _oracle():
-    """The JAX package's numpy oracle, loaded from its file (its package
-    __init__ imports jax; the oracle itself needs only numpy)."""
-    from debias_vision_lang_tpu.core import paths
-
-    path = paths.PACKAGE_ASSETS.parent / "metrics" / "oracle.py"
-    spec = importlib.util.spec_from_file_location("_dvl_metrics_oracle", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def eval_ranking(labels_list, image_embeddings, prompts_embeddings,
                  evaluation: str = "maxskew", topn: Union[int, float] = 1.0,
                  engine: str = "tpu") -> Dict[str, float]:
@@ -136,7 +119,7 @@ def eval_ranking(labels_list, image_embeddings, prompts_embeddings,
         def host(t):
             return t.detach().float().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
-        return _oracle().eval_ranking_oracle(
+        return oracle.eval_ranking_oracle(
             np.asarray(labels_list), host(image_embeddings),
             host(prompts_embeddings), evaluation, topn)
     if engine not in ("tpu", "torch"):
@@ -196,10 +179,10 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     else:
         n_px, host_transform = 224, img_preproc
 
-    from debias_vision_lang_tpu.data import datasets  # needs pandas
+    from ..data import datasets  # needs pandas
 
     cls = datasets.FairFace if dataset_name == "fairface" else datasets.UTKFace
-    # never downloads: fetch FairFace/UTKFace with the JAX package's CLI
+    # never downloads: point data_path at a complete FairFace/UTKFace layout
     ds = cls(mode=extra.get("mode", "val"), iat_type=attribute,
              _n_samples=extra.get("n_samples"),
              equal_split=extra.get("equal_split", True),

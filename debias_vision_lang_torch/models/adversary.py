@@ -17,8 +17,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from debias_vision_lang_tpu.core.config import (AdversaryConfig, Dotdict,
-                                                adversary_config_from_dotdict)
+from ..core.config import AdversaryConfig, Dotdict, adversary_config_from_dotdict
 
 
 class DenseLayer(nn.Module):

@@ -21,8 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from debias_vision_lang_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-
+from ..core.config import CLIPConfig, TextConfig, VisionConfig
 from ..ops.fused_block import fused_transformer, fused_transformer_diff
 from ..vision.preprocess import CLIP_MEAN, CLIP_STD
 from .layers import (LayerNorm, causal_mask, init_resblocks, layer_norm,

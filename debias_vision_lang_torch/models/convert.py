@@ -15,7 +15,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from debias_vision_lang_tpu.core.config import CLIPConfig
+from ..core.config import CLIPConfig
 
 
 def _tensor(a) -> torch.Tensor:

@@ -24,9 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from debias_vision_lang_tpu.core.config import (CLIPConfig, DebiasConfig, Dotdict,
-                                                debias_config_from_dotdict)
-
+from ..core.config import CLIPConfig, DebiasConfig, Dotdict, debias_config_from_dotdict
 from . import clip as clip_model
 from .clip import CLIP
 
@@ -210,12 +208,15 @@ class DebiasCLIP(nn.Module):
 
     @staticmethod
     def from_cfg(cfg: Union[dict, Dotdict],
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         """Build from an UPPERCASE-key config dict (extra keys ignored).
         Pretrained weights resolve as in ``model_loader``; ``PRETRAINED:
-        False`` gives a random init from ``SEED``."""
+        False`` gives a random init from ``SEED``.  The model goes to the
+        card unless ``device="cpu"``; with no card the default raises."""
+        from ..utils.device import resolve_device
         from .loader import model_loader
 
+        device = resolve_device(device)
         cfg = Dotdict(cfg)
         seed = int(cfg.SEED) if cfg.SEED is not None else 0
         if generator is None:
@@ -223,13 +224,11 @@ class DebiasCLIP(nn.Module):
         debias_cfg = debias_config_from_dotdict(cfg)
         base, preprocess, tokenizer, alias = model_loader(
             cfg.CLIP_ARCH, pretrained=True if cfg.PRETRAINED is None else bool(cfg.PRETRAINED),
-            weights=cfg.WEIGHTS, seed=seed)
+            weights=cfg.WEIGHTS, seed=seed, device="cpu")
         if cfg.HIDDEN_DIM is None:
             debias_cfg = dataclasses.replace(debias_cfg, hidden_dim=base.cfg.text.width)
         if cfg._tokenizer is not None:
             tokenizer = cfg._tokenizer
         tokens = init_debias_tokens(base, debias_cfg, tokenizer, generator)
-        model = DebiasCLIP(base, tokens, debias_cfg)
-        if device is not None:
-            model = model.to(device)
+        model = DebiasCLIP(base, tokens, debias_cfg).to(device)
         return model, preprocess, tokenizer, alias

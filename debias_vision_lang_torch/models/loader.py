@@ -20,9 +20,9 @@ from typing import Any, Callable, Dict, Optional, Protocol, Tuple, runtime_check
 import numpy as np
 import torch
 
-from debias_vision_lang_tpu.core.registry import VALID_MODELS, alias_name, resolve_arch
-
+from ..core.registry import VALID_MODELS, alias_name, resolve_arch
 from ..text import load_bpe_tokenizer
+from ..utils.device import resolve_device
 from ..vision.preprocess import build_preprocess
 from .clip import CLIP, ROADMAP_OTHER_TOWERS, init_clip_params
 from .convert import params_from_openai_state_dict
@@ -75,11 +75,14 @@ def _resolve_pretrained(model_name: str) -> Optional[Dict[str, torch.Tensor]]:
     return None
 
 
-def model_loader(model_name: str, device=None, jit: bool = False,
+def model_loader(model_name: str, device="cuda", jit: bool = False,
                  pretrained: bool = True, weights: Optional[str] = None,
                  seed: int = 0) -> Tuple[CLIP, Callable, Optional[Callable], str]:
-    """Returns (CLIP model, image preprocess, tokenizer or None, alias)."""
+    """Returns (CLIP model on ``device``, image preprocess, tokenizer or
+    None, alias).  The model goes to the card unless ``device="cpu"``; with
+    no card the default raises."""
     del jit
+    device = resolve_device(device)
     if model_name not in VALID_MODELS:
         raise NotImplementedError(
             f"{model_name} not found, should be one of.. {VALID_MODELS}")
@@ -104,8 +107,7 @@ def model_loader(model_name: str, device=None, jit: bool = False,
         params = init_clip_params(cfg, torch.Generator().manual_seed(seed))
     model = CLIP(cfg)
     model.load_state_dict(params)
-    if device is not None:
-        model = model.to(device)
+    model = model.to(device)
     preprocess = build_preprocess(cfg.vision.image_size, mean=cfg.vision.image_mean,
                                   std=cfg.vision.image_std)
     tokenizer = load_bpe_tokenizer(cfg.text.context_length)

@@ -32,9 +32,11 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_GUARD = threading.Lock()
 _LIBS: dict = {}
-# seconds spent in nvcc per source, and its resource report (-Xptxas -v)
+# seconds spent in nvcc per source, its resource report (-Xptxas -v), and
+# the path of each loaded library
 BUILD_SECONDS: dict = {}
 BUILD_LOG: dict = {}
+LIB_PATHS: Dict[str, pathlib.Path] = {}
 
 
 def find_nvcc() -> str:
@@ -93,6 +95,7 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _LIBS[name] = lib
+        LIB_PATHS[name] = so
         return lib
 
 

@@ -33,6 +33,7 @@ import math
 from typing import Dict
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..models.layers import causal_mask, ln_f32, quick_gelu
 
@@ -41,6 +42,7 @@ LAUNCHES: Dict[str, int] = {"attention_block": 0,
                             "mlp_block": 0}
 ACT_KINDS = ("quick_gelu", "gelu")
 MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
+GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: N, K multiples
 
 
 def reset_launches() -> None:
@@ -158,6 +160,28 @@ def _operand(t: torch.Tensor, dtype, shape, name: str,
     return t
 
 
+# K-major ([N, K]) bf16 copies of the [K, N] weights, one per parameter,
+# rebuilt whenever the parameter's storage or version counter moves, so a
+# trained weight never meets a stale copy.
+_KMAJOR = WeakIdKeyDictionary()
+
+
+def _kmajor(w: torch.Tensor, shape, name: str, device) -> torch.Tensor:
+    key = (w.data_ptr(), w._version)
+    hit = _KMAJOR.get(w)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    t = _operand(w.detach(), torch.bfloat16, shape, name, device).t().contiguous()
+    _KMAJOR[w] = (key, t)
+    return t
+
+
+def _check_gemm(n: int, k: int, what: str) -> None:
+    if n % GEMM_N or k % GEMM_K:
+        raise ValueError(f"the CUDA GEMM takes N % {GEMM_N} == 0 and K % {GEMM_K} "
+                         f"== 0, got N={n} K={k} ({what})")
+
+
 def _check_x(x: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA fused-block kernels take bfloat16 "
@@ -184,15 +208,17 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
     if d % heads or d // heads != 64:
         raise ValueError(f"the CUDA attention core takes head dim 64, got "
                          f"D={d} heads={heads}")
-    if s > MAX_SEQ:
-        raise ValueError(f"sequence length {s} > {MAX_SEQ}")
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    _check_gemm(3 * d, d, "qkv projection")
+    _check_gemm(d, d, "out projection")
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           _operand(wqkv, bf, (d, 3 * d), "wqkv", dev),
+           _kmajor(wqkv, (d, 3 * d), "wqkv", dev),
            _operand(bqkv, f32, (3 * d,), "bqkv", dev),
-           _operand(wo, bf, (d, d), "wo", dev),
+           _kmajor(wo, (d, d), "wo", dev),
            _operand(bo, f32, (d,), "bo", dev)]
     out = torch.empty_like(x)
     xn = torch.empty((b * s, d), dtype=bf, device=dev)
@@ -211,16 +237,15 @@ def _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind):
     _check_x(x)
     b, s, d = x.shape
     f = w1.shape[-1]
-    if d % 32 or f % 32:
-        raise ValueError(f"the CUDA MLP takes D and F divisible by 32, got "
-                         f"D={d} F={f}")
+    _check_gemm(f, d, "mlp up projection")
+    _check_gemm(d, f, "mlp down projection")
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           _operand(w1, bf, (d, f), "w1", dev),
+           _kmajor(w1, (d, f), "w1", dev),
            _operand(b1, f32, (f,), "b1", dev),
-           _operand(w2, bf, (f, d), "w2", dev),
+           _kmajor(w2, (f, d), "w2", dev),
            _operand(b2, f32, (d,), "b2", dev)]
     out = torch.empty_like(x)
     xn = torch.empty((b * s, d), dtype=bf, device=dev)

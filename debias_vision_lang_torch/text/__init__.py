@@ -1,7 +1,8 @@
 """Tokenizers for the port.
 
-The CLIP BPE tokenizer is the JAX package's own (``debias_vision_lang_tpu.
-text``, free of jax; it needs ``regex`` and the BPE vocabulary file).
+The CLIP BPE tokenizer is the port's own copy (``bpe.py``, ``cleaning.py``,
+``tokenizer.py``, as in the JAX package; it needs ``regex`` and the BPE
+vocabulary file).
 ``ByteTokenizer`` needs neither: UTF-8 bytes as ids 0..255 between CLIP's
 start (49406) and end (49407) ids, padded with 0 to the context length.  The
 end id is the largest id, so EOT pooling (argmax) finds it; it drives the
@@ -42,7 +43,7 @@ def load_bpe_tokenizer(context_length: int = 77):
     """The CLIP BPE tokenizer, or None when ``regex`` or the vocabulary is
     missing."""
     try:
-        from debias_vision_lang_tpu.text.tokenizer import load_tokenizer
+        from .tokenizer import load_tokenizer
 
         return load_tokenizer(context_length=context_length)
     except (ImportError, FileNotFoundError):

@@ -41,9 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from debias_vision_lang_tpu.core.config import (AdversaryConfig, CLIPConfig,
-                                                DebiasConfig, TrainConfig)
-
+from ..core.config import AdversaryConfig, CLIPConfig, DebiasConfig, TrainConfig
 from ..models.adversary import Adversary
 from ..models.debias import DebiasCLIP, apply_grad_mask
 from ..ops.quant import DTYPES

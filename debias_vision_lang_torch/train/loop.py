@@ -27,10 +27,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from debias_vision_lang_tpu.core.config import DebiasConfig, TrainConfig
-
+from ..core.config import DebiasConfig, TrainConfig
 from ..models.adversary import Adversary
 from ..models.debias import DebiasCLIP, init_debias_tokens
+from ..utils.device import resolve_device
 from ..utils.observability import MetricsLogger
 from .adversarial import ROADMAP_DIST, AdversarialTrainer
 from .state import export_reference_pt, save_checkpoint
@@ -63,7 +63,7 @@ def _caption_fallback_batch(fairface, sel, n_px):
     """One FairFace caption-fallback batch at the model resolution, decoded
     as HostLoader decodes the attribute rows (native ingest, per-row PIL
     recovery), so the two streams' pixels agree row for row."""
-    from debias_vision_lang_tpu import native
+    from .. import native
 
     from ..vision.preprocess import resize_crop_u8, to_rgb_array
 
@@ -142,12 +142,13 @@ def run_training(
     grad_clip_norm: Optional[float] = None,
     cache_frozen_embeddings: bool = True,
     embedding_cache_dir: Optional[str] = None,
+    device="cuda",
 ) -> Dict:
     """Train the prompt array adversarially; returns a summary dict.  Runs
-    on the given model's device; a model built here goes to the GPU when
-    there is one."""
-    from debias_vision_lang_tpu.core.registry import alias_name
-    from debias_vision_lang_tpu.data.datasets import FairFace
+    on ``device``: the card unless ``device="cpu"`` (with no card the
+    default raises); a given ``model`` is moved there."""
+    from ..core.registry import alias_name
+    from ..data.datasets import FairFace
 
     from ..data.loader import HostLoader
     from ..eval.measure import (eval_ranking, gen_prompts, get_labels_img_embeddings,
@@ -158,13 +159,15 @@ def run_training(
     if mesh is not None:
         raise NotImplementedError(
             f"mesh: data-parallel training is not ported yet: {ROADMAP_DIST}")
+    device = resolve_device(device)
 
     # the caption stream is seeded apart from HostLoader's shuffle, else
     # batch B would equal batch A every step
     rng = np.random.default_rng([seed, 1])
 
     if model is None:
-        base, _, tok, alias = model_loader(arch, pretrained=pretrained, seed=seed)
+        base, _, tok, alias = model_loader(arch, pretrained=pretrained, seed=seed,
+                                           device=device)
         tokenizer = tokenizer or tok
         if tokenizer is None:
             raise RuntimeError("a tokenizer is required (BPE vocab missing?)")
@@ -174,9 +177,9 @@ def run_training(
                             debias_pos=debias_pos, debias_token_init=debias_token_init)
         deb = init_debias_tokens(base, dcfg, tokenizer,
                                  torch.Generator().manual_seed(seed + 1))
-        model = DebiasCLIP(base, deb, dcfg).to(
-            "cuda" if torch.cuda.is_available() else "cpu")
+        model = DebiasCLIP(base, deb, dcfg).to(device)
     else:
+        model = model.to(device)
         alias = alias_name(model.clip_cfg.name)  # no '/' in the export name
     if tokenizer is None:
         raise RuntimeError("a tokenizer is required")

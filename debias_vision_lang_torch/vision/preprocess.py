@@ -241,7 +241,7 @@ class Preprocess:
             return out[0].numpy()
         if self.use_native and (self.mean, self.std) == (CLIP_MEAN, CLIP_STD):
             # the C++ replica of the same arithmetic (it bakes CLIP's stats)
-            from debias_vision_lang_tpu import native
+            from .. import native
 
             if native.available():
                 return native.preprocess_u8(arr, self.n_px)

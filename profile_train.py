@@ -29,7 +29,8 @@ def family(name: str) -> str:
     n = name.lower()
     if "attention_f32_kernel" in n or "attention_bf16_kernel" in n:
         return "K5 attention kernel"
-    if "gemm_kernel<" in n or "attention_core_kernel" in n or "layer_norm_kernel" in n:
+    if any(k in n for k in ("gemm_wgmma_kernel", "attention_wgmma_kernel", "gemm_kernel<",
+                            "attention_core_kernel", "layer_norm_kernel")):
         return "fused-block kernels (K1/K2)"
     if "gemm" in n or "cutlass" in n or "xmma" in n:
         return "library GEMM (cuBLAS/CUTLASS)"

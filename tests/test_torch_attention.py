@@ -201,6 +201,7 @@ def tiny():
     from debias_vision_lang_torch.models.clip import CLIP
     from debias_vision_lang_torch.models.convert import params_from_jax
     from debias_vision_lang_torch.models.debias import DebiasCLIP
+    from torch_port_config import port_config
 
     cfg = CLIPConfig(
         name="tiny",
@@ -211,9 +212,9 @@ def tiny():
     params = jax.tree.map(np.array, init_clip_params(jax.random.key(0), cfg))
     dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32, max_tokens=CTX)
     tokens = np.random.default_rng(7).normal(size=(2, 32)).astype(np.float32)
-    clip = CLIP(cfg)
-    clip.load_state_dict(params_from_jax(params, cfg))
-    model = DebiasCLIP(clip, torch.from_numpy(tokens.copy()), dcfg)
+    clip = CLIP(port_config(cfg))
+    clip.load_state_dict(params_from_jax(params, port_config(cfg)))
+    model = DebiasCLIP(clip, torch.from_numpy(tokens.copy()), port_config(dcfg))
     return cfg, dcfg, params, tokens, model
 
 

@@ -12,7 +12,8 @@ bfloat16 at a per-tensor cosine of at least 0.9999.  The int8 twins (ops/fused_b
 the int8 Pallas kernels, single-chain (bb=1) and chain (bb=3) variants:
 float32 at atol 1e-4, bfloat16 within one bf16 ulp.  CUDA (marker
 ``cuda``, skipped without a card): the hand-written kernels against the
-twins at the main path's shapes.
+twins at the main path's shapes, the wgmma attention core at every key
+bucket, a ragged M, and the shapes the wgmma GEMM refuses.
 
 jax is imported inside the JAX-side helpers only, so the CUDA tests run on
 a machine without jax:  python -m pytest tests/test_torch_fused_block.py
@@ -275,6 +276,59 @@ class TestRouting:
             fb.mlp_block(_torch(x_np), *map(_torch, _mlp_args(layer)), act_kind="relu")
 
 
+class TestGemmOperands:
+    """What the CUDA route hands the wgmma GEMM, checked before any launch
+    (so on the CPU too): the K-major weight copies and the shapes it takes."""
+
+    def test_kmajor_copy_is_the_transpose_in_bf16(self):
+        w = torch.randn(64, 256)
+        got = fb._kmajor(w, (64, 256), "w", w.device)
+        assert got.dtype == torch.bfloat16 and got.shape == (256, 64) and got.is_contiguous()
+        torch.testing.assert_close(got, w.t().to(torch.bfloat16), rtol=0, atol=0)
+
+    def test_kmajor_copy_is_kept_per_version(self):
+        w = torch.randn(64, 256)
+        first = fb._kmajor(w, (64, 256), "w", w.device)
+        assert fb._kmajor(w, (64, 256), "w", w.device) is first
+        with torch.no_grad():
+            w.mul_(2)  # an in-place update (an optimizer step) moves _version
+        again = fb._kmajor(w, (64, 256), "w", w.device)
+        assert again is not first
+        torch.testing.assert_close(again, w.t().to(torch.bfloat16), rtol=0, atol=0)
+        w.data = torch.randn(64, 256)  # new storage under the same parameter
+        torch.testing.assert_close(fb._kmajor(w, (64, 256), "w", w.device),
+                                   w.t().to(torch.bfloat16), rtol=0, atol=0)
+
+    def test_kmajor_checks_the_shape(self):
+        with pytest.raises(ValueError, match="expected shape"):
+            fb._kmajor(torch.randn(64, 256), (256, 64), "w", torch.device("cpu"))
+
+    @pytest.mark.parametrize("d,heads", [(320, 5), (192, 3), (64, 1)])
+    def test_attention_rejects_widths_the_gemm_does_not_take(self, d, heads):
+        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
+        args = (torch.ones(d), torch.zeros(d), torch.zeros(d, 3 * d), torch.zeros(3 * d),
+                torch.zeros(d, d), torch.zeros(d))
+        with pytest.raises(ValueError, match=r"N % 128 == 0 and K % 64 == 0.*N=\d+ K=\d+"):
+            fb._attention_block_cuda(x, *args, heads, False)
+
+    @pytest.mark.parametrize("s", [0, 321])
+    def test_attention_rejects_sequence_lengths(self, s):
+        d = 256
+        x = torch.zeros(1, s, d, dtype=torch.bfloat16)
+        args = (torch.ones(d), torch.zeros(d), torch.zeros(d, 3 * d), torch.zeros(3 * d),
+                torch.zeros(d, d), torch.zeros(d))
+        with pytest.raises(ValueError, match="sequence length"):
+            fb._attention_block_cuda(x, *args, 4, False)
+
+    @pytest.mark.parametrize("d,f", [(512, 1000), (320, 1280), (256, 96)])
+    def test_mlp_rejects_widths_the_gemm_does_not_take(self, d, f):
+        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
+        args = (torch.ones(d), torch.zeros(d), torch.zeros(d, f), torch.zeros(f),
+                torch.zeros(f, d), torch.zeros(d))
+        with pytest.raises(ValueError, match="the CUDA GEMM takes"):
+            fb._mlp_block_cuda(x, *args, "quick_gelu")
+
+
 # ---------------------------------------------------------------------------
 # Int8 blocks: the twins against the int8 Pallas kernels
 # ---------------------------------------------------------------------------
@@ -448,6 +502,61 @@ def test_cuda_mlp_kernel_matches_twin(cuda, b, s, d, act_kind):
     torch.cuda.synchronize()
     assert fb.LAUNCHES["mlp_block"] == 1
     _within_one_ulp(got.cpu(), fb.mlp_block_plain(x, *args, act_kind=act_kind).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["image", "text"])
+@pytest.mark.parametrize("s", [1, 7, 77, 197, 257, 320])
+def test_cuda_attention_core_every_key_bucket(cuda, s, causal):
+    """The wgmma core at each key bucket it compiles (32, 80, 200, 256, and
+    256 + 64 up to 320 keys), with ragged query tiles."""
+    b, d, heads = 2, 512, 8
+    layer = _cuda_layer(d, cuda)
+    x = torch.from_numpy(np.random.default_rng(s).normal(size=(b, s, d))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    args = [layer["ln_1"]["scale"], layer["ln_1"]["bias"], *layer["attn"].values()]
+    fb.reset_launches()
+    got = fb.attention_block(x, *args, heads=heads, causal=causal)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES["attention_block_causal" if causal else "attention_block"] == 1
+    _within_one_ulp(got.cpu(), fb.attention_block_plain(x, *args, heads=heads,
+                                                        causal=causal).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["attention", "mlp_quick_gelu", "mlp_gelu"])
+def test_cuda_ragged_m(cuda, block):
+    """M = 3 x 77 = 231 rows: not a multiple of the GEMM's 128-row tile."""
+    b, s, d = 3, 77, 512
+    layer = _cuda_layer(d, cuda)
+    x = torch.from_numpy(np.random.default_rng(12).normal(size=(b, s, d))
+                         .astype(np.float32)).to(cuda, torch.bfloat16) / 16
+    if block == "attention":
+        args = [layer["ln_1"]["scale"], layer["ln_1"]["bias"], *layer["attn"].values()]
+        got = fb.attention_block(x, *args, heads=8, causal=True)
+        want = fb.attention_block_plain(x, *args, heads=8, causal=True)
+    else:
+        act = block[len("mlp_"):]
+        args = [layer["ln_2"]["scale"], layer["ln_2"]["bias"], *layer["mlp"].values()]
+        got = fb.mlp_block(x, *args, act_kind=act)
+        want = fb.mlp_block_plain(x, *args, act_kind=act)
+    torch.cuda.synchronize()
+    _within_one_ulp(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_rejects_widths_it_does_not_take(cuda):
+    d, f = 512, 1000
+    x = torch.zeros((2, 7, d), device=cuda, dtype=torch.bfloat16)
+    args = [t.to(cuda) for t in (torch.ones(d), torch.zeros(d), torch.zeros(d, f),
+                                 torch.zeros(f), torch.zeros(f, d), torch.zeros(d))]
+    with pytest.raises(ValueError, match=r"N % 128 == 0 and K % 64 == 0, got N=1000"):
+        fb.mlp_block(x, *args)
+    x = torch.zeros((2, 7, 320), device=cuda, dtype=torch.bfloat16)
+    attn = [t.to(cuda) for t in (torch.ones(320), torch.zeros(320), torch.zeros(320, 960),
+                                 torch.zeros(960), torch.zeros(320, 320), torch.zeros(320))]
+    with pytest.raises(ValueError, match="N=960 K=320"):
+        fb.attention_block(x, *attn, heads=5)
 
 
 @pytest.mark.cuda

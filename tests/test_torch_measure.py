@@ -28,6 +28,7 @@ from debias_vision_lang_torch.models.convert import params_from_jax, to_jax_tree
 from debias_vision_lang_torch.models.debias import DebiasCLIP as TDebiasCLIP
 from debias_vision_lang_torch.ops import quant as tquant
 from debias_vision_lang_torch.vision.preprocess import Preprocess as TPreprocess
+from torch_port_config import port_config
 
 torch.set_num_threads(1)
 
@@ -37,6 +38,7 @@ CFG = CLIPConfig(
                         layers=2, heads=2, embed_dim=32),
     text=TextConfig(vocab_size=512, context_length=77, width=32, layers=2,
                     heads=2, embed_dim=32))
+TCFG = port_config(CFG)  # the port's own config object, same fields
 
 
 @pytest.fixture(scope="module")
@@ -68,14 +70,14 @@ def models():
     rng = np.random.default_rng(0)
     np_params = jax.tree.map(
         lambda a: (a + 0.02 * rng.normal(size=a.shape)).astype(np.float32),
-        to_jax_tree(tclip.init_clip_params(CFG, torch.Generator().manual_seed(1))))
+        to_jax_tree(tclip.init_clip_params(TCFG, torch.Generator().manual_seed(1))))
     deb = rng.normal(size=(2, 32)).astype(np.float32)
     dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32)
     jmodel = JDebiasCLIP(clip_params=jax.tree.map(jnp.asarray, np_params),
                          debias_tokens=jnp.asarray(deb), clip_cfg=CFG, debias_cfg=dcfg)
-    clip = tclip.CLIP(CFG)
-    clip.load_state_dict(params_from_jax(np_params, CFG))
-    return jmodel, TDebiasCLIP(clip, torch.from_numpy(deb), dcfg)
+    clip = tclip.CLIP(TCFG)
+    clip.load_state_dict(params_from_jax(np_params, TCFG))
+    return jmodel, TDebiasCLIP(clip, torch.from_numpy(deb), port_config(dcfg))
 
 
 def tok(texts):
@@ -147,11 +149,13 @@ class TestHostLoader:
                                             "drop_remainder": True}])
     def test_batches_equal_jax_loader(self, fairface, monkeypatch, native_on, staging,
                                       order):
+        from debias_vision_lang_torch import native as tnative
         from debias_vision_lang_tpu import native
         from debias_vision_lang_tpu.data.loader import HostLoader as JHostLoader
 
-        if not native_on:
+        if not native_on:  # both loaders' own native ingest off
             monkeypatch.setattr(native, "available", lambda: False)
+            monkeypatch.setattr(tnative, "available", lambda: False)
         ds = FairFace(mode="val", iat_type="gender", data_path=fairface, download=False)
         kw = {"batch_size": 10, "num_workers": 2, **order}
         if staging:

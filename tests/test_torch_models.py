@@ -26,6 +26,7 @@ from debias_vision_lang_torch.models.convert import (params_from_jax,
                                                      to_jax_tree)
 from debias_vision_lang_torch.ops import fused_block as fb
 from debias_vision_lang_torch.vision import preprocess as tpre
+from torch_port_config import port_config
 
 torch.set_num_threads(1)
 
@@ -35,6 +36,7 @@ CFG = CLIPConfig(
                         layers=2, heads=2, embed_dim=32),
     text=TextConfig(vocab_size=512, context_length=16, width=32, layers=2,
                     heads=2, embed_dim=32))
+TCFG = port_config(CFG)  # the port's own config object, same fields
 
 
 @pytest.fixture(scope="module")
@@ -43,9 +45,9 @@ def pair():
     rng = np.random.default_rng(0)
     np_params = jax.tree.map(
         lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32),
-        to_jax_tree(tclip.init_clip_params(CFG, torch.Generator().manual_seed(0))))
-    model = tclip.CLIP(CFG)
-    model.load_state_dict(params_from_jax(np_params, CFG))
+        to_jax_tree(tclip.init_clip_params(TCFG, torch.Generator().manual_seed(0))))
+    model = tclip.CLIP(TCFG)
+    model.load_state_dict(params_from_jax(np_params, TCFG))
     return jax.tree.map(jnp.asarray, np_params), np_params, model
 
 
@@ -207,13 +209,13 @@ class TestInjection:
         deb = np.random.default_rng(8).normal(size=(2, 32)).astype(np.float32)
         ids = _tokens(np.random.default_rng(9), eot_at=[3, 10, 14, 15])
         ref = jdebias.encode_text(jp, jnp.asarray(deb), jnp.asarray(ids), CFG, dcfg)
-        port = tdebias.DebiasCLIP(model, torch.from_numpy(deb), dcfg)
+        port = tdebias.DebiasCLIP(model, torch.from_numpy(deb), port_config(dcfg))
         got = port.encode_text(torch.from_numpy(ids))
         np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-4)
 
     def test_zeros_init_is_token_zero_embedding(self, pair):
         _, _, model = pair
-        tokens = tdebias.init_debias_tokens(model, DebiasConfig(hidden_dim=32))
+        tokens = tdebias.init_debias_tokens(model, port_config(DebiasConfig(hidden_dim=32)))
         torch.testing.assert_close(tokens, model.text.token_embedding[0].detach()
                                    .expand(2, 32), rtol=0, atol=0)
 
@@ -221,7 +223,8 @@ class TestInjection:
 class TestFromCfg:
     def test_vit_b16_random_init(self):
         model, preprocess, _, alias = tdebias.DebiasCLIP.from_cfg(
-            {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False, "SEED": 3})
+            {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False, "SEED": 3},
+            device="cpu")
         assert alias == "oai-clip-vit-b-16"
         assert model.debias_tokens.shape == (2, 512)
         assert preprocess.n_px == 224
@@ -230,7 +233,8 @@ class TestFromCfg:
     @pytest.mark.parametrize("name", ["openai/CLIP/RN50", "not/a/model"])
     def test_unported_or_unknown_arch_raises(self, name):
         with pytest.raises(NotImplementedError):
-            tdebias.DebiasCLIP.from_cfg({"CLIP_ARCH": name, "PRETRAINED": False})
+            tdebias.DebiasCLIP.from_cfg({"CLIP_ARCH": name, "PRETRAINED": False},
+                                        device="cpu")
 
 
 class TestPreprocess:

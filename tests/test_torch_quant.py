@@ -33,6 +33,7 @@ from debias_vision_lang_torch.ops import _build
 from debias_vision_lang_torch.ops import fused_block_q as fbq
 from debias_vision_lang_torch.ops import quant
 from debias_vision_lang_torch.vision.preprocess import patchify_u8
+from torch_port_config import port_config
 
 torch.set_num_threads(1)
 
@@ -43,6 +44,7 @@ CFG = CLIPConfig(
     text=TextConfig(vocab_size=512, context_length=16, width=32, layers=2,
                     heads=2, embed_dim=32))
 XLA_INT8_ATOL = 5e-3
+TCFG = port_config(CFG)  # the port's own config object, same fields
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +54,9 @@ def pair():
     rng = np.random.default_rng(0)
     np_params = jax.tree.map(
         lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32),
-        to_jax_tree(tclip.init_clip_params(CFG, torch.Generator().manual_seed(0))))
-    model = tclip.CLIP(CFG)
-    model.load_state_dict(params_from_jax(np_params, CFG))
+        to_jax_tree(tclip.init_clip_params(TCFG, torch.Generator().manual_seed(0))))
+    model = tclip.CLIP(TCFG)
+    model.load_state_dict(params_from_jax(np_params, TCFG))
     return jax.tree.map(jnp.asarray, np_params), model
 
 
@@ -69,7 +71,7 @@ def debias_pair(pair):
     dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32)
     jm = JDebiasCLIP(clip_params=jp, debias_tokens=jnp.asarray(deb), clip_cfg=CFG,
                      debias_cfg=dcfg)
-    return jm, TDebiasCLIP(model, torch.from_numpy(deb), dcfg)
+    return jm, TDebiasCLIP(model, torch.from_numpy(deb), port_config(dcfg))
 
 
 def _tokens(rng, b=4, s=16, vocab=512):
@@ -313,6 +315,7 @@ class TestLadder:
                                                         layers=(1, 1, 1, 1), heads=8,
                                                         embed_dim=32),
                          text=CFG.text)
+        cfg = port_config(cfg)
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             quant.QuantizedCLIP(types.SimpleNamespace(cfg=cfg))
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):

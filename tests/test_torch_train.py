@@ -33,6 +33,7 @@ from debias_vision_lang_torch.models.debias import (DebiasCLIP, apply_grad_mask,
                                                     classify_params, layer_counts,
                                                     trainable_mask)
 from debias_vision_lang_torch.train import adversarial as adv_t
+from torch_port_config import port_config
 
 torch.set_num_threads(1)
 
@@ -44,6 +45,17 @@ CFG = CLIPConfig(
     text=TextConfig(vocab_size=VOCAB, context_length=CTX, width=32, layers=1, heads=2,
                     embed_dim=16))
 ACFG = AdversaryConfig(n_input=N_PROMPTS, hidden_size=8)
+
+
+# The port is driven with its own config objects, built from the JAX
+# package's ones field by field (port_config).
+def _create(model, adv, tcfg, *args, **kw):
+    return adv_t.AdversarialTrainer.create(model, adv, port_config(tcfg), *args, **kw)
+
+
+def _build_train_steps(cfg, dcfg, acfg, tcfg, *args, **kw):
+    return adv_t.build_train_steps(port_config(cfg), port_config(dcfg), port_config(acfg),
+                                   port_config(tcfg), *args, **kw)
 
 
 def _ids(rng, b):
@@ -106,13 +118,13 @@ def _jax_adversary(world):
 
 def _port_model(world, dcfg):
     params, tokens, _, _ = world
-    clip = CLIP(CFG)
-    clip.load_state_dict(params_from_jax(params, CFG))
-    return DebiasCLIP(clip, torch.from_numpy(tokens.copy()), dcfg)
+    clip = CLIP(port_config(CFG))
+    clip.load_state_dict(params_from_jax(params, port_config(CFG)))
+    return DebiasCLIP(clip, torch.from_numpy(tokens.copy()), port_config(dcfg))
 
 
 def _port_adversary(world):
-    adv = Adversary(ACFG)
+    adv = Adversary(port_config(ACFG))
     adv.load_state_dict(adversary_params_from_jax(world[2]))
     return adv
 
@@ -151,8 +163,8 @@ class TestFreezingPolicy:
             CFG, vision=dataclasses.replace(CFG.vision, layers=3),
             text=dataclasses.replace(CFG.text, layers=2))
         params = jax.tree.map(np.array, init_clip_params(jax.random.key(0), cfg))
-        clip = CLIP(cfg)
-        clip.load_state_dict(params_from_jax(params, cfg))
+        clip = CLIP(port_config(cfg))
+        clip.load_state_dict(params_from_jax(params, port_config(cfg)))
         return params, clip
 
     @pytest.mark.parametrize("n_text", [0, 1, 2])
@@ -164,7 +176,7 @@ class TestFreezingPolicy:
         params, clip = deep
         dcfg = DebiasConfig(n_train_text_layers=n_text, n_train_vid_layers=n_vid,
                             freeze_proj=freeze_proj)
-        got = trainable_mask(clip, dcfg)
+        got = trainable_mask(clip, port_config(dcfg))
         assert got == _jax_mask_by_name(jax_mask(params, dcfg))
         assert set(got) == {n for n, _ in clip.named_parameters()}
 
@@ -178,7 +190,7 @@ class TestFreezingPolicy:
         with pytest.raises(ValueError) as want:
             jax_mask(params, dcfg)
         with pytest.raises(ValueError) as got:
-            trainable_mask(clip, dcfg)
+            trainable_mask(clip, port_config(dcfg))
         assert str(got.value) == str(want.value)
 
     def test_classify_and_counts(self, deep):
@@ -194,7 +206,7 @@ class TestFreezingPolicy:
 
     def test_apply_grad_mask(self, deep):
         _, clip = deep
-        mask = trainable_mask(clip, DebiasConfig(n_train_text_layers=1))
+        mask = trainable_mask(clip, port_config(DebiasConfig(n_train_text_layers=1)))
         grads = {n: torch.ones_like(p) for n, p in clip.named_parameters()}
         out = apply_grad_mask(grads, mask)
         assert float(out["text.resblocks.1.attn.wo"].sum()) == 32 * 32
@@ -298,7 +310,7 @@ class TestOptimizer:
 
         from debias_vision_lang_tpu.train.adversarial import make_optimizer as jax_opt
 
-        sched = adv_t.lr_schedule(2e-3, tcfg)
+        sched = adv_t.lr_schedule(2e-3, port_config(tcfg))
         peak = 2e-3
         if tcfg.lr_schedule == "constant":
             want = lambda n: peak  # noqa: E731
@@ -322,7 +334,7 @@ class TestOptimizer:
         with pytest.raises(ValueError, match=match):
             jax_opt(1e-3, TrainConfig(**kw))
         with pytest.raises(ValueError, match=match):
-            adv_t.make_optimizer(1e-3, TrainConfig(**kw), [])
+            adv_t.make_optimizer(1e-3, port_config(TrainConfig(**kw)), [])
 
     @pytest.mark.parametrize("max_norm", [0.5, 100.0])
     def test_clip_is_optax(self, max_norm):
@@ -356,7 +368,7 @@ class TestOptimizer:
         jp = [jnp.asarray(p) for p in p0]
         state = tx.init(jp)
         tp = [torch.from_numpy(p.copy()).requires_grad_(True) for p in p0]
-        opt = adv_t.make_optimizer(1e-2, tcfg, tp)
+        opt = adv_t.make_optimizer(1e-2, port_config(tcfg), tp)
         for _ in range(5):
             grads = [rng.normal(size=p.shape).astype(np.float32) for p in p0]
             upd, state = tx.update([jnp.asarray(g) for g in grads], state, jp)
@@ -403,7 +415,7 @@ def test_trainer_matches_jax(world, variant):
     jt = JTrainer.create(_jax_model(world, dcfg), _jax_adversary(world), tcfg, sens,
                          use_pallas=False)
     model, adv = _port_model(world, dcfg), _port_adversary(world)
-    pt = AdversarialTrainer.create(model, adv, tcfg, sens)
+    pt = AdversarialTrainer.create(model, adv, port_config(tcfg), sens)
     assert (jt.grad_mask is None) == (pt.grad_mask is None)
     assert jt.trains_image == pt.trains_image
     rng = np.random.default_rng(11)
@@ -455,14 +467,14 @@ def test_trainer_matches_jax(world, variant):
 class TestTrainerSurface:
     def test_step_from_embeddings_refuses_image_training(self, world):
         dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32, n_train_vid_layers=1)
-        tr = adv_t.AdversarialTrainer.create(_port_model(world, dcfg), _port_adversary(world),
+        tr = _create(_port_model(world, dcfg), _port_adversary(world),
                                              TrainConfig(), world[3])
         with pytest.raises(ValueError, match="frozen image path"):
             tr.step_from_embeddings(np.zeros((8, 16)), np.zeros(8), np.zeros((8, 16)),
                                     _ids(np.random.default_rng(0), 8))
 
     def test_negative_cadence_raises(self, world):
-        tr = adv_t.AdversarialTrainer.create(
+        tr = _create(
             _port_model(world, DebiasConfig(hidden_dim=32)), _port_adversary(world),
             TrainConfig(adversary_steps_per_prompt_step=-1), world[3])
         with pytest.raises(ValueError, match=">= 0"):
@@ -470,13 +482,13 @@ class TestTrainerSurface:
 
     def test_mesh_raises(self, world):
         with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            adv_t.AdversarialTrainer.create(
+            _create(
                 _port_model(world, DebiasConfig(hidden_dim=32)), _port_adversary(world),
                 TrainConfig(), world[3], mesh="auto")
 
     def test_freezing_sets_requires_grad(self, world):
         model = _port_model(world, DebiasConfig(hidden_dim=32, n_train_text_layers=1))
-        adv_t.AdversarialTrainer.create(model, _port_adversary(world), TrainConfig(), world[3])
+        _create(model, _port_adversary(world), TrainConfig(), world[3])
         grad = {n for n, p in model.clip.named_parameters() if p.requires_grad}
         assert grad == {n for n, _ in model.clip.named_parameters()
                         if n.startswith("text.resblocks.0.")}
@@ -484,7 +496,7 @@ class TestTrainerSurface:
 
     def test_maybe_update_best_snapshots_layers(self, world):
         model = _port_model(world, DebiasConfig(hidden_dim=32, n_train_text_layers=1))
-        tr = adv_t.AdversarialTrainer.create(model, _port_adversary(world), TrainConfig(),
+        tr = _create(model, _port_adversary(world), TrainConfig(),
                                              world[3])
         assert tr.maybe_update_best(0.5) and not tr.maybe_update_best(0.7)
         before = tr.best_clip_params["text.resblocks.0.attn.wo"].clone()
@@ -509,8 +521,8 @@ class TestDtypes:
         dcfg = DebiasConfig(hidden_dim=32)
         model = _port_model(world, dcfg)
         images = torch.from_numpy(_batch(5)[0])
-        fns32 = adv_t.build_train_steps(CFG, dcfg, ACFG, TrainConfig(), world[3])
-        fns16 = adv_t.build_train_steps(CFG, dcfg, ACFG,
+        fns32 = _build_train_steps(CFG, dcfg, ACFG, TrainConfig(), world[3])
+        fns16 = _build_train_steps(CFG, dcfg, ACFG,
                                         TrainConfig(embed_dtype="bfloat16"), world[3])
         e32, e16 = fns32.embed_images(model, images), fns16.embed_images(model, images)
         assert e16.dtype == torch.float32
@@ -523,7 +535,7 @@ class TestDtypes:
         results = {}
         for td in ("float32", "bfloat16"):
             model = _port_model(world, DebiasConfig(hidden_dim=32))
-            tr = adv_t.AdversarialTrainer.create(model, _port_adversary(world),
+            tr = _create(model, _port_adversary(world),
                                                  TrainConfig(train_dtype=td), world[3])
             m = tr.step(*batch)
             after = model.debias_tokens.detach()
@@ -550,9 +562,9 @@ class TestDtypes:
         dcfg = DebiasConfig(hidden_dim=32)
         model = _port_model(world, dcfg)
         images, labels, cap_images, cap_tokens = _batch(8)
-        t8 = adv_t.AdversarialTrainer.create(model, _port_adversary(world),
+        t8 = _create(model, _port_adversary(world),
                                              TrainConfig(embed_dtype="int8"), world[3])
-        fns32 = adv_t.build_train_steps(CFG, dcfg, ACFG, TrainConfig(), world[3])
+        fns32 = _build_train_steps(CFG, dcfg, ACFG, TrainConfig(), world[3])
         x = torch.from_numpy(images)
         e8, e32 = t8.fns.embed_images(model, x), fns32.embed_images(model, x)
         assert _cos_rows(e8, e32).min() > 0.97
@@ -566,7 +578,7 @@ class TestDtypes:
 
         dcfg = DebiasConfig(hidden_dim=32, n_train_vid_layers=1)
         model = _port_model(world, dcfg)
-        tr = adv_t.AdversarialTrainer.create(model, _port_adversary(world),
+        tr = _create(model, _port_adversary(world),
                                              TrainConfig(embed_dtype="int8"), world[3])
         x = torch.from_numpy(_batch(9)[0])
         before = tr.fns.embed_images(model, x)
@@ -579,7 +591,7 @@ class TestDtypes:
 
     def test_bad_dtype_raises(self, world):
         with pytest.raises(ValueError, match="train_dtype"):
-            adv_t.build_train_steps(CFG, DebiasConfig(), ACFG,
+            _build_train_steps(CFG, DebiasConfig(), ACFG,
                                     TrainConfig(train_dtype="float16"), world[3])
 
 
@@ -591,7 +603,7 @@ class TestDtypes:
 class TestState:
     def _trainer(self, world, **dkw):
         dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32, **dkw)
-        return adv_t.AdversarialTrainer.create(
+        return _create(
             _port_model(world, dcfg), _port_adversary(world),
             TrainConfig(lr_schedule="warmup_cosine", warmup_steps=1, decay_steps=10,
                         grad_clip_norm=1.0), world[3])

@@ -14,8 +14,8 @@ import pytest
 import torch
 from PIL import Image
 
-from debias_vision_lang_tpu.core.config import (CLIPConfig, DebiasConfig, TextConfig,
-                                                TrainConfig, VisionConfig)
+from debias_vision_lang_torch.core.config import (CLIPConfig, DebiasConfig, TextConfig,
+                                                  TrainConfig, VisionConfig)
 from debias_vision_lang_torch.models.clip import CLIP, init_clip_params
 from debias_vision_lang_torch.models.debias import DebiasCLIP
 
@@ -93,7 +93,7 @@ def _run(ff_root, ckpt_dir, cached=True, pairs_path=None, epochs=2, resume=False
         model=model if model is not None else tiny_model(), tokenizer=tok,
         attribute="gender", data_path=ff_root, pairs_path=pairs_path,
         checkpoint_dir=ckpt_dir, eval_n_samples=None, sensitive_prompts=PROMPTS,
-        progress=False, resume=resume,
+        progress=False, resume=resume, device="cpu",
         train_cfg=TrainConfig(batch_size=8, num_epochs=epochs, eval_every_steps=1,
                               cache_frozen_embeddings=cached,
                               embedding_cache_dir=cache_dir), **kw)
@@ -129,7 +129,8 @@ class TestRunTraining:
                            attribute="gender", epochs=1, batch_size=8, data_path=ff_root,
                            checkpoint_dir=str(tmp_path / "c"), eval_every=0,
                            eval_n_samples=None, sensitive_prompts=PROMPTS, progress=False,
-                           lr_schedule="warmup_cosine", warmup_steps=1, grad_clip_norm=1.0)
+                           lr_schedule="warmup_cosine", warmup_steps=1, grad_clip_norm=1.0,
+                           device="cpu")
         assert res["steps"] == 2 and np.isfinite(res["best_ndkl"])
         assert "/16" not in os.path.basename(res["export"])
 
@@ -220,7 +221,7 @@ class TestEmbedCache:
         assert r3["embed_cache_disk"]["train"] == "miss"
 
     def test_fingerprints(self, ff_root, tmp_path):
-        from debias_vision_lang_tpu.data.datasets import FairFace
+        from debias_vision_lang_torch.data.datasets import FairFace
         from debias_vision_lang_torch.train import embcache as ec
 
         ds = FairFace(mode="train", iat_type="gender", data_path=ff_root, download=False)
@@ -238,13 +239,14 @@ class TestBatchStreams:
     """The port trains on the JAX loop's batches: the same numpy streams."""
 
     def test_loader_order_equals_jax(self, ff_root):
-        from debias_vision_lang_tpu.data.datasets import FairFace
-        from debias_vision_lang_tpu.data.loader import HostLoader as JaxLoader
+        from debias_vision_lang_torch.data.datasets import FairFace
         from debias_vision_lang_torch.data.loader import HostLoader
+        from debias_vision_lang_tpu.data.datasets import FairFace as JaxFairFace
+        from debias_vision_lang_tpu.data.loader import HostLoader as JaxLoader
 
-        ds = FairFace(mode="train", iat_type="gender", data_path=ff_root, download=False)
-        a = JaxLoader(ds, batch_size=8, drop_remainder=True, shuffle=True, seed=5)
-        b = HostLoader(ds, batch_size=8, drop_remainder=True, shuffle=True, seed=5)
+        kw = {"mode": "train", "iat_type": "gender", "data_path": ff_root, "download": False}
+        a = JaxLoader(JaxFairFace(**kw), batch_size=8, drop_remainder=True, shuffle=True, seed=5)
+        b = HostLoader(FairFace(**kw), batch_size=8, drop_remainder=True, shuffle=True, seed=5)
         for _ in range(2):  # two epochs
             for x, y in zip(a.iter_index_batches(), b.iter_index_batches(), strict=True):
                 np.testing.assert_array_equal(x.images, y.images)
@@ -260,7 +262,7 @@ class TestBatchStreams:
             np.testing.assert_array_equal(next(a), next(b))
 
     def test_caption_batches_not_lockstep(self, ff_root):
-        from debias_vision_lang_tpu.data.datasets import FairFace
+        from debias_vision_lang_torch.data.datasets import FairFace
         from debias_vision_lang_torch.data.loader import HostLoader
         from debias_vision_lang_torch.train.loop import _caption_batches
 
