@@ -8,9 +8,12 @@ Phases (any failure exits non-zero before the final line):
      packages (information only);
   2. build the hand-written kernels (csrc/fused_block.cu,
      csrc/fused_block_q.cu and csrc/attention.cu, one nvcc each, started
-     together, sm_90a); count the HGMMA (wgmma) and UTMALDG (TMA load)
-     instructions in the bf16 library's SASS (cuobjdump), and fail if either
-     is 0: a build that fell back to mma.sync cannot pass unseen;
+     together, sm_90a); count instructions in each library's SASS
+     (cuobjdump) and fail if a design's own is 0, so a build that fell back
+     to mma.sync or to the CUDA cores cannot pass unseen: HGMMA (bf16 wgmma)
+     and UTMALDG (TMA load) in the bf16 library, IGMMA (s8 wgmma) and
+     UTMALDG in the int8 library, HGMMA (K5's bf16 route) and the TF32 HMMA
+     forms (its 3xTF32 float32 route) in the attention library;
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
@@ -25,7 +28,12 @@ Phases (any failure exits non-zero before the final line):
      two blocks are split by sub-kernel with torch.profiler (LN, QKV GEMM,
      core, out GEMM; LN, up GEMM, down GEMM), each GEMM with its TFLOP/s and
      share of the bf16 peak;
-  4. main path: a ViT-B/16 DebiasCLIP (2 prepended prompt tokens, random
+  4. main path: first native.available() for the port's native ingest and,
+     when it is false, its build error; the run fails unless the only cause
+     is a machine without the codec headers (jpeglib.h, png.h), and every
+     wall time that reads image files names the decode path it took, so none
+     silently comes from the Python path; then a ViT-B/16 DebiasCLIP (2
+     prepended prompt tokens, random
      init from seed 0, full width and depth) through HostLoader (batch 256,
      patch-contiguous staging), get_labels_img_embeddings(dtype="bfloat16"),
      get_prompt_embeddings (the 319 generated prompts, stdlib byte
@@ -42,7 +50,11 @@ Phases (any failure exits non-zero before the final line):
      codes of the quantized rows (LN output, attention output, MLP hidden):
      the twin's quantizer applied to the kernel's own rows gives the kernel's
      codes and scales exactly, and the codes differ from the twin's in at
-     most 1e-3 of all (by at most 1 in the LN and hidden rows);
+     most 1e-3 of all (by at most 1 in the LN and hidden rows); a ragged M
+     (B=3 S=77: 231 rows) with both activations; at B=256 mlp_block_q is
+     split by sub-kernel with torch.profiler (LN, quantize x, up GEMM,
+     quantize h, down GEMM), each GEMM with its TOP/s and share of the int8
+     peak;
   7. the int8 main path: the same model and images through
      get_labels_img_embeddings(dtype="int8") (QuantizedCLIP, P8 staging, the
      int8 kernels with bf16 activations between them): 12 x 4 launches of
@@ -51,13 +63,17 @@ Phases (any failure exits non-zero before the final line):
   8. the int8 text tower ("int8-text"): 12 causal int8 launches, cosine
      against the float32 text tower;
   9. K5 phase: attention_pallas (csrc/attention.cu) against its twin
-     attention_kernel_math, TF32 off, float32 and bfloat16, at the image
-     shapes B=8 and B=64 (H=12, S=197) with a zero and a random additive
-     mask, and the text shapes B=319 (the sensitive prompts) and B=64 (a
-     caption batch), H=8, S=77, with CLIP's causal mask; bars 2e-5 of the
-     twin's largest magnitude at float32, one bf16 ulp at bfloat16; timed,
-     beside F.scaled_dot_product_attention with the same additive mask at
-     the same shapes and dtype (the yardstick; the port never calls it);
+     attention_kernel_math, TF32 off, float32 (3xTF32 on the tensor cores)
+     and bfloat16 (the wgmma core), at the image shapes B=8 and B=64 (H=12,
+     S=197) with a zero and a random additive mask, and the text shapes
+     B=319 (the sensitive prompts) and B=64 (a caption batch), H=8, S=77,
+     with CLIP's causal mask, all timed beside
+     F.scaled_dot_product_attention with the same additive mask at the same
+     shapes and dtype (the yardstick; the port never calls it); then,
+     checked only, B=2 H=8 at S = 1, 7, 32, 33, 80, 81, 200, 201, 256, 257
+     and 320 (both sides of every key bucket) with the zero and the causal
+     mask, and a ragged B*H (B=3 H=5, S=197, random mask); bars 2e-5 of the
+     twin's largest magnitude at float32, one bf16 ulp at bfloat16;
  10. training on the K5 path: a copy of the phase-4 model in
      AdversarialTrainer.create(use_pallas=True), float32, batch 64, the 319
      prompts as the sensitive set, 64 caption tokens; 3 steps; the K5 launch
@@ -90,8 +106,11 @@ Phases (any failure exits non-zero before the final line):
 The kernels line gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
-over 3.35 TB/s) and the library call's time where one PyTorch call computes
-the same function.  The line before the last is the card's ``nvidia-smi``
+over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
+its 3xTF32 design runs them) and the library call's time where one PyTorch
+call computes the same function.  K5 has two rows: float32 causal B=319
+S=77 (the text shape) and float32 B=64 S=197 (the image shape that holds
+most of its training launches).  The line before the last is the card's ``nvidia-smi``
 name and power limit; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -121,9 +140,9 @@ TRAIN_BATCH, TRAIN_STEPS = 64, 3
 UPDATE_COS_K5 = 0.9999  # first token gradient and update, K5 vs the plain float32 path
 UPDATE_COS_BF16 = 0.99  # token gradients, bf16 vs float32
 UPDATE_FLIP_MAX_BF16 = 0.05  # first token update, bf16 vs float32: share of sign flips
-# NVIDIA H100 SXM, dense: tensor-core bf16 and int8, float32 outside the tensor
-# cores, and HBM3 bandwidth (the bounds in the kernels line)
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# NVIDIA H100 SXM, dense: tensor-core bf16, int8 and TF32, float32 outside the
+# tensor cores, and HBM3 bandwidth (the bounds in the kernels line)
+PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 494.7e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -164,10 +183,15 @@ def mlp_block_work(b, s, d, f, weights="bf16"):
     return {weights: 4 * m * d * f}, 2 * m * d * 2 + 2 * d * f * wb + (3 * d + f) * 4 + extra
 
 
-def attention_work(b, h, s, dtype_bytes, dtype):
+def attention_work(b, h, s, f32, cuda_cores=False):
     """K5: softmax(q k^T / 8 + mask) v over [B, H, S, 64] with an [S, S] f32
-    additive mask (every pair is computed: the mask is data)."""
-    return {dtype: 4 * b * h * s * s * 64}, 4 * b * h * s * 64 * dtype_bytes + s * s * 4
+    additive mask (every pair is computed: the mask is data).  float32 runs
+    3xTF32: three TF32 products per f32 product on the tensor cores
+    (``cuda_cores``: f32 FMAs on the CUDA cores, the bound of the design
+    that ran them, for comparison)."""
+    flops = 4 * b * h * s * s * 64
+    ops = ({"f32": flops} if cuda_cores else {"tf32": 3 * flops}) if f32 else {"bf16": flops}
+    return ops, 4 * b * h * s * 64 * (4 if f32 else 2) + s * s * 4
 
 
 def ulp_bf16(mag: float) -> float:
@@ -208,13 +232,12 @@ def print_ptxas(lib: str, log: str) -> None:
     name = spill = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(gemm_q_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
-                      r"attention_core_kernel|layer_norm_kernel|"
-                      r"quant_rows_kernel|attention_bf16_kernel|attention_f32_kernel)"
-                      r"(?:I(13__nv_bfloat16|f)?Li(\d+)E)?", line)
+                      r"(gemm_q_kernel|gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
+                      r"attention_core_kernel|layer_norm_kernel|quant_rows_kernel|"
+                      r"attention_f32_kernel)(I(?:Li\d+E|13__nv_bfloat16|f)+E)?", line)
         if m:
-            args = [a for a in ({"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2)),
-                                m.group(3)) if a]
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE"))
+                    for a in re.findall(r"Li\d+E|13__nv_bfloat16|f", m.group(2) or "")]
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -241,20 +264,31 @@ def find_cuobjdump():
         return None
 
 
-def sass_check(path) -> None:
-    """HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in the bf16
-    library's SASS; either at 0 fails the run."""
+# SASS instructions each library's design must contain (regex per name):
+# bf16 wgmma and TMA loads for K1/K2, s8 wgmma and TMA loads for K4, and for
+# K5 the bf16 wgmma core and the TF32 mma.sync of its 3xTF32 float32 route
+SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
+            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\."}
+SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"), "fused_block_q": ("IGMMA", "UTMALDG"),
+                 "attention": ("HGMMA", "HMMA.TF32")}
+
+
+def sass_check(lib, path) -> None:
+    """Count SASS_OPS in one library's SASS; any of SASS_REQUIRED[lib] at 0
+    fails the run."""
     tool = find_cuobjdump()
     if tool is None:
         print("sass: no cuobjdump found (PATH, /usr/local/cuda/bin, triton's package): "
-              "the wgmma/TMA instruction count is not checked")
+              "the wgmma/TMA/TF32 instruction counts are not checked")
         return
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
-    print(f"sass {os.path.basename(str(path))}: {counts} (cuobjdump {tool})")
-    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-          "the bf16 library has no wgmma (HGMMA) or no TMA load (UTMALDG) in its SASS")
+    counts = {op: len(re.findall(rx, sass)) for op, rx in SASS_OPS.items()}
+    forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", sass)))
+    print(f"sass {lib} ({os.path.basename(str(path))}): {counts}; forms {forms} "
+          f"(cuobjdump {tool})")
+    missing = [op for op in SASS_REQUIRED[lib] if counts[op] == 0]
+    check(not missing, f"the {lib} library has no {missing} instructions in its SASS")
 
 
 def block_params(d, device, seed):
@@ -275,14 +309,33 @@ def block_params(d, device, seed):
     return attn, mlp
 
 
-GEMM_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out GEMM",
-              "gemm_wgmma_kernel<2>": "up GEMM", "gemm_wgmma_kernel<3>": "up GEMM",
-              "gemm_wgmma_kernel<4>": "down GEMM"}
+SPLIT_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out GEMM",
+               "gemm_wgmma_kernel<2>": "up GEMM", "gemm_wgmma_kernel<3>": "up GEMM",
+               "gemm_wgmma_kernel<4>": "down GEMM", "gemm_s8_kernel<2>": "up GEMM",
+               "gemm_s8_kernel<3>": "up GEMM", "gemm_s8_kernel<4>": "down GEMM",
+               "layer_norm_kernel": "LN"}
+SPLIT_ORDER = ["LN", "quantize x", "QKV GEMM", "core", "out GEMM", "up GEMM", "quantize h",
+               "down GEMM"]
 
 
-def subkernel_split(name, fn, gemm_flops, card, iters=5):
+def split_label(key: str) -> str:
+    """A block's sub-kernel by its profiler name: the GEMMs by epilogue, the
+    quantize pass by its input (bf16 LN output or f32 hidden)."""
+    m = re.match(r"^.*?(\w+_kernel)(?:<([^>]*)>)?", key)
+    if not m:
+        return key
+    kernel, args = m.group(1), m.group(2)
+    short = f"{kernel}<{args}>" if args else kernel
+    if short in SPLIT_NAMES:
+        return SPLIT_NAMES[short]
+    if kernel == "quant_rows_kernel":
+        return "quantize x" if "bfloat16" in (args or "") else "quantize h"
+    return "core" if kernel == "attention_wgmma_kernel" else short
+
+
+def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5):
     """ms per call of each device kernel of one block call (torch.profiler),
-    and each GEMM's TFLOP/s and share of the bf16 peak."""
+    and each GEMM's rate and share of the peak for ``kind`` (bf16 or int8)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,18 +350,15 @@ def subkernel_split(name, fn, gemm_flops, card, iters=5):
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us <= 0:
             continue
-        key = re.sub(r"^.*?(\w+_kernel)(?:<(\d+)>)?.*$", lambda m: m.group(1) + (
-            f"<{m.group(2)}>" if m.group(2) else ""), ev.key)
-        label = GEMM_NAMES.get(key, {"layer_norm_kernel": "LN"}.get(
-            key, "core" if key.startswith("attention_wgmma_kernel") else key))
+        label = split_label(ev.key)
         ms = us / iters / 1e3
         text = f"{label} {ms:.4f} ms"
-        if label in gemm_flops:
-            tflops = gemm_flops[label] / ms / 1e9
-            text += f" ({tflops:.1f} TFLOP/s, {tflops / (PEAK['bf16'] / 1e12):.1%} of bf16 peak)"
+        if label in gemm_ops:
+            rate = gemm_ops[label] / ms / 1e9
+            unit = "TFLOP/s" if kind == "bf16" else "TOP/s"
+            text += f" ({rate:.1f} {unit}, {rate / (PEAK[kind] / 1e12):.1%} of {kind} peak)"
         parts.append((label, ms, text))
-    order = ["LN", "QKV GEMM", "core", "out GEMM", "up GEMM", "down GEMM"]
-    parts.sort(key=lambda p: order.index(p[0]) if p[0] in order else len(order))
+    parts.sort(key=lambda p: SPLIT_ORDER.index(p[0]) if p[0] in SPLIT_ORDER else len(SPLIT_ORDER))
     print(f"split {name}: " + "; ".join(p[2] for p in parts)
           + f"; sum {sum(p[1] for p in parts):.4f} ms ({card})")
 
@@ -419,11 +469,12 @@ def q_block_params(d, device, seed):
              {"w1_qt": w1.qt, "w2_qt": w2.qt}))
 
 
-def kernel_phase_q(fbq, device):
+def kernel_phase_q(fbq, device, card):
     """attention_block_q / mlp_block_q against their twins at the B=8 shapes
-    (x and x/16, and a gelu MLP), at the int8 main path's B=256 image shapes
-    and at the int8 text tower's B=319 shapes (timed).  Returns the JSON rows
-    without launch counts, and the text-shape times."""
+    (x and x/16, and a gelu MLP), at a ragged M (both activations), at the
+    int8 main path's B=256 image shapes (timed; mlp_block_q split by
+    sub-kernel) and at the int8 text tower's B=319 shapes (timed).  Returns
+    the JSON rows without launch counts, and the text-shape times."""
     import torch
 
     def compare(name, kern, plain, x, block, kw):
@@ -472,6 +523,13 @@ def kernel_phase_q(fbq, device):
             x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
             compare(f"mlp_block_q B={b} S={s} D={d} F={4 * d} gelu", *mlp_fns, x, mlp,
                     {"act_kind": "gelu"})
+    # a ragged M: 3 x 77 = 231 rows against the s8 GEMM's 128-row tile
+    _, mlp = q_block_params(512, device, seed=5)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(3, 77, 512, generator=g) * scale).to(device, torch.bfloat16)
+        for act in ("quick_gelu", "gelu"):
+            compare(f"mlp_block_q B=3 S=77 D=512 x~N(0,{scale}^2) (ragged M) F=2048 {act}",
+                    *mlp_fns, x, mlp, {"act_kind": act})
     torch.cuda.synchronize()
 
     attn, mlp = q_block_params(768, device, seed=7)
@@ -493,6 +551,11 @@ def kernel_phase_q(fbq, device):
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+    m = BATCH * 197
+    subkernel_split(f"mlp_block_q B={BATCH} S=197 D=768 F=3072",
+                    lambda: fbq.mlp_block_q(x, *mlp[0], **mlp[1]),
+                    {"up GEMM": 2 * m * 768 * 3072, "down GEMM": 2 * m * 768 * 3072}, card,
+                    kind="int8")
     # the int8 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = q_block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -541,34 +604,40 @@ def cosine_check(tag, got, ref):
 
 
 def kernel_phase_attn(A, device):
-    """attention_pallas (K5) against attention_kernel_math at the image and
-    text shapes, float32 and bfloat16, timed.  Returns one dict per case."""
+    """attention_pallas (K5) against attention_kernel_math, float32 and
+    bfloat16: at the image and text shapes (timed, beside SDPA), then at both
+    sides of every key bucket and a ragged B*H (checked only).  Returns one
+    dict per timed case."""
     import torch
     from debias_vision_lang_torch.models.layers import causal_mask
 
     g = torch.Generator().manual_seed(3)
+
+    def run_case(dtype, b, h, s, kind):
+        q, k, v = (torch.randn(b, h, s, 64, generator=g).to(device, dtype) for _ in range(3))
+        mask = {"zero": lambda: torch.zeros(s, s),
+                "random": lambda: torch.randn(s, s, generator=g),
+                "causal": lambda: causal_mask(s)}[kind]().to(device)
+        got = A.attention_pallas(q, k, v, mask)
+        ref = A.attention_kernel_math(q, k, v, mask)
+        err = (got.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        f32 = dtype == torch.float32
+        tol = 2e-5 * mag if f32 else ulp_bf16(mag)
+        tag = f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s} mask={kind}"
+        print(f"kernel {tag}: max_abs_err {err} (tolerance {tol} = "
+              f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag})")
+        check(got.dtype == dtype and math.isfinite(err) and err <= tol,
+              f"{tag}: kernel disagrees with its twin")
+        return tag, (q, k, v, mask), err
+
     cases = [(8, 12, 197, "zero"), (8, 12, 197, "random"), (64, 12, 197, "zero"),
              (64, 12, 197, "random"), (319, 8, 77, "causal"), (64, 8, 77, "causal")]
     out = []
     for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
         for b, h, s, kind in cases:
-            q, k, v = (torch.randn(b, h, s, 64, generator=g).to(device, dtype)
-                       for _ in range(3))
-            mask = {"zero": lambda: torch.zeros(s, s),
-                    "random": lambda: torch.randn(s, s, generator=g),
-                    "causal": lambda: causal_mask(s)}[kind]().to(device)
-            got = A.attention_pallas(q, k, v, mask)
-            ref = A.attention_kernel_math(q, k, v, mask)
-            err = (got.float() - ref.float()).abs().max().item()
-            mag = ref.float().abs().max().item()
-            f32 = dtype == torch.float32
-            tol = 2e-5 * mag if f32 else ulp_bf16(mag)
-            tag = (f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s} "
-                   f"mask={kind}")
-            print(f"kernel {tag}: max_abs_err {err} (tolerance {tol} = "
-                  f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag})")
-            check(got.dtype == dtype and math.isfinite(err) and err <= tol,
-                  f"{tag}: kernel disagrees with its twin")
+            tag, (q, k, v, mask), err = run_case(dtype, b, h, s, kind)
             lib_mask = mask.to(dtype)
             out.append({"tag": tag, "dtype": "f32" if f32 else "bf16", "b": b, "h": h, "s": s,
                         "mask": kind, "err": err,
@@ -577,10 +646,39 @@ def kernel_phase_attn(A, device):
                         "library_ms": cuda_ms(lambda: torch.nn.functional.
                                               scaled_dot_product_attention(
                                                   q, k, v, attn_mask=lib_mask)),
-                        "bound": bound(*attention_work(b, h, s, 4 if f32 else 2,
-                                                       "f32" if f32 else "bf16"))})
+                        "bound": bound(*attention_work(b, h, s, f32)),
+                        "bound_cuda_cores": bound(*attention_work(b, h, s, f32, True))
+                        if f32 else None})
+    # both sides of every key bucket of the kernels (32, 80, 200, 256, 320
+    # keys), and a B*H that is no multiple of anything the kernels tile by
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1, 7, 32, 33, 80, 81, 200, 201, 256, 257, 320):
+            for kind in ("zero", "causal"):
+                run_case(dtype, 2, 8, s, kind)
+        run_case(dtype, 3, 5, 197, "random")
     torch.cuda.synchronize()
     return out
+
+
+def ingest_path() -> str:
+    """Which path decodes image files: the port's native ingest, or PIL when
+    this machine lacks the codec headers (libjpeg, libpng) it compiles
+    against.  Any other build or load failure of the port's own library
+    fails the run: the loaders would hide it behind the Python path."""
+    from debias_vision_lang_torch import native
+
+    if native.available():
+        print("native ingest: available (decode, resize, crop and staging in C++)")
+        return "native ingest"
+    err = native.build_error() or ""
+    headers = re.findall(r"fatal error: (\w+\.h): No such file", err)
+    print(f"native ingest: available False; build error: {err.strip()[-600:]}")
+    check(bool(headers) and set(headers) <= {"jpeglib.h", "png.h"},
+          "the port's native ingest library failed to build or load for a reason other "
+          "than missing codec headers: the loaders would silently take the Python path")
+    print(f"native ingest: this machine has no {', '.join(headers)}; image files are decoded "
+          f"by PIL, and every wall time below that reads files says so")
+    return "PIL decode (no codec headers for the native ingest)"
 
 
 def reset_all(*modules):
@@ -749,12 +847,14 @@ def main() -> int:
           f"(nvcc {_build.BUILD_SECONDS or 'cached'})")
     for lib in ("fused_block", "fused_block_q", "attention"):
         print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
-    sass_check(_build.LIB_PATHS["fused_block"])
+        sass_check(lib, _build.LIB_PATHS[lib])
 
     # 3. bf16 kernels against their twins
     rows, text_ms = kernel_phase(fb, device, card)
 
-    # 4. main path
+    # 4. main path; the port's native ingest is checked first (the library
+    # keeps its Python fallback; the measurement does not take it unseen)
+    decode = ingest_path()
     t0 = time.perf_counter()
     model, _, tokenizer, alias = DebiasCLIP.from_cfg(
         {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False,
@@ -780,7 +880,8 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     launches = {**fb.LAUNCHES, **fbq.LAUNCHES}
     print(f"main path: {N_IMAGES} images + {len(prompts)} prompts in {main_s:.3f} s "
-          f"(host clock, includes decode); launches {launches}")
+          f"(host clock, includes staging of in-memory uint8 images; {decode} for files); "
+          f"launches {launches}")
     check(launches["attention_block"] == LAYERS * n_batches,
           f"attention_block launched {launches['attention_block']} times, "
           f"expected {LAYERS * n_batches}")
@@ -812,7 +913,7 @@ def main() -> int:
     cosine_check("bf16 text tower vs float32", txt16, txt32)
 
     # 6. int8 kernels against their twins
-    rows_q, text_ms_q = kernel_phase_q(fbq, device)
+    rows_q, text_ms_q = kernel_phase_q(fbq, device, card)
 
     # 7. the int8 main path: the same model and images, wrapped once
     t0 = time.perf_counter()
@@ -953,7 +1054,7 @@ def main() -> int:
             log = os.path.join(res["checkpoint_dir"], "logs", "metrics.jsonl")
             losses = [r["loss"] for r in map(json.loads, open(log)) if "loss" in r]
             print(f"run_training {'cached' if cached else 'decode'}: {res['steps']} steps "
-                  f"in {wall:.2f} s (host clock, includes decode and 2 evals), best NDKL "
+                  f"in {wall:.2f} s (host clock, includes {decode} and 2 evals), best NDKL "
                   f"{res['best_ndkl']}, losses {losses}, launches {counts}")
             # cached: 4 embed-cache batches x 12 image layers + 4 steps x 36 text;
             # decode: 4 steps x (24 image + 36 text); the evals run float32 plain
@@ -1010,10 +1111,13 @@ def main() -> int:
             print(f"image tower B={BATCH} {label}: {ms:.3f} ms/batch, "
                   f"{BATCH / ms * 1e3:.1f} img/s ({card})")
     for c in attn_cases:
+        old = (f"; CUDA-core bound {c['bound_cuda_cores'][0]:.4f} ms "
+               f"({c['bound_cuda_cores'][1]}), had the products run as f32 FMAs"
+               if c["bound_cuda_cores"] else "")
         print(f"time {c['tag']}: kernel {c['ms']:.4f} ms, plain twin {c['plain_ms']:.4f} ms, "
               f"scaled_dot_product_attention {c['library_ms']:.4f} ms, bound "
               f"{c['bound'][0]:.4f} ms ({c['bound'][1]}; the kernel at "
-              f"{c['bound'][0] / c['ms']:.1%} of it) ({card})")
+              f"{c['bound'][0] / c['ms']:.1%} of it{old}) ({card})")
     for tag, run in (("plain float32", run_plain), ("K5 (use_pallas=True) float32", run_k5),
                      ("bf16 kernels", run_bf16)):
         steady = sum(run["times"][1:]) / len(run["times"][1:]) * 1e3
@@ -1022,18 +1126,21 @@ def main() -> int:
               f"; host clock) ({card})")
     for cached in (True, False):
         print(f"run_training {'cached' if cached else 'decode'}: {runs[cached][2]:.2f} s "
-              f"({card})")
+              f"({decode}; {card})")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    k5 = next(c for c in attn_cases if c["dtype"] == "f32" and c["b"] == 319)
-    row_k5 = {"name": "attention_pallas", "route": "cuda",
-              "source": "debias_vision_lang_torch/csrc/attention.cu",
-              "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
-              "launches": run_k5["counts"]["attention_pallas"],
-              "max_abs_err": k5["err"], "ms": k5["ms"],
-              "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
-              "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]}
-    print(json.dumps({"kernels": rows + rows_q + [row_k5]}))
+    rows_k5 = []
+    for b, s, mask in ((319, 77, "causal"), (64, 197, "zero")):
+        k5 = next(c for c in attn_cases
+                  if c["dtype"] == "f32" and (c["b"], c["s"], c["mask"]) == (b, s, mask))
+        rows_k5.append({"name": "attention_pallas", "case": k5["tag"], "route": "cuda",
+                        "source": "debias_vision_lang_torch/csrc/attention.cu",
+                        "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
+                        "launches": run_k5["counts"]["attention_pallas"],
+                        "max_abs_err": k5["err"], "ms": k5["ms"],
+                        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
+                        "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]})
+    print(json.dumps({"kernels": rows + rows_q + rows_k5}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,275 +7,230 @@
 // + mask) v over q, k, v [B*H, S, 64] and an additive f32 mask [S, S] read
 // from memory (CLIP's causal mask holds -inf above the diagonal: those keys
 // give exp = 0).  The numerics are the plain twin's, attention_kernel_math:
-//   * bf16 inputs: bf16 products on the tensor cores (mma.sync m16n8k16)
-//     with f32 accumulation; scores * scale + mask, the row max, exp and the
-//     row sum in f32; probabilities normalised in f32 and rounded to bf16
-//     BEFORE the PV product; output rounded to bf16 -- the rounding points
-//     of the fused-block attention core (common.cuh), whose register-
-//     resident score rows this kernel reuses.  A flash-style online softmax
-//     would round elsewhere and is another function at bf16;
-//   * f32 inputs: f32 FMAs on the CUDA cores, never TF32 (the twin is exact
-//     f32 math, and TF32 keeps ~3 decimal digits).
+// scores * scale + mask (two roundings, no FMA), the row max, exp, the row
+// sum and the normalisation in f32 on the CUDA cores, over whole score rows
+// held in registers (S <= 320); then P @ V.
+//   * bf16 inputs: the wgmma core of attention_wgmma.cuh that K1 runs, read
+//     through three heads-first tensor maps: bf16 products with f32
+//     accumulation, P rounded to bf16 before P @ V, one output rounding;
+//   * f32 inputs: both products on the tensor cores as 3xTF32 (CUTLASS's
+//     OpMultiplyAddFastF32, which PyTorch's memory-efficient attention runs
+//     for float32): each operand x splits into big = tf32(x) and small =
+//     tf32(x - big) (cvt.rna), and each product is big*big + big*small +
+//     small*big on mma.sync m16n8k8 tf32, accumulated in f32.  The dropped
+//     small*small term and the split are ~2^-22 of each product, far inside
+//     the twin's 2e-5 bar; a single TF32 product keeps ~3 decimal digits
+//     and misses it (tests/test_torch_attention.py holds both).
 // The TPU kernel's padding (S to 8/16, hd to 128 lanes, padded keys at -1e9)
 // and its VMEM group budget are TPU devices and are not carried over: here
-// ragged key tiles are zero-filled and masked at -inf.
+// keys past S are zero-filled on load and masked at -inf.
 //
 // What bounds it on an H100: at the slice's shapes (S = 197 image, S = 77
-// text, hd = 64) one (batch, head) slice is ~1.6 MFLOP per 64 query rows
-// over K and V of <= 80 KB; the whole op is small against the projections
-// around it, and latency-bound unless many blocks share each SM.  The f32
-// variant keeps K and V of the slice in shared memory and each query row's
-// scores in registers (<= 10 per lane); it is bound by shared-memory reads
-// (one K or V load per FMA).  A simple, right kernel first; wgmma, TMA and a
-// fused backward are later work.
+// text, hd = 64) the whole op moves q, k, v and out once (0.046 ms at
+// B=64 H=12 S=197 in f32 over 3.35 TB/s) and its products, three TF32
+// products per f32 one, take about as long at the TF32 peak; f32 FMAs on
+// the CUDA cores (67 TFLOP/s) could not come near either.  This design: one
+// block per (batch, head) slice loads K and V once into shared memory (rows
+// padded so the fragment loads hit 32 banks) and its eight warps walk the
+// slice's 16-row query chunks; each warp keeps its chunk's score rows and
+// outputs in mma.sync accumulators, and the probabilities feed P @ V from the
+// accumulator layout without a shuffle: inside each 8-key step the k index
+// t stands for key 2t and t + 4 for key 2t + 1, in P and in V alike (and
+// likewise for the head dims of Q K^T, so each Q or K pair is one float2).
 //
 // The entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
-#include "common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// bf16: one block per (64 query rows, batch*head slice); each of the 4 warps
-// owns 16 query rows and keeps their whole f32 score rows in mma.sync
-// accumulator fragments (see common.cuh::attention_core_kernel).
-// ---------------------------------------------------------------------------
+constexpr int F32_THREADS = 256;  // 8 warps, 16 query rows each at a time
+constexpr int LDK32 = HD + 8;     // K row stride (floats): float2 loads of rows g hit 32 banks
+constexpr int LDV32 = HD + 4;     // V row stride: loads of rows 2t and 2t + 1 hit 32 banks
 
-template <int NT>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const float* __restrict__ mask,
-                      bf16* __restrict__ out, int S, float scale) {
-  constexpr int SP = NT * 8;
-  constexpr int LDV = SP + 8;  // V^T row stride (keys)
+__host__ inline size_t f32_smem_bytes(int nk) { return (size_t)nk * (LDK32 + LDV32) * 4; }
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, 13 low mantissa
+// bits cleared) as two integer operations on the bit pattern: the same bits
+// for every finite x, where ptxas expands the cvt itself into a compare,
+// select and integer sequence per value (the kernel ran markedly slower
+// with it on the H100).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + rest, both TF32 (rest = the "small" half); x - big is exact.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& rest) {
+  big = tf32_rna(x);
+  rest = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the two cross terms first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(d, a_small, bb0, bb1);
+  mma_tf32(d, a_big, bs0, bs1);
+  mma_tf32(d, a_big, bb0, bb1);
+}
+
+// One block per (batch, head) slice; NK = the key count rounded up to the
+// core's bucket (32, 80, 200, 256, 320).  m16n8k8 fragments: thread (g =
+// lane / 4, t = lane % 4) holds rows g and g + 8 of each accumulator tile,
+// at columns 2t and 2t + 1.  Up to 200 keys two blocks share an SM (112 KB
+// of shared memory each): 16 warps at the 128-register cap, with a few
+// hundred bytes of spills, hid the mma.sync and load latencies better than
+// 8 warps at 255 registers (measured).
+// The 8-dim steps of Q K^T are a loop, not unrolled: the fully unrolled
+// kernel ran out of the instruction cache.
+template <int NK>
+__global__ void __launch_bounds__(F32_THREADS, NK <= 200 ? 2 : 1)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ mask,
+                     float* __restrict__ out, int S, float scale) {
+  constexpr int NT = NK / 8;  // 8-key tiles of a score row, and 8-key steps of P @ V
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Ks + SP * LDH;
+  float* Ks = reinterpret_cast<float*>(smem);  // [NK][LDK32]
+  float* Vs = Ks + NK * LDK32;                 // [NK][LDV32]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  const int q0 = blockIdx.x * QT;
-  const long long slice = (long long)blockIdx.y * S * HD;
-  const bf16* qb = q + slice;
-  const bf16* kb = k + slice;
-  const bf16* vb = v + slice;
+  const int g = lane >> 2, t = lane & 3;
+  const long long slice = (long long)blockIdx.x * S * HD;
+  const float* kb = k + slice;
+  const float* vb = v + slice;
 
-  // K rows (zero past S) by cp.async; V transposed through registers.
-  for (int c = tid; c < SP * 8; c += ATT_THREADS) {
-    const int r = c >> 3, cc = (c & 7) * 8;
+  // K and V of the slice, 16 bytes a copy; rows past S are zero-filled.
+  for (int c = tid; c < NK * (HD / 4); c += F32_THREADS) {
+    const int r = c >> 4, cc = (c & 15) * 4;
     const bool ok = r < S;
-    cp_async16(Ks + r * LDH + cc, ok ? kb + r * HD + cc : kb, ok);
-    uint4 vv = make_uint4(0, 0, 0, 0);
-    if (ok) vv = *reinterpret_cast<const uint4*>(vb + r * HD + cc);
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Vt[(cc + i) * LDV + r] = ve[i];
+    cp_async16(Ks + r * LDK32 + cc, ok ? kb + r * HD + cc : kb, ok);
+    cp_async16(Vs + r * LDV32 + cc, ok ? vb + r * HD + cc : vb, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  const int r0 = q0 + warp * 16;
-  if (r0 >= S) return;
-  const int row_lo = r0 + g, row_hi = r0 + g + 8;
-  // rows past S compute on row S-1's mask and are never stored
-  const float* mlo = mask + (long long)min(row_lo, S - 1) * S;
-  const float* mhi = mask + (long long)min(row_hi, S - 1) * S;
+  const float* qb = q + slice;
+  float* ob = out + slice + 2 * t;
+  for (int chunk = warp; chunk * 16 < S; chunk += F32_THREADS / 32) {
+    const int row_lo = chunk * 16 + g, row_hi = row_lo + 8;
+    // rows past S compute on row S-1 and are never stored
+    const float* qlo = qb + (long long)min(row_lo, S - 1) * HD + 2 * t;
+    const float* qhi = qb + (long long)min(row_hi, S - 1) * HD + 2 * t;
 
-  uint32_t qa[HD / 16][4];
-  {
-    const bf16* qlo = qb + (long long)min(row_lo, S - 1) * HD + 2 * t;
-    const bf16* qhi = qb + (long long)min(row_hi, S - 1) * HD + 2 * t;
+    // S = Q K^T: per 8-dim step, k index t <-> dim 2t, t + 4 <-> dim 2t + 1.
+    float sc[NT][4];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = row_lo < S ? ld_u32(qlo + kk * 16) : 0u;
-      qa[kk][1] = row_hi < S ? ld_u32(qhi + kk * 16) : 0u;
-      qa[kk][2] = row_lo < S ? ld_u32(qlo + kk * 16 + 8) : 0u;
-      qa[kk][3] = row_hi < S ? ld_u32(qhi + kk * 16 + 8) : 0u;
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const float2 xl = *reinterpret_cast<const float2*>(qlo + kk * 8);
+      const float2 xh = *reinterpret_cast<const float2*>(qhi + kk * 8);
+      uint32_t ab[4], as[4];
+      split_tf32(xl.x, ab[0], as[0]);
+      split_tf32(xh.x, ab[1], as[1]);
+      split_tf32(xl.y, ab[2], as[2]);
+      split_tf32(xh.y, ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(Ks + (nt * 8 + g) * LDK32 + kk * 8 + 2 * t);
+        mma_3xtf32(sc[nt], ab, as, kv.x, kv.y);
+      }
     }
-  }
 
-  // S = Q K^T: tile nt covers keys nt*8 .. nt*8+7; this thread holds keys
-  // nt*8+2t, +1 of rows g (elements 0, 1) and g+8 (elements 2, 3).
-  float sc[NT][4];
+    // scores * scale + mask (no FMA contraction: the twin rounds the
+    // product), keys past S at -inf; the softmax over each whole row (a row
+    // is spread over the 4 threads of a quad), divided by the f32 row sum
+    // before the P V loop (a division inside it, with its slow-path call,
+    // stalled the loop: measured).
+    const float* mlo = mask + (long long)min(row_lo, S - 1) * S;
+    const float* mhi = mask + (long long)min(row_hi, S - 1) * S;
+    float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    const bf16* kr = Ks + (nt * 8 + g) * LDH + 2 * t;
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      mma_16816(sc[nt], qa[kk], ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8));
-  }
-
-  // scores * scale + mask (no FMA contraction: the twin rounds the product),
-  // keys past S at -inf; then the softmax over each whole row (a row is
-  // spread over the 4 threads of a quad).
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = nt * 8 + 2 * t + e;
-      const bool in = col < S;
-      sc[nt][e] = in ? __fadd_rn(__fmul_rn(sc[nt][e], scale), mlo[col]) : -INFINITY;
-      sc[nt][2 + e] = in ? __fadd_rn(__fmul_rn(sc[nt][2 + e], scale), mhi[col]) : -INFINITY;
-      m_lo = fmaxf(m_lo, sc[nt][e]);
-      m_hi = fmaxf(m_hi, sc[nt][2 + e]);
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * t + e;
+        const bool in = col < S;
+        sc[nt][e] = in ? __fadd_rn(__fmul_rn(sc[nt][e], scale), mlo[col]) : -INFINITY;
+        sc[nt][2 + e] = in ? __fadd_rn(__fmul_rn(sc[nt][2 + e], scale), mhi[col]) : -INFINITY;
+        m_lo = fmaxf(m_lo, sc[nt][e]);
+        m_hi = fmaxf(m_hi, sc[nt][2 + e]);
+      }
     }
-  }
-  m_lo = quad_max(m_lo);
-  m_hi = quad_max(m_hi);
-  float s_lo = 0.f, s_hi = 0.f;
+    m_lo = quad_max(m_lo);
+    m_hi = quad_max(m_hi);
+    float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sc[nt][e] = sc[nt][e] == -INFINITY ? 0.f : expf(sc[nt][e] - m_lo);
-      sc[nt][2 + e] = sc[nt][2 + e] == -INFINITY ? 0.f : expf(sc[nt][2 + e] - m_hi);
-      s_lo += sc[nt][e];
-      s_hi += sc[nt][2 + e];
+      for (int e = 0; e < 2; ++e) {
+        sc[nt][e] = sc[nt][e] == -INFINITY ? 0.f : expf(sc[nt][e] - m_lo);
+        sc[nt][2 + e] = sc[nt][2 + e] == -INFINITY ? 0.f : expf(sc[nt][2 + e] - m_hi);
+        s_lo += sc[nt][e];
+        s_hi += sc[nt][2 + e];
+      }
     }
-  }
-  s_lo = quad_sum(s_lo);
-  s_hi = quad_sum(s_hi);
+    s_lo = quad_sum(s_lo);
+    s_hi = quad_sum(s_hi);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      sc[nt][0] = __fdiv_rn(sc[nt][0], s_lo);
+      sc[nt][1] = __fdiv_rn(sc[nt][1], s_lo);
+      sc[nt][2] = __fdiv_rn(sc[nt][2], s_hi);
+      sc[nt][3] = __fdiv_rn(sc[nt][3], s_hi);
+    }
 
-  // O = P V: PV step j uses score tiles 2j (a0, a1) and 2j+1 (a2, a3).
-  float o[HD / 8][4];
+    // O = P V: step j takes score tile j as it lies (k index t <-> key
+    // 8j + 2t: elements 0 and 2; t + 4 <-> key 8j + 2t + 1: elements 1 and
+    // 3), and V rows 8j + 2t and 8j + 2t + 1 at column g of each 8-dim tile.
+    float o[HD / 8][4];
 #pragma unroll
-  for (int on = 0; on < HD / 8; ++on) o[on][0] = o[on][1] = o[on][2] = o[on][3] = 0.f;
+    for (int on = 0; on < HD / 8; ++on) o[on][0] = o[on][1] = o[on][2] = o[on][3] = 0.f;
 #pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    const uint32_t pa[4] = {
-        pack_bf16(sc[2 * j][0] / s_lo, sc[2 * j][1] / s_lo),
-        pack_bf16(sc[2 * j][2] / s_hi, sc[2 * j][3] / s_hi),
-        pack_bf16(sc[2 * j + 1][0] / s_lo, sc[2 * j + 1][1] / s_lo),
-        pack_bf16(sc[2 * j + 1][2] / s_hi, sc[2 * j + 1][3] / s_hi)};
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(sc[j][0], ab[0], as[0]);
+      split_tf32(sc[j][2], ab[1], as[1]);
+      split_tf32(sc[j][1], ab[2], as[2]);
+      split_tf32(sc[j][3], ab[3], as[3]);
+      const float* vr = Vs + (j * 8 + 2 * t) * LDV32 + g;
+#pragma unroll
+      for (int on = 0; on < HD / 8; ++on) mma_3xtf32(o[on], ab, as, vr[on * 8], vr[LDV32 + on * 8]);
+    }
+
 #pragma unroll
     for (int on = 0; on < HD / 8; ++on) {
-      const bf16* vr = Vt + (on * 8 + g) * LDV + j * 16 + 2 * t;
-      mma_16816(o[on], pa, ld_u32(vr), ld_u32(vr + 8));
+      if (row_lo < S)
+        *reinterpret_cast<float2*>(ob + (long long)row_lo * HD + on * 8) =
+            make_float2(o[on][0], o[on][1]);
+      if (row_hi < S)
+        *reinterpret_cast<float2*>(ob + (long long)row_hi * HD + on * 8) =
+            make_float2(o[on][2], o[on][3]);
     }
-  }
-
-  bf16* ob = out + slice + 2 * t;
-#pragma unroll
-  for (int on = 0; on < HD / 8; ++on) {
-    if (row_lo < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_lo * HD + on * 8) = pack_bf16(o[on][0], o[on][1]);
-    if (row_hi < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_hi * HD + on * 8) = pack_bf16(o[on][2], o[on][3]);
   }
 }
 
-template <int NT>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mask, bf16* out,
-                        int BH, int S, float scale, cudaStream_t st) {
-  const size_t smem = attn_smem_bytes_sp(NT * 8);
-  cudaError_t e = cudaFuncSetAttribute(attention_bf16_kernel<NT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + QT - 1) / QT, BH);
-  attention_bf16_kernel<NT><<<grid, ATT_THREADS, smem, st>>>(q, k, v, mask, out, S, scale);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// f32: one block per (64 query rows, batch*head slice), 8 warps, each warp
-// one query row at a time.  K ([S][65], padded so that the 32 lanes reading
-// 32 different keys hit 32 banks) and V ([S][64]) of the slice sit in shared
-// memory; lane l scores keys l, l+32, ... (NC per lane) against the query
-// row held in its registers, the warp reduces max and sum by shuffles, and
-// lane l accumulates output dims l and l+32 over the keys, taking each
-// probability from its owner by shuffle.
-// ---------------------------------------------------------------------------
-
-constexpr int F32_THREADS = 256;
-constexpr int F32_QT = 64;
-constexpr int LDK32 = HD + 1;
-
-__host__ inline size_t f32_smem_bytes(int S) {
-  return ((size_t)S * LDK32 + (size_t)S * HD) * sizeof(float);
-}
-
-template <int NC>
-__global__ void __launch_bounds__(F32_THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ mask,
-                     float* __restrict__ out, int S, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + S * LDK32;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long slice = (long long)blockIdx.y * S * HD;
-  const float* kb = k + slice;
-  const float* vb = v + slice;
-  for (int i = tid; i < S * HD; i += F32_THREADS) {
-    Ks[(i / HD) * LDK32 + (i % HD)] = kb[i];
-    Vs[i] = vb[i];
-  }
-  __syncthreads();
-
-  const int row_end = min(S, (int)(blockIdx.x + 1) * F32_QT);
-  for (int row = blockIdx.x * F32_QT + warp; row < row_end; row += F32_THREADS / 32) {
-    const float* qr = q + slice + (long long)row * HD;
-    float qv[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qv[d] = qr[d];  // one broadcast line per warp
-    const float* mr = mask + (long long)row * S;
-
-    float sc[NC];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int key = c * 32 + lane;
-      float acc = 0.f;
-      if (key < S) {
-        const float* kr = Ks + key * LDK32;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kr[d], acc);
-      }
-      sc[c] = key < S ? __fadd_rn(__fmul_rn(acc, scale), mr[key]) : -INFINITY;
-      m = fmaxf(m, sc[c]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      sc[c] = sc[c] == -INFINITY ? 0.f : expf(sc[c] - m);
-      sum += sc[c];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) sc[c] = sc[c] / sum;
-
-    float o0 = 0.f, o1 = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int nk = min(32, S - c * 32);
-      for (int j = 0; j < nk; ++j) {
-        const float p = __shfl_sync(0xffffffffu, sc[c], j);
-        const float* vr = Vs + (c * 32 + j) * HD;
-        o0 = fmaf(p, vr[lane], o0);
-        o1 = fmaf(p, vr[lane + 32], o1);
-      }
-    }
-    float* orow = out + slice + (long long)row * HD;
-    orow[lane] = o0;
-    orow[lane + 32] = o1;
-  }
-}
-
-template <int NC>
+template <int NK>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* mask,
                        float* out, int BH, int S, float scale, cudaStream_t st) {
-  const size_t smem = f32_smem_bytes(S);
-  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<NC>,
+  const size_t smem = f32_smem_bytes(NK);
+  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<NK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + F32_QT - 1) / F32_QT, BH);
-  attention_f32_kernel<NC><<<grid, F32_THREADS, smem, st>>>(q, k, v, mask, out, S, scale);
+  attention_f32_kernel<NK><<<BH, F32_THREADS, smem, st>>>(q, k, v, mask, out, S, scale);
   return cudaGetLastError();
 }
 
@@ -284,30 +239,28 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 extern "C" {
 
 // out = softmax(q k^T / sqrt(64) + mask) v; q, k, v, out [BH, S, 64]
-// contiguous, bf16 (is_bf16 = 1) or f32 (0); mask [S, S] f32.  S <= 320.
+// contiguous and 16-byte aligned, bf16 (is_bf16 = 1) or f32 (0); mask
+// [S, S] f32.  1 <= S <= 320.
 int dvl_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
                   int BH, int S, int is_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)HD);
   const float* mk = static_cast<const float*>(mask);
-  if (S < 1 || S > 320) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
-               *vv = static_cast<const bf16*>(v);
-    bf16* oo = static_cast<bf16*>(out);
-    switch (attn_keys_bucket(S)) {
-      case 32: return (int)launch_bf16<4>(qq, kk, vv, mk, oo, BH, S, scale, st);
-      case 80: return (int)launch_bf16<10>(qq, kk, vv, mk, oo, BH, S, scale, st);
-      case 208: return (int)launch_bf16<26>(qq, kk, vv, mk, oo, BH, S, scale, st);
-      default: return (int)launch_bf16<40>(qq, kk, vv, mk, oo, BH, S, scale, st);
-    }
-  }
+  if (S < 1 || S > CORE_MAX_SEQ || BH < 1) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)launch_attention_wgmma_heads(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        mk, static_cast<bf16*>(out), BH, S, st);
   const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
               *vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(out);
-  if (S <= 96) return (int)launch_f32<3>(qq, kk, vv, mk, oo, BH, S, scale, st);
-  if (S <= 224) return (int)launch_f32<7>(qq, kk, vv, mk, oo, BH, S, scale, st);
-  return (int)launch_f32<10>(qq, kk, vv, mk, oo, BH, S, scale, st);
+  const float scale = 1.0f / sqrtf((float)HD);
+  switch (core_keys(S)) {
+    case 32: return (int)launch_f32<32>(qq, kk, vv, mk, oo, BH, S, scale, st);
+    case 80: return (int)launch_f32<80>(qq, kk, vv, mk, oo, BH, S, scale, st);
+    case 200: return (int)launch_f32<200>(qq, kk, vv, mk, oo, BH, S, scale, st);
+    case 256: return (int)launch_f32<256>(qq, kk, vv, mk, oo, BH, S, scale, st);
+    default: return (int)launch_f32<320>(qq, kk, vv, mk, oo, BH, S, scale, st);
+  }
 }
 
 }  // extern "C"

@@ -1,17 +1,25 @@
-// The bf16 attention core of dvl_attention_block (csrc/fused_block.cu) on
-// Hopper's wgmma, fed by TMA.  Same function as the mma.sync core of
-// common.cuh (which the int8 block keeps): packed qkv [B*S, 3D] (q | k | v,
-// head h at columns 64h .. 64h+63 of each third) -> attn [B*S, D]; f32
-// scores * scale (+ CLIP's causal mask), row max, exp, normalised by the f32
-// row sum and rounded to bf16 BEFORE P @ V (not an online softmax: at bf16
-// that is another function), P @ V accumulated in f32, one rounding.
+// The bf16 attention core on Hopper's wgmma, fed by TMA, shared by two
+// kernels that compute the same function from other operands:
+//   * K1, dvl_attention_block (csrc/fused_block.cu): packed qkv [B*S, 3D]
+//     (q | k | v, head h at columns 64h .. 64h+63 of each third) -> attn
+//     [B*S, D], CLIP's causal mask generated from a flag;
+//   * K5, dvl_attention (csrc/attention.cu): heads-first q, k, v [B*H, S,
+//     64] -> out [B*H, S, 64], an additive f32 [S, S] mask read from memory
+//     (L2-resident: 155 KB at S = 197) and added as fadd(fmul(s, scale),
+//     mask), the twin's two roundings.
+// The function: f32 scores * scale (+ the mask), row max, exp, normalised by
+// the f32 row sum and rounded to bf16 BEFORE P @ V (not an online softmax:
+// at bf16 that is another function), P @ V accumulated in f32, one rounding.
+// The mma.sync core of fused_block_q.cu (the int8 block K3's, until its own
+// redesign) computes the same for K1's operands.
 //
 // One block (one warpgroup, 128 threads) per (head, image):
 //   * thread 0 asks the TMA for the head's K and V once (boxes of up to 256
-//     keys x 64 dims through a [B, S, 3D] tensor map, so keys past S arrive
-//     as zeros) and for the first two query tiles (64 rows each, double
-//     buffered); K, V and each query buffer land on mbarriers of their own,
-//     so the first Q K^T starts while V is still in flight;
+//     keys x 64 dims through a 3-d tensor map whose key dimension ends at S,
+//     so keys past S arrive as zeros) and for the first two query tiles (64
+//     rows each, double buffered); K, V and each query buffer land on
+//     mbarriers of their own, so the first Q K^T starts while V is still in
+//     flight;
 //   * the warpgroup walks the query tiles: Q K^T is an SS-wgmma m64nNKk16
 //     (NK = the key count rounded up to a bucket: 32, 80, 200, 256, or 256 +
 //     64 up to 320) whose f32 accumulators hold each query's whole score row
@@ -23,11 +31,12 @@
 //     as an MN-major operand (the transpose bit), so V is never transposed
 //     by hand.  The reciprocal differs from the twin's division by at most
 //     one f32 ulp before the bf16 rounding.
-// Bound on an H100 at ViT-B/16 B=256: 30.5 GFLOP of products (0.031 ms at
-// the bf16 peak) against 0.31 GB of qkv read and attn written (0.093 ms at
-// 3.35 TB/s): bytes.  What this design does about it: each head's K and V
-// are read from device memory once (the mma.sync core read them once per 64
-// queries), and no product waits for a load it does not need.
+// Bound on an H100 at ViT-B/16 B=256 (K1): 30.5 GFLOP of products (0.031 ms
+// at the bf16 peak) against 0.31 GB of qkv read and attn written (0.093 ms
+// at 3.35 TB/s): bytes; K5 at B=64 H=12 S=197 likewise (0.023 ms of bytes).
+// What this design does about it: each head's K and V are read from device
+// memory once (the mma.sync cores read them once per 64 queries), and no
+// product waits for a load it does not need.
 
 #pragma once
 
@@ -39,6 +48,12 @@ namespace {
 constexpr int CORE_THREADS = 128;
 constexpr int CORE_QBOX = 64 * 64;  // bf16 elements of one 64-query x 64-dim tile (8 KB)
 constexpr int CORE_MAX_SEQ = 320;
+
+// Where the core reads its operands and writes its output.
+enum CoreSource {
+  CORE_PACKED = 0,  // K1: one [B, S, 3D] map for q, k and v; block (h, b); causal flag
+  CORE_HEADS = 1,   // K5: a [B*H, S, 64] map each; block (b*H + h); additive mask
+};
 
 // wgmma N of Q K^T: the key count rounded up to the compiled bucket.
 __host__ inline int core_keys(int s) {
@@ -65,12 +80,14 @@ __device__ __forceinline__ void qk_wgmma(float (&sc)[NK / 2], uint64_t dq, uint6
 }
 
 // Up to 200 keys, three blocks share an SM (68 KB of shared memory each):
-// hold the registers to that.
-template <int NK>
+// hold the registers to that.  `D` is the packed row's model width (K1;
+// unused by K5), `mask` K5's [S, S] additive mask, `causal` K1's flag.
+template <int NK, int SRC>
 __global__ void __launch_bounds__(CORE_THREADS, NK <= 200 ? 3 : 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_kv, bf16* __restrict__ attn, int S,
-                       int D, float scale, int causal) {
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out_base,
+                       const float* __restrict__ mask, int S, int D, float scale, int causal) {
   constexpr int KB = core_kv_box(NK);  // keys per K / V box
   constexpr int NT = NK / 8;           // 8-key column chunks of a score row
   constexpr int NJ = (NK + 15) / 16;   // 16-key steps of P @ V
@@ -82,8 +99,21 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
   const int nq = (S + 63) / 64;
+  // TMA columns of q, k, v, the outer (image or slice) coordinate, and the
+  // output's first element and row stride
+  int col_q, col_k, col_v, z, ld;
+  long long obase;
+  if constexpr (SRC == CORE_PACKED) {
+    const int h = blockIdx.x;
+    z = blockIdx.y;
+    col_q = h * 64, col_k = D + h * 64, col_v = 2 * D + h * 64;
+    obase = (long long)z * S * D + h * 64, ld = D;
+  } else {
+    z = blockIdx.x;
+    col_q = col_k = col_v = 0;
+    obase = (long long)z * S * 64, ld = 64;
+  }
 
   if (tid == 0) {
     for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
@@ -93,14 +123,14 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (tid == 0) {
     mbar_expect_tx(&bars[0], NK * 64 * 2);
     for (int i = 0; i < NK / KB; ++i)
-      tma_load_3d(Ks + i * KB * 64, &tm_kv, &bars[0], D + h * 64, i * KB, b);
+      tma_load_3d(Ks + i * KB * 64, &tm_k, &bars[0], col_k, i * KB, z);
     for (int i = 0; i < 2 && i < nq; ++i) {
       mbar_expect_tx(&bars[2 + i], CORE_QBOX * 2);
-      tma_load_3d(Qs + i * CORE_QBOX, &tm_q, &bars[2 + i], h * 64, i * 64, b);
+      tma_load_3d(Qs + i * CORE_QBOX, &tm_q, &bars[2 + i], col_q, i * 64, z);
     }
     mbar_expect_tx(&bars[1], NK * 64 * 2);
     for (int i = 0; i < NK / KB; ++i)
-      tma_load_3d(Vs + i * KB * 64, &tm_kv, &bars[1], 2 * D + h * 64, i * KB, b);
+      tma_load_3d(Vs + i * KB * 64, &tm_v, &bars[1], col_v, i * KB, z);
   }
   const uint64_t dk = desc_sw128(Ks);
   const uint64_t dv = desc_sw128(Vs, 1024);
@@ -126,7 +156,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the buffer is read: bring in the query tile after next
     if (tid == 0 && qt + 2 < nq) {
       mbar_expect_tx(&bars[2 + buf], CORE_QBOX * 2);
-      tma_load_3d(Qs + buf * CORE_QBOX, &tm_q, &bars[2 + buf], h * 64, (qt + 2) * 64, b);
+      tma_load_3d(Qs + buf * CORE_QBOX, &tm_q, &bars[2 + buf], col_q, (qt + 2) * 64, z);
     }
 
     // P, normalised and rounded, as the A fragments of the PV steps: step j
@@ -136,6 +166,12 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < NJ * 4; ++i) pa[i] = 0u;
     if (qt * 64 + warp * 16 < S) {
+      // K5: rows past S compute on row S-1's mask and are never stored
+      const float *mlo = nullptr, *mhi = nullptr;
+      if constexpr (SRC == CORE_HEADS) {
+        mlo = mask + (long long)min(row_lo, S - 1) * S;
+        mhi = mask + (long long)min(row_hi, S - 1) * S;
+      }
       float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -145,8 +181,13 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           const bool in = col < S;
           float& lo = sc[nt * 4 + e];
           float& hi = sc[nt * 4 + 2 + e];
-          lo = (in && (!causal || col <= row_lo)) ? lo * scale : -INFINITY;
-          hi = (in && (!causal || col <= row_hi)) ? hi * scale : -INFINITY;
+          if constexpr (SRC == CORE_PACKED) {
+            lo = (in && (!causal || col <= row_lo)) ? lo * scale : -INFINITY;
+            hi = (in && (!causal || col <= row_hi)) ? hi * scale : -INFINITY;
+          } else {  // no FMA contraction: the twin rounds the product
+            lo = in ? __fadd_rn(__fmul_rn(lo, scale), mlo[col]) : -INFINITY;
+            hi = in ? __fadd_rn(__fmul_rn(hi, scale), mhi[col]) : -INFINITY;
+          }
           m_lo = fmaxf(m_lo, lo);
           m_hi = fmaxf(m_hi, hi);
         }
@@ -191,50 +232,83 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(o);
     fence_regs(pa);
 
-    bf16* out = attn + ((long long)b * S) * D + h * 64 + 2 * t;
+    bf16* out = out_base + obase + 2 * t;
 #pragma unroll
     for (int on = 0; on < 8; ++on) {
       if (row_lo < S)
-        *reinterpret_cast<uint32_t*>(out + (long long)row_lo * D + on * 8) =
+        *reinterpret_cast<uint32_t*>(out + (long long)row_lo * ld + on * 8) =
             pack_bf16(o[on * 4], o[on * 4 + 1]);
       if (row_hi < S)
-        *reinterpret_cast<uint32_t*>(out + (long long)row_hi * D + on * 8) =
+        *reinterpret_cast<uint32_t*>(out + (long long)row_hi * ld + on * 8) =
             pack_bf16(o[on * 4 + 2], o[on * 4 + 3]);
     }
   }
 }
 
-template <int NK>
-cudaError_t launch_core_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
-                              int causal, cudaStream_t st) {
+template <int NK, int SRC>
+cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                              const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
+                              int D, int causal, dim3 grid, cudaStream_t st) {
+  const size_t smem = core_smem_bytes(NK);
+  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attention_wgmma_kernel<NK, SRC><<<grid, CORE_THREADS, smem, st>>>(
+      tm_q, tm_k, tm_v, out, mask, S, D, 1.0f / sqrtf(64.0f), causal);
+  return cudaGetLastError();
+}
+
+template <int SRC>
+cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
+                               int D, int causal, dim3 grid, cudaStream_t st) {
+  switch (nk) {
+    case 32: return launch_core_wgmma<32, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+    case 80: return launch_core_wgmma<80, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+    case 200:
+      return launch_core_wgmma<200, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+    case 256:
+      return launch_core_wgmma<256, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+    default:
+      return launch_core_wgmma<320, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+  }
+}
+
+// K1: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
+cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                                   int causal, cudaStream_t st) {
+  if (S < 1 || S > CORE_MAX_SEQ || D != heads * 64) return cudaErrorInvalidValue;
+  const int nk = core_keys(S);
   CUtensorMap tm_q, tm_kv;
   const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[2] = {(uint64_t)3 * D * 2, (uint64_t)S * 3 * D * 2};
-  const uint32_t box_q[3] = {64, 64, 1}, box_kv[3] = {64, (uint32_t)core_kv_box(NK), 1};
+  const uint32_t box_q[3] = {64, 64, 1}, box_kv[3] = {64, (uint32_t)core_kv_box(nk), 1};
   cudaError_t e = make_tensor_map(&tm_q, qkv, 3, dims, strides, box_q);
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
   if (e != cudaSuccess) return e;
-  const size_t smem = core_smem_bytes(NK);
-  e = cudaFuncSetAttribute(attention_wgmma_kernel<NK>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  attention_wgmma_kernel<NK><<<dim3(heads, B), CORE_THREADS, smem, st>>>(
-      tm_q, tm_kv, attn, S, D, 1.0f / sqrtf((float)(D / heads)), causal);
-  return cudaGetLastError();
+  return launch_core_bucket<CORE_PACKED>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, D, causal,
+                                         dim3(heads, B), st);
 }
 
-// qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
-cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
-                                   int causal, cudaStream_t st) {
-  if (S < 1 || S > CORE_MAX_SEQ || D != heads * 64) return cudaErrorInvalidValue;
-  switch (core_keys(S)) {
-    case 32: return launch_core_wgmma<32>(qkv, attn, B, S, D, heads, causal, st);
-    case 80: return launch_core_wgmma<80>(qkv, attn, B, S, D, heads, causal, st);
-    case 200: return launch_core_wgmma<200>(qkv, attn, B, S, D, heads, causal, st);
-    case 256: return launch_core_wgmma<256>(qkv, attn, B, S, D, heads, causal, st);
-    default: return launch_core_wgmma<320>(qkv, attn, B, S, D, heads, causal, st);
+// K5: q, k, v [BH, S, 64] -> out [BH, S, 64] with the additive f32 mask
+// [S, S]; 1 <= S <= 320.
+cudaError_t launch_attention_wgmma_heads(const bf16* q, const bf16* k, const bf16* v,
+                                         const float* mask, bf16* out, int BH, int S,
+                                         cudaStream_t st) {
+  if (S < 1 || S > CORE_MAX_SEQ || BH < 1) return cudaErrorInvalidValue;
+  const int nk = core_keys(S);
+  CUtensorMap tm[3];
+  const uint64_t dims[3] = {64, (uint64_t)S, (uint64_t)BH};
+  const uint64_t strides[2] = {64 * 2, (uint64_t)S * 64 * 2};
+  const uint32_t box_q[3] = {64, 64, 1}, box_kv[3] = {64, (uint32_t)core_kv_box(nk), 1};
+  const bf16* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    cudaError_t e = make_tensor_map(&tm[i], src[i], 3, dims, strides, i == 0 ? box_q : box_kv);
+    if (e != cudaSuccess) return e;
   }
+  return launch_core_bucket<CORE_HEADS>(nk, tm[0], tm[1], tm[2], out, mask, S, 64, 0, dim3(BH),
+                                        st);
 }
 
 }  // namespace

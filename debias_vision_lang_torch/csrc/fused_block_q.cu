@@ -19,8 +19,8 @@
 //     written with __fmul_rn / __fadd_rn so nvcc cannot contract it into an
 //     FMA that the twin does not do (the MLP hidden is quantized from these
 //     f32 values, so their last bit can move a code);
-//   * the LN output and qkv rounded to bf16, the attention core is K1's
-//     (common.cuh, bf16 in, f32 softmax normalised before PV, bf16 out), the
+//   * the LN output and qkv rounded to bf16, the attention core computes
+//     K1's function (bf16 in, f32 softmax normalised before PV, bf16 out), the
 //     MLP hidden stays f32 until it is quantized, residual adds in f32 with
 //     one final rounding.
 //
@@ -30,24 +30,240 @@
 // bytes: 620 MB at B=256, written once by the up-projection and read once by
 // its quantize pass) are bandwidth work.  The design (PERF.md has the
 // measured split):
-//   * one tiled int8 GEMM: 128x128 block tile, 64-byte K tile, 8 warps of
-//     64x32, ldmatrix (b16 rows of byte pairs) + mma.sync m16n8k32 s8 with
-//     s32 accumulators, a four-stage cp.async ring.  ldmatrix has no .trans
-//     for 8-bit elements, so the weight is read from a transposed [out, in]
-//     copy made once by the caller: K is contiguous per output channel, which
-//     is the .col B operand as it lies.  The epilogue dequantizes and applies
-//     bias, activation and residual on the accumulator registers;
+//   * dvl_mlp_block_q's two products run one TMA-fed, warp-specialised s8
+//     wgmma GEMM, the bf16 GEMM of csrc/fused_block.cu in 8-bit operands:
+//     a 128x128 block tile, a K step of 128 int8 (128 B: the same 16 KB per
+//     operand tile and the same 128-byte swizzle), a 3-stage ring filled by
+//     one producer warp, two consumer warpgroups on wgmma m64n128k32 s8 with
+//     s32 accumulators, two blocks per SM.  8-bit wgmma takes K-major
+//     operands only, which both are: the activations [M, K] and the weight
+//     copy transposed to [out, in] that the caller keeps.  The epilogue
+//     stages the s32 tile in the freed ring and dequantizes, adds the bias
+//     and applies the activation (f32 hidden) or the residual (bf16 out) on
+//     coalesced rows, in the operation order above.  N % 128 == 0 and K %
+//     128 == 0 (the wrapper raises otherwise); the TMA zero-fills the ragged
+//     M edge;
+//   * dvl_attention_block_q's two products still run the first design: a
+//     tiled mma.sync GEMM (128x128 block tile, 64-byte K tile, 8 warps of
+//     64x32, ldmatrix + mma.sync m16n8k32 s8, a four-stage cp.async ring;
+//     ldmatrix has no .trans for 8-bit elements, so it too reads the
+//     transposed weight copy), with the epilogue on the accumulator
+//     registers; it goes when the attention block moves to the s8 GEMM and
+//     the wgmma core;
 //   * a quantize pass, one block per row with the row in registers: amax,
 //     scale and codes from a single read;
-//   * the LayerNorm kernel and the attention core of common.cuh, unchanged.
-// wgmma, TMA and quantizing inside the GEMM prologue are later work.
+//   * the LayerNorm kernel of common.cuh and the mma.sync attention core
+//     below.
+// Quantizing inside the GEMMs (the up GEMM's epilogue taking the row amax,
+// the down GEMM's producer quantizing on load) is later work.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row (l % 16), column block (l / 16) of a 16x16 tile, so r = {a0..a3} of an
+// m16n8k16 A operand (or, on byte pairs, of an m16n8k32 s8 one).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// The mma.sync attention core of the int8 attention block (K1's function;
+// K1 and K5 run the wgmma core of attention_wgmma.cuh): packed qkv [B*S,
+// 3D] (q | k | v, head h at columns h*64 .. h*64+63 of each third) -> attn
+// [B*S, D], per (64 query rows, head, batch item); each warp owns 16 query
+// rows.  Scores f32 * scale (+ the causal mask generated here), row max,
+// exp, divide by the f32 row sum, round to bf16, then P @ V in f32 and one
+// rounding -- exactly the TPU kernel's per-head loop.  Scores, probabilities and the output live in
+// registers as mma.sync m16n8k16 fragments: the accumulator layout of two
+// neighbouring 8-key score tiles is the A-operand layout of one 16-key PV
+// step, so the probabilities feed PV without touching shared memory, which
+// holds only K [keys][64] and V^T [64][keys] (~58 KB at S = 197).
+// ---------------------------------------------------------------------------
+
+constexpr int QT = 64;           // query rows per block (4 warps x 16)
+constexpr int LDH = HD + 8;      // K row stride: 72 bf16 = 144 B
+constexpr int ATT_THREADS = 128;
+
+__host__ __device__ constexpr int pad16(int s) { return (s + 15) & ~15; }
+
+// Key count the kernel is compiled for (NT = keys / 8 score tiles per row).
+__host__ inline int attn_keys_bucket(int s) {
+  const int sp = pad16(s);
+  return sp <= 32 ? 32 : sp <= 80 ? 80 : sp <= 208 ? 208 : 320;
+}
+
+__host__ __device__ inline size_t attn_smem_bytes_sp(int sp) {
+  return (size_t)sp * LDH * 2 + (size_t)HD * (sp + 8) * 2;
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn,
+                      int S, int D, float scale, int causal) {
+  constexpr int SP = NT * 8;
+  constexpr int LDV = SP + 8;  // V^T row stride (keys)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vt = Ks + SP * LDH;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
+  const int q0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long row3 = 3LL * D;
+  const bf16* base = qkv + b * S * row3;
+
+  // K rows (zero past S) by cp.async; V transposed through registers.
+  for (int c = tid; c < SP * 8; c += ATT_THREADS) {
+    const int r = c >> 3, cc = (c & 7) * 8;
+    const bool ok = r < S;
+    cp_async16(Ks + r * LDH + cc, ok ? base + r * row3 + D + h * HD + cc : base, ok);
+    uint4 vv = make_uint4(0, 0, 0, 0);
+    if (ok) vv = *reinterpret_cast<const uint4*>(base + r * row3 + 2 * D + h * HD + cc);
+    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) Vt[(cc + i) * LDV + r] = ve[i];
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int r0 = q0 + warp * 16;
+  if (r0 >= S) return;
+  const int row_lo = r0 + g, row_hi = r0 + g + 8;
+  // the causal mask hides every key past this warp's last row
+  const int key_end = causal ? min(S, r0 + 16) : S;
+
+  // Q fragments straight from global memory (rows past S are zero).
+  uint32_t qa[HD / 16][4];
+  {
+    const bf16* qlo = base + (long long)min(row_lo, S - 1) * row3 + h * HD + 2 * t;
+    const bf16* qhi = base + (long long)min(row_hi, S - 1) * row3 + h * HD + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = row_lo < S ? ld_u32(qlo + kk * 16) : 0u;
+      qa[kk][1] = row_hi < S ? ld_u32(qhi + kk * 16) : 0u;
+      qa[kk][2] = row_lo < S ? ld_u32(qlo + kk * 16 + 8) : 0u;
+      qa[kk][3] = row_hi < S ? ld_u32(qhi + kk * 16 + 8) : 0u;
+    }
+  }
+
+  // S = Q K^T: tile nt covers keys nt*8 .. nt*8+7; this thread holds keys
+  // nt*8+2t, +1 of rows g (elements 0, 1) and g+8 (elements 2, 3).
+  float sc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    if (nt * 8 < key_end) {
+      const bf16* kr = Ks + (nt * 8 + g) * LDH + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_16816(sc[nt], qa[kk], ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8));
+    }
+  }
+
+  // Softmax over each whole row (a row is spread over the 4 threads of a quad).
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = nt * 8 + 2 * t + e;
+      const bool in = col < S;
+      sc[nt][e] = (in && (!causal || col <= row_lo)) ? sc[nt][e] * scale : -INFINITY;
+      sc[nt][2 + e] = (in && (!causal || col <= row_hi)) ? sc[nt][2 + e] * scale : -INFINITY;
+      m_lo = fmaxf(m_lo, sc[nt][e]);
+      m_hi = fmaxf(m_hi, sc[nt][2 + e]);
+    }
+  }
+  m_lo = quad_max(m_lo);
+  m_hi = quad_max(m_hi);
+  float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[nt][e] = sc[nt][e] == -INFINITY ? 0.f : expf(sc[nt][e] - m_lo);
+      sc[nt][2 + e] = sc[nt][2 + e] == -INFINITY ? 0.f : expf(sc[nt][2 + e] - m_hi);
+      s_lo += sc[nt][e];
+      s_hi += sc[nt][2 + e];
+    }
+  }
+  s_lo = quad_sum(s_lo);
+  s_hi = quad_sum(s_hi);
+
+  // O = P V: PV step j uses score tiles 2j (a0, a1) and 2j+1 (a2, a3).
+  float o[HD / 8][4];
+#pragma unroll
+  for (int on = 0; on < HD / 8; ++on) o[on][0] = o[on][1] = o[on][2] = o[on][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    if (j * 16 >= key_end) continue;
+    const uint32_t pa[4] = {
+        pack_bf16(sc[2 * j][0] / s_lo, sc[2 * j][1] / s_lo),
+        pack_bf16(sc[2 * j][2] / s_hi, sc[2 * j][3] / s_hi),
+        pack_bf16(sc[2 * j + 1][0] / s_lo, sc[2 * j + 1][1] / s_lo),
+        pack_bf16(sc[2 * j + 1][2] / s_hi, sc[2 * j + 1][3] / s_hi)};
+#pragma unroll
+    for (int on = 0; on < HD / 8; ++on) {
+      const bf16* vr = Vt + (on * 8 + g) * LDV + j * 16 + 2 * t;
+      mma_16816(o[on], pa, ld_u32(vr), ld_u32(vr + 8));
+    }
+  }
+
+  bf16* out = attn + (b * S) * D + h * HD + 2 * t;
+#pragma unroll
+  for (int on = 0; on < HD / 8; ++on) {
+    if (row_lo < S)
+      *reinterpret_cast<uint32_t*>(out + (long long)row_lo * D + on * 8) = pack_bf16(o[on][0], o[on][1]);
+    if (row_hi < S)
+      *reinterpret_cast<uint32_t*>(out + (long long)row_hi * D + on * 8) = pack_bf16(o[on][2], o[on][3]);
+  }
+}
+
+template <int NT>
+cudaError_t launch_attention_core(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                                  int causal, cudaStream_t st) {
+  const size_t smem = attn_smem_bytes_sp(NT * 8);
+  cudaError_t e = cudaFuncSetAttribute(attention_core_kernel<NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + QT - 1) / QT, heads, B);
+  attention_core_kernel<NT><<<grid, ATT_THREADS, smem, st>>>(
+      qkv, attn, S, D, 1.0f / sqrtf((float)(D / heads)), causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                             int causal, cudaStream_t st) {
+  switch (attn_keys_bucket(S)) {
+    case 32: return launch_attention_core<4>(qkv, attn, B, S, D, heads, causal, st);
+    case 80: return launch_attention_core<10>(qkv, attn, B, S, D, heads, causal, st);
+    case 208: return launch_attention_core<26>(qkv, attn, B, S, D, heads, causal, st);
+    default: return launch_attention_core<40>(qkv, attn, B, S, D, heads, causal, st);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Per-row int8 quantization: q [rows, n] int8 and scale [rows] f32 from x
@@ -102,7 +318,8 @@ cudaError_t launch_quant_rows(const T* x, int8_t* q, float* scale, int rows, int
 }
 
 // ---------------------------------------------------------------------------
-// int8 GEMM: C[M, N] = epilogue(A[M, K] @ Wt[N, K]^T) with A, Wt int8
+// mma.sync int8 GEMM (the attention block's products; the MLP's run the s8
+// wgmma GEMM below): C[M, N] = epilogue(A[M, K] @ Wt[N, K]^T) with A, Wt int8
 // row-major (Wt is the weight transposed to [out, in]), s32 accumulation,
 // row scales [M] and channel scales [N] f32.  K % 16 == 0 and N % 8 == 0
 // (checked by the wrapper); ragged M, N and K edges are zero-filled on load
@@ -293,6 +510,176 @@ cudaError_t launch_gemm_q(const int8_t* A, const float* a_scale, const int8_t* W
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// s8 wgmma GEMM (the MLP's up and down products): C[M, N] = epilogue(A[M, K]
+// @ Wt[N, K]^T), A and Wt int8 row-major (both K-major), s32 accumulation,
+// the epilogues of gemm_q_kernel.  The bf16 GEMM of fused_block.cu with a
+// K step of 128 int8.
+// ---------------------------------------------------------------------------
+
+constexpr int SBM = 128, SBN = 128, SBK = 128, SSTAGES = 3;  // SBK in int8 (= bytes)
+constexpr int S_TILE = SBM * SBK;                            // 16 KB per operand tile
+constexpr int SGEMM_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int SGEMM_SMEM = SSTAGES * 2 * S_TILE + 1024 + 2 * SSTAGES * 8;
+constexpr int SEPI_LD = SBN + 8;  // s32 row stride of the staged epilogue tile
+static_assert(2 * 64 * SEPI_LD * 4 <= SSTAGES * 2 * S_TILE, "staging fits the ring");
+
+template <int EPI>
+__global__ void __launch_bounds__(SGEMM_THREADS, 2)
+gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+               const float* __restrict__ a_scale, const float* __restrict__ w_scale,
+               const float* __restrict__ bias, const bf16* __restrict__ resid,
+               void* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);                     // [stage][128][128]
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + SSTAGES * S_TILE);  // [stage][128][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SSTAGES * 2 * S_TILE);
+  uint64_t* empty = full + SSTAGES;
+
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;  // consumer warpgroup c
+  const int n0 = blockIdx.x * SBN, m0 = blockIdx.y * SBM;
+  const int nk = K / SBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SSTAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (c == 2) {  // the producer warp: one thread keeps the ring full
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % SSTAGES;
+        mbar_wait(&empty[s], ((kt / SSTAGES) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(&full[s], 2 * S_TILE);
+        tma_load_2d(sA + s * S_TILE, &tm_a, &full[s], kt * SBK, m0);
+        tma_load_2d(sB + s * S_TILE, &tm_b, &full[s], kt * SBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows 64c .. 64c+63 of the tile, all columns
+  int acc[SBN / 2];
+#pragma unroll
+  for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % SSTAGES;
+    mbar_wait(&full[s], (kt / SSTAGES) & 1);
+    const uint64_t da = desc_sw128(sA + s * S_TILE + c * 64 * SBK);
+    const uint64_t db = desc_sw128(sB + s * S_TILE);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SBK / 32; ++kk) wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    fence_regs(acc);
+    if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % SSTAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue.  Once both consumers are past their last product the ring is
+  // free: each stages its 64 x 128 s32 half there (rows padded to 136), then
+  // each warp finishes two rows at a time -- lane l takes columns 8(l % 16)
+  // .. +7 of row 2i + l / 16 -- dequantizing and applying bias, activation
+  // and residual in the twin's operation order, with coalesced row stores
+  // (32 B of f32 hidden or 16 B of bf16 output a lane).
+  named_barrier(1, 256);
+  int* stage = reinterpret_cast<int*>(smem) + c * 64 * SEPI_LD;
+  {
+    const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+    for (int j = 0; j < SBN / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<int2*>(stage + (warp * 16 + g + 8 * half) * SEPI_LD + j * 8 + 2 * t) =
+            make_int2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+  named_barrier(2 + c, 128);
+  const int col = (tid & 15) * 8, n = n0 + col;
+  float cs[8], bb[8];
+  *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(w_scale + n);
+  *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(w_scale + n + 4);
+  *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+  *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+#pragma unroll 2
+  for (int r = tid >> 4; r < 64; r += 8) {
+    const long long m = (long long)m0 + c * 64 + r;
+    if (m >= M) continue;
+    const float rs = a_scale[m];
+    int a[8];
+    *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col);
+    *reinterpret_cast<int4*>(a + 4) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col + 4);
+    float d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
+    if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU) {
+      float hv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        hv[i] = EPI == EQ_BIAS_QGELU ? quick_gelu(__fadd_rn(d[i], bb[i]))
+                                     : erf_gelu_rn(__fadd_rn(d[i], bb[i]));
+      float* out = static_cast<float*>(C) + m * N + n;
+      *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(hv);
+      *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(hv + 4);
+    } else {
+      float rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if constexpr (EPI != EQ_BIAS) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * N + n);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f2 = __bfloat1622float2(p[i]);
+          rr[2 * i] = f2.x;
+          rr[2 * i + 1] = f2.y;
+        }
+      }
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if constexpr (EPI == EQ_BIAS)
+          o[i] = __fadd_rn(d[i], bb[i]);
+        else if constexpr (EPI == EQ_BIAS_RESID)
+          o[i] = __fadd_rn(rr[i], __fadd_rn(d[i], bb[i]));
+        else  // EQ_RESID_BIAS
+          o[i] = __fadd_rn(__fadd_rn(rr[i], bb[i]), d[i]);
+      }
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pw[i] = pack_bf16(o[2 * i], o[2 * i + 1]);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* Wt,
+                           const float* w_scale, const float* bias, const bf16* resid, void* C,
+                           int M, int N, int K, cudaStream_t st) {
+  if (M < 1 || N % SBN || K % SBK || K < SBK) return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b;  // both K-major: boxes of 128 K x 128 rows
+  const uint64_t stride[1] = {(uint64_t)K};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t box[2] = {SBK, SBM};
+  cudaError_t e = make_tensor_map(&tm_a, A, 2, dims_a, stride, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e != cudaSuccess) return e;
+  e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SGEMM_SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(N / SBN, (M + SBM - 1) / SBM);
+  gemm_s8_kernel<EPI><<<grid, SGEMM_THREADS, SGEMM_SMEM, st>>>(tm_a, tm_b, a_scale, w_scale, bias,
+                                                               resid, C, M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -339,7 +726,8 @@ int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, con
 // in f32.  x, out [M, D] bf16; w1_t [F, D], w2_t [D, F] int8 (transposed);
 // s1, b1 [F], s2, b2, ln_s, ln_b [D] f32.  Scratch: xn [M, D] bf16, xq
 // [M, D] int8, xs [M] f32, h [M, F] f32, hq [M, F] int8, hs [M] f32.
-// act_kind 0 = quick_gelu, 1 = erf gelu (A&S).  F <= 4096.
+// act_kind 0 = quick_gelu, 1 = erf gelu (A&S).  D % 128 == 0, F % 128 == 0
+// (the s8 wgmma GEMM's N and K), F <= 4096.
 int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                     const void* s1, const void* b1, const void* w2_t, const void* s2,
                     const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
@@ -353,13 +741,13 @@ int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const voi
                         static_cast<float*>(xs), M, D, st);
   if (e != cudaSuccess) return (int)e;
   if (act_kind == 0)
-    e = launch_gemm_q<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
+    e = launch_gemm_s8<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
                                      static_cast<const float*>(xs),
                                      static_cast<const int8_t*>(w1_t),
                                      static_cast<const float*>(s1),
                                      static_cast<const float*>(b1), nullptr, h, M, F, D, st);
   else
-    e = launch_gemm_q<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
+    e = launch_gemm_s8<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
                                     static_cast<const float*>(xs),
                                     static_cast<const int8_t*>(w1_t),
                                     static_cast<const float*>(s1),
@@ -368,7 +756,7 @@ int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const voi
   e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
                         static_cast<float*>(hs), M, F, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_q<EQ_RESID_BIAS>(static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
+  e = launch_gemm_s8<EQ_RESID_BIAS>(static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
                                    static_cast<const int8_t*>(w2_t), static_cast<const float*>(s2),
                                    static_cast<const float*>(b2), static_cast<const bf16*>(x),
                                    out, M, D, F, st);

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks for the wgmma + TMA kernels of
-// csrc/fused_block.cu: mbarriers, TMA tile loads (cp.async.bulk.tensor),
-// wgmma shared-memory descriptors, the wgmma instructions themselves (raw
-// PTX, one wrapper per shape the kernels issue) and the host-side tensor
-// maps.  Everything has internal linkage: each csrc/*.cu is its own library.
+// csrc/fused_block.cu, csrc/fused_block_q.cu and csrc/attention.cu:
+// mbarriers, TMA tile loads (cp.async.bulk.tensor), wgmma shared-memory
+// descriptors, the wgmma instructions themselves (raw PTX, one wrapper per
+// shape the kernels issue) and the host-side tensor maps.  Everything has
+// internal linkage: each csrc/*.cu is its own library.
 //
-// Shared-memory tiles are 128-byte-swizzled rows of 64 bf16 (128 B), as the
-// TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: 8-row groups of 1024 B,
-// each group's 16-byte chunks XOR-permuted by row.  A tile of R such rows is
-// a K-major wgmma operand (R rows of M or N, K = 64 along the row) or, read
-// with the transpose bit, an MN-major one (R rows of K, 64 of N).
+// Shared-memory tiles are 128-byte-swizzled rows of 128 B (64 bf16 or 128
+// int8), as the TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: 8-row
+// groups of 1024 B, each group's 16-byte chunks XOR-permuted by row.  A tile
+// of R such rows is a K-major wgmma operand (R rows of M or N, K = 128 B
+// along the row) or, read with the transpose bit (bf16 only), an MN-major
+// one (R rows of K, 64 of N).
 
 #pragma once
 
@@ -138,6 +140,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -319,6 +326,34 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 32] B[32 x 128], s8 in, exact s32 accumulators; A
+// and B by descriptor, both K-major (8-bit wgmma takes no other layout): 32
+// int8 along the row is the same 32-byte K step as 16 bf16.  The
+// accumulator layout is wgmma_ss's.
+__device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps, encoded per call through the driver entry point (no
 // -lcuda at link time).
@@ -342,15 +377,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Map of a row-major bf16 tensor of `rank` dims (dims innermost first, byte
+// Map of a row-major tensor of `rank` dims (dims innermost first, byte
 // strides of dims 1..rank-1), boxes of box[] elements whose inner extent is
-// 64 (128 B), 128-byte swizzle, zeros out of bounds.
+// 128 B (64 bf16, or 128 int8 as UINT8: the TMA only copies the bytes),
+// 128-byte swizzle, zeros out of bounds.
 cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box) {
+                            const uint64_t* strides, const uint32_t* box,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+  CUresult r = fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base),
                   reinterpret_cast<const cuuint64_t*>(dims),
                   reinterpret_cast<const cuuint64_t*>(strides),
                   reinterpret_cast<const cuuint32_t*>(box), elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

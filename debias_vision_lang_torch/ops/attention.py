@@ -14,7 +14,10 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
   attention_pallas        the CUDA kernel (``csrc/attention.cu``) on a CUDA
                           tensor, the twin on a CPU tensor; nothing falls
                           back.  The name is the JAX function's, whose body
-                          was the Pallas TPU kernel
+                          was the Pallas TPU kernel.  bf16 runs K1's wgmma
+                          core; float32 runs both products on the tensor
+                          cores as 3xTF32 (big*big + big*small + small*big
+                          of TF32 halves), within 2e-5 of the twin
   attention               dispatch: ``use_pallas=True`` goes through
                           ``attention_pallas`` with a backward that
                           differentiates the twin (``_attention_pallas_bwd``)
@@ -97,6 +100,10 @@ def build() -> None:
     _lib()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA attention kernel takes float32 or bfloat16, "
@@ -119,8 +126,9 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     dev = q.device
     if k.device != dev or v.device != dev or mask.device != dev:
         raise ValueError("q, k, v and mask must be on one device")
-    # the heads-first layout comes from a transpose: copy views to rows
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    # the heads-first layout comes from a transpose: copy views to rows; the
+    # bf16 route's tensor maps take 16-byte aligned bases
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     err = _lib().dvl_attention(

@@ -18,12 +18,13 @@ with one rounding.  Their integer products are exact on any device
 Each wrapper takes the tensor's device as the route: a CPU tensor runs the
 twin, a CUDA tensor launches the kernel (``csrc/fused_block_q.cu``) or
 raises -- nothing falls back.  The kernels read each weight transposed to
-``[out, in]`` (K contiguous: ldmatrix cannot transpose 8-bit elements), so a
-CUDA call takes those copies as ``*_qt`` (``ops/quant.QWeight`` makes them
-once).  ``scratch``, when given a dict, receives each quantized row set --
-its input (``xn`` LN output, ``attn`` attention output, ``h`` MLP hidden, as
-f32), its int8 codes (``xq``, ``aq``, ``hq``) and its row scales (``xs``,
-``as``, ``hs``) -- so a check can hold the kernel's quantization against
+``[out, in]`` (K contiguous: ldmatrix cannot transpose 8-bit elements, and
+8-bit wgmma takes K-major operands only), so a CUDA call takes those copies
+as ``*_qt`` (``ops/quant.QWeight`` makes them once).  ``scratch``, when
+given a dict, receives each quantized row set -- its input (``xn`` LN
+output, ``attn`` attention output, ``h`` MLP hidden, as f32), its int8
+codes (``xq``, ``aq``, ``hq``) and its row scales (``xs``, ``as``, ``hs``)
+-- so a check can hold the kernel's quantization against
 the twin's.
 
 ``LAUNCHES`` counts kernel launches (CPU twins never count).  The F-split
@@ -46,6 +47,7 @@ LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
                             "mlp_block_q": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
+S8_GEMM_TILE = 128  # the MLP's s8 wgmma GEMM: N and K multiples of its tile
 
 
 def reset_launches() -> None:
@@ -222,8 +224,9 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
-    if d % 32 or f % 32 or max(d, f) > MAX_ROW:
-        raise ValueError(f"the CUDA int8 MLP takes D and F divisible by 32 and "
+    if d % S8_GEMM_TILE or f % S8_GEMM_TILE or max(d, f) > MAX_ROW:
+        raise ValueError(f"the CUDA int8 MLP's s8 wgmma GEMM takes D and F "
+                         f"divisible by {S8_GEMM_TILE} (its N and K steps) and "
                          f"at most {MAX_ROW}, got D={d} F={f}")
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8

@@ -185,6 +185,76 @@ class TestRouting:
 
 
 # ---------------------------------------------------------------------------
+# The float32 route's arithmetic: 3xTF32, emulated in numpy
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the float32 bit pattern: round the 13 low
+    mantissa bits to nearest, ties away from zero, and clear them."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each product as big*big + big*small + small*big of the
+    TF32 halves (big = tf32(x), small = tf32(x - big)), summed in f32: the
+    kernel's mma.sync order, cross terms first."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_emulated(q, k, v, mask, mm):
+    """The kernel's float32 function with both products through ``mm``:
+    scores * scale + mask, row max, exp, row sum and division in f32."""
+    s = mm(q, np.swapaxes(k, -1, -2)) * np.float32(1 / 8) + mask
+    e = np.exp(s - s.max(-1, keepdims=True))
+    return mm(e / e.sum(-1, keepdims=True), v)
+
+
+def _emu_inputs(s, kind, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(2, 2, s, HD)).astype(np.float32) for _ in range(3))
+    mask = {"zero": lambda: np.zeros((s, s), np.float32),
+            "random": lambda: rng.normal(size=(s, s)).astype(np.float32),
+            "causal": lambda: _mask_np(s, True)}[kind]()
+    return q, k, v, mask
+
+
+class TestSplitTf32:
+    """Why the float32 route runs three TF32 products per f32 product."""
+
+    @pytest.mark.parametrize("kind", ["zero", "random", "causal"])
+    @pytest.mark.parametrize("s", [1, 7, 77, 197, 257, 320])
+    def test_3xtf32_meets_the_f32_bar(self, s, kind):
+        q, k, v, mask = _emu_inputs(s, kind, seed=s)
+        got = _attention_emulated(q, k, v, mask, _mm_3xtf32)
+        ref = A.attention_kernel_math(*(_torch(t) for t in (q, k, v)), _torch(mask))
+        _close_f32(got, ref)
+
+    def test_single_tf32_misses_it(self):
+        q, k, v, mask = _emu_inputs(197, "random", seed=197)
+        got = _attention_emulated(q, k, v, mask, _mm_1xtf32)
+        ref = A.attention_kernel_math(*(_torch(t) for t in (q, k, v)), _torch(mask))
+        with pytest.raises(AssertionError, match="max err"):
+            _close_f32(got, ref)
+
+    def test_tf32_rounding(self):
+        x = np.array([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -10 + 2.0 ** -11, -(1 + 2.0 ** -11),
+                      1 + 2.0 ** -12], np.float32)
+        # ties go away from zero; the result keeps 10 mantissa bits
+        np.testing.assert_array_equal(_tf32(x), np.array(
+            [1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -9, -(1 + 2.0 ** -10), 1.0], np.float32))
+        big = _tf32(x)
+        np.testing.assert_array_equal(big + _tf32(x - big), x)
+
+
+# ---------------------------------------------------------------------------
 # The towers with use_pallas=True against the JAX towers
 # ---------------------------------------------------------------------------
 
@@ -301,8 +371,12 @@ def _cuda_qkv(b, h, s, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,s,causal", [(8, 12, 197, False), (3, 12, 197, True),
-                                          (5, 8, 77, True), (2, 2, 13, False)])
+@pytest.mark.parametrize("b,h,s,causal", [
+    (8, 12, 197, False), (3, 12, 197, True), (5, 8, 77, True), (2, 2, 13, False),
+    (3, 5, 197, False),  # B*H = 15
+    # both sides of every key bucket (32, 80, 200, 256, 320 keys)
+    *[(2, 8, s, causal) for s in (1, 7, 32, 33, 80, 81, 200, 201, 256, 257, 320)
+      for causal in (False, True)]])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_twin(cuda, b, h, s, causal, dtype):
     q, k, v = _cuda_qkv(b, h, s, dtype, cuda, seed=s)

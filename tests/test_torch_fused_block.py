@@ -423,6 +423,22 @@ class TestQTwinsAgainstPallas:
         assert got_q[1, 1, :4].tolist() == [127, 2, -4, 0]
 
 
+class TestQGemmOperands:
+    """What the int8 MLP's CUDA route refuses before any launch (so on the
+    CPU too): widths its s8 wgmma GEMM does not tile, rows its quantize pass
+    does not hold."""
+
+    @pytest.mark.parametrize("d,f", [(512, 2000), (320, 1280), (96, 384), (1024, 8192)])
+    def test_mlp_q_rejects_widths_the_gemm_does_not_take(self, d, f):
+        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
+        q = torch.zeros(d, f, dtype=torch.int8)
+        with pytest.raises(ValueError, match=r"divisible by 128 .* at most 4096, "
+                                             rf"got D={d} F={f}"):
+            fbq._mlp_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(f),
+                                  torch.zeros(f), torch.ones(d), torch.zeros(d),
+                                  "quick_gelu", q.t(), q, None)
+
+
 class TestQRouting:
     def test_cpu_twins_do_not_count(self, layer, x_np):
         blk = quant.QuantBlock(_port_block(layer))
@@ -629,7 +645,8 @@ def test_cuda_attention_q_kernel_matches_twin(cuda, b, s, d, heads, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,d,act_kind", [
-    (8, 197, 768, "quick_gelu"), (3, 77, 512, "quick_gelu"), (3, 197, 768, "gelu")])
+    (8, 197, 768, "quick_gelu"), (3, 77, 512, "quick_gelu"), (3, 197, 768, "gelu"),
+    (3, 77, 512, "gelu")])  # B=3 S=77: 231 rows, a ragged M for the s8 GEMM's 128-row tile
 def test_cuda_mlp_q_kernel_matches_twin(cuda, b, s, d, act_kind):
     _, (args, qkw) = _cuda_q_block(d, cuda)
     x = torch.from_numpy(np.random.default_rng(8).normal(size=(b, s, d))
