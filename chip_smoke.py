@@ -11,9 +11,11 @@ Phases (any failure exits non-zero before the final line):
      together, sm_90a); count instructions in each library's SASS
      (cuobjdump) and fail if a design's own is 0, so a build that fell back
      to mma.sync or to the CUDA cores cannot pass unseen: HGMMA (bf16 wgmma)
-     and UTMALDG (TMA load) in the bf16 library, IGMMA (s8 wgmma) and
-     UTMALDG in the int8 library, HGMMA (K5's bf16 route) and the TF32 HMMA
-     forms (its 3xTF32 float32 route) in the attention library;
+     and UTMALDG (TMA load) in the bf16 library, IGMMA (s8 wgmma), UTMALDG
+     and HGMMA (K3's wgmma core) in the int8 library, HGMMA (K5's bf16 short
+     route) and the TF32 HMMA forms (its 3xTF32 float32 routes) in the
+     attention library; the int8 library must hold no mma.sync (HMMA.,
+     IMMA.) at all;
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
@@ -50,11 +52,14 @@ Phases (any failure exits non-zero before the final line):
      codes of the quantized rows (LN output, attention output, MLP hidden):
      the twin's quantizer applied to the kernel's own rows gives the kernel's
      codes and scales exactly, and the codes differ from the twin's in at
-     most 1e-3 of all (by at most 1 in the LN and hidden rows); a ragged M
-     (B=3 S=77: 231 rows) with both activations; at B=256 mlp_block_q is
-     split by sub-kernel with torch.profiler (LN, quantize x, up GEMM,
-     quantize h, down GEMM), each GEMM with its TOP/s and share of the int8
-     peak;
+     most 1e-3 of all (by at most 1 in the LN and hidden rows, 2 in the
+     attention rows); attention_block_q at every key bucket of the wgmma
+     core (S = 1, 7, 200, 201, 256, 257, 320, causal and not, B=2 D=512
+     H=8); a ragged M (B=3 S=77: 231 rows, x and x/16) for both blocks,
+     causal and not, both activations; at B=256 both blocks are split by
+     sub-kernel with torch.profiler (LN, quantize x and attn, QKV GEMM,
+     core, out GEMM; LN, quantize x, up GEMM, quantize h, down GEMM), each
+     GEMM with its TOP/s and share of the int8 peak;
   7. the int8 main path: the same model and images through
      get_labels_img_embeddings(dtype="int8") (QuantizedCLIP, P8 staging, the
      int8 kernels with bf16 activations between them): 12 x 4 launches of
@@ -64,16 +69,21 @@ Phases (any failure exits non-zero before the final line):
      against the float32 text tower;
   9. K5 phase: attention_pallas (csrc/attention.cu) against its twin
      attention_kernel_math, TF32 off, float32 (3xTF32 on the tensor cores)
-     and bfloat16 (the wgmma core), at the image shapes B=8 and B=64 (H=12,
-     S=197) with a zero and a random additive mask, and the text shapes
-     B=319 (the sensitive prompts) and B=64 (a caption batch), H=8, S=77,
-     with CLIP's causal mask, all timed beside
+     and bfloat16 (the wgmma core on the short route, mma.sync on the long
+     one), at the image shapes B=8 and B=64 (H=12, S=197) with a zero and a
+     random additive mask, the text shapes B=319 (the sensitive prompts)
+     and B=64 (a caption batch), H=8, S=77, with CLIP's causal mask, and the
+     long route at B=8 H=12 S=785 (the Frozen-in-Time joint tower's token
+     count) with a zero and a random mask, all timed beside
      F.scaled_dot_product_attention with the same additive mask at the same
      shapes and dtype (the yardstick; the port never calls it); then,
      checked only, B=2 H=8 at S = 1, 7, 32, 33, 80, 81, 200, 201, 256, 257
      and 320 (both sides of every key bucket) with the zero and the causal
-     mask, and a ragged B*H (B=3 H=5, S=197, random mask); bars 2e-5 of the
-     twin's largest magnitude at float32, one bf16 ulp at bfloat16;
+     mask, a ragged B*H (B=3 H=5, S=197 and S=785, random mask), the long
+     route at S = 321, 400 and 785 with the zero, random and causal masks
+     and at head dims 32, 80 and 128 (S = 77 and 197); each call launches
+     once, on the route ``_plan`` gives its shape; bars 2e-5 of the twin's
+     largest magnitude at float32, one bf16 ulp at bfloat16;
  10. training on the K5 path: a copy of the phase-4 model in
      AdversarialTrainer.create(use_pallas=True), float32, batch 64, the 319
      prompts as the sensitive set, 64 caption tokens; 3 steps; the K5 launch
@@ -110,7 +120,9 @@ over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
 its 3xTF32 design runs them) and the library call's time where one PyTorch
 call computes the same function.  K5 has two rows: float32 causal B=319
 S=77 (the text shape) and float32 B=64 S=197 (the image shape that holds
-most of its training launches).  The line before the last is the card's ``nvidia-smi``
+most of its training launches); the long route runs on no main path, so its
+times are printed beside the other K5 cases but it has no row.  The line
+before the last is the card's ``nvidia-smi``
 name and power limit; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -232,9 +244,9 @@ def print_ptxas(lib: str, log: str) -> None:
     name = spill = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(gemm_q_kernel|gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
-                      r"attention_core_kernel|layer_norm_kernel|quant_rows_kernel|"
-                      r"attention_f32_kernel)(I(?:Li\d+E|13__nv_bfloat16|f)+E)?", line)
+                      r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
+                      r"layer_norm_kernel|quant_rows_kernel|attention_f32_kernel|"
+                      r"attention_long_kernel)(I(?:Li\d+E|13__nv_bfloat16|f)+E)?", line)
         if m:
             args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE"))
                     for a in re.findall(r"Li\d+E|13__nv_bfloat16|f", m.group(2) or "")]
@@ -265,17 +277,21 @@ def find_cuobjdump():
 
 
 # SASS instructions each library's design must contain (regex per name):
-# bf16 wgmma and TMA loads for K1/K2, s8 wgmma and TMA loads for K4, and for
-# K5 the bf16 wgmma core and the TF32 mma.sync of its 3xTF32 float32 route
+# bf16 wgmma and TMA loads for K1/K2, s8 wgmma, TMA loads and the bf16
+# wgmma core for K3/K4, and for K5 the bf16 wgmma core and the TF32 mma.sync
+# of its 3xTF32 float32 routes; and those it must not: no mma.sync (HMMA,
+# IMMA) in the int8 library, whose kernels all run on wgmma
 SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
-            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\."}
-SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"), "fused_block_q": ("IGMMA", "UTMALDG"),
+            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\.", "IMMA": r"\bIMMA\."}
+SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
+                 "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
                  "attention": ("HGMMA", "HMMA.TF32")}
+SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
 
 
 def sass_check(lib, path) -> None:
-    """Count SASS_OPS in one library's SASS; any of SASS_REQUIRED[lib] at 0
-    fails the run."""
+    """Count SASS_OPS in one library's SASS; any of SASS_REQUIRED[lib] at 0,
+    or of SASS_FORBIDDEN[lib] above 0, fails the run."""
     tool = find_cuobjdump()
     if tool is None:
         print("sass: no cuobjdump found (PATH, /usr/local/cuda/bin, triton's package): "
@@ -289,6 +305,8 @@ def sass_check(lib, path) -> None:
           f"(cuobjdump {tool})")
     missing = [op for op in SASS_REQUIRED[lib] if counts[op] == 0]
     check(not missing, f"the {lib} library has no {missing} instructions in its SASS")
+    present = [op for op in SASS_FORBIDDEN.get(lib, ()) if counts[op] > 0]
+    check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
 
 
 def block_params(d, device, seed):
@@ -311,11 +329,15 @@ def block_params(d, device, seed):
 
 SPLIT_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out GEMM",
                "gemm_wgmma_kernel<2>": "up GEMM", "gemm_wgmma_kernel<3>": "up GEMM",
-               "gemm_wgmma_kernel<4>": "down GEMM", "gemm_s8_kernel<2>": "up GEMM",
+               "gemm_wgmma_kernel<4>": "down GEMM", "gemm_s8_kernel<0>": "QKV GEMM",
+               "gemm_s8_kernel<1>": "out GEMM", "gemm_s8_kernel<2>": "up GEMM",
                "gemm_s8_kernel<3>": "up GEMM", "gemm_s8_kernel<4>": "down GEMM",
                "layer_norm_kernel": "LN"}
-SPLIT_ORDER = ["LN", "quantize x", "QKV GEMM", "core", "out GEMM", "up GEMM", "quantize h",
-               "down GEMM"]
+# the int8 attention block quantizes two bf16 row sets (the LN output and
+# the attention output) with one kernel at one shape: the profiler sums them
+QUANT_X_ATTN = "quantize x + quantize attn (2 calls)"
+SPLIT_ORDER = ["LN", "quantize x", QUANT_X_ATTN, "QKV GEMM", "core", "out GEMM", "up GEMM",
+               "quantize h", "down GEMM"]
 
 
 def split_label(key: str) -> str:
@@ -333,9 +355,10 @@ def split_label(key: str) -> str:
     return "core" if kernel == "attention_wgmma_kernel" else short
 
 
-def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5):
+def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5, rename=None):
     """ms per call of each device kernel of one block call (torch.profiler),
-    and each GEMM's rate and share of the peak for ``kind`` (bf16 or int8)."""
+    and each GEMM's rate and share of the peak for ``kind`` (bf16 or int8);
+    ``rename`` maps a sub-kernel's label to the one printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -351,6 +374,7 @@ def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5):
         if us <= 0:
             continue
         label = split_label(ev.key)
+        label = (rename or {}).get(label, label)
         ms = us / iters / 1e3
         text = f"{label} {ms:.4f} ms"
         if label in gemm_ops:
@@ -471,10 +495,12 @@ def q_block_params(d, device, seed):
 
 def kernel_phase_q(fbq, device, card):
     """attention_block_q / mlp_block_q against their twins at the B=8 shapes
-    (x and x/16, and a gelu MLP), at a ragged M (both activations), at the
-    int8 main path's B=256 image shapes (timed; mlp_block_q split by
-    sub-kernel) and at the int8 text tower's B=319 shapes (timed).  Returns
-    the JSON rows without launch counts, and the text-shape times."""
+    (x and x/16, and a gelu MLP), attention_block_q at both sides of every
+    key bucket of the wgmma core, both blocks at a ragged M (x and x/16;
+    causal and not, both activations), at the int8 main path's B=256 image
+    shapes (timed; both blocks split by sub-kernel) and at the int8 text
+    tower's B=319 shapes (timed).  Returns the JSON rows without launch
+    counts, and the text-shape times."""
     import torch
 
     def compare(name, kern, plain, x, block, kw):
@@ -523,13 +549,23 @@ def kernel_phase_q(fbq, device, card):
             x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
             compare(f"mlp_block_q B={b} S={s} D={d} F={4 * d} gelu", *mlp_fns, x, mlp,
                     {"act_kind": "gelu"})
+    # both sides of every key bucket of the wgmma core (32, 80, 200, 256,
+    # 256 + 64 keys)
+    attn, mlp = q_block_params(512, device, seed=5)
+    for s_ in (1, 7, 200, 201, 256, 257, 320):
+        for causal in (False, True):
+            x = torch.randn(2, s_, 512, generator=g).to(device, torch.bfloat16)
+            compare(f"attention_block_q B=2 S={s_} D=512 H=8 causal={causal}", *attn_fns, x,
+                    attn, {"heads": 8, "causal": causal})
     # a ragged M: 3 x 77 = 231 rows against the s8 GEMM's 128-row tile
-    _, mlp = q_block_params(512, device, seed=5)
     for scale in (1.0, 1 / 16):
         x = (torch.randn(3, 77, 512, generator=g) * scale).to(device, torch.bfloat16)
+        tag = f"B=3 S=77 D=512 x~N(0,{scale}^2) (ragged M)"
+        for causal in (False, True):
+            compare(f"attention_block_q {tag} H=8 causal={causal}", *attn_fns, x, attn,
+                    {"heads": 8, "causal": causal})
         for act in ("quick_gelu", "gelu"):
-            compare(f"mlp_block_q B=3 S=77 D=512 x~N(0,{scale}^2) (ragged M) F=2048 {act}",
-                    *mlp_fns, x, mlp, {"act_kind": act})
+            compare(f"mlp_block_q {tag} F=2048 {act}", *mlp_fns, x, mlp, {"act_kind": act})
     torch.cuda.synchronize()
 
     attn, mlp = q_block_params(768, device, seed=7)
@@ -552,6 +588,10 @@ def kernel_phase_q(fbq, device, card):
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
     m = BATCH * 197
+    subkernel_split(f"attention_block_q B={BATCH} S=197 D=768 H=12",
+                    lambda: fbq.attention_block_q(x, *attn[0], heads=12, **attn[1]),
+                    {"QKV GEMM": 2 * m * 768 * 2304, "out GEMM": 2 * m * 768 * 768}, card,
+                    kind="int8", rename={"quantize x": QUANT_X_ATTN})
     subkernel_split(f"mlp_block_q B={BATCH} S=197 D=768 F=3072",
                     lambda: fbq.mlp_block_q(x, *mlp[0], **mlp[1]),
                     {"up GEMM": 2 * m * 768 * 3072, "down GEMM": 2 * m * 768 * 3072}, card,
@@ -605,42 +645,52 @@ def cosine_check(tag, got, ref):
 
 def kernel_phase_attn(A, device):
     """attention_pallas (K5) against attention_kernel_math, float32 and
-    bfloat16: at the image and text shapes (timed, beside SDPA), then at both
-    sides of every key bucket and a ragged B*H (checked only).  Returns one
-    dict per timed case."""
+    bfloat16: at the image and text shapes and the long route's B=8 H=12
+    S=785 (timed, beside SDPA), then at both sides of every key bucket of
+    the short routes, at the long route's shapes and a ragged B*H (checked
+    only).  Every call's launch lands on the route ``_plan`` gives its shape.
+    Returns one dict per timed case."""
     import torch
     from debias_vision_lang_torch.models.layers import causal_mask
 
     g = torch.Generator().manual_seed(3)
+    routes = {"short": "attention_pallas", "long": "attention_pallas_long"}
 
-    def run_case(dtype, b, h, s, kind):
-        q, k, v = (torch.randn(b, h, s, 64, generator=g).to(device, dtype) for _ in range(3))
+    def run_case(dtype, b, h, s, kind, hd=64):
+        q, k, v = (torch.randn(b, h, s, hd, generator=g).to(device, dtype) for _ in range(3))
         mask = {"zero": lambda: torch.zeros(s, s),
                 "random": lambda: torch.randn(s, s, generator=g),
                 "causal": lambda: causal_mask(s)}[kind]().to(device)
+        route = A._plan(s, hd)
+        A.reset_launches()
         got = A.attention_pallas(q, k, v, mask)
+        launched = dict(A.LAUNCHES)
         ref = A.attention_kernel_math(q, k, v, mask)
         err = (got.float() - ref.float()).abs().max().item()
         mag = ref.float().abs().max().item()
         f32 = dtype == torch.float32
         tol = 2e-5 * mag if f32 else ulp_bf16(mag)
-        tag = f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s} mask={kind}"
+        tag = (f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s}"
+               f"{'' if hd == 64 else f' hd={hd}'} mask={kind} ({route} route)")
         print(f"kernel {tag}: max_abs_err {err} (tolerance {tol} = "
-              f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag})")
-        check(got.dtype == dtype and math.isfinite(err) and err <= tol,
+              f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag}); launches {launched}")
+        check(got.dtype == dtype and got.shape == q.shape and math.isfinite(err) and err <= tol,
               f"{tag}: kernel disagrees with its twin")
-        return tag, (q, k, v, mask), err
+        check(launched == {n: int(r == route) for r, n in routes.items()},
+              f"{tag}: launches {launched}, expected one on the {route} route")
+        return tag, (q, k, v, mask), err, route
 
     cases = [(8, 12, 197, "zero"), (8, 12, 197, "random"), (64, 12, 197, "zero"),
-             (64, 12, 197, "random"), (319, 8, 77, "causal"), (64, 8, 77, "causal")]
+             (64, 12, 197, "random"), (319, 8, 77, "causal"), (64, 8, 77, "causal"),
+             (8, 12, 785, "zero"), (8, 12, 785, "random")]
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         for b, h, s, kind in cases:
-            tag, (q, k, v, mask), err = run_case(dtype, b, h, s, kind)
+            tag, (q, k, v, mask), err, route = run_case(dtype, b, h, s, kind)
             lib_mask = mask.to(dtype)
             out.append({"tag": tag, "dtype": "f32" if f32 else "bf16", "b": b, "h": h, "s": s,
-                        "mask": kind, "err": err,
+                        "mask": kind, "route": route, "err": err,
                         "ms": cuda_ms(lambda: A.attention_pallas(q, k, v, mask)),
                         "plain_ms": cuda_ms(lambda: A.attention_kernel_math(q, k, v, mask)),
                         "library_ms": cuda_ms(lambda: torch.nn.functional.
@@ -649,13 +699,21 @@ def kernel_phase_attn(A, device):
                         "bound": bound(*attention_work(b, h, s, f32)),
                         "bound_cuda_cores": bound(*attention_work(b, h, s, f32, True))
                         if f32 else None})
-    # both sides of every key bucket of the kernels (32, 80, 200, 256, 320
-    # keys), and a B*H that is no multiple of anything the kernels tile by
+    # both sides of every key bucket of the short routes (32, 80, 200, 256,
+    # 320 keys); the long route past 320 keys and at head dims other than
+    # 64; and a B*H that is no multiple of anything the kernels tile by
     for dtype in (torch.float32, torch.bfloat16):
         for s in (1, 7, 32, 33, 80, 81, 200, 201, 256, 257, 320):
             for kind in ("zero", "causal"):
                 run_case(dtype, 2, 8, s, kind)
         run_case(dtype, 3, 5, 197, "random")
+        for s in (321, 400, 785):
+            for kind in ("zero", "random", "causal"):
+                run_case(dtype, 2, 8, s, kind)
+        for s in (77, 197):
+            for hd in (32, 80, 128):
+                run_case(dtype, 2, 8, s, "random", hd=hd)
+        run_case(dtype, 3, 5, 785, "random")
     torch.cuda.synchronize()
     return out
 
@@ -991,7 +1049,8 @@ def main() -> int:
     want = {"attention_block": TRAIN_STEPS * 2 * LAYERS,
             "attention_block_causal": TRAIN_STEPS * 3 * LAYERS,
             "mlp_block": TRAIN_STEPS * 5 * LAYERS, "attention_pallas": 0,
-            "attention_block_q": 0, "attention_block_q_causal": 0, "mlp_block_q": 0}
+            "attention_pallas_long": 0, "attention_block_q": 0,
+            "attention_block_q_causal": 0, "mlp_block_q": 0}
     check(run_bf16["counts"] == want,
           f"bf16 training launches {run_bf16['counts']}, expected {want}")
     # Adam's first update is ~lr x sign(g): near-zero gradient elements flip
@@ -1133,6 +1192,7 @@ def main() -> int:
     for b, s, mask in ((319, 77, "causal"), (64, 197, "zero")):
         k5 = next(c for c in attn_cases
                   if c["dtype"] == "f32" and (c["b"], c["s"], c["mask"]) == (b, s, mask))
+        check(k5["route"] == "short", f"{k5['tag']}: the main path's shapes take the short route")
         rows_k5.append({"name": "attention_pallas", "case": k5["tag"], "route": "cuda",
                         "source": "debias_vision_lang_torch/csrc/attention.cu",
                         "replaces": "debias_vision_lang_tpu/ops/attention.py:93",

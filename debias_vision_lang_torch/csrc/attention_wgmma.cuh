@@ -1,6 +1,7 @@
-// The bf16 attention core on Hopper's wgmma, fed by TMA, shared by two
+// The bf16 attention core on Hopper's wgmma, fed by TMA, shared by three
 // kernels that compute the same function from other operands:
-//   * K1, dvl_attention_block (csrc/fused_block.cu): packed qkv [B*S, 3D]
+//   * K1, dvl_attention_block (csrc/fused_block.cu), and K3,
+//     dvl_attention_block_q (csrc/fused_block_q.cu): packed qkv [B*S, 3D]
 //     (q | k | v, head h at columns 64h .. 64h+63 of each third) -> attn
 //     [B*S, D], CLIP's causal mask generated from a flag;
 //   * K5, dvl_attention (csrc/attention.cu): heads-first q, k, v [B*H, S,
@@ -10,8 +11,6 @@
 // The function: f32 scores * scale (+ the mask), row max, exp, normalised by
 // the f32 row sum and rounded to bf16 BEFORE P @ V (not an online softmax:
 // at bf16 that is another function), P @ V accumulated in f32, one rounding.
-// The mma.sync core of fused_block_q.cu (the int8 block K3's, until its own
-// redesign) computes the same for K1's operands.
 //
 // One block (one warpgroup, 128 threads) per (head, image):
 //   * thread 0 asks the TMA for the head's K and V once (boxes of up to 256
@@ -35,8 +34,8 @@
 // at the bf16 peak) against 0.31 GB of qkv read and attn written (0.093 ms
 // at 3.35 TB/s): bytes; K5 at B=64 H=12 S=197 likewise (0.023 ms of bytes).
 // What this design does about it: each head's K and V are read from device
-// memory once (the mma.sync cores read them once per 64 queries), and no
-// product waits for a load it does not need.
+// memory once (not once per 64 queries), and no product waits for a load
+// it does not need.
 
 #pragma once
 
@@ -274,7 +273,7 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
   }
 }
 
-// K1: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
+// K1 and K3: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
                                    int causal, cudaStream_t st) {
   if (S < 1 || S > CORE_MAX_SEQ || D != heads * 64) return cudaErrorInvalidValue;

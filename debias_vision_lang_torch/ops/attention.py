@@ -11,19 +11,27 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
                           accumulated in f32, ``scores * scale + mask`` and
                           the softmax in f32, probabilities normalised and
                           rounded to v's dtype before PV, output rounded
-  attention_pallas        the CUDA kernel (``csrc/attention.cu``) on a CUDA
+  attention_pallas        the CUDA kernels (``csrc/attention.cu``) on a CUDA
                           tensor, the twin on a CPU tensor; nothing falls
                           back.  The name is the JAX function's, whose body
-                          was the Pallas TPU kernel.  bf16 runs K1's wgmma
-                          core; float32 runs both products on the tensor
-                          cores as 3xTF32 (big*big + big*small + small*big
-                          of TF32 halves), within 2e-5 of the twin
+                          was the Pallas TPU kernel.  ``_plan`` picks the
+                          route from the shape alone: the short routes
+                          (S <= 320, head dim 64: bf16 on K1's wgmma core,
+                          float32 with both products on the tensor cores as
+                          3xTF32, big*big + big*small + small*big of TF32
+                          halves, within 2e-5 of the twin), or the long
+                          route for every other shape (three passes over
+                          64-key tiles, the head dim zero-padded to a
+                          multiple of 64 with the original head dim's
+                          scale, as the JAX function pads to 128 lanes)
   attention               dispatch: ``use_pallas=True`` goes through
                           ``attention_pallas`` with a backward that
                           differentiates the twin (``_attention_pallas_bwd``)
 
 The mask is additive f32 [S, S] (CLIP's causal mask holds -inf above the
-diagonal).  ``LAUNCHES`` counts kernel launches; CPU twins never count.
+diagonal).  ``LAUNCHES`` counts kernel launches per route
+(``attention_pallas`` the short routes, ``attention_pallas_long`` the long
+one); CPU twins never count.
 """
 
 from __future__ import annotations
@@ -36,9 +44,9 @@ import torch
 
 from ..models.layers import attention_bshd
 
-LAUNCHES: Dict[str, int] = {"attention_pallas": 0}
-HEAD_DIM = 64   # the only head dim the CUDA kernel is built for
-MAX_SEQ = 320   # keys per score row the CUDA kernel holds in registers
+LAUNCHES: Dict[str, int] = {"attention_pallas": 0, "attention_pallas_long": 0}
+HEAD_DIM = 64   # the short routes' head dim, and the long route's dim tile
+SHORT_MAX_SEQ = 320  # keys per score row the short routes hold in registers
 
 
 def reset_launches() -> None:
@@ -64,10 +72,14 @@ def attention_reference(q, k, v, mask: Optional[torch.Tensor] = None
                           mask).transpose(1, 2)
 
 
-def attention_kernel_math(q, k, v, mask: torch.Tensor) -> torch.Tensor:
+def attention_kernel_math(q, k, v, mask: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function (the JAX ``_attention_kernel_math``), as
-    differentiable torch; the row max is stop-gradiented as there."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    differentiable torch; the row max is stop-gradiented as there.
+    ``scale`` defaults to 1/sqrt(head dim); the long route passes the
+    original head dim's when the operands are zero-padded."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     s = s + mask.float()
     e = torch.exp(s - s.amax(-1, keepdim=True).detach())
@@ -89,7 +101,7 @@ def _lib():
 
         lib = load("attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvl_attention.argtypes = [p] * 5 + [i] * 3 + [p]
+        lib.dvl_attention.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
         lib.dvl_attention.restype = i
         _LIB = lib
     return _LIB
@@ -104,6 +116,24 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _plan(s: int, hd: int) -> str:
+    """The CUDA route for a shape, from the shape alone: ``"short"`` (whole
+    score rows in registers) for S <= 320 and head dim 64, ``"long"`` for
+    every other shape."""
+    return "short" if s <= SHORT_MAX_SEQ and hd == HEAD_DIM else "long"
+
+
+def _padded_head_dim(hd: int) -> int:
+    return HEAD_DIM * -(-hd // HEAD_DIM)
+
+
+def _pad_head_dim(t: torch.Tensor, hdp: int) -> torch.Tensor:
+    """Zero columns up to head dim ``hdp``: they change no score and add
+    only zero output columns."""
+    hd = t.shape[-1]
+    return t if hd == hdp else torch.nn.functional.pad(t, (0, hdp - hd))
+
+
 def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA attention kernel takes float32 or bfloat16, "
@@ -114,32 +144,29 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must have one dtype")
     b, h, s, hd = q.shape
-    if hd != HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernel takes head dim {HEAD_DIM}, "
-                         f"got {hd}")
-    if s > MAX_SEQ:
-        raise ValueError(f"sequence length {s} > {MAX_SEQ}, the most keys the "
-                         f"CUDA attention kernel holds per score row")
     if tuple(mask.shape) != (s, s):
         raise ValueError(f"mask must be [S, S] = [{s}, {s}], got "
                          f"{tuple(mask.shape)}")
     dev = q.device
     if k.device != dev or v.device != dev or mask.device != dev:
         raise ValueError("q, k, v and mask must be on one device")
+    route = _plan(s, hd)
+    hdp = _padded_head_dim(hd)
     # the heads-first layout comes from a transpose: copy views to rows; the
-    # bf16 route's tensor maps take 16-byte aligned bases
-    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
+    # kernels take 16-byte aligned bases
+    q, k, v = (_aligned(_pad_head_dim(t, hdp).contiguous()) for t in (q, k, v))
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     err = _lib().dvl_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), b * h, s, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), b * h, s, hdp, int(q.dtype == torch.bfloat16),
+        int(route == "long"), ctypes.c_float(1.0 / math.sqrt(hd)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"dvl_attention: CUDA error {err} "
+        raise RuntimeError(f"dvl_attention ({route} route): CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)})")
-    LAUNCHES["attention_pallas"] += 1
-    return out
+    LAUNCHES["attention_pallas_long" if route == "long" else "attention_pallas"] += 1
+    return out if hdp == hd else out[..., :hd].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +176,9 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
 
 def attention_pallas(q, k, v, mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd]: the CUDA kernel
-    (``csrc/attention.cu``) on a CUDA tensor, ``attention_kernel_math`` on a
-    CPU tensor."""
+    """softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd], any S and hd:
+    the CUDA kernels (``csrc/attention.cu``, the route from ``_plan``) on a
+    CUDA tensor, ``attention_kernel_math`` on a CPU tensor."""
     if mask is None:
         mask = _zero_mask(q)
     if q.device.type == "cpu":

@@ -17,10 +17,11 @@ with one rounding.  Their integer products are exact on any device
 
 Each wrapper takes the tensor's device as the route: a CPU tensor runs the
 twin, a CUDA tensor launches the kernel (``csrc/fused_block_q.cu``) or
-raises -- nothing falls back.  The kernels read each weight transposed to
-``[out, in]`` (K contiguous: ldmatrix cannot transpose 8-bit elements, and
-8-bit wgmma takes K-major operands only), so a CUDA call takes those copies
-as ``*_qt`` (``ops/quant.QWeight`` makes them once).  ``scratch``, when
+raises -- nothing falls back.  All four products run one s8 wgmma GEMM,
+and the attention block's core is the bf16 blocks' wgmma core.  The GEMM
+reads each weight transposed to ``[out, in]`` (K contiguous: 8-bit wgmma
+takes K-major operands only), so a CUDA call takes those copies as ``*_qt``
+(``ops/quant.QWeight`` makes them once).  ``scratch``, when
 given a dict, receives each quantized row set -- its input (``xn`` LN
 output, ``attn`` attention output, ``h`` MLP hidden, as f32), its int8
 codes (``xq``, ``aq``, ``hq``) and its row scales (``xs``, ``as``, ``hs``)
@@ -47,7 +48,7 @@ LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
                             "mlp_block_q": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
-S8_GEMM_TILE = 128  # the MLP's s8 wgmma GEMM: N and K multiples of its tile
+S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
 
 
 def reset_launches() -> None:
@@ -186,8 +187,12 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
     if d % heads or d // heads != 64:
         raise ValueError(f"the CUDA attention core takes head dim 64, got "
                          f"D={d} heads={heads}")
-    if s > MAX_SEQ:
-        raise ValueError(f"sequence length {s} > {MAX_SEQ}")
+    if d % S8_GEMM_TILE:
+        raise ValueError(f"the CUDA int8 attention block's s8 wgmma GEMM takes D "
+                         f"divisible by {S8_GEMM_TILE} (its N and K steps), got "
+                         f"D={d}")
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     wqkv = _qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev)

@@ -28,12 +28,14 @@ import sys
 
 def family(name: str) -> str:
     n = name.lower()
-    # K5: the 3xTF32 float32 kernel, or the wgmma core read heads-first
-    # (attention_wgmma_kernel<NK, 1>; K1 runs it as <NK, 0>)
-    if "attention_f32_kernel" in n or re.search(r"attention_wgmma_kernel<\d+, 1>", n):
+    # K5: the 3xTF32 float32 kernel, the long route's kernel, or the wgmma
+    # core read heads-first (attention_wgmma_kernel<NK, 1>; K1 runs it as
+    # <NK, 0>)
+    if ("attention_f32_kernel" in n or "attention_long_kernel" in n
+            or re.search(r"attention_wgmma_kernel<\d+, 1>", n)):
         return "K5 attention kernel"
     if any(k in n for k in ("gemm_wgmma_kernel", "attention_wgmma_kernel",
-                            "attention_core_kernel", "layer_norm_kernel")):
+                            "layer_norm_kernel")):
         return "fused-block kernels (K1/K2)"
     if "gemm" in n or "cutlass" in n or "xmma" in n:
         return "library GEMM (cuBLAS/CUTLASS)"

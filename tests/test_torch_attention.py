@@ -8,10 +8,13 @@ tests/test_attention_kernel.py runs it) and against
 2e-5 of the largest magnitude (the fused-vs-XLA bar), bfloat16 within one
 bf16 ulp for outputs and a cosine of at least 0.9999 for gradients.  S=13
 and S=77 (ragged), B*H = 6 (not a multiple of the Pallas group of 8), a
-zero mask and CLIP's causal -inf mask.  The towers with ``use_pallas=True``
-against the JAX towers at float32 (the same function there).
-CUDA (marker ``cuda``, skipped without a card): the hand-written kernel
-against the twin at the slice's shapes, and gradients through it.
+zero mask and CLIP's causal -inf mask; the long route's shapes (S = 321
+and 785, head dims 32, 80 and 128) likewise, the route each shape takes
+(``_plan``), and the long route's head-dim padding.  The towers with
+``use_pallas=True`` against the JAX towers at float32 (the same function
+there).  CUDA (marker ``cuda``, skipped without a card): the hand-written
+kernels against the twin at the slice's shapes and the long route's, the
+launches per route, and gradients through them.
 
 jax is imported inside the JAX-side helpers only, so the CUDA tests run on
 a machine without jax:  python -m pytest tests/test_torch_attention.py
@@ -168,7 +171,9 @@ class TestRouting:
         q, k, v = (_torch(t) for t in _qkv(13))
         A.attention_pallas(q, k, v, causal_mask(13))
         A.attention(q, k, v, use_pallas=True)
-        assert A.LAUNCHES == {"attention_pallas": 0}
+        q, k, v = (_torch(t) for t in _qkv(321))  # a long-route shape
+        A.attention_pallas(q, k, v)
+        assert A.LAUNCHES == {"attention_pallas": 0, "attention_pallas_long": 0}
 
     def test_other_devices_raise(self):
         q, k, v = (_torch(t).to("meta") for t in _qkv(13))
@@ -182,6 +187,65 @@ class TestRouting:
         assert bool(torch.isfinite(out).all())
         # the first query attends to the first key only
         torch.testing.assert_close(out[:, :, 0], v[:, :, 0], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The long route: S > 320 or a head dim other than 64
+# ---------------------------------------------------------------------------
+
+LONG_CASES = [(321, 64), (785, 64), (77, 32), (321, 80), (77, 128), (785, 32)]
+
+
+class TestLongRoute:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s,hd", LONG_CASES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_forward_vs_pallas_interpret(self, s, hd, causal, dtype):
+        """The Pallas kernel pads S and the head dim (to 128 lanes) itself;
+        the twin runs at the unpadded shape."""
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.attention import attention_pallas
+
+        rng = np.random.default_rng(s + hd)
+        q, k, v = (rng.normal(size=(B, H, s, hd)).astype(np.float32) for _ in range(3))
+        m = _mask_np(s, causal)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        ref = attention_pallas(*(_jnp(t, jdt) for t in (q, k, v)), _jnp(m),
+                               interpret=True)
+        got = A.attention_pallas(*(_torch(t, tdt) for t in (q, k, v)), _torch(m))
+        assert got.dtype == tdt and got.shape == (B, H, s, hd)
+        (_close_f32 if dtype == "float32" else _within_one_ulp)(got, ref)
+
+    @pytest.mark.parametrize("s,hd,route", [
+        (1, 64, "short"), (77, 64, "short"), (320, 64, "short"), (321, 64, "long"),
+        (785, 64, "long"), (77, 32, "long"), (197, 80, "long"), (320, 128, "long"),
+        (1, 63, "long"), (4096, 16, "long")])
+    def test_plan_is_long_exactly_past_320_keys_or_off_head_dim_64(self, s, hd, route):
+        assert A._plan(s, hd) == route
+
+    @pytest.mark.parametrize("hd,hdp", [(1, 64), (32, 64), (64, 64), (80, 128), (128, 128),
+                                        (130, 192)])
+    def test_padded_head_dim(self, hd, hdp):
+        assert A._padded_head_dim(hd) == hdp
+
+    @pytest.mark.parametrize("s", [77, 321])
+    @pytest.mark.parametrize("hd", [32, 80, 128])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_head_dim_padding_gives_the_twin_exactly(self, s, hd, dtype):
+        """Zero columns up to a multiple of 64 with the original head dim's
+        scale: the same output, bit for bit, once the columns are cut."""
+        rng = np.random.default_rng(hd)
+        q, k, v = (_torch(rng.normal(size=(2, 3, s, hd)), dtype) for _ in range(3))
+        mask = _torch(rng.normal(size=(s, s)))
+        hdp = A._padded_head_dim(hd)
+        padded = [A._pad_head_dim(t, hdp) for t in (q, k, v)]
+        assert padded[0].shape == (2, 3, s, hdp)
+        assert bool((padded[0][..., hd:] == 0).all())
+        got = A.attention_kernel_math(*padded, mask, scale=1 / math.sqrt(hd))
+        assert bool((got[..., hd:] == 0).all())
+        torch.testing.assert_close(got[..., :hd], A.attention_kernel_math(q, k, v, mask),
+                                   rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +448,8 @@ def test_cuda_kernel_matches_twin(cuda, b, h, s, causal, dtype):
     A.reset_launches()
     got = A.attention_pallas(q, k, v, mask)
     torch.cuda.synchronize()
-    assert A.LAUNCHES["attention_pallas"] == 1 and got.dtype == dtype
+    assert A.LAUNCHES == {"attention_pallas": 1, "attention_pallas_long": 0}
+    assert got.dtype == dtype
     ref = A.attention_kernel_math(q, k, v, mask)
     (_close_f32 if dtype == torch.float32 else _within_one_ulp)(got.cpu(), ref.cpu())
 
@@ -404,10 +469,22 @@ def test_cuda_gradients_through_the_kernel(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_rejects_unsupported_shapes(cuda):
-    q = torch.zeros(1, 1, 13, 32, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
-        A.attention_pallas(q, q, q)
-    q = torch.zeros(1, 1, 321, 64, device=cuda)
-    with pytest.raises(ValueError, match="320"):
-        A.attention_pallas(q, q, q)
+@pytest.mark.parametrize("b,h,s,hd,kind", [
+    *[(2, 8, s, 64, kind) for s in (321, 400, 785) for kind in ("zero", "random", "causal")],
+    *[(2, 8, s, hd, "random") for s in (77, 197) for hd in (32, 80, 128)],
+    (3, 5, 785, 64, "random")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_long_route_matches_twin(cuda, b, h, s, hd, kind, dtype):
+    """S past 320 or a head dim other than 64: the long route, and only it."""
+    g = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(b, h, s, hd, generator=g).to(cuda, dtype) for _ in range(3))
+    mask = {"zero": lambda: torch.zeros(s, s, device=cuda),
+            "random": lambda: torch.randn(s, s, device=cuda),
+            "causal": lambda: causal_mask(s, cuda)}[kind]()
+    A.reset_launches()
+    got = A.attention_pallas(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {"attention_pallas": 0, "attention_pallas_long": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = A.attention_kernel_math(q, k, v, mask)
+    (_close_f32 if dtype == torch.float32 else _within_one_ulp)(got.cpu(), ref.cpu())

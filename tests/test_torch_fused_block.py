@@ -13,7 +13,9 @@ the int8 Pallas kernels, single-chain (bb=1) and chain (bb=3) variants:
 float32 at atol 1e-4, bfloat16 within one bf16 ulp.  CUDA (marker
 ``cuda``, skipped without a card): the hand-written kernels against the
 twins at the main path's shapes, the wgmma attention core at every key
-bucket, a ragged M, and the shapes the wgmma GEMM refuses.
+bucket (in the bf16 and the int8 attention blocks), a ragged M, and the
+shapes the wgmma GEMMs refuse.  A source check holds the int8 attention
+block to the s8 wgmma GEMM and the wgmma core.
 
 jax is imported inside the JAX-side helpers only, so the CUDA tests run on
 a machine without jax:  python -m pytest tests/test_torch_fused_block.py
@@ -21,6 +23,7 @@ a machine without jax:  python -m pytest tests/test_torch_fused_block.py
 """
 
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -424,9 +427,19 @@ class TestQTwinsAgainstPallas:
 
 
 class TestQGemmOperands:
-    """What the int8 MLP's CUDA route refuses before any launch (so on the
-    CPU too): widths its s8 wgmma GEMM does not tile, rows its quantize pass
-    does not hold."""
+    """What the int8 blocks' CUDA routes refuse before any launch (so on
+    the CPU too): widths their s8 wgmma GEMM does not tile, rows the
+    quantize pass does not hold."""
+
+    @pytest.mark.parametrize("d,heads", [(320, 5), (192, 3)])
+    def test_attention_q_rejects_widths_the_gemm_does_not_take(self, d, heads):
+        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
+        wqkv, wo = torch.zeros(d, 3 * d, dtype=torch.int8), torch.zeros(d, d, dtype=torch.int8)
+        with pytest.raises(ValueError, match=r"int8 attention block's s8 wgmma GEMM "
+                                             rf"takes D divisible by 128 .*got D={d}"):
+            fbq._attention_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(3 * d),
+                                        torch.zeros(3 * d), torch.ones(d), torch.zeros(d),
+                                        heads, False, wqkv.t(), wo.t(), None)
 
     @pytest.mark.parametrize("d,f", [(512, 2000), (320, 1280), (96, 384), (1024, 8192)])
     def test_mlp_q_rejects_widths_the_gemm_does_not_take(self, d, f):
@@ -437,6 +450,28 @@ class TestQGemmOperands:
             fbq._mlp_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(f),
                                   torch.zeros(f), torch.ones(d), torch.zeros(d),
                                   "quick_gelu", q.t(), q, None)
+
+
+class TestQAttentionSource:
+    """The int8 attention block's CUDA source runs the machinery of the
+    other Hopper kernels: no mma.sync left, both products on the s8 wgmma
+    GEMM, the core on the shared wgmma core."""
+
+    SRC = (pathlib.Path(fbq.__file__).resolve().parent.parent / "csrc" / "fused_block_q.cu"
+           ).read_text()
+
+    @pytest.mark.parametrize("name", ["mma.sync", "gemm_q_kernel", "attention_core_kernel",
+                                      "ldsm_x4", "mma_16816", "mma_16832_s8", "ldmatrix"])
+    def test_no_mma_sync_design_left(self, name):
+        assert name not in self.SRC
+
+    def test_entry_point_runs_the_s8_gemm_and_the_wgmma_core(self):
+        body = self.SRC[self.SRC.index("int dvl_attention_block_q("):
+                        self.SRC.index("int dvl_mlp_block_q(")]
+        assert body.count("launch_gemm_s8<EQ_BIAS>(") == 1
+        assert body.count("launch_gemm_s8<EQ_BIAS_RESID>(") == 1
+        assert body.count("launch_attention_wgmma(") == 1
+        assert '#include "attention_wgmma.cuh"' in self.SRC
 
 
 class TestQRouting:
@@ -628,7 +663,12 @@ def _kernel_quantizes_its_own_rows(scratch, pairs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,d,heads,causal", [
-    (8, 197, 768, 12, False), (3, 197, 768, 12, True), (5, 77, 512, 8, True)])
+    (8, 197, 768, 12, False), (3, 197, 768, 12, True), (5, 77, 512, 8, True),
+    # the wgmma core's key buckets (32, 80, 200, 256, 256 + 64 keys), both sides
+    *[(2, s, 512, 8, causal) for s in (1, 7, 200, 201, 256, 257, 320)
+      for causal in (False, True)],
+    # B=3 S=77: 231 rows, a ragged M for the s8 GEMM's 128-row tile
+    (3, 77, 512, 8, False), (3, 77, 512, 8, True)])
 def test_cuda_attention_q_kernel_matches_twin(cuda, b, s, d, heads, causal):
     (args, qkw), _ = _cuda_q_block(d, cuda)
     x = torch.from_numpy(np.random.default_rng(7).normal(size=(b, s, d))
