@@ -13,9 +13,12 @@ Phases (any failure exits non-zero before the final line):
      to mma.sync or to the CUDA cores cannot pass unseen: HGMMA (bf16 wgmma)
      and UTMALDG (TMA load) in the bf16 library, IGMMA (s8 wgmma), UTMALDG
      and HGMMA (K3's wgmma core) in the int8 library, HGMMA (K5's bf16 short
-     route) and the TF32 HMMA forms (its 3xTF32 float32 routes) in the
+     route) and the TF32 HMMA forms (its 3xTF32 float32 short route) in the
      attention library; the int8 library must hold no mma.sync (HMMA.,
-     IMMA.) at all;
+     IMMA.) at all; and per kernel, each of the six instantiations of K5's
+     long route (attention_long_kernel at bf16 and f32, head dims 64, 128,
+     192) must hold its own forms, bf16 wgmma (HGMMA ... BF16) or tf32 wgmma
+     (HGMMA ... TF32) and TMA loads (UTMALDG), and no mma.sync (HMMA.);
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
@@ -69,21 +72,29 @@ Phases (any failure exits non-zero before the final line):
      against the float32 text tower;
   9. K5 phase: attention_pallas (csrc/attention.cu) against its twin
      attention_kernel_math, TF32 off, float32 (3xTF32 on the tensor cores)
-     and bfloat16 (the wgmma core on the short route, mma.sync on the long
-     one), at the image shapes B=8 and B=64 (H=12, S=197) with a zero and a
-     random additive mask, the text shapes B=319 (the sensitive prompts)
-     and B=64 (a caption batch), H=8, S=77, with CLIP's causal mask, and the
-     long route at B=8 H=12 S=785 (the Frozen-in-Time joint tower's token
-     count) with a zero and a random mask, all timed beside
-     F.scaled_dot_product_attention with the same additive mask at the same
-     shapes and dtype (the yardstick; the port never calls it); then,
-     checked only, B=2 H=8 at S = 1, 7, 32, 33, 80, 81, 200, 201, 256, 257
-     and 320 (both sides of every key bucket) with the zero and the causal
-     mask, a ragged B*H (B=3 H=5, S=197 and S=785, random mask), the long
-     route at S = 321, 400 and 785 with the zero, random and causal masks
-     and at head dims 32, 80 and 128 (S = 77 and 197); each call launches
-     once, on the route ``_plan`` gives its shape; bars 2e-5 of the twin's
-     largest magnitude at float32, one bf16 ulp at bfloat16;
+     and bfloat16 (the wgmma core on the short route; the two-pass wgmma +
+     TMA kernel on the long one), at the image shapes B=8 and B=64 (H=12,
+     S=197) with a zero and a random additive mask, the text shapes B=319
+     (the sensitive prompts) and B=64 (a caption batch), H=8, S=77, with
+     CLIP's causal mask, and the long route at B=8 H=12 S=785 (the
+     Frozen-in-Time joint tower's token count) with a zero and a random
+     mask and at B=32 (its measurement batch) with a zero mask, all timed
+     beside F.scaled_dot_product_attention with the same additive mask at
+     the same shapes and dtype (the yardstick; the port never calls it);
+     then, checked only, B=2 H=8 at S = 1, 7, 32, 33, 80, 81, 200, 201, 256,
+     257 and 320 (both sides of every key bucket) with the zero and the
+     causal mask, a ragged B*H (B=3 H=5, S=197 and S=785, random mask), the
+     long route at S = 321, 383, 384, 385, 400, 785, 1025 and 2048 (a ragged
+     last key tile, both sides of the 128-query block, 16 and 32 key tiles)
+     with the zero, random and causal masks and at head dims 32, 80, 128 and
+     192 (S = 77 and 197; 192 also at S = 785), and at bfloat16 with every
+     score shifted by 1e6; each call launches once, on
+     the route ``_plan`` gives its shape; bars 2e-5 of the twin's largest
+     magnitude at float32, one bf16 ulp at bfloat16; then the long route on
+     a Frozen-in-Time joint tower's path: 12 layers of the public
+     attention(use_pallas=True) at B=8 H=12 S=785, float32 forward and
+     backward and bfloat16 forward, with the counters set to 0 before each
+     run: 12 long-route launches and no short one, finite values;
  10. training on the K5 path: a copy of the phase-4 model in
      AdversarialTrainer.create(use_pallas=True), float32, batch 64, the 319
      prompts as the sensitive set, 64 caption tokens; 3 steps; the K5 launch
@@ -118,10 +129,11 @@ its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
 its 3xTF32 design runs them) and the library call's time where one PyTorch
-call computes the same function.  K5 has two rows: float32 causal B=319
-S=77 (the text shape) and float32 B=64 S=197 (the image shape that holds
-most of its training launches); the long route runs on no main path, so its
-times are printed beside the other K5 cases but it has no row.  The line
+call computes the same function.  K5 has two rows on its short route:
+float32 causal B=319 S=77 (the text shape) and float32 B=64 S=197 (the image
+shape that holds most of its training launches); its long route two more,
+float32 and bfloat16 at B=8 H=12 S=785 with a zero mask, whose launches are
+those of the joint tower's path in phase 9.  The line
 before the last is the card's ``nvidia-smi``
 name and power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -287,6 +299,57 @@ SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
+
+
+# per kernel of the attention library: each instantiation of the long route
+# (attention_long_kernel<T, C>) must hold the instructions of its design and
+# none of mma.sync (HMMA.): bf16 wgmma and TMA loads at bf16, tf32 wgmma and
+# TMA loads at float32 (3xTF32: Q K^T and P V both on tf32 wgmma)
+SASS_LONG = {"bf16": ("HGMMA.BF16", "UTMALDG"), "f32": ("HGMMA.TF32", "UTMALDG")}
+SASS_OPS_LONG = {**SASS_OPS, "HGMMA.BF16": r"\bHGMMA\.[\w.]*BF16\b",
+                 "HGMMA.TF32": r"\bHGMMA\.[\w.]*TF32\b"}
+
+
+def sass_functions(path):
+    """{mangled kernel name: its SASS} from one cuobjdump -sass of a library
+    (the dump, split at each "Function :" header, as -fun gives it kernel by
+    kernel); None without cuobjdump."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : ", sass)[1:]
+    return {p.split("\n", 1)[0].strip(): p for p in parts}
+
+
+def sass_check_long(path) -> None:
+    """Each instantiation of attention_long_kernel: SASS_LONG[dtype] present,
+    no HMMA. (mma.sync); a missing instantiation or form fails the run."""
+    funcs = sass_functions(path)
+    if funcs is None:
+        print("sass long route: no cuobjdump found: the per-kernel forms are not checked")
+        return
+    seen = {"bf16": 0, "f32": 0}
+    for name, body in funcs.items():
+        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)E", name)
+        if not m:
+            continue
+        dt = "bf16" if m.group(1) == "13__nv_bfloat16" else "f32"
+        seen[dt] += 1
+        counts = {op: len(re.findall(SASS_OPS_LONG[op], body))
+                  for op in SASS_LONG[dt] + ("HMMA",)}
+        forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", body)))
+        print(f"sass attention_long_kernel<{dt}, hdp {64 * int(m.group(2))}>: {counts}; "
+              f"forms {forms}")
+        missing = [op for op in SASS_LONG[dt] if counts[op] == 0]
+        check(not missing, f"attention_long_kernel<{dt}, {m.group(2)}> has no {missing} "
+                           f"instructions in its SASS")
+        check(counts["HMMA"] == 0,
+              f"attention_long_kernel<{dt}, {m.group(2)}> runs mma.sync (HMMA.)")
+    check(seen == {"bf16": 3, "f32": 3},
+          f"attention_long_kernel instantiations in the SASS: {seen}, expected 3 each "
+          f"(head dims 64, 128, 192)")
 
 
 def sass_check(lib, path) -> None:
@@ -645,8 +708,8 @@ def cosine_check(tag, got, ref):
 
 def kernel_phase_attn(A, device):
     """attention_pallas (K5) against attention_kernel_math, float32 and
-    bfloat16: at the image and text shapes and the long route's B=8 H=12
-    S=785 (timed, beside SDPA), then at both sides of every key bucket of
+    bfloat16: at the image and text shapes and the long route's B=8 and B=32
+    H=12 S=785 (timed, beside SDPA), then at both sides of every key bucket of
     the short routes, at the long route's shapes and a ragged B*H (checked
     only).  Every call's launch lands on the route ``_plan`` gives its shape.
     Returns one dict per timed case."""
@@ -656,11 +719,11 @@ def kernel_phase_attn(A, device):
     g = torch.Generator().manual_seed(3)
     routes = {"short": "attention_pallas", "long": "attention_pallas_long"}
 
-    def run_case(dtype, b, h, s, kind, hd=64):
+    def run_case(dtype, b, h, s, kind, hd=64, shift=0.0):
         q, k, v = (torch.randn(b, h, s, hd, generator=g).to(device, dtype) for _ in range(3))
         mask = {"zero": lambda: torch.zeros(s, s),
                 "random": lambda: torch.randn(s, s, generator=g),
-                "causal": lambda: causal_mask(s)}[kind]().to(device)
+                "causal": lambda: causal_mask(s)}[kind]().add(shift).to(device)
         route = A._plan(s, hd)
         A.reset_launches()
         got = A.attention_pallas(q, k, v, mask)
@@ -671,7 +734,8 @@ def kernel_phase_attn(A, device):
         f32 = dtype == torch.float32
         tol = 2e-5 * mag if f32 else ulp_bf16(mag)
         tag = (f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s}"
-               f"{'' if hd == 64 else f' hd={hd}'} mask={kind} ({route} route)")
+               f"{'' if hd == 64 else f' hd={hd}'} mask={kind}"
+               f"{f' + {shift:g}' if shift else ''} ({route} route)")
         print(f"kernel {tag}: max_abs_err {err} (tolerance {tol} = "
               f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag}); launches {launched}")
         check(got.dtype == dtype and got.shape == q.shape and math.isfinite(err) and err <= tol,
@@ -682,7 +746,7 @@ def kernel_phase_attn(A, device):
 
     cases = [(8, 12, 197, "zero"), (8, 12, 197, "random"), (64, 12, 197, "zero"),
              (64, 12, 197, "random"), (319, 8, 77, "causal"), (64, 8, 77, "causal"),
-             (8, 12, 785, "zero"), (8, 12, 785, "random")]
+             (8, 12, 785, "zero"), (8, 12, 785, "random"), (32, 12, 785, "zero")]
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
@@ -707,14 +771,58 @@ def kernel_phase_attn(A, device):
             for kind in ("zero", "causal"):
                 run_case(dtype, 2, 8, s, kind)
         run_case(dtype, 3, 5, 197, "random")
-        for s in (321, 400, 785):
+        # the long route: a ragged last key tile, the 127 / 128 / 129-query
+        # block edges, 16 and 32 key tiles; head dims padded to 64, 128, 192
+        for s in (321, 383, 384, 385, 400, 785, 1025, 2048):
             for kind in ("zero", "random", "causal"):
                 run_case(dtype, 2, 8, s, kind)
         for s in (77, 197):
-            for hd in (32, 80, 128):
+            for hd in (32, 80, 128, 192):
                 run_case(dtype, 2, 8, s, "random", hd=hd)
+        run_case(dtype, 2, 8, 785, "random", hd=192)
         run_case(dtype, 3, 5, 785, "random")
+    # every score shifted by 1e6 (softmax is shift-invariant; the scores'
+    # f32 grid is then 1/16): the bf16 long route's exp takes s - max first
+    # and must not cancel against a large max
+    run_case(torch.bfloat16, 2, 8, 785, "random", shift=1e6)
     torch.cuda.synchronize()
+    return out
+
+
+def long_route_path(A, device):
+    """The long route on the path a Frozen-in-Time joint tower runs: 12
+    layers of the public op ``attention(..., use_pallas=True)`` (no mask)
+    over its 1 + 4 x 196 = 785 tokens at B=8 H=12 head dim 64, each layer
+    h = layer_norm(h + attention(h, h, h)); float32 forward and backward (the K5
+    training path: the backward differentiates the twin) and bfloat16
+    forward.  The launch counters are set to 0 just before each run and
+    read just after: 12 launches on the long route, none on the short one.
+    Returns {"f32": launches, "bf16": launches}."""
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        x0 = torch.randn(8, 12, 785, 64, generator=g).to(device, dtype).requires_grad_(f32)
+        torch.cuda.synchronize()
+        A.reset_launches()
+        h = x0
+        with torch.set_grad_enabled(f32):
+            for _ in range(LAYERS):
+                h = torch.nn.functional.layer_norm(
+                    h + A.attention(h, h, h, use_pallas=True), (h.shape[-1],))
+            grad = torch.autograd.grad(h.float().square().mean(), x0)[0] if f32 else None
+        torch.cuda.synchronize()
+        launched = dict(A.LAUNCHES)
+        tag = "f32 forward + backward" if f32 else "bf16 forward"
+        print(f"K5 long route path (Frozen-in-Time joint tower attention, B=8 H=12 S=785, "
+              f"{LAYERS} layers, {tag}): launches {launched}")
+        check(launched == {"attention_pallas": 0, "attention_pallas_long": LAYERS},
+              f"the long route path launched {launched}, expected {LAYERS} long")
+        check(bool(torch.isfinite(h).all()) and (grad is None or bool(torch.isfinite(grad).all())),
+              f"the long route path ({tag}) gave non-finite values")
+        out["f32" if f32 else "bf16"] = launched["attention_pallas_long"]
     return out
 
 
@@ -906,6 +1014,7 @@ def main() -> int:
     for lib in ("fused_block", "fused_block_q", "attention"):
         print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
         sass_check(lib, _build.LIB_PATHS[lib])
+    sass_check_long(_build.LIB_PATHS["attention"])
 
     # 3. bf16 kernels against their twins
     rows, text_ms = kernel_phase(fb, device, card)
@@ -1013,8 +1122,9 @@ def main() -> int:
           "the int8 text tower did not run the causal int8 kernels")
     cosine_check("int8 text tower vs float32", txt8, txt32)
 
-    # 9. K5 against its twin
+    # 9. K5 against its twin, then its long route on a joint tower's path
     attn_cases = kernel_phase_attn(A, device)
+    long_launches = long_route_path(A, device)
 
     # 10-11. training on the K5 path, the plain float32 path and the bf16
     # fused path, from copies of the phase-4 model
@@ -1198,6 +1308,16 @@ def main() -> int:
                         "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
                         "launches": run_k5["counts"]["attention_pallas"],
                         "max_abs_err": k5["err"], "ms": k5["ms"],
+                        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
+                        "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]})
+    for dt in ("f32", "bf16"):
+        k5 = next(c for c in attn_cases
+                  if c["dtype"] == dt and (c["b"], c["s"], c["mask"]) == (8, 785, "zero"))
+        check(k5["route"] == "long", f"{k5['tag']}: S = 785 takes the long route")
+        rows_k5.append({"name": "attention_pallas_long", "case": k5["tag"], "route": "cuda",
+                        "source": "debias_vision_lang_torch/csrc/attention.cu",
+                        "replaces": "debias_vision_lang_tpu/ops/attention.py:93",
+                        "launches": long_launches[dt], "max_abs_err": k5["err"], "ms": k5["ms"],
                         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
                         "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]})
     print(json.dumps({"kernels": rows + rows_q + rows_k5}))

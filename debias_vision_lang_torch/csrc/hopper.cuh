@@ -2,8 +2,8 @@
 // csrc/fused_block.cu, csrc/fused_block_q.cu and csrc/attention.cu:
 // mbarriers, TMA tile loads (cp.async.bulk.tensor), wgmma shared-memory
 // descriptors, the wgmma instructions themselves (raw PTX, one wrapper per
-// shape the kernels issue) and the host-side tensor maps.  Everything has
-// internal linkage: each csrc/*.cu is its own library.
+// shape the kernels issue: bf16, tf32 and s8) and the host-side tensor maps.
+// Everything has internal linkage: each csrc/*.cu is its own library.
 //
 // Shared-memory tiles are 128-byte-swizzled rows of 128 B (64 bf16 or 128
 // int8), as the TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: 8-row
@@ -326,6 +326,55 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 64] += A[64 x 8] B[8 x 64], tf32 in (f32 bit patterns in shared
+// memory; the tensor core reads their TF32 part), f32 accumulators; A and B
+// by descriptor, both K-major (tf32 wgmma takes no other layout): 8 floats
+// along the row are the same 32-byte K step as 16 bf16, so a 128-byte row
+// holds 32 floats.  The accumulator layout is wgmma_ss's.
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A from registers (the m16n8k8 tf32 A-fragment layout per
+// warp: a[0] row l/4, a[1] row l/4 + 8 at k l%4; a[2], a[3] the same at
+// k l%4 + 4).
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // d[64 x 128] += A[64 x 32] B[32 x 128], s8 in, exact s32 accumulators; A
 // and B by descriptor, both K-major (8-bit wgmma takes no other layout): 32
 // int8 along the row is the same 32-byte K step as 16 bf16.  The
@@ -379,8 +428,8 @@ EncodeTiledFn encode_tiled() {
 
 // Map of a row-major tensor of `rank` dims (dims innermost first, byte
 // strides of dims 1..rank-1), boxes of box[] elements whose inner extent is
-// 128 B (64 bf16, or 128 int8 as UINT8: the TMA only copies the bytes),
-// 128-byte swizzle, zeros out of bounds.
+// 128 B (64 bf16, 32 f32 as FLOAT32, or 128 int8 as UINT8: the TMA only
+// copies the bytes), 128-byte swizzle, zeros out of bounds.
 cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                             const uint64_t* strides, const uint32_t* box,
                             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {

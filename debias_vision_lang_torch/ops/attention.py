@@ -20,9 +20,11 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
                           float32 with both products on the tensor cores as
                           3xTF32, big*big + big*small + small*big of TF32
                           halves, within 2e-5 of the twin), or the long
-                          route for every other shape (three passes over
-                          64-key tiles, the head dim zero-padded to a
-                          multiple of 64 with the original head dim's
+                          route for every other shape with a head dim up
+                          to 192 (two passes over 64-key tiles on TMA-fed
+                          wgmma: the row max and a rescaled row sum, then
+                          the normalised P V; the head dim zero-padded to
+                          64, 128 or 192 with the original head dim's
                           scale, as the JAX function pads to 128 lanes)
   attention               dispatch: ``use_pallas=True`` goes through
                           ``attention_pallas`` with a backward that
@@ -47,6 +49,7 @@ from ..models.layers import attention_bshd
 LAUNCHES: Dict[str, int] = {"attention_pallas": 0, "attention_pallas_long": 0}
 HEAD_DIM = 64   # the short routes' head dim, and the long route's dim tile
 SHORT_MAX_SEQ = 320  # keys per score row the short routes hold in registers
+LONG_MAX_HEAD_DIM = 192  # the long route's widest padded head dim
 
 
 def reset_launches() -> None:
@@ -134,6 +137,17 @@ def _pad_head_dim(t: torch.Tensor, hdp: int) -> torch.Tensor:
     return t if hd == hdp else torch.nn.functional.pad(t, (0, hdp - hd))
 
 
+def _long_route_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The long route's mask: [S, S] f32 -> [S, S rounded up to 64], the
+    columns past S at -inf.  The kernel reads it in 64-key tiles through a
+    TMA map (rows 16 bytes apart), and the -inf columns mask the keys past
+    S, so it tests no key index."""
+    s = mask.shape[-1]
+    if s % HEAD_DIM == 0:
+        return mask
+    return torch.nn.functional.pad(mask, (0, -s % HEAD_DIM), value=-math.inf)
+
+
 def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA attention kernel takes float32 or bfloat16, "
@@ -152,10 +166,14 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError("q, k, v and mask must be on one device")
     route = _plan(s, hd)
     hdp = _padded_head_dim(hd)
+    if hdp > LONG_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA attention kernel takes head dims up to "
+                         f"{LONG_MAX_HEAD_DIM}, got {hd}")
     # the heads-first layout comes from a transpose: copy views to rows; the
     # kernels take 16-byte aligned bases
     q, k, v = (_aligned(_pad_head_dim(t, hdp).contiguous()) for t in (q, k, v))
     mask = mask.to(torch.float32).contiguous()
+    mask = _aligned(_long_route_mask(mask) if route == "long" else mask)
     out = torch.empty_like(q)
     err = _lib().dvl_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -176,9 +194,10 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
 
 def attention_pallas(q, k, v, mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd], any S and hd:
-    the CUDA kernels (``csrc/attention.cu``, the route from ``_plan``) on a
-    CUDA tensor, ``attention_kernel_math`` on a CPU tensor."""
+    """softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd], any S: the
+    CUDA kernels (``csrc/attention.cu``, the route from ``_plan``; head dims
+    up to 192) on a CUDA tensor, ``attention_kernel_math`` on a CPU tensor
+    (any head dim)."""
     if mask is None:
         mask = _zero_mask(q)
     if q.device.type == "cpu":

@@ -10,11 +10,15 @@ bf16 ulp for outputs and a cosine of at least 0.9999 for gradients.  S=13
 and S=77 (ragged), B*H = 6 (not a multiple of the Pallas group of 8), a
 zero mask and CLIP's causal -inf mask; the long route's shapes (S = 321
 and 785, head dims 32, 80 and 128) likewise, the route each shape takes
-(``_plan``), and the long route's head-dim padding.  The towers with
-``use_pallas=True`` against the JAX towers at float32 (the same function
-there).  CUDA (marker ``cuda``, skipped without a card): the hand-written
-kernels against the twin at the slice's shapes and the long route's, the
-launches per route, and gradients through them.
+(``_plan``), the long route's head-dim and mask padding, and a numpy
+emulation of the long route's two-pass arithmetic (per-tile rescaled row
+sum, scores recomputed in pass 2, P V accumulated per 64-key tile, 3xTF32
+products at float32) against the Pallas kernel at the long shapes, S = 1025
+and head dim 192.  The towers with ``use_pallas=True`` against the JAX
+towers at float32 (the same function there).  CUDA (marker ``cuda``,
+skipped without a card): the hand-written kernels against the twin at the
+slice's shapes and the long route's, the launches per route, and gradients
+through them.
 
 jax is imported inside the JAX-side helpers only, so the CUDA tests run on
 a machine without jax:  python -m pytest tests/test_torch_attention.py
@@ -229,6 +233,16 @@ class TestLongRoute:
     def test_padded_head_dim(self, hd, hdp):
         assert A._padded_head_dim(hd) == hdp
 
+    @pytest.mark.parametrize("s", [1, 63, 64, 65, 321, 785])
+    def test_long_route_mask_pads_columns_to_64_with_minus_inf(self, s):
+        """The kernel reads the mask in 64-key tiles through a TMA map and
+        tests no key index: the columns past S carry -inf."""
+        mask = torch.randn(s, s, generator=torch.Generator().manual_seed(s))
+        got = A._long_route_mask(mask)
+        assert got.shape == (s, 64 * -(-s // 64)) and got.is_contiguous()
+        assert torch.equal(got[:, :s], mask)
+        assert bool((got[:, s:] == -math.inf).all())
+
     @pytest.mark.parametrize("s", [77, 321])
     @pytest.mark.parametrize("hd", [32, 80, 128])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -316,6 +330,113 @@ class TestSplitTf32:
             [1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -9, -(1 + 2.0 ** -10), 1.0], np.float32))
         big = _tf32(x)
         np.testing.assert_array_equal(big + _tf32(x - big), x)
+
+
+# ---------------------------------------------------------------------------
+# The long route's arithmetic: two passes over 64-key tiles, emulated in numpy
+# ---------------------------------------------------------------------------
+
+LONG_TILE = 64
+
+
+def _round_to(x, dtype):
+    """Round float32 values to ``dtype`` (float32 or bfloat16), as float32."""
+    if dtype == "float32":
+        return np.asarray(x, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _long_scores(q, k, mask, k0, scale, mm):
+    """One key tile's scores as the kernel forms them: the products, then
+    fmul by the scale and fadd of the mask, each rounded to f32."""
+    s = mm(q, np.swapaxes(k[..., k0:k0 + LONG_TILE, :], -1, -2))
+    return s * np.float32(scale) + mask[:, k0:k0 + LONG_TILE]
+
+
+def _long_row_stats(q, k, mask, scale, mm):
+    """Pass 1: the row max m and the per-tile rescaled row sum l =
+    l * exp(m_old - m_new) + sum(exp(s - m_new))."""
+    shape = q.shape[:-1] + (1,)
+    m = np.full(shape, -np.inf, np.float32)
+    l = np.zeros(shape, np.float32)
+    for k0 in range(0, k.shape[-2], LONG_TILE):
+        s = _long_scores(q, k, mask, k0, scale, mm)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        with np.errstate(invalid="ignore"):
+            l = l * np.where(m == -np.inf, np.float32(0), np.exp(m - m_new))
+        l = l + np.exp(s - m_new).sum(-1, keepdims=True, dtype=np.float32)
+        m = m_new
+    return m, l
+
+
+def _long_route_emulated(q, k, v, mask, dtype, scale=None):
+    """The long route's function on float32 arrays that hold ``dtype``
+    values: the head dim zero-padded to a multiple of 64 with the original
+    head dim's scale; pass 1 (``_long_row_stats``); pass 2 recomputes each
+    tile's scores, p = exp(s - m) * (1 / l) rounded to ``dtype``, and
+    accumulates p V per 64-key tile in f32; one output rounding.  float32
+    runs both products as 3xTF32 (``_mm_3xtf32``)."""
+    hd = q.shape[-1]
+    scale = 1 / math.sqrt(hd) if scale is None else scale
+    hdp = A._padded_head_dim(hd)
+    q, k, v = (np.pad(t, [(0, 0)] * (t.ndim - 1) + [(0, hdp - hd)]) for t in (q, k, v))
+    mm = _mm_3xtf32 if dtype == "float32" else np.matmul
+    m, l = _long_row_stats(q, k, mask, scale, mm)
+    inv = np.float32(1) / l
+    o = np.zeros(q.shape, np.float32)
+    for k0 in range(0, k.shape[-2], LONG_TILE):
+        p = _round_to(np.exp(_long_scores(q, k, mask, k0, scale, mm) - m) * inv, dtype)
+        o = o + mm(p, v[..., k0:k0 + LONG_TILE, :])
+    return _round_to(o, dtype)[..., :hd]
+
+
+LONG_EMU_CASES = LONG_CASES + [(1025, 64), (321, 192)]
+
+
+class TestLongRouteEmulated:
+    """The two-pass arithmetic of ``csrc/attention.cu::attention_long_kernel``
+    against the JAX kernel: within 2e-5 of the largest magnitude at float32
+    (3xTF32 products), one bf16 ulp at bfloat16."""
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s,hd", LONG_EMU_CASES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_two_pass_vs_pallas_interpret(self, s, hd, causal, dtype):
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.attention import attention_pallas
+
+        rng = np.random.default_rng(s + hd + 1)
+        q, k, v = (_round_to(rng.normal(size=(B, H, s, hd)), dtype) for _ in range(3))
+        m = _mask_np(s, causal)
+        ref = attention_pallas(*(_jnp(t, getattr(jnp, dtype)) for t in (q, k, v)), _jnp(m),
+                               interpret=True)
+        got = _long_route_emulated(q, k, v, m, dtype)
+        assert got.shape == (B, H, s, hd)
+        (_close_f32 if dtype == "float32" else _within_one_ulp)(got, ref)
+
+    @pytest.mark.parametrize("kind", ["random", "causal"])
+    @pytest.mark.parametrize("s", [321, 785, 1025])
+    def test_rescaled_sum_is_the_plain_sum(self, s, kind):
+        """Only the order of the f32 row sum differs from the twin's: within
+        a relative 1e-6 of exp(s - max) summed over the whole row."""
+        q, k, _, mask = _emu_inputs(s, kind, seed=s + 2)
+        m, l = _long_row_stats(q, k, mask, 1 / 8, np.matmul)
+        scores = np.concatenate([_long_scores(q, k, mask, k0, 1 / 8, np.matmul)
+                                 for k0 in range(0, s, LONG_TILE)], -1)
+        m_plain = scores.max(-1, keepdims=True)
+        l_plain = np.exp(scores - m_plain).sum(-1, keepdims=True, dtype=np.float32)
+        np.testing.assert_array_equal(m, m_plain)
+        rel = np.abs(l - l_plain) / l_plain
+        assert rel.max() <= 1e-6, f"rescaled sum off by {rel.max()} of the plain sum"
+
+    @pytest.mark.parametrize("s", [1, 63, 64, 65, 383, 384, 385])
+    def test_emulation_at_tile_edges_is_the_twin(self, s):
+        """A ragged last tile, and the 127/128/129-query block edges."""
+        q, k, v, mask = _emu_inputs(s, "random", seed=s + 3)
+        got = _long_route_emulated(q, k, v, mask, "float32")
+        ref = A.attention_kernel_math(*(_torch(t) for t in (q, k, v)), _torch(mask))
+        _close_f32(got, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +593,10 @@ def test_cuda_gradients_through_the_kernel(cuda, dtype):
 @pytest.mark.parametrize("b,h,s,hd,kind", [
     *[(2, 8, s, 64, kind) for s in (321, 400, 785) for kind in ("zero", "random", "causal")],
     *[(2, 8, s, hd, "random") for s in (77, 197) for hd in (32, 80, 128)],
-    (3, 5, 785, 64, "random")])
+    (3, 5, 785, 64, "random"),
+    # the 127 / 128 / 129-query block edges, 17 key tiles, head dim 192
+    *[(2, 8, s, 64, kind) for s in (383, 384, 385, 1025) for kind in ("random", "causal")],
+    *[(2, 8, s, 192, "random") for s in (77, 785)]])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_long_route_matches_twin(cuda, b, h, s, hd, kind, dtype):
     """S past 320 or a head dim other than 64: the long route, and only it."""
@@ -488,3 +612,25 @@ def test_cuda_long_route_matches_twin(cuda, b, h, s, hd, kind, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     ref = A.attention_kernel_math(q, k, v, mask)
     (_close_f32 if dtype == torch.float32 else _within_one_ulp)(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [400, 785])
+def test_cuda_long_route_large_scores(cuda, s):
+    """Every score shifted by 1e6 (softmax is shift-invariant): the bf16
+    long route's exp takes the f32 difference s - max first, so nothing
+    cancels against the large max."""
+    g = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(2, 4, s, 64, generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    mask = torch.randn(s, s, device=cuda) + 1e6
+    got = A.attention_pallas(q, k, v, mask)
+    ref = A.attention_kernel_math(q, k, v, mask)
+    assert bool(torch.isfinite(got).all())
+    _within_one_ulp(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_head_dims_past_192(cuda):
+    q = torch.zeros(1, 1, 77, 193, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 192"):
+        A.attention_pallas(q, q, q)
