@@ -123,7 +123,39 @@ Phases (any failure exits non-zero before the final line):
  13. timings: kernels vs twins and their bounds, image-tower img/s with the
      bf16 kernels, the int8 kernels, the plain int8 path (torch._int_mm
      products), the plain bf16 path and the float32 path, and ms per
-     training step on the float32 plain, K5 and bf16-kernel paths.
+     training step on the float32 plain, K5 and bf16-kernel paths;
+ 14. the embedding cache on the main path: measure_bias(dtype="bfloat16",
+     cache_embeddings=...) of the phase-4 model on a written FairFace val
+     layout (512 images at 224 px, two batches): the image tower's
+     fingerprint equal on the card and on a CPU copy; an uncached MaxSkew
+     call at top-n 0.1; a miss (NDKL at top-n 1.0: K1 and K2 12 launches
+     per batch, nothing else); an int8 miss in its own file (K3 and K4 12
+     per batch); the val images deleted, then a bf16 hit (MaxSkew at 0.1:
+     no launch, the labels and embeddings it ranks bit-identical to those
+     the miss ranked and wrote, metrics equal to the uncached call's within
+     1e-5) and an int8 hit (no launch); an int8 call on the bf16 file
+     raises; the same model with other debias tokens hits; a copy with one
+     vision weight one float32 ulp away raises the key mismatch; the
+     fingerprint's, the miss's, the hit's and the uncached call's wall times;
+ 15. the adversary ablation (train/efficacy.py) at the JAX module's
+     defaults (2,048 + 512 images at 32 px, 2,500 pretraining steps, 3
+     epochs of batch 64, eval every 8, top-k 50): seed 0, or, if its world
+     fails the harness's preconditions, seed 1, then seed 2; fails if none
+     of them is valid; each stage's wall time; both arms' before, after,
+     reduction and curve; the arms' before identical, every value finite,
+     the .pt exports loading, at least 3 curve points per arm; no kernel
+     launches (a float32, width-64 tower with use_pallas=False).  Then the
+     card against the CPU from one start: for every seed that ran, the
+     pretraining's step-0 loss and gradients within 1e-5 (of each
+     tensor's largest magnitude, at least 1), after 3 Adam steps the loss
+     within 1e-4 and the update's cosine >= 0.9999, 50 steps reported;
+     for the valid seed, both arms again on the CPU from the card's
+     pretrained tower, every eval, before and after within 1e-3
+     (the probe 1e-2).  Whether the adversarial arm's NDKL drop beats the
+     control's, on the card and in the CPU replay, and JAX's stricter
+     bars are printed, not gated: the outcome is the seed's and the float
+     configuration's (tests/test_efficacy.py's docstring), not the port's.
+ Phases 14 and 15 run after the kernels line.
 The kernels line gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
@@ -965,6 +997,358 @@ def write_fairface(root, n_train, n_val, px=224, seed=0):
             w.writerows(rows)
 
 
+CACHE_VAL = 512  # phase 14's val images: two batches of 256 at 224 px
+ABLATION_SEEDS = (0, 1, 2)  # phase 15 stops at the first valid world
+# phase 15's witnesses, the card against the CPU from one start
+# the step-0 pretraining loss and every gradient tensor: 1e-5 of its largest
+# magnitude, at least 1e-5 (float32 sums in another order on the card)
+GRAD0_RTOL = 1e-5
+STEP3_ATOL = 1e-4  # the loss after 3 Adam steps
+# and the 3 steps' update, as a cosine over every parameter: Adam scales an
+# element's step to about lr whatever its gradient, so an element whose
+# gradient is float noise (the key biases' exact gradient is 0) may step
+# another way on each device; no per-element bar holds below 2 lr a step
+STEP3_UPDATE_COS = 0.9999
+ARM_ATOL = 1e-3  # an arm's NDKL and MaxSkew, before, after and at every eval
+PROBE_ATOL = 1e-2  # an arm's probe accuracy (a few of its ~500 rows)
+
+
+def cache_phase(model, tokenizer, decode, card):
+    """Phase 14: measure_bias(cache_embeddings=...) on the phase-4 model and a
+    written FairFace val layout."""
+    import shutil
+
+    import torch
+    from debias_vision_lang_torch.eval import measure as M
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.utils.fingerprint import (image_tower_tensors,
+                                                           params_fingerprint)
+    from debias_vision_lang_torch.vision.preprocess import Preprocess
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        root = os.path.join(tmp, "fairface")
+        t0 = time.perf_counter()
+        write_fairface(root, 0, CACHE_VAL)
+        print(f"synthetic FairFace val ({CACHE_VAL} images at 224 px) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        n_batches = -(-CACHE_VAL // BATCH)
+        preproc = Preprocess(n_px=model.clip_cfg.vision.image_size)
+        seen = []  # (labels, image embeddings) as each call ranks them
+        ranking = M.eval_ranking
+
+        def recording_ranking(labels, img_embs, *args, **kw):
+            seen.append((labels, img_embs))
+            return ranking(labels, img_embs, *args, **kw)
+
+        def call(m, dtype, cache, evaluation, topn):
+            """One measure_bias call, counters at 0 just before and read just
+            after: (metrics, launches, wall s, what it ranked)."""
+            opts = {"dtype": dtype, "data_path": root, "evaluations": (evaluation,),
+                    "topn": topn}
+            if cache:
+                opts["cache_embeddings"] = cache
+            seen.clear()
+            torch.cuda.synchronize()
+            reset_all(fb, fbq, A)
+            t0 = time.perf_counter()
+            out = M.measure_bias(m, preproc, tokenizer, "gender", opts=opts)[evaluation]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return out, launches_of(fb, fbq, A), wall, seen[0]
+
+        # the image tower's digest, on the card and on a CPU copy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        digest = params_fingerprint(image_tower_tensors(model))
+        fp_s = time.perf_counter() - t0  # the first call in the process
+        t0 = time.perf_counter()
+        check(params_fingerprint(image_tower_tensors(model)) == digest,
+              "the fingerprint changed between two calls")
+        fp2_s = time.perf_counter() - t0
+        cpu_digest = params_fingerprint({k: v.cpu() for k, v in
+                                         image_tower_tensors(model).items()})
+        print(f"image tower fingerprint {digest[:16]}... in {fp_s * 1e3:.2f} ms on the "
+              f"card (a second call {fp2_s * 1e3:.2f} ms); CPU copy "
+              f"{'equal' if cpu_digest == digest else 'DIFFERS'}")
+        check(cpu_digest == digest, "the fingerprint differs between the card and the CPU")
+
+        M.eval_ranking = recording_ranking
+        try:
+            bf16_file = os.path.join(tmp, "val_bf16.npz")
+            int8_file = os.path.join(tmp, "val_int8.npz")
+            uncached, counts, unc_s, _ = call(model, "bfloat16", None, "maxskew", 0.1)
+            print(f"cache: uncached bf16 MaxSkew@0.1 {uncached} in {unc_s:.3f} s "
+                  f"({decode}); launches {counts}")
+            ndkl, counts, miss_s, written = call(model, "bfloat16", bf16_file, "ndkl", 1.0)
+            print(f"cache: bf16 miss, NDKL@1.0 {ndkl} in {miss_s:.3f} s ({decode}); "
+                  f"launches {counts}")
+            want = {k: 0 for k in counts}
+            want.update(attention_block=LAYERS * n_batches, mlp_block=LAYERS * n_batches)
+            check(counts == want, f"the bf16 miss launched {counts}, expected {want}")
+            check(all(math.isfinite(v) for v in ndkl.values()), "non-finite NDKL")
+            _, counts, q_miss_s, _ = call(model, "int8", int8_file, "ndkl", 1.0)
+            want = {k: 0 for k in counts}
+            want.update(attention_block_q=LAYERS * n_batches, mlp_block_q=LAYERS * n_batches)
+            print(f"cache: int8 miss in {q_miss_s:.3f} s; launches {counts}")
+            check(counts == want, f"the int8 miss launched {counts}, expected {want}")
+
+            shutil.rmtree(os.path.join(root, "imgs"))  # a hit reads no image file
+            hit, counts, hit_s, read = call(model, "bfloat16", bf16_file, "maxskew", 0.1)
+            print(f"cache: bf16 hit (val images deleted), MaxSkew@0.1 {hit} in "
+                  f"{hit_s:.3f} s; launches {counts}")
+            check(sum(counts.values()) == 0, f"the hit launched kernels: {counts}")
+            check(np.array_equal(read[0], written[0])
+                  and torch.equal(read[1], written[1]),
+                  "the hit's labels or embeddings differ from those the miss wrote")
+            for k, v in hit.items():
+                check(abs(v - uncached[k]) <= METRIC_ATOL,
+                      f"cache hit MaxSkew {k}: {v} vs uncached {uncached[k]}")
+            print(f"cache: the hit read back the miss's {tuple(read[1].shape)} embeddings "
+                  f"and labels bit for bit; its metrics equal the uncached call's within "
+                  f"{METRIC_ATOL}")
+            _, counts, _, _ = call(model, "int8", int8_file, "maxskew", 0.1)
+            print(f"cache: int8 hit; launches {counts}")
+            check(sum(counts.values()) == 0, f"the int8 hit launched kernels: {counts}")
+
+            try:
+                call(model, "int8", bf16_file, "maxskew", 0.1)
+                check(False, "an int8 call read the bf16 cache")
+            except ValueError as e:
+                print(f"cache: an int8 call on the bf16 file raises: {str(e)[:60]}...")
+
+            other = copy.deepcopy(model)
+            with torch.no_grad():
+                other.debias_tokens.add_(1.0)
+            _, counts, _, _ = call(other, "bfloat16", bf16_file, "maxskew", 0.1)
+            print(f"cache: other debias tokens hit; launches {counts}")
+            check(sum(counts.values()) == 0, "other debias tokens missed the cache")
+            with torch.no_grad():
+                w = other.clip.visual.resblocks[0].attn.wqkv.view(-1)
+                w[0] = torch.nextafter(w[0], torch.tensor(math.inf, device=w.device))
+            try:
+                call(other, "bfloat16", bf16_file, "maxskew", 0.1)
+                check(False, "a vision weight one ulp away read the cache")
+            except ValueError as e:
+                print(f"cache: one vision weight one float32 ulp away raises the key "
+                      f"mismatch: {str(e)[:60]}...")
+            del other
+        finally:
+            M.eval_ranking = ranking
+        print(f"cache wall times (host clock; {card}): fingerprint {fp_s * 1e3:.2f} ms "
+              f"(first call; a second {fp2_s * 1e3:.2f} ms), "
+              f"miss {miss_s:.3f} s, hit {hit_s:.3f} s, uncached {unc_s:.3f} s "
+              f"({CACHE_VAL} images + 319 prompts, bf16; miss and uncached {decode})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def update_cosine(start, a, b):
+    """Cosine of the two updates a - start and b - start over every entry
+    of three state dicts on the CPU, and the largest |a - b|."""
+    import torch
+
+    da = torch.cat([(a[k] - v).double().reshape(-1) for k, v in start.items()])
+    db = torch.cat([(b[k] - v).double().reshape(-1) for k, v in start.items()])
+    cos = (da @ db / (da.norm() * db.norm())).item()
+    return cos, (da - db).abs().max().item()
+
+
+def pretrain_witness(E, world, seed, card):
+    """Phase 15's first witness: the seed's pretraining on the card against
+    the same calls on the CPU, from the same init and batches.  The step-0
+    loss and every gradient tensor within GRAD0_RTOL of its largest
+    magnitude (at least 1.0); after 3 Adam steps the loss
+    within STEP3_ATOL and the update's cosine at least STEP3_UPDATE_COS;
+    after 50 steps the same, reported."""
+    import torch
+    from debias_vision_lang_torch.models.clip import CLIP
+
+    imgs, caps = world["train_images"], world["train_captions"]
+    init, cfg = E.pretrain_tiny_clip(imgs, caps, steps=0, seed=seed, device="cpu")
+    sel = np.random.default_rng(seed).permutation(len(imgs))[:64]  # step 0's batch
+    batch = torch.from_numpy(np.ascontiguousarray(imgs[sel]))
+    toks = torch.from_numpy(E.word_tokenize([caps[i] for i in sel])).long()
+
+    def loss_grads(params, dev, grads=True):
+        m = CLIP(cfg)
+        m.load_state_dict(params)
+        m.to(dev)
+        with torch.set_grad_enabled(grads):
+            loss = E.pretrain_loss(m, batch.to(dev), toks.to(dev), cfg)
+        if not grads:
+            return loss.item()
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    (l_card, g_card), (l_cpu, g_cpu) = loss_grads(init, "cuda"), loss_grads(init, "cpu")
+    # each gradient tensor's largest difference over its bar, 1e-5 of its
+    # largest magnitude (at least 1e-5)
+    share, worst = max(((g_card[n] - g).abs().max().item()
+                        / (GRAD0_RTOL * max(1.0, g.abs().max().item())), n)
+                       for n, g in g_cpu.items())
+    g = g_cpu[worst]
+    print(f"ablation seed {seed}: pretraining step 0 on the card vs the CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f}; gradients: the largest difference over its bar "
+          f"{share:.3f}, in {worst} ({(g_card[worst] - g).abs().max().item():.2e}, its "
+          f"largest |gradient| {g.abs().max().item():.3g}; bar {GRAD0_RTOL} of "
+          f"max(1, that))")
+    check(abs(l_card - l_cpu) <= GRAD0_RTOL * max(1.0, abs(l_cpu)) and share <= 1.0,
+          f"seed {seed}: the step-0 pretraining loss or gradients differ on the card")
+    for steps in (3, 50):
+        card_p, _ = E.pretrain_tiny_clip(imgs, caps, steps=steps, seed=seed, device="cuda")
+        cpu_p, _ = E.pretrain_tiny_clip(imgs, caps, steps=steps, seed=seed, device="cpu")
+        card_p = {k: v.cpu() for k, v in card_p.items()}
+        cos, d_param = update_cosine(init, card_p, cpu_p)
+        d_loss = abs(loss_grads(card_p, "cpu", False) - loss_grads(cpu_p, "cpu", False))
+        print(f"ablation seed {seed}: pretraining after {steps} steps, card vs CPU: loss on "
+              f"step 0's batch {d_loss:.2e} apart, update cosine {cos:.7f}, largest "
+              f"parameter difference {d_param:.2e}"
+              + (f" (bars: loss {STEP3_ATOL}, cosine {STEP3_UPDATE_COS})"
+                 if steps == 3 else " (reported)"))
+        if steps == 3:
+            check(d_loss <= STEP3_ATOL and cos >= STEP3_UPDATE_COS,
+                  f"seed {seed}: 3 pretraining steps on the card part from the CPU's")
+
+
+def arms_witness(E, world, params, cfg, seed, card_arms, root, card):
+    """Phase 15's second witness: both arms of the valid seed again, on the
+    CPU, from the tower the card pretrained: the before, the after and
+    every eval of the NDKL curve within ARM_ATOL of the card's, the probe
+    accuracy within PROBE_ATOL.  Returns {arm: NDKL drop on the CPU}."""
+    from debias_vision_lang_torch.data.datasets import FairFace
+
+    val = FairFace(mode="val", iat_type="gender", data_path=world["fairface"],
+                   download=False)
+    tower = {k: v.cpu() for k, v in params.items()}
+    drops = {}
+    for name, w in (("adversarial", 1.0), ("control", 0.0)):
+        t0 = time.perf_counter()
+        rec = E.run_arm(world, tower, cfg, val, os.path.join(root, f"cpu_{name}"),
+                        seed=seed, adversarial_weight=w, device="cpu")
+        wall = time.perf_counter() - t0
+        ref = card_arms[name]
+        check([c["step"] for c in rec["curve"]] == [c["step"] for c in ref["curve"]],
+              f"{name}: the CPU replay evaluated at other steps")
+        d_curve = max(abs(a["ndkl_eq_opp"] - b["ndkl_eq_opp"])
+                      for a, b in zip(rec["curve"], ref["curve"]))
+        d_metric = max(abs(rec[p][k] - v) for p in ("before", "after")
+                       for k, v in ref[p].items() if k != "probe_acc")
+        d_probe = max(abs(rec[p]["probe_acc"] - ref[p]["probe_acc"])
+                      for p in ("before", "after"))
+        drops[name] = rec["reduction"]["ndkl_eq_opp"]
+        print(f"ablation seed {seed} {name}: the CPU replay from the card's tower: curve "
+              f"{[round(c['ndkl_eq_opp'], 6) for c in rec['curve']]}; largest difference "
+              f"from the card's: curve {d_curve:.2e}, before/after metrics {d_metric:.2e}, "
+              f"probe {d_probe:.2e} (bars {ARM_ATOL}, probe {PROBE_ATOL}); NDKL drop "
+              f"{drops[name]:.4f} (card {ref['reduction']['ndkl_eq_opp']:.4f}); "
+              f"{wall:.1f} s on the CPU")
+        check(d_curve <= ARM_ATOL and d_metric <= ARM_ATOL and d_probe <= PROBE_ATOL,
+              f"{name}: the card's arm parts from the CPU's from one tower")
+    return drops
+
+
+def ablation_phase(card):
+    """Phase 15: the adversary ablation (train/efficacy.py) at the JAX
+    module's defaults on the card, seed 0 first; a seed whose world fails
+    the harness's preconditions is printed as invalid and the next one
+    runs (up to seed 2).  Every seed that ran is held to the CPU's
+    pretraining, and the valid one's arms to the CPU's from the card's
+    tower.  Returns the ablation's wall time (s)."""
+    import shutil
+
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.train import efficacy as E
+
+    stages = []  # (stage, wall s), in call order
+    last = {}  # stage -> its last result: the seed's world and tower
+    originals = {n: getattr(E, n) for n in ("build_world", "pretrain_tiny_clip",
+                                            "measure_model", "run_arm")}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages.append((name, time.perf_counter() - t0))
+            last[name] = out
+            return out
+        return wrapper
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ablation_")
+    t_all = time.perf_counter()
+    ran, valid = {}, None  # seed -> (world, tower, cfg); (seed, arms)
+    try:
+        for n, fn in originals.items():
+            setattr(E, n, timed(n, fn))
+        for seed in ABLATION_SEEDS:
+            stages.clear()
+            reset_all(fb, fbq, A)
+            res = E.run_ablation_experiment(tmp, seeds=(seed,), device="cuda")
+            counts = launches_of(fb, fbq, A)
+            ran[seed] = (last["build_world"], *last["pretrain_tiny_clip"])
+            print(f"ablation seed {seed}: stage wall times (s, host clock; {card}): "
+                  + ", ".join(f"{n} {t:.2f}" for n, t in stages)
+                  + f"; launches {counts}")
+            check(sum(counts.values()) == 0,
+                  f"the width-64 efficacy world launched kernels: {counts}")
+            if seed in res["invalid"]:
+                print(f"ablation seed {seed}: INVALID world, fails "
+                      f"{res['invalid'][seed]['failed']}; before "
+                      f"{json.dumps(res['invalid'][seed]['before'])}")
+                continue
+            valid = (seed, res["seeds"][seed])
+            break
+    finally:
+        for n, fn in originals.items():
+            setattr(E, n, fn)
+    abl_s = time.perf_counter() - t_all
+    try:
+        check(valid is not None, f"no valid efficacy world among seeds {ABLATION_SEEDS}")
+        seed, arms = valid
+        for name, rec in arms.items():
+            print(f"ablation seed {seed} {name}: before {json.dumps(rec['before'])}; after "
+                  f"{json.dumps(rec['after'])}; reduction {json.dumps(rec['reduction'])}; "
+                  f"curve {[round(c['ndkl_eq_opp'], 6) for c in rec['curve']]}")
+            values = [v for part in ("before", "after", "reduction") for v in rec[part].values()]
+            check(all(math.isfinite(v) for v in values), f"{name}: non-finite metrics")
+            export = torch.load(rec["train_summary"]["export"], map_location="cpu",
+                                weights_only=True)
+            check(type(export) is torch.Tensor and tuple(export.shape) == (2, 64),
+                  f"{name}: the .pt export is not a [2, 64] tensor")
+            check(len(rec["curve"]) >= 3, f"{name}: {len(rec['curve'])} curve points")
+        adv, ctl = arms["adversarial"], arms["control"]
+        check(adv["before"] == ctl["before"], "the two arms start from different models")
+        adv_drop = adv["reduction"]["ndkl_eq_opp"]
+        ctl_drop = ctl["reduction"]["ndkl_eq_opp"]
+        print(f"ablation seed {seed}: NDKL drop adversarial {adv_drop:.4f}, control "
+              f"{ctl_drop:.4f}; the adversarial arm beats the control "
+              f"{adv_drop > ctl_drop}; JAX's stricter bars: adversarial >= 0.40 "
+              f"{adv_drop >= 0.40}, gap >= 0.25 {adv_drop - ctl_drop >= 0.25}, probe within "
+              f"0.15 {adv['after']['probe_acc'] >= adv['before']['probe_acc'] - 0.15} "
+              f"(findings, not gates); ablation wall {abl_s:.1f} s ({card})")
+
+        # the witnesses: the card against the CPU from one start
+        t0 = time.perf_counter()
+        for s, (world, _, _) in ran.items():
+            pretrain_witness(E, world, s, card)
+        world, tower, cfg = ran[seed]
+        cpu_drops = arms_witness(E, world, tower, cfg, seed, arms, tmp, card)
+        print(f"ablation seed {seed}: from the card's tower the CPU's arms drop NDKL by "
+              f"{cpu_drops['adversarial']:.4f} (adversarial) and {cpu_drops['control']:.4f} "
+              f"(control): the adversarial arm beats the control "
+              f"{cpu_drops['adversarial'] > cpu_drops['control']} on the CPU, "
+              f"{adv_drop > ctl_drop} on the card; witnesses {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return abl_s
+
+
 def main() -> int:
     try:
         import torch
@@ -988,6 +1372,7 @@ def main() -> int:
     from debias_vision_lang_torch.ops.quant import resolve_compute
     from debias_vision_lang_torch.text import ByteTokenizer
 
+    smoke_t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -1321,6 +1706,14 @@ def main() -> int:
                         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
                         "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]})
     print(json.dumps({"kernels": rows + rows_q + rows_k5}))
+
+    # 14. the embedding cache on the main path; 15. the adversary ablation
+    # (after the kernels line: a failure here leaves the kernel record)
+    cache_phase(model, tokenizer, decode, card)
+    abl_s = ablation_phase(card)
+    total_s = time.perf_counter() - smoke_t0
+    print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s"
+          + (" (past 8 minutes)" if total_s > 480 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

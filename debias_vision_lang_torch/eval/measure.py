@@ -16,12 +16,21 @@ Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
      deliberately NOT normalized, as in the reference);
   4. scores = prompts @ images.T and MaxSkew / NDKL in one device pass
      (metrics/ranking.py), or the numpy oracle with engine="oracle".
+
+``opts["cache_embeddings"]`` keeps step 2's output (labels, embeddings and
+the rows' file names) in an npz at that path, keyed as in the JAX package
+by the dataset selection and the rung, and here also by a digest of the
+image tower's weights (``utils/fingerprint.py``): re-scoring another prompt
+battery or top-n with the same tower hits and builds no dataset, while a
+tower whose weights differ raises instead of reading stale embeddings.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -32,6 +41,7 @@ from ..core.paths import resolve_asset
 from ..data.loader import HostLoader
 from ..metrics import oracle, ranking
 from ..ops.quant import resolve_compute
+from ..utils.fingerprint import image_tower_tensors, params_fingerprint
 from ..vision.preprocess import Preprocess, preprocess_batch
 
 _ROADMAP_VIDEO = "ROADMAP.md queue 1 item 4 (other towers: Frozen-in-Time video)"
@@ -134,8 +144,6 @@ _KNOWN_EXTRA = {"dataset", "mode", "n_samples", "equal_split", "data_path",
 _NOT_YET_OPTS = {
     "mesh": "ROADMAP.md queue 1 item 5 (distribution)",
     "sharded_metrics": "ROADMAP.md queue 1 item 5 (distribution)",
-    "cache_embeddings": "ROADMAP.md queue 1 item 7 (embedding cache keyed "
-                        "by a params fingerprint)",
 }
 
 
@@ -179,29 +187,59 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     else:
         n_px, host_transform = 224, img_preproc
 
-    from ..data import datasets  # needs pandas
+    mode, n_samples = extra.get("mode", "val"), extra.get("n_samples")
+    equal_split, data_path = extra.get("equal_split", True), extra.get("data_path")
+    cache_path = extra.get("cache_embeddings")
+    if cache_path:
+        cache_key = json.dumps({
+            "attribute": attribute, "dataset": dataset_name, "mode": mode,
+            "n_samples": n_samples, "dtype": cfg.dtype, "equal_split": equal_split,
+            "data_path": data_path, "num_frames": extra.get("num_frames"),
+            "params": params_fingerprint(image_tower_tensors(cliplike)),
+        }, sort_keys=True, default=str)
+    if cache_path and os.path.exists(cache_path):
+        # a hit builds no dataset and no loader: the image files may be gone
+        with np.load(cache_path, allow_pickle=False) as data:
+            stored = str(data["cache_key"]) if "cache_key" in data else None
+            if stored != cache_key:
+                raise ValueError(
+                    f"embedding cache {cache_path} was written for "
+                    f"{stored or 'an older layout without a cache key'} but this "
+                    f"call needs {cache_key} — the cached labels would be wrong; "
+                    "use a separate cache path per attribute/dataset config")
+            labels = data["labels"]
+            img_embs = torch.from_numpy(data["embeddings"]).to(model_device(cliplike))
+    else:
+        from ..data import datasets  # needs pandas
 
-    cls = datasets.FairFace if dataset_name == "fairface" else datasets.UTKFace
-    # never downloads: point data_path at a complete FairFace/UTKFace layout
-    ds = cls(mode=extra.get("mode", "val"), iat_type=attribute,
-             _n_samples=extra.get("n_samples"),
-             equal_split=extra.get("equal_split", True),
-             data_path=extra.get("data_path"), download=False)
+        cls = datasets.FairFace if dataset_name == "fairface" else datasets.UTKFace
+        # never downloads: point data_path at a complete FairFace/UTKFace layout
+        ds = cls(mode=mode, iat_type=attribute, _n_samples=n_samples,
+                 equal_split=equal_split, data_path=data_path, download=False)
 
-    # bfloat16 or int8 ViT at its native resolution: stage patch-contiguous
-    # uint8 so the stem is one matmul with the normalize folded into the
-    # weights (integer-exact on the int8 rungs)
-    vis = vision_cfg(cliplike)
-    patch = None
-    if (dt == torch.bfloat16 and host_transform is None and vis is not None
-            and vis.kind == "vit" and n_px == vis.image_size
-            and n_px % vis.patch_size == 0):
-        patch = vis.patch_size
-    loader = HostLoader(ds, batch_size=cfg.batch_size, num_workers=cfg.num_workers,
-                        native_n_px=n_px if host_transform is None else None,
-                        native_patch=patch, host_transform=host_transform)
-    labels, img_embs = get_labels_img_embeddings(
-        loader, cliplike, n_px=n_px, progress=cfg.progress, dtype=cfg.dtype)
+        # bfloat16 or int8 ViT at its native resolution: stage patch-contiguous
+        # uint8 so the stem is one matmul with the normalize folded into the
+        # weights (integer-exact on the int8 rungs)
+        vis = vision_cfg(cliplike)
+        patch = None
+        if (dt == torch.bfloat16 and host_transform is None and vis is not None
+                and vis.kind == "vit" and n_px == vis.image_size
+                and n_px % vis.patch_size == 0):
+            patch = vis.patch_size
+        loader = HostLoader(ds, batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                            native_n_px=n_px if host_transform is None else None,
+                            native_patch=patch, host_transform=host_transform)
+        labels, img_embs = get_labels_img_embeddings(
+            loader, cliplike, n_px=n_px, progress=cfg.progress, dtype=cfg.dtype)
+        if cache_path:
+            # through a file object, so an extension-less path is kept as
+            # given; staged to .part so an interrupted write is never a hit
+            tmp = cache_path + ".part"
+            with open(tmp, "wb") as f:
+                np.savez(f, labels=labels, embeddings=img_embs.cpu().numpy(),
+                         cache_key=cache_key,
+                         files=np.asarray(ds.labels["file"].tolist(), dtype=str))
+            os.replace(tmp, cache_path)
 
     prompts = extra.get("prompts")
     if prompts is None:

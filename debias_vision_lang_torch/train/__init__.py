@@ -1,2 +1,3 @@
 """Adversarial prompt-array training (the port of
-``debias_vision_lang_tpu/train``, without ``efficacy.py``)."""
+``debias_vision_lang_tpu/train``), with the adversary ablation in
+``efficacy.py``."""

@@ -6,7 +6,7 @@ rows that ``run_training`` embeds once per call are kept across calls (the
 sweep workflow), keyed by content fingerprints:
 
 * the tower's parameters: every state-dict entry's name, shape, dtype and
-  bytes;
+  content digest (``utils/fingerprint.py``, reduced on the device);
 * the dataset rows: file paths RELATIVE to the dataset root, in order, and
   the encoded labels (moving the dataset keeps the key); the loop adds each
   file's (size, mtime) (``files_fingerprint``), so a file rewritten under
@@ -22,27 +22,16 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
-import torch
+
+from ..utils.fingerprint import params_fingerprint
 
 __all__ = [
     "params_fingerprint", "dataset_fingerprint", "files_fingerprint",
     "file_sha256", "cache_load", "cache_store", "cache_path",
 ]
-
-
-def params_fingerprint(state_dict: Mapping[str, torch.Tensor]) -> str:
-    """sha256 over every entry's (name, shape, dtype, bytes), name-sorted."""
-    h = hashlib.sha256()
-    for name in sorted(state_dict):
-        t = state_dict[name].detach().cpu().contiguous()
-        h.update(name.encode())
-        h.update(str(tuple(t.shape)).encode())
-        h.update(str(t.dtype).encode())
-        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
 
 
 def dataset_fingerprint(ds) -> str:

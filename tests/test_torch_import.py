@@ -1,9 +1,10 @@
 """The PyTorch port imports torch and never jax, nor anything of the JAX
 package: a fresh interpreter runs, on the CPU, the bf16 ``measure_bias`` of a
-tiny model on a synthetic FairFace layout, a forward through the port (bf16
+tiny model on a synthetic FairFace layout (a cache miss, then a hit), the
+efficacy world and one pretraining step, a forward through the port (bf16
 and, through QuantizedCLIP, int8) and one adversarial trainer step (bf16
 training through the differentiable fused blocks), and must end with no
-``jax*`` and no ``debias_vision_lang_tpu*`` module loaded.
+``jax*``, no ``optax`` and no ``debias_vision_lang_tpu*`` module loaded.
 Also the port's surface and its stdlib byte tokenizer."""
 
 import pathlib
@@ -68,10 +69,15 @@ for i in range(8):
                  "race": "White"})
 pd.DataFrame(rows).to_csv(os.path.join(root, "labels", "val", "val_labels.csv"), index=False)
 from debias_vision_lang_torch.vision.preprocess import Preprocess
-res = dvl.measure_bias(model, Preprocess(32), ByteTokenizer(), "gender",
-                       opts={"data_path": root, "dtype": "bfloat16", "batch_size": 4,
-                             "num_workers": 1, "prompts": prompts})
+opts = {"data_path": root, "dtype": "bfloat16", "batch_size": 4, "num_workers": 1,
+        "prompts": prompts, "cache_embeddings": os.path.join(root, "embs.npz")}
+res = dvl.measure_bias(model, Preprocess(32), ByteTokenizer(), "gender", opts=opts)
 assert all(np.isfinite(v) for m in res.values() for v in m.values()), res
+assert dvl.measure_bias(model, Preprocess(32), ByteTokenizer(), "gender", opts=opts) == res
+from debias_vision_lang_torch.train import efficacy
+world = efficacy.build_world(os.path.join(root, "world"), n_train=4, n_val=2)
+efficacy.pretrain_tiny_clip(world["train_images"], world["train_captions"], steps=1,
+                            batch_size=4, device="cpu")
 adv = dvl.Adversary.from_cfg({"ADV_N_INPUT": 5, "ADV_HIDDEN_SIZE": 8, "SEED": 0})
 trainer = dvl.AdversarialTrainer.create(
     model, adv, TrainConfig(train_dtype="bfloat16", embed_dtype="bfloat16"),
@@ -82,7 +88,7 @@ m = trainer.step(imgs, np.array([0, 1, 0, 1]), imgs[::-1].copy(),
                  ByteTokenizer()(["a", "b", "c", "d"]))
 assert np.isfinite(m["loss"]) and not torch.equal(before, model.debias_tokens.detach())
 print(sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "debias_vision_lang_tpu"))[:5])
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "debias_vision_lang_tpu"))[:5])
 """
 
 

@@ -295,7 +295,6 @@ class TestOptsChecked:
         ({"dtype": "float16"}, ValueError, "unknown dtype"),
         ({"mesh": "auto"}, NotImplementedError, "distribution"),
         ({"sharded_metrics": True}, NotImplementedError, "distribution"),
-        ({"cache_embeddings": "x.npz"}, NotImplementedError, "fingerprint"),
         ({"dataset": "video"}, NotImplementedError, "video"),
     ])
     def test_rejected_before_any_work(self, opts, exc, match):
