@@ -155,7 +155,34 @@ Phases (any failure exits non-zero before the final line):
      control's, on the card and in the CPU replay, and JAX's stricter
      bars are printed, not gated: the outcome is the seed's and the float
      configuration's (tests/test_efficacy.py's docstring), not the port's.
- Phases 14 and 15 run after the kernels line.
+ 16. serving (serve/engine.py, the micro-batcher and the HTTP server) on the
+     phase-4 model: an InferenceEngine (bfloat16, max_batch 64, the byte
+     tokenizer) warmed up bucket by bucket (1-64, both towers, each timed),
+     a ServeApp (max_wait_ms 5) and make_server on 127.0.0.1, an ephemeral
+     port, served from a thread; then over HTTP: /healthz (backend cuda and
+     the card's name), /v1/embed/image with 4 base64 PNGs, /v1/embed/image-raw
+     with 100 u8 frames (buckets 64 and 64) and 8 JPEG records (the decode
+     path printed), /v1/embed/text with the 319 prompts, /v1/score (1 image,
+     8 texts; probs sum to 1 within 1e-5), 32 concurrent single-image
+     clients (the batcher must form fewer dispatches than requests), an
+     undecodable image (400) and the next request (200), and one request
+     per bucket 1, 2, 4, ..., 64 for both towers; any other status fails.
+     Every dispatch the engine made for those requests is held to a direct
+     encode_image / encode_text call on the same staged bucket (one bf16
+     ulp of the row's largest magnitude; bit equality expected, the largest
+     difference printed), every row a client received must be the engine's
+     row bit for bit, and every served row has a cosine >= COS_MIN with the
+     float32 plain path; the launch counters equal 12 x the image
+     dispatches for K1 and 12 x (image + text) for K2, 12 x the text
+     dispatches for causal K1, and nothing else.  Printed, not gated: p50
+     and p99 latency of 50 sequential single-image and single-prompt
+     requests, the end-to-end img/s of 256-frame u8 requests beside phase
+     13's tower img/s, the 32 clients' coalesced img/s, and per dispatch
+     the host staging + launch time against the fetch time.  Then an int8
+     engine (its own server): 100 u8 frames and 64 prompts, the same row
+     check and cosine bar, K3 and K4 12 per image dispatch and none of the
+     image tower's K1 / K2, causal K1 and K2 12 per text dispatch.
+ Phases 14, 15 and 16 run after the kernels line.
 The kernels line gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
@@ -1349,6 +1376,453 @@ def ablation_phase(card):
     return abl_s
 
 
+SERVE_MAX_BATCH = 64
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+SERVE_CLIENTS = 32  # concurrent single-image clients: the batcher must coalesce them
+SERVE_LATENCY_N = 50  # sequential single-item requests per modality (p50 / p99)
+SERVE_THROUGHPUT = (256, 8)  # frames per raw u8 request, requests
+
+
+def http(base, path, body=None, headers=None):
+    """(status, headers, body) of one request; an HTTP error is a status."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def png_bytes(rng, h, w):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def jpeg_bytes(rng, h, w):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+        buf, format="JPEG", quality=92)
+    return buf.getvalue()
+
+
+class ServeRecorder:
+    """Wraps an engine's dispatch and fetch: counts and times every dispatch
+    (host staging + launch) and fetch (device wait + copy), and, while
+    ``keep`` is set, keeps each dispatch's items and result on the card for
+    the row check."""
+
+    def __init__(self, engine):
+        import threading
+
+        self.engine = engine
+        self.keep = True
+        self.lock = threading.Lock()
+        self.dispatches = {"image": [], "text": []}  # (items, handle) while keep
+        self.counts = {"image": 0, "text": 0}
+        self.buckets = {"image": [], "text": []}
+        self.dispatch_s, self.fetch_s = [], []
+        for kind, name in (("image", "dispatch_image_arrays"), ("text", "dispatch_token_arrays")):
+            setattr(engine, name, self._dispatch(kind, getattr(engine, name)))
+        fetch = engine.fetch
+
+        def timed_fetch(handle, n):
+            t0 = time.perf_counter()
+            out = fetch(handle, n)
+            with self.lock:
+                self.fetch_s.append((handle.shape[0], time.perf_counter() - t0))
+            return out
+
+        engine.fetch = timed_fetch
+
+    def _dispatch(self, kind, orig):
+        def dispatch(items):
+            t0 = time.perf_counter()
+            handle = orig(items)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.counts[kind] += 1
+                self.buckets[kind].append(handle.shape[0])
+                self.dispatch_s.append((handle.shape[0], dt))
+                if self.keep:
+                    self.dispatches[kind].append(([np.array(i) for i in items], handle))
+            return handle
+
+        return dispatch
+
+
+def staged_image(engine, item):
+    from debias_vision_lang_torch.vision.preprocess import patchify_u8
+
+    return item if item.ndim == 2 else patchify_u8(item, engine._patch)
+
+
+def check_served_rows(tag, engine, rec, served):
+    """Every kept dispatch against a direct encode_image / encode_text call on
+    the same staged bucket (one bf16 ulp of the row's largest magnitude; bit
+    equality expected), and every row a client received (``served``: staged
+    input bytes -> received row) against the row the engine computed for
+    that input.  Returns {kind: (staged inputs [N, ...], engine rows [N, D])}."""
+    import torch
+
+    model, dt = engine.model, engine.compute_dtype
+    out, worst, n_bit = {}, 0.0, 0
+    for kind, dispatches in rec.dispatches.items():
+        inputs, rows = [], []
+        for items, handle in dispatches:
+            b, n = handle.shape[0], len(items)
+            if kind == "image":
+                staged = np.zeros((b, *staged_image(engine, items[0]).shape), np.uint8)
+                staged[:n] = [staged_image(engine, i) for i in items]
+            else:
+                staged = np.zeros((b, engine.context_length), np.int64)
+                staged[:n] = items
+            x = torch.from_numpy(staged).to(handle.device)
+            with torch.inference_mode():
+                direct = (model.encode_image(x, dtype=dt) if kind == "image"
+                          else model.encode_text(x, dtype=dt)).float()
+            got, want = handle[:n], direct[:n]
+            diff = (got - want).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().amax(-1, keepdim=True))) - 7)
+            worst = max(worst, (diff / ulp).max().item())
+            n_bit += int(torch.equal(got, want))
+            check(bool((diff <= ulp).all()),
+                  f"{tag}: a served {kind} row differs from the direct call on the same "
+                  f"staged bucket of {b} by {diff.max().item()} (> one bf16 ulp)")
+            inputs.extend(staged[:n])
+            rows.append(got)
+        out[kind] = (np.stack(inputs), torch.cat(rows))
+    print(f"{tag}: {sum(len(d) for d in rec.dispatches.values())} dispatches held to the direct "
+          f"call on the same staged bucket: {n_bit} bit-identical, largest difference "
+          f"{worst:.3f} bf16 ulp of its row's largest magnitude (bar 1)")
+    index = {kind: {inp.tobytes(): i for i, inp in enumerate(inputs)}
+             for kind, (inputs, _) in out.items()}
+    n_rows = 0
+    for kind, pairs in served.items():
+        rows = out[kind][1].cpu().numpy()
+        for key, row in pairs:
+            check(key in index[kind], f"{tag}: a served {kind} row has no dispatch")
+            check(np.array_equal(rows[index[kind][key]], row),
+                  f"{tag}: the {kind} row a client received is not the engine's")
+            n_rows += 1
+    print(f"{tag}: {n_rows} rows received over HTTP, each the engine's own row bit for bit")
+    return out
+
+
+def cosine_vs_float32(tag, engine, base_model, rows):
+    """Per-row cosine of the served rows against the float32 plain path."""
+    import torch
+
+    device = engine.device
+    for kind, (inputs, got) in rows.items():
+        refs = []
+        with torch.no_grad():
+            for i in range(0, len(inputs), 64):
+                x = torch.from_numpy(inputs[i:i + 64]).to(device)
+                refs.append((base_model.encode_image(x, dtype=torch.float32) if kind == "image"
+                             else base_model.encode_text(x)).float())
+        cosine_check(f"{tag} {kind} embeddings ({len(inputs)}) vs float32 plain path",
+                     got, torch.cat(refs))
+
+
+def dispatch_split(engine, batch, iters=10):
+    """ms of one image dispatch of ``batch``: the whole dispatch (staging
+    into pinned memory, the copy's enqueue, the launches; host clock), the
+    tower's launches alone on a tensor already on the card (host clock),
+    and the tower on the card (CUDA events)."""
+    import torch
+    from debias_vision_lang_torch.serve.engine import _embed_images_u8
+
+    x = torch.from_numpy(np.stack([staged_image(engine, f) for f in batch])).to(engine.device)
+    out = {"dispatch": [], "launch": [], "device": []}
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.dispatch_image_arrays(list(batch))
+        out["dispatch"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        _embed_images_u8(engine.model, x, engine.compute_dtype)
+        out["launch"].append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        out["device"].append(e0.elapsed_time(e1))
+    return out
+
+
+def serve_phase(model, tokenizer, prompts, card, tower_img_s):
+    """Phase 16: the port's serving path (serve/engine.py, batcher, HTTP
+    server) on the phase-4 model, bfloat16 then int8."""
+    import base64
+    import threading
+
+    import torch
+    from debias_vision_lang_torch import native
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.serve import (InferenceEngine, ServeApp, decode_image_bytes,
+                                                make_server)
+    from debias_vision_lang_torch.vision.preprocess import resize_crop_u8
+
+    device = next(model.parameters()).device
+    n_px = model.clip_cfg.vision.image_size
+    rng = np.random.default_rng(16)
+    raw = {"Content-Type": "application/octet-stream", "X-Image-Format": "u8"}
+    js = {"Content-Type": "application/json"}
+
+    def frames(n):
+        return rng.integers(0, 256, (n, n_px, n_px, 3), dtype=np.uint8)
+
+    def expect(status, want, what, body=b""):
+        check(status == want, f"phase 16 {what}: HTTP {status}, expected {want}: "
+                              f"{body[:300]!r}")
+
+    def start(engine):
+        t0 = time.perf_counter()
+        stamps = []
+        engine.warmup(log=lambda m: stamps.append((m, time.perf_counter())))
+        torch.cuda.synchronize()
+        stamps.append(("end", time.perf_counter()))
+        per = [f"{m.split()[-1]}: {(t1 - t) * 1e3:.1f}"
+               for (m, t), (_, t1) in zip(stamps, stamps[1:])]
+        print(f"serve {engine.precision}: warmup of {len(per)} buckets x 2 towers in "
+              f"{time.perf_counter() - t0:.2f} s; ms per bucket {', '.join(per)} ({card})")
+        rec = ServeRecorder(engine)
+        app = ServeApp(engine, max_wait_ms=5.0)
+        httpd = make_server(app, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        return rec, app, httpd, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def stop(app, httpd, thread):
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+        thread.join(timeout=10)
+        check(not thread.is_alive(), "phase 16: the server thread did not stop")
+
+    def embed_u8(base, batch, served):
+        status, h, body = http(base, "/v1/embed/image-raw", batch.tobytes(), raw)
+        expect(status, 200, f"image-raw u8 x{len(batch)}", body)
+        rows = np.frombuffer(body, "<f4").reshape(int(h["X-Count"]), int(h["X-Dim"]))
+        check(rows.shape[0] == len(batch) and np.isfinite(rows).all(), "image-raw u8 rows")
+        if served is not None:
+            served["image"] += [(staged_image(engine, f).tobytes(), r) for f, r in zip(batch, rows)]
+        return rows
+
+    def embed_text(base, texts, served):
+        status, _, body = http(base, "/v1/embed/text",
+                               json.dumps({"texts": list(texts)}).encode(), js)
+        expect(status, 200, f"text x{len(texts)}", body)
+        rows = np.asarray(json.loads(body)["embeddings"], np.float32)
+        check(rows.shape[0] == len(texts) and np.isfinite(rows).all(), "text rows")
+        if served is not None:
+            toks = engine.tokenize(list(texts))
+            served["text"] += [(t.tobytes(), r) for t, r in zip(toks, rows)]
+        return rows
+
+    counters = (fb, fbq, A)
+    # -- bfloat16 ----------------------------------------------------------
+    engine = InferenceEngine(model, tokenizer, max_batch=SERVE_MAX_BATCH,
+                             compute_dtype="bfloat16", device=device)
+    check(engine._patch == 16, "phase 16: the bf16 engine does not stage patch-contiguous")
+    rec, app, httpd, thread, base = start(engine)
+    served = {"image": [], "text": []}
+    try:
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        status, _, body = http(base, "/healthz")
+        expect(status, 200, "healthz", body)
+        info = json.loads(body)
+        print(f"healthz: backend {info['backend']}, device {info['device_name']}, "
+              f"precision {info['precision']}, device memory {info['device_memory']}")
+        check(info["backend"] == "cuda" and info["device_name"] == torch.cuda.get_device_name(0),
+              "phase 16: /healthz does not name the card")
+
+        pngs = [png_bytes(rng, 240 + 16 * i, 320 - 8 * i) for i in range(4)]
+        status, _, body = http(base, "/v1/embed/image", json.dumps(
+            {"images_b64": [base64.b64encode(p).decode() for p in pngs]}).encode(), js)
+        expect(status, 200, "embed/image x4 PNG", body)
+        rows = np.asarray(json.loads(body)["embeddings"], np.float32)
+        served["image"] += [(staged_image(engine, engine.prepare_image(p)).tobytes(), r)
+                            for p, r in zip(pngs, rows)]
+
+        embed_u8(base, frames(100), served)
+
+        jpegs = [jpeg_bytes(rng, 200 + 24 * i, 260) for i in range(8)]
+        stream = b"".join(len(j).to_bytes(4, "big") + j for j in jpegs)
+        t0 = time.perf_counter()
+        status, h, body = http(base, "/v1/embed/image-raw", stream,
+                               {**raw, "X-Image-Format": "jpeg"})
+        jpeg_ms = (time.perf_counter() - t0) * 1e3
+        expect(status, 200, "image-raw jpeg x8", body)
+        rows = np.frombuffer(body, "<f4").reshape(8, -1)
+        served["image"] += [(staged_image(engine, p).tobytes(), r)
+                            for p, r in zip(engine.prepare_images_batch(jpegs), rows)]
+        print(f"image-raw jpeg x8: {jpeg_ms:.1f} ms, decoded by "
+              f"{'the native ingest' if native.available() else 'PIL (no native ingest)'} "
+              f"({card})")
+
+        embed_text(base, prompts, served)
+
+        png = png_bytes(rng, 224, 224)
+        texts = [f"a photo of a {w} person" for w in
+                 ("happy", "sad", "tall", "short", "young", "old", "kind", "rude")]
+        status, _, body = http(base, "/v1/score", json.dumps(
+            {"image_b64": base64.b64encode(png).decode(), "texts": texts}).encode(), js)
+        expect(status, 200, "score", body)
+        probs = np.asarray(json.loads(body)["probs"])
+        check(probs.shape == (8,) and abs(probs.sum() - 1.0) <= 1e-5,
+              f"phase 16: probs sum to {probs.sum()}")
+
+        before = dict(app._images.stats)
+        burst = frames(SERVE_CLIENTS)
+        results = [None] * SERVE_CLIENTS
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(i):
+            barrier.wait()
+            results[i] = http(base, "/v1/embed/image-raw", burst[i].tobytes(), raw)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        burst_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "phase 16: a client hung")
+        for i, (status, h, body) in enumerate(results):
+            expect(status, 200, f"concurrent client {i}", body)
+            served["image"].append((staged_image(engine, burst[i]).tobytes(),
+                                    np.frombuffer(body, "<f4")))
+        after = app._images.stats
+        n_b, n_i = after["batches"] - before["batches"], after["items"] - before["items"]
+        print(f"{SERVE_CLIENTS} concurrent single-image clients: {n_i} items in {n_b} "
+              f"dispatches ({n_i / n_b:.1f} per dispatch), {burst_s * 1e3:.1f} ms, "
+              f"{SERVE_CLIENTS / burst_s:.1f} img/s coalesced ({card})")
+        check(n_i == SERVE_CLIENTS and n_b < SERVE_CLIENTS,
+              f"phase 16: the batcher did not coalesce ({n_b} dispatches for {n_i} requests)")
+
+        status, _, body = http(base, "/v1/embed/image", json.dumps(
+            {"images_b64": [base64.b64encode(b"notanimage").decode()]}).encode(), js)
+        expect(status, 400, "undecodable image", body)
+        embed_u8(base, frames(1), served)
+
+        for b in SERVE_BUCKETS:
+            embed_u8(base, frames(b), served)
+            embed_text(base, [f"bucket {b} prompt {i}" for i in range(b)], served)
+            toks = engine.tokenize([f"direct bucket {b} prompt {i}" for i in range(b)])
+            engine.embed_token_arrays(list(toks))
+        img_buckets = set(rec.buckets["image"])
+        print(f"image buckets dispatched: {sorted(img_buckets)}; text buckets dispatched: "
+              f"{sorted(set(rec.buckets['text']))}")
+        check(set(SERVE_BUCKETS) <= img_buckets and set(SERVE_BUCKETS) <= set(rec.buckets["text"]),
+              "phase 16: a bucket of 1-64 was not served")
+
+        # print, not gate: latency, throughput, dispatch against fetch
+        rec.keep = False
+        lat = {"image": [], "text": []}
+        for i in range(SERVE_LATENCY_N):
+            one = frames(1)
+            t0 = time.perf_counter()
+            embed_u8(base, one, None)
+            lat["image"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            embed_text(base, [f"latency prompt number {i}"], None)
+            lat["text"].append(time.perf_counter() - t0)
+        for kind, ts in lat.items():
+            ms = np.asarray(ts) * 1e3
+            print(f"serve bf16 {kind} latency, {SERVE_LATENCY_N} sequential single-item "
+                  f"requests: p50 {np.percentile(ms, 50):.2f} ms, p99 "
+                  f"{np.percentile(ms, 99):.2f} ms (host clock, HTTP on localhost; {card})")
+        n_fr, n_req = SERVE_THROUGHPUT
+        bodies = [frames(n_fr) for _ in range(n_req)]
+        embed_u8(base, bodies[0], None)  # one unmeasured request first
+        rec.dispatch_s.clear()
+        rec.fetch_s.clear()
+        t0 = time.perf_counter()
+        for batch in bodies:
+            embed_u8(base, batch, None)
+        e2e = n_fr * n_req / (time.perf_counter() - t0)
+        print(f"serve bf16 end to end: {n_req} requests of {n_fr} raw u8 frames, "
+              f"{e2e:.1f} img/s through HTTP, against {tower_img_s:.1f} img/s of the bf16 "
+              f"tower alone at B=256 (phase 13) ({card})")
+        d_ms = np.asarray([t for _, t in rec.dispatch_s]) * 1e3
+        f_ms = np.asarray([t for _, t in rec.fetch_s]) * 1e3
+        print(f"serve bf16 per dispatch of 64 frames ({len(d_ms)} dispatches): host staging + "
+              f"launch median {np.median(d_ms):.2f} ms (max {d_ms.max():.2f}), fetch (device "
+              f"wait + copy) median {np.median(f_ms):.2f} ms (max {f_ms.max():.2f}); batcher "
+              f"totals: image dispatch {app._images.run_seconds:.3f} s, finalize "
+              f"{app._images.finalize_seconds:.3f} s ({card})")
+
+        torch.cuda.synchronize()
+        launches = launches_of(*counters)
+        n_img, n_txt = rec.counts["image"], rec.counts["text"]
+        want = {k: 0 for k in launches}
+        want.update({"attention_block": LAYERS * n_img, "attention_block_causal": LAYERS * n_txt,
+                     "mlp_block": LAYERS * (n_img + n_txt)})
+        print(f"serve bf16: {n_img} image and {n_txt} text dispatches; launches {launches}")
+        check(launches == want, f"phase 16 bf16 launches {launches}, expected {want}")
+        # after the count: these launches are the measurement's, not the path's
+        split = dispatch_split(engine, frames(SERVE_MAX_BATCH))
+        print(f"serve bf16 one 64-frame dispatch, median of {len(split['dispatch'])}: "
+              f"dispatch {np.median(split['dispatch']):.2f} ms host, of it the tower's "
+              f"launches {np.median(split['launch']):.2f} ms host and staging + copy the "
+              f"rest; the tower on the card {np.median(split['device']):.2f} ms (CUDA "
+              f"events) ({card})")
+        t0 = time.perf_counter()
+        decoded = decode_image_bytes(jpegs[0])
+        t1 = time.perf_counter()
+        resize_crop_u8(decoded, n_px)
+        t2 = time.perf_counter()
+        how = "native ingest" if native.available() else "PIL decode, numpy resize"
+        print(f"host decode of one {decoded.shape[1]}x{decoded.shape[0]} JPEG: "
+              f"decode_image_bytes {(t1 - t0) * 1e3:.2f} ms, resize_crop_u8 "
+              f"{(t2 - t1) * 1e3:.2f} ms ({how}; {card})")
+        rows = check_served_rows("serve bf16", engine, rec, served)
+        cosine_vs_float32("serve bf16", engine, model, rows)
+    finally:
+        stop(app, httpd, thread)
+
+    # -- int8 --------------------------------------------------------------
+    engine = InferenceEngine(model, tokenizer, max_batch=SERVE_MAX_BATCH, compute_dtype="int8",
+                             device=device)
+    rec, app, httpd, thread, base = start(engine)
+    served = {"image": [], "text": []}
+    try:
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        embed_u8(base, frames(100), served)
+        embed_text(base, prompts[:64], served)
+        torch.cuda.synchronize()
+        launches = launches_of(*counters)
+        n_img, n_txt = rec.counts["image"], rec.counts["text"]
+        want = {k: 0 for k in launches}
+        want.update({"attention_block_q": LAYERS * n_img, "mlp_block_q": LAYERS * n_img,
+                     "attention_block_causal": LAYERS * n_txt, "mlp_block": LAYERS * n_txt})
+        print(f"serve int8: {n_img} image and {n_txt} text dispatches; launches {launches}")
+        check(launches == want, f"phase 16 int8 launches {launches}, expected {want}")
+        rows = check_served_rows("serve int8", engine, rec, served)
+        cosine_vs_float32("serve int8", engine, model, rows)
+    finally:
+        stop(app, httpd, thread)
+
+
 def main() -> int:
     try:
         import torch
@@ -1654,6 +2128,7 @@ def main() -> int:
         print(f"time {name} B=319 S=77 D=512: kernel {k_ms:.4f} ms, plain twin "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the kernel at "
               f"{b_ms / k_ms:.1%} of it) ({card})")
+    tower_img_s = {}
     with torch.no_grad():
         for label, tower, kw in (
                 ("kernels (bf16)", model, {"dtype": torch.bfloat16}),
@@ -1662,6 +2137,7 @@ def main() -> int:
                 ("plain bf16", model, {"dtype": torch.bfloat16, "fused": False}),
                 ("plain float32", model, {"dtype": torch.float32})):
             ms = cuda_ms(lambda: tower.encode_image(p8, **kw), iters=5)
+            tower_img_s[label] = BATCH / ms * 1e3
             print(f"image tower B={BATCH} {label}: {ms:.3f} ms/batch, "
                   f"{BATCH / ms * 1e3:.1f} img/s ({card})")
     for c in attn_cases:
@@ -1711,8 +2187,13 @@ def main() -> int:
     # (after the kernels line: a failure here leaves the kernel record)
     cache_phase(model, tokenizer, decode, card)
     abl_s = ablation_phase(card)
+    # 16. serving (after the kernels line, as 14-15)
+    t0 = time.perf_counter()
+    serve_phase(model, tokenizer, prompts, card, tower_img_s["kernels (bf16)"])
+    serve_s = time.perf_counter() - t0
     total_s = time.perf_counter() - smoke_t0
-    print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s"
+    print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s and serving "
+          f"{serve_s:.1f} s"
           + (" (past 8 minutes)" if total_s > 480 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

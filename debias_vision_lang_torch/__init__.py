@@ -8,6 +8,9 @@
                                        opts={"dtype": "bfloat16"})
     summary = debias_clip.run_training(model=model, tokenizer=tokenizer,
                                        data_path="/path/to/fairface", epochs=1)
+    model, preprocess = debias_clip.load("/path/to/prompts.pt")  # hub
+
+    python -m debias_vision_lang_torch serve --random-weights --dtype bfloat16
 
 The port stands alone: it keeps its own copies of what it shares with the
 JAX package (``core/`` configuration and registry, ``native/`` host ingest,
@@ -30,6 +33,8 @@ _LAZY = {
     "AdversarialTrainer": ("debias_vision_lang_torch.train.adversarial",
                            "AdversarialTrainer"),
     "run_training": ("debias_vision_lang_torch.train.loop", "run_training"),
+    "load": ("debias_vision_lang_torch.hub", "load"),
+    "available_models": ("debias_vision_lang_torch.hub", "available_models"),
 }
 
 

@@ -152,3 +152,9 @@ def save_debias_prompt_pt(prompt_embeddings, path: str) -> None:
     else:
         arr = np.asarray(prompt_embeddings, np.float32)
     torch.save(torch.from_numpy(np.ascontiguousarray(arr, np.float32).copy()), path)
+
+
+def load_debias_prompt_pt(path: str) -> torch.Tensor:
+    """Load the hub checkpoint format: a bare [P, width] tensor saved with
+    ``torch.save`` (reference: model/clip.py:75-76), as float32 on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True).float()

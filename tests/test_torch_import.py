@@ -119,7 +119,8 @@ def test_kernel_sources_ship():
 
 @pytest.mark.parametrize("name", ["measure_bias", "eval_ranking", "gen_prompts",
                                   "DebiasCLIP", "model_loader", "ClipLike", "Adversary",
-                                  "AdversarialTrainer", "run_training"])
+                                  "AdversarialTrainer", "run_training", "load",
+                                  "available_models"])
 def test_lazy_surface(name):
     import debias_vision_lang_torch as dvl
 

@@ -43,7 +43,13 @@ def _imported_modules(tree):
 
 def test_every_port_module_is_scanned():
     for rel in ("debias_vision_lang_torch/train/efficacy.py",
-                "debias_vision_lang_torch/utils/fingerprint.py"):
+                "debias_vision_lang_torch/utils/fingerprint.py",
+                *(f"debias_vision_lang_torch/serve/{m}.py"
+                  for m in ("__init__", "batcher", "engine", "server")),
+                "debias_vision_lang_torch/hub/__init__.py",
+                "debias_vision_lang_torch/hub/hub.py",
+                "debias_vision_lang_torch/cli.py",
+                "debias_vision_lang_torch/__main__.py"):
         assert rel in PORT_SOURCES
 
 
@@ -130,6 +136,52 @@ def test_paths_same_names_and_assets(monkeypatch, tmp_path):
         assert found.parent == PORT / "assets"
         assert found.read_bytes() == jpaths.resolve_asset(asset).read_bytes()
         monkeypatch.undo()
+
+
+def _code_nodes(rel):
+    """{name: ast dump} of a module's top-level statements, docstrings
+    stripped (comments are not in the tree): the code, not its prose."""
+    tree = ast.parse((REPO / rel).read_text(), filename=rel)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    out = {}
+    for i, node in enumerate(tree.body):
+        name = getattr(node, "name", None)
+        if name is None and isinstance(node, ast.Assign):
+            name = ast.unparse(node.targets[0])
+        out[name or f"<{type(node).__name__} {i}>"] = ast.dump(node)
+    return out
+
+
+def test_batcher_copy_is_the_original():
+    got = _code_nodes("debias_vision_lang_torch/serve/batcher.py")
+    assert got == _code_nodes("debias_vision_lang_tpu/serve/batcher.py")
+
+
+def test_server_copy_is_the_original():
+    """Every route, status code, error string, limit, the handler, auth, TLS
+    and SO_REUSEPORT are the JAX server's code.  What differs: ``serve_forever``
+    (``device``; no mesh of its own) and the listen backlog (``_Server``,
+    ``LISTEN_BACKLOG``, the base of ``_ReusePortServer`` and ``make_server``'s
+    class), which the JAX server leaves at the stdlib's 5."""
+    got = _code_nodes("debias_vision_lang_torch/serve/server.py")
+    want = _code_nodes("debias_vision_lang_tpu/serve/server.py")
+    assert sorted(set(got) - set(want)) == ["LISTEN_BACKLOG", "_Server"]
+    assert set(want) <= set(got)
+    differ = sorted(k for k in want if got[k] != want[k])
+    assert differ == ["_ReusePortServer", "make_server", "serve_forever"]
+
+
+def test_hub_registry_copy_is_the_original():
+    from debias_vision_lang_torch.hub import hub as thub
+    from debias_vision_lang_tpu.data.download import PRETRAINED_PROMPTS
+
+    assert thub.PRETRAINED_PROMPTS == PRETRAINED_PROMPTS
+    assert thub.PRETRAINED_PROMPTS is not PRETRAINED_PROMPTS
 
 
 def test_port_assets_are_the_jax_packages():
