@@ -24,13 +24,16 @@ Phases (any failure exits non-zero before the final line):
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
      7, 257, 320, causal and not, B=2 D=512 H=8), at a ragged M (B=3 S=77:
      231 rows, not a multiple of the GEMM's 128-row tile) for both blocks and
-     both activations, at the main path's B=256 image shapes and at the bf16
-     text tower's B=319 shapes; tolerance: max |kernel - twin| <= one bf16
-     ulp of the twin's largest magnitude.  At B=8 and at the ragged M each
+     both activations, at SLIP-ViT-L/16's image shapes (B=8, S=197 D=1024
+     H=16, F=4096 with the erf-gelu MLP), at the main path's B=256 image
+     shapes of ViT-B/16 and of SLIP-L (phase 17) and at the bf16 text
+     tower's B=319 shapes; tolerance: max |kernel - twin| <= one bf16
+     ulp of the twin's largest magnitude (SLIP-L's inputs come from a
+     generator of their own).  At B=8 and at the ragged M each
      block also runs on a residual stream scaled by 1/16, where the output is
      mostly the block's own contribution, so the bar is tight against the
-     attention / MLP math and not only against the residual.  At B=256 the
-     two blocks are split by sub-kernel with torch.profiler (LN, QKV GEMM,
+     attention / MLP math and not only against the residual.  At B=256 (both
+     image towers) the two blocks are split by sub-kernel with torch.profiler (LN, QKV GEMM,
      core, out GEMM; LN, up GEMM, down GEMM), each GEMM with its TFLOP/s and
      share of the bf16 peak;
   4. main path: first native.available() for the port's native ingest and,
@@ -51,7 +54,9 @@ Phases (any failure exits non-zero before the final line):
      float32 text tower;
   6. int8 kernel phase: attention_block_q and mlp_block_q against their twins
      (weights from ops/quant.quantize_weight) at the same shapes, plus an
-     act_kind="gelu" MLP; the same 1-ulp bar on the output, and on the int8
+     act_kind="gelu" MLP, and SLIP-L's blocks (B=8, x and x/16, D=1024 H=16,
+     the gelu MLP at F=4096 = MAX_ROW, the widest hidden row the quantize
+     pass holds); the same 1-ulp bar on the output, and on the int8
      codes of the quantized rows (LN output, attention output, MLP hidden):
      the twin's quantizer applied to the kernel's own rows gives the kernel's
      codes and scales exactly, and the codes differ from the twin's in at
@@ -59,8 +64,8 @@ Phases (any failure exits non-zero before the final line):
      attention rows); attention_block_q at every key bucket of the wgmma
      core (S = 1, 7, 200, 201, 256, 257, 320, causal and not, B=2 D=512
      H=8); a ragged M (B=3 S=77: 231 rows, x and x/16) for both blocks,
-     causal and not, both activations; at B=256 both blocks are split by
-     sub-kernel with torch.profiler (LN, quantize x and attn, QKV GEMM,
+     causal and not, both activations; at B=256 (ViT-B/16 and SLIP-L) both
+     blocks are split by sub-kernel with torch.profiler (LN, quantize x and attn, QKV GEMM,
      core, out GEMM; LN, quantize x, up GEMM, quantize h, down GEMM), each
      GEMM with its TOP/s and share of the int8 peak;
   7. the int8 main path: the same model and images through
@@ -182,13 +187,41 @@ Phases (any failure exits non-zero before the final line):
      engine (its own server): 100 u8 frames and 64 prompts, the same row
      check and cosine bar, K3 and K4 12 per image dispatch and none of the
      image tower's K1 / K2, causal K1 and K2 12 per text dispatch.
- Phases 14, 15 and 16 run after the kernels line.
-The kernels line gives each kernel's launches, error, time, plain-twin time,
+ 17. SLIP-ViT-L/16 at full width and depth (D=1024, 24 layers, 16 heads,
+     F=4096; DebiasCLIP with 2 prepended tokens, random init from seed 0):
+     (a) phase 4's measurement pipeline on its 1,024 images (P8 staging,
+     the 319 prompts) at bfloat16 and at int8, with the counters set to 0
+     before each: K1 and K2 24 x 4 launches each and nothing else (bf16),
+     K3 and K4 24 x 4 each and nothing else (int8); metrics equal to the
+     numpy oracle; image embeddings of the first 256 against the float32
+     plain tower: cosine >= COS_MIN at bf16; at int8 the kernel path's mean
+     cosine error at most INT8_ERR_RATIO times that of the plain int8 route
+     on the same batch (the rung's own arithmetic stays below COS_MIN on
+     this random tower); wall time, tower img/s and the card printed;
+     (b) the same weights written as an OpenAI-named .pt and a SLIP-named
+     .pt ({"state_dict": ...}, module. prefixes, visual.blocks.*, an
+     SSL-head tensor), and phase 4's ViT-B/16 as a HuggingFace-named .pt
+     (names built here by the inverse of hf_to_openai_state_dict, no
+     transformers), each loaded through model_loader(weights=...): image
+     (bf16 kernels) and text (float32) embeddings bit-equal to the
+     original's; (c) zero-shot over 8 classes x 16 seeded 224 px PNGs with
+     the 80 ImageNet templates (640 prompts) at float32 and bfloat16: top-1
+     / top-5 / n equal to a numpy recount from the embeddings the tower
+     returned (a forward hook) and the classifier, 24 K1 and K2 launches at
+     bfloat16 and none at float32; the card's float32 classifier within
+     1e-5 of the CPU port's for 2 of the classes; and the CLI once
+     (python -m debias_vision_lang_torch zero-shot --random-weights --dtype
+     bfloat16 --model facebookresearch/SLIP/ViT-L/16, a toy BPE vocabulary):
+     exit 0 and a JSON with top1, top5 and n = 128.
+The kernels line comes after phase 17 (its SLIP-L rows take phase 17's
+launch counts) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
 its 3xTF32 design runs them) and the library call's time where one PyTorch
-call computes the same function.  K5 has two rows on its short route:
+call computes the same function.  K1-K4 have a row at ViT-B/16's B=256
+image shapes (launches: phases 4 and 7) and one at SLIP-L's (launches:
+phase 17); each row names its "case".  K5 has two rows on its short route:
 float32 causal B=319 S=77 (the text shape) and float32 B=64 S=197 (the image
 shape that holds most of its training launches); its long route two more,
 float32 and bfloat16 at B=8 H=12 S=785 with a zero mask, whose launches are
@@ -212,6 +245,7 @@ import numpy as np
 
 BATCH, N_IMAGES, LAYERS = 256, 1024, 12
 COS_MIN = 0.999  # per-row cosine, bf16 / int8 kernel path vs the float32 plain path
+INT8_ERR_RATIO = 1.1  # SLIP-L int8: mean cosine error, kernel path / plain int8 route
 METRIC_ATOL = 1e-5  # device ranking engine vs the numpy oracle
 CODE_SHARE_MAX = 1e-3  # int8 codes of a block's quantized rows that differ from the twin's
 # a bf16 flip of a row's largest attention output (the attention core sums
@@ -227,6 +261,10 @@ UPDATE_FLIP_MAX_BF16 = 0.05  # first token update, bf16 vs float32: share of sig
 # tensor cores, and HBM3 bandwidth (the bounds in the kernels line)
 PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 494.7e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# the image towers whose blocks phases 3 and 6 time at B=256: (model, D, heads,
+# MLP activation, weight seed); SLIP-L is phase 17's tower
+IMAGE_TOWERS = (("ViT-B/16", 768, 12, "quick_gelu", 7), ("SLIP-ViT-L/16", 1024, 16, "gelu", 9))
+SLIP_ARCH, SLIP_LAYERS = "facebookresearch/SLIP/ViT-L/16", 24
 
 
 def check(cond, msg):
@@ -537,6 +575,19 @@ def kernel_phase(fb, device, card):
                     fb.attention_block_plain(x, *attn, heads=heads, causal=causal))
             compare(f"mlp_block {tag} F={4 * d} quick_gelu", x,
                     fb.mlp_block(x, *mlp), fb.mlp_block_plain(x, *mlp))
+    # SLIP-ViT-L/16's image blocks: D=1024, 16 heads, F=4096, the erf-gelu MLP;
+    # their inputs come from a generator of their own, so every ViT-B/16 and
+    # text case keeps the draws it had before SLIP-L joined
+    attn, mlp = block_params(1024, device, seed=1024)
+    g_slip = torch.Generator().manual_seed(1024)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(8, 197, 1024, generator=g_slip) * scale).to(device, torch.bfloat16)
+        tag = f"B=8 S=197 D=1024 x~N(0,{scale}^2) (SLIP-L)"
+        compare(f"attention_block {tag} H=16 causal=False", x,
+                fb.attention_block(x, *attn, heads=16),
+                fb.attention_block_plain(x, *attn, heads=16))
+        compare(f"mlp_block {tag} F=4096 gelu", x, fb.mlp_block(x, *mlp, act_kind="gelu"),
+                fb.mlp_block_plain(x, *mlp, act_kind="gelu"))
     # every key bucket of the wgmma core (32, 80, 200, 256, 256 + 64 keys)
     attn, mlp = block_params(512, device, seed=5)
     for s_ in (1, 7, 257, 320):
@@ -558,32 +609,36 @@ def kernel_phase(fb, device, card):
                     fb.mlp_block_plain(x, *mlp, act_kind=act))
     torch.cuda.synchronize()
 
-    attn, mlp = block_params(768, device, seed=7)
-    x = torch.randn(BATCH, 197, 768, generator=g).to(device, torch.bfloat16)
     rows = []
-    for name, kern, plain, args, kw, line in (
-            ("attention_block", fb.attention_block, fb.attention_block_plain, attn,
-             {"heads": 12}, 69),
-            ("mlp_block", fb.mlp_block, fb.mlp_block_plain, mlp, {}, 192)):
-        err = compare(f"{name} B={BATCH} S=197 D=768 (main path)", x,
-                      kern(x, *args, **kw), plain(x, *args, **kw))
-        ms = cuda_ms(lambda: kern(x, *args, **kw))
-        plain_ms = cuda_ms(lambda: plain(x, *args, **kw))
-        bound_ms, bound_by = bound(*(attention_block_work(BATCH, 197, 768) if name ==
-                                     "attention_block" else mlp_block_work(BATCH, 197, 768, 3072)))
-        rows.append({"name": name, "route": "cuda",
-                     "source": "debias_vision_lang_torch/csrc/fused_block.cu",
-                     "replaces": f"debias_vision_lang_tpu/ops/fused_block.py:{line}",
-                     "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
-    m = BATCH * 197
-    subkernel_split(f"attention_block B={BATCH} S=197 D=768 H=12",
-                    lambda: fb.attention_block(x, *attn, heads=12),
-                    {"QKV GEMM": 2 * m * 768 * 2304, "out GEMM": 2 * m * 768 * 768}, card)
-    subkernel_split(f"mlp_block B={BATCH} S=197 D=768 F=3072",
-                    lambda: fb.mlp_block(x, *mlp),
-                    {"up GEMM": 2 * m * 768 * 3072, "down GEMM": 2 * m * 768 * 3072}, card)
+    for model, d, heads, act, seed in IMAGE_TOWERS:
+        attn, mlp = block_params(d, device, seed=seed)
+        x = torch.randn(BATCH, 197, d, generator=g if d == 768 else g_slip
+                        ).to(device, torch.bfloat16)
+        f, case = 4 * d, f"{model} B={BATCH} S=197 D={d}"
+        for name, kern, plain, args, kw, line, work in (
+                ("attention_block", fb.attention_block, fb.attention_block_plain, attn,
+                 {"heads": heads}, 69, attention_block_work(BATCH, 197, d)),
+                ("mlp_block", fb.mlp_block, fb.mlp_block_plain, mlp, {"act_kind": act}, 192,
+                 mlp_block_work(BATCH, 197, d, f))):
+            err = compare(f"{name} {case} (main path)", x, kern(x, *args, **kw),
+                          plain(x, *args, **kw))
+            ms = cuda_ms(lambda: kern(x, *args, **kw))
+            plain_ms = cuda_ms(lambda: plain(x, *args, **kw))
+            bound_ms, bound_by = bound(*work)
+            rows.append({"name": name, "case": case, "route": "cuda",
+                         "source": "debias_vision_lang_torch/csrc/fused_block.cu",
+                         "replaces": f"debias_vision_lang_tpu/ops/fused_block.py:{line}",
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None})
+        m = BATCH * 197
+        subkernel_split(f"attention_block {case} H={heads}",
+                        lambda: fb.attention_block(x, *attn, heads=heads),
+                        {"QKV GEMM": 2 * m * d * 3 * d, "out GEMM": 2 * m * d * d}, card)
+        subkernel_split(f"mlp_block {case} F={f} {act}",
+                        lambda: fb.mlp_block(x, *mlp, act_kind=act),
+                        {"up GEMM": 2 * m * d * f, "down GEMM": 2 * m * d * f}, card)
+        del x, attn, mlp
     # the bf16 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -671,6 +726,17 @@ def kernel_phase_q(fbq, device, card):
             x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
             compare(f"mlp_block_q B={b} S={s} D={d} F={4 * d} gelu", *mlp_fns, x, mlp,
                     {"act_kind": "gelu"})
+    # SLIP-ViT-L/16's image blocks: D=1024, 16 heads, F=4096 = MAX_ROW (the
+    # widest hidden row the quantize pass holds), the erf-gelu MLP; inputs
+    # from a generator of their own, as in phase 3
+    attn, mlp = q_block_params(1024, device, seed=1024)
+    g_slip = torch.Generator().manual_seed(1025)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(8, 197, 1024, generator=g_slip) * scale).to(device, torch.bfloat16)
+        tag = f"B=8 S=197 D=1024 x~N(0,{scale}^2) (SLIP-L)"
+        compare(f"attention_block_q {tag} H=16 causal=False", *attn_fns, x, attn,
+                {"heads": 16})
+        compare(f"mlp_block_q {tag} F=4096 gelu", *mlp_fns, x, mlp, {"act_kind": "gelu"})
     # both sides of every key bucket of the wgmma core (32, 80, 200, 256,
     # 256 + 64 keys)
     attn, mlp = q_block_params(512, device, seed=5)
@@ -690,34 +756,37 @@ def kernel_phase_q(fbq, device, card):
             compare(f"mlp_block_q {tag} F=2048 {act}", *mlp_fns, x, mlp, {"act_kind": act})
     torch.cuda.synchronize()
 
-    attn, mlp = q_block_params(768, device, seed=7)
-    x = torch.randn(BATCH, 197, 768, generator=g).to(device, torch.bfloat16)
     rows = []
-    for name, (kern, plain), block, kw, line in (
-            ("attention_block_q", attn_fns, attn, {"heads": 12}, 62),
-            ("mlp_block_q", mlp_fns, mlp, {}, 106)):
-        err = compare(f"{name} B={BATCH} S=197 D=768 (int8 main path)", kern, plain, x,
-                      block, kw)
-        ms = cuda_ms(lambda: kern(x, *block[0], **kw, **block[1]))
-        plain_ms = cuda_ms(lambda: plain(x, *block[0], **kw))
-        bound_ms, bound_by = bound(*(
-            attention_block_work(BATCH, 197, 768, weights="int8") if name == "attention_block_q"
-            else mlp_block_work(BATCH, 197, 768, 3072, weights="int8")))
-        rows.append({"name": name, "route": "cuda",
-                     "source": "debias_vision_lang_torch/csrc/fused_block_q.cu",
-                     "replaces": f"debias_vision_lang_tpu/ops/fused_block_q.py:{line}",
-                     "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
-    m = BATCH * 197
-    subkernel_split(f"attention_block_q B={BATCH} S=197 D=768 H=12",
-                    lambda: fbq.attention_block_q(x, *attn[0], heads=12, **attn[1]),
-                    {"QKV GEMM": 2 * m * 768 * 2304, "out GEMM": 2 * m * 768 * 768}, card,
-                    kind="int8", rename={"quantize x": QUANT_X_ATTN})
-    subkernel_split(f"mlp_block_q B={BATCH} S=197 D=768 F=3072",
-                    lambda: fbq.mlp_block_q(x, *mlp[0], **mlp[1]),
-                    {"up GEMM": 2 * m * 768 * 3072, "down GEMM": 2 * m * 768 * 3072}, card,
-                    kind="int8")
+    for model, d, heads, act, seed in IMAGE_TOWERS:
+        attn, mlp = q_block_params(d, device, seed=seed)
+        x = torch.randn(BATCH, 197, d, generator=g if d == 768 else g_slip
+                        ).to(device, torch.bfloat16)
+        f, case = 4 * d, f"{model} B={BATCH} S=197 D={d}"
+        for name, (kern, plain), block, kw, line, work in (
+                ("attention_block_q", attn_fns, attn, {"heads": heads}, 62,
+                 attention_block_work(BATCH, 197, d, weights="int8")),
+                ("mlp_block_q", mlp_fns, mlp, {"act_kind": act}, 106,
+                 mlp_block_work(BATCH, 197, d, f, weights="int8"))):
+            err = compare(f"{name} {case} (int8 main path)", kern, plain, x, block, kw)
+            ms = cuda_ms(lambda: kern(x, *block[0], **kw, **block[1]))
+            plain_ms = cuda_ms(lambda: plain(x, *block[0], **kw))
+            bound_ms, bound_by = bound(*work)
+            rows.append({"name": name, "case": case, "route": "cuda",
+                         "source": "debias_vision_lang_torch/csrc/fused_block_q.cu",
+                         "replaces": f"debias_vision_lang_tpu/ops/fused_block_q.py:{line}",
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None})
+        m = BATCH * 197
+        subkernel_split(f"attention_block_q {case} H={heads}",
+                        lambda: fbq.attention_block_q(x, *attn[0], heads=heads, **attn[1]),
+                        {"QKV GEMM": 2 * m * d * 3 * d, "out GEMM": 2 * m * d * d}, card,
+                        kind="int8", rename={"quantize x": QUANT_X_ATTN})
+        subkernel_split(f"mlp_block_q {case} F={f} {act}",
+                        lambda: fbq.mlp_block_q(x, *mlp[0], act_kind=act, **mlp[1]),
+                        {"up GEMM": 2 * m * d * f, "down GEMM": 2 * m * d * f}, card,
+                        kind="int8")
+        del x, attn, mlp
     # the int8 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = q_block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -1823,6 +1892,343 @@ def serve_phase(model, tokenizer, prompts, card, tower_img_s):
         stop(app, httpd, thread)
 
 
+# the port's residual-block parameter names -> OpenAI CLIP's and timm's
+# (SLIP's image tower); True where a torch Linear weight ([out, in]) is the
+# transpose of ours
+BLOCK_NAMES = {"ln_1.scale": ("ln_1.weight", "norm1.weight", False),
+               "ln_1.bias": ("ln_1.bias", "norm1.bias", False),
+               "attn.wqkv": ("attn.in_proj_weight", "attn.qkv.weight", True),
+               "attn.bqkv": ("attn.in_proj_bias", "attn.qkv.bias", False),
+               "attn.wo": ("attn.out_proj.weight", "attn.proj.weight", True),
+               "attn.bo": ("attn.out_proj.bias", "attn.proj.bias", False),
+               "ln_2.scale": ("ln_2.weight", "norm2.weight", False),
+               "ln_2.bias": ("ln_2.bias", "norm2.bias", False),
+               "mlp.w1": ("mlp.c_fc.weight", "mlp.fc1.weight", True),
+               "mlp.b1": ("mlp.c_fc.bias", "mlp.fc1.bias", False),
+               "mlp.w2": ("mlp.c_proj.weight", "mlp.fc2.weight", True),
+               "mlp.b2": ("mlp.c_proj.bias", "mlp.fc2.bias", False)}
+OPENAI_NAMES = {"visual.ln_pre.scale": "visual.ln_pre.weight",
+                "visual.ln_post.scale": "visual.ln_post.weight",
+                "text.token_embedding": "token_embedding.weight",
+                "text.positional_embedding": "positional_embedding",
+                "text.ln_final.scale": "ln_final.weight", "text.ln_final.bias": "ln_final.bias",
+                "text.text_projection": "text_projection"}
+
+
+def patch_conv(kernel, patch):
+    """The port's [p*p*3, width] patch kernel -> a [width, 3, p, p] conv."""
+    return kernel.reshape(patch, patch, 3, -1).permute(3, 2, 0, 1).contiguous()
+
+
+def openai_state_dict(sd, patch, timm_prefix=None):
+    """The port's CLIP state dict in OpenAI CLIP naming (the inverse of
+    ``params_from_openai_state_dict``); with ``timm_prefix`` the image
+    blocks take timm's names under that prefix instead (SLIP's)."""
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r"(visual|text)\.resblocks\.(\d+)\.(.+)$", k)
+        if m:
+            oa, timm, t = BLOCK_NAMES[m.group(3)]
+            if m.group(1) == "visual" and timm_prefix:
+                out[f"{timm_prefix}.{m.group(2)}.{timm}"] = v.T.contiguous() if t else v
+            else:
+                tower = "visual.transformer" if m.group(1) == "visual" else "transformer"
+                out[f"{tower}.resblocks.{m.group(2)}.{oa}"] = v.T.contiguous() if t else v
+        elif k == "visual.conv1.kernel":
+            out["visual.conv1.weight"] = patch_conv(v, patch)
+        else:
+            out[OPENAI_NAMES.get(k, k.replace(".scale", ".weight"))] = v
+    return out
+
+
+def slip_checkpoint(sd, patch):
+    """The port's SLIP state dict as facebookresearch/SLIP publishes one:
+    ``{"state_dict": ...}`` with DDP ``module.`` prefixes, a timm image tower,
+    CLIP's text tower and an SSL-head tensor the loader must ignore."""
+    oa = openai_state_dict(sd, patch, timm_prefix="visual.blocks")
+    renames = {"visual.conv1.weight": "visual.patch_embed.proj.weight",
+               "visual.conv1.bias": "visual.patch_embed.proj.bias",
+               "visual.ln_post.weight": "visual.norm.weight",
+               "visual.ln_post.bias": "visual.norm.bias", "visual.proj": "image_projection"}
+    out = {renames.get(k, k): v for k, v in oa.items()}
+    out["visual.cls_token"] = out.pop("visual.class_embedding").reshape(1, 1, -1)
+    out["visual.pos_embed"] = out.pop("visual.positional_embedding")[None]
+    width = out["visual.cls_token"].shape[-1]
+    out["image_mlp.layer1.weight"] = torch_randn((4 * width, width), seed=17)
+    return {"state_dict": {f"module.{k}": v for k, v in out.items()}, "epoch": 0}
+
+
+def hf_state_dict(oa):
+    """An OpenAI-named ViT CLIP state dict in HuggingFace ``CLIPModel``
+    naming: the inverse of ``hf_to_openai_state_dict``, written here with no
+    ``transformers`` (q / k / v split out of the packed projection, the two
+    projections as [out, in] Linears, HF's "pre_layrnorm")."""
+    top = {"logit_scale": "logit_scale",
+           "token_embedding.weight": "text_model.embeddings.token_embedding.weight",
+           "positional_embedding": "text_model.embeddings.position_embedding.weight",
+           "ln_final.weight": "text_model.final_layer_norm.weight",
+           "ln_final.bias": "text_model.final_layer_norm.bias",
+           "visual.class_embedding": "vision_model.embeddings.class_embedding",
+           "visual.positional_embedding": "vision_model.embeddings.position_embedding.weight",
+           "visual.conv1.weight": "vision_model.embeddings.patch_embedding.weight",
+           "visual.ln_pre.weight": "vision_model.pre_layrnorm.weight",
+           "visual.ln_pre.bias": "vision_model.pre_layrnorm.bias",
+           "visual.ln_post.weight": "vision_model.post_layernorm.weight",
+           "visual.ln_post.bias": "vision_model.post_layernorm.bias"}
+    block = {"ln_1": "layer_norm1", "ln_2": "layer_norm2", "attn.out_proj": "self_attn.out_proj",
+             "mlp.c_fc": "mlp.fc1", "mlp.c_proj": "mlp.fc2"}
+    out = {"text_projection.weight": oa["text_projection"].T.contiguous(),
+           "visual_projection.weight": oa["visual.proj"].T.contiguous()}
+    for k, v in oa.items():
+        m = re.match(r"(visual\.transformer|transformer)\.resblocks\.(\d+)\.(.+)\.(\w+)$", k)
+        if k in top:
+            out[top[k]] = v
+        elif m:
+            pre = (f"{'vision_model' if m.group(1) != 'transformer' else 'text_model'}"
+                   f".encoder.layers.{m.group(2)}")
+            if m.group(3) == "attn":  # in_proj_weight / in_proj_bias
+                for name, part in zip("qkv", v.chunk(3, dim=0)):
+                    out[f"{pre}.self_attn.{name}_proj.{m.group(4)[8:]}"] = part.contiguous()
+            else:
+                out[f"{pre}.{block[m.group(3)]}.{m.group(4)}"] = v
+    return out
+
+
+def torch_randn(shape, seed):
+    import torch
+
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def write_class_folders(root, n_classes, per_class, px=224, seed=0):
+    """Seeded PNGs in one folder per class (the CLI's zero-shot layout)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(n_classes):
+        os.makedirs(os.path.join(root, f"class{c}"))
+        for i in range(per_class):
+            Image.fromarray(rng.integers(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(root, f"class{c}", f"{i}.png"))
+
+
+def topk_recount(embs, clf, labels):
+    """top-1 / top-5 / n recounted in numpy from embeddings and a classifier."""
+    e = embs / np.linalg.norm(embs, axis=-1, keepdims=True)
+    order = np.argsort(-(e @ clf.T), axis=-1, kind="stable")
+    return {"top1": int((order[:, 0] == labels).sum()) / len(labels),
+            "top5": int((order[:, :5] == labels[:, None]).any(-1).sum()) / len(labels),
+            "n": len(labels)}
+
+
+def int8_vs_plain_int8(tag, qmodel, p8, got, ref32):
+    """SLIP-L's int8 rung against float32.  The rung's own arithmetic (the
+    plain int8 layers, torch._int_mm products: the JAX package's XLA int8
+    path) stays below COS_MIN on this random tower (min 0.997749 on an
+    H100, ``benchmarks_torch/slip_int8_cosine.py``), so the kernel path is
+    held to that route on the same staged batch: its mean cosine error to
+    float32 at most INT8_ERR_RATIO times the plain route's, every value
+    finite."""
+    import torch
+
+    with torch.no_grad():
+        plain = qmodel.encode_image(p8, fused=False).float()
+    cos_k = torch.nn.functional.cosine_similarity(got, ref32, dim=-1)
+    cos_p = torch.nn.functional.cosine_similarity(plain, ref32, dim=-1)
+    cos_kp = torch.nn.functional.cosine_similarity(got, plain, dim=-1)
+    err_k, err_p = 1 - cos_k.mean().item(), 1 - cos_p.mean().item()
+    print(f"{tag}: cosine min {cos_k.min().item():.6f} mean {cos_k.mean().item():.6f}; the "
+          f"plain int8 route's min {cos_p.min().item():.6f} mean {cos_p.mean().item():.6f}; "
+          f"kernel vs plain int8 min {cos_kp.min().item():.6f} (bar: mean error "
+          f"{err_k:.3e} <= {INT8_ERR_RATIO} x the plain route's {err_p:.3e})")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite embeddings")
+    check(err_k <= INT8_ERR_RATIO * err_p, f"{tag}: the kernels add error to the int8 rung's")
+
+
+def slip_phase(clip_b16, loader, prompts, card, device):
+    """Phase 17: SLIP-ViT-L/16 (published widths, random weights from seed 0)
+    through the measurement pipeline at bf16 and int8, checkpoint loading in
+    three namings, and zero-shot (function and CLI).  Returns the launch
+    counts of K1-K4 over a 1,024-image measurement."""
+    import torch
+    from debias_vision_lang_torch.cli import FolderDataset
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.eval import zero_shot as zs
+    from debias_vision_lang_torch.eval.measure import (eval_ranking,
+                                                      get_labels_img_embeddings,
+                                                      get_prompt_embeddings)
+    from debias_vision_lang_torch.models.clip import CLIP
+    from debias_vision_lang_torch.models.debias import DebiasCLIP
+    from debias_vision_lang_torch.models.loader import model_loader
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import resolve_compute
+    from debias_vision_lang_torch.text import ByteTokenizer
+
+    t0 = time.perf_counter()
+    model, _, _, alias = DebiasCLIP.from_cfg(
+        {"CLIP_ARCH": SLIP_ARCH, "NUM_DEBIAS_TOKENS": 2, "PRETRAINED": False, "SEED": 0},
+        device=device)
+    model.eval()
+    vis = model.clip_cfg.vision
+    check((vis.kind, vis.width, vis.layers, vis.heads, vis.patch_size) ==
+          ("slip_vit", 1024, SLIP_LAYERS, 16, 16), f"phase 17: {SLIP_ARCH} is {vis}")
+    print(f"phase 17: {alias} ({vis.kind}, D={vis.width}, {vis.layers} layers, {vis.heads} "
+          f"heads, ImageNet stats {vis.image_mean}): "
+          f"{sum(p.numel() for p in model.parameters())} params, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    tok = ByteTokenizer()
+    p8 = torch.from_numpy(next(iter(loader)).images).to(device)
+    with torch.no_grad():
+        ref32 = model.encode_image(p8, dtype=torch.float32).float()
+
+    # (a) the measurement pipeline of phase 4 on its 1,024 images, bf16 and int8
+    n_batches, counts = N_IMAGES // BATCH, {}
+    for rung, blocks in (("bfloat16", ("attention_block", "mlp_block")),
+                         ("int8", ("attention_block_q", "mlp_block_q"))):
+        m, dt = resolve_compute(model, rung)
+        torch.cuda.synchronize()
+        fb.reset_launches()
+        fbq.reset_launches()
+        t = time.perf_counter()
+        labels, embs = get_labels_img_embeddings(loader, m, n_px=vis.image_size, dtype=rung)
+        prompt_embs = get_prompt_embeddings(m, tok, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {**fb.LAUNCHES, **fbq.LAUNCHES}
+        with torch.no_grad():
+            tower_ms = cuda_ms(lambda: m.encode_image(p8, dtype=dt), iters=3)
+        print(f"phase 17 SLIP-L {rung}: {N_IMAGES} images + {len(prompts)} prompts in "
+              f"{wall:.3f} s ({N_IMAGES / wall:.1f} img/s, host clock, in-memory images); "
+              f"image tower B={BATCH} {tower_ms:.3f} ms/batch, {BATCH / tower_ms * 1e3:.1f} "
+              f"img/s ({card}); launches {launches}")
+        for name in blocks:
+            check(launches[name] == SLIP_LAYERS * n_batches,
+                  f"phase 17 {rung}: {name} launched {launches[name]} times, expected "
+                  f"{SLIP_LAYERS} x {n_batches}")
+            counts[name] = launches[name]
+        check(all(v == 0 for k, v in launches.items() if k not in blocks),
+              f"phase 17 {rung}: other kernels launched: {launches}")
+        check(embs.shape == (N_IMAGES, vis.embed_dim) and embs.is_cuda,
+              f"phase 17 {rung}: image embeddings {tuple(embs.shape)}")
+        check_metrics(f"SLIP-L {rung}", labels, embs, prompt_embs, eval_ranking)
+        tag = (f"SLIP-L {rung} kernel path vs float32 plain path, image embeddings "
+               f"(first {BATCH})")
+        if rung == "bfloat16":
+            cosine_check(tag, embs[:BATCH], ref32)
+        else:
+            int8_vs_plain_int8(tag, m, p8, embs[:BATCH], ref32)
+        del m, embs
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slip_")
+    try:
+        # (b) checkpoints in three namings, each loaded through model_loader
+        t_b = time.perf_counter()
+        tokens = torch.as_tensor(tok(prompts[:64]), dtype=torch.long, device=device)
+
+        def loads_bit_equal(tag, name, ckpt, clip):
+            path = os.path.join(tmp, "weights.pt")
+            torch.save(ckpt, path)
+            t = time.perf_counter()
+            loaded, _, _, _ = model_loader(name, device=device, weights=path)
+            load_s = time.perf_counter() - t
+            with torch.no_grad():
+                pairs = [(loaded.encode_image(p8[:64]), clip.encode_image(p8[:64])),
+                         (loaded.encode_text(tokens), clip.encode_text(tokens))]
+            diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+            print(f"phase 17 checkpoint {tag}: {os.path.getsize(path) / 2**30:.2f} GiB, "
+                  f"model_loader {load_s:.2f} s; image (bf16 kernels) and text (float32) "
+                  f"embeddings vs the original's: max |diff| {diff}")
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"phase 17: the {tag} checkpoint does not load bit-equal")
+            os.remove(path)
+
+        sd = {k: v.detach().cpu() for k, v in model.clip.state_dict().items()}
+        check("visual.conv1.bias" in sd and not any("ln_pre" in k for k in sd),
+              "phase 17: the SLIP tree has no conv bias or has a pre-LN")
+        loads_bit_equal("OpenAI-named SLIP-L", SLIP_ARCH, openai_state_dict(sd, 16),
+                        model.clip)
+        loads_bit_equal("SLIP-named SLIP-L (module. prefixes, SSL head)", SLIP_ARCH,
+                        slip_checkpoint(sd, 16), model.clip)
+        sd16 = {k: v.detach().cpu() for k, v in clip_b16.state_dict().items()}
+        loads_bit_equal("HF-named ViT-B/16", "openai/CLIP/ViT-B/16",
+                        hf_state_dict(openai_state_dict(sd16, 16)), clip_b16)
+        del sd, sd16
+        print(f"phase 17 checkpoints: {time.perf_counter() - t_b:.2f} s")
+
+        # (c) zero-shot: 8 classes x 16 PNGs, the 80 ImageNet templates
+        t_c = time.perf_counter()
+        root = os.path.join(tmp, "zero_shot")
+        write_class_folders(root, 8, 16)
+        ds = FolderDataset(root)
+        zs_loader = HostLoader(ds, batch_size=BATCH, num_workers=8,
+                               native_n_px=vis.image_size)
+        templates = zs.imagenet_templates()
+        clf32 = None
+        for rung, want in (("float32", 0), ("bfloat16", SLIP_LAYERS)):
+            seen = []
+            hook = model.clip.visual.register_forward_hook(
+                lambda mod, inp, out: seen.append(out.detach().float().cpu().numpy()))
+            fb.reset_launches()
+            t = time.perf_counter()
+            acc = zs.zero_shot_accuracy(model, tok, zs_loader, ds.class_names,
+                                        templates=templates, dtype=rung)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            hook.remove()
+            clf = zs.build_zero_shot_classifier(model, tok, ds.class_names, templates)
+            recount = topk_recount(np.concatenate(seen)[: len(ds)], clf.cpu().numpy(),
+                                   ds.iat_labels)
+            print(f"phase 17 zero-shot {rung}: {acc} in {wall:.2f} s ({len(ds.class_names)} "
+                  f"classes x {len(templates)} templates = "
+                  f"{len(ds.class_names) * len(templates)} prompts, {len(ds)} images, "
+                  f"PIL decode); numpy recount {recount}; K1 / K2 launches "
+                  f"{fb.LAUNCHES['attention_block']} / {fb.LAUNCHES['mlp_block']}")
+            check(acc == recount and acc["n"] == 128,
+                  f"phase 17 zero-shot {rung}: {acc} is not the recount {recount}")
+            check(fb.LAUNCHES["attention_block"] == want and fb.LAUNCHES["mlp_block"] == want,
+                  f"phase 17 zero-shot {rung}: launches {fb.LAUNCHES}, expected {want} each")
+            clf32 = clf if clf32 is None else clf32
+        # the card's float32 classifier against the CPU port's, same weights
+        t = time.perf_counter()
+        cpu_clip = CLIP(model.clip_cfg)
+        cpu_clip.load_state_dict(model.clip.state_dict())
+        cpu_model = DebiasCLIP(cpu_clip, model.debias_tokens.detach().cpu(), model.debias_cfg)
+        clf_cpu = zs.build_zero_shot_classifier(cpu_model, tok, ds.class_names[:2], templates)
+        diff = (clf32[:2].cpu() - clf_cpu).abs().max().item()
+        print(f"phase 17 zero-shot: float32 classifier, card vs CPU port ({len(templates) * 2} "
+              f"prompts of 2 classes): max |diff| {diff} (bar 1e-5; {time.perf_counter() - t:.2f}"
+              f" s on the CPU)")
+        check(diff <= 1e-5, "phase 17: the card's classifier is not the CPU port's")
+        del cpu_clip, cpu_model
+        # the CLI, in a process of its own (a toy BPE vocabulary, seed-0 weights)
+        vocab = os.path.join(tmp, "bpe_vocab.txt.gz")
+        import gzip
+
+        with gzip.open(vocab, "wt", encoding="utf-8") as f:
+            f.write("#version: 0.2\nt h\nth e</w>\na </w>\n")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "debias_vision_lang_torch", "zero-shot", "--data-path",
+             root, "--random-weights", "--dtype", "bfloat16", "--model", SLIP_ARCH],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, DEBIAS_VLT_BPE_PATH=vocab))
+        print(f"phase 17 CLI zero-shot: exit {proc.returncode} in "
+              f"{time.perf_counter() - t:.2f} s; stdout {proc.stdout.strip()!r}")
+        check(proc.returncode == 0, f"phase 17: the zero-shot CLI failed: {proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout[proc.stdout.index("{"):])
+        check(set(out) == {"top1", "top5", "n"} and out["n"] == 128,
+              f"phase 17: the zero-shot CLI printed {out}")
+        print(f"phase 17 zero-shot: {time.perf_counter() - t_c:.2f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2113,8 +2519,9 @@ def main() -> int:
 
     # 13. timings
     for row, counts in [(r, launches) for r in rows] + [(r, launches_q) for r in rows_q]:
-        row["launches"] = counts[row["name"]]
-        print(f"time {row['name']} B={BATCH} S=197 D=768: kernel {row['ms']:.4f} ms, "
+        if row["case"].startswith("ViT-B/16"):  # SLIP-L's: phase 17's counts
+            row["launches"] = counts[row["name"]]
+        print(f"time {row['name']} {row['case']}: kernel {row['ms']:.4f} ms, "
               f"plain twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}; the kernel at {row['bound_ms'] / row['ms']:.1%} of it) "
               f"({card})")
@@ -2181,20 +2588,27 @@ def main() -> int:
                         "launches": long_launches[dt], "max_abs_err": k5["err"], "ms": k5["ms"],
                         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
                         "bound_by": k5["bound"][1], "library_ms": k5["library_ms"]})
-    print(json.dumps({"kernels": rows + rows_q + rows_k5}))
 
     # 14. the embedding cache on the main path; 15. the adversary ablation
-    # (after the kernels line: a failure here leaves the kernel record)
     cache_phase(model, tokenizer, decode, card)
     abl_s = ablation_phase(card)
-    # 16. serving (after the kernels line, as 14-15)
+    # 16. serving
     t0 = time.perf_counter()
     serve_phase(model, tokenizer, prompts, card, tower_img_s["kernels (bf16)"])
     serve_s = time.perf_counter() - t0
+    # 17. SLIP-ViT-L/16 at full width and depth; its launches complete the
+    # SLIP-L rows of the kernels line
+    t0 = time.perf_counter()
+    slip_launches = slip_phase(model.clip, loader, prompts, card, device)
+    slip_s = time.perf_counter() - t0
+    for row in rows + rows_q:
+        if row["launches"] is None:
+            row["launches"] = slip_launches[row["name"]]
+    print(json.dumps({"kernels": rows + rows_q + rows_k5}))
     total_s = time.perf_counter() - smoke_t0
-    print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s and serving "
-          f"{serve_s:.1f} s"
-          + (" (past 8 minutes)" if total_s > 480 else ""))
+    print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
+          f"{serve_s:.1f} s and SLIP-L {slip_s:.1f} s"
+          + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,11 @@
                                        data_path="/path/to/fairface", epochs=1)
     model, preprocess = debias_clip.load("/path/to/prompts.pt")  # hub
 
+    from debias_vision_lang_torch.eval.zero_shot import zero_shot_accuracy
+    acc = zero_shot_accuracy(model, tokenizer, loader, class_names, dtype="bfloat16")
+
     python -m debias_vision_lang_torch serve --random-weights --dtype bfloat16
+    python -m debias_vision_lang_torch zero-shot --data-path DIR --random-weights
 
 The port stands alone: it keeps its own copies of what it shares with the
 JAX package (``core/`` configuration and registry, ``native/`` host ingest,
@@ -22,6 +26,27 @@ the prompt assets), imports torch, and imports neither jax nor anything of
 
 __version__ = "0.1.0"
 
+from .core import (  # noqa: F401
+    AdversaryConfig,
+    CLIPConfig,
+    DebiasConfig,
+    Dotdict,
+    EvalConfig,
+    TextConfig,
+    TrainConfig,
+    VisionConfig,
+    DATA_PATH,
+    FAIRFACE_DATA_PATH,
+    PROMPT_DATA_PATH,
+    UTKFACE_DATA_PATH,
+    VALID_CLIP_MODELS,
+    VALID_MODELS,
+    alias_name,
+    resolve_arch,
+)
+
+# the heavy modules, and those that need optional packages (pandas, regex)
+# or assets (the BPE vocabulary), load on first use
 _LAZY = {
     "measure_bias": ("debias_vision_lang_torch.eval.measure", "measure_bias"),
     "eval_ranking": ("debias_vision_lang_torch.eval.measure", "eval_ranking"),
@@ -35,6 +60,11 @@ _LAZY = {
     "run_training": ("debias_vision_lang_torch.train.loop", "run_training"),
     "load": ("debias_vision_lang_torch.hub", "load"),
     "available_models": ("debias_vision_lang_torch.hub", "available_models"),
+    "tokenize": ("debias_vision_lang_torch.text.tokenizer", "tokenize"),
+    "load_tokenizer": ("debias_vision_lang_torch.text.tokenizer", "load_tokenizer"),
+    "FairFace": ("debias_vision_lang_torch.data.datasets", "FairFace"),
+    "UTKFace": ("debias_vision_lang_torch.data.datasets", "UTKFace"),
+    "IATDataset": ("debias_vision_lang_torch.data.datasets", "IATDataset"),
 }
 
 

@@ -3,21 +3,24 @@
     python -m debias_vision_lang_torch measure-bias --model openai/CLIP/ViT-B/16 --dtype bfloat16
     python -m debias_vision_lang_torch train --arch openai/CLIP/ViT-B/16 --epochs 5
     python -m debias_vision_lang_torch serve --random-weights --dtype bfloat16
+    python -m debias_vision_lang_torch zero-shot --data-path DIR --dtype bfloat16
 
 The subcommands take the JAX CLI's arguments, defaults and choices, plus
 ``--device`` (default ``cuda``; without a card it raises, nothing moves to
-the CPU on its own).  ``zero-shot``, ``download`` and ``bench`` keep their
-parsers, so ``--help`` lists the same commands, and exit naming the
-``ROADMAP.md`` entry that holds them.
+the CPU on its own).  ``download`` and ``bench`` keep their parsers, so
+``--help`` lists the same commands, and exit naming the ``ROADMAP.md``
+entry that holds them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-ROADMAP_ZERO_SHOT = "ROADMAP.md queue 1 item 4 (other towers: eval/zero_shot.py)"
+import numpy as np
+
 ROADMAP_DOWNLOAD = ("ROADMAP.md 'Not to port' (downloads): the port fetches nothing; "
                     "put files in place, or point the paths' environment variables "
                     "at them")
@@ -232,7 +235,59 @@ def _add_zero_shot(sub):
                    help="use the full 80-template OpenAI ImageNet protocol")
     p.add_argument("--dtype", default=None,
                    choices=["float32", "bfloat16", "int8", "int8-text", "auto"],
-                   help="vision-tower precision")
+                   help="vision-tower precision (default float32 = reference "
+                        "parity; bfloat16 / int8 = the kernels' rungs; "
+                        "int8-text also runs the classifier text encodes "
+                        "int8; auto is not ported (raises))")
+    _add_device(p)
+
+
+class FolderDataset:
+    """Class-folder images: each subdirectory of ``root`` is a class (sorted
+    by name), every file in it an image of that class."""
+
+    def __init__(self, root):
+        self.files, labels = [], []
+        self.class_names = sorted(
+            d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+        for ci, cname in enumerate(self.class_names):
+            for f in sorted(os.listdir(os.path.join(root, cname))):
+                self.files.append(os.path.join(root, cname, f))
+                labels.append(ci)
+        self.iat_labels = np.asarray(labels)
+
+    def __len__(self):
+        return len(self.files)
+
+    def load_image(self, i):
+        from PIL import Image
+
+        with Image.open(self.files[i]) as im:
+            return np.asarray(im.convert("RGB"))
+
+    @property
+    def _img_fnames(self):  # lets HostLoader take the native batch ingest
+        return self.files
+
+
+def _cmd_zero_shot(args):
+    from .data.loader import HostLoader
+    from .eval.zero_shot import imagenet_templates, zero_shot_accuracy
+    from .models.loader import model_loader
+
+    model, preprocess, tokenizer, _ = model_loader(
+        args.model, device=args.device, pretrained=not args.random_weights)
+    if tokenizer is None:
+        sys.exit("No BPE vocab available: put bpe_simple_vocab_16e6.txt.gz in "
+                 "the assets directory or set $DEBIAS_VLT_BPE_PATH")
+    # the input resolution is the model's (e.g. RN50x4 is 288 px)
+    n_px = getattr(preprocess, "n_px", 224)
+    ds = FolderDataset(args.data_path)
+    loader = HostLoader(ds, batch_size=args.batch_size, native_n_px=n_px)
+    kw = {"templates": imagenet_templates()} if args.imagenet_protocol else {}
+    acc = zero_shot_accuracy(model, tokenizer, loader, ds.class_names,
+                             n_px=n_px, progress=True, dtype=args.dtype, **kw)
+    print(json.dumps(acc, indent=2))
 
 
 def _add_serve(sub):
@@ -313,7 +368,7 @@ def main(argv=None):
     elif args.cmd == "serve":
         _cmd_serve(args)
     elif args.cmd == "zero-shot":
-        sys.exit(f"zero-shot is not ported yet: {ROADMAP_ZERO_SHOT}")
+        _cmd_zero_shot(args)
     elif args.cmd == "download":
         sys.exit(f"download is not ported: {ROADMAP_DOWNLOAD}")
     elif args.cmd == "bench":

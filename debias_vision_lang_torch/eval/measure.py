@@ -40,11 +40,12 @@ from ..core.config import Dotdict, EvalConfig
 from ..core.paths import resolve_asset
 from ..data.loader import HostLoader
 from ..metrics import oracle, ranking
+from ..models.clip import VIT_KINDS
 from ..ops.quant import resolve_compute
 from ..utils.fingerprint import image_tower_tensors, params_fingerprint
 from ..vision.preprocess import Preprocess, preprocess_batch
 
-_ROADMAP_VIDEO = "ROADMAP.md queue 1 item 4 (other towers: Frozen-in-Time video)"
+_ROADMAP_VIDEO = "ROADMAP.md queue 1 item 4c (Frozen-in-Time and video)"
 
 
 def gen_prompts(prompt_path=None) -> List[str]:
@@ -223,7 +224,7 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
         vis = vision_cfg(cliplike)
         patch = None
         if (dt == torch.bfloat16 and host_transform is None and vis is not None
-                and vis.kind == "vit" and n_px == vis.image_size
+                and vis.kind in VIT_KINDS and n_px == vis.image_size
                 and n_px % vis.patch_size == 0):
             patch = vis.patch_size
         loader = HostLoader(ds, batch_size=cfg.batch_size, num_workers=cfg.num_workers,

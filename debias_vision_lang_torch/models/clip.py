@@ -1,6 +1,10 @@
 """CLIP dual encoder (ViT image tower + causal text tower) as ``nn.Module``s.
 
-Counterpart of ``debias_vision_lang_tpu/models/clip.py`` ("vit" towers).
+Counterpart of ``debias_vision_lang_tpu/models/clip.py`` for the "vit"
+(OpenAI CLIP) and "slip_vit" (facebookresearch/SLIP, a timm ViT) towers.
+The SLIP tower's patch conv has a bias, it has no pre-LN, and its MLP runs
+the exact erf GELU: ``act_kind="gelu"`` (the A&S polynomial) in the fused
+blocks, ``layers.gelu`` in the plain tower, as in the JAX package.
 The text tower is exposed piecewise -- ``embed_tokens`` / ``add_positional``
 / ``run_text_transformer`` / ``project_eot`` -- because prompt injection
 (models/debias.py) happens between embedding and transformer.
@@ -24,10 +28,12 @@ from torch import nn
 from ..core.config import CLIPConfig, TextConfig, VisionConfig
 from ..ops.fused_block import fused_transformer, fused_transformer_diff
 from ..vision.preprocess import CLIP_MEAN, CLIP_STD
-from .layers import (LayerNorm, causal_mask, init_resblocks, layer_norm,
+from .layers import (LayerNorm, causal_mask, gelu, init_resblocks, layer_norm,
                      make_resblocks, quick_gelu, transformer)
 
-ROADMAP_OTHER_TOWERS = "ROADMAP.md queue 1 item 4 (other towers)"
+VIT_KINDS = ("vit", "slip_vit")
+ROADMAP_OTHER_TOWERS = ("ROADMAP.md queue 1 item 4 (other towers: 4b ResNet, "
+                        "4c Frozen-in-Time)")
 
 
 def _vector(*shape) -> nn.Parameter:
@@ -36,26 +42,28 @@ def _vector(*shape) -> nn.Parameter:
 
 class PatchConv(nn.Module):
     """Patch projection stored as a matrix: kernel [patch*patch*3, width],
-    input rows in (row, col, channel) order."""
+    input rows in (row, col, channel) order; SLIP's carries a bias."""
 
-    def __init__(self, patch_dim: int, width: int):
+    def __init__(self, patch_dim: int, width: int, bias: bool = False):
         super().__init__()
         self.kernel = _vector(patch_dim, width)
+        self.bias = _vector(width) if bias else None
 
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
-        if cfg.kind != "vit":
+        if cfg.kind not in VIT_KINDS:
             raise NotImplementedError(
-                f"vision tower kind {cfg.kind!r}: the port runs OpenAI ViT "
-                f"towers; {ROADMAP_OTHER_TOWERS}")
+                f"vision tower kind {cfg.kind!r}: the port runs OpenAI and "
+                f"SLIP ViT towers; {ROADMAP_OTHER_TOWERS}")
         self.cfg = cfg
         w = cfg.width
-        self.conv1 = PatchConv(cfg.patch_size * cfg.patch_size * 3, w)
+        slip = cfg.kind == "slip_vit"
+        self.conv1 = PatchConv(cfg.patch_size * cfg.patch_size * 3, w, bias=slip)
         self.class_embedding = _vector(w)
         self.positional_embedding = _vector(cfg.seq_len, w)
-        self.ln_pre = LayerNorm(w)
+        self.ln_pre = None if slip else LayerNorm(w)
         self.resblocks = make_resblocks(cfg.layers, w)
         self.ln_post = LayerNorm(w)
         self.proj = _vector(w, cfg.embed_dim)
@@ -125,7 +133,8 @@ def init_clip_params(cfg: CLIPConfig,
                      ) -> Dict[str, torch.Tensor]:
     """Random float32 parameters (OpenAI CLIP's init scheme, as the JAX
     package's ``init_clip_params``) as a ``CLIP(cfg)`` state dict, on the
-    CPU.  The numbers differ from jax.random's for the same seed."""
+    CPU; a SLIP tower's conv bias starts at zero.  The numbers differ from
+    jax.random's for the same seed."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = CLIP(cfg)
@@ -174,23 +183,29 @@ def _fused_tower(blocks, x: torch.Tensor, heads: int, **kw) -> torch.Tensor:
     return fused_transformer(blocks, x, heads, **kw)
 
 
-def patch_embed(kernel: torch.Tensor, images: torch.Tensor, patch: int) -> torch.Tensor:
+def patch_embed(kernel: torch.Tensor, images: torch.Tensor, patch: int,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, W, 3] NHWC -> [B, num_patches, width], contracting the split
     patch dims directly (no patchified copy); f32 accumulation, rounded to
-    the images' dtype."""
+    the images' dtype, then the conv bias (SLIP's) added in that dtype."""
     b, h, w, c = images.shape
     gh, gw = h // patch, w // patch
     x5 = images.reshape(b, gh, patch, gw, patch * c)
     k3 = kernel.to(images.dtype).reshape(patch, patch * c, kernel.shape[-1])
     out = torch.einsum("bgpwq,pqd->bgwd", x5.float(), k3.float())
-    return out.reshape(b, gh * gw, k3.shape[-1]).to(images.dtype)
+    out = out.reshape(b, gh * gw, k3.shape[-1]).to(images.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
 
 
-def fold_preprocess_into_patch(kernel: torch.Tensor, mean=None, std=None
+def fold_preprocess_into_patch(kernel: torch.Tensor, mean=None, std=None,
+                               bias: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Absorb CLIP's Normalize into the patch weights: conv(normalize(u8)) ==
     u8 @ W' + b' with W'[i] = W[i] / (255 std[c]) and b' = sum_i
-    (-mean[c] / std[c]) W[i] (c = channel of input row i).  f32 results."""
+    (-mean[c] / std[c]) W[i] (c = channel of input row i), plus the conv
+    bias where the tower has one (SLIP).  f32 results."""
     k = kernel.float()
     mean = torch.tensor(CLIP_MEAN if mean is None else mean, dtype=torch.float32,
                         device=k.device)
@@ -199,21 +214,27 @@ def fold_preprocess_into_patch(kernel: torch.Tensor, mean=None, std=None
     c = torch.arange(k.shape[0], device=k.device) % 3
     w_f = k * (1.0 / (255.0 * std))[c][:, None]
     b_f = (-mean / std)[c] @ k
+    if bias is not None:
+        b_f = b_f + bias.float()
     return w_f, b_f
 
 
 def _vit_trunk(v: VisionTransformer, x: torch.Tensor, dtype,
                fused: Optional[bool], use_pallas: Optional[bool] = None,
                remat: bool = False) -> torch.Tensor:
-    """cls / positions / pre-LN -> transformer -> post-LN / projection."""
+    """cls / positions / pre-LN (OpenAI's only) -> transformer -> post-LN /
+    projection."""
     cfg = v.cfg
     cls = v.class_embedding.to(dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
-    x = layer_norm(v.ln_pre, x)
+    if v.ln_pre is not None:
+        x = layer_norm(v.ln_pre, x)
+    slip = cfg.kind == "slip_vit"
     if _use_fused_blocks(dtype, use_pallas, fused):
-        x = _fused_tower(v.resblocks, x, cfg.heads, act_kind="quick_gelu")
+        x = _fused_tower(v.resblocks, x, cfg.heads,
+                         act_kind="gelu" if slip else "quick_gelu")
     else:
-        x = transformer(v.resblocks, x, cfg.heads, act=quick_gelu,
+        x = transformer(v.resblocks, x, cfg.heads, act=gelu if slip else quick_gelu,
                         use_pallas=use_pallas, remat=remat)
     x = layer_norm(v.ln_post, x[:, 0, :])
     return x @ v.proj.to(dtype)
@@ -224,7 +245,8 @@ def encode_image_vit(v: VisionTransformer, images: torch.Tensor, *,
                      use_pallas: Optional[bool] = None, remat: bool = False
                      ) -> torch.Tensor:
     """ViT forward from normalized [B, H, W, 3] images -> [B, embed_dim]."""
-    x = patch_embed(v.conv1.kernel, images.to(dtype), v.cfg.patch_size)
+    x = patch_embed(v.conv1.kernel, images.to(dtype), v.cfg.patch_size,
+                    v.conv1.bias)
     return _vit_trunk(v, x, dtype, fused, use_pallas, remat)
 
 
@@ -237,7 +259,7 @@ def encode_image_vit_p8(v: VisionTransformer, patches_u8: torch.Tensor, *,
     matmul (uint8 values are exact in bfloat16)."""
     cfg = v.cfg
     w_f, b_f = fold_preprocess_into_patch(v.conv1.kernel, cfg.image_mean,
-                                          cfg.image_std)
+                                          cfg.image_std, v.conv1.bias)
     x = torch.matmul(patches_u8.to(dtype).float(), w_f.to(dtype).float())
     x = x.to(dtype) + b_f.to(dtype)
     return _vit_trunk(v, x, dtype, fused, use_pallas, remat)

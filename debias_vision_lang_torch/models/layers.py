@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 
@@ -88,6 +89,13 @@ def init_resblocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """QuickGELU: x * sigmoid(1.702 x) -- OpenAI CLIP's MLP activation."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU of timm-style towers (SLIP), as
+    ``jax.nn.gelu(approximate=False)``: not the tanh form, and not the A&S
+    polynomial the fused kernels evaluate."""
+    return F.gelu(x, approximate="none")
 
 
 def ln_f32(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:

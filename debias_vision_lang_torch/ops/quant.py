@@ -1,7 +1,9 @@
-"""Int8 inference for the ViT/OpenAI-CLIP family: weight quantization, the
-plain int8 layers, the int8 stems and towers, and ``QuantizedCLIP``.
+"""Int8 inference for the ViT families (OpenAI CLIP and SLIP): weight
+quantization, the plain int8 layers, the int8 stems and towers, and
+``QuantizedCLIP``.
 
-Counterpart of ``debias_vision_lang_tpu/ops/quant.py`` ("vit" towers):
+Counterpart of ``debias_vision_lang_tpu/ops/quant.py`` ("vit" and
+"slip_vit" towers):
 symmetric per-output-channel int8 weights (``quantize_weight``, bit-exact
 against the JAX function) and dynamic per-row int8 activations on the four
 matmuls of every residual block; LayerNorms, softmax, residuals and the
@@ -9,9 +11,12 @@ dequantize stay floating point.  A bfloat16 tower runs its blocks through
 ``ops/fused_block_q.py`` (the CUDA kernels on a CUDA tensor, their twins on
 a CPU tensor); ``fused=False`` runs the plain int8 layers here, whose
 integer products go to ``torch._int_mm`` -- in the JAX package too they lie
-outside any Pallas kernel.  So do the two stems.
+outside any Pallas kernel.  So do the two stems.  A SLIP tower skips the
+pre-LN and runs the erf GELU: ``act_kind="gelu"`` in the fused blocks, the
+exact ``layers.gelu`` in the plain int8 layers; its conv bias rides on the
+float stem and, folded, on the uint8 one.
 
-Not ported: the resnet and video towers (ROADMAP.md queue 1 item 4), the
+Not ported: the resnet and video towers (ROADMAP.md queue 1 items 4b, 4c), the
 TPU's hybrid long-sequence branch and VMEM gates, the u8 stem (off every
 default path), and the "auto" rung (queue 1 item 8).
 """
@@ -23,13 +28,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..models.clip import (CLIP, ROADMAP_OTHER_TOWERS, _use_fused_blocks,
+from ..models.clip import (CLIP, ROADMAP_OTHER_TOWERS, VIT_KINDS, _use_fused_blocks,
                            add_positional, embed_tokens,
                            fold_preprocess_into_patch, is_patch_staging,
                            pool_and_project, project_eot)
 from ..models.debias import DebiasCLIP, debias_eot_index, inject_prompts
-from ..models.layers import attention_bshd, causal_mask, layer_norm
-from .fused_block import _act
+from ..models.layers import attention_bshd, causal_mask, gelu, layer_norm, quick_gelu
 from .fused_block_q import dot_q, fused_transformer_q, int_mm, quant_rows, true_div
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -111,9 +115,12 @@ def attn_residual_q(blk: QuantBlock, x: torch.Tensor, heads: int,
 def resblock_q(blk: QuantBlock, x: torch.Tensor, heads: int,
                mask: Optional[torch.Tensor] = None,
                act_kind: str = "quick_gelu") -> torch.Tensor:
-    """Pre-LN residual block with int8 matmuls (attention core in fp)."""
+    """Pre-LN residual block with int8 matmuls (attention core in fp);
+    ``act_kind="gelu"`` is the exact erf GELU here, as on the JAX package's
+    XLA int8 path."""
+    act = {"quick_gelu": quick_gelu, "gelu": gelu}[act_kind]
     x = attn_residual_q(blk, x, heads, mask=mask)
-    h = _act(int8_matmul(layer_norm(blk.ln_2, x), blk.w1, blk.b1), act_kind)
+    h = act(int8_matmul(layer_norm(blk.ln_2, x), blk.w1, blk.b1))
     return x + int8_matmul(h, blk.w2, blk.b2)
 
 
@@ -189,8 +196,10 @@ class QuantVisual(nn.Module):
         cfg = visual.cfg
         self.visual = visual
         self.conv1 = QWeight(visual.conv1.kernel)
-        w_f, b_f = fold_preprocess_into_patch(visual.conv1.kernel.detach(),
-                                              cfg.image_mean, cfg.image_std)
+        bias = visual.conv1.bias
+        w_f, b_f = fold_preprocess_into_patch(
+            visual.conv1.kernel.detach(), cfg.image_mean, cfg.image_std,
+            None if bias is None else bias.detach())
         self.conv1_folded = QWeight(w_f)
         self.register_buffer("conv1_bias_folded", b_f)
         self.resblocks = quantize_resblocks(visual.resblocks)
@@ -207,13 +216,16 @@ class QuantText(nn.Module):
 
 def _vit_q_trunk(vq: QuantVisual, x: torch.Tensor, dtype,
                  fused: Optional[bool]) -> torch.Tensor:
-    """cls / positions / pre-LN -> int8 transformer -> post-LN / projection."""
+    """cls / positions / pre-LN (OpenAI's only) -> int8 transformer ->
+    post-LN / projection."""
     v = vq.visual
     cfg = v.cfg
     cls = v.class_embedding.to(dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
-    x = layer_norm(v.ln_pre, x)
-    x = transformer_q(vq.resblocks, x, cfg.heads, fused=fused)
+    if v.ln_pre is not None:
+        x = layer_norm(v.ln_pre, x)
+    act_kind = "gelu" if cfg.kind == "slip_vit" else "quick_gelu"
+    x = transformer_q(vq.resblocks, x, cfg.heads, act_kind=act_kind, fused=fused)
     x = layer_norm(v.ln_post, x[:, 0, :])
     return x @ v.proj.to(dtype)
 
@@ -232,7 +244,8 @@ def encode_image_vit_q(vq: QuantVisual, images: torch.Tensor, *,
                        dtype=torch.bfloat16,
                        fused: Optional[bool] = None) -> torch.Tensor:
     """Int8 ViT forward from normalized [B, H, W, 3] images."""
-    x = patch_embed_q(images, vq.visual.cfg.patch_size, vq.conv1,
+    v = vq.visual
+    x = patch_embed_q(images, v.cfg.patch_size, vq.conv1, v.conv1.bias,
                       out_dtype=dtype)
     return _vit_q_trunk(vq, x, dtype, fused)
 
@@ -279,10 +292,10 @@ class QuantizedCLIP(nn.Module):
         clip = base.clip if isinstance(base, DebiasCLIP) else base
         cfg = getattr(base, "clip_cfg", None) or getattr(base, "cfg", None)
         kind = getattr(getattr(cfg, "vision", None), "kind", None)
-        if kind != "vit" or not isinstance(clip, CLIP):
+        if kind not in VIT_KINDS or not isinstance(clip, CLIP):
             raise NotImplementedError(
                 f"the int8 rung runs CLIP / DebiasCLIP bundles with OpenAI ViT "
-                f"towers, not vision kind {kind!r} ({type(base).__name__}); "
+                f"towers or SLIP's, not vision kind {kind!r} ({type(base).__name__}); "
                 f"{ROADMAP_OTHER_TOWERS}")
         self.base = base
         self.cfg = cfg

@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.clip import VIT_KINDS
 from ..ops.quant import resolve_compute
 from ..utils.device import resolve_device
 from ..vision.preprocess import preprocess_batch, resize_crop_u8, to_rgb_array
@@ -170,7 +171,7 @@ class InferenceEngine:
         # folded into the weights; float32 keeps the preprocess + patch
         # stem (reference-parity mode)
         self._patch = None
-        if (cfg.vision.kind == "vit" and compute_dtype == torch.bfloat16
+        if (cfg.vision.kind in VIT_KINDS and compute_dtype == torch.bfloat16
                 and self.n_px % cfg.vision.patch_size == 0):
             self._patch = cfg.vision.patch_size
         self._pin = self.device.type == "cuda"

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..core.config import AdversaryConfig, CLIPConfig, DebiasConfig, TrainConfig
 from ..models.adversary import Adversary
+from ..models.clip import VIT_KINDS
 from ..models.debias import DebiasCLIP, apply_grad_mask
 from ..ops.quant import DTYPES
 
@@ -277,7 +278,7 @@ def build_train_steps(
     if embed_dtype_s == "int8":
         from ..ops.quant import QuantizedCLIP
 
-        if clip_cfg.vision.kind != "vit":
+        if clip_cfg.vision.kind not in VIT_KINDS:
             raise NotImplementedError("embed_dtype='int8' supports ViT towers only")
         quantized: dict = {}
 

@@ -1,9 +1,9 @@
 """The port's CLI (``debias_vision_lang_torch/cli.py``, ``__main__.py``) and
 hub (``hub/hub.py``) against the JAX package's, on the CPU.
 
-CLI: the ``measure-bias``, ``train`` and ``serve`` parsers have the JAX
-parsers' dests, defaults and choices, plus ``--device``; the subcommands
-reach their entry points with the parsed arguments; ``zero-shot``,
+CLI: the ``measure-bias``, ``train``, ``zero-shot`` and ``serve`` parsers
+have the JAX parsers' dests, defaults and choices, plus ``--device``; the
+subcommands reach their entry points with the parsed arguments;
 ``download`` and ``bench`` exit naming their ROADMAP entries; ``python -m
 debias_vision_lang_torch --help`` runs with jax blocked.  Hub: prompt
 tokens bit-equal to JAX ``hub.load``'s from the same ``.pt``; the same shape
@@ -12,6 +12,7 @@ missing one raises without opening a socket.
 """
 
 import argparse
+import json
 import os
 import pathlib
 import socket
@@ -52,16 +53,13 @@ def _actions(module, adder):
             for a in p._actions if a.dest != "help"}
 
 
-@pytest.mark.parametrize("adder", ["_add_measure", "_add_train", "_add_serve"])
+@pytest.mark.parametrize("adder", ["_add_measure", "_add_train", "_add_serve",
+                                   "_add_zero_shot"])
 def test_parser_matches_jax_plus_device(adder):
     got, want = _actions(tcli, adder), _actions(jcli, adder)
     assert got.pop("device") == (("--device",), "cuda", None, None, False, None,
                                  "_StoreAction")
     assert got == want
-
-
-def test_zero_shot_parser_kept():
-    assert _actions(tcli, "_add_zero_shot") == _actions(jcli, "_add_zero_shot")
 
 
 def test_help_lists_the_jax_commands(capsys):
@@ -114,7 +112,6 @@ def test_module_help_runs_with_jax_blocked(argv):
 
 
 @pytest.mark.parametrize("cmd,item", [
-    (["zero-shot", "--data-path", "x"], "ROADMAP.md queue 1 item 4"),
     (["download", "bpe"], "ROADMAP.md 'Not to port'"),
     (["bench"], "ROADMAP.md queue 1 item 9")])
 def test_unported_commands_exit_naming_their_item(cmd, item):
@@ -188,6 +185,34 @@ def test_measure_bias_reaches_measure_bias(monkeypatch, fake_loader, capsys):
                               "dataset": "fairface", "data_path": None, "progress": True,
                               "dtype": "int8", "n_samples": 7}
     assert '"eq_opp": 0.5' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("protocol", [False, True])
+def test_zero_shot_reaches_zero_shot_accuracy(monkeypatch, fake_loader, capsys, tmp_path,
+                                              protocol):
+    """Once refused (it exited naming ROADMAP.md queue 1 item 4), zero-shot
+    now loads the model on ``--device``, reads the class folders and runs
+    ``zero_shot_accuracy`` with the JAX CLI's arguments."""
+    from debias_vision_lang_torch.eval import zero_shot
+
+    loader, model, tok = fake_loader
+    for name in ("b", "a"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "0.png").write_bytes(b"")
+    rec = _Recorder({"top1": 0.5, "top5": 1.0, "n": 2})
+    monkeypatch.setattr(zero_shot, "zero_shot_accuracy", rec)
+    tcli.main(["zero-shot", "--device", "cpu", "--random-weights", "--dtype", "int8",
+               "--data-path", str(tmp_path), "--batch-size", "8"]
+              + (["--imagenet-protocol"] if protocol else []))
+    assert loader.calls == [(("openai/CLIP/ViT-B/16",),
+                             {"device": "cpu", "pretrained": False})]
+    (args, kwargs), = rec.calls
+    assert args[0] is model and args[1] is tok and args[3] == ["a", "b"]
+    assert args[2].batch_size == 8 and args[2].dataset.iat_labels.tolist() == [0, 1]
+    assert kwargs.pop("templates", None) == (zero_shot.imagenet_templates() if protocol
+                                             else None)
+    assert kwargs == {"n_px": 224, "progress": True, "dtype": "int8"}
+    assert json.loads(capsys.readouterr().out) == {"top1": 0.5, "top5": 1.0, "n": 2}
 
 
 def test_train_reaches_run_training(monkeypatch, capsys):

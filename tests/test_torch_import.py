@@ -117,15 +117,49 @@ def test_kernel_sources_ship():
     assert (PORT / "csrc" / "attention_wgmma.cuh").exists()
 
 
-@pytest.mark.parametrize("name", ["measure_bias", "eval_ranking", "gen_prompts",
-                                  "DebiasCLIP", "model_loader", "ClipLike", "Adversary",
-                                  "AdversarialTrainer", "run_training", "load",
-                                  "available_models"])
+def _jax_exports():
+    """Every name the JAX package exports, read from its ``__init__.py`` as
+    text (its eager ``from .core import`` names and its ``_LAZY`` keys)."""
+    import ast
+
+    tree = ast.parse((REPO / "debias_vision_lang_tpu" / "__init__.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            names += [a.asname or a.name for a in node.names]
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and [t.id for t in node.targets] == ["_LAZY"]):
+            names += [k.value for k in node.value.keys]
+    return names
+
+
+JAX_EXPORTS = _jax_exports()
+
+
+def test_jax_exports_read():
+    assert len(JAX_EXPORTS) == 30 and {"tokenize", "FairFace", "VALID_MODELS",
+                                       "resolve_arch", "measure_bias"} <= set(JAX_EXPORTS)
+
+
+@pytest.mark.parametrize("name", sorted(set(JAX_EXPORTS) | {"AdversarialTrainer",
+                                                            "run_training"}))
 def test_lazy_surface(name):
     import debias_vision_lang_torch as dvl
 
     assert getattr(dvl, name) is not None
     assert name in dir(dvl)
+
+
+def test_surface_loads_no_heavy_module():
+    """The eager surface is the port's ``core``: importing the package loads
+    neither its datasets (pandas) nor its tokenizer, towers or kernels."""
+    code = ("import sys, debias_vision_lang_torch as d; d.VALID_MODELS; "
+            "print(sorted(m for m in sys.modules if m.startswith('debias_vision_lang_torch.')"
+            " and not m.startswith('debias_vision_lang_torch.core')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
 
 
 class TestByteTokenizer:
