@@ -25,11 +25,12 @@ Phases (any failure exits non-zero before the final line):
      7, 257, 320, causal and not, B=2 D=512 H=8), at a ragged M (B=3 S=77:
      231 rows, not a multiple of the GEMM's 128-row tile) for both blocks and
      both activations, at SLIP-ViT-L/16's image shapes (B=8, S=197 D=1024
-     H=16, F=4096 with the erf-gelu MLP), at the main path's B=256 image
-     shapes of ViT-B/16 and of SLIP-L (phase 17) and at the bf16 text
-     tower's B=319 shapes; tolerance: max |kernel - twin| <= one bf16
+     H=16, F=4096 with the erf-gelu MLP), at RN50x4's text shapes (B=8,
+     S=77 D=640 H=10, causal, F=2560; phase 18's tower), at the main path's
+     B=256 image shapes of ViT-B/16 and of SLIP-L (phase 17) and at the bf16
+     text tower's B=319 shapes (D=512, and D=640 for RN50x4); tolerance: max |kernel - twin| <= one bf16
      ulp of the twin's largest magnitude (SLIP-L's inputs come from a
-     generator of their own).  At B=8 and at the ragged M each
+     generator of their own, as do RN50x4's).  At B=8 and at the ragged M each
      block also runs on a residual stream scaled by 1/16, where the output is
      mostly the block's own contribution, so the bar is tight against the
      attention / MLP math and not only against the residual.  At B=256 (both
@@ -56,7 +57,8 @@ Phases (any failure exits non-zero before the final line):
      (weights from ops/quant.quantize_weight) at the same shapes, plus an
      act_kind="gelu" MLP, and SLIP-L's blocks (B=8, x and x/16, D=1024 H=16,
      the gelu MLP at F=4096 = MAX_ROW, the widest hidden row the quantize
-     pass holds); the same 1-ulp bar on the output, and on the int8
+     pass holds), and RN50x4's text blocks (B=8, x and x/16, D=640 H=10,
+     causal, F=2560; and B=319); the same 1-ulp bar on the output, and on the int8
      codes of the quantized rows (LN output, attention output, MLP hidden):
      the twin's quantizer applied to the kernel's own rows gives the kernel's
      codes and scales exactly, and the codes differ from the twin's in at
@@ -213,15 +215,42 @@ Phases (any failure exits non-zero before the final line):
      (python -m debias_vision_lang_torch zero-shot --random-weights --dtype
      bfloat16 --model facebookresearch/SLIP/ViT-L/16, a toy BPE vocabulary):
      exit 0 and a JSON with top1, top5 and n = 128.
-The kernels line comes after phase 17 (its SLIP-L rows take phase 17's
-launch counts) and gives each kernel's launches, error, time, plain-twin time,
+ 18. the ModifiedResNet family at full width and depth: RN50 (224 px, stages
+     3-4-6-3, stem 64, 32 pool heads; text 512 wide, 8 heads) and RN50x4
+     (288 px, 4-6-10-6, stem 80, 40 pool heads; text 640 wide, 10 heads),
+     DebiasCLIPs with 2 prompt tokens, random init from seed 0, every
+     BatchNorm redrawn (scale and bias from a seeded generator, scale in
+     [0.5, 1], a bottleneck's bn3 in [0.1, 0.3]: the init's zero bn3
+     scales would leave every residual branch dead; running mean and var
+     the statistics of each BatchNorm's input over 32 other seeded scenes),
+     cuDNN's TF32 flag at PyTorch's default (on); per tower, 1,024 seeded uint8 scenes at its size (a bilinear
+     4 x 4 colour grid plus noise: iid noise images all embed alike through
+     a pooled CNN, and their scores tie within float32 rounding) through
+     HostLoader (NHWC, no patch staging), get_labels_img_embeddings,
+     get_prompt_embeddings (319 prompts, byte tokenizer) and eval_ranking at
+     float32, bfloat16, int8 and int8-text: metrics equal to the numpy
+     oracle; image rows against float32 at cosine >= COS_MIN (bf16) and >=
+     RN_INT8_COS (int8 rungs); no kernel launched by the image tower; the
+     prompts run no kernel but under int8-text (12 causal K3 + 12 K4), and
+     the bf16 text tower 12 causal K1 + 12 K2 (cosine >= COS_MIN against
+     float32); img/s at B=256 per rung, the int8 tower split (quantize,
+     im2col, _int_mm, the rest; torch.profiler ranges); the TF32 witness
+     (4 images, the card's float32 tower within RN_TF32_TOL of the CPU
+     port's largest magnitude; the same with TF32 forced on printed beside
+     it); for RN50 an OpenAI-named .pt loaded back through model_loader
+     (image rows at bf16 and text rows at float32 bit-equal) and the bf16
+     serving engine (buckets 1 and 64 bit-equal to the direct call on the
+     same staged batch, no launch).
+The kernels line comes after phase 18 (its SLIP-L rows take phase 17's
+launch counts, its RN50x4 text rows phase 18's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
 its 3xTF32 design runs them) and the library call's time where one PyTorch
 call computes the same function.  K1-K4 have a row at ViT-B/16's B=256
-image shapes (launches: phases 4 and 7) and one at SLIP-L's (launches:
-phase 17); each row names its "case".  K5 has two rows on its short route:
+image shapes (launches: phases 4 and 7), one at SLIP-L's (launches:
+phase 17) and one at RN50x4's text shapes, B=319 S=77 D=640 causal
+(launches: phase 18); each row names its "case".  K5 has two rows on its short route:
 float32 causal B=319 S=77 (the text shape) and float32 B=64 S=197 (the image
 shape that holds most of its training launches); its long route two more,
 float32 and bfloat16 at B=8 H=12 S=785 with a zero mask, whose launches are
@@ -265,6 +294,7 @@ HBM_BYTES_PER_S = 3.35e12
 # MLP activation, weight seed); SLIP-L is phase 17's tower
 IMAGE_TOWERS = (("ViT-B/16", 768, 12, "quick_gelu", 7), ("SLIP-ViT-L/16", 1024, 16, "gelu", 9))
 SLIP_ARCH, SLIP_LAYERS = "facebookresearch/SLIP/ViT-L/16", 24
+RN_TEXT = (640, 10)  # RN50x4's text tower: width and heads (phases 3, 6 and 18)
 
 
 def check(cond, msg):
@@ -334,10 +364,10 @@ def cuda_ms(fn, iters=10):
 
 
 class SyntheticFaces:
-    """In-memory dataset: seeded 224x224x3 uint8 images, balanced labels."""
+    """In-memory dataset: seeded px x px x 3 uint8 images, balanced labels."""
 
-    def __init__(self, n: int, seed: int = 0):
-        self.n, self.seed = n, seed
+    def __init__(self, n: int, seed: int = 0, px: int = 224):
+        self.n, self.seed, self.px = n, seed, px
         self.iat_labels = np.arange(n) % 2
 
     def __len__(self):
@@ -345,7 +375,37 @@ class SyntheticFaces:
 
     def load_image(self, i: int) -> np.ndarray:
         return np.random.default_rng(self.seed + i).integers(
-            0, 256, (224, 224, 3), dtype=np.uint8)
+            0, 256, (self.px, self.px, 3), dtype=np.uint8)
+
+
+class SyntheticScenes(SyntheticFaces):
+    """Seeded px x px x 3 uint8 scenes: a 4 x 4 grid of random colours,
+    bilinearly upsampled, plus uniform noise of +-64.  iid noise images
+    share their statistics, so a CNN that pools over space embeds them
+    nearly alike, their scores for a prompt sit within float32 rounding of
+    each other and a ranking check reads rounding; these scenes differ as
+    photos do (``benchmarks_torch/resnet_image_spread.py``).  Each is made
+    once and kept: every rung reads the same ones."""
+
+    def __init__(self, n: int, seed: int = 0, px: int = 224):
+        super().__init__(n, seed, px)
+        self.made = {}
+
+    def load_image(self, i: int) -> np.ndarray:
+        if i not in self.made:
+            self.made[i] = self.scene(i)
+        return self.made[i]
+
+    def scene(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + i)
+        grid = rng.uniform(0, 255, (4, 4, 3))
+        t = np.clip((np.arange(self.px) + 0.5) * 4 / self.px - 0.5, 0, 3)
+        i0 = np.floor(t).astype(int)
+        i1, w = np.minimum(i0 + 1, 3), t - i0
+        rows = grid[i0] * (1 - w)[:, None, None] + grid[i1] * w[:, None, None]
+        img = rows[:, i0] * (1 - w)[None, :, None] + rows[:, i1] * w[None, :, None]
+        img = img + rng.integers(-64, 65, (self.px, self.px, 3))
+        return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -588,6 +648,18 @@ def kernel_phase(fb, device, card):
                 fb.attention_block_plain(x, *attn, heads=16))
         compare(f"mlp_block {tag} F=4096 gelu", x, fb.mlp_block(x, *mlp, act_kind="gelu"),
                 fb.mlp_block_plain(x, *mlp, act_kind="gelu"))
+    # RN50x4's text blocks: D=640, 10 heads, F=2560, causal (phase 18); inputs
+    # from a generator of their own, as SLIP-L's
+    attn, mlp = block_params(RN_TEXT[0], device, seed=RN_TEXT[0])
+    g_rn = torch.Generator().manual_seed(RN_TEXT[0])
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(8, 77, RN_TEXT[0], generator=g_rn) * scale).to(device, torch.bfloat16)
+        tag = f"B=8 S=77 D={RN_TEXT[0]} x~N(0,{scale}^2) (RN50x4 text)"
+        compare(f"attention_block {tag} H={RN_TEXT[1]} causal=True", x,
+                fb.attention_block(x, *attn, heads=RN_TEXT[1], causal=True),
+                fb.attention_block_plain(x, *attn, heads=RN_TEXT[1], causal=True))
+        compare(f"mlp_block {tag} F={4 * RN_TEXT[0]} quick_gelu", x, fb.mlp_block(x, *mlp),
+                fb.mlp_block_plain(x, *mlp))
     # every key bucket of the wgmma core (32, 80, 200, 256, 256 + 64 keys)
     attn, mlp = block_params(512, device, seed=5)
     for s_ in (1, 7, 257, 320):
@@ -622,15 +694,9 @@ def kernel_phase(fb, device, card):
                  mlp_block_work(BATCH, 197, d, f))):
             err = compare(f"{name} {case} (main path)", x, kern(x, *args, **kw),
                           plain(x, *args, **kw))
-            ms = cuda_ms(lambda: kern(x, *args, **kw))
-            plain_ms = cuda_ms(lambda: plain(x, *args, **kw))
-            bound_ms, bound_by = bound(*work)
-            rows.append({"name": name, "case": case, "route": "cuda",
-                         "source": "debias_vision_lang_torch/csrc/fused_block.cu",
-                         "replaces": f"debias_vision_lang_tpu/ops/fused_block.py:{line}",
-                         "launches": None, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None})
+            rows.append(kernel_row(name, case, "fused_block", line, err,
+                                   cuda_ms(lambda: kern(x, *args, **kw)),
+                                   cuda_ms(lambda: plain(x, *args, **kw)), work))
         m = BATCH * 197
         subkernel_split(f"attention_block {case} H={heads}",
                         lambda: fb.attention_block(x, *attn, heads=heads),
@@ -654,7 +720,34 @@ def kernel_phase(fb, device, card):
         "mlp_block": (cuda_ms(lambda: fb.mlp_block(xt, *mlp_t)),
                       cuda_ms(lambda: fb.mlp_block_plain(xt, *mlp_t))),
     }
+    # RN50x4's text tower at the 319 prompts: rows of the kernels line
+    # (launches: phase 18)
+    d, heads = RN_TEXT
+    attn_r, mlp_r = block_params(d, device, seed=d + 1)
+    xr = torch.randn(319, 77, d, generator=g_rn).to(device, torch.bfloat16)
+    case = f"RN50x4 text B=319 S=77 D={d}"
+    for name, kern, plain, args, kw, line, work in (
+            ("attention_block", fb.attention_block, fb.attention_block_plain, attn_r,
+             {"heads": heads, "causal": True}, 69,
+             attention_block_work(319, 77, d, causal=True)),
+            ("mlp_block", fb.mlp_block, fb.mlp_block_plain, mlp_r, {}, 192,
+             mlp_block_work(319, 77, d, 4 * d))):
+        err = compare(f"{name} {case} (phase 18's prompts)", xr, kern(xr, *args, **kw),
+                      plain(xr, *args, **kw))
+        rows.append(kernel_row(name, case, "fused_block", line, err,
+                               cuda_ms(lambda: kern(xr, *args, **kw)),
+                               cuda_ms(lambda: plain(xr, *args, **kw)), work))
     return rows, text_ms
+
+
+def kernel_row(name, case, lib, line, err, ms, plain_ms, work):
+    """One kernels-line row of a fused-block kernel (K1-K4), launches unset."""
+    bound_ms, bound_by = bound(*work)
+    return {"name": name, "case": case, "route": "cuda",
+            "source": f"debias_vision_lang_torch/csrc/{lib}.cu",
+            "replaces": f"debias_vision_lang_tpu/ops/{lib}.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def q_block_params(d, device, seed):
@@ -737,6 +830,16 @@ def kernel_phase_q(fbq, device, card):
         compare(f"attention_block_q {tag} H=16 causal=False", *attn_fns, x, attn,
                 {"heads": 16})
         compare(f"mlp_block_q {tag} F=4096 gelu", *mlp_fns, x, mlp, {"act_kind": "gelu"})
+    # RN50x4's text blocks under "int8-text": D=640, 10 heads, F=2560, causal
+    d, heads = RN_TEXT
+    attn, mlp = q_block_params(d, device, seed=d)
+    g_rn = torch.Generator().manual_seed(d + 2)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(8, 77, d, generator=g_rn) * scale).to(device, torch.bfloat16)
+        tag = f"B=8 S=77 D={d} x~N(0,{scale}^2) (RN50x4 text)"
+        compare(f"attention_block_q {tag} H={heads} causal=True", *attn_fns, x, attn,
+                {"heads": heads, "causal": True})
+        compare(f"mlp_block_q {tag} F={4 * d} quick_gelu", *mlp_fns, x, mlp, {})
     # both sides of every key bucket of the wgmma core (32, 80, 200, 256,
     # 256 + 64 keys)
     attn, mlp = q_block_params(512, device, seed=5)
@@ -768,15 +871,9 @@ def kernel_phase_q(fbq, device, card):
                 ("mlp_block_q", mlp_fns, mlp, {"act_kind": act}, 106,
                  mlp_block_work(BATCH, 197, d, f, weights="int8"))):
             err = compare(f"{name} {case} (int8 main path)", kern, plain, x, block, kw)
-            ms = cuda_ms(lambda: kern(x, *block[0], **kw, **block[1]))
-            plain_ms = cuda_ms(lambda: plain(x, *block[0], **kw))
-            bound_ms, bound_by = bound(*work)
-            rows.append({"name": name, "case": case, "route": "cuda",
-                         "source": "debias_vision_lang_torch/csrc/fused_block_q.cu",
-                         "replaces": f"debias_vision_lang_tpu/ops/fused_block_q.py:{line}",
-                         "launches": None, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None})
+            rows.append(kernel_row(name, case, "fused_block_q", line, err,
+                                   cuda_ms(lambda: kern(x, *block[0], **kw, **block[1])),
+                                   cuda_ms(lambda: plain(x, *block[0], **kw)), work))
         m = BATCH * 197
         subkernel_split(f"attention_block_q {case} H={heads}",
                         lambda: fbq.attention_block_q(x, *attn[0], heads=heads, **attn[1]),
@@ -801,6 +898,20 @@ def kernel_phase_q(fbq, device, card):
         "mlp_block_q": (cuda_ms(lambda: fbq.mlp_block_q(xt, *mlp_t[0], **mlp_t[1])),
                         cuda_ms(lambda: fbq.mlp_block_q_plain(xt, *mlp_t[0]))),
     }
+    # RN50x4's int8 text tower at the 319 prompts (launches: phase 18)
+    d, heads = RN_TEXT
+    attn_r, mlp_r = q_block_params(d, device, seed=d + 1)
+    xr = torch.randn(319, 77, d, generator=g_rn).to(device, torch.bfloat16)
+    case = f"RN50x4 text B=319 S=77 D={d}"
+    for name, (kern, plain), block, kw, line, work in (
+            ("attention_block_q", attn_fns, attn_r, {"heads": heads, "causal": True}, 62,
+             attention_block_work(319, 77, d, causal=True, weights="int8")),
+            ("mlp_block_q", mlp_fns, mlp_r, {}, 106,
+             mlp_block_work(319, 77, d, 4 * d, weights="int8"))):
+        err = compare(f"{name} {case} (phase 18's prompts)", kern, plain, xr, block, kw)
+        rows.append(kernel_row(name, case, "fused_block_q", line, err,
+                               cuda_ms(lambda: kern(xr, *block[0], **kw, **block[1])),
+                               cuda_ms(lambda: plain(xr, *block[0], **kw)), work))
     return rows, text_ms
 
 
@@ -978,6 +1089,10 @@ def ingest_path() -> str:
 def reset_all(*modules):
     for m in modules:
         m.reset_launches()
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
 
 
 def launches_of(*modules):
@@ -2229,6 +2344,375 @@ def slip_phase(clip_b16, loader, prompts, card, device):
     return counts
 
 
+# phase 18: the ModifiedResNet family at full width and depth
+RN_ARCHS = ("RN50", "RN50x4")
+RN_RUNGS = ("float32", "bfloat16", "int8", "int8-text")
+RN_INT8_COS = 0.99  # int8 vs float32 image rows: the JAX package's bar for this rung
+RN_TF32_TOL = 1e-4  # card vs CPU float32 tower, of the CPU's largest magnitude
+CALIB_SEED = 10 ** 6  # the scenes the BatchNorms' statistics are taken on
+BN_NAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def redraw_batch_norms(visual, seed, calibrate=None):
+    """Every BatchNorm of a ModifiedResNet redrawn (the init zeroes each
+    bottleneck's bn3 scale, which would leave every residual branch dead):
+    scale and bias from a seeded generator, scale in [0.5, 1] and in
+    [0.1, 0.3] for a bottleneck's bn3 (the end of its residual branch,
+    small as CLIP's trained ones grow from their zero init), bias
+    N(0, 0.1^2).  The running mean and var are the statistics of each
+    BatchNorm's input over the float32 images ``calibrate``, taken layer by
+    layer in one forward pass, as training leaves them; without it they are
+    drawn too, mean N(0, 0.1^2) and var in [0.5, 2].  Drawn statistics
+    leave a per-channel offset common to every image that dominates the
+    embeddings (``benchmarks_torch/resnet_image_spread.py``)."""
+    import torch
+    from debias_vision_lang_torch.models import resnet
+
+    g = torch.Generator().manual_seed(seed)
+    ends = {id(m.bn3) for m in visual.modules() if isinstance(m, resnet.Bottleneck)}
+    with torch.no_grad():
+        for m in visual.modules():
+            if isinstance(m, resnet.BatchNorm):
+                n = m.scale.shape[0]
+                lo, hi = (0.1, 0.3) if id(m) in ends else (0.5, 1.0)
+                for p, v in ((m.scale, lo + (hi - lo) * torch.rand(n, generator=g)),
+                             (m.bias, 0.1 * torch.randn(n, generator=g)),
+                             (m.mean, 0.1 * torch.randn(n, generator=g)),
+                             (m.var, 0.5 + 1.5 * torch.rand(n, generator=g))):
+                    p.copy_(v)
+        if calibrate is None:
+            return
+        batch_norm = resnet.batch_norm
+
+        def calibrated(p, x):
+            rows = x.float().reshape(-1, x.shape[-1])
+            p.mean.copy_(rows.mean(0))
+            p.var.copy_(rows.var(0, unbiased=False))
+            return batch_norm(p, x)
+
+        resnet.batch_norm = calibrated
+        try:
+            resnet.encode_image_resnet(visual, calibrate)
+        finally:
+            resnet.batch_norm = batch_norm
+
+
+def scene_batch(data, vis, device, lo=0, hi=None):
+    """Images lo..hi of ``data``, preprocessed on ``device`` for the tower
+    ``vis`` (float32 NHWC)."""
+    import torch
+    from debias_vision_lang_torch.vision.preprocess import preprocess_batch
+
+    u8 = np.stack([data.load_image(i) for i in range(lo, len(data) if hi is None else hi)])
+    return preprocess_batch(torch.from_numpy(u8).to(device), vis.image_size,
+                            mean=vis.image_mean, std=vis.image_std)
+
+
+def resnet_openai_state_dict(sd):
+    """The port's ResNet CLIP state dict in OpenAI CLIP naming (the inverse of
+    ``params_from_openai_state_dict``'s ResNet branch): conv kernels HWIO ->
+    OIHW weights, BatchNorm scale / mean / var -> weight / running_mean /
+    running_var (with the num_batches_tracked torch keeps), downsample.conv /
+    .bn -> downsample.0 / .1, the pool's kernels [in, out] -> Linear weights."""
+    import torch
+
+    out = openai_state_dict({k: v for k, v in sd.items() if not k.startswith("visual.")},
+                            patch=None)
+    for k, v in sd.items():
+        if not k.startswith("visual."):
+            continue
+        stem, leaf = (k.replace(".downsample.conv.", ".downsample.0.")
+                      .replace(".downsample.bn.", ".downsample.1.").rsplit(".", 1))
+        if leaf == "kernel":
+            v = v.T if ".attnpool." in k else v.permute(3, 2, 0, 1)
+            out[f"{stem}.weight"] = v.contiguous()
+            continue
+        out[f"{stem}.{BN_NAMES.get(leaf, leaf) if '.attnpool' not in stem else leaf}"] = v
+        if leaf == "var":
+            out[f"{stem}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+# the int8 ResNet tower's parts: (label, module of the port, function)
+INT8_PARTS = (("quantize", "quant_resnet", "quant_images"), ("quantize", "quant", "quant_rows"),
+              ("im2col", "quant_resnet", "im2col"), ("_int_mm", "quant_resnet", "int_mm"),
+              ("_int_mm", "fused_block_q", "int_mm"))
+
+
+def int8_split(fn, total_ms, iters=3):
+    """The int8 ResNet tower's device time split by what launched it:
+    per-image and per-row quantization, the im2col copies and the int8
+    GEMMs (``torch._int_mm``), each a torch.profiler range around the
+    port's function; the rest is the tower's CUDA-event time less them.
+    Returns ({label: ms per call}, rest ms)."""
+    import importlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for label, mod, name in INT8_PARTS:
+        m = importlib.import_module(f"debias_vision_lang_torch.ops.{mod}")
+        orig = getattr(m, name)
+
+        def wrapped(*a, _orig=orig, _label=label, **k):
+            with record_function(f"int8 split: {_label}"):
+                return _orig(*a, **k)
+
+        saved.append((m, name, orig))
+        setattr(m, name, wrapped)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for m, name, orig in saved:
+            setattr(m, name, orig)
+    parts = {}
+    for ev in prof.key_averages():
+        # the CPU-side range (its kernels' device time); the profiler also
+        # lists each range on the device timeline under the same name
+        if ev.key.startswith("int8 split: ") and ev.device_type == DeviceType.CPU:
+            label = ev.key[len("int8 split: "):]
+            parts[label] = parts.get(label, 0.0) + ev.device_time_total / iters / 1e3
+    return parts, total_ms - sum(parts.values())
+
+
+def resnet_phase(prompts, card, device):
+    """Phase 18: RN50 and RN50x4 (published widths and depths, random weights
+    from seed 0, BatchNorms redrawn) through the measurement pipeline at
+    every rung, the TF32 witness, an OpenAI-named checkpoint (RN50) and the
+    bf16 serving engine (RN50), with cuDNN's TF32 flag at PyTorch's default
+    (on).  Returns RN50x4's text-tower launches of K1-K4 (the kernels line's
+    D=640 rows)."""
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.text import ByteTokenizer
+
+    counters = (fb, fbq, A)
+    tok = ByteTokenizer()
+    tokens = torch.as_tensor(tok(prompts), dtype=torch.long, device=device)
+    rn_launches = {}
+    # PyTorch's default: the float32 rung must keep TF32 off by itself
+    tf32_default, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, True
+    try:
+        for arch in RN_ARCHS:
+            resnet_arch(arch, prompts, tokens, tok, card, device, counters, rn_launches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_default
+    return rn_launches
+
+
+def resnet_arch(arch, prompts, tokens, tok, card, device, counters, rn_launches):
+    """Phase 18 for one registry ResNet; RN50x4's text launches of K1-K4 go
+    into ``rn_launches``."""
+    import contextlib
+
+    import torch
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.eval.measure import (eval_ranking,
+                                                      get_labels_img_embeddings,
+                                                      get_prompt_embeddings)
+    from debias_vision_lang_torch.models import resnet
+    from debias_vision_lang_torch.models.debias import DebiasCLIP
+    from debias_vision_lang_torch.ops.quant import resolve_compute
+    from debias_vision_lang_torch.vision.preprocess import preprocess_batch
+
+    t_arch = time.perf_counter()
+    model, _, _, alias = DebiasCLIP.from_cfg(
+        {"CLIP_ARCH": f"openai/CLIP/{arch}", "NUM_DEBIAS_TOKENS": 2, "PRETRAINED": False,
+         "SEED": 0}, device=device)
+    model.eval()
+    vis, text_cfg = model.clip_cfg.vision, model.clip_cfg.text
+    px = vis.image_size
+    redraw_batch_norms(model.clip.visual, seed=18,
+                       calibrate=scene_batch(SyntheticScenes(32, seed=CALIB_SEED, px=px),
+                                             vis, device))
+    print(f"phase 18: {alias} (ModifiedResNet, stages {vis.layers}, stem {vis.width}, "
+          f"{vis.heads} pool heads, {px} px; text D={text_cfg.width} H={text_cfg.heads}; "
+          f"embed {vis.embed_dim}): {sum(p.numel() for p in model.parameters())} params, "
+          f"BatchNorms redrawn and calibrated on 32 other scenes, built in "
+          f"{time.perf_counter() - t_arch:.2f} s")
+    loader = HostLoader(SyntheticScenes(N_IMAGES, px=px), batch_size=BATCH, num_workers=8,
+                        native_n_px=px)
+    u8 = torch.from_numpy(next(iter(loader)).images).to(device)
+    x = preprocess_batch(u8, px, mean=vis.image_mean, std=vis.image_std)
+    first, t_meas = {}, time.perf_counter()
+    for rung in RN_RUNGS:
+        m, dt = resolve_compute(model, rung)
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        t = time.perf_counter()
+        labels, embs = get_labels_img_embeddings(loader, m, n_px=px, dtype=rung)
+        torch.cuda.synchronize()
+        img_s = time.perf_counter() - t
+        img_launches = launches_of(*counters)
+        reset_all(*counters)
+        prompt_embs = get_prompt_embeddings(m, tok, prompts)
+        torch.cuda.synchronize()
+        txt_launches = launches_of(*counters)
+        with torch.no_grad():
+            tower_ms = cuda_ms(lambda: m.encode_image(x, dtype=dt), iters=3)
+        print(f"phase 18 {arch} {rung}: {N_IMAGES} images in {img_s:.3f} s (host clock, "
+              f"in-memory images); image tower B={BATCH} {tower_ms:.3f} ms/batch, "
+              f"{BATCH / tower_ms * 1e3:.1f} img/s ({card}); launches: image tower "
+              f"{nonzero(img_launches)}, prompts {nonzero(txt_launches)}")
+        check(sum(img_launches.values()) == 0,
+              f"phase 18 {arch} {rung}: the image tower launched {img_launches}")
+        want = dict.fromkeys(img_launches, 0)
+        if rung == "int8-text":
+            want.update(attention_block_q_causal=LAYERS, mlp_block_q=LAYERS)
+        check(txt_launches == want, f"phase 18 {arch} {rung}: prompt launches "
+              f"{txt_launches}, expected {want}")
+        check(embs.shape == (N_IMAGES, vis.embed_dim) and embs.device.type == device.type,
+              f"phase 18 {arch} {rung}: image embeddings {tuple(embs.shape)} {embs.device}")
+        check_metrics(f"{arch} {rung}", labels, embs, prompt_embs, eval_ranking)
+        first[rung] = embs[:BATCH]
+        if rung == "bfloat16":
+            cosine_check(f"{arch} bf16 vs float32, image embeddings (first {BATCH})",
+                         embs[:BATCH], first["float32"])
+            # the bf16 text tower of this rung: 12 causal K1 + 12 K2
+            reset_all(*counters)
+            with torch.no_grad():
+                txt16 = model.encode_text(tokens, dtype=torch.bfloat16).float()
+                txt32 = model.encode_text(tokens).float()
+            torch.cuda.synchronize()
+            got = launches_of(*counters)
+            want = dict.fromkeys(got, 0)
+            want.update(attention_block_causal=LAYERS, mlp_block=LAYERS)
+            print(f"phase 18 {arch} bf16 text tower (D={text_cfg.width}): launches "
+                  f"{nonzero(got)}")
+            check(got == want, f"phase 18 {arch}: bf16 text launches {got}, expected {want}")
+            cosine_check(f"{arch} bf16 text tower vs float32", txt16, txt32)
+            if arch == "RN50x4":
+                rn_launches.update(attention_block=got["attention_block_causal"],
+                                   mlp_block=got["mlp_block"])
+        elif rung != "float32":
+            cos = torch.nn.functional.cosine_similarity(embs[:BATCH], first["float32"], -1)
+            print(f"{arch} {rung} vs float32, image embeddings (first {BATCH}): cosine min "
+                  f"{cos.min().item():.6f} mean {cos.mean().item():.6f} (bar: min >= "
+                  f"{RN_INT8_COS})")
+            check(bool(torch.isfinite(embs).all()) and cos.min().item() >= RN_INT8_COS,
+                  f"phase 18 {arch} {rung}: drift from float32")
+        if rung == "int8-text" and arch == "RN50x4":
+            rn_launches.update(attention_block_q=txt_launches["attention_block_q_causal"],
+                               mlp_block_q=txt_launches["mlp_block_q"])
+        if rung == "int8":
+            with torch.no_grad():
+                parts, rest = int8_split(lambda: m.encode_image(x, dtype=dt), tower_ms)
+            split = ("; ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+                     + f"; rest {rest:.3f} ms" if any(parts.values())
+                     else "not measured (the profiler gave its ranges no device time)")
+            print(f"phase 18 {arch} int8 tower split at B={BATCH} (torch.profiler "
+                  f"ranges): {split}; tower {tower_ms:.3f} ms ({card})")
+        del m, embs
+
+    # the TF32 witness: the card's float32 tower against the CPU port's
+    t_rungs = time.perf_counter()
+    cpu = resnet.ModifiedResNet(vis)
+    cpu.load_state_dict(model.clip.visual.state_dict())
+    x4 = x[:4]
+    with torch.no_grad():
+        ref = cpu(x4.cpu())
+        mag = ref.abs().max().item()
+        diff = (model.encode_image(x4).cpu() - ref).abs().max().item()
+
+        @contextlib.contextmanager
+        def tf32_on():
+            old = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                yield
+            finally:
+                torch.backends.cudnn.allow_tf32 = old
+
+        scope, resnet.tf32_off = resnet.tf32_off, tf32_on
+        try:
+            diff_tf32 = (model.encode_image(x4).cpu() - ref).abs().max().item()
+        finally:
+            resnet.tf32_off = scope
+    print(f"phase 18 {arch} TF32 witness, float32 tower on 4 images, card vs CPU port: "
+          f"max |diff| {diff:.3e} (bar {RN_TF32_TOL} x max |CPU| {mag:.4g} = "
+          f"{RN_TF32_TOL * mag:.3e}); with cuDNN TF32 on: {diff_tf32:.3e} "
+          f"({'over' if diff_tf32 > RN_TF32_TOL * mag else 'within'} the bar; "
+          f"{time.perf_counter() - t_rungs:.2f} s) ({card})")
+    check(diff <= RN_TF32_TOL * mag, f"phase 18 {arch}: the float32 tower is not the "
+          f"CPU port's (TF32 left on?)")
+    del cpu
+
+    if arch == "RN50":
+        resnet_checkpoint_and_serving(model, x, tokens, tok, card, device, counters)
+    print(f"phase 18 {arch}: {time.perf_counter() - t_arch:.2f} s, of it the four rungs "
+          f"{t_rungs - t_meas:.2f} s")
+    del model, loader, x, u8
+    torch.cuda.empty_cache()
+
+
+def resnet_checkpoint_and_serving(model, x, tokens, tok, card, device, counters):
+    """RN50's OpenAI-named .pt loaded back through model_loader (image rows at
+    bf16 and text rows at float32 bit-equal), then RN50 in the bf16 serving
+    engine: buckets 1 and 64 bit-equal to the direct call on the same staged
+    batch, and no kernel launched by the image tower."""
+    import shutil
+
+    import torch
+    from debias_vision_lang_torch.models.loader import model_loader
+    from debias_vision_lang_torch.serve.engine import InferenceEngine
+    from debias_vision_lang_torch.vision.preprocess import preprocess_batch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rn_")
+    try:
+        path = os.path.join(tmp, "oai-clip-rn50.pt")
+        torch.save(resnet_openai_state_dict(
+            {k: v.detach().cpu() for k, v in model.clip.state_dict().items()}), path)
+        t = time.perf_counter()
+        loaded, _, _, _ = model_loader("openai/CLIP/RN50", device=device, weights=path)
+        load_s = time.perf_counter() - t
+        with torch.no_grad():
+            pairs = [(loaded.encode_image(x[:64], dtype=torch.bfloat16),
+                      model.encode_image(x[:64], dtype=torch.bfloat16)),
+                     (loaded.encode_text(tokens[:64]), model.clip.encode_text(tokens[:64]))]
+        diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+        print(f"phase 18 checkpoint OpenAI-named RN50: {os.path.getsize(path) / 2**20:.1f} "
+              f"MiB, model_loader {load_s:.2f} s; image (bf16) and text (float32) embeddings "
+              f"vs the original's: max |diff| {diff}")
+        check(all(torch.equal(a, b) for a, b in pairs),
+              "phase 18: the OpenAI-named RN50 checkpoint does not load bit-equal")
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    engine = InferenceEngine(model, tok, max_batch=64, compute_dtype="bfloat16", device=device)
+    check(engine._patch is None, "phase 18: the engine stages a ResNet patch-contiguously")
+    px = engine.n_px
+    rng = np.random.default_rng(18)
+    vis = model.clip_cfg.vision
+    for n in (1, 64):
+        frames = [rng.integers(0, 256, (px, px, 3), dtype=np.uint8) for _ in range(n)]
+        reset_all(*counters)
+        t = time.perf_counter()
+        rows = engine.embed_image_arrays(frames)
+        serve_ms = (time.perf_counter() - t) * 1e3
+        launches = launches_of(*counters)
+        staged = torch.from_numpy(np.stack(frames)).to(device)
+        with torch.no_grad():
+            want = model.encode_image(preprocess_batch(staged, px, mean=vis.image_mean,
+                                                       std=vis.image_std),
+                                      dtype=torch.bfloat16).float().cpu().numpy()
+        diff = float(np.abs(np.asarray(rows) - want).max())
+        print(f"phase 18 serving RN50 bf16 bucket {n}: {serve_ms:.2f} ms host clock; rows vs "
+              f"the direct call max |diff| {diff}; launches {nonzero(launches)} ({card})")
+        check(np.array_equal(np.asarray(rows), want),
+              f"phase 18: the engine's bucket-{n} rows are not the direct call's")
+        check(sum(launches.values()) == 0, f"phase 18: the image dispatch launched {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2601,13 +3085,19 @@ def main() -> int:
     t0 = time.perf_counter()
     slip_launches = slip_phase(model.clip, loader, prompts, card, device)
     slip_s = time.perf_counter() - t0
+    # 18. the ModifiedResNet family; RN50x4's launches complete the D=640 rows
+    t0 = time.perf_counter()
+    rn_launches = resnet_phase(prompts, card, device)
+    rn_s = time.perf_counter() - t0
     for row in rows + rows_q:
-        if row["launches"] is None:
+        if row["case"].startswith("RN50x4"):
+            row["launches"] = rn_launches[row["name"]]
+        elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
     print(json.dumps({"kernels": rows + rows_q + rows_k5}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
-          f"{serve_s:.1f} s and SLIP-L {slip_s:.1f} s"
+          f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s and the ResNets {rn_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

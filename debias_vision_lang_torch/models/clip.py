@@ -1,7 +1,8 @@
-"""CLIP dual encoder (ViT image tower + causal text tower) as ``nn.Module``s.
+"""CLIP dual encoder (image tower + causal text tower) as ``nn.Module``s.
 
 Counterpart of ``debias_vision_lang_tpu/models/clip.py`` for the "vit"
-(OpenAI CLIP) and "slip_vit" (facebookresearch/SLIP, a timm ViT) towers.
+(OpenAI CLIP), "slip_vit" (facebookresearch/SLIP, a timm ViT) and "resnet"
+(OpenAI CLIP's ModifiedResNet, ``models/resnet.py``) towers.
 The SLIP tower's patch conv has a bias, it has no pre-LN, and its MLP runs
 the exact erf GELU: ``act_kind="gelu"`` (the A&S polynomial) in the fused
 blocks, ``layers.gelu`` in the plain tower, as in the JAX package.
@@ -30,10 +31,12 @@ from ..ops.fused_block import fused_transformer, fused_transformer_diff
 from ..vision.preprocess import CLIP_MEAN, CLIP_STD
 from .layers import (LayerNorm, causal_mask, gelu, init_resblocks, layer_norm,
                      make_resblocks, quick_gelu, transformer)
+from .resnet import ModifiedResNet, init_modified_resnet_params
 
 VIT_KINDS = ("vit", "slip_vit")
-ROADMAP_OTHER_TOWERS = ("ROADMAP.md queue 1 item 4 (other towers: 4b ResNet, "
-                        "4c Frozen-in-Time)")
+TOWER_KINDS = VIT_KINDS + ("resnet",)  # every image tower the port builds
+ROADMAP_OTHER_TOWERS = ("ROADMAP.md queue 1 item 4 (other towers: 4c "
+                        "Frozen-in-Time)")
 
 
 def _vector(*shape) -> nn.Parameter:
@@ -56,7 +59,7 @@ class VisionTransformer(nn.Module):
         if cfg.kind not in VIT_KINDS:
             raise NotImplementedError(
                 f"vision tower kind {cfg.kind!r}: the port runs OpenAI and "
-                f"SLIP ViT towers; {ROADMAP_OTHER_TOWERS}")
+                f"SLIP ViT towers and ModifiedResNets; {ROADMAP_OTHER_TOWERS}")
         self.cfg = cfg
         w = cfg.width
         slip = cfg.kind == "slip_vit"
@@ -103,7 +106,8 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg.vision)
+        self.visual = (ModifiedResNet(cfg.vision) if cfg.vision.kind == "resnet"
+                       else VisionTransformer(cfg.vision))
         self.text = TextTransformer(cfg.text)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
@@ -133,8 +137,9 @@ def init_clip_params(cfg: CLIPConfig,
                      ) -> Dict[str, torch.Tensor]:
     """Random float32 parameters (OpenAI CLIP's init scheme, as the JAX
     package's ``init_clip_params``) as a ``CLIP(cfg)`` state dict, on the
-    CPU; a SLIP tower's conv bias starts at zero.  The numbers differ from
-    jax.random's for the same seed."""
+    CPU; a SLIP tower's conv bias starts at zero, a ResNet tower takes
+    ``init_modified_resnet_params``.  The numbers differ from jax.random's
+    for the same seed."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = CLIP(cfg)
@@ -146,11 +151,14 @@ def init_clip_params(cfg: CLIPConfig,
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     with torch.no_grad():
-        nrm(v.conv1.kernel, v.conv1.kernel.shape[0] ** -0.5)
-        nrm(v.class_embedding, scale)
-        nrm(v.positional_embedding, scale)
-        init_resblocks(v.resblocks, generator)
-        nrm(v.proj, scale)
+        if vc.kind == "resnet":
+            init_modified_resnet_params(v, generator)
+        else:
+            nrm(v.conv1.kernel, v.conv1.kernel.shape[0] ** -0.5)
+            nrm(v.class_embedding, scale)
+            nrm(v.positional_embedding, scale)
+            init_resblocks(v.resblocks, generator)
+            nrm(v.proj, scale)
         nrm(t.token_embedding, 0.02)
         nrm(t.positional_embedding, 0.01)
         init_resblocks(t.resblocks, generator)

@@ -1,13 +1,16 @@
 """Weight bridges into the port's ``CLIP`` state dict: the JAX package's
-pytree, and checkpoints in OpenAI CLIP, HuggingFace ``CLIPModel`` and
-facebookresearch/SLIP naming (numpy arrays or torch tensors; nothing of
-``transformers`` is imported here).
+pytree, and checkpoints in OpenAI CLIP (ViT and ModifiedResNet towers),
+HuggingFace ``CLIPModel`` and facebookresearch/SLIP naming (numpy arrays or
+torch tensors; nothing of ``transformers`` is imported here).
 
-The port keeps the JAX package's parameter layout (``models/layers.py``):
-linear weights ``[in, out]``, ``wqkv`` ``[D, 3D]`` = q | k | v with head
-``h`` at columns ``h*64:(h+1)*64`` of each third, ``conv1.kernel``
-``[patch*patch*3, width]`` in (row, col, channel) order.  Only the stacked
-``resblocks`` (leading layer axis in JAX) are split into per-layer modules.
+The port keeps the JAX package's parameter layout (``models/layers.py``,
+``models/resnet.py``): linear weights ``[in, out]``, ``wqkv`` ``[D, 3D]`` =
+q | k | v with head ``h`` at columns ``h*64:(h+1)*64`` of each third,
+``conv1.kernel`` ``[patch*patch*3, width]`` in (row, col, channel) order, a
+ResNet's conv kernels HWIO.  Only the stacked ``resblocks`` (leading layer
+axis in JAX) are split into per-layer modules; a ResNet stage, a list of
+block dicts in JAX, is a module list whose index joins the name
+(``visual.layer1.0.conv1.kernel``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import CLIPConfig
-from .clip import VIT_KINDS
+from .clip import ROADMAP_OTHER_TOWERS, TOWER_KINDS
 
 
 def _tensor(a) -> torch.Tensor:
@@ -29,8 +32,12 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]) -> None:
+    """Dotted names of every leaf; a list of sub-trees (a ResNet stage)
+    takes each item's index as a name part."""
     for k, v in tree.items():
         name = f"{prefix}{k}"
+        if isinstance(v, (list, tuple)):
+            v = {str(i): item for i, item in enumerate(v)}
         if isinstance(v, Mapping):
             _flatten(v, name + ".", out)
         else:
@@ -41,8 +48,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: CLIPConfig
                     ) -> Dict[str, torch.Tensor]:
     """JAX param pytree (nested dicts of arrays, e.g. after
     ``jax.tree.map(np.asarray, params)``) -> ``CLIP(cfg)`` state dict."""
-    if cfg.vision.kind not in VIT_KINDS:
-        raise NotImplementedError(f"vision kind {cfg.vision.kind!r}")
+    if cfg.vision.kind not in TOWER_KINDS:
+        raise NotImplementedError(f"vision kind {cfg.vision.kind!r}: "
+                                  f"{ROADMAP_OTHER_TOWERS}")
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
     out: Dict[str, torch.Tensor] = {}
@@ -59,7 +67,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: CLIPConfig
 
 def to_jax_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """``CLIP`` state dict -> the JAX package's param pytree (nested dicts of
-    float32 numpy arrays, resblocks stacked on a leading layer axis)."""
+    float32 numpy arrays, resblocks stacked on a leading layer axis, a
+    ResNet stage a list of block dicts)."""
     tree: Dict[str, Any] = {}
     stacks: Dict[str, Dict[int, np.ndarray]] = {}
     for name, t in state_dict.items():
@@ -72,7 +81,7 @@ def to_jax_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             _insert(tree, name, arr)
     for name, layers in stacks.items():
         _insert(tree, name, np.stack([layers[i] for i in range(len(layers))]))
-    return tree
+    return _lists(tree)
 
 
 def _insert(tree: Dict[str, Any], dotted: str, value) -> None:
@@ -80,6 +89,16 @@ def _insert(tree: Dict[str, Any], dotted: str, value) -> None:
     for k in path:
         tree = tree.setdefault(k, {})
     tree[leaf] = value
+
+
+def _lists(tree):
+    """Turn every dict keyed 0..n-1 (a ResNet stage) back into a list."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _lists(v) for k, v in tree.items()}
+    if tree and all(k.isdigit() for k in tree):
+        return [tree[str(i)] for i in range(len(tree))]
+    return tree
 
 
 # per-block key stems: our slot -> the checkpoint's name (torch Linear
@@ -143,17 +162,57 @@ def _text_and_scale(sd, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
     return out
 
 
+def _conv(sd, key: str) -> torch.Tensor:
+    """A torch conv weight [O, I, kh, kw] -> the HWIO kernel."""
+    return _tensor(sd[key]).permute(2, 3, 1, 0).contiguous()
+
+
+def _bn(sd, src: str, dst: str, out: Dict[str, torch.Tensor]) -> None:
+    """A torch BatchNorm2d's affine and running statistics (its
+    ``num_batches_tracked`` is not read)."""
+    for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                         ("mean", "running_mean"), ("var", "running_var")):
+        out[f"{dst}.{ours}"] = _tensor(sd[f"{src}.{theirs}"])
+
+
+def _resnet_visual_from_openai(sd, out: Dict[str, torch.Tensor]) -> None:
+    """OpenAI's ModifiedResNet (the JAX package's
+    ``_resnet_visual_from_openai``): convs OIHW -> HWIO, BatchNorm
+    weight / bias / running_mean / running_var -> scale / bias / mean / var,
+    the pool's Linears [out, in] -> kernels [in, out]."""
+    for i in (1, 2, 3):
+        out[f"visual.conv{i}.kernel"] = _conv(sd, f"visual.conv{i}.weight")
+        _bn(sd, f"visual.bn{i}", f"visual.bn{i}", out)
+    for stage in range(1, 5):
+        for b in range(_layers(sd, f"visual.layer{stage}", "conv1")):
+            pre = f"visual.layer{stage}.{b}"
+            for i in (1, 2, 3):
+                out[f"{pre}.conv{i}.kernel"] = _conv(sd, f"{pre}.conv{i}.weight")
+                _bn(sd, f"{pre}.bn{i}", f"{pre}.bn{i}", out)
+            if f"{pre}.downsample.0.weight" in sd:
+                out[f"{pre}.downsample.conv.kernel"] = _conv(
+                    sd, f"{pre}.downsample.0.weight")
+                _bn(sd, f"{pre}.downsample.1", f"{pre}.downsample.bn", out)
+    ap = "visual.attnpool"
+    out[f"{ap}.positional_embedding"] = _tensor(sd[f"{ap}.positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        out[f"{ap}.{name}.kernel"] = _tensor(sd[f"{ap}.{name}.weight"]).T.contiguous()
+        out[f"{ap}.{name}.bias"] = _tensor(sd[f"{ap}.{name}.bias"])
+
+
 def params_from_openai_state_dict(sd: Mapping[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
-    """OpenAI CLIP state dict (ViT towers; torch ``nn.Linear`` weights are
-    ``[out, in]`` and transpose exactly once here) -> ``CLIP`` state dict.
-    The OpenAI-named export of a SLIP tree (the JAX package's
-    ``to_openai_state_dict``) carries ``visual.conv1.bias`` and no
-    ``visual.ln_pre.*``; both pass through as they are."""
+    """OpenAI CLIP state dict (torch ``nn.Linear`` weights are ``[out, in]``
+    and transpose exactly once here) -> ``CLIP`` state dict.  Both towers
+    have ``visual.conv1.weight``; ``visual.class_embedding`` tells a ViT
+    from a ModifiedResNet, as in the JAX package.  The OpenAI-named export
+    of a SLIP tree (the JAX package's ``to_openai_state_dict``) carries
+    ``visual.conv1.bias`` and no ``visual.ln_pre.*``; both pass through as
+    they are."""
     if "visual.class_embedding" not in sd:
-        raise NotImplementedError(
-            "only ViT checkpoints convert; ROADMAP.md queue 1 item 4 "
-            "(other towers: 4b ResNet)")
+        out: Dict[str, torch.Tensor] = {}
+        _resnet_visual_from_openai(sd, out)
+        return _text_and_scale(sd, out)
     out = {
         "visual.conv1.kernel": _patch_kernel(sd["visual.conv1.weight"]),
         "visual.class_embedding": _tensor(sd["visual.class_embedding"]),

@@ -12,6 +12,8 @@ The freezing policy (``trainable_mask``, the reference's requires_grad
 walk, model/model.py:291-334) is a dict of 0/1 multipliers keyed by the
 CLIP module's parameter names; the port's resblocks are one module per
 layer, so the JAX package's per-layer slice masks become per-module ones.
+A ModifiedResNet's parameters (stem, stages, attention pool) all classify
+as "other" and stay frozen, as in the reference's prefix policy.
 """
 
 from __future__ import annotations
@@ -123,8 +125,11 @@ def classify_params(clip: CLIP) -> Tuple[Dict[str, int], List[Dict[str, Any]]]:
 
 
 def layer_counts(clip: CLIP) -> Dict[str, int]:
-    """Per-tower resblock counts (reference metadata, model/model.py:74-80)."""
-    return {"image": len(clip.visual.resblocks), "text": len(clip.text.resblocks)}
+    """Per-tower resblock counts (reference metadata, model/model.py:74-80);
+    a tower without resblocks (a ModifiedResNet) counts 0, as in the JAX
+    package, so none of its layers can be trained."""
+    return {"image": len(getattr(clip.visual, "resblocks", ())),
+            "text": len(clip.text.resblocks)}
 
 
 def trainable_mask(clip: CLIP, debias_cfg: DebiasConfig) -> Dict[str, float]:

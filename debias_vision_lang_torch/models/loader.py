@@ -1,5 +1,6 @@
 """Model loader + ``ClipLike`` protocol (``debias_vision_lang_tpu/models/
-loader.py``), for the OpenAI CLIP and SLIP ViT architectures.
+loader.py``), for the OpenAI CLIP (ViT and ModifiedResNet) and SLIP ViT
+architectures.
 
 Weight resolution, in the JAX package's order:
   1. an explicit ``weights=`` path, honored whatever ``pretrained`` says;
@@ -9,7 +10,8 @@ Weight resolution, in the JAX package's order:
   4. ``pretrained=False`` -> random init from ``seed``; an unresolved
      ``pretrained=True`` warns and falls back to random init.
 A checkpoint's key naming picks its converter (``_dispatch_state_dict``):
-HuggingFace, facebookresearch/SLIP or OpenAI CLIP.  Nothing here touches
+HuggingFace, facebookresearch/SLIP or OpenAI CLIP (a ViT or a ResNet, as
+OpenAI ships RN50 in a TorchScript archive).  Nothing here touches
 the network: the JAX loader's networked retry of the HuggingFace lookup is
 not ported, so weights are put in place beforehand.
 """
@@ -30,7 +32,7 @@ from ..text import load_bpe_tokenizer
 from ..utils.device import resolve_device
 from ..vision.preprocess import build_preprocess
 from . import convert
-from .clip import CLIP, ROADMAP_OTHER_TOWERS, VIT_KINDS, init_clip_params
+from .clip import CLIP, ROADMAP_OTHER_TOWERS, TOWER_KINDS, init_clip_params
 
 _HF_NAMES = {
     "ViT-B/16": "openai/clip-vit-base-patch16",
@@ -66,13 +68,22 @@ def _read_state_dict(path: str) -> Dict[str, Any]:
     return {k[7:] if k.startswith("module.") else k: v for k, v in obj.items()}
 
 
+def tower_kind(params: Mapping[str, Any]) -> str:
+    """The image tower's kind of a converted ``CLIP`` state dict."""
+    if any(k.startswith("visual.layer1.") for k in params):
+        return "resnet"
+    return "vit" if "visual.ln_pre.scale" in params else "slip_vit"
+
+
 def _dispatch_state_dict(obj: Mapping[str, Any], cfg: Optional[CLIPConfig] = None
                          ) -> Dict[str, torch.Tensor]:
     """Route a flat state dict to its converter by key naming: HuggingFace
     ``CLIPModel`` (``text_model.*``), facebookresearch/SLIP
     (``visual.blocks.*``), m-bain/frozen-in-time (``video_model.*``, not
-    ported), else OpenAI CLIP.  With ``cfg``, the converted tower must be of
-    its kind (a SLIP tree has a conv bias and no pre-LN)."""
+    ported), else OpenAI CLIP.  The converted tree's contents give its
+    kind: ``visual.layer1.*`` a ResNet, ``visual.ln_pre.*`` an OpenAI ViT,
+    any other a SLIP ViT (a conv bias and no pre-LN).  With ``cfg``, it must
+    be of the architecture's kind."""
     if "state_dict" in obj and not hasattr(obj["state_dict"], "shape"):
         obj = obj["state_dict"]
     keys = [k[7:] if k.startswith("module.") else k for k in obj]
@@ -87,7 +98,7 @@ def _dispatch_state_dict(obj: Mapping[str, Any], cfg: Optional[CLIPConfig] = Non
     else:
         params = convert.params_from_openai_state_dict(
             convert.strip_prefix(dict(obj)))
-    kind = "vit" if "visual.ln_pre.scale" in params else "slip_vit"
+    kind = tower_kind(params)
     if cfg is not None and cfg.vision.kind != kind:
         raise ValueError(f"the checkpoint holds a {kind!r} image tower, the "
                          f"architecture {cfg.name!r} a {cfg.vision.kind!r} one")
@@ -136,7 +147,7 @@ def model_loader(model_name: str, device="cuda", jit: bool = False,
         raise NotImplementedError(
             f"{model_name} not found, should be one of.. {VALID_MODELS}")
     cfg = resolve_arch(model_name)
-    if cfg.vision.kind not in VIT_KINDS:
+    if cfg.vision.kind not in TOWER_KINDS:
         raise NotImplementedError(f"{model_name} ({cfg.vision.kind} tower): "
                                   f"{ROADMAP_OTHER_TOWERS}")
     alias = alias_name(model_name)

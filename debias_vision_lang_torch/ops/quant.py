@@ -1,9 +1,10 @@
 """Int8 inference for the ViT families (OpenAI CLIP and SLIP): weight
 quantization, the plain int8 layers, the int8 stems and towers, and
-``QuantizedCLIP``.
+``QuantizedCLIP``, which also takes a ModifiedResNet (its int8 tower is
+``ops/quant_resnet.py``).
 
-Counterpart of ``debias_vision_lang_tpu/ops/quant.py`` ("vit" and
-"slip_vit" towers):
+Counterpart of ``debias_vision_lang_tpu/ops/quant.py`` ("vit",
+"slip_vit" and "resnet" towers):
 symmetric per-output-channel int8 weights (``quantize_weight``, bit-exact
 against the JAX function) and dynamic per-row int8 activations on the four
 matmuls of every residual block; LayerNorms, softmax, residuals and the
@@ -16,19 +17,20 @@ pre-LN and runs the erf GELU: ``act_kind="gelu"`` in the fused blocks, the
 exact ``layers.gelu`` in the plain int8 layers; its conv bias rides on the
 float stem and, folded, on the uint8 one.
 
-Not ported: the resnet and video towers (ROADMAP.md queue 1 items 4b, 4c), the
-TPU's hybrid long-sequence branch and VMEM gates, the u8 stem (off every
-default path), and the "auto" rung (queue 1 item 8).
+Not ported: the video towers (ROADMAP.md queue 1 item 4c), the TPU's hybrid
+long-sequence branch and VMEM gates, the u8 stem (off every default path),
+and the "auto" rung (queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ..models.clip import (CLIP, ROADMAP_OTHER_TOWERS, VIT_KINDS, _use_fused_blocks,
+from ..models.clip import (CLIP, ROADMAP_OTHER_TOWERS, TOWER_KINDS, _use_fused_blocks,
                            add_positional, embed_tokens,
                            fold_preprocess_into_patch, is_patch_staging,
                            pool_and_project, project_eot)
@@ -285,21 +287,27 @@ class QuantizedCLIP(nn.Module):
     """A CLIP or DebiasCLIP bundle with an int8 image tower, and with an int8
     text tower too when ``quantize_text``.  The int8 weights and scales are
     buffers on the base model's device; the float parameters are the base's.
-    Text runs through the float base unless ``quantize_text``."""
+    Text runs through the float base unless ``quantize_text``.  A
+    ModifiedResNet's int8 tower is ``ops/quant_resnet.py``'s."""
 
     def __init__(self, base: nn.Module, quantize_text: bool = False):
         super().__init__()
         clip = base.clip if isinstance(base, DebiasCLIP) else base
         cfg = getattr(base, "clip_cfg", None) or getattr(base, "cfg", None)
         kind = getattr(getattr(cfg, "vision", None), "kind", None)
-        if kind not in VIT_KINDS or not isinstance(clip, CLIP):
+        if kind not in TOWER_KINDS or not isinstance(clip, CLIP):
             raise NotImplementedError(
                 f"the int8 rung runs CLIP / DebiasCLIP bundles with OpenAI ViT "
-                f"towers or SLIP's, not vision kind {kind!r} ({type(base).__name__}); "
-                f"{ROADMAP_OTHER_TOWERS}")
+                f"towers, SLIP's or ModifiedResNets, not vision kind {kind!r} "
+                f"({type(base).__name__}); {ROADMAP_OTHER_TOWERS}")
         self.base = base
         self.cfg = cfg
-        self.visual_q = QuantVisual(clip.visual)
+        if kind == "resnet":
+            from .quant_resnet import quantize_resnet_visual
+
+            self.visual_q = quantize_resnet_visual(clip.visual)
+        else:
+            self.visual_q = QuantVisual(clip.visual)
         self.text_q = QuantText(clip.text) if quantize_text else None
 
     @property
@@ -310,6 +318,10 @@ class QuantizedCLIP(nn.Module):
                      fused: Optional[bool] = None) -> torch.Tensor:
         dtype = dtype or torch.bfloat16
         vis = self.cfg.vision
+        if vis.kind == "resnet":  # before the staging test: patch_size is 32
+            from .quant_resnet import encode_image_resnet_q
+
+            return encode_image_resnet_q(self.visual_q, images, dtype=dtype)
         if is_patch_staging(images, vis):
             return encode_image_vit_q_p8(self.visual_q, images, dtype=dtype,
                                          fused=fused)
@@ -342,12 +354,20 @@ def resolve_compute(model, dtype: str):
     "int8-text") and run bfloat16 activations between the int8 blocks;
     "bfloat16" / "float32" leave it as is.  "auto" picks the fastest
     measured rung per tower family in the JAX package; the port has no H100
-    measurements of every rung yet, so it raises."""
+    measurements of every rung yet, so it raises.  An int8 rung on a
+    ModifiedResNet runs, and warns when it wraps the bundle: there it buys
+    4x smaller weights, not throughput (PERF.md has the card's ratio)."""
     if dtype == "auto":
         raise NotImplementedError(f"dtype='auto' is not ported yet: {ROADMAP_AUTO}")
     if dtype in INT8_RUNGS:
         if not isinstance(model, QuantizedCLIP):
             model = QuantizedCLIP(model, quantize_text=dtype == "int8-text")
+            if model.cfg.vision.kind == "resnet":
+                warnings.warn(
+                    f"dtype={dtype!r} on a ModifiedResNet tower: int8 buys 4x "
+                    f"smaller weights, not throughput; its speed against "
+                    f"dtype='bfloat16' is measured in PERF.md. Use "
+                    f"dtype='bfloat16' for speed.", UserWarning, stacklevel=2)
         return model, torch.bfloat16
     if dtype in DTYPES:
         return model, DTYPES[dtype]

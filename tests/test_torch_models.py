@@ -230,11 +230,21 @@ class TestFromCfg:
         assert preprocess.n_px == 224
         assert len(model.clip.visual.resblocks) == 12
 
-    @pytest.mark.parametrize("name", ["openai/CLIP/RN50", "not/a/model"])
+    @pytest.mark.parametrize("name", ["not/a/model"])
     def test_unported_or_unknown_arch_raises(self, name):
         with pytest.raises(NotImplementedError):
             tdebias.DebiasCLIP.from_cfg({"CLIP_ARCH": name, "PRETRAINED": False},
                                         device="cpu")
+
+    @pytest.mark.parametrize("name", ["openai/CLIP/RN50", "openai/CLIP/RN50x4"])
+    def test_resnet_archs_build(self, name):
+        from debias_vision_lang_torch.models.resnet import ModifiedResNet
+
+        model, preprocess, _, _ = tdebias.DebiasCLIP.from_cfg(
+            {"CLIP_ARCH": name, "PRETRAINED": False}, device="cpu")
+        assert isinstance(model.clip.visual, ModifiedResNet)
+        assert preprocess.n_px == model.clip_cfg.vision.image_size
+        assert model.debias_tokens.shape == (2, model.clip_cfg.text.width)
 
 
 class TestPreprocess:

@@ -311,15 +311,30 @@ class TestTowers:
 
 class TestLadder:
     def test_non_vit_tower_raises_naming_roadmap(self):
-        cfg = CLIPConfig(name="rn", vision=VisionConfig(kind="resnet", image_size=64, width=16,
-                                                        layers=(1, 1, 1, 1), heads=8,
-                                                        embed_dim=32),
+        cfg = CLIPConfig(name="fit", vision=VisionConfig(kind="video_vit", image_size=32,
+                                                         patch_size=8, width=64, layers=1,
+                                                         heads=1, embed_dim=32),
                          text=CFG.text)
         cfg = port_config(cfg)
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             quant.QuantizedCLIP(types.SimpleNamespace(cfg=cfg))
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             quant.resolve_compute(types.SimpleNamespace(cfg=cfg), "int8")
+
+    def test_resnet_tower_takes_the_int8_rung(self):
+        from debias_vision_lang_torch.ops.quant_resnet import QuantResNet
+
+        cfg = port_config(CLIPConfig(
+            name="rn", vision=VisionConfig(kind="resnet", image_size=64, patch_size=32,
+                                           width=16, layers=(1, 1, 1, 1), heads=8,
+                                           embed_dim=32), text=CFG.text))
+        model = tclip.CLIP(cfg)
+        model.load_state_dict(tclip.init_clip_params(cfg))
+        with pytest.warns(UserWarning, match="ModifiedResNet"):
+            qm, dt = quant.resolve_compute(model, "int8")
+        assert isinstance(qm.visual_q, QuantResNet) and dt == torch.bfloat16
+        out = qm.encode_image(torch.zeros(1, 64, 64, 3))
+        assert out.shape == (1, 32) and torch.isfinite(out.float()).all()
 
     def test_auto_raises_naming_roadmap(self, pair):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):

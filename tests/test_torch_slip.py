@@ -102,13 +102,23 @@ class TestTree:
         sd = tclip.init_clip_params(cfg)
         assert "visual.ln_pre.scale" in sd and "visual.conv1.bias" not in sd
 
-    @pytest.mark.parametrize("kind", ["resnet", "video_vit"])
+    @pytest.mark.parametrize("kind", ["video_vit"])
     def test_other_towers_still_refused(self, kind):
         cfg = port_config(CLIPConfig(name="x", vision=VisionConfig(
             kind=kind, image_size=32, patch_size=8, width=64, layers=1, heads=1,
             embed_dim=16), text=CFG.text))
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             tclip.CLIP(cfg)
+
+    def test_resnet_tower_builds(self):
+        from debias_vision_lang_torch.models.resnet import ModifiedResNet
+
+        cfg = port_config(CLIPConfig(name="x", vision=VisionConfig(
+            kind="resnet", image_size=64, patch_size=32, width=16, layers=(1, 1, 1, 1),
+            heads=8, embed_dim=16), text=CFG.text))
+        model = tclip.CLIP(cfg)
+        assert isinstance(model.visual, ModifiedResNet)
+        assert "visual.layer4.0.downsample.bn.var" in model.state_dict()
 
 
 class TestFloat32:
