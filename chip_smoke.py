@@ -17,8 +17,10 @@ Phases (any failure exits non-zero before the final line):
      attention library; the int8 library must hold no mma.sync (HMMA.,
      IMMA.) at all; and per kernel, each of the six instantiations of K5's
      long route (attention_long_kernel at bf16 and f32, head dims 64, 128,
-     192) must hold its own forms, bf16 wgmma (HGMMA ... BF16) or tf32 wgmma
-     (HGMMA ... TF32) and TMA loads (UTMALDG), and no mma.sync (HMMA.);
+     192, heads-first) and, in the bf16 and int8 libraries, the packed one
+     K1 and K3 run past 320 keys must hold its own forms, bf16 wgmma
+     (HGMMA ... BF16) or tf32 wgmma (HGMMA ... TF32) and TMA loads
+     (UTMALDG), and no mma.sync (HMMA.);
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
@@ -30,7 +32,13 @@ Phases (any failure exits non-zero before the final line):
      B=256 image shapes of ViT-B/16 and of SLIP-L (phase 17) and at the bf16
      text tower's B=319 shapes (D=512, and D=640 for RN50x4); tolerance: max |kernel - twin| <= one bf16
      ulp of the twin's largest magnitude (SLIP-L's inputs come from a
-     generator of their own, as do RN50x4's).  At B=8 and at the ragged M each
+     generator of their own, as do RN50x4's), and past the wgmma core's 320
+     keys, on its long route (csrc/attention_long.cuh), at S = 321, 383,
+     384, 385, 400 and 785 (and 320, still short), B=8 D=768 H=12, causal
+     and not, x and x/16, the core-route counters showing one launch on
+     the route fused_block.core_route names; K1 at B=32 S=785 (the
+     Frozen-in-Time joint tower's measurement shape) timed, its core split
+     out and held against the core's own bound.  At B=8 and at the ragged M each
      block also runs on a residual stream scaled by 1/16, where the output is
      mostly the block's own contribution, so the bar is tight against the
      attention / MLP math and not only against the residual.  At B=256 (both
@@ -58,7 +66,15 @@ Phases (any failure exits non-zero before the final line):
      act_kind="gelu" MLP, and SLIP-L's blocks (B=8, x and x/16, D=1024 H=16,
      the gelu MLP at F=4096 = MAX_ROW, the widest hidden row the quantize
      pass holds), and RN50x4's text blocks (B=8, x and x/16, D=640 H=10,
-     causal, F=2560; and B=319); the same 1-ulp bar on the output, and on the int8
+     causal, F=2560; and B=319), and K3 at S = 320-785 as K1 in phase 3
+     (long route and counters) and K3 and K4 (gelu, F=3072) at B=32 S=785
+     timed (the kernels line's FiT rows, launches: phase 19), K3's core
+     split out; on K3's long route the bars are its attention rows within
+     1 bf16 ulp of the twin's core and its output within 1 bf16 ulp of the
+     twin's out-projection of the kernel's own codes, beside the code bars
+     below (an int8 code the code bar admits moves an output by a code step
+     through wo, past 1 ulp of the twin's output at times: PERF.md section
+     6, PR 13); everywhere else the same 1-ulp bar on the output, and on the int8
      codes of the quantized rows (LN output, attention output, MLP hidden):
      the twin's quantizer applied to the kernel's own rows gives the kernel's
      codes and scales exactly, and the codes differ from the twin's in at
@@ -241,8 +257,37 @@ Phases (any failure exits non-zero before the final line):
      (image rows at bf16 and text rows at float32 bit-equal) and the bf16
      serving engine (buckets 1 and 64 bit-equal to the direct call on the
      same staged batch, no launch).
-The kernels line comes after phase 18 (its SLIP-L rows take phase 17's
-launch counts, its RN50x4 text rows phase 18's) and gives each kernel's launches, error, time, plain-twin time,
+ 19. the Frozen-in-Time video family at full width and depth
+     (m-bain/frozen-in-time/base: ViT-B/16 over 4 frames, 768 wide, 12
+     layers and heads, embed 256, ImageNet statistics; CLIP's 512-wide
+     text tower), a DebiasCLIP with 2 prompt tokens, random init from seed
+     0, the temporal embedding and every temporal out-projection redrawn
+     from a seeded generator (the init zeroes them: the divided tower's
+     temporal attention would be the identity); 256 written videos (128
+     frame directories of 6 PNGs named frame_2 .. frame_12, so only a
+     natural sort orders them, and 128 GIFs of 6 palette frames, 224 px;
+     a labels.csv in FairFace's vocabulary), each subsampled to 4 frames;
+     for each formulation, joint (S = 785) and divided: measure_bias(
+     dataset="video", batch 32, the 319 prompts, byte tokenizer) at
+     float32, bfloat16, int8 and int8-text with the counters set to 0 before
+     each: metrics equal to the ranking of the rows it cached and to the
+     numpy oracle within 1e-5; rows against float32 at cosine >= 0.999
+     (bf16) and 0.99 (int8 rungs); launches: none at float32 and bf16 (the
+     video towers run plain, as in JAX; the bf16 text tower, run beside
+     it, 12 causal K1 + 12 K2), 96 K3 + 96 K4 at int8 (joint: every K3 on
+     the long core route; divided: on the short one), int8-text 12 causal
+     K3 + 12 K4 more; videos/s and frames/s at B=32 per rung (CUDA events)
+     and each measurement's wall; use_pallas=True on 8 videos at float32
+     and bf16 through encode_image: 12 long-route K5 launches (joint), 24
+     short-route (divided), held to use_pallas=False (2e-5 of the largest
+     magnitude; cosine >= 0.9999); the float32 witness (2 videos, card vs
+     the CPU port, 1e-4 of the largest magnitude); an m-bain-named .pt
+     ({"state_dict": {"module.video_model.*", "module.vid_proj.0.*"}})
+     loaded through model_loader bit-equal, "divided" as trained and
+     "joint" once timeattn.proj is zeroed; the joint tower's cache file
+     refused for the divided tower built from the same tensors.
+The kernels line comes after phase 19 (its SLIP-L rows take phase 17's
+launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -250,7 +295,9 @@ its 3xTF32 design runs them) and the library call's time where one PyTorch
 call computes the same function.  K1-K4 have a row at ViT-B/16's B=256
 image shapes (launches: phases 4 and 7), one at SLIP-L's (launches:
 phase 17) and one at RN50x4's text shapes, B=319 S=77 D=640 causal
-(launches: phase 18); each row names its "case".  K5 has two rows on its short route:
+(launches: phase 18); K3 and K4 one at the int8 joint Frozen-in-Time
+tower's B=32 S=785 D=768 (launches: phase 19; K3 on its long core, whose
+time alone is its "core_ms"); each row names its "case".  K5 has two rows on its short route:
 float32 causal B=319 S=77 (the text shape) and float32 B=64 S=197 (the image
 shape that holds most of its training launches); its long route two more,
 float32 and bfloat16 at B=8 H=12 S=785 with a zero mask, whose launches are
@@ -295,6 +342,25 @@ HBM_BYTES_PER_S = 3.35e12
 IMAGE_TOWERS = (("ViT-B/16", 768, 12, "quick_gelu", 7), ("SLIP-ViT-L/16", 1024, 16, "gelu", 9))
 SLIP_ARCH, SLIP_LAYERS = "facebookresearch/SLIP/ViT-L/16", 24
 RN_TEXT = (640, 10)  # RN50x4's text tower: width and heads (phases 3, 6 and 18)
+# K1 / K3 past the register core's 320 keys (phases 3 and 6): a ragged last
+# key tile, both sides of the long route's 128-query block, and the
+# Frozen-in-Time joint tower's 1 + 4 x 196 tokens; S = 320 stays short
+LONG_CORE_S = (320, 321, 383, 384, 385, 400, 785)
+FIT_JOINT_S = 785
+
+
+def core_work(b, h, s):
+    """K1 / K3's attention core alone: Q K^T and P V (4 B H S^2 64 bf16
+    operations, the minimum; the long route computes Q K^T twice) against
+    qkv read and attn written once."""
+    d = h * 64
+    return {"bf16": 4 * b * h * s * s * 64}, b * s * 3 * d * 2 + b * s * d * 2
+
+
+def routes_of(mod, s):
+    """The core-route counts one launch of ``mod``'s attention block at
+    ``s`` keys leaves."""
+    return {r: int(r == mod.core_route(s)) for r in ("short", "long")}
 
 
 def check(cond, msg):
@@ -398,14 +464,18 @@ class SyntheticScenes(SyntheticFaces):
 
     def scene(self, i: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed + i)
-        grid = rng.uniform(0, 255, (4, 4, 3))
-        t = np.clip((np.arange(self.px) + 0.5) * 4 / self.px - 0.5, 0, 3)
-        i0 = np.floor(t).astype(int)
-        i1, w = np.minimum(i0 + 1, 3), t - i0
-        rows = grid[i0] * (1 - w)[:, None, None] + grid[i1] * w[:, None, None]
-        img = rows[:, i0] * (1 - w)[None, :, None] + rows[:, i1] * w[None, :, None]
+        img = upsample_grid(rng.uniform(0, 255, (4, 4, 3)), self.px)
         img = img + rng.integers(-64, 65, (self.px, self.px, 3))
         return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def upsample_grid(grid, px):
+    """A 4 x 4 x 3 colour grid bilinearly upsampled to px x px (float)."""
+    t = np.clip((np.arange(px) + 0.5) * 4 / px - 0.5, 0, 3)
+    i0 = np.floor(t).astype(int)
+    i1, w = np.minimum(i0 + 1, 3), t - i0
+    rows = grid[i0] * (1 - w)[:, None, None] + grid[i1] * w[:, None, None]
+    return rows[:, i0] * (1 - w)[None, :, None] + rows[:, i1] * w[None, :, None]
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -415,10 +485,11 @@ def print_ptxas(lib: str, log: str) -> None:
         m = re.search(r"Compiling entry function '\w*?"
                       r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
                       r"layer_norm_kernel|quant_rows_kernel|attention_f32_kernel|"
-                      r"attention_long_kernel)(I(?:Li\d+E|13__nv_bfloat16|f)+E)?", line)
+                      r"attention_long_kernel)(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
-            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE"))
-                    for a in re.findall(r"Li\d+E|13__nv_bfloat16|f", m.group(2) or "")]
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "packed",
+                     "Lb0E": "heads"}.get(a, a.strip("LiE"))
+                    for a in re.findall(r"Li\d+E|Lb[01]E|13__nv_bfloat16|f", m.group(2) or "")]
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -480,33 +551,40 @@ def sass_functions(path):
     return {p.split("\n", 1)[0].strip(): p for p in parts}
 
 
-def sass_check_long(path) -> None:
-    """Each instantiation of attention_long_kernel: SASS_LONG[dtype] present,
-    no HMMA. (mma.sync); a missing instantiation or form fails the run."""
+def sass_check_long(lib, path) -> None:
+    """Each instantiation of attention_long_kernel in one library:
+    SASS_LONG[dtype] present, no HMMA. (mma.sync); a missing instantiation
+    or form fails the run.  The attention library (K5) holds the
+    heads-first source at bf16 and f32, head dims 64, 128 and 192; the
+    fused-block libraries (K1, K3) the packed source at bf16, head dim 64."""
     funcs = sass_functions(path)
     if funcs is None:
-        print("sass long route: no cuobjdump found: the per-kernel forms are not checked")
+        print(f"sass long route {lib}: no cuobjdump found: the per-kernel forms are not checked")
         return
-    seen = {"bf16": 0, "f32": 0}
+    seen = {}
     for name, body in funcs.items():
-        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)E", name)
+        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E", name)
         if not m:
             continue
         dt = "bf16" if m.group(1) == "13__nv_bfloat16" else "f32"
-        seen[dt] += 1
+        src = "packed" if m.group(3) == "1" else "heads"
+        seen[(dt, src)] = seen.get((dt, src), 0) + 1
         counts = {op: len(re.findall(SASS_OPS_LONG[op], body))
                   for op in SASS_LONG[dt] + ("HMMA",)}
         forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", body)))
-        print(f"sass attention_long_kernel<{dt}, hdp {64 * int(m.group(2))}>: {counts}; "
-              f"forms {forms}")
+        tag = f"attention_long_kernel<{dt}, hdp {64 * int(m.group(2))}, {src}>"
+        print(f"sass {lib} {tag}: {counts}; forms {forms}")
         missing = [op for op in SASS_LONG[dt] if counts[op] == 0]
-        check(not missing, f"attention_long_kernel<{dt}, {m.group(2)}> has no {missing} "
-                           f"instructions in its SASS")
-        check(counts["HMMA"] == 0,
-              f"attention_long_kernel<{dt}, {m.group(2)}> runs mma.sync (HMMA.)")
-    check(seen == {"bf16": 3, "f32": 3},
-          f"attention_long_kernel instantiations in the SASS: {seen}, expected 3 each "
-          f"(head dims 64, 128, 192)")
+        check(not missing, f"{tag} has no {missing} instructions in its SASS")
+        check(counts["HMMA"] == 0, f"{tag} runs mma.sync (HMMA.)")
+    if lib == "attention":
+        check(seen.get(("bf16", "heads")) == 3 and seen.get(("f32", "heads")) == 3,
+              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected 3 "
+              f"heads-first each (head dims 64, 128, 192)")
+    else:
+        check(seen == {("bf16", "packed"): 1},
+              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected the "
+              f"packed bf16 one (K1 / K3 past 320 keys)")
 
 
 def sass_check(lib, path) -> None:
@@ -572,7 +650,7 @@ def split_label(key: str) -> str:
         return SPLIT_NAMES[short]
     if kernel == "quant_rows_kernel":
         return "quantize x" if "bfloat16" in (args or "") else "quantize h"
-    return "core" if kernel == "attention_wgmma_kernel" else short
+    return "core" if kernel in ("attention_wgmma_kernel", "attention_long_kernel") else short
 
 
 def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5, rename=None):
@@ -605,6 +683,7 @@ def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5, rename=None)
     parts.sort(key=lambda p: SPLIT_ORDER.index(p[0]) if p[0] in SPLIT_ORDER else len(SPLIT_ORDER))
     print(f"split {name}: " + "; ".join(p[2] for p in parts)
           + f"; sum {sum(p[1] for p in parts):.4f} ms ({card})")
+    return {p[0]: p[1] for p in parts}
 
 
 def kernel_phase(fb, device, card):
@@ -679,6 +758,24 @@ def kernel_phase(fb, device, card):
         for act in fb.ACT_KINDS:
             compare(f"mlp_block {tag} F=2048 {act}", x, fb.mlp_block(x, *mlp, act_kind=act),
                     fb.mlp_block_plain(x, *mlp, act_kind=act))
+    # past 320 keys: the core's long route (a generator of its own, so every
+    # case above keeps its draws)
+    attn_l, _ = block_params(768, device, seed=FIT_JOINT_S)
+    g_long = torch.Generator().manual_seed(FIT_JOINT_S)
+    for s_ in LONG_CORE_S:
+        for causal in (False, True):
+            for scale in (1.0, 1 / 16):
+                x = (torch.randn(8, s_, 768, generator=g_long) * scale).to(device,
+                                                                            torch.bfloat16)
+                fb.reset_launches()
+                got = fb.attention_block(x, *attn_l, heads=12, causal=causal)
+                routes = dict(fb.CORE_ROUTES)
+                compare(f"attention_block B=8 S={s_} D=768 H=12 x~N(0,{scale}^2) "
+                        f"causal={causal} ({fb.core_route(s_)} core)", x, got,
+                        fb.attention_block_plain(x, *attn_l, heads=12, causal=causal))
+                check(routes == routes_of(fb, s_),
+                      f"attention_block S={s_}: core routes {routes}, expected "
+                      f"{routes_of(fb, s_)}")
     torch.cuda.synchronize()
 
     rows = []
@@ -705,6 +802,23 @@ def kernel_phase(fb, device, card):
                         lambda: fb.mlp_block(x, *mlp, act_kind=act),
                         {"up GEMM": 2 * m * d * f, "down GEMM": 2 * m * d * f}, card)
         del x, attn, mlp
+    # K1 at the Frozen-in-Time joint tower's measurement shapes, B=32 S=785:
+    # the block timed, and its long core against the core's own bound
+    x = torch.randn(32, FIT_JOINT_S, 768, generator=g_long).to(device, torch.bfloat16)
+    case = f"FiT joint B=32 S={FIT_JOINT_S} D=768 (long core)"
+    err = compare(f"attention_block {case}", x, fb.attention_block(x, *attn_l, heads=12),
+                  fb.attention_block_plain(x, *attn_l, heads=12))
+    long_row = kernel_row("attention_block", case, "fused_block", 69, err,
+                          cuda_ms(lambda: fb.attention_block(x, *attn_l, heads=12), iters=5),
+                          cuda_ms(lambda: fb.attention_block_plain(x, *attn_l, heads=12),
+                                  iters=3),
+                          attention_block_work(32, FIT_JOINT_S, 768))
+    parts = subkernel_split(f"attention_block {case} H=12",
+                            lambda: fb.attention_block(x, *attn_l, heads=12),
+                            {"QKV GEMM": 2 * 32 * FIT_JOINT_S * 768 * 3 * 768,
+                             "out GEMM": 2 * 32 * FIT_JOINT_S * 768 * 768}, card)
+    long_row["core_ms"] = parts.get("core")
+    del x
     # the bf16 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -737,7 +851,7 @@ def kernel_phase(fb, device, card):
         rows.append(kernel_row(name, case, "fused_block", line, err,
                                cuda_ms(lambda: kern(xr, *args, **kw)),
                                cuda_ms(lambda: plain(xr, *args, **kw)), work))
-    return rows, text_ms
+    return rows, text_ms, long_row
 
 
 def kernel_row(name, case, lib, line, err, ms, plain_ms, work):
@@ -773,7 +887,7 @@ def kernel_phase_q(fbq, device, card):
     counts, and the text-shape times."""
     import torch
 
-    def compare(name, kern, plain, x, block, kw):
+    def compare(name, kern, plain, x, block, kw, long_core=False):
         args, qkw = block
         sk, sr = {}, {}
         got = kern(x, *args, **kw, **qkw, scratch=sk)
@@ -784,7 +898,25 @@ def kernel_phase_q(fbq, device, card):
         tol = ulp_bf16(mag)
         print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of "
               f"max |twin| {mag}; max |twin - x| {own})")
-        check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
+        if long_core:
+            # the long core's own rows against the twin's core, and the
+            # output against the twin's last step on the kernel's own codes
+            core_err = (sk["attn"] - sr["attn"]).abs().max().item()
+            core_tol = ulp_bf16(sr["attn"].abs().max().item())
+            own_codes = (x.float() + (fbq.dot_q(sk["aq"], sk["as"], args[5], args[6])
+                                      + args[7].float())).to(x.dtype)
+            code_err = (got.float() - own_codes.float()).abs().max().item()
+            code_tol = ulp_bf16(own_codes.float().abs().max().item())
+            print(f"  long core: attention rows vs the twin's max |diff| {core_err} (bar "
+                  f"{core_tol}, 1 bf16 ulp); output vs the twin's out-projection of the "
+                  f"kernel's own codes {code_err} (bar {code_tol})"
+                  + ("; past 1 ulp of the twin only through codes the code bar admits"
+                     if err > tol else ""))
+            check(core_err <= core_tol, f"{name}: the long core disagrees with the twin's")
+            check(code_err <= code_tol, f"{name}: the out-projection of its own codes is off")
+        else:
+            check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
+        check(math.isfinite(err), f"{name}: non-finite output")
         n_codes = n_diff = 0
         for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as"), ("hq", "h", "hs")):
             if codes not in sk:
@@ -857,6 +989,21 @@ def kernel_phase_q(fbq, device, card):
                     {"heads": 8, "causal": causal})
         for act in ("quick_gelu", "gelu"):
             compare(f"mlp_block_q {tag} F=2048 {act}", *mlp_fns, x, mlp, {"act_kind": act})
+    # past 320 keys: the core's long route (a generator of its own)
+    attn_l, mlp_l = q_block_params(768, device, seed=FIT_JOINT_S)
+    g_long = torch.Generator().manual_seed(FIT_JOINT_S + 1)
+    for s_ in LONG_CORE_S:
+        for causal in (False, True):
+            for scale in (1.0, 1 / 16):
+                x = (torch.randn(8, s_, 768, generator=g_long) * scale).to(device,
+                                                                            torch.bfloat16)
+                fbq.reset_launches()
+                compare(f"attention_block_q B=8 S={s_} D=768 H=12 x~N(0,{scale}^2) "
+                        f"causal={causal} ({fbq.core_route(s_)} core)", *attn_fns, x, attn_l,
+                        {"heads": 12, "causal": causal}, long_core=s_ > 320)
+                check(fbq.CORE_ROUTES == routes_of(fbq, s_),
+                      f"attention_block_q S={s_}: core routes {fbq.CORE_ROUTES}, expected "
+                      f"{routes_of(fbq, s_)}")
     torch.cuda.synchronize()
 
     rows = []
@@ -884,6 +1031,30 @@ def kernel_phase_q(fbq, device, card):
                         {"up GEMM": 2 * m * d * f, "down GEMM": 2 * m * d * f}, card,
                         kind="int8")
         del x, attn, mlp
+    # K3 and K4 at the int8 joint Frozen-in-Time tower's shapes, B=32 S=785:
+    # timed (rows of the kernels line, launches: phase 19), K3's long core
+    # against the core's own bound
+    x = torch.randn(32, FIT_JOINT_S, 768, generator=g_long).to(device, torch.bfloat16)
+    case = f"FiT joint B=32 S={FIT_JOINT_S} D=768 (long core)"
+    for name, (kern, plain), block, kw, line, work in (
+            ("attention_block_q", attn_fns, attn_l, {"heads": 12}, 62,
+             attention_block_work(32, FIT_JOINT_S, 768, weights="int8")),
+            ("mlp_block_q", mlp_fns, mlp_l, {"act_kind": "gelu"}, 106,
+             mlp_block_work(32, FIT_JOINT_S, 768, 3072, weights="int8"))):
+        core = name == "attention_block_q"
+        row_case = case if core else case.replace(" (long core)", "")
+        err = compare(f"{name} {row_case} (int8 joint tower)", kern, plain, x, block, kw,
+                      long_core=core)
+        rows.append(kernel_row(name, row_case, "fused_block_q", line, err,
+                               cuda_ms(lambda: kern(x, *block[0], **kw, **block[1]), iters=5),
+                               cuda_ms(lambda: plain(x, *block[0], **kw), iters=3), work))
+    m = 32 * FIT_JOINT_S
+    parts = subkernel_split(f"attention_block_q {case} H=12",
+                            lambda: fbq.attention_block_q(x, *attn_l[0], heads=12, **attn_l[1]),
+                            {"QKV GEMM": 2 * m * 768 * 3 * 768, "out GEMM": 2 * m * 768 * 768},
+                            card, kind="int8", rename={"quantize x": QUANT_X_ATTN})
+    rows[-2]["core_ms"] = parts.get("core")
+    del x
     # the int8 text tower's shapes (causal attention), timed too
     attn_t, mlp_t = q_block_params(512, device, seed=11)
     xt = torch.randn(319, 77, 512, generator=g).to(device, torch.bfloat16)
@@ -2713,6 +2884,423 @@ def resnet_checkpoint_and_serving(model, x, tokens, tok, card, device, counters)
         check(sum(launches.values()) == 0, f"phase 18: the image dispatch launched {launches}")
 
 
+# phase 19: the Frozen-in-Time video family at full width and depth
+FIT_ARCH = "m-bain/frozen-in-time/base"
+FIT_VIDEOS, FIT_BATCH, FIT_FRAMES, FIT_FILE_FRAMES = 256, 32, 4, 6
+FIT_RUNGS = ("float32", "bfloat16", "int8", "int8-text")
+FIT_COS = {"bfloat16": 0.999, "int8": 0.99, "int8-text": 0.99}  # rows vs float32
+FIT_F32_TOL = 1e-4  # card vs CPU float32 tower, of the CPU's largest magnitude
+FIT_PALLAS_F32_TOL = 2e-5  # use_pallas vs not at float32, of the largest magnitude
+FIT_PALLAS_COS = 0.9999  # the same at bfloat16
+FAIRFACE_RACES = ("White", "Southeast Asian", "Middle Eastern", "Black", "Indian",
+                  "Latino_Hispanic", "East Asian")
+FAIRFACE_AGES = ("0-2", "3-9", "10-19", "20-29", "30-39", "40-49", "50-59", "60-69",
+                 "more than 70")
+
+
+def video_frames(rng, px, frames):
+    """One seeded video: a 4 x 4 colour grid that drifts from frame to frame
+    (N(0, 24^2) per frame), bilinearly upsampled, plus uniform noise of
+    +-48.  iid noise frames embed nearly alike through a random tower, and
+    the metrics-vs-oracle bar then reads float32 rounding (as phase 18's
+    scenes, ``benchmarks_torch/resnet_image_spread.py``)."""
+    grid = rng.uniform(0, 255, (4, 4, 3))
+    out = []
+    for _ in range(frames):
+        grid = np.clip(grid + rng.normal(0, 24, grid.shape), 0, 255)
+        img = upsample_grid(grid, px) + rng.integers(-48, 49, (px, px, 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+GIF_LEVELS = np.arange(6) * 51  # the 6 x 6 x 6 palette of the written GIFs
+
+
+def write_videos(root, n, px=224, frames=FIT_FILE_FRAMES, seed=19):
+    """``n`` seeded videos at ``px`` (``video_frames``): the even ones frame
+    directories of ``frames`` PNGs named with unpadded numbers (frame_2,
+    frame_4, ..., frame_12: frame_10 sorts before frame_2 unless the order
+    is natural), the odd ones animated GIFs of ``frames`` frames mapped onto
+    a fixed 6 x 6 x 6 palette here (written as P images, so PIL quantizes
+    nothing); a labels.csv in FairFace's vocabulary, genders alternating.
+    Written on a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    palette = np.stack(np.meshgrid(GIF_LEVELS, GIF_LEVELS, GIF_LEVELS, indexing="ij"),
+                       -1).reshape(-1, 3).astype(np.uint8).tobytes()
+
+    def one(i):
+        imgs = video_frames(np.random.default_rng(seed + i), px, frames)
+        if i % 2 == 0:
+            name = f"vid{i}"
+            os.makedirs(os.path.join(root, name))
+            for k, img in enumerate(imgs):
+                Image.fromarray(img).save(os.path.join(root, name, f"frame_{2 * k + 2}.png"))
+        else:
+            name = f"vid{i}.gif"
+            ims = []
+            for img in imgs:
+                q = (img.astype(np.int32) * 6) // 256  # the palette level of each channel
+                im = Image.fromarray((q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2]).astype(
+                    np.uint8), mode="P")
+                im.putpalette(palette)
+                ims.append(im)
+            ims[0].save(os.path.join(root, name), save_all=True, append_images=ims[1:])
+        return {"file": name, "gender": "Male" if i % 2 else "Female",
+                "race": FAIRFACE_RACES[i % 7], "age": FAIRFACE_AGES[i % 9]}
+
+    with ThreadPoolExecutor(8) as pool:
+        rows = list(pool.map(one, range(n)))
+    with open(os.path.join(root, "labels.csv"), "w", newline="") as fh:
+        w = csv.DictWriter(fh, fieldnames=["file", "gender", "race", "age"])
+        w.writeheader()
+        w.writerows(rows)
+
+
+def redraw_temporal(visual, seed):
+    """The temporal embedding and every temporal out-projection (wo, bo)
+    drawn from a seeded generator: the init zeroes them, and a tower drawn
+    that way runs its temporal path as the identity."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    w = visual.cfg.width
+    a = visual.temporal_attn.attn
+    with torch.no_grad():
+        for p, std in ((visual.temporal_embedding, 0.5), (a.wo, w ** -0.5), (a.bo, 0.1)):
+            p.copy_((torch.randn(p.shape, generator=g) * std).to(p.device))
+
+
+def fit_checkpoint(sd):
+    """The port's Frozen-in-Time image tower in m-bain/frozen-in-time naming
+    ({"state_dict": {"module.video_model.*", "module.vid_proj.0.*"}}): the
+    inverse of ``convert.from_fit_state_dict`` (torch Linear weights [out,
+    in], the patch conv [D, 3, p, p])."""
+    v = {k[len("visual."):]: t for k, t in sd.items() if k.startswith("visual.")}
+    w = v["class_embedding"].shape[0]
+    p = int(round((v["conv1.kernel"].shape[0] // 3) ** 0.5))
+    out = {
+        "video_model.cls_token": v["class_embedding"].reshape(1, 1, w),
+        "video_model.pos_embed": v["positional_embedding"][None],
+        "video_model.temporal_embed": v["temporal_embedding"][None],
+        "video_model.patch_embed.proj.weight":
+            v["conv1.kernel"].reshape(p, p, 3, w).permute(3, 2, 0, 1).contiguous(),
+        "video_model.patch_embed.proj.bias": v["conv1.bias"],
+        "video_model.norm.weight": v["ln_post.scale"], "video_model.norm.bias": v["ln_post.bias"],
+        "vid_proj.0.weight": v["proj.kernel"].T.contiguous(), "vid_proj.0.bias": v["proj.bias"],
+    }
+    layers = v["temporal_attn.attn.wo"].shape[0]
+    for i in range(layers):
+        b, r = f"video_model.blocks.{i}", f"resblocks.{i}"
+        for ours, theirs in (("ln_1", "norm1"), ("ln_2", "norm2")):
+            out[f"{b}.{theirs}.weight"] = v[f"{r}.{ours}.scale"]
+            out[f"{b}.{theirs}.bias"] = v[f"{r}.{ours}.bias"]
+        for ours, theirs in (("attn.wqkv", "attn.qkv.weight"), ("attn.wo", "attn.proj.weight"),
+                             ("mlp.w1", "mlp.fc1.weight"), ("mlp.w2", "mlp.fc2.weight")):
+            out[f"{b}.{theirs}"] = v[f"{r}.{ours}"].T.contiguous()
+        for ours, theirs in (("attn.bqkv", "attn.qkv.bias"), ("attn.bo", "attn.proj.bias"),
+                             ("mlp.b1", "mlp.fc1.bias"), ("mlp.b2", "mlp.fc2.bias")):
+            out[f"{b}.{theirs}"] = v[f"{r}.{ours}"]
+        out[f"{b}.norm3.weight"] = v["temporal_attn.ln_t.scale"][i]
+        out[f"{b}.norm3.bias"] = v["temporal_attn.ln_t.bias"][i]
+        out[f"{b}.timeattn.qkv.weight"] = v["temporal_attn.attn.wqkv"][i].T.contiguous()
+        out[f"{b}.timeattn.qkv.bias"] = v["temporal_attn.attn.bqkv"][i]
+        out[f"{b}.timeattn.proj.weight"] = v["temporal_attn.attn.wo"][i].T.contiguous()
+        out[f"{b}.timeattn.proj.bias"] = v["temporal_attn.attn.bo"][i]
+    return {"state_dict": {f"module.{k}": t.clone() for k, t in out.items()}}
+
+
+def fit_phase(prompts, card, device, n_videos=FIT_VIDEOS):
+    """Phase 19: Frozen-in-Time (ViT-B/16 over 4 frames, published widths,
+    random weights from seed 0, temporal weights redrawn) as a DebiasCLIP
+    through measure_bias(dataset="video") at every rung, joint and
+    divided; use_pallas on the towers; the float32 witness; an m-bain-named
+    checkpoint; the embedding cache's formulation key.  Returns the K3 / K4
+    launches of the int8 joint measurement (the kernels line's FiT row)."""
+    import shutil
+
+    import torch
+    from debias_vision_lang_torch.eval.measure import measure_bias
+    from debias_vision_lang_torch.models.debias import DebiasCLIP
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.text import ByteTokenizer
+
+    counters = (fb, fbq, A)
+    t_phase = time.perf_counter()
+    model, preprocess, _, alias = DebiasCLIP.from_cfg(
+        {"CLIP_ARCH": FIT_ARCH, "NUM_DEBIAS_TOKENS": 2, "PRETRAINED": False, "SEED": 0},
+        device=device)
+    model.eval()
+    fit, vis = model.clip, model.clip_cfg.vision
+    redraw_temporal(fit.visual, seed=19)
+    check((vis.kind, vis.width, vis.layers, vis.heads, vis.patch_size, vis.image_size) ==
+          ("video_vit", 768, LAYERS, 12, 16, 224), f"phase 19: {FIT_ARCH} is {vis}")
+    print(f"phase 19: {alias} ({vis.kind}, D={vis.width}, {vis.layers} layers, {vis.heads} "
+          f"heads, {FIT_FRAMES} frames, ImageNet stats {vis.image_mean}): "
+          f"{sum(p.numel() for p in model.parameters())} params, temporal weights redrawn, "
+          f"built in {time.perf_counter() - t_phase:.2f} s")
+    tok = ByteTokenizer()
+    tokens = torch.as_tensor(tok(prompts), dtype=torch.long, device=device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    launches_out = {}
+    try:
+        t = time.perf_counter()
+        root = os.path.join(tmp, "videos")
+        os.makedirs(root)
+        write_videos(root, n_videos)
+        print(f"phase 19: {n_videos} videos written in {time.perf_counter() - t:.2f} s "
+              f"({n_videos // 2} frame directories of {FIT_FILE_FRAMES} PNGs, "
+              f"{n_videos - n_videos // 2} GIFs of {FIT_FILE_FRAMES} frames, 224 px)")
+        from debias_vision_lang_torch.data.loader import HostLoader
+        from debias_vision_lang_torch.data.video import VideoDataset
+        from debias_vision_lang_torch.vision.preprocess import preprocess_batch
+
+        ds = VideoDataset(root, iat_type="gender", num_frames=FIT_FRAMES)
+        first = next(iter(HostLoader(ds, batch_size=FIT_BATCH, num_workers=8,
+                                     native_n_px=vis.image_size))).images
+        check(first.shape == (FIT_BATCH, FIT_FRAMES, 224, 224, 3),
+              f"phase 19: a staged batch is {first.shape}")
+        u8 = torch.from_numpy(first).to(device)
+        x = preprocess_batch(u8.reshape((-1,) + u8.shape[2:]), vis.image_size,
+                             mean=vis.image_mean, std=vis.image_std).reshape(
+                                 u8.shape[:2] + (224, 224, 3))
+        caches = {}
+        for mode in ("joint", "divided"):
+            fit.attention = mode
+            caches[mode] = fit_measure(model, preprocess, mode, root, prompts, tokens, tok, x,
+                                       n_videos, counters, card, launches_out, tmp)
+            fit_pallas(model, mode, x[:8], card)
+        fit.attention = "joint"
+        fit_witness(fit, x[:2], card)
+        fit_checkpoint_check(model, tmp, x[:2], device)
+        # the embedding cache: the joint tower's file refuses the divided one
+        fit.attention = "divided"
+        opts = {"dataset": "video", "data_path": root, "num_frames": FIT_FRAMES,
+                "batch_size": FIT_BATCH, "dtype": "bfloat16",
+                "cache_embeddings": caches["joint"]}
+        reset_all(*counters)
+        try:
+            measure_bias(model, preprocess, tok, "gender", opts=opts)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        print(f"phase 19 embedding cache: the joint tower's file for the divided tower "
+              f"(same tensors): {'refused' if refused else 'read'}; launches "
+              f"{nonzero(launches_of(*counters))}")
+        check(refused is not None and "the cached labels would be wrong" in refused
+              and '"video_attention": "joint"' in refused,
+              "phase 19: the divided tower read the joint tower's cached embeddings")
+        check(sum(launches_of(*counters).values()) == 0,
+              "phase 19: the refused cache call launched kernels")
+        fit.attention = "joint"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s ({card})")
+    del model
+    torch.cuda.empty_cache()
+    return launches_out
+
+
+def fit_measure(model, preprocess, mode, root, prompts, tokens, tok, x, n_videos, counters,
+                card, launches_out, tmp):
+    """One formulation of phase 19 through measure_bias(dataset="video") at
+    every rung: launches and core routes, metrics against the oracle,
+    cosines against float32, videos/s and frames/s.  Returns the bf16
+    measurement's cache file."""
+    import torch
+    from debias_vision_lang_torch.eval.measure import (eval_ranking, get_prompt_embeddings,
+                                                      measure_bias)
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import resolve_compute
+
+    first32, cache_bf16 = None, None
+    n_batches = -(-n_videos // FIT_BATCH)
+    q_route = "long" if mode == "joint" else "short"
+    for rung in FIT_RUNGS:
+        cache = os.path.join(tmp, f"{mode}_{rung}.npz")
+        opts = {"dataset": "video", "data_path": root, "num_frames": FIT_FRAMES,
+                "batch_size": FIT_BATCH, "num_workers": 8, "dtype": rung, "topn": 1.0,
+                "cache_embeddings": cache}
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        t = time.perf_counter()
+        metrics = measure_bias(model, preprocess, tok, "gender", opts=opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, routes = launches_of(*counters), dict(fbq.CORE_ROUTES)
+        m, dt = resolve_compute(model, rung)
+        with torch.no_grad():
+            tower_ms = cuda_ms(lambda: m.encode_image(x, dtype=dt), iters=3)
+        vid_s = FIT_BATCH / tower_ms * 1e3
+        print(f"phase 19 {mode} {rung}: measure_bias over {n_videos} videos + "
+              f"{len(prompts)} prompts in {wall:.3f} s (host clock, PIL decode of the files); "
+              f"video tower B={FIT_BATCH} {tower_ms:.3f} ms/batch, {vid_s:.1f} videos/s, "
+              f"{vid_s * FIT_FRAMES:.1f} frames/s ({card}); launches {nonzero(launches)}, "
+              f"K3 core routes {routes}")
+        want = dict.fromkeys(launches, 0)
+        want_routes = {"short": 0, "long": 0}
+        if rung in ("int8", "int8-text"):
+            want.update(attention_block_q=LAYERS * n_batches, mlp_block_q=LAYERS * n_batches)
+            want_routes[q_route] += LAYERS * n_batches
+        if rung == "int8-text":
+            want.update(attention_block_q_causal=LAYERS)
+            want["mlp_block_q"] += LAYERS
+            want_routes["short"] += LAYERS
+        check(launches == want, f"phase 19 {mode} {rung}: launches {launches}, expected {want}")
+        check(routes == want_routes,
+              f"phase 19 {mode} {rung}: K3 core routes {routes}, expected {want_routes}")
+        if rung == "int8" and mode == "joint":
+            launches_out.update(attention_block_q=launches["attention_block_q"],
+                                mlp_block_q=launches["mlp_block_q"])
+        with np.load(cache) as data:
+            labels, embs = data["labels"], torch.from_numpy(data["embeddings"]).to(x.device)
+        check(tuple(embs.shape) == (n_videos, model.clip_cfg.vision.embed_dim)
+              and len(labels) == n_videos, f"phase 19 {mode} {rung}: embeddings {embs.shape}")
+        prompt_embs = get_prompt_embeddings(m, tok, prompts)
+        for ev in metrics:
+            ref = eval_ranking(labels, embs, prompt_embs, ev, 1.0)
+            check(all(abs(metrics[ev][k] - ref[k]) <= METRIC_ATOL for k in ref),
+                  f"phase 19 {mode} {rung}: measure_bias's {ev} {metrics[ev]} is not the "
+                  f"ranking of its cached rows {ref}")
+        check_metrics(f"FiT {mode} {rung}", labels, embs, prompt_embs, eval_ranking)
+        if rung == "float32":
+            first32 = embs
+            unit = torch.nn.functional.normalize(embs, dim=-1)
+            pair = (unit @ unit.T)[~torch.eye(len(unit), dtype=torch.bool, device=unit.device)]
+            print(f"FiT {mode} float32: the videos' pairwise embedding cosines span "
+                  f"{pair.min().item():.4f} to {pair.max().item():.4f}")
+        else:
+            cos = torch.nn.functional.cosine_similarity(embs, first32, dim=-1)
+            print(f"FiT {mode} {rung} vs float32, video embeddings ({len(embs)}): cosine min "
+                  f"{cos.min().item():.6f} mean {cos.mean().item():.6f} (bar: min >= "
+                  f"{FIT_COS[rung]})")
+            check(bool(torch.isfinite(embs).all()) and cos.min().item() >= FIT_COS[rung],
+                  f"phase 19 {mode} {rung}: drift from float32")
+        if rung == "bfloat16":
+            cache_bf16 = cache
+            # the bf16 text tower of this rung: 12 causal K1 + 12 K2
+            reset_all(*counters)
+            with torch.no_grad():
+                txt16 = model.encode_text(tokens, dtype=torch.bfloat16).float()
+                txt32 = model.encode_text(tokens).float()
+            torch.cuda.synchronize()
+            got = launches_of(*counters)
+            want = dict.fromkeys(got, 0)
+            want.update(attention_block_causal=LAYERS, mlp_block=LAYERS)
+            check(got == want and fb.CORE_ROUTES == {"short": LAYERS, "long": 0},
+                  f"phase 19 {mode}: bf16 text launches {got}, routes {fb.CORE_ROUTES}")
+            cosine_check(f"FiT {mode} bf16 text tower vs float32", txt16, txt32)
+        del m
+    return cache_bf16
+
+
+def fit_pallas(model, mode, x8, card):
+    """use_pallas=True on 8 videos through encode_image, float32 and
+    bfloat16: the joint tower's 12 attentions on K5's long route (785
+    tokens), the divided tower's 24 on its short route (4 and 196 tokens);
+    held to use_pallas=False."""
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+
+    want = ({"attention_pallas": 0, "attention_pallas_long": LAYERS} if mode == "joint"
+            else {"attention_pallas": 2 * LAYERS, "attention_pallas_long": 0})
+    for dt in (torch.float32, torch.bfloat16):
+        with torch.no_grad():
+            ref = model.encode_image(x8, dtype=dt).float()
+            torch.cuda.synchronize()
+            reset_all(A, fb, fbq)
+            got = model.encode_image(x8, dtype=dt, use_pallas=True).float()
+            torch.cuda.synchronize()
+        launched = {**A.LAUNCHES, **nonzero({**fb.LAUNCHES, **fbq.LAUNCHES})}
+        mag = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        print(f"phase 19 {mode} use_pallas {name} (8 videos): launches {launched}; vs "
+              f"use_pallas=False max |diff| {err:.3e} of max {mag:.4g}, cosine min {cos:.7f} "
+              f"(bar: {'%g x max' % FIT_PALLAS_F32_TOL if dt == torch.float32 else f'cosine >= {FIT_PALLAS_COS}'}) "
+              f"({card})")
+        check(launched == want, f"phase 19 {mode} use_pallas {name}: launches {launched}, "
+                                f"expected {want}")
+        if dt == torch.float32:
+            check(err <= FIT_PALLAS_F32_TOL * mag, f"phase 19 {mode}: use_pallas drifts at f32")
+        else:
+            check(cos >= FIT_PALLAS_COS, f"phase 19 {mode}: use_pallas drifts at bf16")
+
+
+def fit_witness(fit, x2, card):
+    """2 videos through the card's float32 towers (joint and divided) and the
+    CPU port's, same weights."""
+    import torch
+    from debias_vision_lang_torch.models.frozen_in_time import FrozenInTime
+
+    t = time.perf_counter()
+    cpu = FrozenInTime(fit.cfg)
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in fit.state_dict().items()})
+    with torch.no_grad():
+        for mode in ("joint", "divided"):
+            ref = cpu.visual(x2.cpu(), attention=mode)
+            got = fit.visual(x2, attention=mode).cpu()
+            mag = ref.abs().max().item()
+            diff = (got - ref).abs().max().item()
+            print(f"phase 19 float32 witness {mode}, 2 videos, card vs CPU port: max |diff| "
+                  f"{diff:.3e} (bar {FIT_F32_TOL} x max |CPU| {mag:.4g}) ({card})")
+            check(diff <= FIT_F32_TOL * mag,
+                  f"phase 19: the card's float32 {mode} tower is not the CPU port's")
+    print(f"phase 19 float32 witness: {time.perf_counter() - t:.2f} s")
+
+
+def fit_checkpoint_check(model, tmp, x2, device):
+    """The tower written in m-bain naming and loaded through model_loader:
+    bit-equal, "divided" (a trained temporal out-projection), and "joint"
+    once timeattn.proj is zeroed."""
+    import warnings
+
+    import torch
+    from debias_vision_lang_torch.models.loader import model_loader
+
+    t = time.perf_counter()
+    sd = {k: v.detach().cpu() for k, v in model.clip.state_dict().items()}
+    ckpt = fit_checkpoint(sd)
+    path = os.path.join(tmp, "mbain-fit-base.pt")
+    for zero in (False, True):
+        if zero:
+            for k, v in ckpt["state_dict"].items():
+                if ".timeattn.proj." in k:
+                    v.zero_()
+        torch.save(ckpt, path)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loaded, _, _, _ = model_loader(FIT_ARCH, device=device, weights=path)
+        text_warned = any("no text tower" in str(w.message) for w in caught)
+        got = {k: v.cpu() for k, v in loaded.state_dict().items() if k.startswith("visual.")}
+        want = "joint" if zero else "divided"
+        if not zero:
+            same = all(torch.equal(got[k], sd[k]) for k in got) and set(got) == {
+                k for k in sd if k.startswith("visual.")}
+            with torch.no_grad():
+                emb = torch.equal(loaded.encode_image(x2), model.clip.visual(
+                    x2, attention="divided"))
+            print(f"phase 19 checkpoint m-bain-named: {os.path.getsize(path) / 2**20:.1f} MiB; "
+                  f"video tower bit-equal {same}, float32 divided embeddings bit-equal {emb}; "
+                  f"the text tower drawn with a warning {text_warned}")
+            check(same and emb and text_warned,
+                  "phase 19: the m-bain-named checkpoint does not load bit-equal")
+        print(f"phase 19 checkpoint {'timeattn.proj zeroed' if zero else 'as trained'}: the "
+              f"loader runs {loaded.attention!r} (cfg {loaded.cfg.vision.video_attention!r})")
+        check(loaded.attention == loaded.cfg.vision.video_attention == want,
+              f"phase 19: the loader chose {loaded.attention!r}, expected {want!r}")
+        del loaded
+    print(f"phase 19 checkpoints: {time.perf_counter() - t:.2f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2763,10 +3351,11 @@ def main() -> int:
     for lib in ("fused_block", "fused_block_q", "attention"):
         print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
         sass_check(lib, _build.LIB_PATHS[lib])
-    sass_check_long(_build.LIB_PATHS["attention"])
+    for lib in ("fused_block", "fused_block_q", "attention"):
+        sass_check_long(lib, _build.LIB_PATHS[lib])
 
     # 3. bf16 kernels against their twins
-    rows, text_ms = kernel_phase(fb, device, card)
+    rows, text_ms, k1_long = kernel_phase(fb, device, card)
 
     # 4. main path; the port's native ingest is checked first (the library
     # keeps its Python fallback; the measurement does not take it unseen)
@@ -3002,13 +3591,22 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 13. timings
-    for row, counts in [(r, launches) for r in rows] + [(r, launches_q) for r in rows_q]:
+    for row, counts in ([(r, launches) for r in rows + [k1_long]]
+                        + [(r, launches_q) for r in rows_q]):
         if row["case"].startswith("ViT-B/16"):  # SLIP-L's: phase 17's counts
             row["launches"] = counts[row["name"]]
         print(f"time {row['name']} {row['case']}: kernel {row['ms']:.4f} ms, "
               f"plain twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}; the kernel at {row['bound_ms'] / row['ms']:.1%} of it) "
               f"({card})")
+    # K1's and K3's long core at B=32 S=785 against the core's own bound
+    core_bound, core_by = bound(*core_work(32, 12, FIT_JOINT_S))
+    for row in [k1_long] + [r for r in rows_q if r.get("core_ms") is not None]:
+        ms = row["core_ms"]
+        print(f"time {row['name']} core {row['case']}: "
+              + (f"{ms:.4f} ms (torch.profiler), bound {core_bound:.4f} ms ({core_by}; the "
+                 f"core at {core_bound / ms:.1%} of it)" if ms else "not measured (the "
+                 "profiler gave no device time)") + f" ({card})")
     text_work = {"attention_block causal": attention_block_work(319, 77, 512, causal=True),
                  "mlp_block": mlp_block_work(319, 77, 512, 2048),
                  "attention_block_q causal": attention_block_work(319, 77, 512, causal=True,
@@ -3089,16 +3687,23 @@ def main() -> int:
     t0 = time.perf_counter()
     rn_launches = resnet_phase(prompts, card, device)
     rn_s = time.perf_counter() - t0
+    # 19. the Frozen-in-Time video family; its int8 joint measurement's
+    # launches complete the FiT rows (K3 on its long core, K4 at S = 785)
+    t0 = time.perf_counter()
+    fit_launches = fit_phase(prompts, card, device)
+    fit_s = time.perf_counter() - t0
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
+        elif row["case"].startswith("FiT"):
+            row["launches"] = fit_launches[row["name"]]
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
     print(json.dumps({"kernels": rows + rows_q + rows_k5}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
-          f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s and the ResNets {rn_s:.1f} s"
-          + (" (past 10 minutes)" if total_s > 600 else ""))
+          f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
+          f"Frozen-in-Time {fit_s:.1f} s" + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

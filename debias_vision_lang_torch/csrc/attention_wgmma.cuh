@@ -39,6 +39,7 @@
 
 #pragma once
 
+#include "attention_long.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -46,7 +47,7 @@ namespace {
 
 constexpr int CORE_THREADS = 128;
 constexpr int CORE_QBOX = 64 * 64;  // bf16 elements of one 64-query x 64-dim tile (8 KB)
-constexpr int CORE_MAX_SEQ = 320;
+constexpr int CORE_MAX_SEQ = 320;  // keys of the register core; K1 / K3 go long past it
 
 // Where the core reads its operands and writes its output.
 enum CoreSource {
@@ -273,10 +274,15 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
   }
 }
 
-// K1 and K3: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, 1 <= S <= 320.
+// K1 and K3: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, any S >= 1:
+// 1 <= S <= 320 on the register core above, S > 320 on the two-pass long
+// route's packed source (attention_long.cuh), whose whole score rows no
+// longer fit in registers.  ops/fused_block.py::core_route names the same
+// choice.
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
                                    int causal, cudaStream_t st) {
-  if (S < 1 || S > CORE_MAX_SEQ || D != heads * 64) return cudaErrorInvalidValue;
+  if (S < 1 || D != heads * 64) return cudaErrorInvalidValue;
+  if (S > CORE_MAX_SEQ) return launch_long_packed(qkv, attn, B, S, D, heads, causal, st);
   const int nk = core_keys(S);
   CUtensorMap tm_q, tm_kv;
   const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)S, (uint64_t)B};

@@ -38,7 +38,9 @@
 //   * the LayerNorm kernel of common.cuh (one warp per row, bf16 out);
 //   * the wgmma attention core of attention_wgmma.cuh: one block per (head,
 //     image), K and V loaded once by TMA, whole f32 score rows in wgmma
-//     accumulators, P fed to an RS-wgmma from registers.
+//     accumulators, P fed to an RS-wgmma from registers; past 320 keys
+//     (Frozen-in-Time's joint tower: S = 785) the two-pass long route of
+//     attention_long.cuh on the same packed qkv.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns a cudaError_t (0 on success).
@@ -218,7 +220,7 @@ extern "C" {
 // K-major bf16, wqkv [3D, D] and wo [D, D] (the transposes of the
 // parameters); ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch (bf16):
 // xn [B*S, D], qkv [B*S, 3D], attn [B*S, D].  D == heads * 64,
-// D % 128 == 0, 1 <= S <= 320.
+// D % 128 == 0, S >= 1 (past 320 keys the core takes its long route).
 int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                         const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                         void* qkv, void* attn, int B, int S, int D, int heads, int causal,

@@ -48,7 +48,8 @@
 //     loaded once by TMA, whole f32 score rows in wgmma accumulators, P fed
 //     to an RS-wgmma from registers (it scales by the reciprocal of the f32
 //     row sum where the twin divides: at most one f32 ulp before the bf16
-//     rounding);
+//     rounding); past 320 keys (the int8 joint Frozen-in-Time tower, S =
+//     785) the two-pass long route of attention_long.cuh on the same qkv;
 //   * a quantize pass, one block per row with the row in registers: amax,
 //     scale and codes from a single read;
 //   * the LayerNorm kernel of common.cuh.
@@ -319,7 +320,7 @@ extern "C" {
 // so [D] channel scales, ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch: xn,
 // attn [B*S, D] bf16; xq, aq [B*S, D] int8; xs, ascale [B*S] f32; qkv
 // [B*S, 3D] bf16.  D == heads * 64, D % 128 == 0 (the s8 GEMM's N and K),
-// 1 <= S <= 320 (the core's whole score rows).
+// S >= 1 (the core's whole score rows up to 320 keys, its long route past).
 int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                           const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                           const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,

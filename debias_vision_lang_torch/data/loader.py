@@ -5,6 +5,10 @@ port's own numpy host preprocess.  Native batch ingest (decode + PIL-exact
 resize + crop in C++, the port's own ``native`` package) is used when it
 builds and the dataset has file paths.
 
+A video dataset's samples are [T, H, W, 3]: they are staged frame by frame
+(each frame not at n_px resized and cropped), batches are [B, T, H, W, 3],
+and patch-contiguous staging is refused for them, as in the JAX package.
+
 The last partial batch is padded to the fixed batch size and carries a
 validity count so consumers drop the padding.
 """
@@ -22,7 +26,7 @@ from ..vision.preprocess import patchify_u8, resize_crop_u8, to_rgb_array
 
 class Batch(NamedTuple):
     # uint8 [B, H, W, 3], or patch-contiguous [B, P, patch*patch*3] when
-    # native_patch staging is on
+    # native_patch staging is on, or [B, T, H, W, 3] video frames
     images: np.ndarray
     labels: np.ndarray  # int32 [B]
     num_valid: int  # <= B; the rest is padding
@@ -91,8 +95,15 @@ class HostLoader:
         return order, bounds
 
     def _stage(self, arr: np.ndarray) -> np.ndarray:
-        """uint8 image -> the staged layout (host fallback of native ingest)."""
+        """uint8 image -> the staged layout (host fallback of native ingest);
+        a video [T, H, W, 3] frame by frame."""
         n_px = self.native_n_px
+        if arr.ndim == 4:
+            if self.native_patch is not None:
+                raise ValueError("native_patch staging does not support video batches")
+            if arr.shape[1] == n_px and arr.shape[2] == n_px:
+                return arr
+            return np.stack([resize_crop_u8(f, n_px) for f in arr])
         if not (arr.shape[0] == n_px and arr.shape[1] == n_px):
             arr = resize_crop_u8(arr, n_px)
         return arr if self.native_patch is None else patchify_u8(arr, self.native_patch)

@@ -4,7 +4,9 @@ pipeline on one device.
 Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
   1. host threads decode and stage uint8 batches (data/loader.py); on the
      bfloat16 and int8 rungs of a ViT they are patch-contiguous
-     [B, P, patch^2*3];
+     [B, P, patch^2*3]; ``dataset="video"`` (``data/video.VideoDataset``,
+     ``num_frames`` per video, 4 by default) stages [B, T, H, W, 3] and the
+     device preprocess maps over the frames;
   2. each batch goes through the image tower (bfloat16: the fused-block
      kernels; "int8" / "int8-text": the bundle wrapped once in
      ``ops/quant.QuantizedCLIP``, the int8 fused-block kernels with bfloat16
@@ -20,9 +22,11 @@ Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
 ``opts["cache_embeddings"]`` keeps step 2's output (labels, embeddings and
 the rows' file names) in an npz at that path, keyed as in the JAX package
 by the dataset selection and the rung, and here also by a digest of the
-image tower's weights (``utils/fingerprint.py``): re-scoring another prompt
-battery or top-n with the same tower hits and builds no dataset, while a
-tower whose weights differ raises instead of reading stale embeddings.
+image tower's weights (``utils/fingerprint.py``) and, for a video tower,
+its formulation (joint or divided: the same weights give other
+embeddings): re-scoring another prompt battery or top-n with the same tower
+hits and builds no dataset, while another tower raises instead of reading
+stale embeddings.
 """
 
 from __future__ import annotations
@@ -41,11 +45,10 @@ from ..core.paths import resolve_asset
 from ..data.loader import HostLoader
 from ..metrics import oracle, ranking
 from ..models.clip import VIT_KINDS
+from ..models.frozen_in_time import formulation
 from ..ops.quant import resolve_compute
 from ..utils.fingerprint import image_tower_tensors, params_fingerprint
 from ..vision.preprocess import Preprocess, preprocess_batch
-
-_ROADMAP_VIDEO = "ROADMAP.md queue 1 item 4c (Frozen-in-Time and video)"
 
 
 def gen_prompts(prompt_path=None) -> List[str]:
@@ -114,6 +117,10 @@ def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
         x = torch.from_numpy(np.ascontiguousarray(imgs)).to(device, non_blocking=True)
         if not pre and x.dim() == 4:  # uint8 NHWC: device preprocess
             x = preprocess_batch(x, n_px, **stats)
+        elif not pre and x.dim() == 5:  # uint8 video frames: per frame
+            b, t = x.shape[:2]
+            x = preprocess_batch(x.reshape((b * t,) + x.shape[2:]), n_px, **stats)
+            x = x.reshape((b, t) + x.shape[1:])
         emb = model.encode_image(x, dtype=dt).float()
         embs.append(emb[: batch.num_valid])
         labels.append(batch.labels[: batch.num_valid])
@@ -175,10 +182,7 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     cliplike, dt = resolve_compute(cliplike, cfg.dtype)
 
     dataset_name = extra.get("dataset", "fairface")
-    if dataset_name == "video":
-        raise NotImplementedError("dataset='video' is not ported yet: "
-                                  + _ROADMAP_VIDEO)
-    if dataset_name not in ("fairface", "utkface"):
+    if dataset_name not in ("fairface", "utkface", "video"):
         raise NotImplementedError(f"dataset={dataset_name!r}")
 
     if isinstance(img_preproc, Preprocess):
@@ -192,12 +196,16 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     equal_split, data_path = extra.get("equal_split", True), extra.get("data_path")
     cache_path = extra.get("cache_embeddings")
     if cache_path:
-        cache_key = json.dumps({
+        key = {
             "attribute": attribute, "dataset": dataset_name, "mode": mode,
             "n_samples": n_samples, "dtype": cfg.dtype, "equal_split": equal_split,
             "data_path": data_path, "num_frames": extra.get("num_frames"),
             "params": params_fingerprint(image_tower_tensors(cliplike)),
-        }, sort_keys=True, default=str)
+        }
+        video_attention = formulation(cliplike)
+        if video_attention is not None:  # a video tower: joint or divided
+            key["video_attention"] = video_attention
+        cache_key = json.dumps(key, sort_keys=True, default=str)
     if cache_path and os.path.exists(cache_path):
         # a hit builds no dataset and no loader: the image files may be gone
         with np.load(cache_path, allow_pickle=False) as data:
@@ -213,10 +221,17 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     else:
         from ..data import datasets  # needs pandas
 
-        cls = datasets.FairFace if dataset_name == "fairface" else datasets.UTKFace
-        # never downloads: point data_path at a complete FairFace/UTKFace layout
-        ds = cls(mode=mode, iat_type=attribute, _n_samples=n_samples,
-                 equal_split=equal_split, data_path=data_path, download=False)
+        if dataset_name == "video":
+            from ..data.video import VideoDataset
+
+            ds = VideoDataset(data_path=data_path, iat_type=attribute,
+                              _n_samples=n_samples, equal_split=equal_split,
+                              num_frames=extra.get("num_frames", 4))
+        else:
+            cls = datasets.FairFace if dataset_name == "fairface" else datasets.UTKFace
+            # never downloads: point data_path at a complete FairFace/UTKFace layout
+            ds = cls(mode=mode, iat_type=attribute, _n_samples=n_samples,
+                     equal_split=equal_split, data_path=data_path, download=False)
 
         # bfloat16 or int8 ViT at its native resolution: stage patch-contiguous
         # uint8 so the stem is one matmul with the normalize folded into the
@@ -224,7 +239,8 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
         vis = vision_cfg(cliplike)
         patch = None
         if (dt == torch.bfloat16 and host_transform is None and vis is not None
-                and vis.kind in VIT_KINDS and n_px == vis.image_size
+                and dataset_name != "video" and vis.kind in VIT_KINDS
+                and n_px == vis.image_size
                 and n_px % vis.patch_size == 0):
             patch = vis.patch_size
         loader = HostLoader(ds, batch_size=cfg.batch_size, num_workers=cfg.num_workers,

@@ -1,8 +1,10 @@
 """CLIP dual encoder (image tower + causal text tower) as ``nn.Module``s.
 
 Counterpart of ``debias_vision_lang_tpu/models/clip.py`` for the "vit"
-(OpenAI CLIP), "slip_vit" (facebookresearch/SLIP, a timm ViT) and "resnet"
-(OpenAI CLIP's ModifiedResNet, ``models/resnet.py``) towers.
+(OpenAI CLIP), "slip_vit" (facebookresearch/SLIP, a timm ViT), "resnet"
+(OpenAI CLIP's ModifiedResNet, ``models/resnet.py``) and "video_vit"
+(Frozen-in-Time, ``models/frozen_in_time.py``: the formulation comes from
+``cfg.vision.video_attention``) towers.
 The SLIP tower's patch conv has a bias, it has no pre-LN, and its MLP runs
 the exact erf GELU: ``act_kind="gelu"`` (the A&S polynomial) in the fused
 blocks, ``layers.gelu`` in the plain tower, as in the JAX package.
@@ -34,9 +36,13 @@ from .layers import (LayerNorm, causal_mask, gelu, init_resblocks, layer_norm,
 from .resnet import ModifiedResNet, init_modified_resnet_params
 
 VIT_KINDS = ("vit", "slip_vit")
-TOWER_KINDS = VIT_KINDS + ("resnet",)  # every image tower the port builds
-ROADMAP_OTHER_TOWERS = ("ROADMAP.md queue 1 item 4 (other towers: 4c "
-                        "Frozen-in-Time)")
+TOWER_KINDS = VIT_KINDS + ("resnet", "video_vit")  # every image tower the port builds
+
+
+def unknown_tower(kind) -> NotImplementedError:
+    """The error for a vision kind the port does not build."""
+    return NotImplementedError(f"vision tower kind {kind!r}: the port builds "
+                               f"{', '.join(TOWER_KINDS)}")
 
 
 def _vector(*shape) -> nn.Parameter:
@@ -57,9 +63,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         if cfg.kind not in VIT_KINDS:
-            raise NotImplementedError(
-                f"vision tower kind {cfg.kind!r}: the port runs OpenAI and "
-                f"SLIP ViT towers and ModifiedResNets; {ROADMAP_OTHER_TOWERS}")
+            raise unknown_tower(cfg.kind)
         self.cfg = cfg
         w = cfg.width
         slip = cfg.kind == "slip_vit"
@@ -106,8 +110,15 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        self.visual = (ModifiedResNet(cfg.vision) if cfg.vision.kind == "resnet"
-                       else VisionTransformer(cfg.vision))
+        kind = cfg.vision.kind
+        if kind == "resnet":
+            self.visual = ModifiedResNet(cfg.vision)
+        elif kind == "video_vit":
+            from .frozen_in_time import VideoVisionTransformer
+
+            self.visual = VideoVisionTransformer(cfg.vision)
+        else:
+            self.visual = VisionTransformer(cfg.vision)
         self.text = TextTransformer(cfg.text)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
@@ -138,8 +149,9 @@ def init_clip_params(cfg: CLIPConfig,
     """Random float32 parameters (OpenAI CLIP's init scheme, as the JAX
     package's ``init_clip_params``) as a ``CLIP(cfg)`` state dict, on the
     CPU; a SLIP tower's conv bias starts at zero, a ResNet tower takes
-    ``init_modified_resnet_params``.  The numbers differ from jax.random's
-    for the same seed."""
+    ``init_modified_resnet_params``, a video tower the ViT's scheme and then
+    ``frozen_in_time.init_video_vit_params``.  The numbers differ from
+    jax.random's for the same seed."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = CLIP(cfg)
@@ -158,7 +170,13 @@ def init_clip_params(cfg: CLIPConfig,
             nrm(v.class_embedding, scale)
             nrm(v.positional_embedding, scale)
             init_resblocks(v.resblocks, generator)
-            nrm(v.proj, scale)
+            if vc.kind == "video_vit":
+                from .frozen_in_time import init_video_vit_params
+
+                nrm(v.proj.kernel, scale)
+                init_video_vit_params(v, generator)
+            else:
+                nrm(v.proj, scale)
         nrm(t.token_embedding, 0.02)
         nrm(t.positional_embedding, 0.01)
         init_resblocks(t.resblocks, generator)

@@ -1,7 +1,8 @@
 """Weight bridges into the port's ``CLIP`` state dict: the JAX package's
 pytree, and checkpoints in OpenAI CLIP (ViT and ModifiedResNet towers),
-HuggingFace ``CLIPModel`` and facebookresearch/SLIP naming (numpy arrays or
-torch tensors; nothing of ``transformers`` is imported here).
+HuggingFace ``CLIPModel``, facebookresearch/SLIP and m-bain/frozen-in-time
+naming (numpy arrays or torch tensors; nothing of ``transformers`` is
+imported here).
 
 The port keeps the JAX package's parameter layout (``models/layers.py``,
 ``models/resnet.py``): linear weights ``[in, out]``, ``wqkv`` ``[D, 3D]`` =
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.config import CLIPConfig
-from .clip import ROADMAP_OTHER_TOWERS, TOWER_KINDS
+from .clip import TOWER_KINDS, unknown_tower
 
 
 def _tensor(a) -> torch.Tensor:
@@ -49,8 +50,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: CLIPConfig
     """JAX param pytree (nested dicts of arrays, e.g. after
     ``jax.tree.map(np.asarray, params)``) -> ``CLIP(cfg)`` state dict."""
     if cfg.vision.kind not in TOWER_KINDS:
-        raise NotImplementedError(f"vision kind {cfg.vision.kind!r}: "
-                                  f"{ROADMAP_OTHER_TOWERS}")
+        raise unknown_tower(cfg.vision.kind)
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
     out: Dict[str, torch.Tensor] = {}
@@ -338,6 +338,62 @@ def from_slip_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _timm_patch_embed(sd, "visual.patch_embed.proj", out)
     _timm_blocks(sd, "visual.blocks", out)
     return _text_and_scale(sd, out)
+
+
+# ---------------------------------------------------------------------------
+# m-bain/frozen-in-time checkpoint naming -> ours
+# ---------------------------------------------------------------------------
+
+
+def from_fit_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """m-bain/frozen-in-time checkpoint -> the video tower of a ``CLIP``
+    state dict (a ``video_vit`` tower; the JAX package's
+    ``from_fit_state_dict``).
+
+    Takes a raw state dict or the published ``{"state_dict": ...}`` with
+    ``module.`` prefixes.  The SpaceTimeTransformer's names:
+    video_model.cls_token / pos_embed -> class_embedding /
+    positional_embedding, video_model.temporal_embed [1, T, D] ->
+    temporal_embedding [T, D], video_model.patch_embed.proj -> conv1 with its
+    bias, video_model.blocks.N.{norm1, attn, norm2, mlp} -> resblocks,
+    video_model.blocks.N.{norm3, timeattn} -> temporal_attn (ln_t, attn;
+    stacked per layer; upstream's zero timeattn.proj is copied as it is),
+    video_model.norm -> ln_post, vid_proj.0 (a Linear with a bias) ->
+    proj.kernel / proj.bias.  Upstream has no ln_pre: an identity one
+    (scale 1, bias 0) is emitted, since both formulations apply it.  The
+    DistilBERT text side (text_model.*, txt_proj.*) is not converted: the
+    state dict holds no ``text.*`` and the loader draws CLIP's text tower."""
+    if "state_dict" in sd and not hasattr(sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    sd = strip_prefix(dict(sd))
+    n = _layers(sd, "video_model.blocks", "norm1")
+    width = _tensor(sd["video_model.cls_token"]).numel()
+
+    def stk(name, transpose=False):
+        ts = [_tensor(sd[f"video_model.blocks.{i}.{name}"]) for i in range(n)]
+        return torch.stack([t.T.contiguous() if transpose else t for t in ts])
+
+    out = {
+        "visual.class_embedding": _tensor(sd["video_model.cls_token"]).reshape(-1),
+        "visual.positional_embedding": _tensor(sd["video_model.pos_embed"])[0],
+        "visual.temporal_embedding": _tensor(sd["video_model.temporal_embed"])[0],
+        "visual.ln_pre.scale": torch.ones(width),
+        "visual.ln_pre.bias": torch.zeros(width),
+        "visual.temporal_attn.ln_t.scale": stk("norm3.weight"),
+        "visual.temporal_attn.ln_t.bias": stk("norm3.bias"),
+        "visual.temporal_attn.attn.wqkv": stk("timeattn.qkv.weight", transpose=True),
+        "visual.temporal_attn.attn.bqkv": stk("timeattn.qkv.bias"),
+        "visual.temporal_attn.attn.wo": stk("timeattn.proj.weight", transpose=True),
+        "visual.temporal_attn.attn.bo": stk("timeattn.proj.bias"),
+        "visual.ln_post.scale": _tensor(sd["video_model.norm.weight"]),
+        "visual.ln_post.bias": _tensor(sd["video_model.norm.bias"]),
+        "visual.proj.kernel": _tensor(sd["vid_proj.0.weight"]).T.contiguous(),
+        "visual.proj.bias": _tensor(sd["vid_proj.0.bias"]),
+        "logit_scale": torch.tensor(float(np.log(1.0 / 0.07)), dtype=torch.float32),
+    }
+    _timm_patch_embed(sd, "video_model.patch_embed.proj", out)
+    _timm_blocks(sd, "video_model.blocks", out)
+    return out
 
 
 def adversary_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

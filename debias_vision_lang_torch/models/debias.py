@@ -13,7 +13,11 @@ walk, model/model.py:291-334) is a dict of 0/1 multipliers keyed by the
 CLIP module's parameter names; the port's resblocks are one module per
 layer, so the JAX package's per-layer slice masks become per-module ones.
 A ModifiedResNet's parameters (stem, stages, attention pool) all classify
-as "other" and stay frozen, as in the reference's prefix policy.
+as "other" and stay frozen, as in the reference's prefix policy.  A
+Frozen-in-Time tower's projection is a Linear (``visual.proj.kernel`` /
+``.bias``): ``classify_params`` calls it "other", as the JAX package's
+exact ``visual/proj`` test does, while ``trainable_mask`` trains it with the
+proj group, as the JAX mask covers the whole ``proj`` subtree.
 """
 
 from __future__ import annotations
@@ -92,12 +96,12 @@ def debias_eot_index(text: torch.Tensor, num_debias_tokens: int,
 # Freezing as gradient masks (reference: model/model.py:36-82, 291-334)
 # ---------------------------------------------------------------------------
 
-_PROJ = ("text.ln_final.", "text.text_projection", "visual.ln_post.", "visual.proj")
+_PROJ = ("text.ln_final.", "text.text_projection", "visual.ln_post.")
 _LAYER = re.compile(r"(visual|text)\.resblocks\.(\d+)\.")
 
 
 def _classify(name: str) -> str:
-    if name == "logit_scale" or name.startswith(_PROJ):
+    if name in ("logit_scale", "visual.proj") or name.startswith(_PROJ):
         return "proj"
     if name.startswith("visual.resblocks."):
         return "image"
@@ -157,7 +161,8 @@ def trainable_mask(clip: CLIP, debias_cfg: DebiasConfig) -> Dict[str, float]:
             n_layers, n = n_train[layer.group(1)]
             mask[name] = 1.0 if int(layer.group(2)) >= n_layers - n else 0.0
         else:
-            mask[name] = proj_on if _classify(name) == "proj" else 0.0
+            proj = _classify(name) == "proj" or name.startswith("visual.proj.")
+            mask[name] = proj_on if proj else 0.0
     return mask
 
 

@@ -1,6 +1,6 @@
 """Model loader + ``ClipLike`` protocol (``debias_vision_lang_tpu/models/
-loader.py``), for the OpenAI CLIP (ViT and ModifiedResNet) and SLIP ViT
-architectures.
+loader.py``), for the OpenAI CLIP (ViT and ModifiedResNet), SLIP ViT and
+Frozen-in-Time architectures.
 
 Weight resolution, in the JAX package's order:
   1. an explicit ``weights=`` path, honored whatever ``pretrained`` says;
@@ -10,14 +10,20 @@ Weight resolution, in the JAX package's order:
   4. ``pretrained=False`` -> random init from ``seed``; an unresolved
      ``pretrained=True`` warns and falls back to random init.
 A checkpoint's key naming picks its converter (``_dispatch_state_dict``):
-HuggingFace, facebookresearch/SLIP or OpenAI CLIP (a ViT or a ResNet, as
-OpenAI ships RN50 in a TorchScript archive).  Nothing here touches
+HuggingFace, facebookresearch/SLIP, m-bain/frozen-in-time or OpenAI CLIP (a
+ViT or a ResNet, as OpenAI ships RN50 in a TorchScript archive).  A
+Frozen-in-Time checkpoint carries no CLIP text tower: it is drawn at random
+from ``seed``, with the JAX loader's warning.  A Frozen-in-Time model is a
+``frozen_in_time.FrozenInTime``: "divided" when a loaded checkpoint's
+temporal output projection is nonzero (trained), else "joint"; the choice
+rides in ``cfg.vision.video_attention`` too.  Nothing here touches
 the network: the JAX loader's networked retry of the HuggingFace lookup is
 not ported, so weights are put in place beforehand.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 from typing import (Any, Callable, Dict, Mapping, Optional, Protocol, Tuple,
@@ -32,7 +38,7 @@ from ..text import load_bpe_tokenizer
 from ..utils.device import resolve_device
 from ..vision.preprocess import build_preprocess
 from . import convert
-from .clip import CLIP, ROADMAP_OTHER_TOWERS, TOWER_KINDS, init_clip_params
+from .clip import CLIP, TOWER_KINDS, init_clip_params, unknown_tower
 
 _HF_NAMES = {
     "ViT-B/16": "openai/clip-vit-base-patch16",
@@ -72,6 +78,9 @@ def tower_kind(params: Mapping[str, Any]) -> str:
     """The image tower's kind of a converted ``CLIP`` state dict."""
     if any(k.startswith("visual.layer1.") for k in params):
         return "resnet"
+    if any(k.startswith(("visual.temporal_embedding", "visual.temporal_attn."))
+           for k in params):
+        return "video_vit"
     return "vit" if "visual.ln_pre.scale" in params else "slip_vit"
 
 
@@ -79,19 +88,17 @@ def _dispatch_state_dict(obj: Mapping[str, Any], cfg: Optional[CLIPConfig] = Non
                          ) -> Dict[str, torch.Tensor]:
     """Route a flat state dict to its converter by key naming: HuggingFace
     ``CLIPModel`` (``text_model.*``), facebookresearch/SLIP
-    (``visual.blocks.*``), m-bain/frozen-in-time (``video_model.*``, not
-    ported), else OpenAI CLIP.  The converted tree's contents give its
-    kind: ``visual.layer1.*`` a ResNet, ``visual.ln_pre.*`` an OpenAI ViT,
-    any other a SLIP ViT (a conv bias and no pre-LN).  With ``cfg``, it must
-    be of the architecture's kind."""
+    (``visual.blocks.*``), m-bain/frozen-in-time (``video_model.*``), else
+    OpenAI CLIP.  The converted tree's contents give its kind:
+    ``visual.layer1.*`` a ResNet, ``visual.temporal_*`` a video tower,
+    ``visual.ln_pre.*`` an OpenAI ViT, any other a SLIP ViT (a conv bias and
+    no pre-LN).  With ``cfg``, it must be of the architecture's kind."""
     if "state_dict" in obj and not hasattr(obj["state_dict"], "shape"):
         obj = obj["state_dict"]
     keys = [k[7:] if k.startswith("module.") else k for k in obj]
     if any(k.startswith("video_model.") for k in keys):
-        raise NotImplementedError(
-            "Frozen-in-Time (video_model.*) checkpoints do not convert yet: "
-            "ROADMAP.md queue 1 item 4c (Frozen-in-Time)")
-    if any(k.startswith("visual.blocks.") for k in keys):
+        params = convert.from_fit_state_dict(obj)
+    elif any(k.startswith("visual.blocks.") for k in keys):
         params = convert.from_slip_state_dict(obj)
     elif any(k.startswith("text_model.") for k in keys):
         params = convert.from_hf_state_dict(obj)
@@ -135,12 +142,23 @@ def _resolve_pretrained(model_name: str, cfg: Optional[CLIPConfig] = None
     return None
 
 
+def _temporal_attn_trained(params: Mapping[str, Any]) -> bool:
+    """True iff the video tower's temporal-attention OUTPUT projection
+    (``wo`` or ``bo``) is nonzero, i.e. the divided formulation was trained:
+    upstream FiT zero-inits ``timeattn.proj``, and the joint formulation
+    never reads the subtree, so zero means no temporal signal."""
+    return any(bool(torch.as_tensor(params[k]).ne(0).any())
+               for k in ("visual.temporal_attn.attn.wo", "visual.temporal_attn.attn.bo")
+               if k in params)
+
+
 def model_loader(model_name: str, device="cuda", jit: bool = False,
                  pretrained: bool = True, weights: Optional[str] = None,
                  seed: int = 0) -> Tuple[CLIP, Callable, Optional[Callable], str]:
     """Returns (CLIP model on ``device``, image preprocess, tokenizer or
-    None, alias).  The model goes to the card unless ``device="cpu"``; with
-    no card the default raises."""
+    None, alias); a ``FrozenInTime`` for the m-bain/frozen-in-time names.
+    The model goes to the card unless ``device="cpu"``; with no card the
+    default raises."""
     del jit
     device = resolve_device(device)
     if model_name not in VALID_MODELS:
@@ -148,8 +166,7 @@ def model_loader(model_name: str, device="cuda", jit: bool = False,
             f"{model_name} not found, should be one of.. {VALID_MODELS}")
     cfg = resolve_arch(model_name)
     if cfg.vision.kind not in TOWER_KINDS:
-        raise NotImplementedError(f"{model_name} ({cfg.vision.kind} tower): "
-                                  f"{ROADMAP_OTHER_TOWERS}")
+        raise unknown_tower(cfg.vision.kind)
     alias = alias_name(model_name)
     params = None
     if weights is not None:
@@ -164,9 +181,29 @@ def model_loader(model_name: str, device="cuda", jit: bool = False,
                 f"falling back to RANDOM initialization. Pass "
                 f"pretrained=False to silence, or weights=<path>.",
                 stacklevel=2)
+    loaded = params is not None
     if params is None:
         params = init_clip_params(cfg, torch.Generator().manual_seed(seed))
-    model = CLIP(cfg)
+    elif not any(k.startswith("text.") for k in params):
+        warnings.warn(
+            f"{model_name}: checkpoint provided no text tower (upstream "
+            "Frozen-in-Time uses DistilBERT; this framework keeps the CLIP "
+            "text transformer) -- text weights are RANDOM-initialized.",
+            stacklevel=2)
+        drawn = init_clip_params(cfg, torch.Generator().manual_seed(seed))
+        params = {**params, **{k: v for k, v in drawn.items() if k.startswith("text.")}}
+    if cfg.vision.kind == "video_vit":
+        from .frozen_in_time import FrozenInTime
+
+        # a loaded checkpoint whose temporal output projection was trained
+        # runs upstream's divided formulation; a fresh init, or a tree whose
+        # temporal path is still the zero identity, the joint one
+        attention = "divided" if loaded and _temporal_attn_trained(params) else "joint"
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, video_attention=attention))
+        model = FrozenInTime(cfg, attention)
+    else:
+        model = CLIP(cfg)
     model.load_state_dict(params)
     model = model.to(device)
     preprocess = build_preprocess(cfg.vision.image_size, mean=cfg.vision.image_mean,

@@ -17,7 +17,10 @@ At float32 every rounding is the identity, so the twins are the fp32
 reference math too.
 
 ``LAUNCHES`` counts kernel launches (CPU twins never count), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; ``CORE_ROUTES`` counts
+the attention block's launches by the route its core took (``core_route``:
+the register core up to 320 keys, the two-pass long route past them, both
+in ``csrc/attention_wgmma.cuh``).
 
 ``fused_resblock_diff`` / ``fused_transformer_diff`` make the blocks
 differentiable (as ``_fused_resblock_diff``, a custom VJP in the JAX
@@ -42,12 +45,24 @@ LAUNCHES: Dict[str, int] = {"attention_block": 0,
                             "mlp_block": 0}
 ACT_KINDS = ("quick_gelu", "gelu")
 MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
+CORE_ROUTES: Dict[str, int] = {"short": 0, "long": 0}
 GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: N, K multiples
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CORE_ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def core_route(s: int) -> str:
+    """The route the CUDA attention core of K1 and K3 takes at ``s`` keys:
+    "short" (whole score rows in registers) for 1 <= s <= MAX_SEQ, "long"
+    (two passes over 64-key tiles) past it -- the choice
+    ``launch_attention_wgmma`` makes from S alone."""
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    return "short" if s <= MAX_SEQ else "long"
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +223,8 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
     if d % heads or d // heads != 64:
         raise ValueError(f"the CUDA attention core takes head dim 64, got "
                          f"D={d} heads={heads}")
-    if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
     _check_gemm(3 * d, d, "qkv projection")
     _check_gemm(d, d, "out projection")
     dev = x.device
@@ -230,6 +245,7 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
         b, s, d, heads, int(causal), _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block")
     LAUNCHES["attention_block_causal" if causal else "attention_block"] += 1
+    CORE_ROUTES[core_route(s)] += 1
     return out
 
 

@@ -28,7 +28,9 @@ codes (``xq``, ``aq``, ``hq``) and its row scales (``xs``, ``as``, ``hs``)
 -- so a check can hold the kernel's quantization against
 the twin's.
 
-``LAUNCHES`` counts kernel launches (CPU twins never count).  The F-split
+``LAUNCHES`` counts kernel launches (CPU twins never count), and
+``CORE_ROUTES`` the attention block's by its core's route
+(``fused_block.core_route``).  The F-split
 of the TPU MLP kernel (per-tile hidden quantization, a VMEM device) is not
 ported: both routes quantize the whole hidden row.
 """
@@ -41,19 +43,21 @@ from typing import Dict, Optional
 import torch
 
 from ..models.layers import ln_f32
-from .fused_block import (ACT_KINDS, MAX_SEQ, _act, _check_x, _operand,
-                          _raise_on, _route, _stream_ptr, attention_core)
+from .fused_block import (ACT_KINDS, _act, _check_x, _operand, _raise_on,
+                          _route, _stream_ptr, attention_core, core_route)
 
 LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
                             "mlp_block_q": 0}
+CORE_ROUTES: Dict[str, int] = {"short": 0, "long": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CORE_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +195,8 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         raise ValueError(f"the CUDA int8 attention block's s8 wgmma GEMM takes D "
                          f"divisible by {S8_GEMM_TILE} (its N and K steps), got "
                          f"D={d}")
-    if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     wqkv = _qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev)
@@ -217,6 +221,7 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         b, s, d, heads, int(causal), _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block_q")
     LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
+    CORE_ROUTES[core_route(s)] += 1
     if scratch is not None:
         scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
                         "xs": xs.view(b, s, 1), "attn": attn.view(b, s, d).float(),

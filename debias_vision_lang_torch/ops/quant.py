@@ -1,10 +1,10 @@
-"""Int8 inference for the ViT families (OpenAI CLIP and SLIP): weight
-quantization, the plain int8 layers, the int8 stems and towers, and
-``QuantizedCLIP``, which also takes a ModifiedResNet (its int8 tower is
-``ops/quant_resnet.py``).
+"""Int8 inference for the ViT families (OpenAI CLIP and SLIP) and the
+Frozen-in-Time video towers: weight quantization, the plain int8 layers,
+the int8 stems and towers, and ``QuantizedCLIP``, which also takes a
+ModifiedResNet (its int8 tower is ``ops/quant_resnet.py``).
 
 Counterpart of ``debias_vision_lang_tpu/ops/quant.py`` ("vit",
-"slip_vit" and "resnet" towers):
+"slip_vit", "video_vit" and "resnet" towers):
 symmetric per-output-channel int8 weights (``quantize_weight``, bit-exact
 against the JAX function) and dynamic per-row int8 activations on the four
 matmuls of every residual block; LayerNorms, softmax, residuals and the
@@ -17,9 +17,19 @@ pre-LN and runs the erf GELU: ``act_kind="gelu"`` in the fused blocks, the
 exact ``layers.gelu`` in the plain int8 layers; its conv bias rides on the
 float stem and, folded, on the uint8 one.
 
-Not ported: the video towers (ROADMAP.md queue 1 item 4c), the TPU's hybrid
-long-sequence branch and VMEM gates, the u8 stem (off every default path),
-and the "auto" rung (queue 1 item 8).
+The video towers (``quantize_video_visual``): the joint one runs
+``transformer_q`` over its 785 tokens -- on a CUDA tensor at bfloat16 that
+is K3 + K4, K3's attention core on its long route past 320 keys; the
+divided one runs each block's temporal attention (S = T = 4) on the plain
+int8 path (``attn_residual_q``), as the JAX package does, and the spatial
+attention + MLP pair as one int8 block on the [B*T, N, D] layout: the fused
+blocks (K3 + K4 at S = 196) on bfloat16 activations, the plain int8 layers
+at float32.
+
+Not ported: the TPU's hybrid long-sequence branch (XLA attention + the
+F-split MLP kernel, there only because the TPU compiler could not build
+the attention kernel at S = 785) and its VMEM gates, the u8 stem (off every
+default path), and the "auto" rung (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -30,13 +40,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..models.clip import (CLIP, ROADMAP_OTHER_TOWERS, TOWER_KINDS, _use_fused_blocks,
-                           add_positional, embed_tokens,
-                           fold_preprocess_into_patch, is_patch_staging,
-                           pool_and_project, project_eot)
+from ..models.clip import (CLIP, TOWER_KINDS, _use_fused_blocks, add_positional,
+                           embed_tokens, fold_preprocess_into_patch, is_patch_staging,
+                           pool_and_project, project_eot, unknown_tower)
 from ..models.debias import DebiasCLIP, debias_eot_index, inject_prompts
 from ..models.layers import attention_bshd, causal_mask, gelu, layer_norm, quick_gelu
-from .fused_block_q import dot_q, fused_transformer_q, int_mm, quant_rows, true_div
+from .fused_block_q import (dot_q, fused_resblock_q, fused_transformer_q, int_mm,
+                            quant_rows, true_div)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 INT8_RUNGS = ("int8", "int8-text")
@@ -279,6 +289,111 @@ def encode_text_q_debias(tq: QuantText, debias_tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Frozen-in-Time video towers (models/frozen_in_time.py)
+# ---------------------------------------------------------------------------
+
+
+class QuantTemporalBlock(nn.Module):
+    """Layer ``i`` of a video tower's stacked temporal attention in the shape
+    ``attn_residual_q`` takes: ``ln_1`` (the temporal LayerNorm, ln_t),
+    int8 ``wqkv`` / ``wo``, and the float biases, read from the float tower
+    at call time (shared, not copied)."""
+
+    def __init__(self, temporal_attn, i: int):
+        super().__init__()
+        self.ta, self.i = temporal_attn, i
+        self.wqkv = QWeight(temporal_attn.attn.wqkv[i])
+        self.wo = QWeight(temporal_attn.attn.wo[i])
+
+    @property
+    def ln_1(self):
+        return self.ta.layer(self.i)[0]
+
+    @property
+    def bqkv(self):
+        return self.ta.attn.bqkv[self.i]
+
+    @property
+    def bo(self):
+        return self.ta.attn.bo[self.i]
+
+
+class QuantVideoVisual(nn.Module):
+    """The int8 weights of a ``VideoVisionTransformer`` (the JAX package's
+    ``quantize_video_visual``): the patch kernel, the residual blocks and
+    each layer's temporal QKV / out projections.  Embeddings, LayerNorms,
+    biases and the projection stay the float tower's (``visual``).  Video
+    frames arrive preprocessed, so no normalize is folded into a stem."""
+
+    def __init__(self, visual):
+        super().__init__()
+        self.visual = visual
+        self.conv1 = QWeight(visual.conv1.kernel)
+        self.resblocks = quantize_resblocks(visual.resblocks)
+        self.temporal = nn.ModuleList(QuantTemporalBlock(visual.temporal_attn, i)
+                                      for i in range(len(visual.resblocks)))
+
+
+def quantize_video_visual(visual) -> QuantVideoVisual:
+    return QuantVideoVisual(visual)
+
+
+def _video_patch_embed_q(vq: QuantVideoVisual, dtype):
+    """The int8 stem for ``frozen_in_time._video_tokens``: dynamic per-patch
+    int8, the conv bias added after the dequantize."""
+    v = vq.visual
+
+    def pe(frames):
+        return patch_embed_q(frames, v.cfg.patch_size, vq.conv1, v.conv1.bias,
+                             out_dtype=dtype)
+
+    return pe
+
+
+def encode_video_q(vq: QuantVideoVisual, videos: torch.Tensor, *, dtype=torch.bfloat16,
+                   fused: Optional[bool] = None) -> torch.Tensor:
+    """Int8 joint video forward: [B, T, H, W, 3] (or a 4-D batch of 1-frame
+    videos) -> [B, embed_dim]; one attention over [CLS] + T*N tokens in
+    ``transformer_q`` (K3 + K4 on a CUDA tensor at bfloat16, the core on
+    its long route at S = 785)."""
+    from ..models import frozen_in_time as fit
+
+    v = vq.visual
+    x, _, _, _ = fit._video_tokens(v, videos, dtype, _video_patch_embed_q(vq, dtype))
+    x = fit._class_and_ln_pre(v, x, dtype)
+    x = transformer_q(vq.resblocks, x, v.cfg.heads, act_kind="gelu", fused=fused)
+    x = layer_norm(v.ln_post, x[:, 0, :])
+    return fit._project(x, v.proj, x.dtype)
+
+
+def encode_video_divided_q(vq: QuantVideoVisual, videos: torch.Tensor, *,
+                           dtype=torch.bfloat16,
+                           fused: Optional[bool] = None) -> torch.Tensor:
+    """Int8 divided video forward: per block, the temporal attention over T
+    at each location on the plain int8 path (S = T: the attention core
+    stays floating point, as in the JAX package), then the spatial
+    attention + MLP as one int8 residual block on the [B*T, N, D] layout
+    (``fused_resblock_q`` on bfloat16 activations or ``fused=True``,
+    ``resblock_q`` otherwise); mean-pooled."""
+    from ..models import frozen_in_time as fit
+
+    v = vq.visual
+    w, heads = v.cfg.width, v.cfg.heads
+    x, b, t, n = fit._video_tokens(v, videos, dtype, _video_patch_embed_q(vq, dtype))
+    x = layer_norm(v.ln_pre, x)
+    use_fused = _use_fused_blocks(x.dtype, fused=fused)
+    for blk, tblk in zip(vq.resblocks, vq.temporal):
+        xt = attn_residual_q(tblk, x.transpose(1, 2).reshape(b * n, t, w), heads)
+        xs = xt.reshape(b, n, t, w).transpose(1, 2).reshape(b * t, n, w)
+        if use_fused:
+            xs = fused_resblock_q(blk, xs, heads, act_kind="gelu")
+        else:
+            xs = resblock_q(blk, xs, heads, act_kind="gelu")
+        x = xs.reshape(b, t, n, w)
+    return fit._mean_pool_project(v, x, x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # The bundle and the precision ladder
 # ---------------------------------------------------------------------------
 
@@ -288,7 +403,10 @@ class QuantizedCLIP(nn.Module):
     text tower too when ``quantize_text``.  The int8 weights and scales are
     buffers on the base model's device; the float parameters are the base's.
     Text runs through the float base unless ``quantize_text``.  A
-    ModifiedResNet's int8 tower is ``ops/quant_resnet.py``'s."""
+    ModifiedResNet's int8 tower is ``ops/quant_resnet.py``'s.  A video
+    tower runs the formulation of the ``FrozenInTime`` under the wrapper
+    (``frozen_in_time.formulation``: its ``attention``, else the config's
+    ``video_attention``), and takes images as 1-frame videos."""
 
     def __init__(self, base: nn.Module, quantize_text: bool = False):
         super().__init__()
@@ -298,14 +416,16 @@ class QuantizedCLIP(nn.Module):
         if kind not in TOWER_KINDS or not isinstance(clip, CLIP):
             raise NotImplementedError(
                 f"the int8 rung runs CLIP / DebiasCLIP bundles with OpenAI ViT "
-                f"towers, SLIP's or ModifiedResNets, not vision kind {kind!r} "
-                f"({type(base).__name__}); {ROADMAP_OTHER_TOWERS}")
+                f"towers, SLIP's, Frozen-in-Time's or ModifiedResNets, not vision "
+                f"kind {kind!r} ({type(base).__name__}); {unknown_tower(kind)}")
         self.base = base
         self.cfg = cfg
         if kind == "resnet":
             from .quant_resnet import quantize_resnet_visual
 
             self.visual_q = quantize_resnet_visual(clip.visual)
+        elif kind == "video_vit":
+            self.visual_q = quantize_video_visual(clip.visual)
         else:
             self.visual_q = QuantVisual(clip.visual)
         self.text_q = QuantText(clip.text) if quantize_text else None
@@ -322,6 +442,11 @@ class QuantizedCLIP(nn.Module):
             from .quant_resnet import encode_image_resnet_q
 
             return encode_image_resnet_q(self.visual_q, images, dtype=dtype)
+        if vis.kind == "video_vit":
+            from ..models.frozen_in_time import formulation
+
+            fn = encode_video_divided_q if formulation(self) == "divided" else encode_video_q
+            return fn(self.visual_q, images, dtype=dtype, fused=fused)
         if is_patch_staging(images, vis):
             return encode_image_vit_q_p8(self.visual_q, images, dtype=dtype,
                                          fused=fused)
@@ -334,6 +459,8 @@ class QuantizedCLIP(nn.Module):
                 f"{vis.patch_size ** 2 * 3}] (got {tuple(images.shape)} "
                 f"{images.dtype}); batch single images to [1, H, W, 3]")
         return encode_image_vit_q(self.visual_q, images, dtype=dtype, fused=fused)
+
+    encode_video = encode_image
 
     def encode_text(self, text: torch.Tensor, dtype=None,
                     fused: Optional[bool] = None) -> torch.Tensor:

@@ -391,12 +391,53 @@ def _long_route_emulated(q, k, v, mask, dtype, scale=None):
 
 
 LONG_EMU_CASES = LONG_CASES + [(1025, 64), (321, 192)]
+LONG_ROWS = 128  # query rows per block of the bf16 long route (2 warpgroups of 64)
+
+
+def _packed_long_route_emulated(qkv, b, s, heads, causal, dtype, *, key_test=True,
+                                causal_row="image"):
+    """The long route on K1 / K3's packed source: qkv [B*S, 3D] read through
+    a 3-d map over [3D, S, B] -- head h's q, k and v at columns 64h, D + 64h
+    and 2D + 64h, rows ending at the image's S (the last query block and the
+    last key tile read zeros past it) -- and attn [B*S, D] written at column
+    64h; the scores s * scale, -inf for a key past S or, when causal, past
+    the query's row in its image (q0 + the row in the block).  The two
+    passes per block are ``_long_route_emulated``'s.  ``key_test=False``
+    and ``causal_row="block"`` emulate two faults the kernel must not have:
+    the zero-filled keys past S left unmasked (a zero score is no -inf),
+    and the causal test against the row within the block."""
+    d = heads * HD
+    nk = -(-s // LONG_TILE) * LONG_TILE
+    out = np.zeros((b * s, d), np.float32)
+    for img in range(b):
+        lo = img * s
+        rows = np.zeros((nk + LONG_ROWS, 3 * d), np.float32)
+        rows[:s] = qkv[lo:lo + s]
+        for h in range(heads):
+            k = rows[:nk, d + h * HD:d + (h + 1) * HD]
+            v = rows[:nk, 2 * d + h * HD:2 * d + (h + 1) * HD]
+            for q0 in range(0, s, LONG_ROWS):
+                q = rows[q0:q0 + LONG_ROWS, h * HD:(h + 1) * HD]
+                key = np.arange(nk)[None, :]
+                row = (q0 if causal_row == "image" else 0) + np.arange(LONG_ROWS)[:, None]
+                keep = ((key < s) | (not key_test)) & ((not causal) | (key <= row))
+                mask = np.where(keep, 0.0, -np.inf).astype(np.float32)
+                o = _long_route_emulated(q, k, v, mask, dtype, scale=1 / 8)
+                n = min(LONG_ROWS, s - q0)
+                out[lo + q0:lo + q0 + n, h * HD:(h + 1) * HD] = o[:n]
+    return out
+
+
+def _packed_inputs(s, seed, b=2, heads=2):
+    rng = np.random.default_rng(seed)
+    return _round_to(rng.normal(size=(b * s, 3 * heads * HD)), "bfloat16")
 
 
 class TestLongRouteEmulated:
-    """The two-pass arithmetic of ``csrc/attention.cu::attention_long_kernel``
-    against the JAX kernel: within 2e-5 of the largest magnitude at float32
-    (3xTF32 products), one bf16 ulp at bfloat16."""
+    """The two-pass arithmetic of ``csrc/attention_long.cuh::
+    attention_long_kernel`` against the JAX kernel: within 2e-5 of the
+    largest magnitude at float32 (3xTF32 products), one bf16 ulp at
+    bfloat16; and on K1 / K3's packed source against their core's twin."""
 
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("s,hd", LONG_EMU_CASES)
@@ -429,6 +470,50 @@ class TestLongRouteEmulated:
         np.testing.assert_array_equal(m, m_plain)
         rel = np.abs(l - l_plain) / l_plain
         assert rel.max() <= 1e-6, f"rescaled sum off by {rel.max()} of the plain sum"
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s", [321, 785])
+    def test_packed_source_is_the_k1_k3_twin(self, s, causal):
+        """K1 / K3's long route (``attention_long_kernel<bf16, 1, true>``)
+        against their core's twin ``fused_block.attention_core``: within
+        one bf16 ulp, 2 images x 2 heads."""
+        from debias_vision_lang_torch.ops import fused_block as fb
+
+        b, heads = 2, 2
+        qkv = _packed_inputs(s, seed=s + causal)
+        got = _packed_long_route_emulated(qkv, b, s, heads, causal, "bfloat16")
+        ref = fb.attention_core(torch.from_numpy(qkv.reshape(b, s, -1)).to(torch.bfloat16),
+                                heads, causal)
+        _within_one_ulp(got, ref.float().reshape(b * s, -1).numpy())
+
+    @pytest.mark.parametrize("fault,causal", [({"key_test": False}, False),
+                                              ({"causal_row": "block"}, True)])
+    @pytest.mark.parametrize("s", [321, 785])
+    def test_packed_source_pins_the_key_bound_and_causal_rule(self, s, fault, causal):
+        """Keys past the image's S left unmasked, or the causal test against
+        the row within the block, give another function: the emulation
+        above pins both."""
+        from debias_vision_lang_torch.ops import fused_block as fb
+
+        b, heads = 2, 2
+        qkv = _packed_inputs(s, seed=s + 7)
+        got = _packed_long_route_emulated(qkv, b, s, heads, causal, "bfloat16", **fault)
+        ref = fb.attention_core(torch.from_numpy(qkv.reshape(b, s, -1)).to(torch.bfloat16),
+                                heads, causal)
+        with pytest.raises(AssertionError, match="max err"):
+            _within_one_ulp(got, ref.float().reshape(b * s, -1).numpy())
+
+    def test_packed_head_columns(self):
+        """Head h reads q, k, v at columns 64h, D + 64h, 2D + 64h and writes
+        column 64h: with one head's v set to a constant, only that head's
+        output columns hold it."""
+        b, s, heads = 1, 321, 2
+        qkv = _packed_inputs(s, seed=3, b=b, heads=heads)
+        d = heads * HD
+        qkv[:, 2 * d + HD:2 * d + 2 * HD] = 0.5  # head 1's v
+        got = _packed_long_route_emulated(qkv, b, s, heads, False, "bfloat16")
+        np.testing.assert_array_equal(got[:, HD:], np.full((s, HD), 0.5, np.float32))
+        assert np.abs(got[:, :HD] - 0.5).min() > 0
 
     @pytest.mark.parametrize("s", [1, 63, 64, 65, 383, 384, 385])
     def test_emulation_at_tile_edges_is_the_twin(self, s):

@@ -219,9 +219,14 @@ class TestDispatch:
         if naming == "openai-module":
             assert calls[0][1] == ["visual.class_embedding"]
 
-    def test_video_names_item_4c(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-            tloader._dispatch_state_dict({"module.video_model.cls_token": 0})
+    def test_video_names_go_to_the_fit_converter(self, monkeypatch):
+        calls = []
+        monkeypatch.setattr(tconvert, "from_fit_state_dict",
+                            lambda sd: calls.append(sorted(sd))
+                            or {"visual.temporal_embedding": None})
+        sd = {"state_dict": {"module.video_model.cls_token": 0}}
+        assert tloader._dispatch_state_dict(sd) == {"visual.temporal_embedding": None}
+        assert calls == [["module.video_model.cls_token"]]
 
     def test_tower_kind_must_match_the_arch(self):
         sd = _slip_sd()

@@ -13,8 +13,10 @@ the int8 Pallas kernels, single-chain (bb=1) and chain (bb=3) variants:
 float32 at atol 1e-4, bfloat16 within one bf16 ulp.  CUDA (marker
 ``cuda``, skipped without a card): the hand-written kernels against the
 twins at the main path's shapes, the wgmma attention core at every key
-bucket (in the bf16 and the int8 attention blocks), a ragged M, and the
-shapes the wgmma GEMMs refuse.  A source check holds the int8 attention
+bucket (in the bf16 and the int8 attention blocks), its long route past
+320 keys (S = 321 to 785, the route counted), a ragged M, and the shapes
+the wgmma GEMMs refuse.  On the CPU, ``core_route`` and the twins at
+S = 400, where the card takes the long route, against the JAX kernels.  A source check holds the int8 attention
 block to the s8 wgmma GEMM and the wgmma core.
 
 jax is imported inside the JAX-side helpers only, so the CUDA tests run on
@@ -314,7 +316,7 @@ class TestGemmOperands:
         with pytest.raises(ValueError, match=r"N % 128 == 0 and K % 64 == 0.*N=\d+ K=\d+"):
             fb._attention_block_cuda(x, *args, heads, False)
 
-    @pytest.mark.parametrize("s", [0, 321])
+    @pytest.mark.parametrize("s", [0])
     def test_attention_rejects_sequence_lengths(self, s):
         d = 256
         x = torch.zeros(1, s, d, dtype=torch.bfloat16)
@@ -424,6 +426,97 @@ class TestQTwinsAgainstPallas:
         np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
         np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
         assert got_q[1, 1, :4].tolist() == [127, 2, -4, 0]
+
+
+class TestCoreRoute:
+    """The route of K1's and K3's attention core: the register core up to
+    320 keys, the two-pass long route past them (csrc/attention_wgmma.cuh
+    launch_attention_wgmma), counted per launch in ``CORE_ROUTES``."""
+
+    def test_short_up_to_320_long_past(self):
+        assert {fb.core_route(s) for s in range(1, 321)} == {"short"}
+        assert {fb.core_route(s) for s in range(321, 2049)} == {"long"}
+        with pytest.raises(ValueError, match="< 1"):
+            fb.core_route(0)
+
+    @pytest.mark.parametrize("mod", [fb, fbq])
+    def test_cpu_twins_count_no_route(self, mod, layer):
+        mod.reset_launches()
+        x = _torch(np.random.default_rng(2).normal(size=(1, 400, D)))
+        if mod is fb:
+            fb.attention_block(x, *map(_torch, _attn_args(layer)), heads=H)
+        else:
+            fbq.attention_block_q(x, *map(_torch_keep, _attn_q_args(layer)), heads=H)
+        assert mod.CORE_ROUTES == {"short": 0, "long": 0}
+        assert sum(mod.LAUNCHES.values()) == 0
+
+    def test_source_takes_the_long_route_past_320(self):
+        csrc = pathlib.Path(fb.__file__).resolve().parent.parent / "csrc"
+        core = (csrc / "attention_wgmma.cuh").read_text()
+        body = core[core.index("cudaError_t launch_attention_wgmma("):]
+        body = body[:body.index("\n}\n")]
+        assert "if (S > CORE_MAX_SEQ) return launch_long_packed(" in body
+        assert "S > CORE_MAX_SEQ ||" not in body
+        long = (csrc / "attention_long.cuh").read_text()
+        packed = long[long.index("cudaError_t launch_long_packed("):]
+        assert "attention_long_kernel<bf16, 1, true>" in packed and "mask" not in packed.split(
+            "// tm_m is not read")[0]
+        assert '#include "attention_long.cuh"' in core
+
+
+LONG_B, LONG_S, LONG_D, LONG_H = 2, 400, 128, 2  # past the register core's 320 keys
+
+
+@pytest.fixture(scope="module")
+def long_layer():
+    return _layer_np(np.random.default_rng(40), LONG_D)
+
+
+@pytest.fixture(scope="module")
+def long_x():
+    return np.random.default_rng(41).normal(size=(LONG_B, LONG_S, LONG_D)).astype(np.float32)
+
+
+class TestLongTwinsAgainstPallas:
+    """At S = 400, where the CUDA core takes its long route, the twins it is
+    held to on the card against the JAX kernels in interpret mode: K1
+    float32 at 2e-5 and bfloat16 within one bf16 ulp, K3 at bfloat16 (the
+    rung it runs on) within one bf16 ulp, causal and not.  K3 at float32 is
+    not held here: over 400 keys the two f32 sums of an attention row round
+    apart often enough that some of its int8 codes flip (0.1-0.2% of the
+    outputs move by ~1e-3, one code step through ``wo``)."""
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_attention(self, long_layer, long_x, causal, dtype):
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.fused_block import attention_block
+
+        jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (
+            jnp.bfloat16, torch.bfloat16)
+        args = _attn_args(long_layer)
+        ref = attention_block(_jnp(long_x, jdt), *map(_jnp, args), heads=LONG_H,
+                              causal=causal, interpret=True)
+        got = fb.attention_block(_torch(long_x, tdt), *map(_torch, args), heads=LONG_H,
+                                 causal=causal)
+        if dtype == "float32":
+            np.testing.assert_allclose(_np32(got), _np32(ref), atol=2e-5)
+        else:
+            _within_one_ulp(got, ref)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_attention_q_bf16(self, long_layer, long_x, causal):
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.fused_block_q import attention_block_q
+
+        args = _attn_q_args(long_layer)
+        ref = attention_block_q(_jnp(long_x, jnp.bfloat16), *map(_jnp, args), heads=LONG_H,
+                                causal=causal, bb=1, interpret=True)
+        got = fbq.attention_block_q(_torch(long_x, torch.bfloat16), *map(_torch_keep, args),
+                                    heads=LONG_H, causal=causal)
+        _within_one_ulp(got, ref)
 
 
 class TestQGemmOperands:
@@ -698,6 +791,37 @@ def test_cuda_mlp_q_kernel_matches_twin(cuda, b, s, d, act_kind):
     assert fbq.LAUNCHES["mlp_block_q"] == 1
     _within_one_ulp(got.cpu(), fbq.mlp_block_q_plain(x, *args, act_kind=act_kind).cpu())
     _kernel_quantizes_its_own_rows(scratch, (("xq", "xn", "xs"), ("hq", "h", "hs")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [320, 321, 383, 384, 385, 400, 785])
+@pytest.mark.parametrize("block", ["bf16", "int8"])
+def test_cuda_attention_core_long_route(cuda, block, s, causal):
+    """K1 and K3 past the register core's 320 keys: the long route's packed
+    source at a ragged last key tile, both sides of the 128-query block and
+    the Frozen-in-Time joint tower's 785 tokens; S = 320 stays short."""
+    b, d, heads = 2, 768, 12
+    x = torch.from_numpy(np.random.default_rng(s).normal(size=(b, s, d))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    mod = fb if block == "bf16" else fbq
+    mod.reset_launches()
+    if block == "bf16":
+        layer = _cuda_layer(d, cuda)
+        args = [layer["ln_1"]["scale"], layer["ln_1"]["bias"], *layer["attn"].values()]
+        got = fb.attention_block(x, *args, heads=heads, causal=causal)
+        want = fb.attention_block_plain(x, *args, heads=heads, causal=causal)
+    else:
+        (args, qkw), _ = _cuda_q_block(d, cuda)
+        scratch = {}
+        got = fbq.attention_block_q(x, *args, heads=heads, causal=causal, **qkw,
+                                    scratch=scratch)
+        want = fbq.attention_block_q_plain(x, *args, heads=heads, causal=causal)
+        _kernel_quantizes_its_own_rows(scratch, (("xq", "xn", "xs"), ("aq", "attn", "as")))
+    torch.cuda.synchronize()
+    route = fb.core_route(s)
+    assert mod.CORE_ROUTES == {"short": int(route == "short"), "long": int(route == "long")}
+    _within_one_ulp(got.cpu(), want.cpu())
 
 
 @pytest.mark.cuda

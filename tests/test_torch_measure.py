@@ -295,7 +295,7 @@ class TestOptsChecked:
         ({"dtype": "float16"}, ValueError, "unknown dtype"),
         ({"mesh": "auto"}, NotImplementedError, "distribution"),
         ({"sharded_metrics": True}, NotImplementedError, "distribution"),
-        ({"dataset": "video"}, NotImplementedError, "video"),
+        ({"dataset": "webvid"}, NotImplementedError, "webvid"),
     ])
     def test_rejected_before_any_work(self, opts, exc, match):
         with pytest.raises(exc, match=match):

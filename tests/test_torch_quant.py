@@ -311,14 +311,14 @@ class TestTowers:
 
 class TestLadder:
     def test_non_vit_tower_raises_naming_roadmap(self):
-        cfg = CLIPConfig(name="fit", vision=VisionConfig(kind="video_vit", image_size=32,
-                                                         patch_size=8, width=64, layers=1,
-                                                         heads=1, embed_dim=32),
+        cfg = CLIPConfig(name="swin", vision=VisionConfig(kind="swin", image_size=32,
+                                                          patch_size=8, width=64, layers=1,
+                                                          heads=1, embed_dim=32),
                          text=CFG.text)
         cfg = port_config(cfg)
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="the port builds .*video_vit"):
             quant.QuantizedCLIP(types.SimpleNamespace(cfg=cfg))
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="the port builds .*video_vit"):
             quant.resolve_compute(types.SimpleNamespace(cfg=cfg), "int8")
 
     def test_resnet_tower_takes_the_int8_rung(self):
@@ -375,6 +375,22 @@ class TestBuildDigest:
         assert edited != before
         (csrc / "extra.cuh").write_text("// new header\n")
         assert _build.source_digest(csrc, "a", flags) not in (before, edited)
+
+    def test_long_route_header_is_hashed_into_every_library(self, tmp_path):
+        """K1, K3 and K5 share csrc/attention_long.cuh: an edit of it names
+        a new fused_block, fused_block_q and attention library."""
+        import shutil
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        assert (csrc / "attention_long.cuh").exists()
+        flags = _build.nvcc_flags(csrc)
+        libs = ("fused_block", "fused_block_q", "attention")
+        before = {n: _build.source_digest(csrc, n, flags) for n in libs}
+        with open(csrc / "attention_long.cuh", "a") as f:
+            f.write("// edited\n")
+        after = {n: _build.source_digest(csrc, n, flags) for n in libs}
+        assert all(after[n] != before[n] for n in libs)
 
     def test_other_source_and_flags(self, tmp_path):
         csrc = self._tree(tmp_path)
