@@ -286,7 +286,38 @@ Phases (any failure exits non-zero before the final line):
      loaded through model_loader bit-equal, "divided" as trained and
      "joint" once timeattn.proj is zeroed; the joint tower's cache file
      refused for the divided tower built from the same tensors.
-The kernels line comes after phase 19 (its SLIP-L rows take phase 17's
+ 20. distribution (parallel/mesh.py, metrics/distributed.py) on the phase-4
+     model: measure_bias on 256 written FairFace images with mesh="auto"
+     (one slot on the one card) bit-equal to the unsharded call at bf16 and
+     int8, 12 launches per kernel; a virtual 4-way mesh
+     create_mesh(devices=[cuda:0] * 4) embedding a ragged batch of 254
+     images (padded to 256, four shards of 64) at bf16 and int8: 4 x 12
+     launches per kernel, rows bit-equal to the unsharded call (else within
+     one bf16 ulp of the largest magnitude, the reason printed), and
+     sharded_eval_ranking on them equal to the numpy oracle within 1e-5,
+     also with exact planted boundary ties (scores made integers, then 20
+     distinct rows, or every row equal but one), a per-shard budget
+     escalated at least once; the mesh's overhead on the bf16 tower at
+     B=256 against the unsharded call (CUDA events, in turns); zero-shot
+     (4 classes x 16 images, batches of 30) under the mesh: predictions and
+     top-1 / top-5 equal to the unsharded call's, 4 x 12 launches a batch;
+     the serving engine at data = 4 (buckets 4-64, both towers): every
+     dispatch bit-equal to the mesh's direct call on the same staged
+     bucket, the difference from the unsharded call printed in bf16 ulp;
+     the trainer under the mesh (3 steps, batch 64): float32 frozen and
+     with one image layer trained (K5, use_pallas=True), and the bf16
+     kernels' frozen step, each against the unsharded trainer: first token
+     gradient and first update cosine >= 0.9999 at float32 (at bf16 the
+     bars of phase 11: gradient cosine >= 0.99, <= 5% of the first
+     update's signs flipped), every token within Adam's bound 2 x lr x
+     steps, launches once per shard in the image passes;
+     then a two-rank world on the card (two processes, both on cuda:0,
+     gloo, a file:// rendezvous; ``python3 chip_smoke.py --dist-rank R
+     RENDEZVOUS FAIRFACE OUT`` is one rank): measure_bias(mesh="auto",
+     sharded_metrics=True) at bf16 on both ranks within 1e-5 of one
+     process, equal on the two, 12 launches per kernel per rank, the
+     collective path printed; each sub-phase's wall time.
+The kernels line comes after phase 20 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
@@ -308,6 +339,7 @@ name and power limit; the last line is {"ok": true, "device": {...}}.
 
 import copy
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -1297,17 +1329,18 @@ def train_batches(tokenizer, vis, device):
 
 def run_trainer(model0, sens, batches, counters, **kw):
     """TRAIN_STEPS trainer steps on a copy of ``model0``; the launch counts
-    are set to 0 just before and read just after.  ``kw``: use_pallas and
-    the TrainConfig fields."""
+    are set to 0 just before and read just after.  ``kw``: use_pallas, mesh
+    and the TrainConfig fields."""
     import torch
     from debias_vision_lang_torch.models.adversary import Adversary
     from debias_vision_lang_torch.train.adversarial import AdversarialTrainer, TrainConfig
 
     use_pallas = kw.pop("use_pallas", None)
+    mesh = kw.pop("mesh", None)
     model = copy.deepcopy(model0)
     adv = Adversary.from_cfg({"ADV_N_INPUT": len(sens), "ADV_HIDDEN_SIZE": 32, "SEED": 0})
     trainer = AdversarialTrainer.create(model, adv, TrainConfig(batch_size=TRAIN_BATCH, **kw),
-                                        sens, use_pallas=use_pallas)
+                                        sens, use_pallas=use_pallas, mesh=mesh)
     start = model.debias_tokens.detach().clone()
     metrics, times, updates, grads = [], [], [], []
     adam_step = trainer.prompt_opt.step
@@ -3301,6 +3334,406 @@ def fit_checkpoint_check(model, tmp, x2, device):
     print(f"phase 19 checkpoints: {time.perf_counter() - t:.2f} s")
 
 
+# phase 20: distribution on the one card
+DIST_DATA = 4  # the virtual mesh: four data shards on the one card
+DIST_N = 254  # its ragged batch: padded to 256, four shards of 64 rows
+DIST_VAL = 256  # the written FairFace val images of measure_bias and the world
+DIST_ATOL = 1e-5  # sharded metrics vs the oracle; the two-rank world vs one process
+# the trainer under the mesh against the unsharded trainer: at float32 the
+# first token gradient and the first update, as cosines; every token within
+# Adam's per-element bound, 2 x lr a step (the image rows of a 16-row shard
+# round otherwise in cuBLAS, and from then on Adam steps an element whose
+# gradient is rounding noise by ~lr either way; see STEP3_UPDATE_COS).  The
+# bf16 step's gradient moves with ulp-sized changes of its image rows (its
+# cosine with the unsharded step's 0.9982, PERF.md section 6): it is held
+# to phase 11's bf16 bars, UPDATE_COS_BF16 and UPDATE_FLIP_MAX_BF16
+DIST_UPDATE_COS = 0.9999
+DIST_ADAM_BOUND = 2 * 2e-3 * TRAIN_STEPS  # TrainConfig.prompt_lr
+DIST_CLASSES, DIST_PER_CLASS, DIST_ZS_BATCH = 4, 16, 30  # zero-shot: batches of 30, 30, 4
+
+
+def rows_equal(tag, got, want):
+    """Bit-equal, or within one bf16 ulp of the largest magnitude; returns
+    the largest difference in those ulp."""
+    diff = (got.float() - want.float()).abs().max().item()
+    mag = want.float().abs().max().item()
+    ulps = diff / ulp_bf16(mag)
+    if diff == 0:
+        print(f"{tag}: bit-equal")
+    else:
+        print(f"{tag}: not bit-equal: largest difference {diff} = {ulps:.3f} bf16 ulp of the "
+              f"largest magnitude {mag} (the patch-embedding and projection matmuls run "
+              f"through torch.matmul, and cuBLAS may pick another algorithm, with another "
+              f"summation order, at the shard's M); bar 1 ulp")
+    check(ulps <= 1, f"{tag}: the mesh's rows drift from the unsharded call's")
+    return ulps
+
+
+def planted_ties(embs, prompts, how):
+    """(embeddings, prompts) with exact boundary ties planted.  Both are
+    quantized first (each to -1, 0, 1 at 0.7 of its spread: the scores are
+    integers) so every score is exact in float32 whatever the summation
+    order: rows that are equal then score equal in every shard and every
+    GEMM tile, as they do in the oracle.  Then each row is replaced by one
+    of 20 distinct rows, or every row is made equal but one."""
+    import torch
+
+    e = torch.round(embs / (0.7 * embs.std())).clamp(-1, 1)
+    p = torch.round(prompts / (0.7 * prompts.std())).clamp(-1, 1)
+    n = e.shape[0]
+    if how == "20 distinct rows":
+        e = e[torch.arange(n, device=e.device) % 20]
+    elif how == "all tied but one":
+        row5 = e[5].clone()
+        e = e[:1].expand(n, -1).clone()
+        e[5] = row5
+    return e, p
+
+
+def dist_rank(rank: int, init: str, ff: str, out: str) -> int:
+    """One rank of phase 20's two-rank world (both ranks on cuda:0, gloo):
+    the phase-4 model, measure_bias(mesh="auto", sharded_metrics=True)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from debias_vision_lang_torch.eval.measure import measure_bias
+    from debias_vision_lang_torch.models.debias import DebiasCLIP
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.parallel import mesh as pmesh
+    from debias_vision_lang_torch.text import ByteTokenizer
+    from debias_vision_lang_torch.vision.preprocess import Preprocess
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    check(pmesh.init_distributed("file://" + init, 2, rank), "no two-rank world")
+    try:
+        model, _, tokenizer, _ = DebiasCLIP.from_cfg(
+            {"CLIP_ARCH": "openai/CLIP/ViT-B/16", "PRETRAINED": False,
+             "NUM_DEBIAS_TOKENS": 2, "DEBIAS_POS": "prepend", "SEED": 0}, device="cuda")
+        model.eval()
+        mesh = pmesh.default_mesh("cuda")
+        torch.cuda.synchronize()
+        reset_all(fb, fbq, A)
+        t1 = time.perf_counter()
+        res = measure_bias(model, Preprocess(224), tokenizer or ByteTokenizer(), "gender",
+                           opts={"data_path": ff, "dtype": "bfloat16", "batch_size": BATCH,
+                                 "topn": 0.1, "mesh": "auto", "sharded_metrics": True})
+        torch.cuda.synchronize()
+        with open(out, "w") as f:
+            json.dump({"measure": res, "mesh": dict(mesh.shape), "world": mesh.world,
+                       "devices": sorted({str(d) for d in mesh.devices.flat}),
+                       "backend": dist.get_backend(), "collectives": dict(pmesh.COLLECTIVES),
+                       "launches": nonzero(launches_of(fb, fbq, A)),
+                       "measure_s": time.perf_counter() - t1,
+                       "wall_s": time.perf_counter() - t0}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_phase(model, qmodel, tokenizer, prompts, card, device):
+    """Phase 20: the distribution path on the one card (see the docstring)."""
+    import torch
+    from debias_vision_lang_torch.cli import FolderDataset
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.eval import zero_shot as zs
+    from debias_vision_lang_torch.eval.measure import (get_labels_img_embeddings,
+                                                      get_prompt_embeddings, measure_bias)
+    from debias_vision_lang_torch.metrics import distributed as mdist
+    from debias_vision_lang_torch.metrics.oracle import eval_ranking_oracle
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.parallel import mesh as pmesh
+    from debias_vision_lang_torch.serve.engine import InferenceEngine
+    from debias_vision_lang_torch.vision.preprocess import Preprocess
+
+    counters = (fb, fbq, A)
+    walls = {}
+    kernels = {"bfloat16": ("attention_block", "mlp_block"),
+               "int8": ("attention_block_q", "mlp_block_q")}
+    rungs = (("bfloat16", model), ("int8", qmodel))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # 20.1 measure_bias with mesh="auto" (one slot on the one card)
+        t0 = time.perf_counter()
+        ff = os.path.join(tmp, "fairface")
+        write_fairface(ff, 0, DIST_VAL)
+        single = {}
+        for rung, m in rungs:
+            opts = {"data_path": ff, "dtype": rung, "batch_size": BATCH, "topn": 0.1,
+                    "prompts": prompts}
+            single[rung] = measure_bias(m, Preprocess(224), tokenizer, "gender", opts=opts)
+            torch.cuda.synchronize()
+            reset_all(*counters)
+            auto = measure_bias(m, Preprocess(224), tokenizer, "gender",
+                                opts={**opts, "mesh": "auto"})
+            torch.cuda.synchronize()
+            got = nonzero(launches_of(*counters))
+            print(f"phase 20 measure_bias {rung}, mesh='auto' (data = "
+                  f"{pmesh.default_mesh('cuda').shape['data']}): {json.dumps(auto)}; "
+                  f"launches {got}")
+            check(auto == single[rung], f"measure_bias {rung}: mesh='auto' is not bit-equal "
+                                        f"to the unsharded call: {auto} vs {single[rung]}")
+            check(got == {k: LAYERS for k in kernels[rung]},
+                  f"measure_bias {rung} under mesh='auto' launched {got}")
+        walls["20.1 measure_bias mesh='auto' (4 calls)"] = time.perf_counter() - t0
+
+        # 20.2 a virtual 4-way mesh on the one card, a ragged batch of 254
+        t0 = time.perf_counter()
+        mesh4 = pmesh.create_mesh(devices=[device] * DIST_DATA)
+        loader = HostLoader(SyntheticFaces(DIST_N, seed=200), batch_size=DIST_N,
+                            num_workers=8, native_n_px=224, native_patch=16)
+        escalations = []
+        orig = mdist._sharded_metrics
+        mdist._sharded_metrics = lambda *a: escalations.append(a[-1]) or orig(*a)
+        try:
+            for rung, m in rungs:
+                torch.cuda.synchronize()
+                reset_all(*counters)
+                labels1, e1 = get_labels_img_embeddings(loader, m, n_px=224, dtype=rung)
+                torch.cuda.synchronize()
+                c1 = nonzero(launches_of(*counters))
+                reset_all(*counters)
+                labels4, e4 = get_labels_img_embeddings(loader, m, n_px=224, dtype=rung,
+                                                        mesh=mesh4)
+                torch.cuda.synchronize()
+                c4 = nonzero(launches_of(*counters))
+                print(f"phase 20 {rung} embed of {DIST_N} images: launches unsharded {c1}, "
+                      f"under the {DIST_DATA}-way mesh {c4}")
+                check(c1 == {k: LAYERS for k in kernels[rung]}, f"unsharded launches {c1}")
+                check(c4 == {k: DIST_DATA * LAYERS for k in kernels[rung]},
+                      f"the {DIST_DATA}-way mesh launched {c4}")
+                check(np.array_equal(labels4, labels1) and e4.shape == (DIST_N, e1.shape[1]),
+                      "the mesh's labels or rows differ in number")
+                rows_equal(f"phase 20 {rung} image rows, {DIST_DATA}-way mesh vs unsharded",
+                           e4, e1)
+                prm = get_prompt_embeddings(m, tokenizer, prompts)
+                plants = ("as embedded", "quantized", "20 distinct rows", "all tied but one")
+                worst = 0.0
+                for how in plants:
+                    e, p = (e4, prm) if how == "as embedded" else planted_ties(e4, prm, how)
+                    for ev in ("maxskew", "ndkl"):
+                        for topn in TOPNS:
+                            got = mdist.sharded_eval_ranking(labels4, e, p, ev, topn, mesh4)
+                            ref = eval_ranking_oracle(labels4, e.cpu().numpy(),
+                                                      p.cpu().numpy(), ev, topn)
+                            for k in ref:
+                                worst = max(worst, abs(got[k] - ref[k]))
+                                check(abs(got[k] - ref[k]) <= DIST_ATOL,
+                                      f"sharded {rung} {how} {ev}@{topn}/{k}: {got[k]} vs "
+                                      f"oracle {ref[k]}")
+                print(f"phase 20 {rung} sharded metrics ({', '.join(plants)}; maxskew and "
+                      f"ndkl at top-n {TOPNS}): largest difference from the numpy oracle "
+                      f"{worst} (bar {DIST_ATOL})")
+        finally:
+            mdist._sharded_metrics = orig
+        budgets = sorted(set(escalations))
+        print(f"phase 20 sharded metrics: per-shard budgets run {budgets} (the shard's "
+              f"{DIST_N // DIST_DATA + 1} rows = an escalation)")
+        check(DIST_N // DIST_DATA + 1 in budgets, "no planted tie escalated the shard budget")
+        # the virtual mesh's overhead on the one card: four launches of 64 rows
+        x = torch.from_numpy(next(iter(HostLoader(SyntheticFaces(BATCH, seed=200),
+                                                   batch_size=BATCH, num_workers=8,
+                                                   native_n_px=224,
+                                                   native_patch=16))).images).to(device)
+        sharded = pmesh.dp_shard_map(mesh4, lambda mm, xx: mm.encode_image(
+            xx, dtype=torch.bfloat16))
+        times = {}
+        with torch.no_grad():
+            for label in ("unsharded", "mesh", "mesh", "unsharded"):
+                fn = ((lambda: model.encode_image(x, dtype=torch.bfloat16))
+                      if label == "unsharded" else (lambda: sharded(model, x)))
+                times.setdefault(label, []).append(cuda_ms(fn, iters=5))
+        t_one, t_mesh = (min(times[k]) for k in ("unsharded", "mesh"))
+        print(f"phase 20 bf16 image tower B={BATCH}: unsharded {t_one:.3f} ms, the "
+              f"{DIST_DATA}-way virtual mesh {t_mesh:.3f} ms ({t_mesh / t_one - 1:+.1%}: pure "
+              f"overhead on one card, {DIST_DATA} launches of {BATCH // DIST_DATA} rows; "
+              f"all {json.dumps(times)}) ({card})")
+        walls["20.2 virtual mesh embeds, sharded metrics, overhead"] = time.perf_counter() - t0
+
+        # 20.3 zero-shot under the same mesh
+        t0 = time.perf_counter()
+        zs_root = os.path.join(tmp, "classes")
+        write_class_folders(zs_root, DIST_CLASSES, DIST_PER_CLASS)
+        ds = FolderDataset(zs_root)
+        preds = {}
+        orig_classify = zs.classify
+        for name, mesh in (("unsharded", None), ("mesh", mesh4)):
+            rec = []
+            zs.classify = lambda *a, **k: rec.append(orig_classify(*a, **k)) or rec[-1]
+            try:
+                reset_all(*counters)
+                acc = zs.zero_shot_accuracy(
+                    model, tokenizer, HostLoader(ds, batch_size=DIST_ZS_BATCH, num_workers=8,
+                                                 native_n_px=224),
+                    ds.class_names, dtype="bfloat16", mesh=mesh)
+                torch.cuda.synchronize()
+            finally:
+                zs.classify = orig_classify
+            if mesh is not None:  # per batch: the shards' rows, less the mesh's pad rows
+                rec = [torch.cat(rec[i:i + DIST_DATA])[:DIST_ZS_BATCH]
+                       for i in range(0, len(rec), DIST_DATA)]
+            preds[name] = (acc, torch.cat(rec), nonzero(launches_of(*counters)))
+        (a1, p1, c1), (a4, p4, c4) = preds["unsharded"], preds["mesh"]
+        print(f"phase 20 zero-shot bf16, {DIST_CLASSES * DIST_PER_CLASS} images in batches of "
+              f"{DIST_ZS_BATCH}: unsharded {a1} launches {c1}; mesh {a4} launches {c4}")
+        check(a4 == a1 and torch.equal(p4, p1), "zero-shot top-k under the mesh differs")
+        n_zs = -(-DIST_CLASSES * DIST_PER_CLASS // DIST_ZS_BATCH)
+        check(c4.get("attention_block") == DIST_DATA * LAYERS * n_zs,
+              f"zero-shot under the mesh launched {c4}")
+        walls["20.3 zero-shot"] = time.perf_counter() - t0
+
+        # 20.4 the serving engine at data = 4: every bucket's rows against the
+        # mesh's own direct call on the same staged bucket (the engine changes
+        # no number: bit-equal) and, reported, against the unsharded call
+        t0 = time.perf_counter()
+        eng = InferenceEngine(model, tokenizer, max_batch=64, compute_dtype="bfloat16",
+                              mesh=mesh4, device=device)
+        check(eng.min_bucket == DIST_DATA and eng.info()["mesh"] == {"data": DIST_DATA,
+                                                                      "model": 1},
+              f"engine mesh {eng.info()['mesh']}")
+        direct = {kind: pmesh.dp_shard_map(mesh4, fn) for kind, fn in (
+            ("image", lambda mm, xx: mm.encode_image(xx, dtype=torch.bfloat16).float()),
+            ("text", lambda mm, tt: mm.encode_text(tt, dtype=torch.bfloat16).float()))}
+        faces = SyntheticFaces(64, seed=300)
+        vs_unsharded = {}
+        reset_all(*counters)
+        buckets = (4, 8, 16, 32, 64)
+        for b in buckets:
+            items = [faces.load_image(i) for i in range(b)]
+            toks = np.asarray(tokenizer(prompts[:b]), np.int64)
+            got = {"image": eng.fetch(eng.dispatch_image_arrays(items), b),
+                   "text": eng.fetch(eng.dispatch_token_arrays(list(toks)), b)}
+            staged = {"image": torch.from_numpy(np.stack([staged_image(eng, i)
+                                                          for i in items])).to(device),
+                      "text": torch.from_numpy(toks).to(device)}
+            for kind in ("image", "text"):
+                with torch.inference_mode():
+                    mesh_rows = direct[kind](model, staged[kind]).cpu()
+                    one = (model.encode_image(staged[kind], dtype=torch.bfloat16)
+                           if kind == "image" else
+                           model.encode_text(staged[kind], dtype=torch.bfloat16)).float().cpu()
+                check(torch.equal(torch.from_numpy(got[kind]), mesh_rows),
+                      f"engine {kind} bucket {b}: the dispatch differs from the mesh's direct "
+                      f"call on the same staged bucket")
+                diff = (mesh_rows - one).abs().max().item()
+                vs_unsharded[f"{kind} {b}"] = diff / ulp_bf16(one.abs().max().item())
+        torch.cuda.synchronize()
+        got = nonzero(launches_of(*counters))
+        n_disp = len(buckets)
+        per = (2 * DIST_DATA + 1) * LAYERS * n_disp  # dispatch, mesh direct, unsharded
+        want_c = {"attention_block": per, "attention_block_causal": per, "mlp_block": 2 * per}
+        print(f"phase 20 engine at data = {DIST_DATA}, buckets {buckets}, both towers: every "
+              f"dispatch bit-equal to the mesh's direct call on the same staged bucket; "
+              f"against the unsharded call, largest difference in bf16 ulp of the largest "
+              f"magnitude {json.dumps({k: round(v, 3) for k, v in vs_unsharded.items()})} "
+              f"(not gated: at bucket {DIST_DATA} each shard holds one row, and the stem and "
+              f"projection matmuls run through cuBLAS, whose algorithm, and with it the "
+              f"summation order, may change with M); launches {got}")
+        check(got == want_c, f"engine launches {got}, expected {want_c}")
+        walls["20.4 serving engine"] = time.perf_counter() - t0
+
+        # 20.5 the trainer under the mesh: frozen and with-layers at float32
+        # (K5, use_pallas=True), and the bf16 kernels' frozen step
+        t0 = time.perf_counter()
+        sens = tokenizer(prompts)
+        batches = train_batches(tokenizer, model.clip_cfg.vision, device)
+        with_layers = copy.deepcopy(model)
+        with_layers.debias_cfg = dataclasses.replace(with_layers.debias_cfg,
+                                                     n_train_vid_layers=1)
+        for tag, m0, kw in (("float32 frozen", model, {"use_pallas": True}),
+                            ("float32 with-layers", with_layers, {"use_pallas": True}),
+                            ("bf16 kernels frozen", model,
+                             {"train_dtype": "bfloat16", "embed_dtype": "bfloat16"})):
+            runs = {}
+            for name, mesh in (("unsharded", None), ("mesh", mesh4)):
+                runs[name] = run_trainer(m0, sens, batches, counters, mesh=mesh, **dict(kw))
+                check_run(f"phase 20 trainer {tag} {name}", runs[name])
+            t1, t4 = (runs[k]["model"].debias_tokens.detach() for k in ("unsharded", "mesh"))
+            start = m0.debias_tokens.detach()
+            diff = (t4 - t1).abs().max().item()
+            cos_u = cosine(runs["mesh"]["updates"][0], runs["unsharded"]["updates"][0])
+            cos_g = cosine(runs["mesh"]["grad"], runs["unsharded"]["grad"])
+            print(f"phase 20 trainer {tag}, {TRAIN_STEPS} steps under the mesh: first token "
+                  f"gradient cosine {cos_g:.7f}, first update cosine {cos_u:.7f}"
+                  + (f" (bar {DIST_UPDATE_COS} on both)" if tag.startswith("float32") else "")
+                  + f"; the {TRAIN_STEPS} steps' update cosine "
+                  f"{cosine(t4 - start, t1 - start):.7f}; tokens within {diff:.3g} = "
+                  f"{diff / t1.abs().max().item():.3g} of the largest magnitude (Adam's "
+                  f"bound 2 x lr x steps = {DIST_ADAM_BOUND:.3g}); launches unsharded "
+                  f"{nonzero(runs['unsharded']['counts'])}, mesh "
+                  f"{nonzero(runs['mesh']['counts'])}")
+            if tag.startswith("float32"):
+                check(min(cos_g, cos_u) >= DIST_UPDATE_COS,
+                      f"trainer {tag}: the step drifts under the mesh")
+            else:  # phase 11's bf16 bars: the bf16 step moves with ulp-sized inputs
+                u4, u1 = runs["mesh"]["updates"][0], runs["unsharded"]["updates"][0]
+                flips = (u4.sign() != u1.sign()).double().mean().item()
+                print(f"phase 20 trainer {tag}: first update sign flips {flips:.6f} of the "
+                      f"elements (bar {UPDATE_FLIP_MAX_BF16}), gradient bar {UPDATE_COS_BF16}")
+                check(cos_g >= UPDATE_COS_BF16 and flips <= UPDATE_FLIP_MAX_BF16,
+                      f"trainer {tag}: the step drifts under the mesh")
+            check(diff <= DIST_ADAM_BOUND, f"trainer {tag}: tokens past Adam's bound")
+            # the image passes launch once per shard: 2 a step frozen; with layers
+            # 3, and the trained top layer's forward again in its backward
+            # (remat_image_tower) once per differentiable pass
+            want = dict(runs["unsharded"]["counts"])
+            img = 3 * LAYERS + 2 if "with-layers" in tag else 2 * LAYERS
+            for k in (("attention_pallas",) if tag.startswith("float32")
+                      else ("attention_block", "mlp_block")):
+                want[k] += (DIST_DATA - 1) * img * TRAIN_STEPS
+            check(runs["mesh"]["counts"] == want,
+                  f"trainer {tag}: launches under the mesh {runs['mesh']['counts']}, "
+                  f"expected {want}")
+            for r in runs.values():
+                del r["trainer"], r["model"]
+        del with_layers
+        torch.cuda.empty_cache()
+        walls["20.5 trainer (6 runs of 3 steps)"] = time.perf_counter() - t0
+
+        # 20.6 a two-rank world on the one card: gloo, file:// rendezvous
+        t0 = time.perf_counter()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
+                                   str(r), os.path.join(tmp, "rendezvous"), ff, outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0].decode()[-3000:] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        check([p.returncode for p in procs] == [0, 0], f"the two-rank world failed: {logs}")
+        ranks = [json.load(open(o)) for o in outs]
+        for r, res in enumerate(ranks):
+            print(f"phase 20 world rank {r}: mesh {res['mesh']} over {res['devices']} in a "
+                  f"world of {res['world']}, backend {res['backend']}, collectives "
+                  f"{res['collectives']}, launches {res['launches']}, measure_bias "
+                  f"{res['measure_s']:.2f} s of {res['wall_s']:.2f} s ({card})")
+            check(res["world"] == 2 and res["mesh"] == {"data": 2, "model": 1},
+                  f"rank {r}: mesh {res['mesh']}")
+            check(res["launches"] == {k: LAYERS for k in kernels["bfloat16"]},
+                  f"rank {r} launched {res['launches']}")
+            worst = max(abs(res["measure"][ev][k] - single["bfloat16"][ev][k])
+                        for ev in single["bfloat16"] for k in single["bfloat16"][ev])
+            print(f"phase 20 world rank {r}: metrics {json.dumps(res['measure'])}, within "
+                  f"{worst} of one process (bar {DIST_ATOL})")
+            check(worst <= DIST_ATOL, f"rank {r}: the world's metrics differ from one process")
+        check(ranks[0]["measure"] == ranks[1]["measure"], "the two ranks' metrics differ")
+        walls["20.6 two-rank world (2 processes)"] = time.perf_counter() - t0
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, v in walls.items():
+        print(f"phase 20 wall {k}: {v:.2f} s ({card})")
+    return sum(walls.values())
+
+
 def main() -> int:
     try:
         import torch
@@ -3692,6 +4125,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fit_launches = fit_phase(prompts, card, device)
     fit_s = time.perf_counter() - t0
+    # 20. distribution: the (data, model) mesh, sharded metrics, the world
+    dist_s = dist_phase(model, qmodel, tokenizer, prompts, card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -3703,7 +4138,8 @@ def main() -> int:
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
-          f"Frozen-in-Time {fit_s:.1f} s" + (" (past 10 minutes)" if total_s > 600 else ""))
+          f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s"
+          + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3712,4 +4148,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

@@ -77,9 +77,11 @@ def _add_measure(sub):
     p.add_argument("--random-weights", action="store_true",
                    help="skip pretrained weight resolution")
     p.add_argument("--mesh", default=None, choices=[None, "auto"],
-                   help="multi-device embedding: not ported (raises)")
+                   help="'auto' = split the embed pass over all visible "
+                        "cards (and, under torchrun, every rank's)")
     p.add_argument("--sharded-metrics", action="store_true",
-                   help="sharded top-k: not ported (raises); requires --mesh auto")
+                   help="rank the embeddings sharded: per-shard top-k + "
+                        "exact merge (requires --mesh auto)")
     p.add_argument("--cache-embeddings", default=None,
                    help="path: cache image embeddings so prompt/topn "
                         "re-runs skip the tower pass")
@@ -151,7 +153,8 @@ def _add_train(sub):
     p.add_argument("--eval-every", default=500, type=int)
     p.add_argument("--random-weights", action="store_true")
     p.add_argument("--mesh", default=None, choices=[None, "auto"],
-                   help="data-parallel training: not ported (raises)")
+                   help="'auto' = data-parallel image embeds over all "
+                        "visible cards (batches split over the data axis)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
     p.add_argument("--embed-dtype", default="float32",
@@ -309,7 +312,8 @@ def _add_serve(sub):
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every batch bucket at startup")
     p.add_argument("--mesh", default=None, choices=[None, "auto"],
-                   help="multi-device serving: not ported (raises)")
+                   help="'auto' = one process splitting every batch over "
+                        "all visible cards")
     p.add_argument("--auth-token", default=None,
                    help="require 'Authorization: Bearer <token>' on data "
                         "endpoints (default: $DVL_SERVE_TOKEN if set, "
@@ -361,6 +365,13 @@ def main(argv=None):
     sub.add_parser("bench", help="run the headline throughput benchmark")
 
     args = parser.parse_args(argv)
+    if args.cmd in ("measure-bias", "train", "zero-shot", "serve"):
+        from .parallel.mesh import init_distributed
+
+        # a no-op unless a coordinator is named ($MASTER_ADDR under
+        # torchrun): then every rank's slots join one mesh and `--mesh auto`
+        # spans them
+        init_distributed()
     if args.cmd == "measure-bias":
         _cmd_measure(args)
     elif args.cmd == "train":

@@ -197,3 +197,21 @@ class HostLoader:
                     pending.append(pool.submit(make, *bounds[nxt]))
                     nxt += 1
                 yield batch
+
+
+def shard_batch(batch: Batch, mesh=None, data_axis: str = "data", device="cuda"):
+    """A host batch's (images, labels) on the device, or split along dim 0
+    over ``data_axis`` of a mesh (``parallel.mesh.shard_batch_arrays``: each
+    shard on its slot's device; the batch must divide over the axis).
+    Without a mesh both go to ``device``, the card unless ``"cpu"``."""
+    if mesh is None:
+        import torch
+
+        from ..utils.device import resolve_device
+
+        dev = resolve_device(device)
+        return (torch.from_numpy(np.ascontiguousarray(batch.images)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(batch.labels)).to(dev))
+    from ..parallel.mesh import shard_batch_arrays
+
+    return shard_batch_arrays(mesh, batch.images, batch.labels, axis=data_axis)

@@ -1,5 +1,5 @@
 """Bias measurement: the reference's ``measure_bias`` as an embed-then-rank
-pipeline on one device.
+pipeline on one device, or over a mesh's data axis.
 
 Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
   1. host threads decode and stage uint8 batches (data/loader.py); on the
@@ -18,6 +18,11 @@ Counterpart of ``debias_vision_lang_tpu/eval/measure.py``:
      deliberately NOT normalized, as in the reference);
   4. scores = prompts @ images.T and MaxSkew / NDKL in one device pass
      (metrics/ranking.py), or the numpy oracle with engine="oracle".
+
+``opts["mesh"]`` (a ``parallel.mesh.Mesh``, or "auto" for every card the
+model's device type offers) splits step 2's batches over the data axis;
+``opts["sharded_metrics"]`` then ranks the sharded embeddings with
+per-shard top-k and an exact merge (``metrics/distributed.py``).
 
 ``opts["cache_embeddings"]`` keeps step 2's output (labels, embeddings and
 the rows' file names) in an npz at that path, keyed as in the JAX package
@@ -93,17 +98,37 @@ def get_prompt_embeddings(model, tokenizer, prompts: List[str]) -> torch.Tensor:
 
 @torch.no_grad()
 def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
-                              progress: bool = False,
+                              mesh=None, progress: bool = False,
                               host_transform: Optional[Callable] = None,
                               dtype: str = "float32"):
     """Embed every image: (labels [N] numpy, embeddings [N, D] float32 on the
     model's device), unnormalized.  "int8" / "int8-text" wrap the model
-    (idempotently: measure_bias passes it wrapped already)."""
+    (idempotently: measure_bias passes it wrapped already).  Under a
+    ``mesh`` each batch is split over the data axis (``dp_shard_map``; a
+    ragged batch is padded to a multiple of the axis size and the pad rows
+    sliced off, never run on one slot) and the embeddings gathered on the
+    mesh's first slot."""
     model, dt = resolve_compute(model, dtype)
     device = model_device(model)
     vis = vision_cfg(model)
     stats = {} if vis is None else {"mean": vis.image_mean, "std": vis.image_std}
     pre = host_transform is not None or loader.host_transform is not None
+
+    def embed(m, x: torch.Tensor) -> torch.Tensor:
+        if not pre and x.dim() == 4:  # uint8 NHWC: device preprocess
+            x = preprocess_batch(x, n_px, **stats)
+        elif not pre and x.dim() == 5:  # uint8 video frames: per frame
+            b, t = x.shape[:2]
+            x = preprocess_batch(x.reshape((b * t,) + x.shape[2:]), n_px, **stats)
+            x = x.reshape((b, t) + x.shape[1:])
+        return m.encode_image(x, dtype=dt).float()
+
+    if mesh is not None:
+        from ..parallel.mesh import dp_shard_map, pad_batch, replicate_params
+
+        sharded = dp_shard_map(mesh, embed)
+        replicas = replicate_params(model, mesh)
+        d_sz = int(mesh.shape["data"])
     iterator = loader
     if progress:
         import tqdm
@@ -114,14 +139,11 @@ def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
         imgs = batch.images
         if host_transform is not None and loader.host_transform is None:
             imgs = np.stack([host_transform(im) for im in imgs])
-        x = torch.from_numpy(np.ascontiguousarray(imgs)).to(device, non_blocking=True)
-        if not pre and x.dim() == 4:  # uint8 NHWC: device preprocess
-            x = preprocess_batch(x, n_px, **stats)
-        elif not pre and x.dim() == 5:  # uint8 video frames: per frame
-            b, t = x.shape[:2]
-            x = preprocess_batch(x.reshape((b * t,) + x.shape[2:]), n_px, **stats)
-            x = x.reshape((b, t) + x.shape[1:])
-        emb = model.encode_image(x, dtype=dt).float()
+        if mesh is not None:
+            emb = sharded(replicas, pad_batch(imgs, d_sz))[:imgs.shape[0]]
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(imgs)).to(device, non_blocking=True)
+            emb = embed(model, x)
         embs.append(emb[: batch.num_valid])
         labels.append(batch.labels[: batch.num_valid])
     return np.concatenate(labels), torch.cat(embs, dim=0)
@@ -149,10 +171,6 @@ def eval_ranking(labels_list, image_embeddings, prompts_embeddings,
 _KNOWN_EXTRA = {"dataset", "mode", "n_samples", "equal_split", "data_path",
                 "num_frames", "mesh", "sharded_metrics", "cache_embeddings",
                 "prompts"}
-_NOT_YET_OPTS = {
-    "mesh": "ROADMAP.md queue 1 item 5 (distribution)",
-    "sharded_metrics": "ROADMAP.md queue 1 item 5 (distribution)",
-}
 
 
 def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
@@ -173,9 +191,6 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
             raise ValueError(
                 "opts['prompts'] is empty -- pass a non-empty prompt list, "
                 "or None/omit the key for the default generated battery")
-        for key, item in _NOT_YET_OPTS.items():
-            if extra.get(key):
-                raise NotImplementedError(f"opts[{key!r}] is not ported yet: {item}")
     # resolve the precision ladder once, so both towers honour it: the int8
     # rungs wrap the bundle here, and the prompts run through the wrapped
     # model (int8 text only under "int8-text")
@@ -191,6 +206,12 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
         n_px, host_transform = 224, None
     else:
         n_px, host_transform = 224, img_preproc
+
+    mesh = extra.get("mesh")
+    if mesh == "auto":
+        from ..parallel.mesh import default_mesh
+
+        mesh = default_mesh(model_device(cliplike))
 
     mode, n_samples = extra.get("mode", "val"), extra.get("n_samples")
     equal_split, data_path = extra.get("equal_split", True), extra.get("data_path")
@@ -247,7 +268,8 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
                             native_n_px=n_px if host_transform is None else None,
                             native_patch=patch, host_transform=host_transform)
         labels, img_embs = get_labels_img_embeddings(
-            loader, cliplike, n_px=n_px, progress=cfg.progress, dtype=cfg.dtype)
+            loader, cliplike, n_px=n_px, mesh=mesh, progress=cfg.progress,
+            dtype=cfg.dtype)
         if cache_path:
             # through a file object, so an extension-less path is kept as
             # given; staged to .part so an interrupted write is never a hit
@@ -262,6 +284,13 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     if prompts is None:
         prompts = gen_prompts()
     prompt_embs = get_prompt_embeddings(cliplike, tokenizer, list(prompts))
+    if extra.get("sharded_metrics") and mesh is not None:
+        # per-shard top-k and an exact merge; a ragged N is padded inside
+        from ..metrics.distributed import sharded_eval_ranking
+
+        return {evaluation: sharded_eval_ranking(labels, img_embs, prompt_embs,
+                                                 evaluation, topn=cfg.topn, mesh=mesh)
+                for evaluation in cfg.evaluations}
     return {evaluation: eval_ranking(labels, img_embs, prompt_embs, evaluation,
                                      topn=cfg.topn, engine=cfg.engine)
             for evaluation in cfg.evaluations}

@@ -8,9 +8,11 @@ with the tower's own statistics, then ``encode_image`` at the rung's
 activation dtype (the fused-block kernels on the bfloat16 and int8 rungs
 of a CUDA model).
 
-Not ported: ``mesh`` (ROADMAP.md queue 1 item 5), and the JAX function's
-``hint_implicit_fp32``, a one-line hint printed on a TPU backend when the
-float32 default picks itself.
+Under a ``mesh`` each batch is split over the data axis (the model and the
+classifier replicated, a ragged batch padded and sliced back), as in the
+bias pipeline.  Not ported: the JAX function's ``hint_implicit_fp32``, a
+one-line hint printed on a TPU backend when the float32 default picks
+itself.
 """
 
 from __future__ import annotations
@@ -23,8 +25,6 @@ import torch
 from ..ops.quant import resolve_compute
 from ..vision.preprocess import preprocess_batch
 from .measure import model_device, vision_cfg
-
-ROADMAP_MESH = "ROADMAP.md queue 1 item 5 (distribution)"
 
 # The short standard template set; ``imagenet_templates()`` is the full
 # 80-template OpenAI protocol list.
@@ -94,14 +94,35 @@ def zero_shot_accuracy(model, tokenizer: Callable, loader,
     "bfloat16" | "int8" (quantized image tower; the classifier builds at
     float32) | "int8-text" (the classifier's prompts run the int8 text tower
     too); "auto" raises (ROADMAP.md queue 1 item 8)."""
-    if mesh is not None:
-        raise NotImplementedError(f"zero-shot mesh is not ported yet: {ROADMAP_MESH}")
     # resolve the ladder first, so "int8-text" reaches the classifier build
     model, compute_dtype = resolve_compute(model, dtype or "float32")
     classifier = build_zero_shot_classifier(model, tokenizer, class_names, templates)
     device = model_device(model)
     vis = vision_cfg(model)
     stats = {} if vis is None else {"mean": vis.image_mean, "std": vis.image_std}
+
+    def predict(mc, x: torch.Tensor) -> torch.Tensor:
+        m, clf = mc
+        emb = m.encode_image(preprocess_batch(x, n_px, **stats), dtype=compute_dtype)
+        return classify(emb.float(), clf, top_k=5)
+
+    if mesh == "auto":
+        from ..parallel.mesh import default_mesh
+
+        mesh = default_mesh(device)
+    if mesh is not None:
+        from ..parallel.mesh import dp_shard_map, pad_batch, replicate_params
+
+        sharded = dp_shard_map(mesh, predict)
+        replicas = replicate_params((model, classifier), mesh)
+        d_sz = int(mesh.shape["data"])
+
+        def step(images_u8: np.ndarray) -> torch.Tensor:
+            return sharded(replicas, pad_batch(images_u8, d_sz))[:images_u8.shape[0]]
+    else:
+        def step(images_u8: np.ndarray) -> torch.Tensor:
+            x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+            return predict((model, classifier), x)
 
     it = loader
     if progress:
@@ -110,10 +131,7 @@ def zero_shot_accuracy(model, tokenizer: Callable, loader,
         it = tqdm.tqdm(loader, desc="Zero-shot eval")
     correct1 = correct5 = total = 0
     for batch in it:
-        x = torch.from_numpy(np.ascontiguousarray(batch.images)).to(device)
-        emb = model.encode_image(preprocess_batch(x, n_px, **stats),
-                                 dtype=compute_dtype).float()
-        preds = classify(emb, classifier, top_k=5).cpu().numpy()[: batch.num_valid]
+        preds = step(np.asarray(batch.images)).cpu().numpy()[: batch.num_valid]
         labels = np.asarray(batch.labels)[: batch.num_valid]
         correct1 += int((preds[:, 0] == labels).sum())
         correct5 += int((preds == labels[:, None]).any(axis=1).sum())

@@ -24,6 +24,10 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
+# the sharded engine's per-shard candidate budget past top_n
+# (metrics/distributed.py; JAX's ranking.TIE_PAD)
+TIE_PAD = 16
+
 
 def resolve_topn(topn: Union[int, float], n_items: int) -> int:
     """float = fraction of the dataset (ceil), int = absolute count."""
@@ -63,14 +67,22 @@ def _pairwise_sum_last(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def desired_from_counts(counts: torch.Tensor, n, n_classes: int
+                        ) -> Dict[str, torch.Tensor]:
+    """eq_opp = uniform; dem_par = label frequencies (zero counts clamped);
+    ``counts`` [n_classes] float32 and their total ``n`` (the sharded engine
+    sums them across shards)."""
+    return {
+        "eq_opp": torch.full((n_classes,), 1.0 / n_classes, device=counts.device),
+        "dem_par": torch.clamp(counts, min=1.0) / n,
+    }
+
+
 def desired_distributions(labels: torch.Tensor, n_classes: int
                           ) -> Dict[str, torch.Tensor]:
-    """eq_opp = uniform; dem_par = label frequencies (zero counts clamped)."""
+    """The desired distributions of a label vector."""
     counts = torch.bincount(labels, minlength=n_classes).float()
-    return {
-        "eq_opp": torch.full((n_classes,), 1.0 / n_classes, device=labels.device),
-        "dem_par": torch.clamp(counts, min=1.0) / labels.shape[0],
-    }
+    return desired_from_counts(counts, labels.shape[0], n_classes)
 
 
 def metrics_from_top_labels(top_labels: torch.Tensor,

@@ -21,6 +21,11 @@ PyTorch's pinned-memory allocator reuses a staging block only after its
 copy has completed.  Every launch goes to the thread's current stream,
 the default stream unless a caller sets another, so a fetch on the
 batcher's finalizer thread is ordered after the launch it reads.
+
+Under a ``mesh`` (one process; JAX too serves one process per host behind
+a load balancer) the model is replicated once and every bucket is split
+over the data axis (``parallel.mesh.dp_shard_map``): buckets start at the
+data-axis size, which must be a power of two.
 """
 
 from __future__ import annotations
@@ -34,10 +39,9 @@ import torch
 
 from ..models.clip import VIT_KINDS
 from ..ops.quant import resolve_compute
+from ..parallel.mesh import dp_shard_map, replicate_params
 from ..utils.device import resolve_device
 from ..vision.preprocess import preprocess_batch, resize_crop_u8, to_rgb_array
-
-ROADMAP_DISTRIBUTION = "ROADMAP.md queue 1 item 5 (distribution)"
 
 
 def _pow2_ceil(n: int) -> int:
@@ -139,11 +143,10 @@ class InferenceEngine:
         """``device``: where the model runs, the card unless ``"cpu"``
         (without a card the default raises).  ``compute_dtype``: a rung of
         ``ops/quant.resolve_compute``; by default bfloat16 on a CUDA device
-        and float32 on the CPU.  ``mesh`` (multi-device serving) is not
-        ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh serving is not ported yet: {ROADMAP_DISTRIBUTION}")
+        and float32 on the CPU.  ``mesh``: a ``parallel.mesh.Mesh`` of this
+        process's slots; the model is replicated over them and every
+        bucket split over the data axis (bucket sizes start at its size,
+        which must be a power of two)."""
         self.device = resolve_device(device)
         if compute_dtype is None:
             compute_dtype = ("bfloat16" if self.device.type == "cuda"
@@ -165,6 +168,21 @@ class InferenceEngine:
         # runtime bucket cap are the same closed set
         self.max_batch = _pow2_ceil(int(max_batch))
         self.compute_dtype = compute_dtype
+        self.mesh = mesh
+        self.min_bucket = 1
+        self._replicas = None
+        if mesh is not None:
+            if mesh.world > 1:
+                raise ValueError(
+                    f"mesh serving runs in one process, not across {mesh.world} "
+                    "ranks: serve one process per host behind a load balancer")
+            data_size = int(mesh.shape["data"])
+            if data_size & (data_size - 1):
+                raise ValueError("mesh data-axis size must be a power of two "
+                                 f"for bucketed serving, got {data_size}")
+            self.min_bucket = data_size
+            self.max_batch = max(self.max_batch, data_size)
+            self._replicas = replicate_params(model, mesh)
         # patch-contiguous uint8 staging (same policy as eval/measure.py):
         # a ViT at its native resolution on the bf16/int8 rungs stages
         # batches host-side so the stem is one matmul with the normalize
@@ -188,8 +206,12 @@ class InferenceEngine:
         return torch.zeros(shape, dtype=dtype, pin_memory=self._pin)
 
     def _launch(self, embed, staged: torch.Tensor) -> torch.Tensor:
-        """Copy a staged bucket to the device and launch, under the lock."""
+        """Copy a staged bucket to the device (each shard to its slot under
+        a mesh) and launch, under the lock."""
         with self._lock:
+            if self.mesh is not None:
+                return dp_shard_map(self.mesh, lambda m, x: embed(m, x, self.compute_dtype))(
+                    self._replicas, staged)
             x = staged.to(self.device, non_blocking=True)
             return embed(self.model, x, self.compute_dtype)
 
@@ -203,7 +225,7 @@ class InferenceEngine:
             raise ValueError(f"dispatch of {n} items exceeds max_batch="
                              f"{self.max_batch}; chunk first "
                              "(embed_image_arrays does)")
-        bucket = _next_bucket(n, self.max_batch)
+        bucket = max(_next_bucket(n, self.max_batch), self.min_bucket)
         if self._patch is not None:
             # staged bucket [bucket, P, patch²·3]: items may arrive
             # pre-patchified (the native raw-JPEG ingest emits the staging
@@ -243,7 +265,7 @@ class InferenceEngine:
             raise ValueError(f"dispatch of {n} items exceeds max_batch="
                              f"{self.max_batch}; chunk first "
                              "(embed_token_arrays does)")
-        bucket = _next_bucket(n, self.max_batch)
+        bucket = max(_next_bucket(n, self.max_batch), self.min_bucket)
         staged = self._staging((bucket, self.context_length), torch.int64)
         batch = staged.numpy()
         for i, row in enumerate(tokens):
@@ -286,7 +308,7 @@ class InferenceEngine:
         from .. import native
 
         native.available()
-        b = 1
+        b = self.min_bucket
         while True:
             if log:
                 log(f"warmup: bucket {b}")
@@ -380,7 +402,7 @@ class InferenceEngine:
             "backend": self.device.type,
             "device_name": torch.cuda.get_device_name(self.device) if cuda else "cpu",
             "has_tokenizer": self.tokenizer is not None,
-            "mesh": None,
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
             "device_memory": _device_memory(self.device) if cuda else None,
         }
 

@@ -35,7 +35,8 @@ Hardening / deployment:
     on ONE port via ``--reuse-port`` (SO_REUSEPORT; the kernel balances
     connections — each process restricted to its own card with
     CUDA_VISIBLE_DEVICES).  Across hosts: horizontal replicas behind an
-    LB.  ``--mesh auto`` (one process over all cards) is not ported.
+    LB.  Or ``--mesh auto``: one process splitting every batch over all
+    visible cards.
 
 The port's own copy of ``debias_vision_lang_tpu/serve/server.py`` (stdlib
 and numpy only); ``tests/test_torch_standalone.py`` holds every route,
@@ -471,8 +472,13 @@ def serve_forever(model, tokenizer=None, host: str = "127.0.0.1",
                   tls_key: Optional[str] = None,
                   reuse_port: bool = False, device="cuda"):
     """Blocking entry point used by the CLI.  The model runs on ``device``
-    (the card unless ``"cpu"``; without a card the default raises); a
-    ``mesh`` raises (not ported)."""
+    (the card unless ``"cpu"``; without a card the default raises);
+    ``mesh="auto"`` splits batches over every card of the device's type
+    (``parallel.mesh.default_mesh``)."""
+    if mesh == "auto":
+        from ..parallel.mesh import default_mesh
+
+        mesh = default_mesh(device)
     engine = InferenceEngine(model, tokenizer, max_batch=max_batch,
                              compute_dtype=compute_dtype, mesh=mesh,
                              device=device)

@@ -25,6 +25,14 @@ What differs from the JAX package, and why:
     optax's ``scale_by_schedule``), and global-norm clipping is optax's
     rule (scale by max_norm / norm only when norm >= max_norm), not
     ``clip_grad_norm_``'s.
+  * Under a ``mesh`` (``parallel.mesh``) the image batches are split over
+    the data axis and the image tower runs once per shard
+    (``dp_shard_map``); the losses, the adversary and the optimizers run
+    on the mesh's first slot on the gathered embeddings, which is the
+    arithmetic of JAX's replicated GSPMD step.  In one process the
+    with-layers branch differentiates through the split; across processes
+    every rank gathers the same embeddings and updates identical state, and
+    the with-layers branch raises (ROADMAP.md queue 1 item 5c).
   * ``embed_dtype="int8"`` embeds through ``ops/quant.QuantizedCLIP``, which
     quantizes once when built; the embed step rebuilds it whenever an
     image-path parameter changed since (the JAX step re-quantizes inside
@@ -46,8 +54,6 @@ from ..models.adversary import Adversary
 from ..models.clip import VIT_KINDS
 from ..models.debias import DebiasCLIP, apply_grad_mask
 from ..ops.quant import DTYPES
-
-ROADMAP_DIST = "ROADMAP.md queue 1 item 5 (distribution)"
 
 
 # ---------------------------------------------------------------------------
@@ -241,10 +247,13 @@ def build_train_steps(
     train_cfg: TrainConfig,
     sensitive_tokens: np.ndarray,
     use_pallas: Optional[bool] = None,
+    mesh=None,
 ) -> TrainStepFns:
     """The adversarial steps.  ``sensitive_tokens``: the tokenized sensitive
     prompts [P_s, 77], fixed during training.  ``AdversarialTrainer.create``
-    builds the optimizers over the parameters that train."""
+    builds the optimizers over the parameters that train.  Under a ``mesh``
+    both image embeds (frozen and differentiable) split their batch over
+    the data axis."""
     del debias_cfg  # read from the model at each call
     sens_np = np.asarray(sensitive_tokens, np.int64)
     sens_on: Dict[torch.device, torch.Tensor] = {}
@@ -285,12 +294,13 @@ def build_train_steps(
         @torch.no_grad()
         def embed_images(model: DebiasCLIP, images: torch.Tensor) -> torch.Tensor:
             """Frozen int8 image tower; re-quantized whenever an image-path
-            parameter changed since the last call."""
-            key = (id(model), _version_key(model.clip.visual))
-            if quantized.get("key") != key:
-                quantized["model"] = QuantizedCLIP(model)
-                quantized["key"] = key
-            return quantized["model"].encode_image(images).float()
+            parameter changed since the last call (one per replica under a
+            mesh that spans cards)."""
+            key = _version_key(model.clip.visual)
+            hit = quantized.get(id(model))
+            if hit is None or hit[0] != key:
+                hit = quantized[id(model)] = (key, QuantizedCLIP(model))
+            return hit[1].encode_image(images).float()
     else:
         embed_dtype = _dtype(embed_dtype_s, "embed_dtype")
 
@@ -300,6 +310,11 @@ def build_train_steps(
             blocks), float32 out."""
             return model.encode_image(images, dtype=embed_dtype,
                                       use_pallas=use_pallas).float()
+
+    if mesh is not None:
+        from ..parallel.mesh import dp_shard_map
+
+        embed_images = dp_shard_map(mesh, embed_images)
 
     @torch.no_grad()
     def eval_scores(model: DebiasCLIP, image_embs: torch.Tensor) -> torch.Tensor:
@@ -372,6 +387,9 @@ def build_train_steps(
         return model.encode_image(images, use_pallas=use_pallas,
                                   remat=remat_img).float()
 
+    if mesh is not None:
+        _embed_diff = dp_shard_map(mesh, _embed_diff)  # noqa: F811
+
     def prompt_step_with_layers(model, joint_opt, grad_mask, adversary, images,
                                 attr_labels, caption_images, caption_tokens):
         """Image-path params train: both image batches embed inside the
@@ -437,21 +455,31 @@ class AdversarialTrainer:
     grad_mask: Optional[Dict[str, float]] = None
     # True when a trainable parameter feeds the image path
     trains_image: bool = False
+    # data parallelism: image batches split over the mesh's data axis
+    mesh: Optional[object] = None
 
     @staticmethod
     def create(model: DebiasCLIP, adversary: Adversary, train_cfg: TrainConfig,
                sensitive_tokens: np.ndarray, use_pallas: Optional[bool] = None,
                mesh=None) -> "AdversarialTrainer":
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh: data-parallel training is not ported yet: {ROADMAP_DIST}")
-        fns = build_train_steps(model.clip_cfg, model.debias_cfg, adversary.cfg,
-                                train_cfg, sensitive_tokens, use_pallas=use_pallas)
         dcfg = model.debias_cfg
         trains_layers = (dcfg.n_train_text_layers > 0 or dcfg.n_train_vid_layers > 0
                          or not dcfg.freeze_proj)
         # visual.proj and logit_scale belong to the reference's "proj" group
         trains_image = dcfg.n_train_vid_layers > 0 or not dcfg.freeze_proj
+        if mesh == "auto":
+            from ..parallel.mesh import default_mesh
+
+            mesh = default_mesh(model.debias_tokens.device)
+        if mesh is not None and mesh.world > 1 and trains_image:
+            from ..parallel.mesh import ROADMAP_GRAD_GATHER
+
+            raise NotImplementedError(
+                f"image-path layers train only in one process under a mesh, not "
+                f"across {mesh.world} ranks: {ROADMAP_GRAD_GATHER}")
+        fns = build_train_steps(model.clip_cfg, model.debias_cfg, adversary.cfg,
+                                train_cfg, sensitive_tokens, use_pallas=use_pallas,
+                                mesh=mesh)
         grad_mask = model.trainable_mask() if trains_layers else None
         for name, p in model.clip.named_parameters():
             p.requires_grad_(bool(grad_mask is not None and grad_mask[name]))
@@ -464,7 +492,8 @@ class AdversarialTrainer:
             prompt_opt=make_optimizer(train_cfg.prompt_lr, train_cfg, prompt_params),
             adv_opt=make_optimizer(train_cfg.adversary_lr, adversary_schedule_cfg(train_cfg),
                                    list(adversary.parameters())),
-            train_cfg=train_cfg, grad_mask=grad_mask, trains_image=trains_image)
+            train_cfg=train_cfg, grad_mask=grad_mask, trains_image=trains_image,
+            mesh=mesh)
 
     @property
     def device(self) -> torch.device:
@@ -474,12 +503,21 @@ class AdversarialTrainer:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
         return t.to(self.device, dtype=dtype)
 
+    def _shard(self, x):
+        """An image batch on the device, or split over the mesh's data axis
+        (the batch must divide over it)."""
+        if self.mesh is None:
+            return self._to_device(x)
+        from ..parallel.mesh import shard_batch_arrays
+
+        return shard_batch_arrays(self.mesh, x)
+
     def step(self, images, attr_labels, caption_images, caption_tokens) -> Dict:
         """One outer step: ``cadence`` adversary updates, then one prompt
         update.  Images are preprocessed [B, H, W, 3] (or the uint8 patch
         staging)."""
-        images = self._to_device(images)
-        caption_images = self._to_device(caption_images)
+        images = self._shard(images)
+        caption_images = self._shard(caption_images)
         image_embs = self.fns.embed_images(self.model, images)
         # only the frozen-image branches consume a precomputed caption embed
         needs_cap_embs = self.grad_mask is None or not self.trains_image

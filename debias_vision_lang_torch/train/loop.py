@@ -1,5 +1,7 @@
-"""End-to-end training on one device: data -> alternating steps -> periodic
-bias eval -> best-NDKL selection -> checkpoints + reference-format export.
+"""End-to-end training on one device, or with the image batches split over
+a mesh's data axis (``mesh="auto"``: every card of the model's device
+type): data -> alternating steps -> periodic bias eval -> best-NDKL
+selection -> checkpoints + reference-format export.
 
 Counterpart of ``debias_vision_lang_tpu/train/loop.py::run_training``.
 Batch A is FairFace train images with protected-attribute labels against
@@ -32,7 +34,7 @@ from ..models.adversary import Adversary
 from ..models.debias import DebiasCLIP, init_debias_tokens
 from ..utils.device import resolve_device
 from ..utils.observability import MetricsLogger
-from .adversarial import ROADMAP_DIST, AdversarialTrainer
+from .adversarial import AdversarialTrainer
 from .state import export_reference_pt, save_checkpoint
 
 
@@ -156,9 +158,6 @@ def run_training(
     from ..models.loader import model_loader
     from ..vision.preprocess import preprocess_batch
 
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh: data-parallel training is not ported yet: {ROADMAP_DIST}")
     device = resolve_device(device)
 
     # the caption stream is seeded apart from HostLoader's shuffle, else
@@ -241,8 +240,12 @@ def run_training(
         # the cosine horizon: total updates = epochs x batches per epoch
         tcfg = dataclasses.replace(
             tcfg, decay_steps=max(tcfg.warmup_steps + 1, epochs * steps_per_epoch))
+    if mesh == "auto":
+        from ..parallel.mesh import default_mesh
+
+        mesh = default_mesh(dev)
     trainer = AdversarialTrainer.create(model, adversary, tcfg, sens_tokens,
-                                        use_pallas=use_pallas)
+                                        use_pallas=use_pallas, mesh=mesh)
     total_steps = epochs * steps_per_epoch
     start_epoch = 0
     if resume:
@@ -267,7 +270,7 @@ def run_training(
                                 n_px, **stats)
 
     def embed_rows(images_u8: np.ndarray) -> np.ndarray:
-        e = trainer.fns.embed_images(trainer.model, prep(images_u8))
+        e = trainer.fns.embed_images(trainer.model, trainer._shard(prep(images_u8)))
         return e.float().cpu().numpy()
 
     # the frozen-tower embedding cache: embed the train rows and the caption

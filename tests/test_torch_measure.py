@@ -284,6 +284,24 @@ class TestInt8Rungs:
         assert calls.count(True) == text_layers  # 319 prompts in one text batch
 
 
+class TestMeshOpts:
+    """``mesh`` and ``sharded_metrics`` run the distribution path
+    (tests/test_torch_parallel.py holds it at length): on the CPU "auto" is
+    one slot, and ``sharded_metrics`` without a mesh is the single-device
+    engine, as in JAX."""
+
+    @pytest.mark.parametrize("extra", [{"mesh": "auto"}, {"sharded_metrics": True},
+                                       {"mesh": "auto", "sharded_metrics": True}])
+    def test_mesh_opts_equal_the_unsharded_call(self, models, fairface, extra):
+        _, tmodel = models
+        opts = {**OPTS, "data_path": fairface}
+        want = tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender", opts=opts)
+        got = tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender",
+                                    opts={**opts, **extra})
+        for ev in want:
+            assert got[ev] == pytest.approx(want[ev], abs=1e-6), ev
+
+
 class TestOptsChecked:
     @pytest.mark.parametrize("opts,exc,match", [
         ({"topnn": 5}, ValueError, "topnn"),
@@ -293,8 +311,6 @@ class TestOptsChecked:
         ({"dtype": "int8-text"}, NotImplementedError, "OpenAI ViT towers"),
         ({"dtype": "auto"}, NotImplementedError, "queue 1 item 8"),
         ({"dtype": "float16"}, ValueError, "unknown dtype"),
-        ({"mesh": "auto"}, NotImplementedError, "distribution"),
-        ({"sharded_metrics": True}, NotImplementedError, "distribution"),
         ({"dataset": "webvid"}, NotImplementedError, "webvid"),
     ])
     def test_rejected_before_any_work(self, opts, exc, match):

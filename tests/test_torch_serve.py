@@ -453,9 +453,21 @@ class TestEngine:
             errs.append(str(err.value))
         assert errs[0] == errs[1]
 
-    def test_mesh_refused_naming_the_roadmap_item(self, models):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-            tserve.InferenceEngine(models[1], None, mesh=object(), device="cpu")
+    def test_mesh_engine_rows_equal_the_engine_without_one(self, models, engines):
+        """A 4-slot CPU mesh: buckets from 4, rows as the unsharded engine's."""
+        from debias_vision_lang_torch.parallel import create_mesh
+
+        te = engines[1]
+        me = tserve.InferenceEngine(models[1], TTok(MERGES, context_length=CTX),
+                                    max_batch=8, device="cpu",
+                                    mesh=create_mesh(devices=[torch.device("cpu")] * 4))
+        assert me.min_bucket == 4 and me.info()["mesh"] == {"data": 4, "model": 1}
+        imgs = _frames(np.random.default_rng(11), 11)
+        np.testing.assert_allclose(me.embed_image_arrays(imgs), te.embed_image_arrays(imgs),
+                                   atol=1e-6, rtol=0)
+        toks = list(me.tokenize(["a photo of the cat", "the dog", "a cat"]))
+        np.testing.assert_allclose(me.embed_token_arrays(toks), te.embed_token_arrays(toks),
+                                   atol=1e-6, rtol=0)
 
     def test_auto_dtype_refused_naming_the_roadmap_item(self, models):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):

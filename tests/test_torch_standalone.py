@@ -51,7 +51,10 @@ def test_every_port_module_is_scanned():
                 "debias_vision_lang_torch/cli.py",
                 "debias_vision_lang_torch/__main__.py",
                 "debias_vision_lang_torch/models/frozen_in_time.py",
-                "debias_vision_lang_torch/data/video.py"):
+                "debias_vision_lang_torch/data/video.py",
+                "debias_vision_lang_torch/parallel/__init__.py",
+                "debias_vision_lang_torch/parallel/mesh.py",
+                "debias_vision_lang_torch/metrics/distributed.py"):
         assert rel in PORT_SOURCES
 
 
@@ -167,7 +170,7 @@ def test_batcher_copy_is_the_original():
 def test_server_copy_is_the_original():
     """Every route, status code, error string, limit, the handler, auth, TLS
     and SO_REUSEPORT are the JAX server's code.  What differs: ``serve_forever``
-    (``device``; no mesh of its own) and the listen backlog (``_Server``,
+    (``device``, and ``mesh="auto"`` over that device's type) and the listen backlog (``_Server``,
     ``LISTEN_BACKLOG``, the base of ``_ReusePortServer`` and ``make_server``'s
     class), which the JAX server leaves at the stdlib's 5."""
     got = _code_nodes("debias_vision_lang_torch/serve/server.py")

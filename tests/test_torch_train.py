@@ -480,11 +480,25 @@ class TestTrainerSurface:
         with pytest.raises(ValueError, match=">= 0"):
             tr.step(*_batch(1))
 
-    def test_mesh_raises(self, world):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            _create(
-                _port_model(world, DebiasConfig(hidden_dim=32)), _port_adversary(world),
-                TrainConfig(), world[3], mesh="auto")
+    def test_mesh_raises(self, world, monkeypatch):
+        """mesh="auto" builds (one CPU slot); across ranks the image-path
+        layers refuse to train (ROADMAP.md queue 1 item 5c)."""
+        from debias_vision_lang_torch.parallel import mesh as pmesh
+
+        tr = _create(_port_model(world, DebiasConfig(hidden_dim=32)), _port_adversary(world),
+                     TrainConfig(), world[3], mesh="auto")
+        assert dict(tr.mesh.shape) == {"data": 1, "model": 1}
+        orig = pmesh.create_mesh
+
+        def two_ranks(*a, **k):
+            m = orig(*a, **k)
+            m.world = 2
+            return m
+
+        monkeypatch.setattr(pmesh, "create_mesh", two_ranks)
+        with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
+            _create(_port_model(world, DebiasConfig(hidden_dim=32, n_train_vid_layers=1)),
+                    _port_adversary(world), TrainConfig(), world[3], mesh="auto")
 
     def test_freezing_sets_requires_grad(self, world):
         model = _port_model(world, DebiasConfig(hidden_dim=32, n_train_text_layers=1))

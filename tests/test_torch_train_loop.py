@@ -135,8 +135,26 @@ class TestRunTraining:
         assert "/16" not in os.path.basename(res["export"])
 
     def test_mesh_raises(self, ff_root, tmp_path):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            _run(ff_root, str(tmp_path / "m"), mesh="auto")
+        """A batch of 8 does not divide over a 3-slot mesh's data axis."""
+        from debias_vision_lang_torch.parallel import create_mesh
+
+        with pytest.raises(ValueError, match="does not divide"):
+            _run(ff_root, str(tmp_path / "m"),
+                 mesh=create_mesh(devices=[torch.device("cpu")] * 3))
+
+    @pytest.mark.parametrize("cached", [True, False])
+    def test_mesh_matches_one_device(self, ff_root, tmp_path, cached):
+        """mesh="auto" (one CPU slot) and a 4-slot mesh train the tokens of
+        the unsharded run, on the cached and the decode paths."""
+        from debias_vision_lang_torch.parallel import create_mesh
+
+        want = _run(ff_root, str(tmp_path / "one"), cached=cached, epochs=1)
+        for name, mesh in (("auto", "auto"),
+                           ("four", create_mesh(devices=[torch.device("cpu")] * 4))):
+            got = _run(ff_root, str(tmp_path / name), cached=cached, epochs=1, mesh=mesh)
+            assert got["steps"] == want["steps"] == 2
+            np.testing.assert_allclose(_export(got), _export(want), atol=1e-7, rtol=0)
+            assert got["best_ndkl"] == pytest.approx(want["best_ndkl"], abs=1e-6)
 
     def test_image_training_bypasses_the_cache(self, ff_root, tmp_path):
         res = _run(ff_root, str(tmp_path / "layers"), epochs=1,

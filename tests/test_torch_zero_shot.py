@@ -163,12 +163,30 @@ def test_empty_loader_raises(models, tmp_path):
                                ["empty"], n_px=32)
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": "auto"}, "queue 1 item 5"),
-                                      ({"dtype": "auto"}, "queue 1 item 8")])
+@pytest.mark.parametrize("kw,match", [({"dtype": "auto"}, "queue 1 item 8")])
 def test_unported_options_name_their_item(models, kw, match):
     _, tm, _ = models
     with pytest.raises(NotImplementedError, match=match):
         tzs.zero_shot_accuracy(tm, tok, [], CLASSES, **kw)
+
+
+def test_mesh_equals_one_device(models, folder):
+    """A CPU mesh of 8 slots (batches of 4: every one ragged) and "auto"
+    (one slot) give the unsharded call's top-1 / top-5 and JAX's mesh call's."""
+    from debias_vision_lang_tpu.data.loader import HostLoader as JHostLoader
+    from debias_vision_lang_tpu.parallel.mesh import create_mesh as jcreate
+    from debias_vision_lang_torch.parallel import create_mesh
+
+    jm, tm, _ = models
+    ds = tcli.FolderDataset(folder)
+    kw = {"batch_size": 4, "num_workers": 2, "native_n_px": 32}
+    want = tzs.zero_shot_accuracy(tm, tok, HostLoader(ds, **kw), CLASSES, n_px=32)
+    for mesh in (create_mesh(devices=[torch.device("cpu")] * 8), "auto"):
+        got = tzs.zero_shot_accuracy(tm, tok, HostLoader(ds, **kw), CLASSES, n_px=32,
+                                     mesh=mesh)
+        assert got == want
+    assert want == jzs.zero_shot_accuracy(jm, tok, JHostLoader(ds, **kw), CLASSES, n_px=32,
+                                          mesh=jcreate(), dtype="float32")
 
 
 def test_cli_zero_shot_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
