@@ -316,9 +316,35 @@ Phases (any failure exits non-zero before the final line):
      RENDEZVOUS FAIRFACE OUT`` is one rank): measure_bias(mesh="auto",
      sharded_metrics=True) at bf16 on both ranks within 1e-5 of one
      process, equal on the two, 12 launches per kernel per rank, the
-     collective path printed; each sub-phase's wall time.
-The kernels line comes after phase 20 (its SLIP-L rows take phase 17's
-launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's) and gives each kernel's launches, error, time, plain-twin time,
+     collective path printed; and on each rank 2 bf16 steps of a trainer
+     whose top image layer trains (K1 / K2 forward, twin backward, the
+     image rows gathered with their gradient, the layer's gradient summed
+     across the ranks): both ranks' trainer state (a sha256 over every
+     trained tensor and its Adam moments) equal after every step, the first
+     token gradient and update held to one process by phase 11's bf16
+     bars, each rank's launches the one process's; each sub-phase's wall
+     time.
+ 21. the "auto" rung and the registry archs no phase ran before: K1-K4
+     against their twins (and timed) at ViT-B/32's B=256 S=50 D=768, at
+     ViT-L/14's B=256 S=257 D=1024 H=16 F=4096 and at its text tower's
+     B=319 S=77 D=768 causal; ViT-B/32, ViT-L/14, SLIP-ViT-B/16 and RN101
+     (model_loader, seed 0, full width and depth; RN101's BatchNorms
+     redrawn as phase 18's) at float32, bfloat16, int8 and int8-text: the
+     image tower's img/s at B=256 (CUDA events), its launches per forward
+     (12 or 24 per kernel on a ViT, none on the ResNet), its rows against
+     float32 (bf16 >= 0.999; int8 >= 0.999 on ViT-B/32, phase 17's
+     relative bar on ViT-L/14 and SLIP-B/16, >= 0.99 on RN101), ViT-L/14's
+     text tower at bf16 and int8-text; measure_bias(dtype="auto") on 256
+     written FairFace images (the phase-4 ViT-B/16, SLIP-B/16, RN50) and
+     32 written videos (the Frozen-in-Time joint tower): metrics, cached
+     embeddings and cache key bit-equal to the explicit rung's call, the
+     rung's launches, and an "auto" call hitting that call's cache file;
+     the serving engine and zero-shot at "auto" bit-equal to "int8"; the
+     CLI's measure-bias --dtype auto exiting 0; a table of arch x rung
+     img/s beside the rung "auto" picks (printed, not gated).
+The kernels line comes after phase 21 (its SLIP-L rows take phase 17's
+launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
+the rows of phase 21's shapes its sweep's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -328,7 +354,8 @@ image shapes (launches: phases 4 and 7), one at SLIP-L's (launches:
 phase 17) and one at RN50x4's text shapes, B=319 S=77 D=640 causal
 (launches: phase 18); K3 and K4 one at the int8 joint Frozen-in-Time
 tower's B=32 S=785 D=768 (launches: phase 19; K3 on its long core, whose
-time alone is its "core_ms"); each row names its "case".  K5 has two rows on its short route:
+time alone is its "core_ms"); K1-K4 one at each of phase 21's three shapes
+(launches: phase 21's towers); each row names its "case".  K5 has two rows on its short route:
 float32 causal B=319 S=77 (the text shape) and float32 B=64 S=197 (the image
 shape that holds most of its training launches); its long route two more,
 float32 and bfloat16 at B=8 H=12 S=785 with a zero mask, whose launches are
@@ -718,6 +745,19 @@ def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5, rename=None)
     return {p[0]: p[1] for p in parts}
 
 
+def compare_bf16(name, x, got, ref):
+    """A bf16 block kernel's output against its twin's: within 1 bf16 ulp of
+    the twin's largest magnitude.  Returns the largest difference."""
+    err = (got.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    own = (ref.float() - x.float()).abs().max().item()
+    tol = ulp_bf16(mag)
+    print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of "
+          f"max |twin| {mag}; max |twin - x| {own})")
+    check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
+    return err
+
+
 def kernel_phase(fb, device, card):
     """Kernel vs twin at the B=8 shapes, at every key bucket of the attention
     core, at a ragged M, at the main path's B=256 image shapes (timed, split
@@ -725,16 +765,7 @@ def kernel_phase(fb, device, card):
     JSON rows without launch counts, and the text-shape times."""
     import torch
 
-    def compare(name, x, got, ref):
-        err = (got.float() - ref.float()).abs().max().item()
-        mag = ref.float().abs().max().item()
-        own = (ref.float() - x.float()).abs().max().item()
-        tol = ulp_bf16(mag)
-        print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of "
-              f"max |twin| {mag}; max |twin - x| {own})")
-        check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
-        return err
-
+    compare = compare_bf16
     g = torch.Generator().manual_seed(1)
     for b, s, d, heads, causal in ((8, 197, 768, 12, False), (8, 77, 512, 8, True)):
         attn, mlp = block_params(d, device, seed=d)
@@ -909,6 +940,63 @@ def q_block_params(d, device, seed):
              {"w1_qt": w1.qt, "w2_qt": w2.qt}))
 
 
+def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False):
+    """An int8 block kernel against its twin: the output within 1 bf16 ulp of
+    the twin's largest magnitude (past 320 keys: K3's attention rows and its
+    own codes' out-projection), every code the twin's quantizer of the
+    kernel's own rows, and the share of codes off the twin's under
+    CODE_SHARE_MAX.  Returns the largest output difference."""
+    import torch
+
+    args, qkw = block
+    sk, sr = {}, {}
+    got = kern(x, *args, **kw, **qkw, scratch=sk)
+    ref = plain(x, *args, **kw, scratch=sr)
+    err = (got.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    own = (ref.float() - x.float()).abs().max().item()
+    tol = ulp_bf16(mag)
+    print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of "
+          f"max |twin| {mag}; max |twin - x| {own})")
+    if long_core:
+        # the long core's own rows against the twin's core, and the
+        # output against the twin's last step on the kernel's own codes
+        core_err = (sk["attn"] - sr["attn"]).abs().max().item()
+        core_tol = ulp_bf16(sr["attn"].abs().max().item())
+        own_codes = (x.float() + (fbq.dot_q(sk["aq"], sk["as"], args[5], args[6])
+                                  + args[7].float())).to(x.dtype)
+        code_err = (got.float() - own_codes.float()).abs().max().item()
+        code_tol = ulp_bf16(own_codes.float().abs().max().item())
+        print(f"  long core: attention rows vs the twin's max |diff| {core_err} (bar "
+              f"{core_tol}, 1 bf16 ulp); output vs the twin's out-projection of the "
+              f"kernel's own codes {code_err} (bar {code_tol})"
+              + ("; past 1 ulp of the twin only through codes the code bar admits"
+                 if err > tol else ""))
+        check(core_err <= core_tol, f"{name}: the long core disagrees with the twin's")
+        check(code_err <= code_tol, f"{name}: the out-projection of its own codes is off")
+    else:
+        check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
+    check(math.isfinite(err), f"{name}: non-finite output")
+    n_codes = n_diff = 0
+    for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as"), ("hq", "h", "hs")):
+        if codes not in sk:
+            continue
+        q, s = fbq.quant_rows(sk[rows])
+        check(torch.equal(q, sk[codes]) and torch.equal(s, sk[scales]),
+              f"{name}: the kernel's {codes} codes are not the quantization of "
+              f"its own {rows} rows")
+        diff = (sk[codes].int() - sr[codes].int()).abs()
+        worst, n = diff.max().item(), diff.ne(0).sum().item()
+        print(f"  {codes} codes: the quantization of the kernel's own {rows} rows; "
+              f"{n / diff.numel():.3e} differ from the twin's, max |diff| {worst} "
+              f"(bar {CODE_DIFF_MAX[codes]})")
+        check(worst <= CODE_DIFF_MAX[codes], f"{name}: {codes} codes off by {worst}")
+        n_codes, n_diff = n_codes + diff.numel(), n_diff + n
+    print(f"  all codes: {n_diff / n_codes:.3e} differ (bar {CODE_SHARE_MAX})")
+    check(n_diff / n_codes <= CODE_SHARE_MAX, f"{name}: int8 codes drift from the twin's")
+    return err
+
+
 def kernel_phase_q(fbq, device, card):
     """attention_block_q / mlp_block_q against their twins at the B=8 shapes
     (x and x/16, and a gelu MLP), attention_block_q at both sides of every
@@ -919,54 +1007,8 @@ def kernel_phase_q(fbq, device, card):
     counts, and the text-shape times."""
     import torch
 
-    def compare(name, kern, plain, x, block, kw, long_core=False):
-        args, qkw = block
-        sk, sr = {}, {}
-        got = kern(x, *args, **kw, **qkw, scratch=sk)
-        ref = plain(x, *args, **kw, scratch=sr)
-        err = (got.float() - ref.float()).abs().max().item()
-        mag = ref.float().abs().max().item()
-        own = (ref.float() - x.float()).abs().max().item()
-        tol = ulp_bf16(mag)
-        print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of "
-              f"max |twin| {mag}; max |twin - x| {own})")
-        if long_core:
-            # the long core's own rows against the twin's core, and the
-            # output against the twin's last step on the kernel's own codes
-            core_err = (sk["attn"] - sr["attn"]).abs().max().item()
-            core_tol = ulp_bf16(sr["attn"].abs().max().item())
-            own_codes = (x.float() + (fbq.dot_q(sk["aq"], sk["as"], args[5], args[6])
-                                      + args[7].float())).to(x.dtype)
-            code_err = (got.float() - own_codes.float()).abs().max().item()
-            code_tol = ulp_bf16(own_codes.float().abs().max().item())
-            print(f"  long core: attention rows vs the twin's max |diff| {core_err} (bar "
-                  f"{core_tol}, 1 bf16 ulp); output vs the twin's out-projection of the "
-                  f"kernel's own codes {code_err} (bar {code_tol})"
-                  + ("; past 1 ulp of the twin only through codes the code bar admits"
-                     if err > tol else ""))
-            check(core_err <= core_tol, f"{name}: the long core disagrees with the twin's")
-            check(code_err <= code_tol, f"{name}: the out-projection of its own codes is off")
-        else:
-            check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
-        check(math.isfinite(err), f"{name}: non-finite output")
-        n_codes = n_diff = 0
-        for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as"), ("hq", "h", "hs")):
-            if codes not in sk:
-                continue
-            q, s = fbq.quant_rows(sk[rows])
-            check(torch.equal(q, sk[codes]) and torch.equal(s, sk[scales]),
-                  f"{name}: the kernel's {codes} codes are not the quantization of "
-                  f"its own {rows} rows")
-            diff = (sk[codes].int() - sr[codes].int()).abs()
-            worst, n = diff.max().item(), diff.ne(0).sum().item()
-            print(f"  {codes} codes: the quantization of the kernel's own {rows} rows; "
-                  f"{n / diff.numel():.3e} differ from the twin's, max |diff| {worst} "
-                  f"(bar {CODE_DIFF_MAX[codes]})")
-            check(worst <= CODE_DIFF_MAX[codes], f"{name}: {codes} codes off by {worst}")
-            n_codes, n_diff = n_codes + diff.numel(), n_diff + n
-        print(f"  all codes: {n_diff / n_codes:.3e} differ (bar {CODE_SHARE_MAX})")
-        check(n_diff / n_codes <= CODE_SHARE_MAX, f"{name}: int8 codes drift from the twin's")
-        return err
+    def compare(*a, **k):
+        return compare_q(fbq, *a, **k)
 
     attn_fns = (fbq.attention_block_q, fbq.attention_block_q_plain)
     mlp_fns = (fbq.mlp_block_q, fbq.mlp_block_q_plain)
@@ -1329,14 +1371,16 @@ def train_batches(tokenizer, vis, device):
 
 def run_trainer(model0, sens, batches, counters, **kw):
     """TRAIN_STEPS trainer steps on a copy of ``model0``; the launch counts
-    are set to 0 just before and read just after.  ``kw``: use_pallas, mesh
-    and the TrainConfig fields."""
+    are set to 0 just before and read just after.  ``kw``: use_pallas, mesh,
+    on_step (called with the trainer after each step) and the TrainConfig
+    fields."""
     import torch
     from debias_vision_lang_torch.models.adversary import Adversary
     from debias_vision_lang_torch.train.adversarial import AdversarialTrainer, TrainConfig
 
     use_pallas = kw.pop("use_pallas", None)
     mesh = kw.pop("mesh", None)
+    on_step = kw.pop("on_step", None)
     model = copy.deepcopy(model0)
     adv = Adversary.from_cfg({"ADV_N_INPUT": len(sens), "ADV_HIDDEN_SIZE": 32, "SEED": 0})
     trainer = AdversarialTrainer.create(model, adv, TrainConfig(batch_size=TRAIN_BATCH, **kw),
@@ -1360,6 +1404,8 @@ def run_trainer(model0, sens, batches, counters, **kw):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         updates.append((model.debias_tokens.detach() - before).flatten())
+        if on_step is not None:
+            on_step(trainer)
     counts = launches_of(*counters)
     moved = (model.debias_tokens.detach() - start).abs().max().item()
     return {"trainer": trainer, "model": model, "metrics": metrics, "times": times,
@@ -3390,14 +3436,42 @@ def planted_ties(embs, prompts, how):
     return e, p
 
 
+def trainer_digest(trainer) -> str:
+    """sha256 over every tensor both optimizers hold (the prompt array, the
+    trained CLIP tensors, the adversary) and their Adam moments: equal on
+    two ranks only if their state is bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for opt in (trainer.prompt_opt, trainer.adv_opt):
+        tensors = list(opt.params) + [v for st in opt.adam.state.values()
+                                      for v in st.values()]
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def layered_model(model):
+    """A copy of ``model`` whose top image layer trains (n_train_vid_layers=1)."""
+    m = copy.deepcopy(model)
+    m.debias_cfg = dataclasses.replace(m.debias_cfg, n_train_vid_layers=1)
+    return m
+
+
+WORLD_STEPS = 2  # the two-rank world's with-layers trainer
+WORLD_TRAIN = {"train_dtype": "bfloat16", "embed_dtype": "bfloat16"}
+
+
 def dist_rank(rank: int, init: str, ff: str, out: str) -> int:
     """One rank of phase 20's two-rank world (both ranks on cuda:0, gloo):
-    the phase-4 model, measure_bias(mesh="auto", sharded_metrics=True)."""
+    the phase-4 model, measure_bias(mesh="auto", sharded_metrics=True), then
+    WORLD_STEPS bf16 steps of a trainer whose top image layer trains, with
+    a digest of its state after every step."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from debias_vision_lang_torch.eval.measure import measure_bias
+    from debias_vision_lang_torch.eval.measure import gen_prompts, measure_bias
     from debias_vision_lang_torch.models.debias import DebiasCLIP
     from debias_vision_lang_torch.ops import attention as A
     from debias_vision_lang_torch.ops import fused_block as fb
@@ -3422,12 +3496,23 @@ def dist_rank(rank: int, init: str, ff: str, out: str) -> int:
                            opts={"data_path": ff, "dtype": "bfloat16", "batch_size": BATCH,
                                  "topn": 0.1, "mesh": "auto", "sharded_metrics": True})
         torch.cuda.synchronize()
+        measure_launches = nonzero(launches_of(fb, fbq, A))
+        measure_s = time.perf_counter() - t1
+        tok = tokenizer or ByteTokenizer()
+        digests = []
+        run = run_trainer(layered_model(model), tok(gen_prompts()),
+                          train_batches(tok, model.clip_cfg.vision, "cuda")[:WORLD_STEPS],
+                          (fb, fbq, A), mesh="auto",
+                          on_step=lambda tr: digests.append(trainer_digest(tr)), **WORLD_TRAIN)
         with open(out, "w") as f:
             json.dump({"measure": res, "mesh": dict(mesh.shape), "world": mesh.world,
                        "devices": sorted({str(d) for d in mesh.devices.flat}),
                        "backend": dist.get_backend(), "collectives": dict(pmesh.COLLECTIVES),
-                       "launches": nonzero(launches_of(fb, fbq, A)),
-                       "measure_s": time.perf_counter() - t1,
+                       "launches": measure_launches, "measure_s": measure_s,
+                       "train": {"digests": digests, "grad": run["grad"].tolist(),
+                                 "update": run["updates"][0].tolist(),
+                                 "counts": run["counts"], "metrics": run["metrics"],
+                                 "times": run["times"]},
                        "wall_s": time.perf_counter() - t0}, f)
     finally:
         dist.destroy_process_group()
@@ -3642,9 +3727,7 @@ def dist_phase(model, qmodel, tokenizer, prompts, card, device):
         t0 = time.perf_counter()
         sens = tokenizer(prompts)
         batches = train_batches(tokenizer, model.clip_cfg.vision, device)
-        with_layers = copy.deepcopy(model)
-        with_layers.debias_cfg = dataclasses.replace(with_layers.debias_cfg,
-                                                     n_train_vid_layers=1)
+        with_layers = layered_model(model)
         for tag, m0, kw in (("float32 frozen", model, {"use_pallas": True}),
                             ("float32 with-layers", with_layers, {"use_pallas": True}),
                             ("bf16 kernels frozen", model,
@@ -3724,7 +3807,41 @@ def dist_phase(model, qmodel, tokenizer, prompts, card, device):
                   f"{worst} of one process (bar {DIST_ATOL})")
             check(worst <= DIST_ATOL, f"rank {r}: the world's metrics differ from one process")
         check(ranks[0]["measure"] == ranks[1]["measure"], "the two ranks' metrics differ")
+        # the with-layers bf16 trainer: the ranks' state bit-equal after every
+        # step, the first step held to one process by phase 11's bf16 bars
+        # (the image rows of a 32-row shard round otherwise in cuBLAS)
+        t1 = time.perf_counter()
+        ref = run_trainer(layered_model(model), sens, batches[:WORLD_STEPS], counters,
+                          **WORLD_TRAIN)
+        check_run("phase 20 world with-layers, one process", ref)
+        digests = [r["train"]["digests"] for r in ranks]
+        check(len(digests[0]) == WORLD_STEPS and digests[0] == digests[1],
+              f"the two ranks' trainer state differs after a step: {digests}")
+        for r, res in enumerate(ranks):
+            tr = res["train"]
+            g = torch.tensor(tr["grad"], dtype=torch.float32)
+            u = torch.tensor(tr["update"], dtype=torch.float32)
+            u1 = ref["updates"][0].cpu()
+            cos_g = cosine(g, ref["grad"].cpu())
+            flips = (u.sign() != u1.sign()).double().mean().item()
+            print(f"phase 20 world rank {r} with-layers bf16 trainer, {WORLD_STEPS} steps: "
+                  f"losses {[m['loss'] for m in tr['metrics']]}, steps "
+                  f"{[round(t * 1e3, 1) for t in tr['times']]} ms (host clock); state digest "
+                  f"after each step {[d[:12] for d in tr['digests']]} (both ranks equal); "
+                  f"first token gradient vs one process cosine {cos_g:.6f} (bar "
+                  f"{UPDATE_COS_BF16}), first update sign flips {flips:.6f} (bar "
+                  f"{UPDATE_FLIP_MAX_BF16}), update cosine {cosine(u, u1):.6f}; launches "
+                  f"{nonzero(tr['counts'])} (one process {nonzero(ref['counts'])})")
+            check(cos_g >= UPDATE_COS_BF16 and flips <= UPDATE_FLIP_MAX_BF16,
+                  f"rank {r}: the with-layers step drifts from one process")
+            check(tr["counts"] == ref["counts"] and tr["counts"]["attention_block"] > 0,
+                  f"rank {r}: trainer launches {tr['counts']}, one process {ref['counts']}")
+        check(ranks[0]["train"]["metrics"] == ranks[1]["train"]["metrics"],
+              "the two ranks' losses differ")
+        del ref["trainer"], ref["model"]
         walls["20.6 two-rank world (2 processes)"] = time.perf_counter() - t0
+        print(f"phase 20 the one-process with-layers reference: "
+              f"{time.perf_counter() - t1:.2f} s")
     finally:
         import shutil
 
@@ -3732,6 +3849,355 @@ def dist_phase(model, qmodel, tokenizer, prompts, card, device):
     for k, v in walls.items():
         print(f"phase 20 wall {k}: {v:.2f} s ({card})")
     return sum(walls.values())
+
+
+# phase 21: the "auto" rung, and the registry archs no phase ran before
+RUNG_ARCHS = ("openai/CLIP/ViT-B/32", "openai/CLIP/ViT-L/14",
+              "facebookresearch/SLIP/ViT-B/16", "openai/CLIP/RN101")
+RUNGS = ("float32", "bfloat16", "int8", "int8-text")
+# int8 image rows vs float32: the absolute bar (COS_MIN) on ViT-B/32, the
+# relative one of phase 17 (INT8_ERR_RATIO) where random weights take the
+# int8 rung itself under it, RN_INT8_COS on the ResNet
+RUNG_INT8_BAR = {"openai/CLIP/ViT-B/32": "absolute", "openai/CLIP/ViT-L/14": "relative",
+                 "facebookresearch/SLIP/ViT-B/16": "relative", "openai/CLIP/RN101": "resnet"}
+# K1-K4 at the shapes the sweep runs first on the card: (case, B, S, D, heads,
+# causal, MLP activation, weight seed)
+RUNG_SHAPES = (("ViT-B/32 B=256 S=50 D=768", BATCH, 50, 768, 12, False, "quick_gelu", 32),
+               ("ViT-L/14 B=256 S=257 D=1024", BATCH, 257, 1024, 16, False, "quick_gelu", 14),
+               ("ViT-L/14 text B=319 S=77 D=768", 319, 77, 768, 12, True, "quick_gelu", 77))
+AUTO_VAL = 256  # the written FairFace val images of the entry-point checks
+AUTO_VIDEOS = 32  # and the written videos (one batch of FIT_BATCH)
+
+
+def rung_kernels(fb, fbq, device, card):
+    """K1-K4 against their twins at RUNG_SHAPES, timed: kernels-line rows
+    without launch counts, keyed by (name, case)."""
+    import torch
+
+    rows = {}
+    for case, b, s, d, heads, causal, act, seed in RUNG_SHAPES:
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
+        attn, mlp = block_params(d, device, seed=seed)
+        qattn, qmlp = q_block_params(d, device, seed=seed)
+        akw, mkw = {"heads": heads, "causal": causal}, {"act_kind": act}
+        iters = 3 if s > 200 else 5
+        for name, lib, line, kern, plain, args, qkw, kw, work in (
+                ("attention_block", "fused_block", 69, fb.attention_block,
+                 fb.attention_block_plain, attn, {}, akw,
+                 attention_block_work(b, s, d, causal=causal)),
+                ("mlp_block", "fused_block", 192, fb.mlp_block, fb.mlp_block_plain, mlp, {},
+                 mkw, mlp_block_work(b, s, d, 4 * d)),
+                ("attention_block_q", "fused_block_q", 62, fbq.attention_block_q,
+                 fbq.attention_block_q_plain, qattn[0], qattn[1], akw,
+                 attention_block_work(b, s, d, causal=causal, weights="int8")),
+                ("mlp_block_q", "fused_block_q", 106, fbq.mlp_block_q, fbq.mlp_block_q_plain,
+                 qmlp[0], qmlp[1], mkw, mlp_block_work(b, s, d, 4 * d, weights="int8"))):
+            label = f"{name} {case} H={heads} causal={causal} {act} (phase 21)"
+            if lib == "fused_block":
+                err = compare_bf16(label, x, kern(x, *args, **kw), plain(x, *args, **kw))
+            else:
+                err = compare_q(fbq, label, kern, plain, x, (args, qkw), kw)
+            rows[name, case] = kernel_row(
+                name, case, lib, line, err,
+                cuda_ms(lambda: kern(x, *args, **kw, **qkw), iters=iters),
+                cuda_ms(lambda: plain(x, *args, **kw), iters=2), work)
+            r = rows[name, case]
+            print(f"time {name} {case}: kernel {r['ms']:.4f} ms, plain twin "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
+                  f"kernel at {r['bound_ms'] / r['ms']:.1%} of it) ({card})")
+        del x, attn, mlp, qattn, qmlp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rung_tower(arch, tok, prompts, counters, card, device, table, tower_launches):
+    """One registry arch at full width and depth, seed 0: its image tower at
+    every rung (img/s at B=256, CUDA events; launches of one forward; rows
+    against float32), ViT-L/14's text tower at bf16 and int8-text.  Returns
+    the model and its preprocess (SLIP-B/16 goes on to the entry-point
+    checks)."""
+    import torch
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.models.loader import model_loader
+    from debias_vision_lang_torch.ops.quant import resolve_compute, resolve_rung
+
+    t0 = time.perf_counter()
+    model, pre, _, alias = model_loader(arch, device=device, pretrained=False)
+    model.eval()
+    vis, text = model.cfg.vision, model.cfg.text
+    resnet = vis.kind == "resnet"
+    if resnet:
+        redraw_batch_norms(model.visual, seed=21, calibrate=scene_batch(
+            SyntheticScenes(32, seed=CALIB_SEED, px=vis.image_size), vis, device))
+        x = scene_batch(SyntheticScenes(BATCH, seed=21, px=vis.image_size), vis, device)
+        layers = 0
+    else:
+        x = torch.from_numpy(next(iter(HostLoader(
+            SyntheticFaces(BATCH, seed=21, px=vis.image_size), batch_size=BATCH,
+            num_workers=8, native_n_px=vis.image_size,
+            native_patch=vis.patch_size))).images).to(device)
+        layers = vis.layers
+    print(f"phase 21 {alias}: {vis.kind}, image D={vis.width} layers {vis.layers} heads "
+          f"{vis.heads} patch {vis.patch_size} at {vis.image_size} px (staged "
+          f"{tuple(x.shape)} {x.dtype}), text D={text.width} H={text.heads}; "
+          f"{sum(p.numel() for p in model.parameters())} params, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kernels = {"bfloat16": ("attention_block", "mlp_block"),
+               "int8": ("attention_block_q", "mlp_block_q"),
+               "int8-text": ("attention_block_q", "mlp_block_q"), "float32": ()}
+    embs, img_s = {}, {}
+    for rung in RUNGS:
+        m, dt = resolve_compute(model, rung)
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        with torch.no_grad():
+            emb = m.encode_image(x, dtype=dt).float()
+        torch.cuda.synchronize()
+        got = nonzero(launches_of(*counters))
+        want = {} if resnet else {k: layers for k in kernels[rung]}
+        check(got == want, f"phase 21 {arch} {rung}: one forward launched {got}, expected {want}")
+        check(emb.shape == (BATCH, vis.embed_dim) and bool(torch.isfinite(emb).all()),
+              f"phase 21 {arch} {rung}: image rows {tuple(emb.shape)}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: m.encode_image(x, dtype=dt), iters=2)
+        img_s[rung] = BATCH / ms * 1e3
+        print(f"phase 21 {arch} {rung}: image tower B={BATCH} {ms:.3f} ms/batch, "
+              f"{img_s[rung]:.1f} img/s; launches per forward {got} ({card})")
+        for name, n in got.items():
+            tower_launches[name, vis.width, vis.kind] = n
+        embs[rung] = emb
+        if rung == "float32":
+            continue
+        tag = f"phase 21 {arch} {rung} vs float32, image rows (B={BATCH})"
+        bar = RUNG_INT8_BAR[arch] if rung != "bfloat16" else "absolute"
+        if bar == "absolute":
+            cosine_check(tag, emb, embs["float32"])
+        elif bar == "relative":
+            int8_vs_plain_int8(tag, m, x, emb, embs["float32"])
+        else:
+            cos = torch.nn.functional.cosine_similarity(emb, embs["float32"], -1)
+            print(f"{tag}: cosine min {cos.min().item():.6f} mean {cos.mean().item():.6f} "
+                  f"(bar: min >= {RN_INT8_COS})")
+            check(cos.min().item() >= RN_INT8_COS, f"{tag}: drift from float32")
+        del m
+    auto = resolve_rung(model, "auto")
+    fast = max(("float32", "bfloat16", "int8"), key=img_s.get)
+    table[arch] = (img_s, auto, fast)
+    if arch == "openai/CLIP/ViT-L/14":  # its text tower: D = 768, 12 heads
+        tokens = torch.as_tensor(tok(prompts), dtype=torch.long, device=device)
+        with torch.no_grad():
+            txt32 = model.encode_text(tokens).float()
+            for rung, want in (("bfloat16", ("attention_block_causal", "mlp_block")),
+                               ("int8-text", ("attention_block_q_causal", "mlp_block_q"))):
+                m, dt = resolve_compute(model, rung)
+                reset_all(*counters)
+                txt = (m.encode_text(tokens) if rung == "int8-text"
+                       else m.encode_text(tokens, dtype=dt)).float()
+                torch.cuda.synchronize()
+                got = nonzero(launches_of(*counters))
+                print(f"phase 21 {arch} {rung} text tower, {len(prompts)} prompts (D="
+                      f"{text.width}): launches {got}")
+                check(got == {k: text.layers for k in want},
+                      f"phase 21 {arch} {rung} text tower launched {got}")
+                for name, n in got.items():
+                    tower_launches[name.replace("_causal", ""), text.width, "text"] = n
+                cosine_check(f"phase 21 {arch} {rung} text tower vs float32", txt, txt32)
+                del m
+    del embs, x
+    torch.cuda.empty_cache()
+    return model, pre
+
+
+def auto_measure(tag, model, pre, tok, prompts, opts, rung, want, counters, tmp):
+    """measure_bias(dtype="auto") through the entry point against the
+    explicit rung's call: metrics, cached embeddings and cache key bit for
+    bit, the resolved rung's launches, and an "auto" call that hits the
+    rung's cache file (no launch)."""
+    import torch
+    from debias_vision_lang_torch.eval.measure import measure_bias
+
+    t0 = time.perf_counter()
+    out = {}
+    for dt in (rung, "auto"):
+        path = os.path.join(tmp, f"{tag.replace('/', '_')}_{dt}.npz")
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        res = measure_bias(model, pre, tok, "gender", opts={
+            **opts, "prompts": prompts, "dtype": dt, "cache_embeddings": path})
+        torch.cuda.synchronize()
+        with np.load(path) as f:
+            out[dt] = (res, f["embeddings"], str(f["cache_key"]),
+                       nonzero(launches_of(*counters)), path)
+    (r1, e1, k1, c1, p1), (r2, e2, k2, c2, _) = out[rung], out["auto"]
+    check(r2 == r1, f"phase 21 {tag}: auto's metrics {r2} are not the {rung} call's {r1}")
+    check(np.array_equal(e2, e1) and k2 == k1 and json.loads(k2)["dtype"] == rung,
+          f"phase 21 {tag}: auto's embeddings or cache key differ from the {rung} call's")
+    check(c2 == c1 == want, f"phase 21 {tag}: launches auto {c2}, {rung} {c1}, expected {want}")
+    reset_all(*counters)
+    hit = measure_bias(model, pre, tok, "gender", opts={
+        **opts, "prompts": prompts, "dtype": "auto", "cache_embeddings": p1})
+    torch.cuda.synchronize()
+    hit_launches = nonzero(launches_of(*counters))
+    check(hit == r1 and not hit_launches,
+          f"phase 21 {tag}: auto on the {rung} cache file gave {hit}, launches {hit_launches}")
+    print(f"phase 21 measure_bias {tag}: dtype='auto' -> {rung}: metrics, embeddings and "
+          f"cache key bit-equal to the explicit call, launches {c2}; auto on the {rung} "
+          f"call's cache file: a hit, no launch ({time.perf_counter() - t0:.2f} s)")
+
+
+def rung_phase(model, tokenizer, prompts, card, device, tower_img_s=None):
+    """Phase 21: K1-K4 at the sweep's new shapes against their twins; every
+    rung of ViT-B/32, ViT-L/14, SLIP-B/16 and RN101 at full width; the
+    "auto" rung through measure_bias (the phase-4 ViT-B/16, SLIP-B/16, RN50,
+    the Frozen-in-Time joint tower), the engine, zero-shot and the CLI.
+    Returns (the kernels line's rows of the new shapes, the wall time)."""
+    import gzip
+    import shutil
+
+    import torch
+    from debias_vision_lang_torch.cli import FolderDataset
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.eval.zero_shot import zero_shot_accuracy
+    from debias_vision_lang_torch.models.loader import model_loader
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.serve.engine import InferenceEngine
+    from debias_vision_lang_torch.text import ByteTokenizer
+    from debias_vision_lang_torch.vision.preprocess import Preprocess
+
+    counters = (fb, fbq, A)
+    walls = {}
+    t0 = time.perf_counter()
+    rows = rung_kernels(fb, fbq, device, card)
+    walls["21.1 K1-K4 at the new shapes"] = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    table, tower_launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rung_")
+    try:
+        t0 = time.perf_counter()
+        ff = os.path.join(tmp, "fairface")
+        write_fairface(ff, 0, AUTO_VAL)
+        opts = {"data_path": ff, "batch_size": BATCH, "topn": 0.1}
+        slip = None
+        for arch in RUNG_ARCHS:
+            m = rung_tower(arch, tok, prompts, counters, card, device, table, tower_launches)
+            if arch == "facebookresearch/SLIP/ViT-B/16":
+                slip = m
+            del m
+            torch.cuda.empty_cache()
+        walls["21.2 the sweep (4 archs x 4 rungs)"] = time.perf_counter() - t0
+
+        # 21.3 measure_bias(dtype="auto") for one arch of each family
+        t0 = time.perf_counter()
+        n_b = AUTO_VAL // BATCH
+        q_launch = {"attention_block_q": LAYERS * n_b, "mlp_block_q": LAYERS * n_b}
+        auto_measure("ViT-B/16 (phase 4)", model, Preprocess(model.clip_cfg.vision.image_size),
+                     tokenizer, prompts, opts, "int8", q_launch, counters, tmp)
+        auto_measure("SLIP-ViT-B/16", *slip, tokenizer, prompts, opts, "int8", q_launch,
+                     counters, tmp)
+        del slip
+        rn, rn_pre, _, _ = model_loader("openai/CLIP/RN50", device=device, pretrained=False)
+        rn.eval()
+        redraw_batch_norms(rn.visual, seed=21, calibrate=scene_batch(
+            SyntheticScenes(32, seed=CALIB_SEED, px=rn.cfg.vision.image_size), rn.cfg.vision,
+            device))
+        auto_measure("RN50", rn, rn_pre, tokenizer, prompts, opts, "bfloat16", {}, counters,
+                     tmp)
+        del rn
+        fit, fit_pre, _, _ = model_loader(FIT_ARCH, device=device, pretrained=False)
+        fit.eval()
+        redraw_temporal(fit.visual, seed=21)
+        vids = os.path.join(tmp, "videos")
+        os.makedirs(vids)
+        write_videos(vids, AUTO_VIDEOS)
+        auto_measure(f"Frozen-in-Time {fit.attention}", fit, fit_pre, tokenizer, prompts,
+                     {"dataset": "video", "data_path": vids, "num_frames": FIT_FRAMES,
+                      "batch_size": FIT_BATCH, "topn": 0.1}, "int8",
+                     {"attention_block_q": LAYERS * AUTO_VIDEOS // FIT_BATCH,
+                      "mlp_block_q": LAYERS * AUTO_VIDEOS // FIT_BATCH}, counters, tmp)
+        del fit
+        torch.cuda.empty_cache()
+        walls["21.3 measure_bias auto, four families"] = time.perf_counter() - t0
+
+        # 21.4 the engine and zero-shot at "auto" (the phase-4 model: int8)
+        t0 = time.perf_counter()
+        faces = SyntheticFaces(64, seed=21, px=model.clip_cfg.vision.image_size)
+        items = [faces.load_image(i) for i in range(64)]
+        rows_by = {}
+        for dt in ("auto", "int8"):
+            eng = InferenceEngine(model, tokenizer, max_batch=64, compute_dtype=dt,
+                                  device=device)
+            reset_all(*counters)
+            rows_by[dt] = eng.embed_image_arrays(items)
+            torch.cuda.synchronize()
+            launches = nonzero(launches_of(*counters))
+            info = eng.info()
+            print(f"phase 21 engine compute_dtype={dt!r}: precision {info['precision']!r}, "
+                  f"compute_dtype {info['compute_dtype']!r}, launches {launches}")
+            check(launches == {"attention_block_q": LAYERS, "mlp_block_q": LAYERS},
+                  f"phase 21 engine {dt}: launches {launches}")
+            check(info["precision"] == dt and info["compute_dtype"] == "bfloat16",
+                  f"phase 21 engine {dt}: info {info}")
+            del eng
+        check(np.array_equal(rows_by["auto"], rows_by["int8"]),
+              "phase 21: the auto engine's rows are not the int8 engine's")
+        root = os.path.join(tmp, "classes")
+        write_class_folders(root, 4, 16)
+        ds = FolderDataset(root)
+        px = model.clip_cfg.vision.image_size
+        acc = {dt: zero_shot_accuracy(model, tokenizer, HostLoader(
+            ds, batch_size=BATCH, num_workers=8, native_n_px=px), ds.class_names, n_px=px,
+            dtype=dt) for dt in ("auto", "int8")}
+        print(f"phase 21 zero-shot: auto {acc['auto']}, int8 {acc['int8']}")
+        check(acc["auto"] == acc["int8"] and acc["auto"]["n"] == 64,
+              "phase 21: zero-shot at auto is not the int8 rung's")
+        walls["21.4 engine and zero-shot at auto"] = time.perf_counter() - t0
+
+        # 21.5 the CLI at --dtype auto, in a process of its own
+        t0 = time.perf_counter()
+        vocab = os.path.join(tmp, "bpe_vocab.txt.gz")
+        with gzip.open(vocab, "wt", encoding="utf-8") as f:
+            f.write("#version: 0.2\nt h\nth e</w>\na </w>\n")
+        proc = subprocess.run(
+            [sys.executable, "-m", "debias_vision_lang_torch", "measure-bias", "--dtype",
+             "auto", "--random-weights", "--data-path", ff, "--batch-size", str(BATCH)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, DEBIAS_VLT_BPE_PATH=vocab))
+        print(f"phase 21 CLI measure-bias --dtype auto --random-weights: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+        check(proc.returncode == 0, f"phase 21: the CLI failed: {proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout[proc.stdout.index("{"):])
+        check(set(res) == {"maxskew", "ndkl"} and all(
+            math.isfinite(v) for d in res.values() for v in d.values()),
+              f"phase 21: the CLI printed {res}")
+        walls["21.5 the CLI"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the kernels line's rows of the new shapes, with the sweep's launches
+    for (name, case), row in rows.items():
+        d = int(re.search(r"D=(\d+)", case).group(1))
+        kind = "text" if "text" in case else ("slip_vit" if "SLIP" in case else "vit")
+        row["launches"] = tower_launches.get((name, d, kind))
+        check(row["launches"] in (12, 24), f"phase 21 {name} {case}: launches {row['launches']}")
+    print(f"phase 21 img/s at B={BATCH}, image towers, CUDA events ({card}):")
+    print(f"  {'arch':34s} " + " ".join(f"{r:>10s}" for r in RUNGS) + "  auto picks / fastest")
+    if tower_img_s:  # phase 13's ViT-B/16 (the kernels' rungs and plain float32)
+        vals = {"float32": tower_img_s["plain float32"],
+                "bfloat16": tower_img_s["kernels (bf16)"], "int8": tower_img_s["kernels (int8)"]}
+        print(f"  {'openai/CLIP/ViT-B/16 (phase 13)':34s} " + " ".join(
+            f"{vals.get(r, float('nan')):10.1f}" for r in RUNGS)
+            + f"  int8 / {max(vals, key=vals.get)}")
+    for arch, (img_s, auto, fast) in table.items():
+        print(f"  {arch:34s} " + " ".join(f"{img_s[r]:10.1f}" for r in RUNGS)
+              + f"  {auto} / {fast}" + ("" if auto == fast else "  (the card disagrees)"))
+    print("  img/s of the rung auto picks over float32's: " + ", ".join(
+        f"{arch} {img_s[auto] / img_s['float32']:.2f}x" for arch, (img_s, auto, _) in table.items()))
+    for k, v in walls.items():
+        print(f"phase 21 wall {k}: {v:.2f} s ({card})")
+    return list(rows.values()), sum(walls.values())
 
 
 def main() -> int:
@@ -4127,6 +4593,9 @@ def main() -> int:
     fit_s = time.perf_counter() - t0
     # 20. distribution: the (data, model) mesh, sharded metrics, the world
     dist_s = dist_phase(model, qmodel, tokenizer, prompts, card, device)
+    # 21. the "auto" rung: every registry arch not run before at every rung,
+    # K1-K4 at their shapes, auto through every entry point
+    rung_rows, rung_s = rung_phase(model, tokenizer, prompts, card, device, tower_img_s)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -4134,11 +4603,12 @@ def main() -> int:
             row["launches"] = fit_launches[row["name"]]
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
-    print(json.dumps({"kernels": rows + rows_q + rows_k5}))
+    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
-          f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s"
+          f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
+          f"{rung_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

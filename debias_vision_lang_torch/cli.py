@@ -72,8 +72,9 @@ def _add_measure(sub):
     p.add_argument("--dtype", default=None,
                    choices=["float32", "bfloat16", "int8", "int8-text", "auto"],
                    help="embedding precision: float32 = reference parity "
-                        "(the default), bfloat16/int8 = the kernels' rungs "
-                        "(rank-stable); auto is not ported (raises)")
+                        "(the default, with a hint on the card), bfloat16/"
+                        "int8 = the kernels' rungs, auto = the fastest "
+                        "measured rung per model family (rank-stable)")
     p.add_argument("--random-weights", action="store_true",
                    help="skip pretrained weight resolution")
     p.add_argument("--mesh", default=None, choices=[None, "auto"],
@@ -241,7 +242,8 @@ def _add_zero_shot(sub):
                    help="vision-tower precision (default float32 = reference "
                         "parity; bfloat16 / int8 = the kernels' rungs; "
                         "int8-text also runs the classifier text encodes "
-                        "int8; auto is not ported (raises))")
+                        "int8; auto = the fastest measured rung per model "
+                        "family)")
     _add_device(p)
 
 
@@ -307,7 +309,8 @@ def _add_serve(sub):
                    choices=[None, "float32", "bfloat16", "int8", "int8-text", "auto"],
                    help="compute dtype (default: bfloat16 on the card, "
                         "float32 on the CPU; int8 = quantized vision tower; "
-                        "int8-text also quantizes the text tower)")
+                        "int8-text also quantizes the text tower; auto = the "
+                        "fastest measured rung per model family)")
     p.add_argument("--random-weights", action="store_true")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every batch bucket at startup")

@@ -51,7 +51,7 @@ from ..data.loader import HostLoader
 from ..metrics import oracle, ranking
 from ..models.clip import VIT_KINDS
 from ..models.frozen_in_time import formulation
-from ..ops.quant import resolve_compute
+from ..ops.quant import hint_implicit_fp32, resolve_compute, resolve_rung
 from ..utils.fingerprint import image_tower_tensors, params_fingerprint
 from ..vision.preprocess import Preprocess, preprocess_batch
 
@@ -103,7 +103,8 @@ def get_labels_img_embeddings(loader: HostLoader, model, n_px: int = 224,
                               dtype: str = "float32"):
     """Embed every image: (labels [N] numpy, embeddings [N, D] float32 on the
     model's device), unnormalized.  "int8" / "int8-text" wrap the model
-    (idempotently: measure_bias passes it wrapped already).  Under a
+    (idempotently: measure_bias passes it wrapped already); "auto" takes
+    ``ops/quant.resolve_rung``'s rung for the model.  Under a
     ``mesh`` each batch is split over the data axis (``dp_shard_map``; a
     ragged batch is padded to a multiple of the axis size and the pad rows
     sliced off, never run on one slot) and the embeddings gathered on the
@@ -181,6 +182,10 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     set.  Lower = less biased.  Runs on the model's device."""
     cfg = _resolve_opts(opts)
     extra = dict(opts) if isinstance(opts, (dict, Dotdict)) else {}
+    # the float32 default chose itself: on a card, point at the ladder (an
+    # explicit "float32" stays silent)
+    if opts is None or (isinstance(opts, (dict, Dotdict)) and "dtype" not in opts):
+        hint_implicit_fp32("measure_bias", cliplike)
     if extra:
         known = {f.name for f in dataclasses.fields(EvalConfig)} | _KNOWN_EXTRA
         unknown = set(extra) - known
@@ -193,8 +198,11 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
                 "or None/omit the key for the default generated battery")
     # resolve the precision ladder once, so both towers honour it: the int8
     # rungs wrap the bundle here, and the prompts run through the wrapped
-    # model (int8 text only under "int8-text")
-    cliplike, dt = resolve_compute(cliplike, cfg.dtype)
+    # model (int8 text only under "int8-text").  The rung "auto" resolves to
+    # is taken before the wrap: the patch-staging gate, the embed pass and
+    # the cache key see "int8" / "bfloat16", never "auto"
+    rung = resolve_rung(cliplike, cfg.dtype)
+    cliplike, dt = resolve_compute(cliplike, rung)
 
     dataset_name = extra.get("dataset", "fairface")
     if dataset_name not in ("fairface", "utkface", "video"):
@@ -219,7 +227,7 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
     if cache_path:
         key = {
             "attribute": attribute, "dataset": dataset_name, "mode": mode,
-            "n_samples": n_samples, "dtype": cfg.dtype, "equal_split": equal_split,
+            "n_samples": n_samples, "dtype": rung, "equal_split": equal_split,
             "data_path": data_path, "num_frames": extra.get("num_frames"),
             "params": params_fingerprint(image_tower_tensors(cliplike)),
         }
@@ -269,7 +277,7 @@ def measure_bias(cliplike, img_preproc, tokenizer, attribute: str = "gender",
                             native_patch=patch, host_transform=host_transform)
         labels, img_embs = get_labels_img_embeddings(
             loader, cliplike, n_px=n_px, mesh=mesh, progress=cfg.progress,
-            dtype=cfg.dtype)
+            dtype=rung)
         if cache_path:
             # through a file object, so an extension-less path is kept as
             # given; staged to .part so an interrupted write is never a hit

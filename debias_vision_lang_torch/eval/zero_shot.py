@@ -10,9 +10,8 @@ of a CUDA model).
 
 Under a ``mesh`` each batch is split over the data axis (the model and the
 classifier replicated, a ragged batch padded and sliced back), as in the
-bias pipeline.  Not ported: the JAX function's ``hint_implicit_fp32``, a
-one-line hint printed on a TPU backend when the float32 default picks
-itself.
+bias pipeline.  When the float32 default picks itself on a model on a
+card, ``ops/quant.hint_implicit_fp32`` points at dtype="auto".
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.quant import resolve_compute
+from ..ops.quant import hint_implicit_fp32, resolve_compute
 from ..vision.preprocess import preprocess_batch
 from .measure import model_device, vision_cfg
 
@@ -93,9 +92,13 @@ def zero_shot_accuracy(model, tokenizer: Callable, loader,
     images.  ``dtype``: "float32" (the default: reference parity) |
     "bfloat16" | "int8" (quantized image tower; the classifier builds at
     float32) | "int8-text" (the classifier's prompts run the int8 text tower
-    too); "auto" raises (ROADMAP.md queue 1 item 8)."""
+    too) | "auto" (the rung ``ops/quant.resolve_rung`` picks for the model
+    family)."""
+    if dtype is None:
+        dtype = "float32"
+        hint_implicit_fp32("zero_shot_accuracy", model)
     # resolve the ladder first, so "int8-text" reaches the classifier build
-    model, compute_dtype = resolve_compute(model, dtype or "float32")
+    model, compute_dtype = resolve_compute(model, dtype)
     classifier = build_zero_shot_classifier(model, tokenizer, class_names, templates)
     device = model_device(model)
     vis = vision_cfg(model)

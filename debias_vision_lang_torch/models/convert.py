@@ -396,6 +396,31 @@ def from_fit_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def video_from_image_vit(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An OpenAI image ViT's converted tree as a Frozen-in-Time tower's, the
+    tree the JAX bundle runs when such a file is loaded under a FiT arch
+    (its video tower takes a bare ``proj`` and a conv without bias): a zero
+    conv bias, ``proj`` as the kernel of a zero-bias projection, and the
+    temporal attention at rest (LayerNorms at identity, every weight zero,
+    so the loader keeps the joint formulation, which never reads it).  The
+    temporal embedding is left out: ``FrozenInTime.load_state_dict`` fills
+    it with zeros, as the JAX bundle does."""
+    out = {k: v for k, v in params.items() if k != "visual.proj"}
+    proj = params["visual.proj"]
+    width, embed = proj.shape
+    layers = len({k.split(".")[2] for k in params if k.startswith("visual.resblocks.")})
+    out["visual.conv1.bias"] = torch.zeros(width)
+    out["visual.proj.kernel"] = proj
+    out["visual.proj.bias"] = torch.zeros(embed)
+    out["visual.temporal_attn.ln_t.scale"] = torch.ones(layers, width)
+    out["visual.temporal_attn.ln_t.bias"] = torch.zeros(layers, width)
+    out["visual.temporal_attn.attn.wqkv"] = torch.zeros(layers, width, 3 * width)
+    out["visual.temporal_attn.attn.bqkv"] = torch.zeros(layers, 3 * width)
+    out["visual.temporal_attn.attn.wo"] = torch.zeros(layers, width, width)
+    out["visual.temporal_attn.attn.bo"] = torch.zeros(layers, width)
+    return out
+
+
 def adversary_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX adversary params ``{"layers": [{"kernel", "bias"}, ...]}`` ->
     ``Adversary`` state dict (the same [in, out] layout, no transpose)."""

@@ -92,7 +92,9 @@ def _dispatch_state_dict(obj: Mapping[str, Any], cfg: Optional[CLIPConfig] = Non
     OpenAI CLIP.  The converted tree's contents give its kind:
     ``visual.layer1.*`` a ResNet, ``visual.temporal_*`` a video tower,
     ``visual.ln_pre.*`` an OpenAI ViT, any other a SLIP ViT (a conv bias and
-    no pre-LN).  With ``cfg``, it must be of the architecture's kind."""
+    no pre-LN).  With ``cfg``, it must be of the architecture's kind, save
+    that an OpenAI image ViT runs under a Frozen-in-Time arch, as in the
+    JAX package (``convert.video_from_image_vit``)."""
     if "state_dict" in obj and not hasattr(obj["state_dict"], "shape"):
         obj = obj["state_dict"]
     keys = [k[7:] if k.startswith("module.") else k for k in obj]
@@ -106,6 +108,9 @@ def _dispatch_state_dict(obj: Mapping[str, Any], cfg: Optional[CLIPConfig] = Non
         params = convert.params_from_openai_state_dict(
             convert.strip_prefix(dict(obj)))
     kind = tower_kind(params)
+    if cfg is not None and cfg.vision.kind == "video_vit" and kind == "vit":
+        # the JAX loader runs an OpenAI image ViT's tree under a FiT arch
+        params, kind = convert.video_from_image_vit(params), "video_vit"
     if cfg is not None and cfg.vision.kind != kind:
         raise ValueError(f"the checkpoint holds a {kind!r} image tower, the "
                          f"architecture {cfg.name!r} a {cfg.vision.kind!r} one")

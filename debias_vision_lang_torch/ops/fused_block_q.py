@@ -41,6 +41,7 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models.layers import ln_f32
 from .fused_block import (ACT_KINDS, _act, _check_x, _operand, _raise_on,
@@ -88,16 +89,20 @@ def int_mm(a: torch.Tensor, q: torch.Tensor,
 
     CPU: ``torch._int_mm``.  CUDA: cuBLAS's int8 GEMM through
     ``torch._int_mm``, with the weight given column-major (``qt`` [N, K]
-    transposed back: its TN layout); it takes M > 16, so a shorter ``a`` is
-    zero-padded.  int32 accumulation is exact at every width here
+    transposed back: its TN layout); it takes M > 16 and K a multiple of 8,
+    so a shorter ``a`` is zero-padded in M, and ``a`` and the weight in K
+    (ViT-L/14's patch stem has K = 14 * 14 * 3 = 588): zero products, so the
+    result is unchanged.  int32 accumulation is exact at every width here
     (K * 127^2 < 2^31 for K < 133,000), whatever TF32 is set to."""
     if not a.is_cuda:
         return torch._int_mm(a, q)
-    b = (q.t().contiguous() if qt is None else qt).t()
-    m = a.shape[0]
+    qt = q.t().contiguous() if qt is None else qt
+    m, k = a.shape
+    if k % 8:
+        a, qt = F.pad(a, (0, -k % 8)), F.pad(qt, (0, -k % 8))
     if m <= 16:
         a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
-    return torch._int_mm(a, b)[:m]
+    return torch._int_mm(a, qt.t())[:m]
 
 
 def dot_q(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,

@@ -26,10 +26,15 @@ attention + MLP pair as one int8 block on the [B*T, N, D] layout: the fused
 blocks (K3 + K4 at S = 196) on bfloat16 activations, the plain int8 layers
 at float32.
 
+The precision ladder (``resolve_rung``, ``resolve_compute``,
+``hint_implicit_fp32``) is the JAX package's policy: "auto" is int8 for the
+ViT families and bfloat16 for a ModifiedResNet, so the same bundle runs
+the same rung in both packages.
+
 Not ported: the TPU's hybrid long-sequence branch (XLA attention + the
 F-split MLP kernel, there only because the TPU compiler could not build
-the attention kernel at S = 785) and its VMEM gates, the u8 stem (off every
-default path), and the "auto" rung (ROADMAP.md queue 1 item 8).
+the attention kernel at S = 785) and its VMEM gates, and the u8 stem (off
+every default path).
 """
 
 from __future__ import annotations
@@ -50,8 +55,10 @@ from .fused_block_q import (dot_q, fused_resblock_q, fused_transformer_q, int_mm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 INT8_RUNGS = ("int8", "int8-text")
-ROADMAP_AUTO = ("ROADMAP.md queue 1 item 8 (the 'auto' rung, chosen from H100 "
-                "measurements of every rung)")
+# the speed of the rung "auto" picks against the float32 tower, images/s,
+# over the registry's ViT, SLIP and ResNet archs at B=256 on an NVIDIA H100
+# (benchmarks_torch/rung_phase.py; PERF.md section 5)
+AUTO_SPEEDUP = "3.6-11.0x"
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -474,18 +481,57 @@ class QuantizedCLIP(nn.Module):
         return encode_text_q(self.text_q, text, **kw)
 
 
+def _vision_kind(model) -> Optional[str]:
+    """VisionConfig.kind of a bundle (CLIP, FrozenInTime and QuantizedCLIP
+    carry ``cfg``, DebiasCLIP ``clip_cfg``), None for a custom ClipLike."""
+    cfg = getattr(model, "cfg", None) or getattr(model, "clip_cfg", None)
+    return getattr(getattr(cfg, "vision", None), "kind", None)
+
+
+def resolve_rung(model, dtype: str) -> str:
+    """The rung a user-facing dtype string resolves to for this bundle, with
+    no wrapping: "auto" gives "int8" for the ViT towers (OpenAI, SLIP,
+    Frozen-in-Time) and "bfloat16" for a ModifiedResNet or a bundle whose
+    tower kind cannot be found; every other string passes through.  The
+    JAX package's policy, kept so that "auto" runs the same rung, and gives
+    the same embeddings, in both packages; the card's own rung ratios are
+    in PERF.md section 5."""
+    if dtype != "auto":
+        return dtype
+    return "bfloat16" if _vision_kind(model) in (None, "resnet") else "int8"
+
+
+def _device_type(model) -> Optional[str]:
+    try:
+        return next(model.parameters()).device.type
+    except (AttributeError, StopIteration, TypeError):
+        return None
+
+
+def hint_implicit_fp32(entry: str, model) -> None:
+    """A one-line hint when an eval entry point runs at its float32 default
+    (the caller passed no dtype) on a model that lives on a card: the
+    default stays float32 for reference parity, and dtype='auto' is the way
+    to the faster rungs.  An explicit "float32" never reaches here."""
+    if _device_type(model) != "cuda":
+        return
+    warnings.warn(
+        f"{entry}: dtype defaulted to float32 (reference parity). On this card, "
+        f"dtype='auto' picks the fastest measured rung per model family "
+        f"({AUTO_SPEEDUP} the float32 tower's images/s, rank-stable; PERF.md "
+        f"section 5).", UserWarning, stacklevel=3)
+
+
 def resolve_compute(model, dtype: str):
     """A user-facing precision string -> ``(model, activation torch dtype)``,
     the one precision-ladder policy of the port: "int8" / "int8-text" wrap
     the bundle in QuantizedCLIP once (idempotently; text int8 too under
     "int8-text") and run bfloat16 activations between the int8 blocks;
-    "bfloat16" / "float32" leave it as is.  "auto" picks the fastest
-    measured rung per tower family in the JAX package; the port has no H100
-    measurements of every rung yet, so it raises.  An int8 rung on a
-    ModifiedResNet runs, and warns when it wraps the bundle: there it buys
-    4x smaller weights, not throughput (PERF.md has the card's ratio)."""
-    if dtype == "auto":
-        raise NotImplementedError(f"dtype='auto' is not ported yet: {ROADMAP_AUTO}")
+    "bfloat16" / "float32" leave it as is; "auto" takes the rung
+    ``resolve_rung`` gives.  An int8 rung on a ModifiedResNet runs, and
+    warns when it wraps the bundle: there it buys 4x smaller weights, not
+    throughput (PERF.md has the card's ratio)."""
+    dtype = resolve_rung(model, dtype)
     if dtype in INT8_RUNGS:
         if not isinstance(model, QuantizedCLIP):
             model = QuantizedCLIP(model, quantize_text=dtype == "int8-text")
@@ -494,9 +540,10 @@ def resolve_compute(model, dtype: str):
                     f"dtype={dtype!r} on a ModifiedResNet tower: int8 buys 4x "
                     f"smaller weights, not throughput; its speed against "
                     f"dtype='bfloat16' is measured in PERF.md. Use "
-                    f"dtype='bfloat16' for speed.", UserWarning, stacklevel=2)
+                    f"dtype='bfloat16' for speed, or dtype='auto' to pick the "
+                    f"fastest rung per family.", UserWarning, stacklevel=2)
         return model, torch.bfloat16
     if dtype in DTYPES:
         return model, DTYPES[dtype]
     raise ValueError(f"unknown dtype {dtype!r}: expected one of "
-                     f"{sorted(DTYPES) + list(INT8_RUNGS)}")
+                     f"{sorted(DTYPES) + list(INT8_RUNGS)} or 'auto'")

@@ -36,8 +36,6 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 ROADMAP_TP = "ROADMAP.md queue 1 item 5b (tensor parallel)"
-ROADMAP_GRAD_GATHER = ("ROADMAP.md queue 1 item 5c (a differentiable cross-rank "
-                       "gather for the with-layers training branch)")
 
 # collectives run, by path ("gloo (host-staged)", "gloo", "nccl"): a reader
 # of a run learns which path its gathers took
@@ -392,19 +390,34 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return src.to(t.device)
 
 
+class _GatherRanks(torch.autograd.Function):
+    """Every rank's rows concatenated in rank order; the backward hands
+    back this rank's rows of the upstream gradient.  Every rank computes
+    the same loss on the gathered rows, so that slice is this rank's whole
+    share: the gradients of the parameters behind the rows are summed
+    across ranks afterwards (``all_reduce_sum``), once."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor) -> torch.Tensor:
+        ctx.rows = (_world()[1] * local.shape[0], local.shape[0])
+        return torch.cat(all_gather(local))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        start, n = ctx.rows
+        return grad[start:start + n]
+
+
 def gather_shards(mesh: Mesh, outs: List[torch.Tensor]) -> torch.Tensor:
     """Concatenate this process's per-shard outputs in shard order on its
     first slot's device and, in a world, all-gather them across ranks
-    (each rank holds the same number of equal shards)."""
+    (each rank holds the same number of equal shards; autograd flows back
+    to this rank's rows)."""
     home = mesh.first_device
     local = torch.cat([o.to(home) for o in outs])
     if mesh.world == 1:
         return local
-    if torch.is_grad_enabled() and local.requires_grad:
-        raise NotImplementedError(
-            f"dp_shard_map across {mesh.world} processes gathers without "
-            f"gradients: {ROADMAP_GRAD_GATHER}")
-    return torch.cat(all_gather(local))
+    return _GatherRanks.apply(local)
 
 
 def dp_shard_map(mesh: Mesh, fn: Callable) -> Callable:
@@ -418,8 +431,9 @@ def dp_shard_map(mesh: Mesh, fn: Callable) -> Callable:
     ``replicated``: a ``replicate_params`` result, or a module / tensor tree
     (used as is on its own device, copied to the others); ``batch``: a
     ``ShardedArray`` or anything ``shard_batch_arrays`` splits.  The output
-    is a tensor or a tuple of tensors.  In one process autograd flows
-    through it; across processes the gather carries no gradient."""
+    is a tensor or a tuple of tensors.  Autograd flows through it; across
+    processes each rank's parameters receive the gradient of its own rows
+    only (sum them across ranks with ``all_reduce_sum``)."""
 
     def run(replicated, batch):
         shards = batch if isinstance(batch, ShardedArray) else shard_batch_arrays(mesh, batch)

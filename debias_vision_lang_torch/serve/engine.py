@@ -142,21 +142,23 @@ class InferenceEngine:
     ):
         """``device``: where the model runs, the card unless ``"cpu"``
         (without a card the default raises).  ``compute_dtype``: a rung of
-        ``ops/quant.resolve_compute``; by default bfloat16 on a CUDA device
-        and float32 on the CPU.  ``mesh``: a ``parallel.mesh.Mesh`` of this
+        ``ops/quant.resolve_compute`` ("auto" included); by default bfloat16
+        on a CUDA device and float32 on the CPU, and ``info()["precision"]``
+        then reads "auto", as the JAX engine's.  ``mesh``: a ``parallel.mesh.Mesh`` of this
         process's slots; the model is replicated over them and every
         bucket split over the data axis (bucket sizes start at its size,
         which must be a power of two)."""
         self.device = resolve_device(device)
+        self.precision = str(compute_dtype) if compute_dtype else "auto"
         if compute_dtype is None:
             compute_dtype = ("bfloat16" if self.device.type == "cuda"
                              else "float32")
-        self.precision = str(compute_dtype)
         # the port's one precision-ladder policy: "int8" wraps the bundle in
         # QuantizedCLIP (on the device, so the int8 weights are made there),
-        # bf16/f32 pass through, "auto" and unknown strings raise
+        # bf16/f32 pass through, "auto" takes the family's rung, unknown
+        # strings raise
         model, compute_dtype = resolve_compute(model.to(self.device),
-                                               self.precision)
+                                               str(compute_dtype))
         self.model = model
         self.tokenizer = tokenizer
         cfg = getattr(model, "clip_cfg", None) or model.cfg

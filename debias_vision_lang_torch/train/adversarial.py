@@ -29,10 +29,11 @@ What differs from the JAX package, and why:
     the data axis and the image tower runs once per shard
     (``dp_shard_map``); the losses, the adversary and the optimizers run
     on the mesh's first slot on the gathered embeddings, which is the
-    arithmetic of JAX's replicated GSPMD step.  In one process the
-    with-layers branch differentiates through the split; across processes
-    every rank gathers the same embeddings and updates identical state, and
-    the with-layers branch raises (ROADMAP.md queue 1 item 5c).
+    arithmetic of JAX's replicated GSPMD step.  The with-layers branch
+    differentiates through the split; across processes every rank gathers
+    the same embeddings, computes the same loss, and its image-tower
+    parameters receive the gradient of its own rows, which the step sums
+    across ranks before the update, so every rank updates identical state.
   * ``embed_dtype="int8"`` embeds through ``ops/quant.QuantizedCLIP``, which
     quantizes once when built; the embed step rebuilds it whenever an
     image-path parameter changed since (the JAX step re-quantizes inside
@@ -360,14 +361,27 @@ def build_train_steps(
         prompt_opt.step(grads)
         return _metrics(*losses)
 
-    def _joint_update(loss_fn, model, grad_mask, joint_opt):
+    across_ranks = mesh is not None and mesh.world > 1
+
+    def _joint_update(loss_fn, model, grad_mask, joint_opt, image_path=False):
         """Gradients over (prompt array, trainable CLIP parameters), the
-        freezing-policy multipliers, one optimizer update."""
+        freezing-policy multipliers, one optimizer update.  ``image_path``:
+        the loss embeds images through the tower, so across ranks each
+        image-tower gradient holds this rank's rows only and is summed over
+        the ranks (the text side's is already whole on every rank)."""
         names, params = joint_params(model, grad_mask)
         with torch.enable_grad():
             losses = loss_fn()
             grads = torch.autograd.grad(losses[0], params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        image = [i + 1 for i, n in enumerate(names) if n.startswith("visual.")]
+        if across_ranks and image_path and image:  # a ResNet's proj group has none
+            from ..parallel.mesh import all_reduce_sum
+
+            # one collective over the image tower's gradients, flattened
+            summed = all_reduce_sum(torch.cat([grads[i].reshape(-1) for i in image]))
+            for i, g in zip(image, summed.split([grads[i].numel() for i in image])):
+                grads[i] = g.view_as(grads[i])
         masked = apply_grad_mask(dict(zip(names, grads[1:])), grad_mask)
         joint_opt.step([grads[0]] + [masked[n] for n in names])
         return _metrics(*losses)
@@ -398,7 +412,7 @@ def build_train_steps(
             lambda: _prompt_losses(model, adversary, _embed_diff(model, images),
                                    attr_labels, _embed_diff(model, caption_images),
                                    caption_tokens),
-            model, grad_mask, joint_opt)
+            model, grad_mask, joint_opt, image_path=True)
 
     def prompt_step_approx_scores(model, joint_opt, grad_mask, adversary,
                                   image_embs, attr_labels, caption_images,
@@ -410,7 +424,7 @@ def build_train_steps(
             lambda: _prompt_losses(model, adversary, image_embs.detach(),
                                    attr_labels, _embed_diff(model, caption_images),
                                    caption_tokens),
-            model, grad_mask, joint_opt)
+            model, grad_mask, joint_opt, image_path=True)
 
     return TrainStepFns(
         embed_images=embed_images,
@@ -471,12 +485,6 @@ class AdversarialTrainer:
             from ..parallel.mesh import default_mesh
 
             mesh = default_mesh(model.debias_tokens.device)
-        if mesh is not None and mesh.world > 1 and trains_image:
-            from ..parallel.mesh import ROADMAP_GRAD_GATHER
-
-            raise NotImplementedError(
-                f"image-path layers train only in one process under a mesh, not "
-                f"across {mesh.world} ranks: {ROADMAP_GRAD_GATHER}")
         fns = build_train_steps(model.clip_cfg, model.debias_cfg, adversary.cfg,
                                 train_cfg, sensitive_tokens, use_pallas=use_pallas,
                                 mesh=mesh)

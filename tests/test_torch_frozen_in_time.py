@@ -18,6 +18,7 @@ the freezing policy equal to JAX's.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -438,3 +439,152 @@ class TestDebiasWrapper:
             four = model.encode_image(torch.from_numpy(videos[:, 0]))
         assert five.shape == four.shape == (3, 16)
         assert isinstance(model, TDebiasCLIP)
+
+
+# ---------------------------------------------------------------------------
+# run_training on a Frozen-in-Time DebiasCLIP, and an OpenAI image-ViT file
+# under a Frozen-in-Time arch, both against the JAX package
+# ---------------------------------------------------------------------------
+
+LOOP_PROMPTS = ["a good person", "a bad person"]
+
+
+def loop_tok(texts):
+    out = np.zeros((len(texts), 16), np.int64)
+    out[:, 0] = 126
+    for i, t in enumerate(texts):
+        out[i, 1] = sum(t.encode()) % 100 + 1
+        out[i, 2] = 127
+    return out
+
+
+@pytest.fixture(scope="module")
+def loop_fairface(tmp_path_factory):
+    """16 train = val rows of 32 px images, balanced gender."""
+    import pandas as pd
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("fit_loop")
+    img_dir = root / "imgs" / "train_val" / "x"
+    img_dir.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(16):
+        Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+            img_dir / f"{i}.png")
+        rows.append({"file": f"x/{i}.png", "age": "20-29",
+                     "gender": "Male" if i % 2 else "Female", "race": "White"})
+    for mode in ("train", "val"):
+        (root / "labels" / mode).mkdir(parents=True)
+        pd.DataFrame(rows).to_csv(root / "labels" / mode / f"{mode}_labels.csv", index=False)
+    return str(root)
+
+
+class TestRunTraining:
+    """``run_training`` on a Frozen-in-Time DebiasCLIP in both packages, from
+    the same weights, prompt tokens, adversary and FairFace images (4-D
+    batches, each promoted to a one-frame video, as JAX's ``encode_image``
+    does): 2 steps, every logged loss and the exported tokens within
+    1e-5 x max(1, |JAX|), the bar of tests/test_torch_train.py."""
+
+    @pytest.mark.parametrize("mode", ["joint", "divided"])
+    def test_two_steps_equal_jax(self, loop_fairface, tmp_path, monkeypatch, mode):
+        import json
+
+        from debias_vision_lang_tpu.core.config import TrainConfig
+        from debias_vision_lang_tpu.models.adversary import Adversary as JAdversary
+        from debias_vision_lang_tpu.models.debias import DebiasCLIP as JDebiasCLIP
+        from debias_vision_lang_tpu.train.loop import run_training as jrun
+        from debias_vision_lang_torch.models.adversary import Adversary
+        from debias_vision_lang_torch.models.convert import adversary_params_from_jax
+        from debias_vision_lang_torch.train.loop import run_training as trun
+
+        cfg = fit_cfg(mode)
+        np_params = fit_params_np(cfg)
+        tokens = np.random.default_rng(1).normal(size=(2, 32)).astype(np.float32) * 0.02
+        dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=32, max_tokens=16)
+        jmodel = JDebiasCLIP(clip_params=jax.tree.map(jnp.asarray, np_params),
+                             debias_tokens=jnp.asarray(tokens), clip_cfg=cfg, debias_cfg=dcfg)
+        tcfg = port_config(cfg)
+        tmodel = TDebiasCLIP(port_model(np_params, tcfg, mode),
+                             torch.from_numpy(tokens.copy()), port_config(dcfg))
+        real = Adversary.from_cfg
+
+        def jax_numbers(acfg, generator=None):
+            adv = real(acfg, generator)
+            adv.load_state_dict(adversary_params_from_jax(
+                jax.tree.map(np.asarray, JAdversary.from_cfg(acfg).params)))
+            return adv
+
+        monkeypatch.setattr(Adversary, "from_cfg", staticmethod(jax_numbers))
+        tc = TrainConfig(batch_size=8, num_epochs=1, eval_every_steps=1)
+        kw = {"tokenizer": loop_tok, "attribute": "gender", "data_path": loop_fairface,
+              "eval_n_samples": None, "sensitive_prompts": LOOP_PROMPTS, "progress": False}
+        want = jrun(model=jmodel, checkpoint_dir=str(tmp_path / "j"), train_cfg=tc, **kw)
+        got = trun(model=tmodel, checkpoint_dir=str(tmp_path / "t"),
+                   train_cfg=port_config(tc), device="cpu", **kw)
+        assert got["steps"] == want["steps"] == 2
+
+        def losses(res):
+            log = os.path.join(res["checkpoint_dir"], "logs", "metrics.jsonl")
+            return [[r[k] for k in ("loss", "adv_loss", "contrastive_loss")]
+                    for r in map(json.loads, open(log)) if "loss" in r]
+
+        lj, lt = losses(want), losses(got)
+        assert len(lt) == len(lj) == 2
+        _close(np.asarray(lt), np.asarray(lj))
+        exported = [torch.load(r["export"], map_location="cpu", weights_only=True).numpy()
+                    for r in (got, want)]
+        _close(exported[0], exported[1])
+        assert np.abs(exported[0] - tokens).max() > 1e-4  # the tokens moved
+        assert got["best_ndkl"] == pytest.approx(want["best_ndkl"], abs=1e-5)
+
+
+class TestImageVitFileUnderFitArch:
+    def test_loads_and_embeds_as_jax(self, tmp_path, monkeypatch, videos):
+        """JAX's loader sends an OpenAI-named image-ViT file under a FiT arch
+        to ``from_openai_state_dict`` and runs it as a joint video tower
+        (bare proj, no conv bias, zero temporal embedding); the port loads
+        it too, and both embed the same videos within 1e-5."""
+        from debias_vision_lang_tpu.models import loader as jloader
+        from debias_vision_lang_tpu.models.clip import init_clip_params
+        from debias_vision_lang_tpu.models.convert import to_openai_state_dict
+
+        vit = dataclasses.replace(CFG, vision=dataclasses.replace(
+            CFG.vision, kind="vit", video_attention=None))
+        sd = to_openai_state_dict(init_clip_params(jax.random.key(4), vit), vit)
+        path = str(tmp_path / "vit.pt")
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+        monkeypatch.setattr(jloader, "resolve_arch", lambda name: CFG)
+        monkeypatch.setattr(tloader, "resolve_arch", lambda name: TCFG)
+        name = "m-bain/frozen-in-time/base"
+        jm = jloader.model_loader(name, weights=path)[0]
+        tm = tloader.model_loader(name, device="cpu", weights=path)[0]
+        assert isinstance(tm, tfit.FrozenInTime)
+        assert tm.attention == jm.attention == "joint"
+        assert torch.equal(tm.visual.temporal_embedding, torch.zeros(T_FRAMES, 32))
+        with torch.no_grad():
+            got = tm.encode_image(torch.from_numpy(videos))
+            four = tm.encode_image(torch.from_numpy(videos[:, 0]))
+        _close(got, jm.encode_image(jnp.asarray(videos)))
+        _close(four, jm.encode_image(jnp.asarray(videos[:, 0])))
+
+
+class TestEngineLabel:
+    @pytest.mark.parametrize("dtype,label", [(None, "auto"), ("auto", "auto"),
+                                             ("float32", "float32")])
+    def test_precision_label_is_jax_s(self, pair, dtype, label):
+        """JAX's engine records "auto" when ``compute_dtype`` is None (and
+        for "auto"); ``compute_dtype`` stays the rung that runs (float32 by
+        default on the CPU; "auto" on a video tower: int8, bfloat16
+        activations)."""
+        from debias_vision_lang_tpu.serve.engine import InferenceEngine as JEngine
+        from debias_vision_lang_torch.serve.engine import InferenceEngine
+
+        jp, np_params, _ = pair
+        te = InferenceEngine(port_model(np_params), None, max_batch=2,
+                             compute_dtype=dtype, device="cpu")
+        je = JEngine(jfit.FrozenInTime(params=jp, cfg=CFG), None, max_batch=2,
+                     compute_dtype=dtype)
+        assert te.info()["precision"] == je.info()["precision"] == label
+        assert te.info()["compute_dtype"] == str(je.info()["compute_dtype"])

@@ -309,10 +309,28 @@ class TestOptsChecked:
         ({"prompts": []}, ValueError, "empty"),
         ({"dtype": "int8"}, NotImplementedError, "OpenAI ViT towers"),
         ({"dtype": "int8-text"}, NotImplementedError, "OpenAI ViT towers"),
-        ({"dtype": "auto"}, NotImplementedError, "queue 1 item 8"),
         ({"dtype": "float16"}, ValueError, "unknown dtype"),
         ({"dataset": "webvid"}, NotImplementedError, "webvid"),
     ])
     def test_rejected_before_any_work(self, opts, exc, match):
         with pytest.raises(exc, match=match):
             tmeasure.measure_bias(None, None, None, opts=opts)
+
+    def test_auto_is_the_int8_rung(self, models, fairface, monkeypatch):
+        """"auto" on a ViT runs the int8 rung (JAX's resolve_rung): the int8
+        call's metrics bit for bit, through the patch-staged int8 stem."""
+        _, tmodel = models
+        staged = []
+        orig = tmeasure.HostLoader.__init__
+
+        def spy(self, *a, **k):
+            staged.append(k.get("native_patch"))
+            orig(self, *a, **k)
+
+        monkeypatch.setattr(tmeasure.HostLoader, "__init__", spy)
+        opts = {**OPTS, "data_path": fairface}
+        got = tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender",
+                                    opts={**opts, "dtype": "auto"})
+        want = tmeasure.measure_bias(tmodel, TPreprocess(32), tok, "gender",
+                                     opts={**opts, "dtype": "int8"})
+        assert got == want and staged == [8, 8]

@@ -10,7 +10,12 @@ sharded metrics), zero-shot, the serving engine and the trainer.  Then
 arguments and the torchrun environment forwarded), and one two-rank gloo
 world (``file://`` rendezvous): measure_bias(mesh="auto",
 sharded_metrics=True) and a frozen trainer step equal on both ranks and to
-one process.
+one process; then trainers whose image-path parameters train
+(``n_train_vid_layers=1``, ``freeze_proj=False``) for 3 steps: after every
+step the ranks' parameters, tokens and optimizer state bit-equal, the first
+gradient and update within 1e-5 of the largest magnitude of the
+one-process 8-slot mesh's on the same global batch.  The differentiable
+cross-rank gather's backward is held to ``torch.cat``'s in one process.
 
 Run as a script, this file is one rank of that world (it imports no jax).
 """
@@ -190,6 +195,24 @@ class TestShardingHelpers:
         rep = pmesh.replicate_params(model, pmesh.create_mesh(devices=CPU8))
         assert rep.copies == {torch.device("cpu"): model}
         assert pmesh.replicate_params(rep, None) is rep
+
+    def test_gather_across_ranks_backward_is_torch_cat_s(self, monkeypatch):
+        """The world's gather as rank 1 of 2 sees it (the collective stood in
+        for by the other rank's fixed rows): forward = torch.cat in rank
+        order, backward = this rank's rows of the upstream gradient."""
+        mesh = pmesh.create_mesh(devices=[torch.device("cpu")] * 2)
+        mesh.world = 2
+        other = torch.randn(4, 3, generator=torch.Generator().manual_seed(1))
+        monkeypatch.setattr(pmesh, "all_gather", lambda t: [other, t.detach().clone()])
+        monkeypatch.setattr(pmesh, "_world", lambda: (2, 1))
+        x = torch.randn(4, 3, generator=torch.Generator().manual_seed(2), requires_grad=True)
+        w = torch.randn(8, 3, generator=torch.Generator().manual_seed(3))
+        out = pmesh.gather_shards(mesh, [x[:2] * 2, x[2:] * 2])
+        torch.testing.assert_close(out, torch.cat([other, x * 2]), rtol=0, atol=0)
+        (g,) = torch.autograd.grad((out * w).sum(), x)
+        y = x.detach().clone().requires_grad_(True)
+        (want,) = torch.autograd.grad((torch.cat([other, y * 2]) * w).sum(), y)
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
 
     def test_gradients_flow_through_dp_shard_map(self):
         mesh = pmesh.create_mesh(devices=CPU8)
@@ -555,9 +578,48 @@ class TestCli:
 # ---------------------------------------------------------------------------
 
 
+LAYER_CONFIGS = {"vid_layers": {"n_train_vid_layers": 1}, "proj": {"freeze_proj": False}}
+LAYER_STEPS = 3
+
+
+def train_image_layers(mesh, dkw, steps=LAYER_STEPS):
+    """``steps`` steps of a trainer whose image-path parameters train: the
+    joint optimizer's tensor names, the first gradients handed to it, the
+    tensors before the first step and the first update of each, and after
+    each step every trained tensor, the adversary's and both optimizers'
+    Adam moments (host copies)."""
+    from debias_vision_lang_torch.train.adversarial import joint_params
+
+    tr = make_trainer(mesh, model=tiny_model(**dkw))
+    assert tr.trains_image
+    opt = tr.prompt_opt
+    first = {"names": ["debias_tokens"] + joint_params(tr.model, tr.grad_mask)[0]}
+    step = opt.step
+
+    def record(grads):
+        if "grad" not in first:
+            first["grad"] = [g.detach().clone() for g in grads]
+            first["before"] = [p.detach().clone() for p in opt.params]
+        step(grads)
+
+    opt.step = record
+    states = []
+    batch = trainer_batch()
+    for _ in range(steps):
+        tr.step(*batch)
+        adam = [v.detach().clone() for o in (tr.prompt_opt, tr.adv_opt)
+                for s in o.adam.state.values() for v in s.values()]
+        states.append([p.detach().clone() for p in opt.params]
+                      + [p.detach().clone() for p in tr.adversary.parameters()] + adam)
+        if len(states) == 1:
+            first["update"] = [p.detach() - b for p, b in zip(opt.params, first["before"])]
+    return {**first, "states": states}
+
+
 def world_rank(init_file: str, rank: int, ff_root: str, out: str) -> None:
     """One rank: join the world, measure with the auto mesh and sharded
-    metrics, take two frozen trainer steps under the auto mesh."""
+    metrics, take two frozen trainer steps under the auto mesh, then train
+    the image path (each of LAYER_CONFIGS) under it."""
     torch.set_num_threads(1)
     assert pmesh.init_distributed("file://" + init_file, 2, rank)
     try:
@@ -568,27 +630,38 @@ def world_rank(init_file: str, rank: int, ff_root: str, out: str) -> None:
             json.dump({"measure": res, "train": metrics, "tokens": tokens.tolist(),
                        "mesh": dict(mesh.shape), "world": mesh.world,
                        "collectives": dict(pmesh.COLLECTIVES)}, f)
+        torch.save({name: train_image_layers("auto", dkw)
+                    for name, dkw in LAYER_CONFIGS.items()}, out + ".layers.pt")
     finally:
         torch.distributed.destroy_process_group()
 
 
-def test_two_rank_gloo_world(tmp_path, ff_root):
+@pytest.fixture(scope="module")
+def world_runs(tmp_path_factory, ff_root):
+    """Both ranks' outputs of one two-rank gloo world (this file run as a
+    script, once per rank)."""
+    tmp = tmp_path_factory.mktemp("world")
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         env.pop(var, None)
-    init = str(tmp_path / "rendezvous")
-    outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
+    init = str(tmp / "rendezvous")
+    outs = [str(tmp / f"rank{r}.json") for r in range(2)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), init, str(r),
                                ff_root, outs[r]], env=env, cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(2)]
     try:
-        logs = [p.communicate(timeout=240)[0].decode() for p in procs]
+        logs = [p.communicate(timeout=300)[0].decode() for p in procs]
     finally:
         for p in procs:
             p.kill()
     assert [p.returncode for p in procs] == [0, 0], logs
-    ranks = [json.load(open(o)) for o in outs]
+    return ([json.load(open(o)) for o in outs],
+            [torch.load(o + ".layers.pt", weights_only=True) for o in outs])
+
+
+def test_two_rank_gloo_world(world_runs, ff_root):
+    ranks, _ = world_runs
     assert all(r["world"] == 2 and r["mesh"] == {"data": 2, "model": 1} for r in ranks)
     assert all(r["collectives"].get("gloo", 0) > 0 for r in ranks)
     assert ranks[0]["measure"] == ranks[1]["measure"]
@@ -601,6 +674,40 @@ def test_two_rank_gloo_world(tmp_path, ff_root):
     _, tokens = run_steps(make_trainer(None))
     np.testing.assert_allclose(np.asarray(ranks[0]["tokens"]), tokens.numpy(),
                                atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("config", list(LAYER_CONFIGS))
+def test_two_rank_world_trains_image_layers(world_runs, config):
+    """Image-path parameters train across two ranks: the ranks bit-equal
+    after every step; the first gradient of every tensor the joint optimizer
+    holds (prompt array, every trained CLIP tensor, ``logit_scale`` too,
+    whose gradient is whole on each rank and is not summed) within 1e-5 of
+    its largest magnitude in the one-process 8-slot mesh's step, and the
+    first update within 1e-5 of the updated tensor's largest magnitude (the
+    update is a difference of parameters: rounding the step into them
+    leaves an ulp of the parameter).  The key third of ``bqkv`` has a zero gradient in
+    exact arithmetic (a softmax row is shift-invariant): both runs step it
+    on rounding noise at Adam's eps, so it is held to 3 x lr of its start,
+    as in tests/test_torch_train.py."""
+    _, layers = world_runs
+    a, b = (r[config] for r in layers)
+    assert len(a["states"]) == LAYER_STEPS
+    for step, (sa, sb) in enumerate(zip(a["states"], b["states"])):
+        assert all(torch.equal(x, y) for x, y in zip(sa, sb, strict=True)), step
+    one = train_image_layers(pmesh.create_mesh(devices=CPU8), LAYER_CONFIGS[config], steps=1)
+    assert a["names"] == one["names"]
+    assert any(n.startswith("visual.") for n in one["names"])
+    lr = TrainConfig().prompt_lr
+    for name, g, gw, u, uw, p in zip(one["names"], a["grad"], one["grad"], a["update"],
+                                     one["update"], one["before"], strict=True):
+        assert (g - gw).abs().max() <= 1e-5 * gw.abs().max(), name
+        if name.endswith("attn.bqkv"):
+            d = u.shape[-1] // 3
+            assert u[..., d:2 * d].abs().max() <= 3 * lr, name
+            u, uw, p = (torch.cat([t[..., :d], t[..., 2 * d:]], -1) for t in (u, uw, p))
+        assert (u - uw).abs().max() <= 1e-5 * (p + uw).abs().max(), name
+    moved = torch.cat([u.flatten() for u in one["update"][1:]])
+    assert moved.abs().max() > 0  # the CLIP tensors train
 
 
 if __name__ == "__main__":

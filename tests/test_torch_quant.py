@@ -11,10 +11,20 @@ The same numpy weights and inputs go through both packages.  Bars:
     atol 5e-3 (the JAX package's own bar, tests/test_fused_block_q.py);
   * the int8 towers (``QuantizedCLIP``): cosine >= 0.999;
   * the refusals name their ROADMAP items; the kernel build's digest covers
-    the shared headers.
+    the shared headers;
+  * the "auto" rung: ``resolve_rung`` equal to JAX's for every registry arch
+    (at tiny widths) and bundle type; ``measure_bias`` (ViT, ResNet,
+    Frozen-in-Time), zero-shot, the serving engine and the CLI at "auto"
+    bit-equal to the rung it resolves to; the patch-staging gate and the
+    embedding-cache key see that rung; the float32 hint only on a card and
+    only when the dtype was left out.
 """
 
+import dataclasses
+import json
+import os
 import types
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -154,10 +164,11 @@ class TestQuantizeWeight:
 
 class TestStems:
     @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-    def test_patch_embed_q_p8_bit_exact(self, out_dtype):
+    @pytest.mark.parametrize("k", [192, 588])  # patch 8; ViT-L/14's patch 14
+    def test_patch_embed_q_p8_bit_exact(self, out_dtype, k):
         rng = np.random.default_rng(3)
-        u8 = rng.integers(0, 256, (3, 16, 192), dtype=np.uint8)
-        w = (rng.normal(size=(192, 64)) * 0.01).astype(np.float32)
+        u8 = rng.integers(0, 256, (3, 16, k), dtype=np.uint8)
+        w = (rng.normal(size=(k, 64)) * 0.01).astype(np.float32)
         bias = rng.normal(size=(64,)).astype(np.float32)
         want = jquant.patch_embed_q_p8(jnp.asarray(u8), jquant.quantize_weight(jnp.asarray(w)),
                                        jnp.asarray(bias), out_dtype=getattr(jnp, out_dtype))
@@ -189,6 +200,21 @@ class TestStems:
         got = quant.patch_embed_q(torch.from_numpy(images), 8, quant.QWeight(torch.from_numpy(w)))
         assert got.dtype == torch.bfloat16 and got.shape == (2, 16, 64)
         _within_one_ulp(got, np.asarray(want, np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(9, 588), (600, 588), (600, 768)])
+def test_int_mm_on_the_card_equals_the_cpu_product(m, k):
+    """cuBLAS's int8 GEMM takes K in multiples of 8 only: ``int_mm`` pads
+    ViT-L/14's K = 588 (and an M of at most 16) with zeros, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: cuBLAS's int8 GEMM")
+    g = torch.Generator().manual_seed(k)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = quant.QWeight(torch.randn(k, 64, generator=g))
+    want = torch._int_mm(a, w.q)
+    got = fbq.int_mm(a.cuda(), w.q.cuda(), w.qt.cuda())
+    assert torch.equal(got.cpu(), want)
 
 
 class TestPlainInt8Path:
@@ -336,9 +362,12 @@ class TestLadder:
         out = qm.encode_image(torch.zeros(1, 64, 64, 3))
         assert out.shape == (1, 32) and torch.isfinite(out.float()).all()
 
-    def test_auto_raises_naming_roadmap(self, pair):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            quant.resolve_compute(pair[1], "auto")
+    def test_auto_takes_the_int8_rung(self, pair):
+        """A ViT under "auto" is wrapped once, as JAX's resolve_compute does."""
+        qm, dt = quant.resolve_compute(pair[1], "auto")
+        assert isinstance(qm, quant.QuantizedCLIP) and qm.text_q is None
+        assert dt == torch.bfloat16
+        assert quant.resolve_compute(qm, "auto")[0] is qm
 
     def test_unknown_dtype(self, pair):
         with pytest.raises(ValueError, match="unknown dtype"):
@@ -400,3 +429,301 @@ class TestBuildDigest:
         assert _build.source_digest(csrc, "a", flags) == before
         assert _build.source_digest(csrc, "a", flags + ["-G"]) != before
         assert flags[-2:] == ["-I", str(csrc)]
+
+
+# ---------------------------------------------------------------------------
+# The "auto" rung
+# ---------------------------------------------------------------------------
+
+from debias_vision_lang_tpu.core.registry import VALID_MODELS  # noqa: E402
+
+PROMPTS = ["a good person", "a bad person", "a photo of a doctor", "a criminal"]
+_TINY = {}
+
+
+def tiny_arch(name):
+    """The registry arch ``name`` at tiny widths, its tower kind (and, for
+    Frozen-in-Time, its image statistics) kept."""
+    from debias_vision_lang_tpu.core.registry import resolve_arch as jresolve
+
+    full = jresolve(name)
+    if full.vision.kind == "resnet":
+        vision = VisionConfig(kind="resnet", image_size=64, patch_size=32, width=16,
+                              layers=(1, 1, 1, 1), heads=8, embed_dim=32)
+    else:
+        vision = dataclasses.replace(full.vision, image_size=32, patch_size=8, width=64,
+                                     layers=1, heads=2, embed_dim=32)
+    return CLIPConfig(name=full.name, vision=vision, text=CFG.text)
+
+
+def tiny_bundles(name):
+    """{bundle type: (JAX bundle, port bundle)} of one registry arch at tiny
+    widths, from the same JAX-initialised weights."""
+    if name in _TINY:
+        return _TINY[name]
+    from debias_vision_lang_tpu.models import frozen_in_time as jfit
+    from debias_vision_lang_tpu.models.clip import init_clip_params as jinit
+    from debias_vision_lang_tpu.models.debias import DebiasCLIP as JDebiasCLIP
+    from debias_vision_lang_tpu.models.loader import CLIP as JCLIP
+    from debias_vision_lang_torch.models import frozen_in_time as tfit
+
+    cfg = tiny_arch(name)
+    tcfg = port_config(cfg)
+    video = cfg.vision.kind == "video_vit"
+    jp = (jfit.init_fit_params(jax.random.key(0), cfg) if video
+          else jinit(jax.random.key(0), cfg))
+    sd = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    out = {}
+    for mode in (("joint", "divided") if video else (None,)):
+        if video:
+            jb, tb = jfit.FrozenInTime(params=jp, cfg=cfg, attention=mode), \
+                tfit.FrozenInTime(tcfg, mode)
+        else:
+            jb, tb = JCLIP(params=jp, cfg=cfg), tclip.CLIP(tcfg)
+        tb.load_state_dict(sd)
+        out["clip" if mode in (None, "joint") else "clip-divided"] = (jb, tb)
+    jb, tb = out["clip"]
+    deb = np.zeros((2, cfg.text.width), np.float32)
+    dcfg = DebiasConfig(num_debias_tokens=2, hidden_dim=cfg.text.width)
+    out["debias"] = (JDebiasCLIP(clip_params=jp, debias_tokens=jnp.asarray(deb), clip_cfg=cfg,
+                                 debias_cfg=dcfg),
+                     TDebiasCLIP(tb, torch.from_numpy(deb), port_config(dcfg)))
+    out["quantized"] = (jquant.quantize_for_inference(jb)[0], quant.QuantizedCLIP(tb))
+    _TINY[name] = out
+    return out
+
+
+RUNG_CASES = [(name, kind) for name in VALID_MODELS
+              for kind in ("clip", "debias", "quantized")
+              + (("clip-divided",) if name.startswith("m-bain/") else ())]
+
+
+class TestAutoRung:
+    @pytest.mark.parametrize("name,bundle", RUNG_CASES)
+    def test_resolve_rung_equals_jax(self, name, bundle):
+        jb, tb = tiny_bundles(name)[bundle]
+        want = jquant.resolve_rung(jb, "auto")
+        assert quant.resolve_rung(tb, "auto") == want
+        assert want == ("bfloat16" if "/RN" in name else "int8")
+        for rung in ("float32", "bfloat16", "int8", "int8-text"):
+            assert quant.resolve_rung(tb, rung) == jquant.resolve_rung(jb, rung) == rung
+
+    def test_custom_cliplike_takes_bfloat16_as_jax(self):
+        class Custom:  # no discoverable config
+            pass
+
+        c = Custom()
+        assert quant.resolve_rung(c, "auto") == jquant.resolve_rung(c, "auto") == "bfloat16"
+        model, dt = quant.resolve_compute(c, "auto")
+        assert model is c and dt == torch.bfloat16
+
+    def test_resnet_auto_is_bfloat16_without_the_int8_warning(self):
+        _, tb = tiny_bundles("openai/CLIP/RN50")["clip"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            model, dt = quant.resolve_compute(tb, "auto")
+        assert model is tb and dt == torch.bfloat16
+        with pytest.warns(UserWarning, match="dtype='auto' to pick the fastest"):
+            quant.resolve_compute(tb, "int8")
+
+
+def _tok(texts):
+    out = np.zeros((len(texts), 16), np.int64)
+    out[:, 0] = 510
+    for i, t in enumerate(texts):
+        out[i, 1] = sum(t.encode()) % 400 + 1
+        out[i, 2] = 511
+    return out
+
+
+@pytest.fixture(scope="module")
+def auto_fairface(tmp_path_factory):
+    """12 FairFace val rows of 40 x 32 px images, balanced gender."""
+    from test_torch_parallel import write_fairface
+
+    return write_fairface(str(tmp_path_factory.mktemp("auto_ff") / "ff"), n=12)
+
+
+# (registry arch, the rung "auto" resolves to, measure_bias opts of the case)
+MEASURE_CASES = {"vit": ("openai/CLIP/ViT-B/16", "int8"),
+                 "resnet": ("openai/CLIP/RN50", "bfloat16"),
+                 "fit": ("m-bain/frozen-in-time/base", "int8")}
+
+
+def _measure_case(case, fairface, video_root):
+    from debias_vision_lang_torch.vision.preprocess import Preprocess as TPreprocess
+
+    name, rung = MEASURE_CASES[case]
+    _, model = tiny_bundles(name)["debias"]
+    cfg = model.clip_cfg.vision
+    opts = {"batch_size": 4, "num_workers": 1, "topn": 0.5, "prompts": PROMPTS}
+    if case == "fit":
+        opts.update(dataset="video", num_frames=4, data_path=video_root)
+    else:
+        opts.update(data_path=fairface)
+    return model, TPreprocess(cfg.image_size), opts, rung
+
+
+@pytest.fixture(scope="module")
+def auto_videos(tmp_path_factory):
+    """6 frame directories of 4 PNG frames, 32 px, with a labels.csv."""
+    import pandas as pd
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("auto_videos")
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(6):
+        (root / f"vid{i}").mkdir()
+        for f in range(4):
+            Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+                root / f"vid{i}" / f"frame_{f}.png")
+        rows.append({"file": f"vid{i}", "gender": "Male" if i % 2 else "Female",
+                     "race": "White", "age": "20-29"})
+    pd.DataFrame(rows).to_csv(root / "labels.csv", index=False)
+    return str(root)
+
+
+class TestAutoEntryPoints:
+    @pytest.mark.parametrize("case", list(MEASURE_CASES))
+    def test_measure_bias_auto_is_the_rung_bit_for_bit(self, case, auto_fairface,
+                                                       auto_videos, tmp_path, monkeypatch):
+        """Metrics, cached embeddings and cache key of "auto" equal the
+        explicit rung's; the staging gate sees the rung (patch-contiguous
+        for a ViT at int8, NHWC for a ResNet, frames for a video tower)."""
+        from debias_vision_lang_torch.eval import measure as tmeasure
+
+        model, pre, opts, rung = _measure_case(case, auto_fairface, auto_videos)
+        staged = []
+        real = tmeasure.HostLoader
+
+        def spy(*a, **kw):
+            staged.append(kw.get("native_patch"))
+            return real(*a, **kw)
+
+        monkeypatch.setattr(tmeasure, "HostLoader", spy)
+        out = {}
+        for dt in ("auto", rung):
+            path = str(tmp_path / f"{dt}.npz")
+            res = tmeasure.measure_bias(model, pre, _tok, "gender",
+                                        opts={**opts, "dtype": dt, "cache_embeddings": path})
+            with np.load(path) as f:
+                out[dt] = (res, f["embeddings"], str(f["cache_key"]))
+        (ra, ea, ka), (rr, er, kr) = out["auto"], out[rung]
+        assert ra == rr
+        np.testing.assert_array_equal(ea, er)
+        assert ka == kr and json.loads(ka)["dtype"] == rung
+        assert staged == [8, 8] if case == "vit" else staged == [None, None]
+
+    @pytest.mark.parametrize("case", list(MEASURE_CASES))
+    def test_cached_auto_hits_the_rung_s_file(self, case, auto_fairface, auto_videos,
+                                              tmp_path, monkeypatch):
+        from debias_vision_lang_torch.eval import measure as tmeasure
+
+        model, pre, opts, rung = _measure_case(case, auto_fairface, auto_videos)
+        opts = {**opts, "cache_embeddings": str(tmp_path / "emb.npz")}
+        want = tmeasure.measure_bias(model, pre, _tok, "gender", opts={**opts, "dtype": rung})
+
+        def no_embed(*a, **k):
+            raise AssertionError("the auto run missed the cache")
+
+        monkeypatch.setattr(tmeasure, "get_labels_img_embeddings", no_embed)
+        got = tmeasure.measure_bias(model, pre, _tok, "gender", opts={**opts, "dtype": "auto"})
+        assert got == want
+
+    def test_zero_shot_auto_is_int8(self, tmp_path):
+        from PIL import Image
+
+        from debias_vision_lang_torch.cli import FolderDataset
+        from debias_vision_lang_torch.data.loader import HostLoader
+        from debias_vision_lang_torch.eval.zero_shot import zero_shot_accuracy
+
+        rng = np.random.default_rng(2)
+        for c in ("cat", "dog", "fox"):
+            (tmp_path / c).mkdir()
+            for i in range(3):
+                Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+                    tmp_path / c / f"{i}.png")
+        _, model = tiny_bundles("openai/CLIP/ViT-B/16")["clip"]
+        ds = FolderDataset(str(tmp_path))
+        got = {dt: zero_shot_accuracy(model, _tok, HostLoader(ds, batch_size=4, native_n_px=32),
+                                      ds.class_names, n_px=32, dtype=dt)
+               for dt in ("auto", "int8")}
+        assert got["auto"] == got["int8"] and got["auto"]["n"] == 9
+
+    def test_engine_auto_is_int8(self):
+        from debias_vision_lang_torch.serve.engine import InferenceEngine
+
+        _, model = tiny_bundles("openai/CLIP/ViT-B/16")["clip"]
+        imgs = list(np.random.default_rng(3).integers(0, 256, (5, 32, 32, 3), dtype=np.uint8))
+        engines = {dt: InferenceEngine(model, None, max_batch=4, compute_dtype=dt, device="cpu")
+                   for dt in ("auto", "int8")}
+        assert engines["auto"].info()["precision"] == "auto"
+        assert engines["auto"].info()["compute_dtype"] == "bfloat16"
+        assert engines["auto"]._patch == engines["int8"]._patch == 8
+        np.testing.assert_array_equal(engines["auto"].embed_image_arrays(imgs),
+                                      engines["int8"].embed_image_arrays(imgs))
+
+    def test_cli_measure_bias_auto_is_the_rung(self, auto_fairface, monkeypatch, capsys):
+        from debias_vision_lang_torch import cli as tcli
+        from debias_vision_lang_torch.models import loader
+        from debias_vision_lang_torch.vision.preprocess import Preprocess as TPreprocess
+
+        _, model = tiny_bundles("openai/CLIP/ViT-B/16")["debias"]
+        monkeypatch.setattr(loader, "model_loader",
+                            lambda *a, **k: (model, TPreprocess(32), _tok, "tiny"))
+        out = {}
+        for dt in ("auto", "int8"):
+            tcli.main(["measure-bias", "--device", "cpu", "--random-weights", "--dtype", dt,
+                       "--data-path", auto_fairface, "--batch-size", "4"])
+            out[dt] = capsys.readouterr().out
+        assert out["auto"] == out["int8"] and '"ndkl"' in out["auto"]
+
+
+class TestImplicitFp32Hint:
+    """JAX's hint fires on a TPU backend when the float32 default picks
+    itself; the port's when the model lives on a card."""
+
+    def test_silent_on_the_cpu(self, pair):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            quant.hint_implicit_fp32("measure_bias", pair[1])
+
+    def test_measure_bias_gate_is_omission_not_value(self, monkeypatch):
+        """A model on a card (the device read patched) hints iff opts holds no
+        dtype: a typo'd opt stops the call right after the gate."""
+        from debias_vision_lang_torch.eval import measure as tmeasure
+
+        monkeypatch.setattr(quant, "_device_type", lambda model: "cuda")
+        with pytest.warns(UserWarning, match="dtype='auto'"):
+            with pytest.raises(ValueError, match="unknown measure_bias"):
+                tmeasure.measure_bias(None, None, None, opts={"topnn": 1})
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with pytest.raises(ValueError, match="unknown measure_bias"):
+                tmeasure.measure_bias(None, None, None, opts={"topnn": 1, "dtype": "float32"})
+
+    def test_zero_shot_gate_is_dtype_none(self, pair, monkeypatch):
+        from debias_vision_lang_torch.eval.zero_shot import zero_shot_accuracy
+
+        monkeypatch.setattr(quant, "_device_type", lambda model: "cuda")
+        with pytest.warns(UserWarning, match="zero_shot_accuracy: dtype defaulted"):
+            with pytest.raises(ValueError, match="yielded no images"):
+                zero_shot_accuracy(pair[1], _tok, [], ["a", "b"], n_px=32)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with pytest.raises(ValueError, match="yielded no images"):
+                zero_shot_accuracy(pair[1], _tok, [], ["a", "b"], n_px=32, dtype="float32")
+
+    @pytest.mark.cuda
+    def test_fires_for_a_model_on_the_card(self, pair):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the hint reads the model's device")
+        import copy
+
+        model = copy.deepcopy(pair[1]).cuda()
+        with pytest.warns(UserWarning, match=r"On this card, dtype='auto'"):
+            quant.hint_implicit_fp32("measure_bias", model)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            quant.hint_implicit_fp32("measure_bias", pair[1])

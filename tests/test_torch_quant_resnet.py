@@ -25,6 +25,8 @@ Bars:
     figure.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -289,9 +291,15 @@ class TestQuantizedCLIP:
             ref = tm.encode_text(ids)
         assert _cos_rows(_np(got), _np(ref)).min() > 0.99
 
-    def test_auto_raises_naming_roadmap(self, pairs):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            tquant.resolve_compute(pairs[STAGES[0]][2], "auto")
+    def test_auto_takes_bfloat16_as_jax(self, pairs):
+        """"auto" on a ModifiedResNet is the bfloat16 rung (JAX's
+        resolve_rung): no wrap, no int8 warning."""
+        _, _, model = pairs[STAGES[0]]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got, dt = tquant.resolve_compute(model, "auto")
+        assert got is model and dt == torch.bfloat16
+        assert tquant.resolve_rung(model, "auto") == "bfloat16"
 
     def test_fingerprint_names_the_float_tower(self, pairs):
         from debias_vision_lang_torch.utils.fingerprint import image_tower_tensors

@@ -602,13 +602,19 @@ class TestMeasureBias:
                 assert np.isfinite(got[ev][k])
                 assert got[ev][k] == pytest.approx(oracle[ev][k], abs=1e-5)
 
-    def test_auto_still_raises(self, fairface, debias_models):
+    def test_auto_runs_the_bfloat16_rung(self, fairface, debias_models):
+        """"auto" is JAX's bfloat16 rung for a ResNet: the bf16 call's
+        metrics bit for bit, and no int8 warning."""
         from debias_vision_lang_torch.eval.measure import measure_bias
         from debias_vision_lang_torch.vision.preprocess import Preprocess as TPreprocess
 
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            measure_bias(debias_models[1], TPreprocess(64), tok, "gender",
-                         opts={**OPTS, "data_path": fairface, "dtype": "auto"})
+        out = {}
+        for dtype in ("auto", "bfloat16"):
+            out[dtype], said = _rung_warnings(lambda: measure_bias(
+                debias_models[1], TPreprocess(64), tok, "gender",
+                opts={**OPTS, "data_path": fairface, "dtype": dtype}))
+            assert not any("ModifiedResNet" in m for m in said)
+        assert out["auto"] == out["bfloat16"]
 
 
 def _rung_warnings(fn):

@@ -469,9 +469,22 @@ class TestEngine:
         np.testing.assert_allclose(me.embed_token_arrays(toks), te.embed_token_arrays(toks),
                                    atol=1e-6, rtol=0)
 
-    def test_auto_dtype_refused_naming_the_roadmap_item(self, models):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            tserve.InferenceEngine(models[1], None, compute_dtype="auto", device="cpu")
+    def test_auto_dtype_takes_the_int8_rung(self, models):
+        """A ViT under "auto" serves the int8 rung (JAX's resolve_rung), its
+        label "auto" as the JAX engine's, rows bit-equal to "int8"'s."""
+        from debias_vision_lang_torch.ops.quant import QuantizedCLIP
+
+        auto = tserve.InferenceEngine(models[1], None, max_batch=4, compute_dtype="auto",
+                                      device="cpu")
+        int8 = tserve.InferenceEngine(models[1], None, max_batch=4, compute_dtype="int8",
+                                      device="cpu")
+        jauto = jserve.InferenceEngine(models[0], None, max_batch=4, compute_dtype="auto")
+        assert isinstance(auto.model, QuantizedCLIP)
+        assert auto.info()["precision"] == jauto.info()["precision"] == "auto"
+        assert auto.info()["compute_dtype"] == str(jauto.info()["compute_dtype"]) == "bfloat16"
+        imgs = _frames(np.random.default_rng(12), 3)
+        np.testing.assert_array_equal(auto.embed_image_arrays(imgs),
+                                      int8.embed_image_arrays(imgs))
 
     def test_unknown_dtype_refused(self, models):
         with pytest.raises(ValueError, match="unknown dtype"):

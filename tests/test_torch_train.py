@@ -480,9 +480,10 @@ class TestTrainerSurface:
         with pytest.raises(ValueError, match=">= 0"):
             tr.step(*_batch(1))
 
-    def test_mesh_raises(self, world, monkeypatch):
-        """mesh="auto" builds (one CPU slot); across ranks the image-path
-        layers refuse to train (ROADMAP.md queue 1 item 5c)."""
+    def test_mesh_builds_across_ranks(self, world, monkeypatch):
+        """mesh="auto" builds (one CPU slot), and so does a trainer whose
+        image-path layers train across ranks (its world run is
+        tests/test_torch_parallel.py's two-rank test)."""
         from debias_vision_lang_torch.parallel import mesh as pmesh
 
         tr = _create(_port_model(world, DebiasConfig(hidden_dim=32)), _port_adversary(world),
@@ -496,9 +497,9 @@ class TestTrainerSurface:
             return m
 
         monkeypatch.setattr(pmesh, "create_mesh", two_ranks)
-        with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
-            _create(_port_model(world, DebiasConfig(hidden_dim=32, n_train_vid_layers=1)),
-                    _port_adversary(world), TrainConfig(), world[3], mesh="auto")
+        tr = _create(_port_model(world, DebiasConfig(hidden_dim=32, n_train_vid_layers=1)),
+                     _port_adversary(world), TrainConfig(), world[3], mesh="auto")
+        assert tr.trains_image and tr.mesh.world == 2
 
     def test_freezing_sets_requires_grad(self, world):
         model = _port_model(world, DebiasConfig(hidden_dim=32, n_train_text_layers=1))

@@ -163,11 +163,20 @@ def test_empty_loader_raises(models, tmp_path):
                                ["empty"], n_px=32)
 
 
-@pytest.mark.parametrize("kw,match", [({"dtype": "auto"}, "queue 1 item 8")])
-def test_unported_options_name_their_item(models, kw, match):
-    _, tm, _ = models
-    with pytest.raises(NotImplementedError, match=match):
-        tzs.zero_shot_accuracy(tm, tok, [], CLASSES, **kw)
+@pytest.mark.parametrize("kw,rung", [({"dtype": "auto"}, "int8")])
+def test_auto_is_the_family_rung(models, folder, kw, rung):
+    """"auto" is the int8 rung for the ViT and SLIP towers (JAX's
+    resolve_rung), with the same top-1 / top-5 as an explicit "int8"."""
+    from debias_vision_lang_tpu.ops.quant import resolve_rung as jresolve_rung
+    from debias_vision_lang_torch.ops.quant import resolve_rung
+
+    jm, tm, _ = models
+    assert resolve_rung(tm, kw["dtype"]) == jresolve_rung(jm, kw["dtype"]) == rung
+    ds = tcli.FolderDataset(folder)
+    got = {dt: tzs.zero_shot_accuracy(tm, tok, HostLoader(ds, batch_size=4, native_n_px=32),
+                                      CLASSES, n_px=32, dtype=dt)
+           for dt in (kw["dtype"], rung)}
+    assert got[kw["dtype"]] == got[rung] and got[rung]["n"] == 15
 
 
 def test_mesh_equals_one_device(models, folder):
