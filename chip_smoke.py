@@ -342,9 +342,37 @@ Phases (any failure exits non-zero before the final line):
      the serving engine and zero-shot at "auto" bit-equal to "int8"; the
      CLI's measure-bias --dtype auto exiting 0; a table of arch x rung
      img/s beside the rung "auto" picks (printed, not gated).
-The kernels line comes after phase 21 (its SLIP-L rows take phase 17's
+ 22. tensor parallel (``parallel/mesh.shard_clip_params`` /
+     ``shard_quantized_clip``, ``parallel/tensor.py``) on virtual (data,
+     model) meshes of the one card (the split's overhead, not a speed-up):
+     the split entries against their twins with the residual at x and
+     x/16 -- ``attention_block_heads`` and KB (a) 6's
+     ``attention_block_hgrid`` at B=256 S=197 D=768 H=12 on head groups of
+     12, 6 and 3, the causal text shape B=319 S=77 D=512 at 4 and 2, the
+     long core at B=8 S=785 on 6, ``mlp_block_cols`` at F/m = 1536 and 768,
+     each within 1 bf16 ulp of its twin's largest magnitude, ``tp_reduce``
+     bit-equal to its twin; the int8 entries' codes and int32 partials
+     equal to the twin's, and the reduced int8 halves bit-equal to K3 / K4;
+     KB (a) 6 timed beside K1 at B=256 and on a path: the phase-4 image
+     tower's 12 attention halves through it (rows vs the K1 tower >=
+     0.999); the float32 forward of the phase-4 model under (1, 2) and (2,
+     2) within 1e-4 of unsharded (JAX's bar); under (1, 2), (2, 2) and (1,
+     4) every bf16 image and text block within 1 bf16 ulp of K1 + K2 on
+     the same input, the towers' rows cosine >= 0.9999 against unsharded
+     bf16 (beside the drift of the same tower on the twins from the
+     kernels) and >= 0.999 against float32, the int8 towers (image, text under
+     int8-text) bit-equal to the unsharded int8 towers (or the difference
+     printed and cosine >= 0.99999 held), launches 12 m per head / column
+     entry and 24 reduces per data shard with no K1-K4; the Frozen-in-Time
+     joint int8 tower at B=8 (S = 785, the long core) under (1, 2)
+     likewise; one float32 adversary + prompt step (JAX's dryrun) on the
+     DebiasCLIP placed under (2, 2): the token gradient within 1e-5 of the
+     unsharded step's largest magnitude, losses within 1e-6; each TP
+     tower's ms beside the unsharded one's.
+The kernels line comes after phase 22 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
-the rows of phase 21's shapes its sweep's) and gives each kernel's launches, error, time, plain-twin time,
+the rows of phase 21's shapes its sweep's, the split entries' rows phase
+22's (1, 2) towers' and KB (a) 6's its tower's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -4200,6 +4228,714 @@ def rung_phase(model, tokenizer, prompts, card, device, tower_img_s=None):
     return list(rows.values()), sum(walls.values())
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tensor parallel -- the Megatron head / hidden splits over the
+# model axis on virtual meshes of the one card, and KB (a) 6
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_F32_ATOL = 1e-4  # float32 TP logits vs unsharded: JAX's bar (tests/test_parallel.py)
+TP_COS = 0.99999  # int8 TP tower rows vs unsharded, should they not be bit-equal
+# bf16 TP tower rows vs the unsharded bf16 tower.  Every split block sits
+# within 1 bf16 ulp of K1 + K2 (the row-parallel sums reorder f32 sums),
+# and the random-weight tower amplifies such flips over 12 layers.  The
+# drift floor is the same tower with every block on the twins (also within
+# 1 ulp per block) against the kernels: the bar is TP_COS_BF16, or where
+# that is tighter than the floor, a drift (1 - cosine) at most
+# TP_DRIFT_RATIO times the floor's; the floor itself must hold TP_FLOOR_MIN
+TP_COS_BF16 = 0.99999
+TP_DRIFT_RATIO = 2.0
+TP_FLOOR_MIN = 0.9999
+# the dryrun step's token gradient vs the unsharded step on the card, of its
+# largest magnitude.  The same unsharded step on the CPU differs from the
+# card's by 2.55e-5 of it, the split step by 2.17e-5 (both in PERF.md):
+# float32's own noise at this width is past 1e-5, so the bar is a fixed 5e-5
+TP_GRAD_TOL = 5e-5
+TP_LOSS_TOL = 1e-6
+TP_F32_B, TP_DRY_B, TP_FIT_B = 16, 8, 8
+# the TPU-side lines of the kernels line: KB (a) 6's pallas_call; the head
+# group / column entries compute K1-K4's function on a slice; the reduces
+# stand for the psum GSPMD inserts after a row-parallel product (JAX's
+# clip_param_pspecs, wo row spec)
+TP_REPLACES = {
+    "attention_block_hgrid": "benchmarks/attn_variants.py:155",
+    "attention_block_heads": "debias_vision_lang_tpu/ops/fused_block.py:287",
+    "mlp_block_cols": "debias_vision_lang_tpu/ops/fused_block.py:346",
+    "tp_reduce": "debias_vision_lang_tpu/parallel/mesh.py:165",
+    "attention_block_q_heads": "debias_vision_lang_tpu/ops/fused_block_q.py:336",
+    "mlp_block_q_cols": "debias_vision_lang_tpu/ops/fused_block_q.py:403",
+    "rows_q_partial": "debias_vision_lang_tpu/ops/fused_block_q.py:336",
+    "tp_reduce_q": "debias_vision_lang_tpu/parallel/mesh.py:165",
+}
+
+
+def tp_attention_work(b, s, d, m, causal=False, weights="bf16"):
+    """A head group's share (1/m of the heads): its QKV and out products in
+    the weights' type, the core on its heads in bf16; x read, the f32 (bf16)
+    partial written (int8: the bf16 attention rows and their amax)."""
+    mm, dg = b * s, d // m
+    pairs = s * (s + 1) / 2 if causal else s * s
+    ops = {"bf16": 4 * b * pairs * dg}
+    if weights == "int8":
+        ops["int8"] = 2 * mm * d * 3 * dg
+        return ops, 2 * mm * d + 2 * mm * dg + 4 * mm + 3 * d * dg + 8 * 3 * dg + 8 * d
+    ops["bf16"] += 2 * mm * d * 3 * dg + 2 * mm * dg * d
+    return ops, 2 * mm * d + 4 * mm * d + 2 * 4 * d * dg + 4 * (3 * dg + 2 * d)
+
+
+def tp_mlp_work(b, s, d, f, m, weights="bf16"):
+    mm, fj = b * s, f // m
+    if weights == "int8":  # up to the f32 hidden and its amax
+        return {"int8": 2 * mm * d * fj}, 2 * mm * d + 4 * mm * fj + 4 * mm + d * fj + 8 * fj
+    return {"bf16": 4 * mm * d * fj}, 2 * mm * d + 4 * mm * d + 2 * 2 * d * fj + 4 * (fj + 2 * d)
+
+
+def tp_rows_q_work(mm, k, n, m, a_bytes):
+    """rows_q_partial: the input [M, K] read, m amaxes, codes and scales
+    written, the int8 product into an int32 [M, N] partial."""
+    return {"int8": 2 * mm * k * n}, mm * k * a_bytes + 4 * mm * m + mm * k + 4 * mm + k * n \
+        + 4 * mm * n
+
+
+def tp_reduce_work(mm, n, m, part_bytes=4, extra=0):
+    return {}, m * part_bytes * mm * n + 2 * 2 * mm * n + 4 * n + extra
+
+
+def compare_part(name, got, ref):
+    """An f32 partial against its twin's: within 1 bf16 ulp of the twin's
+    largest magnitude (the kernels' bar)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = ulp_bf16(ref.float().abs().max().item())
+    print(f"kernel {name}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of max |twin|)")
+    check(math.isfinite(err) and err <= tol, f"{name}: kernel disagrees with its twin")
+    return err
+
+
+def hgrid_operands(attn, heads):
+    """KB (a) 6's operands from a block's (ln_s, ln_b, wqkv, bqkv, wo, bo), as
+    its main() builds them: q columns pre-scaled by hd^-0.5 log2 e, per-head
+    [D, 3 hd] blocks (bf16), wo as [H hd, D]."""
+    import torch
+
+    ls, lb, wqkv, bqkv, wo, bo = attn
+    d = wo.shape[0]
+    hd = d // heads
+    scale = hd ** -0.5 * math.log2(math.e)
+    wq = torch.cat([wqkv[:, :d] * scale, wqkv[:, d:]], dim=1)
+    bq = torch.cat([bqkv[:d] * scale, bqkv[d:]])
+    wqkv_h = torch.stack([torch.cat([wq[:, i * d + h * hd:i * d + (h + 1) * hd]
+                                     for i in range(3)], dim=1) for h in range(heads)])
+    bqkv_h = torch.stack([torch.cat([bq[i * d + h * hd:i * d + (h + 1) * hd] for i in range(3)])
+                          for h in range(heads)])
+    return (ls, lb, wqkv_h.to(torch.bfloat16), bqkv_h, wo.to(torch.bfloat16), bo)
+
+
+def group_slice(attn, mlp, d, m, j):
+    """Slot j of m's head group and hidden columns of a block's tensors."""
+    from debias_vision_lang_torch.parallel.tensor import head_columns
+
+    ls, lb, wqkv, bqkv, wo, _ = attn
+    l2s, l2b, w1, b1, w2, _ = mlp
+    f = w1.shape[1]
+    cols = head_columns(d, m, j).to(wqkv.device)
+    rows, hid = slice(j * d // m, (j + 1) * d // m), slice(j * f // m, (j + 1) * f // m)
+    return ((ls, lb, wqkv[:, cols], bqkv[cols], wo[rows]),
+            (l2s, l2b, w1[:, hid], b1[hid], w2[hid]))
+
+
+def tp_kernels(fb, fbq, device, card):
+    """Phase 22's kernel checks: every split entry against its twin at the
+    main path's shapes, with the residual at x and x/16; timed ones become
+    kernels-line rows (launches set by the caller)."""
+    import torch
+    from debias_vision_lang_torch.parallel.tensor import head_columns
+
+    rows = {}
+    g_in = torch.Generator().manual_seed(22)
+    d, heads, b, s = 768, 12, BATCH, 197
+    attn, mlp = block_params(d, device, seed=7)
+    kb = hgrid_operands(attn, heads)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(b, s, d, generator=g_in) * scale).to(device, torch.bfloat16)
+        tag = f"B={b} S={s} D={d} x~N(0,{scale}^2)"
+        for g in (12, 6, 3):
+            m = heads // g
+            ga, gm = group_slice(attn, mlp, d, m, m - 1)
+            compare_part(f"attention_block_heads {tag} g={g} (slot {m - 1} of {m})",
+                         fb.attention_block_heads(x, *ga, heads=g),
+                         fb.attention_block_heads_plain(x, *ga, heads=g))
+            h0 = heads - g
+            got = fb.attention_block_hgrid(x, *kb, heads=heads, h0=h0, g=g)
+            ref = fb.attention_block_hgrid_plain(x, *kb, heads=heads, h0=h0, g=g)
+            if g == heads:
+                compare_bf16(f"attention_block_hgrid {tag} (KB (a) 6)", x, got, ref)
+            else:
+                compare_part(f"attention_block_hgrid {tag} heads [{h0}, {heads})", got, ref)
+        for m in (2, 4):
+            ga, gm = group_slice(attn, mlp, d, m, m - 1)
+            compare_part(f"mlp_block_cols {tag} F/m={4 * d // m}",
+                         fb.mlp_block_cols(x, *gm), fb.mlp_block_cols_plain(x, *gm))
+        # the four head groups' partials reduced: the twin's sum bit for bit,
+        # and K1's block within 1 ulp
+        parts = [fb.attention_block_heads(x, *group_slice(attn, mlp, d, 4, j)[0], heads=3)
+                 for j in range(4)]
+        red = fb.tp_reduce(parts, attn[5], x, bias_first=False)
+        same = torch.equal(red, fb.tp_reduce_plain(parts, attn[5], x, bias_first=False))
+        print(f"kernel tp_reduce {tag} m=4: {'bit-equal to' if same else 'differs from'} "
+              f"its twin on the kernels' partials")
+        check(same, "tp_reduce: the f32 sum differs from its twin's")
+        compare_bf16(f"tp_reduce of 4 head groups vs K1 {tag}", x, red,
+                     fb.attention_block(x, *attn, heads=heads))
+    # the text tower's causal shape, and the long core
+    attn_t, mlp_t = block_params(512, device, seed=11)
+    xt = torch.randn(319, 77, 512, generator=g_in).to(device, torch.bfloat16)
+    for g in (4, 2):
+        ga, _ = group_slice(attn_t, mlp_t, 512, 8 // g, 0)
+        compare_part(f"attention_block_heads B=319 S=77 D=512 causal g={g}",
+                     fb.attention_block_heads(xt, *ga, heads=g, causal=True),
+                     fb.attention_block_heads_plain(xt, *ga, heads=g, causal=True))
+    attn_l, mlp_l = block_params(768, device, seed=FIT_JOINT_S)
+    kb_l = hgrid_operands(attn_l, 12)
+    xl = torch.randn(8, FIT_JOINT_S, 768, generator=g_in).to(device, torch.bfloat16)
+    fb.reset_launches()
+    ga, _ = group_slice(attn_l, mlp_l, 768, 2, 1)
+    compare_part(f"attention_block_heads B=8 S={FIT_JOINT_S} g=6 (long core)",
+                 fb.attention_block_heads(xl, *ga, heads=6),
+                 fb.attention_block_heads_plain(xl, *ga, heads=6))
+    compare_part(f"attention_block_hgrid B=8 S={FIT_JOINT_S} heads [6, 12) (long core)",
+                 fb.attention_block_hgrid(xl, *kb_l, heads=12, h0=6, g=6),
+                 fb.attention_block_hgrid_plain(xl, *kb_l, heads=12, h0=6, g=6))
+    compare_bf16(f"attention_block_hgrid B=8 S={FIT_JOINT_S} (KB (a) 6, long core)", xl,
+                 fb.attention_block_hgrid(xl, *kb_l, heads=12),
+                 fb.attention_block_hgrid_plain(xl, *kb_l, heads=12))
+    check(fb.CORE_ROUTES == {"short": 0, "long": 3}, f"phase 22: long core routes {fb.CORE_ROUTES}")
+    del xl, xt
+
+    # int8: each slot's attention rows and hidden are K3's / K4's own columns
+    # bit for bit, its codes the twin's quantizer at the row's global amax
+    # on those rows, its int32 partial the twin's, exactly
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=7)
+    x = torch.randn(b, s, d, generator=g_in).to(device, torch.bfloat16)
+    sk3, sk4 = {}, {}
+    want3 = fbq.attention_block_q(x, *qa, heads=heads, **qakw, scratch=sk3)
+    want4 = fbq.mlp_block_q(x, *qm, **qmkw, scratch=sk4)
+    for m in (2, 4):
+        g = heads // m
+        outs, hs = [], []
+        for j in range(m):
+            cols = head_columns(d, m, j).to(device)
+            wq_q, wq_s = qa[2][:, cols], qa[3][:, cols]
+            attn_j, amax_j = fbq.attention_block_q_heads(
+                x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=g,
+                wqkv_qt=wq_q.t().contiguous())
+            check(torch.equal(amax_j, fbq.row_amax(attn_j)),
+                  f"attention_block_q_heads m={m} slot {j}: amax is not its rows'")
+            check(torch.equal(attn_j.float(), sk3["attn"][..., j * d // m:(j + 1) * d // m]),
+                  f"attention_block_q_heads m={m} slot {j}: rows are not K3's")
+            ref_attn, _ = fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s,
+                                                            qa[4][cols], heads=g)
+            err = (attn_j.float() - ref_attn.float()).abs().max().item()
+            tol = ulp_bf16(ref_attn.float().abs().max().item())
+            check(err <= tol, f"attention_block_q_heads m={m} slot {j}: rows off by {err}")
+            outs.append(attn_j)
+            hid = slice(j * 4 * d // m, (j + 1) * 4 * d // m)
+            w1_q, w1_s = qm[2][:, hid], qm[3][:, hid]
+            h_j, hmax_j = fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][hid],
+                                               w1_qt=w1_q.t().contiguous())
+            check(torch.equal(hmax_j, fbq.row_amax(h_j)) and torch.equal(h_j, sk4["h"][..., hid]),
+                  f"mlp_block_q_cols m={m} slot {j}: the hidden is not K4's or its amax")
+            hs.append(h_j)
+        amaxes = [fbq.row_amax(o) for o in outs]
+        parts, parts_ref = [], []
+        for j, a_j in enumerate(outs):
+            rows_w = slice(j * d // m, (j + 1) * d // m)
+            wo_q = qa[5][rows_w]
+            acc, aq, sc = fbq.rows_q_partial(a_j, amaxes, wo_q, w_qt=wo_q.t().contiguous())
+            acc2, aq2, sc2 = fbq.rows_q_partial_plain(a_j, amaxes, wo_q)
+            check(torch.equal(aq, aq2) and torch.equal(sc, sc2) and torch.equal(acc, acc2),
+                  f"rows_q_partial m={m} slot {j}: codes or int32 partial differ from the twin's")
+            parts.append(acc)
+        out = fbq.tp_reduce_q(parts, sc, qa[6], qa[7], x, bias_first=False)
+        check(torch.equal(out, fbq.tp_reduce_q_plain(parts, sc, qa[6], qa[7], x,
+                                                     bias_first=False)),
+              f"tp_reduce_q m={m}: differs from its twin")
+        want = want3
+        print(f"kernel attention_block_q_heads + rows_q_partial + tp_reduce_q B={b} S={s} m={m}: "
+              f"rows K3's, codes and int32 partials the twin's; the reduced block "
+              f"{'bit-equal to' if torch.equal(out, want) else 'differs from'} K3")
+        check(torch.equal(out, want), f"int8 split attention m={m} is not K3's block")
+        hmax = [fbq.row_amax(h) for h in hs]
+        parts = []
+        for j, h_j in enumerate(hs):
+            w2_q = qm[5][j * 4 * d // m:(j + 1) * 4 * d // m]
+            acc, _, hsc = fbq.rows_q_partial(h_j, hmax, w2_q, w_qt=w2_q.t().contiguous())
+            parts.append(acc)
+        out = fbq.tp_reduce_q(parts, hsc, qm[6], qm[7], x, bias_first=True)
+        want = want4
+        print(f"kernel mlp_block_q_cols + rows_q_partial + tp_reduce_q B={b} S={s} m={m}: the "
+              f"reduced block {'bit-equal to' if torch.equal(out, want) else 'differs from'} K4")
+        check(torch.equal(out, want), f"int8 split MLP m={m} is not K4's block")
+    torch.cuda.synchronize()
+
+    # timed at B=256 (m = 2; KB (a) 6 whole, beside K1)
+    def row(name, lib, err, kern, plain, work, iters=5):
+        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} m=2", lib, 0, err,
+                       cuda_ms(kern, iters=iters), cuda_ms(plain, iters=2), work)
+        r["replaces"] = TP_REPLACES[name]
+        rows[name] = r
+        print(f"time {name} {r['case']}: kernel {r['ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
+              f"kernel at {r['bound_ms'] / r['ms']:.1%} of it) ({card})")
+
+    ga, gm = group_slice(attn, mlp, d, 2, 0)
+    k1_ms = cuda_ms(lambda: fb.attention_block(x, *attn, heads=heads))
+    row("attention_block_hgrid", "fused_block",
+        compare_bf16("attention_block_hgrid (timed)", x,
+                     fb.attention_block_hgrid(x, *kb, heads=heads),
+                     fb.attention_block_hgrid_plain(x, *kb, heads=heads)),
+        lambda: fb.attention_block_hgrid(x, *kb, heads=heads),
+        lambda: fb.attention_block_hgrid_plain(x, *kb, heads=heads),
+        attention_block_work(b, s, d))
+    rows["attention_block_hgrid"]["case"] = f"KB (a) 6, ViT-B/16 B={b} S={s} D={d} H=12"
+    print(f"time attention_block_hgrid beside K1 (attention_block) on the same x: "
+          f"{rows['attention_block_hgrid']['ms']:.4f} vs {k1_ms:.4f} ms ({card})")
+    p_ref = fb.attention_block_heads_plain(x, *ga, heads=6)
+    row("attention_block_heads", "fused_block",
+        compare_part("attention_block_heads (timed)", fb.attention_block_heads(x, *ga, heads=6),
+                     p_ref),
+        lambda: fb.attention_block_heads(x, *ga, heads=6),
+        lambda: fb.attention_block_heads_plain(x, *ga, heads=6), tp_attention_work(b, s, d, 2))
+    row("mlp_block_cols", "fused_block",
+        compare_part("mlp_block_cols (timed)", fb.mlp_block_cols(x, *gm),
+                     fb.mlp_block_cols_plain(x, *gm)),
+        lambda: fb.mlp_block_cols(x, *gm), lambda: fb.mlp_block_cols_plain(x, *gm),
+        tp_mlp_work(b, s, d, 4 * d, 2))
+    parts2 = [p_ref, p_ref.clone()]
+    row("tp_reduce", "fused_block",
+        compare_bf16("tp_reduce (timed)", x, fb.tp_reduce(parts2, attn[5], x, bias_first=False),
+                     fb.tp_reduce_plain(parts2, attn[5], x, bias_first=False)),
+        lambda: fb.tp_reduce(parts2, attn[5], x, bias_first=False),
+        lambda: fb.tp_reduce_plain(parts2, attn[5], x, bias_first=False),
+        tp_reduce_work(b * s, d, 2))
+    cols = head_columns(d, 2, 0).to(device)
+    wq_q, wq_s, wq_t = qa[2][:, cols], qa[3][:, cols], qa[2][:, cols].t().contiguous()
+    a0, m0 = fbq.attention_block_q_heads(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=6,
+                                         wqkv_qt=wq_t)
+    r0, _ = fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=6)
+    row("attention_block_q_heads", "fused_block_q",
+        (a0.float() - r0.float()).abs().max().item(),
+        lambda: fbq.attention_block_q_heads(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=6,
+                                            wqkv_qt=wq_t),
+        lambda: fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols],
+                                                  heads=6),
+        tp_attention_work(b, s, d, 2, weights="int8"))
+    w1_q, w1_s, w1_t = qm[2][:, :2 * d], qm[3][:, :2 * d], qm[2][:, :2 * d].t().contiguous()
+    h0, _ = fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][:2 * d], w1_qt=w1_t)
+    # the twin's up-projection on the kernel's own codes (K4's, which phase
+    # 6 holds to the twin's quantizer): the epilogue's f32 rounding only
+    h_own = fb._act(fbq.dot_q(sk4["xq"], sk4["xs"], w1_q, w1_s) + qm[4][:2 * d].float(),
+                    "quick_gelu")
+    h_err = (h0 - h_own).abs().max().item()
+    print(f"kernel mlp_block_q_cols (timed): hidden vs the twin on its own codes max |diff| "
+          f"{h_err} (bar 1e-5 of max {h_own.abs().max().item()})")
+    check(h_err <= 1e-5 * h_own.abs().max().item(), "mlp_block_q_cols: hidden off the twin's")
+    row("mlp_block_q_cols", "fused_block_q", h_err,
+        lambda: fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][:2 * d], w1_qt=w1_t),
+        lambda: fbq.mlp_block_q_cols_plain(x, qm[0], qm[1], w1_q, w1_s, qm[4][:2 * d]),
+        tp_mlp_work(b, s, d, 4 * d, 2, weights="int8"))
+    wo_q = qa[5][:d // 2]
+    wo_t = wo_q.t().contiguous()
+    got, want = (fbq.rows_q_partial(a0, [m0, m0], wo_q, w_qt=wo_t),
+                 fbq.rows_q_partial_plain(a0, [m0, m0], wo_q))
+    rq_err = (got[0] - want[0]).abs().max().item()
+    print(f"kernel rows_q_partial (timed): codes, row scales and int32 partial "
+          f"{'equal to' if all(map(torch.equal, got, want)) else 'differ from'} the twin's; "
+          f"int32 max |diff| {rq_err}")
+    check(all(map(torch.equal, got, want)), "rows_q_partial (timed): differs from its twin")
+    row("rows_q_partial", "fused_block_q", rq_err,
+        lambda: fbq.rows_q_partial(a0, [m0, m0], wo_q, w_qt=wo_t),
+        lambda: fbq.rows_q_partial_plain(a0, [m0, m0], wo_q),
+        tp_rows_q_work(b * s, d // 2, d, 2, 2))
+    acc0, _, sc0 = fbq.rows_q_partial(a0, [m0], wo_q, w_qt=wo_t)
+    pq = [acc0, acc0.clone()]
+    got = fbq.tp_reduce_q(pq, sc0, qa[6], qa[7], x, bias_first=False)
+    want = fbq.tp_reduce_q_plain(pq, sc0, qa[6], qa[7], x, bias_first=False)
+    rd_err = (got.float() - want.float()).abs().max().item()
+    same = torch.equal(got, want)
+    print(f"kernel tp_reduce_q (timed): {'bit-equal to' if same else 'differs from'} the twin; "
+          f"max |diff| {rd_err}")
+    check(same, "tp_reduce_q (timed): differs from its twin")
+    row("tp_reduce_q", "fused_block_q", rd_err,
+        lambda: fbq.tp_reduce_q(pq, sc0, qa[6], qa[7], x, bias_first=False),
+        lambda: fbq.tp_reduce_q_plain(pq, sc0, qa[6], qa[7], x, bias_first=False),
+        tp_reduce_work(b * s, d, 2, extra=4 * b * s + 4 * d))
+    del x
+    torch.cuda.empty_cache()
+    return rows, k1_ms
+
+
+def vit_prologue(v, p8):
+    """The bf16 image tower's input from uint8 staging: the folded stem,
+    the class token, positions and ln_pre (``clip._vit_trunk``'s)."""
+    import torch
+    from debias_vision_lang_torch.models.clip import fold_preprocess_into_patch
+    from debias_vision_lang_torch.models.layers import layer_norm
+
+    cfg = v.cfg
+    w_f, b_f = fold_preprocess_into_patch(v.conv1.kernel, cfg.image_mean, cfg.image_std,
+                                          v.conv1.bias)
+    x = (torch.matmul(p8.to(torch.bfloat16).float(), w_f.to(torch.bfloat16).float())
+         .to(torch.bfloat16) + b_f.to(torch.bfloat16))
+    cls = v.class_embedding.to(torch.bfloat16).expand(x.shape[0], 1, cfg.width)
+    return layer_norm(v.ln_pre, torch.cat([cls, x], dim=1)
+                      + v.positional_embedding.to(torch.bfloat16))
+
+
+def vit_head(v, y):
+    from debias_vision_lang_torch.models.layers import layer_norm
+
+    return (layer_norm(v.ln_post, y[:, 0, :]) @ v.proj.to(y.dtype)).float()
+
+
+def twin_image_tower(model, fb, p8):
+    """The bf16 image tower with every block on the twins (K1 + K2's plain
+    versions): its rows [B, embed] as f32."""
+    from debias_vision_lang_torch.ops.fused_block import _block_args
+
+    v = model.clip.visual
+    y = vit_prologue(v, p8)
+    for blk in v.resblocks:
+        a, mlp = _block_args(blk)
+        y = fb.resblock_plain(y, a + mlp, v.cfg.heads)
+    return vit_head(v, y)
+
+
+def twin_text_tower(model, fb, tokens):
+    """``DebiasCLIP.encode_text`` at bf16 with every block on the twins: its
+    rows [B, embed] as f32."""
+    import torch
+    from debias_vision_lang_torch.models import clip as clip_model
+    from debias_vision_lang_torch.models.debias import debias_eot_index, inject_prompts
+    from debias_vision_lang_torch.models.layers import layer_norm
+    from debias_vision_lang_torch.ops.fused_block import _block_args
+
+    t = model.clip.text
+    raw = clip_model.add_positional(t, clip_model.embed_tokens(t, tokens, torch.bfloat16))
+    y = inject_prompts(raw, model.debias_tokens, tokens, model.debias_cfg.debias_pos)
+    for blk in t.resblocks:
+        a, mlp = _block_args(blk)
+        y = fb.resblock_plain(y, a + mlp, t.cfg.heads, causal=True)
+    y = layer_norm(t.ln_final, y)
+    idx = debias_eot_index(tokens, model.debias_tokens.shape[0], y.shape[1])
+    return clip_model.pool_and_project(t, y, idx).float()
+
+
+def kb_tower(model, fb, p8, card):
+    """KB (a) 6 on a path: the phase-4 image tower's 12 attention halves
+    through attention_block_hgrid (each block's weights pre-scaled as KB's
+    main() builds them), the MLPs through K2, against the K1 tower; and 12
+    hgrid attention blocks timed beside 12 K1 ones (KB's own timing).
+    Returns the hgrid launches of the tower."""
+    import torch
+    from debias_vision_lang_torch.ops.fused_block import _block_args
+
+    v = model.clip.visual
+    cfg = v.cfg
+    with torch.no_grad():
+        x0 = vit_prologue(v, p8)
+        ops = [(hgrid_operands(_block_args(blk)[0], cfg.heads), _block_args(blk)[1])
+               for blk in v.resblocks]
+        fb.reset_launches()
+        y = x0
+        for kb, mlp in ops:
+            y = fb.mlp_block(fb.attention_block_hgrid(y, *kb, heads=cfg.heads), *mlp)
+        torch.cuda.synchronize()
+        launches = dict(fb.TP_LAUNCHES)
+        ref = x0
+        for blk in v.resblocks:
+            ref = fb.fused_resblock(blk, ref, cfg.heads)
+        cos = torch.nn.functional.cosine_similarity(vit_head(v, y), vit_head(v, ref), dim=-1)
+        print(f"phase 22 KB (a) 6 tower: the phase-4 image tower's 12 attention halves "
+              f"through attention_block_hgrid ({launches['attention_block_hgrid']} launches), "
+              f"image rows vs the K1 tower: cosine min {cos.min().item():.7f} (bar {COS_MIN})")
+        check(launches["attention_block_hgrid"] == LAYERS and cos.min().item() >= COS_MIN,
+              "phase 22: the KB (a) 6 tower drifts from K1's")
+        t_kb = cuda_ms(lambda: [fb.attention_block_hgrid(x0, *kb, heads=cfg.heads)
+                                for kb, _ in ops], iters=3)
+        t_k1 = cuda_ms(lambda: [fb.attention_block(x0, *_block_args(blk)[0], heads=cfg.heads)
+                                for blk in v.resblocks], iters=3)
+        print(f"phase 22 12 attention blocks at B={BATCH}: KB (a) 6 {t_kb:.3f} ms, K1 "
+              f"{t_k1:.3f} ms ({card})")
+    return launches["attention_block_hgrid"]
+
+
+def dryrun_step(model, device, seed=0, b=TP_DRY_B):
+    """__graft_entry__.dryrun_multichip's step on the port at ViT-B/16's
+    width: frozen image embeddings, one Adam step of the adversary on the
+    prompts' scores, then the prompt loss (contrastive - adversarial) and
+    its token gradient.  Returns (adversary loss, loss, token gradient)."""
+    import torch
+    from debias_vision_lang_torch.core.config import TrainConfig
+    from debias_vision_lang_torch.models.adversary import Adversary
+    from debias_vision_lang_torch.text import ByteTokenizer
+    from debias_vision_lang_torch.train.adversarial import (clip_contrastive_loss,
+                                                            sigmoid_bce, similarity_scores)
+
+    tcfg = TrainConfig()
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.randn(b, 224, 224, 3, generator=g).to(device)
+    cap_imgs = torch.randn(b, 224, 224, 3, generator=g).to(device)
+    labels = (torch.arange(b) % 2).float().to(device)
+    tok = ByteTokenizer()
+    sens = torch.as_tensor(tok(["a good person", "a bad person", "a doctor", "a criminal"]),
+                           dtype=torch.long, device=device)
+    caps = torch.as_tensor(tok([f"a photo of person {i}" for i in range(b)]), dtype=torch.long,
+                           device=device)
+    adv = Adversary.from_cfg({"ADV_N_INPUT": 4, "ADV_N_OUTPUT": 1, "ADV_HIDDEN_SIZE": 8,
+                              "SEED": 2}).to(device)
+    with torch.no_grad():
+        img = model.encode_image(imgs, dtype=torch.float32).float()
+        cap = model.encode_image(cap_imgs, dtype=torch.float32).float()
+        sens_embs = model.encode_text(sens)
+    scale = model.logit_scale.detach()
+    opt = torch.optim.Adam(adv.parameters(), lr=tcfg.adversary_lr)
+    adv_loss = sigmoid_bce(adv(similarity_scores(img, sens_embs, scale))[:, 0], labels)
+    opt.zero_grad()
+    adv_loss.backward()
+    opt.step()
+    a = sigmoid_bce(adv(similarity_scores(img, model.encode_text(sens), scale))[:, 0], labels)
+    c = clip_contrastive_loss(cap, model.encode_text(caps), scale)
+    loss = tcfg.contrastive_weight * c - tcfg.adversarial_weight * a
+    (grad,) = torch.autograd.grad(loss, model.debias_tokens)
+    return adv_loss.item(), loss.item(), grad
+
+
+def tp_phase(model, tokenizer, prompts, card, device):
+    """Phase 22: tensor parallel on the phase-4 ViT-B/16 DebiasCLIP at full
+    width, on virtual (data, model) meshes of the one card (the split's
+    overhead, not a speed-up): the split kernels against their twins and
+    KB (a) 6 beside K1; the float32 forward under (1, 2) and (2, 2) against
+    unsharded (JAX's 1e-4); bf16 and int8 towers under (1, 2), (2, 2) and
+    (1, 4) against the unsharded kernels (bf16: each block within 1 ulp,
+    rows cosine against the drift floor; int8: bit-equal), the split kernels counted; the
+    Frozen-in-Time joint int8 tower (S = 785, the long core) under (1, 2);
+    the float32 dryrun step under (2, 2).  Returns (kernels-line rows, wall)."""
+    import torch
+    from debias_vision_lang_torch.data.loader import HostLoader
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import QuantizedCLIP
+    from debias_vision_lang_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    walls = {}
+    vis = model.clip_cfg.vision
+    rows, k1_ms = tp_kernels(fb, fbq, device, card)
+    walls["kernels"] = time.perf_counter() - t_phase
+    loader = HostLoader(SyntheticFaces(BATCH, seed=22), batch_size=BATCH, num_workers=8,
+                        native_n_px=vis.image_size, native_patch=vis.patch_size)
+    p8 = torch.from_numpy(next(iter(loader)).images).to(device)
+    tokens = torch.as_tensor(tokenizer(prompts), dtype=torch.long, device=device)
+
+    t = time.perf_counter()
+    rows["attention_block_hgrid"]["launches"] = kb_tower(model, fb, p8, card)
+    walls["KB tower"] = time.perf_counter() - t
+
+    def mesh_of(shape):
+        return pmesh.create_mesh(shape, devices=[device] * (shape[0] * shape[1]))
+
+    # float32: the plain route, against unsharded
+    t = time.perf_counter()
+    g = torch.Generator().manual_seed(23)
+    imgs = torch.randn(TP_F32_B, 224, 224, 3, generator=g).to(device)
+    with torch.no_grad():
+        ref, _ = model(imgs, tokens[:32])
+        for shape in ((1, 2), (2, 2)):
+            placed = pmesh.shard_clip_params(model, mesh_of(shape))
+            reset_all(fb, fbq)
+            got, _ = placed(imgs, tokens[:32])
+            err = (got - ref).abs().max().item()
+            print(f"phase 22 float32 TP forward {shape}: logits of {TP_F32_B} images x 32 prompts "
+                  f"max |diff| {err} vs unsharded (bar {TP_F32_ATOL}, JAX's); kernel launches "
+                  f"{nonzero({**launches_of(fb, fbq), **fb.TP_LAUNCHES, **fbq.TP_LAUNCHES})}")
+            check(err <= TP_F32_ATOL, f"phase 22: float32 TP logits {shape} off by {err}")
+            check(sum(launches_of(fb, fbq).values()) + sum(fb.TP_LAUNCHES.values()) == 0,
+                  "phase 22: the float32 plain route launched kernels")
+            del placed
+    walls["float32"] = time.perf_counter() - t
+
+    # bf16 and int8 towers
+    t = time.perf_counter()
+    with torch.no_grad():
+        ref32 = model.encode_image(p8, dtype=torch.float32).float()
+        txt32 = model.encode_text(tokens).float()
+        one16 = model.encode_image(p8, dtype=torch.bfloat16).float()
+        txt16 = model.encode_text(tokens, dtype=torch.bfloat16).float()
+        q_one = QuantizedCLIP(model, quantize_text=True)
+        q_img, q_txt = q_one.encode_image(p8), q_one.encode_text(tokens)
+        ms_one = {"bf16": cuda_ms(lambda: model.encode_image(p8, dtype=torch.bfloat16), 3),
+                  "int8": cuda_ms(lambda: q_one.encode_image(p8), 3)}
+        x_img = torch.randn(BATCH, 197, vis.width, generator=g).to(device, torch.bfloat16)
+        x_txt = torch.randn(len(prompts), 77, 512, generator=g).to(device, torch.bfloat16)
+        # the drift floors: each tower with every block on the twins
+        floors = {"image": torch.nn.functional.cosine_similarity(
+                      twin_image_tower(model, fb, p8), one16, dim=-1).min().item(),
+                  "text": torch.nn.functional.cosine_similarity(
+                      twin_text_tower(model, fb, tokens), txt16, dim=-1).min().item()}
+        bars = {}
+        for tag, floor in floors.items():
+            bars[tag] = min(TP_COS_BF16, 1 - TP_DRIFT_RATIO * (1 - floor))
+            print(f"phase 22 drift floor: the bf16 {tag} tower on the twins (each block within "
+                  f"1 ulp of K1 + K2) vs on the kernels: rows cosine min {floor:.7f} (bar "
+                  f"{TP_FLOOR_MIN}); the TP {tag} tower's bar {bars[tag]:.7f}")
+            check(floor >= TP_FLOOR_MIN, f"phase 22: the bf16 {tag} twins drift from the kernels")
+        for shape in TP_MESHES:
+            d, m = shape
+            mesh = mesh_of(shape)
+            placed = pmesh.shard_clip_params(model, mesh)
+            worst, flipped = 0.0, 0.0
+            for tower, x_in, causal, blocks in (
+                    ("image", x_img, False, model.clip.visual.resblocks),
+                    ("text", x_txt, True, model.clip.text.resblocks)):
+                tp_blocks = (placed.clip.visual if tower == "image" else placed.clip.text).resblocks
+                heads = vis.heads if tower == "image" else model.clip_cfg.text.heads
+                y = x_in
+                for i, blk in enumerate(blocks):
+                    got = tp_blocks.block(i, y, route="fused", causal=causal)
+                    want = fb.fused_resblock(blk, y, heads, causal=causal)
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = ulp_bf16(want.float().abs().max().item())
+                    worst = max(worst, err / tol)
+                    flipped = max(flipped, got.ne(want).float().mean().item())
+                    check(err <= tol, f"phase 22 {shape} {tower} block {i}: {err} > 1 ulp {tol}")
+                    y = want
+            print(f"phase 22 bf16 {shape}: every image and text block within 1 bf16 ulp of "
+                  f"K1 + K2 on the same input (worst {worst:.3f} ulp; at most {flipped:.2e} of "
+                  f"a block's outputs differ)")
+            reset_all(fb, fbq)
+            img = placed.encode_image(p8, dtype=torch.bfloat16).float()
+            torch.cuda.synchronize()
+            counts = dict(fb.TP_LAUNCHES)
+            want = {"attention_block_heads": LAYERS * m * d, "mlp_block_cols": LAYERS * m * d,
+                    "tp_reduce": 2 * LAYERS * d}
+            check({k: counts[k] for k in want} == want and sum(fb.LAUNCHES.values()) == 0,
+                  f"phase 22 bf16 {shape} image tower launches {counts}, K1-K4 "
+                  f"{nonzero(fb.LAUNCHES)}; expected {want} and none")
+            if shape == (1, 2):
+                for k in ("attention_block_heads", "mlp_block_cols", "tp_reduce"):
+                    rows[k]["launches"] = counts[k]
+            reset_all(fb, fbq)
+            txt = placed.encode_text(tokens, dtype=torch.bfloat16).float()
+            tcount = dict(fb.TP_LAUNCHES)
+            check(tcount["attention_block_heads_causal"] == LAYERS * m * d
+                  and sum(fb.LAUNCHES.values()) == 0, f"phase 22 bf16 text launches {tcount}")
+            for tag, a, one, f32 in (("image", img, one16, ref32), ("text", txt, txt16, txt32)):
+                c1 = torch.nn.functional.cosine_similarity(a, one, dim=-1).min().item()
+                c32 = torch.nn.functional.cosine_similarity(a, f32, dim=-1).min().item()
+                print(f"phase 22 bf16 {shape} {tag} rows: cosine min {c1:.7f} vs unsharded bf16 "
+                      f"(bar {bars[tag]:.7f}), {c32:.6f} vs float32 (bar {COS_MIN})")
+                check(c1 >= bars[tag] and c32 >= COS_MIN, f"phase 22 bf16 {shape} {tag} drifts")
+            ms_tp = cuda_ms(lambda: placed.encode_image(p8, dtype=torch.bfloat16), 3)
+            del placed
+            q_tp = pmesh.shard_quantized_clip(q_one, mesh)
+            reset_all(fb, fbq)
+            qi = q_tp.encode_image(p8)
+            torch.cuda.synchronize()
+            counts = dict(fbq.TP_LAUNCHES)
+            want = {"attention_block_q_heads": LAYERS * m * d, "mlp_block_q_cols": LAYERS * m * d,
+                    "rows_q_partial": 2 * LAYERS * m * d, "tp_reduce_q": 2 * LAYERS * d}
+            check({k: counts[k] for k in want} == want and sum(fbq.LAUNCHES.values()) == 0,
+                  f"phase 22 int8 {shape} image launches {counts}; expected {want}")
+            if shape == (1, 2):
+                for k in want:
+                    rows[k]["launches"] = counts[k]
+            reset_all(fb, fbq)
+            qt = q_tp.encode_text(tokens)
+            tcount = dict(fbq.TP_LAUNCHES)
+            check(tcount["attention_block_q_heads_causal"] == LAYERS * m * d
+                  and sum(fbq.LAUNCHES.values()) == 0, f"phase 22 int8 text launches {tcount}")
+            for tag, a, one in (("image", qi, q_img), ("text", qt, q_txt)):
+                same = torch.equal(a, one)
+                if not same:
+                    cos = torch.nn.functional.cosine_similarity(a.float(), one.float(), dim=-1)
+                    diff = (a.float() - one.float()).abs()
+                    print(f"phase 22 int8 {shape} {tag}: NOT bit-equal: {int(diff.ne(0).any(-1).sum())} "
+                          f"rows differ, max |diff| {diff.max().item()}, cosine min "
+                          f"{cos.min().item():.7f} (held to {TP_COS})")
+                    check(cos.min().item() >= TP_COS, f"phase 22 int8 {shape} {tag} drifts")
+                else:
+                    print(f"phase 22 int8 {shape} {tag} rows: bit-equal to the unsharded int8 "
+                          f"tower")
+            ms_q = cuda_ms(lambda: q_tp.encode_image(p8), 3)
+            print(f"phase 22 overhead {shape}: image tower B={BATCH} bf16 {ms_tp:.3f} ms "
+                  f"(unsharded {ms_one['bf16']:.3f}), int8 {ms_q:.3f} ms (unsharded "
+                  f"{ms_one['int8']:.3f}) ({card})")
+            del q_tp
+            torch.cuda.empty_cache()
+    walls["towers"] = time.perf_counter() - t
+
+    # the Frozen-in-Time joint int8 tower: S = 785 on the long core
+    t = time.perf_counter()
+    from debias_vision_lang_torch.models.loader import model_loader
+
+    fit, _, _, _ = model_loader(FIT_ARCH, pretrained=False, seed=0, device=device)
+    fit.attention = "joint"
+    fit.eval()
+    with torch.no_grad():
+        qf = QuantizedCLIP(fit)
+        videos = torch.randn(TP_FIT_B, FIT_FRAMES, 224, 224, 3, generator=g).to(device)
+        one = qf.encode_image(videos)
+        qf_tp = pmesh.shard_quantized_clip(qf, mesh_of((1, 2)))
+        reset_all(fb, fbq)
+        got = qf_tp.encode_image(videos)
+        torch.cuda.synchronize()
+        routes, counts = dict(fbq.CORE_ROUTES), dict(fbq.TP_LAUNCHES)
+    same = torch.equal(got, one)
+    print(f"phase 22 FiT joint int8 tower B={TP_FIT_B} (S = {FIT_JOINT_S}) under (1, 2): "
+          f"{'bit-equal to' if same else 'differs from'} the unsharded int8 tower; core routes "
+          f"{routes}, launches {nonzero(counts)}")
+    check(routes == {"short": 0, "long": 2 * LAYERS}, f"phase 22 FiT: core routes {routes}")
+    if not same:
+        cos = torch.nn.functional.cosine_similarity(got.float(), one.float(), dim=-1).min().item()
+        check(cos >= TP_COS, f"phase 22 FiT joint int8 TP drifts: cosine {cos}")
+    del fit, qf, qf_tp, videos
+    torch.cuda.empty_cache()
+    walls["FiT"] = time.perf_counter() - t
+
+    # the dryrun step: float32 adversary + prompt step, CLIP placed under (2, 2)
+    t = time.perf_counter()
+    base = copy.deepcopy(model)
+    for p in base.clip.parameters():
+        p.requires_grad_(False)
+    placed = pmesh.shard_clip_params(base, mesh_of((2, 2)))
+    a1, l1, g1 = dryrun_step(base, device)
+    a2, l2, g2 = dryrun_step(placed, device)
+    gerr = (g2 - g1).abs().max().item()
+    gmag = g1.abs().max().item()
+    # float32's own noise on this gradient: the same unsharded step on the
+    # CPU (another order of every float32 sum)
+    t_cpu = time.perf_counter()
+    _, _, g_cpu = dryrun_step(copy.deepcopy(base).cpu(), torch.device("cpu"))
+    floor = (g_cpu.to(device) - g1).abs().max().item()
+    t_cpu = time.perf_counter() - t_cpu
+    print(f"phase 22 dryrun step (2, 2) float32: token gradient max |diff| {gerr} of max "
+          f"{gmag} ({gerr / gmag:.3e} of it; bar {TP_GRAD_TOL} of it); the unsharded step on "
+          f"the CPU differs from the card's by {floor} ({floor / gmag:.3e}; {t_cpu:.1f} s of "
+          f"CPU); losses adversary {a1} vs {a2}, prompt {l1} vs {l2} (bar {TP_LOSS_TOL})")
+    check(gmag > 0 and gerr <= TP_GRAD_TOL * gmag, "phase 22: the dryrun gradient drifts")
+    check(abs(a1 - a2) <= TP_LOSS_TOL and abs(l1 - l2) <= TP_LOSS_TOL,
+          "phase 22: the dryrun losses drift")
+    del base, placed
+    torch.cuda.empty_cache()
+    walls["dryrun"] = time.perf_counter() - t
+    for name, r in rows.items():
+        check(r["launches"], f"phase 22: {name} has no launch count")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 22 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; total {wall:.2f} s ({card})")
+    return [rows[k] for k in TP_REPLACES], wall
+
+
 def main() -> int:
     try:
         import torch
@@ -4596,6 +5332,9 @@ def main() -> int:
     # 21. the "auto" rung: every registry arch not run before at every rung,
     # K1-K4 at their shapes, auto through every entry point
     rung_rows, rung_s = rung_phase(model, tokenizer, prompts, card, device, tower_img_s)
+    # 22. tensor parallel: the split kernels and KB (a) 6, the float32,
+    # bf16 and int8 towers under virtual (data, model) meshes, the dryrun step
+    tp_rows, tp_s = tp_phase(model, tokenizer, prompts, card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -4603,12 +5342,12 @@ def main() -> int:
             row["launches"] = fit_launches[row["name"]]
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
-    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows}))
+    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
-          f"{rung_s:.1f} s"
+          f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

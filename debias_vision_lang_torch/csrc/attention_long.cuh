@@ -285,13 +285,15 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 
 // `D`, `heads` and `causal` are the packed source's (model width, heads per
 // image, CLIP's causal flag); the heads-first source reads the mask `tm_m`.
+// `norm_after` (KB (a) 6's function, attention_wgmma.cuh): p = exp(s - m)
+// unnormalised, rounded for P @ V, and O scaled by 1 / l before the store.
 template <typename T, int C, bool PACKED>
 __global__ void __launch_bounds__(LongCfg<T, C, PACKED>::THREADS, LongCfg<T, C, PACKED>::BLOCKS)
 attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_m, T* __restrict__ out, int S,
-                      float scale, int D, int heads, int causal) {
+                      float scale, int D, int heads, int causal, int norm_after) {
   using Cfg = LongCfg<T, C, PACKED>;
   constexpr bool F32 = Cfg::F32;
   constexpr int NWG = Cfg::NWG, NCT = NWG * 128;  // consumer warpgroups, threads
@@ -477,6 +479,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   const float inv_lo = 1.0f / quad_sum(l_lo), inv_hi = 1.0f / quad_sum(l_hi);
+  const float p_lo = norm_after ? 1.f : inv_lo, p_hi = norm_after ? 1.f : inv_hi;
 
   // 2. p = exp(s - m) / l, rounded to T, and O += p V
   float o[C][32];
@@ -488,10 +491,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     scores(sc, kt);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      sc[nt * 4] = expm<F32>(sc[nt * 4], m_lo) * inv_lo;
-      sc[nt * 4 + 1] = expm<F32>(sc[nt * 4 + 1], m_lo) * inv_lo;
-      sc[nt * 4 + 2] = expm<F32>(sc[nt * 4 + 2], m_hi) * inv_hi;
-      sc[nt * 4 + 3] = expm<F32>(sc[nt * 4 + 3], m_hi) * inv_hi;
+      sc[nt * 4] = expm<F32>(sc[nt * 4], m_lo) * p_lo;
+      sc[nt * 4 + 1] = expm<F32>(sc[nt * 4 + 1], m_lo) * p_lo;
+      sc[nt * 4 + 2] = expm<F32>(sc[nt * 4 + 2], m_hi) * p_hi;
+      sc[nt * 4 + 3] = expm<F32>(sc[nt * 4 + 3], m_hi) * p_hi;
     }
     if constexpr (F32) {
       // step j (8 keys) takes score chunk j as it lies, split into TF32
@@ -558,6 +561,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int row_lo = q0 + r_lo, row_hi = q0 + r_hi;
+  const float o_lo = norm_after ? inv_lo : 1.f, o_hi = norm_after ? inv_hi : 1.f;
   T* ob = out + obase + 2 * t;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -565,9 +569,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int on = 0; on < 8; ++on) {
       const int col = c * LT + on * 8;
       if (row_lo < S)
-        store_pair(ob + row_lo * ld + col, o[c][on * 4], o[c][on * 4 + 1]);
+        store_pair(ob + row_lo * ld + col, o[c][on * 4] * o_lo, o[c][on * 4 + 1] * o_lo);
       if (row_hi < S)
-        store_pair(ob + row_hi * ld + col, o[c][on * 4 + 2], o[c][on * 4 + 3]);
+        store_pair(ob + row_hi * ld + col, o[c][on * 4 + 2] * o_hi, o[c][on * 4 + 3] * o_hi);
     }
   }
 }
@@ -602,19 +606,22 @@ cudaError_t launch_long(const T* q, const T* k, const T* v, const float* mask, T
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (S + Cfg::ROWS - 1) / Cfg::ROWS);
   attention_long_kernel<T, C, false><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
-      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0);
+      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0, 0);
   return cudaGetLastError();
 }
 
-// K1 / K3: qkv [B*S, 3D] bf16 -> attn [B*S, D] bf16 through the packed
-// source, head dim 64 (D = 64 heads), scale 1/sqrt(64); any S >= 1.
+// K1 / K3: qkv [B*S, ld] bf16 (q | k | v in its first 3D columns) -> attn
+// [B*S, D] bf16 through the packed source, head dim 64 (D = 64 heads); any
+// S >= 1.  K1 and K3 pass ld = 3D and scale = 1/8 (see
+// launch_attention_wgmma for the other callers).
 cudaError_t launch_long_packed(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
-                               int causal, cudaStream_t st) {
+                               int causal, cudaStream_t st, int ld, float scale,
+                               int norm_after) {
   using Cfg = LongCfg<bf16, 1, true>;
-  if (S < 1 || B < 1 || D != heads * LT) return cudaErrorInvalidValue;
+  if (S < 1 || B < 1 || D != heads * LT || ld < 3 * D || ld % 8) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_kv;
-  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)3 * D * 2, (uint64_t)S * 3 * D * 2};
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)S * ld * 2};
   const uint32_t box_q[3] = {LT, Cfg::ROWS, 1}, box_kv[3] = {LT, LT, 1};
   cudaError_t e = make_tensor_map(&tm_q, qkv, 3, dims, strides, box_q);
   if (e != cudaSuccess) return e;
@@ -626,7 +633,7 @@ cudaError_t launch_long_packed(const bf16* qkv, bf16* attn, int B, int S, int D,
   const dim3 grid(B * heads, (S + Cfg::ROWS - 1) / Cfg::ROWS);
   // tm_m is not read by the packed source: any valid map stands in
   attention_long_kernel<bf16, 1, true><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
-      tm_q, tm_kv, tm_kv, tm_q, attn, S, 1.0f / sqrtf(64.0f), D, heads, causal);
+      tm_q, tm_kv, tm_kv, tm_q, attn, S, scale, D, heads, causal, norm_after);
   return cudaGetLastError();
 }
 

@@ -11,6 +11,13 @@
 // The function: f32 scores * scale (+ the mask), row max, exp, normalised by
 // the f32 row sum and rounded to bf16 BEFORE P @ V (not an online softmax:
 // at bf16 that is another function), P @ V accumulated in f32, one rounding.
+// The packed source also computes KB (a) 6's function (attention_block_hgrid,
+// benchmarks/attn_variants.py: q pre-scaled by hd^-0.5 log2 e, exp2): the
+// caller passes scale = ln 2, so exp(s ln 2 - m ln 2) is exp2(s - m) to f32
+// rounding, and norm_after, which rounds the unnormalised exponentials to
+// bf16 for P @ V and scales the f32 output rows by 1 / row sum after it.
+// The packed qkv's rows are `ld` elements apart (3D, or a tensor-parallel
+// slot's q | k | v slice padded to the GEMM's 128-column tile).
 //
 // One block (one warpgroup, 128 threads) per (head, image):
 //   * thread 0 asks the TMA for the head's K and V once (boxes of up to 256
@@ -87,7 +94,8 @@ __global__ void __launch_bounds__(CORE_THREADS, NK <= 200 ? 3 : 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out_base,
-                       const float* __restrict__ mask, int S, int D, float scale, int causal) {
+                       const float* __restrict__ mask, int S, int D, float scale, int causal,
+                       int norm_after) {
   constexpr int KB = core_kv_box(NK);  // keys per K / V box
   constexpr int NT = NK / 8;           // 8-key column chunks of a score row
   constexpr int NJ = (NK + 15) / 16;   // 16-key steps of P @ V
@@ -165,6 +173,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t pa[NJ * 4];
 #pragma unroll
     for (int i = 0; i < NJ * 4; ++i) pa[i] = 0u;
+    float r_lo = 1.f, r_hi = 1.f;  // 1 / the f32 row sums
     if (qt * 64 + warp * 16 < S) {
       // K5: rows past S compute on row S-1's mask and are never stored
       const float *mlo = nullptr, *mhi = nullptr;
@@ -207,11 +216,13 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           s_hi += hi;
         }
       }
-      const float r_lo = 1.0f / quad_sum(s_lo), r_hi = 1.0f / quad_sum(s_hi);
+      r_lo = 1.0f / quad_sum(s_lo);
+      r_hi = 1.0f / quad_sum(s_hi);
+      const float p_lo = norm_after ? 1.f : r_lo, p_hi = norm_after ? 1.f : r_hi;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        pa[2 * nt] = pack_bf16(sc[nt * 4] * r_lo, sc[nt * 4 + 1] * r_lo);
-        pa[2 * nt + 1] = pack_bf16(sc[nt * 4 + 2] * r_hi, sc[nt * 4 + 3] * r_hi);
+        pa[2 * nt] = pack_bf16(sc[nt * 4] * p_lo, sc[nt * 4 + 1] * p_lo);
+        pa[2 * nt + 1] = pack_bf16(sc[nt * 4 + 2] * p_hi, sc[nt * 4 + 3] * p_hi);
       }
     }
     if (qt == 0) mbar_wait(&bars[1], 0);
@@ -231,6 +242,10 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
+    if (norm_after) {  // accumulator i holds row hi when bit 1 of i is set
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? r_hi : r_lo;
+    }
 
     bf16* out = out_base + obase + 2 * t;
 #pragma unroll
@@ -248,52 +263,60 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int NK, int SRC>
 cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
-                              int D, int causal, dim3 grid, cudaStream_t st) {
+                              int D, float scale, int causal, int norm_after, dim3 grid,
+                              cudaStream_t st) {
   const size_t smem = core_smem_bytes(NK);
   cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   attention_wgmma_kernel<NK, SRC><<<grid, CORE_THREADS, smem, st>>>(
-      tm_q, tm_k, tm_v, out, mask, S, D, 1.0f / sqrtf(64.0f), causal);
+      tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after);
   return cudaGetLastError();
 }
 
 template <int SRC>
 cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
-                               int D, int causal, dim3 grid, cudaStream_t st) {
+                               int D, float scale, int causal, int norm_after, dim3 grid,
+                               cudaStream_t st) {
+#define DVL_CORE_BUCKET(NK)                                                                   \
+  launch_core_wgmma<NK, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after, grid, \
+                             st)
   switch (nk) {
-    case 32: return launch_core_wgmma<32, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
-    case 80: return launch_core_wgmma<80, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
-    case 200:
-      return launch_core_wgmma<200, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
-    case 256:
-      return launch_core_wgmma<256, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
-    default:
-      return launch_core_wgmma<320, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, causal, grid, st);
+    case 32: return DVL_CORE_BUCKET(32);
+    case 80: return DVL_CORE_BUCKET(80);
+    case 200: return DVL_CORE_BUCKET(200);
+    case 256: return DVL_CORE_BUCKET(256);
+    default: return DVL_CORE_BUCKET(320);
   }
+#undef DVL_CORE_BUCKET
 }
 
-// K1 and K3: qkv [B*S, 3D] -> attn [B*S, D]; head dim 64, any S >= 1:
-// 1 <= S <= 320 on the register core above, S > 320 on the two-pass long
-// route's packed source (attention_long.cuh), whose whole score rows no
-// longer fit in registers.  ops/fused_block.py::core_route names the same
-// choice.
+// K1 and K3: qkv [B*S, ld] (q | k | v in its first 3D columns) -> attn
+// [B*S, D]; head dim 64, any S >= 1: 1 <= S <= 320 on the register core
+// above, S > 320 on the two-pass long route's packed source
+// (attention_long.cuh), whose whole score rows no longer fit in registers.
+// ops/fused_block.py::core_route names the same choice.  K1 and K3 pass
+// ld = 3D and scale = 1/8; a tensor-parallel slot passes its D = 64 g over
+// its g heads and its padded slice's ld; KB (a) 6 passes scale = ln 2 and
+// norm_after (see the top of this file).
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
-                                   int causal, cudaStream_t st) {
-  if (S < 1 || D != heads * 64) return cudaErrorInvalidValue;
-  if (S > CORE_MAX_SEQ) return launch_long_packed(qkv, attn, B, S, D, heads, causal, st);
+                                   int causal, cudaStream_t st, int ld, float scale,
+                                   int norm_after) {
+  if (S < 1 || D != heads * 64 || ld < 3 * D || ld % 8) return cudaErrorInvalidValue;
+  if (S > CORE_MAX_SEQ) return launch_long_packed(qkv, attn, B, S, D, heads, causal, st, ld,
+                                                  scale, norm_after);
   const int nk = core_keys(S);
   CUtensorMap tm_q, tm_kv;
-  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)3 * D * 2, (uint64_t)S * 3 * D * 2};
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)S * ld * 2};
   const uint32_t box_q[3] = {64, 64, 1}, box_kv[3] = {64, (uint32_t)core_kv_box(nk), 1};
   cudaError_t e = make_tensor_map(&tm_q, qkv, 3, dims, strides, box_q);
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
   if (e != cudaSuccess) return e;
-  return launch_core_bucket<CORE_PACKED>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, D, causal,
-                                         dim3(heads, B), st);
+  return launch_core_bucket<CORE_PACKED>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, D, scale,
+                                         causal, norm_after, dim3(heads, B), st);
 }
 
 // K5: q, k, v [BH, S, 64] -> out [BH, S, 64] with the additive f32 mask
@@ -312,8 +335,8 @@ cudaError_t launch_attention_wgmma_heads(const bf16* q, const bf16* k, const bf1
     cudaError_t e = make_tensor_map(&tm[i], src[i], 3, dims, strides, i == 0 ? box_q : box_kv);
     if (e != cudaSuccess) return e;
   }
-  return launch_core_bucket<CORE_HEADS>(nk, tm[0], tm[1], tm[2], out, mask, S, 64, 0, dim3(BH),
-                                        st);
+  return launch_core_bucket<CORE_HEADS>(nk, tm[0], tm[1], tm[2], out, mask, S, 64,
+                                        1.0f / sqrtf(64.0f), 0, 0, dim3(BH), st);
 }
 
 }  // namespace

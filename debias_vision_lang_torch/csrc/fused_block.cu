@@ -6,6 +6,15 @@
 //   dvl_attention_block  <- attention_block (_attn_block_kernel, and the
 //                           bit-identical _attn_chains_kernel)
 //   dvl_mlp_block        <- mlp_block (_mlp_block_kernel)
+// and benchmarks/attn_variants.py:
+//   dvl_attention_block_heads <- attention_block_hgrid (_attn_hgrid_kernel,
+//                           KB (a) 6): K1 on a (batch, head) grid with
+//                           per-head pre-scaled [D, 3 hd] blocks, exp2, and
+//                           the out-projection accumulated in f32 across heads.
+// The same entry is a tensor-parallel slot's attention (a head group's q, k,
+// v columns and wo rows, an f32 partial out), beside dvl_mlp_block_cols (a
+// slot's MLP hidden columns) and dvl_tp_reduce (the row-parallel sum of the
+// slots' partials, + bias + residual, rounded once): parallel/tensor.py.
 //
 // Numerics follow the TPU kernels' rounding points exactly (the plain twins
 // in ops/fused_block.py are the specification): LayerNorm in f32, rounded to
@@ -14,6 +23,12 @@
 // rounds them; softmax normalised by the f32 row sum and rounded BEFORE the
 // PV product (two passes over a whole score row, not an online softmax);
 // residual adds in f32 with one final rounding.
+//
+// The Pallas grid of KB (a) 6 walks the heads in order and carries the
+// projection in VMEM scratch; blocks here run in no order, so a head group
+// is one launch of the same three stages as K1 on a slice: the QKV GEMM on
+// the group's packed columns, the core on its heads, and the out GEMM whose
+// K loop is the sum over the group's heads (f32 in the wgmma accumulators).
 //
 // What bounds them on an H100: at ViT-B/16 batch 256 the four projections
 // (QKV, out, up, down: ~2.8 GFLOP per image per layer) are tensor-core work
@@ -62,6 +77,7 @@ enum Epilogue {
   EPI_BIAS_QGELU = 2,  // bf16(quick_gelu(acc + bias))             (mlp up)
   EPI_BIAS_GELU = 3,   // bf16(erf_gelu(acc + bias)), A&S 7.1.26   (mlp up)
   EPI_RESID_BIAS = 4,  // bf16((resid + bias) + acc)               (mlp down)
+  EPI_F32 = 5,         // f32 acc: a row-parallel slot's partial   (out, down)
 };
 
 constexpr int GBM = 128, GBN = 128, GBK = 64, GSTAGES = 3;
@@ -87,7 +103,7 @@ template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                   const float* __restrict__ bias, const bf16* __restrict__ resid,
-                  bf16* __restrict__ C, int M, int N, int K) {
+                  void* __restrict__ C, int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   bf16* sA = reinterpret_cast<bf16*>(smem);                        // [stage][128][64]
@@ -161,9 +177,11 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
   }
   named_barrier(2 + c, 128);
   const int col = (tid & 15) * 8, n = n0 + col;
-  float bb[8];
-  *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
-  *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+  float bb[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if constexpr (EPI != EPI_F32) {
+    *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+    *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+  }
 #pragma unroll 4
   for (int r = tid >> 4; r < 64; r += 8) {
     const long long m = (long long)m0 + c * 64 + r;
@@ -172,6 +190,12 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
     *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col);
     *reinterpret_cast<float4*>(v + 4) =
         *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col + 4);
+    if constexpr (EPI == EPI_F32) {
+      float* out = static_cast<float*>(C) + m * N + n;
+      *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(v);
+      *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(v + 4);
+      continue;
+    }
     if (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS) {
       const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * N + n);
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -188,13 +212,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
     for (int i = 0; i < 4; ++i)
       pw[i] = pack_bf16(epilogue<EPI>(v[2 * i], bb[2 * i], rr[2 * i]),
                         epilogue<EPI>(v[2 * i + 1], bb[2 * i + 1], rr[2 * i + 1]));
-    *reinterpret_cast<uint4*>(C + m * N + n) = packed;
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
   }
 }
 
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const bf16* resid,
-                        bf16* C, int M, int N, int K, cudaStream_t st) {
+                        void* C, int M, int N, int K, cudaStream_t st) {
   if (M < 1 || N % GBN || K % GBK || K < GBK) return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 64 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K * 2};
@@ -210,6 +234,54 @@ cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const 
   dim3 grid(N / GBN, (M + GBM - 1) / GBM);
   gemm_wgmma_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(tm_a, tm_b, bias, resid, C, M, N, K);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-parallel reduce: out[M, N] = bf16(resid + (sum_j part_j + bias))
+// (the attention half, K1's out-projection order) or bf16((resid + bias) +
+// sum_j part_j) (the MLP half, K2's down-projection order), the f32 partials
+// summed in slot order.  One thread per 8 contiguous elements of a row: a
+// bandwidth pass over m partials, the residual and the output.
+// ---------------------------------------------------------------------------
+
+constexpr int TP_MAX_SLOTS = 8;
+struct TpParts {
+  const float* p[TP_MAX_SLOTS];
+};
+
+__global__ void __launch_bounds__(256)
+tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
+                 const bf16* __restrict__ resid, bf16* __restrict__ out, long long total8, int N,
+                 int bias_first) {
+  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i8 >= total8) return;
+  const long long e = i8 * 8;
+  const int n = (int)(e % N);
+  float s[8];
+  *reinterpret_cast<float4*>(s) = *reinterpret_cast<const float4*>(parts.p[0] + e);
+  *reinterpret_cast<float4*>(s + 4) = *reinterpret_cast<const float4*>(parts.p[0] + e + 4);
+  for (int j = 1; j < m; ++j) {
+    float v[8];
+    *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(parts.p[j] + e);
+    *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(parts.p[j] + e + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = __fadd_rn(s[i], v[i]);
+  }
+  const uint4 raw = *reinterpret_cast<const uint4*>(resid + e);
+  const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  uint4 packed;
+  uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 r2 = __bfloat1622float2(rp[i]);
+    const float b0 = bias[n + 2 * i], b1 = bias[n + 2 * i + 1];
+    const float o0 = bias_first ? __fadd_rn(__fadd_rn(r2.x, b0), s[2 * i])
+                                : __fadd_rn(r2.x, __fadd_rn(s[2 * i], b0));
+    const float o1 = bias_first ? __fadd_rn(__fadd_rn(r2.y, b1), s[2 * i + 1])
+                                : __fadd_rn(r2.y, __fadd_rn(s[2 * i + 1], b1));
+    pw[i] = pack_bf16(o0, o1);
+  }
+  *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
 }  // namespace
@@ -236,7 +308,7 @@ int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const
                             3 * D, D, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                             heads, causal, st);
+                             heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), 0);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
                                   static_cast<const float*>(bo), static_cast<const bf16*>(x),
@@ -270,6 +342,85 @@ int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void*
                                   static_cast<const float*>(b2), static_cast<const bf16*>(x),
                                   static_cast<bf16*>(out), M, D, F, st);
   return (int)e;
+}
+
+// A head group's share of the attention block: LN -> the group's QKV GEMM
+// -> the core on its g heads -> the out GEMM over the group's wo rows.
+// Given `out` (bf16), out = (x + bo) + attn_g @ wo_g (with g = heads and the
+// hgrid scale, KB (a) 6's function); else out_f32 [M, D] = attn_g @ wo_g, a
+// tensor-parallel slot's partial.  x [B, S, D] bf16; wqkv [ld, D] K-major
+// bf16: the group's q, k, v columns (64 g each), then zero rows up to ld, a
+// multiple of 128 (the GEMM's N tile); bqkv [ld] f32, zero past 192 g; wo
+// [D, 64 g] K-major bf16.  Scratch (bf16): xn [B*S, D], qkv [B*S, ld], attn
+// [B*S, 64 g].  scale multiplies the scores (1/8, or ln 2 on KB's
+// pre-scaled q); norm_after normalises after P @ V (KB's order).
+int dvl_attention_block_heads(const void* x, const void* ln_s, const void* ln_b,
+                              const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                              void* out, void* out_f32, void* xn, void* qkv, void* attn, int B,
+                              int S, int D, int g, int ld, int causal, float scale,
+                              int norm_after, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * S, dg = 64 * g;
+  if ((out == nullptr) == (out_f32 == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
+                            static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, dg, g,
+                             causal, st, ld, scale, norm_after);
+  if (e != cudaSuccess) return (int)e;
+  if (out != nullptr)
+    e = launch_gemm<EPI_RESID_BIAS>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
+                                    static_cast<const float*>(bo), static_cast<const bf16*>(x), out,
+                                    M, D, dg, st);
+  else
+    e = launch_gemm<EPI_F32>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo), nullptr,
+                             nullptr, out_f32, M, D, dg, st);
+  return (int)e;
+}
+
+// A tensor-parallel slot's MLP: out_f32 [M, D] = act(LN(x) @ w1_j + b1_j) @
+// w2_j over the slot's Fj hidden columns (no b2, no residual: dvl_tp_reduce
+// adds them once).  w1 [Fj, D] and w2 [D, Fj] K-major bf16, b1 [Fj] f32.
+// Scratch (bf16): xn [M, D], hidden [M, Fj].  Fj % 128 == 0.
+int dvl_mlp_block_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                       const void* b1, const void* w2, void* out_f32, void* xn, void* hidden,
+                       int M, int D, int Fj, int act_kind, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  if (act_kind == 0)
+    e = launch_gemm<EPI_BIAS_QGELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
+                                    static_cast<const float*>(b1), nullptr, hidden, M, Fj, D, st);
+  else
+    e = launch_gemm<EPI_BIAS_GELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
+                                   static_cast<const float*>(b1), nullptr, hidden, M, Fj, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm<EPI_F32>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2), nullptr,
+                           nullptr, out_f32, M, D, Fj, st);
+  return (int)e;
+}
+
+// out [M, N] bf16 from m <= 8 f32 partials [M, N] (a host array of device
+// pointers), bias [N] f32 and resid [M, N] bf16; bias_first picks the MLP
+// half's order.  N % 8 == 0.
+int dvl_tp_reduce(const void* const* parts, int m, const void* bias, const void* resid,
+                  void* out, int M, int N, int bias_first, void* stream) {
+  if (m < 1 || m > TP_MAX_SLOTS || N % 8 || M < 1) return (int)cudaErrorInvalidValue;
+  TpParts pp{};
+  for (int j = 0; j < m; ++j) pp.p[j] = static_cast<const float*>(parts[j]);
+  const long long total8 = (long long)M * N / 8;
+  const int threads = 256;
+  tp_reduce_kernel<<<(unsigned)((total8 + threads - 1) / threads), threads, 0,
+                     reinterpret_cast<cudaStream_t>(stream)>>>(
+      pp, m, static_cast<const float*>(bias), static_cast<const bf16*>(resid),
+      static_cast<bf16*>(out), total8, N, bias_first);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

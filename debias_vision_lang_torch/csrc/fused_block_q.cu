@@ -7,6 +7,14 @@
 //                             bit-identical _attn_q_chains_kernel)
 //   dvl_mlp_block_q        <- mlp_block_q, unsplit (_mlp_q_kernel with one F
 //                             tile, and the chain variant _mlp_q_pipe_kernel)
+// and their tensor-parallel shares (parallel/tensor.py): a slot's head group
+// (dvl_attention_block_q_heads) or hidden columns (dvl_mlp_block_q_cols) up
+// to the row amax of its slice of the row-parallel input; the slots' amaxes
+// maxed, that input quantized with the row's global scale and multiplied
+// into a raw int32 partial (dvl_rows_q_partial); the partials summed exactly
+// and dequantized once (dvl_tp_reduce_q).  The codes are the unsharded
+// block's (the same global row scale) and the int32 sum is the unsharded K
+// loop's, so a tensor-parallel block is bit-equal to K3 / K4.
 //
 // Numerics are the TPU kernels' (the plain twins in ops/fused_block_q.py are
 // the specification):
@@ -129,6 +137,7 @@ enum EpilogueQ {
   EQ_BIAS_QGELU = 2,  // f32 quick_gelu(deq + bias)                 (mlp up)
   EQ_BIAS_GELU = 3,   // f32 erf_gelu_rn(deq + bias), A&S 7.1.26    (mlp up)
   EQ_RESID_BIAS = 4,  // bf16((resid + bias) + deq)                 (mlp down)
+  EQ_I32 = 5,         // int32 acc: a row-parallel slot's partial   (out, down)
 };                    // deq = (acc * row_scale) * channel_scale
 
 // The A&S 7.1.26 erf gelu of common.cuh with every operation rounded on its
@@ -169,7 +178,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 
   const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;  // consumer warpgroup c
   const int n0 = blockIdx.x * SBN, m0 = blockIdx.y * SBM;
-  const int nk = K / SBK;
+  const int nk = (K + SBK - 1) / SBK;  // a ragged last K step arrives zero-filled
   if (threadIdx.x == 0) {
     for (int s = 0; s < SSTAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
@@ -232,19 +241,28 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
   }
   named_barrier(2 + c, 128);
   const int col = (tid & 15) * 8, n = n0 + col;
-  float cs[8], bb[8];
-  *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(w_scale + n);
-  *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(w_scale + n + 4);
-  *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
-  *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+  float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float bb[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if constexpr (EPI != EQ_I32) {
+    *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(w_scale + n);
+    *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(w_scale + n + 4);
+    *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+    *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+  }
 #pragma unroll 2
   for (int r = tid >> 4; r < 64; r += 8) {
     const long long m = (long long)m0 + c * 64 + r;
     if (m >= M) continue;
-    const float rs = a_scale[m];
     int a[8];
     *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col);
     *reinterpret_cast<int4*>(a + 4) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col + 4);
+    if constexpr (EPI == EQ_I32) {
+      int* out = static_cast<int*>(C) + m * N + n;
+      *reinterpret_cast<int4*>(out) = *reinterpret_cast<const int4*>(a);
+      *reinterpret_cast<int4*>(out + 4) = *reinterpret_cast<const int4*>(a + 4);
+      continue;
+    }
+    const float rs = a_scale[m];
     float d[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
@@ -292,7 +310,8 @@ template <int EPI>
 cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* Wt,
                            const float* w_scale, const float* bias, const bf16* resid, void* C,
                            int M, int N, int K, cudaStream_t st) {
-  if (M < 1 || N % SBN || K % SBK || K < SBK) return cudaErrorInvalidValue;
+  // K % 16: the TMA's 16-byte row stride; a K past the last 128 zero-fills
+  if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 128 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K};
   const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
@@ -308,6 +327,102 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
   gemm_s8_kernel<EPI><<<grid, SGEMM_THREADS, SGEMM_SMEM, st>>>(tm_a, tm_b, a_scale, w_scale, bias,
                                                                resid, C, M, N, K);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-parallel pieces: a row's amax over one slot's slice, the codes
+// of that slice at the row's global scale, and the exact int32 reduce.
+// ---------------------------------------------------------------------------
+
+constexpr int TP_MAX_SLOTS = 8;
+struct TpPtrs {
+  const void* p[TP_MAX_SLOTS];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(QR_THREADS)
+row_amax_kernel(const T* __restrict__ x, float* __restrict__ amax, int n) {
+  __shared__ float red[QR_THREADS / 32];
+  const T* xr = x + (long long)blockIdx.x * n;
+  float a = 0.f;
+  for (int i = threadIdx.x; i < n; i += QR_THREADS) a = fmaxf(a, fabsf(to_f32(xr[i])));
+  a = warp_max(a);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < QR_THREADS / 32; ++w) a = fmaxf(a, red[w]);
+    amax[blockIdx.x] = fmaxf(red[0], a);
+  }
+}
+
+template <typename T>
+cudaError_t launch_row_amax(const T* x, float* amax, int rows, int n, cudaStream_t st) {
+  row_amax_kernel<T><<<rows, QR_THREADS, 0, st>>>(x, amax, n);
+  return cudaGetLastError();
+}
+
+// q, scale from x [rows, n] at amax = max over the m slots' row amaxes:
+// quant_rows_kernel's scale and codes, the row's amax given.
+template <typename T>
+__global__ void __launch_bounds__(QR_THREADS)
+quant_rows_given_amax_kernel(const T* __restrict__ x, TpPtrs amaxes, int m,
+                             int8_t* __restrict__ q, float* __restrict__ scale, int n) {
+  const long long row = blockIdx.x;
+  float amax = static_cast<const float*>(amaxes.p[0])[row];
+  for (int j = 1; j < m; ++j) amax = fmaxf(amax, static_cast<const float*>(amaxes.p[j])[row]);
+  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  const T* xr = x + row * n;
+  int8_t* qr = q + row * n;
+  for (int i = threadIdx.x; i < n; i += QR_THREADS)
+    qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(to_f32(xr[i]), s)), -127.f), 127.f));
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
+// out = resid + (deq + bias) (attention) or (resid + bias) + deq (MLP), deq
+// = (sum_j part_j * row scale) * channel scale, the int32 sum exact: the
+// out-projection epilogues of gemm_s8_kernel, operation for operation.
+__global__ void __launch_bounds__(256)
+tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
+                   const float* __restrict__ w_scale, const float* __restrict__ bias,
+                   const bf16* __restrict__ resid, bf16* __restrict__ out, long long total8, int N,
+                   int bias_first) {
+  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i8 >= total8) return;
+  const long long e = i8 * 8;
+  const int n = (int)(e % N);
+  const float rs = a_scale[e / N];
+  int acc[8];
+  *reinterpret_cast<int4*>(acc) = *reinterpret_cast<const int4*>(static_cast<const int*>(parts.p[0]) + e);
+  *reinterpret_cast<int4*>(acc + 4) =
+      *reinterpret_cast<const int4*>(static_cast<const int*>(parts.p[0]) + e + 4);
+  for (int j = 1; j < m; ++j) {
+    int v[8];
+    *reinterpret_cast<int4*>(v) = *reinterpret_cast<const int4*>(static_cast<const int*>(parts.p[j]) + e);
+    *reinterpret_cast<int4*>(v + 4) =
+        *reinterpret_cast<const int4*>(static_cast<const int*>(parts.p[j]) + e + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += v[i];
+  }
+  const uint4 raw = *reinterpret_cast<const uint4*>(resid + e);
+  const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  float o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 r2 = __bfloat1622float2(rp[i]);
+    const float rr[2] = {r2.x, r2.y};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c = 2 * i + k;
+      const float d = __fmul_rn(__fmul_rn(__int2float_rn(acc[c]), rs), w_scale[n + c]);
+      o[c] = bias_first ? __fadd_rn(__fadd_rn(rr[k], bias[n + c]), d)
+                        : __fadd_rn(rr[k], __fadd_rn(d, bias[n + c]));
+    }
+  }
+  uint4 packed;
+  uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pw[i] = pack_bf16(o[2 * i], o[2 * i + 1]);
+  *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
 }  // namespace
@@ -340,7 +455,7 @@ int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, con
                               static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                             heads, causal, st);
+                             heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), 0);
   if (e != cudaSuccess) return (int)e;
   e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
                         static_cast<float*>(ascale), M, D, st);
@@ -392,6 +507,115 @@ int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const voi
                                    static_cast<const float*>(b2), static_cast<const bf16*>(x),
                                    out, M, D, F, st);
   return (int)e;
+}
+
+// A tensor-parallel slot's int8 attention up to its out-projection: LN ->
+// quantize x (every slot of a row quantizes the same x: the same codes) ->
+// s8 QKV GEMM on the slot's columns -> the core on its g heads -> the row
+// amax of its attention rows (amax [B*S] f32).  wqkv_t [ld, D] int8 (the
+// group's q, k, v output channels, then zero rows up to ld, a multiple of
+// 128), sqkv and bqkv [ld] f32.  Scratch: xn [B*S, D] bf16, xq [B*S, D]
+// int8, xs [B*S] f32, qkv [B*S, ld] bf16, attn [B*S, 64 g] bf16.
+int dvl_attention_block_q_heads(const void* x, const void* ln_s, const void* ln_b,
+                                const void* wqkv_t, const void* sqkv, const void* bqkv, void* xn,
+                                void* xq, void* xs, void* qkv, void* attn, void* amax, int B,
+                                int S, int D, int g, int ld, int causal, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * S, dg = 64 * g;
+  cudaError_t e;
+  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                        static_cast<float*>(xs), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+                              static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
+                              static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, dg, g,
+                             causal, st, ld, 1.0f / sqrtf(64.0f), 0);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_row_amax(static_cast<const bf16*>(attn), static_cast<float*>(amax), M, dg, st);
+}
+
+// A tensor-parallel slot's int8 MLP up to its down-projection: LN ->
+// quantize x -> s8 up GEMM on the slot's Fj hidden columns with the
+// activation (h [M, Fj] f32) -> the row amax of h (amax [M] f32).  w1_t
+// [Fj, D] int8, s1 and b1 [Fj] f32.  Scratch: xn [M, D] bf16, xq [M, D] int8,
+// xs [M] f32.  Fj % 128 == 0.
+int dvl_mlp_block_q_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
+                         const void* s1, const void* b1, void* xn, void* xq, void* xs, void* h,
+                         void* amax, int M, int D, int Fj, int act_kind, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                        static_cast<float*>(xs), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  if (act_kind == 0)
+    e = launch_gemm_s8<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
+                                     static_cast<const float*>(xs),
+                                     static_cast<const int8_t*>(w1_t),
+                                     static_cast<const float*>(s1),
+                                     static_cast<const float*>(b1), nullptr, h, M, Fj, D, st);
+  else
+    e = launch_gemm_s8<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
+                                    static_cast<const float*>(xs),
+                                    static_cast<const int8_t*>(w1_t),
+                                    static_cast<const float*>(s1),
+                                    static_cast<const float*>(b1), nullptr, h, M, Fj, D, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_row_amax(static_cast<const float*>(h), static_cast<float*>(amax), M, Fj, st);
+}
+
+// The row-parallel product of one slot: a [M, K] (bf16 if a_f32 == 0, else
+// f32) quantized at the row scale max_j(amaxes[j]) / 127 (clamped at 1e-8)
+// into aq [M, K] int8 and ascale [M] f32, then out [M, N] int32 = aq @
+// wt^T, wt [N, K] int8 (the slot's input rows of the weight, transposed).
+// amaxes: a host array of m <= 8 device pointers to [M] f32.  K % 16 == 0.
+int dvl_rows_q_partial(const void* a, int a_f32, const void* const* amaxes, int m,
+                       const void* wt, void* aq, void* ascale, void* out, int M, int N, int K,
+                       void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (m < 1 || m > TP_MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  TpPtrs am{};
+  for (int j = 0; j < m; ++j) am.p[j] = amaxes[j];
+  if (a_f32)
+    quant_rows_given_amax_kernel<float><<<M, QR_THREADS, 0, st>>>(
+        static_cast<const float*>(a), am, m, static_cast<int8_t*>(aq), static_cast<float*>(ascale),
+        K);
+  else
+    quant_rows_given_amax_kernel<bf16><<<M, QR_THREADS, 0, st>>>(
+        static_cast<const bf16*>(a), am, m, static_cast<int8_t*>(aq), static_cast<float*>(ascale),
+        K);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_gemm_s8<EQ_I32>(static_cast<const int8_t*>(aq), nullptr,
+                                     static_cast<const int8_t*>(wt), nullptr, nullptr, nullptr, out,
+                                     M, N, K, st);
+}
+
+// out [M, N] bf16 from m <= 8 int32 partials (a host array of device
+// pointers), summed exactly, dequantized with ascale [M] and w_scale [N],
+// + bias [N] + resid [M, N] bf16 in the order bias_first picks (0: the
+// attention half's, 1: the MLP half's).  N % 8 == 0.
+int dvl_tp_reduce_q(const void* const* parts, int m, const void* ascale, const void* w_scale,
+                    const void* bias, const void* resid, void* out, int M, int N, int bias_first,
+                    void* stream) {
+  if (m < 1 || m > TP_MAX_SLOTS || N % 8 || M < 1) return (int)cudaErrorInvalidValue;
+  TpPtrs pp{};
+  for (int j = 0; j < m; ++j) pp.p[j] = parts[j];
+  const long long total8 = (long long)M * N / 8;
+  const int threads = 256;
+  tp_reduce_q_kernel<<<(unsigned)((total8 + threads - 1) / threads), threads, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      pp, m, static_cast<const float*>(ascale), static_cast<const float*>(w_scale),
+      static_cast<const float*>(bias), static_cast<const bf16*>(resid), static_cast<bf16*>(out),
+      total8, N, bias_first);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -18,6 +18,9 @@ their plain twins on a CPU tensor; a float32 tower, or any tower asked for
 ``use_pallas`` (the attention kernel), runs the plain ``layers.transformer``.
 ``fused=`` overrides the choice.  With grad mode on and any input needing
 a gradient, the fused tower is the differentiable ``fused_transformer_diff``.
+A tower placed tensor-parallel (``parallel/mesh.shard_clip_params``: its
+``resblocks`` a ``parallel/tensor.TensorParallelBlocks``) runs the same
+choice over its model slots: the plain route, or the split kernels.
 """
 
 from __future__ import annotations
@@ -209,6 +212,24 @@ def _fused_tower(blocks, x: torch.Tensor, heads: int, **kw) -> torch.Tensor:
     return fused_transformer(blocks, x, heads, **kw)
 
 
+def run_blocks(blocks, x: torch.Tensor, heads: int, use_fused: bool, *,
+               act_kind: str = "quick_gelu", causal: bool = False,
+               use_pallas: Optional[bool] = None, remat: bool = False) -> torch.Tensor:
+    """A tower's resblocks: the fused blocks (``use_fused``) or the plain
+    layers (CLIP's causal mask when ``causal``), on one device or, for a
+    ``TensorParallelBlocks``, split over its mesh's model slots (blocks
+    with a ``run`` method run themselves)."""
+    if hasattr(blocks, "run"):
+        return blocks.run(x, route="fused" if use_fused else "plain", act_kind=act_kind,
+                          causal=causal, use_pallas=use_pallas, remat=remat)
+    if use_fused:
+        return _fused_tower(blocks, x, heads, act_kind=act_kind, causal=causal)
+    mask = causal_mask(x.shape[1], x.device) if causal else None
+    return transformer(blocks, x, heads, mask=mask,
+                       act=gelu if act_kind == "gelu" else quick_gelu,
+                       use_pallas=use_pallas, remat=remat)
+
+
 def patch_embed(kernel: torch.Tensor, images: torch.Tensor, patch: int,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, W, 3] NHWC -> [B, num_patches, width], contracting the split
@@ -255,13 +276,9 @@ def _vit_trunk(v: VisionTransformer, x: torch.Tensor, dtype,
     x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
     if v.ln_pre is not None:
         x = layer_norm(v.ln_pre, x)
-    slip = cfg.kind == "slip_vit"
-    if _use_fused_blocks(dtype, use_pallas, fused):
-        x = _fused_tower(v.resblocks, x, cfg.heads,
-                         act_kind="gelu" if slip else "quick_gelu")
-    else:
-        x = transformer(v.resblocks, x, cfg.heads, act=gelu if slip else quick_gelu,
-                        use_pallas=use_pallas, remat=remat)
+    x = run_blocks(v.resblocks, x, cfg.heads, _use_fused_blocks(dtype, use_pallas, fused),
+                   act_kind="gelu" if cfg.kind == "slip_vit" else "quick_gelu",
+                   use_pallas=use_pallas, remat=remat)
     x = layer_norm(v.ln_post, x[:, 0, :])
     return x @ v.proj.to(dtype)
 
@@ -317,12 +334,8 @@ def run_text_transformer(t: TextTransformer, x: torch.Tensor,
                          use_pallas: Optional[bool] = None,
                          remat: bool = False) -> torch.Tensor:
     """Causal transformer over embedded text, then the final LayerNorm."""
-    if _use_fused_blocks(x.dtype, use_pallas, fused):
-        x = _fused_tower(t.resblocks, x, t.cfg.heads, causal=True)
-    else:
-        x = transformer(t.resblocks, x, t.cfg.heads,
-                        mask=causal_mask(x.shape[1], x.device),
-                        use_pallas=use_pallas, remat=remat)
+    x = run_blocks(t.resblocks, x, t.cfg.heads, _use_fused_blocks(x.dtype, use_pallas, fused),
+                   causal=True, use_pallas=use_pallas, remat=remat)
     return layer_norm(t.ln_final, x)
 
 

@@ -21,7 +21,10 @@ plain attention); ``fused`` is accepted and ignored, as the JAX
 ``encode_image`` pops it for every tower that is not an image ViT;
 ``use_pallas=True`` sends every attention to K5 (``ops/attention.py``: the
 long route at the joint tower's 785 tokens, the short one at the divided
-tower's 4 and 196).  The int8 towers are ``ops/quant.py``'s.
+tower's 4 and 196).  The int8 towers are ``ops/quant.py``'s.  A tower placed
+tensor-parallel (``parallel/mesh.shard_clip_params``) runs its resblocks
+split over the model slots on the same plain layers; the divided tower's
+temporal attention stays replicated.
 
 Parameters keep the JAX tree's names: ``visual.temporal_embedding``
 [frames, D], ``visual.temporal_attn.ln_t.*`` and
@@ -40,18 +43,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import CLIPConfig, VisionConfig
-from .clip import CLIP, PatchConv, _vector, init_clip_params, patch_embed
+from .clip import CLIP, PatchConv, _vector, init_clip_params, patch_embed, run_blocks
 from .layers import (LayerNorm, gelu, layer_norm, linear, make_resblocks,
-                     multi_head_attention, transformer)
+                     multi_head_attention)
 
 DEFAULT_NUM_FRAMES = 4
 VIDEO_ATTENTIONS = ("joint", "divided")
-
-
-def _fit_act(cfg: VisionConfig) -> Callable:
-    """Upstream FiT's video tower is a timm ViT: the exact (erf) GELU."""
-    del cfg
-    return gelu
 
 
 def _project(x: torch.Tensor, proj, dtype) -> torch.Tensor:
@@ -202,8 +199,8 @@ def encode_video(v: VideoVisionTransformer, videos: torch.Tensor, *, dtype=torch
     [B, embed_dim]."""
     x, _, _, _ = _video_tokens(v, videos, dtype)
     x = _class_and_ln_pre(v, x, dtype)
-    x = transformer(v.resblocks, x, v.cfg.heads, mask=None, act=_fit_act(v.cfg),
-                    use_pallas=use_pallas, remat=remat)
+    x = run_blocks(v.resblocks, x, v.cfg.heads, False, act_kind="gelu",
+                   use_pallas=use_pallas, remat=remat)
     x = layer_norm(v.ln_post, x[:, 0, :])
     return _project(x, v.proj, dtype)
 
@@ -214,12 +211,15 @@ def _divided_block(v: VideoVisionTransformer, i: int, x: torch.Tensor,
     each location, spatial attention within each frame, then the MLP."""
     b, t, n, w = x.shape
     heads = v.cfg.heads
-    sp = v.resblocks[i]
     tp_ln, tp_attn = v.temporal_attn.layer(i)
     xt = x.transpose(1, 2).reshape(b * n, t, w)
     at = multi_head_attention(tp_attn, layer_norm(tp_ln, xt), heads, use_pallas=use_pallas)
     x = x + at.reshape(b, n, t, w).transpose(1, 2)
     xs = x.reshape(b * t, n, w)
+    if hasattr(v.resblocks, "run"):  # split blocks run their own halves
+        x = v.resblocks.attention(i, xs, use_pallas=use_pallas).reshape(b, t, n, w)
+        return v.resblocks.mlp(i, x, act_kind="gelu")
+    sp = v.resblocks[i]
     asp = multi_head_attention(sp.attn, layer_norm(sp.ln_1, xs), heads, use_pallas=use_pallas)
     x = x + asp.reshape(b, t, n, w)
     hdn = linear(layer_norm(sp.ln_2, x), sp.mlp.w1, sp.mlp.b1)

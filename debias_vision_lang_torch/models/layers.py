@@ -137,20 +137,27 @@ def attention_bshd(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def multi_head_attention(p: Attention, x: torch.Tensor, heads: int,
-                         mask: Optional[torch.Tensor] = None,
-                         use_pallas: Optional[bool] = None) -> torch.Tensor:
-    b, s, d = x.shape
-    qkv = linear(x, p.wqkv, p.bqkv)
+def attention_heads(qkv: torch.Tensor, heads: int,
+                    mask: Optional[torch.Tensor] = None,
+                    use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """The attention between the projections: packed qkv [B, S, 3D] (q | k |
+    v, ``heads`` heads each) -> [B, S, D]; ``use_pallas`` takes K5."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
     q, k, v = (t.reshape(b, s, heads, d // heads) for t in qkv.split(d, -1))
     if use_pallas:
         from ..ops.attention import attention
 
         o = attention(*(t.transpose(1, 2) for t in (q, k, v)), mask,
                       use_pallas=True)
-        o = o.transpose(1, 2).reshape(b, s, d)
-    else:
-        o = attention_bshd(q, k, v, mask).reshape(b, s, d)
+        return o.transpose(1, 2).reshape(b, s, d)
+    return attention_bshd(q, k, v, mask).reshape(b, s, d)
+
+
+def multi_head_attention(p: Attention, x: torch.Tensor, heads: int,
+                         mask: Optional[torch.Tensor] = None,
+                         use_pallas: Optional[bool] = None) -> torch.Tensor:
+    o = attention_heads(linear(x, p.wqkv, p.bqkv), heads, mask, use_pallas)
     return linear(o, p.wo, p.bo)
 
 

@@ -27,6 +27,23 @@ differentiable (as ``_fused_resblock_diff``, a custom VJP in the JAX
 package): the forward is the two entry points above -- the kernels on a
 CUDA tensor -- and the backward recomputes the block through the plain
 twins, the kernels' own math, and differentiates that.
+
+The split entries (``parallel/tensor.py`` runs them; ``TP_LAUNCHES``
+counts them):
+
+  attention_block_heads:  a head group's f32 partial, attn_g @ Wo[rows_g]
+  attention_block_hgrid:  KB (a) 6 (benchmarks/attn_variants.py::
+                          attention_block_hgrid): K1 from per-head blocks
+                          with q pre-scaled by hd^-0.5 log2 e, exp2, the
+                          softmax normalised after P @ V, the out-projection
+                          summed in f32 across heads; on a head group, its
+                          f32 partial
+  mlp_block_cols:         act(LN(x) @ W1[:, cols] + b1[cols]) @ W2[cols]
+  tp_reduce:              the slots' partials summed in f32, + bias + x,
+                          one rounding
+
+All three block entries run one CUDA entry (``dvl_attention_block_heads`` /
+``dvl_mlp_block_cols``) on K1 / K2's GEMMs and core.
 """
 
 from __future__ import annotations
@@ -43,6 +60,15 @@ from ..models.layers import causal_mask, ln_f32, quick_gelu
 LAUNCHES: Dict[str, int] = {"attention_block": 0,
                             "attention_block_causal": 0,
                             "mlp_block": 0}
+# the split entries' launches (the head-group and column shares of a
+# tensor-parallel block, KB (a) 6, the reduce)
+TP_LAUNCHES: Dict[str, int] = {"attention_block_heads": 0,
+                               "attention_block_heads_causal": 0,
+                               "attention_block_hgrid": 0,
+                               "mlp_block_cols": 0,
+                               "tp_reduce": 0}
+MAX_TP_SLOTS = 8  # partials one reduce launch sums
+LOG2E = math.log2(math.e)
 ACT_KINDS = ("quick_gelu", "gelu")
 MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
 CORE_ROUTES: Dict[str, int] = {"short": 0, "long": 0}
@@ -50,7 +76,7 @@ GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: N, K multipl
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -133,6 +159,99 @@ def mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2, *,
     return (x.float() + b2.float() + _dot_f32(h, w2)).to(x.dtype)
 
 
+def _head_qkv(qkv: torch.Tensor, heads: int, h: int):
+    """Head h's q, k, v ([B, S, hd] each) of a packed q | k | v row set."""
+    d = qkv.shape[-1] // 3
+    hd = d // heads
+    return (qkv[..., i * d + h * hd: i * d + (h + 1) * hd] for i in range(3))
+
+
+def attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
+                                causal: bool = False, prescaled: bool = False,
+                                bo=None) -> torch.Tensor:
+    """A head group's share of the attention block: ``wqkv`` [D, 3 g hd] is
+    the group's q | k | v columns, ``bqkv`` [3 g hd], ``wo`` [g hd, D] its
+    rows of the out-projection, ``heads`` = g.  Returns the f32 partial
+    attn_g @ wo, or, given ``bo``, (x + bo) + that partial in x's dtype.
+
+    ``prescaled=False`` is K1's function on the group (``attention_core``:
+    scale 1/sqrt(hd), exp, normalised before P @ V, one product over the
+    group's heads).  ``prescaled=True`` is KB (a) 6's
+    (``_attn_hgrid_kernel``): q already scaled by hd^-0.5 log2 e, exp2,
+    the unnormalised exponentials rounded for P @ V and the f32 output
+    scaled by 1 / row sum, each head's output rounded before its partial
+    projection, the partials accumulated in f32 head by head."""
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b)
+    qkv = (_dot_f32(xn, wqkv) + bqkv.float()).to(dt)
+    acc = None if bo is None else x.float() + bo.float()
+    if not prescaled:
+        part = _dot_f32(attention_core(qkv, heads, causal), wo)
+        return part if acc is None else (acc + part).to(dt)
+    hd = wo.shape[0] // heads
+    for h in range(heads):
+        q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
+        sc = torch.einsum("bqd,bkd->bqk", q, k)
+        if causal:
+            sc = sc + causal_mask(sc.shape[-1], sc.device)
+        e = torch.exp2(sc - sc.amax(-1, keepdim=True).detach())
+        o = torch.einsum("bqk,bkd->bqd", e.to(dt).float(), v)
+        o = (o * (1.0 / e.sum(-1, keepdim=True))).to(dt)
+        part = _dot_f32(o, wo[h * hd:(h + 1) * hd])
+        acc = part if acc is None else acc + part
+    return acc if bo is None else acc.to(dt)
+
+
+def hgrid_qkv(wqkv_h, bqkv_h, h0: int, g: int):
+    """KB (a) 6's per-head QKV blocks of heads [h0, h0 + g) -- ``wqkv_h``
+    [H, D, 3 hd] (q | k | v of one head each), ``bqkv_h`` [H, 3 hd] -- as
+    one head group's packed [D, 3 g hd]: the group's q columns, then its k,
+    then its v (a permutation of columns), and the bias alike."""
+    hd = wqkv_h.shape[-1] // 3
+    blk, bias = wqkv_h[h0:h0 + g], bqkv_h[h0:h0 + g]
+    w = torch.cat([blk[..., i * hd:(i + 1) * hd].permute(1, 0, 2).reshape(blk.shape[1], g * hd)
+                   for i in range(3)], dim=1)
+    b = torch.cat([bias[:, i * hd:(i + 1) * hd].reshape(g * hd) for i in range(3)])
+    return w, b
+
+
+def hgrid_group(wqkv_h, bqkv_h, wo_h, h0: int, g: int):
+    """``hgrid_qkv`` and wo_h's [H hd, D] rows of the group."""
+    hd = wqkv_h.shape[-1] // 3
+    return (*hgrid_qkv(wqkv_h, bqkv_h, h0, g), wo_h[h0 * hd:(h0 + g) * hd])
+
+
+def attention_block_hgrid_plain(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo, *,
+                                heads: int, h0: int = 0, g=None) -> torch.Tensor:
+    """KB (a) 6's function (``attention_block_hgrid`` of
+    benchmarks/attn_variants.py) with its arguments; on a head group
+    [h0, h0 + g) with g < heads, the group's f32 partial."""
+    g = heads if g is None else g
+    return attention_block_heads_plain(
+        x, ln_s, ln_b, *hgrid_group(wqkv_h, bqkv_h, wo_h, h0, g), heads=g,
+        prescaled=True, bo=bo if g == heads else None)
+
+
+def mlp_block_cols_plain(x, ln_s, ln_b, w1, b1, w2, *,
+                         act_kind: str = "quick_gelu") -> torch.Tensor:
+    """The f32 partial of the MLP over hidden columns: ``w1`` [D, Fj],
+    ``b1`` [Fj], ``w2`` [Fj, D] (K2's rounding points, no b2 or residual)."""
+    xn = ln_f32(x, ln_s, ln_b)
+    h = _act(_dot_f32(xn, w1) + b1.float(), act_kind).to(x.dtype)
+    return _dot_f32(h, w2)
+
+
+def tp_reduce_plain(parts, bias, resid, *, bias_first: bool) -> torch.Tensor:
+    """resid + (sum(parts) + bias) (the attention half: K1's order), or
+    (resid + bias) + sum(parts) (``bias_first``, the MLP half: K2's), the
+    f32 partials summed in slot order, in resid's dtype."""
+    s = parts[0]
+    for part in parts[1:]:
+        s = s + part
+    r, b = resid.float(), bias.float()
+    return (((r + b) + s) if bias_first else (r + (s + b))).to(resid.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA route
 # ---------------------------------------------------------------------------
@@ -151,6 +270,13 @@ def _lib():
         lib.dvl_attention_block.restype = i
         lib.dvl_mlp_block.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block.restype = i
+        lib.dvl_attention_block_heads.argtypes = ([p] * 12 + [i] * 6
+                                                  + [ctypes.c_float, i, p])
+        lib.dvl_attention_block_heads.restype = i
+        lib.dvl_mlp_block_cols.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.dvl_mlp_block_cols.restype = i
+        lib.dvl_tp_reduce.argtypes = [p, i, p, p, p, i, i, i, p]
+        lib.dvl_tp_reduce.restype = i
         _LIB = lib
     return _LIB
 
@@ -181,14 +307,29 @@ def _operand(t: torch.Tensor, dtype, shape, name: str,
 _KMAJOR = WeakIdKeyDictionary()
 
 
-def _kmajor(w: torch.Tensor, shape, name: str, device) -> torch.Tensor:
-    key = (w.data_ptr(), w._version)
+def _kmajor(w: torch.Tensor, shape, name: str, device, n_pad=None) -> torch.Tensor:
+    """The [N, K] bf16 copy of a [K, N] weight; ``n_pad`` appends zero rows
+    up to that N (a head group's q | k | v slice to the GEMM's N tile)."""
+    key = (w.data_ptr(), w._version, n_pad)
     hit = _KMAJOR.get(w)
     if hit is not None and hit[0] == key:
         return hit[1]
     t = _operand(w.detach(), torch.bfloat16, shape, name, device).t().contiguous()
+    if n_pad is not None and n_pad > t.shape[0]:
+        t = torch.cat([t, t.new_zeros(n_pad - t.shape[0], t.shape[1])])
     _KMAJOR[w] = (key, t)
     return t
+
+
+def padded_n(n: int) -> int:
+    """N rounded up to the CUDA GEMM's 128-column tile: a head group's q | k
+    | v slice is 192 g columns (576 at g = 3), zero-padded to this."""
+    return -(-n // GEMM_N) * GEMM_N
+
+
+def _padded_bias(b: torch.Tensor, n: int, n_pad: int, name: str, device) -> torch.Tensor:
+    t = _operand(b, torch.float32, (n,), name, device)
+    return torch.cat([t, t.new_zeros(n_pad - n)]) if n_pad > n else t
 
 
 def _check_gemm(n: int, k: int, what: str) -> None:
@@ -275,6 +416,128 @@ def _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind):
     return out
 
 
+def _attention_heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, g, causal, prescaled,
+                          counter, kmajor=None):
+    """``dvl_attention_block_heads`` on a head group's packed operands
+    (``wqkv`` [D, 3 g 64], ``bqkv``, ``wo`` [64 g, D], unless ``kmajor``
+    gives the kernel's copies: the padded [N, D] wqkv, its bias, the [D,
+    64 g] wo); the f32 partial, or with ``bo`` the bf16 block output."""
+    _check_x(x)
+    b, s, d = x.shape
+    dg = 64 * g
+    if kmajor is None and tuple(wo.shape) != (dg, d):
+        raise ValueError(f"the CUDA attention core takes head dim 64: wo of a "
+                         f"{g}-head group is [{dg}, {d}], got {tuple(wo.shape)}")
+    if d % GEMM_N:
+        raise ValueError(f"the CUDA GEMM takes N % {GEMM_N} == 0, got D={d} "
+                         f"(out projection)")
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    ld = padded_n(3 * dg)
+    if kmajor is None:
+        kmajor = (_kmajor(wqkv, (d, 3 * dg), "wqkv", dev, n_pad=ld),
+                  _padded_bias(bqkv, 3 * dg, ld, "bqkv", dev), _kmajor(wo, (dg, d), "wo", dev))
+    if tuple(kmajor[2].shape) != (d, dg):
+        raise ValueError(f"the CUDA attention core takes head dim 64: wo of a {g}-head "
+                         f"group is [{dg}, {d}], got {tuple(kmajor[2].t().shape)}")
+    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
+           _operand(ln_b, f32, (d,), "ln_bias", dev), *kmajor]
+    m = b * s
+    out = torch.empty_like(x) if bo is not None else None
+    part = None if bo is not None else torch.empty((b, s, d), dtype=f32, device=dev)
+    xn = torch.empty((m, d), dtype=bf, device=dev)
+    qkv = torch.empty((m, ld), dtype=bf, device=dev)
+    attn = torch.empty((m, dg), dtype=bf, device=dev)
+    err = _lib().dvl_attention_block_heads(
+        x.data_ptr(), *[t.data_ptr() for t in ops],
+        _operand(bo, f32, (d,), "bo", dev).data_ptr() if bo is not None else None,
+        out.data_ptr() if out is not None else None,
+        part.data_ptr() if part is not None else None,
+        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), b, s, d, g, ld, int(causal),
+        math.log(2.0) if prescaled else 1.0 / math.sqrt(64), int(prescaled),
+        _stream_ptr(dev))
+    _raise_on(err, "dvl_attention_block_heads")
+    TP_LAUNCHES[counter] += 1
+    CORE_ROUTES[core_route(s)] += 1
+    return part if out is None else out
+
+
+# KB (a) 6's head groups in the kernel's layout, one entry per (h0, g) of a
+# wqkv_h parameter, rebuilt when it, its bias or wo_h moves (a permutation
+# of columns: bit-preserving)
+_HGRID = WeakIdKeyDictionary()
+
+
+def _hgrid_kmajor(wqkv_h, bqkv_h, wo_h, h0, g, device):
+    key = (wqkv_h.data_ptr(), wqkv_h._version, bqkv_h.data_ptr(), bqkv_h._version,
+           wo_h.data_ptr(), wo_h._version)
+    cache = _HGRID.get(wqkv_h)
+    if cache is None or cache[0] != key:
+        cache = (key, {})
+        _HGRID[wqkv_h] = cache
+    if (h0, g) not in cache[1]:
+        w, b = hgrid_qkv(wqkv_h.detach(), bqkv_h.detach(), h0, g)
+        n = w.shape[1]
+        ld = padded_n(n)
+        t = _operand(w, torch.bfloat16, (w.shape[0], n), "wqkv_h", device).t()
+        t = torch.cat([t, t.new_zeros(ld - n, t.shape[1])]).contiguous()
+        hd = wqkv_h.shape[-1] // 3
+        wo = wo_h.detach()[h0 * hd:(h0 + g) * hd]
+        cache[1][(h0, g)] = (t, _padded_bias(b, n, ld, "bqkv_h", device),
+                             _operand(wo, torch.bfloat16, tuple(wo.shape), "wo_h",
+                                      device).t().contiguous())
+    return cache[1][(h0, g)]
+
+
+def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind):
+    _check_x(x)
+    b, s, d = x.shape
+    fj = w1.shape[-1]
+    _check_gemm(fj, d, "mlp up projection (hidden columns)")
+    _check_gemm(d, fj, "mlp down projection (hidden rows)")
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
+           _operand(ln_b, f32, (d,), "ln_bias", dev),
+           _kmajor(w1, (d, fj), "w1", dev),
+           _operand(b1, f32, (fj,), "b1", dev),
+           _kmajor(w2, (fj, d), "w2", dev)]
+    m = b * s
+    part = torch.empty((b, s, d), dtype=f32, device=dev)
+    xn = torch.empty((m, d), dtype=bf, device=dev)
+    hidden = torch.empty((m, fj), dtype=bf, device=dev)
+    err = _lib().dvl_mlp_block_cols(
+        x.data_ptr(), *[t.data_ptr() for t in ops], part.data_ptr(), xn.data_ptr(),
+        hidden.data_ptr(), m, d, fj, ACT_KINDS.index(act_kind), _stream_ptr(dev))
+    _raise_on(err, "dvl_mlp_block_cols")
+    TP_LAUNCHES["mlp_block_cols"] += 1
+    return part
+
+
+def _tp_reduce_cuda(parts, bias, resid, bias_first):
+    _check_x(resid)
+    dev = resid.device
+    n = resid.shape[-1]
+    if not 1 <= len(parts) <= MAX_TP_SLOTS:
+        raise ValueError(f"tp_reduce sums 1 to {MAX_TP_SLOTS} partials, got {len(parts)}")
+    for t in parts:
+        if t.dtype != torch.float32 or t.shape != resid.shape or t.device != dev:
+            raise ValueError(f"tp_reduce: each partial must be f32 {tuple(resid.shape)} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    parts = [t.contiguous() for t in parts]
+    out = torch.empty_like(resid)
+    ptrs = (ctypes.c_void_p * len(parts))(*[t.data_ptr() for t in parts])
+    err = _lib().dvl_tp_reduce(ptrs, len(parts),
+                               _operand(bias, torch.float32, (n,), "bias", dev).data_ptr(),
+                               resid.data_ptr(), out.data_ptr(), resid.numel() // n, n,
+                               int(bias_first), _stream_ptr(dev))
+    _raise_on(err, "dvl_tp_reduce")
+    TP_LAUNCHES["tp_reduce"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -307,6 +570,58 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, *,
         return mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2,
                                act_kind=act_kind)
     return _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind)
+
+
+def attention_block_heads(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
+                          causal: bool = False) -> torch.Tensor:
+    """A head group's f32 partial of K1 (``attention_block_heads_plain``):
+    ``heads`` = the group's g heads, ``wqkv`` [D, 3 g hd] its q | k | v
+    columns, ``wo`` [g hd, D] its rows of the out-projection."""
+    if _route(x) == "cpu":
+        return attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, heads=heads,
+                                           causal=causal)
+    return _attention_heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, None, heads, causal, False,
+                                 "attention_block_heads_causal" if causal
+                                 else "attention_block_heads")
+
+
+def attention_block_hgrid(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo, *, heads: int,
+                          h0: int = 0, g=None) -> torch.Tensor:
+    """KB (a) 6, ``attention_block_hgrid`` of benchmarks/attn_variants.py,
+    with its arguments: ``wqkv_h`` [H, D, 3 hd] per-head blocks with q
+    pre-scaled by hd^-0.5 log2 e (its ``prescale_qkv``), ``bqkv_h`` [H, 3
+    hd], ``wo_h`` [H hd, D]; x + the block in x's dtype.  With ``g`` < heads,
+    the f32 partial of heads [h0, h0 + g) (no bias, no residual).  On a card
+    the head group is one launch of ``dvl_attention_block_heads`` at the
+    core's scale ln 2 with the normalisation after P @ V."""
+    g = heads if g is None else g
+    if h0 < 0 or g < 1 or h0 + g > heads:
+        raise ValueError(f"head group [{h0}, {h0 + g}) outside {heads} heads")
+    if _route(x) == "cpu":
+        return attention_block_hgrid_plain(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo,
+                                           heads=heads, h0=h0, g=g)
+    return _attention_heads_cuda(
+        x, ln_s, ln_b, None, None, None, bo if g == heads else None, g, False, True,
+        "attention_block_hgrid", kmajor=_hgrid_kmajor(wqkv_h, bqkv_h, wo_h, h0, g, x.device))
+
+
+def mlp_block_cols(x, ln_s, ln_b, w1, b1, w2, *,
+                   act_kind: str = "quick_gelu") -> torch.Tensor:
+    """The f32 partial of K2 over a slot's hidden columns (``w1`` [D, Fj],
+    ``b1`` [Fj], ``w2`` [Fj, D]): no b2, no residual."""
+    if act_kind not in ACT_KINDS:
+        raise ValueError(f"act_kind must be one of {ACT_KINDS}, got {act_kind!r}")
+    if _route(x) == "cpu":
+        return mlp_block_cols_plain(x, ln_s, ln_b, w1, b1, w2, act_kind=act_kind)
+    return _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind)
+
+
+def tp_reduce(parts, bias, resid, *, bias_first: bool) -> torch.Tensor:
+    """The row-parallel sum of the slots' f32 partials (all on resid's
+    device) + bias + resid, one rounding (``tp_reduce_plain``)."""
+    if _route(resid) == "cpu":
+        return tp_reduce_plain(parts, bias, resid, bias_first=bias_first)
+    return _tp_reduce_cuda(parts, bias, resid, bias_first)
 
 
 def _block_args(block):

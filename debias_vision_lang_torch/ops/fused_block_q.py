@@ -33,6 +33,14 @@ the twin's.
 (``fused_block.core_route``).  The F-split
 of the TPU MLP kernel (per-tile hidden quantization, a VMEM device) is not
 ported: both routes quantize the whole hidden row.
+
+The tensor-parallel shares (``parallel/tensor.py``; ``TP_LAUNCHES``): a
+slot's head group (``attention_block_q_heads``) or hidden columns
+(``mlp_block_q_cols``) up to the row-parallel input and its row amax;
+``rows_q_partial`` quantizes that input at the row's global scale (the max
+of every slot's amax: the unsharded block's scale, so its codes) into a raw
+int32 partial; ``tp_reduce_q`` sums the partials exactly (the unsharded K
+loop's int32 sum) and dequantizes once -- bit-equal to K3 / K4.
 """
 
 from __future__ import annotations
@@ -42,21 +50,27 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..models.layers import ln_f32
-from .fused_block import (ACT_KINDS, _act, _check_x, _operand, _raise_on,
-                          _route, _stream_ptr, attention_core, core_route)
+from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, _act, _check_x, _operand, _raise_on,
+                          _route, _stream_ptr, attention_core, core_route, padded_n)
 
 LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
                             "mlp_block_q": 0}
 CORE_ROUTES: Dict[str, int] = {"short": 0, "long": 0}
+TP_LAUNCHES: Dict[str, int] = {"attention_block_q_heads": 0,
+                               "attention_block_q_heads_causal": 0,
+                               "mlp_block_q_cols": 0,
+                               "rows_q_partial": 0,
+                               "tp_reduce_q": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -148,6 +162,65 @@ def mlp_block_q_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
     return ((x.float() + b2.float()) + part).to(x.dtype)
 
 
+def row_amax(a: torch.Tensor) -> torch.Tensor:
+    """|a|'s max over the last dim, f32 [..., 1]: ``quant_rows``'s amax."""
+    return a.float().abs().amax(-1, keepdim=True)
+
+
+def attention_block_q_heads_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, *,
+                                  heads: int, causal: bool = False):
+    """A head group's int8 attention up to its out-projection: ``wqkv_q``
+    [D, 3 g hd] / ``wqkv_scale`` [1, 3 g hd] / ``bqkv`` the group's q | k | v
+    output channels, ``heads`` = g.  Returns (attn [B, S, g hd] in x's
+    dtype, its row amax f32 [B, S, 1])."""
+    dt = x.dtype
+    xq, xs = quant_rows(ln_f32(x, ln_s, ln_b).float())
+    qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
+    attn = attention_core(qkv, heads, causal)
+    return attn, row_amax(attn)
+
+
+def mlp_block_q_cols_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, *,
+                           act_kind: str = "quick_gelu"):
+    """A slot's int8 MLP up to its down-projection over hidden columns
+    ``w1_q`` [D, Fj]: (the f32 hidden [B, S, Fj], its row amax)."""
+    xq, xs = quant_rows(ln_f32(x, ln_s, ln_b).float())
+    h = _act(dot_q(xq, xs, w1_q, w1_scale) + b1.float(), act_kind)
+    return h, row_amax(h)
+
+
+def quant_rows_given_amax(x32: torch.Tensor, amax: torch.Tensor):
+    """``quant_rows`` at a given row amax (f32 [..., 1])."""
+    scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def rows_q_partial_plain(a, amaxes, w_q):
+    """A slot's row-parallel int8 product: ``a`` [..., K] quantized at the
+    row scale of max(amaxes) (every slot's row amax of the whole row), times
+    its rows of the weight ``w_q`` [K, N] int8 -> (int32 [..., N], codes,
+    row scales [..., 1])."""
+    amax = amaxes[0]
+    for other in amaxes[1:]:
+        amax = torch.maximum(amax, other.to(amax.device))
+    aq, ascale = quant_rows_given_amax(a.float(), amax)
+    acc = int_mm(aq.reshape(-1, aq.shape[-1]), w_q).reshape(*aq.shape[:-1], w_q.shape[-1])
+    return acc, aq, ascale
+
+
+def tp_reduce_q_plain(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
+    """The int32 partials summed exactly, dequantized (acc * row scale) *
+    channel scale, then resid + (deq + bias) (the attention half, K3's
+    order) or (resid + bias) + deq (``bias_first``, K4's), in resid's dtype."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    deq = acc.float() * ascale * w_scale.reshape(-1).float()
+    r, b = resid.float(), bias.float()
+    return (((r + b) + deq) if bias_first else (r + (deq + b))).to(resid.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA route
 # ---------------------------------------------------------------------------
@@ -166,6 +239,14 @@ def _lib():
         lib.dvl_attention_block_q.restype = i
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 4 + [p]
         lib.dvl_mlp_block_q.restype = i
+        lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.dvl_attention_block_q_heads.restype = i
+        lib.dvl_mlp_block_q_cols.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.dvl_mlp_block_q_cols.restype = i
+        lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, p]
+        lib.dvl_rows_q_partial.restype = i
+        lib.dvl_tp_reduce_q.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
+        lib.dvl_tp_reduce_q.restype = i
         _LIB = lib
     return _LIB
 
@@ -273,6 +354,139 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     return out
 
 
+# the [ld, in] int8 copy of a head group's q | k | v channels, zero rows
+# past its 192 g channels (ld: the s8 GEMM's N tile), with the scale and bias
+# zero-padded alike, one per weight and version
+_PADDED_QKV = WeakIdKeyDictionary()
+
+
+def _padded_qkv(qt, scale, bias, d, n, device):
+    key = (qt.data_ptr(), qt._version, scale.data_ptr(), scale._version,
+           bias.data_ptr(), bias._version)
+    hit = _PADDED_QKV.get(qt)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    ld = padded_n(n)
+    q, s = _qweight(qt, scale, d, n, "wqkv", device)
+    b = _operand(bias, torch.float32, (n,), "bqkv", device)
+    ops = (torch.cat([q, q.new_zeros(ld - n, d)]), torch.cat([s, s.new_zeros(ld - n)]),
+           torch.cat([b, b.new_zeros(ld - n)]))
+    _PADDED_QKV[qt] = (key, ops)
+    return ops
+
+
+def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt):
+    _check_x(x)
+    b, s, d = x.shape
+    dg = 64 * g
+    if d % 16:
+        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0, got D={d}")
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    dev = x.device
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    wq, ws, bq = _padded_qkv(wqkv_qt, wqkv_scale, bqkv, d, 3 * dg, dev)
+    ld = wq.shape[0]
+    m = b * s
+    xn = torch.empty((m, d), dtype=bf, device=dev)
+    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xs = torch.empty((m,), dtype=f32, device=dev)
+    qkv = torch.empty((m, ld), dtype=bf, device=dev)
+    attn = torch.empty((b, s, dg), dtype=bf, device=dev)
+    amax = torch.empty((b, s, 1), dtype=f32, device=dev)
+    err = _lib().dvl_attention_block_q_heads(
+        x.data_ptr(), _operand(ln_s, f32, (d,), "ln_scale", dev).data_ptr(),
+        _operand(ln_b, f32, (d,), "ln_bias", dev).data_ptr(), wq.data_ptr(), ws.data_ptr(),
+        bq.data_ptr(), xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
+        attn.data_ptr(), amax.data_ptr(), b, s, d, g, ld, int(causal), _stream_ptr(dev))
+    _raise_on(err, "dvl_attention_block_q_heads")
+    TP_LAUNCHES["attention_block_q_heads_causal" if causal else "attention_block_q_heads"] += 1
+    CORE_ROUTES[core_route(s)] += 1
+    return attn, amax
+
+
+def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
+    _check_x(x)
+    b, s, d = x.shape
+    fj = w1_scale.numel()
+    if d % 16 or fj % S8_GEMM_TILE:
+        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0 and N % {S8_GEMM_TILE} == 0, "
+                         f"got D={d} and {fj} hidden columns")
+    dev = x.device
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
+           _operand(ln_b, f32, (d,), "ln_bias", dev),
+           *_qweight(w1_qt, w1_scale, d, fj, "w1", dev),
+           _operand(b1, f32, (fj,), "b1", dev)]
+    m = b * s
+    xn = torch.empty((m, d), dtype=bf, device=dev)
+    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xs = torch.empty((m,), dtype=f32, device=dev)
+    h = torch.empty((b, s, fj), dtype=f32, device=dev)
+    amax = torch.empty((b, s, 1), dtype=f32, device=dev)
+    err = _lib().dvl_mlp_block_q_cols(
+        x.data_ptr(), *[t.data_ptr() for t in ops], xn.data_ptr(), xq.data_ptr(),
+        xs.data_ptr(), h.data_ptr(), amax.data_ptr(), m, d, fj, ACT_KINDS.index(act_kind),
+        _stream_ptr(dev))
+    _raise_on(err, "dvl_mlp_block_q_cols")
+    TP_LAUNCHES["mlp_block_q_cols"] += 1
+    return h, amax
+
+
+def _rows_q_partial_cuda(a, amaxes, w_qt):
+    dev = a.device
+    if a.dtype not in (torch.bfloat16, torch.float32) or not a.is_contiguous():
+        raise ValueError(f"rows_q_partial takes a contiguous bf16 or f32 input, got "
+                         f"{a.dtype}")
+    k = a.shape[-1]
+    n = w_qt.shape[0]
+    if k % 16 or n % S8_GEMM_TILE:
+        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0 and N % {S8_GEMM_TILE} == 0, "
+                         f"got K={k} N={n}")
+    if not 1 <= len(amaxes) <= MAX_TP_SLOTS:
+        raise ValueError(f"rows_q_partial takes 1 to {MAX_TP_SLOTS} row amaxes")
+    m = a.numel() // k
+    wt = _operand(w_qt, torch.int8, (n, k), "w_qt", dev)
+    amaxes = [_operand(t.reshape(-1), torch.float32, (m,), "amax", dev) for t in amaxes]
+    aq = torch.empty(a.shape, dtype=torch.int8, device=dev)
+    ascale = torch.empty((*a.shape[:-1], 1), dtype=torch.float32, device=dev)
+    acc = torch.empty((*a.shape[:-1], n), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * len(amaxes))(*[t.data_ptr() for t in amaxes])
+    err = _lib().dvl_rows_q_partial(a.data_ptr(), int(a.dtype == torch.float32), ptrs,
+                                    len(amaxes), wt.data_ptr(), aq.data_ptr(),
+                                    ascale.data_ptr(), acc.data_ptr(), m, n, k,
+                                    _stream_ptr(dev))
+    _raise_on(err, "dvl_rows_q_partial")
+    TP_LAUNCHES["rows_q_partial"] += 1
+    return acc, aq, ascale
+
+
+def _tp_reduce_q_cuda(parts, ascale, w_scale, bias, resid, bias_first):
+    _check_x(resid)
+    dev = resid.device
+    n = resid.shape[-1]
+    m = resid.numel() // n
+    if not 1 <= len(parts) <= MAX_TP_SLOTS:
+        raise ValueError(f"tp_reduce_q sums 1 to {MAX_TP_SLOTS} partials, got {len(parts)}")
+    for t in parts:
+        if t.dtype != torch.int32 or t.shape != resid.shape or t.device != dev:
+            raise ValueError(f"tp_reduce_q: each partial must be int32 "
+                             f"{tuple(resid.shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    parts = [t.contiguous() for t in parts]
+    out = torch.empty_like(resid)
+    ptrs = (ctypes.c_void_p * len(parts))(*[t.data_ptr() for t in parts])
+    err = _lib().dvl_tp_reduce_q(
+        ptrs, len(parts), _operand(ascale.reshape(-1), torch.float32, (m,), "ascale",
+                                   dev).data_ptr(),
+        _operand(w_scale.reshape(-1), torch.float32, (n,), "w_scale", dev).data_ptr(),
+        _operand(bias, torch.float32, (n,), "bias", dev).data_ptr(), resid.data_ptr(),
+        out.data_ptr(), m, n, int(bias_first), _stream_ptr(dev))
+    _raise_on(err, "dvl_tp_reduce_q")
+    TP_LAUNCHES["tp_reduce_q"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -326,3 +540,44 @@ def fused_transformer_q(blocks, x: torch.Tensor, heads: int, *,
     for blk in blocks:
         x = fused_resblock_q(blk, x, heads, act_kind=act_kind, causal=causal)
     return x
+
+
+def attention_block_q_heads(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, *, heads: int,
+                            causal: bool = False, wqkv_qt=None):
+    """A head group's int8 attention up to its row-parallel input
+    (``attention_block_q_heads_plain``): (attn, row amax); on a card
+    ``wqkv_qt`` is the slice's [3 g 64, D] transpose (made here when None)."""
+    if _route(x) == "cpu":
+        return attention_block_q_heads_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv,
+                                             heads=heads, causal=causal)
+    return _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, heads, causal,
+                                   wqkv_q.t().contiguous() if wqkv_qt is None else wqkv_qt)
+
+
+def mlp_block_q_cols(x, ln_s, ln_b, w1_q, w1_scale, b1, *, act_kind: str = "quick_gelu",
+                     w1_qt=None):
+    """A slot's int8 MLP up to its hidden (``mlp_block_q_cols_plain``):
+    (f32 hidden columns, row amax); on a card ``w1_qt`` is the columns'
+    [F/m, D] transpose (made here when None)."""
+    if act_kind not in ACT_KINDS:
+        raise ValueError(f"act_kind must be one of {ACT_KINDS}, got {act_kind!r}")
+    if _route(x) == "cpu":
+        return mlp_block_q_cols_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, act_kind=act_kind)
+    return _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind,
+                            w1_q.t().contiguous() if w1_qt is None else w1_qt)
+
+
+def rows_q_partial(a, amaxes, w_q, *, w_qt=None):
+    """``rows_q_partial_plain``: (int32 partial, codes, row scales); on a card
+    ``w_qt`` is the weight rows' [N, K] transpose (``QWeight.qt``)."""
+    if _route(a) == "cpu":
+        return rows_q_partial_plain(a, amaxes, w_q)
+    return _rows_q_partial_cuda(a, amaxes, w_q.t().contiguous() if w_qt is None else w_qt)
+
+
+def tp_reduce_q(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
+    """``tp_reduce_q_plain``: the exact int32 sum of the slots' partials (on
+    resid's device), dequantized once, + bias + resid."""
+    if _route(resid) == "cpu":
+        return tp_reduce_q_plain(parts, ascale, w_scale, bias, resid, bias_first=bias_first)
+    return _tp_reduce_q_cuda(parts, ascale, w_scale, bias, resid, bias_first)

@@ -26,6 +26,11 @@ attention + MLP pair as one int8 block on the [B*T, N, D] layout: the fused
 blocks (K3 + K4 at S = 196) on bfloat16 activations, the plain int8 layers
 at float32.
 
+A tower placed tensor-parallel (``parallel/mesh.shard_quantized_clip``:
+its ``resblocks`` a ``parallel/tensor.TensorParallelQBlocks``) runs the
+same routes split over the model slots, bit-equal to the unsharded tower;
+the divided tower's temporal attention and every stem stay replicated.
+
 The precision ladder (``resolve_rung``, ``resolve_compute``,
 ``hint_implicit_fp32``) is the JAX package's policy: "auto" is int8 for the
 ViT families and bfloat16 for a ModifiedResNet, so the same bundle runs
@@ -148,7 +153,11 @@ def transformer_q(blocks: nn.ModuleList, x: torch.Tensor, heads: int, *,
                   fused: Optional[bool] = None) -> torch.Tensor:
     """The int8 tower: the fused int8 blocks on bfloat16 activations (or
     ``fused=True``), the plain int8 layers otherwise (``causal`` as CLIP's
-    additive text mask there)."""
+    additive text mask there); split over the model slots for a
+    ``TensorParallelQBlocks`` (blocks with a ``run`` method run themselves)."""
+    if hasattr(blocks, "run"):
+        route = "fused" if _use_fused_blocks(x.dtype, fused=fused) else "plain"
+        return blocks.run(x, route=route, act_kind=act_kind, causal=causal)
     if _use_fused_blocks(x.dtype, fused=fused):
         return fused_transformer_q(blocks, x, heads, act_kind=act_kind,
                                    causal=causal)
@@ -389,10 +398,13 @@ def encode_video_divided_q(vq: QuantVideoVisual, videos: torch.Tensor, *,
     x, b, t, n = fit._video_tokens(v, videos, dtype, _video_patch_embed_q(vq, dtype))
     x = layer_norm(v.ln_pre, x)
     use_fused = _use_fused_blocks(x.dtype, fused=fused)
-    for blk, tblk in zip(vq.resblocks, vq.temporal):
+    for i, (blk, tblk) in enumerate(zip(vq.resblocks, vq.temporal)):
         xt = attn_residual_q(tblk, x.transpose(1, 2).reshape(b * n, t, w), heads)
         xs = xt.reshape(b, n, t, w).transpose(1, 2).reshape(b * t, n, w)
-        if use_fused:
+        if hasattr(vq.resblocks, "run"):  # split blocks run their own blocks
+            xs = vq.resblocks.block(i, xs, route="fused" if use_fused else "plain",
+                                    act_kind="gelu")
+        elif use_fused:
             xs = fused_resblock_q(blk, xs, heads, act_kind="gelu")
         else:
             xs = resblock_q(blk, xs, heads, act_kind="gelu")

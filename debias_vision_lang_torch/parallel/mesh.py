@@ -15,9 +15,11 @@ on its slot's device and gathers the outputs:
     ``jax.devices()`` does: each rank computes the shards of its own slots
     and the outputs are all-gathered, so every rank ends with the same
     replicated result (JAX's ``out_specs=P()``);
-  * the model axis exists (``model > 1`` is accepted, and a data shard is
-    computed once, by the slot at model index 0 of its row); the
-    tensor-parallel placements raise (ROADMAP.md queue 1 item 5b).
+  * the model axis: ``dp_shard_map`` computes a data shard once, by the
+    slot at model index 0 of its row; the tensor-parallel placements
+    (``shard_clip_params``, ``shard_quantized_clip``) split every resblock
+    over a row's model slots (``parallel/tensor.py``), and the ``*_pspecs``
+    functions return JAX's PartitionSpec trees for them.
 """
 
 from __future__ import annotations
@@ -34,8 +36,6 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-ROADMAP_TP = "ROADMAP.md queue 1 item 5b (tensor parallel)"
 
 # collectives run, by path ("gloo (host-staged)", "gloo", "nccl"): a reader
 # of a run learns which path its gathers took
@@ -449,35 +449,246 @@ def dp_shard_map(mesh: Mesh, fn: Callable) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel placements (ROADMAP.md queue 1 item 5b)
+# Tensor-parallel placements
 # ---------------------------------------------------------------------------
 
 
-def _tp_not_ported(name: str):
-    raise NotImplementedError(f"{name}: tensor-parallel placement is not ported "
-                              f"yet: {ROADMAP_TP}")
+class PartitionSpec(tuple):
+    """A leaf's placement, as ``jax.sharding.PartitionSpec``: per array
+    dimension the mesh axis it is split over, or None; ``PartitionSpec()``
+    replicates the leaf."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _replicated(tree):
+    return _tree_map(lambda _: P(), tree)
+
+
+def _clip_of(model):
+    """The CLIP of a CLIP / FrozenInTime / DebiasCLIP bundle."""
+    from ..models.clip import CLIP
+
+    clip = getattr(model, "clip", model)
+    if not isinstance(clip, CLIP):
+        raise TypeError(f"expected a CLIP, FrozenInTime or DebiasCLIP bundle, got "
+                        f"{type(model).__name__}")
+    return clip
+
+
+def _param_tree(params):
+    """A CLIP param tree in the JAX package's layout: ``params`` itself (a
+    mapping), or a bundle's, via ``models/convert.to_jax_tree``."""
+    if isinstance(params, dict):
+        return params
+    from ..models.convert import to_jax_tree
+
+    return to_jax_tree(_clip_of(params).state_dict())
 
 
 def clip_param_pspecs(params, model_axis: str = MODEL_AXIS):
-    """Megatron-style specs for a CLIP tree (JAX); not ported."""
-    _tp_not_ported("clip_param_pspecs")
+    """The PartitionSpec tree of a CLIP param tree (JAX's, leaf for leaf):
+    Megatron tensor parallel over the stacked resblocks (leading dim =
+    layers) -- ``wqkv`` [L, D, 3D] and ``bqkv`` column (output dim on the
+    model axis), ``wo`` [L, D, D] row (input dim), ``w1`` / ``b1`` column,
+    ``w2`` row -- and everything else replicated.  ``params``: the JAX
+    layout's tree, or a CLIP / DebiasCLIP bundle.
+
+    ``shard_clip_params`` places by these specs, splitting by heads: slot j
+    takes heads [j g, (j + 1) g) of q, k and v (JAX splits wqkv's packed
+    output dim contiguously), a permutation of wqkv's columns into head
+    groups that computes the same function (``parallel/tensor.py``)."""
+    tree = _param_tree(params)
+
+    def resblock_specs(rb):
+        return {
+            "ln_1": _replicated(rb["ln_1"]),
+            "attn": {"wqkv": P(None, None, model_axis), "bqkv": P(None, model_axis),
+                     "wo": P(None, model_axis, None), "bo": P(None, None)},
+            "ln_2": _replicated(rb["ln_2"]),
+            "mlp": {"w1": P(None, None, model_axis), "b1": P(None, model_axis),
+                    "w2": P(None, model_axis, None), "b2": P(None, None)},
+        }
+
+    specs = {}
+    for key, sub in tree.items():
+        specs[key] = _replicated(sub)
+        if key in ("visual", "text") and isinstance(sub, dict) and "resblocks" in sub:
+            specs[key]["resblocks"] = resblock_specs(sub["resblocks"])
+    return specs
+
+
+def _place(model, towers, mesh: Mesh, split):
+    """A copy of ``model`` on the mesh's first device whose ``towers``' (in
+    the copy: the same attribute paths) resblocks are ``split(tower)``; the
+    resblocks themselves are never copied whole."""
+    tp = {id(t.resblocks): split(t) for t in towers}
+    memo = {k: torch.nn.ModuleList() for k in tp}
+    new = copy.deepcopy(model, memo).to(mesh.first_device)
+    for placeholder, blocks in zip(memo.values(), tp.values()):
+        for mod in new.modules():
+            if getattr(mod, "resblocks", None) is placeholder:
+                mod.resblocks = blocks
+    return new
 
 
 def shard_clip_params(params, mesh: Mesh):
-    """CLIP weights placed by ``clip_param_pspecs`` (JAX); not ported."""
-    _tp_not_ported("shard_clip_params")
+    """A CLIP, FrozenInTime or DebiasCLIP bundle placed tensor-parallel over
+    ``mesh`` (``clip_param_pspecs``'s placement): every tower with resblocks
+    (ViT, SLIP, the Frozen-in-Time towers and every text tower) gets a
+    ``parallel/tensor.TensorParallelBlocks``; everything else (stems,
+    embeddings, LayerNorms, projections, a video tower's temporal
+    attention, a ModifiedResNet) is replicated on the mesh's first device.
+    Returns a new bundle; ``params`` is untouched.  Its forward,
+    ``encode_image`` and ``encode_text`` (and a DebiasCLIP's prompt
+    injection) run the split blocks: float32 on the plain layers, bfloat16
+    on the split kernels.  Raises ValueError where the heads or the MLP
+    hidden columns do not divide over the model axis."""
+    from .tensor import TensorParallelBlocks
+
+    clip = _clip_of(params)
+    towers = [t for t in (clip.visual, clip.text)
+              if isinstance(getattr(t, "resblocks", None), torch.nn.ModuleList)]
+    return _place(params, towers, mesh,
+                  lambda t: TensorParallelBlocks(t.resblocks, mesh, t.cfg.heads))
 
 
 def quantized_resblock_pspecs(model_axis: str = MODEL_AXIS):
-    """Megatron specs for the int8 resblocks (JAX); not ported."""
-    _tp_not_ported("quantized_resblock_pspecs")
+    """Megatron specs of a quantized stacked-resblock tree (JAX's,
+    ``ops/quant.py::quantize_resblocks`` layout: each matmul weight a
+    ``{"q": int8, "scale": f32}`` pair).  Column-parallel weights (wqkv, w1)
+    split the output dim of q and of its per-output-channel scale [L, 1,
+    out]; row-parallel weights (wo, w2) split q's input dim and replicate
+    the scale.  ``shard_quantized_clip`` sums the row-parallel int32
+    partials before it dequantizes once (exact: bit-equal to the unsharded
+    tower), where JAX dequantizes each partial and psums."""
+    col = {"q": P(None, None, model_axis), "scale": P(None, None, model_axis)}
+    row = {"q": P(None, model_axis, None), "scale": P(None, None, None)}
+    ln = {"scale": P(None, None), "bias": P(None, None)}
+    return {
+        "ln_1": ln,
+        "ln_2": ln,
+        "attn": {"wqkv": col, "bqkv": P(None, model_axis), "wo": row, "bo": P(None, None)},
+        "mlp": {"w1": col, "b1": P(None, model_axis), "w2": row, "b2": P(None, None)},
+    }
+
+
+def _qw(w) -> dict:
+    return {"q": w.q, "scale": w.scale}
+
+
+def quantized_tower_tree(tower_q) -> dict:
+    """A quantized ViT, SLIP, Frozen-in-Time or text tower of the port
+    (``ops/quant``'s QuantVisual, QuantVideoVisual, QuantText) as the JAX
+    package's quantized tree (its keys; layers stacked on a leading axis)."""
+    from ..ops.quant import QuantText, QuantVideoVisual, QuantVisual
+
+    def stack(blocks):
+        def s(get):
+            return torch.stack([get(b) for b in blocks])
+
+        return {"ln_1": {"scale": s(lambda b: b.ln_1.scale), "bias": s(lambda b: b.ln_1.bias)},
+                "ln_2": {"scale": s(lambda b: b.ln_2.scale), "bias": s(lambda b: b.ln_2.bias)},
+                "attn": {"wqkv": {"q": s(lambda b: b.wqkv.q), "scale": s(lambda b: b.wqkv.scale)},
+                         "bqkv": s(lambda b: b.bqkv),
+                         "wo": {"q": s(lambda b: b.wo.q), "scale": s(lambda b: b.wo.scale)},
+                         "bo": s(lambda b: b.bo)},
+                "mlp": {"w1": {"q": s(lambda b: b.w1.q), "scale": s(lambda b: b.w1.scale)},
+                        "b1": s(lambda b: b.b1),
+                        "w2": {"q": s(lambda b: b.w2.q), "scale": s(lambda b: b.w2.scale)},
+                        "b2": s(lambda b: b.b2)}}
+
+    def ln(p):
+        return {"scale": p.scale, "bias": p.bias}
+
+    if isinstance(tower_q, QuantText):
+        t = tower_q.text
+        return {"token_embedding": t.token_embedding,
+                "positional_embedding": t.positional_embedding,
+                "resblocks": stack(tower_q.resblocks), "ln_final": ln(t.ln_final),
+                "text_projection": t.text_projection}
+    if isinstance(tower_q, QuantVideoVisual):
+        v = tower_q.visual
+        ta = v.temporal_attn
+        return {"conv1": _qw(tower_q.conv1), "class_embedding": v.class_embedding,
+                "positional_embedding": v.positional_embedding,
+                "temporal_embedding": v.temporal_embedding,
+                "resblocks": stack(tower_q.resblocks), "ln_pre": ln(v.ln_pre),
+                "ln_post": ln(v.ln_post),
+                "proj": {"kernel": v.proj.kernel, "bias": v.proj.bias},
+                "conv1_bias": v.conv1.bias,
+                "temporal_attn": {
+                    "ln_t": {"scale": ta.ln_t.scale, "bias": ta.ln_t.bias},
+                    "attn": {"wqkv": {"q": torch.stack([b.wqkv.q for b in tower_q.temporal]),
+                                      "scale": torch.stack([b.wqkv.scale
+                                                            for b in tower_q.temporal])},
+                             "bqkv": ta.attn.bqkv,
+                             "wo": {"q": torch.stack([b.wo.q for b in tower_q.temporal]),
+                                    "scale": torch.stack([b.wo.scale
+                                                          for b in tower_q.temporal])},
+                             "bo": ta.attn.bo}}}
+    if isinstance(tower_q, QuantVisual):
+        v = tower_q.visual
+        tree = {"conv1": _qw(tower_q.conv1), "conv1_folded": _qw(tower_q.conv1_folded),
+                "conv1_bias_folded": tower_q.conv1_bias_folded,
+                "class_embedding": v.class_embedding,
+                "positional_embedding": v.positional_embedding,
+                "resblocks": stack(tower_q.resblocks), "ln_post": ln(v.ln_post),
+                "proj": v.proj}
+        if v.conv1.bias is not None:
+            tree["conv1_bias"] = v.conv1.bias
+        if v.ln_pre is not None:
+            tree["ln_pre"] = ln(v.ln_pre)
+        return tree
+    raise TypeError(f"quantized_tower_tree takes the port's int8 ViT, SLIP, video or text "
+                    f"tower, got {type(tower_q).__name__}; pass a ModifiedResNet's int8 "
+                    f"tree as a mapping")
 
 
 def quantized_tower_pspecs(tower_q, model_axis: str = MODEL_AXIS):
-    """Specs for a quantized tower tree (JAX); not ported."""
-    _tp_not_ported("quantized_tower_pspecs")
+    """The PartitionSpec tree of a quantized tower (JAX's): its resblocks get
+    ``quantized_resblock_pspecs``, everything else (the quantized stem,
+    embeddings, LayerNorms, projection, a video tree's temporal attention)
+    is replicated.  ``tower_q``: the JAX layout's tree, or one of the port's
+    int8 towers (``quantized_tower_tree``)."""
+    tree = tower_q if isinstance(tower_q, dict) else quantized_tower_tree(tower_q)
+    specs = _replicated(tree)
+    if "resblocks" in tree:
+        specs["resblocks"] = quantized_resblock_pspecs(model_axis)
+    return specs
 
 
 def shard_quantized_clip(qmodel, mesh: Mesh):
-    """A QuantizedCLIP placed tensor-parallel (JAX); not ported."""
-    _tp_not_ported("shard_quantized_clip")
+    """A ``QuantizedCLIP`` placed tensor-parallel: the resblocks of both int8
+    towers (``visual_q``, and ``text_q`` under "int8-text") split over the
+    model axis (``parallel/tensor.TensorParallelQBlocks``), everything else
+    -- the quantized stems, a video tower's temporal attention, a
+    ModifiedResNet's int8 tower, the float base bundle -- replicated on the
+    mesh's first device.  Returns a new bundle; ``qmodel`` is untouched.
+    Each block is bit-equal to the unsharded int8 block: the row-parallel
+    inputs quantize at their whole row's scale and the int32 partials are
+    summed before one dequantize."""
+    from .tensor import TensorParallelQBlocks
+
+    def heads(tq):
+        return (getattr(tq, "visual", None) or tq.text).cfg.heads
+
+    towers = [t for t in (qmodel.visual_q, qmodel.text_q)
+              if t is not None and isinstance(getattr(t, "resblocks", None), torch.nn.ModuleList)]
+    return _place(qmodel, towers, mesh,
+                  lambda t: TensorParallelQBlocks(t.resblocks, mesh, heads(t)))

@@ -159,14 +159,6 @@ class TestMesh:
         assert [i for i, _ in m.data_shards()] == [0, 1, 2, 3]
         assert [i for i, _ in m.data_shards("model")] == [0, 1]
 
-    @pytest.mark.parametrize("name,args", [
-        ("clip_param_pspecs", ({},)), ("shard_clip_params", ({}, None)),
-        ("quantized_resblock_pspecs", ()), ("quantized_tower_pspecs", ({},)),
-        ("shard_quantized_clip", (None, None))])
-    def test_tensor_parallel_names_item_5b(self, name, args):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-            getattr(pmesh, name)(*args)
-
 
 class TestShardingHelpers:
     def test_shard_batch_arrays_splits_in_order(self):
