@@ -15,7 +15,9 @@ Phases (any failure exits non-zero before the final line):
      and HGMMA (K3's wgmma core) in the int8 library, HGMMA (K5's bf16 short
      route) and the TF32 HMMA forms (its 3xTF32 float32 short route) in the
      attention library; the int8 library must hold no mma.sync (HMMA.,
-     IMMA.) at all; and per kernel, each of the six instantiations of K5's
+     IMMA.) in any kernel but KB (a) 1's int8 attention core
+     (attention_qq_kernel), each instantiation of which must hold IMMA;
+     and per kernel, each of the six instantiations of K5's
      long route (attention_long_kernel at bf16 and f32, head dims 64, 128,
      192, heads-first) and, in the bf16 and int8 libraries, the packed one
      K1 and K3 run past 320 keys must hold its own forms, bf16 wgmma
@@ -369,10 +371,29 @@ Phases (any failure exits non-zero before the final line):
      DebiasCLIP placed under (2, 2): the token gradient within 1e-5 of the
      unsharded step's largest magnitude, losses within 1e-6; each TP
      tower's ms beside the unsharded one's.
-The kernels line comes after phase 22 (its SLIP-L rows take phase 17's
+ 23. KB (a) 1-4, the int8 kernel experiments of ``benchmarks/``
+     (``fused_block_q.attention_block_qq`` with its int8 core
+     ``attention_qq_core`` in csrc/attention_qq.cuh, ``mlp_block_q_bf16h``,
+     ``mlp_block_q_var`` at both gelus, ``attention_block_q_var``): each
+     against its twin at B=8 S=197 D=768 H=12 with the residual at x and
+     x/16 -- the output within 1 bf16 ulp of the twin's largest magnitude,
+     every int8 code the twin's quantizer (``quant_rows`` or
+     ``quant_rows_recip``) of the kernel's own rows, the codes off the
+     twin's under phase 6's bars (the qq block's attention codes printed:
+     the core's flipped p codes move them); the int8 core on the kernel's
+     own f32 qkv and at both sides of its key buckets (S = 50-256): its p
+     codes the quantization of its own p, its output the twin's P V on
+     those codes bit for bit and within 1 ulp of the twin's, any element
+     past it on a row with a flipped p code; the variant's core on the long
+     route (S = 400); each timed at B=256 beside K3 / K4 with its bound; the
+     scripts' towers (12 attention or MLP halves of the phase-4 model's
+     quantized resblocks at B=256): launches 12 per entry, cosine against
+     the K3 / K4 tower printed, not gated, and ms beside it.
+The kernels line comes after phase 23 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
-22's (1, 2) towers' and KB (a) 6's its tower's) and gives each kernel's launches, error, time, plain-twin time,
+22's (1, 2) towers' and KB (a) 6's its tower's, KB (a) 1-4's phase 23's
+towers') and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -572,7 +593,8 @@ def print_ptxas(lib: str, log: str) -> None:
         m = re.search(r"Compiling entry function '\w*?"
                       r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
                       r"layer_norm_kernel|quant_rows_kernel|attention_f32_kernel|"
-                      r"attention_long_kernel)(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
+                      r"attention_long_kernel|attention_qq_kernel)"
+                      r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
             args = [{"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "packed",
                      "Lb0E": "heads"}.get(a, a.strip("LiE"))
@@ -607,13 +629,15 @@ def find_cuobjdump():
 # bf16 wgmma and TMA loads for K1/K2, s8 wgmma, TMA loads and the bf16
 # wgmma core for K3/K4, and for K5 the bf16 wgmma core and the TF32 mma.sync
 # of its 3xTF32 float32 routes; and those it must not: no mma.sync (HMMA,
-# IMMA) in the int8 library, whose kernels all run on wgmma
+# IMMA) in the int8 library's kernels, which run on wgmma, but for KB (a)
+# 1's int8 attention core (SASS_MMA_SYNC), whose products are IMMA
 SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
             "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\.", "IMMA": r"\bIMMA\."}
 SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
+SASS_MMA_SYNC = {"fused_block_q": ("attention_qq_kernel", "IMMA")}
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -690,8 +714,23 @@ def sass_check(lib, path) -> None:
           f"(cuobjdump {tool})")
     missing = [op for op in SASS_REQUIRED[lib] if counts[op] == 0]
     check(not missing, f"the {lib} library has no {missing} instructions in its SASS")
-    present = [op for op in SASS_FORBIDDEN.get(lib, ()) if counts[op] > 0]
-    check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
+    if lib not in SASS_MMA_SYNC:
+        present = [op for op in SASS_FORBIDDEN.get(lib, ()) if counts[op] > 0]
+        check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
+        return
+    # per kernel: the forbidden forms in none but the mma.sync kernel, whose
+    # every instantiation holds its own form
+    kernel, op = SASS_MMA_SYNC[lib]
+    funcs = sass_functions(path)
+    own = {name: len(re.findall(SASS_OPS[op], body)) for name, body in funcs.items()
+           if kernel in name}
+    rest = {o: sum(len(re.findall(SASS_OPS[o], body)) for name, body in funcs.items()
+                   if kernel not in name) for o in SASS_FORBIDDEN[lib]}
+    print(f"sass {lib}: {op} per {kernel} instantiation {sorted(own.values())}; "
+          f"{SASS_FORBIDDEN[lib]} in the other kernels {rest}")
+    check(own and min(own.values()) > 0, f"{kernel} has no {op} instructions in its SASS")
+    check(not any(rest.values()), f"the {lib} library's other kernels have {rest} (mma.sync) "
+          f"instructions in their SASS")
 
 
 def block_params(d, device, seed):
@@ -968,13 +1007,16 @@ def q_block_params(d, device, seed):
              {"w1_qt": w1.qt, "w2_qt": w2.qt}))
 
 
-def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False):
+def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False, quant=None):
     """An int8 block kernel against its twin: the output within 1 bf16 ulp of
     the twin's largest magnitude (past 320 keys: K3's attention rows and its
-    own codes' out-projection), every code the twin's quantizer of the
-    kernel's own rows, and the share of codes off the twin's under
-    CODE_SHARE_MAX.  Returns the largest output difference."""
+    own codes' out-projection), every code the twin's quantizer (``quant``,
+    quant_rows by default) of the kernel's own rows, and the share of codes
+    off the twin's under CODE_SHARE_MAX.  Returns the largest output
+    difference."""
     import torch
+
+    quant = quant or fbq.quant_rows
 
     args, qkw = block
     sk, sr = {}, {}
@@ -1009,7 +1051,7 @@ def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False):
     for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as"), ("hq", "h", "hs")):
         if codes not in sk:
             continue
-        q, s = fbq.quant_rows(sk[rows])
+        q, s = quant(sk[rows])
         check(torch.equal(q, sk[codes]) and torch.equal(s, sk[scales]),
               f"{name}: the kernel's {codes} codes are not the quantization of "
               f"its own {rows} rows")
@@ -4936,6 +4978,345 @@ def tp_phase(model, tokenizer, prompts, card, device):
     return [rows[k] for k in TP_REPLACES], wall
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the int8 kernel experiments of benchmarks/ (KB (a) 1-4)
+# ---------------------------------------------------------------------------
+
+KB_S, KB_D, KB_H, KB_F = 197, 768, 12, 3072  # ViT-B/16, the scripts' model
+KB_CHECK_B = 8  # the kernels against their twins; timed at BATCH
+KB_REPLACES = {
+    "attention_block_qq": "benchmarks/attn_int8_cores.py:57",
+    "attention_qq_core": "benchmarks/attn_int8_cores.py:57",
+    "mlp_block_q_bf16h": "benchmarks/q_mlp_bf16h.py:101",
+    "mlp_block_q_var": "benchmarks/q_kernel_variants.py:117",
+    "mlp_block_q_var_bf16_gelu": "benchmarks/q_kernel_variants.py:117",
+    "attention_block_q_var": "benchmarks/q_kernel_variants.py:221",
+}
+# the tower halves of the KB scripts' scans: (entry point name, attention
+# half?, keyword arguments); k3 / k4 are the baselines
+KB_KINDS = {"k3": ("attention_block_q", True, {}), "qq": ("attention_block_qq", True, {}),
+            "attn_var": ("attention_block_q_var", True, {}),
+            "k4": ("mlp_block_q", False, {}), "bf16h": ("mlp_block_q_bf16h", False, {}),
+            "mlp_var": ("mlp_block_q_var", False, {}),
+            "mlp_var_bf16_gelu": ("mlp_block_q_var", False, {"bf16_gelu": True})}
+
+
+def kb_int8_tower(fbq, blocks, kind, heads=KB_H):
+    """One int8 block kind over every quantized resblock (``ops/quant.
+    QuantBlock``), as the KB scripts' scans chain them: the attention
+    halves alone or the MLP halves alone.  Returns x -> the tower's output."""
+    name, attention, kw = KB_KINDS[kind]
+    fn = getattr(fbq, name)
+
+    def run(x):
+        for blk in blocks:
+            if attention:
+                x = fn(x, blk.ln_1.scale, blk.ln_1.bias, blk.wqkv.q, blk.wqkv.scale, blk.bqkv,
+                       blk.wo.q, blk.wo.scale, blk.bo, heads=heads, wqkv_qt=blk.wqkv.qt,
+                       wo_qt=blk.wo.qt, **kw)
+            else:
+                x = fn(x, blk.ln_2.scale, blk.ln_2.bias, blk.w1.q, blk.w1.scale, blk.b1, blk.w2.q,
+                       blk.w2.scale, blk.b2, w1_qt=blk.w1.qt, w2_qt=blk.w2.qt, **kw)
+        return x
+    return run
+
+
+def kb_inputs(b, n=2, seed=23):
+    """The KB scripts' inputs: ``rng.normal(size=(B, S, D)) * 0.5`` in bf16,
+    ``n`` buffers, on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.normal(size=(b, KB_S, KB_D)) * 0.5).astype(np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(n)]
+
+
+def qq_work(b, s, d, h):
+    """KB (a) 1's block: K3's products and the core's Q K^T and P V, all
+    int8; x and out bf16, the weights, scales and biases read once."""
+    ops, nbytes = attention_block_work(b, s, d, weights="int8")
+    return {"int8": ops["int8"] + 4 * b * h * s * s * 64}, nbytes
+
+
+def qq_core_work(b, s, d, h):
+    """The int8 core alone: Q K^T and P V int8, the f32 qkv read and the
+    bf16 attention rows written once."""
+    return {"int8": 4 * b * h * s * s * 64}, b * s * 3 * d * 4 + b * s * d * 2
+
+
+def qq_core_check(fbq, qkv, heads):
+    """The int8 core on the kernel's own f32 qkv against its twin: its p
+    codes are quant_rows of its own p, its output is the twin's P V on
+    those codes bit for bit, and the output within 1 bf16 ulp of the twin's
+    largest magnitude; differences past it counted, each a flipped p code
+    (v codes are checked equal).  Returns the largest output difference."""
+    import torch
+
+    sk, sr = {}, {}
+    got = fbq.attention_qq_core(qkv, heads, scratch=sk)
+    ref = fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16, scratch=sr)
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    check(torch.equal(fbq.quant_rows(sk["p"])[0], sk["pq"])
+          and torch.equal(fbq.quant_rows(sk["p"])[1], sk["psc"]),
+          "attention_qq_core: its p codes are not the quantization of its own p")
+    vq, vsc = fbq.quant_rows(qkv[..., 2 * d:].reshape(b, s, heads, 64).permute(0, 2, 3, 1))
+    own = (sk["pq"].double() @ vq.transpose(-1, -2).double()).float() * sk["psc"] \
+        * vsc.transpose(-1, -2)
+    own = own.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, s, d)
+    check(torch.equal(got, own), "attention_qq_core: the output is not P V on its own codes")
+    p_err = (sk["p"] - sr["p"]).abs().max().item()
+    flips = (sk["pq"] != sr["pq"])
+    err = (got.float() - ref.float()).abs()
+    tol = ulp_bf16(ref.float().abs().max().item())
+    past = err > tol
+    # each output element past 1 ulp sits on a (image, query row, head) whose p row
+    # holds a flipped code
+    rows_flipped = flips.any(-1).permute(0, 2, 1)  # [B, S, H]
+    past_rows = past.reshape(b, s, heads, 64).any(-1)
+    unexplained = (past_rows & ~rows_flipped).sum().item()
+    print(f"kernel attention_qq_core B={b} S={s} on the kernel's own f32 qkv: max_abs_err "
+          f"{err.max().item()} (tolerance {tol} = 1 bf16 ulp of max |twin|); p codes = "
+          f"quant_rows of its own p, output = P V on its own codes (bit-equal); p vs the "
+          f"twin's max |diff| {p_err}; {int(flips.sum())} of {flips.numel()} p codes differ "
+          f"from the twin's (max |diff| {(sk['pq'].int() - sr['pq'].int()).abs().max().item()}); "
+          f"{int(past.sum())} outputs past 1 ulp, {unexplained} of their rows without a "
+          f"flipped p code")
+    check(p_err <= 1e-6, f"attention_qq_core: p off the twin's by {p_err}")
+    check(unexplained == 0, "attention_qq_core: an output past 1 ulp without a flipped p code")
+    return err.max().item()
+
+
+def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars=True):
+    """A KB block kernel against its twin at the timed shape: every int8 code
+    the twin's quantizer of the kernel's own rows (its x and hidden codes
+    within phase 6's bars of the twin's; the qq block's attention codes,
+    which the core's flipped p codes move, printed), the output within 1
+    bf16 ulp of the twin's last step on the kernel's own codes (the out- or
+    down-projection), and within 1 ulp of the twin's own output unless some
+    code differs from the twin's (then the difference is printed).  Returns
+    the largest output difference from the twin."""
+    import torch
+
+    args, qkw = block
+    sk, sr = {}, {}
+    got = kern(x, *args, **kw, **qkw, scratch=sk)
+    ref = plain(x, *args, **kw, scratch=sr)
+    codes_of = (("xq", "xn", "xs"), ("aq", "attn", "as") if attention else ("hq", "h", "hs"))
+    n_diff = 0
+    for codes, rows, scales in codes_of:
+        q, sc = quant(sk[rows])
+        check(torch.equal(q, sk[codes]) and torch.equal(sc, sk[scales]),
+              f"{name}: its {codes} codes are not the quantization of its own {rows} rows")
+        diff = (sk[codes].int() - sr[codes].int()).abs()
+        n_diff += int(diff.ne(0).sum())
+        share = diff.ne(0).float().mean().item()
+        print(f"  {name} {codes}: {share:.3e} differ from the twin's, max |diff| "
+              f"{diff.max().item()}")
+        if code_bars or codes == "xq":
+            check(diff.max().item() <= CODE_DIFF_MAX[codes] and share <= CODE_SHARE_MAX,
+                  f"{name}: {codes} codes drift from the twin's")
+    c, s_ = codes_of[1][0], codes_of[1][2]
+    if attention:
+        own = (x.float() + (fbq.dot_q(sk[c], sk[s_], args[5], args[6]) + args[7].float()))
+    else:
+        own = (x.float() + args[7].float()) + fbq.dot_q(sk[c], sk[s_], args[5], args[6])
+    own = own.to(x.dtype)
+    own_err = (got.float() - own.float()).abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = ulp_bf16(ref.float().abs().max().item())
+    print(f"kernel {name}: max_abs_err {err} (1 bf16 ulp of max |twin| {tol}); vs the twin's "
+          f"last step on its own codes {own_err}; {n_diff} codes off the twin's")
+    check(math.isfinite(err) and own_err <= ulp_bf16(own.float().abs().max().item()),
+          f"{name}: the output is off the twin's last step on its own codes")
+    check(err <= tol or n_diff > 0, f"{name}: past 1 ulp of its twin with the twin's codes")
+    return err
+
+
+def kb_checks(fbq, device, card):
+    """Each KB entry against its twin at B=8 (x and x/16) on the phase-6
+    block's weights, then timed at B=256 beside K3 / K4.  Returns the
+    kernels-line rows (launches set by the caller)."""
+    import torch
+
+    d, heads, s, b = KB_D, KB_H, KB_S, KB_CHECK_B
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=7)
+    g = torch.Generator().manual_seed(23)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(b, s, d, generator=g) * scale).to(device, torch.bfloat16)
+        tag = f"B={b} S={s} D={d} x~N(0,{scale}^2)"
+        # qq: the block (output, x and attention codes), then its core on its own qkv
+        sk, sr = {}, {}
+        got = fbq.attention_block_qq(x, *qa, heads=heads, **qakw, scratch=sk)
+        ref = fbq.attention_block_qq_plain(x, *qa, heads=heads, scratch=sr)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = ulp_bf16(ref.float().abs().max().item())
+        for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as")):
+            q, sc = fbq.quant_rows(sk[rows])
+            check(torch.equal(q, sk[codes]) and torch.equal(sc, sk[scales]),
+                  f"attention_block_qq: its {codes} codes are not the quantization of its "
+                  f"own {rows} rows")
+        xdiff = (sk["xq"].int() - sr["xq"].int()).abs()
+        adiff = (sk["aq"].int() - sr["aq"].int()).abs()
+        print(f"kernel attention_block_qq {tag}: max_abs_err {err} (tolerance {tol} = 1 bf16 "
+              f"ulp of max |twin|); xq, aq codes the quantization of its own rows; xq "
+              f"{xdiff.ne(0).float().mean().item():.3e} differ from the twin's (max "
+              f"{xdiff.max().item()}, bar {CODE_DIFF_MAX['xq']}); aq "
+              f"{adiff.ne(0).float().mean().item():.3e} (max {adiff.max().item()}; the core's "
+              f"flipped p codes move attention rows)")
+        check(math.isfinite(err) and err <= tol, "attention_block_qq: kernel disagrees with its twin")
+        check(xdiff.max().item() <= CODE_DIFF_MAX["xq"]
+              and xdiff.ne(0).float().mean().item() <= CODE_SHARE_MAX,
+              "attention_block_qq: x codes drift from the twin's")
+        qq_core_check(fbq, sk["qkv"], heads)
+        compare_q(fbq, f"attention_block_q_var {tag}", fbq.attention_block_q_var,
+                  fbq.attention_block_q_var_plain, x, (qa, qakw), {"heads": heads},
+                  quant=fbq.quant_rows_recip)
+        compare_q(fbq, f"mlp_block_q_bf16h {tag}", fbq.mlp_block_q_bf16h,
+                  fbq.mlp_block_q_bf16h_plain, x, (qm, qmkw), {})
+        for bf16_gelu in (False, True):
+            compare_q(fbq, f"mlp_block_q_var bf16_gelu={bf16_gelu} {tag}", fbq.mlp_block_q_var,
+                      fbq.mlp_block_q_var_plain, x, (qm, qmkw), {"bf16_gelu": bf16_gelu},
+                      quant=fbq.quant_rows_recip)
+    # the int8 core at both sides of its key buckets, and the variant's
+    # wgmma core on its long route
+    for sb in (50, 64, 65, 77, 128, 129, 224, 225, 256):
+        qkv = torch.randn(2, sb, 3 * d, generator=g).to(device)
+        qq_core_check(fbq, qkv, heads)
+    xl = torch.randn(2, 400, d, generator=g).to(device, torch.bfloat16)
+    compare_q(fbq, "attention_block_q_var B=2 S=400 (the long core)", fbq.attention_block_q_var,
+              fbq.attention_block_q_var_plain, xl, (qa, qakw), {"heads": heads},
+              quant=fbq.quant_rows_recip)
+
+    # timed at the main path's B=256, beside K3 / K4 on the same x
+    b = BATCH
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(device, torch.bfloat16)
+    rows = {}
+    sk = {}
+    want = fbq.attention_block_qq(x, *qa, heads=heads, **qakw, scratch=sk)
+    qkv = sk["qkv"].clone()
+    recip, div = fbq.quant_rows_recip, fbq.quant_rows
+    timed = {  # name: (kernel, twin, work, source, its check at this shape)
+        "attention_block_qq": (
+            lambda: fbq.attention_block_qq(x, *qa, heads=heads, **qakw),
+            lambda: fbq.attention_block_qq_plain(x, *qa, heads=heads),
+            qq_work(b, s, d, heads), "fused_block_q.cu",
+            lambda: kb_compare(fbq, "attention_block_qq (timed)", fbq.attention_block_qq,
+                               fbq.attention_block_qq_plain, x, (qa, qakw), {"heads": heads},
+                               div, True, code_bars=False)),
+        "attention_qq_core": (
+            lambda: fbq.attention_qq_core(qkv, heads),
+            lambda: fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16),
+            qq_core_work(b, s, d, heads), "attention_qq.cuh",
+            lambda: qq_core_check(fbq, qkv, heads)),
+        "attention_block_q_var": (
+            lambda: fbq.attention_block_q_var(x, *qa, heads=heads, **qakw),
+            lambda: fbq.attention_block_q_var_plain(x, *qa, heads=heads),
+            attention_block_work(b, s, d, weights="int8"), "fused_block_q.cu",
+            lambda: kb_compare(fbq, "attention_block_q_var (timed)", fbq.attention_block_q_var,
+                               fbq.attention_block_q_var_plain, x, (qa, qakw), {"heads": heads},
+                               recip, True)),
+        "mlp_block_q_bf16h": (
+            lambda: fbq.mlp_block_q_bf16h(x, *qm, **qmkw),
+            lambda: fbq.mlp_block_q_bf16h_plain(x, *qm),
+            mlp_block_work(b, s, d, 4 * d, weights="int8"), "fused_block_q.cu",
+            lambda: kb_compare(fbq, "mlp_block_q_bf16h (timed)", fbq.mlp_block_q_bf16h,
+                               fbq.mlp_block_q_bf16h_plain, x, (qm, qmkw), {}, div, False)),
+        "mlp_block_q_var": (
+            lambda: fbq.mlp_block_q_var(x, *qm, **qmkw),
+            lambda: fbq.mlp_block_q_var_plain(x, *qm),
+            mlp_block_work(b, s, d, 4 * d, weights="int8"), "fused_block_q.cu",
+            lambda: kb_compare(fbq, "mlp_block_q_var (timed)", fbq.mlp_block_q_var,
+                               fbq.mlp_block_q_var_plain, x, (qm, qmkw), {}, recip, False)),
+        "mlp_block_q_var_bf16_gelu": (
+            lambda: fbq.mlp_block_q_var(x, *qm, bf16_gelu=True, **qmkw),
+            lambda: fbq.mlp_block_q_var_plain(x, *qm, bf16_gelu=True),
+            mlp_block_work(b, s, d, 4 * d, weights="int8"), "fused_block_q.cu",
+            lambda: kb_compare(fbq, "mlp_block_q_var bf16_gelu (timed)", fbq.mlp_block_q_var,
+                               fbq.mlp_block_q_var_plain, x, (qm, qmkw), {"bf16_gelu": True},
+                               recip, False)),
+    }
+    base = {"attention": cuda_ms(lambda: fbq.attention_block_q(x, *qa, heads=heads, **qakw)),
+            "mlp": cuda_ms(lambda: fbq.mlp_block_q(x, *qm, **qmkw))}
+    for name, (kern, plain, work, src, compare) in timed.items():
+        err = compare()
+        bound_ms, bound_by = bound(*work)
+        rows[name] = {"name": name, "case": f"KB ViT-B/16 B={b} S={s} D={d} H={heads}",
+                      "route": "cuda", "source": f"debias_vision_lang_torch/csrc/{src}",
+                      "replaces": KB_REPLACES[name], "launches": None, "max_abs_err": err,
+                      "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        r = rows[name]
+        k = base["attention" if "attention" in name else "mlp"]
+        print(f"time {name} B={b} S={s} D={d}: kernel {r['ms']:.4f} ms (K3 / K4 beside it "
+              f"{k:.4f} ms, {r['ms'] / k:.3f}x), plain twin {r['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; the kernel at {bound_ms / r['ms']:.1%} of it) "
+              f"({card})")
+    del x, qkv, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kb_int8_phase(model, card, device):
+    """Phase 23: KB (a) 1-4 -- each entry against its twin and timed (
+    ``kb_checks``), then the scripts' towers on the phase-4 model's
+    resblocks quantized by ``quantize_resblocks``: 12 attention halves
+    through K3, qq and the variant, 12 MLP halves through K4, bf16h and the
+    variant at both gelus, at B=256 on the scripts' inputs; each tower's
+    launches counted (12 per entry; 12 int8 cores inside the qq tower), its
+    cosine against the K3 / K4 tower printed (a finding, not a gate) and
+    its ms beside the baseline's.  Returns (kernels-line rows, wall)."""
+    import torch
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import quantize_resblocks
+
+    t_phase = time.perf_counter()
+    rows = kb_checks(fbq, device, card)
+    walls = {"kernels": time.perf_counter() - t_phase}
+    t = time.perf_counter()
+    blocks = quantize_resblocks(model.clip.visual.resblocks)
+    x0 = kb_inputs(BATCH, n=1)[0]
+    towers = {kind: kb_int8_tower(fbq, blocks, kind) for kind in KB_KINDS}
+    with torch.no_grad():
+        outs, launches = {}, {}
+        for kind, run in towers.items():
+            reset_all(fb, fbq)
+            outs[kind] = run(x0)
+            torch.cuda.synchronize()
+            launches[kind] = nonzero({**fbq.LAUNCHES, **fbq.KB_LAUNCHES})
+            check(bool(torch.isfinite(outs[kind].float()).all()), f"phase 23: {kind} tower "
+                  f"not finite")
+        want = {"k3": {"attention_block_q": LAYERS}, "k4": {"mlp_block_q": LAYERS},
+                "qq": {"attention_block_qq": LAYERS, "attention_qq_core": LAYERS},
+                "attn_var": {"attention_block_q_var": LAYERS},
+                "bf16h": {"mlp_block_q_bf16h": LAYERS}, "mlp_var": {"mlp_block_q_var": LAYERS},
+                "mlp_var_bf16_gelu": {"mlp_block_q_var_bf16_gelu": LAYERS}}
+        print(f"phase 23 tower launches: {launches}")
+        check(launches == want, f"phase 23: tower launches {launches}, expected {want}")
+        for kind in ("qq", "attn_var", "bf16h", "mlp_var", "mlp_var_bf16_gelu"):
+            base = "k3" if KB_KINDS[kind][1] else "k4"
+            cos = cosine(outs[kind].float(), outs[base].float())
+            ms = cuda_ms(lambda: towers[kind](x0), iters=3)
+            ms_base = cuda_ms(lambda: towers[base](x0), iters=3)
+            print(f"phase 23 {kind} tower, {LAYERS} {KB_KINDS[kind][0]} at B={BATCH}: cosine "
+                  f"{cos:.7f} against the {base.upper()} tower (a finding, not a gate); "
+                  f"{ms:.3f} ms vs {ms_base:.3f} ms ({ms / ms_base:.3f}x) ({card})")
+    for name, row in rows.items():
+        kind = {"attention_block_qq": "qq", "attention_qq_core": "qq",
+                "attention_block_q_var": "attn_var", "mlp_block_q_bf16h": "bf16h",
+                "mlp_block_q_var": "mlp_var", "mlp_block_q_var_bf16_gelu": "mlp_var_bf16_gelu"
+                }[name]
+        row["launches"] = launches[kind][name]
+    walls["towers"] = time.perf_counter() - t
+    del outs, blocks, x0
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 23 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; total {wall:.2f} s ({card})")
+    return [rows[k] for k in KB_REPLACES], wall
+
+
 def main() -> int:
     try:
         import torch
@@ -5335,6 +5716,9 @@ def main() -> int:
     # 22. tensor parallel: the split kernels and KB (a) 6, the float32,
     # bf16 and int8 towers under virtual (data, model) meshes, the dryrun step
     tp_rows, tp_s = tp_phase(model, tokenizer, prompts, card, device)
+    # 23. KB (a) 1-4, the int8 kernel experiments: each against its twin,
+    # timed beside K3 / K4, and on the scripts' towers of the phase-4 model
+    kb_rows, kb_s = kb_int8_phase(model, card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -5342,12 +5726,12 @@ def main() -> int:
             row["launches"] = fit_launches[row["name"]]
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
-    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows}))
+    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows + kb_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
-          f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s"
+          f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

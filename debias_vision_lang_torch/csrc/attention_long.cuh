@@ -286,7 +286,8 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 // `D`, `heads` and `causal` are the packed source's (model width, heads per
 // image, CLIP's causal flag); the heads-first source reads the mask `tm_m`.
 // `norm_after` (KB (a) 6's function, attention_wgmma.cuh): p = exp(s - m)
-// unnormalised, rounded for P @ V, and O scaled by 1 / l before the store.
+// unnormalised, rounded for P @ V, and O scaled by 1 / l before the store
+// (norm_after = 2: O divided by l).
 template <typename T, int C, bool PACKED>
 __global__ void __launch_bounds__(LongCfg<T, C, PACKED>::THREADS, LongCfg<T, C, PACKED>::BLOCKS)
 attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -478,7 +479,8 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
       l_hi += expm<F32>(sc[nt * 4 + 2], s_hi) + expm<F32>(sc[nt * 4 + 3], s_hi);
     }
   }
-  const float inv_lo = 1.0f / quad_sum(l_lo), inv_hi = 1.0f / quad_sum(l_hi);
+  const float sum_lo = quad_sum(l_lo), sum_hi = quad_sum(l_hi);
+  const float inv_lo = 1.0f / sum_lo, inv_hi = 1.0f / sum_hi;
   const float p_lo = norm_after ? 1.f : inv_lo, p_hi = norm_after ? 1.f : inv_hi;
 
   // 2. p = exp(s - m) / l, rounded to T, and O += p V
@@ -561,7 +563,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int row_lo = q0 + r_lo, row_hi = q0 + r_hi;
-  const float o_lo = norm_after ? inv_lo : 1.f, o_hi = norm_after ? inv_hi : 1.f;
+  const float o_lo = norm_after == 1 ? inv_lo : 1.f, o_hi = norm_after == 1 ? inv_hi : 1.f;
+  // the stored value: scaled by o_lo / o_hi, or (norm_after = 2) divided by the row sum
+  auto fin = [norm_after](float v, float o_s, float sum) {
+    return norm_after == 2 ? __fdiv_rn(v, sum) : v * o_s;
+  };
   T* ob = out + obase + 2 * t;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -569,9 +575,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int on = 0; on < 8; ++on) {
       const int col = c * LT + on * 8;
       if (row_lo < S)
-        store_pair(ob + row_lo * ld + col, o[c][on * 4] * o_lo, o[c][on * 4 + 1] * o_lo);
+        store_pair(ob + row_lo * ld + col, fin(o[c][on * 4], o_lo, sum_lo),
+                   fin(o[c][on * 4 + 1], o_lo, sum_lo));
       if (row_hi < S)
-        store_pair(ob + row_hi * ld + col, o[c][on * 4 + 2] * o_hi, o[c][on * 4 + 3] * o_hi);
+        store_pair(ob + row_hi * ld + col, fin(o[c][on * 4 + 2], o_hi, sum_hi),
+                   fin(o[c][on * 4 + 3], o_hi, sum_hi));
     }
   }
 }

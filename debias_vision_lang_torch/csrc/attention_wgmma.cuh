@@ -15,7 +15,10 @@
 // benchmarks/attn_variants.py: q pre-scaled by hd^-0.5 log2 e, exp2): the
 // caller passes scale = ln 2, so exp(s ln 2 - m ln 2) is exp2(s - m) to f32
 // rounding, and norm_after, which rounds the unnormalised exponentials to
-// bf16 for P @ V and scales the f32 output rows by 1 / row sum after it.
+// bf16 for P @ V and scales the f32 output rows by 1 / row sum after it;
+// norm_after = 2 (KB (a) 4, attn_q_kernel_var of benchmarks/
+// q_kernel_variants.py, at scale 1/8: exp(s / 8 - m / 8) is its exp2 at
+// 8^-1 log2 e to f32 rounding) divides them by the row sum instead.
 // The packed qkv's rows are `ld` elements apart (3D, or a tensor-parallel
 // slot's q | k | v slice padded to the GEMM's 128-column tile).
 //
@@ -173,7 +176,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t pa[NJ * 4];
 #pragma unroll
     for (int i = 0; i < NJ * 4; ++i) pa[i] = 0u;
-    float r_lo = 1.f, r_hi = 1.f;  // 1 / the f32 row sums
+    float l_lo = 1.f, l_hi = 1.f, r_lo = 1.f, r_hi = 1.f;  // the f32 row sums, 1 / them
     if (qt * 64 + warp * 16 < S) {
       // K5: rows past S compute on row S-1's mask and are never stored
       const float *mlo = nullptr, *mhi = nullptr;
@@ -216,8 +219,10 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           s_hi += hi;
         }
       }
-      r_lo = 1.0f / quad_sum(s_lo);
-      r_hi = 1.0f / quad_sum(s_hi);
+      l_lo = quad_sum(s_lo);
+      l_hi = quad_sum(s_hi);
+      r_lo = 1.0f / l_lo;
+      r_hi = 1.0f / l_hi;
       const float p_lo = norm_after ? 1.f : r_lo, p_hi = norm_after ? 1.f : r_hi;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -242,7 +247,10 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
-    if (norm_after) {  // accumulator i holds row hi when bit 1 of i is set
+    if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
+    } else if (norm_after) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? r_hi : r_lo;
     }
@@ -299,7 +307,8 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
 // ops/fused_block.py::core_route names the same choice.  K1 and K3 pass
 // ld = 3D and scale = 1/8; a tensor-parallel slot passes its D = 64 g over
 // its g heads and its padded slice's ld; KB (a) 6 passes scale = ln 2 and
-// norm_after (see the top of this file).
+// norm_after (see the top of this file); KB (a) 4 scale = 1/8 with
+// norm_after = 2.
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
                                    int causal, cudaStream_t st, int ld, float scale,
                                    int norm_after) {

@@ -16,6 +16,26 @@
 // block's (the same global row scale) and the int32 sum is the unsharded K
 // loop's, so a tensor-parallel block is bit-equal to K3 / K4.
 //
+// And the int8 kernel experiments of benchmarks/ (KB (a) 1-4), each K3's or
+// K4's launch sequence with one change (attention_block_q_impl /
+// mlp_block_q_impl):
+//   dvl_attention_block_qq     <- attn_int8_cores.py::attention_block_qq
+//                                 (_attn_qq_kernel): qkv kept f32 (the
+//                                 EQ_BIAS_F32 epilogue) into the int8 core
+//                                 of attention_qq.cuh (dvl_attention_qq_core
+//                                 alone), the library's only IMMA;
+//   dvl_mlp_block_q_kb         <- q_mlp_bf16h.py::tower (pipe_kernel, bf16h):
+//                                 bf16(deq + b1) (EQ_BIAS) with quick_gelu in
+//                                 the hidden's quantize pass (2 bytes read a
+//                                 value, not 4); q_kernel_variants.py::
+//                                 make_mlp_var (mlp_q_kernel_var): the
+//                                 reciprocal quantizer, the bf16 quick_gelu in
+//                                 EQ_BIAS_QGELU_BF16;
+//   dvl_attention_block_q_var  <- q_kernel_variants.py::make_attn_var
+//                                 (attn_q_kernel_var, both packings): the
+//                                 reciprocal quantizer, the wgmma core at
+//                                 1/8 on exp dividing by the row sum after P V.
+//
 // Numerics are the TPU kernels' (the plain twins in ops/fused_block_q.py are
 // the specification):
 //   * per-row dynamic int8 (_quant_rows): scale = max(amax / 127, 1e-8) over
@@ -67,6 +87,7 @@
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
+#include "attention_qq.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
@@ -83,10 +104,15 @@ constexpr int QR_THREADS = 128;
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
-template <typename T, int PER>
+// RECIP (KB (a) 3 / 4's _quant_rows_recip): code = rint(x * inv) with inv =
+// 1 / scale, one IEEE reciprocal per row and a rounded product, in place of
+// the IEEE division per element.  QGELU (KB (a) 2): the row is quick_gelu of
+// the (bf16) input, applied here after the load, and written to act_out as
+// f32 when act_out is not null.
+template <typename T, int PER, bool RECIP, bool QGELU>
 __global__ void __launch_bounds__(QR_THREADS)
 quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                  int n) {
+                  float* __restrict__ act_out, int n) {
   __shared__ float red[QR_THREADS / 32];
   const long long row = blockIdx.x;
   const T* xr = x + row * n;
@@ -96,6 +122,12 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __rest
   for (int j = 0; j < PER; ++j) {
     const int i = threadIdx.x + j * QR_THREADS;
     v[j] = i < n ? to_f32(xr[i]) : 0.f;
+    if constexpr (QGELU) {
+      if (i < n) {
+        v[j] = quick_gelu(v[j]);
+        if (act_out) act_out[row * n + i] = v[j];
+      }
+    }
     amax = fmaxf(amax, fabsf(v[j]));
   }
   amax = warp_max(amax);
@@ -105,24 +137,31 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __rest
 #pragma unroll
   for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
   const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  const float inv = __frcp_rn(s);
   int8_t* qr = q + row * n;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int i = threadIdx.x + j * QR_THREADS;
-    if (i < n)
-      qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v[j], s)), -127.f), 127.f));
+    const float y = RECIP ? __fmul_rn(v[j], inv) : __fdiv_rn(v[j], s);
+    if (i < n) qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
   }
   if (threadIdx.x == 0) scale[row] = s;
+}
+
+template <bool RECIP, bool QGELU, typename T>
+cudaError_t launch_quant_rows_mode(const T* x, int8_t* q, float* scale, float* act_out, int rows,
+                                   int n, cudaStream_t st) {
+  if (n <= 8 * QR_THREADS)
+    quant_rows_kernel<T, 8, RECIP, QGELU><<<rows, QR_THREADS, 0, st>>>(x, q, scale, act_out, n);
+  else
+    quant_rows_kernel<T, 32, RECIP, QGELU><<<rows, QR_THREADS, 0, st>>>(x, q, scale, act_out, n);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_quant_rows(const T* x, int8_t* q, float* scale, int rows, int n,
                               cudaStream_t st) {
-  if (n <= 8 * QR_THREADS)
-    quant_rows_kernel<T, 8><<<rows, QR_THREADS, 0, st>>>(x, q, scale, n);
-  else
-    quant_rows_kernel<T, 32><<<rows, QR_THREADS, 0, st>>>(x, q, scale, n);
-  return cudaGetLastError();
+  return launch_quant_rows_mode<false, false>(x, q, scale, nullptr, rows, n, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -138,7 +177,21 @@ enum EpilogueQ {
   EQ_BIAS_GELU = 3,   // f32 erf_gelu_rn(deq + bias), A&S 7.1.26    (mlp up)
   EQ_RESID_BIAS = 4,  // bf16((resid + bias) + deq)                 (mlp down)
   EQ_I32 = 5,         // int32 acc: a row-parallel slot's partial   (out, down)
+  EQ_BIAS_F32 = 6,    // f32 deq + bias                             (KB (a) 1's qkv)
+  EQ_BIAS_QGELU_BF16 = 7,  // f32 quick_gelu_bf16(deq + bias)       (KB (a) 3's mlp up)
 };                    // deq = (acc * row_scale) * channel_scale
+// KB (a) 2's bf16 pre-activation bf16(deq + b1) is EQ_BIAS's output.
+
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// mlp_q_kernel_var's bf16 quick_gelu as XLA evaluates it (the twin
+// quick_gelu_bf16): hb = bf16(h); hb / bf16(1 + bf16(exp(bf16(bf16(-1.702)
+// hb)))), the last division in f32.
+__device__ __forceinline__ float quick_gelu_bf16(float h) {
+  const float hb = bf16_round(h);
+  const float e = bf16_round(expf(bf16_round(__fmul_rn(-1.703125f, hb))));
+  return __fdiv_rn(hb, bf16_round(__fadd_rn(1.0f, e)));
+}
 
 // The A&S 7.1.26 erf gelu of common.cuh with every operation rounded on its
 // own, in the order the twin's torch ops evaluate it.
@@ -266,12 +319,17 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     float d[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
-    if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU) {
+    if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_F32 ||
+                  EPI == EQ_BIAS_QGELU_BF16) {
       float hv[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        hv[i] = EPI == EQ_BIAS_QGELU ? quick_gelu(__fadd_rn(d[i], bb[i]))
-                                     : erf_gelu_rn(__fadd_rn(d[i], bb[i]));
+      for (int i = 0; i < 8; ++i) {
+        const float pre = __fadd_rn(d[i], bb[i]);
+        if constexpr (EPI == EQ_BIAS_QGELU) hv[i] = quick_gelu(pre);
+        else if constexpr (EPI == EQ_BIAS_GELU) hv[i] = erf_gelu_rn(pre);
+        else if constexpr (EPI == EQ_BIAS_QGELU_BF16) hv[i] = quick_gelu_bf16(pre);
+        else hv[i] = pre;
+      }
       float* out = static_cast<float*>(C) + m * N + n;
       *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(hv);
       *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(hv + 4);
@@ -425,40 +483,63 @@ tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
-}  // namespace
-
-extern "C" {
+// The attention block's variants: K3, KB (a) 1 (qq) and KB (a) 4 (var).
+enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2 };
 
 // out = x + (deq(q(attn) @ wo_q) + bo), attn = MHA over
 // bf16(deq(q(bf16(LN(x))) @ wqkv_q) + bqkv).  x, out [B, S, D] bf16; wqkv_t
 // [3D, D], wo_t [D, D] int8 (the [in, out] weights transposed); sqkv [3D],
 // so [D] channel scales, ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch: xn,
 // attn [B*S, D] bf16; xq, aq [B*S, D] int8; xs, ascale [B*S] f32; qkv
-// [B*S, 3D] bf16.  D == heads * 64, D % 128 == 0 (the s8 GEMM's N and K),
-// S >= 1 (the core's whole score rows up to 320 keys, its long route past).
-int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
-                          const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
-                          const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
-                          void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
-                          int causal, void* stream) {
+// [B*S, 3D] bf16 (AQ_QQ: f32).  D == heads * 64, D % 128 == 0 (the s8 GEMM's
+// N and K), S >= 1 (the core's whole score rows up to 320 keys, its long
+// route past; AQ_QQ's int8 core up to QQ_MAX_SEQ).
+// AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh.
+// AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
+// the row sum after P V (norm_after = 2).  Neither takes the causal mask.
+int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
+                           const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
+                           const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
+                           void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
+                           int causal, int variant, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S;
+  if (variant != AQ_K3 && causal) return (int)cudaErrorInvalidValue;
+  const bool recip = variant == AQ_VAR;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                 static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, D, st);
+  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
+                                                  static_cast<int8_t*>(xq),
+                                                  static_cast<float*>(xs), nullptr, M, D, st)
+            : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                                static_cast<float*>(xs), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-                              static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
-                              static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D, st);
+  if (variant == AQ_QQ) {
+    e = launch_gemm_s8<EQ_BIAS_F32>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+                                    static_cast<const int8_t*>(wqkv_t),
+                                    static_cast<const float*>(sqkv),
+                                    static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D,
+                                    st);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(attn), nullptr,
+                            nullptr, nullptr, B, S, D, heads, 3 * D, st);
+  } else {
+    e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+                                static_cast<const int8_t*>(wqkv_t),
+                                static_cast<const float*>(sqkv), static_cast<const float*>(bqkv),
+                                nullptr, qkv, M, 3 * D, D, st);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
+                               heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), recip ? 2 : 0);
+  }
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                             heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), 0);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
-                        static_cast<float*>(ascale), M, D, st);
+  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(attn),
+                                                  static_cast<int8_t*>(aq),
+                                                  static_cast<float*>(ascale), nullptr, M, D, st)
+            : launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
+                                static_cast<float*>(ascale), M, D, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm_s8<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
                                     static_cast<const float*>(ascale),
@@ -468,45 +549,138 @@ int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, con
   return (int)e;
 }
 
+// The MLP block's variants: K4, KB (a) 2 (bf16h) and KB (a) 3 (var, with
+// or without the bf16 quick_gelu).
+enum MlpQVariant { MQ_K4 = 0, MQ_BF16H = 1, MQ_VAR = 2, MQ_VAR_BF16_GELU = 3 };
+
 // out = (x + b2) + deq(q(h) @ w2_q), h = act(deq(q(bf16(LN(x))) @ w1_q) + b1)
 // in f32.  x, out [M, D] bf16; w1_t [F, D], w2_t [D, F] int8 (transposed);
 // s1, b1 [F], s2, b2, ln_s, ln_b [D] f32.  Scratch: xn [M, D] bf16, xq
 // [M, D] int8, xs [M] f32, h [M, F] f32, hq [M, F] int8, hs [M] f32.
 // act_kind 0 = quick_gelu, 1 = erf gelu (A&S).  D % 128 == 0, F % 128 == 0
 // (the s8 wgmma GEMM's N and K), F <= 4096.
-int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
-                    const void* s1, const void* b1, const void* w2_t, const void* s2,
-                    const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
-                    void* hs, int M, int D, int F, int act_kind, void* stream) {
+// MQ_BF16H: h [M, F] bf16 holds bf16(deq + b1) (EQ_BIAS) and the hidden's
+// quantize pass applies quick_gelu (g, if not null, [M, F] f32 receives
+// it).  MQ_VAR / MQ_VAR_BF16_GELU: the reciprocal quantizer on x and h,
+// quick_gelu in f32 (EQ_BIAS_QGELU) or bf16 (EQ_BIAS_QGELU_BF16).  These
+// three run quick_gelu only.
+int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
+                     const void* s1, const void* b1, const void* w2_t, const void* s2,
+                     const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
+                     void* hs, void* g, int M, int D, int F, int act_kind, int variant,
+                     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
+  const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
+  const int8_t* w1 = static_cast<const int8_t*>(w1_t);
+  const float *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1);
+  const float* fxs = static_cast<const float*>(xs);
+  const int8_t* ixq = static_cast<const int8_t*>(xq);
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                 static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, D, st);
+  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
+                                                  static_cast<int8_t*>(xq),
+                                                  static_cast<float*>(xs), nullptr, M, D, st)
+            : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                                static_cast<float*>(xs), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  if (act_kind == 0)
-    e = launch_gemm_s8<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
-                                     static_cast<const float*>(xs),
-                                     static_cast<const int8_t*>(w1_t),
-                                     static_cast<const float*>(s1),
-                                     static_cast<const float*>(b1), nullptr, h, M, F, D, st);
+  switch (variant) {
+    case MQ_BF16H:
+      e = launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+      break;
+    case MQ_VAR_BF16_GELU:
+      e = launch_gemm_s8<EQ_BIAS_QGELU_BF16>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+      break;
+    default:
+      e = act_kind == 0 ? launch_gemm_s8<EQ_BIAS_QGELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st)
+                        : launch_gemm_s8<EQ_BIAS_GELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (variant == MQ_BF16H)
+    e = launch_quant_rows_mode<false, true>(static_cast<const bf16*>(h), static_cast<int8_t*>(hq),
+                                            static_cast<float*>(hs), static_cast<float*>(g), M, F,
+                                            st);
+  else if (recip)
+    e = launch_quant_rows_mode<true, false>(static_cast<const float*>(h), static_cast<int8_t*>(hq),
+                                            static_cast<float*>(hs), nullptr, M, F, st);
   else
-    e = launch_gemm_s8<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
-                                    static_cast<const float*>(xs),
-                                    static_cast<const int8_t*>(w1_t),
-                                    static_cast<const float*>(s1),
-                                    static_cast<const float*>(b1), nullptr, h, M, F, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
-                        static_cast<float*>(hs), M, F, st);
+    e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
+                          static_cast<float*>(hs), M, F, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm_s8<EQ_RESID_BIAS>(static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
                                    static_cast<const int8_t*>(w2_t), static_cast<const float*>(s2),
                                    static_cast<const float*>(b2), static_cast<const bf16*>(x),
                                    out, M, D, F, st);
   return (int)e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3 (attention_block_q_impl's AQ_K3).
+int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
+                          const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
+                          const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
+                          void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
+                          int causal, void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_K3, stream);
+}
+
+// KB (a) 1, attention_block_qq: K3's arguments, qkv [B*S, 3D] f32, causal 0.
+int dvl_attention_block_qq(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
+                           const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
+                           const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
+                           void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
+                           int causal, void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_QQ, stream);
+}
+
+// KB (a) 4, attn_q_kernel_var: K3's arguments, causal 0.
+int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b,
+                              const void* wqkv_t, const void* sqkv, const void* bqkv,
+                              const void* wo_t, const void* so, const void* bo, void* out,
+                              void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
+                              void* ascale, int B, int S, int D, int heads, int causal,
+                              void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_VAR, stream);
+}
+
+// KB (a) 1's int8 core alone: qkv [B*S, 3D] f32 -> out [B*S, D] bf16;
+// p_out [B, H, S, S] f32, pq_out [B, H, S, S] int8 and psc_out [B, H, S]
+// f32 may be null.  Head dim 64, 1 <= S <= 256.
+int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out, void* psc_out,
+                          int B, int S, int D, int heads, void* stream) {
+  return (int)launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(out),
+                                  static_cast<float*>(p_out), static_cast<int8_t*>(pq_out),
+                                  static_cast<float*>(psc_out), B, S, D, heads, 3 * D,
+                                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K4 (mlp_block_q_impl's MQ_K4).
+int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
+                    const void* s1, const void* b1, const void* w2_t, const void* s2,
+                    const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
+                    void* hs, int M, int D, int F, int act_kind, void* stream) {
+  return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
+                          nullptr, M, D, F, act_kind, MQ_K4, stream);
+}
+
+// KB (a) 2 / 3: K4's arguments, g (MQ_BF16H's f32 activation, or null)
+// before M, and the variant (1 bf16h, 2 reciprocal quantizer, 3 reciprocal
+// quantizer and bf16 quick_gelu) in place of act_kind.
+int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
+                       const void* s1, const void* b1, const void* w2_t, const void* s2,
+                       const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
+                       void* hs, void* g, int M, int D, int F, int variant, void* stream) {
+  if (variant < MQ_BF16H || variant > MQ_VAR_BF16_GELU) return (int)cudaErrorInvalidValue;
+  return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
+                          g, M, D, F, 0, variant, stream);
 }
 
 // A tensor-parallel slot's int8 attention up to its out-projection: LN ->

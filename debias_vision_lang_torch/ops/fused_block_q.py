@@ -41,6 +41,20 @@ slot's head group (``attention_block_q_heads``) or hidden columns
 of every slot's amax: the unsharded block's scale, so its codes) into a raw
 int32 partial; ``tp_reduce_q`` sums the partials exactly (the unsharded K
 loop's int32 sum) and dequantizes once -- bit-equal to K3 / K4.
+
+The int8 kernel experiments of ``benchmarks/`` (KB (a) 1-4; ``KB_LAUNCHES``),
+each K3 or K4 with one change, on the same launches:
+
+  attention_block_qq     (attn_int8_cores.py) qkv kept f32; the core's QK^T
+                         and P V int8 (``attention_qq_core``: q, k per row,
+                         p per row, v per column over the keys)
+  mlp_block_q_bf16h      (q_mlp_bf16h.py) the up-projection's deq + b1
+                         rounded to bf16 before quick_gelu and the quantize
+  mlp_block_q_var        (q_kernel_variants.py) the reciprocal quantizer
+                         (``quant_rows_recip``), optionally a bf16 quick_gelu
+  attention_block_q_var  (q_kernel_variants.py) the reciprocal quantizer,
+                         exp2 at hd^-0.5 log2 e, the row sum divided out
+                         after P V
 """
 
 from __future__ import annotations
@@ -52,9 +66,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..models.layers import ln_f32
-from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, _act, _check_x, _operand, _raise_on,
-                          _route, _stream_ptr, attention_core, core_route, padded_n)
+from ..models.layers import ln_f32, quick_gelu
+from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, _act, _check_x, _head_qkv, _operand,
+                          _raise_on, _route, _stream_ptr, attention_core, core_route, padded_n)
 
 LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
@@ -65,12 +79,20 @@ TP_LAUNCHES: Dict[str, int] = {"attention_block_q_heads": 0,
                                "mlp_block_q_cols": 0,
                                "rows_q_partial": 0,
                                "tp_reduce_q": 0}
+KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
+                               "attention_qq_core": 0,
+                               "mlp_block_q_bf16h": 0,
+                               "mlp_block_q_var": 0,
+                               "mlp_block_q_var_bf16_gelu": 0,
+                               "attention_block_q_var": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
+QQ_MAX_SEQ = 256  # keys of a score row the int8 core (csrc/attention_qq.cuh) holds in registers
+LOG2E = 1.4426950408889634
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -94,6 +116,20 @@ def quant_rows(x32: torch.Tensor):
     amax = x32.abs().amax(-1, keepdim=True)
     scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quant_rows_recip(x32: torch.Tensor):
+    """``_quant_rows_recip`` of benchmarks/q_kernel_variants.py: quant_rows's
+    scale, and q = clip(round_half_even(x * inv), -127, 127) with inv =
+    1 / scale, one IEEE division per row (a tensor divisor, as ``true_div``:
+    torch's CUDA division by a Python number multiplies by its reciprocal).
+    A code can differ from quant_rows's where x * inv rounds across a
+    half."""
+    amax = x32.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
+    inv = torch.ones((), dtype=scale.dtype, device=scale.device) / scale
+    q = torch.clamp(torch.round(x32 * inv), -127, 127).to(torch.int8)
     return q, scale
 
 
@@ -221,6 +257,136 @@ def tp_reduce_q_plain(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
     return (((r + b) + deq) if bias_first else (r + (deq + b))).to(resid.dtype)
 
 
+# KB (a) 1-4: the twins follow their Pallas bodies line for line, with the
+# roundings XLA's CPU backend performs (the excess-precision rewrite drops
+# the last bf16 rounding of a bf16 chain whose result goes straight back to
+# f32: the bf16 quick_gelu's division stays f32)
+
+
+def _bmm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched int8 [..., M, K] @ int8 [..., K, N] -> int32, exact: float64
+    products and sums of integers below 2^53."""
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def attention_qq_core_plain(qkv32: torch.Tensor, heads: int, out_dtype,
+                            scratch: Optional[dict] = None) -> torch.Tensor:
+    """The int8 attention core of ``_attn_qq_kernel`` (benchmarks/
+    attn_int8_cores.py): qkv f32 [B, S, 3D] -> [B, S, D] in ``out_dtype``.
+    Per head: q and k quantized per row (over hd), scores = ((int32 q k^T *
+    q scale) * k scale^T) * hd^-0.5, softmax with exp and a division, p
+    quantized per row (over the keys), v^T per row (each channel over the
+    keys), o = (int32 p v * p scale) * v scale^T rounded to ``out_dtype``.
+    ``scratch`` receives the probabilities ``p`` [B, H, S, S] f32, their
+    codes ``pq`` and row scales ``psc`` [B, H, S, 1]."""
+    d = qkv32.shape[-1] // 3
+    hd = d // heads
+    scale = 1.0 / hd ** 0.5
+    outs, ps = [], []
+    for h in range(heads):
+        q, k, v = _head_qkv(qkv32, heads, h)
+        qq, qsc = quant_rows(q)
+        kq, ksc = quant_rows(k)
+        sc = _bmm_exact(qq, kq.transpose(1, 2)).float() * qsc * ksc.transpose(1, 2) * scale
+        e = torch.exp(sc - sc.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        pq, psc = quant_rows(p)
+        vq, vsc = quant_rows(v.transpose(1, 2))
+        o = _bmm_exact(pq, vq.transpose(1, 2)).float() * psc * vsc.transpose(1, 2)
+        outs.append(o.to(out_dtype))
+        ps.append((p, pq, psc))
+    if scratch is not None:
+        for i, key in enumerate(("p", "pq", "psc")):
+            scratch[key] = torch.stack([t[i] for t in ps], 1)
+    return torch.cat(outs, -1)
+
+
+def attention_block_qq_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,
+                             heads: int, scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 1 (``attention_block_qq``): K3 with qkv kept f32 and the int8
+    core of ``attention_qq_core_plain``."""
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b).float()
+    xq, xs = quant_rows(xn)
+    qkv = dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()
+    attn = attention_qq_core_plain(qkv, heads, dt).float()
+    aq, ascale = quant_rows(attn)
+    proj = dot_q(aq, ascale, wo_q, wo_scale) + bo.float()
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "qkv": qkv, "attn": attn, "aq": aq,
+                        "as": ascale})
+    return (x.float() + proj).to(dt)
+
+
+def mlp_block_q_bf16h_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
+                            scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 2 (``pipe_kernel`` of benchmarks/q_mlp_bf16h.py with bf16h):
+    K4 with the up-projection's deq + b1 rounded to bf16 (``u``) before
+    quick_gelu and the quantize."""
+    xn = ln_f32(x, ln_s, ln_b).float()
+    xq, xs = quant_rows(xn)
+    u = (dot_q(xq, xs, w1_q, w1_scale) + b1.float()).to(torch.bfloat16)
+    h = quick_gelu(u.float())
+    hq, hs = quant_rows(h)
+    part = dot_q(hq, hs, w2_q, w2_scale)
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "u": u, "h": h, "hq": hq, "hs": hs})
+    return ((x.float() + b2.float()) + part).to(x.dtype)
+
+
+def quick_gelu_bf16(h: torch.Tensor) -> torch.Tensor:
+    """``mlp_q_kernel_var``'s bf16 quick_gelu as XLA evaluates it: hb =
+    bf16(h); hb / (1 + exp(bf16(-1.702) hb)) with the product, the exp and
+    the sum each rounded to bf16 and the division left in f32."""
+    hb = h.to(torch.bfloat16)
+    den = 1 + torch.exp(torch.tensor(-1.702, dtype=torch.bfloat16, device=h.device) * hb)
+    return hb.float() / den.float()
+
+
+def mlp_block_q_var_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
+                          bf16_gelu: bool = False,
+                          scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 3 (``mlp_q_kernel_var``): K4 with ``quant_rows_recip`` on x
+    and on the hidden, quick_gelu in f32 or (``bf16_gelu``) bf16."""
+    xn = ln_f32(x, ln_s, ln_b).float()
+    xq, xs = quant_rows_recip(xn)
+    h = dot_q(xq, xs, w1_q, w1_scale) + b1.float()
+    h = quick_gelu_bf16(h) if bf16_gelu else quick_gelu(h)
+    hq, hs = quant_rows_recip(h)
+    part = dot_q(hq, hs, w2_q, w2_scale)
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "h": h, "hq": hq, "hs": hs})
+    return ((x.float() + b2.float()) + part).to(x.dtype)
+
+
+def attention_block_q_var_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                                *, heads: int, scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 4 (``attn_q_kernel_var``, either ``packed``: the head-pair
+    packing only regroups the same products): K3 with ``quant_rows_recip``
+    on x and on the attention rows; scores times hd^-0.5 log2 e, exp2,
+    the unnormalised exponentials rounded to x's dtype for P V, and the f32
+    output divided by the f32 row sum after it."""
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b).float()
+    xq, xs = quant_rows_recip(xn)
+    qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
+    hd = qkv.shape[-1] // 3 // heads
+    scale2 = (1.0 / hd ** 0.5) * LOG2E
+    outs = []
+    for h in range(heads):
+        q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
+        sc = torch.matmul(q, k.transpose(1, 2)) * scale2
+        e = torch.exp2(sc - sc.amax(-1, keepdim=True))
+        o = torch.matmul(e.to(dt).float(), v)
+        outs.append((o / e.sum(-1, keepdim=True)).to(dt))
+    attn = torch.cat(outs, -1).float()
+    aq, ascale = quant_rows_recip(attn)
+    proj = dot_q(aq, ascale, wo_q, wo_scale) + bo.float()
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale})
+    return (x.float() + proj).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # CUDA route
 # ---------------------------------------------------------------------------
@@ -239,6 +405,13 @@ def _lib():
         lib.dvl_attention_block_q.restype = i
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 4 + [p]
         lib.dvl_mlp_block_q.restype = i
+        for entry in ("dvl_attention_block_qq", "dvl_attention_block_q_var"):
+            getattr(lib, entry).argtypes = [p] * 17 + [i] * 5 + [p]
+            getattr(lib, entry).restype = i
+        lib.dvl_attention_qq_core.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.dvl_attention_qq_core.restype = i
+        lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 4 + [p]
+        lib.dvl_mlp_block_q_kb.restype = i
         lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 11 + [i] * 4 + [p]
@@ -270,8 +443,22 @@ def _qweight(qt, scale, n_in: int, n_out: int, name: str, device):
                      f"{name}_scale", device))
 
 
+def _check_qq_core(s: int, d: int, heads: int) -> None:
+    if d % heads or d // heads != 64:
+        raise ValueError(f"the CUDA int8 attention core takes head dim 64, got D={d} "
+                         f"heads={heads}")
+    if not 1 <= s <= QQ_MAX_SEQ:
+        raise ValueError(f"the CUDA int8 attention core holds score rows of at most "
+                         f"{QQ_MAX_SEQ} keys in registers, got S={s}")
+
+
+# the int8 attention block's C entries by variant: K3, KB (a) 1 and KB (a) 4
+_ATTN_Q_ENTRIES = {"k3": "dvl_attention_block_q", "qq": "dvl_attention_block_qq",
+                   "var": "dvl_attention_block_q_var"}
+
+
 def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
-                            heads, causal, wqkv_qt, wo_qt, scratch):
+                            heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
     _check_x(x)
     b, s, d = x.shape
     if d % heads or d // heads != 64:
@@ -283,6 +470,8 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
                          f"D={d}")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
+    if kind == "qq":
+        _check_qq_core(s, d, heads)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     wqkv = _qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev)
@@ -296,27 +485,64 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
     xn = torch.empty((m, d), dtype=bf, device=dev)
     xq = torch.empty((m, d), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
-    qkv = torch.empty((m, 3 * d), dtype=bf, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=f32 if kind == "qq" else bf, device=dev)
     attn = torch.empty((m, d), dtype=bf, device=dev)
     aq = torch.empty((m, d), dtype=i8, device=dev)
     ascale = torch.empty((m,), dtype=f32, device=dev)
-    err = _lib().dvl_attention_block_q(
+    entry = _ATTN_Q_ENTRIES[kind]
+    err = getattr(_lib(), entry)(
         x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
         xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), aq.data_ptr(), ascale.data_ptr(),
         b, s, d, heads, int(causal), _stream_ptr(dev))
-    _raise_on(err, "dvl_attention_block_q")
-    LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
-    CORE_ROUTES[core_route(s)] += 1
+    _raise_on(err, entry)
+    if kind == "k3":
+        LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
+        CORE_ROUTES[core_route(s)] += 1
+    else:
+        KB_LAUNCHES["attention_block_qq" if kind == "qq" else "attention_block_q_var"] += 1
+        if kind == "qq":  # the block's launch runs the int8 core kernel once
+            KB_LAUNCHES["attention_qq_core"] += 1
     if scratch is not None:
         scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
                         "xs": xs.view(b, s, 1), "attn": attn.view(b, s, d).float(),
                         "aq": aq.view(b, s, d), "as": ascale.view(b, s, 1)})
+        if kind == "qq":
+            scratch["qkv"] = qkv.view(b, s, 3 * d)
     return out
 
 
+def _attention_qq_core_cuda(qkv32, heads, scratch):
+    b, s, d3 = qkv32.shape
+    d = d3 // 3
+    _check_qq_core(s, d, heads)
+    if qkv32.dtype != torch.float32 or not qkv32.is_contiguous():
+        raise ValueError(f"the CUDA int8 attention core reads a contiguous float32 qkv, "
+                         f"got {qkv32.dtype}")
+    dev = qkv32.device
+    out = torch.empty((b, s, d), dtype=torch.bfloat16, device=dev)
+    p = pq = psc = None
+    if scratch is not None:
+        p = torch.empty((b, heads, s, s), dtype=torch.float32, device=dev)
+        pq = torch.empty((b, heads, s, s), dtype=torch.int8, device=dev)
+        psc = torch.empty((b, heads, s, 1), dtype=torch.float32, device=dev)
+    err = _lib().dvl_attention_qq_core(
+        qkv32.data_ptr(), out.data_ptr(), *[0 if t is None else t.data_ptr() for t in (p, pq, psc)],
+        b, s, d, heads, _stream_ptr(dev))
+    _raise_on(err, "dvl_attention_qq_core")
+    KB_LAUNCHES["attention_qq_core"] += 1
+    if scratch is not None:
+        scratch.update({"p": p, "pq": pq, "psc": psc})
+    return out
+
+
+# K4 and its KB variants: the C entry's hidden / quantizer mode and the
+# launch counter (``mlp_block_q_kb``'s modes, csrc/fused_block_q.cu)
+_MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3}
+
+
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
-                      w1_qt, w2_qt, scratch):
+                      w1_qt, w2_qt, scratch, kind="k4"):
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
@@ -337,20 +563,30 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     xn = torch.empty((m, d), dtype=bf, device=dev)
     xq = torch.empty((m, d), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
-    h = torch.empty((m, f), dtype=f32, device=dev)
+    # bf16h keeps the pre-activation in bf16; the quantize pass applies
+    # quick_gelu (and, given the scratch, writes its f32 result to g)
+    h = torch.empty((m, f), dtype=bf if kind == "bf16h" else f32, device=dev)
+    g = torch.empty((m, f), dtype=f32, device=dev) if kind == "bf16h" and scratch is not None \
+        else None
     hq = torch.empty((m, f), dtype=i8, device=dev)
     hs = torch.empty((m,), dtype=f32, device=dev)
-    err = _lib().dvl_mlp_block_q(
-        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
-        xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), h.data_ptr(),
-        hq.data_ptr(), hs.data_ptr(), m, d, f, ACT_KINDS.index(act_kind),
-        _stream_ptr(dev))
-    _raise_on(err, "dvl_mlp_block_q")
-    LAUNCHES["mlp_block_q"] += 1
+    ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), xn.data_ptr(),
+            xq.data_ptr(), xs.data_ptr(), h.data_ptr(), hq.data_ptr(), hs.data_ptr()]
+    if kind == "k4":
+        err = _lib().dvl_mlp_block_q(*ptrs, m, d, f, ACT_KINDS.index(act_kind), _stream_ptr(dev))
+        _raise_on(err, "dvl_mlp_block_q")
+        LAUNCHES["mlp_block_q"] += 1
+    else:
+        err = _lib().dvl_mlp_block_q_kb(*ptrs, 0 if g is None else g.data_ptr(), m, d, f,
+                                        _MLP_Q_MODES[kind], _stream_ptr(dev))
+        _raise_on(err, "dvl_mlp_block_q_kb")
+        KB_LAUNCHES["mlp_block_q_" + kind] += 1
     if scratch is not None:
         scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
-                        "xs": xs.view(b, s, 1), "h": h.view(b, s, f),
+                        "xs": xs.view(b, s, 1), "h": (h if g is None else g).view(b, s, f),
                         "hq": hq.view(b, s, f), "hs": hs.view(b, s, 1)})
+        if kind == "bf16h":
+            scratch["u"] = h.view(b, s, f)
     return out
 
 
@@ -581,3 +817,72 @@ def tp_reduce_q(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
     if _route(resid) == "cpu":
         return tp_reduce_q_plain(parts, ascale, w_scale, bias, resid, bias_first=bias_first)
     return _tp_reduce_q_cuda(parts, ascale, w_scale, bias, resid, bias_first)
+
+
+# ---------------------------------------------------------------------------
+# KB (a) 1-4: the int8 kernel experiments
+# ---------------------------------------------------------------------------
+
+
+def attention_qq_core(qkv32: torch.Tensor, heads: int, out_dtype=torch.bfloat16,
+                      scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 1's int8 attention core alone (``attention_qq_core_plain``):
+    f32 qkv [B, S, 3D] -> [B, S, D]; on a card bf16 out, head dim 64 and at
+    most ``QQ_MAX_SEQ`` keys (csrc/attention_qq.cuh), ``scratch`` receiving
+    the kernel's own p, p codes and p scales."""
+    if _route(qkv32) == "cpu":
+        return attention_qq_core_plain(qkv32, heads, out_dtype, scratch=scratch)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA int8 attention core writes bfloat16, got {out_dtype}")
+    return _attention_qq_core_cuda(qkv32, heads, scratch)
+
+
+def attention_block_qq(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,
+                       heads: int, wqkv_qt=None, wo_qt=None,
+                       scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 1 (``benchmarks/attn_int8_cores.py::attention_block_qq``):
+    K3 with qkv kept f32 and the int8 attention core."""
+    if _route(x) == "cpu":
+        return attention_block_qq_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
+                                        wo_scale, bo, heads=heads, scratch=scratch)
+    return _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo, heads,
+                                   False, wqkv_qt, wo_qt, scratch, kind="qq")
+
+
+def attention_block_q_var(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,
+                          heads: int, wqkv_qt=None, wo_qt=None,
+                          scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 4 (``make_attn_var`` of benchmarks/q_kernel_variants.py, both
+    ``packed``): K3 with the reciprocal quantizer, exp2 and the row sum
+    divided out after P V."""
+    if _route(x) == "cpu":
+        return attention_block_q_var_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
+                                           wo_scale, bo, heads=heads, scratch=scratch)
+    return _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo, heads,
+                                   False, wqkv_qt, wo_qt, scratch, kind="var")
+
+
+def mlp_block_q_bf16h(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
+                      w1_qt=None, w2_qt=None, scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 2 (``tower(bb, depth, bf16h=True)`` of benchmarks/q_mlp_bf16h.py;
+    ``bb`` and ``depth`` are the TPU's chain schedule): K4 with the
+    pre-activation rounded to bf16."""
+    if _route(x) == "cpu":
+        return mlp_block_q_bf16h_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                                       scratch=scratch)
+    return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, "quick_gelu",
+                             w1_qt, w2_qt, scratch, kind="bf16h")
+
+
+def mlp_block_q_var(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
+                    bf16_gelu: bool = False, w1_qt=None, w2_qt=None,
+                    scratch: Optional[dict] = None) -> torch.Tensor:
+    """KB (a) 3 (``make_mlp_var(bf16_gelu)`` of benchmarks/
+    q_kernel_variants.py): K4 with the reciprocal quantizer, quick_gelu in
+    f32 or bf16."""
+    if _route(x) == "cpu":
+        return mlp_block_q_var_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                                     bf16_gelu=bf16_gelu, scratch=scratch)
+    return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, "quick_gelu",
+                             w1_qt, w2_qt, scratch,
+                             kind="var_bf16_gelu" if bf16_gelu else "var")

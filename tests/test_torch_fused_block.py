@@ -559,8 +559,8 @@ class TestQAttentionSource:
         assert name not in self.SRC
 
     def test_entry_point_runs_the_s8_gemm_and_the_wgmma_core(self):
-        body = self.SRC[self.SRC.index("int dvl_attention_block_q("):
-                        self.SRC.index("int dvl_mlp_block_q(")]
+        body = self.SRC[self.SRC.index("int attention_block_q_impl("):
+                        self.SRC.index("int mlp_block_q_impl(")]
         assert body.count("launch_gemm_s8<EQ_BIAS>(") == 1
         assert body.count("launch_gemm_s8<EQ_BIAS_RESID>(") == 1
         assert body.count("launch_attention_wgmma(") == 1
