@@ -389,11 +389,27 @@ Phases (any failure exits non-zero before the final line):
      scripts' towers (12 attention or MLP halves of the phase-4 model's
      quantized resblocks at B=256): launches 12 per entry, cosine against
      the K3 / K4 tower printed, not gated, and ms beside it.
-The kernels line comes after phase 23 (its SLIP-L rows take phase 17's
+ 24. K4's F-split (``fused_block_q.mlp_block_q(fb=)``, KB (a) 7's
+     ``make_fsplit``), KB (a) 5 (``fused_block.attention_block_opt``), the
+     one-call int8 layer of q_layer_fused.py (``fused_layer_q``) and
+     q_ilp4.py's post-P V division (``attention_block_q_postdiv``): each
+     against its twin at B=8 S=197 D=768 H=12 with the residual at x and
+     x/16 (the split at fb = 1536 and 768 with both activations; the
+     codes as phase 23 holds them, chunk by chunk for the split; the
+     layer's f32 y bit-equal to x + (deq + bo) of its own codes), KB (a) 5
+     on its long core (S = 400), the split at the int8 joint FiT shape B=32
+     S=785 at fb = 1024, and the card's refusal of fb = 192 (off the s8
+     GEMM's K step) before any launch; each timed at B=256 beside K1, K4 or
+     K3 + K4 with its bound; the scripts' 12-layer towers on the phase-4
+     model's resblocks (KB (a) 5 vs K1 at bf16, the split vs K4, the layer
+     vs K3 then K4, the post-P V division vs K3, the FiT-shape split vs
+     K4): launches 12 per entry, cosine printed, not gated, ms beside the
+     baseline's.
+The kernels line comes after phase 24 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
 22's (1, 2) towers' and KB (a) 6's its tower's, KB (a) 1-4's phase 23's
-towers') and gives each kernel's launches, error, time, plain-twin time,
+towers', phase 24's rows its towers') and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -756,6 +772,8 @@ SPLIT_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out 
                "gemm_wgmma_kernel<4>": "down GEMM", "gemm_s8_kernel<0>": "QKV GEMM",
                "gemm_s8_kernel<1>": "out GEMM", "gemm_s8_kernel<2>": "up GEMM",
                "gemm_s8_kernel<3>": "up GEMM", "gemm_s8_kernel<4>": "down GEMM",
+               "gemm_s8_kernel<8>": "out GEMM", "gemm_s8_kernel<9>": "down GEMM",
+               "gemm_s8_kernel<10>": "down GEMM",
                "layer_norm_kernel": "LN"}
 # the int8 attention block quantizes two bf16 row sets (the LN output and
 # the attention output) with one kernel at one shape: the profiler sums them
@@ -5001,11 +5019,12 @@ KB_KINDS = {"k3": ("attention_block_q", True, {}), "qq": ("attention_block_qq", 
             "mlp_var_bf16_gelu": ("mlp_block_q_var", False, {"bf16_gelu": True})}
 
 
-def kb_int8_tower(fbq, blocks, kind, heads=KB_H):
-    """One int8 block kind over every quantized resblock (``ops/quant.
-    QuantBlock``), as the KB scripts' scans chain them: the attention
-    halves alone or the MLP halves alone.  Returns x -> the tower's output."""
-    name, attention, kw = KB_KINDS[kind]
+def kb_int8_tower(fbq, blocks, kind, heads=KB_H, kinds=None):
+    """One int8 block kind (of ``kinds``, KB_KINDS by default) over every
+    quantized resblock (``ops/quant.QuantBlock``), as the KB scripts' scans
+    chain them: the attention halves alone or the MLP halves alone.
+    Returns x -> the tower's output."""
+    name, attention, kw = (kinds or KB_KINDS)[kind]
     fn = getattr(fbq, name)
 
     def run(x):
@@ -5087,7 +5106,8 @@ def qq_core_check(fbq, qkv, heads):
     return err.max().item()
 
 
-def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars=True):
+def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars=True,
+               own_step=None):
     """A KB block kernel against its twin at the timed shape: every int8 code
     the twin's quantizer of the kernel's own rows (its x and hidden codes
     within phase 6's bars of the twin's; the qq block's attention codes,
@@ -5117,7 +5137,9 @@ def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars
             check(diff.max().item() <= CODE_DIFF_MAX[codes] and share <= CODE_SHARE_MAX,
                   f"{name}: {codes} codes drift from the twin's")
     c, s_ = codes_of[1][0], codes_of[1][2]
-    if attention:
+    if own_step is not None:  # the last step's f32 result from the kernel's own rows
+        own = own_step(sk)
+    elif attention:
         own = (x.float() + (fbq.dot_q(sk[c], sk[s_], args[5], args[6]) + args[7].float()))
     else:
         own = (x.float() + args[7].float()) + fbq.dot_q(sk[c], sk[s_], args[5], args[6])
@@ -5315,6 +5337,355 @@ def kb_int8_phase(model, card, device):
     print(f"phase 23 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
     return [rows[k] for k in KB_REPLACES], wall
+
+
+# ---------------------------------------------------------------------------
+# phase 24: K4's F-split (mlp_block_q(fb=), KB (a) 7), KB (a) 5
+# (attention_block_opt), the one-call int8 layer of q_layer_fused.py and
+# q_ilp4.py's post-P V division
+# ---------------------------------------------------------------------------
+
+SPLIT_FB = (1536, 768)  # F / 2 and F / 4 at ViT-B/16: make_fsplit(2) and (4)
+FIT_FB = 1024  # mlp_fblock_for_seq's tile at the joint FiT shape (JAX's TPU hybrid path)
+FIT_B = 32  # the int8 joint FiT tower's batch of phases 3, 6 and 19
+SPLIT_REPLACES = {
+    "attention_block_opt": "benchmarks/attn_variants.py:72",
+    "mlp_block_q_fsplit": "benchmarks/q_ilp.py:112",
+    "mlp_block_q_fsplit FiT": "debias_vision_lang_tpu/ops/fused_block_q.py:427",
+    "fused_layer_q": "benchmarks/q_layer_fused.py:168",
+    "attention_block_q_postdiv": "benchmarks/q_ilp4.py:125",
+}
+# the int8 towers of phase 24 (kb_int8_tower's table): F-split MLP halves and
+# the post-P V attention halves, beside K4 / K3
+SPLIT_KINDS = {"k3": ("attention_block_q", True, {}), "k4": ("mlp_block_q", False, {}),
+               "fsplit2": ("mlp_block_q", False, {"fb": SPLIT_FB[0]}),
+               "fsplit4": ("mlp_block_q", False, {"fb": SPLIT_FB[1]}),
+               "fit_fsplit": ("mlp_block_q", False, {"fb": FIT_FB}),
+               "postdiv": ("attention_block_q_postdiv", True, {})}
+
+
+def layer_work(b, s, d, f):
+    """The one-call int8 layer: K3's and K4's operations; x read and the
+    output written once (y stays between the halves), both halves' weights,
+    scales and biases read once."""
+    a_ops, a_bytes = attention_block_work(b, s, d, weights="int8")
+    m_ops, m_bytes = mlp_block_work(b, s, d, f, weights="int8")
+    ops = {k: a_ops.get(k, 0) + m_ops.get(k, 0) for k in set(a_ops) | set(m_ops)}
+    return ops, a_bytes + m_bytes - 2 * b * s * d * 2
+
+
+def fsplit_own(fbq, x, mlp, fbv):
+    """K4's F-split last step on the kernel's own hidden rows (whose codes
+    the compare checks are quant_rows of them, chunk by chunk): (x + b2) +
+    the chunks' f32 sum."""
+    def own(sk):
+        b, s = x.shape[:2]
+        part = fbq.fsplit_down(sk["h"].reshape(b, s, -1), mlp[5], mlp[6], fbv)[0]
+        return (x.float() + mlp[7].float()) + part
+    return own
+
+
+def layer_compare(fbq, name, x, qa, qakw, qm, qmkw, heads):
+    """``fused_layer_q`` against its twin: every int8 code of both halves
+    the quantization of the kernel's own rows; the attention half's codes
+    off the twin's, and the MLP half's off K4's twin's run on bf16 of the
+    kernel's own y (a flipped attention code moves its whole row of y, and
+    so that row's MLP codes), under phase 6's bars (``compare_q``'s: each
+    set's largest difference, the MLP half's x codes at the xq bar, the
+    share over each half's codes); the f32 y bit-equal to x + (deq + bo)
+    of the kernel's own attention codes; the output within 1 bf16 ulp of
+    the twin's last step on the kernel's own y and hidden codes, and of the
+    twin's own output unless some code differs from the twin's.  Returns the
+    largest output difference from the twin."""
+    import torch
+
+    sk, sr, sm = {}, {}, {}
+    got = fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw, scratch=sk)
+    ref = fbq.fused_layer_q_plain(x, *qa, *qm, heads=heads, scratch=sr)
+    fbq.mlp_block_q_plain(sk["y"].to(x.dtype), *qm, scratch=sm)
+    sm = {"yq": sm["xq"], "hq": sm["hq"]}
+    n_diff = 0
+    for half, sets, twin in (("attention", (("xq", "xn", "xs"), ("aq", "attn", "as")), sr),
+                             ("MLP", (("yq", "yn", "ys"), ("hq", "h", "hs")), sm)):
+        h_diff = h_codes = 0
+        for codes, rows, scales in sets:
+            q, sc = fbq.quant_rows(sk[rows])
+            check(torch.equal(q, sk[codes]) and torch.equal(sc, sk[scales]),
+                  f"{name}: its {codes} codes are not the quantization of its own {rows} rows")
+            diff = (sk[codes].int() - twin[codes].int()).abs()
+            h_diff += int(diff.ne(0).sum())
+            h_codes += diff.numel()
+            bar = CODE_DIFF_MAX["xq" if codes == "yq" else codes]
+            print(f"  {name} {codes}: {diff.ne(0).float().mean().item():.3e} differ from the "
+                  f"twin's, max |diff| {diff.max().item()} (bar {bar})")
+            check(diff.max().item() <= bar, f"{name}: {codes} codes off by {diff.max().item()}")
+        print(f"  {name} {half} half: {h_diff / h_codes:.3e} of its codes differ (bar "
+              f"{CODE_SHARE_MAX})")
+        check(h_diff / h_codes <= CODE_SHARE_MAX, f"{name}: {half} codes drift from the twin's")
+        n_diff += h_diff
+    y = x.float() + (fbq.dot_q(sk["aq"], sk["as"], qa[5], qa[6]) + qa[7].float())
+    y_err = (sk["y"] - y).abs().max().item()
+    own = ((sk["y"] + qm[7].float()) + fbq.dot_q(sk["hq"], sk["hs"], qm[5], qm[6])).to(x.dtype)
+    own_err = (got.float() - own.float()).abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = ulp_bf16(ref.float().abs().max().item())
+    print(f"kernel {name}: max_abs_err {err} (1 bf16 ulp of max |twin| {tol}); f32 y vs x + "
+          f"(deq + bo) of its own codes {y_err}; vs the twin's last step on its own y and codes "
+          f"{own_err}; {n_diff} codes off the twin's")
+    check(y_err == 0, f"{name}: its f32 y is not x + (deq + bo) of its own attention codes")
+    check(math.isfinite(err) and own_err <= ulp_bf16(own.float().abs().max().item()),
+          f"{name}: the output is off the twin's last step on its own codes")
+    check(err <= tol or n_diff > 0, f"{name}: past 1 bf16 ulp of its twin with the twin's codes")
+    return err
+
+
+def split_checks(fb, fbq, device, card):
+    """Each phase-24 entry against its twin at B=8 S=197 D=768 H=12 (x and
+    x/16), K4's F-split at the FiT shape and its card refusal, then each
+    timed at B=256 beside K1, K4 or K3 + K4 (the FiT split at B=32 S=785
+    beside K4).  Returns the kernels-line rows (launches set by the caller)."""
+    import torch
+
+    d, heads, s, b, f = KB_D, KB_H, KB_S, KB_CHECK_B, KB_F
+    (ls, lb, wqkv, bqkv, wo, bo), _ = block_params(d, device, seed=24)
+    wq, bq = fb.prescale_qkv(wqkv, bqkv, d, heads)
+    opt_args = (ls, lb, wq, bq, wo, bo)
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=25)
+    g = torch.Generator().manual_seed(24)
+    for scale in (1.0, 1 / 16):
+        x = (torch.randn(b, s, d, generator=g) * scale).to(device, torch.bfloat16)
+        tag = f"B={b} S={s} D={d} x~N(0,{scale}^2)"
+        compare_bf16(f"attention_block_opt {tag}", x,
+                     fb.attention_block_opt(x, *opt_args, heads=heads),
+                     fb.attention_block_opt_plain(x, *opt_args, heads=heads))
+        for fbv in SPLIT_FB:
+            for act in ("quick_gelu", "gelu"):
+                compare_q(fbq, f"mlp_block_q fb={fbv} {act} {tag}", fbq.mlp_block_q,
+                          fbq.mlp_block_q_plain, x, (qm, qmkw), {"fb": fbv, "act_kind": act})
+        layer_compare(fbq, f"fused_layer_q {tag}", x, qa, qakw, qm, qmkw, heads)
+        compare_q(fbq, f"attention_block_q_postdiv {tag}", fbq.attention_block_q_postdiv,
+                  fbq.attention_block_q_postdiv_plain, x, (qa, qakw), {"heads": heads})
+    # the long core past 320 keys on both attention entries
+    xl = torch.randn(2, 400, d, generator=g).to(device, torch.bfloat16)
+    compare_bf16("attention_block_opt B=2 S=400 (the long core)", xl,
+                 fb.attention_block_opt(xl, *opt_args, heads=heads),
+                 fb.attention_block_opt_plain(xl, *opt_args, heads=heads))
+    # K4's F-split at the int8 joint FiT shape, at JAX's tile there
+    xf = (torch.randn(FIT_B, FIT_JOINT_S, d, generator=g) * 0.5).to(device, torch.bfloat16)
+    fit_err = kb_compare(fbq, f"mlp_block_q fb={FIT_FB} FiT B={FIT_B} S={FIT_JOINT_S}",
+                         fbq.mlp_block_q, fbq.mlp_block_q_plain, xf, (qm, qmkw),
+                         {"fb": FIT_FB}, fbq.quant_rows, False,
+                         own_step=fsplit_own(fbq, xf, qm, FIT_FB))
+    # the card refuses an F-tile off the s8 GEMM's K step, before any launch
+    fbq.reset_launches()
+    try:
+        fbq.mlp_block_q(x, *qm, fb=192, **qmkw)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"mlp_block_q fb=192 on the card: {refused!r}")
+    check(refused is not None and "multiple of 128" in refused
+          and sum(fbq.KB_LAUNCHES.values()) + sum(fbq.LAUNCHES.values()) == 0,
+          "the card took fb=192")
+
+    # timed at the main path's B=256 (the FiT split at B=32 S=785)
+    b = BATCH
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(device, torch.bfloat16)
+    k3k4 = lambda: fbq.mlp_block_q(fbq.attention_block_q(x, *qa, heads=heads, **qakw),
+                                   *qm, **qmkw)
+    base = {"K1": cuda_ms(lambda: fb.attention_block(x, ls, lb, wqkv, bqkv, wo, bo,
+                                                     heads=heads)),
+            "K3": cuda_ms(lambda: fbq.attention_block_q(x, *qa, heads=heads, **qakw)),
+            "K4": cuda_ms(lambda: fbq.mlp_block_q(x, *qm, **qmkw)),
+            "K3 + K4": cuda_ms(k3k4),
+            "K4 FiT": cuda_ms(lambda: fbq.mlp_block_q(xf, *qm, **qmkw))}
+    vit = f"ViT-B/16 B={b} S={s} D={d} H={heads}"
+    div = fbq.quant_rows
+    timed = {  # key: (name, case, kernel, twin, work, source, baseline, its check here)
+        "attention_block_opt": (
+            "attention_block_opt", vit,
+            lambda: fb.attention_block_opt(x, *opt_args, heads=heads),
+            lambda: fb.attention_block_opt_plain(x, *opt_args, heads=heads),
+            attention_block_work(b, s, d), "fused_block.cu", "K1",
+            lambda: compare_bf16(f"attention_block_opt (timed)", x,
+                                 fb.attention_block_opt(x, *opt_args, heads=heads),
+                                 fb.attention_block_opt_plain(x, *opt_args, heads=heads))),
+        **{f"fsplit fb={fbv}": (
+            "mlp_block_q_fsplit", f"{vit} fb={fbv}",
+            lambda fbv=fbv: fbq.mlp_block_q(x, *qm, fb=fbv, **qmkw),
+            lambda fbv=fbv: fbq.mlp_block_q_plain(x, *qm, fb=fbv),
+            mlp_block_work(b, s, d, f, weights="int8"), "fused_block_q.cu", "K4",
+            lambda fbv=fbv: kb_compare(fbq, f"mlp_block_q fb={fbv} (timed)", fbq.mlp_block_q,
+                                       fbq.mlp_block_q_plain, x, (qm, qmkw), {"fb": fbv}, div,
+                                       False, own_step=fsplit_own(fbq, x, qm, fbv)))
+           for fbv in SPLIT_FB},
+        "fsplit FiT": (
+            "mlp_block_q_fsplit", f"FiT joint int8 B={FIT_B} S={FIT_JOINT_S} D={d} fb={FIT_FB}",
+            lambda: fbq.mlp_block_q(xf, *qm, fb=FIT_FB, **qmkw),
+            lambda: fbq.mlp_block_q_plain(xf, *qm, fb=FIT_FB),
+            mlp_block_work(FIT_B, FIT_JOINT_S, d, f, weights="int8"), "fused_block_q.cu",
+            "K4 FiT", lambda: fit_err),
+        "fused_layer_q": (
+            "fused_layer_q", vit,
+            lambda: fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw),
+            lambda: fbq.fused_layer_q_plain(x, *qa, *qm, heads=heads),
+            layer_work(b, s, d, f), "fused_block_q.cu", "K3 + K4",
+            lambda: layer_compare(fbq, "fused_layer_q (timed)", x, qa, qakw, qm, qmkw, heads)),
+        "attention_block_q_postdiv": (
+            "attention_block_q_postdiv", vit,
+            lambda: fbq.attention_block_q_postdiv(x, *qa, heads=heads, **qakw),
+            lambda: fbq.attention_block_q_postdiv_plain(x, *qa, heads=heads),
+            attention_block_work(b, s, d, weights="int8"), "fused_block_q.cu", "K3",
+            lambda: kb_compare(fbq, "attention_block_q_postdiv (timed)",
+                               fbq.attention_block_q_postdiv,
+                               fbq.attention_block_q_postdiv_plain, x, (qa, qakw),
+                               {"heads": heads}, div, True)),
+    }
+    rows = {}
+    for key, (name, case, kern, plain, work, src, against, compare) in timed.items():
+        err = compare()
+        bound_ms, bound_by = bound(*work)
+        replaces = SPLIT_REPLACES["mlp_block_q_fsplit FiT" if key == "fsplit FiT" else name]
+        rows[key] = {"name": name, "case": case, "route": "cuda",
+                     "source": f"debias_vision_lang_torch/csrc/{src}", "replaces": replaces,
+                     "launches": None, "max_abs_err": err, "ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain, iters=3), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        r, k = rows[key], base[against]
+        print(f"time {name} {case}: kernel {r['ms']:.4f} ms ({against} beside it {k:.4f} ms, "
+              f"{r['ms'] / k:.3f}x), plain twin {r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; the kernel at {bound_ms / r['ms']:.1%} of it) ({card})")
+    # where the split's time goes: K4 and the split by sub-kernel (the
+    # chunked down GEMM runs one block per SM), and the layer's
+    m = b * s
+    mlp_ops = {"up GEMM": 2 * m * d * f, "down GEMM": 2 * m * d * f}
+    for fbv in (None, *SPLIT_FB):
+        subkernel_split(f"mlp_block_q fb={fbv or f} B={b}",
+                        lambda: fbq.mlp_block_q(x, *qm, fb=fbv, **qmkw), mlp_ops, card,
+                        kind="int8")
+    subkernel_split(f"fused_layer_q B={b}",
+                    lambda: fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw),
+                    {"QKV GEMM": 2 * m * d * 3 * d, "out GEMM": 2 * m * d * d, **mlp_ops}, card,
+                    kind="int8")
+    del x, xf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def split_phase(model, card, device):
+    """Phase 24: K4's F-split, KB (a) 5, the one-call int8 layer and q_ilp4's
+    post-P V division -- each against its twin and timed (``split_checks``),
+    then the scripts' 12-layer towers on the phase-4 model's resblocks at
+    B=256 on their inputs: the attention halves through K1 and KB (a) 5
+    (bf16, prescale_qkv on each block's weights), the int8 MLP halves
+    through K4 and the split at fb = 1536 and 768, the int8 layers through
+    K3 then K4 and through the one-call layer, the int8 attention halves
+    through K3 and the post-P V division, and the MLP halves at the FiT
+    shape (B=32 S=785) through K4 and fb = 1024; each tower's launches
+    checked (12 per entry), its cosine against the baseline tower printed
+    (a finding, not a gate) and its ms beside it.  Returns (kernels-line
+    rows, wall)."""
+    import torch
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import quantize_resblocks
+
+    t_phase = time.perf_counter()
+    rows = split_checks(fb, fbq, device, card)
+    walls = {"kernels": time.perf_counter() - t_phase}
+    t = time.perf_counter()
+    res = model.clip.visual.resblocks
+    d, heads = KB_D, KB_H
+    opt_w = [fb.prescale_qkv(blk.attn.wqkv.detach(), blk.attn.bqkv.detach(), d, heads)
+             for blk in res]
+    blocks = quantize_resblocks(res)
+
+    def bf16_tower(opt):
+        def run(x):
+            for blk, (wq, bq) in zip(res, opt_w):
+                a = blk.attn
+                if opt:
+                    x = fb.attention_block_opt(x, blk.ln_1.scale, blk.ln_1.bias, wq, bq, a.wo,
+                                               a.bo, heads=heads)
+                else:
+                    x = fb.attention_block(x, blk.ln_1.scale, blk.ln_1.bias, a.wqkv, a.bqkv,
+                                           a.wo, a.bo, heads=heads)
+            return x
+        return run
+
+    def layer_tower(one_call):
+        def run(x):
+            for blk in blocks:
+                if one_call:
+                    x = fbq.fused_layer_q(
+                        x, blk.ln_1.scale, blk.ln_1.bias, blk.wqkv.q, blk.wqkv.scale, blk.bqkv,
+                        blk.wo.q, blk.wo.scale, blk.bo, blk.ln_2.scale, blk.ln_2.bias,
+                        blk.w1.q, blk.w1.scale, blk.b1, blk.w2.q, blk.w2.scale, blk.b2,
+                        heads=heads, wqkv_qt=blk.wqkv.qt, wo_qt=blk.wo.qt, w1_qt=blk.w1.qt,
+                        w2_qt=blk.w2.qt)
+                else:
+                    x = fbq.fused_resblock_q(blk, x, heads)
+            return x
+        return run
+
+    x0 = kb_inputs(BATCH, n=1)[0]
+    rng = np.random.default_rng(24)
+    xf = torch.from_numpy((rng.normal(size=(FIT_B, FIT_JOINT_S, d)) * 0.5).astype(np.float32)
+                          ).to(device, torch.bfloat16)
+    towers = {  # kind: (x -> out, input, baseline kind, launches expected)
+        "k1": (bf16_tower(False), x0, None, {"attention_block": LAYERS}),
+        "opt": (bf16_tower(True), x0, "k1", {"attention_block_opt": LAYERS}),
+        "k4": (kb_int8_tower(fbq, blocks, "k4", kinds=SPLIT_KINDS), x0, None,
+               {"mlp_block_q": LAYERS}),
+        "fsplit2": (kb_int8_tower(fbq, blocks, "fsplit2", kinds=SPLIT_KINDS), x0, "k4",
+                    {"mlp_block_q_fsplit": LAYERS}),
+        "fsplit4": (kb_int8_tower(fbq, blocks, "fsplit4", kinds=SPLIT_KINDS), x0, "k4",
+                    {"mlp_block_q_fsplit": LAYERS}),
+        "k3k4": (layer_tower(False), x0, None,
+                 {"attention_block_q": LAYERS, "mlp_block_q": LAYERS}),
+        "layer": (layer_tower(True), x0, "k3k4", {"fused_layer_q": LAYERS}),
+        "k3": (kb_int8_tower(fbq, blocks, "k3", kinds=SPLIT_KINDS), x0, None,
+               {"attention_block_q": LAYERS}),
+        "postdiv": (kb_int8_tower(fbq, blocks, "postdiv", kinds=SPLIT_KINDS), x0, "k3",
+                    {"attention_block_q_postdiv": LAYERS}),
+        "k4_fit": (kb_int8_tower(fbq, blocks, "k4", kinds=SPLIT_KINDS), xf, None,
+                   {"mlp_block_q": LAYERS}),
+        "fit_fsplit": (kb_int8_tower(fbq, blocks, "fit_fsplit", kinds=SPLIT_KINDS), xf,
+                       "k4_fit", {"mlp_block_q_fsplit": LAYERS}),
+    }
+    with torch.no_grad():
+        outs, launches = {}, {}
+        for kind, (run, x, _, want) in towers.items():
+            reset_all(fb, fbq)
+            outs[kind] = run(x)
+            torch.cuda.synchronize()
+            launches[kind] = nonzero({**fb.LAUNCHES, **fb.KB_LAUNCHES, **fbq.LAUNCHES,
+                                      **fbq.KB_LAUNCHES})
+            check(bool(torch.isfinite(outs[kind].float()).all()),
+                  f"phase 24: {kind} tower not finite")
+            check(launches[kind] == want,
+                  f"phase 24: {kind} tower launches {launches[kind]}, expected {want}")
+        print(f"phase 24 tower launches: {launches}")
+        for kind, (run, x, base, _) in towers.items():
+            if base is None:
+                continue
+            cos = cosine(outs[kind].float(), outs[base].float())
+            ms = cuda_ms(lambda: run(x), iters=3)
+            ms_base = cuda_ms(lambda: towers[base][0](x), iters=3)
+            print(f"phase 24 {kind} tower, {LAYERS} layers at B={x.shape[0]} S={x.shape[1]}: "
+                  f"cosine {cos:.7f} against the {base} tower (a finding, not a gate); "
+                  f"{ms:.3f} ms vs {ms_base:.3f} ms ({ms / ms_base:.3f}x) ({card})")
+    for key, tower in (("attention_block_opt", "opt"), (f"fsplit fb={SPLIT_FB[0]}", "fsplit2"),
+                       (f"fsplit fb={SPLIT_FB[1]}", "fsplit4"), ("fsplit FiT", "fit_fsplit"),
+                       ("fused_layer_q", "layer"), ("attention_block_q_postdiv", "postdiv")):
+        rows[key]["launches"] = launches[tower][rows[key]["name"]]
+    walls["towers"] = time.perf_counter() - t
+    del outs, blocks, x0, xf, opt_w
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 24 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; total {wall:.2f} s ({card})")
+    return list(rows.values()), wall
 
 
 def main() -> int:
@@ -5719,6 +6090,9 @@ def main() -> int:
     # 23. KB (a) 1-4, the int8 kernel experiments: each against its twin,
     # timed beside K3 / K4, and on the scripts' towers of the phase-4 model
     kb_rows, kb_s = kb_int8_phase(model, card, device)
+    # 24. K4's F-split, KB (a) 5, the one-call int8 layer and q_ilp4's
+    # post-P V division: each against its twin, timed, and on the towers
+    split_rows, split_s = split_phase(model, card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -5726,12 +6100,14 @@ def main() -> int:
             row["launches"] = fit_launches[row["name"]]
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
-    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows + kb_rows}))
+    print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows + kb_rows
+                      + split_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
-          f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s"
+          f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s, "
+          f"phase 24 {split_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,12 @@
 //   dvl_attention_block_heads <- attention_block_hgrid (_attn_hgrid_kernel,
 //                           KB (a) 6): K1 on a (batch, head) grid with
 //                           per-head pre-scaled [D, 3 hd] blocks, exp2, and
-//                           the out-projection accumulated in f32 across heads.
+//                           the out-projection accumulated in f32 across heads;
+//   dvl_attention_block_opt <- attention_block_opt (_attn_opt_kernel, KB (a)
+//                           5): K1's launches with q pre-scaled by hd^-0.5
+//                           log2 e, exp2 (the core at scale ln 2) and the
+//                           softmax normalised after P @ V, then K1's one
+//                           out-projection over the concatenated heads.
 // The same entry is a tensor-parallel slot's attention (a head group's q, k,
 // v columns and wo rows, an f32 partial out), beside dvl_mlp_block_cols (a
 // slot's MLP hidden columns) and dvl_tp_reduce (the row-parallel sum of the
@@ -284,6 +289,30 @@ tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
+// K1's launches with the core's score scale and normalisation order given.
+int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+                         const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
+                         void* qkv, void* attn, int B, int S, int D, int heads, int causal,
+                         float scale, int norm_after, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * S;
+  cudaError_t e;
+  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
+                            static_cast<const float*>(bqkv), nullptr, static_cast<bf16*>(qkv), M,
+                            3 * D, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
+                             heads, causal, st, 3 * D, scale, norm_after);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
+                                  static_cast<const float*>(bo), static_cast<const bf16*>(x),
+                                  static_cast<bf16*>(out), M, D, D, st);
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,23 +326,20 @@ int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const
                         const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                         void* qkv, void* attn, int B, int S, int D, int heads, int causal,
                         void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S;
-  cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
-                            static_cast<const float*>(bqkv), nullptr, static_cast<bf16*>(qkv), M,
-                            3 * D, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                             heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), 0);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
-                                  static_cast<const float*>(bo), static_cast<const bf16*>(x),
-                                  static_cast<bf16*>(out), M, D, D, st);
-  return (int)e;
+  return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D,
+                              heads, causal, 1.0f / sqrtf(64.0f), 0, stream);
+}
+
+// KB (a) 5, attention_block_opt: dvl_attention_block's arguments (no causal
+// mask) with wqkv's q columns and bqkv's q entries pre-scaled by hd^-0.5
+// log2 e (prescale_qkv): the core at scale ln 2 (exp(s ln 2 - m ln 2) is
+// exp2(s - m) to f32 rounding), the unnormalised exponentials rounded to
+// bf16 for P @ V and the f32 rows scaled by 1 / row sum after it.
+int dvl_attention_block_opt(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+                            const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
+                            void* qkv, void* attn, int B, int S, int D, int heads, void* stream) {
+  return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D,
+                              heads, 0, logf(2.0f), 1, stream);
 }
 
 // out = x + b2 + act(LN(x) @ w1 + b1) @ w2; x, out [M, D] bf16; the weights

@@ -5,8 +5,9 @@
 // Replaces the TPU Pallas kernels in debias_vision_lang_tpu/ops/fused_block_q.py:
 //   dvl_attention_block_q  <- attention_block_q (_attn_q_kernel, and the
 //                             bit-identical _attn_q_chains_kernel)
-//   dvl_mlp_block_q        <- mlp_block_q, unsplit (_mlp_q_kernel with one F
-//                             tile, and the chain variant _mlp_q_pipe_kernel)
+//   dvl_mlp_block_q        <- mlp_block_q (_mlp_q_kernel, and the chain
+//                             variant _mlp_q_pipe_kernel); k F-chunks when
+//                             fb < F (KB (a) 7 below)
 // and their tensor-parallel shares (parallel/tensor.py): a slot's head group
 // (dvl_attention_block_q_heads) or hidden columns (dvl_mlp_block_q_cols) up
 // to the row amax of its slice of the row-parallel input; the slots' amaxes
@@ -34,7 +35,21 @@
 //   dvl_attention_block_q_var  <- q_kernel_variants.py::make_attn_var
 //                                 (attn_q_kernel_var, both packings): the
 //                                 reciprocal quantizer, the wgmma core at
-//                                 1/8 on exp dividing by the row sum after P V.
+//                                 1/8 on exp dividing by the row sum after P V;
+//   dvl_mlp_block_q, k > 1     <- mlp_block_q with fb < F (_mlp_q_kernel over
+//                                 F tiles) and q_ilp.py::make_fsplit(k)
+//                                 (mlp_fsplit_kernel, KB (a) 7): each F-chunk
+//                                 of the hidden quantized with its own row
+//                                 scales, the down product folding each
+//                                 chunk's int32 sum into an f32 sum
+//                                 (EQ_RESID_BIAS_CHUNK);
+//   dvl_fused_layer_q          <- q_layer_fused.py::tower (layer_kernel, every
+//                                 mode): K3 then K4 with the attention half's
+//                                 x + proj kept f32 (EQ_BIAS_RESID_Y) and added
+//                                 by the down product (EQ_RESID32_BIAS);
+//   dvl_attention_block_q_postdiv <- q_ilp4.py::make_call (the head-pair
+//                                 packed kernel): K3's quantizer, the row sum
+//                                 divided out after P V as AQ_VAR's core.
 //
 // Numerics are the TPU kernels' (the plain twins in ops/fused_block_q.py are
 // the specification):
@@ -179,8 +194,15 @@ enum EpilogueQ {
   EQ_I32 = 5,         // int32 acc: a row-parallel slot's partial   (out, down)
   EQ_BIAS_F32 = 6,    // f32 deq + bias                             (KB (a) 1's qkv)
   EQ_BIAS_QGELU_BF16 = 7,  // f32 quick_gelu_bf16(deq + bias)       (KB (a) 3's mlp up)
+  EQ_BIAS_RESID_Y = 8,     // f32 y = resid + (deq + bias), bf16(y) to C2 (the layer's out-proj)
+  EQ_RESID32_BIAS = 9,     // bf16((resid32 + bias) + deq), resid f32 (the layer's mlp down)
+  EQ_RESID_BIAS_CHUNK = 10,  // bf16((resid + bias) + sum_c deq_c)     (mlp down, F-split)
 };                    // deq = (acc * row_scale) * channel_scale
 // KB (a) 2's bf16 pre-activation bf16(deq + b1) is EQ_BIAS's output.
+// EQ_RESID_BIAS_CHUNK: the K loop is cut into chunks of chunk_steps K steps
+// (the hidden's F-chunks, each quantized with its own row scales);
+// deq_c = (acc_c * row_scale[m, c]) * channel_scale, acc_c the chunk's
+// exact int32 sum, and the chunks' deq_c are summed in f32 in chunk order.
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
@@ -216,12 +238,16 @@ constexpr int SGEMM_SMEM = SSTAGES * 2 * S_TILE + 1024 + 2 * SSTAGES * 8;
 constexpr int SEPI_LD = SBN + 8;  // s32 row stride of the staged epilogue tile
 static_assert(2 * 64 * SEPI_LD * 4 <= SSTAGES * 2 * S_TILE, "staging fits the ring");
 
+// The chunked mode holds an f32 sum beside the int32 accumulators (64 more
+// registers a thread), so it runs one block per SM, the others two.
 template <int EPI>
-__global__ void __launch_bounds__(SGEMM_THREADS, 2)
+__global__ void __launch_bounds__(SGEMM_THREADS, EPI == EQ_RESID_BIAS_CHUNK ? 1 : 2)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                const float* __restrict__ a_scale, const float* __restrict__ w_scale,
-               const float* __restrict__ bias, const bf16* __restrict__ resid,
-               void* __restrict__ C, int M, int N, int K) {
+               const float* __restrict__ bias, const void* __restrict__ resid,
+               void* __restrict__ C, void* __restrict__ C2, int M, int N, int K,
+               int chunk_steps) {
+  constexpr bool CHUNK = EPI == EQ_RESID_BIAS_CHUNK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   int8_t* sA = reinterpret_cast<int8_t*>(smem);                     // [stage][128][128]
@@ -256,8 +282,13 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 
   // consumers: warpgroup c owns rows 64c .. 64c+63 of the tile, all columns
   int acc[SBN / 2];
+  float facc[CHUNK ? SBN / 2 : 1];  // CHUNK: the f32 sum of the finished chunks
 #pragma unroll
   for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+  if constexpr (CHUNK) {
+#pragma unroll
+    for (int i = 0; i < SBN / 2; ++i) facc[i] = 0.f;
+  }
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % SSTAGES;
     mbar_wait(&full[s], (kt / SSTAGES) & 1);
@@ -271,6 +302,34 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     wgmma_wait<1>();  // the previous stage's products are done: hand it back
     fence_regs(acc);
     if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % SSTAGES]);
+    if constexpr (CHUNK) {
+      if ((kt + 1) % chunk_steps == 0) {
+        // the chunk's last products: wait for them, fold the exact int32
+        // chunk sum into the f32 sum as (acc * row scale of this chunk) *
+        // channel scale, and start the next chunk from zero.  The ring is
+        // not touched: the producer keeps loading the next chunk's stages.
+        wgmma_wait<0>();
+        fence_regs(acc);
+        const int chunk = kt / chunk_steps, nchunks = nk / chunk_steps;
+        const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+        const long long r0 = (long long)m0 + c * 64 + warp * 16 + g;
+        const float gs0 = r0 < M ? a_scale[r0 * nchunks + chunk] : 0.f;
+        const float gs1 = r0 + 8 < M ? a_scale[(r0 + 8) * nchunks + chunk] : 0.f;
+#pragma unroll
+        for (int j = 0; j < SBN / 8; ++j) {
+          const float2 ws = *reinterpret_cast<const float2*>(w_scale + n0 + 8 * j + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int a = 4 * j + i;
+            const float p = __fmul_rn(__fmul_rn(__int2float_rn(acc[a]), (i & 2) ? gs1 : gs0),
+                                      (i & 1) ? ws.y : ws.x);
+            facc[a] = __fadd_rn(facc[a], p);
+            acc[a] = 0;
+          }
+        }
+        fence_regs(acc);
+      }
+    }
   }
   wgmma_wait<0>();
   fence_regs(acc);
@@ -288,9 +347,15 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 #pragma unroll
     for (int j = 0; j < SBN / 8; ++j)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<int2*>(stage + (warp * 16 + g + 8 * half) * SEPI_LD + j * 8 + 2 * t) =
-            make_int2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * j + 2 * half;
+        int2* dst = reinterpret_cast<int2*>(stage + (warp * 16 + g + 8 * half) * SEPI_LD + j * 8 +
+                                            2 * t);
+        if constexpr (CHUNK)
+          *dst = make_int2(__float_as_int(facc[i]), __float_as_int(facc[i + 1]));
+        else
+          *dst = make_int2(acc[i], acc[i + 1]);
+      }
   }
   named_barrier(2 + c, 128);
   const int col = (tid & 15) * 8, n = n0 + col;
@@ -315,10 +380,15 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       *reinterpret_cast<int4*>(out + 4) = *reinterpret_cast<const int4*>(a + 4);
       continue;
     }
-    const float rs = a_scale[m];
     float d[8];
+    if constexpr (CHUNK) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
+      for (int i = 0; i < 8; ++i) d[i] = __int_as_float(a[i]);  // the chunks' f32 sum
+    } else {
+      const float rs = a_scale[m];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
+    }
     if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_F32 ||
                   EPI == EQ_BIAS_QGELU_BF16) {
       float hv[8];
@@ -335,8 +405,13 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(hv + 4);
     } else {
       float rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if constexpr (EPI != EQ_BIAS) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * N + n);
+      if constexpr (EPI == EQ_RESID32_BIAS) {
+        const float* r32 = static_cast<const float*>(resid) + m * N + n;
+        *reinterpret_cast<float4*>(rr) = *reinterpret_cast<const float4*>(r32);
+        *reinterpret_cast<float4*>(rr + 4) = *reinterpret_cast<const float4*>(r32 + 4);
+      } else if constexpr (EPI != EQ_BIAS) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(static_cast<const bf16*>(resid) + m * N + n);
         const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -350,26 +425,40 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       for (int i = 0; i < 8; ++i) {
         if constexpr (EPI == EQ_BIAS)
           o[i] = __fadd_rn(d[i], bb[i]);
-        else if constexpr (EPI == EQ_BIAS_RESID)
+        else if constexpr (EPI == EQ_BIAS_RESID || EPI == EQ_BIAS_RESID_Y)
           o[i] = __fadd_rn(rr[i], __fadd_rn(d[i], bb[i]));
-        else  // EQ_RESID_BIAS
+        else  // EQ_RESID_BIAS, EQ_RESID32_BIAS, EQ_RESID_BIAS_CHUNK
           o[i] = __fadd_rn(__fadd_rn(rr[i], bb[i]), d[i]);
       }
       uint4 packed;
       uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
       for (int i = 0; i < 4; ++i) pw[i] = pack_bf16(o[2 * i], o[2 * i + 1]);
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
+      if constexpr (EPI == EQ_BIAS_RESID_Y) {  // f32 y to C, its bf16 rounding to C2
+        float* out = static_cast<float*>(C) + m * N + n;
+        *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(o);
+        *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(o + 4);
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(C2) + m * N + n) = packed;
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
+      }
     }
   }
 }
 
+// EQ_BIAS_RESID_Y writes its bf16 copy to C2; EQ_RESID_BIAS_CHUNK takes
+// a_scale [M, K / (128 chunk_steps)] (a row's scale per chunk) and K a
+// multiple of 128 chunk_steps.
 template <int EPI>
 cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* Wt,
-                           const float* w_scale, const float* bias, const bf16* resid, void* C,
-                           int M, int N, int K, cudaStream_t st) {
+                           const float* w_scale, const float* bias, const void* resid, void* C,
+                           int M, int N, int K, cudaStream_t st, void* C2 = nullptr,
+                           int chunk_steps = 0) {
   // K % 16: the TMA's 16-byte row stride; a K past the last 128 zero-fills
   if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
+  if (EPI == EQ_RESID_BIAS_CHUNK && (chunk_steps < 1 || K % (SBK * chunk_steps)))
+    return cudaErrorInvalidValue;
+  if (EPI == EQ_BIAS_RESID_Y && C2 == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 128 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K};
   const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
@@ -383,7 +472,7 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
   if (e != cudaSuccess) return e;
   dim3 grid(N / SBN, (M + SBM - 1) / SBM);
   gemm_s8_kernel<EPI><<<grid, SGEMM_THREADS, SGEMM_SMEM, st>>>(tm_a, tm_b, a_scale, w_scale, bias,
-                                                               resid, C, M, N, K);
+                                                               resid, C, C2, M, N, K, chunk_steps);
   return cudaGetLastError();
 }
 
@@ -483,8 +572,9 @@ tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
-// The attention block's variants: K3, KB (a) 1 (qq) and KB (a) 4 (var).
-enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2 };
+// The attention block's variants: K3, KB (a) 1 (qq), KB (a) 4 (var) and
+// the head-pair packed kernel of benchmarks/q_ilp4.py (postdiv).
+enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2, AQ_POSTDIV = 3 };
 
 // out = x + (deq(q(attn) @ wo_q) + bo), attn = MHA over
 // bf16(deq(q(bf16(LN(x))) @ wqkv_q) + bqkv).  x, out [B, S, D] bf16; wqkv_t
@@ -496,15 +586,19 @@ enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2 };
 // route past; AQ_QQ's int8 core up to QQ_MAX_SEQ).
 // AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh.
 // AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
-// the row sum after P V (norm_after = 2).  Neither takes the causal mask.
+// the row sum after P V (norm_after = 2).  AQ_POSTDIV: K3's quantizer and
+// AQ_VAR's core.  None of the three takes the causal mask.
+// y32 (K3 only), if not null: the out-projection writes f32 y = x + (deq +
+// bo) [B*S, D] there and bf16(y) to out (EQ_BIAS_RESID_Y: K3's output, and
+// the residual kept f32 for the layer's MLP half).
 int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                            const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
-                           int causal, int variant, void* stream) {
+                           int causal, int variant, void* stream, void* y32 = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S;
-  if (variant != AQ_K3 && causal) return (int)cudaErrorInvalidValue;
+  if (variant != AQ_K3 && (causal || y32 != nullptr)) return (int)cudaErrorInvalidValue;
   const bool recip = variant == AQ_VAR;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
@@ -532,7 +626,8 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
                                 nullptr, qkv, M, 3 * D, D, st);
     if (e != cudaSuccess) return (int)e;
     e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                               heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f), recip ? 2 : 0);
+                               heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f),
+                               variant == AQ_K3 ? 0 : 2);
   }
   if (e != cudaSuccess) return (int)e;
   e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(attn),
@@ -541,11 +636,18 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
             : launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
                                 static_cast<float*>(ascale), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_s8<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
-                                    static_cast<const float*>(ascale),
-                                    static_cast<const int8_t*>(wo_t), static_cast<const float*>(so),
-                                    static_cast<const float*>(bo), static_cast<const bf16*>(x),
-                                    out, M, D, D, st);
+  if (y32 != nullptr)
+    e = launch_gemm_s8<EQ_BIAS_RESID_Y>(static_cast<const int8_t*>(aq),
+                                        static_cast<const float*>(ascale),
+                                        static_cast<const int8_t*>(wo_t),
+                                        static_cast<const float*>(so),
+                                        static_cast<const float*>(bo), x, y32, M, D, D, st, out);
+  else
+    e = launch_gemm_s8<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
+                                      static_cast<const float*>(ascale),
+                                      static_cast<const int8_t*>(wo_t),
+                                      static_cast<const float*>(so), static_cast<const float*>(bo),
+                                      x, out, M, D, D, st);
   return (int)e;
 }
 
@@ -564,13 +666,23 @@ enum MlpQVariant { MQ_K4 = 0, MQ_BF16H = 1, MQ_VAR = 2, MQ_VAR_BF16_GELU = 3 };
 // it).  MQ_VAR / MQ_VAR_BF16_GELU: the reciprocal quantizer on x and h,
 // quick_gelu in f32 (EQ_BIAS_QGELU) or bf16 (EQ_BIAS_QGELU_BF16).  These
 // three run quick_gelu only.
+// K4 only: k > 1 splits F into k chunks of F / k (a multiple of 128) as the
+// TPU kernel's F-split does: each row of each chunk quantized on its own
+// (the quantize pass over the [M k, F / k] view of h; hs [M, k]), and the
+// down product's K loop folding each chunk's int32 sum into an f32 sum with
+// that chunk's row scales (EQ_RESID_BIAS_CHUNK).  resid32, if not null, is
+// the f32 residual [M, D] the down product adds in place of x (the layer's
+// y; x then is bf16(y), LayerNorm's input); k == 1 with it.
 int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                      const void* s1, const void* b1, const void* w2_t, const void* s2,
                      const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                      void* hs, void* g, int M, int D, int F, int act_kind, int variant,
-                     void* stream) {
+                     void* stream, int k = 1, const float* resid32 = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
+  if (k < 1 || F % k || (F / k) % SBK) return (int)cudaErrorInvalidValue;
+  if ((k > 1 || resid32 != nullptr) && variant != MQ_K4) return (int)cudaErrorInvalidValue;
+  if (k > 1 && resid32 != nullptr) return (int)cudaErrorInvalidValue;
   const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
   const int8_t* w1 = static_cast<const int8_t*>(w1_t);
   const float *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1);
@@ -605,14 +717,21 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   else if (recip)
     e = launch_quant_rows_mode<true, false>(static_cast<const float*>(h), static_cast<int8_t*>(hq),
                                             static_cast<float*>(hs), nullptr, M, F, st);
-  else
+  else  // k rows of F / k per row of h (k == 1: the whole row)
     e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
-                          static_cast<float*>(hs), M, F, st);
+                          static_cast<float*>(hs), M * k, F / k, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_s8<EQ_RESID_BIAS>(static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
-                                   static_cast<const int8_t*>(w2_t), static_cast<const float*>(s2),
-                                   static_cast<const float*>(b2), static_cast<const bf16*>(x),
-                                   out, M, D, F, st);
+  const int8_t* ihq = static_cast<const int8_t*>(hq);
+  const float *fhs = static_cast<const float*>(hs), *fs2 = static_cast<const float*>(s2),
+              *fb2 = static_cast<const float*>(b2);
+  const int8_t* w2 = static_cast<const int8_t*>(w2_t);
+  if (k > 1)
+    e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, D, F, st, nullptr,
+                                            F / k / SBK);
+  else if (resid32 != nullptr)
+    e = launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, resid32, out, M, D, F, st);
+  else
+    e = launch_gemm_s8<EQ_RESID_BIAS>(ihq, fhs, w2, fs2, fb2, x, out, M, D, F, st);
   return (int)e;
 }
 
@@ -651,6 +770,18 @@ int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b,
                                 qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_VAR, stream);
 }
 
+// benchmarks/q_ilp4.py's head-pair packed kernel (make_kernel): K3's
+// arguments, causal 0; the row sum divided out after P V.
+int dvl_attention_block_q_postdiv(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* wqkv_t, const void* sqkv, const void* bqkv,
+                                  const void* wo_t, const void* so, const void* bo, void* out,
+                                  void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
+                                  void* ascale, int B, int S, int D, int heads, int causal,
+                                  void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_POSTDIV, stream);
+}
+
 // KB (a) 1's int8 core alone: qkv [B*S, 3D] f32 -> out [B*S, D] bf16;
 // p_out [B, H, S, S] f32, pq_out [B, H, S, S] int8 and psc_out [B, H, S]
 // f32 may be null.  Head dim 64, 1 <= S <= 256.
@@ -662,13 +793,38 @@ int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out,
                                   reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K4 (mlp_block_q_impl's MQ_K4).
+// K4 (mlp_block_q_impl's MQ_K4), its hidden in k F-chunks (k = 1: the
+// whole row; k > 1: mlp_block_q(fb=F / k), KB (a) 7's make_fsplit(k); hs
+// [M, k], F / k % 128 == 0).
 int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                     const void* s1, const void* b1, const void* w2_t, const void* s2,
                     const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
-                    void* hs, int M, int D, int F, int act_kind, void* stream) {
+                    void* hs, int M, int D, int F, int act_kind, int k, void* stream) {
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
-                          nullptr, M, D, F, act_kind, MQ_K4, stream);
+                          nullptr, M, D, F, act_kind, MQ_K4, stream, k);
+}
+
+// The one-call int8 layer of benchmarks/q_layer_fused.py (layer_kernel):
+// K3's launches with the out-projection keeping y = x + (deq + bo) in f32
+// (y32 [B*S, D]) beside its bf16 rounding yb, then K4's on LN(yb) with the
+// down product adding the f32 y: out = bf16((y + b2) + deq), quick_gelu as
+// the script's.  The attention half's arguments and scratch are K3's (a_*),
+// the MLP half's K4's (m_*).
+int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const void* wqkv_t,
+                      const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
+                      const void* bo, const void* ln2_s, const void* ln2_b, const void* w1_t,
+                      const void* s1, const void* b1, const void* w2_t, const void* s2,
+                      const void* b2, void* out, void* a_xn, void* a_xq, void* a_xs, void* qkv,
+                      void* attn, void* aq, void* ascale, void* y32, void* yb, void* m_xn,
+                      void* m_xq, void* m_xs, void* h, void* hq, void* hs, int B, int S, int D,
+                      int F, int heads, void* stream) {
+  int e = attention_block_q_impl(x, ln1_s, ln1_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, yb, a_xn,
+                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, 0, AQ_K3,
+                                 stream, y32);
+  if (e != 0) return e;
+  return mlp_block_q_impl(yb, ln2_s, ln2_b, w1_t, s1, b1, w2_t, s2, b2, out, m_xn, m_xq, m_xs, h,
+                          hq, hs, nullptr, B * S, D, F, 0, MQ_K4, stream, 1,
+                          static_cast<const float*>(y32));
 }
 
 // KB (a) 2 / 3: K4's arguments, g (MQ_BF16H's f32 activation, or null)

@@ -44,6 +44,12 @@ counts them):
 
 All three block entries run one CUDA entry (``dvl_attention_block_heads`` /
 ``dvl_mlp_block_cols``) on K1 / K2's GEMMs and core.
+
+KB (a) 5 (``KB_LAUNCHES``): ``attention_block_opt`` (benchmarks/
+attn_variants.py::attention_block_opt) is K1 with q pre-scaled by hd^-0.5
+log2 e (``prescale_qkv``), exp2 and the softmax normalised after P @ V,
+then K1's one out-projection over the concatenated heads
+(``dvl_attention_block_opt``).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ TP_LAUNCHES: Dict[str, int] = {"attention_block_heads": 0,
                                "attention_block_hgrid": 0,
                                "mlp_block_cols": 0,
                                "tp_reduce": 0}
+KB_LAUNCHES: Dict[str, int] = {"attention_block_opt": 0}
 MAX_TP_SLOTS = 8  # partials one reduce launch sums
 LOG2E = math.log2(math.e)
 ACT_KINDS = ("quick_gelu", "gelu")
@@ -76,7 +83,7 @@ GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: N, K multipl
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -189,6 +196,18 @@ def attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
         part = _dot_f32(attention_core(qkv, heads, causal), wo)
         return part if acc is None else (acc + part).to(dt)
     hd = wo.shape[0] // heads
+    for h, o in enumerate(prescaled_core(qkv, heads, causal)):
+        part = _dot_f32(o, wo[h * hd:(h + 1) * hd])
+        acc = part if acc is None else acc + part
+    return acc if bo is None else acc.to(dt)
+
+
+def prescaled_core(qkv: torch.Tensor, heads: int, causal: bool = False):
+    """KB (a) 5 / 6's attention on q pre-scaled by hd^-0.5 log2 e: per
+    head, exp2 of the f32 scores less their row max, the unnormalised
+    exponentials rounded to qkv's dtype for P @ V, the f32 output scaled by
+    1 / row sum and rounded.  Yields each head's [B, S, hd] output."""
+    dt = qkv.dtype
     for h in range(heads):
         q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
         sc = torch.einsum("bqd,bkd->bqk", q, k)
@@ -196,10 +215,29 @@ def attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
             sc = sc + causal_mask(sc.shape[-1], sc.device)
         e = torch.exp2(sc - sc.amax(-1, keepdim=True).detach())
         o = torch.einsum("bqk,bkd->bqd", e.to(dt).float(), v)
-        o = (o * (1.0 / e.sum(-1, keepdim=True))).to(dt)
-        part = _dot_f32(o, wo[h * hd:(h + 1) * hd])
-        acc = part if acc is None else acc + part
-    return acc if bo is None else acc.to(dt)
+        yield (o * (1.0 / e.sum(-1, keepdim=True))).to(dt)
+
+
+def prescale_qkv(wqkv: torch.Tensor, bqkv: torch.Tensor, d: int, heads: int):
+    """``prescale_qkv`` of benchmarks/attn_variants.py: wqkv [D, 3D] and
+    bqkv [3D] with the q columns times hd^-0.5 log2 e (the host-side weight
+    transform of KB (a) 5 and 6)."""
+    scale = (d // heads) ** -0.5 * LOG2E
+    return (torch.cat([wqkv[:, :d] * scale, wqkv[:, d:]], dim=1),
+            torch.cat([bqkv[:d] * scale, bqkv[d:]]))
+
+
+def attention_block_opt_plain(x, ln_s, ln_b, wqkv_s, bqkv_s, wo, bo, *,
+                              heads: int) -> torch.Tensor:
+    """KB (a) 5's function (``_attn_opt_kernel``): K1 on the pre-scaled
+    ``wqkv_s`` / ``bqkv_s`` with ``prescaled_core``'s attention, then one
+    out-projection over the concatenated heads, x + (attn @ wo + bo)."""
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b)
+    qkv = (_dot_f32(xn, wqkv_s) + bqkv_s.float()).to(dt)
+    attn = torch.cat(list(prescaled_core(qkv, heads)), dim=-1)
+    proj = _dot_f32(attn, wo) + bo.float()
+    return (x.float() + proj).to(dt)
 
 
 def hgrid_qkv(wqkv_h, bqkv_h, h0: int, g: int):
@@ -268,6 +306,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvl_attention_block.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.dvl_attention_block.restype = i
+        lib.dvl_attention_block_opt.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.dvl_attention_block_opt.restype = i
         lib.dvl_mlp_block.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block.restype = i
         lib.dvl_attention_block_heads.argtypes = ([p] * 12 + [i] * 6
@@ -358,7 +398,9 @@ def _stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
+def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal, opt=False):
+    """K1's launch, or with ``opt`` KB (a) 5's (``dvl_attention_block_opt``:
+    the same arguments, q pre-scaled, no causal mask)."""
     _check_x(x)
     b, s, d = x.shape
     if d % heads or d // heads != 64:
@@ -380,12 +422,16 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal):
     xn = torch.empty((b * s, d), dtype=bf, device=dev)
     qkv = torch.empty((b * s, 3 * d), dtype=bf, device=dev)
     attn = torch.empty((b * s, d), dtype=bf, device=dev)
-    err = _lib().dvl_attention_block(
-        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
-        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-        b, s, d, heads, int(causal), _stream_ptr(dev))
-    _raise_on(err, "dvl_attention_block")
-    LAUNCHES["attention_block_causal" if causal else "attention_block"] += 1
+    ptrs = (x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+            xn.data_ptr(), qkv.data_ptr(), attn.data_ptr())
+    if opt:
+        err = _lib().dvl_attention_block_opt(*ptrs, b, s, d, heads, _stream_ptr(dev))
+        _raise_on(err, "dvl_attention_block_opt")
+        KB_LAUNCHES["attention_block_opt"] += 1
+    else:
+        err = _lib().dvl_attention_block(*ptrs, b, s, d, heads, int(causal), _stream_ptr(dev))
+        _raise_on(err, "dvl_attention_block")
+        LAUNCHES["attention_block_causal" if causal else "attention_block"] += 1
     CORE_ROUTES[core_route(s)] += 1
     return out
 
@@ -570,6 +616,18 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, *,
         return mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2,
                                act_kind=act_kind)
     return _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind)
+
+
+def attention_block_opt(x, ln_s, ln_b, wqkv_s, bqkv_s, wo, bo, *,
+                        heads: int) -> torch.Tensor:
+    """KB (a) 5, ``attention_block_opt`` of benchmarks/attn_variants.py,
+    with its arguments: ``wqkv_s`` [D, 3D] / ``bqkv_s`` [3D] with the q
+    columns pre-scaled by ``prescale_qkv``; x + the block in x's dtype.  On
+    a card K1's launches with the core at scale ln 2 (exp2) normalising
+    after P @ V (past 320 keys on its long route)."""
+    if _route(x) == "cpu":
+        return attention_block_opt_plain(x, ln_s, ln_b, wqkv_s, bqkv_s, wo, bo, heads=heads)
+    return _attention_block_cuda(x, ln_s, ln_b, wqkv_s, bqkv_s, wo, bo, heads, False, opt=True)
 
 
 def attention_block_heads(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,

@@ -30,9 +30,11 @@ the twin's.
 
 ``LAUNCHES`` counts kernel launches (CPU twins never count), and
 ``CORE_ROUTES`` the attention block's by its core's route
-(``fused_block.core_route``).  The F-split
-of the TPU MLP kernel (per-tile hidden quantization, a VMEM device) is not
-ported: both routes quantize the whole hidden row.
+(``fused_block.core_route``).  ``mlp_block_q(fb=)`` is the TPU MLP
+kernel's F-split: with ``fb`` < F each fb-wide chunk of a hidden row is
+quantized with its own scale and the chunks' dequantized down products are
+summed in f32 (``KB_LAUNCHES["mlp_block_q_fsplit"]`` counts the card's
+launches; on the card fb is a multiple of 128, the s8 GEMM's K step).
 
 The tensor-parallel shares (``parallel/tensor.py``; ``TP_LAUNCHES``): a
 slot's head group (``attention_block_q_heads``) or hidden columns
@@ -55,6 +57,15 @@ each K3 or K4 with one change, on the same launches:
   attention_block_q_var  (q_kernel_variants.py) the reciprocal quantizer,
                          exp2 at hd^-0.5 log2 e, the row sum divided out
                          after P V
+
+and, beside them (``KB_LAUNCHES``):
+
+  mlp_block_q(fb=F/k)        (q_ilp.py::make_fsplit(k), KB (a) 7) K4's F-split
+  fused_layer_q              (q_layer_fused.py) K3 then K4 in one call, the
+                             attention half's x + proj kept f32 for the MLP
+                             half's residual (only LayerNorm reads it in bf16)
+  attention_block_q_postdiv  (q_ilp4.py, the head-pair packed kernel) K3 with
+                             the row sum divided out after P V
 """
 
 from __future__ import annotations
@@ -84,7 +95,10 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
                                "mlp_block_q_bf16h": 0,
                                "mlp_block_q_var": 0,
                                "mlp_block_q_var_bf16_gelu": 0,
-                               "attention_block_q_var": 0}
+                               "attention_block_q_var": 0,
+                               "mlp_block_q_fsplit": 0,
+                               "fused_layer_q": 0,
+                               "attention_block_q_postdiv": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core (csrc/attention_qq.cuh) holds in registers
@@ -185,17 +199,75 @@ def attention_block_q_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
     return (x.float() + proj).to(dt)
 
 
+def check_fb(f: int, fb) -> int:
+    """The F-tile of ``mlp_block_q``: F when None, else a divisor of F
+    (JAX's refusal otherwise)."""
+    fb = f if fb is None else fb
+    if fb < 1 or f % fb:
+        raise ValueError(f"mlp dim {f} not divisible by fb={fb} — the "
+                         "F-tile loop would truncate the hidden sum")
+    return fb
+
+
+def fsplit_down(h: torch.Tensor, w2_q, w2_scale, fb: int):
+    """The F-split down product: h [..., F] f32 viewed as [..., F / fb, fb],
+    each chunk's rows quantized on their own, each chunk's dequantized
+    product (acc * chunk scale) * channel scale, summed in f32 in chunk
+    order.  Returns (sum [..., D], codes [..., k, fb], scales [..., k, 1])."""
+    k = h.shape[-1] // fb
+    hq, hs = quant_rows(h.reshape(*h.shape[:-1], k, fb))
+    part = None
+    for c in range(k):
+        p = dot_q(hq[..., c, :], hs[..., c, :], w2_q[c * fb:(c + 1) * fb], w2_scale)
+        part = p if part is None else part + p
+    return part, hq, hs
+
+
 def mlp_block_q_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
-                      *, act_kind: str = "quick_gelu",
+                      *, act_kind: str = "quick_gelu", fb: Optional[int] = None,
                       scratch: Optional[dict] = None) -> torch.Tensor:
+    """K4's twin.  With ``fb`` < F (``fsplit_down``), the scratch's h, hq
+    and hs are per chunk: [..., F / fb, fb] and [..., F / fb, 1]."""
+    f = w1_scale.numel()
+    fb = check_fb(f, fb)
     xn = ln_f32(x, ln_s, ln_b).float()
     xq, xs = quant_rows(xn)
     h = _act(dot_q(xq, xs, w1_q, w1_scale) + b1.float(), act_kind)
-    hq, hs = quant_rows(h)
-    part = dot_q(hq, hs, w2_q, w2_scale)
+    if fb == f:
+        hq, hs = quant_rows(h)
+        part = dot_q(hq, hs, w2_q, w2_scale)
+    else:
+        part, hq, hs = fsplit_down(h, w2_q, w2_scale, fb)
+        h = h.reshape(hq.shape)
     if scratch is not None:
         scratch.update({"xn": xn, "xq": xq, "xs": xs, "h": h, "hq": hq, "hs": hs})
     return ((x.float() + b2.float()) + part).to(x.dtype)
+
+
+def fused_layer_q_plain(x, ln1_s, ln1_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                        ln2_s, ln2_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
+                        heads: int, scratch: Optional[dict] = None) -> torch.Tensor:
+    """``layer_kernel`` of benchmarks/q_layer_fused.py: K3's function up to
+    y = x + proj kept f32, K4's LayerNorm on bf16(y) (y rounded to x's
+    dtype), quick_gelu, and the output (y + b2) + part rounded once.  The
+    scratch holds the attention half's rows and codes under K3's keys, y
+    (f32), and the MLP half's under yn, yq, ys, h, hq, hs."""
+    dt = x.dtype
+    xn = ln_f32(x, ln1_s, ln1_b).float()
+    xq, xs = quant_rows(xn)
+    qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
+    attn = attention_core(qkv, heads, False).float()
+    aq, ascale = quant_rows(attn)
+    y = x.float() + (dot_q(aq, ascale, wo_q, wo_scale) + bo.float())
+    yn = ln_f32(y.to(dt), ln2_s, ln2_b).float()
+    yq, ys = quant_rows(yn)
+    h = quick_gelu(dot_q(yq, ys, w1_q, w1_scale) + b1.float())
+    hq, hs = quant_rows(h)
+    part = dot_q(hq, hs, w2_q, w2_scale)
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale,
+                        "y": y, "yn": yn, "yq": yq, "ys": ys, "h": h, "hq": hq, "hs": hs})
+    return ((y + b2.float()) + part).to(dt)
 
 
 def row_amax(a: torch.Tensor) -> torch.Tensor:
@@ -359,6 +431,34 @@ def mlp_block_q_var_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
     return ((x.float() + b2.float()) + part).to(x.dtype)
 
 
+def _attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                               heads, scratch, quant, base2):
+    """K3 with the softmax's row sum divided out after P V: scores times
+    hd^-0.5 (with exp) or hd^-0.5 log2 e (``base2``, with exp2), the
+    unnormalised exponentials rounded to x's dtype for P V, the f32 output
+    divided by the f32 row sum; ``quant`` on x and on the attention rows."""
+    dt = x.dtype
+    xn = ln_f32(x, ln_s, ln_b).float()
+    xq, xs = quant(xn)
+    qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
+    hd = qkv.shape[-1] // 3 // heads
+    scale = (1.0 / hd ** 0.5) * (LOG2E if base2 else 1.0)
+    outs = []
+    for h in range(heads):
+        q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
+        sc = torch.matmul(q, k.transpose(1, 2)) * scale
+        sc = sc - sc.amax(-1, keepdim=True)
+        e = torch.exp2(sc) if base2 else torch.exp(sc)
+        o = torch.matmul(e.to(dt).float(), v)
+        outs.append((o / e.sum(-1, keepdim=True)).to(dt))
+    attn = torch.cat(outs, -1).float()
+    aq, ascale = quant(attn)
+    proj = dot_q(aq, ascale, wo_q, wo_scale) + bo.float()
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale})
+    return (x.float() + proj).to(dt)
+
+
 def attention_block_q_var_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
                                 *, heads: int, scratch: Optional[dict] = None) -> torch.Tensor:
     """KB (a) 4 (``attn_q_kernel_var``, either ``packed``: the head-pair
@@ -366,25 +466,19 @@ def attention_block_q_var_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, w
     on x and on the attention rows; scores times hd^-0.5 log2 e, exp2,
     the unnormalised exponentials rounded to x's dtype for P V, and the f32
     output divided by the f32 row sum after it."""
-    dt = x.dtype
-    xn = ln_f32(x, ln_s, ln_b).float()
-    xq, xs = quant_rows_recip(xn)
-    qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
-    hd = qkv.shape[-1] // 3 // heads
-    scale2 = (1.0 / hd ** 0.5) * LOG2E
-    outs = []
-    for h in range(heads):
-        q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
-        sc = torch.matmul(q, k.transpose(1, 2)) * scale2
-        e = torch.exp2(sc - sc.amax(-1, keepdim=True))
-        o = torch.matmul(e.to(dt).float(), v)
-        outs.append((o / e.sum(-1, keepdim=True)).to(dt))
-    attn = torch.cat(outs, -1).float()
-    aq, ascale = quant_rows_recip(attn)
-    proj = dot_q(aq, ascale, wo_q, wo_scale) + bo.float()
-    if scratch is not None:
-        scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale})
-    return (x.float() + proj).to(dt)
+    return _attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
+                                      bo, heads, scratch, quant_rows_recip, True)
+
+
+def attention_block_q_postdiv_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
+                                    bo, *, heads: int,
+                                    scratch: Optional[dict] = None) -> torch.Tensor:
+    """The head-pair packed kernel of benchmarks/q_ilp4.py (``make_kernel``;
+    the block-diagonal Q only regroups the same products): K3 with exp at
+    hd^-0.5, the unnormalised exponentials rounded to x's dtype for P V and
+    the f32 output divided by the f32 row sum after it (its ``o / l``)."""
+    return _attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
+                                      bo, heads, scratch, quant_rows, False)
 
 
 # ---------------------------------------------------------------------------
@@ -403,15 +497,18 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvl_attention_block_q.argtypes = [p] * 17 + [i] * 5 + [p]
         lib.dvl_attention_block_q.restype = i
-        lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 4 + [p]
+        lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.dvl_mlp_block_q.restype = i
-        for entry in ("dvl_attention_block_qq", "dvl_attention_block_q_var"):
+        for entry in ("dvl_attention_block_qq", "dvl_attention_block_q_var",
+                      "dvl_attention_block_q_postdiv"):
             getattr(lib, entry).argtypes = [p] * 17 + [i] * 5 + [p]
             getattr(lib, entry).restype = i
         lib.dvl_attention_qq_core.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.dvl_attention_qq_core.restype = i
         lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 4 + [p]
         lib.dvl_mlp_block_q_kb.restype = i
+        lib.dvl_fused_layer_q.argtypes = [p] * 33 + [i] * 5 + [p]
+        lib.dvl_fused_layer_q.restype = i
         lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 11 + [i] * 4 + [p]
@@ -452,15 +549,16 @@ def _check_qq_core(s: int, d: int, heads: int) -> None:
                          f"{QQ_MAX_SEQ} keys in registers, got S={s}")
 
 
-# the int8 attention block's C entries by variant: K3, KB (a) 1 and KB (a) 4
+# the int8 attention block's C entries by variant: K3, KB (a) 1, KB (a) 4
+# and q_ilp4.py's post-P V division, with their KB_LAUNCHES keys
 _ATTN_Q_ENTRIES = {"k3": "dvl_attention_block_q", "qq": "dvl_attention_block_qq",
-                   "var": "dvl_attention_block_q_var"}
+                   "var": "dvl_attention_block_q_var",
+                   "postdiv": "dvl_attention_block_q_postdiv"}
+_ATTN_Q_COUNTERS = {"qq": "attention_block_qq", "var": "attention_block_q_var",
+                    "postdiv": "attention_block_q_postdiv"}
 
 
-def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
-                            heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
-    _check_x(x)
-    b, s, d = x.shape
+def _check_attention_q(s, d, heads):
     if d % heads or d // heads != 64:
         raise ValueError(f"the CUDA attention core takes head dim 64, got "
                          f"D={d} heads={heads}")
@@ -470,6 +568,20 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
                          f"D={d}")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
+
+
+def _check_mlp_q(d, f):
+    if d % S8_GEMM_TILE or f % S8_GEMM_TILE or max(d, f) > MAX_ROW:
+        raise ValueError(f"the CUDA int8 MLP's s8 wgmma GEMM takes D and F "
+                         f"divisible by {S8_GEMM_TILE} (its N and K steps) and "
+                         f"at most {MAX_ROW}, got D={d} F={f}")
+
+
+def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
+                            heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
+    _check_x(x)
+    b, s, d = x.shape
+    _check_attention_q(s, d, heads)
     if kind == "qq":
         _check_qq_core(s, d, heads)
     dev = x.device
@@ -500,7 +612,7 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
         CORE_ROUTES[core_route(s)] += 1
     else:
-        KB_LAUNCHES["attention_block_qq" if kind == "qq" else "attention_block_q_var"] += 1
+        KB_LAUNCHES[_ATTN_Q_COUNTERS[kind]] += 1
         if kind == "qq":  # the block's launch runs the int8 core kernel once
             KB_LAUNCHES["attention_qq_core"] += 1
     if scratch is not None:
@@ -542,14 +654,17 @@ _MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3}
 
 
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
-                      w1_qt, w2_qt, scratch, kind="k4"):
+                      w1_qt, w2_qt, scratch, kind="k4", fb=None):
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
-    if d % S8_GEMM_TILE or f % S8_GEMM_TILE or max(d, f) > MAX_ROW:
-        raise ValueError(f"the CUDA int8 MLP's s8 wgmma GEMM takes D and F "
-                         f"divisible by {S8_GEMM_TILE} (its N and K steps) and "
-                         f"at most {MAX_ROW}, got D={d} F={f}")
+    _check_mlp_q(d, f)
+    fb = check_fb(f, fb)
+    if fb % S8_GEMM_TILE:
+        raise ValueError(f"the CUDA int8 MLP's F-split folds each chunk's product at the "
+                         f"s8 wgmma GEMM's K step of {S8_GEMM_TILE}: fb must be a multiple "
+                         f"of {S8_GEMM_TILE}, got fb={fb}")
+    k = f // fb
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
@@ -569,24 +684,72 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     g = torch.empty((m, f), dtype=f32, device=dev) if kind == "bf16h" and scratch is not None \
         else None
     hq = torch.empty((m, f), dtype=i8, device=dev)
-    hs = torch.empty((m,), dtype=f32, device=dev)
+    hs = torch.empty((m, k), dtype=f32, device=dev)
     ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), xn.data_ptr(),
             xq.data_ptr(), xs.data_ptr(), h.data_ptr(), hq.data_ptr(), hs.data_ptr()]
     if kind == "k4":
-        err = _lib().dvl_mlp_block_q(*ptrs, m, d, f, ACT_KINDS.index(act_kind), _stream_ptr(dev))
+        err = _lib().dvl_mlp_block_q(*ptrs, m, d, f, ACT_KINDS.index(act_kind), k,
+                                     _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q")
-        LAUNCHES["mlp_block_q"] += 1
+        if k > 1:
+            KB_LAUNCHES["mlp_block_q_fsplit"] += 1
+        else:
+            LAUNCHES["mlp_block_q"] += 1
     else:
         err = _lib().dvl_mlp_block_q_kb(*ptrs, 0 if g is None else g.data_ptr(), m, d, f,
                                         _MLP_Q_MODES[kind], _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q_kb")
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
     if scratch is not None:
+        rows = (b, s, f) if k == 1 else (b, s, k, fb)
         scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
-                        "xs": xs.view(b, s, 1), "h": (h if g is None else g).view(b, s, f),
-                        "hq": hq.view(b, s, f), "hs": hs.view(b, s, 1)})
+                        "xs": xs.view(b, s, 1), "h": (h if g is None else g).view(rows),
+                        "hq": hq.view(rows), "hs": hs.view(*rows[:-1], 1)})
         if kind == "bf16h":
             scratch["u"] = h.view(b, s, f)
+    return out
+
+
+def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
+    """``dvl_fused_layer_q``: ``attn_ops`` / ``mlp_ops`` are the two halves'
+    parameters as K3's / K4's wrappers pass them (LN, weight copies,
+    scales, biases)."""
+    _check_x(x)
+    b, s, d = x.shape
+    _check_attention_q(s, d, heads)
+    (ln1_s, ln1_b, wqkv_scale, bqkv, wo_scale, bo, wqkv_qt, wo_qt) = attn_ops
+    (ln2_s, ln2_b, w1_scale, b1, w2_scale, b2, w1_qt, w2_qt) = mlp_ops
+    f = w1_scale.numel()
+    _check_mlp_q(d, f)
+    dev = x.device
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    ops = [_operand(ln1_s, f32, (d,), "ln_1.scale", dev),
+           _operand(ln1_b, f32, (d,), "ln_1.bias", dev),
+           *_qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev),
+           _operand(bqkv, f32, (3 * d,), "bqkv", dev),
+           *_qweight(wo_qt, wo_scale, d, d, "wo", dev), _operand(bo, f32, (d,), "bo", dev),
+           _operand(ln2_s, f32, (d,), "ln_2.scale", dev),
+           _operand(ln2_b, f32, (d,), "ln_2.bias", dev),
+           *_qweight(w1_qt, w1_scale, d, f, "w1", dev), _operand(b1, f32, (f,), "b1", dev),
+           *_qweight(w2_qt, w2_scale, f, d, "w2", dev), _operand(b2, f32, (d,), "b2", dev)]
+    m = b * s
+    out = torch.empty_like(x)
+    t = {"xn": (m, d, bf), "xq": (m, d, i8), "xs": (m, 1, f32), "qkv": (m, 3 * d, bf),
+         "attn": (m, d, bf), "aq": (m, d, i8), "as": (m, 1, f32), "y": (m, d, f32),
+         "yb": (m, d, bf), "yn": (m, d, bf), "yq": (m, d, i8), "ys": (m, 1, f32),
+         "h": (m, f, f32), "hq": (m, f, i8), "hs": (m, 1, f32)}
+    t = {k: torch.empty(v[:2], dtype=v[2], device=dev) for k, v in t.items()}
+    err = _lib().dvl_fused_layer_q(
+        x.data_ptr(), *[o.data_ptr() for o in ops], out.data_ptr(),
+        *[t[k].data_ptr() for k in ("xn", "xq", "xs", "qkv", "attn", "aq", "as", "y", "yb",
+                                    "yn", "yq", "ys", "h", "hq", "hs")],
+        b, s, d, f, heads, _stream_ptr(dev))
+    _raise_on(err, "dvl_fused_layer_q")
+    KB_LAUNCHES["fused_layer_q"] += 1
+    CORE_ROUTES[core_route(s)] += 1
+    if scratch is not None:  # the twin's keys: bf16 rows as f32, codes, scales
+        scratch.update({k: v.view(b, s, -1).float() if v.dtype == bf else v.view(b, s, -1)
+                        for k, v in t.items() if k not in ("qkv", "yb")})
     return out
 
 
@@ -743,17 +906,42 @@ def attention_block_q(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
 
 
 def mlp_block_q(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
-                act_kind: str = "quick_gelu", w1_qt=None, w2_qt=None,
-                scratch: Optional[dict] = None) -> torch.Tensor:
-    """x: [B, S, D] -> x + mlp(LN(x)) with int8 up and down products."""
+                act_kind: str = "quick_gelu", fb: Optional[int] = None, w1_qt=None,
+                w2_qt=None, scratch: Optional[dict] = None) -> torch.Tensor:
+    """x: [B, S, D] -> x + mlp(LN(x)) with int8 up and down products.
+    ``fb`` (JAX's F-tile): None or F is K4; a smaller divisor of F
+    quantizes each fb-wide chunk of a hidden row on its own and sums the
+    chunks' products in f32 (``fsplit_down``; on the card a multiple of
+    128, counted in ``KB_LAUNCHES["mlp_block_q_fsplit"]``)."""
     if act_kind not in ACT_KINDS:
         raise ValueError(f"act_kind must be one of {ACT_KINDS}, "
                          f"got {act_kind!r}")
     if _route(x) == "cpu":
         return mlp_block_q_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q,
-                                 w2_scale, b2, act_kind=act_kind, scratch=scratch)
+                                 w2_scale, b2, act_kind=act_kind, fb=fb, scratch=scratch)
     return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2,
-                             act_kind, w1_qt, w2_qt, scratch)
+                             act_kind, w1_qt, w2_qt, scratch, fb=fb)
+
+
+def fused_layer_q(x, ln1_s, ln1_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                  ln2_s, ln2_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, heads: int,
+                  wqkv_qt=None, wo_qt=None, w1_qt=None, w2_qt=None,
+                  scratch: Optional[dict] = None) -> torch.Tensor:
+    """The one-call int8 layer of benchmarks/q_layer_fused.py (``tower(bb,
+    mode)``, ``layer_kernel``; its three modes are one function): K3's
+    nine tensors, then K4's nine.  y = x + proj stays f32 between the
+    halves; the MLP's LayerNorm reads bf16(y), its activation is
+    quick_gelu (the script's) and the output is (y + b2) + part rounded
+    once (``fused_layer_q_plain``).  On a card one call of
+    ``dvl_fused_layer_q``: K3's launches, the out-projection writing y in
+    f32 and bf16, then K4's with the down product adding the f32 y."""
+    if _route(x) == "cpu":
+        return fused_layer_q_plain(x, ln1_s, ln1_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
+                                   bo, ln2_s, ln2_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                                   heads=heads, scratch=scratch)
+    return _fused_layer_q_cuda(
+        x, (ln1_s, ln1_b, wqkv_scale, bqkv, wo_scale, bo, wqkv_qt, wo_qt),
+        (ln2_s, ln2_b, w1_scale, b1, w2_scale, b2, w1_qt, w2_qt), heads, scratch)
 
 
 def fused_resblock_q(blk, x: torch.Tensor, heads: int, *,
@@ -886,3 +1074,18 @@ def mlp_block_q_var(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
     return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, "quick_gelu",
                              w1_qt, w2_qt, scratch,
                              kind="var_bf16_gelu" if bf16_gelu else "var")
+
+
+def attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,
+                              heads: int, wqkv_qt=None, wo_qt=None,
+                              scratch: Optional[dict] = None) -> torch.Tensor:
+    """The head-pair packed int8 attention of benchmarks/q_ilp4.py
+    (``make_call(bb)``; ``bb`` and the packing are the TPU's issue order):
+    K3 with the row sum divided out after P V
+    (``attention_block_q_postdiv_plain``); on a card K3's launches with
+    KB (a) 4's core."""
+    if _route(x) == "cpu":
+        return attention_block_q_postdiv_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
+                                               wo_scale, bo, heads=heads, scratch=scratch)
+    return _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo, heads,
+                                   False, wqkv_qt, wo_qt, scratch, kind="postdiv")

@@ -41,14 +41,13 @@ bodies.
   * CUDA (marker ``cuda``, skipped without a card): each kernel against its
     twin at full width and at every key bucket of the int8 core.
 
-jax is imported inside the JAX-side helpers only, so the CUDA tests run on
-a machine without jax:  python -m pytest tests/test_torch_kb_int8.py -m cuda
---noconftest -p no:randomly
+jax is imported inside the JAX-side helpers only (``tests/kb_helpers.py``
+holds the recorder, the script loader and the interpret-mode runner), so
+the CUDA tests run on a machine without jax:  python -m pytest
+tests/test_torch_kb_int8.py -m cuda --noconftest -p no:randomly
 """
 
 import functools
-import importlib.util
-import math
 import pathlib
 
 import numpy as np
@@ -57,121 +56,16 @@ import torch
 
 from debias_vision_lang_torch.ops import _build
 from debias_vision_lang_torch.ops import fused_block_q as fbq
-from debias_vision_lang_torch.ops import quant
+from kb_helpers import _jnp, _layer, _np32, _pallas_ops, _t, _ulp, _x, capture, check
+from kb_helpers import interpret as _interpret
+from kb_helpers import load as _load
+from kb_helpers import within_one_ulp
 
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CSRC = REPO / "debias_vision_lang_torch" / "csrc"
 S, D, H, F = 197, 768, 12, 3072  # ViT-B/16: the closures' width
-
-
-def _load(name: str):
-    spec = importlib.util.spec_from_file_location(f"kb_{name}", REPO / "benchmarks" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _layer(d, seed=0):
-    """A block's tensors with its four weights quantized by the port's
-    quantize_weight (the JAX function's bits, tests/test_torch_quant.py):
-    numpy (attention args, MLP args) in the kernels' argument order."""
-    rng = np.random.default_rng(seed)
-
-    def rn(*shape, std=1.0):
-        return (rng.normal(size=shape) * std).astype(np.float32)
-
-    def qz(w):
-        qw = quant.quantize_weight(torch.from_numpy(w))
-        return qw["q"].numpy(), qw["scale"].numpy()
-
-    attn = (1 + rn(d, std=0.1), rn(d, std=0.1), *qz(rn(d, 3 * d, std=d ** -0.5)),
-            rn(3 * d, std=0.1), *qz(rn(d, d, std=d ** -0.5)), rn(d, std=0.1))
-    mlp = (1 + rn(d, std=0.1), rn(d, std=0.1), *qz(rn(d, 4 * d, std=(2 * d) ** -0.5)),
-           rn(4 * d, std=0.1), *qz(rn(4 * d, d, std=(4 * d) ** -0.5)), rn(d, std=0.1))
-    return attn, mlp
-
-
-def _x(b, s, d, seed=1):
-    return np.random.default_rng(seed).normal(size=(b, s, d)).astype(np.float32)
-
-
-def _t(a, dtype=torch.float32):
-    """numpy -> torch: int8 codes kept, everything else in ``dtype`` (f32
-    for the block's parameters)."""
-    a = np.asarray(a)
-    return torch.from_numpy(a) if a.dtype == np.int8 else torch.from_numpy(a).to(dtype)
-
-
-def _np32(t):
-    return np.asarray(t.detach().float() if torch.is_tensor(t) else t, np.float32)
-
-
-def _ulp(ref):
-    return 2.0 ** (math.floor(math.log2(np.abs(ref).max())) - 7)
-
-
-def within_one_ulp(got, ref):
-    """|got - ref| <= one bf16 ulp at the output's largest magnitude."""
-    got, ref = _np32(got), _np32(ref)
-    err = np.abs(got - ref).max()
-    assert err <= _ulp(ref), f"max err {err} > 1 bf16 ulp {_ulp(ref)}"
-
-
-def close_f32_full_width(got, ref, share=0.05):
-    """The full-width float32 bar (module docstring): atol 1e-4 on all rows
-    but a share of at most ``share``, which stay within one bf16 ulp."""
-    got, ref = _np32(got), _np32(ref)
-    err = np.abs(got - ref)
-    rows = err.reshape(-1, err.shape[-1]).max(-1)
-    off = int((rows > 1e-4).sum())
-    assert off <= share * rows.size, f"{off} of {rows.size} rows past atol 1e-4"
-    assert err.max() <= _ulp(ref), f"max err {err.max()} > 1 bf16 ulp {_ulp(ref)}"
-
-
-def check(got, ref, dtype, full_width):
-    if dtype == "bfloat16":
-        assert got.dtype == torch.bfloat16
-        within_one_ulp(got, ref)
-    elif full_width:
-        close_f32_full_width(got, ref)
-    else:
-        np.testing.assert_allclose(_np32(got), _np32(ref), atol=1e-4)
-
-
-def _jnp(a, dtype=None):
-    import jax.numpy as jnp
-
-    out = jnp.asarray(a)
-    return out if dtype is None else out.astype(dtype)
-
-
-def _interpret(kernel, x, ops, bb=1):
-    """A captured kernel body through the real pallas_call in interpret
-    mode, laid out as its script's: x in (bb, S, D) blocks over a grid of
-    B / bb, every other operand whole."""
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, s, d = x.shape
-
-    def whole(a):
-        return pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim, memory_space=pltpu.VMEM)
-
-    xspec = pl.BlockSpec((bb, s, d), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-    return pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-                          grid=(b // bb,), in_specs=[xspec, *map(whole, ops)],
-                          out_specs=xspec, interpret=True)(x, *ops)
-
-
-def _pallas_ops(block):
-    """A block's numpy tensors as the scripts pass them: LN and biases as
-    [1, n] rows (``_row``), weight scales as [1, n] f32 (``_wrow``)."""
-    ls, lb, w1q, w1s, b1, w2q, w2s, b2 = block
-    return tuple(map(_jnp, (ls[None], lb[None], w1q, w1s.reshape(1, -1), b1[None], w2q,
-                            w2s.reshape(1, -1), b2[None])))
 
 
 # ---------------------------------------------------------------------------
@@ -181,25 +75,8 @@ def _pallas_ops(block):
 
 @pytest.fixture(scope="module")
 def captured():
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    kernels = {}
-
-    def recorder(kernel, *args, out_shape=None, **kwargs):
-        fn = kernel.func if isinstance(kernel, functools.partial) else kernel
-        kernels.setdefault(fn.__name__, []).append(kernel)
-        return lambda *operands: jnp.zeros(out_shape.shape, out_shape.dtype)
-
-    with pytest.MonkeyPatch.context() as mp, np.errstate(invalid="ignore", divide="ignore"):
-        for var in ("VAR_BATCH", "ILP_BATCH"):
-            mp.setenv(var, "12")
-        for var in ("VAR_STEPS", "ILP_STEPS"):
-            mp.setenv(var, "1")
-        mp.setattr(pl, "pallas_call", recorder)
-        for name in ("q_kernel_variants", "q_mlp_bf16h"):
-            _load(name).main()
-    return kernels
+    return capture(("q_kernel_variants", "q_mlp_bf16h"),
+                   {"VAR_BATCH": 12, "ILP_BATCH": 12, "VAR_STEPS": 1, "ILP_STEPS": 1})
 
 
 @pytest.fixture(scope="module")
