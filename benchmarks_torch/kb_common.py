@@ -1,7 +1,7 @@
 """Shared set-up of the port's KB runners (``attn_int8_cores.py``,
 ``q_mlp_bf16h.py``, ``q_kernel_variants.py``, ``attn_variants.py``,
-``q_ilp.py``, ``q_layer_fused.py`` in this directory): the card, the
-kernels, the phase-4 model's resblocks (as they are for the bf16 blocks,
+``q_ilp.py``, ``q_layer_fused.py``, ``q_attribution.py`` in this
+directory): the card, the kernels, the phase-4 model's resblocks (as they are for the bf16 blocks,
 quantized by the port's ``quantize_resblocks`` for the int8 ones), the
 scripts' inputs and their timing loop."""
 

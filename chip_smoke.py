@@ -405,11 +405,26 @@ Phases (any failure exits non-zero before the final line):
      vs K3 then K4, the post-P V division vs K3, the FiT-shape split vs
      K4): launches 12 per entry, cosine printed, not gated, ms beside the
      baseline's.
-The kernels line comes after phase 24 (its SLIP-L rows take phase 17's
+ 25. benchmarks/q_attribution.py's blocks (KB (c)):
+     ``fused_block_q.mlp_block_q_attr`` / ``attention_block_q_attr`` at
+     modes "mxu" (the products only, XLA's saturating int8 casts, the wgmma
+     core with its softmax off) and "vpu" (the elementwise chain only, the
+     products broadcasts): the SASS of their instantiations (IGMMA and
+     UTMALDG in the four s8 GEMMs they run, HGMMA in each softmax-off core,
+     no mma.sync, the stub kernels present); each against its twin at B=8
+     (x and x/16) and B=256 and the "mxu" attention at S=400 on the long
+     core (its codes the twin's conversion of its own rows, off the twin's
+     under phase 6's bars; the output bit-equal to the twin's last step on
+     its own codes and within 1 bf16 ulp of the twin where every code is
+     the twin's); each timed at B=256 beside K3 / K4 with its bound and
+     split by sub-kernel; the script's six 12-layer towers ("full" = K3 /
+     K4) on the phase-4 model's resblocks at its B=512: launches 12 per
+     tower, ms, full / (mxu + vpu) and full / max(mxu, vpu) printed.
+The kernels line comes after phase 25 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
 22's (1, 2) towers' and KB (a) 6's its tower's, KB (a) 1-4's phase 23's
-towers', phase 24's rows its towers') and gives each kernel's launches, error, time, plain-twin time,
+towers', phase 24's and 25's rows their towers') and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -609,7 +624,8 @@ def print_ptxas(lib: str, log: str) -> None:
         m = re.search(r"Compiling entry function '\w*?"
                       r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
                       r"layer_norm_kernel|quant_rows_kernel|attention_f32_kernel|"
-                      r"attention_long_kernel|attention_qq_kernel)"
+                      r"attention_long_kernel|attention_qq_kernel|cast_s8_kernel|"
+                      r"bcast_rows_kernel|attention_vpu_core_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
             args = [{"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "packed",
@@ -5688,6 +5704,299 @@ def split_phase(model, card, device):
     return list(rows.values()), wall
 
 
+# ---------------------------------------------------------------------------
+# phase 25: benchmarks/q_attribution.py's MXU-only and VPU-only int8 blocks
+# (KB (c)): each block with one side stubbed out, to time how much of K3 /
+# K4 is product and how much is elementwise chain
+# ---------------------------------------------------------------------------
+
+ATTR_B = 512  # the script's ATTR_BATCH: its towers' batch
+ATTR_REPLACES = {
+    "mlp_block_q_attr_mxu": "benchmarks/q_attribution.py:106",
+    "mlp_block_q_attr_vpu": "benchmarks/q_attribution.py:106",
+    "attention_block_q_attr_mxu": "benchmarks/q_attribution.py:196",
+    "attention_block_q_attr_vpu": "benchmarks/q_attribution.py:196",
+}
+ATTR_ENTRIES = {"mlp": "mlp_block_q", "attn": "attention_block_q"}
+# the script's six towers (kb_int8_tower's table), and the counter each
+# launch lands in: "full" is K3 / K4 (LAUNCHES), the others KB_LAUNCHES
+ATTR_KINDS = {f"{blk}_{mode}": (f"{entry}_attr", blk == "attn", {"mode": mode})
+              for blk, entry in ATTR_ENTRIES.items() for mode in ("full", "mxu", "vpu")}
+ATTR_COUNTERS = {f"{blk}_{mode}": entry if mode == "full" else f"{entry}_attr_{mode}"
+                 for blk, entry in ATTR_ENTRIES.items() for mode in ("full", "mxu", "vpu")}
+# f32 operations per element of the "vpu" bodies' elementwise chain, as
+# the TPU bodies state it: LayerNorm (mean; centre, square, sum; centre,
+# scale, shift and bias), a quantize pass (|x|, max, division, rounding, two
+# clips), a broadcast product (the code times its scale, the bias), quick_gelu
+# (product, exp, sum, division, product), a residual add, and per score of
+# the core the scale, max, difference, exp, sum and division
+ATTR_VPU_OPS = {"ln": 7, "quant": 6, "bcast": 2, "qgelu": 5, "resid": 1, "score": 6}
+
+
+# the attribution's own sub-kernels by profiler label (``subkernel_split``)
+ATTR_SPLIT_NAMES = {"gemm_s8_kernel<11>": "up GEMM (int8 out)", "cast_s8_kernel<true>": "cast x",
+                    "cast_s8_kernel<false>": "cast attn", "bcast_rows_kernel<0>": "QKV stub",
+                    "bcast_rows_kernel<1>": "out stub", "bcast_rows_kernel<2>": "up stub",
+                    "bcast_rows_kernel<4>": "down stub", "attention_vpu_core_kernel": "core stub"}
+
+
+def attr_gemm_ops(block, m, d, f):
+    """The int8 operations of each product of a block's "mxu" mode, by split label."""
+    if block == "mlp":
+        return {"up GEMM (int8 out)": 2 * m * d * f, "down GEMM": 2 * m * d * f}
+    return {"QKV GEMM": 2 * m * d * 3 * d, "out GEMM": 2 * m * d * d}
+
+
+def attr_work(block, mode, b, s, d, f, heads):
+    """Operations by type and bytes of one attribution block, the least any
+    design must do: "mxu" the block's int8 products (and the attention
+    core's Q K^T and P V in bf16), "vpu" its elementwise chain in f32
+    (ATTR_VPU_OPS per element of the stubbed shapes); x read and the output
+    written once, each parameter the mode reads read once (no weights in
+    "vpu", no LayerNorm in "mxu")."""
+    m, o = b * s, ATTR_VPU_OPS
+    if block == "mlp":
+        if mode == "mxu":
+            return {"int8": 4 * m * d * f}, 2 * m * d * 2 + 2 * d * f + 2 * (f + d) * 4
+        ops = (m * d * (o["ln"] + o["quant"] + o["bcast"] + o["resid"])
+               + m * f * (o["bcast"] + o["qgelu"] + o["quant"]))
+        return {"f32": ops}, 2 * m * d * 2 + (3 * d + f) * 4
+    if mode == "mxu":
+        return ({"int8": 2 * m * d * 4 * d, "bf16": 4 * b * heads * s * s * 64},
+                2 * m * d * 2 + 4 * d * d + 8 * d * 4)
+    ops = (m * d * (o["ln"] + 2 * o["quant"] + o["bcast"] + o["resid"]) + m * 3 * d * o["bcast"]
+           + b * heads * s * s * o["score"])
+    return {"f32": ops}, 2 * m * d * 2 + 6 * d * 4
+
+
+def attr_own(fbq, block, mode, x, args, sk):
+    """The twin's last step on the kernel's own codes and row scales (the
+    out- or down-projection, or its "vpu" broadcast), f32."""
+    c, s = ("hq", "hs") if block == "mlp" else ("aq", "as")
+    part = (fbq.dot_q(sk[c], sk[s], args[5], args[6]) if mode == "mxu"
+            else fbq.bcast_rows(sk[c], sk[s], x.shape[-1]))
+    bias = args[7].float()
+    return (x.float() + bias) + part if block == "mlp" else x.float() + (part + bias)
+
+
+def attr_compare(fbq, block, mode, x, params, heads, tag):
+    """One attribution block against its twin: its int8 codes the twin's
+    conversion of the kernel's own rows, exactly ("mxu": x's static cast,
+    the saturating cast of its own attention rows, or of the f32 hidden the
+    twin computes from its own x codes, whose up product is exact, with row
+    scales 1/16 and 1; "vpu": quant_rows of its own LN output, hidden or
+    attention rows); its codes off the twin's under phase 6's bars (the
+    "mxu" attention core sums its products in another order than the twin,
+    so a bf16 rounding of an attention row now and then lands across an
+    integer and its truncated code moves by one); its output bit-equal to
+    the twin's last step on its own codes, and, when every code is the
+    twin's, within 1 bf16 ulp of the twin's largest magnitude (a code one
+    off moves its row's outputs by a dequantized weight of wo, up to ~0.14
+    at these weights: past 1 ulp at times).  Returns the largest output
+    difference."""
+    import torch
+
+    args, qkw = params
+    entry = f"{ATTR_ENTRIES[block]}_attr"
+    name = f"{entry}_{mode}"
+    kern, plain = getattr(fbq, entry), getattr(fbq, f"{entry}_plain")
+    kw = {"mode": mode, **({"heads": heads} if block == "attn" else {})}
+    sk, sr = {}, {}
+    got = kern(x, *args, **kw, **qkw, scratch=sk)
+    ref = plain(x, *args, **kw, scratch=sr)
+    rows = "h" if block == "mlp" else "attn"
+    codes = ("hq", "hs") if block == "mlp" else ("aq", "as")
+    if mode == "mxu":
+        own = {"xq": fbq.static_q(x)}
+        if block == "mlp":
+            h = fbq.dot_q(sk["xq"], sk["xs"], args[2], args[3]) + args[4].float()
+            own[codes[0]] = fbq.unit_q(h)
+        else:
+            own[codes[0]] = fbq.unit_q(sk["attn"])
+    else:
+        own = {"xq": fbq.quant_rows(sk["xn"]), codes[0]: fbq.quant_rows(sk[rows])}
+    n_diff = n_codes = 0
+    for c, s in (("xq", "xs"), codes):
+        q, sc = own[c]
+        check(torch.equal(q, sk[c]) and torch.equal(sc.expand_as(sk[s]), sk[s]),
+              f"{name}: its {c} codes are not the twin's conversion of its own rows")
+        diff = (sk[c].int() - sr[c].int()).abs()
+        n_diff, n_codes = n_diff + int(diff.ne(0).sum()), n_codes + diff.numel()
+        bar = CODE_DIFF_MAX[c]
+        sat = (f"; {int(((sk[c] == 127) | (sk[c] <= -127)).sum())} of {sk[c].numel()} at a "
+               f"clip bound" if mode == "mxu" else "")
+        print(f"  {name} {tag} {c}: the conversion of its own rows; "
+              f"{diff.ne(0).float().mean().item():.3e} differ from the twin's, max |diff| "
+              f"{diff.max().item()} (bar {bar}){sat}")
+        check(diff.max().item() <= bar, f"{name}: {c} codes off the twin's by {diff.max().item()}")
+    check(n_diff <= CODE_SHARE_MAX * n_codes, f"{name}: {n_diff} of {n_codes} codes drift")
+    own_out = attr_own(fbq, block, mode, x, args, sk).to(x.dtype)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = ulp_bf16(ref.float().abs().max().item())
+    print(f"kernel {name} {tag}: max_abs_err {err} (tolerance {tol} = 1 bf16 ulp of max |twin|); "
+          f"{n_diff} codes off the twin's; output "
+          f"{'bit-equal' if torch.equal(got, own_out) else 'NOT equal'} to the twin's last step "
+          f"on its own codes")
+    check(torch.equal(got, own_out), f"{name}: the output is not the twin's last step on its "
+          f"own codes")
+    check(math.isfinite(err) and (err <= tol or n_diff > 0),
+          f"{name}: past 1 bf16 ulp of its twin with the twin's codes")
+    return err
+
+
+def sass_check_attr(lib, path) -> None:
+    """The attribution's instantiations in the int8 library: the s8 GEMMs of
+    its "mxu" blocks (gemm_s8_kernel at EQ_BIAS 0, EQ_BIAS_RESID 1,
+    EQ_RESID_BIAS 4 and its own EQ_BIAS_S8 11) each hold IGMMA and UTMALDG,
+    each softmax-off wgmma core (attention_wgmma_kernel<NK, packed, 0>, one
+    per key bucket) HGMMA, and none of them mma.sync (HMMA., IMMA.); the stubs
+    (cast_s8_kernel, bcast_rows_kernel, attention_vpu_core_kernel) are
+    present.  A missing instantiation fails the run."""
+    funcs = sass_functions(path)
+    if funcs is None:
+        print(f"sass attribution {lib}: no cuobjdump found: the per-kernel forms are not checked")
+        return
+    want = {**{f"gemm_s8_kernel<{e}>": (rf"gemm_s8_kernelILi{e}E", ("IGMMA", "UTMALDG"))
+               for e in (0, 1, 4, 11)},
+            "attention_wgmma_kernel<*, packed, softmax off>": (
+                r"attention_wgmma_kernelILi\d+ELi0ELi0E", ("HGMMA",)),
+            "cast_s8_kernel": (r"cast_s8_kernel", ()), "bcast_rows_kernel": (r"bcast_rows_kernel", ()),
+            "attention_vpu_core_kernel": (r"attention_vpu_core_kernel", ())}
+    for tag, (rx, ops) in want.items():
+        bodies = [body for name, body in funcs.items() if re.search(rx, name)]
+        check(bodies, f"sass {lib}: no {tag} in the library")
+        for body in bodies:
+            counts = {op: len(re.findall(SASS_OPS[op], body)) for op in ops + ("HMMA", "IMMA")}
+            missing = [op for op in ops if counts[op] == 0]
+            check(not missing, f"{tag} has no {missing} instructions in its SASS")
+            check(counts["HMMA"] + counts["IMMA"] == 0, f"{tag} runs mma.sync ({counts})")
+        print(f"sass {lib} attribution {tag}: {len(bodies)} instantiation(s), each with "
+              f"{list(ops) or 'no MMA'} and no HMMA. / IMMA.")
+
+
+def attr_checks(fbq, device, card):
+    """The four attribution kernels against their twins at B=8 (x and x/16)
+    and B=256 (``attr_compare``), then timed at B=256 beside K3 / K4 with
+    their bounds.  Returns the kernels-line rows (launches set by the
+    caller)."""
+    import torch
+
+    d, heads, s, f = KB_D, KB_H, KB_S, KB_F
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=26)
+    params = {"mlp": (qm, qmkw), "attn": (qa, qakw)}
+    g = torch.Generator().manual_seed(25)
+    cases = [(KB_CHECK_B, 1.0), (KB_CHECK_B, 1 / 16), (BATCH, 0.5)]
+    errs = {}
+    for b, scale in cases:
+        x = (torch.randn(b, s, d, generator=g) * scale).to(device, torch.bfloat16)
+        tag = f"B={b} S={s} D={d} x~N(0,{scale}^2)"
+        for block in ("mlp", "attn"):
+            for mode in ("mxu", "vpu"):
+                errs[(block, mode)] = attr_compare(fbq, block, mode, x, params[block], heads, tag)
+    # the "mxu" attention past the register core's 320 keys: the long
+    # route with its first pass skipped
+    xl = torch.randn(2, 400, d, generator=g).to(device, torch.bfloat16)
+    reset_all(fbq)
+    attr_compare(fbq, "attn", "mxu", xl, params["attn"], heads, "B=2 S=400 (the long core)")
+    check(fbq.CORE_ROUTES == {"short": 0, "long": 1},
+          f"phase 25: the S=400 core took the routes {fbq.CORE_ROUTES}, expected one long")
+
+    rows = {}
+    base = {"attn": cuda_ms(lambda: fbq.attention_block_q(x, *qa, heads=heads, **qakw)),
+            "mlp": cuda_ms(lambda: fbq.mlp_block_q(x, *qm, **qmkw))}
+    for block in ("mlp", "attn"):
+        args, qkw = params[block]
+        entry = f"{ATTR_ENTRIES[block]}_attr"
+        kern, plain = getattr(fbq, entry), getattr(fbq, f"{entry}_plain")
+        for mode in ("mxu", "vpu"):
+            kw = {"mode": mode, **({"heads": heads} if block == "attn" else {})}
+            name = f"{entry}_{mode}"
+            bound_ms, bound_by = bound(*attr_work(block, mode, BATCH, s, d, f, heads))
+            rows[name] = {"name": name, "case": f"KB (c) ViT-B/16 B={BATCH} S={s} D={d} H={heads}",
+                          "route": "cuda",
+                          "source": "debias_vision_lang_torch/csrc/fused_block_q.cu",
+                          "replaces": ATTR_REPLACES[name], "launches": None,
+                          "max_abs_err": errs[(block, mode)],
+                          "ms": cuda_ms(lambda: kern(x, *args, **kw, **qkw)),
+                          "plain_ms": cuda_ms(lambda: plain(x, *args, **kw), iters=3),
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            r, k = rows[name], base[block]
+            print(f"time {name} B={BATCH} S={s} D={d}: kernel {r['ms']:.4f} ms "
+                  f"({'K4' if block == 'mlp' else 'K3'} beside it {k:.4f} ms, {r['ms'] / k:.3f}x), "
+                  f"plain twin {r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the "
+                  f"kernel at {bound_ms / r['ms']:.1%} of it) ({card})")
+            subkernel_split(f"{name} B={BATCH}", lambda: kern(x, *args, **kw, **qkw),
+                            attr_gemm_ops(block, BATCH * s, d, f), card, kind="int8",
+                            rename={**ATTR_SPLIT_NAMES, **({"quantize x": QUANT_X_ATTN}
+                                                          if kw.get("heads") else {})})
+    del x, xl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def attr_towers(fbq, blocks, x0, card, iters=3):
+    """The script's six 12-layer towers on ``blocks`` at x0's batch: the
+    launches of each run counted (12 per tower: K3 / K4's counters for
+    "full", KB_LAUNCHES for the other two), its output finite, its ms
+    (``iters`` calls, CUDA events), and per block full / (mxu + vpu) and
+    full / max(mxu, vpu).  Returns {kind: launches}."""
+    import torch
+
+    towers = {kind: kb_int8_tower(fbq, blocks, kind, kinds=ATTR_KINDS) for kind in ATTR_KINDS}
+    launches, ms = {}, {}
+    with torch.no_grad():
+        for kind, run in towers.items():
+            reset_all(fbq)
+            out = run(x0)
+            torch.cuda.synchronize()
+            launches[kind] = nonzero({**fbq.LAUNCHES, **fbq.KB_LAUNCHES})
+            want = {ATTR_COUNTERS[kind]: LAYERS}
+            check(launches[kind] == want,
+                  f"phase 25: {kind} tower launches {launches[kind]}, expected {want}")
+            check(bool(torch.isfinite(out.float()).all()), f"phase 25: {kind} tower not finite")
+            ms[kind] = cuda_ms(lambda: run(x0), iters=iters)
+    b = x0.shape[0]
+    for blk in ("mlp", "attn"):
+        full, mxu, vpu = (ms[f"{blk}_{m}"] for m in ("full", "mxu", "vpu"))
+        print(f"phase 25 {blk} towers, {LAYERS} layers at B={b}: full {full:.4f} ms, mxu "
+              f"{mxu:.4f} ms, vpu {vpu:.4f} ms; full / (mxu + vpu) {full / (mxu + vpu):.4f}, "
+              f"full / max(mxu, vpu) {full / max(mxu, vpu):.4f} ({card})")
+    print(f"phase 25 tower launches: {launches}")
+    return launches
+
+
+def attr_phase(model, card, device):
+    """Phase 25: benchmarks/q_attribution.py's blocks -- the SASS of their
+    instantiations (``sass_check_attr``), each "mxu" / "vpu" kernel against
+    its twin and timed (``attr_checks``), then the script's six 12-layer
+    towers on the phase-4 model's resblocks quantized by
+    ``quantize_resblocks`` at its B=512 on its inputs (``attr_towers``).
+    Returns (kernels-line rows, wall)."""
+    import torch
+    from debias_vision_lang_torch.ops import _build
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.ops.quant import quantize_resblocks
+
+    t_phase = time.perf_counter()
+    sass_check_attr("fused_block_q", _build.LIB_PATHS["fused_block_q"])
+    rows = attr_checks(fbq, device, card)
+    walls = {"kernels": time.perf_counter() - t_phase}
+    t = time.perf_counter()
+    blocks = quantize_resblocks(model.clip.visual.resblocks)
+    x0 = kb_inputs(ATTR_B, n=1)[0]
+    launches = attr_towers(fbq, blocks, x0, card)
+    for kind, name in ATTR_COUNTERS.items():
+        if name in rows:
+            rows[name]["launches"] = launches[kind][name]
+    walls["towers"] = time.perf_counter() - t
+    del blocks, x0
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 25 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; total {wall:.2f} s ({card})")
+    return [rows[k] for k in ATTR_REPLACES], wall
+
+
 def main() -> int:
     try:
         import torch
@@ -6093,6 +6402,9 @@ def main() -> int:
     # 24. K4's F-split, KB (a) 5, the one-call int8 layer and q_ilp4's
     # post-P V division: each against its twin, timed, and on the towers
     split_rows, split_s = split_phase(model, card, device)
+    # 25. benchmarks/q_attribution.py's MXU-only and VPU-only blocks: each
+    # against its twin, timed, and the script's six towers
+    attr_rows, attr_s = attr_phase(model, card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -6101,13 +6413,13 @@ def main() -> int:
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
     print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows + kb_rows
-                      + split_rows}))
+                      + split_rows + attr_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
           f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s, "
-          f"phase 24 {split_s:.1f} s"
+          f"phase 24 {split_s:.1f} s, phase 25 {attr_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

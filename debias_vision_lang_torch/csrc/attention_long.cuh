@@ -98,6 +98,10 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& res
 }
 
 constexpr int LT = 64;  // keys per tile, rows per consumer warpgroup, dims per chunk
+// norm_after of the packed cores (here and attention_wgmma.cuh): the softmax
+// off, p = bf16(s * scale) into P @ V (the "mxu" attention of benchmarks/
+// q_attribution.py); the long route then skips its first pass
+constexpr int NORM_OFF = 3;
 
 template <typename T, int C, bool PACKED = false>
 struct LongCfg {
@@ -287,7 +291,9 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 // image, CLIP's causal flag); the heads-first source reads the mask `tm_m`.
 // `norm_after` (KB (a) 6's function, attention_wgmma.cuh): p = exp(s - m)
 // unnormalised, rounded for P @ V, and O scaled by 1 / l before the store
-// (norm_after = 2: O divided by l).
+// (norm_after = 2: O divided by l; NORM_OFF: p = s * scale, 0 past S and
+// past the causal mask, and no first pass: the producer loads pass 2's
+// tiles only).
 template <typename T, int C, bool PACKED>
 __global__ void __launch_bounds__(LongCfg<T, C, PACKED>::THREADS, LongCfg<T, C, PACKED>::BLOCKS)
 attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -345,7 +351,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_expect_tx(qbar, Cfg::Q_BYTES);
     for (int c = 0; c < HDP / Cfg::BOX; ++c)
       tma_load_3d(Qs + c * Cfg::ROWS * 128, &tm_q, qbar, col_q + c * Cfg::BOX, q0, z);
-    for (int pass = 0; pass < 2; ++pass) {
+    for (int pass = norm_after == NORM_OFF ? 1 : 0; pass < 2; ++pass) {
       for (int kt = 0; kt < nkt; ++kt) {
         if constexpr (!PACKED) {
           const int s = rm.put(Cfg::M_BYTES);
@@ -458,7 +464,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   // max shared by the row's quad)
   float sc[32];
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int kt = 0; kt < (norm_after == NORM_OFF ? 0 : nkt); ++kt) {
     scores(sc, kt);
     float t_lo = -INFINITY, t_hi = -INFINITY;
 #pragma unroll
@@ -491,12 +497,17 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
     scores(sc, kt);
+    if (norm_after == NORM_OFF) {  // the scaled scores themselves, 0 where masked
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt * 4] = expm<F32>(sc[nt * 4], m_lo) * p_lo;
-      sc[nt * 4 + 1] = expm<F32>(sc[nt * 4 + 1], m_lo) * p_lo;
-      sc[nt * 4 + 2] = expm<F32>(sc[nt * 4 + 2], m_hi) * p_hi;
-      sc[nt * 4 + 3] = expm<F32>(sc[nt * 4 + 3], m_hi) * p_hi;
+      for (int i = 0; i < 32; ++i) sc[i] = sc[i] == -INFINITY ? 0.f : sc[i];
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        sc[nt * 4] = expm<F32>(sc[nt * 4], m_lo) * p_lo;
+        sc[nt * 4 + 1] = expm<F32>(sc[nt * 4 + 1], m_lo) * p_lo;
+        sc[nt * 4 + 2] = expm<F32>(sc[nt * 4 + 2], m_hi) * p_hi;
+        sc[nt * 4 + 3] = expm<F32>(sc[nt * 4 + 3], m_hi) * p_hi;
+      }
     }
     if constexpr (F32) {
       // step j (8 keys) takes score chunk j as it lies, split into TF32

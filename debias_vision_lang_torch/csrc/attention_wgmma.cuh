@@ -19,6 +19,12 @@
 // norm_after = 2 (KB (a) 4, attn_q_kernel_var of benchmarks/
 // q_kernel_variants.py, at scale 1/8: exp(s / 8 - m / 8) is its exp2 at
 // 8^-1 log2 e to f32 rounding) divides them by the row sum instead.
+// norm_after = NORM_OFF (the "mxu" attention of benchmarks/
+// q_attribution.py, packed source only) turns the softmax off: p =
+// bf16(s * scale), 0 past S and past the causal mask, straight into P @ V,
+// with no row max, exp, row sum or division.  It runs instantiations of its
+// own (SOFTMAX = 0), so the softmax kernels K1 and K3 run keep their
+// registers.
 // The packed qkv's rows are `ld` elements apart (3D, or a tensor-parallel
 // slot's q | k | v slice padded to the GEMM's 128-column tile).
 //
@@ -91,8 +97,9 @@ __device__ __forceinline__ void qk_wgmma(float (&sc)[NK / 2], uint64_t dq, uint6
 
 // Up to 200 keys, three blocks share an SM (68 KB of shared memory each):
 // hold the registers to that.  `D` is the packed row's model width (K1;
-// unused by K5), `mask` K5's [S, S] additive mask, `causal` K1's flag.
-template <int NK, int SRC>
+// unused by K5), `mask` K5's [S, S] additive mask, `causal` K1's flag;
+// SOFTMAX = 0 is the packed source's NORM_OFF mode.
+template <int NK, int SRC, int SOFTMAX>
 __global__ void __launch_bounds__(CORE_THREADS, NK <= 200 ? 3 : 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -177,7 +184,22 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < NJ * 4; ++i) pa[i] = 0u;
     float l_lo = 1.f, l_hi = 1.f, r_lo = 1.f, r_hi = 1.f;  // the f32 row sums, 1 / them
-    if (qt * 64 + warp * 16 < S) {
+    if constexpr (!SOFTMAX) {
+      if (qt * 64 + warp * 16 < S) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = nt * 8 + 2 * t + e;
+            v[e] = (col < S && (!causal || col <= row_lo)) ? sc[nt * 4 + e] * scale : 0.f;
+            v[2 + e] = (col < S && (!causal || col <= row_hi)) ? sc[nt * 4 + 2 + e] * scale : 0.f;
+          }
+          pa[2 * nt] = pack_bf16(v[0], v[1]);
+          pa[2 * nt + 1] = pack_bf16(v[2], v[3]);
+        }
+      }
+    } else if (qt * 64 + warp * 16 < S) {
       // K5: rows past S compute on row S-1's mask and are never stored
       const float *mlo = nullptr, *mhi = nullptr;
       if constexpr (SRC == CORE_HEADS) {
@@ -250,7 +272,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
-    } else if (norm_after) {
+    } else if (norm_after == 1) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? r_hi : r_lo;
     }
@@ -268,18 +290,34 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int NK, int SRC, int SOFTMAX>
+cudaError_t launch_core_kernel(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
+                               int D, float scale, int causal, int norm_after, dim3 grid,
+                               cudaStream_t st) {
+  const size_t smem = core_smem_bytes(NK);
+  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC, SOFTMAX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attention_wgmma_kernel<NK, SRC, SOFTMAX><<<grid, CORE_THREADS, smem, st>>>(
+      tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after);
+  return cudaGetLastError();
+}
+
+// The softmax-off instantiation for the packed source's NORM_OFF (K5's
+// heads-first source has none), the softmax one otherwise.
 template <int NK, int SRC>
 cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
                               int D, float scale, int causal, int norm_after, dim3 grid,
                               cudaStream_t st) {
-  const size_t smem = core_smem_bytes(NK);
-  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  attention_wgmma_kernel<NK, SRC><<<grid, CORE_THREADS, smem, st>>>(
-      tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after);
-  return cudaGetLastError();
+  if constexpr (SRC == CORE_PACKED) {
+    if (norm_after == NORM_OFF)
+      return launch_core_kernel<NK, SRC, 0>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal,
+                                            norm_after, grid, st);
+  }
+  return launch_core_kernel<NK, SRC, 1>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal,
+                                        norm_after, grid, st);
 }
 
 template <int SRC>
@@ -308,7 +346,7 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
 // ld = 3D and scale = 1/8; a tensor-parallel slot passes its D = 64 g over
 // its g heads and its padded slice's ld; KB (a) 6 passes scale = ln 2 and
 // norm_after (see the top of this file); KB (a) 4 scale = 1/8 with
-// norm_after = 2.
+// norm_after = 2; the attribution's "mxu" core scale = 1/8 with NORM_OFF.
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
                                    int causal, cudaStream_t st, int ld, float scale,
                                    int norm_after) {

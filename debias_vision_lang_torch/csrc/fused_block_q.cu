@@ -50,6 +50,29 @@
 //   dvl_attention_block_q_postdiv <- q_ilp4.py::make_call (the head-pair
 //                                 packed kernel): K3's quantizer, the row sum
 //                                 divided out after P V as AQ_VAR's core.
+// And the two blocks of benchmarks/q_attribution.py (KB (c)), which time a
+// block with one side of it stubbed out, in K3's / K4's launch sequences:
+//   dvl_attention_block_q_attr_mxu <- make_attn("mxu") (attn_kernel): the
+//                                 products only: x's static int8 cast
+//                                 (cast_s8_kernel), the QKV GEMM, the wgmma
+//                                 core with its softmax off (NORM_OFF), the
+//                                 attention rows' saturating cast in the
+//                                 quantize pass's slot, the out GEMM;
+//   dvl_attention_block_q_attr_vpu <- make_attn("vpu"): the elementwise
+//                                 chain only: K3's LayerNorm and quantize
+//                                 passes, each product a broadcast of the
+//                                 row's first code (bcast_rows_kernel), the
+//                                 core a softmax over broadcast scores
+//                                 (attention_vpu_core_kernel);
+//   dvl_mlp_block_q_kb, MQ_ATTR_MXU <- make_mlp("mxu") (mlp_kernel): the
+//                                 static cast, the up GEMM writing the int8
+//                                 hidden itself (EQ_BIAS_S8: no f32 hidden),
+//                                 the down GEMM;
+//   dvl_mlp_block_q_kb, MQ_ATTR_VPU <- make_mlp("vpu"): K4's LayerNorm and
+//                                 quantize passes, the products broadcasts
+//                                 (quick_gelu in the up one's epilogue).
+// The casts are XLA's float-to-int8 conversion (s8_trunc: toward zero,
+// saturated, NaN to 0), never quant_rows's rounding.
 //
 // Numerics are the TPU kernels' (the plain twins in ops/fused_block_q.py are
 // the specification):
@@ -179,6 +202,52 @@ cudaError_t launch_quant_rows(const T* x, int8_t* q, float* scale, int rows, int
   return launch_quant_rows_mode<false, false>(x, q, scale, nullptr, rows, n, st);
 }
 
+// XLA's float-to-int8 conversion (ops/fused_block_q.py::to_s8_sat): toward
+// zero, clamped to [lo, 127], NaN to 0.  lo = -128 is the saturating cast;
+// lo = -127 with v = x 16 is the "mxu" bodies' int8(clip(x 16, -127, 127)).
+__device__ __forceinline__ uint32_t s8_trunc(float v, int lo) {
+  return v != v ? 0u : (uint32_t)(uint8_t)(int8_t)max(lo, min(127, __float2int_rz(v)));
+}
+
+// The attribution's "mxu" casts of a bf16 row set [rows, n] (n % 8 == 0) to
+// int8, 8 values a thread: STATIC16 x's codes s8_trunc(x 16, -127) with the
+// row scale 1/16, else the attention rows' s8_trunc(a, -128) with the row
+// scale 1; the thread of a row's first 8 columns writes its scale.
+template <bool STATIC16>
+__global__ void __launch_bounds__(256)
+cast_s8_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+               long long total8, int n) {
+  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i8 >= total8) return;
+  const long long e = i8 * 8;
+  const uint4 raw = *reinterpret_cast<const uint4*>(x + e);
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    const float v[2] = {f.x, f.y};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c = 2 * i + k;
+      const uint32_t code = STATIC16 ? s8_trunc(__fmul_rn(v[k], 16.0f), -127) : s8_trunc(v[k], -128);
+      w[c >> 2] |= code << (8 * (c & 3));
+    }
+  }
+  *reinterpret_cast<uint2*>(q + e) = make_uint2(w[0], w[1]);
+  if (e % n == 0) scale[e / n] = STATIC16 ? 0.0625f : 1.0f;
+}
+
+template <bool STATIC16>
+cudaError_t launch_cast_s8(const bf16* x, int8_t* q, float* scale, int rows, int n,
+                           cudaStream_t st) {
+  if (n % 8) return cudaErrorInvalidValue;
+  const long long total8 = (long long)rows * n / 8;
+  cast_s8_kernel<STATIC16><<<(unsigned)((total8 + 255) / 256), 256, 0, st>>>(x, q, scale, total8,
+                                                                            n);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // s8 wgmma GEMM (all four products): C[M, N] = epilogue(A[M, K] @ Wt[N,
 // K]^T), A and Wt int8 row-major (both K-major), s32 accumulation.  The bf16
@@ -197,12 +266,15 @@ enum EpilogueQ {
   EQ_BIAS_RESID_Y = 8,     // f32 y = resid + (deq + bias), bf16(y) to C2 (the layer's out-proj)
   EQ_RESID32_BIAS = 9,     // bf16((resid32 + bias) + deq), resid f32 (the layer's mlp down)
   EQ_RESID_BIAS_CHUNK = 10,  // bf16((resid + bias) + sum_c deq_c)     (mlp down, F-split)
+  EQ_BIAS_S8 = 11,     // int8 s8_trunc(deq + bias, -128), row scale 1 to C2 (the "mxu" mlp up)
 };                    // deq = (acc * row_scale) * channel_scale
 // KB (a) 2's bf16 pre-activation bf16(deq + b1) is EQ_BIAS's output.
 // EQ_RESID_BIAS_CHUNK: the K loop is cut into chunks of chunk_steps K steps
 // (the hidden's F-chunks, each quantized with its own row scales);
 // deq_c = (acc_c * row_scale[m, c]) * channel_scale, acc_c the chunk's
 // exact int32 sum, and the chunks' deq_c are summed in f32 in chunk order.
+// EQ_BIAS_S8: the blocks of column tile 0 write each row's scale, 1, to C2
+// [M] f32, so the down GEMM reads the codes and their scales as K4's.
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
@@ -389,8 +461,14 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 #pragma unroll
       for (int i = 0; i < 8; ++i) d[i] = __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
     }
-    if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_F32 ||
-                  EPI == EQ_BIAS_QGELU_BF16) {
+    if constexpr (EPI == EQ_BIAS_S8) {
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[i >> 2] |= s8_trunc(__fadd_rn(d[i], bb[i]), -128) << (8 * (i & 3));
+      *reinterpret_cast<uint2*>(static_cast<int8_t*>(C) + m * N + n) = make_uint2(w[0], w[1]);
+      if (n == 0) static_cast<float*>(C2)[m] = 1.0f;
+    } else if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_F32 ||
+                         EPI == EQ_BIAS_QGELU_BF16) {
       float hv[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -446,7 +524,8 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
   }
 }
 
-// EQ_BIAS_RESID_Y writes its bf16 copy to C2; EQ_RESID_BIAS_CHUNK takes
+// EQ_BIAS_RESID_Y writes its bf16 copy to C2, EQ_BIAS_S8 its row scales;
+// EQ_RESID_BIAS_CHUNK takes
 // a_scale [M, K / (128 chunk_steps)] (a row's scale per chunk) and K a
 // multiple of 128 chunk_steps.
 template <int EPI>
@@ -458,7 +537,7 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
   if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
   if (EPI == EQ_RESID_BIAS_CHUNK && (chunk_steps < 1 || K % (SBK * chunk_steps)))
     return cudaErrorInvalidValue;
-  if (EPI == EQ_BIAS_RESID_Y && C2 == nullptr) return cudaErrorInvalidValue;
+  if ((EPI == EQ_BIAS_RESID_Y || EPI == EQ_BIAS_S8) && C2 == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 128 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K};
   const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
@@ -572,9 +651,143 @@ tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
-// The attention block's variants: K3, KB (a) 1 (qq), KB (a) 4 (var) and
-// the head-pair packed kernel of benchmarks/q_ilp4.py (postdiv).
-enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2, AQ_POSTDIV = 3 };
+// ---------------------------------------------------------------------------
+// The attribution's "vpu" stubs (benchmarks/q_attribution.py): each stands
+// in for a product, or for the attention core's products, and does the
+// elementwise work of the stubbed shape, as the TPU body's broadcasts do.
+// ---------------------------------------------------------------------------
+
+// d = codes[m, 0] * rs[m] (the row's first code: codes [M, K] row-major),
+// the same for every column n of the row, then the GEMM epilogue EPI's
+// bias, activation and residual in its operation order: EQ_BIAS bf16
+// (qkv), EQ_BIAS_QGELU f32 (the MLP hidden), EQ_RESID_BIAS bf16 (the MLP
+// output), EQ_BIAS_RESID bf16 (the attention output).  8 columns a thread;
+// N % 8 == 0.
+template <int EPI>
+__global__ void __launch_bounds__(256)
+bcast_rows_kernel(const int8_t* __restrict__ codes, const float* __restrict__ rs, int K,
+                  const float* __restrict__ bias, const bf16* __restrict__ resid,
+                  void* __restrict__ out, long long total8, int N) {
+  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i8 >= total8) return;
+  const long long e = i8 * 8, m = e / N;
+  const int n = (int)(e % N);
+  const float d = __fmul_rn((float)codes[m * K], rs[m]);
+  float bb[8];
+  *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+  *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+  if constexpr (EPI == EQ_BIAS_QGELU) {
+    float hv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hv[i] = quick_gelu(__fadd_rn(d, bb[i]));
+    float* o = static_cast<float*>(out) + e;
+    *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(hv);
+    *reinterpret_cast<float4*>(o + 4) = *reinterpret_cast<const float4*>(hv + 4);
+  } else {
+    float rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (EPI != EQ_BIAS) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(resid + e);
+      const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f2 = __bfloat1622float2(rp[i]);
+        rr[2 * i] = f2.x;
+        rr[2 * i + 1] = f2.y;
+      }
+    }
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (EPI == EQ_BIAS)
+        o[i] = __fadd_rn(d, bb[i]);
+      else if constexpr (EPI == EQ_BIAS_RESID)
+        o[i] = __fadd_rn(rr[i], __fadd_rn(d, bb[i]));
+      else  // EQ_RESID_BIAS
+        o[i] = __fadd_rn(__fadd_rn(rr[i], bb[i]), d);
+    }
+    uint4 packed;
+    uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pw[i] = pack_bf16(o[2 * i], o[2 * i + 1]);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + e) = packed;
+  }
+}
+
+template <int EPI>
+cudaError_t launch_bcast_rows(const int8_t* codes, const float* rs, int K, const float* bias,
+                              const void* resid, void* out, int M, int N, cudaStream_t st) {
+  if (N % 8) return cudaErrorInvalidValue;
+  const long long total8 = (long long)M * N / 8;
+  bcast_rows_kernel<EPI><<<(unsigned)((total8 + 255) / 256), 256, 0, st>>>(
+      codes, rs, K, bias, static_cast<const bf16*>(resid), out, total8, N);
+  return cudaGetLastError();
+}
+
+// The "vpu" attention core: one block per (head, image), one warp per query
+// row i at a time, the row's keys strided over the lanes.  Every one of the
+// S scores is q[i, 0] * scale -- the head's first q element, made a value
+// of its own at each key (an empty asm), since the TPU body materialises the
+// broadcast score row and the stub exists to time the work on it -- then
+// K3's softmax of the row: the max, an exp per score (kept in shared memory,
+// S floats a warp), the f32 sum, an IEEE division per score and its bf16
+// rounding.  The head's output row is p[i, 0] in all 64 columns.
+constexpr int VPU_CORE_WARPS = 4;
+
+__global__ void __launch_bounds__(VPU_CORE_WARPS * 32)
+attention_vpu_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int S, int D,
+                          float scale) {
+  extern __shared__ float ex[];
+  const int h = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* e = ex + warp * S;
+  for (int i = warp; i < S; i += VPU_CORE_WARPS) {
+    const long long row = (long long)blockIdx.y * S + i;
+    const float q = __bfloat162float(qkv[row * 3 * D + h * HD]);
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) {
+      float sc = __fmul_rn(q, scale);
+      asm volatile("" : "+f"(sc));
+      e[j] = sc;
+      m = fmaxf(m, sc);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float x = expf(e[j] - m);
+      e[j] = x;
+      l += x;
+    }
+    l = warp_sum(l);
+    float p0 = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const bf16 p = __float2bfloat16_rn(__fdiv_rn(e[j], l));
+      asm volatile("" ::"h"(__bfloat16_as_ushort(p)));  // every p is computed
+      if (j == 0) p0 = __bfloat162float(p);
+    }
+    p0 = __shfl_sync(0xffffffffu, p0, 0);
+    *reinterpret_cast<uint32_t*>(attn + row * D + h * HD + 2 * lane) = pack_bf16(p0, p0);
+  }
+}
+
+cudaError_t launch_attention_vpu_core(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+                                      cudaStream_t st) {
+  if (S < 1 || D != heads * HD) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)VPU_CORE_WARPS * S * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_vpu_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  attention_vpu_core_kernel<<<dim3(heads, B), VPU_CORE_WARPS * 32, smem, st>>>(
+      qkv, attn, S, D, 1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+// The attention block's variants: K3, KB (a) 1 (qq), KB (a) 4 (var), the
+// head-pair packed kernel of benchmarks/q_ilp4.py (postdiv) and the
+// attribution's two stubbed blocks (attr_mxu, attr_vpu).
+enum AttnQVariant {
+  AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2, AQ_POSTDIV = 3, AQ_ATTR_MXU = 4, AQ_ATTR_VPU = 5
+};
 
 // out = x + (deq(q(attn) @ wo_q) + bo), attn = MHA over
 // bf16(deq(q(bf16(LN(x))) @ wqkv_q) + bqkv).  x, out [B, S, D] bf16; wqkv_t
@@ -587,7 +800,12 @@ enum AttnQVariant { AQ_K3 = 0, AQ_QQ = 1, AQ_VAR = 2, AQ_POSTDIV = 3 };
 // AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh.
 // AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
 // the row sum after P V (norm_after = 2).  AQ_POSTDIV: K3's quantizer and
-// AQ_VAR's core.  None of the three takes the causal mask.
+// AQ_VAR's core.  AQ_ATTR_MXU: x's static cast in place of LayerNorm and
+// its quantize pass (xn not written, xs = 1/16), the core with its softmax
+// off, the attention rows' saturating cast in place of their quantize pass
+// (ascale = 1).  AQ_ATTR_VPU: K3's LayerNorm and quantize passes, the
+// products and the core's products broadcasts (bcast_rows_kernel,
+// attention_vpu_core_kernel).  None of these takes the causal mask.
 // y32 (K3 only), if not null: the out-projection writes f32 y = x + (deq +
 // bo) [B*S, D] there and bf16(y) to out (EQ_BIAS_RESID_Y: K3's output, and
 // the residual kept f32 for the layer's MLP half).
@@ -599,18 +817,29 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S;
   if (variant != AQ_K3 && (causal || y32 != nullptr)) return (int)cudaErrorInvalidValue;
-  const bool recip = variant == AQ_VAR;
+  const bool recip = variant == AQ_VAR, mxu = variant == AQ_ATTR_MXU, vpu = variant == AQ_ATTR_VPU;
   cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+  if (mxu) {
+    e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
+                             static_cast<float*>(xs), M, D, st);
+  } else {
+    e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+    if (e != cudaSuccess) return (int)e;
+    e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
+                                                    static_cast<int8_t*>(xq),
+                                                    static_cast<float*>(xs), nullptr, M, D, st)
+              : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                                  static_cast<float*>(xs), M, D, st);
+  }
   if (e != cudaSuccess) return (int)e;
-  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
-                                                  static_cast<int8_t*>(xq),
-                                                  static_cast<float*>(xs), nullptr, M, D, st)
-            : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                                static_cast<float*>(xs), M, D, st);
-  if (e != cudaSuccess) return (int)e;
-  if (variant == AQ_QQ) {
+  if (vpu) {
+    e = launch_bcast_rows<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+                                   D, static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, st);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_attention_vpu_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
+                                  heads, st);
+  } else if (variant == AQ_QQ) {
     e = launch_gemm_s8<EQ_BIAS_F32>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                                     static_cast<const int8_t*>(wqkv_t),
                                     static_cast<const float*>(sqkv),
@@ -627,16 +856,25 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
     if (e != cudaSuccess) return (int)e;
     e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
                                heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f),
-                               variant == AQ_K3 ? 0 : 2);
+                               variant == AQ_K3 ? 0 : mxu ? NORM_OFF : 2);
   }
   if (e != cudaSuccess) return (int)e;
-  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(attn),
-                                                  static_cast<int8_t*>(aq),
-                                                  static_cast<float*>(ascale), nullptr, M, D, st)
-            : launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
-                                static_cast<float*>(ascale), M, D, st);
+  if (mxu)
+    e = launch_cast_s8<false>(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
+                              static_cast<float*>(ascale), M, D, st);
+  else if (recip)
+    e = launch_quant_rows_mode<true, false>(static_cast<const bf16*>(attn),
+                                            static_cast<int8_t*>(aq),
+                                            static_cast<float*>(ascale), nullptr, M, D, st);
+  else
+    e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
+                          static_cast<float*>(ascale), M, D, st);
   if (e != cudaSuccess) return (int)e;
-  if (y32 != nullptr)
+  if (vpu)
+    e = launch_bcast_rows<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
+                                         static_cast<const float*>(ascale), D,
+                                         static_cast<const float*>(bo), x, out, M, D, st);
+  else if (y32 != nullptr)
     e = launch_gemm_s8<EQ_BIAS_RESID_Y>(static_cast<const int8_t*>(aq),
                                         static_cast<const float*>(ascale),
                                         static_cast<const int8_t*>(wo_t),
@@ -651,9 +889,11 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
   return (int)e;
 }
 
-// The MLP block's variants: K4, KB (a) 2 (bf16h) and KB (a) 3 (var, with
-// or without the bf16 quick_gelu).
-enum MlpQVariant { MQ_K4 = 0, MQ_BF16H = 1, MQ_VAR = 2, MQ_VAR_BF16_GELU = 3 };
+// The MLP block's variants: K4, KB (a) 2 (bf16h), KB (a) 3 (var, with or
+// without the bf16 quick_gelu) and the attribution's two stubbed blocks.
+enum MlpQVariant {
+  MQ_K4 = 0, MQ_BF16H = 1, MQ_VAR = 2, MQ_VAR_BF16_GELU = 3, MQ_ATTR_MXU = 4, MQ_ATTR_VPU = 5
+};
 
 // out = (x + b2) + deq(q(h) @ w2_q), h = act(deq(q(bf16(LN(x))) @ w1_q) + b1)
 // in f32.  x, out [M, D] bf16; w1_t [F, D], w2_t [D, F] int8 (transposed);
@@ -664,8 +904,13 @@ enum MlpQVariant { MQ_K4 = 0, MQ_BF16H = 1, MQ_VAR = 2, MQ_VAR_BF16_GELU = 3 };
 // MQ_BF16H: h [M, F] bf16 holds bf16(deq + b1) (EQ_BIAS) and the hidden's
 // quantize pass applies quick_gelu (g, if not null, [M, F] f32 receives
 // it).  MQ_VAR / MQ_VAR_BF16_GELU: the reciprocal quantizer on x and h,
-// quick_gelu in f32 (EQ_BIAS_QGELU) or bf16 (EQ_BIAS_QGELU_BF16).  These
-// three run quick_gelu only.
+// quick_gelu in f32 (EQ_BIAS_QGELU) or bf16 (EQ_BIAS_QGELU_BF16).
+// MQ_ATTR_MXU: x's static cast in place of LayerNorm and its quantize pass
+// (xn not written, xs = 1/16), the up GEMM writing hq itself with hs = 1
+// (EQ_BIAS_S8; h is not written and may be null), K4's down GEMM.
+// MQ_ATTR_VPU: K4's LayerNorm and quantize passes, the products broadcasts
+// (bcast_rows_kernel: quick_gelu in the up one, h f32).  These five run
+// quick_gelu only.
 // K4 only: k > 1 splits F into k chunks of F / k (a multiple of 128) as the
 // TPU kernel's F-split does: each row of each chunk quantized on its own
 // (the quantize pass over the [M k, F / k] view of h; hs [M, k]), and the
@@ -684,21 +929,33 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if ((k > 1 || resid32 != nullptr) && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   if (k > 1 && resid32 != nullptr) return (int)cudaErrorInvalidValue;
   const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
+  const bool mxu = variant == MQ_ATTR_MXU, vpu = variant == MQ_ATTR_VPU;
   const int8_t* w1 = static_cast<const int8_t*>(w1_t);
   const float *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1);
   const float* fxs = static_cast<const float*>(xs);
   const int8_t* ixq = static_cast<const int8_t*>(xq);
   cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
-                                                  static_cast<int8_t*>(xq),
-                                                  static_cast<float*>(xs), nullptr, M, D, st)
-            : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                                static_cast<float*>(xs), M, D, st);
+  if (mxu) {
+    e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
+                             static_cast<float*>(xs), M, D, st);
+  } else {
+    e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+    if (e != cudaSuccess) return (int)e;
+    e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
+                                                    static_cast<int8_t*>(xq),
+                                                    static_cast<float*>(xs), nullptr, M, D, st)
+              : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
+                                  static_cast<float*>(xs), M, D, st);
+  }
   if (e != cudaSuccess) return (int)e;
   switch (variant) {
+    case MQ_ATTR_MXU:
+      e = launch_gemm_s8<EQ_BIAS_S8>(ixq, fxs, w1, fs1, fb1, nullptr, hq, M, F, D, st, hs);
+      break;
+    case MQ_ATTR_VPU:
+      e = launch_bcast_rows<EQ_BIAS_QGELU>(ixq, fxs, D, fb1, nullptr, h, M, F, st);
+      break;
     case MQ_BF16H:
       e = launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
       break;
@@ -710,7 +967,9 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
                         : launch_gemm_s8<EQ_BIAS_GELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
   }
   if (e != cudaSuccess) return (int)e;
-  if (variant == MQ_BF16H)
+  if (mxu)
+    e = cudaSuccess;  // the up GEMM wrote hq and hs
+  else if (variant == MQ_BF16H)
     e = launch_quant_rows_mode<false, true>(static_cast<const bf16*>(h), static_cast<int8_t*>(hq),
                                             static_cast<float*>(hs), static_cast<float*>(g), M, F,
                                             st);
@@ -725,7 +984,9 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   const float *fhs = static_cast<const float*>(hs), *fs2 = static_cast<const float*>(s2),
               *fb2 = static_cast<const float*>(b2);
   const int8_t* w2 = static_cast<const int8_t*>(w2_t);
-  if (k > 1)
+  if (vpu)
+    e = launch_bcast_rows<EQ_RESID_BIAS>(ihq, fhs, F, fb2, x, out, M, D, st);
+  else if (k > 1)
     e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, D, F, st, nullptr,
                                             F / k / SBK);
   else if (resid32 != nullptr)
@@ -782,6 +1043,28 @@ int dvl_attention_block_q_postdiv(const void* x, const void* ln_s, const void* l
                                 qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_POSTDIV, stream);
 }
 
+// benchmarks/q_attribution.py's attn_kernel, modes "mxu" and "vpu": K3's
+// arguments, causal 0; "mxu" leaves xn unwritten.
+int dvl_attention_block_q_attr_mxu(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* wqkv_t, const void* sqkv, const void* bqkv,
+                                   const void* wo_t, const void* so, const void* bo, void* out,
+                                   void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
+                                   void* ascale, int B, int S, int D, int heads, int causal,
+                                   void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_ATTR_MXU, stream);
+}
+
+int dvl_attention_block_q_attr_vpu(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* wqkv_t, const void* sqkv, const void* bqkv,
+                                   const void* wo_t, const void* so, const void* bo, void* out,
+                                   void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
+                                   void* ascale, int B, int S, int D, int heads, int causal,
+                                   void* stream) {
+  return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
+                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_ATTR_VPU, stream);
+}
+
 // KB (a) 1's int8 core alone: qkv [B*S, 3D] f32 -> out [B*S, D] bf16;
 // p_out [B, H, S, S] f32, pq_out [B, H, S, S] int8 and psc_out [B, H, S]
 // f32 may be null.  Head dim 64, 1 <= S <= 256.
@@ -827,14 +1110,15 @@ int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const
                           static_cast<const float*>(y32));
 }
 
-// KB (a) 2 / 3: K4's arguments, g (MQ_BF16H's f32 activation, or null)
-// before M, and the variant (1 bf16h, 2 reciprocal quantizer, 3 reciprocal
-// quantizer and bf16 quick_gelu) in place of act_kind.
+// KB (a) 2 / 3 and the attribution's MLP: K4's arguments, g (MQ_BF16H's
+// f32 activation, or null) before M, and the variant (1 bf16h, 2 reciprocal
+// quantizer, 3 reciprocal quantizer and bf16 quick_gelu, 4 q_attribution.py's
+// "mxu", 5 its "vpu") in place of act_kind.
 int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                        const void* s1, const void* b1, const void* w2_t, const void* s2,
                        const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                        void* hs, void* g, int M, int D, int F, int variant, void* stream) {
-  if (variant < MQ_BF16H || variant > MQ_VAR_BF16_GELU) return (int)cudaErrorInvalidValue;
+  if (variant < MQ_BF16H || variant > MQ_ATTR_VPU) return (int)cudaErrorInvalidValue;
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
                           g, M, D, F, 0, variant, stream);
 }

@@ -66,6 +66,21 @@ and, beside them (``KB_LAUNCHES``):
                              half's residual (only LayerNorm reads it in bf16)
   attention_block_q_postdiv  (q_ilp4.py, the head-pair packed kernel) K3 with
                              the row sum divided out after P V
+
+and the two blocks of benchmarks/q_attribution.py (KB (c)), each in three
+modes (``ATTR_MODES``): "full" is K3 / K4 itself (its launch and its
+``LAUNCHES`` counter); "mxu" keeps the products and drops the elementwise
+chain (x cast to int8 as clip(x 16, +-127) toward zero with row scale 1/16,
+the hidden and the attention rows cast to int8 with row scale 1, the
+attention core without its softmax: p = s hd^-0.5 rounded to x's dtype);
+"vpu" keeps the chain and stands a broadcast in for every product (a row's
+first code times its scale, for each output column; each score row is its
+query's first element).  The casts are XLA's float-to-int8 conversion
+(``to_s8_sat``), not quant_rows.  ``KB_LAUNCHES`` counts the "mxu" and "vpu"
+launches:
+
+  mlp_block_q_attr        (make_mlp(mode), mlp_kernel)
+  attention_block_q_attr  (make_attn(mode), attn_kernel)
 """
 
 from __future__ import annotations
@@ -98,11 +113,17 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
                                "attention_block_q_var": 0,
                                "mlp_block_q_fsplit": 0,
                                "fused_layer_q": 0,
-                               "attention_block_q_postdiv": 0}
+                               "attention_block_q_postdiv": 0,
+                               "attention_block_q_attr_mxu": 0,
+                               "attention_block_q_attr_vpu": 0,
+                               "mlp_block_q_attr_mxu": 0,
+                               "mlp_block_q_attr_vpu": 0}
 MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core (csrc/attention_qq.cuh) holds in registers
 LOG2E = 1.4426950408889634
+ATTR_MODES = ("full", "mxu", "vpu")  # benchmarks/q_attribution.py's kernel bodies
+ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 
 def reset_launches() -> None:
@@ -145,6 +166,14 @@ def quant_rows_recip(x32: torch.Tensor):
     inv = torch.ones((), dtype=scale.dtype, device=scale.device) / scale
     q = torch.clamp(torch.round(x32 * inv), -127, 127).to(torch.int8)
     return q, scale
+
+
+def to_s8_sat(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float-to-int8 conversion (``x.astype(jnp.int8)``): toward zero,
+    saturated to [-128, 127], NaN to 0.  torch's ``.to(torch.int8)`` wraps
+    out-of-range values instead (300 -> 44)."""
+    x = x.float()
+    return torch.where(torch.isnan(x), 0.0, x.clamp(-128.0, 127.0)).trunc().to(torch.int8)
 
 
 def int_mm(a: torch.Tensor, q: torch.Tensor,
@@ -481,6 +510,127 @@ def attention_block_q_postdiv_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_
                                       bo, heads, scratch, quant_rows, False)
 
 
+# KB (c): benchmarks/q_attribution.py's "mxu" and "vpu" bodies
+
+
+def _check_attr_mode(mode: str) -> None:
+    if mode not in ATTR_MODES:
+        raise ValueError(f"mode must be one of {ATTR_MODES}, got {mode!r}")
+
+
+def static_q(x: torch.Tensor):
+    """The "mxu" bodies' x codes: int8(clip(x 16, -127, 127)) toward zero,
+    with the constant row scale 1/16 ([..., 1] f32)."""
+    xq = to_s8_sat(torch.clamp(x.float() * 16.0, -127.0, 127.0))
+    return xq, torch.full((*x.shape[:-1], 1), ATTR_X_SCALE, device=x.device)
+
+
+def unit_q(a: torch.Tensor):
+    """The "mxu" bodies' hidden and attention codes: ``to_s8_sat`` with the
+    row scale 1."""
+    return to_s8_sat(a), torch.ones((*a.shape[:-1], 1), device=a.device)
+
+
+def bcast_rows(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """The "vpu" bodies' stand-in for a product: each row's first code times
+    its row scale, the same f32 value in all n columns."""
+    return (q[..., :1].float() * scale).expand(*q.shape[:-1], n)
+
+
+def attention_core_nosoftmax(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The "mxu" attention core: per head f32 scores times hd^-0.5 rounded
+    to qkv's dtype as p (no max, exp, sum or division), P V in f32, each
+    head's output rounded to qkv's dtype."""
+    dt = qkv.dtype
+    hd = qkv.shape[-1] // 3 // heads
+    outs = []
+    for h in range(heads):
+        q, k, v = (t.float() for t in _head_qkv(qkv, heads, h))
+        p = (torch.matmul(q, k.transpose(1, 2)) * (1.0 / hd ** 0.5)).to(dt)
+        outs.append(torch.matmul(p.float(), v).to(dt))
+    return torch.cat(outs, -1)
+
+
+def attention_core_vpu(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The "vpu" attention core: per head every score of a query row is
+    its q's first element times hd^-0.5 (f32); the softmax as K3's (row
+    max, exp, row sum, division, p rounded to qkv's dtype); the head's
+    output is each row's first p in all hd columns."""
+    dt = qkv.dtype
+    b, s = qkv.shape[:2]
+    hd = qkv.shape[-1] // 3 // heads
+    outs = []
+    for h in range(heads):
+        q = next(_head_qkv(qkv, heads, h))
+        sc = q[..., :1].float().expand(b, s, s) * (1.0 / hd ** 0.5)
+        e = torch.exp(sc - sc.amax(-1, keepdim=True))
+        p = (e / e.sum(-1, keepdim=True)).to(dt)
+        outs.append(p[..., :1].float().expand(b, s, hd).to(dt))
+    return torch.cat(outs, -1)
+
+
+def mlp_block_q_attr_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, mode: str,
+                           scratch: Optional[dict] = None) -> torch.Tensor:
+    """``mlp_kernel`` of benchmarks/q_attribution.py.  "full": K4 with
+    quick_gelu.  "mxu": h = dot_q(static_q(x)) + b1, its codes ``unit_q(h)``,
+    out = (x + b2) + dot_q(those codes).  "vpu": LN and quant_rows; h =
+    quick_gelu(bcast_rows(x codes) + b1), quant_rows(h), out = (x + b2) +
+    bcast_rows(h codes)."""
+    _check_attr_mode(mode)
+    if mode == "full":
+        return mlp_block_q_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                                 scratch=scratch)
+    f, d = w1_scale.numel(), x.shape[-1]
+    rows = {}
+    if mode == "mxu":
+        xq, xs = static_q(x)
+        h = dot_q(xq, xs, w1_q, w1_scale) + b1.float()
+        hq, hs = unit_q(h)
+        part = dot_q(hq, hs, w2_q, w2_scale)
+    else:
+        rows["xn"] = ln_f32(x, ln_s, ln_b).float()
+        xq, xs = quant_rows(rows["xn"])
+        h = quick_gelu(bcast_rows(xq, xs, f) + b1.float())
+        hq, hs = quant_rows(h)
+        part = bcast_rows(hq, hs, d)
+    if scratch is not None:
+        scratch.update({**rows, "xq": xq, "xs": xs, "h": h, "hq": hq, "hs": hs})
+    return ((x.float() + b2.float()) + part).to(x.dtype)
+
+
+def attention_block_q_attr_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                                 *, heads: int, mode: str,
+                                 scratch: Optional[dict] = None) -> torch.Tensor:
+    """``attn_kernel`` of benchmarks/q_attribution.py.  "full": K3 (no
+    causal mask).  "mxu": qkv = bf16(dot_q(static_q(x)) + bqkv),
+    ``attention_core_nosoftmax``, the attention rows' codes ``unit_q``, out
+    = x + (dot_q(those codes) + bo).  "vpu": LN and quant_rows; qkv =
+    bf16(bcast_rows(x codes) + bqkv), ``attention_core_vpu``,
+    quant_rows(attn), out = x + (bcast_rows(attn codes) + bo)."""
+    _check_attr_mode(mode)
+    if mode == "full":
+        return attention_block_q_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
+                                       wo_scale, bo, heads=heads, scratch=scratch)
+    dt, d = x.dtype, x.shape[-1]
+    rows = {}
+    if mode == "mxu":
+        xq, xs = static_q(x)
+        qkv = (dot_q(xq, xs, wqkv_q, wqkv_scale) + bqkv.float()).to(dt)
+        attn = attention_core_nosoftmax(qkv, heads).float()
+        aq, ascale = unit_q(attn)
+        proj = dot_q(aq, ascale, wo_q, wo_scale) + bo.float()
+    else:
+        rows["xn"] = ln_f32(x, ln_s, ln_b).float()
+        xq, xs = quant_rows(rows["xn"])
+        qkv = (bcast_rows(xq, xs, 3 * d) + bqkv.float()).to(dt)
+        attn = attention_core_vpu(qkv, heads).float()
+        aq, ascale = quant_rows(attn)
+        proj = bcast_rows(aq, ascale, d) + bo.float()
+    if scratch is not None:
+        scratch.update({**rows, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale})
+    return (x.float() + proj).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # CUDA route
 # ---------------------------------------------------------------------------
@@ -500,7 +650,8 @@ def _lib():
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.dvl_mlp_block_q.restype = i
         for entry in ("dvl_attention_block_qq", "dvl_attention_block_q_var",
-                      "dvl_attention_block_q_postdiv"):
+                      "dvl_attention_block_q_postdiv", "dvl_attention_block_q_attr_mxu",
+                      "dvl_attention_block_q_attr_vpu"):
             getattr(lib, entry).argtypes = [p] * 17 + [i] * 5 + [p]
             getattr(lib, entry).restype = i
         lib.dvl_attention_qq_core.argtypes = [p] * 5 + [i] * 4 + [p]
@@ -549,13 +700,18 @@ def _check_qq_core(s: int, d: int, heads: int) -> None:
                          f"{QQ_MAX_SEQ} keys in registers, got S={s}")
 
 
-# the int8 attention block's C entries by variant: K3, KB (a) 1, KB (a) 4
-# and q_ilp4.py's post-P V division, with their KB_LAUNCHES keys
+# the int8 attention block's C entries by variant: K3, KB (a) 1, KB (a) 4,
+# q_ilp4.py's post-P V division and q_attribution.py's "mxu" and "vpu"
+# bodies, with their KB_LAUNCHES keys
 _ATTN_Q_ENTRIES = {"k3": "dvl_attention_block_q", "qq": "dvl_attention_block_qq",
                    "var": "dvl_attention_block_q_var",
-                   "postdiv": "dvl_attention_block_q_postdiv"}
+                   "postdiv": "dvl_attention_block_q_postdiv",
+                   "attr_mxu": "dvl_attention_block_q_attr_mxu",
+                   "attr_vpu": "dvl_attention_block_q_attr_vpu"}
 _ATTN_Q_COUNTERS = {"qq": "attention_block_qq", "var": "attention_block_q_var",
-                    "postdiv": "attention_block_q_postdiv"}
+                    "postdiv": "attention_block_q_postdiv",
+                    "attr_mxu": "attention_block_q_attr_mxu",
+                    "attr_vpu": "attention_block_q_attr_vpu"}
 
 
 def _check_attention_q(s, d, heads):
@@ -615,10 +771,14 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         KB_LAUNCHES[_ATTN_Q_COUNTERS[kind]] += 1
         if kind == "qq":  # the block's launch runs the int8 core kernel once
             KB_LAUNCHES["attention_qq_core"] += 1
+        if kind == "attr_mxu":  # K3's wgmma core, its softmax off
+            CORE_ROUTES[core_route(s)] += 1
     if scratch is not None:
         scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
                         "xs": xs.view(b, s, 1), "attn": attn.view(b, s, d).float(),
                         "aq": aq.view(b, s, d), "as": ascale.view(b, s, 1)})
+        if kind == "attr_mxu":  # no LayerNorm: x's codes are its static cast
+            del scratch["xn"]
         if kind == "qq":
             scratch["qkv"] = qkv.view(b, s, 3 * d)
     return out
@@ -649,8 +809,9 @@ def _attention_qq_core_cuda(qkv32, heads, scratch):
 
 
 # K4 and its KB variants: the C entry's hidden / quantizer mode and the
-# launch counter (``mlp_block_q_kb``'s modes, csrc/fused_block_q.cu)
-_MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3}
+# launch counter (``mlp_block_q_kb``'s modes, csrc/fused_block_q.cu;
+# KB_LAUNCHES["mlp_block_q_" + kind])
+_MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3, "attr_mxu": 4, "attr_vpu": 5}
 
 
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
@@ -679,14 +840,17 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     xq = torch.empty((m, d), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     # bf16h keeps the pre-activation in bf16; the quantize pass applies
-    # quick_gelu (and, given the scratch, writes its f32 result to g)
-    h = torch.empty((m, f), dtype=bf if kind == "bf16h" else f32, device=dev)
+    # quick_gelu (and, given the scratch, writes its f32 result to g);
+    # attr_mxu's up GEMM writes the int8 hidden itself, and no h
+    h = None if kind == "attr_mxu" else \
+        torch.empty((m, f), dtype=bf if kind == "bf16h" else f32, device=dev)
     g = torch.empty((m, f), dtype=f32, device=dev) if kind == "bf16h" and scratch is not None \
         else None
     hq = torch.empty((m, f), dtype=i8, device=dev)
     hs = torch.empty((m, k), dtype=f32, device=dev)
     ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), xn.data_ptr(),
-            xq.data_ptr(), xs.data_ptr(), h.data_ptr(), hq.data_ptr(), hs.data_ptr()]
+            xq.data_ptr(), xs.data_ptr(), 0 if h is None else h.data_ptr(), hq.data_ptr(),
+            hs.data_ptr()]
     if kind == "k4":
         err = _lib().dvl_mlp_block_q(*ptrs, m, d, f, ACT_KINDS.index(act_kind), k,
                                      _stream_ptr(dev))
@@ -702,9 +866,11 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
     if scratch is not None:
         rows = (b, s, f) if k == 1 else (b, s, k, fb)
-        scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
-                        "xs": xs.view(b, s, 1), "h": (h if g is None else g).view(rows),
-                        "hq": hq.view(rows), "hs": hs.view(*rows[:-1], 1)})
+        scratch.update({"xq": xq.view(b, s, d), "xs": xs.view(b, s, 1), "hq": hq.view(rows),
+                        "hs": hs.view(*rows[:-1], 1)})
+        if kind != "attr_mxu":  # no LayerNorm and no f32 hidden there
+            scratch.update({"xn": xn.view(b, s, d).float(),
+                            "h": (h if g is None else g).view(rows)})
         if kind == "bf16h":
             scratch["u"] = h.view(b, s, f)
     return out
@@ -1074,6 +1240,45 @@ def mlp_block_q_var(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
     return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, "quick_gelu",
                              w1_qt, w2_qt, scratch,
                              kind="var_bf16_gelu" if bf16_gelu else "var")
+
+
+def mlp_block_q_attr(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, mode: str,
+                     w1_qt=None, w2_qt=None, scratch: Optional[dict] = None) -> torch.Tensor:
+    """``make_mlp(mode)`` of benchmarks/q_attribution.py (``mlp_kernel``;
+    ``mlp_block_q_attr_plain``): "full" is K4 (its launch, counted in
+    ``LAUNCHES``), "mxu" and "vpu" K4's launch sequence with one side
+    stubbed out (``KB_LAUNCHES["mlp_block_q_attr_" + mode]``).  The "mxu"
+    scratch has no xn and no h: the up GEMM writes the int8 hidden."""
+    _check_attr_mode(mode)
+    if mode == "full":
+        return mlp_block_q(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, w1_qt=w1_qt,
+                           w2_qt=w2_qt, scratch=scratch)
+    if _route(x) == "cpu":
+        return mlp_block_q_attr_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                                      mode=mode, scratch=scratch)
+    return _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, "quick_gelu", w1_qt,
+                             w2_qt, scratch, kind="attr_" + mode)
+
+
+def attention_block_q_attr(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,
+                           heads: int, mode: str, wqkv_qt=None, wo_qt=None,
+                           scratch: Optional[dict] = None) -> torch.Tensor:
+    """``make_attn(mode)`` of benchmarks/q_attribution.py (``attn_kernel``;
+    ``attention_block_q_attr_plain``): "full" is K3 (its launch, counted in
+    ``LAUNCHES``), "mxu" and "vpu" K3's launch sequence with one side
+    stubbed out (``KB_LAUNCHES["attention_block_q_attr_" + mode]``), at any
+    S: the "mxu" core takes K3's short and long routes with its softmax
+    off.  The "mxu" scratch has no xn."""
+    _check_attr_mode(mode)
+    if mode == "full":
+        return attention_block_q(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
+                                 heads=heads, wqkv_qt=wqkv_qt, wo_qt=wo_qt, scratch=scratch)
+    if _route(x) == "cpu":
+        return attention_block_q_attr_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
+                                            wo_scale, bo, heads=heads, mode=mode,
+                                            scratch=scratch)
+    return _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo, heads, False,
+                                   wqkv_qt, wo_qt, scratch, kind="attr_" + mode)
 
 
 def attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo, *,

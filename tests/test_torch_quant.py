@@ -421,6 +421,54 @@ class TestBuildDigest:
         after = {n: _build.source_digest(csrc, n, flags) for n in libs}
         assert all(after[n] != before[n] for n in libs)
 
+    def test_wgmma_core_header_is_hashed_into_every_library(self, tmp_path):
+        """K1, K3 (with the attribution's softmax-off mode) and K5 share
+        csrc/attention_wgmma.cuh: an edit of it names new libraries."""
+        import shutil
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        flags = _build.nvcc_flags(csrc)
+        libs = ("fused_block", "fused_block_q", "attention")
+        before = {n: _build.source_digest(csrc, n, flags) for n in libs}
+        with open(csrc / "attention_wgmma.cuh", "a") as f:
+            f.write("// edited\n")
+        assert all(_build.source_digest(csrc, n, flags) != before[n] for n in libs)
+
+    def test_sass_checks_name_the_attribution_instantiations(self, monkeypatch):
+        """chip_smoke.sass_check_attr finds each instantiation the
+        attribution's blocks launch by its mangled name (the s8 GEMM at the
+        EpilogueQ values of csrc/fused_block_q.cu, EQ_BIAS_S8 among them, the
+        softmax-off wgmma cores, the stubs) and fails on a missing one, on one
+        without its wgmma / TMA forms, and on mma.sync."""
+        import pathlib
+        import re
+        import sys
+
+        root = pathlib.Path(__file__).resolve().parent.parent
+        sys.path.insert(0, str(root))
+        import chip_smoke as C
+
+        cu = (_build.CSRC / "fused_block_q.cu").read_text()
+        epi = {n: int(v) for n, v in re.findall(r"\b(EQ_\w+) = (\d+),", cu)}
+        gemm = "IGMMA.64x128x32.S32.S8.S8 ; UTMALDG.2D ;"
+        funcs = {f"_ZN12_GLOBAL__N_114gemm_s8_kernelILi{epi[e]}EEEv14CUtensorMap_st": gemm
+                 for e in ("EQ_BIAS", "EQ_BIAS_RESID", "EQ_RESID_BIAS", "EQ_BIAS_S8")}
+        funcs.update({
+            "_ZN12_GLOBAL__N_122attention_wgmma_kernelILi200ELi0ELi0EEEv": "HGMMA.64x200x16.F32.BF16 ;",
+            "_ZN12_GLOBAL__N_114cast_s8_kernelILb1EEEvPK13__nv_bfloat16": "F2I.TRUNC ;",
+            "_ZN12_GLOBAL__N_117bcast_rows_kernelILi0EEEvPKa": "FADD ;",
+            "_ZN12_GLOBAL__N_125attention_vpu_core_kernelEPK13__nv_bfloat16": "MUFU.EX2 ;"})
+        monkeypatch.setattr(C, "sass_functions", lambda path: dict(funcs))
+        C.sass_check_attr("fused_block_q", "lib.so")
+        s8 = next(k for k in funcs if f"ILi{epi['EQ_BIAS_S8']}E" in k)
+        for broken in ({s8: "UTMALDG.2D ;"}, {s8: gemm + " IMMA.16832.S8.S8 ;"},
+                       {s8: None}):
+            bad = {k: v for k, v in {**funcs, **broken}.items() if v is not None}
+            monkeypatch.setattr(C, "sass_functions", lambda path, bad=bad: bad)
+            with pytest.raises(RuntimeError):
+                C.sass_check_attr("fused_block_q", "lib.so")
+
     def test_other_source_and_flags(self, tmp_path):
         csrc = self._tree(tmp_path)
         flags = _build.nvcc_flags(csrc)
