@@ -420,7 +420,20 @@ Phases (any failure exits non-zero before the final line):
      split by sub-kernel; the script's six 12-layer towers ("full" = K3 /
      K4) on the phase-4 model's resblocks at its B=512: launches 12 per
      tower, ms, full / (mxu + vpu) and full / max(mxu, vpu) printed.
-The kernels line comes after phase 25 (its SLIP-L rows take phase 17's
+ 26. the port's bench (``benchmarks_torch/bench.py``, the root bench.py's
+     counterpart) on its own ViT-B/16 (``init_clip_params`` at seed 0): the
+     root bench.py's six configurations through ``bench.run`` (a int8 with
+     the P8 stem, the headline; b int8 with the f32 stem; c bf16 with the
+     P8 stem; d c with BENCH_PALLAS; e bf16 with the f32 stem; f float32,
+     with and without BENCH_PALLAS, at 3 steps): each record's four keys,
+     metric and unit; launches 12 x (2 + steps) per kernel the
+     configuration runs (K3 + K4; K1 + K2; K5 on its short route) and none
+     of another (f: none); each configuration's rows on 64 uint8 images
+     against f's at cosine >= 0.999; img/s per configuration and for a at
+     B = 256, 512, 1024 (host clock); then ``python -m
+     debias_vision_lang_torch bench`` in a subprocess: exit 0, one stdout
+     line with the record.
+The kernels line comes after phase 26 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
 22's (1, 2) towers' and KB (a) 6's its tower's, KB (a) 1-4's phase 23's
@@ -5997,6 +6010,112 @@ def attr_phase(model, card, device):
     return [rows[k] for k in ATTR_REPLACES], wall
 
 
+# phase 26: the root bench.py's configurations through the port's bench
+# (benchmarks_torch/bench.py), each with the counters its kernels bump:
+# (label, env, {counter: launches per call}); float32 at fewer steps
+BENCH_CONFIGS = (
+    ("a int8, P8 stem", {}, {"attention_block_q": 12, "mlp_block_q": 12}),
+    ("b int8, f32 stem", {"BENCH_STEM": "f32"}, {"attention_block_q": 12, "mlp_block_q": 12}),
+    ("c bf16, P8 stem", {"BENCH_QUANT": "0", "BENCH_STEM": "p8"},
+     {"attention_block": 12, "mlp_block": 12}),
+    ("d bf16, P8 stem, BENCH_PALLAS", {"BENCH_QUANT": "0", "BENCH_STEM": "p8",
+                                       "BENCH_PALLAS": "1"}, {"attention_pallas": 12}),
+    ("e bf16, f32 stem", {"BENCH_QUANT": "0"}, {"attention_block": 12, "mlp_block": 12}),
+    ("f float32", {"BENCH_DTYPE": "float32", "BENCH_STEPS": "3"}, {}),
+    ("f float32, BENCH_PALLAS", {"BENCH_DTYPE": "float32", "BENCH_PALLAS": "1",
+                                 "BENCH_STEPS": "3"}, {"attention_pallas": 12}),
+)
+BENCH_HEADLINE_BATCHES = (256, 512, 1024)
+BENCH_ROWS = 64  # the uint8 images every configuration embeds for the cosine bar
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def bench_record_check(tag, rec):
+    check(set(rec) == BENCH_KEYS, f"{tag}: record keys {sorted(rec)}")
+    check(rec["metric"] == "clip_vit_b16_embed_throughput" and rec["unit"] == "images/sec/chip",
+          f"{tag}: record {rec}")
+    check(rec["value"] > 0 and abs(rec["vs_baseline"] - rec["value"] / 1000) <= 5.5e-4,
+          f"{tag}: record {rec}")
+
+
+def bench_phase(card, device):
+    """Phase 26: the port's bench (``benchmarks_torch/bench.py``) on its own
+    ViT-B/16 (``init_clip_params`` at seed 0): each configuration a-f of the
+    root bench.py through ``bench.run``, its record's contract, its launches
+    (12 x (2 + steps) per kernel it runs, none of another; K5 on its short
+    route only) and its rows on one uint8 buffer against float32's (cosine
+    >= COS_MIN); config a at B = 256, 512, 1024; then ``python -m
+    debias_vision_lang_torch bench`` in a subprocess (exit 0, one stdout
+    line).  Returns the wall."""
+    import importlib
+
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+    from debias_vision_lang_torch.core.registry import resolve_arch
+    from debias_vision_lang_torch.vision.preprocess import patchify_u8
+
+    B = importlib.import_module("benchmarks_torch.bench")
+    t_phase = time.perf_counter()
+    cfg = resolve_arch(B.ARCH)
+    model = B.build_model(cfg, device)
+    canvas = np.random.default_rng(26).integers(0, 256, (BENCH_ROWS, 224, 224, 3),
+                                                dtype=np.uint8)
+    staged = {False: torch.from_numpy(canvas).to(device),
+              True: torch.from_numpy(patchify_u8(canvas, cfg.vision.patch_size)).to(device)}
+    counters = (fb, fbq, A)
+    rows, img_s = {}, {}
+    for label, env, per_call in BENCH_CONFIGS:
+        knobs = B.parse_knobs(env, on_card=True)
+        embed, shape = B.make_embed(model, cfg, knobs, device)
+        torch.cuda.synchronize()
+        reset_all(*counters)
+        rec = B.run(embed, shape, knobs, device)
+        counts = launches_of(*counters)
+        calls = 2 + knobs.steps
+        want = {k: 0 for k in counts}
+        want.update({k: n * calls for k, n in per_call.items()})
+        print(f"bench {label}: {rec['value']} img/s at B={knobs.batch}, {knobs.steps} steps "
+              f"(host clock), vs_baseline {rec['vs_baseline']}; launches {nonzero(counts)} "
+              f"({card})")
+        bench_record_check(f"bench {label}", rec)
+        check(counts == want, f"bench {label}: launches {nonzero(counts)}, expected "
+                              f"{nonzero(want)}")
+        rows[label] = embed(staged[knobs.use_p8])
+        img_s[label] = rec["value"]
+        del embed
+    ref = rows["f float32"]
+    check(rows["f float32"].shape == (BENCH_ROWS, cfg.vision.embed_dim), "bench rows' shape")
+    for label, got in rows.items():
+        if label != "f float32":
+            cosine_check(f"bench {label} vs f float32, {BENCH_ROWS} rows", got, ref)
+    for batch in BENCH_HEADLINE_BATCHES:
+        knobs = B.parse_knobs({"BENCH_BATCH": str(batch)}, on_card=True)
+        embed, shape = B.make_embed(model, cfg, knobs, device)
+        rec = B.run(embed, shape, knobs, device)
+        bench_record_check(f"bench headline B={batch}", rec)
+        print(f"bench headline (a) B={batch}: {rec['value']} img/s, vs_baseline "
+              f"{rec['vs_baseline']} (host clock, {knobs.steps} steps; {card})")
+        del embed
+    del model, rows, staged
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "debias_vision_lang_torch", "bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print(f"bench CLI: exit {proc.returncode} in {time.perf_counter() - t:.1f} s, stdout "
+          f"{lines}; stderr tail {proc.stderr.strip().splitlines()[-1:]} ({card})")
+    check(proc.returncode == 0, f"bench CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(len(lines) == 1, f"bench CLI printed {len(lines)} stdout lines")
+    bench_record_check("bench CLI", json.loads(lines[0]))
+    wall = time.perf_counter() - t_phase
+    print(f"phase 26: {wall:.1f} s ({card})")
+    return wall
+
+
 def main() -> int:
     try:
         import torch
@@ -6405,6 +6524,9 @@ def main() -> int:
     # 25. benchmarks/q_attribution.py's MXU-only and VPU-only blocks: each
     # against its twin, timed, and the script's six towers
     attr_rows, attr_s = attr_phase(model, card, device)
+    # 26. the port's bench: the root bench.py's six configurations, the
+    # headline's batches and the CLI
+    bench_s = bench_phase(card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -6419,7 +6541,7 @@ def main() -> int:
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
           f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s, "
-          f"phase 24 {split_s:.1f} s, phase 25 {attr_s:.1f} s"
+          f"phase 24 {split_s:.1f} s, phase 25 {attr_s:.1f} s, phase 26 {bench_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

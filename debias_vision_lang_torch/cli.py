@@ -4,12 +4,14 @@
     python -m debias_vision_lang_torch train --arch openai/CLIP/ViT-B/16 --epochs 5
     python -m debias_vision_lang_torch serve --random-weights --dtype bfloat16
     python -m debias_vision_lang_torch zero-shot --data-path DIR --dtype bfloat16
+    python -m debias_vision_lang_torch bench
 
 The subcommands take the JAX CLI's arguments, defaults and choices, plus
 ``--device`` (default ``cuda``; without a card it raises, nothing moves to
-the CPU on its own).  ``download`` and ``bench`` keep their parsers, so
-``--help`` lists the same commands, and exit naming the ``ROADMAP.md``
-entry that holds them.
+the CPU on its own).  ``bench`` runs ``benchmarks_torch/bench.py`` of the
+repo checkout (its knobs are ``BENCH_*`` variables).  ``download`` keeps
+its parser, so ``--help`` lists the same commands, and exits naming the
+``ROADMAP.md`` entry that holds it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 ROADMAP_DOWNLOAD = ("ROADMAP.md 'Not to port' (downloads): the port fetches nothing; "
                     "put files in place, or point the paths' environment variables "
                     "at them")
-ROADMAP_BENCH = "ROADMAP.md queue 1 item 9 (the port's bench, a benchmark issue)"
+BENCH_SCRIPT = os.path.join("benchmarks_torch", "bench.py")
 
 
 def _parse_topn(s: str):
@@ -356,6 +358,32 @@ def _cmd_serve(args):
                   reuse_port=args.reuse_port, device=args.device)
 
 
+def _bench_path() -> str:
+    """The bench script: in the repo checkout beside the package first, then
+    under the working directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for cand in (os.path.join(here, "..", BENCH_SCRIPT), BENCH_SCRIPT):
+        if os.path.exists(cand):
+            return cand
+    sys.exit(f"{BENCH_SCRIPT} not found beside the package or under the working "
+             "directory (run from a repo checkout)")
+
+
+def _run_bench(path: str, argv) -> None:
+    """Run the script at ``path`` as ``__main__`` with ``argv``."""
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [path, *argv]
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+
+
+_HEAVY_CMDS = {"measure-bias", "train", "zero-shot", "serve", "bench"}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="debias-vlt-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -365,10 +393,10 @@ def main(argv=None):
     _add_serve(sub)
     dl = sub.add_parser("download", help="fetch assets (bpe, fairface)")
     dl.add_argument("assets", nargs="*", default=["all"])
-    sub.add_parser("bench", help="run the headline throughput benchmark")
+    _add_device(sub.add_parser("bench", help="run the headline throughput benchmark"))
 
     args = parser.parse_args(argv)
-    if args.cmd in ("measure-bias", "train", "zero-shot", "serve"):
+    if args.cmd in _HEAVY_CMDS:
         from .parallel.mesh import init_distributed
 
         # a no-op unless a coordinator is named ($MASTER_ADDR under
@@ -386,7 +414,7 @@ def main(argv=None):
     elif args.cmd == "download":
         sys.exit(f"download is not ported: {ROADMAP_DOWNLOAD}")
     elif args.cmd == "bench":
-        sys.exit(f"bench is not ported yet: {ROADMAP_BENCH}")
+        _run_bench(_bench_path(), ["--device", args.device])
 
 
 if __name__ == "__main__":

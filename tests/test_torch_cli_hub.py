@@ -3,9 +3,11 @@ hub (``hub/hub.py``) against the JAX package's, on the CPU.
 
 CLI: the ``measure-bias``, ``train``, ``zero-shot`` and ``serve`` parsers
 have the JAX parsers' dests, defaults and choices, plus ``--device``; the
-subcommands reach their entry points with the parsed arguments;
-``download`` and ``bench`` exit naming their ROADMAP entries; ``python -m
-debias_vision_lang_torch --help`` runs with jax blocked.  Hub: prompt
+subcommands reach their entry points with the parsed arguments; ``bench``
+runs ``benchmarks_torch/bench.py`` with the parsed ``--device``, and exits
+naming the script where no checkout holds it; ``download`` exits naming its
+ROADMAP entry; ``python -m debias_vision_lang_torch --help`` runs with jax
+blocked.  Hub: prompt
 tokens bit-equal to JAX ``hub.load``'s from the same ``.pt``; the same shape
 checks and messages; a registry name resolves only to a local file, and a
 missing one raises without opening a socket.
@@ -103,7 +105,8 @@ finally:
 
 
 @pytest.mark.parametrize("argv", [["--help"], ["serve", "--help"],
-                                  ["measure-bias", "--help"], ["train", "--help"]])
+                                  ["measure-bias", "--help"], ["train", "--help"],
+                                  ["bench", "--help"]])
 def test_module_help_runs_with_jax_blocked(argv):
     proc = subprocess.run([sys.executable, "-c", _BLOCKED, *argv], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -112,8 +115,7 @@ def test_module_help_runs_with_jax_blocked(argv):
 
 
 @pytest.mark.parametrize("cmd,item", [
-    (["download", "bpe"], "ROADMAP.md 'Not to port'"),
-    (["bench"], "ROADMAP.md queue 1 item 9")])
+    (["download", "bpe"], "ROADMAP.md 'Not to port'")])
 def test_unported_commands_exit_naming_their_item(cmd, item):
     with pytest.raises(SystemExit) as exc:
         tcli.main(cmd)
@@ -127,6 +129,26 @@ class _Recorder:
     def __call__(self, *args, **kwargs):
         self.calls.append((args, kwargs))
         return self.result
+
+
+@pytest.mark.parametrize("argv,device", [(["bench", "--device", "cpu"], "cpu"),
+                                         (["bench"], "cuda")])
+def test_bench_runs_the_port_bench(argv, device, monkeypatch):
+    rec = _Recorder()
+    monkeypatch.setattr(tcli, "_run_bench", rec)
+    tcli.main(argv)
+    ((path, args), kwargs), = rec.calls
+    assert pathlib.Path(path).resolve() == REPO / "benchmarks_torch" / "bench.py"
+    assert args == ["--device", device] and kwargs == {}
+
+
+def test_bench_without_the_script_exits_naming_it(tmp_path, monkeypatch):
+    monkeypatch.setattr(tcli, "__file__", str(tmp_path / "pkg" / "cli.py"))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "_run_bench", _Recorder())
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["bench", "--device", "cpu"])
+    assert "benchmarks_torch/bench.py not found" in str(exc.value.code)
 
 
 @pytest.fixture

@@ -561,8 +561,19 @@ class TestCli:
         called = []
         monkeypatch.setattr(pmesh, "init_distributed", lambda: called.append(1))
         with pytest.raises(SystemExit):
-            cli.main(["bench"])
+            cli.main(["download", "bpe"])
         assert called == []
+
+    def test_bench_starts_the_world_first(self, monkeypatch):
+        """``bench`` is one of the JAX CLI's heavy commands (``_HEAVY_CMDS``):
+        the world comes up before the bench runs."""
+        from debias_vision_lang_torch import cli
+
+        order = []
+        monkeypatch.setattr(pmesh, "init_distributed", lambda: order.append("init"))
+        monkeypatch.setattr(cli, "_run_bench", lambda path, argv: order.append("bench"))
+        cli.main(["bench", "--device", "cpu"])
+        assert order == ["init", "bench"]
 
 
 # ---------------------------------------------------------------------------

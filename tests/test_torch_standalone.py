@@ -26,7 +26,8 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "debias_vision_lang_torch"
-PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
+PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "benchmarks_torch").glob("*.py")) + [
     "chip_smoke.py", "profile_train.py"]
 CONFIGS = ["VisionConfig", "TextConfig", "CLIPConfig", "DebiasConfig", "AdversaryConfig",
            "EvalConfig", "TrainConfig"]
@@ -54,7 +55,9 @@ def test_every_port_module_is_scanned():
                 "debias_vision_lang_torch/data/video.py",
                 "debias_vision_lang_torch/parallel/__init__.py",
                 "debias_vision_lang_torch/parallel/mesh.py",
-                "debias_vision_lang_torch/metrics/distributed.py"):
+                "debias_vision_lang_torch/metrics/distributed.py",
+                "debias_vision_lang_torch/utils/observability.py",
+                "benchmarks_torch/bench.py"):
         assert rel in PORT_SOURCES
 
 
