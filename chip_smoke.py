@@ -66,8 +66,8 @@ Phases (any failure exits non-zero before the final line):
   6. int8 kernel phase: attention_block_q and mlp_block_q against their twins
      (weights from ops/quant.quantize_weight) at the same shapes, plus an
      act_kind="gelu" MLP, and SLIP-L's blocks (B=8, x and x/16, D=1024 H=16,
-     the gelu MLP at F=4096 = MAX_ROW, the widest hidden row the quantize
-     pass holds), and RN50x4's text blocks (B=8, x and x/16, D=640 H=10,
+     the gelu MLP at F=4096, the widest hidden row the quantize pass holds
+     in registers), and RN50x4's text blocks (B=8, x and x/16, D=640 H=10,
      causal, F=2560; and B=319), and K3 at S = 320-785 as K1 in phase 3
      (long route and counters) and K3 and K4 (gelu, F=3072) at B=32 S=785
      timed (the kernels line's FiT rows, launches: phase 19), K3's core
@@ -398,8 +398,8 @@ Phases (any failure exits non-zero before the final line):
      codes as phase 23 holds them, chunk by chunk for the split; the
      layer's f32 y bit-equal to x + (deq + bo) of its own codes), KB (a) 5
      on its long core (S = 400), the split at the int8 joint FiT shape B=32
-     S=785 at fb = 1024, and the card's refusal of fb = 192 (off the s8
-     GEMM's K step) before any launch; each timed at B=256 beside K1, K4 or
+     S=785 at fb = 1024, and fb = 192 (off the s8 GEMM's K step: each chunk
+     padded to 256 lanes) against its twin; each timed at B=256 beside K1, K4 or
      K3 + K4 with its bound; the scripts' 12-layer towers on the phase-4
      model's resblocks (KB (a) 5 vs K1 at bf16, the split vs K4, the layer
      vs K3 then K4, the post-P V division vs K3, the FiT-shape split vs
@@ -433,11 +433,30 @@ Phases (any failure exits non-zero before the final line):
      B = 256, 512, 1024 (host clock); then ``python -m
      debias_vision_lang_torch bench`` in a subprocess: exit 0, one stdout
      line with the record.
-The kernels line comes after phase 26 (its SLIP-L rows take phase 17's
+ 27. K1-K4 at shapes the JAX kernels take off the registry archs' widths
+     (``shape_phase``; on ``ops/fused_block.py::attn_plan`` / ``mlp_plan``'s
+     padded operand layouts): SigLIP-So400m's widths (D=1152, 16 heads of
+     72, F=4304, gelu) at B=64 S=257 and B=8 S=729 (the long core),
+     ViT-H/14's (D=1280, heads of 80, F=5120) at B=64 S=257, bigG/14's
+     (D=1664, heads of 104, F=8192) at B=32 S=257, D=200 H=2 F=808 at B=8
+     S=77 causal and not, one head of 256 and one of 800 (the long core; K1,
+     K2 and K4 at 800, see SHAPE_CASES), and
+     K4 at fb = F / 4 = 1076: each against its twin at x and x/16 (1 bf16 ulp;
+     the int8 codes under phase 6's bars, K3 on its long core as phase 6
+     holds it), each launch counted and its core route named, timed against
+     the bound of the true (unpadded) work; the padding's cost (K1 / K3 at
+     B=64 S=257 D=1280, 16 heads of 80 against 20 heads of 64, in turns);
+     then a CLIP from a hand-built CLIPConfig at ViT-H/14's image widths (32
+     layers, patch 14, 224 px, random weights from seed 0) at B=32: bf16 (32
+     K1 + 32 K2 on the short core) against float32 at cosine >= COS_MIN, int8
+     (32 K3 + 32 K4) held to the plain int8 route (phase 17's bar), img/s
+     of both and of the plain routes.
+The kernels line comes after phase 27 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
 22's (1, 2) towers' and KB (a) 6's its tower's, KB (a) 1-4's phase 23's
-towers', phase 24's and 25's rows their towers') and gives each kernel's launches, error, time, plain-twin time,
+towers', phase 24's and 25's rows their towers', phase 27's rows its
+checks' launches, the ViT-H/14-width rows its tower's) and gives each kernel's launches, error, time, plain-twin time,
 its bound (the larger of its operations over the H100 SXM's dense peak for
 their type and its bytes, each input read once and each output written once,
 over 3.35 TB/s; K5's float32 operations count three TF32 products each, as
@@ -636,14 +655,18 @@ def print_ptxas(lib: str, log: str) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
                       r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
-                      r"layer_norm_kernel|quant_rows_kernel|attention_f32_kernel|"
+                      r"layer_norm_kernel|quant_rows_kernel|quant_rows_wide_kernel|"
+                      r"attention_f32_kernel|"
                       r"attention_long_kernel|attention_qq_kernel|cast_s8_kernel|"
                       r"bcast_rows_kernel|attention_vpu_core_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
-            args = [{"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "packed",
-                     "Lb0E": "heads"}.get(a, a.strip("LiE"))
+            # a GEMM's bool is its ragged N edge, another kernel's its source
+            bools = ({"Lb1E": "ragged", "Lb0E": None} if m.group(1).startswith("gemm_")
+                     else {"Lb1E": "packed", "Lb0E": "heads"})
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32", **bools}.get(a, a.strip("LiE"))
                     for a in re.findall(r"Li\d+E|Lb[01]E|13__nv_bfloat16|f", m.group(2) or "")]
+            args = [a for a in args if a is not None]
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -712,14 +735,16 @@ def sass_check_long(lib, path) -> None:
     SASS_LONG[dtype] present, no HMMA. (mma.sync); a missing instantiation
     or form fails the run.  The attention library (K5) holds the
     heads-first source at bf16 and f32, head dims 64, 128 and 192; the
-    fused-block libraries (K1, K3) the packed source at bf16, head dim 64."""
+    fused-block libraries (K1, K3) the packed source at bf16 three times:
+    padded head dims 64 and 128 (one or two 64-dim chunks a block), and any
+    wider one (one output chunk a block, Q K^T over a run-time count)."""
     funcs = sass_functions(path)
     if funcs is None:
         print(f"sass long route {lib}: no cuobjdump found: the per-kernel forms are not checked")
         return
     seen = {}
     for name, body in funcs.items():
-        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E", name)
+        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])ELi(\d)E", name)
         if not m:
             continue
         dt = "bf16" if m.group(1) == "13__nv_bfloat16" else "f32"
@@ -728,7 +753,9 @@ def sass_check_long(lib, path) -> None:
         counts = {op: len(re.findall(SASS_OPS_LONG[op], body))
                   for op in SASS_LONG[dt] + ("HMMA",)}
         forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", body)))
-        tag = f"attention_long_kernel<{dt}, hdp {64 * int(m.group(2))}, {src}>"
+        qk = {"0": "run-time"}.get(m.group(4), m.group(4))
+        tag = (f"attention_long_kernel<{dt}, {m.group(2)} output chunk(s), Q K^T over {qk}, "
+               f"{src}>")
         print(f"sass {lib} {tag}: {counts}; forms {forms}")
         missing = [op for op in SASS_LONG[dt] if counts[op] == 0]
         check(not missing, f"{tag} has no {missing} instructions in its SASS")
@@ -738,9 +765,9 @@ def sass_check_long(lib, path) -> None:
               f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected 3 "
               f"heads-first each (head dims 64, 128, 192)")
     else:
-        check(seen == {("bf16", "packed"): 1},
+        check(seen == {("bf16", "packed"): 3},
               f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected the "
-              f"packed bf16 one (K1 / K3 past 320 keys)")
+              f"three packed bf16 ones (K1 / K3 past 320 keys or past head dim 128)")
 
 
 def sass_check(lib, path) -> None:
@@ -818,6 +845,8 @@ def split_label(key: str) -> str:
     if not m:
         return key
     kernel, args = m.group(1), m.group(2)
+    if kernel in ("gemm_s8_kernel", "gemm_wgmma_kernel") and args:
+        args = args.split(",")[0].strip()  # the epilogue; not the ragged-edge flag
     short = f"{kernel}<{args}>" if args else kernel
     if short in SPLIT_NAMES:
         return SPLIT_NAMES[short]
@@ -1142,8 +1171,8 @@ def kernel_phase_q(fbq, device, card):
             x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
             compare(f"mlp_block_q B={b} S={s} D={d} F={4 * d} gelu", *mlp_fns, x, mlp,
                     {"act_kind": "gelu"})
-    # SLIP-ViT-L/16's image blocks: D=1024, 16 heads, F=4096 = MAX_ROW (the
-    # widest hidden row the quantize pass holds), the erf-gelu MLP; inputs
+    # SLIP-ViT-L/16's image blocks: D=1024, 16 heads, F=4096 (the
+    # widest hidden row the quantize pass holds in registers), the erf-gelu MLP; inputs
     # from a generator of their own, as in phase 3
     attn, mlp = q_block_params(1024, device, seed=1024)
     g_slip = torch.Generator().manual_seed(1025)
@@ -5505,17 +5534,12 @@ def split_checks(fb, fbq, device, card):
                          fbq.mlp_block_q, fbq.mlp_block_q_plain, xf, (qm, qmkw),
                          {"fb": FIT_FB}, fbq.quant_rows, False,
                          own_step=fsplit_own(fbq, xf, qm, FIT_FB))
-    # the card refuses an F-tile off the s8 GEMM's K step, before any launch
+    # an F-tile off the s8 GEMM's K step computes: each chunk padded to 256
     fbq.reset_launches()
-    try:
-        fbq.mlp_block_q(x, *qm, fb=192, **qmkw)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    print(f"mlp_block_q fb=192 on the card: {refused!r}")
-    check(refused is not None and "multiple of 128" in refused
-          and sum(fbq.KB_LAUNCHES.values()) + sum(fbq.LAUNCHES.values()) == 0,
-          "the card took fb=192")
+    compare_q(fbq, f"mlp_block_q fb=192 (chunks padded to 256) {tag}", fbq.mlp_block_q,
+              fbq.mlp_block_q_plain, x, (qm, qmkw), {"fb": 192})
+    check(fbq.KB_LAUNCHES["mlp_block_q_fsplit"] == 1 and sum(fbq.LAUNCHES.values()) == 0,
+          f"mlp_block_q fb=192 launched {fbq.KB_LAUNCHES} {fbq.LAUNCHES}")
 
     # timed at the main path's B=256 (the FiT split at B=32 S=785)
     b = BATCH
@@ -6116,6 +6140,278 @@ def bench_phase(card, device):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# phase 27: K1-K4 at the shapes their JAX kernels take and the port's CUDA
+# entries refused before (head dims other than 64, widths off the GEMM
+# tiles, hidden rows past 4,096, any F-split), on the padded operand
+# layouts of ops/fused_block.py::attn_plan / mlp_plan
+# ---------------------------------------------------------------------------
+
+# (label, D, heads, F, activation, ((B, S, causal), ...)[, the kernels run,
+# else all four]): public models' widths, used as shapes only (no registry
+# arch)
+SHAPE_CASES = (
+    ("SigLIP-So400m widths", 1152, 16, 4304, "gelu", ((64, 257, False), (8, 729, False))),
+    ("ViT-H/14 widths", 1280, 16, 5120, "gelu", ((64, 257, False),)),
+    ("ViT-bigG/14 widths", 1664, 16, 8192, "gelu", ((32, 257, False),)),
+    ("D=200 H=2", 200, 2, 808, "quick_gelu", ((8, 77, False), (8, 77, True))),
+    # one head of 256 and one of 800: the long core at any S (Q through the
+    # K ring).  At hd 800 K3's attention codes drift past phase 6's share
+    # bar (3.0e-3 unmasked, 3.5e-3 causal at S=77; its rows within 1 ulp of
+    # the twin's core, its output exact on its own codes: PERF.md section
+    # 7), so K3's wide-head path is held at hd 256 and hd 800 runs K1, K2
+    # and K4
+    ("D=256 H=1", 256, 1, 1024, "quick_gelu", ((8, 77, False),)),
+    ("D=800 H=1", 800, 1, 3200, "quick_gelu", ((4, 77, False),),
+     ("attention_block", "mlp_block", "mlp_block_q")),
+)
+SHAPE_FSPLIT = ("SigLIP-So400m widths", 1152, 4304, 4, 64, 257)  # K4 at fb = F / 4
+# one tower at ViT-H/14's widths (OpenCLIP's ViT-H-14.json: 32 layers, D =
+# 1280, 16 heads of 80, patch 14, 224 px, F = 5120, erf gelu in its MLP;
+# the text tower cut to one narrow layer, which this phase does not run)
+SHAPE_TOWER = {"width": 1280, "layers": 32, "heads": 16, "patch": 14, "px": 224,
+               "embed": 1024, "b": 32}
+
+
+def shape_params(d, f, device, seed):
+    """block_params at hidden width f: (bf16 attention and MLP tensors,
+    their int8 blocks with the kernels' transposed copies)."""
+    import torch
+    from debias_vision_lang_torch.ops.quant import QWeight
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(device)
+
+    attn = (1 + 0.1 * rn(d), 0.1 * rn(d), rn(d, 3 * d, std=d ** -0.5),
+            0.1 * rn(3 * d), rn(d, d, std=d ** -0.5), 0.1 * rn(d))
+    mlp = (1 + 0.1 * rn(d), 0.1 * rn(d), rn(d, f, std=(2 * d) ** -0.5), 0.1 * rn(f),
+           rn(f, d, std=f ** -0.5), 0.1 * rn(d))
+    (ls, lb, wqkv, bqkv, wo, bo), (l2s, l2b, w1, b1, w2, b2) = attn, mlp
+    qkv, qo, q1, q2 = map(QWeight, (wqkv, wo, w1, w2))
+    qattn = ((ls, lb, qkv.q, qkv.scale, bqkv, qo.q, qo.scale, bo),
+             {"wqkv_qt": qkv.qt, "wo_qt": qo.qt})
+    qmlp = ((l2s, l2b, q1.q, q1.scale, b1, q2.q, q2.scale, b2), {"w1_qt": q1.qt, "w2_qt": q2.qt})
+    return attn, mlp, qattn, qmlp
+
+
+def shape_checks(fb, fbq, device, card):
+    """Phase 27's kernel checks: K1-K4 at every SHAPE_CASES shape against
+    their twins (x and x/16; the int8 codes under phase 6's bars), each
+    launch counted and its core route named, then timed against the bound
+    of the true (unpadded) work; K4's F-split at fb = F / 4.  Returns the
+    kernels-line rows (launches: the checks' own)."""
+    import torch
+
+    rows = []
+    counters = {"fused_block": fb.LAUNCHES, "fused_block_q": fbq.LAUNCHES}
+    for label, d, heads, f, act, cases, *only in SHAPE_CASES:
+        attn, mlp, qattn, qmlp = shape_params(d, f, device, seed=d)
+        plan, mplan = fb.attn_plan(d, heads), fb.mlp_plan(d, f)
+        hd = d // heads
+        print(f"phase 27 {label}: D={d} heads={heads} hd={hd} F={f} {act}: layout hdp "
+              f"{plan.hdp}, qkv row {plan.nqkv} (of {3 * d}), LN row {plan.dk}, out N "
+              f"{plan.no}, hidden {mplan.fp} (identity: attention {plan.identity}, MLP "
+              f"{mplan.identity})")
+        for b, s, causal in cases:
+            route = fb.core_route(s, hd)
+            case = f"{label} B={b} S={s} D={d} H={heads} hd={hd} F={f}" + (
+                " causal" if causal else "")
+            akw, mkw = {"heads": heads, "causal": causal}, {"act_kind": act}
+            kernels = [("attention_block", "fused_block", 69, fb.attention_block,
+                        fb.attention_block_plain, attn, {}, akw,
+                        attention_block_work(b, s, d, causal=causal)),
+                       ("attention_block_q", "fused_block_q", 62, fbq.attention_block_q,
+                        fbq.attention_block_q_plain, qattn[0], qattn[1], akw,
+                        attention_block_work(b, s, d, causal=causal, weights="int8"))]
+            if not causal:
+                kernels += [("mlp_block", "fused_block", 192, fb.mlp_block,
+                             fb.mlp_block_plain, mlp, {}, mkw, mlp_block_work(b, s, d, f)),
+                            ("mlp_block_q", "fused_block_q", 106, fbq.mlp_block_q,
+                             fbq.mlp_block_q_plain, qmlp[0], qmlp[1], mkw,
+                             mlp_block_work(b, s, d, f, weights="int8"))]
+            if only:
+                kernels = [k for k in kernels if k[0] in only[0]]
+            g = torch.Generator().manual_seed(27 + s)
+            x0 = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
+            for name, lib, line, kern, plain, args, qkw, kw, work in kernels:
+                key = name + ("_causal" if causal and name.startswith("attention") else "")
+                errs, launches = [], 0
+                for scale in (1.0, 1 / 16):
+                    x = (x0.float() * scale).to(torch.bfloat16)
+                    tag = f"{name} {case} x~N(0,{scale}^2) (phase 27)"
+                    fb.reset_launches()
+                    fbq.reset_launches()
+                    if lib == "fused_block":
+                        errs.append(compare_bf16(tag, x, kern(x, *args, **kw),
+                                                 plain(x, *args, **kw)))
+                    else:
+                        errs.append(compare_q(fbq, tag, kern, plain, x, (args, qkw), kw,
+                                              long_core=name.startswith("attention")
+                                              and route == "long"))
+                    torch.cuda.synchronize()
+                    got = {k: v for k, v in counters[lib].items() if v}
+                    routes = {k: v for k, v in (fb.CORE_ROUTES if lib == "fused_block"
+                                                else fbq.CORE_ROUTES).items() if v}
+                    want_routes = {route: 1} if name.startswith("attention") else {}
+                    check(got == {key: 1} and routes == want_routes,
+                          f"{tag}: launches {got}, core routes {routes}; expected {{{key!r}: "
+                          f"1}}, {want_routes}")
+                    launches += 1
+                print(f"phase 27 {name} {case}: launches {launches} ({key}), core route "
+                      f"{route if name.startswith('attention') else '-'}")
+                row = kernel_row(name, case, lib, line, max(errs),
+                                 cuda_ms(lambda: kern(x0, *args, **kw, **qkw), iters=5),
+                                 cuda_ms(lambda: plain(x0, *args, **kw), iters=2), work)
+                row["launches"] = launches
+                rows.append(row)
+                print(f"time {name} {case}: kernel {row['ms']:.4f} ms, plain twin "
+                      f"{row['plain_ms']:.4f} ms, bound of the true work {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']}; the kernel at {row['bound_ms'] / row['ms']:.1%} "
+                      f"of it) ({card})")
+            del x0
+        del attn, mlp, qattn, qmlp
+        torch.cuda.empty_cache()
+    # K4's F-split at fb = F / 4: each chunk of 1,076 hidden columns padded to 1,152
+    label, d, f, k, b, s = SHAPE_FSPLIT
+    _, _, _, qmlp = shape_params(d, f, device, seed=f)
+    fbv = f // k
+    case = f"{label} B={b} S={s} D={d} F={f} fb={fbv}"
+    g = torch.Generator().manual_seed(2704)
+    x0 = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
+    errs = []
+    for scale in (1.0, 1 / 16):
+        x = (x0.float() * scale).to(torch.bfloat16)
+        fbq.reset_launches()
+        errs.append(compare_q(fbq, f"mlp_block_q {case} x~N(0,{scale}^2) (phase 27)",
+                              fbq.mlp_block_q, fbq.mlp_block_q_plain, x, qmlp, {"fb": fbv}))
+        torch.cuda.synchronize()
+        check(fbq.KB_LAUNCHES["mlp_block_q_fsplit"] == 1 and sum(fbq.LAUNCHES.values()) == 0,
+              f"mlp_block_q fb={fbv}: launches {fbq.KB_LAUNCHES}, {fbq.LAUNCHES}")
+    row = kernel_row("mlp_block_q_fsplit", case, "fused_block_q", 106, max(errs),
+                     cuda_ms(lambda: fbq.mlp_block_q(x0, *qmlp[0], fb=fbv, **qmlp[1]), iters=5),
+                     cuda_ms(lambda: fbq.mlp_block_q_plain(x0, *qmlp[0], fb=fbv), iters=2),
+                     mlp_block_work(b, s, d, f, weights="int8"))
+    row["launches"] = 2
+    rows.append(row)
+    print(f"time mlp_block_q_fsplit {case}: kernel {row['ms']:.4f} ms, plain twin "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the "
+          f"kernel at {row['bound_ms'] / row['ms']:.1%} of it) ({card})")
+    del x0, qmlp
+    torch.cuda.empty_cache()
+    padding_cost(fb, fbq, device, card)
+    return rows
+
+
+def padding_cost(fb, fbq, device, card):
+    """What the head-dim padding costs: K1 and K3 at ViT-H/14's width (B=64
+    S=257 D=1280) with 16 heads of 80 (padded to 128: the QKV product 1.6x,
+    the core 2x the true work) against 20 heads of 64 (no padding, the same
+    D and the same true GEMM work), timed in turns in one process."""
+    import torch
+
+    b, s, d = 64, 257, 1280
+    attn, _, qattn, _ = shape_params(d, 4 * d, device, seed=2705)
+    x = torch.randn(b, s, d, generator=torch.Generator().manual_seed(2705)).to(
+        device, torch.bfloat16)
+    for name, kern, args, qkw in (("attention_block", fb.attention_block, attn, {}),
+                                  ("attention_block_q", fbq.attention_block_q, qattn[0],
+                                   qattn[1])):
+        ms = {}
+        for heads in (16, 20, 20, 16):
+            t = cuda_ms(lambda: kern(x, *args, heads=heads, **qkw), iters=10)
+            ms.setdefault(heads, []).append(t)
+        hd16, hd20 = sum(ms[16]) / 2, sum(ms[20]) / 2
+        print(f"padding cost {name} B={b} S={s} D={d}: 16 heads of 80 (hdp 128) {hd16:.4f} ms "
+              f"{[round(t, 4) for t in ms[16]]}, 20 heads of 64 {hd20:.4f} ms "
+              f"{[round(t, 4) for t in ms[20]]}: {hd16 / hd20:.3f}x ({card})")
+    del x, attn, qattn
+    torch.cuda.empty_cache()
+
+
+def shape_tower(fb, fbq, card, device):
+    """Phase 27's tower: a CLIP from a hand-built CLIPConfig at ViT-H/14's
+    image widths (SHAPE_TOWER, random weights from seed 0), bf16 and int8 at
+    B=32 on random normalized images: every block on K1 / K2 (K3 / K4), the
+    launches exact, bf16 rows against float32 at cosine >= COS_MIN, int8
+    held to the plain int8 route (phase 17's bar).  Returns the launches of
+    each kernel in the two forwards and the img/s."""
+    import torch
+    from debias_vision_lang_torch.core.config import CLIPConfig, TextConfig, VisionConfig
+    from debias_vision_lang_torch.models.clip import CLIP, init_clip_params
+    from debias_vision_lang_torch.ops.quant import QuantizedCLIP
+
+    t = SHAPE_TOWER
+    cfg = CLIPConfig(name="ViT-H/14 widths",
+                     vision=VisionConfig(image_size=t["px"], patch_size=t["patch"],
+                                         width=t["width"], layers=t["layers"],
+                                         heads=t["heads"], embed_dim=t["embed"]),
+                     text=TextConfig(width=512, layers=1, heads=8, embed_dim=t["embed"]))
+    t0 = time.perf_counter()
+    model = CLIP(cfg)
+    model.load_state_dict(init_clip_params(cfg, torch.Generator().manual_seed(0)))
+    model = model.to(device).eval()
+    print(f"phase 27 tower {cfg.name}: {t['layers']} layers D={t['width']} heads {t['heads']} "
+          f"(hd {t['width'] // t['heads']}) patch {t['patch']} at {t['px']} px, S = "
+          f"{cfg.vision.seq_len}, built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(27)
+    imgs = torch.randn(t["b"], t["px"], t["px"], 3, generator=g).to(device)
+    launches = {}
+    with torch.no_grad():
+        ref32 = model.encode_image(imgs, dtype=torch.float32).float()
+        reset_all(fb, fbq)
+        got16 = model.encode_image(imgs, dtype=torch.bfloat16).float()
+        torch.cuda.synchronize()
+        launches.update(fb.LAUNCHES)
+        check(fb.LAUNCHES == {"attention_block": t["layers"], "attention_block_causal": 0,
+                              "mlp_block": t["layers"]}
+              and fb.CORE_ROUTES == {"short": t["layers"], "long": 0},
+              f"phase 27 bf16 tower: launches {fb.LAUNCHES}, routes {fb.CORE_ROUTES}")
+        cosine_check(f"phase 27 bf16 tower ({cfg.name}, B={t['b']}) vs float32", got16, ref32)
+        qmodel = QuantizedCLIP(model)
+        reset_all(fb, fbq)
+        got8 = qmodel.encode_image(imgs).float()
+        torch.cuda.synchronize()
+        launches.update(fbq.LAUNCHES)
+        check(fbq.LAUNCHES == {"attention_block_q": t["layers"], "attention_block_q_causal": 0,
+                               "mlp_block_q": t["layers"]}
+              and sum(fb.LAUNCHES.values()) == 0,
+              f"phase 27 int8 tower: launches {fbq.LAUNCHES}, bf16 {fb.LAUNCHES}")
+        int8_vs_plain_int8(f"phase 27 int8 tower ({cfg.name}, B={t['b']}) vs float32", qmodel,
+                           imgs, got8, ref32)
+        rate = {}
+        for tag, fn in (("bf16 kernels", lambda: model.encode_image(imgs, dtype=torch.bfloat16)),
+                        ("int8 kernels", lambda: qmodel.encode_image(imgs)),
+                        ("plain bf16", lambda: model.encode_image(imgs, dtype=torch.bfloat16,
+                                                                  fused=False)),
+                        ("plain int8", lambda: qmodel.encode_image(imgs, fused=False))):
+            ms = cuda_ms(fn, iters=3)
+            rate[tag] = t["b"] / ms * 1e3
+            print(f"phase 27 tower B={t['b']} {tag}: {ms:.3f} ms/batch, {rate[tag]:.1f} img/s "
+                  f"({card})")
+    del model, qmodel
+    torch.cuda.empty_cache()
+    return launches, rate
+
+
+def shape_phase(card, device):
+    """Phase 27 (see the section's head): the kernel checks, then the
+    ViT-H/14-width tower.  Returns the kernels-line rows and the wall."""
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.ops import fused_block_q as fbq
+
+    t0 = time.perf_counter()
+    rows = shape_checks(fb, fbq, device, card)
+    launches, _ = shape_tower(fb, fbq, card, device)
+    for row in rows:  # the ViT-H/14-width rows take the tower's counts
+        if row["case"].startswith("ViT-H/14") and row["name"] in launches:
+            row["launches"] = launches[row["name"]]
+    wall = time.perf_counter() - t0
+    print(f"phase 27 wall: {wall:.1f} s ({card})")
+    return rows, wall
+
+
 def main() -> int:
     try:
         import torch
@@ -6527,6 +6823,9 @@ def main() -> int:
     # 26. the port's bench: the root bench.py's six configurations, the
     # headline's batches and the CLI
     bench_s = bench_phase(card, device)
+    # 27. K1-K4 at the shapes of public models' widths the JAX kernels take,
+    # and a ViT-H/14-width tower at bf16 and int8
+    shape_rows, shape_s = shape_phase(card, device)
     for row in rows + rows_q:
         if row["case"].startswith("RN50x4"):
             row["launches"] = rn_launches[row["name"]]
@@ -6535,13 +6834,14 @@ def main() -> int:
         elif row["launches"] is None:
             row["launches"] = slip_launches[row["name"]]
     print(json.dumps({"kernels": rows + rows_q + rows_k5 + rung_rows + tp_rows + kb_rows
-                      + split_rows + attr_rows}))
+                      + split_rows + attr_rows + shape_rows}))
     total_s = time.perf_counter() - smoke_t0
     print(f"smoke wall time {total_s:.1f} s, of it the ablation {abl_s:.1f} s, serving "
           f"{serve_s:.1f} s, SLIP-L {slip_s:.1f} s, the ResNets {rn_s:.1f} s and "
           f"Frozen-in-Time {fit_s:.1f} s, distribution {dist_s:.1f} s, the rung sweep "
           f"{rung_s:.1f} s, tensor parallel {tp_s:.1f} s, KB (a) 1-4 {kb_s:.1f} s, "
-          f"phase 24 {split_s:.1f} s, phase 25 {attr_s:.1f} s, phase 26 {bench_s:.1f} s"
+          f"phase 24 {split_s:.1f} s, phase 25 {attr_s:.1f} s, phase 26 {bench_s:.1f} s, "
+          f"phase 27 {shape_s:.1f} s"
           + (" (past 10 minutes)" if total_s > 600 else ""))
     print(card)
     print(json.dumps({"ok": True, "device": {

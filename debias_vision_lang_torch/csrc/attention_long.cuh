@@ -6,12 +6,13 @@
 //     f32, an additive f32 mask read through a ring of its own;
 //   * K1, dvl_attention_block (csrc/fused_block.cu), and K3,
 //     dvl_attention_block_q (csrc/fused_block_q.cu), past the register core's
-//     320 keys (attention_wgmma.cuh): packed qkv [B*S, 3D] read through one
-//     3-d tensor map over [3D, S, B] (head h's q, k and v at columns 64h,
-//     D + 64h and 2D + 64h; the row dimension ends at S, so the last query
-//     tile of an image reads zeros, never the next image's rows), attn
-//     [B*S, D] written at column 64h with leading dimension D, head dim 64
-//     only, bf16; CLIP's causal -inf generated from a flag for a key past
+//     320 keys or past head dim 128 (attention_wgmma.cuh): packed qkv [B*S,
+//     ld] read through one 3-d tensor map over [ld, S, B] (head h's q, k and
+//     v at columns h hdp, DA + h hdp and 2 DA + h hdp, DA = heads hdp, hdp
+//     the head dim zero-padded to 64 cq; the row dimension ends at S, so the
+//     last query tile of an image reads zeros, never the next image's rows),
+//     attn [B*S, DA] written at column h hdp with leading dimension DA, any
+//     head dim, bf16; CLIP's causal -inf generated from a flag for a key past
 //     the query's row within its image, and no mask read at all.
 // Each library that includes this header builds its own copy (everything
 // here has internal linkage).  K5's wrapper lives in csrc/attention.cu
@@ -64,11 +65,12 @@
 //     memory decides NWG: Q's big and small halves are 64 KB per 64 dims at
 //     128 queries, so NWG = 2 only at hdp 64 and 1 above (rings of 1-2
 //     slots).
-//   * packed (K1 / K3, PACKED = true): bf16 at hdp 64 only; no mask ring
-//     (41 KB of shared memory a block); the scores are s * scale, -inf for a
-//     key past S or, under the causal flag, past the query's row in its
-//     image (q0 + the row in the block, never the row in the tile).  A
-//     block's first coordinate is b * heads + h.
+//   * packed (K1 / K3, PACKED = true): bf16; no mask ring (41 KB of shared
+//     memory a block at hdp 64, 113 KB at 128, 58 KB past it, where Q's
+//     chunks ride in the K ring); the scores are s * scale, -inf for a key
+//     past S or, under the causal flag, past the query's row in its image
+//     (q0 + the row in the block, never the row in the tile).  A block's
+//     first coordinate is (b * heads + h) * groups + its output group.
 // Bound at B=8 H=12 S=785 hd 64 on an H100: the operations (bf16 0.0153 ms,
 // f32 3xTF32 0.0918 ms); the bytes moved once are 4 x 4.8 MB + 2.5 MB.  K1 /
 // K3's core at B=32 D=768 H=12 S=785: 60.6 GFLOP of minimum products (0.061
@@ -105,7 +107,7 @@ constexpr int NORM_OFF = 3;
 
 template <typename T, int C, bool PACKED = false>
 struct LongCfg {
-  static_assert(!PACKED || (sizeof(T) == 2 && C == 1), "packed: bf16 at head dim 64 only");
+  static_assert(!PACKED || (sizeof(T) == 2 && C <= 2), "packed: bf16, 1 or 2 output chunks");
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int NWG = (F32 && C > 1) ? 1 : 2;  // consumer warpgroups
   static constexpr int THREADS = NWG * 128 + 32;
@@ -287,33 +289,48 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
-// `D`, `heads` and `causal` are the packed source's (model width, heads per
-// image, CLIP's causal flag); the heads-first source reads the mask `tm_m`.
+// `da`, `heads` and `causal` are the packed source's (attention row width,
+// heads x hdp; heads per image; CLIP's causal flag); the heads-first source
+// reads the mask `tm_m`.  The packed source's Q K^T runs over CQ 64-dim
+// chunks of the head (CQ = 0: the runtime `cq`, hdp = 64 cq) and its P @ V
+// over C of them: with C < CQ a block writes the chunks of its group grp
+// (blockIdx.x = (image x heads + head) x groups + grp) and the groups
+// recompute the scores.  CQ = 0 keeps no Q resident: each K chunk's ring
+// slot also takes the block's Q chunk (QRING), loaded again per key tile
+// from L2, so no head dim is too wide for the shared memory.
 // `norm_after` (KB (a) 6's function, attention_wgmma.cuh): p = exp(s - m)
 // unnormalised, rounded for P @ V, and O scaled by 1 / l before the store
 // (norm_after = 2: O divided by l; NORM_OFF: p = s * scale, 0 past S and
 // past the causal mask, and no first pass: the producer loads pass 2's
 // tiles only).
-template <typename T, int C, bool PACKED>
+template <typename T, int C, bool PACKED, int CQ = C>
 __global__ void __launch_bounds__(LongCfg<T, C, PACKED>::THREADS, LongCfg<T, C, PACKED>::BLOCKS)
 attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_m, T* __restrict__ out, int S,
-                      float scale, int D, int heads, int causal, int norm_after) {
+                      float scale, int da, int heads, int causal, int norm_after, int cq) {
   using Cfg = LongCfg<T, C, PACKED>;
   constexpr bool F32 = Cfg::F32;
   constexpr int NWG = Cfg::NWG, NCT = NWG * 128;  // consumer warpgroups, threads
   constexpr int HDP = C * LT;
+  static_assert(!PACKED || CQ == 0 || CQ == C, "packed: C output chunks of CQ, or a runtime cq");
+  // Q K^T's chunks (run-time for CQ = 0), and the resident Q's bytes (none
+  // for QRING: a Q chunk rides in each K slot, QCH bytes past the K chunk)
+  constexpr bool QRING = PACKED && CQ == 0;
+  constexpr int QCH = Cfg::ROWS * LT * (int)sizeof(T);
+  constexpr int KSLOT = Cfg::K_SLOT + (QRING ? QCH : 0);
+  const int nqc = CQ == 0 ? cq : CQ;
+  constexpr int q_bytes = QRING ? 0 : Cfg::Q_BYTES;
   __shared__ uint64_t bars[1 + 2 * (Cfg::DM + Cfg::DK + Cfg::DV)];
   extern __shared__ unsigned char smem_raw[];
   // aligned by pointer arithmetic on smem_raw, so the compiler still knows
   // every derived pointer is shared memory (LDS, not generic loads)
   unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* Qs = sm + Cfg::Q_OFF;
-  unsigned char* Ms = sm + Cfg::M_OFF;
-  unsigned char* Ks = sm + Cfg::K_OFF;
-  unsigned char* Vs = sm + Cfg::V_OFF;
+  unsigned char* Ms = Qs + q_bytes * Cfg::SPLIT;
+  unsigned char* Ks = Ms + Cfg::DM * Cfg::M_BYTES;
+  unsigned char* Vs = Ks + Cfg::DK * KSLOT;
   uint64_t* qbar = &bars[0];
   Ring<(Cfg::DM > 0 ? Cfg::DM : 1)> rm{&bars[1], &bars[1 + Cfg::DM]};  // unused when packed
   Ring<Cfg::DK> rk{&bars[1 + 2 * Cfg::DM], &bars[1 + 2 * Cfg::DM + Cfg::DK]};
@@ -325,13 +342,15 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int nkt = (S + LT - 1) / LT;
   // the outer TMA coordinate (image or slice), the q / k / v columns of this
   // head, and the output's first element and row stride
-  int z, col_q = 0, col_k = 0, col_v = 0;
+  int z, col_q = 0, col_k = 0, col_v = 0, grp = 0;
   long long obase, ld;
   if constexpr (PACKED) {
-    const int h = blockIdx.x % heads;
-    z = blockIdx.x / heads;
-    col_q = h * LT, col_k = D + h * LT, col_v = 2 * D + h * LT;
-    obase = (long long)z * S * D + h * LT, ld = D;
+    const int groups = nqc / C, hdp = nqc * LT;
+    grp = blockIdx.x % groups;
+    const int hz = blockIdx.x / groups, h = hz % heads;
+    z = hz / heads;
+    col_q = h * hdp, col_k = da + h * hdp, col_v = 2 * da + h * hdp;
+    obase = (long long)z * S * da + h * hdp, ld = da;
   } else {
     z = blockIdx.x;
     obase = (long long)z * S * HDP, ld = HDP;
@@ -348,9 +367,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (tid >= NCT) {  // the producer warp
     if (lane != 0) return;
-    mbar_expect_tx(qbar, Cfg::Q_BYTES);
-    for (int c = 0; c < HDP / Cfg::BOX; ++c)
-      tma_load_3d(Qs + c * Cfg::ROWS * 128, &tm_q, qbar, col_q + c * Cfg::BOX, q0, z);
+    if constexpr (!QRING) {
+      mbar_expect_tx(qbar, q_bytes);
+      for (int c = 0; c < nqc * (LT / Cfg::BOX); ++c)
+        tma_load_3d(Qs + c * Cfg::ROWS * 128, &tm_q, qbar, col_q + c * Cfg::BOX, q0, z);
+    }
     for (int pass = norm_after == NORM_OFF ? 1 : 0; pass < 2; ++pass) {
       for (int kt = 0; kt < nkt; ++kt) {
         if constexpr (!PACKED) {
@@ -359,18 +380,20 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
             tma_load_2d(Ms + s * Cfg::M_BYTES + h * Cfg::ROWS * 128, &tm_m, &rm.full[s],
                         kt * LT + h * 32, q0);
         }
-        for (int c = 0; c < C; ++c) {
-          const int s = rk.put(Cfg::K_BYTES);
+        for (int c = 0; c < nqc; ++c) {
+          const int s = rk.put(Cfg::K_BYTES + (QRING ? QCH : 0));
           for (int b = 0; b < LT / Cfg::BOX; ++b)
-            tma_load_3d(Ks + s * Cfg::K_SLOT + b * LT * 128, &tm_k, &rk.full[s],
+            tma_load_3d(Ks + s * KSLOT + b * LT * 128, &tm_k, &rk.full[s],
                         col_k + c * LT + b * Cfg::BOX, kt * LT, z);
+          if constexpr (QRING)
+            tma_load_3d(Ks + s * KSLOT + Cfg::K_BYTES, &tm_q, &rk.full[s], col_q + c * LT, q0, z);
         }
         if (pass == 1) {
           for (int c = 0; c < C; ++c) {
             const int s = rv.put(Cfg::V_BYTES);
             for (int b = 0; b < LT / Cfg::BOX; ++b)
               tma_load_3d(Vs + s * Cfg::V_SLOT + b * LT * 128, &tm_v, &rv.full[s],
-                          col_v + c * LT + b * Cfg::BOX, kt * LT, z);
+                          col_v + (grp * C + c) * LT + b * Cfg::BOX, kt * LT, z);
           }
         }
       }
@@ -384,13 +407,13 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
   const int r_lo = wg * LT + warp * 16 + g, r_hi = r_lo + 8;
 
-  mbar_wait(qbar, 0);
+  if constexpr (!QRING) mbar_wait(qbar, 0);
   if constexpr (F32) split_tile(Qs, Cfg::Q_BYTES, Cfg::Q_BYTES / 16, tid, NCT);
   // this warpgroup's Q rows in box b (BOX elements of every row) start at
   // Qs + b * ROWS * 128 + wg * 8 KB; the small halves Q_BYTES on
   const uint64_t dq = desc_sw128(Qs + wg * LT * 128);
   constexpr int QBOX16 = Cfg::ROWS * 128 >> 4;       // descriptor step per box
-  constexpr int QSMALL16 = Cfg::Q_BYTES >> 4;
+  const int QSMALL16 = q_bytes >> 4;
 
   // sc = the scores of key tile kt, as fadd(fmul(s, scale), mask), -inf past
   // S (packed: s * scale, -inf past S and, if causal, past the query's row)
@@ -398,9 +421,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < nqc; ++c) {
       const int s = rk.take();
-      unsigned char* kp = Ks + s * Cfg::K_SLOT;
+      unsigned char* kp = Ks + s * KSLOT;
       if constexpr (F32) split_tile(kp, Cfg::K_BYTES, Cfg::K_BYTES / 16, tid, NCT);
       const uint64_t dk = desc_sw128(kp);
       fence_regs(sc);
@@ -418,8 +441,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
       } else {
+        const uint64_t dqc = QRING ? desc_sw128(kp + Cfg::K_BYTES + wg * LT * 128)
+                                   : dq + c * QBOX16;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss<64>(sc, dq + c * QBOX16 + 2 * kk, dk + 2 * kk);
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<64>(sc, dqc + 2 * kk, dk + 2 * kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -584,7 +609,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int c = 0; c < C; ++c) {
 #pragma unroll
     for (int on = 0; on < 8; ++on) {
-      const int col = c * LT + on * 8;
+      const int col = (grp * C + c) * LT + on * 8;
       if (row_lo < S)
         store_pair(ob + row_lo * ld + col, fin(o[c][on * 4], o_lo, sum_lo),
                    fin(o[c][on * 4 + 1], o_lo, sum_lo));
@@ -625,35 +650,60 @@ cudaError_t launch_long(const T* q, const T* k, const T* v, const float* mask, T
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (S + Cfg::ROWS - 1) / Cfg::ROWS);
   attention_long_kernel<T, C, false><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
-      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0, 0);
+      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0, 0, C);
   return cudaGetLastError();
 }
 
-// K1 / K3: qkv [B*S, ld] bf16 (q | k | v in its first 3D columns) -> attn
-// [B*S, D] bf16 through the packed source, head dim 64 (D = 64 heads); any
-// S >= 1.  K1 and K3 pass ld = 3D and scale = 1/8 (see
+// One packed instantiation: C output chunks a block, CQ chunks of Q K^T (0:
+// cq at run time, its Q's shared memory sized at launch).
+template <int C, int CQ>
+cudaError_t launch_long_packed_c(const CUtensorMap& tm_q, const CUtensorMap& tm_kv, bf16* attn,
+                                 int B, int S, int heads, int cq, int causal, cudaStream_t st,
+                                 float scale, int norm_after) {
+  using Cfg = LongCfg<bf16, C, true>;
+  // CQ = 0: no resident Q, a Q chunk in each K slot
+  constexpr int smem = CQ == 0 ? Cfg::SMEM - Cfg::Q_BYTES + Cfg::DK * Cfg::ROWS * LT * 2 : Cfg::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(attention_long_kernel<bf16, C, true, CQ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * heads * (cq / C), (S + Cfg::ROWS - 1) / Cfg::ROWS);
+  // tm_m is not read by the packed source: any valid map stands in
+  attention_long_kernel<bf16, C, true, CQ><<<grid, Cfg::THREADS, smem, st>>>(
+      tm_q, tm_kv, tm_kv, tm_q, attn, S, scale, heads * cq * LT, heads, causal, norm_after, cq);
+  return cudaGetLastError();
+}
+
+// K1 / K3: qkv [B*S, ld] bf16 (q | k | v, heads x hdp columns each, in its
+// first 3 heads hdp) -> attn [B*S, heads hdp] bf16 through the packed
+// source; hdp = 64 cq, the head dim zero-padded by the operand plan; any S >=
+// 1.  hdp 64 and 128 run one block per (image, head, row tile) over the
+// whole head; a wider head (cq >= 3) one block per 64-dim output chunk, each
+// over all of Q K^T (cq times the score products of one block) with Q's
+// chunks streamed through the K ring: any head dim.
+// K1 and K3 pass scale = hd^-0.5 of the true head dim (see
 // launch_attention_wgmma for the other callers).
-cudaError_t launch_long_packed(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+cudaError_t launch_long_packed(const bf16* qkv, bf16* attn, int B, int S, int heads, int hdp,
                                int causal, cudaStream_t st, int ld, float scale,
                                int norm_after) {
-  using Cfg = LongCfg<bf16, 1, true>;
-  if (S < 1 || B < 1 || D != heads * LT || ld < 3 * D || ld % 8) return cudaErrorInvalidValue;
+  const int cq = hdp / LT;
+  if (S < 1 || B < 1 || heads < 1 || hdp % LT || cq < 1 || ld < 3 * heads * hdp || ld % 8)
+    return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_kv;
   const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)S * ld * 2};
-  const uint32_t box_q[3] = {LT, Cfg::ROWS, 1}, box_kv[3] = {LT, LT, 1};
+  const uint32_t box_q[3] = {LT, LongCfg<bf16, 1, true>::ROWS, 1}, box_kv[3] = {LT, LT, 1};
   cudaError_t e = make_tensor_map(&tm_q, qkv, 3, dims, strides, box_q);
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attention_long_kernel<bf16, 1, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(B * heads, (S + Cfg::ROWS - 1) / Cfg::ROWS);
-  // tm_m is not read by the packed source: any valid map stands in
-  attention_long_kernel<bf16, 1, true><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
-      tm_q, tm_kv, tm_kv, tm_q, attn, S, scale, D, heads, causal, norm_after);
-  return cudaGetLastError();
+  if (cq == 1)
+    return launch_long_packed_c<1, 1>(tm_q, tm_kv, attn, B, S, heads, 1, causal, st, scale,
+                                      norm_after);
+  if (cq == 2)
+    return launch_long_packed_c<2, 2>(tm_q, tm_kv, attn, B, S, heads, 2, causal, st, scale,
+                                      norm_after);
+  return launch_long_packed_c<1, 0>(tm_q, tm_kv, attn, B, S, heads, cq, causal, st, scale,
+                                    norm_after);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // The bf16 attention core on Hopper's wgmma, fed by TMA, shared by three
 // kernels that compute the same function from other operands:
 //   * K1, dvl_attention_block (csrc/fused_block.cu), and K3,
-//     dvl_attention_block_q (csrc/fused_block_q.cu): packed qkv [B*S, 3D]
-//     (q | k | v, head h at columns 64h .. 64h+63 of each third) -> attn
-//     [B*S, D], CLIP's causal mask generated from a flag;
+//     dvl_attention_block_q (csrc/fused_block_q.cu): packed qkv [B*S, ld]
+//     (q | k | v, head h at columns h hdp .. h hdp + hdp - 1 of each third,
+//     hdp = 64 or 128: the head dim zero-padded by the operand plan) -> attn
+//     [B*S, heads hdp], CLIP's causal mask generated from a flag;
 //   * K5, dvl_attention (csrc/attention.cu): heads-first q, k, v [B*H, S,
 //     64] -> out [B*H, S, 64], an additive f32 [S, S] mask read from memory
 //     (L2-resident: 155 KB at S = 197) and added as fadd(fmul(s, scale),
@@ -64,10 +65,11 @@ namespace {
 constexpr int CORE_THREADS = 128;
 constexpr int CORE_QBOX = 64 * 64;  // bf16 elements of one 64-query x 64-dim tile (8 KB)
 constexpr int CORE_MAX_SEQ = 320;  // keys of the register core; K1 / K3 go long past it
+constexpr int CORE_MAX_C = 2;      // 64-dim chunks of a head the register core holds (hdp 128)
 
 // Where the core reads its operands and writes its output.
 enum CoreSource {
-  CORE_PACKED = 0,  // K1: one [B, S, 3D] map for q, k and v; block (h, b); causal flag
+  CORE_PACKED = 0,  // K1: one [B, S, ld] map for q, k and v; block (h, b); causal flag
   CORE_HEADS = 1,   // K5: a [B*H, S, 64] map each; block (b*H + h); additive mask
 };
 
@@ -79,9 +81,10 @@ __host__ inline int core_keys(int s) {
 // Keys per K / V box: all NK in one box up to the TMA's 256, else two.
 __host__ __device__ constexpr int core_kv_box(int nk) { return nk <= 256 ? nk : nk / 2; }
 
-// K and V (NK keys each), two query tiles, 1 KB for alignment.
-__host__ inline size_t core_smem_bytes(int nk) {
-  return (size_t)(2 * nk * 64 + 2 * CORE_QBOX) * 2 + 1024;
+// K and V (NK keys x 64 C dims each), two query tiles of 64 C dims, 1 KB
+// for alignment (C = 2 at 320 keys: 193 KB).
+__host__ inline size_t core_smem_bytes(int nk, int c) {
+  return (size_t)(2 * c * nk * 64 + 2 * c * CORE_QBOX) * 2 + 1024;
 }
 
 template <int NK>
@@ -95,25 +98,30 @@ __device__ __forceinline__ void qk_wgmma(float (&sc)[NK / 2], uint64_t dq, uint6
   }
 }
 
-// Up to 200 keys, three blocks share an SM (68 KB of shared memory each):
-// hold the registers to that.  `D` is the packed row's model width (K1;
-// unused by K5), `mask` K5's [S, S] additive mask, `causal` K1's flag;
-// SOFTMAX = 0 is the packed source's NORM_OFF mode.
-template <int NK, int SRC, int SOFTMAX>
-__global__ void __launch_bounds__(CORE_THREADS, NK <= 200 ? 3 : 1)
+// Up to 200 keys at head dim 64, three blocks share an SM (68 KB of shared
+// memory each): hold the registers to that.  C is the head's 64-dim chunks
+// (packed source: the head dim zero-padded to hdp = 64 C by the operand
+// plan; K5's heads-first source C = 1): Q K^T sums the chunks' products into
+// one score row, and P @ V runs once per chunk of V on the same P.  `da` is
+// the packed attention row's width, heads x hdp (K1; unused by K5), `mask`
+// K5's [S, S] additive mask, `causal` K1's flag; SOFTMAX = 0 is the packed
+// source's NORM_OFF mode.
+template <int NK, int SRC, int SOFTMAX, int C>
+__global__ void __launch_bounds__(CORE_THREADS, (C == 1 && NK <= 200) ? 3 : 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out_base,
-                       const float* __restrict__ mask, int S, int D, float scale, int causal,
+                       const float* __restrict__ mask, int S, int da, float scale, int causal,
                        int norm_after) {
   constexpr int KB = core_kv_box(NK);  // keys per K / V box
   constexpr int NT = NK / 8;           // 8-key column chunks of a score row
   constexpr int NJ = (NK + 15) / 16;   // 16-key steps of P @ V
+  constexpr int HDP = 64 * C;
   __shared__ uint64_t bars[4];         // K, V, query buffers 0 and 1
   extern __shared__ unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
-  bf16* Vs = Ks + NK * 64;
-  bf16* Qs = Vs + NK * 64;  // [2][64][64]
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [C][NK][64]
+  bf16* Vs = Ks + C * NK * 64;                              // [C][NK][64]
+  bf16* Qs = Vs + C * NK * 64;                              // [2][C][64][64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -125,8 +133,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if constexpr (SRC == CORE_PACKED) {
     const int h = blockIdx.x;
     z = blockIdx.y;
-    col_q = h * 64, col_k = D + h * 64, col_v = 2 * D + h * 64;
-    obase = (long long)z * S * D + h * 64, ld = D;
+    col_q = h * HDP, col_k = da + h * HDP, col_v = 2 * da + h * HDP;
+    obase = (long long)z * S * da + h * HDP, ld = da;
   } else {
     z = blockIdx.x;
     col_q = col_k = col_v = 0;
@@ -139,19 +147,20 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], NK * 64 * 2);
-    for (int i = 0; i < NK / KB; ++i)
-      tma_load_3d(Ks + i * KB * 64, &tm_k, &bars[0], col_k, i * KB, z);
+    mbar_expect_tx(&bars[0], C * NK * 64 * 2);
+    for (int c = 0; c < C; ++c)
+      for (int i = 0; i < NK / KB; ++i)
+        tma_load_3d(Ks + c * NK * 64 + i * KB * 64, &tm_k, &bars[0], col_k + 64 * c, i * KB, z);
     for (int i = 0; i < 2 && i < nq; ++i) {
-      mbar_expect_tx(&bars[2 + i], CORE_QBOX * 2);
-      tma_load_3d(Qs + i * CORE_QBOX, &tm_q, &bars[2 + i], col_q, i * 64, z);
+      mbar_expect_tx(&bars[2 + i], C * CORE_QBOX * 2);
+      for (int c = 0; c < C; ++c)
+        tma_load_3d(Qs + (i * C + c) * CORE_QBOX, &tm_q, &bars[2 + i], col_q + 64 * c, i * 64, z);
     }
-    mbar_expect_tx(&bars[1], NK * 64 * 2);
-    for (int i = 0; i < NK / KB; ++i)
-      tma_load_3d(Vs + i * KB * 64, &tm_v, &bars[1], col_v, i * KB, z);
+    mbar_expect_tx(&bars[1], C * NK * 64 * 2);
+    for (int c = 0; c < C; ++c)
+      for (int i = 0; i < NK / KB; ++i)
+        tma_load_3d(Vs + c * NK * 64 + i * KB * 64, &tm_v, &bars[1], col_v + 64 * c, i * KB, z);
   }
-  const uint64_t dk = desc_sw128(Ks);
-  const uint64_t dv = desc_sw128(Vs, 1024);
   mbar_wait(&bars[0], 0);
 
   for (int qt = 0; qt < nq; ++qt) {
@@ -159,22 +168,29 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&bars[2 + buf], (qt >> 1) & 1);
     const int row_lo = qt * 64 + warp * 16 + g, row_hi = row_lo + 8;
 
-    // S = Q K^T over the whole (bucketed) key range, 4 K-steps of 16 dims.
+    // S = Q K^T over the whole (bucketed) key range, 4 K-steps of 16 dims
+    // per chunk.
     float sc[NK / 2];
 #pragma unroll
     for (int i = 0; i < NK / 2; ++i) sc[i] = 0.f;
-    const uint64_t dq = desc_sw128(Qs + buf * CORE_QBOX);
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) qk_wgmma<NK>(sc, dq + 2 * kk, dk + 2 * kk);
+    for (int c = 0; c < C; ++c) {
+      const uint64_t dq = desc_sw128(Qs + (buf * C + c) * CORE_QBOX);
+      const uint64_t dk = desc_sw128(Ks + c * NK * 64);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) qk_wgmma<NK>(sc, dq + 2 * kk, dk + 2 * kk);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     // the buffer is read: bring in the query tile after next
     if (tid == 0 && qt + 2 < nq) {
-      mbar_expect_tx(&bars[2 + buf], CORE_QBOX * 2);
-      tma_load_3d(Qs + buf * CORE_QBOX, &tm_q, &bars[2 + buf], col_q, (qt + 2) * 64, z);
+      mbar_expect_tx(&bars[2 + buf], C * CORE_QBOX * 2);
+      for (int c = 0; c < C; ++c)
+        tma_load_3d(Qs + (buf * C + c) * CORE_QBOX, &tm_q, &bars[2 + buf], col_q + 64 * c,
+                    (qt + 2) * 64, z);
     }
 
     // P, normalised and rounded, as the A fragments of the PV steps: step j
@@ -254,80 +270,87 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     if (qt == 0) mbar_wait(&bars[1], 0);
 
-    // O = P V over every 16-key step (P is 0 past S and past the mask).
-    float o[32];
+    // O = P V over every 16-key step (P is 0 past S and past the mask), one
+    // 64-dim chunk of V at a time.
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    fence_regs(o);
-    fence_regs(pa);
-    wgmma_fence();
+    for (int c = 0; c < C; ++c) {
+      const uint64_t dv = desc_sw128(Vs + c * NK * 64, 1024);
+      float o[32];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      wgmma_rs_n64_tb(o, *reinterpret_cast<const uint32_t(*)[4]>(&pa[4 * j]),
-                      dv + j * (16 * 128 >> 4));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_regs(pa);
-    if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
-    } else if (norm_after == 1) {
+      for (int j = 0; j < NJ; ++j)
+        wgmma_rs_n64_tb(o, *reinterpret_cast<const uint32_t(*)[4]>(&pa[4 * j]),
+                        dv + j * (16 * 128 >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? r_hi : r_lo;
-    }
+        for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
+      } else if (norm_after == 1) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? r_hi : r_lo;
+      }
 
-    bf16* out = out_base + obase + 2 * t;
+      bf16* out = out_base + obase + 64 * c + 2 * t;
 #pragma unroll
-    for (int on = 0; on < 8; ++on) {
-      if (row_lo < S)
-        *reinterpret_cast<uint32_t*>(out + (long long)row_lo * ld + on * 8) =
-            pack_bf16(o[on * 4], o[on * 4 + 1]);
-      if (row_hi < S)
-        *reinterpret_cast<uint32_t*>(out + (long long)row_hi * ld + on * 8) =
-            pack_bf16(o[on * 4 + 2], o[on * 4 + 3]);
+      for (int on = 0; on < 8; ++on) {
+        if (row_lo < S)
+          *reinterpret_cast<uint32_t*>(out + (long long)row_lo * ld + on * 8) =
+              pack_bf16(o[on * 4], o[on * 4 + 1]);
+        if (row_hi < S)
+          *reinterpret_cast<uint32_t*>(out + (long long)row_hi * ld + on * 8) =
+              pack_bf16(o[on * 4 + 2], o[on * 4 + 3]);
+      }
     }
   }
 }
 
-template <int NK, int SRC, int SOFTMAX>
+template <int NK, int SRC, int SOFTMAX, int C>
 cudaError_t launch_core_kernel(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
-                               int D, float scale, int causal, int norm_after, dim3 grid,
+                               int da, float scale, int causal, int norm_after, dim3 grid,
                                cudaStream_t st) {
-  const size_t smem = core_smem_bytes(NK);
-  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC, SOFTMAX>,
+  const size_t smem = core_smem_bytes(NK, C);
+  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NK, SRC, SOFTMAX, C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attention_wgmma_kernel<NK, SRC, SOFTMAX><<<grid, CORE_THREADS, smem, st>>>(
-      tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after);
+  attention_wgmma_kernel<NK, SRC, SOFTMAX, C><<<grid, CORE_THREADS, smem, st>>>(
+      tm_q, tm_k, tm_v, out, mask, S, da, scale, causal, norm_after);
   return cudaGetLastError();
 }
 
-// The softmax-off instantiation for the packed source's NORM_OFF (K5's
-// heads-first source has none), the softmax one otherwise.
-template <int NK, int SRC>
+// The softmax-off instantiation for the packed source's NORM_OFF at head
+// dim 64 (K5's heads-first source and the wider heads have none), the
+// softmax one otherwise.
+template <int NK, int SRC, int C>
 cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
-                              int D, float scale, int causal, int norm_after, dim3 grid,
+                              int da, float scale, int causal, int norm_after, dim3 grid,
                               cudaStream_t st) {
-  if constexpr (SRC == CORE_PACKED) {
+  if constexpr (SRC == CORE_PACKED && C == 1) {
     if (norm_after == NORM_OFF)
-      return launch_core_kernel<NK, SRC, 0>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal,
-                                            norm_after, grid, st);
+      return launch_core_kernel<NK, SRC, 0, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal,
+                                               norm_after, grid, st);
   }
-  return launch_core_kernel<NK, SRC, 1>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal,
-                                        norm_after, grid, st);
+  if (norm_after == NORM_OFF) return cudaErrorInvalidValue;
+  return launch_core_kernel<NK, SRC, 1, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal,
+                                           norm_after, grid, st);
 }
 
-template <int SRC>
+template <int SRC, int C>
 cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
-                               int D, float scale, int causal, int norm_after, dim3 grid,
+                               int da, float scale, int causal, int norm_after, dim3 grid,
                                cudaStream_t st) {
-#define DVL_CORE_BUCKET(NK)                                                                   \
-  launch_core_wgmma<NK, SRC>(tm_q, tm_k, tm_v, out, mask, S, D, scale, causal, norm_after, grid, \
-                             st)
+#define DVL_CORE_BUCKET(NK)                                                                 \
+  launch_core_wgmma<NK, SRC, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal, norm_after, \
+                                grid, st)
   switch (nk) {
     case 32: return DVL_CORE_BUCKET(32);
     case 80: return DVL_CORE_BUCKET(80);
@@ -338,21 +361,26 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
 #undef DVL_CORE_BUCKET
 }
 
-// K1 and K3: qkv [B*S, ld] (q | k | v in its first 3D columns) -> attn
-// [B*S, D]; head dim 64, any S >= 1: 1 <= S <= 320 on the register core
-// above, S > 320 on the two-pass long route's packed source
-// (attention_long.cuh), whose whole score rows no longer fit in registers.
-// ops/fused_block.py::core_route names the same choice.  K1 and K3 pass
-// ld = 3D and scale = 1/8; a tensor-parallel slot passes its D = 64 g over
-// its g heads and its padded slice's ld; KB (a) 6 passes scale = ln 2 and
-// norm_after (see the top of this file); KB (a) 4 scale = 1/8 with
-// norm_after = 2; the attribution's "mxu" core scale = 1/8 with NORM_OFF.
-cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
+// K1 and K3: qkv [B*S, ld] (q | k | v, each heads x hdp columns, in its
+// first 3 heads hdp) -> attn [B*S, heads hdp]; hdp = 64 C, the head dim
+// zero-padded by the operand plan (ops/fused_block.py::attn_plan), `scale`
+// the true head dim's hd^-0.5; any S >= 1: 1 <= S <= 320 at hdp <= 128 on
+// the register core above, every other shape on the two-pass long route's
+// packed source (attention_long.cuh), whose whole score rows no longer fit
+// in registers.  ops/fused_block.py::core_route names the same choice.  K1
+// and K3 pass ld = 3 heads hdp rounded up to 128; a tensor-parallel slot
+// passes its g heads at hdp 64 and its padded slice's ld; KB (a) 6 passes
+// scale = ln 2 and norm_after (see the top of this file); KB (a) 4 scale =
+// 1/8 with norm_after = 2; the attribution's "mxu" core scale = 1/8 with
+// NORM_OFF (hdp 64 only).
+cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int heads, int hdp,
                                    int causal, cudaStream_t st, int ld, float scale,
                                    int norm_after) {
-  if (S < 1 || D != heads * 64 || ld < 3 * D || ld % 8) return cudaErrorInvalidValue;
-  if (S > CORE_MAX_SEQ) return launch_long_packed(qkv, attn, B, S, D, heads, causal, st, ld,
-                                                  scale, norm_after);
+  const int c = hdp / 64, da = heads * hdp;
+  if (S < 1 || B < 1 || heads < 1 || hdp % 64 || c < 1 || ld < 3 * da || ld % 8)
+    return cudaErrorInvalidValue;
+  if (S > CORE_MAX_SEQ || c > CORE_MAX_C)
+    return launch_long_packed(qkv, attn, B, S, heads, hdp, causal, st, ld, scale, norm_after);
   const int nk = core_keys(S);
   CUtensorMap tm_q, tm_kv;
   const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)S, (uint64_t)B};
@@ -362,8 +390,11 @@ cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, in
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
   if (e != cudaSuccess) return e;
-  return launch_core_bucket<CORE_PACKED>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, D, scale,
-                                         causal, norm_after, dim3(heads, B), st);
+  if (c == 1)
+    return launch_core_bucket<CORE_PACKED, 1>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da, scale,
+                                              causal, norm_after, dim3(heads, B), st);
+  return launch_core_bucket<CORE_PACKED, 2>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da, scale,
+                                            causal, norm_after, dim3(heads, B), st);
 }
 
 // K5: q, k, v [BH, S, 64] -> out [BH, S, 64] with the additive f32 mask
@@ -382,8 +413,8 @@ cudaError_t launch_attention_wgmma_heads(const bf16* q, const bf16* k, const bf1
     cudaError_t e = make_tensor_map(&tm[i], src[i], 3, dims, strides, i == 0 ? box_q : box_kv);
     if (e != cudaSuccess) return e;
   }
-  return launch_core_bucket<CORE_HEADS>(nk, tm[0], tm[1], tm[2], out, mask, S, 64,
-                                        1.0f / sqrtf(64.0f), 0, 0, dim3(BH), st);
+  return launch_core_bucket<CORE_HEADS, 1>(nk, tm[0], tm[1], tm[2], out, mask, S, 64,
+                                           1.0f / sqrtf(64.0f), 0, 0, dim3(BH), st);
 }
 
 }  // namespace

@@ -52,9 +52,12 @@
 //     fuses bias, activation, residual and the bf16 rounding into coalesced
 //     row stores, so no f32 intermediate reaches device memory.
 //     The weights come in K-major ([N, K], a copy the wrapper keeps per
-//     parameter version) so both operands are K-major; N % 128 == 0 and
-//     K % 64 == 0 (the wrapper raises otherwise); the ragged M edge is
-//     zero-filled by the TMA and masked on store;
+//     parameter version) so both operands are K-major; N a multiple of 128
+//     and K of 64 on the padded operand layout the wrappers lay out for any
+//     D, head dim and F (ops/fused_block.py::attn_plan / mlp_plan: zero
+//     weights and biases in the padding, the out and down products storing
+//     only the model's D columns); the ragged M edge is zero-filled by the
+//     TMA and masked on store;
 //   * the LayerNorm kernel of common.cuh (one warp per row, bf16 out);
 //   * the wgmma attention core of attention_wgmma.cuh: one block per (head,
 //     image), K and V loaded once by TMA, whole f32 score rows in wgmma
@@ -104,11 +107,15 @@ __device__ __forceinline__ float epilogue(float acc, float bias, float resid) {
   return (resid + bias) + acc;  // EPI_RESID_BIAS
 }
 
-template <int EPI>
+// RAGGED (the out and down products off the registry archs' widths): C and
+// resid are [M, ldc] with the first ldc <= N columns stored (the padded
+// operand layout's N edge: the weight's zero rows past ldc compute columns
+// no one reads).  Otherwise C and resid are [M, N], every column stored.
+template <int EPI, bool RAGGED>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                   const float* __restrict__ bias, const bf16* __restrict__ resid,
-                  void* __restrict__ C, int M, int N, int K) {
+                  void* __restrict__ C, int M, int N, int K, int ldc) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   bf16* sA = reinterpret_cast<bf16*>(smem);                        // [stage][128][64]
@@ -168,7 +175,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
   // finishes two rows at a time -- lane l takes columns 8(l % 16) .. +7 of
   // row 2i + l / 16, so the residual read and the bf16 store are 256
   // contiguous bytes per row -- applying bias, activation and residual in f32
-  // with one rounding.
+  // with one rounding.  RAGGED: a lane whose 8 columns cross ldc, or rows
+  // whose stride is not 16 bytes, go element by element.
   named_barrier(1, 256);
   float* stage = reinterpret_cast<float*>(smem) + c * 64 * GEPI_LD;
   {
@@ -182,6 +190,9 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
   }
   named_barrier(2 + c, 128);
   const int col = (tid & 15) * 8, n = n0 + col;
+  if (RAGGED && n >= ldc) return;
+  const bool whole = !RAGGED || (n + 8 <= ldc && ldc % 8 == 0);
+  const int ld = RAGGED ? ldc : N;
   float bb[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if constexpr (EPI != EPI_F32) {
     *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
@@ -195,14 +206,23 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
     *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col);
     *reinterpret_cast<float4*>(v + 4) =
         *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col + 4);
+    if (!whole) {  // the ragged N edge: element by element
+      for (int i = 0; i < 8 && n + i < ldc; ++i) {
+        const float ri = (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS)
+                             ? __bfloat162float(resid[m * ldc + n + i]) : 0.f;
+        static_cast<bf16*>(C)[m * ldc + n + i] =
+            __float2bfloat16_rn(epilogue<EPI>(v[i], bb[i], ri));
+      }
+      continue;
+    }
     if constexpr (EPI == EPI_F32) {
-      float* out = static_cast<float*>(C) + m * N + n;
+      float* out = static_cast<float*>(C) + m * ld + n;
       *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(v);
       *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(v + 4);
       continue;
     }
     if (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * N + n);
+      const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * ld + n);
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -217,14 +237,33 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
     for (int i = 0; i < 4; ++i)
       pw[i] = pack_bf16(epilogue<EPI>(v[2 * i], bb[2 * i], rr[2 * i]),
                         epilogue<EPI>(v[2 * i + 1], bb[2 * i + 1], rr[2 * i + 1]));
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * ld + n) = packed;
   }
 }
 
+template <int EPI, bool RAGGED>
+cudaError_t launch_gemm_kernel(const CUtensorMap& tm_a, const CUtensorMap& tm_b, const float* bias,
+                               const bf16* resid, void* C, int M, int N, int K, int ldc,
+                               cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, RAGGED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(N / GBN, (M + GBM - 1) / GBM);
+  gemm_wgmma_kernel<EPI, RAGGED><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(tm_a, tm_b, bias, resid,
+                                                                       C, M, N, K, ldc);
+  return cudaGetLastError();
+}
+
+// ldc = 0 or N: C and resid [M, N], every column stored; else (the out and
+// down products only) [M, ldc], the first ldc columns stored.
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const bf16* resid,
-                        void* C, int M, int N, int K, cudaStream_t st) {
-  if (M < 1 || N % GBN || K % GBK || K < GBK) return cudaErrorInvalidValue;
+                        void* C, int M, int N, int K, cudaStream_t st, int ldc = 0) {
+  constexpr bool MAY_RAG = EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS;
+  const bool ragged = ldc != 0 && ldc != N;
+  if (M < 1 || N % GBN || K % GBK || K < GBK || (ragged && (!MAY_RAG || ldc > N ||
+                                                             ldc <= N - GBN)))
+    return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 64 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K * 2};
   const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
@@ -233,12 +272,10 @@ cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const 
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride, box_b);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           GEMM_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid(N / GBN, (M + GBM - 1) / GBM);
-  gemm_wgmma_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(tm_a, tm_b, bias, resid, C, M, N, K);
-  return cudaGetLastError();
+  if constexpr (MAY_RAG) {
+    if (ragged) return launch_gemm_kernel<EPI, true>(tm_a, tm_b, bias, resid, C, M, N, K, ldc, st);
+  }
+  return launch_gemm_kernel<EPI, false>(tm_a, tm_b, bias, resid, C, M, N, K, N, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,27 +326,34 @@ tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
 
-// K1's launches with the core's score scale and normalisation order given.
+// K1's launches with the core's score scale and normalisation order given,
+// on the padded operand layout of ops/fused_block.py::attn_plan: xn [B*S,
+// DK] (D rounded up to 64, zeros past D), qkv [B*S, NQKV] (q | k | v, heads
+// x hdp columns each, hdp = the head dim rounded up to 64, zero lanes past
+// it; NQKV = 3 heads hdp rounded up to 128), attn [B*S, heads hdp], and the
+// out-projection's N rounded up to 128 with only D columns stored.  At D % 128
+// == 0 and head dim 64 every width is the model's own.
 int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                          const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
-                         void* qkv, void* attn, int B, int S, int D, int heads, int causal,
-                         float scale, int norm_after, void* stream) {
+                         void* qkv, void* attn, int B, int S, int D, int heads, int hdp,
+                         int causal, float scale, int norm_after, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S;
+  const int M = B * S, DK = round_up(D, GBK), DA = heads * hdp, NQKV = round_up(3 * DA, GBN);
+  if (D < 1 || hdp < 64 || hdp % 64 || DA < D) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
                             static_cast<const float*>(bqkv), nullptr, static_cast<bf16*>(qkv), M,
-                            3 * D, D, st);
+                            NQKV, DK, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                             heads, causal, st, 3 * D, scale, norm_after);
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, heads,
+                             hdp, causal, st, NQKV, scale, norm_after);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
                                   static_cast<const float*>(bo), static_cast<const bf16*>(x),
-                                  static_cast<bf16*>(out), M, D, D, st);
+                                  static_cast<bf16*>(out), M, round_up(D, GBN), DA, st, D);
   return (int)e;
 }
 
@@ -318,55 +362,61 @@ int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, cons
 extern "C" {
 
 // out = x + (MHA(LN(x)) @ wo + bo); x, out [B, S, D] bf16; the weights
-// K-major bf16, wqkv [3D, D] and wo [D, D] (the transposes of the
-// parameters); ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch (bf16):
-// xn [B*S, D], qkv [B*S, 3D], attn [B*S, D].  D == heads * 64,
-// D % 128 == 0, S >= 1 (past 320 keys the core takes its long route).
+// K-major bf16 in the padded layout of attention_block_impl: wqkv [NQKV,
+// DK] and wo [D rounded up to 128, heads hdp] (the transposes of the
+// parameters, zero rows and columns where the layout pads); ln_s, ln_b [D],
+// bqkv [NQKV] and bo [D rounded up to 128] f32.  Scratch (bf16): xn [B*S,
+// DK], qkv [B*S, NQKV], attn [B*S, heads hdp].  scale = hd^-0.5 of the true
+// head dim; S >= 1 (the core's register route up to 320 keys at hdp <= 128,
+// its long route otherwise).
 int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                         const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
-                        void* qkv, void* attn, int B, int S, int D, int heads, int causal,
-                        void* stream) {
+                        void* qkv, void* attn, int B, int S, int D, int heads, int hdp,
+                        int causal, float scale, void* stream) {
   return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D,
-                              heads, causal, 1.0f / sqrtf(64.0f), 0, stream);
+                              heads, hdp, causal, scale, 0, stream);
 }
 
-// KB (a) 5, attention_block_opt: dvl_attention_block's arguments (no causal
-// mask) with wqkv's q columns and bqkv's q entries pre-scaled by hd^-0.5
-// log2 e (prescale_qkv): the core at scale ln 2 (exp(s ln 2 - m ln 2) is
-// exp2(s - m) to f32 rounding), the unnormalised exponentials rounded to
-// bf16 for P @ V and the f32 rows scaled by 1 / row sum after it.
+// KB (a) 5, attention_block_opt: dvl_attention_block's arguments at head dim
+// 64 (no causal mask) with wqkv's q columns and bqkv's q entries pre-scaled
+// by hd^-0.5 log2 e (prescale_qkv): the core at scale ln 2 (exp(s ln 2 - m
+// ln 2) is exp2(s - m) to f32 rounding), the unnormalised exponentials
+// rounded to bf16 for P @ V and the f32 rows scaled by 1 / row sum after it.
 int dvl_attention_block_opt(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                             const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                             void* qkv, void* attn, int B, int S, int D, int heads, void* stream) {
   return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D,
-                              heads, 0, logf(2.0f), 1, stream);
+                              heads, 64, 0, logf(2.0f), 1, stream);
 }
 
 // out = x + b2 + act(LN(x) @ w1 + b1) @ w2; x, out [M, D] bf16; the weights
-// K-major bf16, w1 [F, D] and w2 [D, F] (the transposes of the
-// parameters); ln_s, ln_b, b2 [D] and b1 [F] f32.  Scratch (bf16):
-// xn [M, D], hidden [M, F].  D % 128 == 0, F % 128 == 0.  act_kind
-// 0 = quick_gelu, 1 = erf gelu (A&S).
+// K-major bf16 in the padded layout of ops/fused_block.py::mlp_plan: w1
+// [Fp, DK] and w2 [D rounded up to 128, Fp] (the transposes of the
+// parameters, zero past F and D; Fp = F rounded up to 128, DK = D rounded up
+// to 64); ln_s, ln_b [D], b1 [Fp] and b2 [D rounded up to 128] f32, zeros
+// past F and D.  Scratch (bf16): xn [M, DK], hidden [M, Fp] (act(0) = 0 in
+// the padded lanes).  act_kind 0 = quick_gelu, 1 = erf gelu (A&S).
 int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                   const void* b1, const void* w2, const void* b2, void* out, void* xn,
-                  void* hidden, int M, int D, int F, int act_kind, void* stream) {
+                  void* hidden, int M, int D, int Fp, int act_kind, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int DK = round_up(D, GBK);
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
   if (e != cudaSuccess) return (int)e;
   if (act_kind == 0)
     e = launch_gemm<EPI_BIAS_QGELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
                                     static_cast<const float*>(b1), nullptr,
-                                    static_cast<bf16*>(hidden), M, F, D, st);
+                                    static_cast<bf16*>(hidden), M, Fp, DK, st);
   else
     e = launch_gemm<EPI_BIAS_GELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
                                    static_cast<const float*>(b1), nullptr,
-                                   static_cast<bf16*>(hidden), M, F, D, st);
+                                   static_cast<bf16*>(hidden), M, Fp, DK, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_RESID_BIAS>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
                                   static_cast<const float*>(b2), static_cast<const bf16*>(x),
-                                  static_cast<bf16*>(out), M, D, F, st);
+                                  static_cast<bf16*>(out), M, round_up(D, GBN), Fp, st, D);
   return (int)e;
 }
 
@@ -395,7 +445,7 @@ int dvl_attention_block_heads(const void* x, const void* ln_s, const void* ln_b,
   e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
                             static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, dg, g,
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, g, 64,
                              causal, st, ld, scale, norm_after);
   if (e != cudaSuccess) return (int)e;
   if (out != nullptr)

@@ -106,9 +106,12 @@
 //     [out, in] that the caller keeps.  The epilogue stages the s32 tile in
 //     the freed ring and dequantizes, adds the bias and applies the
 //     activation (f32 hidden), or adds the residual (bf16 out), or neither
-//     (bf16 qkv), on coalesced rows, in the operation order above.  N % 128
-//     == 0 and K % 128 == 0 (the wrappers raise otherwise); the TMA
-//     zero-fills the ragged M edge;
+//     (bf16 qkv), on coalesced rows, in the operation order above.  N a
+//     multiple of 128 and K of 16 on the padded operand layout of
+//     ops/fused_block.py::attn_plan / mlp_plan (any D, head dim, F and
+//     F-split: zero weights, scales and biases in the padding, the out and
+//     down products storing only the model's D columns); the TMA zero-fills
+//     the ragged M edge and a K past the last 128;
 //   * the attention block's core is the wgmma core of attention_wgmma.cuh
 //     that K1 runs, on the same packed [B*S, 3D] qkv: each head's K and V
 //     loaded once by TMA, whole f32 score rows in wgmma accumulators, P fed
@@ -117,7 +120,8 @@
 //     rounding); past 320 keys (the int8 joint Frozen-in-Time tower, S =
 //     785) the two-pass long route of attention_long.cuh on the same qkv;
 //   * a quantize pass, one block per row with the row in registers: amax,
-//     scale and codes from a single read;
+//     scale and codes from a single read; past 4,096 values a row (ViT-H/14's
+//     F = 5,120) two reads of it, the amax then the codes;
 //   * the LayerNorm kernel of common.cuh.
 // Quantizing inside the GEMMs (an epilogue taking the row amax, a producer
 // quantizing on load) and fusing LN with the quantize pass are later work.
@@ -186,13 +190,55 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __rest
   if (threadIdx.x == 0) scale[row] = s;
 }
 
+// Rows wider than the registers hold (QR_WIDE: ViT-H/14's F = 5,120,
+// bigG/14's 8,192): the same scale and codes from two passes over the row,
+// the amax, then the codes from a second read (L1 / L2-resident: one row is
+// at most a few tens of KB); QGELU applies the activation on both reads.
+constexpr int QR_WIDE = 32 * QR_THREADS;
+
+template <typename T, bool RECIP, bool QGELU>
+__global__ void __launch_bounds__(QR_THREADS)
+quant_rows_wide_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                       float* __restrict__ act_out, int n) {
+  __shared__ float red[QR_THREADS / 32];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * n;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < n; i += QR_THREADS) {
+    float v = to_f32(xr[i]);
+    if constexpr (QGELU) {
+      v = quick_gelu(v);
+      if (act_out) act_out[row * n + i] = v;
+    }
+    amax = fmaxf(amax, fabsf(v));
+  }
+  amax = warp_max(amax);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  const float inv = __frcp_rn(s);
+  int8_t* qr = q + row * n;
+  for (int i = threadIdx.x; i < n; i += QR_THREADS) {
+    float v = to_f32(xr[i]);
+    if constexpr (QGELU) v = quick_gelu(v);
+    const float y = RECIP ? __fmul_rn(v, inv) : __fdiv_rn(v, s);
+    qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
+  }
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
 template <bool RECIP, bool QGELU, typename T>
 cudaError_t launch_quant_rows_mode(const T* x, int8_t* q, float* scale, float* act_out, int rows,
                                    int n, cudaStream_t st) {
   if (n <= 8 * QR_THREADS)
     quant_rows_kernel<T, 8, RECIP, QGELU><<<rows, QR_THREADS, 0, st>>>(x, q, scale, act_out, n);
-  else
+  else if (n <= QR_WIDE)
     quant_rows_kernel<T, 32, RECIP, QGELU><<<rows, QR_THREADS, 0, st>>>(x, q, scale, act_out, n);
+  else
+    quant_rows_wide_kernel<T, RECIP, QGELU><<<rows, QR_THREADS, 0, st>>>(x, q, scale, act_out, n);
   return cudaGetLastError();
 }
 
@@ -312,13 +358,16 @@ static_assert(2 * 64 * SEPI_LD * 4 <= SSTAGES * 2 * S_TILE, "staging fits the ri
 
 // The chunked mode holds an f32 sum beside the int32 accumulators (64 more
 // registers a thread), so it runs one block per SM, the others two.
-template <int EPI>
+// RAGGED (the bf16 out and down products off the registry archs' widths):
+// C and resid are [M, ldc], the first ldc <= N columns stored (the padded
+// layout's N edge); otherwise [M, N].
+template <int EPI, bool RAGGED>
 __global__ void __launch_bounds__(SGEMM_THREADS, EPI == EQ_RESID_BIAS_CHUNK ? 1 : 2)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                const float* __restrict__ a_scale, const float* __restrict__ w_scale,
                const float* __restrict__ bias, const void* __restrict__ resid,
                void* __restrict__ C, void* __restrict__ C2, int M, int N, int K,
-               int chunk_steps) {
+               int chunk_steps, int ldc) {
   constexpr bool CHUNK = EPI == EQ_RESID_BIAS_CHUNK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -431,6 +480,10 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
   }
   named_barrier(2 + c, 128);
   const int col = (tid & 15) * 8, n = n0 + col;
+  if (RAGGED && n >= ldc) return;
+  // the padded layout's ragged N edge: element by element
+  const bool whole = !RAGGED || (n + 8 <= ldc && ldc % 8 == 0);
+  const int ld = RAGGED ? ldc : N;
   float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float bb[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if constexpr (EPI != EQ_I32) {
@@ -446,6 +499,20 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     int a[8];
     *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col);
     *reinterpret_cast<int4*>(a + 4) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col + 4);
+    if constexpr (EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS || CHUNK) {
+      if (!whole) {
+        const float rs = CHUNK ? 0.f : a_scale[m];
+        for (int i = 0; i < 8 && n + i < ldc; ++i) {
+          const float d = CHUNK ? __int_as_float(a[i])
+                                : __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
+          const float r = __bfloat162float(static_cast<const bf16*>(resid)[m * ldc + n + i]);
+          const float o = EPI == EQ_BIAS_RESID ? __fadd_rn(r, __fadd_rn(d, bb[i]))
+                                               : __fadd_rn(__fadd_rn(r, bb[i]), d);
+          static_cast<bf16*>(C)[m * ldc + n + i] = __float2bfloat16_rn(o);
+        }
+        continue;
+      }
+    }
     if constexpr (EPI == EQ_I32) {
       int* out = static_cast<int*>(C) + m * N + n;
       *reinterpret_cast<int4*>(out) = *reinterpret_cast<const int4*>(a);
@@ -489,7 +556,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
         *reinterpret_cast<float4*>(rr + 4) = *reinterpret_cast<const float4*>(r32 + 4);
       } else if constexpr (EPI != EQ_BIAS) {
         const uint4 raw =
-            *reinterpret_cast<const uint4*>(static_cast<const bf16*>(resid) + m * N + n);
+            *reinterpret_cast<const uint4*>(static_cast<const bf16*>(resid) + m * ld + n);
         const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -518,7 +585,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
         *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(o + 4);
         *reinterpret_cast<uint4*>(static_cast<bf16*>(C2) + m * N + n) = packed;
       } else {
-        *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * N + n) = packed;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * ld + n) = packed;
       }
     }
   }
@@ -527,12 +594,32 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 // EQ_BIAS_RESID_Y writes its bf16 copy to C2, EQ_BIAS_S8 its row scales;
 // EQ_RESID_BIAS_CHUNK takes
 // a_scale [M, K / (128 chunk_steps)] (a row's scale per chunk) and K a
-// multiple of 128 chunk_steps.
+// multiple of 128 chunk_steps.  ldc (the bf16 out and down products only):
+// C and resid are [M, ldc], columns ldc .. N-1 (the weight's zero rows of
+// the padded layout) not stored; 0 or N: [M, N].
+template <int EPI, bool RAGGED>
+cudaError_t launch_gemm_s8_kernel(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                                  const float* a_scale, const float* w_scale, const float* bias,
+                                  const void* resid, void* C, void* C2, int M, int N, int K,
+                                  int chunk_steps, int ldc, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(gemm_s8_kernel<EPI, RAGGED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SGEMM_SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(N / SBN, (M + SBM - 1) / SBM);
+  gemm_s8_kernel<EPI, RAGGED><<<grid, SGEMM_THREADS, SGEMM_SMEM, st>>>(
+      tm_a, tm_b, a_scale, w_scale, bias, resid, C, C2, M, N, K, chunk_steps, ldc);
+  return cudaGetLastError();
+}
+
 template <int EPI>
 cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* Wt,
                            const float* w_scale, const float* bias, const void* resid, void* C,
                            int M, int N, int K, cudaStream_t st, void* C2 = nullptr,
-                           int chunk_steps = 0) {
+                           int chunk_steps = 0, int ldc = 0) {
+  constexpr bool MAY_RAG = EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS ||
+                           EPI == EQ_RESID_BIAS_CHUNK;
+  const bool ragged = ldc != 0 && ldc != N;
+  if (ragged && (!MAY_RAG || ldc > N || ldc <= N - SBN)) return cudaErrorInvalidValue;
   // K % 16: the TMA's 16-byte row stride; a K past the last 128 zero-fills
   if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
   if (EPI == EQ_RESID_BIAS_CHUNK && (chunk_steps < 1 || K % (SBK * chunk_steps)))
@@ -546,13 +633,13 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
   if (e != cudaSuccess) return e;
   e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SGEMM_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid(N / SBN, (M + SBM - 1) / SBM);
-  gemm_s8_kernel<EPI><<<grid, SGEMM_THREADS, SGEMM_SMEM, st>>>(tm_a, tm_b, a_scale, w_scale, bias,
-                                                               resid, C, C2, M, N, K, chunk_steps);
-  return cudaGetLastError();
+  if constexpr (MAY_RAG) {
+    if (ragged)
+      return launch_gemm_s8_kernel<EPI, true>(tm_a, tm_b, a_scale, w_scale, bias, resid, C, C2, M,
+                                              N, K, chunk_steps, ldc, st);
+  }
+  return launch_gemm_s8_kernel<EPI, false>(tm_a, tm_b, a_scale, w_scale, bias, resid, C, C2, M, N,
+                                           K, chunk_steps, N, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -794,9 +881,9 @@ enum AttnQVariant {
 // [3D, D], wo_t [D, D] int8 (the [in, out] weights transposed); sqkv [3D],
 // so [D] channel scales, ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch: xn,
 // attn [B*S, D] bf16; xq, aq [B*S, D] int8; xs, ascale [B*S] f32; qkv
-// [B*S, 3D] bf16 (AQ_QQ: f32).  D == heads * 64, D % 128 == 0 (the s8 GEMM's
-// N and K), S >= 1 (the core's whole score rows up to 320 keys, its long
-// route past; AQ_QQ's int8 core up to QQ_MAX_SEQ).
+// [B*S, 3D] bf16 (AQ_QQ: f32) at the model's own widths (the padded
+// layout's below), S >= 1 (the core's whole score rows up to 320 keys, its
+// long route past; AQ_QQ's int8 core up to QQ_MAX_SEQ).
 // AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh.
 // AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
 // the row sum after P V (norm_after = 2).  AQ_POSTDIV: K3's quantizer and
@@ -809,14 +896,30 @@ enum AttnQVariant {
 // y32 (K3 only), if not null: the out-projection writes f32 y = x + (deq +
 // bo) [B*S, D] there and bf16(y) to out (EQ_BIAS_RESID_Y: K3's output, and
 // the residual kept f32 for the layer's MLP half).
+// K3 runs any D and head dim on the padded operand layout of
+// ops/fused_block.py::attn_plan (csrc/fused_block.cu's attention_block_impl
+// in int8): xn, xq [B*S, DK] (D rounded up to 64, zeros past D: the same
+// amax, the same codes), wqkv_t [NQKV, DK] with sqkv and bqkv [NQKV] (zero
+// past each head's hd of hdp lanes, and past 3 heads hdp up to NQKV, a
+// multiple of 128), qkv [B*S, NQKV], attn and aq [B*S, heads hdp] (the
+// padded lanes are P @ 0 = 0: the same amax, the same codes), wo_t [D
+// rounded up to 128, heads hdp] with so and bo zero past D; `scale` is the
+// true head dim's hd^-0.5.  The other variants take the model's own widths
+// (D % 128 == 0, hdp = 64: the layout is the identity there).
 int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                            const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
-                           int causal, int variant, void* stream, void* y32 = nullptr) {
+                           int hdp, float scale, int causal, int variant, void* stream,
+                           void* y32 = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S;
+  const int M = B * S, DK = round_up(D, 64), DA = heads * hdp, NQKV = round_up(3 * DA, SBN);
+  const int NO = round_up(D, SBN);
   if (variant != AQ_K3 && (causal || y32 != nullptr)) return (int)cudaErrorInvalidValue;
+  if (D < 1 || hdp < 64 || hdp % 64 || DA < D) return (int)cudaErrorInvalidValue;
+  if (variant != AQ_K3 && (hdp != 64 || DK != D || NQKV != 3 * D || NO != D))
+    return (int)cudaErrorInvalidValue;
+  if (y32 != nullptr && NO != D) return (int)cudaErrorInvalidValue;
   const bool recip = variant == AQ_VAR, mxu = variant == AQ_ATTR_MXU, vpu = variant == AQ_ATTR_VPU;
   cudaError_t e;
   if (mxu) {
@@ -824,13 +927,13 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
                              static_cast<float*>(xs), M, D, st);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
     if (e != cudaSuccess) return (int)e;
     e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
                                                     static_cast<int8_t*>(xq),
                                                     static_cast<float*>(xs), nullptr, M, D, st)
               : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                                  static_cast<float*>(xs), M, D, st);
+                                  static_cast<float*>(xs), M, DK, st);
   }
   if (e != cudaSuccess) return (int)e;
   if (vpu) {
@@ -852,10 +955,10 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
     e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                                 static_cast<const int8_t*>(wqkv_t),
                                 static_cast<const float*>(sqkv), static_cast<const float*>(bqkv),
-                                nullptr, qkv, M, 3 * D, D, st);
+                                nullptr, qkv, M, NQKV, DK, st);
     if (e != cudaSuccess) return (int)e;
-    e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                               heads, causal, st, 3 * D, 1.0f / sqrtf(64.0f),
+    e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S,
+                               heads, hdp, causal, st, NQKV, scale,
                                variant == AQ_K3 ? 0 : mxu ? NORM_OFF : 2);
   }
   if (e != cudaSuccess) return (int)e;
@@ -868,7 +971,7 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
                                             static_cast<float*>(ascale), nullptr, M, D, st);
   else
     e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
-                          static_cast<float*>(ascale), M, D, st);
+                          static_cast<float*>(ascale), M, DA, st);
   if (e != cudaSuccess) return (int)e;
   if (vpu)
     e = launch_bcast_rows<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
@@ -885,7 +988,7 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
                                       static_cast<const float*>(ascale),
                                       static_cast<const int8_t*>(wo_t),
                                       static_cast<const float*>(so), static_cast<const float*>(bo),
-                                      x, out, M, D, D, st);
+                                      x, out, M, NO, DA, st, nullptr, 0, D);
   return (int)e;
 }
 
@@ -899,8 +1002,8 @@ enum MlpQVariant {
 // in f32.  x, out [M, D] bf16; w1_t [F, D], w2_t [D, F] int8 (transposed);
 // s1, b1 [F], s2, b2, ln_s, ln_b [D] f32.  Scratch: xn [M, D] bf16, xq
 // [M, D] int8, xs [M] f32, h [M, F] f32, hq [M, F] int8, hs [M] f32.
-// act_kind 0 = quick_gelu, 1 = erf gelu (A&S).  D % 128 == 0, F % 128 == 0
-// (the s8 wgmma GEMM's N and K), F <= 4096.
+// act_kind 0 = quick_gelu, 1 = erf gelu (A&S); the model's own widths for
+// the variants, the padded layout's below for K4.
 // MQ_BF16H: h [M, F] bf16 holds bf16(deq + b1) (EQ_BIAS) and the hidden's
 // quantize pass applies quick_gelu (g, if not null, [M, F] f32 receives
 // it).  MQ_VAR / MQ_VAR_BF16_GELU: the reciprocal quantizer on x and h,
@@ -918,13 +1021,23 @@ enum MlpQVariant {
 // that chunk's row scales (EQ_RESID_BIAS_CHUNK).  resid32, if not null, is
 // the f32 residual [M, D] the down product adds in place of x (the layer's
 // y; x then is bf16(y), LayerNorm's input); k == 1 with it.
+// K4 runs any D and F on the padded operand layout of
+// ops/fused_block.py::mlp_plan: F here is the padded hidden width, each of
+// the k chunks of the model's F / k hidden columns rounded up to 128 with
+// zero columns of w1_t (rows of [F, DK]), s1 and b1 (gelu(0) = 0: the same
+// amax, the same codes) and zero columns of w2_t [D rounded up to 128, F];
+// xn, xq [M, DK] (D rounded up to 64, zeros past D); s2, b2 zero past D.
+// The other variants take the model's own widths (D, F % 128 == 0).
 int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                      const void* s1, const void* b1, const void* w2_t, const void* s2,
                      const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                      void* hs, void* g, int M, int D, int F, int act_kind, int variant,
                      void* stream, int k = 1, const float* resid32 = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int DK = round_up(D, 64), NO = round_up(D, SBN);
   if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
+  if ((variant != MQ_K4 || resid32 != nullptr) && (DK != D || NO != D))
+    return (int)cudaErrorInvalidValue;
   if (k < 1 || F % k || (F / k) % SBK) return (int)cudaErrorInvalidValue;
   if ((k > 1 || resid32 != nullptr) && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   if (k > 1 && resid32 != nullptr) return (int)cudaErrorInvalidValue;
@@ -940,13 +1053,13 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
                              static_cast<float*>(xs), M, D, st);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                  static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
     if (e != cudaSuccess) return (int)e;
     e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
                                                     static_cast<int8_t*>(xq),
                                                     static_cast<float*>(xs), nullptr, M, D, st)
               : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                                  static_cast<float*>(xs), M, D, st);
+                                  static_cast<float*>(xs), M, DK, st);
   }
   if (e != cudaSuccess) return (int)e;
   switch (variant) {
@@ -963,8 +1076,8 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
       e = launch_gemm_s8<EQ_BIAS_QGELU_BF16>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
       break;
     default:
-      e = act_kind == 0 ? launch_gemm_s8<EQ_BIAS_QGELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st)
-                        : launch_gemm_s8<EQ_BIAS_GELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+      e = act_kind == 0 ? launch_gemm_s8<EQ_BIAS_QGELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st)
+                        : launch_gemm_s8<EQ_BIAS_GELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
   }
   if (e != cudaSuccess) return (int)e;
   if (mxu)
@@ -987,12 +1100,12 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (vpu)
     e = launch_bcast_rows<EQ_RESID_BIAS>(ihq, fhs, F, fb2, x, out, M, D, st);
   else if (k > 1)
-    e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, D, F, st, nullptr,
-                                            F / k / SBK);
+    e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr,
+                                            F / k / SBK, D);
   else if (resid32 != nullptr)
     e = launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, resid32, out, M, D, F, st);
   else
-    e = launch_gemm_s8<EQ_RESID_BIAS>(ihq, fhs, w2, fs2, fb2, x, out, M, D, F, st);
+    e = launch_gemm_s8<EQ_RESID_BIAS>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr, 0, D);
   return (int)e;
 }
 
@@ -1000,14 +1113,16 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
 
 extern "C" {
 
-// K3 (attention_block_q_impl's AQ_K3).
+// K3 (attention_block_q_impl's AQ_K3) on the padded layout at head dim
+// hdp (64 ceil(hd / 64)) with the true head dim's scale hd^-0.5.
 int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                           const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                           const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                           void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
-                          int causal, void* stream) {
+                          int hdp, int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_K3, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal, AQ_K3,
+                                stream);
 }
 
 // KB (a) 1, attention_block_qq: K3's arguments, qkv [B*S, 3D] f32, causal 0.
@@ -1017,7 +1132,8 @@ int dvl_attention_block_qq(const void* x, const void* ln_s, const void* ln_b, co
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
                            int causal, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_QQ, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal, AQ_QQ,
+                                stream);
 }
 
 // KB (a) 4, attn_q_kernel_var: K3's arguments, causal 0.
@@ -1028,7 +1144,8 @@ int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b,
                               void* ascale, int B, int S, int D, int heads, int causal,
                               void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_VAR, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                AQ_VAR, stream);
 }
 
 // benchmarks/q_ilp4.py's head-pair packed kernel (make_kernel): K3's
@@ -1040,7 +1157,8 @@ int dvl_attention_block_q_postdiv(const void* x, const void* ln_s, const void* l
                                   void* ascale, int B, int S, int D, int heads, int causal,
                                   void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_POSTDIV, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                AQ_POSTDIV, stream);
 }
 
 // benchmarks/q_attribution.py's attn_kernel, modes "mxu" and "vpu": K3's
@@ -1052,7 +1170,8 @@ int dvl_attention_block_q_attr_mxu(const void* x, const void* ln_s, const void* 
                                    void* ascale, int B, int S, int D, int heads, int causal,
                                    void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_ATTR_MXU, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                AQ_ATTR_MXU, stream);
 }
 
 int dvl_attention_block_q_attr_vpu(const void* x, const void* ln_s, const void* ln_b,
@@ -1062,7 +1181,8 @@ int dvl_attention_block_q_attr_vpu(const void* x, const void* ln_s, const void* 
                                    void* ascale, int B, int S, int D, int heads, int causal,
                                    void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, causal, AQ_ATTR_VPU, stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                AQ_ATTR_VPU, stream);
 }
 
 // KB (a) 1's int8 core alone: qkv [B*S, 3D] f32 -> out [B*S, D] bf16;
@@ -1078,7 +1198,7 @@ int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out,
 
 // K4 (mlp_block_q_impl's MQ_K4), its hidden in k F-chunks (k = 1: the
 // whole row; k > 1: mlp_block_q(fb=F / k), KB (a) 7's make_fsplit(k); hs
-// [M, k], F / k % 128 == 0).
+// [M, k]); F is the padded hidden width, k chunks of fb rounded up to 128.
 int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                     const void* s1, const void* b1, const void* w2_t, const void* s2,
                     const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
@@ -1102,8 +1222,8 @@ int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const
                       void* m_xq, void* m_xs, void* h, void* hq, void* hs, int B, int S, int D,
                       int F, int heads, void* stream) {
   int e = attention_block_q_impl(x, ln1_s, ln1_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, yb, a_xn,
-                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, 0, AQ_K3,
-                                 stream, y32);
+                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, 0,
+                                 AQ_K3, stream, y32);
   if (e != 0) return e;
   return mlp_block_q_impl(yb, ln2_s, ln2_b, w1_t, s1, b1, w2_t, s2, b2, out, m_xn, m_xq, m_xs, h,
                           hq, hs, nullptr, B * S, D, F, 0, MQ_K4, stream, 1,
@@ -1147,7 +1267,7 @@ int dvl_attention_block_q_heads(const void* x, const void* ln_s, const void* ln_
                               static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
                               static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, dg, g,
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, g, 64,
                              causal, st, ld, 1.0f / sqrtf(64.0f), 0);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_row_amax(static_cast<const bf16*>(attn), static_cast<float*>(amax), M, dg, st);

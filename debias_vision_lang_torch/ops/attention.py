@@ -45,6 +45,7 @@ from typing import Dict, Optional
 import torch
 
 from ..models.layers import attention_bshd
+from ..utils.observability import check_nans
 
 LAUNCHES: Dict[str, int] = {"attention_pallas": 0, "attention_pallas_long": 0}
 HEAD_DIM = 64   # the short routes' head dim, and the long route's dim tile
@@ -184,6 +185,7 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"dvl_attention ({route} route): CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES["attention_pallas_long" if route == "long" else "attention_pallas"] += 1
+    check_nans("dvl_attention", out)
     return out if hdp == hd else out[..., :hd].contiguous()
 
 

@@ -19,8 +19,19 @@ reference math too.
 ``LAUNCHES`` counts kernel launches (CPU twins never count), so a run can
 show that its main path went through the kernels; ``CORE_ROUTES`` counts
 the attention block's launches by the route its core took (``core_route``:
-the register core up to 320 keys, the two-pass long route past them, both
-in ``csrc/attention_wgmma.cuh``).
+the register core up to 320 keys at head dims up to 128, the two-pass long
+route otherwise, both in ``csrc/attention_wgmma.cuh``).
+
+The kernels take any D, head dim and F (as the TPU kernels do): the
+wrappers lay the weights out on a padded operand layout (``attn_plan`` /
+``mlp_plan``: each head's q, k, v zero-padded to a multiple of 64 lanes,
+the GEMMs' N to 128 and K to 64, the hidden's F-chunks to 128; zero
+weights, biases and scales, so every padded lane stays 0 and the scores
+keep the true head dim's scale), kept per parameter version as the K-major
+copies are.  At the registry archs' widths (head dim 64, D % 128 == 0) the
+plan is the identity and the kernels read the plain copies.
+``attention_block_padded`` / ``mlp_block_padded`` run the twins on that
+layout (the kernels' data flow on the CPU).
 
 ``fused_resblock_diff`` / ``fused_transformer_diff`` make the blocks
 differentiable (as ``_fused_resblock_diff``, a custom VJP in the JAX
@@ -56,12 +67,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..models.layers import causal_mask, ln_f32, quick_gelu
+from ..utils.observability import check_nans
 
 LAUNCHES: Dict[str, int] = {"attention_block": 0,
                             "attention_block_causal": 0,
@@ -78,8 +90,9 @@ MAX_TP_SLOTS = 8  # partials one reduce launch sums
 LOG2E = math.log2(math.e)
 ACT_KINDS = ("quick_gelu", "gelu")
 MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
+MAX_SHORT_HDP = 128  # padded head dims the register core holds (hdp 64 and 128)
 CORE_ROUTES: Dict[str, int] = {"short": 0, "long": 0}
-GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: N, K multiples
+GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: the layout's N, K edges
 
 
 def reset_launches() -> None:
@@ -88,14 +101,135 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def core_route(s: int) -> str:
-    """The route the CUDA attention core of K1 and K3 takes at ``s`` keys:
-    "short" (whole score rows in registers) for 1 <= s <= MAX_SEQ, "long"
-    (two passes over 64-key tiles) past it -- the choice
-    ``launch_attention_wgmma`` makes from S alone."""
+def core_route(s: int, hd: int = 64) -> str:
+    """The route the CUDA attention core of K1 and K3 takes at ``s`` keys
+    and head dim ``hd``: "short" (whole score rows in registers) for 1 <= s
+    <= MAX_SEQ at a padded head dim (``attn_plan``'s hdp) of at most
+    MAX_SHORT_HDP, "long" (two passes over 64-key tiles) otherwise -- the
+    choice ``launch_attention_wgmma`` makes."""
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
-    return "short" if s <= MAX_SEQ else "long"
+    return "short" if s <= MAX_SEQ and round_up(hd, 64) <= MAX_SHORT_HDP else "long"
+
+
+# ---------------------------------------------------------------------------
+# Operand plans: the padded layout the CUDA kernels read
+# ---------------------------------------------------------------------------
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class AttnPlan(NamedTuple):
+    """The attention block's padded operand layout (csrc/fused_block.cu's
+    ``attention_block_impl``, K3 alike): each head's q, k and v zero-padded
+    from ``hd`` to ``hdp`` = 64 ceil(hd / 64) lanes (the core's 64-dim
+    chunks; the scores keep the true hd^-0.5), LayerNorm's output to ``dk``
+    = D rounded up to the GEMM's K step, the qkv row to ``nqkv`` = 3 heads
+    hdp rounded up to its 128-column tile, the out-projection's N to ``no``
+    = D rounded up to 128 (the store masks the columns past D).  Zero
+    weights, biases and scales in the padding keep every padded lane 0: the
+    same scores, row amaxes and int8 codes.  ``identity``: the layout is the
+    model's own (head dim 64, D % 128 == 0), and the kernels read the
+    parameters' plain copies."""
+    d: int
+    heads: int
+    hd: int
+    hdp: int
+    dk: int
+    da: int
+    nqkv: int
+    no: int
+
+    @property
+    def identity(self) -> bool:
+        return (self.hd == self.hdp and self.dk == self.d and self.nqkv == 3 * self.d
+                and self.no == self.d)
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.hd)
+
+    def qkv_columns(self) -> torch.Tensor:
+        """Where each of the 3 D q | k | v columns lands in the padded row."""
+        i, h, l = torch.meshgrid(torch.arange(3), torch.arange(self.heads),
+                                 torch.arange(self.hd), indexing="ij")
+        return (i * self.da + h * self.hdp + l).reshape(-1)
+
+    def head_lanes(self) -> torch.Tensor:
+        """Where each of the D attention columns lands in the padded row."""
+        return self.qkv_columns()[:self.d]
+
+    def crop_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., da] padded attention rows -> [..., D]."""
+        return t[..., self.head_lanes().to(t.device)]
+
+
+def attn_plan(d: int, heads: int) -> AttnPlan:
+    if heads < 1 or d < 1 or d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    hd = d // heads
+    hdp = round_up(hd, 64)
+    da = heads * hdp
+    return AttnPlan(d, heads, hd, hdp, round_up(d, GEMM_K), da, round_up(3 * da, GEMM_N),
+                    round_up(d, GEMM_N))
+
+
+class MlpPlan(NamedTuple):
+    """The MLP block's padded operand layout (``dvl_mlp_block``, K4's
+    ``mlp_block_q_impl``): the hidden's F columns in k chunks of ``fb``
+    (k = 1 but for K4's F-split), each zero-padded to ``fbp`` = fb rounded
+    up to 128 (the GEMMs' N tile and the s8 GEMM's K step; gelu(0) = 0, so
+    the padded lanes change no amax and no code), ``fp`` = k fbp in all;
+    LayerNorm's output to ``dk``, the down product's N to ``no``."""
+    d: int
+    f: int
+    fb: int
+    k: int
+    fbp: int
+    fp: int
+    dk: int
+    no: int
+
+    @property
+    def identity(self) -> bool:
+        return self.fbp == self.fb and self.dk == self.d and self.no == self.d
+
+    def hidden_columns(self) -> torch.Tensor:
+        """Where each of the F hidden columns lands in the padded row."""
+        j = torch.arange(self.f)
+        return (j // self.fb) * self.fbp + j % self.fb
+
+    def crop_hidden(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., fp] padded hidden rows -> [..., F]."""
+        return t[..., self.hidden_columns().to(t.device)]
+
+
+def mlp_plan(d: int, f: int, fb: Optional[int] = None) -> MlpPlan:
+    fb = f if fb is None else fb
+    if d < 1 or fb < 1 or f % fb:
+        raise ValueError(f"mlp dim {f} not divisible by fb={fb}")
+    fbp = round_up(fb, GEMM_N)
+    return MlpPlan(d, f, fb, f // fb, fbp, (f // fb) * fbp, round_up(d, GEMM_K),
+                   round_up(d, GEMM_N))
+
+
+def place(t: torch.Tensor, shape, rows=None, cols=None) -> torch.Tensor:
+    """``t`` scattered into zeros of ``shape``: its row i at ``rows[i]`` (at
+    i when None), its column j at ``cols[j]`` (at j when None)."""
+    out = t.new_zeros(shape)
+    if t.dim() == 1:
+        out[slice(0, t.shape[0]) if rows is None else rows.to(t.device)] = t
+        return out
+    if cols is not None:
+        wide = t.new_zeros(t.shape[0], shape[1])
+        wide[:, cols.to(t.device)] = t
+        t = wide
+    elif t.shape[1] != shape[1]:
+        t = torch.cat([t, t.new_zeros(t.shape[0], shape[1] - t.shape[1])], dim=1)
+    out[slice(0, t.shape[0]) if rows is None else rows.to(t.device)] = t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +263,21 @@ def _dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.to(a.dtype).float())
 
 
-def attention_core(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+def attention_core(qkv: torch.Tensor, heads: int, causal: bool,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """The per-head attention of the TPU kernels: qkv [B, S, 3D] (q | k | v)
     -> [B, S, D] in qkv's dtype.  f32 scores and softmax, probabilities
-    normalised and rounded before PV, per-head outputs rounded."""
+    normalised and rounded before PV, per-head outputs rounded.  ``scale``
+    multiplies the scores (1 / sqrt(D / heads) when None; the padded
+    layout's core keeps the true head dim's)."""
     b, s, d3 = qkv.shape
     d = d3 // 3
     hd = d // heads
     dt = qkv.dtype
     q, k, v = (t.reshape(b, s, heads, hd).float()
                for t in qkv.split(d, dim=-1))
-    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         sc = sc + causal_mask(s, qkv.device)
     # the row max is stop-gradiented, as in _kernel_math_resblock: it changes
@@ -164,6 +302,63 @@ def mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2, *,
     xn = ln_f32(x, ln_s, ln_b)
     h = _act(_dot_f32(xn, w1) + b1.float(), act_kind).to(x.dtype)
     return (x.float() + b2.float() + _dot_f32(h, w2)).to(x.dtype)
+
+
+def pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` [..., c] with zero columns appended up to n."""
+    return t if t.shape[-1] == n else torch.cat(
+        [t, t.new_zeros(*t.shape[:-1], n - t.shape[-1])], dim=-1)
+
+
+def attention_block_padded(x, ln_s, ln_b, wqkv_p, bqkv_p, wo_p, bo_p, *, plan: AttnPlan,
+                           causal: bool = False) -> torch.Tensor:
+    """K1's function as its kernel computes it on the padded operand layout
+    (``attn_plan``; the operands from ``attn_operands``: K-major wqkv_p
+    [nqkv, dk] and wo_p [no, da], bqkv_p [nqkv], bo_p [no]): LayerNorm over
+    the true D with zero lanes to dk, the core over hdp lanes a head at the
+    true head dim's scale, the out-projection's first D columns.  Equals
+    ``attention_block_plain`` on the unpadded operands (the padded lanes
+    are zeros throughout) but for the order of f32 sums."""
+    dt = x.dtype
+    xn = pad_cols(ln_f32(x, ln_s, ln_b), plan.dk)
+    qkv = (_dot_f32(xn, wqkv_p.t()) + bqkv_p.float()).to(dt)[..., :3 * plan.da]
+    o = attention_core(qkv, plan.heads, causal, scale=plan.scale)
+    proj = (_dot_f32(o, wo_p.t()) + bo_p.float())[..., :plan.d]
+    return (x.float() + proj).to(dt)
+
+
+def mlp_block_padded(x, ln_s, ln_b, w1_p, b1_p, w2_p, b2_p, *, plan: MlpPlan,
+                     act_kind: str = "quick_gelu") -> torch.Tensor:
+    """K2's function on the padded operand layout (``mlp_plan``; the
+    operands from ``mlp_operands``: K-major w1_p [fp, dk] and w2_p [no, fp],
+    b1_p [fp], b2_p [no])."""
+    d = plan.d
+    xn = pad_cols(ln_f32(x, ln_s, ln_b), plan.dk)
+    h = _act(_dot_f32(xn, w1_p.t()) + b1_p.float(), act_kind).to(x.dtype)
+    return (x.float() + b2_p[:d].float() + _dot_f32(h, w2_p.t())[..., :d]).to(x.dtype)
+
+
+def attn_operands(wqkv, bqkv, wo, bo, plan: AttnPlan):
+    """K1's kernel operands on ``plan``'s layout: wqkv [D, 3D] and wo [D,
+    D] K-major in bf16 with each head's q, k, v columns and wo rows at hdp
+    lanes, zeros elsewhere; the biases f32 alike."""
+    bf = torch.bfloat16
+    cols = plan.qkv_columns()
+    return (place(wqkv.detach().to(bf).t(), (plan.nqkv, plan.dk), rows=cols),
+            place(bqkv.detach().float(), (plan.nqkv,), rows=cols),
+            place(wo.detach().to(bf).t(), (plan.no, plan.da), cols=plan.head_lanes()),
+            place(bo.detach().float(), (plan.no,)))
+
+
+def mlp_operands(w1, b1, w2, b2, plan: MlpPlan):
+    """K2's kernel operands on ``plan``'s layout: w1 [D, F] and w2 [F, D]
+    K-major in bf16 with the hidden's columns at their padded lanes."""
+    bf = torch.bfloat16
+    cols = plan.hidden_columns()
+    return (place(w1.detach().to(bf).t(), (plan.fp, plan.dk), rows=cols),
+            place(b1.detach().float(), (plan.fp,), rows=cols),
+            place(w2.detach().to(bf).t(), (plan.no, plan.fp), cols=cols),
+            place(b2.detach().float(), (plan.no,)))
 
 
 def _head_qkv(qkv: torch.Tensor, heads: int, h: int):
@@ -304,7 +499,7 @@ def _lib():
 
         lib = load("fused_block")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvl_attention_block.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.dvl_attention_block.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.dvl_attention_block.restype = i
         lib.dvl_attention_block_opt.argtypes = [p] * 11 + [i] * 4 + [p]
         lib.dvl_attention_block_opt.restype = i
@@ -326,15 +521,19 @@ def build() -> None:
     _lib()
 
 
-def _operand(t: torch.Tensor, dtype, shape, name: str,
-             device) -> torch.Tensor:
-    """Cast/copy a parameter to the kernel's dtype, contiguous and 16-byte
-    aligned; shape and device are checked, never repaired."""
+def _check_operand(t: torch.Tensor, shape, name: str, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
+
+
+def _operand(t: torch.Tensor, dtype, shape, name: str,
+             device) -> torch.Tensor:
+    """Cast/copy a parameter to the kernel's dtype, contiguous and 16-byte
+    aligned; shape and device are checked, never repaired."""
+    _check_operand(t, shape, name, device)
     t = t.to(dtype).contiguous()
     if t.data_ptr() % 16:
         t = t.clone()
@@ -361,6 +560,55 @@ def _kmajor(w: torch.Tensor, shape, name: str, device, n_pad=None) -> torch.Tens
     return t
 
 
+# The padded operand layouts' copies (``attn_plan`` / ``mlp_plan``), one set
+# per block's first parameter and tag (the plan), rebuilt whenever the
+# storage or version counter of any of the set's parameters moves.
+_PLANNED = WeakIdKeyDictionary()
+
+
+def planned(ts, tag, build):
+    """``build()``'s tensors for the parameters ``ts`` under ``tag``, kept
+    per version of every one of them."""
+    key = tuple((t.data_ptr(), t._version) for t in ts)
+    cache = _PLANNED.get(ts[0])
+    if cache is None:
+        cache = _PLANNED[ts[0]] = {}
+    hit = cache.get(tag)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    out = tuple(t.contiguous() for t in build())
+    cache[tag] = (key, out)
+    return out
+
+
+def _attn_kernel_ops(wqkv, bqkv, wo, bo, plan: AttnPlan, device):
+    """K1's weights and biases as the kernel reads them: the plain K-major
+    copies where the plan is the identity, else ``attn_operands``'s."""
+    d, f32 = plan.d, torch.float32
+    if plan.identity:
+        return (_kmajor(wqkv, (d, 3 * d), "wqkv", device), _operand(bqkv, f32, (3 * d,), "bqkv", device),
+                _kmajor(wo, (d, d), "wo", device), _operand(bo, f32, (d,), "bo", device))
+    for t, shape, name in ((wqkv, (d, 3 * d), "wqkv"), (bqkv, (3 * d,), "bqkv"),
+                           (wo, (d, d), "wo"), (bo, (d,), "bo")):
+        _check_operand(t, shape, name, device)
+    return planned((wqkv, bqkv, wo, bo), ("attn", plan),
+                   lambda: attn_operands(wqkv, bqkv, wo, bo, plan))
+
+
+def _mlp_kernel_ops(w1, b1, w2, b2, plan: MlpPlan, device):
+    """K2's weights and biases as the kernel reads them (``mlp_operands``
+    off the identity)."""
+    d, f, f32 = plan.d, plan.f, torch.float32
+    if plan.identity:
+        return (_kmajor(w1, (d, f), "w1", device), _operand(b1, f32, (f,), "b1", device),
+                _kmajor(w2, (f, d), "w2", device), _operand(b2, f32, (d,), "b2", device))
+    for t, shape, name in ((w1, (d, f), "w1"), (b1, (f,), "b1"), (w2, (f, d), "w2"),
+                           (b2, (d,), "b2")):
+        _check_operand(t, shape, name, device)
+    return planned((w1, b1, w2, b2), ("mlp", plan),
+                   lambda: mlp_operands(w1, b1, w2, b2, plan))
+
+
 def padded_n(n: int) -> int:
     """N rounded up to the CUDA GEMM's 128-column tile: a head group's q | k
     | v slice is 192 g columns (576 at g = 3), zero-padded to this."""
@@ -373,6 +621,8 @@ def _padded_bias(b: torch.Tensor, n: int, n_pad: int, name: str, device) -> torc
 
 
 def _check_gemm(n: int, k: int, what: str) -> None:
+    """The split entries' (``parallel/tensor.py``) widths: their kernels
+    read the slices unpadded."""
     if n % GEMM_N or k % GEMM_K:
         raise ValueError(f"the CUDA GEMM takes N % {GEMM_N} == 0 and K % {GEMM_K} "
                          f"== 0, got N={n} K={k} ({what})")
@@ -399,29 +649,27 @@ def _stream_ptr(device) -> ctypes.c_void_p:
 
 
 def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal, opt=False):
-    """K1's launch, or with ``opt`` KB (a) 5's (``dvl_attention_block_opt``:
-    the same arguments, q pre-scaled, no causal mask)."""
+    """K1's launch on ``attn_plan``'s layout (any D and head dim), or with
+    ``opt`` KB (a) 5's (``dvl_attention_block_opt``: the same arguments, q
+    pre-scaled, no causal mask; the model's own widths only)."""
     _check_x(x)
     b, s, d = x.shape
-    if d % heads or d // heads != 64:
-        raise ValueError(f"the CUDA attention core takes head dim 64, got "
-                         f"D={d} heads={heads}")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
-    _check_gemm(3 * d, d, "qkv projection")
-    _check_gemm(d, d, "out projection")
+    plan = attn_plan(d, heads)
+    if opt and not plan.identity:
+        raise ValueError(f"KB (a) 5's CUDA entry takes head dim 64 and D % {GEMM_N} == 0, "
+                         f"got D={d} heads={heads}")
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           _kmajor(wqkv, (d, 3 * d), "wqkv", dev),
-           _operand(bqkv, f32, (3 * d,), "bqkv", dev),
-           _kmajor(wo, (d, d), "wo", dev),
-           _operand(bo, f32, (d,), "bo", dev)]
+           *_attn_kernel_ops(wqkv, bqkv, wo, bo, plan, dev)]
+    m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((b * s, d), dtype=bf, device=dev)
-    qkv = torch.empty((b * s, 3 * d), dtype=bf, device=dev)
-    attn = torch.empty((b * s, d), dtype=bf, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    qkv = torch.empty((m, plan.nqkv), dtype=bf, device=dev)
+    attn = torch.empty((m, plan.da), dtype=bf, device=dev)
     ptrs = (x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
             xn.data_ptr(), qkv.data_ptr(), attn.data_ptr())
     if opt:
@@ -429,36 +677,36 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal, opt=
         _raise_on(err, "dvl_attention_block_opt")
         KB_LAUNCHES["attention_block_opt"] += 1
     else:
-        err = _lib().dvl_attention_block(*ptrs, b, s, d, heads, int(causal), _stream_ptr(dev))
+        err = _lib().dvl_attention_block(*ptrs, b, s, d, heads, plan.hdp, int(causal),
+                                         plan.scale, _stream_ptr(dev))
         _raise_on(err, "dvl_attention_block")
         LAUNCHES["attention_block_causal" if causal else "attention_block"] += 1
-    CORE_ROUTES[core_route(s)] += 1
+    CORE_ROUTES[core_route(s, plan.hd)] += 1
+    check_nans("dvl_attention_block_opt" if opt else "dvl_attention_block", out)
     return out
 
 
 def _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind):
+    """K2's launch on ``mlp_plan``'s layout (any D and F)."""
     _check_x(x)
     b, s, d = x.shape
-    f = w1.shape[-1]
-    _check_gemm(f, d, "mlp up projection")
-    _check_gemm(d, f, "mlp down projection")
+    plan = mlp_plan(d, w1.shape[-1])
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           _kmajor(w1, (d, f), "w1", dev),
-           _operand(b1, f32, (f,), "b1", dev),
-           _kmajor(w2, (f, d), "w2", dev),
-           _operand(b2, f32, (d,), "b2", dev)]
+           *_mlp_kernel_ops(w1, b1, w2, b2, plan, dev)]
+    m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((b * s, d), dtype=bf, device=dev)
-    hidden = torch.empty((b * s, f), dtype=bf, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    hidden = torch.empty((m, plan.fp), dtype=bf, device=dev)
     err = _lib().dvl_mlp_block(
         x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
-        xn.data_ptr(), hidden.data_ptr(), b * s, d, f,
+        xn.data_ptr(), hidden.data_ptr(), m, d, plan.fp,
         ACT_KINDS.index(act_kind), _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block")
     LAUNCHES["mlp_block"] += 1
+    check_nans("dvl_mlp_block", out)
     return out
 
 
@@ -507,6 +755,7 @@ def _attention_heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, g, causal, prescale
     _raise_on(err, "dvl_attention_block_heads")
     TP_LAUNCHES[counter] += 1
     CORE_ROUTES[core_route(s)] += 1
+    check_nans("dvl_attention_block_heads", part if out is None else out)
     return part if out is None else out
 
 
@@ -559,6 +808,7 @@ def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind):
         hidden.data_ptr(), m, d, fj, ACT_KINDS.index(act_kind), _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_cols")
     TP_LAUNCHES["mlp_block_cols"] += 1
+    check_nans("dvl_mlp_block_cols", part)
     return part
 
 
@@ -581,6 +831,7 @@ def _tp_reduce_cuda(parts, bias, resid, bias_first):
                                int(bias_first), _stream_ptr(dev))
     _raise_on(err, "dvl_tp_reduce")
     TP_LAUNCHES["tp_reduce"] += 1
+    check_nans("dvl_tp_reduce", out)
     return out
 
 

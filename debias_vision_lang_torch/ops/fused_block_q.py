@@ -34,7 +34,11 @@ the twin's.
 kernel's F-split: with ``fb`` < F each fb-wide chunk of a hidden row is
 quantized with its own scale and the chunks' dequantized down products are
 summed in f32 (``KB_LAUNCHES["mlp_block_q_fsplit"]`` counts the card's
-launches; on the card fb is a multiple of 128, the s8 GEMM's K step).
+launches; any divisor fb of F: the card pads each chunk to a multiple of
+128, ``fused_block.mlp_plan``).  K3 and K4 take any D, head dim and F on
+the card, on the padded operand layouts of ``fused_block.attn_plan`` /
+``mlp_plan`` (``q_attn_operands`` / ``q_mlp_operands``; the identity at the
+registry archs' widths).
 
 The tensor-parallel shares (``parallel/tensor.py``; ``TP_LAUNCHES``): a
 slot's head group (``attention_block_q_heads``) or hidden columns
@@ -93,8 +97,10 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..models.layers import ln_f32, quick_gelu
-from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, _act, _check_x, _head_qkv, _operand,
-                          _raise_on, _route, _stream_ptr, attention_core, core_route, padded_n)
+from ..utils.observability import check_nans
+from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, AttnPlan, MlpPlan, _act, _check_x, _head_qkv,
+                          _operand, _raise_on, _route, _stream_ptr, attention_core, attn_plan,
+                          core_route, mlp_plan, pad_cols, padded_n, place, planned)
 
 LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
@@ -118,8 +124,7 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
                                "attention_block_q_attr_vpu": 0,
                                "mlp_block_q_attr_mxu": 0,
                                "mlp_block_q_attr_vpu": 0}
-MAX_ROW = 4096  # widest row the CUDA quantize pass holds in registers
-S8_GEMM_TILE = 128  # the s8 wgmma GEMM of all four products: N and K multiples of its tile
+S8_GEMM_TILE = 128  # the s8 wgmma GEMM's tile: the KB and split entries' N and K multiples
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core (csrc/attention_qq.cuh) holds in registers
 LOG2E = 1.4426950408889634
 ATTR_MODES = ("full", "mxu", "vpu")  # benchmarks/q_attribution.py's kernel bodies
@@ -226,6 +231,71 @@ def attention_block_q_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
         scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq,
                         "as": ascale})
     return (x.float() + proj).to(dt)
+
+
+def attention_block_q_padded(x, ln_s, ln_b, wqkv_p, wqkv_scale_p, bqkv_p, wo_p, wo_scale_p,
+                             bo_p, *, plan: AttnPlan, causal: bool = False,
+                             scratch: Optional[dict] = None) -> torch.Tensor:
+    """K3's function as its kernel computes it on the padded operand layout
+    (``q_attn_operands``: wqkv_p [nqkv, dk] and wo_p [no, da] int8 in the
+    kernel's [out, in] layout, their channel scales and biases f32): every
+    row quantized at its padded width (zero lanes: the same amax and codes),
+    the core over hdp lanes a head at the true head dim's scale.  The
+    scratch holds the padded rows."""
+    dt = x.dtype
+    xn = pad_cols(ln_f32(x, ln_s, ln_b).float(), plan.dk)
+    xq, xs = quant_rows(xn)
+    qkv = (dot_q(xq, xs, wqkv_p.t(), wqkv_scale_p) + bqkv_p.float()).to(dt)
+    attn = attention_core(qkv[..., :3 * plan.da], plan.heads, causal, scale=plan.scale).float()
+    aq, ascale = quant_rows(attn)
+    proj = (dot_q(aq, ascale, wo_p.t(), wo_scale_p) + bo_p.float())[..., :plan.d]
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "attn": attn, "aq": aq, "as": ascale})
+    return (x.float() + proj).to(dt)
+
+
+def mlp_block_q_padded(x, ln_s, ln_b, w1_p, w1_scale_p, b1_p, w2_p, w2_scale_p, b2_p, *,
+                       plan: MlpPlan, act_kind: str = "quick_gelu",
+                       scratch: Optional[dict] = None) -> torch.Tensor:
+    """K4's function on the padded operand layout (``q_mlp_operands``): the
+    hidden's k chunks each padded to fbp lanes (gelu(0) = 0), each chunk's
+    rows quantized at its padded width, the chunks' products summed in f32
+    in chunk order."""
+    d = plan.d
+    xn = pad_cols(ln_f32(x, ln_s, ln_b).float(), plan.dk)
+    xq, xs = quant_rows(xn)
+    h = _act(dot_q(xq, xs, w1_p.t(), w1_scale_p) + b1_p.float(), act_kind)
+    part, hq, hs = fsplit_down(h, w2_p.t(), w2_scale_p, plan.fbp)
+    if scratch is not None:
+        scratch.update({"xn": xn, "xq": xq, "xs": xs, "h": h.reshape(hq.shape), "hq": hq,
+                        "hs": hs})
+    return ((x.float() + b2_p[:d].float()) + part[..., :d]).to(x.dtype)
+
+
+def q_attn_operands(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, plan: AttnPlan):
+    """K3's kernel operands on ``plan``'s layout: the [out, in] int8 copies
+    (``QWeight.qt``) with each head's q, k, v rows and wo columns at hdp
+    lanes, zeros elsewhere; the channel scales and biases f32 alike (zero
+    scales in the padding)."""
+    cols, f32 = plan.qkv_columns(), torch.float32
+    return (place(wqkv_qt, (plan.nqkv, plan.dk), rows=cols),
+            place(wqkv_scale.reshape(-1).to(f32), (plan.nqkv,), rows=cols),
+            place(bqkv.detach().to(f32), (plan.nqkv,), rows=cols),
+            place(wo_qt, (plan.no, plan.da), cols=plan.head_lanes()),
+            place(wo_scale.reshape(-1).to(f32), (plan.no,)),
+            place(bo.detach().to(f32), (plan.no,)))
+
+
+def q_mlp_operands(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan: MlpPlan):
+    """K4's kernel operands on ``plan``'s layout: w1_qt's rows, w1's scales
+    and b1 at the hidden's padded lanes, w2_qt's columns alike."""
+    cols, f32 = plan.hidden_columns(), torch.float32
+    return (place(w1_qt, (plan.fp, plan.dk), rows=cols),
+            place(w1_scale.reshape(-1).to(f32), (plan.fp,), rows=cols),
+            place(b1.detach().to(f32), (plan.fp,), rows=cols),
+            place(w2_qt, (plan.no, plan.fp), cols=cols),
+            place(w2_scale.reshape(-1).to(f32), (plan.no,)),
+            place(b2.detach().to(f32), (plan.no,)))
 
 
 def check_fb(f: int, fb) -> int:
@@ -645,7 +715,7 @@ def _lib():
 
         lib = load("fused_block_q")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvl_attention_block_q.argtypes = [p] * 17 + [i] * 5 + [p]
+        lib.dvl_attention_block_q.argtypes = [p] * 17 + [i] * 6 + [ctypes.c_float, p]
         lib.dvl_attention_block_q.restype = i
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.dvl_mlp_block_q.restype = i
@@ -714,69 +784,104 @@ _ATTN_Q_COUNTERS = {"qq": "attention_block_qq", "var": "attention_block_q_var",
                     "attr_vpu": "attention_block_q_attr_vpu"}
 
 
-def _check_attention_q(s, d, heads):
+def _check_attention_kb(s, d, heads):
+    """The KB experiments' attention entries run at the model's own widths
+    only (head dim 64, D % 128 == 0: the identity layout)."""
     if d % heads or d // heads != 64:
-        raise ValueError(f"the CUDA attention core takes head dim 64, got "
-                         f"D={d} heads={heads}")
+        raise ValueError(f"the KB experiments' CUDA attention entries take head dim 64, "
+                         f"got D={d} heads={heads}")
     if d % S8_GEMM_TILE:
-        raise ValueError(f"the CUDA int8 attention block's s8 wgmma GEMM takes D "
-                         f"divisible by {S8_GEMM_TILE} (its N and K steps), got "
-                         f"D={d}")
+        raise ValueError(f"the KB experiments' CUDA attention entries take D divisible by "
+                         f"{S8_GEMM_TILE}, got D={d}")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
 
 
-def _check_mlp_q(d, f):
-    if d % S8_GEMM_TILE or f % S8_GEMM_TILE or max(d, f) > MAX_ROW:
-        raise ValueError(f"the CUDA int8 MLP's s8 wgmma GEMM takes D and F "
-                         f"divisible by {S8_GEMM_TILE} (its N and K steps) and "
-                         f"at most {MAX_ROW}, got D={d} F={f}")
+def _check_mlp_kb(d, f):
+    if d % S8_GEMM_TILE or f % S8_GEMM_TILE:
+        raise ValueError(f"the KB experiments' CUDA MLP entries take D and F divisible by "
+                         f"{S8_GEMM_TILE}, got D={d} F={f}")
+
+
+def _q_attn_kernel_ops(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, plan: AttnPlan, dev):
+    """K3's weights, scales and biases as the kernel reads them: the plain
+    ``[out, in]`` copies where the plan is the identity, else
+    ``q_attn_operands``'s."""
+    d, f32 = plan.d, torch.float32
+    ops = (*_qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev),
+           _operand(bqkv, f32, (3 * d,), "bqkv", dev),
+           *_qweight(wo_qt, wo_scale, d, d, "wo", dev), _operand(bo, f32, (d,), "bo", dev))
+    if plan.identity:
+        return ops
+    return planned((wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo), ("attn_q", plan),
+                   lambda: q_attn_operands(ops[0], ops[1], ops[2], ops[3], ops[4], ops[5], plan))
+
+
+def _q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan: MlpPlan, dev):
+    """K4's weights, scales and biases as the kernel reads them
+    (``q_mlp_operands`` off the identity)."""
+    d, f, f32 = plan.d, plan.f, torch.float32
+    ops = (*_qweight(w1_qt, w1_scale, d, f, "w1", dev), _operand(b1, f32, (f,), "b1", dev),
+           *_qweight(w2_qt, w2_scale, f, d, "w2", dev), _operand(b2, f32, (d,), "b2", dev))
+    if plan.identity:
+        return ops
+    return planned((w1_qt, w1_scale, b1, w2_qt, w2_scale, b2), ("mlp_q", plan),
+                   lambda: q_mlp_operands(*ops, plan))
 
 
 def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
                             heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
+    """K3's launch on ``attn_plan``'s layout (any D and head dim), or a KB
+    variant's (the model's own widths only)."""
     _check_x(x)
     b, s, d = x.shape
-    _check_attention_q(s, d, heads)
+    if kind != "k3":
+        _check_attention_kb(s, d, heads)
     if kind == "qq":
         _check_qq_core(s, d, heads)
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    plan = attn_plan(d, heads)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    wqkv = _qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev)
-    wo = _qweight(wo_qt, wo_scale, d, d, "wo", dev)
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           *wqkv, _operand(bqkv, f32, (3 * d,), "bqkv", dev),
-           *wo, _operand(bo, f32, (d,), "bo", dev)]
+           *_q_attn_kernel_ops(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, plan, dev)]
     m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
-    qkv = torch.empty((m, 3 * d), dtype=f32 if kind == "qq" else bf, device=dev)
-    attn = torch.empty((m, d), dtype=bf, device=dev)
-    aq = torch.empty((m, d), dtype=i8, device=dev)
+    qkv = torch.empty((m, plan.nqkv), dtype=f32 if kind == "qq" else bf, device=dev)
+    attn = torch.empty((m, plan.da), dtype=bf, device=dev)
+    aq = torch.empty((m, plan.da), dtype=i8, device=dev)
     ascale = torch.empty((m,), dtype=f32, device=dev)
     entry = _ATTN_Q_ENTRIES[kind]
-    err = getattr(_lib(), entry)(
-        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
-        xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), aq.data_ptr(), ascale.data_ptr(),
-        b, s, d, heads, int(causal), _stream_ptr(dev))
+    ptrs = (x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+            xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
+            attn.data_ptr(), aq.data_ptr(), ascale.data_ptr())
+    if kind == "k3":
+        err = _lib().dvl_attention_block_q(*ptrs, b, s, d, heads, plan.hdp, int(causal),
+                                           plan.scale, _stream_ptr(dev))
+    else:
+        err = getattr(_lib(), entry)(*ptrs, b, s, d, heads, int(causal), _stream_ptr(dev))
     _raise_on(err, entry)
     if kind == "k3":
         LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
-        CORE_ROUTES[core_route(s)] += 1
+        CORE_ROUTES[core_route(s, plan.hd)] += 1
     else:
         KB_LAUNCHES[_ATTN_Q_COUNTERS[kind]] += 1
         if kind == "qq":  # the block's launch runs the int8 core kernel once
             KB_LAUNCHES["attention_qq_core"] += 1
         if kind == "attr_mxu":  # K3's wgmma core, its softmax off
             CORE_ROUTES[core_route(s)] += 1
-    if scratch is not None:
-        scratch.update({"xn": xn.view(b, s, d).float(), "xq": xq.view(b, s, d),
-                        "xs": xs.view(b, s, 1), "attn": attn.view(b, s, d).float(),
-                        "aq": aq.view(b, s, d), "as": ascale.view(b, s, 1)})
+    check_nans(entry, out)
+    if scratch is not None:  # the model's widths: the padded lanes cropped
+        crop = plan.crop_heads
+        scratch.update({"xn": xn[:, :d].reshape(b, s, d).float(),
+                        "xq": xq[:, :d].reshape(b, s, d), "xs": xs.view(b, s, 1),
+                        "attn": crop(attn).reshape(b, s, d).float(),
+                        "aq": crop(aq).reshape(b, s, d), "as": ascale.view(b, s, 1)})
         if kind == "attr_mxu":  # no LayerNorm: x's codes are its static cast
             del scratch["xn"]
         if kind == "qq":
@@ -803,6 +908,7 @@ def _attention_qq_core_cuda(qkv32, heads, scratch):
         b, s, d, heads, _stream_ptr(dev))
     _raise_on(err, "dvl_attention_qq_core")
     KB_LAUNCHES["attention_qq_core"] += 1
+    check_nans("dvl_attention_qq_core", out)
     if scratch is not None:
         scratch.update({"p": p, "pq": pq, "psc": psc})
     return out
@@ -816,43 +922,40 @@ _MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3, "attr_mxu": 4
 
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
                       w1_qt, w2_qt, scratch, kind="k4", fb=None):
+    """K4's launch on ``mlp_plan``'s layout (any D, F and divisor fb of F),
+    or a KB variant's (the model's own widths only)."""
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
-    _check_mlp_q(d, f)
     fb = check_fb(f, fb)
-    if fb % S8_GEMM_TILE:
-        raise ValueError(f"the CUDA int8 MLP's F-split folds each chunk's product at the "
-                         f"s8 wgmma GEMM's K step of {S8_GEMM_TILE}: fb must be a multiple "
-                         f"of {S8_GEMM_TILE}, got fb={fb}")
-    k = f // fb
+    if kind != "k4":
+        _check_mlp_kb(d, f)
+    plan = mlp_plan(d, f, fb)
+    k = plan.k
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
            _operand(ln_b, f32, (d,), "ln_bias", dev),
-           *_qweight(w1_qt, w1_scale, d, f, "w1", dev),
-           _operand(b1, f32, (f,), "b1", dev),
-           *_qweight(w2_qt, w2_scale, f, d, "w2", dev),
-           _operand(b2, f32, (d,), "b2", dev)]
+           *_q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan, dev)]
     m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     # bf16h keeps the pre-activation in bf16; the quantize pass applies
     # quick_gelu (and, given the scratch, writes its f32 result to g);
     # attr_mxu's up GEMM writes the int8 hidden itself, and no h
     h = None if kind == "attr_mxu" else \
-        torch.empty((m, f), dtype=bf if kind == "bf16h" else f32, device=dev)
-    g = torch.empty((m, f), dtype=f32, device=dev) if kind == "bf16h" and scratch is not None \
-        else None
-    hq = torch.empty((m, f), dtype=i8, device=dev)
+        torch.empty((m, plan.fp), dtype=bf if kind == "bf16h" else f32, device=dev)
+    g = torch.empty((m, plan.fp), dtype=f32, device=dev) \
+        if kind == "bf16h" and scratch is not None else None
+    hq = torch.empty((m, plan.fp), dtype=i8, device=dev)
     hs = torch.empty((m, k), dtype=f32, device=dev)
     ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), xn.data_ptr(),
             xq.data_ptr(), xs.data_ptr(), 0 if h is None else h.data_ptr(), hq.data_ptr(),
             hs.data_ptr()]
     if kind == "k4":
-        err = _lib().dvl_mlp_block_q(*ptrs, m, d, f, ACT_KINDS.index(act_kind), k,
+        err = _lib().dvl_mlp_block_q(*ptrs, m, d, plan.fp, ACT_KINDS.index(act_kind), k,
                                      _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q")
         if k > 1:
@@ -864,13 +967,15 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
                                         _MLP_Q_MODES[kind], _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q_kb")
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
-    if scratch is not None:
+    check_nans("dvl_mlp_block_q", out)
+    if scratch is not None:  # the model's widths: the padded lanes cropped
         rows = (b, s, f) if k == 1 else (b, s, k, fb)
-        scratch.update({"xq": xq.view(b, s, d), "xs": xs.view(b, s, 1), "hq": hq.view(rows),
-                        "hs": hs.view(*rows[:-1], 1)})
+        crop = plan.crop_hidden
+        scratch.update({"xq": xq[:, :d].reshape(b, s, d), "xs": xs.view(b, s, 1),
+                        "hq": crop(hq).reshape(rows), "hs": hs.view(*rows[:-1], 1)})
         if kind != "attr_mxu":  # no LayerNorm and no f32 hidden there
-            scratch.update({"xn": xn.view(b, s, d).float(),
-                            "h": (h if g is None else g).view(rows)})
+            scratch.update({"xn": xn[:, :d].reshape(b, s, d).float(),
+                            "h": crop(h if g is None else g).reshape(rows)})
         if kind == "bf16h":
             scratch["u"] = h.view(b, s, f)
     return out
@@ -882,11 +987,11 @@ def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
     scales, biases)."""
     _check_x(x)
     b, s, d = x.shape
-    _check_attention_q(s, d, heads)
+    _check_attention_kb(s, d, heads)
     (ln1_s, ln1_b, wqkv_scale, bqkv, wo_scale, bo, wqkv_qt, wo_qt) = attn_ops
     (ln2_s, ln2_b, w1_scale, b1, w2_scale, b2, w1_qt, w2_qt) = mlp_ops
     f = w1_scale.numel()
-    _check_mlp_q(d, f)
+    _check_mlp_kb(d, f)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ops = [_operand(ln1_s, f32, (d,), "ln_1.scale", dev),
@@ -913,6 +1018,7 @@ def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
     _raise_on(err, "dvl_fused_layer_q")
     KB_LAUNCHES["fused_layer_q"] += 1
     CORE_ROUTES[core_route(s)] += 1
+    check_nans("dvl_fused_layer_q", out)
     if scratch is not None:  # the twin's keys: bf16 rows as f32, codes, scales
         scratch.update({k: v.view(b, s, -1).float() if v.dtype == bf else v.view(b, s, -1)
                         for k, v in t.items() if k not in ("qkv", "yb")})
@@ -967,6 +1073,7 @@ def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt)
     _raise_on(err, "dvl_attention_block_q_heads")
     TP_LAUNCHES["attention_block_q_heads_causal" if causal else "attention_block_q_heads"] += 1
     CORE_ROUTES[core_route(s)] += 1
+    check_nans("dvl_attention_block_q_heads", attn)
     return attn, amax
 
 
@@ -995,6 +1102,7 @@ def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
         _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_q_cols")
     TP_LAUNCHES["mlp_block_q_cols"] += 1
+    check_nans("dvl_mlp_block_q_cols", h)
     return h, amax
 
 
@@ -1049,6 +1157,7 @@ def _tp_reduce_q_cuda(parts, ascale, w_scale, bias, resid, bias_first):
         out.data_ptr(), m, n, int(bias_first), _stream_ptr(dev))
     _raise_on(err, "dvl_tp_reduce_q")
     TP_LAUNCHES["tp_reduce_q"] += 1
+    check_nans("dvl_tp_reduce_q", out)
     return out
 
 
@@ -1077,8 +1186,8 @@ def mlp_block_q(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
     """x: [B, S, D] -> x + mlp(LN(x)) with int8 up and down products.
     ``fb`` (JAX's F-tile): None or F is K4; a smaller divisor of F
     quantizes each fb-wide chunk of a hidden row on its own and sums the
-    chunks' products in f32 (``fsplit_down``; on the card a multiple of
-    128, counted in ``KB_LAUNCHES["mlp_block_q_fsplit"]``)."""
+    chunks' products in f32 (``fsplit_down``; on the card each chunk padded
+    to a multiple of 128, counted in ``KB_LAUNCHES["mlp_block_q_fsplit"]``)."""
     if act_kind not in ACT_KINDS:
         raise ValueError(f"act_kind must be one of {ACT_KINDS}, "
                          f"got {act_kind!r}")

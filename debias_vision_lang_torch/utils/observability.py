@@ -3,8 +3,9 @@ timer and a NaN-detection toggle.
 
 Counterpart of ``debias_vision_lang_tpu/utils/observability.py``: the JSONL
 ``MetricsLogger``, ``profile_trace`` on ``torch.profiler`` in place of
-``jax.profiler``, ``step_timer``, and ``enable_debug_nans`` on autograd's
-anomaly mode in place of ``jax_debug_nans``.
+``jax.profiler``, ``step_timer``, and ``enable_debug_nans``: a torch function
+mode and the kernel entries' output checks in place of ``jax_debug_nans``,
+with autograd's anomaly mode for the backward pass.
 """
 
 from __future__ import annotations
@@ -81,13 +82,73 @@ def step_timer(logger: Optional[MetricsLogger] = None, name: str = "step_time_s"
             logger.log({name: box["elapsed"]}, step=step)
 
 
+# enable_debug_nans's state: the function mode it entered (None when off)
+_DEBUG_NANS = {"mode": None}
+
+
+def debug_nans_on() -> bool:
+    return _DEBUG_NANS["mode"] is not None
+
+
+def _nan_in(t) -> bool:
+    import torch
+
+    return (isinstance(t, torch.Tensor) and t.dtype.is_floating_point
+            and t.device.type != "meta" and bool(torch.isnan(t).any()))
+
+
+def check_nans(what: str, *tensors) -> None:
+    """Under ``enable_debug_nans``, raise ``FloatingPointError`` naming
+    ``what`` if any of ``tensors`` holds a NaN; a kernel entry calls it on
+    its output (a ctypes launch is no torch function, so the function mode
+    does not see it).  Off, one dict lookup."""
+    if _DEBUG_NANS["mode"] is not None and any(map(_nan_in, tensors)):
+        raise FloatingPointError(f"NaN in the output of {what} (enable_debug_nans)")
+
+
+def _nan_mode():
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    # factories of uninitialised memory may hold any bits
+    skip = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
+            torch.Tensor.new_empty_strided}
+
+    class NanMode(TorchFunctionMode):
+        """Every torch function's floating outputs checked for NaN, as
+        ``jax_debug_nans`` checks every primitive's."""
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func not in skip:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                if any(map(_nan_in, outs)):
+                    name = getattr(func, "__qualname__", None) or getattr(func, "__name__", func)
+                    raise FloatingPointError(f"NaN in the output of {name} (enable_debug_nans)")
+            return out
+
+    return NanMode()
+
+
 def enable_debug_nans(on: bool = True) -> None:
-    """NaN detection: autograd's anomaly mode with its NaN check
-    (``torch.autograd.set_detect_anomaly(on, check_nan=True)``).  Unlike
-    ``jax_debug_nans``, which raises at the forward op that makes a NaN,
-    this raises in the backward pass, at the first gradient function that
-    returns a NaN, and names the forward op that recorded it; a NaN made in
-    a forward no backward runs through (inference) is not caught."""
+    """NaN detection, as ``jax_debug_nans``: with ``on``, every torch
+    function called on this thread has its floating outputs checked, and
+    the CUDA kernel entries of ``ops/`` check theirs (``check_nans``), so a
+    forward op that makes a NaN raises ``FloatingPointError`` there, with or
+    without a backward (inference: ``measure_bias``, serving); autograd's
+    anomaly mode (``torch.autograd.set_detect_anomaly(on, check_nan=True)``)
+    names the forward op of a NaN made in the backward pass.  Off (the
+    default) nothing is installed: the kernel entries' check is one dict
+    lookup.  The function mode is the calling thread's (torch keeps it per
+    thread); the kernel entries' check holds on every thread."""
     import torch
 
     torch.autograd.set_detect_anomaly(on, check_nan=True)
+    mode = _DEBUG_NANS["mode"]
+    if on and mode is None:
+        mode = _nan_mode()
+        mode.__enter__()
+        _DEBUG_NANS["mode"] = mode
+    elif not on and mode is not None:
+        mode.__exit__(None, None, None)
+        _DEBUG_NANS["mode"] = None

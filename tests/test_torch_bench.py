@@ -372,12 +372,80 @@ def test_enable_debug_nans_toggles_anomaly_mode():
     try:
         enable_debug_nans()
         assert torch.is_anomaly_enabled() and torch.is_anomaly_check_nan_enabled()
-        x = torch.tensor([-1.0], requires_grad=True)
+        # a NaN made in the backward only: sqrt'(0) = inf times the zero
+        # gradient of * 0, every forward value finite
+        x = torch.tensor([0.0], requires_grad=True)
         with pytest.raises(RuntimeError, match="nan"):
-            torch.sqrt(x).sum().backward()
+            (torch.sqrt(x) * 0).sum().backward()
         enable_debug_nans(False)
         assert not torch.is_anomaly_enabled()
-        torch.sqrt(x).sum().backward()  # no check: the NaN gradient passes
+        (torch.sqrt(x) * 0).sum().backward()  # no check: the NaN gradient passes
         assert torch.isnan(x.grad).all()
     finally:
+        enable_debug_nans(False)
+        torch.autograd.set_detect_anomaly(was[0], check_nan=was[1])
+
+
+def _debug_nans_block():
+    """A bf16 MLP block's tensors at width 64 and an input whose one inf
+    makes LayerNorm's mean inf, and its output NaN, in the forward."""
+    g = torch.Generator().manual_seed(0)
+    d = 64
+    args = (torch.ones(d), torch.zeros(d), torch.randn(d, 4 * d, generator=g) * 0.1,
+            torch.zeros(4 * d), torch.randn(4 * d, d, generator=g) * 0.1, torch.zeros(d))
+    x = torch.randn(1, 5, d, generator=g).to(torch.bfloat16)
+    x[0, 2, 7] = float("inf")
+    return x, args
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_enable_debug_nans_raises_at_an_inference_nan(on):
+    """As jax_debug_nans: with the helper on, the forward op that makes a
+    NaN raises FloatingPointError, with no backward (under no_grad, the
+    fused MLP entry on the CPU); off, the NaN flows out and nothing is
+    installed."""
+    from debias_vision_lang_torch.ops import fused_block as fb
+    from debias_vision_lang_torch.utils import enable_debug_nans
+    from debias_vision_lang_torch.utils.observability import debug_nans_on
+
+    was = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    depth = torch._C._len_torch_function_stack()
+    x, args = _debug_nans_block()
+    try:
+        enable_debug_nans(on)
+        assert debug_nans_on() is on
+        assert torch._C._len_torch_function_stack() == depth + int(on)
+        with torch.no_grad():
+            if on:
+                with pytest.raises(FloatingPointError, match="NaN in the output of"):
+                    fb.mlp_block(x, *args)
+            else:
+                assert torch.isnan(fb.mlp_block(x, *args)).any()
+            assert not torch.isnan(fb.mlp_block(torch.zeros_like(x), *args)).any()
+    finally:
+        enable_debug_nans(False)
+        torch.autograd.set_detect_anomaly(was[0], check_nan=was[1])
+    assert torch._C._len_torch_function_stack() == depth and not debug_nans_on()
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_kernel_entries_check_their_outputs_when_on(on):
+    """A CUDA kernel entry's ctypes launch is no torch function: the
+    entries call ``check_nans`` on their outputs, which raises only when
+    the helper is on."""
+    from debias_vision_lang_torch.utils import enable_debug_nans
+    from debias_vision_lang_torch.utils.observability import check_nans
+
+    was = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    bad = torch.tensor([1.0, float("nan")])
+    try:
+        enable_debug_nans(on)
+        check_nans("dvl_mlp_block", torch.ones(3), torch.arange(3))
+        if on:
+            with pytest.raises(FloatingPointError, match="dvl_mlp_block"):
+                check_nans("dvl_mlp_block", torch.ones(3), bad)
+        else:
+            check_nans("dvl_mlp_block", bad)
+    finally:
+        enable_debug_nans(False)
         torch.autograd.set_detect_anomaly(was[0], check_nan=was[1])

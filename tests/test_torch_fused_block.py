@@ -14,8 +14,9 @@ float32 at atol 1e-4, bfloat16 within one bf16 ulp.  CUDA (marker
 ``cuda``, skipped without a card): the hand-written kernels against the
 twins at the main path's shapes, the wgmma attention core at every key
 bucket (in the bf16 and the int8 attention blocks), its long route past
-320 keys (S = 321 to 785, the route counted), a ragged M, and the shapes
-the wgmma GEMMs refuse.  On the CPU, ``core_route`` and the twins at
+320 keys (S = 321 to 785, the route counted), a ragged M, and widths off
+the GEMMs' tiles with head dims other than 64 (the padded operand layout;
+tests/test_torch_shapes.py holds it on the CPU).  On the CPU, ``core_route`` and the twins at
 S = 400, where the card takes the long route, against the JAX kernels.  A source check holds the int8 attention
 block to the s8 wgmma GEMM and the wgmma core.
 
@@ -308,14 +309,6 @@ class TestGemmOperands:
         with pytest.raises(ValueError, match="expected shape"):
             fb._kmajor(torch.randn(64, 256), (256, 64), "w", torch.device("cpu"))
 
-    @pytest.mark.parametrize("d,heads", [(320, 5), (192, 3), (64, 1)])
-    def test_attention_rejects_widths_the_gemm_does_not_take(self, d, heads):
-        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
-        args = (torch.ones(d), torch.zeros(d), torch.zeros(d, 3 * d), torch.zeros(3 * d),
-                torch.zeros(d, d), torch.zeros(d))
-        with pytest.raises(ValueError, match=r"N % 128 == 0 and K % 64 == 0.*N=\d+ K=\d+"):
-            fb._attention_block_cuda(x, *args, heads, False)
-
     @pytest.mark.parametrize("s", [0])
     def test_attention_rejects_sequence_lengths(self, s):
         d = 256
@@ -324,14 +317,6 @@ class TestGemmOperands:
                 torch.zeros(d, d), torch.zeros(d))
         with pytest.raises(ValueError, match="sequence length"):
             fb._attention_block_cuda(x, *args, 4, False)
-
-    @pytest.mark.parametrize("d,f", [(512, 1000), (320, 1280), (256, 96)])
-    def test_mlp_rejects_widths_the_gemm_does_not_take(self, d, f):
-        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
-        args = (torch.ones(d), torch.zeros(d), torch.zeros(d, f), torch.zeros(f),
-                torch.zeros(f, d), torch.zeros(d))
-        with pytest.raises(ValueError, match="the CUDA GEMM takes"):
-            fb._mlp_block_cuda(x, *args, "quick_gelu")
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +423,10 @@ class TestCoreRoute:
         assert {fb.core_route(s) for s in range(321, 2049)} == {"long"}
         with pytest.raises(ValueError, match="< 1"):
             fb.core_route(0)
+        # head dims padded to 128 stay on the register core; wider ones go long
+        assert {fb.core_route(s, hd) for s in (1, 257, 320) for hd in (72, 80, 104, 128)} == {
+            "short"}
+        assert {fb.core_route(s, hd) for s in (1, 257) for hd in (129, 192, 256)} == {"long"}
 
     @pytest.mark.parametrize("mod", [fb, fbq])
     def test_cpu_twins_count_no_route(self, mod, layer):
@@ -455,12 +444,16 @@ class TestCoreRoute:
         core = (csrc / "attention_wgmma.cuh").read_text()
         body = core[core.index("cudaError_t launch_attention_wgmma("):]
         body = body[:body.index("\n}\n")]
-        assert "if (S > CORE_MAX_SEQ) return launch_long_packed(" in body
-        assert "S > CORE_MAX_SEQ ||" not in body
+        # past 320 keys, or past the register core's two 64-dim chunks
+        assert "if (S > CORE_MAX_SEQ || c > CORE_MAX_C)\n    return launch_long_packed(" in body
+        assert "constexpr int CORE_MAX_C = 2;" in core
         long = (csrc / "attention_long.cuh").read_text()
-        packed = long[long.index("cudaError_t launch_long_packed("):]
-        assert "attention_long_kernel<bf16, 1, true>" in packed and "mask" not in packed.split(
+        packed = long[long.index("cudaError_t launch_long_packed_c("):]
+        assert "attention_long_kernel<bf16, C, true, CQ>" in packed and "mask" not in packed.split(
             "// tm_m is not read")[0]
+        for inst in ("launch_long_packed_c<1, 1>", "launch_long_packed_c<2, 2>",
+                     "launch_long_packed_c<1, 0>"):
+            assert inst in packed
         assert '#include "attention_long.cuh"' in core
 
 
@@ -517,32 +510,6 @@ class TestLongTwinsAgainstPallas:
         got = fbq.attention_block_q(_torch(long_x, torch.bfloat16), *map(_torch_keep, args),
                                     heads=LONG_H, causal=causal)
         _within_one_ulp(got, ref)
-
-
-class TestQGemmOperands:
-    """What the int8 blocks' CUDA routes refuse before any launch (so on
-    the CPU too): widths their s8 wgmma GEMM does not tile, rows the
-    quantize pass does not hold."""
-
-    @pytest.mark.parametrize("d,heads", [(320, 5), (192, 3)])
-    def test_attention_q_rejects_widths_the_gemm_does_not_take(self, d, heads):
-        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
-        wqkv, wo = torch.zeros(d, 3 * d, dtype=torch.int8), torch.zeros(d, d, dtype=torch.int8)
-        with pytest.raises(ValueError, match=r"int8 attention block's s8 wgmma GEMM "
-                                             rf"takes D divisible by 128 .*got D={d}"):
-            fbq._attention_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(3 * d),
-                                        torch.zeros(3 * d), torch.ones(d), torch.zeros(d),
-                                        heads, False, wqkv.t(), wo.t(), None)
-
-    @pytest.mark.parametrize("d,f", [(512, 2000), (320, 1280), (96, 384), (1024, 8192)])
-    def test_mlp_q_rejects_widths_the_gemm_does_not_take(self, d, f):
-        x = torch.zeros(2, 7, d, dtype=torch.bfloat16)
-        q = torch.zeros(d, f, dtype=torch.int8)
-        with pytest.raises(ValueError, match=r"divisible by 128 .* at most 4096, "
-                                             rf"got D={d} F={f}"):
-            fbq._mlp_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(f),
-                                  torch.zeros(f), torch.ones(d), torch.zeros(d),
-                                  "quick_gelu", q.t(), q, None)
 
 
 class TestQAttentionSource:
@@ -689,18 +656,25 @@ def test_cuda_ragged_m(cuda, block):
 
 
 @pytest.mark.cuda
-def test_cuda_gemm_rejects_widths_it_does_not_take(cuda):
-    d, f = 512, 1000
-    x = torch.zeros((2, 7, d), device=cuda, dtype=torch.bfloat16)
-    args = [t.to(cuda) for t in (torch.ones(d), torch.zeros(d), torch.zeros(d, f),
-                                 torch.zeros(f), torch.zeros(f, d), torch.zeros(d))]
-    with pytest.raises(ValueError, match=r"N % 128 == 0 and K % 64 == 0, got N=1000"):
-        fb.mlp_block(x, *args)
-    x = torch.zeros((2, 7, 320), device=cuda, dtype=torch.bfloat16)
-    attn = [t.to(cuda) for t in (torch.ones(320), torch.zeros(320), torch.zeros(320, 960),
-                                 torch.zeros(960), torch.zeros(320, 320), torch.zeros(320))]
-    with pytest.raises(ValueError, match="N=960 K=320"):
-        fb.attention_block(x, *attn, heads=5)
+@pytest.mark.parametrize("d,heads,f", [(512, 8, 1000), (320, 5, 1280), (200, 2, 808),
+                                       (144, 2, 344)])
+def test_cuda_gemm_takes_widths_off_its_tiles(cuda, d, heads, f):
+    """Widths the GEMMs' tiles do not divide, and head dims other than 64,
+    run on the padded operand layout: within one bf16 ulp of the twins."""
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(2, 77, d, generator=g).to(cuda, torch.bfloat16)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(cuda)
+
+    mlp = (1 + 0.1 * rn(d), 0.1 * rn(d), rn(d, f, std=d ** -0.5), 0.1 * rn(f),
+           rn(f, d, std=f ** -0.5), 0.1 * rn(d))
+    attn = (1 + 0.1 * rn(d), 0.1 * rn(d), rn(d, 3 * d, std=d ** -0.5), 0.1 * rn(3 * d),
+            rn(d, d, std=d ** -0.5), 0.1 * rn(d))
+    _within_one_ulp(fb.mlp_block(x, *mlp).cpu(), fb.mlp_block_plain(x, *mlp).cpu())
+    for causal in (False, True):
+        _within_one_ulp(fb.attention_block(x, *attn, heads=heads, causal=causal).cpu(),
+                        fb.attention_block_plain(x, *attn, heads=heads, causal=causal).cpu())
 
 
 @pytest.mark.cuda

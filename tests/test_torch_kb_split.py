@@ -23,8 +23,9 @@ and Pallas counterparts on the CPU.
     differ, and not where they are equal; ``fb`` = None or F is K4.
   * What the layer changes: at bfloat16 it skips K3's rounding of x +
     proj, so it is not K3 then K4; at float32 it is, bit for bit.
-  * The refusals (F % fb on every route, with JAX's message; fb % 128 on
-    the card, before any launch), the counters, the sources.
+  * The refusals (F % fb on every route, with JAX's message; the card
+    takes any divisor fb of F, each chunk padded to 128 lanes), the
+    counters, the sources.
   * CUDA (marker ``cuda``): each kernel against its twin at full width.
 
     python -m pytest tests/test_torch_kb_split.py -q -p no:randomly
@@ -163,19 +164,6 @@ def test_fb_must_divide_f(fbv):
         with pytest.raises(ValueError, match=f"mlp dim 128 not divisible by fb={fbv}"):
             jfbq.mlp_block_q(_jnp(_x(1, 4, 32)), *map(_jnp, _layer(32)[1]), fb=fbv,
                              interpret=True)
-
-
-@pytest.mark.parametrize("fbv", [64, 192])
-def test_card_refuses_fb_off_the_gemm_k_step(fbv):
-    """Before any launch (so on the CPU too): the down product folds its
-    chunks at the s8 GEMM's K step of 128."""
-    d, f = 128, 384 if fbv == 192 else 256
-    x = torch.zeros(1, 4, d, dtype=torch.bfloat16)
-    w = torch.zeros(f, d, dtype=torch.int8)
-    with pytest.raises(ValueError, match=f"multiple of 128, got fb={fbv}"):
-        fbq._mlp_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(f), torch.zeros(f),
-                              torch.ones(d), torch.zeros(d), "quick_gelu", w, w.t(), None,
-                              fb=fbv)
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +368,16 @@ def test_cuda_fsplit_matches_twin(cuda, b, s, fbv, act_kind):
 
 
 @pytest.mark.cuda
-def test_cuda_fsplit_refuses_off_the_k_step(cuda):
+def test_cuda_fsplit_takes_fb_off_the_k_step(cuda):
+    """fb = 192 (off the s8 GEMM's K step): each chunk padded to 256 lanes,
+    the output within one bf16 ulp of the twin's at fb = 192."""
     mlp = _on(cuda, _layer(D, seed=8)[1])
-    x = torch.zeros(1, 8, D, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 128, got fb=192"):
-        fbq.mlp_block_q(x, *mlp, fb=192, w1_qt=mlp[2].t().contiguous(),
-                        w2_qt=mlp[5].t().contiguous())
+    x = torch.randn(1, 8, D, generator=torch.Generator().manual_seed(8)).to(cuda, torch.bfloat16)
+    fbq.reset_launches()
+    got = fbq.mlp_block_q(x, *mlp, fb=192, w1_qt=mlp[2].t().contiguous(),
+                          w2_qt=mlp[5].t().contiguous())
+    assert fbq.KB_LAUNCHES["mlp_block_q_fsplit"] == 1
+    within_one_ulp(got.cpu(), fbq.mlp_block_q_plain(x, *mlp, fb=192).cpu())
 
 
 @pytest.mark.cuda
