@@ -4,13 +4,16 @@ models' widths that the JAX kernels take (SigLIP-So400m's head dim 72 at
 S = 257 and on the long core at S = 729, ViT-H/14's head dim 80 and F =
 5,120, bigG/14's head dim 104 and F = 8,192, D = 200 off every tile, K4's
 F-split at fb = F / 4) against their twins, timed against the bound of the
-true work, and a tower from a CLIPConfig at ViT-H/14's widths at bf16 and
-int8, on one CUDA card, without the phases before it.
+true work; K5 at head dims 256 and 800, KB (a) 1's int8 core past 256 keys
+and at head dim 80, every KB entry at D = 200; and a tower from a CLIPConfig
+at ViT-H/14's widths at bf16 and int8, on one CUDA card, without the phases
+before it.
 
     python3 benchmarks_torch/shapes_phase.py
 
-Builds the bf16 and int8 kernels (``csrc/fused_block.cu``,
-``csrc/fused_block_q.cu``; the SASS checks of phase 2 on both libraries),
+Builds the bf16, int8 and attention kernels (``csrc/fused_block.cu``,
+``csrc/fused_block_q.cu``, ``csrc/attention.cu``; the SASS checks of phase
+2 on the three libraries),
 then runs ``chip_smoke.shape_phase``.  Prints the kernels line of its rows
 and the card's nvidia-smi name and power limit.  Exits 2 without a card, 1
 if a check fails.
@@ -39,9 +42,9 @@ def main() -> int:
     card = C.smi()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    _build.load_all(["fused_block", "fused_block_q"])
+    _build.load_all(["fused_block", "fused_block_q", "attention"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for lib in ("fused_block", "fused_block_q"):
+    for lib in ("fused_block", "fused_block_q", "attention"):
         C.print_ptxas(lib, _build.BUILD_LOG.get(lib, ""))
         C.sass_check(lib, _build.LIB_PATHS[lib])
         C.sass_check_long(lib, _build.LIB_PATHS[lib])

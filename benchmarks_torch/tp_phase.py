@@ -8,10 +8,12 @@ Builds the kernels and the phase-4 model (ViT-B/16 DebiasCLIP, 2 prepended
 prompt tokens, random init from seed 0, full width and depth), then runs
 ``chip_smoke.tp_phase``: the split entries (``attention_block_heads``,
 ``mlp_block_cols``, ``tp_reduce`` and their int8 counterparts) and KB (a)
-6's ``attention_block_hgrid`` against their twins, timed; the float32,
-bf16 and int8 towers under virtual (data, model) meshes of the card
-against the unsharded ones; the Frozen-in-Time joint int8 tower on the
-long core; the float32 dryrun step.  Prints the kernels line of the split
+6's ``attention_block_hgrid`` against their twins, timed (at m = 2 and at
+ViT-B/16's uneven 8-slot split); the float32, bf16 and int8 towers under
+virtual (data, model) meshes of the card, (1, 8) included, against the
+unsharded ones; the Frozen-in-Time joint int8 tower on the long core; two
+towers of random blocks off the registry splits (2 heads over 4 slots,
+ViT-H/14's 16 heads of 80 over 2); the float32 dryrun step.  Prints the kernels line of the split
 entries and the card's nvidia-smi name and power limit.  Exits 2 without a
 card, 1 if a check fails.
 """

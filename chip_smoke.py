@@ -17,9 +17,9 @@ Phases (any failure exits non-zero before the final line):
      attention library; the int8 library must hold no mma.sync (HMMA.,
      IMMA.) in any kernel but KB (a) 1's int8 attention core
      (attention_qq_kernel), each instantiation of which must hold IMMA;
-     and per kernel, each of the six instantiations of K5's
+     and per kernel, each of the eight instantiations of K5's
      long route (attention_long_kernel at bf16 and f32, head dims 64, 128,
-     192, heads-first) and, in the bf16 and int8 libraries, the packed one
+     192 and the wide-head mode past them, heads-first) and, in the bf16 and int8 libraries, the packed one
      K1 and K3 run past 320 keys must hold its own forms, bf16 wgmma
      (HGMMA ... BF16) or tf32 wgmma (HGMMA ... TF32) and TMA loads
      (UTMALDG), and no mma.sync (HMMA.);
@@ -357,9 +357,13 @@ Phases (any failure exits non-zero before the final line):
      equal to the twin's, and the reduced int8 halves bit-equal to K3 / K4;
      KB (a) 6 timed beside K1 at B=256 and on a path: the phase-4 image
      tower's 12 attention halves through it (rows vs the K1 tower >=
-     0.999); the float32 forward of the phase-4 model under (1, 2) and (2,
-     2) within 1e-4 of unsharded (JAX's bar); under (1, 2), (2, 2) and (1,
-     4) every bf16 image and text block within 1 bf16 ulp of K1 + K2 on
+     0.999); the (1, 8) split (ViT-B/16's 12 heads in slots of 2 and
+     1, 384 hidden columns a slot) timed at B=256, and two towers of random
+     blocks off the registry splits (TP_WIDE: 2 heads over 4 slots, two of
+     them empty; ViT-H/14's widths, 16 heads of 80, over 2) against K1-K4;
+     the float32 forward of the phase-4 model under (1, 2) and (2,
+     2) within 1e-4 of unsharded (JAX's bar); under (1, 2), (2, 2), (1, 4)
+     and (1, 8) every bf16 image and text block within 1 bf16 ulp of K1 + K2 on
      the same input, the towers' rows cosine >= 0.9999 against unsharded
      bf16 (beside the drift of the same tower on the twins from the
      kernels) and >= 0.999 against float32, the int8 towers (image, text under
@@ -450,7 +454,13 @@ Phases (any failure exits non-zero before the final line):
      layers, patch 14, 224 px, random weights from seed 0) at B=32: bf16 (32
      K1 + 32 K2 on the short core) against float32 at cosine >= COS_MIN, int8
      (32 K3 + 32 K4) held to the plain int8 route (phase 17's bar), img/s
-     of both and of the plain routes.
+     of both and of the plain routes.  Beside them (``wide_checks``): K5 at
+     head dims 256 and 800 (the long route's wide-head mode), S = 77 and
+     785, float32 and bfloat16 at phase 9's bars; KB (a) 1's int8 core and
+     block on their tiled route (S = 257 and 785 at D = 768, head dim 80 at
+     D = 960) at phase 23's bars; every KB entry at D = 200 with 2 heads of
+     100 and F = 800 (``kb_off_registry``) at its own phase's bars; each
+     launch counted, each timed against its bound.
 The kernels line comes after phase 27 (its SLIP-L rows take phase 17's
 launch counts, its RN50x4 text rows phase 18's, its FiT rows phase 19's,
 the rows of phase 21's shapes its sweep's, the split entries' rows phase
@@ -479,6 +489,7 @@ name and power limit; the last line is {"ok": true, "device": {...}}.
 import copy
 import csv
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -571,15 +582,15 @@ def mlp_block_work(b, s, d, f, weights="bf16"):
     return {weights: 4 * m * d * f}, 2 * m * d * 2 + 2 * d * f * wb + (3 * d + f) * 4 + extra
 
 
-def attention_work(b, h, s, f32, cuda_cores=False):
-    """K5: softmax(q k^T / 8 + mask) v over [B, H, S, 64] with an [S, S] f32
-    additive mask (every pair is computed: the mask is data).  float32 runs
-    3xTF32: three TF32 products per f32 product on the tensor cores
-    (``cuda_cores``: f32 FMAs on the CUDA cores, the bound of the design
-    that ran them, for comparison)."""
-    flops = 4 * b * h * s * s * 64
+def attention_work(b, h, s, f32, cuda_cores=False, hd=64):
+    """K5: softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd] with an [S,
+    S] f32 additive mask (every pair is computed: the mask is data), at the
+    true head dim.  float32 runs 3xTF32: three TF32 products per f32 product
+    on the tensor cores (``cuda_cores``: f32 FMAs on the CUDA cores, the
+    bound of the design that ran them, for comparison)."""
+    flops = 4 * b * h * s * s * hd
     ops = ({"f32": flops} if cuda_cores else {"tf32": 3 * flops}) if f32 else {"bf16": flops}
-    return ops, 4 * b * h * s * 64 * (4 if f32 else 2) + s * s * 4
+    return ops, 4 * b * h * s * hd * (4 if f32 else 2) + s * s * 4
 
 
 def ulp_bf16(mag: float) -> float:
@@ -705,7 +716,7 @@ SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
-SASS_MMA_SYNC = {"fused_block_q": ("attention_qq_kernel", "IMMA")}
+SASS_MMA_SYNC = {"fused_block_q": ("attention_qq_", "IMMA")}  # the register and tiled cores
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -734,7 +745,8 @@ def sass_check_long(lib, path) -> None:
     """Each instantiation of attention_long_kernel in one library:
     SASS_LONG[dtype] present, no HMMA. (mma.sync); a missing instantiation
     or form fails the run.  The attention library (K5) holds the
-    heads-first source at bf16 and f32, head dims 64, 128 and 192; the
+    heads-first source at bf16 and f32, head dims 64, 128 and 192 (the
+    head resident) and the wide-head mode past them; the
     fused-block libraries (K1, K3) the packed source at bf16 three times:
     padded head dims 64 and 128 (one or two 64-dim chunks a block), and any
     wider one (one output chunk a block, Q K^T over a run-time count)."""
@@ -761,9 +773,9 @@ def sass_check_long(lib, path) -> None:
         check(not missing, f"{tag} has no {missing} instructions in its SASS")
         check(counts["HMMA"] == 0, f"{tag} runs mma.sync (HMMA.)")
     if lib == "attention":
-        check(seen.get(("bf16", "heads")) == 3 and seen.get(("f32", "heads")) == 3,
-              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected 3 "
-              f"heads-first each (head dims 64, 128, 192)")
+        check(seen.get(("bf16", "heads")) == 4 and seen.get(("f32", "heads")) == 4,
+              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected 4 "
+              f"heads-first each (head dims 64, 128, 192, and the wide-head mode past them)")
     else:
         check(seen == {("bf16", "packed"): 3},
               f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected the "
@@ -4351,7 +4363,15 @@ def rung_phase(model, tokenizer, prompts, card, device, tower_img_s=None):
 # model axis on virtual meshes of the one card, and KB (a) 6
 # ---------------------------------------------------------------------------
 
-TP_MESHES = ((1, 2), (2, 2), (1, 4))
+# (1, 8): ViT-B/16's 12 image heads in slots of 1 and 2 (JAX splits the
+# columns and takes any head count), its 8 text heads one a slot
+TP_MESHES = ((1, 2), (2, 2), (1, 4), (1, 8))
+# towers of random blocks off the registry splits: (label, D, heads, F,
+# activation, layers, mesh, B, S): two heads over four slots (two slots hold
+# none and launch no attention), and ViT-H/14's widths (16 heads of 80, the
+# padded plan a slot) over two
+TP_WIDE = (("H=2 over 4 slots", 128, 2, 512, "quick_gelu", 2, (1, 4), 8, 77),
+           ("ViT-H/14 widths", 1280, 16, 5120, "gelu", 2, (1, 2), 8, 257))
 TP_F32_ATOL = 1e-4  # float32 TP logits vs unsharded: JAX's bar (tests/test_parallel.py)
 TP_COS = 0.99999  # int8 TP tower rows vs unsharded, should they not be bit-equal
 # bf16 TP tower rows vs the unsharded bf16 tower.  Every split block sits
@@ -4448,15 +4468,20 @@ def hgrid_operands(attn, heads):
     return (ls, lb, wqkv_h.to(torch.bfloat16), bqkv_h, wo.to(torch.bfloat16), bo)
 
 
-def group_slice(attn, mlp, d, m, j):
-    """Slot j of m's head group and hidden columns of a block's tensors."""
-    from debias_vision_lang_torch.parallel.tensor import head_columns
+def group_slice(attn, mlp, d, m, j, heads=None):
+    """Slot j of m's head group (``parallel/tensor.head_group``: uneven where
+    m does not divide the heads; head dim 64 when ``heads`` is None) and
+    hidden columns of a block's tensors."""
+    from debias_vision_lang_torch.parallel.tensor import head_columns, head_group
 
     ls, lb, wqkv, bqkv, wo, _ = attn
     l2s, l2b, w1, b1, w2, _ = mlp
     f = w1.shape[1]
-    cols = head_columns(d, m, j).to(wqkv.device)
-    rows, hid = slice(j * d // m, (j + 1) * d // m), slice(j * f // m, (j + 1) * f // m)
+    heads = d // 64 if heads is None else heads
+    cols = head_columns(d, m, j, heads).to(wqkv.device)
+    lo, hi = head_group(heads, m, j)
+    hd = d // heads
+    rows, hid = slice(lo * hd, hi * hd), slice(j * f // m, (j + 1) * f // m)
     return ((ls, lb, wqkv[:, cols], bqkv[cols], wo[rows]),
             (l2s, l2b, w1[:, hid], b1[hid], w2[hid]))
 
@@ -4541,7 +4566,7 @@ def tp_kernels(fb, fbq, device, card):
         g = heads // m
         outs, hs = [], []
         for j in range(m):
-            cols = head_columns(d, m, j).to(device)
+            cols = head_columns(d, m, j, heads).to(device)
             wq_q, wq_s = qa[2][:, cols], qa[3][:, cols]
             attn_j, amax_j = fbq.attention_block_q_heads(
                 x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=g,
@@ -4635,7 +4660,7 @@ def tp_kernels(fb, fbq, device, card):
         lambda: fb.tp_reduce(parts2, attn[5], x, bias_first=False),
         lambda: fb.tp_reduce_plain(parts2, attn[5], x, bias_first=False),
         tp_reduce_work(b * s, d, 2))
-    cols = head_columns(d, 2, 0).to(device)
+    cols = head_columns(d, 2, 0, heads).to(device)
     wq_q, wq_s, wq_t = qa[2][:, cols], qa[3][:, cols], qa[2][:, cols].t().contiguous()
     a0, m0 = fbq.attention_block_q_heads(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=6,
                                          wqkv_qt=wq_t)
@@ -4687,9 +4712,181 @@ def tp_kernels(fb, fbq, device, card):
         lambda: fbq.tp_reduce_q(pq, sc0, qa[6], qa[7], x, bias_first=False),
         lambda: fbq.tp_reduce_q_plain(pq, sc0, qa[6], qa[7], x, bias_first=False),
         tp_reduce_work(b * s, d, 2, extra=4 * b * s + 4 * d))
+    tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card)
     del x
     torch.cuda.empty_cache()
     return rows, k1_ms
+
+
+# the kernels-line rows of the (1, 8) split: (row key, kernel)
+TP8 = (("attention_block_heads g=2 m=8", "attention_block_heads"),
+       ("attention_block_heads g=1 m=8", "attention_block_heads"),
+       ("mlp_block_cols m=8", "mlp_block_cols"), ("tp_reduce m=8", "tp_reduce"),
+       ("attention_block_q_heads g=2 m=8", "attention_block_q_heads"),
+       ("mlp_block_q_cols m=8", "mlp_block_q_cols"), ("rows_q_partial m=8", "rows_q_partial"),
+       ("tp_reduce_q m=8", "tp_reduce_q"))
+
+
+def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
+    """ViT-B/16's split over 8 slots (slots of 2 and 1 of its 12 heads, 384
+    hidden columns each) timed at the main path's B=256 against their twins
+    (the partials within 1 bf16 ulp, the int8 pieces bit for bit): the
+    kernels-line rows TP8 (launches set by the (1, 8) tower run)."""
+    import torch
+    from debias_vision_lang_torch.parallel.tensor import head_columns, head_group
+
+    b, s, d = x.shape
+    heads, m, f = 12, 8, 4 * d
+    fj = f // m
+
+    def row(key, name, lib, err, kern, plain, work, iters=5):
+        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} {key[len(name) + 1:]}", lib, 0, err,
+                       cuda_ms(kern, iters=iters), cuda_ms(plain, iters=2), work)
+        r["replaces"] = TP_REPLACES[name]
+        rows[key] = r
+        print(f"time {key} {r['case']}: kernel {r['ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
+              f"kernel at {r['bound_ms'] / r['ms']:.1%} of it) ({card})")
+
+    parts = []
+    for j in range(m):
+        ga, _ = group_slice(attn, mlp, d, m, j, heads)
+        g = head_group(heads, m, j)[1] - head_group(heads, m, j)[0]
+        parts.append(fb.attention_block_heads(x, *ga, heads=g))
+        if j in (0, 1):
+            ref = fb.attention_block_heads_plain(x, *ga, heads=g)
+            row(f"attention_block_heads g={g} m=8", "attention_block_heads", "fused_block",
+                compare_part(f"attention_block_heads m=8 slot {j} ({g} heads)", parts[-1], ref),
+                lambda: fb.attention_block_heads(x, *ga, heads=g),
+                lambda: fb.attention_block_heads_plain(x, *ga, heads=g),
+                tp_attention_work(b, s, d, heads // g))
+    red = fb.tp_reduce(parts, attn[5], x, bias_first=False)
+    check(torch.equal(red, fb.tp_reduce_plain(parts, attn[5], x, bias_first=False)),
+          "tp_reduce m=8: the f32 sum differs from its twin's")
+    row("tp_reduce m=8", "tp_reduce", "fused_block",
+        compare_bf16("tp_reduce of 8 uneven head groups vs K1", x, red,
+                     fb.attention_block(x, *attn, heads=heads)),
+        lambda: fb.tp_reduce(parts, attn[5], x, bias_first=False),
+        lambda: fb.tp_reduce_plain(parts, attn[5], x, bias_first=False),
+        tp_reduce_work(b * s, d, m))
+    del parts
+    _, gm = group_slice(attn, mlp, d, m, 3, heads)
+    row("mlp_block_cols m=8", "mlp_block_cols", "fused_block",
+        compare_part(f"mlp_block_cols m=8 F/m={fj}", fb.mlp_block_cols(x, *gm),
+                     fb.mlp_block_cols_plain(x, *gm)),
+        lambda: fb.mlp_block_cols(x, *gm), lambda: fb.mlp_block_cols_plain(x, *gm),
+        tp_mlp_work(b, s, d, f, m))
+    # int8: slot 1 (heads 1 and 2), its partial on the global amax
+    cols = head_columns(d, m, 1, heads).to(x.device)
+    wq_q, wq_s, wq_t = qa[2][:, cols], qa[3][:, cols], qa[2][:, cols].t().contiguous()
+    a1, m1 = fbq.attention_block_q_heads(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=2,
+                                         wqkv_qt=wq_t)
+    r1, _ = fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=2)
+    row("attention_block_q_heads g=2 m=8", "attention_block_q_heads", "fused_block_q",
+        (a1.float() - r1.float()).abs().max().item(),
+        lambda: fbq.attention_block_q_heads(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols], heads=2,
+                                            wqkv_qt=wq_t),
+        lambda: fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols],
+                                                  heads=2),
+        tp_attention_work(b, s, d, 6, weights="int8"))
+    hid = slice(3 * fj, 4 * fj)
+    w1_q, w1_s, w1_t = qm[2][:, hid], qm[3][:, hid], qm[2][:, hid].t().contiguous()
+    h3, hm3 = fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][hid], w1_qt=w1_t)
+    check(torch.equal(h3, sk4["h"][..., hid]) and torch.equal(hm3, fbq.row_amax(h3)),
+          "mlp_block_q_cols m=8: the hidden is not K4's or its amax")
+    row("mlp_block_q_cols m=8", "mlp_block_q_cols", "fused_block_q", 0.0,
+        lambda: fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][hid], w1_qt=w1_t),
+        lambda: fbq.mlp_block_q_cols_plain(x, qm[0], qm[1], w1_q, w1_s, qm[4][hid]),
+        tp_mlp_work(b, s, d, f, m, weights="int8"))
+    wo_q = qa[5][64:192]
+    wo_t = wo_q.t().contiguous()
+    ams = [m1] * m
+    got, want = (fbq.rows_q_partial(a1, ams, wo_q, w_qt=wo_t),
+                 fbq.rows_q_partial_plain(a1, ams, wo_q))
+    check(all(map(torch.equal, got, want)), "rows_q_partial m=8: differs from its twin")
+    row("rows_q_partial m=8", "rows_q_partial", "fused_block_q", 0.0,
+        lambda: fbq.rows_q_partial(a1, ams, wo_q, w_qt=wo_t),
+        lambda: fbq.rows_q_partial_plain(a1, ams, wo_q), tp_rows_q_work(b * s, 128, d, m, 2))
+    pq = [got[0].clone() for _ in range(m)]  # 8 partials, each read once
+    out = fbq.tp_reduce_q(pq, got[2], qa[6], qa[7], x, bias_first=False)
+    check(torch.equal(out, fbq.tp_reduce_q_plain(pq, got[2], qa[6], qa[7], x, bias_first=False)),
+          "tp_reduce_q m=8: differs from its twin")
+    row("tp_reduce_q m=8", "tp_reduce_q", "fused_block_q", 0.0,
+        lambda: fbq.tp_reduce_q(pq, got[2], qa[6], qa[7], x, bias_first=False),
+        lambda: fbq.tp_reduce_q_plain(pq, got[2], qa[6], qa[7], x, bias_first=False),
+        tp_reduce_work(b * s, d, m, extra=4 * b * s + 4 * d))
+
+
+def tp_blocks_check(fb, fbq, label, d, heads, f, act, layers, shape, b, s, device, card):
+    """A tower of random blocks under a virtual mesh of the card through the
+    split kernels (TP_WIDE): bf16 each block within 1 bf16 ulp of K1 + K2 on
+    the same input, int8 bit-equal to K3 + K4, one head entry launch per
+    slot that holds a head and layer, one column entry per slot and layer,
+    the reduces.  Returns {kernel: launches}."""
+    import torch
+    from debias_vision_lang_torch.models.layers import ResidualBlock
+    from debias_vision_lang_torch.ops.quant import quantize_resblocks
+    from debias_vision_lang_torch.parallel import mesh as pmesh
+    from debias_vision_lang_torch.parallel import tensor as tpar
+
+    blocks = torch.nn.ModuleList()
+    for i in range(layers):
+        attn, mlp, _, _ = shape_params(d, f, device, seed=2200 + 17 * i + d)
+        blk = ResidualBlock(d)  # F = 4 D
+        sd = dict(zip(("ln_1.scale", "ln_1.bias", "attn.wqkv", "attn.bqkv", "attn.wo", "attn.bo"),
+                      attn))
+        sd.update(zip(("ln_2.scale", "ln_2.bias", "mlp.w1", "mlp.b1", "mlp.w2", "mlp.b2"), mlp))
+        blk.load_state_dict(sd)
+        blocks.append(blk.to(device))
+    mesh = pmesh.create_mesh(shape, devices=[device] * (shape[0] * shape[1]))
+    m = shape[1]
+    busy = sum(1 for j in range(m) if tpar.head_group(heads, m, j)[1]
+               > tpar.head_group(heads, m, j)[0])
+    tp = tpar.TensorParallelBlocks(blocks, mesh, heads)
+    qb = quantize_resblocks(blocks)
+    tq = tpar.TensorParallelQBlocks(qb, mesh, heads)
+    x = torch.randn(b, s, d, generator=torch.Generator().manual_seed(d)).to(device,
+                                                                            torch.bfloat16)
+    worst = 0.0
+    with torch.no_grad():
+        y = x
+        for i, blk in enumerate(blocks):
+            got = tp.block(i, y, route="fused", act_kind=act)
+            want = fb.fused_resblock(blk, y, heads, act_kind=act)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = ulp_bf16(want.float().abs().max().item())
+            worst = max(worst, err / tol)
+            check(err <= tol, f"phase 22 {label} {shape} bf16 block {i}: {err} > 1 ulp {tol}")
+            y = want
+        reset_all(fb, fbq)
+        tp.run(x, route="fused", act_kind=act)
+        torch.cuda.synchronize()
+        counts = dict(fb.TP_LAUNCHES)
+        want = {"attention_block_heads": layers * busy, "mlp_block_cols": layers * m,
+                "tp_reduce": layers * 2}
+        check({k: counts[k] for k in want} == want and sum(fb.LAUNCHES.values()) == 0,
+              f"phase 22 {label} {shape} bf16 launches {counts}; expected {want}")
+        reset_all(fb, fbq)
+        got8 = tq.run(x, route="fused", act_kind=act)
+        torch.cuda.synchronize()
+        qcounts, k34 = dict(fbq.TP_LAUNCHES), dict(fbq.LAUNCHES)
+        want8 = fbq.fused_transformer_q(qb, x, heads, act_kind=act)
+        qwant = {"attention_block_q_heads": layers * busy, "mlp_block_q_cols": layers * m,
+                 "rows_q_partial": layers * (busy + m),
+                 "tp_reduce_q": layers * 2}
+        check({k: qcounts[k] for k in qwant} == qwant and sum(k34.values()) == 0,
+              f"phase 22 {label} {shape} int8 launches {qcounts}, K3 / K4 {nonzero(k34)}; "
+              f"expected {qwant} and none")
+    same = torch.equal(got8, want8)
+    print(f"phase 22 {label} D={d} heads={heads} (hd {d // heads}) F={f} {layers} layers B={b} "
+          f"S={s} under {shape}: slot heads {[tpar.head_group(heads, m, j) for j in range(m)]} "
+          f"({m - busy} without a head); bf16 every block within 1 ulp of K1 + K2 (worst "
+          f"{worst:.3f} ulp), launches {nonzero(counts)}; int8 "
+          f"{'bit-equal to' if same else 'differs from'} K3 + K4, launches {nonzero(qcounts)}")
+    check(same, f"phase 22 {label} {shape}: the int8 tower is not K3 + K4's")
+    del blocks, tp, tq, qb, x
+    torch.cuda.empty_cache()
+    return {**counts, **qcounts}
 
 
 def vit_prologue(v, p8):
@@ -4942,6 +5139,10 @@ def tp_phase(model, tokenizer, prompts, card, device):
             if shape == (1, 2):
                 for k in ("attention_block_heads", "mlp_block_cols", "tp_reduce"):
                     rows[k]["launches"] = counts[k]
+            if shape == (1, 8):
+                for key, k in TP8:
+                    if k in counts:
+                        rows[key]["launches"] = counts[k]
             reset_all(fb, fbq)
             txt = placed.encode_text(tokens, dtype=torch.bfloat16).float()
             tcount = dict(fb.TP_LAUNCHES)
@@ -4967,6 +5168,10 @@ def tp_phase(model, tokenizer, prompts, card, device):
             if shape == (1, 2):
                 for k in want:
                     rows[k]["launches"] = counts[k]
+            if shape == (1, 8):
+                for key, k in TP8:
+                    if k in counts:
+                        rows[key]["launches"] = counts[k]
             reset_all(fb, fbq)
             qt = q_tp.encode_text(tokens)
             tcount = dict(fbq.TP_LAUNCHES)
@@ -5020,6 +5225,12 @@ def tp_phase(model, tokenizer, prompts, card, device):
     torch.cuda.empty_cache()
     walls["FiT"] = time.perf_counter() - t
 
+    # towers of random blocks off the registry splits
+    t = time.perf_counter()
+    for label, d, heads, f, act, layers, shape, b, s in TP_WIDE:
+        tp_blocks_check(fb, fbq, label, d, heads, f, act, layers, shape, b, s, device, card)
+    walls["off-registry towers"] = time.perf_counter() - t
+
     # the dryrun step: float32 adversary + prompt step, CLIP placed under (2, 2)
     t = time.perf_counter()
     base = copy.deepcopy(model)
@@ -5051,7 +5262,7 @@ def tp_phase(model, tokenizer, prompts, card, device):
     wall = time.perf_counter() - t_phase
     print(f"phase 22 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
-    return [rows[k] for k in TP_REPLACES], wall
+    return [rows[k] for k in TP_REPLACES] + [rows[key] for key, _ in TP8], wall
 
 
 # ---------------------------------------------------------------------------
@@ -5112,13 +5323,13 @@ def qq_work(b, s, d, h):
     """KB (a) 1's block: K3's products and the core's Q K^T and P V, all
     int8; x and out bf16, the weights, scales and biases read once."""
     ops, nbytes = attention_block_work(b, s, d, weights="int8")
-    return {"int8": ops["int8"] + 4 * b * h * s * s * 64}, nbytes
+    return {"int8": ops["int8"] + 4 * b * s * s * d}, nbytes
 
 
 def qq_core_work(b, s, d, h):
-    """The int8 core alone: Q K^T and P V int8, the f32 qkv read and the
-    bf16 attention rows written once."""
-    return {"int8": 4 * b * h * s * s * 64}, b * s * 3 * d * 4 + b * s * d * 2
+    """The int8 core alone: Q K^T and P V int8 over the true head dim, the
+    f32 qkv read and the bf16 attention rows written once."""
+    return {"int8": 4 * b * s * s * d}, b * s * 3 * d * 4 + b * s * d * 2
 
 
 def qq_core_check(fbq, qkv, heads):
@@ -5134,10 +5345,11 @@ def qq_core_check(fbq, qkv, heads):
     ref = fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16, scratch=sr)
     b, s, d3 = qkv.shape
     d = d3 // 3
+    hd = d // heads
     check(torch.equal(fbq.quant_rows(sk["p"])[0], sk["pq"])
           and torch.equal(fbq.quant_rows(sk["p"])[1], sk["psc"]),
           "attention_qq_core: its p codes are not the quantization of its own p")
-    vq, vsc = fbq.quant_rows(qkv[..., 2 * d:].reshape(b, s, heads, 64).permute(0, 2, 3, 1))
+    vq, vsc = fbq.quant_rows(qkv[..., 2 * d:].reshape(b, s, heads, hd).permute(0, 2, 3, 1))
     own = (sk["pq"].double() @ vq.transpose(-1, -2).double()).float() * sk["psc"] \
         * vsc.transpose(-1, -2)
     own = own.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, s, d)
@@ -5150,9 +5362,10 @@ def qq_core_check(fbq, qkv, heads):
     # each output element past 1 ulp sits on a (image, query row, head) whose p row
     # holds a flipped code
     rows_flipped = flips.any(-1).permute(0, 2, 1)  # [B, S, H]
-    past_rows = past.reshape(b, s, heads, 64).any(-1)
+    past_rows = past.reshape(b, s, heads, hd).any(-1)
     unexplained = (past_rows & ~rows_flipped).sum().item()
-    print(f"kernel attention_qq_core B={b} S={s} on the kernel's own f32 qkv: max_abs_err "
+    print(f"kernel attention_qq_core B={b} S={s} hd={hd} ({fbq.qq_route(s, hd)} route) on the "
+          f"kernel's own f32 qkv: max_abs_err "
           f"{err.max().item()} (tolerance {tol} = 1 bf16 ulp of max |twin|); p codes = "
           f"quant_rows of its own p, output = P V on its own codes (bit-equal); p vs the "
           f"twin's max |diff| {p_err}; {int(flips.sum())} of {flips.numel()} p codes differ "
@@ -6330,6 +6543,288 @@ def padding_cost(fb, fbq, device, card):
     torch.cuda.empty_cache()
 
 
+# K5 past head dim 192 (the long route's wide-head mode): (head dim, S) at
+# B=2 H=4, float32 and bfloat16, a random additive mask
+WIDE_K5 = ((256, 77), (256, 785), (800, 77), (800, 785))
+# KB (a) 1 off its register route: (S, D, H), past 256 keys at ViT-B/16's
+# width and head dim 80 (D = 960, 12 heads), B=2
+WIDE_QQ = ((257, 768, 12), (785, 768, 12), (197, 960, 12))
+# the KB entries off the registry widths: D = 200, 2 heads of 100, F = 800
+KB_OFF = {"d": 200, "heads": 2, "f": 800, "b": 8, "s": 77}
+
+
+def k5_row(A, tag, q, k, v, mask, err, launches, f32):
+    """A kernels-line row of K5 at a phase-27 shape (timed, beside SDPA)."""
+    import torch
+
+    b, h, s, hd = q.shape
+    work = bound(*attention_work(b, h, s, f32, hd=hd))
+    lib_mask = mask.to(q.dtype)
+    return {"name": "attention_pallas_long", "case": tag, "route": "cuda",
+            "source": "debias_vision_lang_torch/csrc/attention.cu",
+            "replaces": "debias_vision_lang_tpu/ops/attention.py:93", "launches": launches,
+            "max_abs_err": err, "ms": cuda_ms(lambda: A.attention_pallas(q, k, v, mask), 5),
+            "plain_ms": cuda_ms(lambda: A.attention_kernel_math(q, k, v, mask), 2),
+            "bound_ms": work[0], "bound_by": work[1],
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask), 5)}
+
+
+def wide_checks(fb, fbq, device, card):
+    """Phase 27's checks of the shapes the card once refused past K1-K4: K5
+    at head dims 256 and 800 (S = 77 and 785, float32 and bfloat16, phase
+    9's bars, one long-route launch each), KB (a) 1's int8 core and block
+    past 256 keys and at head dim 80 (its tiled route; qq_core_check's and
+    kb_compare's bars), and every KB entry at D = 200 with 2 heads of 100
+    (their phases' comparisons and bars, one launch each).  Returns the
+    kernels-line rows (launches: the checks' own)."""
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+
+    rows = []
+    g = torch.Generator().manual_seed(2722)
+    for f32 in (True, False):
+        dt = torch.float32 if f32 else torch.bfloat16
+        for hd, s in WIDE_K5:
+            q, k, v = (torch.randn(2, 4, s, hd, generator=g).to(device, dt) for _ in range(3))
+            mask = torch.randn(s, s, generator=g).to(device)
+            A.reset_launches()
+            got = A.attention_pallas(q, k, v, mask)
+            torch.cuda.synchronize()
+            launched = dict(A.LAUNCHES)
+            ref = A.attention_kernel_math(q, k, v, mask)
+            err = (got.float() - ref.float()).abs().max().item()
+            mag = ref.float().abs().max().item()
+            tol = 2e-5 * mag if f32 else ulp_bf16(mag)
+            tag = f"attention_pallas {'f32' if f32 else 'bf16'} B=2 H=4 S={s} hd={hd} mask=random"
+            print(f"kernel {tag} (long route, wide-head mode: {hd // 64 + (hd % 64 > 0)} output "
+                  f"chunks a head): max_abs_err {err} (tolerance {tol} = "
+                  f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag}); launches {launched}"
+                  f" (phase 27)")
+            check(got.shape == q.shape and math.isfinite(err) and err <= tol,
+                  f"{tag}: kernel disagrees with its twin")
+            check(launched == {"attention_pallas": 0, "attention_pallas_long": 1},
+                  f"{tag}: launches {launched}")
+            if s == 785:
+                rows.append(k5_row(A, tag, q, k, v, mask, err, 1, f32))
+                r = rows[-1]
+                print(f"time {tag}: kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
+                      f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}; the kernel at {r['bound_ms'] / r['ms']:.1%} of it) "
+                      f"({card})")
+            del q, k, v, mask, got, ref
+    # KB (a) 1: the core on random f32 qkv, then the block
+    for s, d, heads in WIDE_QQ:
+        qkv = torch.randn(2, s, 3 * d, generator=g).to(device)
+        fbq.reset_launches()
+        core_err = qq_core_check(fbq, qkv, heads)
+        torch.cuda.synchronize()
+        check(fbq.QQ_ROUTES == {"register": 0, "tiled": 1}
+              and fbq.KB_LAUNCHES["attention_qq_core"] == 1,
+              f"attention_qq_core S={s} D={d}: routes {fbq.QQ_ROUTES}, launches "
+              f"{fbq.KB_LAUNCHES['attention_qq_core']}")
+        (qa, qakw), _ = q_block_params(d, device, seed=s + d)
+        x = torch.randn(2, s, d, generator=g).to(device, torch.bfloat16)
+        name = f"attention_block_qq B=2 S={s} D={d} H={heads} hd={d // heads} (phase 27)"
+        fbq.reset_launches()
+        blk_err = kb_compare(fbq, name, fbq.attention_block_qq, fbq.attention_block_qq_plain, x,
+                             (qa, qakw), {"heads": heads}, fbq.quant_rows, True, code_bars=False)
+        torch.cuda.synchronize()
+        check(fbq.KB_LAUNCHES["attention_block_qq"] == 1 and fbq.QQ_ROUTES["tiled"] == 1,
+              f"{name}: launches {nonzero(fbq.KB_LAUNCHES)}, routes {fbq.QQ_ROUTES}")
+        case = f"KB (a) 1 B=2 S={s} D={d} H={heads} hd={d // heads} (tiled route)"
+        for kname, err, kern, plain, work in (
+                ("attention_qq_core", core_err, lambda: fbq.attention_qq_core(qkv, heads),
+                 lambda: fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16),
+                 qq_core_work(2, s, d, heads)),
+                ("attention_block_qq", blk_err,
+                 lambda: fbq.attention_block_qq(x, *qa, heads=heads, **qakw),
+                 lambda: fbq.attention_block_qq_plain(x, *qa, heads=heads),
+                 qq_work(2, s, d, heads))):
+            bound_ms, bound_by = bound(*work)
+            r = {"name": kname, "case": case, "route": "cuda",
+                 "source": "debias_vision_lang_torch/csrc/" + (
+                     "attention_qq.cuh" if kname == "attention_qq_core" else "fused_block_q.cu"),
+                 "replaces": KB_REPLACES[kname], "launches": 1, "max_abs_err": err,
+                 "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2), "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None}
+            rows.append(r)
+            print(f"time {kname} {case}: kernel {r['ms']:.4f} ms, plain twin "
+                  f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at "
+                  f"{bound_ms / r['ms']:.1%} of it) ({card})")
+        del qkv, x, qa, qakw
+    rows += kb_off_registry(fb, fbq, device, card)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mlp_kb_check(fb, fbq, name, kern, plain, x, block, kw, quant, hidden):
+    """An int8 KB MLP entry against its twin when its x codes may differ from
+    the twin's (LayerNorm's f32 rounding flips one now and then, and a
+    flipped x code moves its whole row of the hidden by a dequantized weight,
+    so that row's hidden codes off the twin's by more than one): kb_compare's
+    checks (x codes under phase 6's bars, every code the quantization of the
+    kernel's own rows, the output within 1 bf16 ulp of the twin's last step
+    on its own codes, and of the twin's output unless a code differs), and
+    the hidden codes under phase 6's bars against the twin's hidden step on
+    the kernel's own x codes (``hidden``: the entry's activation of the f32
+    pre-activation, ``quant`` its quantizer).  Returns the largest output
+    difference from the twin."""
+    seen = {}
+
+    def kern_seen(x_, *a, scratch, **k):
+        seen["sk"] = scratch
+        return kern(x_, *a, scratch=scratch, **k)
+
+    err = kb_compare(fbq, name, kern_seen, plain, x, block, kw, quant, False, code_bars=False)
+    sk, args = seen["sk"], block[0]
+    q, _ = quant(hidden(fbq.dot_q(sk["xq"], sk["xs"], args[2], args[3]) + args[4].float()))
+    diff = (sk["hq"].int() - q.int()).abs()
+    share = diff.ne(0).float().mean().item()
+    print(f"  {name} hq: {share:.3e} differ from the twin's hidden step on the kernel's own x "
+          f"codes, max |diff| {diff.max().item()} (bars {CODE_DIFF_MAX['hq']}, {CODE_SHARE_MAX})")
+    check(diff.max().item() <= CODE_DIFF_MAX["hq"] and share <= CODE_SHARE_MAX,
+          f"{name}: hidden codes off the twin's on its own x codes")
+    return err
+
+
+def kb_off_registry(fb, fbq, device, card):
+    """Every KB entry at D = 200, 2 heads of 100, F = 800 (KB_OFF; the
+    padded layouts of attn_plan / mlp_plan), B=8 S=77, x and x/16: each
+    against its twin by its own phase's comparison (kb_compare, compare_q,
+    attr_compare, layer_compare, compare_bf16 / compare_part), one launch of
+    its counter per call.  Returns the kernels-line rows, each timed once."""
+    import torch
+
+    o = KB_OFF
+    d, heads, f, b, s = o["d"], o["heads"], o["f"], o["b"], o["s"]
+    attn, mlp, qattn, qmlp = shape_params(d, f, device, seed=2723)
+    (qa, qakw), (qm, qmkw) = qattn, qmlp
+    ls, lb, wqkv, bqkv, wo, bo = attn
+    wq_s, bq_s = fb.prescale_qkv(wqkv, bqkv, d, heads)
+    kb6 = hgrid_operands(attn, heads)
+    recip, div = fbq.quant_rows_recip, fbq.quant_rows
+    plan, mplan = fb.attn_plan(d, heads), fb.mlp_plan(d, f)
+    label = f"D={d} H={heads} hd={d // heads} F={f}"
+    print(f"phase 27 KB entries at {label}: layout hdp {plan.hdp}, qkv row {plan.nqkv}, LN row "
+          f"{plan.dk}, out N {plan.no}, hidden {mplan.fp}")
+    # name: (counter (lib, key), the check on x, kernel, twin, work, replaces)
+    akw = {"heads": heads}
+    entries = {
+        "attention_block_q_var": (
+            ("q", "attention_block_q_var"),
+            lambda x, t: compare_q(fbq, t, fbq.attention_block_q_var,
+                                   fbq.attention_block_q_var_plain, x, qattn, akw, quant=recip),
+            lambda x: fbq.attention_block_q_var(x, *qa, **akw, **qakw),
+            lambda x: fbq.attention_block_q_var_plain(x, *qa, **akw),
+            attention_block_work(b, s, d, weights="int8"), KB_REPLACES["attention_block_q_var"]),
+        "attention_block_q_postdiv": (
+            ("q", "attention_block_q_postdiv"),
+            lambda x, t: compare_q(fbq, t, fbq.attention_block_q_postdiv,
+                                   fbq.attention_block_q_postdiv_plain, x, qattn, akw),
+            lambda x: fbq.attention_block_q_postdiv(x, *qa, **akw, **qakw),
+            lambda x: fbq.attention_block_q_postdiv_plain(x, *qa, **akw),
+            attention_block_work(b, s, d, weights="int8"),
+            SPLIT_REPLACES["attention_block_q_postdiv"]),
+        "attention_block_qq": (
+            ("q", "attention_block_qq"),
+            lambda x, t: kb_compare(fbq, t, fbq.attention_block_qq, fbq.attention_block_qq_plain,
+                                    x, qattn, akw, div, True, code_bars=False),
+            lambda x: fbq.attention_block_qq(x, *qa, **akw, **qakw),
+            lambda x: fbq.attention_block_qq_plain(x, *qa, **akw),
+            qq_work(b, s, d, heads), KB_REPLACES["attention_block_qq"]),
+        "mlp_block_q_bf16h": (
+            ("q", "mlp_block_q_bf16h"),
+            lambda x, t: mlp_kb_check(fb, fbq, t, fbq.mlp_block_q_bf16h,
+                                      fbq.mlp_block_q_bf16h_plain, x, qmlp, {}, div,
+                                      lambda u: fb._act(u.to(torch.bfloat16).float(),
+                                                        "quick_gelu")),
+            lambda x: fbq.mlp_block_q_bf16h(x, *qm, **qmkw),
+            lambda x: fbq.mlp_block_q_bf16h_plain(x, *qm),
+            mlp_block_work(b, s, d, f, weights="int8"), KB_REPLACES["mlp_block_q_bf16h"]),
+        "mlp_block_q_var": (
+            ("q", "mlp_block_q_var"),
+            lambda x, t: mlp_kb_check(fb, fbq, t, fbq.mlp_block_q_var, fbq.mlp_block_q_var_plain,
+                                      x, qmlp, {}, recip, lambda u: fb._act(u, "quick_gelu")),
+            lambda x: fbq.mlp_block_q_var(x, *qm, **qmkw),
+            lambda x: fbq.mlp_block_q_var_plain(x, *qm),
+            mlp_block_work(b, s, d, f, weights="int8"), KB_REPLACES["mlp_block_q_var"]),
+        "mlp_block_q_var_bf16_gelu": (
+            ("q", "mlp_block_q_var_bf16_gelu"),
+            lambda x, t: mlp_kb_check(fb, fbq, t, fbq.mlp_block_q_var, fbq.mlp_block_q_var_plain,
+                                      x, qmlp, {"bf16_gelu": True}, recip, fbq.quick_gelu_bf16),
+            lambda x: fbq.mlp_block_q_var(x, *qm, bf16_gelu=True, **qmkw),
+            lambda x: fbq.mlp_block_q_var_plain(x, *qm, bf16_gelu=True),
+            mlp_block_work(b, s, d, f, weights="int8"),
+            KB_REPLACES["mlp_block_q_var_bf16_gelu"]),
+        "fused_layer_q": (
+            ("q", "fused_layer_q"),
+            lambda x, t: layer_compare(fbq, t, x, qa, qakw, qm, qmkw, heads),
+            lambda x: fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw),
+            lambda x: fbq.fused_layer_q_plain(x, *qa, *qm, heads=heads),
+            layer_work(b, s, d, f), SPLIT_REPLACES["fused_layer_q"]),
+        "attention_block_opt": (
+            ("bf16", "attention_block_opt"),
+            lambda x, t: compare_bf16(t, x, fb.attention_block_opt(x, ls, lb, wq_s, bq_s, wo, bo,
+                                                                   heads=heads),
+                                      fb.attention_block_opt_plain(x, ls, lb, wq_s, bq_s, wo,
+                                                                   bo, heads=heads)),
+            lambda x: fb.attention_block_opt(x, ls, lb, wq_s, bq_s, wo, bo, heads=heads),
+            lambda x: fb.attention_block_opt_plain(x, ls, lb, wq_s, bq_s, wo, bo, heads=heads),
+            attention_block_work(b, s, d), SPLIT_REPLACES["attention_block_opt"]),
+        "attention_block_hgrid": (
+            ("tp", "attention_block_hgrid"),
+            lambda x, t: compare_bf16(t, x, fb.attention_block_hgrid(x, *kb6, heads=heads),
+                                      fb.attention_block_hgrid_plain(x, *kb6, heads=heads)),
+            lambda x: fb.attention_block_hgrid(x, *kb6, heads=heads),
+            lambda x: fb.attention_block_hgrid_plain(x, *kb6, heads=heads),
+            attention_block_work(b, s, d), TP_REPLACES["attention_block_hgrid"]),
+    }
+    for blk in ("attn", "mlp"):
+        for mode in ("mxu", "vpu"):
+            entry = f"{ATTR_ENTRIES[blk]}_attr"
+            params = qattn if blk == "attn" else qmlp
+            kw = {"mode": mode, **(akw if blk == "attn" else {})}
+            entries[f"{entry}_{mode}"] = (
+                ("q", f"{entry}_{mode}"),
+                functools.partial(lambda bl, md, pr, x, t: attr_compare(fbq, bl, md, x, pr, heads,
+                                                                        t), blk, mode, params),
+                functools.partial(lambda en, pr, kw_, x: getattr(fbq, en)(x, *pr[0], **kw_,
+                                                                          **pr[1]),
+                                  entry, params, kw),
+                functools.partial(lambda en, pr, kw_, x: getattr(fbq, en + "_plain")(x, *pr[0],
+                                                                                     **kw_),
+                                  entry, params, kw),
+                attr_work(blk, mode, b, s, d, f, heads), ATTR_REPLACES[f"{entry}_{mode}"])
+    counters = {"q": fbq.KB_LAUNCHES, "bf16": fb.KB_LAUNCHES, "tp": fb.TP_LAUNCHES}
+    g = torch.Generator().manual_seed(2724)
+    x0 = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
+    rows = []
+    for name, ((lib, key), compare, kern, plain, work, replaces) in entries.items():
+        errs = []
+        for scale in (1.0, 1 / 16):
+            x = (x0.float() * scale).to(torch.bfloat16)
+            fb.reset_launches()
+            fbq.reset_launches()
+            errs.append(compare(x, f"{name} B={b} S={s} {label} x~N(0,{scale}^2) (phase 27)"))
+            torch.cuda.synchronize()
+            check(counters[lib][key] == 1, f"phase 27 {name} {label}: launches "
+                  f"{counters[lib][key]} on {key}")
+        bound_ms, bound_by = bound(*work)
+        r = {"name": name, "case": f"KB B={b} S={s} {label}", "route": "cuda",
+             "source": "debias_vision_lang_torch/csrc/" + (
+                 "fused_block_q.cu" if lib == "q" else "fused_block.cu"),
+             "replaces": replaces, "launches": 2, "max_abs_err": max(errs),
+             "ms": cuda_ms(lambda: kern(x0), 5), "plain_ms": cuda_ms(lambda: plain(x0), 2),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        rows.append(r)
+        print(f"time {name} {r['case']}: kernel {r['ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at "
+              f"{bound_ms / r['ms']:.1%} of it) ({card})")
+    del x0
+    return rows
+
+
 def shape_tower(fb, fbq, card, device):
     """Phase 27's tower: a CLIP from a hand-built CLIPConfig at ViT-H/14's
     image widths (SHAPE_TOWER, random weights from seed 0), bf16 and int8 at
@@ -6403,6 +6898,7 @@ def shape_phase(card, device):
 
     t0 = time.perf_counter()
     rows = shape_checks(fb, fbq, device, card)
+    rows += wide_checks(fb, fbq, device, card)
     launches, _ = shape_tower(fb, fbq, card, device)
     for row in rows:  # the ViT-H/14-width rows take the tower's counts
         if row["case"].startswith("ViT-H/14") and row["name"] in launches:

@@ -24,15 +24,17 @@
 //       product, far inside the twin's 2e-5 bar; a single TF32 product keeps
 //       ~3 decimal digits and misses it (tests/test_torch_attention.py holds
 //       both);
-//   * long (any other S, head dims up to 192): a score row no longer fits
+//   * long (any other S, any head dim): a score row no longer fits
 //     in registers, so the kernel walks 64-key tiles twice -- the row max and
 //     a rescaled row sum, then the same scores again, normalised, into P @ V
 //     -- on TMA-fed wgmma (attention_long_kernel, csrc/attention_long.cuh,
 //     which K1 and K3 share past 320 keys).  The wrapper zero-pads
-//     the head dim to 64, 128 or 192 (zero columns change no score and add
+//     the head dim to a multiple of 64 (zero columns change no score and add
 //     zero output columns) and passes the scale of the original head dim, as
-//     the JAX function pads to 128 lanes.  Products: bf16 wgmma with f32
-//     accumulators, or 3xTF32 (Q K^T on tf32 wgmma, P V on mma.sync).
+//     the JAX function pads to 128 lanes; past 192 dims a block takes one
+//     64-dim output chunk and Q's chunks ride in the K ring, so no head dim
+//     is too wide for shared memory.  Products: bf16 wgmma with f32
+//     accumulators, or 3xTF32 (tf32 wgmma).
 // The TPU kernel's padding (S to 8/16, hd to 128 lanes, padded keys at -1e9)
 // and its VMEM group budget are TPU devices and are not carried over: here
 // keys past S are zero-filled on load and masked at -inf.
@@ -235,16 +237,19 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 }
 
 
+// hdp 64, 128 and 192: the whole head a block, Q resident, the scores once
+// a head; any wider hdp (a multiple of 64): one 64-dim output chunk a block,
+// Q's chunks through the K ring (attention_long.cuh's wide-head mode), the
+// scores once a chunk.  At hdp 192 the wide mode took 2.7-2.9x the resident
+// one's time at S = 785 (benchmarks_torch/k5_head_dim_times.py).
 template <typename T>
 cudaError_t launch_long_hdp(const T* q, const T* k, const T* v, const float* mask, T* out,
                             int BH, int S, int hdp, float scale, cudaStream_t st) {
-  if (S < 1 || BH < 1) return cudaErrorInvalidValue;
-  switch (hdp) {
-    case 64: return launch_long<T, 1>(q, k, v, mask, out, BH, S, scale, st);
-    case 128: return launch_long<T, 2>(q, k, v, mask, out, BH, S, scale, st);
-    case 192: return launch_long<T, 3>(q, k, v, mask, out, BH, S, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (S < 1 || BH < 1 || hdp < 64 || hdp % 64) return cudaErrorInvalidValue;
+  if (hdp == 64) return launch_long<T, 1>(q, k, v, mask, out, BH, S, hdp, scale, st);
+  if (hdp == 128) return launch_long<T, 2>(q, k, v, mask, out, BH, S, hdp, scale, st);
+  if (hdp == 192) return launch_long<T, 3>(q, k, v, mask, out, BH, S, hdp, scale, st);
+  return launch_long<T, 1, 0>(q, k, v, mask, out, BH, S, hdp, scale, st);
 }
 
 }  // namespace
@@ -255,7 +260,7 @@ extern "C" {
 // contiguous and 16-byte aligned, bf16 (is_bf16 = 1) or f32 (0); mask f32.
 // long_route = 0: the short routes, hd == 64 and 1 <= S <= 320 (the wgmma
 // core's scale is 1/sqrt(64)), mask [S, S]; long_route = 1: the two-pass
-// kernel, any S >= 1 and hd = 64, 128 or 192 (the wrapper's zero padding),
+// kernel, any S >= 1 and any hd a multiple of 64 (the wrapper's zero padding),
 // mask [S, (S + 63) & ~63] whose columns past S hold -inf.
 int dvl_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
                   int BH, int S, int hd, int is_bf16, int long_route, float scale,

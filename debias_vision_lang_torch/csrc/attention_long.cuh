@@ -2,8 +2,11 @@
 // by the kernels that compute softmax attention where a score row no longer
 // fits in registers:
 //   * K5, dvl_attention (csrc/attention.cu): heads-first q, k, v [BH, S,
-//     hdp] (hdp = 64, 128 or 192 after the wrapper's zero padding), bf16 or
-//     f32, an additive f32 mask read through a ring of its own;
+//     hdp] (hdp = any multiple of 64 after the wrapper's zero padding),
+//     bf16 or f32, an additive f32 mask read through a ring of its own;
+//     past hdp 192 one 64-dim output chunk a block with Q's chunks riding
+//     in the K ring (the wide-head mode, LongCfg's QR), as the packed
+//     source's;
 //   * K1, dvl_attention_block (csrc/fused_block.cu), and K3,
 //     dvl_attention_block_q (csrc/fused_block_q.cu), past the register core's
 //     320 keys or past head dim 128 (attention_wgmma.cuh): packed qkv [B*S,
@@ -20,10 +23,12 @@
 // core's launch_attention_wgmma calls for S > 320.
 //
 // The long route: any S >= 1, and any head dim once the wrapper has
-// zero-padded it to hdp = 64 C, C = 1, 2 or 3.  A score row no longer fits in
-// registers (at 785 keys a 64-query tile's f32 scores are 213 KB), so the
-// kernel walks 64-key tiles twice, keeping only the row max m and the row
-// sum l between tiles:
+// zero-padded it to hdp = 64 cq: the whole head a block at cq = 1 or 2 (and
+// cq = 3 for K5), one 64-dim output chunk a block past it (C = 1, the scores
+// over a run-time cq).
+// A score row no longer fits in registers (at 785 keys a 64-query tile's
+// f32 scores are 213 KB), so the kernel walks 64-key tiles twice, keeping
+// only the row max m and the row sum l between tiles:
 //   1. per tile, the scores fadd(fmul(s, scale), mask), then m_new = max(m,
 //      tile max) and l = l * exp(m - m_new) + sum(exp(s - m_new)): the
 //      twin's max, and its sum in another order;
@@ -105,33 +110,39 @@ constexpr int LT = 64;  // keys per tile, rows per consumer warpgroup, dims per 
 // q_attribution.py); the long route then skips its first pass
 constexpr int NORM_OFF = 3;
 
-template <typename T, int C, bool PACKED = false>
+// QR: no resident Q; each K ring slot also takes the block's Q chunk (the
+// wide-head mode: one output chunk a block, C = 1).
+template <typename T, int C, bool PACKED = false, bool QR = false>
 struct LongCfg {
   static_assert(!PACKED || (sizeof(T) == 2 && C <= 2), "packed: bf16, 1 or 2 output chunks");
+  static_assert(!QR || C == 1, "Q in the K ring: one output chunk a block");
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int NWG = (F32 && C > 1) ? 1 : 2;  // consumer warpgroups
+  static constexpr bool WIDE = QR && !PACKED;  // K5's heads past 192 dims
+  static constexpr int NWG = (F32 && (C > 1 || WIDE)) ? 1 : 2;  // consumer warpgroups
   static constexpr int THREADS = NWG * 128 + 32;
   // blocks per SM: two at bf16 hd 64, where the softmax's latency, not the
   // loads, holds the kernel (one block with deeper rings was 37% slower:
   // benchmarks_torch/long_route_ablation.py)
-  static constexpr int BLOCKS = (!F32 && C == 1) ? 2 : 1;
+  static constexpr int BLOCKS = (!F32 && C == 1 && !WIDE) ? 2 : 1;
   static constexpr int ROWS = NWG * LT;               // query rows per block
   static constexpr int SPLIT = F32 ? 2 : 1;           // big (+ small) halves
   static constexpr int BOX = F32 ? 32 : 64;           // elements per 128-byte row
   static constexpr int Q_BYTES = ROWS * LT * C * (int)sizeof(T);  // as loaded
+  static constexpr int QCH = ROWS * LT * (int)sizeof(T);          // one Q chunk, as loaded
   static constexpr int K_BYTES = LT * LT * (int)sizeof(T);        // one chunk, as loaded
   static constexpr int V_BYTES = K_BYTES;
   static constexpr int V_SLOT = V_BYTES * SPLIT;
   static constexpr int M_BYTES = ROWS * LT * 4;
-  static constexpr int K_SLOT = K_BYTES * SPLIT;
+  static constexpr int K_SLOT = K_BYTES * SPLIT;               // the K chunk of a slot
+  static constexpr int KQ_SLOT = K_SLOT + (QR ? QCH * SPLIT : 0);  // + QR's Q chunk
   // ring depths (slots), to fit 227 KB; no mask ring for the packed source
   static constexpr int DM = PACKED ? 0 : F32 ? 2 : (C == 1 ? 2 : 3);
   static constexpr int DK = F32 ? 2 : (C == 1 ? 2 : 6);
   static constexpr int DV = F32 ? (C == 2 ? 2 : 1) : (C == 1 ? 1 : C == 2 ? 4 : 3);
   static constexpr int Q_OFF = 0;
-  static constexpr int M_OFF = Q_OFF + Q_BYTES * SPLIT;
+  static constexpr int M_OFF = Q_OFF + (QR ? 0 : Q_BYTES * SPLIT);
   static constexpr int K_OFF = M_OFF + DM * M_BYTES;
-  static constexpr int V_OFF = K_OFF + DK * K_SLOT;
+  static constexpr int V_OFF = K_OFF + DK * KQ_SLOT;
   static constexpr int SMEM = V_OFF + DV * V_SLOT + 1024;  // + 1 KB for alignment
   // 227 KB a block; 228 KB an SM, with 1 KB reserved and the barriers per block
   static_assert(SMEM <= 232448 && BLOCKS * (SMEM + 1024 + 256) <= 233472,
@@ -304,22 +315,23 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 // past the causal mask, and no first pass: the producer loads pass 2's
 // tiles only).
 template <typename T, int C, bool PACKED, int CQ = C>
-__global__ void __launch_bounds__(LongCfg<T, C, PACKED>::THREADS, LongCfg<T, C, PACKED>::BLOCKS)
+__global__ void __launch_bounds__(LongCfg<T, C, PACKED, CQ == 0>::THREADS,
+                                  LongCfg<T, C, PACKED, CQ == 0>::BLOCKS)
 attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_m, T* __restrict__ out, int S,
                       float scale, int da, int heads, int causal, int norm_after, int cq) {
-  using Cfg = LongCfg<T, C, PACKED>;
+  using Cfg = LongCfg<T, C, PACKED, CQ == 0>;
   constexpr bool F32 = Cfg::F32;
   constexpr int NWG = Cfg::NWG, NCT = NWG * 128;  // consumer warpgroups, threads
-  constexpr int HDP = C * LT;
-  static_assert(!PACKED || CQ == 0 || CQ == C, "packed: C output chunks of CQ, or a runtime cq");
+  static_assert(CQ == 0 || CQ == C, "C output chunks of CQ, or a runtime cq");
   // Q K^T's chunks (run-time for CQ = 0), and the resident Q's bytes (none
-  // for QRING: a Q chunk rides in each K slot, QCH bytes past the K chunk)
-  constexpr bool QRING = PACKED && CQ == 0;
-  constexpr int QCH = Cfg::ROWS * LT * (int)sizeof(T);
-  constexpr int KSLOT = Cfg::K_SLOT + (QRING ? QCH : 0);
+  // for QRING: a Q chunk rides in each K slot, Cfg::K_SLOT bytes in, its
+  // TF32 small half QCH bytes past it at f32)
+  constexpr bool QRING = CQ == 0;
+  constexpr int QCH = Cfg::QCH;
+  constexpr int KSLOT = Cfg::KQ_SLOT;
   const int nqc = CQ == 0 ? cq : CQ;
   constexpr int q_bytes = QRING ? 0 : Cfg::Q_BYTES;
   __shared__ uint64_t bars[1 + 2 * (Cfg::DM + Cfg::DK + Cfg::DV)];
@@ -351,9 +363,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     z = hz / heads;
     col_q = h * hdp, col_k = da + h * hdp, col_v = 2 * da + h * hdp;
     obase = (long long)z * S * da + h * hdp, ld = da;
-  } else {
-    z = blockIdx.x;
-    obase = (long long)z * S * HDP, ld = HDP;
+  } else {  // [BH, S, hdp]; QRING: blockIdx.x = slice x cq + its output chunk
+    const int hdp = nqc * LT;
+    grp = blockIdx.x % (nqc / C);
+    z = blockIdx.x / (nqc / C);
+    obase = (long long)z * S * hdp, ld = hdp;
   }
 
   if (tid == 0) {
@@ -386,7 +400,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
             tma_load_3d(Ks + s * KSLOT + b * LT * 128, &tm_k, &rk.full[s],
                         col_k + c * LT + b * Cfg::BOX, kt * LT, z);
           if constexpr (QRING)
-            tma_load_3d(Ks + s * KSLOT + Cfg::K_BYTES, &tm_q, &rk.full[s], col_q + c * LT, q0, z);
+            for (int b = 0; b < LT / Cfg::BOX; ++b)
+              tma_load_3d(Ks + s * KSLOT + Cfg::K_SLOT + b * Cfg::ROWS * 128, &tm_q, &rk.full[s],
+                          col_q + c * LT + b * Cfg::BOX, q0, z);
         }
         if (pass == 1) {
           for (int c = 0; c < C; ++c) {
@@ -408,12 +424,12 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r_lo = wg * LT + warp * 16 + g, r_hi = r_lo + 8;
 
   if constexpr (!QRING) mbar_wait(qbar, 0);
-  if constexpr (F32) split_tile(Qs, Cfg::Q_BYTES, Cfg::Q_BYTES / 16, tid, NCT);
+  if constexpr (F32 && !QRING) split_tile(Qs, Cfg::Q_BYTES, Cfg::Q_BYTES / 16, tid, NCT);
   // this warpgroup's Q rows in box b (BOX elements of every row) start at
   // Qs + b * ROWS * 128 + wg * 8 KB; the small halves Q_BYTES on
   const uint64_t dq = desc_sw128(Qs + wg * LT * 128);
   constexpr int QBOX16 = Cfg::ROWS * 128 >> 4;       // descriptor step per box
-  const int QSMALL16 = q_bytes >> 4;
+  const int QSMALL16 = (QRING ? QCH : q_bytes) >> 4;
 
   // sc = the scores of key tile kt, as fadd(fmul(s, scale), mask), -inf past
   // S (packed: s * scale, -inf past S and, if causal, past the query's row)
@@ -425,7 +441,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = rk.take();
       unsigned char* kp = Ks + s * KSLOT;
       if constexpr (F32) split_tile(kp, Cfg::K_BYTES, Cfg::K_BYTES / 16, tid, NCT);
+      if constexpr (F32 && QRING) split_tile(kp + Cfg::K_SLOT, QCH, QCH / 16, tid, NCT);
       const uint64_t dk = desc_sw128(kp);
+      // this warpgroup's Q rows of chunk c: resident, or in the slot
+      const uint64_t dqc = QRING ? desc_sw128(kp + Cfg::K_SLOT + wg * LT * 128)
+                                 : dq + (F32 ? 2 : 1) * c * QBOX16;
       fence_regs(sc);
       wgmma_fence();
       if constexpr (F32) {
@@ -433,7 +453,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int b = 0; b < 2; ++b) {
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            const uint64_t qb = dq + (2 * c + b) * QBOX16 + 2 * kk;
+            const uint64_t qb = dqc + b * QBOX16 + 2 * kk;
             const uint64_t kb = dk + b * (LT * 128 >> 4) + 2 * kk;
             wgmma_ss_tf32_n64(sc, qb + QSMALL16, kb);
             wgmma_ss_tf32_n64(sc, qb, kb + (Cfg::K_BYTES >> 4));
@@ -441,8 +461,6 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
       } else {
-        const uint64_t dqc = QRING ? desc_sw128(kp + Cfg::K_BYTES + wg * LT * 128)
-                                   : dq + c * QBOX16;
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_ss<64>(sc, dqc + 2 * kk, dk + 2 * kk);
       }
@@ -621,18 +639,20 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // The mask's rows are `ldm` floats apart: S rounded up to a multiple of 64,
-// the columns past S holding -inf.
-template <typename T, int C>
+// the columns past S holding -inf.  CQ = C: the whole head (hdp = 64 C) a
+// block, Q resident; CQ = 0 (C = 1): any hdp = 64 cq, one 64-dim output
+// chunk a block, Q's chunks through the K ring.
+template <typename T, int C, int CQ = C>
 cudaError_t launch_long(const T* q, const T* k, const T* v, const float* mask, T* out, int BH,
-                        int S, float scale, cudaStream_t st) {
-  using Cfg = LongCfg<T, C>;
+                        int S, int hdp, float scale, cudaStream_t st) {
+  using Cfg = LongCfg<T, C, false, CQ == 0>;
   constexpr int ES = (int)sizeof(T);
   constexpr CUtensorMapDataType DT =
       Cfg::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const int ldm = (S + LT - 1) & ~(LT - 1);
+  const int ldm = (S + LT - 1) & ~(LT - 1), cq = hdp / LT;
   CUtensorMap tm[4];
-  const uint64_t dims[3] = {(uint64_t)C * LT, (uint64_t)S, (uint64_t)BH};
-  const uint64_t strides[2] = {(uint64_t)C * LT * ES, (uint64_t)S * C * LT * ES};
+  const uint64_t dims[3] = {(uint64_t)hdp, (uint64_t)S, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)hdp * ES, (uint64_t)S * hdp * ES};
   const uint32_t box_q[3] = {Cfg::BOX, Cfg::ROWS, 1}, box_kv[3] = {Cfg::BOX, LT, 1};
   const T* src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -645,12 +665,12 @@ cudaError_t launch_long(const T* q, const T* k, const T* v, const float* mask, T
   cudaError_t e = make_tensor_map(&tm[3], mask, 2, mdims, mstrides, mbox,
                                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attention_long_kernel<T, C, false>,
+  e = cudaFuncSetAttribute(attention_long_kernel<T, C, false, CQ>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid(BH, (S + Cfg::ROWS - 1) / Cfg::ROWS);
-  attention_long_kernel<T, C, false><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
-      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0, 0, C);
+  const dim3 grid(BH * (cq / C), (S + Cfg::ROWS - 1) / Cfg::ROWS);
+  attention_long_kernel<T, C, false, CQ><<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      tm[0], tm[1], tm[2], tm[3], out, S, scale, 0, 1, 0, 0, cq);
   return cudaGetLastError();
 }
 
@@ -660,9 +680,8 @@ template <int C, int CQ>
 cudaError_t launch_long_packed_c(const CUtensorMap& tm_q, const CUtensorMap& tm_kv, bf16* attn,
                                  int B, int S, int heads, int cq, int causal, cudaStream_t st,
                                  float scale, int norm_after) {
-  using Cfg = LongCfg<bf16, C, true>;
-  // CQ = 0: no resident Q, a Q chunk in each K slot
-  constexpr int smem = CQ == 0 ? Cfg::SMEM - Cfg::Q_BYTES + Cfg::DK * Cfg::ROWS * LT * 2 : Cfg::SMEM;
+  using Cfg = LongCfg<bf16, C, true, CQ == 0>;  // CQ = 0: no resident Q, a Q chunk in each K slot
+  constexpr int smem = Cfg::SMEM;
   cudaError_t e = cudaFuncSetAttribute(attention_long_kernel<bf16, C, true, CQ>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

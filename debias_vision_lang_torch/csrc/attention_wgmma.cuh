@@ -371,15 +371,16 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
 // and K3 pass ld = 3 heads hdp rounded up to 128; a tensor-parallel slot
 // passes its g heads at hdp 64 and its padded slice's ld; KB (a) 6 passes
 // scale = ln 2 and norm_after (see the top of this file); KB (a) 4 scale =
-// 1/8 with norm_after = 2; the attribution's "mxu" core scale = 1/8 with
-// NORM_OFF (hdp 64 only).
+// 1/8 with norm_after = 2; the attribution's "mxu" core scale = hd^-0.5
+// with NORM_OFF (the register core's softmax-off instantiations are hdp
+// 64's; a wider head takes the long route, which has the mode at any hdp).
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int heads, int hdp,
                                    int causal, cudaStream_t st, int ld, float scale,
                                    int norm_after) {
   const int c = hdp / 64, da = heads * hdp;
   if (S < 1 || B < 1 || heads < 1 || hdp % 64 || c < 1 || ld < 3 * da || ld % 8)
     return cudaErrorInvalidValue;
-  if (S > CORE_MAX_SEQ || c > CORE_MAX_C)
+  if (S > CORE_MAX_SEQ || c > CORE_MAX_C || (norm_after == NORM_OFF && c > 1))
     return launch_long_packed(qkv, attn, B, S, heads, hdp, causal, st, ld, scale, norm_after);
   const int nk = core_keys(S);
   CUtensorMap tm_q, tm_kv;

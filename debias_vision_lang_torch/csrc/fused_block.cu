@@ -208,10 +208,14 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constan
         *reinterpret_cast<const float4*>(stage + r * GEPI_LD + col + 4);
     if (!whole) {  // the ragged N edge: element by element
       for (int i = 0; i < 8 && n + i < ldc; ++i) {
-        const float ri = (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS)
-                             ? __bfloat162float(resid[m * ldc + n + i]) : 0.f;
-        static_cast<bf16*>(C)[m * ldc + n + i] =
-            __float2bfloat16_rn(epilogue<EPI>(v[i], bb[i], ri));
+        if constexpr (EPI == EPI_F32) {
+          static_cast<float*>(C)[m * ldc + n + i] = v[i];
+        } else {
+          const float ri = (EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS)
+                               ? __bfloat162float(resid[m * ldc + n + i]) : 0.f;
+          static_cast<bf16*>(C)[m * ldc + n + i] =
+              __float2bfloat16_rn(epilogue<EPI>(v[i], bb[i], ri));
+        }
       }
       continue;
     }
@@ -255,11 +259,12 @@ cudaError_t launch_gemm_kernel(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
 }
 
 // ldc = 0 or N: C and resid [M, N], every column stored; else (the out and
-// down products only) [M, ldc], the first ldc columns stored.
+// down products and a slot's f32 partial only) [M, ldc], the first ldc
+// columns stored.
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const bf16* resid,
                         void* C, int M, int N, int K, cudaStream_t st, int ldc = 0) {
-  constexpr bool MAY_RAG = EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS;
+  constexpr bool MAY_RAG = EPI == EPI_BIAS_RESID || EPI == EPI_RESID_BIAS || EPI == EPI_F32;
   const bool ragged = ldc != 0 && ldc != N;
   if (M < 1 || N % GBN || K % GBK || K < GBK || (ragged && (!MAY_RAG || ldc > N ||
                                                              ldc <= N - GBN)))
@@ -282,22 +287,37 @@ cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const 
 // The tensor-parallel reduce: out[M, N] = bf16(resid + (sum_j part_j + bias))
 // (the attention half, K1's out-projection order) or bf16((resid + bias) +
 // sum_j part_j) (the MLP half, K2's down-projection order), the f32 partials
-// summed in slot order.  One thread per 8 contiguous elements of a row: a
-// bandwidth pass over m partials, the residual and the output.
+// summed in slot order.  One thread per 8 contiguous elements: a bandwidth
+// pass over m partials, the residual and the output.  A launch takes up to
+// TP_PARTS partials (their pointers ride in the kernel's parameter space, 2
+// KB of its 4 KB).  N % 8 != 0 (a width off the registry's): element by
+// element.
 // ---------------------------------------------------------------------------
 
-constexpr int TP_MAX_SLOTS = 8;
+constexpr int TP_PARTS = 256;
 struct TpParts {
-  const float* p[TP_MAX_SLOTS];
+  const float* p[TP_PARTS];
 };
+
+__device__ __forceinline__ float tp_out(float r, float b, float s, int bias_first) {
+  return bias_first ? __fadd_rn(__fadd_rn(r, b), s) : __fadd_rn(r, __fadd_rn(s, b));
+}
 
 __global__ void __launch_bounds__(256)
 tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
-                 const bf16* __restrict__ resid, bf16* __restrict__ out, long long total8, int N,
-                 int bias_first) {
-  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i8 >= total8) return;
-  const long long e = i8 * 8;
+                 const bf16* __restrict__ resid, bf16* __restrict__ out, long long total,
+                 int N, int bias_first) {
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (e >= total) return;
+  if (N % 8) {  // ragged rows: element by element
+    for (long long i = e; i < e + 8 && i < total; ++i) {
+      float s = parts.p[0][i];
+      for (int j = 1; j < m; ++j) s = __fadd_rn(s, parts.p[j][i]);
+      out[i] = __float2bfloat16_rn(tp_out(__bfloat162float(resid[i]), bias[i % N], s,
+                                          bias_first));
+    }
+    return;
+  }
   const int n = (int)(e % N);
   float s[8];
   *reinterpret_cast<float4*>(s) = *reinterpret_cast<const float4*>(parts.p[0] + e);
@@ -316,12 +336,8 @@ tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 r2 = __bfloat1622float2(rp[i]);
-    const float b0 = bias[n + 2 * i], b1 = bias[n + 2 * i + 1];
-    const float o0 = bias_first ? __fadd_rn(__fadd_rn(r2.x, b0), s[2 * i])
-                                : __fadd_rn(r2.x, __fadd_rn(s[2 * i], b0));
-    const float o1 = bias_first ? __fadd_rn(__fadd_rn(r2.y, b1), s[2 * i + 1])
-                                : __fadd_rn(r2.y, __fadd_rn(s[2 * i + 1], b1));
-    pw[i] = pack_bf16(o0, o1);
+    pw[i] = pack_bf16(tp_out(r2.x, bias[n + 2 * i], s[2 * i], bias_first),
+                      tp_out(r2.y, bias[n + 2 * i + 1], s[2 * i + 1], bias_first));
   }
   *reinterpret_cast<uint4*>(out + e) = packed;
 }
@@ -332,14 +348,20 @@ tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
 // x hdp columns each, hdp = the head dim rounded up to 64, zero lanes past
 // it; NQKV = 3 heads hdp rounded up to 128), attn [B*S, heads hdp], and the
 // out-projection's N rounded up to 128 with only D columns stored.  At D % 128
-// == 0 and head dim 64 every width is the model's own.
+// == 0 and head dim 64 every width is the model's own.  The same launches
+// serve a head group (heads = its g heads, group_plan's layout; DA = g hdp
+// may be below D): out_f32 [B*S, D] (not null) receives the f32 partial
+// attn_g @ wo_g and no bias or residual; else out = (x + bo) + attn @ wo when
+// bias_first (KB (a) 6's order), x + (attn @ wo + bo) otherwise (K1's).
 int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                          const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                          void* qkv, void* attn, int B, int S, int D, int heads, int hdp,
-                         int causal, float scale, int norm_after, void* stream) {
+                         int causal, float scale, int norm_after, void* stream,
+                         void* out_f32 = nullptr, int bias_first = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, GBK), DA = heads * hdp, NQKV = round_up(3 * DA, GBN);
-  if (D < 1 || hdp < 64 || hdp % 64 || DA < D) return (int)cudaErrorInvalidValue;
+  const int NO = round_up(D, GBN);
+  if (D < 1 || heads < 1 || hdp < 64 || hdp % 64) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                 static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
@@ -351,9 +373,15 @@ int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, cons
   e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, heads,
                              hdp, causal, st, NQKV, scale, norm_after);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm<EPI_BIAS_RESID>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
-                                  static_cast<const float*>(bo), static_cast<const bf16*>(x),
-                                  static_cast<bf16*>(out), M, round_up(D, GBN), DA, st, D);
+  const bf16 *a = static_cast<const bf16*>(attn), *w = static_cast<const bf16*>(wo);
+  const float* fb = static_cast<const float*>(bo);
+  const bf16* r = static_cast<const bf16*>(x);
+  if (out_f32 != nullptr)
+    e = launch_gemm<EPI_F32>(a, w, nullptr, nullptr, out_f32, M, NO, DA, st, D);
+  else if (bias_first)
+    e = launch_gemm<EPI_RESID_BIAS>(a, w, fb, r, out, M, NO, DA, st, D);
+  else
+    e = launch_gemm<EPI_BIAS_RESID>(a, w, fb, r, out, M, NO, DA, st, D);
   return (int)e;
 }
 
@@ -377,16 +405,18 @@ int dvl_attention_block(const void* x, const void* ln_s, const void* ln_b, const
                               heads, hdp, causal, scale, 0, stream);
 }
 
-// KB (a) 5, attention_block_opt: dvl_attention_block's arguments at head dim
-// 64 (no causal mask) with wqkv's q columns and bqkv's q entries pre-scaled
-// by hd^-0.5 log2 e (prescale_qkv): the core at scale ln 2 (exp(s ln 2 - m
-// ln 2) is exp2(s - m) to f32 rounding), the unnormalised exponentials
-// rounded to bf16 for P @ V and the f32 rows scaled by 1 / row sum after it.
+// KB (a) 5, attention_block_opt: dvl_attention_block's arguments and padded
+// layout (no causal mask) with wqkv's q columns and bqkv's q entries
+// pre-scaled by hd^-0.5 log2 e (prescale_qkv, on the true head dim): the
+// core at scale ln 2 (exp(s ln 2 - m ln 2) is exp2(s - m) to f32 rounding),
+// the unnormalised exponentials rounded to bf16 for P @ V and the f32 rows
+// scaled by 1 / row sum after it.
 int dvl_attention_block_opt(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                             const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
-                            void* qkv, void* attn, int B, int S, int D, int heads, void* stream) {
+                            void* qkv, void* attn, int B, int S, int D, int heads, int hdp,
+                            void* stream) {
   return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D,
-                              heads, 64, 0, logf(2.0f), 1, stream);
+                              heads, hdp, 0, logf(2.0f), 1, stream);
 }
 
 // out = x + b2 + act(LN(x) @ w1 + b1) @ w2; x, out [M, D] bf16; the weights
@@ -420,82 +450,70 @@ int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void*
   return (int)e;
 }
 
-// A head group's share of the attention block: LN -> the group's QKV GEMM
-// -> the core on its g heads -> the out GEMM over the group's wo rows.
+// A head group's share of the attention block (attention_block_impl on the
+// group's layout, ops/fused_block.py::group_plan): LN -> the group's QKV
+// GEMM -> the core on its g heads -> the out GEMM over the group's wo rows.
 // Given `out` (bf16), out = (x + bo) + attn_g @ wo_g (with g = heads and the
 // hgrid scale, KB (a) 6's function); else out_f32 [M, D] = attn_g @ wo_g, a
-// tensor-parallel slot's partial.  x [B, S, D] bf16; wqkv [ld, D] K-major
-// bf16: the group's q, k, v columns (64 g each), then zero rows up to ld, a
-// multiple of 128 (the GEMM's N tile); bqkv [ld] f32, zero past 192 g; wo
-// [D, 64 g] K-major bf16.  Scratch (bf16): xn [B*S, D], qkv [B*S, ld], attn
-// [B*S, 64 g].  scale multiplies the scores (1/8, or ln 2 on KB's
-// pre-scaled q); norm_after normalises after P @ V (KB's order).
+// tensor-parallel slot's partial.  x [B, S, D] bf16; wqkv [NQKV, DK]
+// K-major bf16: the group's q, k, v columns (g heads of hdp lanes each, zero
+// past each head's hd), zero rows up to NQKV = 3 g hdp rounded up to 128;
+// bqkv [NQKV] f32; wo [D rounded up to 128, g hdp] K-major bf16 (zero past
+// D and in the padded lanes); bo [D rounded up to 128] f32.  Scratch (bf16):
+// xn [B*S, DK], qkv [B*S, NQKV], attn [B*S, g hdp].  scale multiplies the
+// scores (hd^-0.5 of the true head dim, or ln 2 on KB's pre-scaled q);
+// norm_after normalises after P @ V (KB's order).
 int dvl_attention_block_heads(const void* x, const void* ln_s, const void* ln_b,
                               const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                               void* out, void* out_f32, void* xn, void* qkv, void* attn, int B,
-                              int S, int D, int g, int ld, int causal, float scale,
+                              int S, int D, int g, int hdp, int causal, float scale,
                               int norm_after, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S, dg = 64 * g;
   if ((out == nullptr) == (out_f32 == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv),
-                            static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, g, 64,
-                             causal, st, ld, scale, norm_after);
-  if (e != cudaSuccess) return (int)e;
-  if (out != nullptr)
-    e = launch_gemm<EPI_RESID_BIAS>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
-                                    static_cast<const float*>(bo), static_cast<const bf16*>(x), out,
-                                    M, D, dg, st);
-  else
-    e = launch_gemm<EPI_F32>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo), nullptr,
-                             nullptr, out_f32, M, D, dg, st);
-  return (int)e;
+  return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D, g,
+                              hdp, causal, scale, norm_after, stream, out_f32, 1);
 }
 
 // A tensor-parallel slot's MLP: out_f32 [M, D] = act(LN(x) @ w1_j + b1_j) @
-// w2_j over the slot's Fj hidden columns (no b2, no residual: dvl_tp_reduce
-// adds them once).  w1 [Fj, D] and w2 [D, Fj] K-major bf16, b1 [Fj] f32.
-// Scratch (bf16): xn [M, D], hidden [M, Fj].  Fj % 128 == 0.
+// w2_j over the slot's hidden columns (no b2, no residual: dvl_tp_reduce
+// adds them once), on mlp_plan's layout of the slot's Fj columns: w1 [Fp,
+// DK] and w2 [D rounded up to 128, Fp] K-major bf16, b1 [Fp] f32, zero past
+// Fj (Fp = Fj rounded up to 128) and past D.  Scratch (bf16): xn [M, DK],
+// hidden [M, Fp].
 int dvl_mlp_block_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                        const void* b1, const void* w2, void* out_f32, void* xn, void* hidden,
-                       int M, int D, int Fj, int act_kind, void* stream) {
+                       int M, int D, int Fp, int act_kind, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int DK = round_up(D, GBK), NO = round_up(D, GBN);
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
   if (e != cudaSuccess) return (int)e;
   if (act_kind == 0)
     e = launch_gemm<EPI_BIAS_QGELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
-                                    static_cast<const float*>(b1), nullptr, hidden, M, Fj, D, st);
+                                    static_cast<const float*>(b1), nullptr, hidden, M, Fp, DK, st);
   else
     e = launch_gemm<EPI_BIAS_GELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
-                                   static_cast<const float*>(b1), nullptr, hidden, M, Fj, D, st);
+                                   static_cast<const float*>(b1), nullptr, hidden, M, Fp, DK, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm<EPI_F32>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2), nullptr,
-                           nullptr, out_f32, M, D, Fj, st);
+                           nullptr, out_f32, M, NO, Fp, st, D);
   return (int)e;
 }
 
-// out [M, N] bf16 from m <= 8 f32 partials [M, N] (a host array of device
-// pointers), bias [N] f32 and resid [M, N] bf16; bias_first picks the MLP
-// half's order.  N % 8 == 0.
+// out [M, N] bf16 from 1 <= m <= TP_PARTS f32 partials [M, N] (a host array
+// of device pointers), bias [N] f32 and resid [M, N] bf16; bias_first picks
+// the MLP half's order.
 int dvl_tp_reduce(const void* const* parts, int m, const void* bias, const void* resid,
                   void* out, int M, int N, int bias_first, void* stream) {
-  if (m < 1 || m > TP_MAX_SLOTS || N % 8 || M < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > TP_PARTS || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   TpParts pp{};
   for (int j = 0; j < m; ++j) pp.p[j] = static_cast<const float*>(parts[j]);
-  const long long total8 = (long long)M * N / 8;
+  const long long total = (long long)M * N;
   const int threads = 256;
-  tp_reduce_kernel<<<(unsigned)((total8 + threads - 1) / threads), threads, 0,
+  tp_reduce_kernel<<<(unsigned)((total / 8 + threads) / threads), threads, 0,
                      reinterpret_cast<cudaStream_t>(stream)>>>(
       pp, m, static_cast<const float*>(bias), static_cast<const bf16*>(resid),
-      static_cast<bf16*>(out), total8, N, bias_first);
+      static_cast<bf16*>(out), total, N, bias_first);
   return (int)cudaGetLastError();
 }
 

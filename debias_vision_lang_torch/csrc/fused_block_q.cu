@@ -284,10 +284,36 @@ cast_s8_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q, float* __rest
   if (e % n == 0) scale[e / n] = STATIC16 ? 0.0625f : 1.0f;
 }
 
+// The same casts of x [rows, n] into q [rows, ldq], ldq >= n (the padded
+// operand layout's K edge), zero codes past n; one value a thread.
+template <bool STATIC16>
+__global__ void __launch_bounds__(256)
+cast_s8_ragged_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+                      float* __restrict__ scale, long long total, int n, int ldq) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / ldq;
+  const int c = (int)(i % ldq);
+  uint32_t code = 0u;
+  if (c < n) {
+    const float v = __bfloat162float(x[r * n + c]);
+    code = STATIC16 ? s8_trunc(__fmul_rn(v, 16.0f), -127) : s8_trunc(v, -128);
+  }
+  q[i] = (int8_t)(uint8_t)code;
+  if (c == 0) scale[r] = STATIC16 ? 0.0625f : 1.0f;
+}
+
 template <bool STATIC16>
 cudaError_t launch_cast_s8(const bf16* x, int8_t* q, float* scale, int rows, int n,
-                           cudaStream_t st) {
-  if (n % 8) return cudaErrorInvalidValue;
+                           cudaStream_t st, int ldq = 0) {
+  if (ldq == 0) ldq = n;
+  if (ldq < n) return cudaErrorInvalidValue;
+  if (n % 8 || ldq != n) {
+    const long long total = (long long)rows * ldq;
+    cast_s8_ragged_kernel<STATIC16><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        x, q, scale, total, n, ldq);
+    return cudaGetLastError();
+  }
   const long long total8 = (long long)rows * n / 8;
   cast_s8_kernel<STATIC16><<<(unsigned)((total8 + 255) / 256), 256, 0, st>>>(x, q, scale, total8,
                                                                             n);
@@ -358,9 +384,10 @@ static_assert(2 * 64 * SEPI_LD * 4 <= SSTAGES * 2 * S_TILE, "staging fits the ri
 
 // The chunked mode holds an f32 sum beside the int32 accumulators (64 more
 // registers a thread), so it runs one block per SM, the others two.
-// RAGGED (the bf16 out and down products off the registry archs' widths):
-// C and resid are [M, ldc], the first ldc <= N columns stored (the padded
-// layout's N edge); otherwise [M, N].
+// RAGGED (the out and down products off the registry archs' widths: bf16,
+// the layer's f32 y and residual, a slot's int32 partial): C (C2) and resid
+// are [M, ldc], the first ldc <= N columns stored (the padded layout's N
+// edge); otherwise [M, N].
 template <int EPI, bool RAGGED>
 __global__ void __launch_bounds__(SGEMM_THREADS, EPI == EQ_RESID_BIAS_CHUNK ? 1 : 2)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
@@ -499,22 +526,36 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     int a[8];
     *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col);
     *reinterpret_cast<int4*>(a + 4) = *reinterpret_cast<const int4*>(stage + r * SEPI_LD + col + 4);
-    if constexpr (EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS || CHUNK) {
+    if constexpr (EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS || CHUNK || EPI == EQ_I32 ||
+                  EPI == EQ_BIAS_RESID_Y || EPI == EQ_RESID32_BIAS) {
       if (!whole) {
-        const float rs = CHUNK ? 0.f : a_scale[m];
+        const float rs = (CHUNK || EPI == EQ_I32) ? 0.f : a_scale[m];
         for (int i = 0; i < 8 && n + i < ldc; ++i) {
+          const long long at = m * ldc + n + i;
+          if constexpr (EPI == EQ_I32) {
+            static_cast<int*>(C)[at] = a[i];
+            continue;
+          }
           const float d = CHUNK ? __int_as_float(a[i])
                                 : __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]);
-          const float r = __bfloat162float(static_cast<const bf16*>(resid)[m * ldc + n + i]);
-          const float o = EPI == EQ_BIAS_RESID ? __fadd_rn(r, __fadd_rn(d, bb[i]))
-                                               : __fadd_rn(__fadd_rn(r, bb[i]), d);
-          static_cast<bf16*>(C)[m * ldc + n + i] = __float2bfloat16_rn(o);
+          const float r = EPI == EQ_RESID32_BIAS
+                              ? static_cast<const float*>(resid)[at]
+                              : __bfloat162float(static_cast<const bf16*>(resid)[at]);
+          const float o = (EPI == EQ_BIAS_RESID || EPI == EQ_BIAS_RESID_Y)
+                              ? __fadd_rn(r, __fadd_rn(d, bb[i]))
+                              : __fadd_rn(__fadd_rn(r, bb[i]), d);
+          if constexpr (EPI == EQ_BIAS_RESID_Y) {
+            static_cast<float*>(C)[at] = o;
+            static_cast<bf16*>(C2)[at] = __float2bfloat16_rn(o);
+          } else {
+            static_cast<bf16*>(C)[at] = __float2bfloat16_rn(o);
+          }
         }
         continue;
       }
     }
     if constexpr (EPI == EQ_I32) {
-      int* out = static_cast<int*>(C) + m * N + n;
+      int* out = static_cast<int*>(C) + m * ld + n;
       *reinterpret_cast<int4*>(out) = *reinterpret_cast<const int4*>(a);
       *reinterpret_cast<int4*>(out + 4) = *reinterpret_cast<const int4*>(a + 4);
       continue;
@@ -551,7 +592,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     } else {
       float rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if constexpr (EPI == EQ_RESID32_BIAS) {
-        const float* r32 = static_cast<const float*>(resid) + m * N + n;
+        const float* r32 = static_cast<const float*>(resid) + m * ld + n;
         *reinterpret_cast<float4*>(rr) = *reinterpret_cast<const float4*>(r32);
         *reinterpret_cast<float4*>(rr + 4) = *reinterpret_cast<const float4*>(r32 + 4);
       } else if constexpr (EPI != EQ_BIAS) {
@@ -580,10 +621,10 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 #pragma unroll
       for (int i = 0; i < 4; ++i) pw[i] = pack_bf16(o[2 * i], o[2 * i + 1]);
       if constexpr (EPI == EQ_BIAS_RESID_Y) {  // f32 y to C, its bf16 rounding to C2
-        float* out = static_cast<float*>(C) + m * N + n;
+        float* out = static_cast<float*>(C) + m * ld + n;
         *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(o);
         *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(o + 4);
-        *reinterpret_cast<uint4*>(static_cast<bf16*>(C2) + m * N + n) = packed;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(C2) + m * ld + n) = packed;
       } else {
         *reinterpret_cast<uint4*>(static_cast<bf16*>(C) + m * ld + n) = packed;
       }
@@ -594,9 +635,9 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 // EQ_BIAS_RESID_Y writes its bf16 copy to C2, EQ_BIAS_S8 its row scales;
 // EQ_RESID_BIAS_CHUNK takes
 // a_scale [M, K / (128 chunk_steps)] (a row's scale per chunk) and K a
-// multiple of 128 chunk_steps.  ldc (the bf16 out and down products only):
-// C and resid are [M, ldc], columns ldc .. N-1 (the weight's zero rows of
-// the padded layout) not stored; 0 or N: [M, N].
+// multiple of 128 chunk_steps.  ldc (the out and down products and the int32
+// partial only): C and resid are [M, ldc], columns ldc .. N-1 (the weight's
+// zero rows of the padded layout) not stored; 0 or N: [M, N].
 template <int EPI, bool RAGGED>
 cudaError_t launch_gemm_s8_kernel(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                                   const float* a_scale, const float* w_scale, const float* bias,
@@ -617,7 +658,8 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
                            int M, int N, int K, cudaStream_t st, void* C2 = nullptr,
                            int chunk_steps = 0, int ldc = 0) {
   constexpr bool MAY_RAG = EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS ||
-                           EPI == EQ_RESID_BIAS_CHUNK;
+                           EPI == EQ_RESID_BIAS_CHUNK || EPI == EQ_I32 ||
+                           EPI == EQ_BIAS_RESID_Y || EPI == EQ_RESID32_BIAS;
   const bool ragged = ldc != 0 && ldc != N;
   if (ragged && (!MAY_RAG || ldc > N || ldc <= N - SBN)) return cudaErrorInvalidValue;
   // K % 16: the TMA's 16-byte row stride; a K past the last 128 zero-fills
@@ -647,9 +689,9 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
 // of that slice at the row's global scale, and the exact int32 reduce.
 // ---------------------------------------------------------------------------
 
-constexpr int TP_MAX_SLOTS = 8;
+constexpr int TP_PARTS = 256;  // slots one launch takes (2 KB of the 4 KB parameter space)
 struct TpPtrs {
-  const void* p[TP_MAX_SLOTS];
+  const void* p[TP_PARTS];
 };
 
 template <typename T>
@@ -691,17 +733,33 @@ quant_rows_given_amax_kernel(const T* __restrict__ x, TpPtrs amaxes, int m,
   if (threadIdx.x == 0) scale[row] = s;
 }
 
+__device__ __forceinline__ float tp_out_q(int acc, float rs, float ws, float b, float r,
+                                          int bias_first) {
+  const float d = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), ws);
+  return bias_first ? __fadd_rn(__fadd_rn(r, b), d) : __fadd_rn(r, __fadd_rn(d, b));
+}
+
 // out = resid + (deq + bias) (attention) or (resid + bias) + deq (MLP), deq
 // = (sum_j part_j * row scale) * channel scale, the int32 sum exact: the
 // out-projection epilogues of gemm_s8_kernel, operation for operation.
+// N % 8 != 0: element by element.
 __global__ void __launch_bounds__(256)
 tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
                    const float* __restrict__ w_scale, const float* __restrict__ bias,
-                   const bf16* __restrict__ resid, bf16* __restrict__ out, long long total8, int N,
-                   int bias_first) {
-  const long long i8 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i8 >= total8) return;
-  const long long e = i8 * 8;
+                   const bf16* __restrict__ resid, bf16* __restrict__ out, long long total,
+                   int N, int bias_first) {
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (e >= total) return;
+  if (N % 8) {
+    for (long long i = e; i < e + 8 && i < total; ++i) {
+      int acc = static_cast<const int*>(parts.p[0])[i];
+      for (int j = 1; j < m; ++j) acc += static_cast<const int*>(parts.p[j])[i];
+      const int n = (int)(i % N);
+      out[i] = __float2bfloat16_rn(tp_out_q(acc, a_scale[i / N], w_scale[n], bias[n],
+                                            __bfloat162float(resid[i]), bias_first));
+    }
+    return;
+  }
   const int n = (int)(e % N);
   const float rs = a_scale[e / N];
   int acc[8];
@@ -726,9 +784,7 @@ tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int c = 2 * i + k;
-      const float d = __fmul_rn(__fmul_rn(__int2float_rn(acc[c]), rs), w_scale[n + c]);
-      o[c] = bias_first ? __fadd_rn(__fadd_rn(rr[k], bias[n + c]), d)
-                        : __fadd_rn(rr[k], __fadd_rn(d, bias[n + c]));
+      o[c] = tp_out_q(acc[c], rs, w_scale[n + c], bias[n + c], rr[k], bias_first);
     }
   }
   uint4 packed;
@@ -750,6 +806,32 @@ tp_reduce_q_kernel(TpPtrs parts, int m, const float* __restrict__ a_scale,
 // (qkv), EQ_BIAS_QGELU f32 (the MLP hidden), EQ_RESID_BIAS bf16 (the MLP
 // output), EQ_BIAS_RESID bf16 (the attention output).  8 columns a thread;
 // N % 8 == 0.
+// A column n with n % chunk >= valid (the padded lanes of the MLP hidden,
+// mlp_plan's layout) is written 0, as its zero weights would make it.
+template <int EPI>
+__device__ __forceinline__ float bcast_one(float d, float b, float r) {
+  if constexpr (EPI == EQ_BIAS_QGELU) return quick_gelu(__fadd_rn(d, b));
+  else if constexpr (EPI == EQ_BIAS) return __fadd_rn(d, b);
+  else if constexpr (EPI == EQ_BIAS_RESID) return __fadd_rn(r, __fadd_rn(d, b));
+  else return __fadd_rn(__fadd_rn(r, b), d);  // EQ_RESID_BIAS
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(256)
+bcast_rows_ragged_kernel(const int8_t* __restrict__ codes, const float* __restrict__ rs, int K,
+                         const float* __restrict__ bias, const bf16* __restrict__ resid,
+                         void* __restrict__ out, long long total, int N, int chunk, int valid) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long m = i / N;
+  const int n = (int)(i % N);
+  const float d = __fmul_rn((float)codes[m * K], rs[m]);
+  const float r = (EPI == EQ_BIAS_RESID || EPI == EQ_RESID_BIAS) ? __bfloat162float(resid[i]) : 0.f;
+  const float v = n % chunk < valid ? bcast_one<EPI>(d, bias[n], r) : 0.f;
+  if constexpr (EPI == EQ_BIAS_QGELU) static_cast<float*>(out)[i] = v;
+  else static_cast<bf16*>(out)[i] = __float2bfloat16_rn(v);
+}
+
 template <int EPI>
 __global__ void __launch_bounds__(256)
 bcast_rows_kernel(const int8_t* __restrict__ codes, const float* __restrict__ rs, int K,
@@ -800,10 +882,19 @@ bcast_rows_kernel(const int8_t* __restrict__ codes, const float* __restrict__ rs
   }
 }
 
+// chunk / valid: the columns past `valid` of every `chunk` are written 0
+// (0: every column holds its value).
 template <int EPI>
 cudaError_t launch_bcast_rows(const int8_t* codes, const float* rs, int K, const float* bias,
-                              const void* resid, void* out, int M, int N, cudaStream_t st) {
-  if (N % 8) return cudaErrorInvalidValue;
+                              const void* resid, void* out, int M, int N, cudaStream_t st,
+                              int chunk = 0, int valid = 0) {
+  if (N % 8 || (chunk != 0 && valid < chunk)) {
+    const long long total = (long long)M * N;
+    bcast_rows_ragged_kernel<EPI><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        codes, rs, K, bias, static_cast<const bf16*>(resid), out, total, N,
+        chunk == 0 ? N : chunk, chunk == 0 ? N : valid);
+    return cudaGetLastError();
+  }
   const long long total8 = (long long)M * N / 8;
   bcast_rows_kernel<EPI><<<(unsigned)((total8 + 255) / 256), 256, 0, st>>>(
       codes, rs, K, bias, static_cast<const bf16*>(resid), out, total8, N);
@@ -817,18 +908,20 @@ cudaError_t launch_bcast_rows(const int8_t* codes, const float* rs, int K, const
 // broadcast score row and the stub exists to time the work on it -- then
 // K3's softmax of the row: the max, an exp per score (kept in shared memory,
 // S floats a warp), the f32 sum, an IEEE division per score and its bf16
-// rounding.  The head's output row is p[i, 0] in all 64 columns.
+// rounding.  The head's output row is p[i, 0] in its hd columns, 0 in the
+// padded lanes up to hdp (the packed layout of attention_block_q_impl: qkv
+// rows ld apart, head h at column h hdp, attn rows da apart).
 constexpr int VPU_CORE_WARPS = 4;
 
 __global__ void __launch_bounds__(VPU_CORE_WARPS * 32)
-attention_vpu_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int S, int D,
-                          float scale) {
+attention_vpu_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int S, int ld,
+                          int da, int hd, int hdp, float scale) {
   extern __shared__ float ex[];
   const int h = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* e = ex + warp * S;
   for (int i = warp; i < S; i += VPU_CORE_WARPS) {
     const long long row = (long long)blockIdx.y * S + i;
-    const float q = __bfloat162float(qkv[row * 3 * D + h * HD]);
+    const float q = __bfloat162float(qkv[row * ld + h * hdp]);
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) {
       float sc = __fmul_rn(q, scale);
@@ -851,13 +944,15 @@ attention_vpu_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn,
       if (j == 0) p0 = __bfloat162float(p);
     }
     p0 = __shfl_sync(0xffffffffu, p0, 0);
-    *reinterpret_cast<uint32_t*>(attn + row * D + h * HD + 2 * lane) = pack_bf16(p0, p0);
+    for (int c = 2 * lane; c < hdp; c += 64)
+      *reinterpret_cast<uint32_t*>(attn + row * da + h * hdp + c) =
+          pack_bf16(c < hd ? p0 : 0.f, c + 1 < hd ? p0 : 0.f);
   }
 }
 
-cudaError_t launch_attention_vpu_core(const bf16* qkv, bf16* attn, int B, int S, int D, int heads,
-                                      cudaStream_t st) {
-  if (S < 1 || D != heads * HD) return cudaErrorInvalidValue;
+cudaError_t launch_attention_vpu_core(const bf16* qkv, bf16* attn, int B, int S, int heads, int hd,
+                                      int hdp, int ld, float scale, cudaStream_t st) {
+  if (S < 1 || hd < 1 || hdp < hd || hdp % 64 || ld < 3 * heads * hdp) return cudaErrorInvalidValue;
   const size_t smem = (size_t)VPU_CORE_WARPS * S * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -865,7 +960,7 @@ cudaError_t launch_attention_vpu_core(const bf16* qkv, bf16* attn, int B, int S,
     if (e != cudaSuccess) return e;
   }
   attention_vpu_core_kernel<<<dim3(heads, B), VPU_CORE_WARPS * 32, smem, st>>>(
-      qkv, attn, S, D, 1.0f / sqrtf((float)HD));
+      qkv, attn, S, ld, heads * hdp, hd, hdp, scale);
   return cudaGetLastError();
 }
 
@@ -877,14 +972,21 @@ enum AttnQVariant {
 };
 
 // out = x + (deq(q(attn) @ wo_q) + bo), attn = MHA over
-// bf16(deq(q(bf16(LN(x))) @ wqkv_q) + bqkv).  x, out [B, S, D] bf16; wqkv_t
-// [3D, D], wo_t [D, D] int8 (the [in, out] weights transposed); sqkv [3D],
-// so [D] channel scales, ln_s, ln_b, bo [D] and bqkv [3D] f32.  Scratch: xn,
-// attn [B*S, D] bf16; xq, aq [B*S, D] int8; xs, ascale [B*S] f32; qkv
-// [B*S, 3D] bf16 (AQ_QQ: f32) at the model's own widths (the padded
-// layout's below), S >= 1 (the core's whole score rows up to 320 keys, its
-// long route past; AQ_QQ's int8 core up to QQ_MAX_SEQ).
-// AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh.
+// bf16(deq(q(bf16(LN(x))) @ wqkv_q) + bqkv), on the padded operand layout of
+// ops/fused_block.py::attn_plan (csrc/fused_block.cu's attention_block_impl
+// in int8), every variant: x, out [B, S, D] bf16; xn, xq [B*S, DK] (D
+// rounded up to 64, zeros past D: the same amax, the same codes), wqkv_t
+// [NQKV, DK] int8 with sqkv and bqkv [NQKV] f32 (zero past each head's hd of
+// hdp lanes, and past 3 heads hdp up to NQKV, a multiple of 128), qkv [B*S,
+// NQKV] bf16 (AQ_QQ: f32), attn and aq [B*S, heads hdp] (the padded lanes
+// are P @ 0 = 0: the same amax, the same codes), wo_t [D rounded up to 128,
+// heads hdp] int8 with so and bo zero past D; ln_s, ln_b [D] f32; xs, ascale
+// [B*S] f32.  `scale` is the true head dim's hd^-0.5 (hd = D / heads).  At
+// D % 128 == 0 and head dim 64 every width is the model's own.  S >= 1 (the
+// core's whole score rows up to 320 keys, its long route past).
+// AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh
+// (qq_ws: its workspace on the tiled route, qq_ws_bytes; may be null on the
+// register route).
 // AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
 // the row sum after P V (norm_after = 2).  AQ_POSTDIV: K3's quantizer and
 // AQ_VAR's core.  AQ_ATTR_MXU: x's static cast in place of LayerNorm and
@@ -896,61 +998,49 @@ enum AttnQVariant {
 // y32 (K3 only), if not null: the out-projection writes f32 y = x + (deq +
 // bo) [B*S, D] there and bf16(y) to out (EQ_BIAS_RESID_Y: K3's output, and
 // the residual kept f32 for the layer's MLP half).
-// K3 runs any D and head dim on the padded operand layout of
-// ops/fused_block.py::attn_plan (csrc/fused_block.cu's attention_block_impl
-// in int8): xn, xq [B*S, DK] (D rounded up to 64, zeros past D: the same
-// amax, the same codes), wqkv_t [NQKV, DK] with sqkv and bqkv [NQKV] (zero
-// past each head's hd of hdp lanes, and past 3 heads hdp up to NQKV, a
-// multiple of 128), qkv [B*S, NQKV], attn and aq [B*S, heads hdp] (the
-// padded lanes are P @ 0 = 0: the same amax, the same codes), wo_t [D
-// rounded up to 128, heads hdp] with so and bo zero past D; `scale` is the
-// true head dim's hd^-0.5.  The other variants take the model's own widths
-// (D % 128 == 0, hdp = 64: the layout is the identity there).
 int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                            const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
                            int hdp, float scale, int causal, int variant, void* stream,
-                           void* y32 = nullptr) {
+                           void* y32 = nullptr, void* qq_ws = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, 64), DA = heads * hdp, NQKV = round_up(3 * DA, SBN);
   const int NO = round_up(D, SBN);
   if (variant != AQ_K3 && (causal || y32 != nullptr)) return (int)cudaErrorInvalidValue;
-  if (D < 1 || hdp < 64 || hdp % 64 || DA < D) return (int)cudaErrorInvalidValue;
-  if (variant != AQ_K3 && (hdp != 64 || DK != D || NQKV != 3 * D || NO != D))
+  if (D < 1 || heads < 1 || D % heads || hdp < 64 || hdp % 64 || DA < D)
     return (int)cudaErrorInvalidValue;
-  if (y32 != nullptr && NO != D) return (int)cudaErrorInvalidValue;
   const bool recip = variant == AQ_VAR, mxu = variant == AQ_ATTR_MXU, vpu = variant == AQ_ATTR_VPU;
   cudaError_t e;
   if (mxu) {
     e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
-                             static_cast<float*>(xs), M, D, st);
+                             static_cast<float*>(xs), M, D, st, DK);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
     if (e != cudaSuccess) return (int)e;
     e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
                                                     static_cast<int8_t*>(xq),
-                                                    static_cast<float*>(xs), nullptr, M, D, st)
+                                                    static_cast<float*>(xs), nullptr, M, DK, st)
               : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
                                   static_cast<float*>(xs), M, DK, st);
   }
   if (e != cudaSuccess) return (int)e;
   if (vpu) {
     e = launch_bcast_rows<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-                                   D, static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, st);
+                                   DK, static_cast<const float*>(bqkv), nullptr, qkv, M, NQKV, st);
     if (e != cudaSuccess) return (int)e;
-    e = launch_attention_vpu_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, D,
-                                  heads, st);
+    e = launch_attention_vpu_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S,
+                                  heads, D / heads, hdp, NQKV, scale, st);
   } else if (variant == AQ_QQ) {
     e = launch_gemm_s8<EQ_BIAS_F32>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                                     static_cast<const int8_t*>(wqkv_t),
                                     static_cast<const float*>(sqkv),
-                                    static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D,
+                                    static_cast<const float*>(bqkv), nullptr, qkv, M, NQKV, DK,
                                     st);
     if (e != cudaSuccess) return (int)e;
     e = launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(attn), nullptr,
-                            nullptr, nullptr, B, S, D, heads, 3 * D, st);
+                            nullptr, nullptr, qq_ws, B, S, heads, hdp, NQKV, scale, st);
   } else {
     e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                                 static_cast<const int8_t*>(wqkv_t),
@@ -964,25 +1054,26 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
   if (e != cudaSuccess) return (int)e;
   if (mxu)
     e = launch_cast_s8<false>(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
-                              static_cast<float*>(ascale), M, D, st);
+                              static_cast<float*>(ascale), M, DA, st);
   else if (recip)
     e = launch_quant_rows_mode<true, false>(static_cast<const bf16*>(attn),
                                             static_cast<int8_t*>(aq),
-                                            static_cast<float*>(ascale), nullptr, M, D, st);
+                                            static_cast<float*>(ascale), nullptr, M, DA, st);
   else
     e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
                           static_cast<float*>(ascale), M, DA, st);
   if (e != cudaSuccess) return (int)e;
   if (vpu)
     e = launch_bcast_rows<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
-                                         static_cast<const float*>(ascale), D,
+                                         static_cast<const float*>(ascale), DA,
                                          static_cast<const float*>(bo), x, out, M, D, st);
   else if (y32 != nullptr)
     e = launch_gemm_s8<EQ_BIAS_RESID_Y>(static_cast<const int8_t*>(aq),
                                         static_cast<const float*>(ascale),
                                         static_cast<const int8_t*>(wo_t),
                                         static_cast<const float*>(so),
-                                        static_cast<const float*>(bo), x, y32, M, D, D, st, out);
+                                        static_cast<const float*>(bo), x, y32, M, NO, DA, st, out,
+                                        0, D);
   else
     e = launch_gemm_s8<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
                                       static_cast<const float*>(ascale),
@@ -1002,8 +1093,8 @@ enum MlpQVariant {
 // in f32.  x, out [M, D] bf16; w1_t [F, D], w2_t [D, F] int8 (transposed);
 // s1, b1 [F], s2, b2, ln_s, ln_b [D] f32.  Scratch: xn [M, D] bf16, xq
 // [M, D] int8, xs [M] f32, h [M, F] f32, hq [M, F] int8, hs [M] f32.
-// act_kind 0 = quick_gelu, 1 = erf gelu (A&S); the model's own widths for
-// the variants, the padded layout's below for K4.
+// act_kind 0 = quick_gelu, 1 = erf gelu (A&S); the padded layout's widths
+// below for every variant.
 // MQ_BF16H: h [M, F] bf16 holds bf16(deq + b1) (EQ_BIAS) and the hidden's
 // quantize pass applies quick_gelu (g, if not null, [M, F] f32 receives
 // it).  MQ_VAR / MQ_VAR_BF16_GELU: the reciprocal quantizer on x and h,
@@ -1021,23 +1112,22 @@ enum MlpQVariant {
 // that chunk's row scales (EQ_RESID_BIAS_CHUNK).  resid32, if not null, is
 // the f32 residual [M, D] the down product adds in place of x (the layer's
 // y; x then is bf16(y), LayerNorm's input); k == 1 with it.
-// K4 runs any D and F on the padded operand layout of
+// Every variant runs any D and F on the padded operand layout of
 // ops/fused_block.py::mlp_plan: F here is the padded hidden width, each of
 // the k chunks of the model's F / k hidden columns rounded up to 128 with
 // zero columns of w1_t (rows of [F, DK]), s1 and b1 (gelu(0) = 0: the same
 // amax, the same codes) and zero columns of w2_t [D rounded up to 128, F];
 // xn, xq [M, DK] (D rounded up to 64, zeros past D); s2, b2 zero past D.
-// The other variants take the model's own widths (D, F % 128 == 0).
+// fv: the model's hidden width (k == 1; the "vpu" broadcast writes 0 past
+// it, where the zero weights would).
 int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                      const void* s1, const void* b1, const void* w2_t, const void* s2,
                      const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                      void* hs, void* g, int M, int D, int F, int act_kind, int variant,
-                     void* stream, int k = 1, const float* resid32 = nullptr) {
+                     void* stream, int k = 1, const float* resid32 = nullptr, int fv = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int DK = round_up(D, 64), NO = round_up(D, SBN);
   if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
-  if ((variant != MQ_K4 || resid32 != nullptr) && (DK != D || NO != D))
-    return (int)cudaErrorInvalidValue;
   if (k < 1 || F % k || (F / k) % SBK) return (int)cudaErrorInvalidValue;
   if ((k > 1 || resid32 != nullptr) && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   if (k > 1 && resid32 != nullptr) return (int)cudaErrorInvalidValue;
@@ -1050,30 +1140,31 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   cudaError_t e;
   if (mxu) {
     e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
-                             static_cast<float*>(xs), M, D, st);
+                             static_cast<float*>(xs), M, D, st, DK);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
     if (e != cudaSuccess) return (int)e;
     e = recip ? launch_quant_rows_mode<true, false>(static_cast<const bf16*>(xn),
                                                     static_cast<int8_t*>(xq),
-                                                    static_cast<float*>(xs), nullptr, M, D, st)
+                                                    static_cast<float*>(xs), nullptr, M, DK, st)
               : launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
                                   static_cast<float*>(xs), M, DK, st);
   }
   if (e != cudaSuccess) return (int)e;
   switch (variant) {
     case MQ_ATTR_MXU:
-      e = launch_gemm_s8<EQ_BIAS_S8>(ixq, fxs, w1, fs1, fb1, nullptr, hq, M, F, D, st, hs);
+      e = launch_gemm_s8<EQ_BIAS_S8>(ixq, fxs, w1, fs1, fb1, nullptr, hq, M, F, DK, st, hs);
       break;
     case MQ_ATTR_VPU:
-      e = launch_bcast_rows<EQ_BIAS_QGELU>(ixq, fxs, D, fb1, nullptr, h, M, F, st);
+      e = launch_bcast_rows<EQ_BIAS_QGELU>(ixq, fxs, DK, fb1, nullptr, h, M, F, st, F,
+                                           fv == 0 ? F : fv);
       break;
     case MQ_BF16H:
-      e = launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+      e = launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
       break;
     case MQ_VAR_BF16_GELU:
-      e = launch_gemm_s8<EQ_BIAS_QGELU_BF16>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, D, st);
+      e = launch_gemm_s8<EQ_BIAS_QGELU_BF16>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
       break;
     default:
       e = act_kind == 0 ? launch_gemm_s8<EQ_BIAS_QGELU>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st)
@@ -1103,7 +1194,8 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
     e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr,
                                             F / k / SBK, D);
   else if (resid32 != nullptr)
-    e = launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, resid32, out, M, D, F, st);
+    e = launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, resid32, out, M, NO, F, st,
+                                        nullptr, 0, D);
   else
     e = launch_gemm_s8<EQ_RESID_BIAS>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr, 0, D);
   return (int)e;
@@ -1125,52 +1217,52 @@ int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, con
                                 stream);
 }
 
-// KB (a) 1, attention_block_qq: K3's arguments, qkv [B*S, 3D] f32, causal 0.
+// The KB variants (attention_block_q_impl's AQ_*): K3's arguments and
+// padded layout, causal 0.  KB (a) 1, attention_block_qq: qkv [B*S, NQKV]
+// f32, ws the int8 core's workspace (qq_ws_bytes; null on its register
+// route).  KB (a) 4, attn_q_kernel_var.  benchmarks/q_ilp4.py's head-pair
+// packed kernel (make_kernel): the row sum divided out after P V.
+// benchmarks/q_attribution.py's attn_kernel, modes "mxu" (xn unwritten) and
+// "vpu".
 int dvl_attention_block_qq(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                            const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
-                           void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
-                           int causal, void* stream) {
+                           void* attn, void* aq, void* ascale, void* ws, int B, int S, int D,
+                           int heads, int hdp, int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal, AQ_QQ,
-                                stream);
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal, AQ_QQ,
+                                stream, nullptr, ws);
 }
 
-// KB (a) 4, attn_q_kernel_var: K3's arguments, causal 0.
-int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b,
-                              const void* wqkv_t, const void* sqkv, const void* bqkv,
-                              const void* wo_t, const void* so, const void* bo, void* out,
-                              void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
-                              void* ascale, int B, int S, int D, int heads, int causal,
-                              void* stream) {
+int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
+                              const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
+                              const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
+                              void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
+                              int hdp, int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal,
                                 AQ_VAR, stream);
 }
 
-// benchmarks/q_ilp4.py's head-pair packed kernel (make_kernel): K3's
-// arguments, causal 0; the row sum divided out after P V.
 int dvl_attention_block_q_postdiv(const void* x, const void* ln_s, const void* ln_b,
                                   const void* wqkv_t, const void* sqkv, const void* bqkv,
                                   const void* wo_t, const void* so, const void* bo, void* out,
                                   void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
-                                  void* ascale, int B, int S, int D, int heads, int causal,
-                                  void* stream) {
+                                  void* ascale, int B, int S, int D, int heads, int hdp, int causal,
+                                  float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal,
                                 AQ_POSTDIV, stream);
 }
 
-// benchmarks/q_attribution.py's attn_kernel, modes "mxu" and "vpu": K3's
-// arguments, causal 0; "mxu" leaves xn unwritten.
 int dvl_attention_block_q_attr_mxu(const void* x, const void* ln_s, const void* ln_b,
                                    const void* wqkv_t, const void* sqkv, const void* bqkv,
                                    const void* wo_t, const void* so, const void* bo, void* out,
                                    void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
-                                   void* ascale, int B, int S, int D, int heads, int causal,
-                                   void* stream) {
+                                   void* ascale, int B, int S, int D, int heads, int hdp,
+                                   int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal,
                                 AQ_ATTR_MXU, stream);
 }
 
@@ -1178,22 +1270,30 @@ int dvl_attention_block_q_attr_vpu(const void* x, const void* ln_s, const void* 
                                    const void* wqkv_t, const void* sqkv, const void* bqkv,
                                    const void* wo_t, const void* so, const void* bo, void* out,
                                    void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
-                                   void* ascale, int B, int S, int D, int heads, int causal,
-                                   void* stream) {
+                                   void* ascale, int B, int S, int D, int heads, int hdp,
+                                   int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
-                                qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, causal,
+                                qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal,
                                 AQ_ATTR_VPU, stream);
 }
 
-// KB (a) 1's int8 core alone: qkv [B*S, 3D] f32 -> out [B*S, D] bf16;
-// p_out [B, H, S, S] f32, pq_out [B, H, S, S] int8 and psc_out [B, H, S]
-// f32 may be null.  Head dim 64, 1 <= S <= 256.
+// KB (a) 1's int8 core alone: qkv [B*S, 3 heads hdp] f32 (head h's q, k, v
+// at columns h hdp, DA + h hdp, 2 DA + h hdp, zero lanes past its hd) ->
+// out [B*S, heads hdp] bf16; p_out [B, H, S, S] f32, pq_out [B, H, S, S]
+// int8 and psc_out [B, H, S] f32 may be null; ws: qq_ws_bytes(B, S, heads,
+// hdp) bytes (null on the register route: hdp 64, S <= 256).  Any S >= 1.
 int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out, void* psc_out,
-                          int B, int S, int D, int heads, void* stream) {
+                          void* ws, int B, int S, int heads, int hdp, float scale, void* stream) {
   return (int)launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(out),
                                   static_cast<float*>(p_out), static_cast<int8_t*>(pq_out),
-                                  static_cast<float*>(psc_out), B, S, D, heads, 3 * D,
-                                  reinterpret_cast<cudaStream_t>(stream));
+                                  static_cast<float*>(psc_out), ws, B, S, heads, hdp,
+                                  3 * heads * hdp, scale, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The int8 core's workspace in bytes for the tiled route (0 on the register
+// route), as launch_attention_qq lays it out.
+long long dvl_qq_ws_bytes(int B, int S, int heads, int hdp) {
+  return qq_tiled(S, hdp) ? qq_ws_bytes(B, S, heads, hdp) : 0;
 }
 
 // K4 (mlp_block_q_impl's MQ_K4), its hidden in k F-chunks (k = 1: the
@@ -1211,8 +1311,9 @@ int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const voi
 // K3's launches with the out-projection keeping y = x + (deq + bo) in f32
 // (y32 [B*S, D]) beside its bf16 rounding yb, then K4's on LN(yb) with the
 // down product adding the f32 y: out = bf16((y + b2) + deq), quick_gelu as
-// the script's.  The attention half's arguments and scratch are K3's (a_*),
-// the MLP half's K4's (m_*).
+// the script's.  The attention half's arguments and scratch are K3's (a_*,
+// at hdp and scale), the MLP half's K4's (m_*, F the padded hidden width),
+// both on their padded layouts.
 int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const void* wqkv_t,
                       const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                       const void* bo, const void* ln2_s, const void* ln2_b, const void* w1_t,
@@ -1220,9 +1321,9 @@ int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const
                       const void* b2, void* out, void* a_xn, void* a_xq, void* a_xs, void* qkv,
                       void* attn, void* aq, void* ascale, void* y32, void* yb, void* m_xn,
                       void* m_xq, void* m_xs, void* h, void* hq, void* hs, int B, int S, int D,
-                      int F, int heads, void* stream) {
+                      int F, int heads, int hdp, float scale, void* stream) {
   int e = attention_block_q_impl(x, ln1_s, ln1_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, yb, a_xn,
-                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, 64, 0.125f, 0,
+                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, 0,
                                  AQ_K3, stream, y32);
   if (e != 0) return e;
   return mlp_block_q_impl(yb, ln2_s, ln2_b, w1_t, s1, b1, w2_t, s2, b2, out, m_xn, m_xq, m_xs, h,
@@ -1233,88 +1334,95 @@ int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const
 // KB (a) 2 / 3 and the attribution's MLP: K4's arguments, g (MQ_BF16H's
 // f32 activation, or null) before M, and the variant (1 bf16h, 2 reciprocal
 // quantizer, 3 reciprocal quantizer and bf16 quick_gelu, 4 q_attribution.py's
-// "mxu", 5 its "vpu") in place of act_kind.
+// "mxu", 5 its "vpu") in place of act_kind; F the padded hidden width, fv
+// the model's.
 int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                        const void* s1, const void* b1, const void* w2_t, const void* s2,
                        const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
-                       void* hs, void* g, int M, int D, int F, int variant, void* stream) {
+                       void* hs, void* g, int M, int D, int F, int fv, int variant, void* stream) {
   if (variant < MQ_BF16H || variant > MQ_ATTR_VPU) return (int)cudaErrorInvalidValue;
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
-                          g, M, D, F, 0, variant, stream);
+                          g, M, D, F, 0, variant, stream, 1, nullptr, fv);
 }
 
-// A tensor-parallel slot's int8 attention up to its out-projection: LN ->
-// quantize x (every slot of a row quantizes the same x: the same codes) ->
-// s8 QKV GEMM on the slot's columns -> the core on its g heads -> the row
-// amax of its attention rows (amax [B*S] f32).  wqkv_t [ld, D] int8 (the
-// group's q, k, v output channels, then zero rows up to ld, a multiple of
-// 128), sqkv and bqkv [ld] f32.  Scratch: xn [B*S, D] bf16, xq [B*S, D]
-// int8, xs [B*S] f32, qkv [B*S, ld] bf16, attn [B*S, 64 g] bf16.
+// A tensor-parallel slot's int8 attention up to its out-projection, on the
+// group's padded layout (ops/fused_block.py::group_plan): LN -> quantize x
+// (every slot of a row quantizes the same x: the same codes) -> s8 QKV GEMM
+// on the slot's columns -> the core on its g heads -> the row amax of its
+// attention rows (amax [B*S] f32; the padded lanes are 0).  wqkv_t [NQKV,
+// DK] int8 (the group's q, k, v output channels at hdp lanes a head, zero
+// rows up to NQKV = 3 g hdp rounded up to 128), sqkv and bqkv [NQKV] f32.
+// Scratch: xn [B*S, DK] bf16, xq [B*S, DK] int8, xs [B*S] f32, qkv [B*S,
+// NQKV] bf16, attn [B*S, g hdp] bf16.  scale: the true head dim's hd^-0.5.
 int dvl_attention_block_q_heads(const void* x, const void* ln_s, const void* ln_b,
                                 const void* wqkv_t, const void* sqkv, const void* bqkv, void* xn,
                                 void* xq, void* xs, void* qkv, void* attn, void* amax, int B,
-                                int S, int D, int g, int ld, int causal, void* stream) {
+                                int S, int D, int g, int hdp, int causal, float scale,
+                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S, dg = 64 * g;
+  const int M = B * S, DK = round_up(D, 64), DA = g * hdp, NQKV = round_up(3 * DA, SBN);
+  if (g < 1 || hdp < 64 || hdp % 64) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
   if (e != cudaSuccess) return (int)e;
   e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, D, st);
+                        static_cast<float*>(xs), M, DK, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                               static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
-                              static_cast<const float*>(bqkv), nullptr, qkv, M, ld, D, st);
+                              static_cast<const float*>(bqkv), nullptr, qkv, M, NQKV, DK, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, g, 64,
-                             causal, st, ld, 1.0f / sqrtf(64.0f), 0);
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, g, hdp,
+                             causal, st, NQKV, scale, 0);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_row_amax(static_cast<const bf16*>(attn), static_cast<float*>(amax), M, dg, st);
+  return (int)launch_row_amax(static_cast<const bf16*>(attn), static_cast<float*>(amax), M, DA, st);
 }
 
-// A tensor-parallel slot's int8 MLP up to its down-projection: LN ->
-// quantize x -> s8 up GEMM on the slot's Fj hidden columns with the
-// activation (h [M, Fj] f32) -> the row amax of h (amax [M] f32).  w1_t
-// [Fj, D] int8, s1 and b1 [Fj] f32.  Scratch: xn [M, D] bf16, xq [M, D] int8,
-// xs [M] f32.  Fj % 128 == 0.
+// A tensor-parallel slot's int8 MLP up to its down-projection, on mlp_plan's
+// layout of its hidden columns: LN -> quantize x -> s8 up GEMM with the
+// activation (h [M, Fp] f32, zero past the slot's Fj columns) -> the row
+// amax of h (amax [M] f32).  w1_t [Fp, DK] int8, s1 and b1 [Fp] f32 (zero
+// past Fj).  Scratch: xn [M, DK] bf16, xq [M, DK] int8, xs [M] f32.
 int dvl_mlp_block_q_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                          const void* s1, const void* b1, void* xn, void* xq, void* xs, void* h,
-                         void* amax, int M, int D, int Fj, int act_kind, void* stream) {
+                         void* amax, int M, int D, int Fp, int act_kind, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int DK = round_up(D, 64);
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st);
+                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
   if (e != cudaSuccess) return (int)e;
   e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, D, st);
+                        static_cast<float*>(xs), M, DK, st);
   if (e != cudaSuccess) return (int)e;
   if (act_kind == 0)
     e = launch_gemm_s8<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
                                      static_cast<const float*>(xs),
                                      static_cast<const int8_t*>(w1_t),
                                      static_cast<const float*>(s1),
-                                     static_cast<const float*>(b1), nullptr, h, M, Fj, D, st);
+                                     static_cast<const float*>(b1), nullptr, h, M, Fp, DK, st);
   else
     e = launch_gemm_s8<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
                                     static_cast<const float*>(xs),
                                     static_cast<const int8_t*>(w1_t),
                                     static_cast<const float*>(s1),
-                                    static_cast<const float*>(b1), nullptr, h, M, Fj, D, st);
+                                    static_cast<const float*>(b1), nullptr, h, M, Fp, DK, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_row_amax(static_cast<const float*>(h), static_cast<float*>(amax), M, Fj, st);
+  return (int)launch_row_amax(static_cast<const float*>(h), static_cast<float*>(amax), M, Fp, st);
 }
 
 // The row-parallel product of one slot: a [M, K] (bf16 if a_f32 == 0, else
 // f32) quantized at the row scale max_j(amaxes[j]) / 127 (clamped at 1e-8)
-// into aq [M, K] int8 and ascale [M] f32, then out [M, N] int32 = aq @
-// wt^T, wt [N, K] int8 (the slot's input rows of the weight, transposed).
-// amaxes: a host array of m <= 8 device pointers to [M] f32.  K % 16 == 0.
+// into aq [M, K] int8 and ascale [M] f32, then out [M, ldc] int32 = aq @
+// wt^T, wt [N, K] int8 (the slot's input rows of the weight, transposed; N
+// a multiple of 128, its rows past ldc zero).  amaxes: a host array of 1 <=
+// m <= TP_PARTS device pointers to [M] f32.  K % 16 == 0.
 int dvl_rows_q_partial(const void* a, int a_f32, const void* const* amaxes, int m,
                        const void* wt, void* aq, void* ascale, void* out, int M, int N, int K,
-                       void* stream) {
+                       int ldc, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (m < 1 || m > TP_MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > TP_PARTS) return (int)cudaErrorInvalidValue;
   TpPtrs am{};
   for (int j = 0; j < m; ++j) am.p[j] = amaxes[j];
   if (a_f32)
@@ -1329,26 +1437,26 @@ int dvl_rows_q_partial(const void* a, int a_f32, const void* const* amaxes, int 
   if (e != cudaSuccess) return (int)e;
   return (int)launch_gemm_s8<EQ_I32>(static_cast<const int8_t*>(aq), nullptr,
                                      static_cast<const int8_t*>(wt), nullptr, nullptr, nullptr, out,
-                                     M, N, K, st);
+                                     M, N, K, st, nullptr, 0, ldc);
 }
 
-// out [M, N] bf16 from m <= 8 int32 partials (a host array of device
-// pointers), summed exactly, dequantized with ascale [M] and w_scale [N],
-// + bias [N] + resid [M, N] bf16 in the order bias_first picks (0: the
-// attention half's, 1: the MLP half's).  N % 8 == 0.
+// out [M, N] bf16 from 1 <= m <= TP_PARTS int32 partials (a host array of
+// device pointers), summed exactly, dequantized with ascale [M] and w_scale
+// [N], + bias [N] + resid [M, N] bf16 in the order bias_first picks (0: the
+// attention half's, 1: the MLP half's).
 int dvl_tp_reduce_q(const void* const* parts, int m, const void* ascale, const void* w_scale,
-                    const void* bias, const void* resid, void* out, int M, int N, int bias_first,
-                    void* stream) {
-  if (m < 1 || m > TP_MAX_SLOTS || N % 8 || M < 1) return (int)cudaErrorInvalidValue;
+                    const void* bias, const void* resid, void* out, int M, int N,
+                    int bias_first, void* stream) {
+  if (m < 1 || m > TP_PARTS || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   TpPtrs pp{};
   for (int j = 0; j < m; ++j) pp.p[j] = parts[j];
-  const long long total8 = (long long)M * N / 8;
+  const long long total = (long long)M * N;
   const int threads = 256;
-  tp_reduce_q_kernel<<<(unsigned)((total8 + threads - 1) / threads), threads, 0,
+  tp_reduce_q_kernel<<<(unsigned)((total / 8 + threads) / threads), threads, 0,
                        reinterpret_cast<cudaStream_t>(stream)>>>(
       pp, m, static_cast<const float*>(ascale), static_cast<const float*>(w_scale),
       static_cast<const float*>(bias), static_cast<const bf16*>(resid), static_cast<bf16*>(out),
-      total8, N, bias_first);
+      total, N, bias_first);
   return (int)cudaGetLastError();
 }
 

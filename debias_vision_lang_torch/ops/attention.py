@@ -20,12 +20,14 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
                           float32 with both products on the tensor cores as
                           3xTF32, big*big + big*small + small*big of TF32
                           halves, within 2e-5 of the twin), or the long
-                          route for every other shape with a head dim up
-                          to 192 (two passes over 64-key tiles on TMA-fed
-                          wgmma: the row max and a rescaled row sum, then
-                          the normalised P V; the head dim zero-padded to
-                          64, 128 or 192 with the original head dim's
-                          scale, as the JAX function pads to 128 lanes)
+                          route for every other shape, any head dim (two
+                          passes over 64-key tiles on TMA-fed wgmma: the
+                          row max and a rescaled row sum, then the
+                          normalised P V; the head dim zero-padded to a
+                          multiple of 64 with the original head dim's
+                          scale, as the JAX function pads to 128 lanes;
+                          past 192 dims one 64-dim output chunk a block,
+                          Q's chunks streamed through the K ring)
   attention               dispatch: ``use_pallas=True`` goes through
                           ``attention_pallas`` with a backward that
                           differentiates the twin (``_attention_pallas_bwd``)
@@ -50,7 +52,6 @@ from ..utils.observability import check_nans
 LAUNCHES: Dict[str, int] = {"attention_pallas": 0, "attention_pallas_long": 0}
 HEAD_DIM = 64   # the short routes' head dim, and the long route's dim tile
 SHORT_MAX_SEQ = 320  # keys per score row the short routes hold in registers
-LONG_MAX_HEAD_DIM = 192  # the long route's widest padded head dim
 
 
 def reset_launches() -> None:
@@ -167,9 +168,6 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError("q, k, v and mask must be on one device")
     route = _plan(s, hd)
     hdp = _padded_head_dim(hd)
-    if hdp > LONG_MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernel takes head dims up to "
-                         f"{LONG_MAX_HEAD_DIM}, got {hd}")
     # the heads-first layout comes from a transpose: copy views to rows; the
     # kernels take 16-byte aligned bases
     q, k, v = (_aligned(_pad_head_dim(t, hdp).contiguous()) for t in (q, k, v))
@@ -197,9 +195,8 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
 def attention_pallas(q, k, v, mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd) + mask) v over [B, H, S, hd], any S: the
-    CUDA kernels (``csrc/attention.cu``, the route from ``_plan``; head dims
-    up to 192) on a CUDA tensor, ``attention_kernel_math`` on a CPU tensor
-    (any head dim)."""
+    CUDA kernels (``csrc/attention.cu``, the route from ``_plan``; any head
+    dim) on a CUDA tensor, ``attention_kernel_math`` on a CPU tensor."""
     if mask is None:
         mask = _zero_mask(q)
     if q.device.type == "cpu":

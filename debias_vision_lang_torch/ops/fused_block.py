@@ -54,13 +54,18 @@ counts them):
                           one rounding
 
 All three block entries run one CUDA entry (``dvl_attention_block_heads`` /
-``dvl_mlp_block_cols``) on K1 / K2's GEMMs and core.
+``dvl_mlp_block_cols``) on K1 / K2's GEMMs and core, each slot's operands on
+a padded layout (``group_plan``: any head dim and any group of heads in a
+model of width D; ``mlp_plan`` of its hidden columns), the identity at head
+dim 64 and D % 128 == 0.  ``tp_reduce`` sums up to ``TP_PARTS`` partials
+in one launch, in slot order.
 
 KB (a) 5 (``KB_LAUNCHES``): ``attention_block_opt`` (benchmarks/
 attn_variants.py::attention_block_opt) is K1 with q pre-scaled by hd^-0.5
 log2 e (``prescale_qkv``), exp2 and the softmax normalised after P @ V,
 then K1's one out-projection over the concatenated heads
-(``dvl_attention_block_opt``).
+(``dvl_attention_block_opt``, on ``attn_plan``'s layout: any D and head
+dim).
 """
 
 from __future__ import annotations
@@ -86,7 +91,7 @@ TP_LAUNCHES: Dict[str, int] = {"attention_block_heads": 0,
                                "mlp_block_cols": 0,
                                "tp_reduce": 0}
 KB_LAUNCHES: Dict[str, int] = {"attention_block_opt": 0}
-MAX_TP_SLOTS = 8  # partials one reduce launch sums
+TP_PARTS = 256  # partials one reduce launch sums (the kernels' pointer arrays)
 LOG2E = math.log2(math.e)
 ACT_KINDS = ("quick_gelu", "gelu")
 MAX_SEQ = 320  # keys per score row the CUDA attention core holds in registers
@@ -144,8 +149,9 @@ class AttnPlan(NamedTuple):
 
     @property
     def identity(self) -> bool:
-        return (self.hd == self.hdp and self.dk == self.d and self.nqkv == 3 * self.d
-                and self.no == self.d)
+        """Head dim 64 and D % 128 == 0: the model's own layout (for a head
+        group, up to zero rows that pad the qkv GEMM's N to its tile)."""
+        return self.hd == self.hdp and self.no == self.d
 
     @property
     def scale(self) -> float:
@@ -158,8 +164,9 @@ class AttnPlan(NamedTuple):
         return (i * self.da + h * self.hdp + l).reshape(-1)
 
     def head_lanes(self) -> torch.Tensor:
-        """Where each of the D attention columns lands in the padded row."""
-        return self.qkv_columns()[:self.d]
+        """Where each of the heads x hd attention columns lands in the
+        padded row."""
+        return self.qkv_columns()[:self.heads * self.hd]
 
     def crop_heads(self, t: torch.Tensor) -> torch.Tensor:
         """[..., da] padded attention rows -> [..., D]."""
@@ -169,10 +176,19 @@ class AttnPlan(NamedTuple):
 def attn_plan(d: int, heads: int) -> AttnPlan:
     if heads < 1 or d < 1 or d % heads:
         raise ValueError(f"D={d} is not divisible by heads={heads}")
-    hd = d // heads
+    return group_plan(d, d // heads, heads)
+
+
+def group_plan(d: int, hd: int, g: int) -> AttnPlan:
+    """The layout of a head group of the attention block (a tensor-parallel
+    slot's, KB (a) 6's): g heads of head dim hd in a model of width D (its
+    LayerNorm, K edge and out-projection N); g hd need not be D."""
+    if g < 1 or d < 1 or hd < 1:
+        raise ValueError(f"a head group needs g >= 1 heads of hd >= 1 in D >= 1, got "
+                         f"g={g} hd={hd} D={d}")
     hdp = round_up(hd, 64)
-    da = heads * hdp
-    return AttnPlan(d, heads, hd, hdp, round_up(d, GEMM_K), da, round_up(3 * da, GEMM_N),
+    da = g * hdp
+    return AttnPlan(d, g, hd, hdp, round_up(d, GEMM_K), da, round_up(3 * da, GEMM_N),
                     round_up(d, GEMM_N))
 
 
@@ -339,26 +355,28 @@ def mlp_block_padded(x, ln_s, ln_b, w1_p, b1_p, w2_p, b2_p, *, plan: MlpPlan,
 
 
 def attn_operands(wqkv, bqkv, wo, bo, plan: AttnPlan):
-    """K1's kernel operands on ``plan``'s layout: wqkv [D, 3D] and wo [D,
-    D] K-major in bf16 with each head's q, k, v columns and wo rows at hdp
-    lanes, zeros elsewhere; the biases f32 alike."""
+    """K1's kernel operands on ``plan``'s layout: wqkv [D, 3 heads hd] and
+    wo [heads hd, D] K-major in bf16 with each head's q, k, v columns and wo
+    rows at hdp lanes, zeros elsewhere; the biases f32 alike (a head group's
+    partial has no ``bo``: None leaves it out)."""
     bf = torch.bfloat16
     cols = plan.qkv_columns()
-    return (place(wqkv.detach().to(bf).t(), (plan.nqkv, plan.dk), rows=cols),
-            place(bqkv.detach().float(), (plan.nqkv,), rows=cols),
-            place(wo.detach().to(bf).t(), (plan.no, plan.da), cols=plan.head_lanes()),
-            place(bo.detach().float(), (plan.no,)))
+    ops = (place(wqkv.detach().to(bf).t(), (plan.nqkv, plan.dk), rows=cols),
+           place(bqkv.detach().float(), (plan.nqkv,), rows=cols),
+           place(wo.detach().to(bf).t(), (plan.no, plan.da), cols=plan.head_lanes()))
+    return ops if bo is None else (*ops, place(bo.detach().float(), (plan.no,)))
 
 
 def mlp_operands(w1, b1, w2, b2, plan: MlpPlan):
     """K2's kernel operands on ``plan``'s layout: w1 [D, F] and w2 [F, D]
-    K-major in bf16 with the hidden's columns at their padded lanes."""
+    K-major in bf16 with the hidden's columns at their padded lanes (a
+    slot's partial has no ``b2``: None leaves it out)."""
     bf = torch.bfloat16
     cols = plan.hidden_columns()
-    return (place(w1.detach().to(bf).t(), (plan.fp, plan.dk), rows=cols),
-            place(b1.detach().float(), (plan.fp,), rows=cols),
-            place(w2.detach().to(bf).t(), (plan.no, plan.fp), cols=cols),
-            place(b2.detach().float(), (plan.no,)))
+    ops = (place(w1.detach().to(bf).t(), (plan.fp, plan.dk), rows=cols),
+           place(b1.detach().float(), (plan.fp,), rows=cols),
+           place(w2.detach().to(bf).t(), (plan.no, plan.fp), cols=cols))
+    return ops if b2 is None else (*ops, place(b2.detach().float(), (plan.no,)))
 
 
 def _head_qkv(qkv: torch.Tensor, heads: int, h: int):
@@ -501,7 +519,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvl_attention_block.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.dvl_attention_block.restype = i
-        lib.dvl_attention_block_opt.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.dvl_attention_block_opt.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.dvl_attention_block_opt.restype = i
         lib.dvl_mlp_block.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block.restype = i
@@ -546,16 +564,13 @@ def _operand(t: torch.Tensor, dtype, shape, name: str,
 _KMAJOR = WeakIdKeyDictionary()
 
 
-def _kmajor(w: torch.Tensor, shape, name: str, device, n_pad=None) -> torch.Tensor:
-    """The [N, K] bf16 copy of a [K, N] weight; ``n_pad`` appends zero rows
-    up to that N (a head group's q | k | v slice to the GEMM's N tile)."""
-    key = (w.data_ptr(), w._version, n_pad)
+def _kmajor(w: torch.Tensor, shape, name: str, device) -> torch.Tensor:
+    """The [N, K] bf16 copy of a [K, N] weight."""
+    key = (w.data_ptr(), w._version)
     hit = _KMAJOR.get(w)
     if hit is not None and hit[0] == key:
         return hit[1]
     t = _operand(w.detach(), torch.bfloat16, shape, name, device).t().contiguous()
-    if n_pad is not None and n_pad > t.shape[0]:
-        t = torch.cat([t, t.new_zeros(n_pad - t.shape[0], t.shape[1])])
     _KMAJOR[w] = (key, t)
     return t
 
@@ -609,23 +624,9 @@ def _mlp_kernel_ops(w1, b1, w2, b2, plan: MlpPlan, device):
                    lambda: mlp_operands(w1, b1, w2, b2, plan))
 
 
-def padded_n(n: int) -> int:
-    """N rounded up to the CUDA GEMM's 128-column tile: a head group's q | k
-    | v slice is 192 g columns (576 at g = 3), zero-padded to this."""
-    return -(-n // GEMM_N) * GEMM_N
-
-
 def _padded_bias(b: torch.Tensor, n: int, n_pad: int, name: str, device) -> torch.Tensor:
     t = _operand(b, torch.float32, (n,), name, device)
     return torch.cat([t, t.new_zeros(n_pad - n)]) if n_pad > n else t
-
-
-def _check_gemm(n: int, k: int, what: str) -> None:
-    """The split entries' (``parallel/tensor.py``) widths: their kernels
-    read the slices unpadded."""
-    if n % GEMM_N or k % GEMM_K:
-        raise ValueError(f"the CUDA GEMM takes N % {GEMM_N} == 0 and K % {GEMM_K} "
-                         f"== 0, got N={n} K={k} ({what})")
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -650,16 +651,13 @@ def _stream_ptr(device) -> ctypes.c_void_p:
 
 def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal, opt=False):
     """K1's launch on ``attn_plan``'s layout (any D and head dim), or with
-    ``opt`` KB (a) 5's (``dvl_attention_block_opt``: the same arguments, q
-    pre-scaled, no causal mask; the model's own widths only)."""
+    ``opt`` KB (a) 5's (``dvl_attention_block_opt``: the same arguments and
+    layout, q pre-scaled, no causal mask)."""
     _check_x(x)
     b, s, d = x.shape
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
     plan = attn_plan(d, heads)
-    if opt and not plan.identity:
-        raise ValueError(f"KB (a) 5's CUDA entry takes head dim 64 and D % {GEMM_N} == 0, "
-                         f"got D={d} heads={heads}")
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
@@ -673,7 +671,7 @@ def _attention_block_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, causal, opt=
     ptrs = (x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
             xn.data_ptr(), qkv.data_ptr(), attn.data_ptr())
     if opt:
-        err = _lib().dvl_attention_block_opt(*ptrs, b, s, d, heads, _stream_ptr(dev))
+        err = _lib().dvl_attention_block_opt(*ptrs, b, s, d, heads, plan.hdp, _stream_ptr(dev))
         _raise_on(err, "dvl_attention_block_opt")
         KB_LAUNCHES["attention_block_opt"] += 1
     else:
@@ -710,62 +708,58 @@ def _mlp_block_cuda(x, ln_s, ln_b, w1, b1, w2, b2, act_kind):
     return out
 
 
-def _attention_heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, bo, g, causal, prescaled,
-                          counter, kmajor=None):
-    """``dvl_attention_block_heads`` on a head group's packed operands
-    (``wqkv`` [D, 3 g 64], ``bqkv``, ``wo`` [64 g, D], unless ``kmajor``
-    gives the kernel's copies: the padded [N, D] wqkv, its bias, the [D,
-    64 g] wo); the f32 partial, or with ``bo`` the bf16 block output."""
+def _group_kernel_ops(wqkv, bqkv, wo, plan: AttnPlan, device):
+    """A head group's weights as ``dvl_attention_block_heads`` reads them
+    (``wqkv`` [D, 3 g hd], ``bqkv``, ``wo`` [g hd, D]): ``attn_operands`` on
+    ``plan`` (``group_plan``; at head dim 64 and D % 128 == 0 the K-major
+    copies with zero rows up to the qkv GEMM's N tile), kept per version."""
+    d, n = plan.d, 3 * plan.heads * plan.hd
+    for t, shape, name in ((wqkv, (d, n), "wqkv"), (bqkv, (n,), "bqkv"), (wo, (n // 3, d), "wo")):
+        _check_operand(t, shape, name, device)
+    return planned((wqkv, bqkv, wo), ("group", plan),
+                   lambda: attn_operands(wqkv, bqkv, wo, None, plan))
+
+
+def _attention_heads_cuda(x, ln_s, ln_b, ops, bo, plan: AttnPlan, causal, prescaled, counter):
+    """``dvl_attention_block_heads`` on a head group's kernel operands
+    (``_group_kernel_ops`` on ``plan``); the f32 partial, or with ``bo`` the
+    bf16 block output."""
     _check_x(x)
     b, s, d = x.shape
-    dg = 64 * g
-    if kmajor is None and tuple(wo.shape) != (dg, d):
-        raise ValueError(f"the CUDA attention core takes head dim 64: wo of a "
-                         f"{g}-head group is [{dg}, {d}], got {tuple(wo.shape)}")
-    if d % GEMM_N:
-        raise ValueError(f"the CUDA GEMM takes N % {GEMM_N} == 0, got D={d} "
-                         f"(out projection)")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
-    ld = padded_n(3 * dg)
-    if kmajor is None:
-        kmajor = (_kmajor(wqkv, (d, 3 * dg), "wqkv", dev, n_pad=ld),
-                  _padded_bias(bqkv, 3 * dg, ld, "bqkv", dev), _kmajor(wo, (dg, d), "wo", dev))
-    if tuple(kmajor[2].shape) != (d, dg):
-        raise ValueError(f"the CUDA attention core takes head dim 64: wo of a {g}-head "
-                         f"group is [{dg}, {d}], got {tuple(kmajor[2].t().shape)}")
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
-           _operand(ln_b, f32, (d,), "ln_bias", dev), *kmajor]
+           _operand(ln_b, f32, (d,), "ln_bias", dev), *ops]
     m = b * s
     out = torch.empty_like(x) if bo is not None else None
     part = None if bo is not None else torch.empty((b, s, d), dtype=f32, device=dev)
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    qkv = torch.empty((m, ld), dtype=bf, device=dev)
-    attn = torch.empty((m, dg), dtype=bf, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    qkv = torch.empty((m, plan.nqkv), dtype=bf, device=dev)
+    attn = torch.empty((m, plan.da), dtype=bf, device=dev)
     err = _lib().dvl_attention_block_heads(
         x.data_ptr(), *[t.data_ptr() for t in ops],
-        _operand(bo, f32, (d,), "bo", dev).data_ptr() if bo is not None else None,
+        _padded_bias(bo, d, plan.no, "bo", dev).data_ptr() if bo is not None else None,
         out.data_ptr() if out is not None else None,
         part.data_ptr() if part is not None else None,
-        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), b, s, d, g, ld, int(causal),
-        math.log(2.0) if prescaled else 1.0 / math.sqrt(64), int(prescaled),
+        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), b, s, d, plan.heads, plan.hdp,
+        int(causal), math.log(2.0) if prescaled else plan.scale, int(prescaled),
         _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block_heads")
     TP_LAUNCHES[counter] += 1
-    CORE_ROUTES[core_route(s)] += 1
+    CORE_ROUTES[core_route(s, plan.hd)] += 1
     check_nans("dvl_attention_block_heads", part if out is None else out)
     return part if out is None else out
 
 
 # KB (a) 6's head groups in the kernel's layout, one entry per (h0, g) of a
 # wqkv_h parameter, rebuilt when it, its bias or wo_h moves (a permutation
-# of columns: bit-preserving)
+# of columns onto the group's padded layout: bit-preserving)
 _HGRID = WeakIdKeyDictionary()
 
 
-def _hgrid_kmajor(wqkv_h, bqkv_h, wo_h, h0, g, device):
+def _hgrid_kernel_ops(wqkv_h, bqkv_h, wo_h, h0, g, plan: AttnPlan, device):
     key = (wqkv_h.data_ptr(), wqkv_h._version, bqkv_h.data_ptr(), bqkv_h._version,
            wo_h.data_ptr(), wo_h._version)
     cache = _HGRID.get(wqkv_h)
@@ -773,51 +767,56 @@ def _hgrid_kmajor(wqkv_h, bqkv_h, wo_h, h0, g, device):
         cache = (key, {})
         _HGRID[wqkv_h] = cache
     if (h0, g) not in cache[1]:
-        w, b = hgrid_qkv(wqkv_h.detach(), bqkv_h.detach(), h0, g)
-        n = w.shape[1]
-        ld = padded_n(n)
-        t = _operand(w, torch.bfloat16, (w.shape[0], n), "wqkv_h", device).t()
-        t = torch.cat([t, t.new_zeros(ld - n, t.shape[1])]).contiguous()
-        hd = wqkv_h.shape[-1] // 3
-        wo = wo_h.detach()[h0 * hd:(h0 + g) * hd]
-        cache[1][(h0, g)] = (t, _padded_bias(b, n, ld, "bqkv_h", device),
-                             _operand(wo, torch.bfloat16, tuple(wo.shape), "wo_h",
-                                      device).t().contiguous())
+        w, b, wo = (t.to(device) for t in hgrid_group(wqkv_h.detach(), bqkv_h.detach(),
+                                                      wo_h.detach(), h0, g))
+        ops = attn_operands(w, b, wo, None, plan)
+        cache[1][(h0, g)] = tuple(t.contiguous() for t in ops)
     return cache[1][(h0, g)]
 
 
 def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind):
+    """``dvl_mlp_block_cols`` on ``mlp_plan``'s layout of the slot's hidden
+    columns (any D and Fj; the plain K-major copies where the plan is the
+    identity)."""
     _check_x(x)
     b, s, d = x.shape
     fj = w1.shape[-1]
-    _check_gemm(fj, d, "mlp up projection (hidden columns)")
-    _check_gemm(d, fj, "mlp down projection (hidden rows)")
+    plan = mlp_plan(d, fj)
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
+    if plan.identity:
+        wops = (_kmajor(w1, (d, fj), "w1", dev), _operand(b1, f32, (fj,), "b1", dev),
+                _kmajor(w2, (fj, d), "w2", dev))
+    else:
+        for t, shape, name in ((w1, (d, fj), "w1"), (b1, (fj,), "b1"), (w2, (fj, d), "w2")):
+            _check_operand(t, shape, name, dev)
+        wops = planned((w1, b1, w2), ("cols", plan), lambda: mlp_operands(w1, b1, w2, None, plan))
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
-           _operand(ln_b, f32, (d,), "ln_bias", dev),
-           _kmajor(w1, (d, fj), "w1", dev),
-           _operand(b1, f32, (fj,), "b1", dev),
-           _kmajor(w2, (fj, d), "w2", dev)]
+           _operand(ln_b, f32, (d,), "ln_bias", dev), *wops]
     m = b * s
     part = torch.empty((b, s, d), dtype=f32, device=dev)
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    hidden = torch.empty((m, fj), dtype=bf, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    hidden = torch.empty((m, plan.fp), dtype=bf, device=dev)
     err = _lib().dvl_mlp_block_cols(
         x.data_ptr(), *[t.data_ptr() for t in ops], part.data_ptr(), xn.data_ptr(),
-        hidden.data_ptr(), m, d, fj, ACT_KINDS.index(act_kind), _stream_ptr(dev))
+        hidden.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind), _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_cols")
     TP_LAUNCHES["mlp_block_cols"] += 1
     check_nans("dvl_mlp_block_cols", part)
     return part
 
 
+def check_parts(n: int, what: str) -> None:
+    """One launch sums 1 to ``TP_PARTS`` slots' partials."""
+    if not 1 <= n <= TP_PARTS:
+        raise ValueError(f"{what} takes 1 to {TP_PARTS} slots' partials, got {n}")
+
+
 def _tp_reduce_cuda(parts, bias, resid, bias_first):
     _check_x(resid)
     dev = resid.device
     n = resid.shape[-1]
-    if not 1 <= len(parts) <= MAX_TP_SLOTS:
-        raise ValueError(f"tp_reduce sums 1 to {MAX_TP_SLOTS} partials, got {len(parts)}")
+    check_parts(len(parts), "tp_reduce")
     for t in parts:
         if t.dtype != torch.float32 or t.shape != resid.shape or t.device != dev:
             raise ValueError(f"tp_reduce: each partial must be f32 {tuple(resid.shape)} "
@@ -889,7 +888,9 @@ def attention_block_heads(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
     if _route(x) == "cpu":
         return attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, heads=heads,
                                            causal=causal)
-    return _attention_heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, None, heads, causal, False,
+    plan = group_plan(x.shape[-1], wo.shape[0] // heads, heads)
+    return _attention_heads_cuda(x, ln_s, ln_b, _group_kernel_ops(wqkv, bqkv, wo, plan, x.device),
+                                 None, plan, causal, False,
                                  "attention_block_heads_causal" if causal
                                  else "attention_block_heads")
 
@@ -909,9 +910,10 @@ def attention_block_hgrid(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo, *, heads: int
     if _route(x) == "cpu":
         return attention_block_hgrid_plain(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo,
                                            heads=heads, h0=h0, g=g)
+    plan = group_plan(x.shape[-1], wqkv_h.shape[-1] // 3, g)
     return _attention_heads_cuda(
-        x, ln_s, ln_b, None, None, None, bo if g == heads else None, g, False, True,
-        "attention_block_hgrid", kmajor=_hgrid_kmajor(wqkv_h, bqkv_h, wo_h, h0, g, x.device))
+        x, ln_s, ln_b, _hgrid_kernel_ops(wqkv_h, bqkv_h, wo_h, h0, g, plan, x.device),
+        bo if g == heads else None, plan, False, True, "attention_block_hgrid")
 
 
 def mlp_block_cols(x, ln_s, ln_b, w1, b1, w2, *,

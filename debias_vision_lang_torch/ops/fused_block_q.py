@@ -35,10 +35,14 @@ kernel's F-split: with ``fb`` < F each fb-wide chunk of a hidden row is
 quantized with its own scale and the chunks' dequantized down products are
 summed in f32 (``KB_LAUNCHES["mlp_block_q_fsplit"]`` counts the card's
 launches; any divisor fb of F: the card pads each chunk to a multiple of
-128, ``fused_block.mlp_plan``).  K3 and K4 take any D, head dim and F on
-the card, on the padded operand layouts of ``fused_block.attn_plan`` /
-``mlp_plan`` (``q_attn_operands`` / ``q_mlp_operands``; the identity at the
-registry archs' widths).
+128, ``fused_block.mlp_plan``).  K3, K4 and every KB entry below take any
+D, head dim and F on the card, on the padded operand layouts of
+``fused_block.attn_plan`` / ``mlp_plan`` (``q_attn_operands`` /
+``q_mlp_operands``; the identity at the registry archs' widths).
+
+The tensor-parallel shares take any head group and any hidden columns: each
+slot's operands on ``fused_block.group_plan`` / ``mlp_plan``; up to
+``fused_block.TP_PARTS`` slots.
 
 The tensor-parallel shares (``parallel/tensor.py``; ``TP_LAUNCHES``): a
 slot's head group (``attention_block_q_heads``) or hidden columns
@@ -53,7 +57,8 @@ each K3 or K4 with one change, on the same launches:
 
   attention_block_qq     (attn_int8_cores.py) qkv kept f32; the core's QK^T
                          and P V int8 (``attention_qq_core``: q, k per row,
-                         p per row, v per column over the keys)
+                         p per row, v per column over the keys; any head
+                         dim and S, ``qq_route``)
   mlp_block_q_bf16h      (q_mlp_bf16h.py) the up-projection's deq + b1
                          rounded to bf16 before quick_gelu and the quantize
   mlp_block_q_var        (q_kernel_variants.py) the reciprocal quantizer
@@ -94,13 +99,13 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..models.layers import ln_f32, quick_gelu
 from ..utils.observability import check_nans
-from .fused_block import (ACT_KINDS, MAX_TP_SLOTS, AttnPlan, MlpPlan, _act, _check_x, _head_qkv,
-                          _operand, _raise_on, _route, _stream_ptr, attention_core, attn_plan,
-                          core_route, mlp_plan, pad_cols, padded_n, place, planned)
+from .fused_block import (ACT_KINDS, AttnPlan, MlpPlan, _act, _check_x,
+                          _head_qkv, _operand, _raise_on, _route, _stream_ptr, attention_core,
+                          attn_plan, check_parts, core_route, group_plan, mlp_plan, pad_cols,
+                          place, planned, round_up)
 
 LAUNCHES: Dict[str, int] = {"attention_block_q": 0,
                             "attention_block_q_causal": 0,
@@ -124,17 +129,29 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
                                "attention_block_q_attr_vpu": 0,
                                "mlp_block_q_attr_mxu": 0,
                                "mlp_block_q_attr_vpu": 0}
-S8_GEMM_TILE = 128  # the s8 wgmma GEMM's tile: the KB and split entries' N and K multiples
-QQ_MAX_SEQ = 256  # keys of a score row the int8 core (csrc/attention_qq.cuh) holds in registers
+S8_GEMM_TILE = 128  # the s8 wgmma GEMM's N tile
+QQ_MAX_SEQ = 256  # keys of a score row the int8 core's register route holds
+# KB (a) 1's int8 core launches by route (``qq_route``)
+QQ_ROUTES: Dict[str, int] = {"register": 0, "tiled": 0}
 LOG2E = 1.4426950408889634
 ATTR_MODES = ("full", "mxu", "vpu")  # benchmarks/q_attribution.py's kernel bodies
 ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES):
         for k in counts:
             counts[k] = 0
+
+
+def qq_route(s: int, hd: int) -> str:
+    """The route KB (a) 1's int8 core (csrc/attention_qq.cuh) takes at ``s``
+    keys and head dim ``hd``: "register" (whole score rows in registers) at
+    head dim 64 up to ``QQ_MAX_SEQ`` keys, "tiled" (64-key tiles, two passes,
+    any head dim zero-padded to a multiple of 64) otherwise."""
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    return "register" if round_up(hd, 64) == 64 and s <= QQ_MAX_SEQ else "tiled"
 
 
 # ---------------------------------------------------------------------------
@@ -441,7 +458,8 @@ def _bmm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_qq_core_plain(qkv32: torch.Tensor, heads: int, out_dtype,
-                            scratch: Optional[dict] = None) -> torch.Tensor:
+                            scratch: Optional[dict] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """The int8 attention core of ``_attn_qq_kernel`` (benchmarks/
     attn_int8_cores.py): qkv f32 [B, S, 3D] -> [B, S, D] in ``out_dtype``.
     Per head: q and k quantized per row (over hd), scores = ((int32 q k^T *
@@ -449,10 +467,11 @@ def attention_qq_core_plain(qkv32: torch.Tensor, heads: int, out_dtype,
     quantized per row (over the keys), v^T per row (each channel over the
     keys), o = (int32 p v * p scale) * v scale^T rounded to ``out_dtype``.
     ``scratch`` receives the probabilities ``p`` [B, H, S, S] f32, their
-    codes ``pq`` and row scales ``psc`` [B, H, S, 1]."""
+    codes ``pq`` and row scales ``psc`` [B, H, S, 1].  ``scale`` replaces
+    hd^-0.5 (the padded layout's core keeps the true head dim's)."""
     d = qkv32.shape[-1] // 3
     hd = d // heads
-    scale = 1.0 / hd ** 0.5
+    scale = 1.0 / hd ** 0.5 if scale is None else scale
     outs, ps = [], []
     for h in range(heads):
         q, k, v = _head_qkv(qkv32, heads, h)
@@ -719,22 +738,26 @@ def _lib():
         lib.dvl_attention_block_q.restype = i
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.dvl_mlp_block_q.restype = i
-        for entry in ("dvl_attention_block_qq", "dvl_attention_block_q_var",
-                      "dvl_attention_block_q_postdiv", "dvl_attention_block_q_attr_mxu",
-                      "dvl_attention_block_q_attr_vpu"):
-            getattr(lib, entry).argtypes = [p] * 17 + [i] * 5 + [p]
+        f = ctypes.c_float
+        for entry in ("dvl_attention_block_q_var", "dvl_attention_block_q_postdiv",
+                      "dvl_attention_block_q_attr_mxu", "dvl_attention_block_q_attr_vpu"):
+            getattr(lib, entry).argtypes = [p] * 17 + [i] * 6 + [f, p]
             getattr(lib, entry).restype = i
-        lib.dvl_attention_qq_core.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.dvl_attention_block_qq.argtypes = [p] * 18 + [i] * 6 + [f, p]
+        lib.dvl_attention_block_qq.restype = i
+        lib.dvl_attention_qq_core.argtypes = [p] * 6 + [i] * 4 + [f, p]
         lib.dvl_attention_qq_core.restype = i
-        lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 4 + [p]
+        lib.dvl_qq_ws_bytes.argtypes = [i] * 4
+        lib.dvl_qq_ws_bytes.restype = ctypes.c_longlong
+        lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 5 + [p]
         lib.dvl_mlp_block_q_kb.restype = i
-        lib.dvl_fused_layer_q.argtypes = [p] * 33 + [i] * 5 + [p]
+        lib.dvl_fused_layer_q.argtypes = [p] * 33 + [i] * 6 + [f, p]
         lib.dvl_fused_layer_q.restype = i
-        lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [f, p]
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 11 + [i] * 4 + [p]
         lib.dvl_mlp_block_q_cols.restype = i
-        lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, p]
+        lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
         lib.dvl_rows_q_partial.restype = i
         lib.dvl_tp_reduce_q.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
         lib.dvl_tp_reduce_q.restype = i
@@ -761,15 +784,6 @@ def _qweight(qt, scale, n_in: int, n_out: int, name: str, device):
                      f"{name}_scale", device))
 
 
-def _check_qq_core(s: int, d: int, heads: int) -> None:
-    if d % heads or d // heads != 64:
-        raise ValueError(f"the CUDA int8 attention core takes head dim 64, got D={d} "
-                         f"heads={heads}")
-    if not 1 <= s <= QQ_MAX_SEQ:
-        raise ValueError(f"the CUDA int8 attention core holds score rows of at most "
-                         f"{QQ_MAX_SEQ} keys in registers, got S={s}")
-
-
 # the int8 attention block's C entries by variant: K3, KB (a) 1, KB (a) 4,
 # q_ilp4.py's post-P V division and q_attribution.py's "mxu" and "vpu"
 # bodies, with their KB_LAUNCHES keys
@@ -782,25 +796,6 @@ _ATTN_Q_COUNTERS = {"qq": "attention_block_qq", "var": "attention_block_q_var",
                     "postdiv": "attention_block_q_postdiv",
                     "attr_mxu": "attention_block_q_attr_mxu",
                     "attr_vpu": "attention_block_q_attr_vpu"}
-
-
-def _check_attention_kb(s, d, heads):
-    """The KB experiments' attention entries run at the model's own widths
-    only (head dim 64, D % 128 == 0: the identity layout)."""
-    if d % heads or d // heads != 64:
-        raise ValueError(f"the KB experiments' CUDA attention entries take head dim 64, "
-                         f"got D={d} heads={heads}")
-    if d % S8_GEMM_TILE:
-        raise ValueError(f"the KB experiments' CUDA attention entries take D divisible by "
-                         f"{S8_GEMM_TILE}, got D={d}")
-    if s < 1:
-        raise ValueError(f"sequence length {s} < 1")
-
-
-def _check_mlp_kb(d, f):
-    if d % S8_GEMM_TILE or f % S8_GEMM_TILE:
-        raise ValueError(f"the KB experiments' CUDA MLP entries take D and F divisible by "
-                         f"{S8_GEMM_TILE}, got D={d} F={f}")
 
 
 def _q_attn_kernel_ops(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, plan: AttnPlan, dev):
@@ -829,16 +824,24 @@ def _q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan: MlpPlan, d
                    lambda: q_mlp_operands(*ops, plan))
 
 
+def _qq_workspace(b, s, heads, hdp, device):
+    """The int8 core's workspace on its tiled route (None on the register
+    route): ``dvl_qq_ws_bytes`` bytes, 256-byte aligned."""
+    n = _lib().dvl_qq_ws_bytes(b, s, heads, hdp)
+    if n == 0:
+        return None
+    ws = torch.empty((n,), dtype=torch.uint8, device=device)
+    if ws.data_ptr() % 256:
+        raise RuntimeError("the int8 core's workspace is not 256-byte aligned")
+    return ws
+
+
 def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
                             heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
     """K3's launch on ``attn_plan``'s layout (any D and head dim), or a KB
-    variant's (the model's own widths only)."""
+    variant's on the same layout."""
     _check_x(x)
     b, s, d = x.shape
-    if kind != "k3":
-        _check_attention_kb(s, d, heads)
-    if kind == "qq":
-        _check_qq_core(s, d, heads)
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
     plan = attn_plan(d, heads)
@@ -857,24 +860,28 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
     aq = torch.empty((m, plan.da), dtype=i8, device=dev)
     ascale = torch.empty((m,), dtype=f32, device=dev)
     entry = _ATTN_Q_ENTRIES[kind]
-    ptrs = (x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+    ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
             xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-            attn.data_ptr(), aq.data_ptr(), ascale.data_ptr())
-    if kind == "k3":
-        err = _lib().dvl_attention_block_q(*ptrs, b, s, d, heads, plan.hdp, int(causal),
-                                           plan.scale, _stream_ptr(dev))
-    else:
-        err = getattr(_lib(), entry)(*ptrs, b, s, d, heads, int(causal), _stream_ptr(dev))
+            attn.data_ptr(), aq.data_ptr(), ascale.data_ptr()]
+    if kind == "qq":
+        ws = _qq_workspace(b, s, heads, plan.hdp, dev)
+        ptrs.append(None if ws is None else ws.data_ptr())
+    err = getattr(_lib(), entry)(*ptrs, b, s, d, heads, plan.hdp, int(causal), plan.scale,
+                                 _stream_ptr(dev))
     _raise_on(err, entry)
     if kind == "k3":
         LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
         CORE_ROUTES[core_route(s, plan.hd)] += 1
     else:
         KB_LAUNCHES[_ATTN_Q_COUNTERS[kind]] += 1
-        if kind == "qq":  # the block's launch runs the int8 core kernel once
+        if kind == "qq":  # the block's launch runs the int8 core once
             KB_LAUNCHES["attention_qq_core"] += 1
-        if kind == "attr_mxu":  # K3's wgmma core, its softmax off
-            CORE_ROUTES[core_route(s)] += 1
+            QQ_ROUTES[qq_route(s, plan.hd)] += 1
+        if kind in ("var", "postdiv", "attr_mxu"):  # K3's wgmma core
+            # the register core's softmax-off mode is hdp 64's: wider heads
+            # take the long core
+            wide_off = kind == "attr_mxu" and plan.hdp > 64
+            CORE_ROUTES["long" if wide_off else core_route(s, plan.hd)] += 1
     check_nans(entry, out)
     if scratch is not None:  # the model's widths: the padded lanes cropped
         crop = plan.crop_heads
@@ -885,29 +892,40 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         if kind == "attr_mxu":  # no LayerNorm: x's codes are its static cast
             del scratch["xn"]
         if kind == "qq":
-            scratch["qkv"] = qkv.view(b, s, 3 * d)
+            scratch["qkv"] = qkv[:, plan.qkv_columns().to(dev)].view(b, s, 3 * d)
     return out
 
 
 def _attention_qq_core_cuda(qkv32, heads, scratch):
     b, s, d3 = qkv32.shape
     d = d3 // 3
-    _check_qq_core(s, d, heads)
-    if qkv32.dtype != torch.float32 or not qkv32.is_contiguous():
-        raise ValueError(f"the CUDA int8 attention core reads a contiguous float32 qkv, "
-                         f"got {qkv32.dtype}")
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
+    if qkv32.dtype != torch.float32:
+        raise ValueError(f"the CUDA int8 attention core reads a float32 qkv, got {qkv32.dtype}")
+    plan = attn_plan(d, heads)
     dev = qkv32.device
-    out = torch.empty((b, s, d), dtype=torch.bfloat16, device=dev)
+    # the core reads each head at hdp lanes (zero past hd): the model's own
+    # layout at head dim 64, else the padded copy
+    rows = qkv32.reshape(b * s, d3)
+    if plan.hd != plan.hdp:
+        rows = place(rows, (b * s, 3 * plan.da), cols=plan.qkv_columns())
+    rows = rows.contiguous()
+    out = torch.empty((b, s, plan.da), dtype=torch.bfloat16, device=dev)
     p = pq = psc = None
     if scratch is not None:
         p = torch.empty((b, heads, s, s), dtype=torch.float32, device=dev)
         pq = torch.empty((b, heads, s, s), dtype=torch.int8, device=dev)
         psc = torch.empty((b, heads, s, 1), dtype=torch.float32, device=dev)
+    ws = _qq_workspace(b, s, heads, plan.hdp, dev)
     err = _lib().dvl_attention_qq_core(
-        qkv32.data_ptr(), out.data_ptr(), *[0 if t is None else t.data_ptr() for t in (p, pq, psc)],
-        b, s, d, heads, _stream_ptr(dev))
+        rows.data_ptr(), out.data_ptr(),
+        *[None if t is None else t.data_ptr() for t in (p, pq, psc, ws)],
+        b, s, heads, plan.hdp, plan.scale, _stream_ptr(dev))
     _raise_on(err, "dvl_attention_qq_core")
     KB_LAUNCHES["attention_qq_core"] += 1
+    QQ_ROUTES[qq_route(s, plan.hd)] += 1
+    out = plan.crop_heads(out) if plan.hd != plan.hdp else out
     check_nans("dvl_attention_qq_core", out)
     if scratch is not None:
         scratch.update({"p": p, "pq": pq, "psc": psc})
@@ -923,13 +941,11 @@ _MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3, "attr_mxu": 4
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
                       w1_qt, w2_qt, scratch, kind="k4", fb=None):
     """K4's launch on ``mlp_plan``'s layout (any D, F and divisor fb of F),
-    or a KB variant's (the model's own widths only)."""
+    or a KB variant's on the same layout (fb = F)."""
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
     fb = check_fb(f, fb)
-    if kind != "k4":
-        _check_mlp_kb(d, f)
     plan = mlp_plan(d, f, fb)
     k = plan.k
     dev = x.device
@@ -963,8 +979,8 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
         else:
             LAUNCHES["mlp_block_q"] += 1
     else:
-        err = _lib().dvl_mlp_block_q_kb(*ptrs, 0 if g is None else g.data_ptr(), m, d, f,
-                                        _MLP_Q_MODES[kind], _stream_ptr(dev))
+        err = _lib().dvl_mlp_block_q_kb(*ptrs, 0 if g is None else g.data_ptr(), m, d, plan.fp,
+                                        f, _MLP_Q_MODES[kind], _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q_kb")
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
     check_nans("dvl_mlp_block_q", out)
@@ -977,102 +993,96 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
             scratch.update({"xn": xn[:, :d].reshape(b, s, d).float(),
                             "h": crop(h if g is None else g).reshape(rows)})
         if kind == "bf16h":
-            scratch["u"] = h.view(b, s, f)
+            scratch["u"] = crop(h).view(b, s, f)
     return out
 
 
 def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
     """``dvl_fused_layer_q``: ``attn_ops`` / ``mlp_ops`` are the two halves'
     parameters as K3's / K4's wrappers pass them (LN, weight copies,
-    scales, biases)."""
+    scales, biases), on K3's and K4's padded layouts."""
     _check_x(x)
     b, s, d = x.shape
-    _check_attention_kb(s, d, heads)
+    if s < 1:
+        raise ValueError(f"sequence length {s} < 1")
     (ln1_s, ln1_b, wqkv_scale, bqkv, wo_scale, bo, wqkv_qt, wo_qt) = attn_ops
     (ln2_s, ln2_b, w1_scale, b1, w2_scale, b2, w1_qt, w2_qt) = mlp_ops
     f = w1_scale.numel()
-    _check_mlp_kb(d, f)
+    ap, mp = attn_plan(d, heads), mlp_plan(d, f)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ops = [_operand(ln1_s, f32, (d,), "ln_1.scale", dev),
            _operand(ln1_b, f32, (d,), "ln_1.bias", dev),
-           *_qweight(wqkv_qt, wqkv_scale, d, 3 * d, "wqkv", dev),
-           _operand(bqkv, f32, (3 * d,), "bqkv", dev),
-           *_qweight(wo_qt, wo_scale, d, d, "wo", dev), _operand(bo, f32, (d,), "bo", dev),
+           *_q_attn_kernel_ops(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, ap, dev),
            _operand(ln2_s, f32, (d,), "ln_2.scale", dev),
            _operand(ln2_b, f32, (d,), "ln_2.bias", dev),
-           *_qweight(w1_qt, w1_scale, d, f, "w1", dev), _operand(b1, f32, (f,), "b1", dev),
-           *_qweight(w2_qt, w2_scale, f, d, "w2", dev), _operand(b2, f32, (d,), "b2", dev)]
+           *_q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, mp, dev)]
     m = b * s
     out = torch.empty_like(x)
-    t = {"xn": (m, d, bf), "xq": (m, d, i8), "xs": (m, 1, f32), "qkv": (m, 3 * d, bf),
-         "attn": (m, d, bf), "aq": (m, d, i8), "as": (m, 1, f32), "y": (m, d, f32),
-         "yb": (m, d, bf), "yn": (m, d, bf), "yq": (m, d, i8), "ys": (m, 1, f32),
-         "h": (m, f, f32), "hq": (m, f, i8), "hs": (m, 1, f32)}
+    t = {"xn": (m, ap.dk, bf), "xq": (m, ap.dk, i8), "xs": (m, 1, f32), "qkv": (m, ap.nqkv, bf),
+         "attn": (m, ap.da, bf), "aq": (m, ap.da, i8), "as": (m, 1, f32), "y": (m, d, f32),
+         "yb": (m, d, bf), "yn": (m, mp.dk, bf), "yq": (m, mp.dk, i8), "ys": (m, 1, f32),
+         "h": (m, mp.fp, f32), "hq": (m, mp.fp, i8), "hs": (m, 1, f32)}
     t = {k: torch.empty(v[:2], dtype=v[2], device=dev) for k, v in t.items()}
     err = _lib().dvl_fused_layer_q(
         x.data_ptr(), *[o.data_ptr() for o in ops], out.data_ptr(),
         *[t[k].data_ptr() for k in ("xn", "xq", "xs", "qkv", "attn", "aq", "as", "y", "yb",
                                     "yn", "yq", "ys", "h", "hq", "hs")],
-        b, s, d, f, heads, _stream_ptr(dev))
+        b, s, d, mp.fp, heads, ap.hdp, ap.scale, _stream_ptr(dev))
     _raise_on(err, "dvl_fused_layer_q")
     KB_LAUNCHES["fused_layer_q"] += 1
-    CORE_ROUTES[core_route(s)] += 1
+    CORE_ROUTES[core_route(s, ap.hd)] += 1
     check_nans("dvl_fused_layer_q", out)
-    if scratch is not None:  # the twin's keys: bf16 rows as f32, codes, scales
-        scratch.update({k: v.view(b, s, -1).float() if v.dtype == bf else v.view(b, s, -1)
-                        for k, v in t.items() if k not in ("qkv", "yb")})
+    if scratch is not None:  # the twin's keys: bf16 rows as f32, codes, scales, cropped
+        crop = {"xn": lambda v: v[:, :d], "xq": lambda v: v[:, :d], "yn": lambda v: v[:, :d],
+                "yq": lambda v: v[:, :d], "attn": ap.crop_heads, "aq": ap.crop_heads,
+                "h": mp.crop_hidden, "hq": mp.crop_hidden}
+        for k, v in t.items():
+            if k in ("qkv", "yb"):
+                continue
+            v = crop.get(k, lambda r: r)(v).reshape(b, s, -1)
+            scratch[k] = v.float() if v.dtype == bf else v
     return out
 
 
-# the [ld, in] int8 copy of a head group's q | k | v channels, zero rows
-# past its 192 g channels (ld: the s8 GEMM's N tile), with the scale and bias
-# zero-padded alike, one per weight and version
-_PADDED_QKV = WeakIdKeyDictionary()
-
-
-def _padded_qkv(qt, scale, bias, d, n, device):
-    key = (qt.data_ptr(), qt._version, scale.data_ptr(), scale._version,
-           bias.data_ptr(), bias._version)
-    hit = _PADDED_QKV.get(qt)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    ld = padded_n(n)
+def _q_group_ops(qt, scale, bias, plan: AttnPlan, device):
+    """A head group's int8 q | k | v channels as the kernel reads them, on
+    ``plan``'s layout (at head dim 64 and D % 128 == 0 zero rows past the
+    group's 192 g channels up to the s8 GEMM's N tile), kept per version."""
+    d, n = plan.d, 3 * plan.heads * plan.hd
     q, s = _qweight(qt, scale, d, n, "wqkv", device)
     b = _operand(bias, torch.float32, (n,), "bqkv", device)
-    ops = (torch.cat([q, q.new_zeros(ld - n, d)]), torch.cat([s, s.new_zeros(ld - n)]),
-           torch.cat([b, b.new_zeros(ld - n)]))
-    _PADDED_QKV[qt] = (key, ops)
-    return ops
+    cols = plan.qkv_columns()
+    return planned((qt, scale, bias), ("qgroup", plan),
+                   lambda: (place(q, (plan.nqkv, plan.dk), rows=cols),
+                            place(s, (plan.nqkv,), rows=cols), place(b, (plan.nqkv,), rows=cols)))
 
 
 def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt):
     _check_x(x)
     b, s, d = x.shape
-    dg = 64 * g
-    if d % 16:
-        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0, got D={d}")
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
+    plan = group_plan(d, wqkv_scale.numel() // (3 * g), g)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    wq, ws, bq = _padded_qkv(wqkv_qt, wqkv_scale, bqkv, d, 3 * dg, dev)
-    ld = wq.shape[0]
+    wq, ws, bq = _q_group_ops(wqkv_qt, wqkv_scale, bqkv, plan, dev)
     m = b * s
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
-    qkv = torch.empty((m, ld), dtype=bf, device=dev)
-    attn = torch.empty((b, s, dg), dtype=bf, device=dev)
+    qkv = torch.empty((m, plan.nqkv), dtype=bf, device=dev)
+    attn = torch.empty((b, s, plan.da), dtype=bf, device=dev)
     amax = torch.empty((b, s, 1), dtype=f32, device=dev)
     err = _lib().dvl_attention_block_q_heads(
         x.data_ptr(), _operand(ln_s, f32, (d,), "ln_scale", dev).data_ptr(),
         _operand(ln_b, f32, (d,), "ln_bias", dev).data_ptr(), wq.data_ptr(), ws.data_ptr(),
         bq.data_ptr(), xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), amax.data_ptr(), b, s, d, g, ld, int(causal), _stream_ptr(dev))
+        attn.data_ptr(), amax.data_ptr(), b, s, d, g, plan.hdp, int(causal), plan.scale,
+        _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block_q_heads")
     TP_LAUNCHES["attention_block_q_heads_causal" if causal else "attention_block_q_heads"] += 1
-    CORE_ROUTES[core_route(s)] += 1
+    CORE_ROUTES[core_route(s, plan.hd)] += 1
     check_nans("dvl_attention_block_q_heads", attn)
     return attn, amax
 
@@ -1081,24 +1091,27 @@ def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
     _check_x(x)
     b, s, d = x.shape
     fj = w1_scale.numel()
-    if d % 16 or fj % S8_GEMM_TILE:
-        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0 and N % {S8_GEMM_TILE} == 0, "
-                         f"got D={d} and {fj} hidden columns")
+    plan = mlp_plan(d, fj)
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    wops = (*_qweight(w1_qt, w1_scale, d, fj, "w1", dev), _operand(b1, f32, (fj,), "b1", dev))
+    if not plan.identity:
+        cols = plan.hidden_columns()
+        wops = planned((w1_qt, w1_scale, b1), ("qcols", plan),
+                       lambda: (place(wops[0], (plan.fp, plan.dk), rows=cols),
+                                place(wops[1], (plan.fp,), rows=cols),
+                                place(wops[2], (plan.fp,), rows=cols)))
     ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
-           _operand(ln_b, f32, (d,), "ln_bias", dev),
-           *_qweight(w1_qt, w1_scale, d, fj, "w1", dev),
-           _operand(b1, f32, (fj,), "b1", dev)]
+           _operand(ln_b, f32, (d,), "ln_bias", dev), *wops]
     m = b * s
-    xn = torch.empty((m, d), dtype=bf, device=dev)
-    xq = torch.empty((m, d), dtype=i8, device=dev)
+    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
-    h = torch.empty((b, s, fj), dtype=f32, device=dev)
+    h = torch.empty((b, s, plan.fp), dtype=f32, device=dev)
     amax = torch.empty((b, s, 1), dtype=f32, device=dev)
     err = _lib().dvl_mlp_block_q_cols(
         x.data_ptr(), *[t.data_ptr() for t in ops], xn.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), h.data_ptr(), amax.data_ptr(), m, d, fj, ACT_KINDS.index(act_kind),
+        xs.data_ptr(), h.data_ptr(), amax.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind),
         _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_q_cols")
     TP_LAUNCHES["mlp_block_q_cols"] += 1
@@ -1106,29 +1119,40 @@ def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
     return h, amax
 
 
-def _rows_q_partial_cuda(a, amaxes, w_qt):
+def _rows_q_partial_cuda(a, amaxes, w_qt, plan):
+    """The quantize at the maxed amaxes and the s8 GEMM: ``a``'s rows in
+    ``plan``'s padded layout when wider than the weight's K rows (a slot's
+    kernel output off the identity), the weight copy laid out to match
+    (its rows at the plan's lanes, N rounded up to the GEMM's tile; the
+    store keeps the first N columns)."""
     dev = a.device
-    if a.dtype not in (torch.bfloat16, torch.float32) or not a.is_contiguous():
-        raise ValueError(f"rows_q_partial takes a contiguous bf16 or f32 input, got "
-                         f"{a.dtype}")
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rows_q_partial takes a bf16 or f32 input, got {a.dtype}")
+    check_parts(len(amaxes), "rows_q_partial")
+    n, kw = w_qt.shape
     k = a.shape[-1]
-    n = w_qt.shape[0]
-    if k % 16 or n % S8_GEMM_TILE:
-        raise ValueError(f"the CUDA s8 GEMM takes K % 16 == 0 and N % {S8_GEMM_TILE} == 0, "
-                         f"got K={k} N={n}")
-    if not 1 <= len(amaxes) <= MAX_TP_SLOTS:
-        raise ValueError(f"rows_q_partial takes 1 to {MAX_TP_SLOTS} row amaxes")
-    m = a.numel() // k
-    wt = _operand(w_qt, torch.int8, (n, k), "w_qt", dev)
+    lanes = None
+    if k != kw:
+        if plan is None:
+            raise ValueError(f"rows_q_partial: a has {k} columns, the weight {kw} rows; pass "
+                             f"the plan of a's layout")
+        lanes = plan.head_lanes() if isinstance(plan, AttnPlan) else plan.hidden_columns()
+    kp = round_up(k, 16)  # the TMA's 16-byte row stride
+    a = pad_cols(a, kp).contiguous()
+    m = a.numel() // kp
+    no = round_up(n, S8_GEMM_TILE)
+    wt = _operand(w_qt, torch.int8, (n, kw), "w_qt", dev)
+    if lanes is not None or kp != kw or no != n:
+        wt = planned((w_qt,), ("rows", plan, kp, no),
+                     lambda: (place(wt, (no, kp), cols=lanes),))[0]
     amaxes = [_operand(t.reshape(-1), torch.float32, (m,), "amax", dev) for t in amaxes]
     aq = torch.empty(a.shape, dtype=torch.int8, device=dev)
     ascale = torch.empty((*a.shape[:-1], 1), dtype=torch.float32, device=dev)
     acc = torch.empty((*a.shape[:-1], n), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(amaxes))(*[t.data_ptr() for t in amaxes])
     err = _lib().dvl_rows_q_partial(a.data_ptr(), int(a.dtype == torch.float32), ptrs,
-                                    len(amaxes), wt.data_ptr(), aq.data_ptr(),
-                                    ascale.data_ptr(), acc.data_ptr(), m, n, k,
-                                    _stream_ptr(dev))
+                                    len(amaxes), wt.data_ptr(), aq.data_ptr(), ascale.data_ptr(),
+                                    acc.data_ptr(), m, no, kp, n, _stream_ptr(dev))
     _raise_on(err, "dvl_rows_q_partial")
     TP_LAUNCHES["rows_q_partial"] += 1
     return acc, aq, ascale
@@ -1139,22 +1163,21 @@ def _tp_reduce_q_cuda(parts, ascale, w_scale, bias, resid, bias_first):
     dev = resid.device
     n = resid.shape[-1]
     m = resid.numel() // n
-    if not 1 <= len(parts) <= MAX_TP_SLOTS:
-        raise ValueError(f"tp_reduce_q sums 1 to {MAX_TP_SLOTS} partials, got {len(parts)}")
+    check_parts(len(parts), "tp_reduce_q")
     for t in parts:
         if t.dtype != torch.int32 or t.shape != resid.shape or t.device != dev:
             raise ValueError(f"tp_reduce_q: each partial must be int32 "
                              f"{tuple(resid.shape)} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    ascale = _operand(ascale.reshape(-1), torch.float32, (m,), "ascale", dev)
+    w_scale = _operand(w_scale.reshape(-1), torch.float32, (n,), "w_scale", dev)
+    bias = _operand(bias, torch.float32, (n,), "bias", dev)
     parts = [t.contiguous() for t in parts]
     out = torch.empty_like(resid)
     ptrs = (ctypes.c_void_p * len(parts))(*[t.data_ptr() for t in parts])
-    err = _lib().dvl_tp_reduce_q(
-        ptrs, len(parts), _operand(ascale.reshape(-1), torch.float32, (m,), "ascale",
-                                   dev).data_ptr(),
-        _operand(w_scale.reshape(-1), torch.float32, (n,), "w_scale", dev).data_ptr(),
-        _operand(bias, torch.float32, (n,), "bias", dev).data_ptr(), resid.data_ptr(),
-        out.data_ptr(), m, n, int(bias_first), _stream_ptr(dev))
+    err = _lib().dvl_tp_reduce_q(ptrs, len(parts), ascale.data_ptr(), w_scale.data_ptr(),
+                                 bias.data_ptr(), resid.data_ptr(), out.data_ptr(), m, n,
+                                 int(bias_first), _stream_ptr(dev))
     _raise_on(err, "dvl_tp_reduce_q")
     TP_LAUNCHES["tp_reduce_q"] += 1
     check_nans("dvl_tp_reduce_q", out)
@@ -1245,7 +1268,10 @@ def attention_block_q_heads(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, *, heads: i
                             causal: bool = False, wqkv_qt=None):
     """A head group's int8 attention up to its row-parallel input
     (``attention_block_q_heads_plain``): (attn, row amax); on a card
-    ``wqkv_qt`` is the slice's [3 g 64, D] transpose (made here when None)."""
+    ``wqkv_qt`` is the slice's [3 g hd, D] transpose (made here when None),
+    and off head dim 64 or D % 128 == 0 the rows come in the kernels' padded
+    layout (``fused_block.group_plan(D, hd, g)``: hdp lanes a head, zeros
+    past hd; the same amax), which ``rows_q_partial(plan=)`` reads."""
     if _route(x) == "cpu":
         return attention_block_q_heads_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv,
                                              heads=heads, causal=causal)
@@ -1257,7 +1283,10 @@ def mlp_block_q_cols(x, ln_s, ln_b, w1_q, w1_scale, b1, *, act_kind: str = "quic
                      w1_qt=None):
     """A slot's int8 MLP up to its hidden (``mlp_block_q_cols_plain``):
     (f32 hidden columns, row amax); on a card ``w1_qt`` is the columns'
-    [F/m, D] transpose (made here when None)."""
+    [F/m, D] transpose (made here when None), and off F/m % 128 == 0 or D %
+    128 == 0 the hidden comes in ``fused_block.mlp_plan(D, F/m)``'s padded
+    layout (zeros past F/m; the same amax), which ``rows_q_partial(plan=)``
+    reads."""
     if act_kind not in ACT_KINDS:
         raise ValueError(f"act_kind must be one of {ACT_KINDS}, got {act_kind!r}")
     if _route(x) == "cpu":
@@ -1266,12 +1295,15 @@ def mlp_block_q_cols(x, ln_s, ln_b, w1_q, w1_scale, b1, *, act_kind: str = "quic
                             w1_q.t().contiguous() if w1_qt is None else w1_qt)
 
 
-def rows_q_partial(a, amaxes, w_q, *, w_qt=None):
+def rows_q_partial(a, amaxes, w_q, *, w_qt=None, plan=None):
     """``rows_q_partial_plain``: (int32 partial, codes, row scales); on a card
-    ``w_qt`` is the weight rows' [N, K] transpose (``QWeight.qt``)."""
+    ``w_qt`` is the weight rows' [N, K] transpose (``QWeight.qt``) and
+    ``plan`` the padded layout of ``a``'s rows where they are wider than K
+    (``group_plan`` / ``mlp_plan``: a slot's kernel output off the
+    identity); the codes then are at the padded width."""
     if _route(a) == "cpu":
         return rows_q_partial_plain(a, amaxes, w_q)
-    return _rows_q_partial_cuda(a, amaxes, w_q.t().contiguous() if w_qt is None else w_qt)
+    return _rows_q_partial_cuda(a, amaxes, w_q.t().contiguous() if w_qt is None else w_qt, plan)
 
 
 def tp_reduce_q(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
@@ -1290,9 +1322,9 @@ def tp_reduce_q(parts, ascale, w_scale, bias, resid, *, bias_first: bool):
 def attention_qq_core(qkv32: torch.Tensor, heads: int, out_dtype=torch.bfloat16,
                       scratch: Optional[dict] = None) -> torch.Tensor:
     """KB (a) 1's int8 attention core alone (``attention_qq_core_plain``):
-    f32 qkv [B, S, 3D] -> [B, S, D]; on a card bf16 out, head dim 64 and at
-    most ``QQ_MAX_SEQ`` keys (csrc/attention_qq.cuh), ``scratch`` receiving
-    the kernel's own p, p codes and p scales."""
+    f32 qkv [B, S, 3D] -> [B, S, D]; on a card bf16 out, any head dim and S
+    (csrc/attention_qq.cuh, ``qq_route``), ``scratch`` receiving the
+    kernel's own p, p codes and p scales."""
     if _route(qkv32) == "cpu":
         return attention_qq_core_plain(qkv32, heads, out_dtype, scratch=scratch)
     if out_dtype != torch.bfloat16:

@@ -7,16 +7,23 @@ the stacked resblock weights by PartitionSpecs and GSPMD inserts the
 collectives.  Here the placement is explicit: ``parallel/mesh.py`` holds
 the five functions, this module the split and the blocks that run it.
 
-  * The split (``head_columns``, ``check_split``): slot j of a model row of
-    m slots takes the q, k and v columns of heads [j g, (j + 1) g), g = H /
-    m, and those heads' rows of wo; the hidden columns [j F/m, (j + 1) F/m)
-    of w1 and b1, and those rows of w2.  JAX splits the packed [D, 3D] wqkv
-    contiguously (at m = 2 a boundary falls inside k, and GSPMD reshards);
-    the head split permutes wqkv's columns into head groups and computes
-    the same function.  H % m or F % m != 0 is refused with a ValueError
-    naming the shape (JAX reshards there).  The int8 weights split alike: a
-    column-parallel q with its per-output-channel scale, a row-parallel q
-    with the whole scale (JAX's ``quantized_resblock_pspecs``).
+  * The split (``head_group``, ``head_columns``, ``check_split``): slot j
+    of a model row of m slots takes the q, k and v columns of heads
+    [floor(j H / m), floor((j + 1) H / m)) -- equal groups when m divides
+    H, else groups of floor(H / m) or one more, and no head at all for a
+    slot past H < m -- and those heads' rows of wo; the hidden columns
+    [j F/m, (j + 1) F/m) of w1 and b1, and those rows of w2.  JAX splits the
+    packed [D, 3D] wqkv contiguously (at m = 2 a boundary falls inside k,
+    and GSPMD reshards); the head split permutes wqkv's columns into head
+    groups and computes the same function.  ``check_split`` refuses exactly
+    where JAX's placement does: D or F (so 3D) not divisible by m, with a
+    ValueError naming the shape; and past ``fused_block.TP_PARTS`` = 256
+    slots, the partials one reduce launch sums (JAX refuses a mesh past its
+    device count).  A slot without a head launches no
+    attention and contributes no partial; its MLP columns run.  The int8
+    weights split alike: a column-parallel q with its per-output-channel
+    scale, a row-parallel q with the whole scale (JAX's
+    ``quantized_resblock_pspecs``).
   * ``TensorParallelBlocks`` / ``TensorParallelQBlocks``: a tower's blocks so
     split, one shard per (model index, device) of the mesh, as an
     ``nn.ModuleList`` of per-layer blocks (the layer index leads every
@@ -66,30 +73,40 @@ ROUTES = ("plain", "fused")
 
 
 def check_split(d: int, heads: int, f: int, m: int) -> None:
-    """Raise unless ``heads`` and the MLP's ``f`` hidden columns divide over
-    ``m`` model slots."""
-    if m < 1 or m > fb.MAX_TP_SLOTS:
-        raise ValueError(f"the model axis takes 1 to {fb.MAX_TP_SLOTS} slots, got {m}")
-    if heads % m:
-        raise ValueError(f"tensor parallel over {m} model slots splits the attention "
-                         f"heads into equal groups: H={heads} (D={d}) % {m} != 0")
+    """Raise where JAX's ``shard_clip_params`` / ``shard_quantized_clip``
+    refuse the placement: wqkv's 3D and wo's D columns (so D) or the MLP's
+    F hidden columns not divisible by the ``m`` model slots.  The heads need
+    not divide (``head_group``)."""
+    if not 1 <= m <= fb.TP_PARTS:
+        raise ValueError(f"the model axis takes 1 to {fb.TP_PARTS} slots, got {m} model slots")
+    if d % m:
+        raise ValueError(f"tensor parallel over {m} model slots splits wqkv's 3D and wo's "
+                         f"D columns evenly: D={d} (H={heads}) % {m} != 0")
     if f % m:
         raise ValueError(f"tensor parallel over {m} model slots splits the MLP hidden "
-                         f"columns into equal groups: F={f} (D={d}) % {m} != 0")
+                         f"columns evenly: F={f} (D={d}) % {m} != 0")
 
 
-def head_columns(d: int, m: int, j: int) -> torch.Tensor:
+def head_group(heads: int, m: int, j: int):
+    """Slot j of m's heads [lo, hi): floor(j H / m) .. floor((j + 1) H / m)
+    (empty for some slots when H < m)."""
+    return j * heads // m, (j + 1) * heads // m
+
+
+def head_columns(d: int, m: int, j: int, heads: int) -> torch.Tensor:
     """The columns of a packed [D, 3D] wqkv (q | k | v) that slot j of m
-    takes: q, then k, then v of its heads [j g, (j + 1) g) (heads are
-    contiguous 64-column groups of each third, so the group's columns are
-    [j D/m, (j + 1) D/m) of each)."""
-    lo, hi = j * d // m, (j + 1) * d // m
+    takes: q, then k, then v of its heads (``head_group``; heads are
+    contiguous hd-column groups of each third)."""
+    hd = d // heads
+    lo, hi = (h * hd for h in head_group(heads, m, j))
     return torch.cat([torch.arange(lo, hi) + i * d for i in range(3)])
 
 
-def _slices(d: int, f: int, m: int, j: int):
+def _slices(d: int, f: int, m: int, j: int, heads: int):
     """(wo rows, hidden columns) of slot j."""
-    return slice(j * d // m, (j + 1) * d // m), slice(j * f // m, (j + 1) * f // m)
+    hd = d // heads
+    lo, hi = head_group(heads, m, j)
+    return slice(lo * hd, hi * hd), slice(j * f // m, (j + 1) * f // m)
 
 
 def _copy(t: torch.Tensor, device) -> torch.Tensor:
@@ -150,7 +167,6 @@ class _SplitBlocks(nn.ModuleList):
     def _setup(self, mesh: Mesh, heads: int, rows: List[_Row]) -> None:
         self.mesh, self.heads, self.rows = mesh, heads, rows
         self.m = len(rows[0].shards)
-        self.g = heads // self.m
 
     def _over_rows(self, x: torch.Tensor, fn) -> torch.Tensor:
         """``fn(row, chunk)`` on the chunk of x's batch each of this process's
@@ -170,17 +186,19 @@ class _SplitBlocks(nn.ModuleList):
 
 
 class SlotShard(nn.Module):
-    """Slot j's share of one block's matrices: ``wqkv`` [D, 3D/m] (its heads'
-    q | k | v columns), ``bqkv``, ``wo`` [D/m, D] (those heads' rows),
-    ``w1`` [D, F/m], ``b1`` [F/m], ``w2`` [F/m, D]; copies on the slot's
-    device."""
+    """Slot j's share of one block's matrices: ``wqkv`` [D, 3 g hd] (its g
+    heads' q | k | v columns, ``g`` of them; 0 for a slot without a head),
+    ``bqkv``, ``wo`` [g hd, D] (those heads' rows), ``w1`` [D, F/m], ``b1``
+    [F/m], ``w2`` [F/m, D]; copies on the slot's device."""
 
-    def __init__(self, blk, m: int, j: int, device):
+    def __init__(self, blk, m: int, j: int, device, heads: int):
         super().__init__()
         a, p = blk.attn, blk.mlp
         d, f = a.wo.shape[0], p.w1.shape[1]
-        cols = head_columns(d, m, j).to(a.wqkv.device)
-        rows, hidden = _slices(d, f, m, j)
+        lo, hi = head_group(heads, m, j)
+        self.g = hi - lo
+        cols = head_columns(d, m, j, heads).to(a.wqkv.device)
+        rows, hidden = _slices(d, f, m, j, heads)
         self.wqkv = _param(a.wqkv[:, cols], device)
         self.bqkv = _param(a.bqkv[cols], device)
         self.wo = _param(a.wo[rows], device)
@@ -197,29 +215,31 @@ class TPBlock(nn.Module):
     row-parallel biases (``bo``, ``b2``) on the mesh's first device, and one
     ``SlotShard`` per (model index, device)."""
 
-    def __init__(self, blk, m: int, keys, home):
+    def __init__(self, blk, m: int, keys, home, heads: int):
         super().__init__()
         self.ln_1 = _layer_norm(blk.ln_1, home)
         self.ln_2 = _layer_norm(blk.ln_2, home)
         self.bo = _param(blk.attn.bo, home)
         self.b2 = _param(blk.mlp.b2, home)
-        self.slots = nn.ModuleList(SlotShard(blk, m, j, dev) for j, dev in keys)
+        self.slots = nn.ModuleList(SlotShard(blk, m, j, dev, heads) for j, dev in keys)
 
     def replicated(self):
         return (self.ln_1.scale, self.ln_1.bias, self.bo,
                 self.ln_2.scale, self.ln_2.bias, self.b2)
 
 
-def _fused_block_row(y, rep, slot_ts, devices, g, act_kind, causal, twin):
+def _fused_block_row(y, rep, slot_ts, devices, groups, act_kind, causal, twin):
     """One block over a row's slots through the split entries (``twin``: their
-    plain twins, the backward's recompute)."""
+    plain twins, the backward's recompute); ``groups``: each slot's head
+    count (a slot with none adds no attention partial)."""
     attn = fb.attention_block_heads_plain if twin else fb.attention_block_heads
     mlp = fb.mlp_block_cols_plain if twin else fb.mlp_block_cols
     reduce = fb.tp_reduce_plain if twin else fb.tp_reduce
     ln1s, ln1b, bo, ln2s, ln2b, b2 = rep
     home = y.device
     parts = [_on(attn(_on(y, dev), _on(ln1s, dev), _on(ln1b, dev), *ts[:3], heads=g,
-                      causal=causal), home) for ts, dev in zip(slot_ts, devices)]
+                      causal=causal), home)
+             for ts, dev, g in zip(slot_ts, devices, groups) if g]
     y = reduce(parts, _on(bo, home), y, bias_first=False)
     parts = [_on(mlp(_on(y, dev), _on(ln2s, dev), _on(ln2b, dev), *ts[3:],
                      act_kind=act_kind), home) for ts, dev in zip(slot_ts, devices)]
@@ -236,18 +256,18 @@ class _FusedTPBlockFn(torch.autograd.Function):
     def forward(ctx, cfg, y, *tensors):
         ctx.cfg = cfg
         ctx.save_for_backward(y, *tensors)
-        devices, g, act_kind, causal = cfg
-        return _fused_block_row(y, tensors[:6], _per_slot(tensors[6:]), devices, g,
+        devices, groups, act_kind, causal = cfg
+        return _fused_block_row(y, tensors[:6], _per_slot(tensors[6:]), devices, groups,
                                 act_kind, causal, twin=False)
 
     @staticmethod
     def backward(ctx, grad):
-        devices, g, act_kind, causal = ctx.cfg
+        devices, groups, act_kind, causal = ctx.cfg
         need = ctx.needs_input_grad[1:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            out = _fused_block_row(inputs[0], inputs[1:7], _per_slot(inputs[7:]), devices, g,
-                                   act_kind, causal, twin=True)
+            out = _fused_block_row(inputs[0], inputs[1:7], _per_slot(inputs[7:]), devices,
+                                   groups, act_kind, causal, twin=True)
             wanted = [t for t, n in zip(inputs, need) if n]
             grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
         return (None,) + tuple(next(grads) if n else None for n in need)
@@ -266,7 +286,7 @@ class TensorParallelBlocks(_SplitBlocks):
         d, f = blk0.attn.wo.shape[0], blk0.mlp.w1.shape[1]
         keys, rows, m = _placement(mesh)
         check_split(d, heads, f, m)
-        super().__init__(TPBlock(blk, m, keys, mesh.first_device) for blk in blocks)
+        super().__init__(TPBlock(blk, m, keys, mesh.first_device, heads) for blk in blocks)
         self._setup(mesh, heads, rows)
 
     def run(self, x: torch.Tensor, *, route: str = "plain",
@@ -309,13 +329,14 @@ class TensorParallelBlocks(_SplitBlocks):
             return checkpoint(plain, y, use_reentrant=False) if remat else plain(y)
         slots = [blk.slots[k] for k in row.shards]
         slot_ts = [s.tensors() for s in slots]
+        groups = tuple(s.g for s in slots)
         rep = blk.replicated()
         if torch.is_grad_enabled() and (y.requires_grad or any(
                 t.requires_grad for t in rep + tuple(t for ts in slot_ts for t in ts))):
             flat = [t for ts in slot_ts for t in ts]
-            return _FusedTPBlockFn.apply((row.devices, self.g, act_kind, causal), y, *rep,
+            return _FusedTPBlockFn.apply((row.devices, groups, act_kind, causal), y, *rep,
                                          *flat)
-        return _fused_block_row(y, rep, slot_ts, row.devices, self.g, act_kind, causal,
+        return _fused_block_row(y, rep, slot_ts, row.devices, groups, act_kind, causal,
                                 twin=False)
 
     def _attn_plain(self, blk, row, y, causal, use_pallas):
@@ -323,10 +344,12 @@ class TensorParallelBlocks(_SplitBlocks):
         parts = []
         for k, dev in zip(row.shards, row.devices):
             sh = blk.slots[k]
+            if not sh.g:
+                continue
             xj = _on(y, dev)
             xn = ln_f32(xj, _on(blk.ln_1.scale, dev), _on(blk.ln_1.bias, dev))
             mask = causal_mask(xj.shape[-2], dev) if causal else None
-            o = attention_heads(linear(xn, sh.wqkv, sh.bqkv), self.g, mask, use_pallas)
+            o = attention_heads(linear(xn, sh.wqkv, sh.bqkv), sh.g, mask, use_pallas)
             parts.append(_on(o @ sh.wo.to(dt), home))
         return y + (sum(parts[1:], parts[0]) + blk.bo.to(home, dt))
 
@@ -361,13 +384,16 @@ class QSlice(nn.Module):
 class QSlotShard(nn.Module):
     """Slot j's share of an int8 block (``ops/quant.QuantBlock``): the column-
     parallel ``wqkv`` / ``w1`` with their scale slices, the row-parallel
-    ``wo`` / ``w2`` rows with the whole scale, ``bqkv`` and ``b1`` slices."""
+    ``wo`` / ``w2`` rows with the whole scale, ``bqkv`` and ``b1`` slices;
+    ``g`` heads (``SlotShard``'s split)."""
 
-    def __init__(self, qblk, m: int, j: int, device):
+    def __init__(self, qblk, m: int, j: int, device, heads: int):
         super().__init__()
         d, f = qblk.wo.q.shape[0], qblk.w1.q.shape[1]
-        cols = head_columns(d, m, j).to(qblk.wqkv.q.device)
-        rows, hidden = _slices(d, f, m, j)
+        lo, hi = head_group(heads, m, j)
+        self.g = hi - lo
+        cols = head_columns(d, m, j, heads).to(qblk.wqkv.q.device)
+        rows, hidden = _slices(d, f, m, j, heads)
         self.wqkv = QSlice(qblk.wqkv.q[:, cols], qblk.wqkv.scale[:, cols], device)
         self.wo = QSlice(qblk.wo.q[rows], qblk.wo.scale, device)
         self.w1 = QSlice(qblk.w1.q[:, hidden], qblk.w1.scale[:, hidden], device)
@@ -379,13 +405,13 @@ class QSlotShard(nn.Module):
 class TPQBlock(nn.Module):
     """One int8 resblock split over the model axis (``TPBlock``'s layout)."""
 
-    def __init__(self, qblk, m: int, keys, home):
+    def __init__(self, qblk, m: int, keys, home, heads: int):
         super().__init__()
         self.ln_1 = _layer_norm(qblk.ln_1, home)
         self.ln_2 = _layer_norm(qblk.ln_2, home)
         self.register_buffer("bo", _copy(qblk.bo, home))
         self.register_buffer("b2", _copy(qblk.b2, home))
-        self.slots = nn.ModuleList(QSlotShard(qblk, m, j, dev) for j, dev in keys)
+        self.slots = nn.ModuleList(QSlotShard(qblk, m, j, dev, heads) for j, dev in keys)
 
 
 def _int8_linear(x: torch.Tensor, w, bias) -> torch.Tensor:
@@ -406,7 +432,7 @@ class TensorParallelQBlocks(_SplitBlocks):
         d, f = q0.wo.q.shape[0], q0.w1.q.shape[1]
         keys, rows, m = _placement(mesh)
         check_split(d, heads, f, m)
-        super().__init__(TPQBlock(qb, m, keys, mesh.first_device) for qb in qblocks)
+        super().__init__(TPQBlock(qb, m, keys, mesh.first_device, heads) for qb in qblocks)
         self._setup(mesh, heads, rows)
 
     def run(self, x: torch.Tensor, *, route: str = "fused",
@@ -433,27 +459,35 @@ class TensorParallelQBlocks(_SplitBlocks):
         return self._plain(blk, slots, row.devices, y, act_kind, causal)
 
     @staticmethod
-    def _row_parallel(inputs, amaxes, weights, home, kernel: bool):
+    def _row_parallel(inputs, amaxes, weights, plans, home, kernel: bool):
         """Each slot's input quantized at the row's global scale times its
-        rows of the weight: the int32 partials on ``home`` and slot 0's row
-        scales."""
-        fn = fbq.rows_q_partial if kernel else (
-            lambda a, am, q, w_qt=None: fbq.rows_q_partial_plain(a, am, q))
+        rows of the weight (``plans``: the layout of each input's row when a
+        kernel wrote it padded): the int32 partials on ``home`` and slot 0's
+        row scales."""
         parts, scale0 = [], None
-        for a, w in zip(inputs, weights):
-            acc, _, scale = fn(a, [_on(t, a.device) for t in amaxes], w.q, w_qt=w.qt)
+        for a, w, plan in zip(inputs, weights, plans):
+            ams = [_on(t, a.device) for t in amaxes]
+            if kernel:
+                acc, _, scale = fbq.rows_q_partial(a, ams, w.q, w_qt=w.qt, plan=plan)
+            else:
+                acc, _, scale = fbq.rows_q_partial_plain(a, ams, w.q)
             parts.append(_on(acc, home))
             scale0 = _on(scale, home) if scale0 is None else scale0
         return parts, scale0
 
     def _fused(self, blk, slots, devices, y, act_kind, causal):
         home = y.device
+        d = y.shape[-1]
+        hd = d // self.heads
+        heads = [(sh, dev) for sh, dev in zip(slots, devices) if sh.g]
         out = [fbq.attention_block_q_heads(
             _on(y, dev), _on(blk.ln_1.scale, dev), _on(blk.ln_1.bias, dev), sh.wqkv.q,
-            sh.wqkv.scale, sh.bqkv, heads=self.g, causal=causal, wqkv_qt=sh.wqkv.qt)
-            for sh, dev in zip(slots, devices)]
+            sh.wqkv.scale, sh.bqkv, heads=sh.g, causal=causal, wqkv_qt=sh.wqkv.qt)
+            for sh, dev in heads]
         parts, scale = self._row_parallel([a for a, _ in out], [m for _, m in out],
-                                          [sh.wo for sh in slots], home, True)
+                                          [sh.wo for sh, _ in heads],
+                                          [fb.group_plan(d, hd, sh.g) for sh, _ in heads],
+                                          home, True)
         y = fbq.tp_reduce_q(parts, scale, _on(slots[0].wo.scale, home), _on(blk.bo, home), y,
                             bias_first=False)
         out = [fbq.mlp_block_q_cols(
@@ -461,7 +495,9 @@ class TensorParallelQBlocks(_SplitBlocks):
             sh.w1.scale, sh.b1, act_kind=act_kind, w1_qt=sh.w1.qt)
             for sh, dev in zip(slots, devices)]
         parts, scale = self._row_parallel([h for h, _ in out], [m for _, m in out],
-                                          [sh.w2 for sh in slots], home, True)
+                                          [sh.w2 for sh in slots],
+                                          [fb.mlp_plan(d, sh.w1.q.shape[1]) for sh in slots],
+                                          home, True)
         return fbq.tp_reduce_q(parts, scale, _on(slots[0].w2.scale, home), _on(blk.b2, home),
                                y, bias_first=True)
 
@@ -470,13 +506,14 @@ class TensorParallelQBlocks(_SplitBlocks):
         rows quantized at their global scale, the int32 partials summed."""
         home, dt = y.device, y.dtype
         outs = []
-        for sh, dev in zip(slots, devices):
+        heads = [(sh, dev) for sh, dev in zip(slots, devices) if sh.g]
+        for sh, dev in heads:
             xj = _on(y, dev)
             qkv = _int8_linear(ln_f32(xj, _on(blk.ln_1.scale, dev), _on(blk.ln_1.bias, dev)),
                                sh.wqkv, sh.bqkv)
             mask = causal_mask(xj.shape[-2], dev) if causal else None
-            outs.append(attention_heads(qkv, self.g, mask))
-        y = self._plain_reduce(outs, slots, "wo", blk.bo, y, home, dt)
+            outs.append(attention_heads(qkv, sh.g, mask))
+        y = self._plain_reduce(outs, [sh for sh, _ in heads], "wo", blk.bo, y, home, dt)
         outs = []
         for sh, dev in zip(slots, devices):
             xj = _on(y, dev)
@@ -486,8 +523,8 @@ class TensorParallelQBlocks(_SplitBlocks):
 
     def _plain_reduce(self, outs, slots, name, bias, y, home, dt):
         amaxes = [fbq.row_amax(o) for o in outs]
-        parts, scale = self._row_parallel(outs, amaxes, [getattr(sh, name) for sh in slots],
-                                          home, False)
+        weights = [getattr(sh, name) for sh in slots]
+        parts, scale = self._row_parallel(outs, amaxes, weights, [None] * len(outs), home, False)
         acc = sum(parts[1:], parts[0])
-        w_scale = _on(getattr(slots[0], name).scale, home).reshape(-1).float()
+        w_scale = _on(weights[0].scale, home).reshape(-1).float()
         return y + (acc.float() * scale * w_scale + _on(bias, home).float()).to(dt)

@@ -41,6 +41,7 @@ from ..models.clip import VIT_KINDS
 from ..ops.quant import resolve_compute
 from ..parallel.mesh import dp_shard_map, replicate_params
 from ..utils.device import resolve_device
+from ..utils.observability import debug_nans_thread
 from ..vision.preprocess import preprocess_batch, resize_crop_u8, to_rgb_array
 
 
@@ -207,6 +208,7 @@ class InferenceEngine:
         """A zeroed host tensor for one bucket, pinned on a CUDA device."""
         return torch.zeros(shape, dtype=dtype, pin_memory=self._pin)
 
+    @debug_nans_thread
     def _launch(self, embed, staged: torch.Tensor) -> torch.Tensor:
         """Copy a staged bucket to the device (each shard to its slot under
         a mesh) and launch, under the lock."""
@@ -275,6 +277,7 @@ class InferenceEngine:
         return self._launch(_embed_texts, staged)
 
     @staticmethod
+    @debug_nans_thread
     def fetch(handle: torch.Tensor, n: int) -> np.ndarray:
         """Block for the device result and strip bucket padding."""
         return handle[:n].cpu().numpy()

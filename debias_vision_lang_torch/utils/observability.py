@@ -11,6 +11,7 @@ with autograd's anomaly mode for the backward pass.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -106,28 +107,62 @@ def check_nans(what: str, *tensors) -> None:
         raise FloatingPointError(f"NaN in the output of {what} (enable_debug_nans)")
 
 
+_NAN_MODE_CLASS = []
+
+
 def _nan_mode():
-    import torch
-    from torch.overrides import TorchFunctionMode
+    """A new NaN function mode (one per thread that enters it: torch keeps
+    the mode stack per thread)."""
+    if not _NAN_MODE_CLASS:
+        import torch
+        from torch.overrides import TorchFunctionMode
 
-    # factories of uninitialised memory may hold any bits
-    skip = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
-            torch.Tensor.new_empty_strided}
+        # factories of uninitialised memory may hold any bits
+        skip = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
+                torch.Tensor.new_empty_strided}
 
-    class NanMode(TorchFunctionMode):
-        """Every torch function's floating outputs checked for NaN, as
-        ``jax_debug_nans`` checks every primitive's."""
+        class NanMode(TorchFunctionMode):
+            """Every torch function's floating outputs checked for NaN, as
+            ``jax_debug_nans`` checks every primitive's."""
 
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func not in skip:
-                outs = out if isinstance(out, (tuple, list)) else (out,)
-                if any(map(_nan_in, outs)):
-                    name = getattr(func, "__qualname__", None) or getattr(func, "__name__", func)
-                    raise FloatingPointError(f"NaN in the output of {name} (enable_debug_nans)")
-            return out
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func not in skip:
+                    outs = out if isinstance(out, (tuple, list)) else (out,)
+                    if any(map(_nan_in, outs)):
+                        name = (getattr(func, "__qualname__", None)
+                                or getattr(func, "__name__", func))
+                        raise FloatingPointError(
+                            f"NaN in the output of {name} (enable_debug_nans)")
+                return out
 
-    return NanMode()
+        _NAN_MODE_CLASS.append(NanMode)
+    return _NAN_MODE_CLASS[0]()
+
+
+def _thread_checked() -> bool:
+    """This thread runs under a NaN function mode already."""
+    from torch.overrides import _get_current_function_mode_stack
+
+    return bool(_NAN_MODE_CLASS) and any(isinstance(m, _NAN_MODE_CLASS[0])
+                                         for m in _get_current_function_mode_stack())
+
+
+def debug_nans_thread(fn):
+    """``fn`` with the NaN function mode entered on the calling thread for
+    the call while ``enable_debug_nans`` is on, if that thread has not
+    entered it (``jax_debug_nans`` is global; torch's function modes are per
+    thread).  The port wraps the functions its own threads run with it: the
+    serving batcher's worker and finalizer (``serve/engine.py``'s dispatch
+    and fetch).  Off: one dict lookup."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if _DEBUG_NANS["mode"] is None or _thread_checked():
+            return fn(*args, **kwargs)
+        with _nan_mode():
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def enable_debug_nans(on: bool = True) -> None:
@@ -139,8 +174,10 @@ def enable_debug_nans(on: bool = True) -> None:
     anomaly mode (``torch.autograd.set_detect_anomaly(on, check_nan=True)``)
     names the forward op of a NaN made in the backward pass.  Off (the
     default) nothing is installed: the kernel entries' check is one dict
-    lookup.  The function mode is the calling thread's (torch keeps it per
-    thread); the kernel entries' check holds on every thread."""
+    lookup.  The function mode is entered on the calling thread here (torch
+    keeps modes per thread), and on each thread the port starts as it runs
+    its work (``debug_nans_thread``); the kernel entries' check holds on
+    every thread."""
     import torch
 
     torch.autograd.set_detect_anomaly(on, check_nan=True)

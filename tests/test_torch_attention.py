@@ -715,7 +715,19 @@ def test_cuda_long_route_large_scores(cuda, s):
 
 
 @pytest.mark.cuda
-def test_cuda_refuses_head_dims_past_192(cuda):
-    q = torch.zeros(1, 1, 77, 193, device=cuda)
-    with pytest.raises(ValueError, match="head dims up to 192"):
-        A.attention_pallas(q, q, q)
+@pytest.mark.parametrize("s,hd", [(77, 193), (77, 256), (785, 256), (77, 800), (321, 800)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_takes_head_dims_past_192(cuda, s, hd, dtype):
+    """Past 128 padded dims the long route's wide-head mode (one 64-dim
+    output chunk a block, Q's chunks through the K ring): the long route's
+    launch, the twin's bars."""
+    g = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(2, 3, s, hd, generator=g).to(cuda, dtype) for _ in range(3))
+    mask = torch.randn(s, s, device=cuda)
+    A.reset_launches()
+    got = A.attention_pallas(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {"attention_pallas": 0, "attention_pallas_long": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = A.attention_kernel_math(q, k, v, mask)
+    (_close_f32 if dtype == torch.float32 else _within_one_ulp)(got.cpu(), ref.cpu())

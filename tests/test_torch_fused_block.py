@@ -444,8 +444,11 @@ class TestCoreRoute:
         core = (csrc / "attention_wgmma.cuh").read_text()
         body = core[core.index("cudaError_t launch_attention_wgmma("):]
         body = body[:body.index("\n}\n")]
-        # past 320 keys, or past the register core's two 64-dim chunks
-        assert "if (S > CORE_MAX_SEQ || c > CORE_MAX_C)\n    return launch_long_packed(" in body
+        # past 320 keys, or past the register core's two 64-dim chunks, or
+        # the softmax-off mode past one chunk (its register instantiations
+        # are hdp 64's)
+        assert ("if (S > CORE_MAX_SEQ || c > CORE_MAX_C || (norm_after == NORM_OFF && c > 1))"
+                "\n    return launch_long_packed(") in body
         assert "constexpr int CORE_MAX_C = 2;" in core
         long = (csrc / "attention_long.cuh").read_text()
         packed = long[long.index("cudaError_t launch_long_packed_c("):]

@@ -55,6 +55,7 @@ import pytest
 import torch
 
 from debias_vision_lang_torch.ops import _build
+from debias_vision_lang_torch.ops import fused_block as fb
 from debias_vision_lang_torch.ops import fused_block_q as fbq
 from kb_helpers import _jnp, _layer, _np32, _pallas_ops, _t, _ulp, _x, capture, check
 from kb_helpers import interpret as _interpret
@@ -309,24 +310,45 @@ def test_reset_clears_the_kb_counters():
     assert set(fbq.KB_LAUNCHES.values()) == {0}
 
 
-@pytest.mark.parametrize("s,d,heads,match", [
-    (257, 768, 12, "at most 256 keys"), (197, 768, 6, "head dim 64"),
-    (197, 384, 12, "head dim 64")])
-def test_qq_core_refusals(s, d, heads, match):
-    """Before any launch (so on the CPU too): the int8 core holds whole
-    score rows of up to 256 keys in registers and takes head dim 64."""
-    with pytest.raises(ValueError, match=match):
-        fbq._attention_qq_core_cuda(torch.zeros(1, s, 3 * d), heads, None)
+@pytest.mark.parametrize("s,d,heads,route", [
+    (257, 768, 12, "tiled"), (197, 768, 6, "tiled"), (197, 384, 12, "register"),
+    (256, 768, 12, "register")])
+def test_qq_core_refusals(int8_cores, s, d, heads, route):
+    """The shapes the card's int8 core once refused (past 256 keys, head
+    dims 128 and 32) now compute JAX's function: the block around the core
+    against attention_block_qq in interpret mode at bfloat16 (the full-width
+    bar: one bf16 ulp); the core's twin on the card's layout (each head
+    zero-padded to a multiple of 64 lanes: ``attn_plan``) gives the unpadded
+    core's output bit for bit, and the card's route (``qq_route``) is the
+    tiled one past 256 keys or past head dim 64 (32 pads to the register
+    route's 64)."""
+    import jax.numpy as jnp
+
+    assert fbq.qq_route(s, d // heads) == route
+    attn, _ = _layer(d, seed=s + heads)
+    x = _x(1, s, d, seed=heads)
+    ref = int8_cores.attention_block_qq(_jnp(x, jnp.bfloat16), *map(_jnp, attn), heads=heads)
+    got = fbq.attention_block_qq(_t(x, torch.bfloat16), *map(_t, attn), heads=heads)
+    check(got, ref, "bfloat16", full_width=True)
+    qkv = torch.from_numpy(_x(1, s, 3 * d, seed=7))
+    plan = fb.attn_plan(d, heads)
+    padded = fb.place(qkv[0], (s, 3 * plan.da), cols=plan.qkv_columns())[None]
+    want = fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16)
+    pad = fbq.attention_qq_core_plain(padded, heads, torch.bfloat16, scale=plan.scale)
+    assert torch.equal(plan.crop_heads(pad), want)
 
 
-def test_qq_block_refuses_past_256_keys():
-    d = 768
-    x = torch.zeros(1, 257, d, dtype=torch.bfloat16)
-    w = torch.zeros(d, 3 * d, dtype=torch.int8)
-    with pytest.raises(ValueError, match="at most 256 keys in registers, got S=257"):
-        fbq._attention_block_q_cuda(x, torch.ones(d), torch.zeros(d), torch.ones(3 * d),
-                                    torch.zeros(3 * d), torch.ones(d), torch.zeros(d), 12,
-                                    False, w.t(), w[:, :d].t(), None, kind="qq")
+def test_qq_block_refuses_past_256_keys(int8_cores, full_block):
+    """KB (a) 1 past 256 keys (the card's tiled route) at ViT-B/16's width,
+    bfloat16: within one bf16 ulp of attention_block_qq in interpret mode."""
+    import jax.numpy as jnp
+
+    x = _x(1, 257, D, seed=11)
+    ref = int8_cores.attention_block_qq(_jnp(x, jnp.bfloat16), *map(_jnp, full_block[0]),
+                                        heads=H)
+    got = fbq.attention_block_qq(_t(x, torch.bfloat16), *map(_t, full_block[0]), heads=H)
+    check(got, ref, "bfloat16", full_width=True)
+    assert fbq.qq_route(257, 64) == "tiled"
 
 
 def test_qq_core_products_are_int8_mma_in_the_header():
@@ -470,19 +492,39 @@ def test_cuda_attn_var_on_the_long_core(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_qq_refuses_what_its_core_does_not_hold(cuda):
-    """On the card the int8 core's shapes are refused before any launch: a
-    score row past 256 keys, a head dim other than 64, a float32 output."""
-    qkv = torch.zeros(1, 257, 3 * D, device=cuda)
-    with pytest.raises(ValueError, match="at most 256 keys"):
-        fbq.attention_qq_core(qkv, H)
-    (a, akw), _ = _cuda_block(D, cuda)
-    x = torch.zeros(1, 257, D, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 256 keys"):
-        fbq.attention_block_qq(x, *a, heads=H, **akw)
-    with pytest.raises(ValueError, match="head dim 64"):
-        fbq.attention_qq_core(torch.zeros(1, 8, 3 * D, device=cuda), 6)
+@pytest.mark.parametrize("s,hd", [(257, 64), (400, 64), (785, 64), (77, 80), (257, 80),
+                                  (197, 128), (1100, 64)])
+def test_cuda_qq_takes_every_key_count_and_head_dim(cuda, s, hd):
+    """The int8 core's tiled route (past 256 keys, or off head dim 64): its
+    p codes are quant_rows of its own p, its output is the exact int32 P V
+    on those codes (one f32 conversion: S * 127^2 passes 2^24 at 1,100
+    keys), its p within 1e-6 of the twin's; the block within one bf16 ulp
+    of its twin, and its core within one ulp of the twin's core on the
+    kernel's own f32 qkv.  A float32 output is refused."""
+    h = 2
+    d = h * hd
+    qkv = torch.from_numpy(_x(2, s, 3 * d, seed=s + hd)).to(cuda)
+    sk, sr = {}, {}
+    fbq.reset_launches()
+    got = fbq.attention_qq_core(qkv, h, scratch=sk)
+    ref = fbq.attention_qq_core_plain(qkv, h, torch.bfloat16, scratch=sr)
+    torch.cuda.synchronize()
+    assert fbq.QQ_ROUTES == {"register": 0, "tiled": 1}
+    assert torch.equal(fbq.quant_rows(sk["p"])[0], sk["pq"])
+    torch.testing.assert_close(sk["p"], sr["p"], atol=1e-6, rtol=0)
+    vq, vsc = fbq.quant_rows(qkv[..., 2 * d:].reshape(2, s, h, hd).permute(0, 2, 3, 1))
+    own = (sk["pq"].double() @ vq.transpose(-1, -2).double()).float() * sk["psc"] \
+        * vsc.transpose(-1, -2)
+    own = own.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(2, s, d)
+    assert torch.equal(got, own)
+    (a, akw), _ = _cuda_block(d, cuda, seed=hd)
+    x = torch.from_numpy(_x(2, s, d, seed=4)).to(cuda, torch.bfloat16)
+    sk = {}
+    blk = fbq.attention_block_qq(x, *a, heads=h, **akw, scratch=sk)
+    torch.cuda.synchronize()
+    _codes_are_own(sk, fbq.quant_rows, [("xq", "xn", "xs"), ("aq", "attn", "as")])
+    within_one_ulp(blk.cpu(), fbq.attention_block_qq_plain(x, *a, heads=h).cpu())
+    core = fbq.attention_qq_core_plain(sk["qkv"], h, torch.bfloat16).float()
+    within_one_ulp(sk["attn"].cpu(), core.cpu())
     with pytest.raises(TypeError, match="bfloat16"):
         fbq.attention_qq_core(torch.zeros(1, 8, 3 * D, device=cuda), H, torch.float32)
-    fbq.reset_launches()
-    assert fbq.KB_LAUNCHES["attention_qq_core"] == 0

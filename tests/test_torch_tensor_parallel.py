@@ -28,7 +28,9 @@ package's, on CPU slots.
     float32 adversary + prompt step on a DebiasCLIP whose CLIP is placed
     under (2, 2); the token gradient within 1e-5 of the unsharded step's
     largest magnitude.
-  * Refusals: H % m and F % m name the shape.
+  * Refusals: only JAX's (D % m or F % m), naming the shape; heads that do
+    not divide over m place and compute as JAX's column split does
+    (tests/test_torch_tp_shapes.py holds the rest of that contract).
   * CUDA (marker ``cuda``, skipped without a card): each new entry against
     its twin, and the int8 split tower bit-equal to the unsharded kernels.
 
@@ -349,7 +351,7 @@ class TestFloat32:
         assert mask["text.resblocks.0.slots.0.wqkv"] == 0.0
 
     def test_head_columns_take_whole_heads_of_q_k_and_v(self):
-        cols = tpar.head_columns(128, 2, 1)
+        cols = tpar.head_columns(128, 2, 1, 2)
         assert cols.tolist() == (list(range(64, 128)) + list(range(192, 256))
                                  + list(range(320, 384)))
 
@@ -681,15 +683,23 @@ def test_dryrun_step_token_gradient_matches_unsharded():
 
 class TestRefusals:
     def test_heads_that_do_not_divide_raise(self):
+        """Heads that do not divide over the model axis: JAX places them (it
+        splits wqkv's columns, not heads), so the port places them too, in
+        uneven head groups (two of the four slots hold no head here), and
+        computes the unsharded function: float32 within 1e-5, int8 bit-equal."""
         clip = port_clip(tiny_cfg(heads=2))
-        with pytest.raises(ValueError, match=r"H=2 \(D=64\) % 4 != 0"):
-            pm.shard_clip_params(clip, cpu_mesh(1, 4))
-        with pytest.raises(ValueError, match=r"H=2 \(D=64\) % 4 != 0"):
-            pm.shard_quantized_clip(QuantizedCLIP(clip), cpu_mesh(2, 4))
+        placed = pm.shard_clip_params(clip, cpu_mesh(1, 4))
+        assert [s.g for s in placed.visual.resblocks[0].slots] == [0, 1, 0, 1]
+        q = QuantizedCLIP(clip)
+        q_tp = pm.shard_quantized_clip(q, cpu_mesh(2, 4))
+        with torch.no_grad():
+            close(placed.encode_image(images()), clip.encode_image(images()), 1e-5)
+            assert torch.equal(q_tp.encode_image(images(), dtype=torch.float32),
+                               q.encode_image(images(), dtype=torch.float32))
 
     @pytest.mark.parametrize("d,heads,f,m,what", [
-        (64, 3, 256, 2, r"H=3 \(D=64\) % 2"), (64, 8, 100, 8, r"F=100 \(D=64\) % 8"),
-        (64, 4, 256, 9, "1 to 8 slots")])
+        (63, 3, 252, 2, r"D=63 \(H=3\) % 2"), (64, 8, 100, 8, r"F=100 \(D=64\) % 8"),
+        (64, 4, 256, 9, r"D=64 \(H=4\) % 9")])
     def test_check_split_names_the_shape(self, d, heads, f, m, what):
         with pytest.raises(ValueError, match=what):
             tpar.check_split(d, heads, f, m)
