@@ -8,18 +8,24 @@ At B=8, H=12 (a Frozen-in-Time joint tower's batch and heads), S = 77 and
 one ``attention_pallas`` call (CUDA events over 20 calls after a warm-up,
 the wrapper's copies included), the launches it counted, the largest
 difference from ``attention_kernel_math`` (the twin) on the same inputs on
-the card, the twin's time, and the bound: the larger of the operations
-over the card's dense peak (bf16, or three TF32 products per f32 product)
-and the bytes over 3.35 TB/s (``chip_smoke.py::attention_work`` and
-``bound``).  A head dim the checkout refuses prints "refused" with its
+the card, the twin's time, the time of one
+``torch.nn.functional.scaled_dot_product_attention`` call on the same
+inputs (SDPA, the library's yardstick), and the bound: the larger of the
+operations over the card's dense peak (bf16, or three TF32 products per
+f32 product) and the bytes over 3.35 TB/s (``chip_smoke.py::attention_work``
+and ``bound``).  A head dim the checkout refuses prints "refused" with its
 message.
 
     python3 benchmarks_torch/k5_head_dim_times.py [--root CHECKOUT] [--hd 192 256 800]
+        [--dump DIR | --against DIR]
 
 ``--root`` imports ``debias_vision_lang_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``); its kernels build
-under that checkout.  Prints the card's nvidia-smi name and power limit.
-Exits 2 without a card.
+under that checkout.  ``--dump`` saves every output to DIR; ``--against``
+compares every output with the one saved there (the inputs are made from
+the same seeds on the card) and prints whether the two are bit-identical
+and their largest difference.  Prints the card's nvidia-smi name and power
+limit.  Exits 2 without a card.
 """
 
 import argparse
@@ -51,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=here, help="the checkout whose port is timed")
     ap.add_argument("--hd", type=int, nargs="+", default=[192, 256, 800])
     ap.add_argument("--label", default="", help="a tag printed on every line")
+    ap.add_argument("--dump", help="save each output to this directory")
+    ap.add_argument("--against", help="compare each output with the one saved here")
     args = ap.parse_args(argv)
     import torch
 
@@ -77,12 +85,27 @@ def main(argv=None) -> int:
                 except (ValueError, RuntimeError) as e:
                     print(f"{tag}: refused: {str(e).splitlines()[0]} ({name})")
                     continue
-                launches = dict(att.LAUNCHES)
+                launches = {**att.LAUNCHES, **getattr(att, "WIDE_LAUNCHES", {})}
                 ref = att.attention_kernel_math(q, k, v, att._zero_mask(q))
                 err = (out.float() - ref.float()).abs().max().item()
+                key = f"hd{hd}_s{s}_{str(dt)[6:]}.pt"
+                same = ""
+                if args.dump:
+                    os.makedirs(args.dump, exist_ok=True)
+                    torch.save(out.cpu(), os.path.join(args.dump, key))
+                if args.against:
+                    other = torch.load(os.path.join(args.against, key)).to(dev)
+                    diff = (out.float() - other.float()).abs().max().item()
+                    same = (f", against {args.against}: "
+                            f"{'bit-identical' if torch.equal(out, other) else 'differs'} "
+                            f"(max |diff| {diff:.3e})")
+                    del other
+                zero = att._zero_mask(q).to(dt)
                 times = []
                 for fn in (lambda: att.attention_pallas(q, k, v),
-                           lambda: att.attention_kernel_math(q, k, v, att._zero_mask(q))):
+                           lambda: att.attention_kernel_math(q, k, v, att._zero_mask(q)),
+                           lambda: torch.nn.functional.scaled_dot_product_attention(
+                               q, k, v, attn_mask=zero)):
                     fn()
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                         enable_timing=True)
@@ -93,9 +116,10 @@ def main(argv=None) -> int:
                     end.synchronize()
                     times.append(start.elapsed_time(end) / 20)
                 bms, by = bound_ms(b, h, s, hd, dt == torch.float32)
-                print(f"{tag}: kernel {times[0]:.4f} ms, twin {times[1]:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by}; {bms / times[0]:.1%}), max |err| {err:.3e}, "
-                      f"launches {launches} ({name})", flush=True)
+                print(f"{tag}: kernel {times[0]:.4f} ms, twin {times[1]:.4f} ms, SDPA "
+                      f"{times[2]:.4f} ms, bound {bms:.4f} ms ({by}; {bms / times[0]:.1%}), "
+                      f"max |err| {err:.3e}, launches {launches}{same} ({name})", flush=True)
+                del q, k, v, out, ref, zero
     return 0
 
 

@@ -91,7 +91,8 @@ def build(out_dir):
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log[-3000:]}")
         lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}.so"))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvl_attention.argtypes = [vp] * 5 + [i] * 5 + [ctypes.c_float, vp]
+        lib.dvl_attention.argtypes = [vp] * 5 + [i] * 5 + [ctypes.c_float, vp,
+                                                          ctypes.c_longlong, vp]
         lib.dvl_attention.restype = i
         libs[name] = lib
     return libs
@@ -119,7 +120,7 @@ def main() -> int:
         b = q.shape[0]
         err = lib.dvl_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                                 out.data_ptr(), b * h, s, hd, int(q.dtype == torch.bfloat16), 1,
-                                ctypes.c_float(1 / math.sqrt(hd)),
+                                ctypes.c_float(1 / math.sqrt(hd)), None, 0,
                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err:
             raise RuntimeError(f"dvl_attention: CUDA error {err}")

@@ -17,12 +17,13 @@ Phases (any failure exits non-zero before the final line):
      attention library; the int8 library must hold no mma.sync (HMMA.,
      IMMA.) in any kernel but KB (a) 1's int8 attention core
      (attention_qq_kernel), each instantiation of which must hold IMMA;
-     and per kernel, each of the eight instantiations of K5's
-     long route (attention_long_kernel at bf16 and f32, head dims 64, 128,
-     192 and the wide-head mode past them, heads-first) and, in the bf16 and int8 libraries, the packed one
-     K1 and K3 run past 320 keys must hold its own forms, bf16 wgmma
-     (HGMMA ... BF16) or tf32 wgmma (HGMMA ... TF32) and TMA loads
-     (UTMALDG), and no mma.sync (HMMA.);
+     and per kernel, each of the eight heads-first instantiations of K5's
+     long route (attention_long_kernel at bf16 and f32, head dims 64, 128
+     and 192; attention_wide_kernel, the wide-head mode past them, at bf16
+     and f32) and, in the bf16 and int8 libraries, the three packed ones K1
+     and K3 run past 320 keys or past head dim 128 must hold its own forms,
+     bf16 wgmma (HGMMA ... BF16) or tf32 wgmma (HGMMA ... TF32) and TMA
+     loads (UTMALDG), and no mma.sync (HMMA.);
   3. kernel phase: each bf16 kernel against its plain PyTorch twin on the card,
      bf16, at B=8 for the image (S=197 D=768 H=12) and text (S=77 D=512 H=8,
      causal) shapes, at every key bucket of the wgmma attention core (S = 1,
@@ -454,9 +455,16 @@ Phases (any failure exits non-zero before the final line):
      layers, patch 14, 224 px, random weights from seed 0) at B=32: bf16 (32
      K1 + 32 K2 on the short core) against float32 at cosine >= COS_MIN, int8
      (32 K3 + 32 K4) held to the plain int8 route (phase 17's bar), img/s
-     of both and of the plain routes.  Beside them (``wide_checks``): K5 at
-     head dims 256 and 800 (the long route's wide-head mode), S = 77 and
-     785, float32 and bfloat16 at phase 9's bars; KB (a) 1's int8 core and
+     of both and of the plain routes; K1's core alone at the heads of 256
+     and 800 (the wide-head mode on the packed source: its time from the
+     block's split, its bound, SDPA on the same function).  Beside them
+     (``wide_checks``): K5 at head dims 256 and 800 (the long route's
+     wide-head mode), B=2 H=4 at S = 77 and 785 and B=8 H=12 (a Frozen-in-Time
+     joint tower's) at S = 785, and at head dim 192 (the head resident, B=8
+     H=12 S=785), float32 and bfloat16 at phase 9's bars, the wide mode's
+     pre-pass and statistics launches counted exactly, each output's digest
+     printed against the design the mode replaced (WIDE_K5_PARENT), the S =
+     785 cases timed beside SDPA; KB (a) 1's int8 core and
      block on their tiled route (S = 257 and 785 at D = 768, head dim 80 at
      D = 960) at phase 23's bars; every KB entry at D = 200 with 2 heads of
      100 and F = 800 (``kb_off_registry``) at its own phase's bars; each
@@ -668,7 +676,8 @@ def print_ptxas(lib: str, log: str) -> None:
                       r"(gemm_s8_kernel|gemm_wgmma_kernel|attention_wgmma_kernel|"
                       r"layer_norm_kernel|quant_rows_kernel|quant_rows_wide_kernel|"
                       r"attention_f32_kernel|"
-                      r"attention_long_kernel|attention_qq_kernel|cast_s8_kernel|"
+                      r"attention_long_kernel|attention_wide_kernel|split_tf32_kernel|"
+                      r"attention_qq_kernel|cast_s8_kernel|"
                       r"bcast_rows_kernel|attention_vpu_core_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
@@ -742,44 +751,50 @@ def sass_functions(path):
 
 
 def sass_check_long(lib, path) -> None:
-    """Each instantiation of attention_long_kernel in one library:
-    SASS_LONG[dtype] present, no HMMA. (mma.sync); a missing instantiation
-    or form fails the run.  The attention library (K5) holds the
-    heads-first source at bf16 and f32, head dims 64, 128 and 192 (the
-    head resident) and the wide-head mode past them; the
-    fused-block libraries (K1, K3) the packed source at bf16 three times:
-    padded head dims 64 and 128 (one or two 64-dim chunks a block), and any
-    wider one (one output chunk a block, Q K^T over a run-time count)."""
+    """Each instantiation of attention_long_kernel and attention_wide_kernel
+    in one library: SASS_LONG[dtype] present, no HMMA. (mma.sync); a missing
+    instantiation or form fails the run.  The attention library (K5) holds
+    the heads-first source at bf16 and f32: head dims 64, 128 and 192 (the
+    head resident, attention_long_kernel) and the wide-head mode past them
+    (attention_wide_kernel); the fused-block libraries (K1, K3) the packed
+    source at bf16: padded head dims 64 and 128 (attention_long_kernel, one
+    or two 64-dim chunks a block) and any wider one (attention_wide_kernel)."""
     funcs = sass_functions(path)
     if funcs is None:
         print(f"sass long route {lib}: no cuobjdump found: the per-kernel forms are not checked")
         return
     seen = {}
     for name, body in funcs.items():
-        m = re.search(r"attention_long_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])ELi(\d)E", name)
+        m = re.search(r"attention_(long|wide)_kernelI(13__nv_bfloat16|f)(?:Li(\d)E)?Lb([01])E",
+                      name)
         if not m:
             continue
-        dt = "bf16" if m.group(1) == "13__nv_bfloat16" else "f32"
-        src = "packed" if m.group(3) == "1" else "heads"
-        seen[(dt, src)] = seen.get((dt, src), 0) + 1
+        kind = m.group(1)
+        dt = "bf16" if m.group(2) == "13__nv_bfloat16" else "f32"
+        src = "packed" if m.group(4) == "1" else "heads"
+        seen[(kind, dt, src)] = seen.get((kind, dt, src), 0) + 1
         counts = {op: len(re.findall(SASS_OPS_LONG[op], body))
                   for op in SASS_LONG[dt] + ("HMMA",)}
         forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", body)))
-        qk = {"0": "run-time"}.get(m.group(4), m.group(4))
-        tag = (f"attention_long_kernel<{dt}, {m.group(2)} output chunk(s), Q K^T over {qk}, "
-               f"{src}>")
+        tag = (f"attention_long_kernel<{dt}, {m.group(3)} output chunk(s), {src}>"
+               if kind == "long" else f"attention_wide_kernel<{dt}, {src}>")
         print(f"sass {lib} {tag}: {counts}; forms {forms}")
         missing = [op for op in SASS_LONG[dt] if counts[op] == 0]
         check(not missing, f"{tag} has no {missing} instructions in its SASS")
         check(counts["HMMA"] == 0, f"{tag} runs mma.sync (HMMA.)")
+    heads = {k: v for k, v in seen.items() if k[2] == "heads"}
+    packed = {k: v for k, v in seen.items() if k[2] == "packed"}
+    want_packed = {("long", "bf16", "packed"): 2, ("wide", "bf16", "packed"): 1}
     if lib == "attention":
-        check(seen.get(("bf16", "heads")) == 4 and seen.get(("f32", "heads")) == 4,
-              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected 4 "
-              f"heads-first each (head dims 64, 128, 192, and the wide-head mode past them)")
+        want = {("long", "bf16", "heads"): 3, ("long", "f32", "heads"): 3,
+                ("wide", "bf16", "heads"): 1, ("wide", "f32", "heads"): 1}
+        check(heads == want,
+              f"long-route instantiations in the {lib} SASS: {heads}, expected {want} (head "
+              f"dims 64, 128, 192 resident and the wide-head mode past them)")
     else:
-        check(seen == {("bf16", "packed"): 3},
-              f"attention_long_kernel instantiations in the {lib} SASS: {seen}, expected the "
-              f"three packed bf16 ones (K1 / K3 past 320 keys or past head dim 128)")
+        check(not heads and packed == want_packed,
+              f"long-route instantiations in the {lib} SASS: {seen}, expected {want_packed} "
+              f"(K1 / K3 past 320 keys or past head dim 128)")
 
 
 def sass_check(lib, path) -> None:
@@ -864,7 +879,8 @@ def split_label(key: str) -> str:
         return SPLIT_NAMES[short]
     if kernel == "quant_rows_kernel":
         return "quantize x" if "bfloat16" in (args or "") else "quantize h"
-    return "core" if kernel in ("attention_wgmma_kernel", "attention_long_kernel") else short
+    return "core" if kernel in ("attention_wgmma_kernel", "attention_long_kernel",
+                                "attention_wide_kernel") else short
 
 
 def subkernel_split(name, fn, gemm_ops, card, kind="bf16", iters=5, rename=None):
@@ -6368,8 +6384,8 @@ SHAPE_CASES = (
     ("ViT-H/14 widths", 1280, 16, 5120, "gelu", ((64, 257, False),)),
     ("ViT-bigG/14 widths", 1664, 16, 8192, "gelu", ((32, 257, False),)),
     ("D=200 H=2", 200, 2, 808, "quick_gelu", ((8, 77, False), (8, 77, True))),
-    # one head of 256 and one of 800: the long core at any S (Q through the
-    # K ring).  At hd 800 K3's attention codes drift past phase 6's share
+    # one head of 256 and one of 800: the long core's wide-head mode at any
+    # S (output groups of at most four 64-dim chunks).  At hd 800 K3's attention codes drift past phase 6's share
     # bar (3.0e-3 unmasked, 3.5e-3 causal at S=77; its rows within 1 ulp of
     # the twin's core, its output exact on its own codes: PERF.md section
     # 7), so K3's wide-head path is held at hd 256 and hd 800 runs K1, K2
@@ -6384,6 +6400,37 @@ SHAPE_FSPLIT = ("SigLIP-So400m widths", 1152, 4304, 4, 64, 257)  # K4 at fb = F 
 # the text tower cut to one narrow layer, which this phase does not run)
 SHAPE_TOWER = {"width": 1280, "layers": 32, "heads": 16, "patch": 14, "px": 224,
                "embed": 1024, "b": 32}
+
+
+def wide_core_split(row, case, call, b, s, d, hd, causal, device, card):
+    """K1's core alone at one wide head (the long route's wide-head mode on
+    the packed source): its device time from the block's sub-kernel split,
+    its bound (Q K^T and P V at the true head dim against qkv read and attn
+    written once) and one scaled_dot_product_attention call on [B, 1, S, hd]
+    bf16 q, k, v (the same function), added to the block's row as
+    core_ms, core_bound_ms and core_library_ms."""
+    import torch
+    from debias_vision_lang_torch.ops import attention as A
+
+    parts = subkernel_split(f"attention_block {case}", call,
+                            {"QKV GEMM": 2 * b * s * d * 3 * d, "out GEMM": 2 * b * s * d * d},
+                            card)
+    g = torch.Generator().manual_seed(hd)
+    q, k, v = (torch.randn(b, 1, s, hd, generator=g).to(device, torch.bfloat16)
+               for _ in range(3))
+    row["core_ms"] = parts.get("core")
+    row["core_bound_ms"], by = bound({"bf16": 4 * b * s * s * hd}, 4 * b * s * hd * 2)
+    row["core_library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), 5)
+    # late in a long process the profiler can record no device event (an
+    # empty split): the core's time is then not measured, never guessed
+    core = row["core_ms"]
+    print(f"time attention_block core {case} (wide-head mode, "
+          f"{len(A._wide_groups(A._padded_head_dim(hd)))} output group(s)): "
+          + (f"{core:.4f} ms (torch.profiler), the core at {row['core_bound_ms'] / core:.1%} of "
+             f"its bound" if core else "not measured (the profiler recorded no core)")
+          + f"; SDPA {row['core_library_ms']:.4f} ms, bound {row['core_bound_ms']:.4f} ms ({by})"
+          f" ({card})")
 
 
 def shape_params(d, f, device, seed):
@@ -6483,6 +6530,9 @@ def shape_checks(fb, fbq, device, card):
                       f"{row['plain_ms']:.4f} ms, bound of the true work {row['bound_ms']:.4f} "
                       f"ms ({row['bound_by']}; the kernel at {row['bound_ms'] / row['ms']:.1%} "
                       f"of it) ({card})")
+                if name == "attention_block" and heads == 1 and hd > 128:
+                    wide_core_split(row, case, lambda: kern(x0, *args, **kw), b, s, d, hd,
+                                    causal, device, card)
             del x0
         del attn, mlp, qattn, qmlp
         torch.cuda.empty_cache()
@@ -6543,14 +6593,57 @@ def padding_cost(fb, fbq, device, card):
     torch.cuda.empty_cache()
 
 
-# K5 past head dim 192 (the long route's wide-head mode): (head dim, S) at
-# B=2 H=4, float32 and bfloat16, a random additive mask
-WIDE_K5 = ((256, 77), (256, 785), (800, 77), (800, 785))
+# K5 on the long route past head dim 192 (the wide-head mode) and at 192
+# (the head resident): (B, H, head dim, S), float32 and bfloat16, a random
+# additive mask; B=8 H=12 is a Frozen-in-Time joint tower's batch and heads
+WIDE_K5 = ((2, 4, 256, 77), (2, 4, 256, 785), (2, 4, 800, 77), (2, 4, 800, 785),
+           (8, 12, 256, 785), (8, 12, 800, 785), (8, 12, 192, 785))
+# (B, H, head dim, S, dtype): the first 16 hex digits of the sha256 of the
+# output of the wide-head design this mode replaced (one 64-dim output
+# chunk a block, its scores recomputed per chunk; hd 192 the resident
+# blocks, unchanged) on wide_k5_inputs, NVIDIA H100 80GB HBM3: the mode
+# keeps the order of every sum, so phase 27 expects the same bits
+WIDE_K5_PARENT = {
+    (2, 4, 256, 77, "float32"): "cdae7d5d451401c7",
+    (2, 4, 256, 785, "float32"): "50b9b9672ad1047d",
+    (2, 4, 800, 77, "float32"): "bc4b5845c66d71c2",
+    (2, 4, 800, 785, "float32"): "de9f8c025a05e3f0",
+    (8, 12, 256, 785, "float32"): "57e5515c19bea457",
+    (8, 12, 800, 785, "float32"): "133ffd0f8ad1ee22",
+    (8, 12, 192, 785, "float32"): "55ee0406c3618e8d",
+    (2, 4, 256, 77, "bfloat16"): "4fc0c6e50de20220",
+    (2, 4, 256, 785, "bfloat16"): "5cc43078341a783d",
+    (2, 4, 800, 77, "bfloat16"): "1324f895a566adce",
+    (2, 4, 800, 785, "bfloat16"): "1e3027b938a4a7e6",
+    (8, 12, 256, 785, "bfloat16"): "eca583ed6ce6e715",
+    (8, 12, 800, 785, "bfloat16"): "1704f993c1337bfe",
+    (8, 12, 192, 785, "bfloat16"): "dc7f6b6570e877f4",
+}
 # KB (a) 1 off its register route: (S, D, H), past 256 keys at ViT-B/16's
 # width and head dim 80 (D = 960, 12 heads), B=2
 WIDE_QQ = ((257, 768, 12), (785, 768, 12), (197, 960, 12))
 # the KB entries off the registry widths: D = 200, 2 heads of 100, F = 800
 KB_OFF = {"d": 200, "heads": 2, "f": 800, "b": 8, "s": 77}
+
+
+def wide_k5_inputs(b, h, hd, s, dtype, device):
+    """Phase 27's K5 q, k, v and mask for one case, from the case's own seed
+    (CPU generator, so every card sees the same inputs)."""
+    import torch
+
+    g = torch.Generator().manual_seed(int(f"{b}{h:02d}{hd:04d}{s:04d}{dtype.itemsize}"))
+    q, k, v = (torch.randn(b, h, s, hd, generator=g).to(device, dtype) for _ in range(3))
+    return q, k, v, torch.randn(s, s, generator=g).to(device)
+
+
+def tensor_digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def k5_row(A, tag, q, k, v, mask, err, launches, f32):
@@ -6585,26 +6678,37 @@ def wide_checks(fb, fbq, device, card):
     g = torch.Generator().manual_seed(2722)
     for f32 in (True, False):
         dt = torch.float32 if f32 else torch.bfloat16
-        for hd, s in WIDE_K5:
-            q, k, v = (torch.randn(2, 4, s, hd, generator=g).to(device, dt) for _ in range(3))
-            mask = torch.randn(s, s, generator=g).to(device)
+        for b, h, hd, s in WIDE_K5:
+            q, k, v, mask = wide_k5_inputs(b, h, hd, s, dt, device)
             A.reset_launches()
             got = A.attention_pallas(q, k, v, mask)
             torch.cuda.synchronize()
-            launched = dict(A.LAUNCHES)
+            launched, wide = dict(A.LAUNCHES), dict(A.WIDE_LAUNCHES)
             ref = A.attention_kernel_math(q, k, v, mask)
             err = (got.float() - ref.float()).abs().max().item()
             mag = ref.float().abs().max().item()
             tol = 2e-5 * mag if f32 else ulp_bf16(mag)
-            tag = f"attention_pallas {'f32' if f32 else 'bf16'} B=2 H=4 S={s} hd={hd} mask=random"
-            print(f"kernel {tag} (long route, wide-head mode: {hd // 64 + (hd % 64 > 0)} output "
-                  f"chunks a head): max_abs_err {err} (tolerance {tol} = "
+            hdp = A._padded_head_dim(hd)
+            groups = A._wide_groups(hdp) if hdp > A.RESIDENT_MAX_HDP else []
+            want_wide = {"split_tf32": int(f32 and bool(groups)), "row_stats": int(len(groups) > 1)}
+            tag = (f"attention_pallas {'f32' if f32 else 'bf16'} B={b} H={h} S={s} hd={hd} "
+                   f"mask=random")
+            mode = (f"wide-head mode, output groups of {[c1 - c0 for c0, c1 in groups]} "
+                    f"64-dim chunks" if groups else "the head resident")
+            print(f"kernel {tag} (long route, {mode}): max_abs_err {err} (tolerance {tol} = "
                   f"{'2e-5 x' if f32 else '1 bf16 ulp of'} max |twin| {mag}); launches {launched}"
-                  f" (phase 27)")
+                  f", beside the output launch {wide} (phase 27)")
             check(got.shape == q.shape and math.isfinite(err) and err <= tol,
                   f"{tag}: kernel disagrees with its twin")
-            check(launched == {"attention_pallas": 0, "attention_pallas_long": 1},
-                  f"{tag}: launches {launched}")
+            check(launched == {"attention_pallas": 0, "attention_pallas_long": 1}
+                  and wide == want_wide, f"{tag}: launches {launched}, {wide}; expected "
+                  f"one long-route call and {want_wide}")
+            # the design this mode replaced, on the same inputs (WIDE_K5_PARENT)
+            digest, parent = tensor_digest(got), WIDE_K5_PARENT.get((b, h, hd, s, str(dt)[6:]))
+            same = ("no record" if parent is None else "bit-identical" if digest == parent
+                    else f"differs (its digest {parent})")
+            print(f"parent check {tag}: output digest {digest}; against the one-chunk-a-block "
+                  f"design's output: {same} (phase 27)")
             if s == 785:
                 rows.append(k5_row(A, tag, q, k, v, mask, err, 1, f32))
                 r = rows[-1]
@@ -6613,6 +6717,7 @@ def wide_checks(fb, fbq, device, card):
                       f"({r['bound_by']}; the kernel at {r['bound_ms'] / r['ms']:.1%} of it) "
                       f"({card})")
             del q, k, v, mask, got, ref
+        torch.cuda.empty_cache()
     # KB (a) 1: the core on random f32 qkv, then the block
     for s, d, heads in WIDE_QQ:
         qkv = torch.randn(2, s, 3 * d, generator=g).to(device)

@@ -31,10 +31,14 @@
 //     which K1 and K3 share past 320 keys).  The wrapper zero-pads
 //     the head dim to a multiple of 64 (zero columns change no score and add
 //     zero output columns) and passes the scale of the original head dim, as
-//     the JAX function pads to 128 lanes; past 192 dims a block takes one
-//     64-dim output chunk and Q's chunks ride in the K ring, so no head dim
-//     is too wide for shared memory.  Products: bf16 wgmma with f32
-//     accumulators, or 3xTF32 (tf32 wgmma).
+//     the JAX function pads to 128 lanes; past 192 dims the wide-head mode
+//     (attention_wide_kernel): blocks of 64 queries own groups of at most
+//     four 64-dim output chunks, a statistics launch computes each row's max
+//     and sum once when there is more than one group, and at f32 a pre-pass
+//     splits Q, K and V^T into TF32 halves once per call, all into a
+//     workspace the wrapper allocates; Q streams through a ring of its own
+//     where it does not fit, so no head dim is too wide for shared memory.
+//     Products: bf16 wgmma with f32 accumulators, or 3xTF32 (tf32 wgmma).
 // The TPU kernel's padding (S to 8/16, hd to 128 lanes, padded keys at -1e9)
 // and its VMEM group budget are TPU devices and are not carried over: here
 // keys past S are zero-filled on load and masked at -inf.
@@ -238,18 +242,18 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 
 
 // hdp 64, 128 and 192: the whole head a block, Q resident, the scores once
-// a head; any wider hdp (a multiple of 64): one 64-dim output chunk a block,
-// Q's chunks through the K ring (attention_long.cuh's wide-head mode), the
-// scores once a chunk.  At hdp 192 the wide mode took 2.7-2.9x the resident
-// one's time at S = 785 (benchmarks_torch/k5_head_dim_times.py).
+// a head (attention_long_kernel); any wider hdp (a multiple of 64): the
+// wide-head mode (launch_wide), its workspace `ws`.  hdp 192 stays resident:
+// see the hdp-192 note in attention_long.cuh.
 template <typename T>
 cudaError_t launch_long_hdp(const T* q, const T* k, const T* v, const float* mask, T* out,
-                            int BH, int S, int hdp, float scale, cudaStream_t st) {
+                            int BH, int S, int hdp, float scale, void* ws, size_t ws_bytes,
+                            cudaStream_t st) {
   if (S < 1 || BH < 1 || hdp < 64 || hdp % 64) return cudaErrorInvalidValue;
-  if (hdp == 64) return launch_long<T, 1>(q, k, v, mask, out, BH, S, hdp, scale, st);
-  if (hdp == 128) return launch_long<T, 2>(q, k, v, mask, out, BH, S, hdp, scale, st);
-  if (hdp == 192) return launch_long<T, 3>(q, k, v, mask, out, BH, S, hdp, scale, st);
-  return launch_long<T, 1, 0>(q, k, v, mask, out, BH, S, hdp, scale, st);
+  if (hdp == 64) return launch_long<T, 1>(q, k, v, mask, out, BH, S, scale, st);
+  if (hdp == 128) return launch_long<T, 2>(q, k, v, mask, out, BH, S, scale, st);
+  if (hdp == 192) return launch_long<T, 3>(q, k, v, mask, out, BH, S, scale, st);
+  return launch_wide<T>(q, k, v, mask, out, BH, S, hdp, scale, ws, ws_bytes, st);
 }
 
 }  // namespace
@@ -261,20 +265,22 @@ extern "C" {
 // long_route = 0: the short routes, hd == 64 and 1 <= S <= 320 (the wgmma
 // core's scale is 1/sqrt(64)), mask [S, S]; long_route = 1: the two-pass
 // kernel, any S >= 1 and any hd a multiple of 64 (the wrapper's zero padding),
-// mask [S, (S + 63) & ~63] whose columns past S hold -inf.
+// mask [S, (S + 63) & ~63] whose columns past S hold -inf; past hd 192 `ws`
+// holds at least wide_ws_bytes (attention_long.cuh; the wrapper's
+// _wide_workspace_bytes) bytes, null when that is 0.
 int dvl_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
-                  int BH, int S, int hd, int is_bf16, int long_route, float scale,
-                  void* stream) {
+                  int BH, int S, int hd, int is_bf16, int long_route, float scale, void* ws,
+                  long long ws_bytes, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* mk = static_cast<const float*>(mask);
   if (long_route) {
     if (is_bf16)
       return (int)launch_long_hdp(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                   static_cast<const bf16*>(v), mk, static_cast<bf16*>(out), BH,
-                                  S, hd, scale, st);
+                                  S, hd, scale, ws, (size_t)ws_bytes, st);
     return (int)launch_long_hdp(static_cast<const float*>(q), static_cast<const float*>(k),
                                 static_cast<const float*>(v), mk, static_cast<float*>(out), BH,
-                                S, hd, scale, st);
+                                S, hd, scale, ws, (size_t)ws_bytes, st);
   }
   if (S < 1 || S > CORE_MAX_SEQ || hd != HD || BH < 1) return (int)cudaErrorInvalidValue;
   if (is_bf16)

@@ -26,8 +26,13 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
                           normalised P V; the head dim zero-padded to a
                           multiple of 64 with the original head dim's
                           scale, as the JAX function pads to 128 lanes;
-                          past 192 dims one 64-dim output chunk a block,
-                          Q's chunks streamed through the K ring)
+                          past 192 dims the wide-head mode: blocks own
+                          groups of at most four 64-dim output chunks
+                          (``_wide_groups``), the row statistics computed
+                          once by a launch of their own when there is more
+                          than one group, and at float32 Q, K and V^T split
+                          into TF32 halves once per call by a pre-pass, into
+                          a workspace of ``_wide_workspace_bytes``)
   attention               dispatch: ``use_pallas=True`` goes through
                           ``attention_pallas`` with a backward that
                           differentiates the twin (``_attention_pallas_bwd``)
@@ -35,14 +40,16 @@ Counterpart of ``debias_vision_lang_tpu/ops/attention.py``:
 The mask is additive f32 [S, S] (CLIP's causal mask holds -inf above the
 diagonal).  ``LAUNCHES`` counts kernel launches per route
 (``attention_pallas`` the short routes, ``attention_pallas_long`` the long
-one); CPU twins never count.
+one: one per call); ``WIDE_LAUNCHES`` the wide-head mode's launches beside
+its output launch (``split_tf32`` the float32 pre-pass, ``row_stats`` the
+statistics launch); CPU twins never count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,13 +57,17 @@ from ..models.layers import attention_bshd
 from ..utils.observability import check_nans
 
 LAUNCHES: Dict[str, int] = {"attention_pallas": 0, "attention_pallas_long": 0}
+WIDE_LAUNCHES: Dict[str, int] = {"split_tf32": 0, "row_stats": 0}
 HEAD_DIM = 64   # the short routes' head dim, and the long route's dim tile
 SHORT_MAX_SEQ = 320  # keys per score row the short routes hold in registers
+RESIDENT_MAX_HDP = 192  # the long route's whole-head blocks; the wide-head mode past it
+WIDE_GROUP = 4  # output chunks a wide-head block owns at most (attention_long.cuh WIDE_G)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _zero_mask(q: torch.Tensor) -> torch.Tensor:
@@ -106,7 +117,8 @@ def _lib():
 
         lib = load("attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvl_attention.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+        lib.dvl_attention.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p,
+                                                          ctypes.c_longlong, p]
         lib.dvl_attention.restype = i
         _LIB = lib
     return _LIB
@@ -137,6 +149,27 @@ def _pad_head_dim(t: torch.Tensor, hdp: int) -> torch.Tensor:
     only zero output columns."""
     hd = t.shape[-1]
     return t if hd == hdp else torch.nn.functional.pad(t, (0, hdp - hd))
+
+
+def _wide_groups(hdp: int) -> List[Tuple[int, int]]:
+    """The wide-head mode's output groups at padded head dim ``hdp``: ng =
+    ceil(cq / WIDE_GROUP) groups of the cq = hdp / 64 chunks, group g the
+    chunks [g cq // ng, (g + 1) cq // ng) (the kernel's own plan)."""
+    cq = hdp // HEAD_DIM
+    ng = -(-cq // WIDE_GROUP)
+    return [(g * cq // ng, (g + 1) * cq // ng) for g in range(ng)]
+
+
+def _wide_workspace_bytes(bh: int, s: int, hdp: int, f32: bool) -> int:
+    """Bytes of the wide-head mode's workspace (attention_long.cuh
+    ``wide_ws_bytes``): at float32 the TF32 halves of Q and K [2, BH, S,
+    hdp] and of V^T [2, BH, hdp, S rounded up to 64]; with more than one
+    output group the row max and sum [BH, S] x 2 f32.  0 at hdp <= 192."""
+    if hdp <= RESIDENT_MAX_HDP:
+        return 0
+    sp = HEAD_DIM * -(-s // HEAD_DIM)
+    split = 4 * bh * hdp * (2 * s + sp) * 2 if f32 else 0
+    return split + (8 * bh * s if len(_wide_groups(hdp)) > 1 else 0)
 
 
 def _long_route_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -174,15 +207,23 @@ def _attention_cuda(q, k, v, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(torch.float32).contiguous()
     mask = _aligned(_long_route_mask(mask) if route == "long" else mask)
     out = torch.empty_like(q)
+    f32 = q.dtype == torch.float32
+    # the wide-head mode's workspace (its launcher checks the size)
+    nws = _wide_workspace_bytes(b * h, s, hdp, f32) if route == "long" else 0
+    ws = torch.empty(nws, dtype=torch.uint8, device=dev) if nws else None
     err = _lib().dvl_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), b * h, s, hdp, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), b * h, s, hdp, int(not f32),
         int(route == "long"), ctypes.c_float(1.0 / math.sqrt(hd)),
+        None if ws is None else ws.data_ptr(), nws,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dvl_attention ({route} route): CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES["attention_pallas_long" if route == "long" else "attention_pallas"] += 1
+    if route == "long" and hdp > RESIDENT_MAX_HDP:
+        WIDE_LAUNCHES["split_tf32"] += f32
+        WIDE_LAUNCHES["row_stats"] += len(_wide_groups(hdp)) > 1
     check_nans("dvl_attention", out)
     return out if hdp == hd else out[..., :hd].contiguous()
 

@@ -428,6 +428,55 @@ def _packed_long_route_emulated(qkv, b, s, heads, causal, dtype, *, key_test=Tru
     return out
 
 
+def _wide_route_emulated(q, k, v, mask, dtype, scale=None):
+    """The long route's wide-head mode (hdp past 192): the row max m and
+    sum l once (the statistics launch, ``_long_row_stats``), then each
+    output group of ``A._wide_groups`` recomputes every key tile's scores,
+    p = exp(s - m) * (1 / l) rounded to ``dtype``, and accumulates p V over
+    its own 64-dim chunks per 64-key tile in f32; one output rounding."""
+    hd = q.shape[-1]
+    scale = 1 / math.sqrt(hd) if scale is None else scale
+    hdp = A._padded_head_dim(hd)
+    q, k, v = (np.pad(t, [(0, 0)] * (t.ndim - 1) + [(0, hdp - hd)]) for t in (q, k, v))
+    mm = _mm_3xtf32 if dtype == "float32" else np.matmul
+    m, l = _long_row_stats(q, k, mask, scale, mm)
+    inv = np.float32(1) / l
+    o = np.zeros(q.shape, np.float32)
+    for c0, c1 in A._wide_groups(hdp):
+        cols = slice(c0 * LONG_TILE, c1 * LONG_TILE)
+        for k0 in range(0, k.shape[-2], LONG_TILE):
+            p = _round_to(np.exp(_long_scores(q, k, mask, k0, scale, mm) - m) * inv, dtype)
+            o[..., cols] = o[..., cols] + mm(p, v[..., k0:k0 + LONG_TILE, cols])
+    return _round_to(o, dtype)[..., :hd]
+
+
+def _packed_wide_emulated(qkv, b, s, hd, causal):
+    """The wide-head mode on K1 / K3's packed source at one head: qkv [B*S,
+    3 hdp] (q, k, v at columns 0, hdp, 2 hdp, zero past hd), 64-query blocks
+    whose rows end at the image's S, the scores s * hd^-0.5, -inf for a key
+    past S or, when causal, past the query's row in its image."""
+    hdp = A._padded_head_dim(hd)
+    nk = -(-s // LONG_TILE) * LONG_TILE
+    out = np.zeros((b * s, hdp), np.float32)
+    for img in range(b):
+        rows = np.zeros((nk + LONG_TILE, 3 * hdp), np.float32)
+        rows[:s] = qkv[img * s:(img + 1) * s]
+        k, v = rows[:nk, hdp:2 * hdp], rows[:nk, 2 * hdp:]
+        for q0 in range(0, s, LONG_TILE):
+            key = np.arange(nk)[None, :]
+            row = q0 + np.arange(LONG_TILE)[:, None]
+            keep = (key < s) & ((not causal) | (key <= row))
+            mask = np.where(keep, 0.0, -np.inf).astype(np.float32)
+            o = _wide_route_emulated(rows[q0:q0 + LONG_TILE, :hdp], k, v, mask, "bfloat16",
+                                     scale=1 / math.sqrt(hd))
+            n = min(LONG_TILE, s - q0)
+            out[img * s + q0:img * s + q0 + n] = o[:n]
+    return out[:, :hd]
+
+
+WIDE_EMU_CASES = [(s, hd) for hd in (193, 256, 800) for s in (63, 64, 65, 77, 321)]
+
+
 def _packed_inputs(s, seed, b=2, heads=2):
     rng = np.random.default_rng(seed)
     return _round_to(rng.normal(size=(b * s, 3 * heads * HD)), "bfloat16")
@@ -514,6 +563,78 @@ class TestLongRouteEmulated:
         got = _packed_long_route_emulated(qkv, b, s, heads, False, "bfloat16")
         np.testing.assert_array_equal(got[:, HD:], np.full((s, HD), 0.5, np.float32))
         assert np.abs(got[:, :HD] - 0.5).min() > 0
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s,hd", WIDE_EMU_CASES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_wide_mode_vs_pallas_interpret(self, s, hd, causal, dtype):
+        """The wide-head mode's order (statistics once, output groups of at
+        most four 64-dim chunks) against the JAX kernel, which holds the
+        whole head: 2e-5 of the largest magnitude at float32 (3xTF32), one
+        bf16 ulp at bfloat16; a random mask or CLIP's causal one."""
+        import jax.numpy as jnp
+
+        from debias_vision_lang_tpu.ops.attention import attention_pallas
+
+        rng = np.random.default_rng(s * hd + causal)
+        q, k, v = (_round_to(rng.normal(size=(1, 2, s, hd)), dtype) for _ in range(3))
+        m = _mask_np(s, True) if causal else rng.normal(size=(s, s)).astype(np.float32)
+        ref = attention_pallas(*(_jnp(t, getattr(jnp, dtype)) for t in (q, k, v)), _jnp(m),
+                               interpret=True)
+        got = _wide_route_emulated(q, k, v, m, dtype)
+        assert got.shape == (1, 2, s, hd)
+        (_close_f32 if dtype == "float32" else _within_one_ulp)(got, ref)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s,hd", WIDE_EMU_CASES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_wide_mode_vs_twin(self, s, hd, causal, dtype):
+        """The same emulation against the port's twin at the same bars."""
+        rng = np.random.default_rng(s * hd + causal + 1)
+        q, k, v = (_round_to(rng.normal(size=(1, 2, s, hd)), dtype) for _ in range(3))
+        m = _mask_np(s, True) if causal else rng.normal(size=(s, s)).astype(np.float32)
+        tdt = getattr(torch, dtype)
+        ref = A.attention_kernel_math(*(_torch(t, tdt) for t in (q, k, v)), _torch(m))
+        got = _wide_route_emulated(q, k, v, m, dtype)
+        (_close_f32 if dtype == "float32" else _within_one_ulp)(got, ref)
+
+    @pytest.mark.parametrize("hdp", range(192, 833, 64))
+    def test_wide_groups_cover_every_chunk_once(self, hdp):
+        """The output groups cover the cq = hdp / 64 chunks in order, each
+        once, with at most four chunks a group, in ceil(cq / 4) groups whose
+        sizes differ by at most one."""
+        cq = hdp // LONG_TILE
+        groups = A._wide_groups(hdp)
+        assert [c for c0, c1 in groups for c in range(c0, c1)] == list(range(cq))
+        sizes = [c1 - c0 for c0, c1 in groups]
+        assert len(groups) == -(-cq // A.WIDE_GROUP) and max(sizes) <= A.WIDE_GROUP
+        assert max(sizes) - min(sizes) <= 1
+
+    @pytest.mark.parametrize("s,hd,f32,want", [
+        (77, 192, True, 0), (77, 256, False, 0), (785, 800, False, 8 * 6 * 785),
+        (77, 256, True, 4 * 6 * 256 * (2 * 77 + 128) * 2),
+        (785, 800, True, 4 * 6 * 832 * (2 * 785 + 832) * 2 + 8 * 6 * 785)])
+    def test_wide_workspace_bytes(self, s, hd, f32, want):
+        """The wrapper's workspace: the float32 halves of Q, K and V^T (keys
+        rounded up to 64), and the row statistics with more than one output
+        group; nothing at head dims the resident blocks take."""
+        assert A._wide_workspace_bytes(6, s, A._padded_head_dim(hd), f32) == want
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("s", [77, 321])
+    def test_packed_wide_mode_is_the_k1_twin(self, s, causal):
+        """K1 / K3's packed source in the wide-head mode at one head of 256
+        (hdp 256: one group of four chunks, each block both passes) against
+        their core's twin ``fused_block.attention_core``: one bf16 ulp."""
+        from debias_vision_lang_torch.ops import fused_block as fb
+
+        b, hd = 2, 256
+        qkv = _round_to(np.random.default_rng(s + causal).normal(size=(b * s, 3 * hd)),
+                        "bfloat16")
+        got = _packed_wide_emulated(qkv, b, s, hd, causal)
+        ref = fb.attention_core(torch.from_numpy(qkv.reshape(b, s, -1)).to(torch.bfloat16), 1,
+                                causal)
+        _within_one_ulp(got, ref.float().reshape(b * s, -1).numpy())
 
     @pytest.mark.parametrize("s", [1, 63, 64, 65, 383, 384, 385])
     def test_emulation_at_tile_edges_is_the_twin(self, s):
@@ -715,19 +836,28 @@ def test_cuda_long_route_large_scores(cuda, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,hd", [(77, 193), (77, 256), (785, 256), (77, 800), (321, 800)])
+@pytest.mark.parametrize("b,h,s,hd,kind", [
+    *[(2, 3, s, hd, "random") for s, hd in ((77, 193), (77, 256), (785, 256), (77, 800),
+                                            (321, 800))],
+    (2, 3, 785, 256, "causal"), (2, 3, 321, 800, "causal"),
+    # a Frozen-in-Time joint tower's batch and heads
+    (8, 12, 785, 256, "random"), (8, 12, 785, 800, "random")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_takes_head_dims_past_192(cuda, s, hd, dtype):
-    """Past 128 padded dims the long route's wide-head mode (one 64-dim
-    output chunk a block, Q's chunks through the K ring): the long route's
-    launch, the twin's bars."""
+def test_cuda_takes_head_dims_past_192(cuda, b, h, s, hd, kind, dtype):
+    """Past 192 padded dims the long route's wide-head mode (output groups
+    of at most four 64-dim chunks, the row statistics once): the long
+    route's launch, the float32 pre-pass and the statistics launch counted
+    where they run, the twin's bars."""
     g = torch.Generator().manual_seed(s + hd)
-    q, k, v = (torch.randn(2, 3, s, hd, generator=g).to(cuda, dtype) for _ in range(3))
-    mask = torch.randn(s, s, device=cuda)
+    q, k, v = (torch.randn(b, h, s, hd, generator=g).to(cuda, dtype) for _ in range(3))
+    mask = causal_mask(s, cuda) if kind == "causal" else torch.randn(s, s, device=cuda)
     A.reset_launches()
     got = A.attention_pallas(q, k, v, mask)
     torch.cuda.synchronize()
     assert A.LAUNCHES == {"attention_pallas": 0, "attention_pallas_long": 1}
+    groups = len(A._wide_groups(A._padded_head_dim(hd)))
+    assert A.WIDE_LAUNCHES == {"split_tf32": int(dtype == torch.float32),
+                               "row_stats": int(groups > 1)}
     assert got.dtype == dtype and got.shape == q.shape
     ref = A.attention_kernel_math(q, k, v, mask)
     (_close_f32 if dtype == torch.float32 else _within_one_ulp)(got.cpu(), ref.cpu())

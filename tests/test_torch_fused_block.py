@@ -452,12 +452,45 @@ class TestCoreRoute:
         assert "constexpr int CORE_MAX_C = 2;" in core
         long = (csrc / "attention_long.cuh").read_text()
         packed = long[long.index("cudaError_t launch_long_packed_c("):]
-        assert "attention_long_kernel<bf16, C, true, CQ>" in packed and "mask" not in packed.split(
+        assert "attention_long_kernel<bf16, C, true>" in packed and "mask" not in packed.split(
             "// tm_m is not read")[0]
-        for inst in ("launch_long_packed_c<1, 1>", "launch_long_packed_c<2, 2>",
-                     "launch_long_packed_c<1, 0>"):
+        # hdp 64 and 128 resident, any wider head the wide-head mode
+        for inst in ("launch_long_packed_c<1>(", "launch_long_packed_c<2>(",
+                     "if (cq > 2) {  // the wide-head mode", "attention_wide_kernel<bf16, true>"):
             assert inst in packed
         assert '#include "attention_long.cuh"' in core
+
+    def test_sass_check_long_names_every_instantiation(self, monkeypatch):
+        """chip_smoke.sass_check_long finds the long route's instantiations
+        by their mangled names (the resident attention_long_kernel<T, C,
+        packed> and the wide-head mode's attention_wide_kernel<T, packed>)
+        and fails on a missing one, on one without its wgmma / TMA forms,
+        and on mma.sync."""
+        import sys
+
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+        import chip_smoke as C
+
+        bf, f = "13__nv_bfloat16", "f"
+        forms = {bf: "HGMMA.64x64x16.F32.BF16 ; UTMALDG.3D ;",
+                 f: "HGMMA.64x64x8.F32.TF32 ; UTMALDG.3D ;"}
+        attn = {f"_ZN12_GLOBAL__N_121attention_long_kernelI{t}Li{c}ELb0EEEv": forms[t]
+                for t in (bf, f) for c in (1, 2, 3)}
+        attn.update({f"_ZN12_GLOBAL__N_121attention_wide_kernelI{t}Lb0EEEv": forms[t]
+                     for t in (bf, f)})
+        packed = {f"_ZN12_GLOBAL__N_121attention_long_kernelI{bf}Li{c}ELb1EEEv": forms[bf]
+                  for c in (1, 2)}
+        packed[f"_ZN12_GLOBAL__N_121attention_wide_kernelI{bf}Lb1EEEv"] = forms[bf]
+        for lib, funcs in (("attention", {**attn, **packed}), ("fused_block", packed)):
+            monkeypatch.setattr(C, "sass_functions", lambda path, funcs=funcs: dict(funcs))
+            C.sass_check_long(lib, "lib.so")
+            wide = next(k for k in funcs if "wide_kernel" in k)
+            for broken in ({wide: "UTMALDG.3D ;"}, {wide: forms[bf] + " HMMA.1688.F32.TF32 ;"},
+                           {wide: None}):
+                bad = {k: v for k, v in {**funcs, **broken}.items() if v is not None}
+                monkeypatch.setattr(C, "sass_functions", lambda path, bad=bad: bad)
+                with pytest.raises(RuntimeError):
+                    C.sass_check_long(lib, "lib.so")
 
 
 LONG_B, LONG_S, LONG_D, LONG_H = 2, 400, 128, 2  # past the register core's 320 keys
@@ -678,6 +711,28 @@ def test_cuda_gemm_takes_widths_off_its_tiles(cuda, d, heads, f):
     for causal in (False, True):
         _within_one_ulp(fb.attention_block(x, *attn, heads=heads, causal=causal).cpu(),
                         fb.attention_block_plain(x, *attn, heads=heads, causal=causal).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_attention_one_head_of_800(cuda, causal):
+    """K1 at one head of 800 (hdp 832): its core in the long route's
+    wide-head mode (four output groups, each block both passes), within one
+    bf16 ulp of the twin."""
+    g = torch.Generator().manual_seed(800)
+    d = 800
+    x = torch.randn(4, 77, d, generator=g).to(cuda, torch.bfloat16)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(cuda)
+
+    attn = (1 + 0.1 * rn(d), 0.1 * rn(d), rn(d, 3 * d, std=d ** -0.5), 0.1 * rn(3 * d),
+            rn(d, d, std=d ** -0.5), 0.1 * rn(d))
+    fb.reset_launches()
+    got = fb.attention_block(x, *attn, heads=1, causal=causal)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES["attention_block_causal" if causal else "attention_block"] == 1
+    _within_one_ulp(got.cpu(), fb.attention_block_plain(x, *attn, heads=1, causal=causal).cpu())
 
 
 @pytest.mark.cuda
