@@ -4,8 +4,9 @@ models' widths that the JAX kernels take (SigLIP-So400m's head dim 72 at
 S = 257 and on the long core at S = 729, ViT-H/14's head dim 80 and F =
 5,120, bigG/14's head dim 104 and F = 8,192, D = 200 off every tile, K4's
 F-split at fb = F / 4) against their twins, timed against the bound of the
-true work; K5 at head dims 256 and 800, KB (a) 1's int8 core past 256 keys
-and at head dim 80, every KB entry at D = 200; and a tower from a CLIPConfig
+true work; K5 at head dims 256 and 800, KB (a) 1's int8 core past 256 keys,
+at head dim 80 and at B=32 S=785 (timed beside K3), every KB entry at D =
+200; and a tower from a CLIPConfig
 at ViT-H/14's widths at bf16 and int8, on one CUDA card, without the phases
 before it.
 

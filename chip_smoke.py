@@ -15,8 +15,10 @@ Phases (any failure exits non-zero before the final line):
      and HGMMA (K3's wgmma core) in the int8 library, HGMMA (K5's bf16 short
      route) and the TF32 HMMA forms (its 3xTF32 float32 short route) in the
      attention library; the int8 library must hold no mma.sync (HMMA.,
-     IMMA.) in any kernel but KB (a) 1's int8 attention core
-     (attention_qq_kernel), each instantiation of which must hold IMMA;
+     IMMA.) in any kernel, and each of the eight instantiations of KB (a)
+     1's int8 attention core (attention_qq_kernel at its four key buckets,
+     attention_qq_tiled_kernel at its four output widths) must hold s8
+     wgmma (IGMMA) and TMA loads (UTMALDG);
      and per kernel, each of the eight heads-first instantiations of K5's
      long route (attention_long_kernel at bf16 and f32, head dims 64, 128
      and 192; attention_wide_kernel, the wide-head mode past them, at bf16
@@ -465,8 +467,10 @@ Phases (any failure exits non-zero before the final line):
      pre-pass and statistics launches counted exactly, each output's digest
      printed against the design the mode replaced (WIDE_K5_PARENT), the S =
      785 cases timed beside SDPA; KB (a) 1's int8 core and
-     block on their tiled route (S = 257 and 785 at D = 768, head dim 80 at
-     D = 960) at phase 23's bars; every KB entry at D = 200 with 2 heads of
+     block on their tiled route (B=2: S = 257 and 785 at D = 768, head dim
+     80 at D = 960; B=32 S=785 D=768, the int8 joint Frozen-in-Time
+     attention, timed beside K3 on its long core) at phase 23's bars;
+     every KB entry at D = 200 with 2 heads of
      100 and F = 800 (``kb_off_registry``) at its own phase's bars; each
      launch counted, each timed against its bound.
 The kernels line comes after phase 27 (its SLIP-L rows take phase 17's
@@ -677,12 +681,16 @@ def print_ptxas(lib: str, log: str) -> None:
                       r"layer_norm_kernel|quant_rows_kernel|quant_rows_wide_kernel|"
                       r"attention_f32_kernel|"
                       r"attention_long_kernel|attention_wide_kernel|split_tf32_kernel|"
-                      r"attention_qq_kernel|cast_s8_kernel|"
+                      r"attention_qq_kernel|attention_qq_tiled_kernel|qq_quant_qk_kernel|"
+                      r"qq_quant_v_kernel|cast_s8_kernel|"
                       r"bcast_rows_kernel|attention_vpu_core_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
-            # a GEMM's bool is its ragged N edge, another kernel's its source
+            # a GEMM's bool is its ragged N edge, the v quantizer's its staging,
+            # another kernel's its source
             bools = ({"Lb1E": "ragged", "Lb0E": None} if m.group(1).startswith("gemm_")
+                     else {"Lb1E": "staged", "Lb0E": "re-read"}
+                     if m.group(1) == "qq_quant_v_kernel"
                      else {"Lb1E": "packed", "Lb0E": "heads"})
             args = [{"13__nv_bfloat16": "bf16", "f": "f32", **bools}.get(a, a.strip("LiE"))
                     for a in re.findall(r"Li\d+E|Lb[01]E|13__nv_bfloat16|f", m.group(2) or "")]
@@ -717,15 +725,18 @@ def find_cuobjdump():
 # bf16 wgmma and TMA loads for K1/K2, s8 wgmma, TMA loads and the bf16
 # wgmma core for K3/K4, and for K5 the bf16 wgmma core and the TF32 mma.sync
 # of its 3xTF32 float32 routes; and those it must not: no mma.sync (HMMA,
-# IMMA) in the int8 library's kernels, which run on wgmma, but for KB (a)
-# 1's int8 attention core (SASS_MMA_SYNC), whose products are IMMA
+# IMMA) anywhere in the int8 library, which runs on wgmma; and per kernel
+# (SASS_PER_KERNEL) every instantiation of KB (a) 1's int8 attention core,
+# both routes, holds s8 wgmma and TMA loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
             "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\.", "IMMA": r"\bIMMA\."}
 SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
-SASS_MMA_SYNC = {"fused_block_q": ("attention_qq_", "IMMA")}  # the register and tiled cores
+# the register (attention_qq_kernel<N>, 4 key buckets) and tiled
+# (attention_qq_tiled_kernel<NO>, 4 output widths) cores
+SASS_PER_KERNEL = {"fused_block_q": ("attention_qq_", ("IGMMA", "UTMALDG"), 8)}
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -813,23 +824,25 @@ def sass_check(lib, path) -> None:
           f"(cuobjdump {tool})")
     missing = [op for op in SASS_REQUIRED[lib] if counts[op] == 0]
     check(not missing, f"the {lib} library has no {missing} instructions in its SASS")
-    if lib not in SASS_MMA_SYNC:
-        present = [op for op in SASS_FORBIDDEN.get(lib, ()) if counts[op] > 0]
-        check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
-        return
-    # per kernel: the forbidden forms in none but the mma.sync kernel, whose
-    # every instantiation holds its own form
-    kernel, op = SASS_MMA_SYNC[lib]
-    funcs = sass_functions(path)
-    own = {name: len(re.findall(SASS_OPS[op], body)) for name, body in funcs.items()
-           if kernel in name}
-    rest = {o: sum(len(re.findall(SASS_OPS[o], body)) for name, body in funcs.items()
-                   if kernel not in name) for o in SASS_FORBIDDEN[lib]}
-    print(f"sass {lib}: {op} per {kernel} instantiation {sorted(own.values())}; "
-          f"{SASS_FORBIDDEN[lib]} in the other kernels {rest}")
-    check(own and min(own.values()) > 0, f"{kernel} has no {op} instructions in its SASS")
-    check(not any(rest.values()), f"the {lib} library's other kernels have {rest} (mma.sync) "
-          f"instructions in their SASS")
+    present = [op for op in SASS_FORBIDDEN.get(lib, ()) if counts[op] > 0]
+    check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
+    if lib in SASS_PER_KERNEL:
+        sass_check_per_kernel(lib, path)
+
+
+def sass_check_per_kernel(lib, path) -> None:
+    """SASS_PER_KERNEL[lib]: every instantiation whose mangled name holds
+    the kernel's name holds each of its ops, and there are as many as
+    expected; a missing one, or one without an op, fails the run."""
+    kernel, ops, want = SASS_PER_KERNEL[lib]
+    own = {name: {op: len(re.findall(SASS_OPS[op], body)) for op in ops}
+           for name, body in sass_functions(path).items() if kernel in name}
+    print(f"sass {lib}: {ops} per {kernel} instantiation "
+          f"{sorted(tuple(c.values()) for c in own.values())}")
+    check(len(own) == want, f"{len(own)} {kernel} instantiations in the {lib} SASS, "
+          f"expected {want}")
+    short = [name for name, c in own.items() if min(c.values()) == 0]
+    check(not short, f"{short} lack one of {ops} in their SASS")
 
 
 def block_params(d, device, seed):
@@ -6619,9 +6632,10 @@ WIDE_K5_PARENT = {
     (8, 12, 800, 785, "bfloat16"): "1704f993c1337bfe",
     (8, 12, 192, 785, "bfloat16"): "dc7f6b6570e877f4",
 }
-# KB (a) 1 off its register route: (S, D, H), past 256 keys at ViT-B/16's
-# width and head dim 80 (D = 960, 12 heads), B=2
-WIDE_QQ = ((257, 768, 12), (785, 768, 12), (197, 960, 12))
+# KB (a) 1 off its register route: (B, S, D, H), past 256 keys at ViT-B/16's
+# width and head dim 80 (D = 960, 12 heads), B=2; and at the int8 joint
+# Frozen-in-Time tower's attention, B=32 S=785, timed beside K3 (its long core)
+WIDE_QQ = ((2, 257, 768, 12), (2, 785, 768, 12), (2, 197, 960, 12), (32, 785, 768, 12))
 # the KB entries off the registry widths: D = 200, 2 heads of 100, F = 800
 KB_OFF = {"d": 200, "heads": 2, "f": 800, "b": 8, "s": 77}
 
@@ -6719,8 +6733,8 @@ def wide_checks(fb, fbq, device, card):
             del q, k, v, mask, got, ref
         torch.cuda.empty_cache()
     # KB (a) 1: the core on random f32 qkv, then the block
-    for s, d, heads in WIDE_QQ:
-        qkv = torch.randn(2, s, 3 * d, generator=g).to(device)
+    for b, s, d, heads in WIDE_QQ:
+        qkv = torch.randn(b, s, 3 * d, generator=g).to(device)
         fbq.reset_launches()
         core_err = qq_core_check(fbq, qkv, heads)
         torch.cuda.synchronize()
@@ -6729,23 +6743,23 @@ def wide_checks(fb, fbq, device, card):
               f"attention_qq_core S={s} D={d}: routes {fbq.QQ_ROUTES}, launches "
               f"{fbq.KB_LAUNCHES['attention_qq_core']}")
         (qa, qakw), _ = q_block_params(d, device, seed=s + d)
-        x = torch.randn(2, s, d, generator=g).to(device, torch.bfloat16)
-        name = f"attention_block_qq B=2 S={s} D={d} H={heads} hd={d // heads} (phase 27)"
+        x = torch.randn(b, s, d, generator=g).to(device, torch.bfloat16)
+        name = f"attention_block_qq B={b} S={s} D={d} H={heads} hd={d // heads} (phase 27)"
         fbq.reset_launches()
         blk_err = kb_compare(fbq, name, fbq.attention_block_qq, fbq.attention_block_qq_plain, x,
                              (qa, qakw), {"heads": heads}, fbq.quant_rows, True, code_bars=False)
         torch.cuda.synchronize()
         check(fbq.KB_LAUNCHES["attention_block_qq"] == 1 and fbq.QQ_ROUTES["tiled"] == 1,
               f"{name}: launches {nonzero(fbq.KB_LAUNCHES)}, routes {fbq.QQ_ROUTES}")
-        case = f"KB (a) 1 B=2 S={s} D={d} H={heads} hd={d // heads} (tiled route)"
+        case = f"KB (a) 1 B={b} S={s} D={d} H={heads} hd={d // heads} (tiled route)"
         for kname, err, kern, plain, work in (
                 ("attention_qq_core", core_err, lambda: fbq.attention_qq_core(qkv, heads),
                  lambda: fbq.attention_qq_core_plain(qkv, heads, torch.bfloat16),
-                 qq_core_work(2, s, d, heads)),
+                 qq_core_work(b, s, d, heads)),
                 ("attention_block_qq", blk_err,
                  lambda: fbq.attention_block_qq(x, *qa, heads=heads, **qakw),
                  lambda: fbq.attention_block_qq_plain(x, *qa, heads=heads),
-                 qq_work(2, s, d, heads))):
+                 qq_work(b, s, d, heads))):
             bound_ms, bound_by = bound(*work)
             r = {"name": kname, "case": case, "route": "cuda",
                  "source": "debias_vision_lang_torch/csrc/" + (
@@ -6757,6 +6771,11 @@ def wide_checks(fb, fbq, device, card):
             print(f"time {kname} {case}: kernel {r['ms']:.4f} ms, plain twin "
                   f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at "
                   f"{bound_ms / r['ms']:.1%} of it) ({card})")
+        if b > 2:  # K3 beside it (its core's share: benchmarks_torch/qq_core_times.py;
+            # the profiler records little this late in the smoke)
+            k3 = cuda_ms(lambda: fbq.attention_block_q(x, *qa, heads=heads, **qakw), 5)
+            print(f"time attention_block_q (K3, its core on the long route) B={b} S={s} D={d} "
+                  f"beside KB (a) 1: {k3:.4f} ms ({card})")
         del qkv, x, qa, qakw
     rows += kb_off_registry(fb, fbq, device, card)
     torch.cuda.empty_cache()

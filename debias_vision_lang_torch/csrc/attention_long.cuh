@@ -138,38 +138,6 @@ struct LongCfg {
                 "long route: shared memory over the SM's");
 };
 
-// A ring of D slots: the n-th item taken lands in slot n % D, in phase
-// (n / D) & 1 of that slot's barriers.
-template <int D>
-struct Ring {
-  uint64_t* full;
-  uint64_t* empty;
-  int n = 0;
-  __device__ int slot() const { return n % D; }
-  __device__ uint32_t parity() const { return (n / D) & 1; }
-  // consumer: wait for the next item's bytes, return its slot (the next
-  // item may be taken before this one is freed)
-  __device__ int take_next() {
-    const int s = slot();
-    mbar_wait(&full[s], parity());
-    ++n;
-    return s;
-  }
-  // consumer: this warp is done with the item in slot s
-  __device__ void free_slot(int s, int lane) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-  // producer: wait until the slot is free, announce `bytes`, return the slot
-  __device__ int put(uint32_t bytes) {
-    const int s = slot();
-    if (n >= D) mbar_wait(&empty[s], ((n / D) - 1) & 1);
-    mbar_expect_tx(&full[s], bytes);
-    ++n;
-    return s;
-  }
-};
-
 // Byte offset of element (row r, column c < BOX) in a 128-byte-swizzled box.
 __device__ __forceinline__ int swz(int r, int cbytes) {
   return r * 128 + ((((cbytes >> 4) ^ (r & 7))) << 4) + (cbytes & 15);

@@ -24,7 +24,7 @@
 //                                 (_attn_qq_kernel): qkv kept f32 (the
 //                                 EQ_BIAS_F32 epilogue) into the int8 core
 //                                 of attention_qq.cuh (dvl_attention_qq_core
-//                                 alone), the library's only IMMA;
+//                                 alone): Q K^T and P V on s8 wgmma;
 //   dvl_mlp_block_q_kb         <- q_mlp_bf16h.py::tower (pipe_kernel, bf16h):
 //                                 bf16(deq + b1) (EQ_BIAS) with quick_gelu in
 //                                 the hidden's quantize pass (2 bytes read a
@@ -985,8 +985,7 @@ enum AttnQVariant {
 // D % 128 == 0 and head dim 64 every width is the model's own.  S >= 1 (the
 // core's whole score rows up to 320 keys, its long route past).
 // AQ_QQ: qkv kept f32 (EQ_BIAS_F32) into the int8 core of attention_qq.cuh
-// (qq_ws: its workspace on the tiled route, qq_ws_bytes; may be null on the
-// register route).
+// (qq_ws: its workspace, qq_ws_bytes, on both of its routes).
 // AQ_VAR: the reciprocal quantizer on x and attn, the wgmma core dividing by
 // the row sum after P V (norm_after = 2).  AQ_POSTDIV: K3's quantizer and
 // AQ_VAR's core.  AQ_ATTR_MXU: x's static cast in place of LayerNorm and
@@ -1219,9 +1218,9 @@ int dvl_attention_block_q(const void* x, const void* ln_s, const void* ln_b, con
 
 // The KB variants (attention_block_q_impl's AQ_*): K3's arguments and
 // padded layout, causal 0.  KB (a) 1, attention_block_qq: qkv [B*S, NQKV]
-// f32, ws the int8 core's workspace (qq_ws_bytes; null on its register
-// route).  KB (a) 4, attn_q_kernel_var.  benchmarks/q_ilp4.py's head-pair
-// packed kernel (make_kernel): the row sum divided out after P V.
+// f32, ws the int8 core's workspace (qq_ws_bytes).  KB (a) 4,
+// attn_q_kernel_var.  benchmarks/q_ilp4.py's head-pair packed kernel
+// (make_kernel): the row sum divided out after P V.
 // benchmarks/q_attribution.py's attn_kernel, modes "mxu" (xn unwritten) and
 // "vpu".
 int dvl_attention_block_qq(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
@@ -1281,7 +1280,7 @@ int dvl_attention_block_q_attr_vpu(const void* x, const void* ln_s, const void* 
 // at columns h hdp, DA + h hdp, 2 DA + h hdp, zero lanes past its hd) ->
 // out [B*S, heads hdp] bf16; p_out [B, H, S, S] f32, pq_out [B, H, S, S]
 // int8 and psc_out [B, H, S] f32 may be null; ws: qq_ws_bytes(B, S, heads,
-// hdp) bytes (null on the register route: hdp 64, S <= 256).  Any S >= 1.
+// hdp) bytes, 256-byte aligned.  Any S >= 1.
 int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out, void* psc_out,
                           void* ws, int B, int S, int heads, int hdp, float scale, void* stream) {
   return (int)launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(out),
@@ -1290,10 +1289,10 @@ int dvl_attention_qq_core(const void* qkv, void* out, void* p_out, void* pq_out,
                                   3 * heads * hdp, scale, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The int8 core's workspace in bytes for the tiled route (0 on the register
-// route), as launch_attention_qq lays it out.
+// The int8 core's workspace in bytes (both routes), as launch_attention_qq
+// lays it out.
 long long dvl_qq_ws_bytes(int B, int S, int heads, int hdp) {
-  return qq_tiled(S, hdp) ? qq_ws_bytes(B, S, heads, hdp) : 0;
+  return qq_ws_bytes(B, S, heads, hdp);
 }
 
 // K4 (mlp_block_q_impl's MQ_K4), its hidden in k F-chunks (k = 1: the

@@ -825,11 +825,9 @@ def _q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan: MlpPlan, d
 
 
 def _qq_workspace(b, s, heads, hdp, device):
-    """The int8 core's workspace on its tiled route (None on the register
-    route): ``dvl_qq_ws_bytes`` bytes, 256-byte aligned."""
+    """The int8 core's workspace (both routes: the codes and scales of its
+    quantize launches): ``dvl_qq_ws_bytes`` bytes, 256-byte aligned."""
     n = _lib().dvl_qq_ws_bytes(b, s, heads, hdp)
-    if n == 0:
-        return None
     ws = torch.empty((n,), dtype=torch.uint8, device=device)
     if ws.data_ptr() % 256:
         raise RuntimeError("the int8 core's workspace is not 256-byte aligned")
@@ -865,7 +863,7 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
             attn.data_ptr(), aq.data_ptr(), ascale.data_ptr()]
     if kind == "qq":
         ws = _qq_workspace(b, s, heads, plan.hdp, dev)
-        ptrs.append(None if ws is None else ws.data_ptr())
+        ptrs.append(ws.data_ptr())
     err = getattr(_lib(), entry)(*ptrs, b, s, d, heads, plan.hdp, int(causal), plan.scale,
                                  _stream_ptr(dev))
     _raise_on(err, entry)
@@ -920,7 +918,7 @@ def _attention_qq_core_cuda(qkv32, heads, scratch):
     ws = _qq_workspace(b, s, heads, plan.hdp, dev)
     err = _lib().dvl_attention_qq_core(
         rows.data_ptr(), out.data_ptr(),
-        *[None if t is None else t.data_ptr() for t in (p, pq, psc, ws)],
+        *[None if t is None else t.data_ptr() for t in (p, pq, psc)], ws.data_ptr(),
         b, s, heads, plan.hdp, plan.scale, _stream_ptr(dev))
     _raise_on(err, "dvl_attention_qq_core")
     KB_LAUNCHES["attention_qq_core"] += 1

@@ -352,8 +352,21 @@ def test_qq_block_refuses_past_256_keys(int8_cores, full_block):
 
 
 def test_qq_core_products_are_int8_mma_in_the_header():
+    """Both products of the int8 core are s8 wgmma (SS for Q K^T at a key
+    tile and at each register-route bucket, RS for P V at each output
+    width), fed by TMA; no mma.sync is left in its header."""
     src = (CSRC / "attention_qq.cuh").read_text()
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    assert "mma.sync" not in src
+    assert "wgmma_ss_s8<N>(" in src and "wgmma_ss_s8<64>(" in src
+    assert "wgmma_rs_s8<64>(" in src and "wgmma_rs_s8<NO>(" in src
+    assert "tma_load_3d(" in src and "CU_TENSOR_MAP_SWIZZLE_64B" in src
+    hopper = (CSRC / "hopper.cuh").read_text()
+    for n in (64, 128, 224, 256):
+        assert (f"wgmma_ss_s8<{n}>(" in hopper
+                and (n == 128 or f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 {{" in hopper))
+    for n in (64, 128, 192, 256):
+        assert f"wgmma_rs_s8<{n}>(" in hopper
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 {{" in hopper
     cu = (CSRC / "fused_block_q.cu").read_text()
     assert '#include "attention_qq.cuh"' in cu
     impl = cu[cu.index("int attention_block_q_impl("):cu.index("int mlp_block_q_impl(")]
@@ -362,6 +375,42 @@ def test_qq_core_products_are_int8_mma_in_the_header():
     py = pathlib.Path(fbq.__file__).read_text()
     core = py[py.index("def _attention_qq_core_cuda("):py.index("# K4 and its KB variants")]
     assert "int_mm" not in core and "scaled_dot_product" not in core
+
+
+def _qq_sass(body):
+    names = [f"_ZN12_GLOBAL__N_119attention_qq_kernelILi{n}EEEv14CUtensorMap_st" for n in
+             (64, 128, 224, 256)]
+    names += [f"_ZN12_GLOBAL__N_125attention_qq_tiled_kernelILi{n}EEEv14CUtensorMap_st" for n in
+              (64, 128, 192, 256)]
+    return {name: body for name in names}
+
+
+@pytest.mark.parametrize("broken", [None, "no IGMMA", "no UTMALDG", "missing"])
+def test_sass_check_holds_every_qq_instantiation_to_wgmma_and_tma(monkeypatch, broken):
+    """chip_smoke.sass_check_per_kernel: each of the int8 core's eight
+    instantiations (four key buckets, four output widths) must hold s8 wgmma
+    (IGMMA) and TMA loads (UTMALDG); a missing instantiation or form fails."""
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+
+    funcs = _qq_sass("IGMMA.64x64x32.S32.S8.S8 ; UTMALDG.3D ;")
+    funcs["_ZN12_GLOBAL__N_118qq_quant_qk_kernelEPKf"] = "LDG.E.128 ;"
+    name = next(iter(funcs))
+    if broken == "no IGMMA":
+        funcs[name] = "UTMALDG.3D ;"
+    elif broken == "no UTMALDG":
+        funcs[name] = "IGMMA.64x64x32.S32.S8.S8 ;"
+    elif broken == "missing":
+        del funcs[name]
+    monkeypatch.setattr(C, "sass_functions", lambda path: dict(funcs))
+    assert C.SASS_PER_KERNEL["fused_block_q"][:2] == ("attention_qq_", ("IGMMA", "UTMALDG"))
+    if broken is None:
+        C.sass_check_per_kernel("fused_block_q", "lib.so")
+    else:
+        with pytest.raises(RuntimeError):
+            C.sass_check_per_kernel("fused_block_q", "lib.so")
 
 
 @pytest.mark.parametrize("entry", ["dvl_attention_block_qq", "dvl_attention_block_q_var",
@@ -412,7 +461,7 @@ def _codes_are_own(scratch, quantizer, pairs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s", [(4, 197), (3, 50), (2, 77), (2, 128), (2, 256)])
+@pytest.mark.parametrize("b,s", [(4, 197), (3, 50), (2, 77), (2, 128), (2, 256), (32, 785)])
 def test_cuda_qq_block_matches_twin(cuda, b, s):
     (a, akw), _ = _cuda_block(D, cuda)
     x = torch.from_numpy(_x(b, s, D, seed=s)).to(cuda, torch.bfloat16)
@@ -449,6 +498,37 @@ def test_cuda_qq_core_every_key_bucket(cuda, s):
     flipped = (sk["pq"] != sr["pq"]).sum().item()
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= _ulp(ref.float().cpu().numpy()) or flipped > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(32, 785), (256, 197)])
+def test_cuda_qq_core_at_the_timed_shapes(cuda, b, s):
+    """The int8 core at the shapes its routes are timed at (the int8 joint
+    Frozen-in-Time attention, B=32 S=785 H=12, tiled; ViT-B/16 at B=256,
+    register): p's codes its own p's quant_rows, the output the exact P V
+    on them, p within 1e-6 of the twin's, every output past one bf16 ulp on
+    a row with a flipped p code; the workspace the size of its layout."""
+    qkv = torch.from_numpy(_x(b, s, 3 * D, seed=b + s)).to(cuda)
+    sk, sr = {}, {}
+    fbq.reset_launches()
+    got = fbq.attention_qq_core(qkv, H, scratch=sk)
+    torch.cuda.synchronize()
+    assert fbq.QQ_ROUTES[fbq.qq_route(s, 64)] == 1 and fbq.KB_LAUNCHES["attention_qq_core"] == 1
+    sp = -(-s // 64) * 64
+    assert fbq._lib().dvl_qq_ws_bytes(b, s, H, 64) == 3 * b * H * sp * 64 + 2 * b * H * sp * 4 \
+        + -(-b * H * 64 * 4 // 256) * 256
+    assert torch.equal(fbq.quant_rows(sk["p"])[0], sk["pq"])
+    assert torch.equal(fbq.quant_rows(sk["p"])[1], sk["psc"])
+    vq, vsc = fbq.quant_rows(qkv[..., 2 * D:].reshape(b, s, H, 64).permute(0, 2, 3, 1))
+    own = (sk["pq"].double() @ vq.transpose(-1, -2).double()).float() * sk["psc"] \
+        * vsc.transpose(-1, -2)
+    assert torch.equal(got, own.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, s, D))
+    del own, vq
+    ref = fbq.attention_qq_core_plain(qkv, H, torch.bfloat16, scratch=sr)
+    assert (sk["p"] - sr["p"]).abs().max().item() <= 1e-6
+    flipped = (sk["pq"] != sr["pq"]).any(-1).permute(0, 2, 1)  # [B, S, H]
+    past = ((got.float() - ref.float()).abs() > _ulp(ref.float().cpu().numpy()))
+    assert not (past.reshape(b, s, H, 64).any(-1) & ~flipped).any()
 
 
 @pytest.mark.cuda
@@ -493,7 +573,8 @@ def test_cuda_attn_var_on_the_long_core(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,hd", [(257, 64), (400, 64), (785, 64), (77, 80), (257, 80),
-                                  (197, 128), (1100, 64)])
+                                  (197, 128), (1100, 64), (65, 192), (257, 256), (77, 800),
+                                  (1, 800)])
 def test_cuda_qq_takes_every_key_count_and_head_dim(cuda, s, hd):
     """The int8 core's tiled route (past 256 keys, or off head dim 64): its
     p codes are quant_rows of its own p, its output is the exact int32 P V

@@ -30,6 +30,7 @@ debias_vision_lang_tpu/ops/ and the KB bodies of benchmarks/).
 
 import functools
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -176,6 +177,208 @@ def test_tiled_route_arithmetic_is_the_twin(s, hd):
     got = _tiled_core(qkv, 2)
     want = fbq.attention_qq_core_plain(qkv, 2, torch.bfloat16)
     within_one_ulp(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The s8 wgmma core's order, emulated in numpy (csrc/attention_qq.cuh)
+# ---------------------------------------------------------------------------
+
+QQ_TILE, QQ_NO_MAX, QQ_MAX_SEQ = 64, 256, 256
+F32 = np.float32
+
+
+def _np_quant_rows(x):
+    """quant_rows in numpy float32: (int8 codes, f32 scales [..., 1])."""
+    sc = np.maximum(np.abs(x).max(-1, keepdims=True) / F32(127), F32(1e-8)).astype(F32)
+    return np.clip(np.rint(x / sc), -127, 127).astype(np.int8), sc
+
+
+def _thread_sums(e, l0=None):
+    """Each row's e [R, 8 n] summed as the kernel's quad does: thread t (of
+    four) adds its columns 8 j + 2 t, 8 j + 2 t + 1 in order of j onto l0
+    [R, 4] (zeros by default), one f32 rounding a step; returns [R, 4]."""
+    per = e.reshape(e.shape[0], -1, 4, 2).transpose(0, 2, 1, 3).reshape(e.shape[0], 4, -1)
+    acc = np.zeros(per.shape[:2], F32) if l0 is None else l0
+    for i in range(per.shape[-1]):
+        acc = (acc + per[..., i]).astype(F32)
+    return acc
+
+
+def _quad(l):
+    """quad_sum over the four threads of a row: (l0 + l1) + (l2 + l3)."""
+    return ((l[:, 0] + l[:, 1]).astype(F32) + (l[:, 2] + l[:, 3]).astype(F32)).astype(F32)
+
+
+def _qq_keys(s):
+    return 64 if s <= 64 else 128 if s <= 128 else 224 if s <= 224 else 256
+
+
+def qq_core_emulated(qkv, heads, out_dtype=torch.bfloat16):
+    """The s8 wgmma core's arithmetic in its order, in numpy: qkv f32 [B, S,
+    3D] -> (out f32 holding ``out_dtype`` values [B, S, D], p [B, H, S, S],
+    pq, psc [B, H, S, 1]).  Register route (head dim up to 64, S <= 256): one pass over
+    the key bucket, the row max, e = exp(s - m), the row sum in the quad's
+    thread order, p = e / l, p's scale from its row max.  Tiled route: pass
+    1 walks 64-key tiles keeping the row max and each thread's rescaled sum
+    (l * exp(m - m_new) + its new e's), the quad's sum at the end; pass 2
+    p = exp(s - m) / l with p's scale qq_scale(1 / l).  P V: exact integer
+    sums of p's codes and v's (per column) codes over every key, by groups
+    of at most 256 output columns sharing one m and l, converted to f32
+    once: (o * p scale) * v scale, rounded to ``out_dtype`` (the card's
+    core: bf16)."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // heads
+    hdp = -(-hd // 64) * 64
+    scale = F32(1.0 / hd ** 0.5)
+    register = hdp == 64 and s <= QQ_MAX_SEQ
+    n = _qq_keys(s) if register else -(-s // QQ_TILE) * QQ_TILE
+    out = np.zeros((b, s, d), F32)
+    ps_all, pq_all, psc_all = (np.zeros((b, heads, s, s), F32), np.zeros((b, heads, s, s), np.int8),
+                               np.zeros((b, heads, s, 1), F32))
+    for bi in range(b):
+        for h in range(heads):
+            q, k, v = (qkv[bi, :, i * d + h * hd:i * d + (h + 1) * hd] for i in range(3))
+            qq, qs = _np_quant_rows(q)
+            kq, ks = _np_quant_rows(k)
+            vq, vs = _np_quant_rows(np.ascontiguousarray(v.T))  # [hd, S]
+            s32 = qq.astype(np.int64) @ kq.astype(np.int64).T
+            sc = np.full((s, n), -np.inf, F32)
+            sc[:, :s] = ((s32.astype(F32) * qs).astype(F32) * ks.T).astype(F32) * scale
+            with np.errstate(invalid="ignore", over="ignore"):
+                if register:
+                    m = sc.max(-1, keepdims=True)
+                    e = np.where(np.isinf(sc), F32(0), np.exp(sc - m)).astype(F32)
+                    l = _quad(_thread_sums(e))[:, None]
+                    p = (e / l).astype(F32)
+                    ps = np.maximum(p.max(-1, keepdims=True) / F32(127), F32(1e-8)).astype(F32)
+                else:
+                    m = np.full((s, 1), -np.inf, F32)
+                    lt = np.zeros((s, 4), F32)
+                    for k0 in range(0, n, QQ_TILE):
+                        t = sc[:, k0:k0 + QQ_TILE]
+                        new = np.maximum(m, t.max(-1, keepdims=True))
+                        lt = (lt * np.where(np.isinf(m), F32(0), np.exp(m - new))).astype(F32)
+                        lt = _thread_sums(np.where(np.isinf(t), F32(0),
+                                                   np.exp(t - new)).astype(F32), lt)
+                        m = new
+                    l = _quad(lt)[:, None]
+                    ps = np.maximum((F32(1) / l) / F32(127), F32(1e-8)).astype(F32)
+                    p = np.where(np.isinf(sc), F32(0), np.exp(sc - m) / l).astype(F32)
+            pq = np.clip(np.rint(p / ps), -127, 127).astype(np.int8)
+            o = np.zeros((s, hd), F32)
+            for c0 in range(0, hd, QQ_NO_MAX):  # output groups, one m and l
+                acc = pq[:, :s].astype(np.int64) @ vq[c0:c0 + QQ_NO_MAX].astype(np.int64).T
+                o[:, c0:c0 + QQ_NO_MAX] = (acc.astype(F32) * ps).astype(F32) * vs[c0:c0 + QQ_NO_MAX].T
+            out[bi, :, h * hd:(h + 1) * hd] = _np32(torch.from_numpy(o).to(out_dtype))
+            ps_all[bi, h], pq_all[bi, h], psc_all[bi, h] = p[:, :s], pq[:, :s], ps
+    return out, ps_all, pq_all, psc_all
+
+
+QQ_HDS = [64, 80, 128, 256, 800]
+QQ_SEQS = [1, 33, 64, 65, 197, 256, 257, 785]
+
+
+@pytest.mark.parametrize("hd", QQ_HDS)
+@pytest.mark.parametrize("s", QQ_SEQS)
+def test_emulated_wgmma_core_keeps_the_contract(s, hd):
+    """The emulated core against the twin (attention_qq_core_plain), on the
+    contract the card's core is held to: p's codes are quant_rows of its own
+    p (so p's scale from 1 / l is its row max's), its output is the exact
+    P V on its own codes, its p within 1e-6 of the twin's, and every output
+    past one bf16 ulp of the twin's sits on a row with a flipped p code."""
+    heads = 2
+    qkv = _x(1, s, 3 * heads * hd, seed=s * 1000 + hd)
+    got, p, pq, psc = qq_core_emulated(qkv, heads)
+    sr = {}
+    ref = _np32(fbq.attention_qq_core_plain(torch.from_numpy(qkv), heads, torch.bfloat16,
+                                            scratch=sr))
+    own_q, own_s = fbq.quant_rows(torch.from_numpy(p))
+    assert torch.equal(own_q, torch.from_numpy(pq)) and torch.equal(own_s, torch.from_numpy(psc))
+    vq, vsc = fbq.quant_rows(torch.from_numpy(qkv[..., 2 * heads * hd:]).reshape(
+        1, s, heads, hd).permute(0, 2, 3, 1))
+    own = (torch.from_numpy(pq).double() @ vq.transpose(-1, -2).double()).float() \
+        * torch.from_numpy(psc) * vsc.transpose(-1, -2)
+    own = _np32(own.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(1, s, heads * hd))
+    assert np.array_equal(got, own)
+    assert np.abs(p - _np32(sr["p"])).max() <= 1e-6
+    past = (np.abs(got - ref) > 2.0 ** (math.floor(math.log2(np.abs(ref).max())) - 7))
+    flipped = (pq != sr["pq"].numpy()).any(-1).transpose(0, 2, 1)  # [B, S, H]
+    assert not (past.reshape(1, s, heads, hd).any(-1) & ~flipped).any()
+
+
+@pytest.mark.parametrize("hd", QQ_HDS)
+@pytest.mark.parametrize("s", QQ_SEQS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_wgmma_block_matches_the_pallas_kernel(int8_cores, monkeypatch, s, hd, dtype):
+    """KB (a) 1's block with the emulated core in the twin's place, against
+    benchmarks/attn_int8_cores.py::attention_block_qq in interpret mode (one
+    head of hd, so D = hd): within one bf16 ulp of the largest magnitude
+    (the block's bar on the card), and at float32 also at the full-width bar
+    of tests/kb_helpers.py against the twin's block.  (At one head of D =
+    hd the twin's own float32 block sits past atol 1e-4 of JAX's on up to
+    44% of its rows: XLA's LayerNorm and softmax round their last bits
+    otherwise and flip int8 codes.)"""
+    import jax.numpy as jnp
+
+    attn, _ = _layer(hd, seed=s + hd)
+    x = _t(_x(1, s, hd, seed=s * 7 + hd), getattr(torch, dtype))
+    ref = int8_cores.attention_block_qq(_jnp(_np32(x), getattr(jnp, dtype)), *map(_jnp, attn),
+                                        heads=1)
+    twin = fbq.attention_block_qq_plain(x, *map(_t, attn), heads=1)
+
+    def emulated(qkv, heads, out_dtype, scratch=None, scale=None):
+        return torch.from_numpy(qq_core_emulated(_np32(qkv), heads, out_dtype)[0]).to(out_dtype)
+
+    monkeypatch.setattr(fbq, "attention_qq_core_plain", emulated)
+    got = fbq.attention_block_qq_plain(x, *map(_t, attn), heads=1)
+    assert got.dtype == x.dtype
+    within_one_ulp(got, ref)
+    if dtype == "float32":
+        check(got, twin, dtype, full_width=True)
+
+
+def _qq_ws_parts(b, s, heads, hdp):
+    """csrc/attention_qq.cuh's workspace, part by part (bytes, each rounded
+    up to 256): q, k codes [B H, Sp, hdp], v^T codes [B H, hdp, Sp], q, k
+    scales [B H, Sp], v scales [B H, hdp], and past 256 output columns each
+    row's max and sum [B H, Sp]."""
+    bh, sp = b * heads, -(-s // QQ_TILE) * QQ_TILE
+
+    def al(x):
+        return -(-x // 256) * 256
+
+    parts = [al(bh * sp * hdp)] * 3 + [al(bh * sp * 4)] * 2 + [al(bh * hdp * 4)]
+    return parts + ([al(bh * sp * 4)] * 2 if hdp > QQ_NO_MAX else [])
+
+
+@pytest.mark.parametrize("b,s,heads,hdp", [(256, 197, 12, 64), (32, 785, 12, 64), (2, 197, 12, 128),
+                                            (1, 1, 1, 64), (2, 77, 2, 832)])
+def test_qq_workspace_layout(b, s, heads, hdp):
+    """Both routes take the workspace: the codes in wgmma's tile layout
+    (rows of S rounded up to 64 keys), the scales, and past 256 output
+    columns the statistics launch's row max and sum."""
+    parts = _qq_ws_parts(b, s, heads, hdp)
+    assert all(p % 256 == 0 for p in parts)
+    assert len(parts) == (8 if hdp > 256 else 6)
+    sp = -(-s // 64) * 64
+    assert sum(parts[:3]) >= 3 * b * heads * sp * hdp
+    assert sp % 64 == 0 and (sp * hdp) % 16 == 0  # the TMA's 16-byte strides
+
+
+@pytest.mark.parametrize("q", range(16))
+def test_v_codes_are_stored_in_the_fragments_key_order(q):
+    """Position 4t + i of a 16-key group of v^T holds key 8 (i / 2) + 2t + i
+    % 2: the i-th byte of the A fragment register a thread packs from its
+    accumulator columns (2t, 2t + 1, 8 + 2t, 9 + 2t), so P V needs no byte
+    shuffle; the map is a permutation."""
+    perm = [8 * ((p & 3) >> 1) + 2 * (p >> 2) + (p & 1) for p in range(16)]
+    assert sorted(perm) == list(range(16))
+    t, i = q >> 2, q & 3
+    assert perm[q] == [2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t][i]
+    src = (pathlib.Path(fbq.__file__).resolve().parent.parent / "csrc" /
+           "attention_qq.cuh").read_text()
+    assert "return 8 * ((q & 3) >> 1) + 2 * (q >> 2) + (q & 1);" in src
 
 
 # ---------------------------------------------------------------------------
