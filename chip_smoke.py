@@ -682,7 +682,7 @@ def print_ptxas(lib: str, log: str) -> None:
                       r"attention_f32_kernel|"
                       r"attention_long_kernel|attention_wide_kernel|split_tf32_kernel|"
                       r"attention_qq_kernel|attention_qq_tiled_kernel|qq_quant_qk_kernel|"
-                      r"qq_quant_v_kernel|cast_s8_kernel|"
+                      r"qq_quant_v_kernel|cast_s8_kernel|ln_quant_rows_kernel|row_amax_kernel|"
                       r"bcast_rows_kernel|attention_vpu_core_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
@@ -691,6 +691,8 @@ def print_ptxas(lib: str, log: str) -> None:
             bools = ({"Lb1E": "ragged", "Lb0E": None} if m.group(1).startswith("gemm_")
                      else {"Lb1E": "staged", "Lb0E": "re-read"}
                      if m.group(1) == "qq_quant_v_kernel"
+                     else {"Lb1E": "full", "Lb0E": "guarded"}
+                     if m.group(1) == "ln_quant_rows_kernel"
                      else {"Lb1E": "packed", "Lb0E": "heads"})
             args = [{"13__nv_bfloat16": "bf16", "f": "f32", **bools}.get(a, a.strip("LiE"))
                     for a in re.findall(r"Li\d+E|Lb[01]E|13__nv_bfloat16|f", m.group(2) or "")]
@@ -4520,7 +4522,7 @@ def tp_kernels(fb, fbq, device, card):
     main path's shapes, with the residual at x and x/16; timed ones become
     kernels-line rows (launches set by the caller)."""
     import torch
-    from debias_vision_lang_torch.parallel.tensor import head_columns
+    from debias_vision_lang_torch.parallel.tensor import head_columns, head_group
 
     rows = {}
     g_in = torch.Generator().manual_seed(22)
@@ -4591,10 +4593,13 @@ def tp_kernels(fb, fbq, device, card):
     sk3, sk4 = {}, {}
     want3 = fbq.attention_block_q(x, *qa, heads=heads, **qakw, scratch=sk3)
     want4 = fbq.mlp_block_q(x, *qm, **qmkw, scratch=sk4)
-    for m in (2, 4):
-        g = heads // m
-        outs, hs = [], []
+    hd = d // heads
+    for m in (2, 4, 8):  # at m = 8 slots of 1 and 2 heads
+        outs, hs, groups = [], [], []
         for j in range(m):
+            lo, hi = head_group(heads, m, j)
+            g = hi - lo
+            groups.append(slice(lo * hd, hi * hd))
             cols = head_columns(d, m, j, heads).to(device)
             wq_q, wq_s = qa[2][:, cols], qa[3][:, cols]
             attn_j, amax_j = fbq.attention_block_q_heads(
@@ -4602,7 +4607,7 @@ def tp_kernels(fb, fbq, device, card):
                 wqkv_qt=wq_q.t().contiguous())
             check(torch.equal(amax_j, fbq.row_amax(attn_j)),
                   f"attention_block_q_heads m={m} slot {j}: amax is not its rows'")
-            check(torch.equal(attn_j.float(), sk3["attn"][..., j * d // m:(j + 1) * d // m]),
+            check(torch.equal(attn_j.float(), sk3["attn"][..., groups[-1]]),
                   f"attention_block_q_heads m={m} slot {j}: rows are not K3's")
             ref_attn, _ = fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s,
                                                             qa[4][cols], heads=g)
@@ -4620,8 +4625,7 @@ def tp_kernels(fb, fbq, device, card):
         amaxes = [fbq.row_amax(o) for o in outs]
         parts, parts_ref = [], []
         for j, a_j in enumerate(outs):
-            rows_w = slice(j * d // m, (j + 1) * d // m)
-            wo_q = qa[5][rows_w]
+            wo_q = qa[5][groups[j]]
             acc, aq, sc = fbq.rows_q_partial(a_j, amaxes, wo_q, w_qt=wo_q.t().contiguous())
             acc2, aq2, sc2 = fbq.rows_q_partial_plain(a_j, amaxes, wo_q)
             check(torch.equal(aq, aq2) and torch.equal(sc, sc2) and torch.equal(acc, acc2),
@@ -4752,6 +4756,7 @@ TP8 = (("attention_block_heads g=2 m=8", "attention_block_heads"),
        ("attention_block_heads g=1 m=8", "attention_block_heads"),
        ("mlp_block_cols m=8", "mlp_block_cols"), ("tp_reduce m=8", "tp_reduce"),
        ("attention_block_q_heads g=2 m=8", "attention_block_q_heads"),
+       ("attention_block_q_heads g=1 m=8", "attention_block_q_heads"),
        ("mlp_block_q_cols m=8", "mlp_block_q_cols"), ("rows_q_partial m=8", "rows_q_partial"),
        ("tp_reduce_q m=8", "tp_reduce_q"))
 
@@ -4818,6 +4823,21 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
         lambda: fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq_q, wq_s, qa[4][cols],
                                                   heads=2),
         tp_attention_work(b, s, d, 6, weights="int8"))
+    # slot 0 (head 0)
+    cols0 = head_columns(d, m, 0, heads).to(x.device)
+    wq0_q, wq0_s, wq0_t = qa[2][:, cols0], qa[3][:, cols0], qa[2][:, cols0].t().contiguous()
+    a0, _ = fbq.attention_block_q_heads(x, qa[0], qa[1], wq0_q, wq0_s, qa[4][cols0], heads=1,
+                                        wqkv_qt=wq0_t)
+    r0, _ = fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq0_q, wq0_s, qa[4][cols0],
+                                              heads=1)
+    row("attention_block_q_heads g=1 m=8", "attention_block_q_heads", "fused_block_q",
+        (a0.float() - r0.float()).abs().max().item(),
+        lambda: fbq.attention_block_q_heads(x, qa[0], qa[1], wq0_q, wq0_s, qa[4][cols0], heads=1,
+                                            wqkv_qt=wq0_t),
+        lambda: fbq.attention_block_q_heads_plain(x, qa[0], qa[1], wq0_q, wq0_s, qa[4][cols0],
+                                                  heads=1),
+        tp_attention_work(b, s, d, 12, weights="int8"))
+    del a0, r0
     hid = slice(3 * fj, 4 * fj)
     w1_q, w1_s, w1_t = qm[2][:, hid], qm[3][:, hid], qm[2][:, hid].t().contiguous()
     h3, hm3 = fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q, w1_s, qm[4][hid], w1_qt=w1_t)
@@ -4844,6 +4864,51 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
         lambda: fbq.tp_reduce_q(pq, got[2], qa[6], qa[7], x, bias_first=False),
         lambda: fbq.tp_reduce_q_plain(pq, got[2], qa[6], qa[7], x, bias_first=False),
         tp_reduce_work(b * s, d, m, extra=4 * b * s + 4 * d))
+
+
+# the slot entries' design before this one (one kernel a step: LayerNorm,
+# quantize, the GEMM, the core, a block-a-row amax), as
+# ``benchmarks_torch/tp_slot_split.py --dump`` recorded it on an NVIDIA H100
+# 80GB HBM3: the digests of every slot output and of K3's and K4's on that
+# script's inputs, and of the SASS of each kernel of the int8 library
+TP_SLOT_PARENT = "benchmarks_torch/tp_slot_parent.json"
+# the kernels of that library this design no longer has: the amax pass it
+# rewrote (row_amax_kernel<bf16>, <float>)
+TP_SLOT_REPLACED = ("15row_amax_kernelI13__nv_bfloat16EEvPKT_Pfi", "15row_amax_kernelIfEEvPKT_Pfi")
+
+
+def tp_slot_split(fbq, device, card):
+    """The int8 slot entries split (``tp_slot_split.py``'s cases: ViT-B/16
+    B=256 at m = 2 and 8, the causal text tower B=319 at m = 2 and 8): each
+    kernel's device time, the host time of a call and the event wall, and
+    the entries held to the design before them: every output bit-identical
+    to its digest there, K3's and K4's outputs too, and every kernel of the
+    int8 library compiled to the same SASS but the amax pass this design
+    rewrote.  Returns {entry and case: its split}."""
+    import importlib
+
+    from debias_vision_lang_torch.ops import _build
+
+    S = importlib.import_module("benchmarks_torch.tp_slot_split")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), TP_SLOT_PARENT)) as fh:
+        parent = json.load(fh)
+    splits = {}
+
+    def timed(what, call):
+        splits[what] = S.time_entry(f"phase 22 split {what}", call, card)
+
+    mine = {"outputs": S.output_digests(fbq, S.CASES, device, timed),
+            "sass": S.sass_digests(_build.LIB_PATHS["fused_block_q"])}
+    if not mine["sass"]:
+        print("phase 22: no cuobjdump found: the int8 library's kernels are not held to the "
+              "parent design's SASS")
+        mine["sass"] = parent["sass"]
+    bad = S.compare(mine, parent, f"the parent design ({TP_SLOT_PARENT})", "phase 22 ")
+    removed = set(parent["sass"]) - set(mine["sass"])
+    check(not bad, f"phase 22: {bad} slot outputs or int8 kernels differ from the parent design")
+    check(all(k.endswith(TP_SLOT_REPLACED) for k in removed),
+          f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
+    return splits
 
 
 def tp_blocks_check(fb, fbq, label, d, heads, f, act, layers, shape, b, s, device, card):
@@ -5076,6 +5141,9 @@ def tp_phase(model, tokenizer, prompts, card, device):
     vis = model.clip_cfg.vision
     rows, k1_ms = tp_kernels(fb, fbq, device, card)
     walls["kernels"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    tp_slot_split(fbq, device, card)
+    walls["slot split"] = time.perf_counter() - t
     loader = HostLoader(SyntheticFaces(BATCH, seed=22), batch_size=BATCH, num_workers=8,
                         native_n_px=vis.image_size, native_patch=vis.patch_size)
     p8 = torch.from_numpy(next(iter(loader)).images).to(device)

@@ -15,7 +15,13 @@
 // into a raw int32 partial (dvl_rows_q_partial); the partials summed exactly
 // and dequantized once (dvl_tp_reduce_q).  The codes are the unsharded
 // block's (the same global row scale) and the int32 sum is the unsharded K
-// loop's, so a tensor-parallel block is bit-equal to K3 / K4.
+// loop's, so a tensor-parallel block is bit-equal to K3 / K4.  A slot opens
+// with one pass that normalises x and quantizes it (ln_quant_rows_kernel:
+// LayerNorm's bf16 rows, bit for bit, never written); the attention slot
+// then runs K3's QKV GEMM and core on its heads and a row-amax pass (one
+// warp a row), four launches; the MLP slot's up GEMM takes the row amax in
+// its epilogue (EQ_BIAS_QGELU_AMAX / EQ_BIAS_GELU_AMAX: an integer atomicMax
+// on the bits of each tile's row max), two launches.
 //
 // And the int8 kernel experiments of benchmarks/ (KB (a) 1-4), each K3's or
 // K4's launch sequence with one change (attention_block_q_impl /
@@ -123,8 +129,9 @@
 //     scale and codes from a single read; past 4,096 values a row (ViT-H/14's
 //     F = 5,120) two reads of it, the amax then the codes;
 //   * the LayerNorm kernel of common.cuh.
-// Quantizing inside the GEMMs (an epilogue taking the row amax, a producer
-// quantizing on load) and fusing LN with the quantize pass are later work.
+// K3 and K4 keep these launches; the tensor-parallel slots fuse LayerNorm
+// with the quantize pass and the MLP slot takes its row amax in the up
+// GEMM's epilogue (above).  A producer quantizing on load is later work.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
@@ -339,6 +346,8 @@ enum EpilogueQ {
   EQ_RESID32_BIAS = 9,     // bf16((resid32 + bias) + deq), resid f32 (the layer's mlp down)
   EQ_RESID_BIAS_CHUNK = 10,  // bf16((resid + bias) + sum_c deq_c)     (mlp down, F-split)
   EQ_BIAS_S8 = 11,     // int8 s8_trunc(deq + bias, -128), row scale 1 to C2 (the "mxu" mlp up)
+  EQ_BIAS_QGELU_AMAX = 12,  // EQ_BIAS_QGELU, each row's max |h| into C2 (a TP slot's mlp up)
+  EQ_BIAS_GELU_AMAX = 13,   // EQ_BIAS_GELU, the same
 };                    // deq = (acc * row_scale) * channel_scale
 // KB (a) 2's bf16 pre-activation bf16(deq + b1) is EQ_BIAS's output.
 // EQ_RESID_BIAS_CHUNK: the K loop is cut into chunks of chunk_steps K steps
@@ -347,6 +356,10 @@ enum EpilogueQ {
 // exact int32 sum, and the chunks' deq_c are summed in f32 in chunk order.
 // EQ_BIAS_S8: the blocks of column tile 0 write each row's scale, 1, to C2
 // [M] f32, so the down GEMM reads the codes and their scales as K4's.
+// EQ_BIAS_*_AMAX: C2 [M] f32 holds 0 before the launch; each block folds
+// the max |h| of its tile's part of a row into it with an integer atomicMax
+// on the bit pattern (non-negative floats order as their bits; a NaN's bits
+// are past inf's, so a row holding one gets a NaN, as torch's amax does).
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
@@ -576,19 +589,32 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       *reinterpret_cast<uint2*>(static_cast<int8_t*>(C) + m * N + n) = make_uint2(w[0], w[1]);
       if (n == 0) static_cast<float*>(C2)[m] = 1.0f;
     } else if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_F32 ||
-                         EPI == EQ_BIAS_QGELU_BF16) {
+                         EPI == EQ_BIAS_QGELU_BF16 || EPI == EQ_BIAS_QGELU_AMAX ||
+                         EPI == EQ_BIAS_GELU_AMAX) {
       float hv[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float pre = __fadd_rn(d[i], bb[i]);
-        if constexpr (EPI == EQ_BIAS_QGELU) hv[i] = quick_gelu(pre);
-        else if constexpr (EPI == EQ_BIAS_GELU) hv[i] = erf_gelu_rn(pre);
+        if constexpr (EPI == EQ_BIAS_QGELU || EPI == EQ_BIAS_QGELU_AMAX) hv[i] = quick_gelu(pre);
+        else if constexpr (EPI == EQ_BIAS_GELU || EPI == EQ_BIAS_GELU_AMAX) hv[i] = erf_gelu_rn(pre);
         else if constexpr (EPI == EQ_BIAS_QGELU_BF16) hv[i] = quick_gelu_bf16(pre);
         else hv[i] = pre;
       }
       float* out = static_cast<float*>(C) + m * N + n;
       *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(hv);
       *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(hv + 4);
+      if constexpr (EPI == EQ_BIAS_QGELU_AMAX || EPI == EQ_BIAS_GELU_AMAX) {
+        // the row's max |h| over this tile's 128 columns: the 16 lanes that
+        // share row r (lanes 0-15 or 16-31 of the warp) fold their 8 values,
+        // then one of them folds the tile's into the row's amax
+        unsigned bits = 0u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) bits = max(bits, __float_as_uint(fabsf(hv[i])));
+        const unsigned row_lanes = 0xffffu << (threadIdx.x & 16);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) bits = max(bits, __shfl_xor_sync(row_lanes, bits, o));
+        if ((tid & 15) == 0) atomicMax(static_cast<unsigned*>(C2) + m, bits);
+      }
     } else {
       float rr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if constexpr (EPI == EQ_RESID32_BIAS) {
@@ -632,7 +658,8 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
   }
 }
 
-// EQ_BIAS_RESID_Y writes its bf16 copy to C2, EQ_BIAS_S8 its row scales;
+// EQ_BIAS_RESID_Y writes its bf16 copy to C2, EQ_BIAS_S8 its row scales,
+// EQ_BIAS_*_AMAX its row amaxes (C2 zeroed by the caller);
 // EQ_RESID_BIAS_CHUNK takes
 // a_scale [M, K / (128 chunk_steps)] (a row's scale per chunk) and K a
 // multiple of 128 chunk_steps.  ldc (the out and down products and the int32
@@ -666,7 +693,9 @@ cudaError_t launch_gemm_s8(const int8_t* A, const float* a_scale, const int8_t* 
   if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
   if (EPI == EQ_RESID_BIAS_CHUNK && (chunk_steps < 1 || K % (SBK * chunk_steps)))
     return cudaErrorInvalidValue;
-  if ((EPI == EQ_BIAS_RESID_Y || EPI == EQ_BIAS_S8) && C2 == nullptr) return cudaErrorInvalidValue;
+  if ((EPI == EQ_BIAS_RESID_Y || EPI == EQ_BIAS_S8 || EPI == EQ_BIAS_QGELU_AMAX ||
+       EPI == EQ_BIAS_GELU_AMAX) && C2 == nullptr)
+    return cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;  // both K-major: boxes of 128 K x 128 rows
   const uint64_t stride[1] = {(uint64_t)K};
   const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
@@ -694,25 +723,227 @@ struct TpPtrs {
   const void* p[TP_PARTS];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(QR_THREADS)
-row_amax_kernel(const T* __restrict__ x, float* __restrict__ amax, int n) {
-  __shared__ float red[QR_THREADS / 32];
-  const T* xr = x + (long long)blockIdx.x * n;
-  float a = 0.f;
-  for (int i = threadIdx.x; i < n; i += QR_THREADS) a = fmaxf(a, fabsf(to_f32(xr[i])));
-  a = warp_max(a);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < QR_THREADS / 32; ++w) a = fmaxf(a, red[w]);
-    amax[blockIdx.x] = fmaxf(red[0], a);
+// A slot's LayerNorm and the quantize pass of its output in one launch: xq
+// [rows, ldq] (zero codes past d) and xs [rows] are quant_rows_kernel's
+// codes and scales of the bf16 rows layer_norm_kernel (common.cuh) would
+// write, and those rows never reach device memory.  One warp per row, as
+// layer_norm_kernel: each lane takes the pairs (at an odd d, the values)
+// that kernel's lane takes, sums them in the same order and normalises each
+// with the same expression, so every value rounds to the same bf16; then
+// the amax over those values (a max: any order gives it), the scale
+// max(amax / 127, 1e-8) and the codes rint(v / scale) clamped to +-127, from
+// the quotients quant_rows_kernel's IEEE divisions give (q_code).  PP > 0: a
+// lane keeps its PP pairs in registers (d even, d <= 64 PP): x is read once;
+// PP == 0: the row is read again for the variance, the amax and the codes
+// (2 d bytes, L1- or L2-resident).  FULL (d = 64 PP: D = 512, 768, 1,024,
+// 1,280, 2,048) drops the per-pair guards, which nvcc turns into a branch a
+// pair.  amax0, if not null, gets 0 at each row: the up GEMM's
+// EQ_BIAS_*_AMAX folds the hidden's row amax into it.
+constexpr int LNQ_ROWS = 8;  // rows (warps) a block
+
+__device__ __forceinline__ float2 ln_pair(float2 v, float mean, float inv,
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ bias, int i) {
+  const float2 sc = reinterpret_cast<const float2*>(scale)[i];
+  const float2 bi = reinterpret_cast<const float2*>(bias)[i];
+  const float a = (v.x - mean) * inv * sc.x + bi.x;
+  const float b = (v.y - mean) * inv * sc.y + bi.y;
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+__device__ __forceinline__ float ln_one(float v, float mean, float inv,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, int i) {
+  return __bfloat162float(__float2bfloat16_rn((v - mean) * inv * scale[i] + bias[i]));
+}
+
+// quant_rows_kernel's code of v at the row scale s, as a byte: the IEEE
+// quotient v / s from the corrected reciprocal product of attention_qq.cuh's
+// qq_div (rs = 1 / s; exact while |v| >= 2^-100, and past that the quotient
+// is far below 1/2 either way: the code is 0), or, for a row whose amax is
+// not finite (FAST false), __fdiv_rn itself; then clamped to +-127 and
+// rounded half to even by the 1.5 2^23 add (rounding and clamping commute at
+// integer bounds; a NaN clamps to -127, as the twin's conversion gives).
+template <bool FAST>
+__device__ __forceinline__ uint32_t q_code(float v, float s, float rs) {
+  const float y = FAST ? qq_div(v, s, rs) : __fdiv_rn(v, s);
+  const float c = fminf(fmaxf(y, -127.f), 127.f);
+  return (uint32_t)(__float_as_int(__fadd_rn(c, 12582912.f)) - 0x4B400000) & 0xffu;
+}
+
+template <bool FAST>
+__device__ __forceinline__ uint16_t q_pair(float2 v, float s, float rs) {
+  return (uint16_t)(q_code<FAST>(v.x, s, rs) | q_code<FAST>(v.y, s, rs) << 8);
+}
+
+template <int PP, bool FULL>
+__global__ void __launch_bounds__(32 * LNQ_ROWS)
+ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, int8_t* __restrict__ q,
+                     float* __restrict__ qs, float* __restrict__ amax0, int rows, int d, int ldq,
+                     float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * LNQ_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const bf16* xs = x + row * d;
+  const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(xs);
+  uint16_t* q2 = reinterpret_cast<uint16_t*>(q + row * ldq);  // a pair's two codes
+  const int half = d >> 1;
+  float amax = 0.f, sc;
+  if constexpr (PP > 0) {
+    // FULL: d = 64 PP, every lane holds PP pairs (no guard, no branch a pair)
+    float2 v[PP];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < PP; ++j) {
+      const int i = lane + 32 * j;
+      const bool in = FULL || i < half;
+      v[j] = in ? __bfloat1622float2(xr[i]) : make_float2(0.f, 0.f);
+      if (in) s += v[j].x + v[j].y;
+    }
+    const float mean = warp_sum(s) / (float)d;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < PP; ++j) {
+      if (FULL || lane + 32 * j < half) {
+        float a = v[j].x - mean, b = v[j].y - mean;
+        ss += a * a + b * b;
+      }
+    }
+    const float inv = rsqrtf(warp_sum(ss) / (float)d + eps);
+#pragma unroll
+    for (int j = 0; j < PP; ++j) {
+      const int i = lane + 32 * j;
+      if (FULL || i < half) {
+        v[j] = ln_pair(v[j], mean, inv, scale, bias, i);
+        amax = fmaxf(amax, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
+      }
+    }
+    amax = warp_max(amax);
+    sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+    const float rs = __frcp_rn(sc);
+    if (amax < INFINITY) {  // the branch a row, not a value: the codes' chains interleave
+#pragma unroll
+      for (int j = 0; j < PP; ++j)
+        if (FULL || lane + 32 * j < half) q2[lane + 32 * j] = q_pair<true>(v[j], sc, rs);
+    } else {
+#pragma unroll
+      for (int j = 0; j < PP; ++j)
+        if (FULL || lane + 32 * j < half) q2[lane + 32 * j] = q_pair<false>(v[j], sc, rs);
+    }
+  } else {  // an odd d (value by value, as layer_norm_kernel) or a row past 64 x 32 pairs
+    const bool pairs = !(d & 1);
+    float s = 0.f;
+    if (pairs) {
+      for (int i = lane; i < half; i += 32) {
+        float2 v = __bfloat1622float2(xr[i]);
+        s += v.x + v.y;
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) s += __bfloat162float(xs[i]);
+    }
+    const float mean = warp_sum(s) / (float)d;
+    float ss = 0.f;
+    if (pairs) {
+      for (int i = lane; i < half; i += 32) {
+        float2 v = __bfloat1622float2(xr[i]);
+        float a = v.x - mean, b = v.y - mean;
+        ss += a * a + b * b;
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float a = __bfloat162float(xs[i]) - mean;
+        ss += a * a;
+      }
+    }
+    const float inv = rsqrtf(warp_sum(ss) / (float)d + eps);
+    if (pairs) {
+      for (int i = lane; i < half; i += 32) {
+        const float2 y = ln_pair(__bfloat1622float2(xr[i]), mean, inv, scale, bias, i);
+        amax = fmaxf(amax, fmaxf(fabsf(y.x), fabsf(y.y)));
+      }
+    } else {
+      for (int i = lane; i < d; i += 32)
+        amax = fmaxf(amax, fabsf(ln_one(__bfloat162float(xs[i]), mean, inv, scale, bias, i)));
+    }
+    amax = warp_max(amax);
+    sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+    const float rs = __frcp_rn(sc);
+    const bool fast = amax < INFINITY;
+    if (pairs) {
+      for (int i = lane; i < half; i += 32) {
+        const float2 y = ln_pair(__bfloat1622float2(xr[i]), mean, inv, scale, bias, i);
+        q2[i] = fast ? q_pair<true>(y, sc, rs) : q_pair<false>(y, sc, rs);
+      }
+    } else {
+      int8_t* qr = q + row * ldq;
+      for (int i = lane; i < d; i += 32) {
+        const float y = ln_one(__bfloat162float(xs[i]), mean, inv, scale, bias, i);
+        qr[i] = (int8_t)(fast ? q_code<true>(y, sc, rs) : q_code<false>(y, sc, rs));
+      }
+    }
+  }
+  for (int i = d + lane; i < ldq; i += 32) q[row * ldq + i] = 0;  // the padded K edge
+  if (lane == 0) {
+    qs[row] = sc;
+    if (amax0 != nullptr) amax0[row] = 0.f;
   }
 }
 
-template <typename T>
-cudaError_t launch_row_amax(const T* x, float* amax, int rows, int n, cudaStream_t st) {
-  row_amax_kernel<T><<<rows, QR_THREADS, 0, st>>>(x, amax, n);
+// xq [rows, ldq], xs [rows] from x [rows, d] (ldq even, >= d).
+cudaError_t launch_ln_quant(const bf16* x, const float* s, const float* b, int8_t* xq, float* xs,
+                            float* amax0, int rows, int d, int ldq, cudaStream_t st) {
+  if (d < 1 || ldq < d || (ldq & 1)) return cudaErrorInvalidValue;
+  const dim3 grid((rows + LNQ_ROWS - 1) / LNQ_ROWS), block(32 * LNQ_ROWS);
+  const int half = d / 2;
+  // the fewest pairs a lane that hold the row; FULL where they hold it exactly
+  void (*k)(const bf16*, const float*, const float*, int8_t*, float*, float*, int, int, int,
+            float) = ln_quant_rows_kernel<0, false>;
+  if (!(d & 1)) {
+    if (half < 32 * 4) k = ln_quant_rows_kernel<4, false>;
+    else if (half == 32 * 4) k = ln_quant_rows_kernel<4, true>;
+    else if (half < 32 * 8) k = ln_quant_rows_kernel<8, false>;
+    else if (half == 32 * 8) k = ln_quant_rows_kernel<8, true>;
+    else if (half < 32 * 12) k = ln_quant_rows_kernel<12, false>;
+    else if (half == 32 * 12) k = ln_quant_rows_kernel<12, true>;
+    else if (half < 32 * 16) k = ln_quant_rows_kernel<16, false>;
+    else if (half == 32 * 16) k = ln_quant_rows_kernel<16, true>;
+    else if (half < 32 * 20) k = ln_quant_rows_kernel<20, false>;
+    else if (half == 32 * 20) k = ln_quant_rows_kernel<20, true>;
+    else if (half < 32 * 32) k = ln_quant_rows_kernel<32, false>;
+    else if (half == 32 * 32) k = ln_quant_rows_kernel<32, true>;
+  }
+  k<<<grid, block, 0, st>>>(x, s, b, xq, xs, amax0, rows, d, ldq, 1e-5f);
+  return cudaGetLastError();
+}
+
+// A slot's attention rows' amax: amax [rows] f32 from x [rows, n] bf16 (n %
+// 8 == 0, rows 16-byte aligned).  One warp per row, 16-byte loads, LNQ_ROWS
+// rows a block.  The max is taken over |x|'s bit patterns (a bf16's f32 is
+// its bits shifted by 16; non-negative floats order as their bits), so a
+// NaN, whose bits are past inf's, gives the row a NaN, as torch's amax does.
+__global__ void __launch_bounds__(32 * LNQ_ROWS)
+row_amax_kernel(const bf16* __restrict__ x, float* __restrict__ amax, int rows, int n) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * LNQ_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+  unsigned bits = 0u;
+  for (int i = lane; i < n / 8; i += 32) {
+    const uint4 r = xr[i];
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) bits = max(bits, max(w[k] & 0x7fffu, (w[k] >> 16) & 0x7fffu));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bits = max(bits, __shfl_xor_sync(0xffffffffu, bits, o));
+  if (lane == 0) amax[row] = __uint_as_float(bits << 16);
+}
+
+cudaError_t launch_row_amax(const bf16* x, float* amax, int rows, int n, cudaStream_t st) {
+  if (n % 8) return cudaErrorInvalidValue;
+  row_amax_kernel<<<(rows + LNQ_ROWS - 1) / LNQ_ROWS, 32 * LNQ_ROWS, 0, st>>>(x, amax, rows,
+                                                                                   n);
   return cudaGetLastError();
 }
 
@@ -1345,28 +1576,26 @@ int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const 
 }
 
 // A tensor-parallel slot's int8 attention up to its out-projection, on the
-// group's padded layout (ops/fused_block.py::group_plan): LN -> quantize x
-// (every slot of a row quantizes the same x: the same codes) -> s8 QKV GEMM
-// on the slot's columns -> the core on its g heads -> the row amax of its
-// attention rows (amax [B*S] f32; the padded lanes are 0).  wqkv_t [NQKV,
-// DK] int8 (the group's q, k, v output channels at hdp lanes a head, zero
-// rows up to NQKV = 3 g hdp rounded up to 128), sqkv and bqkv [NQKV] f32.
-// Scratch: xn [B*S, DK] bf16, xq [B*S, DK] int8, xs [B*S] f32, qkv [B*S,
-// NQKV] bf16, attn [B*S, g hdp] bf16.  scale: the true head dim's hd^-0.5.
+// group's padded layout (ops/fused_block.py::group_plan), four launches:
+// LayerNorm and the quantize pass of x in one (ln_quant_rows_kernel: every
+// slot of a row quantizes the same x, the same codes as K3's) -> the s8 QKV
+// GEMM on the slot's columns -> the core on its g heads -> the row amax of
+// its attention rows (amax [B*S] f32; the padded lanes are 0).  wqkv_t
+// [NQKV, DK] int8 (the group's q, k, v output channels at hdp lanes a head,
+// zero rows up to NQKV = 3 g hdp rounded up to 128), sqkv and bqkv [NQKV]
+// f32.  Scratch: xq [B*S, DK] int8, xs [B*S] f32, qkv [B*S, NQKV] bf16; attn
+// [B*S, g hdp] bf16.  scale: the true head dim's hd^-0.5.
 int dvl_attention_block_q_heads(const void* x, const void* ln_s, const void* ln_b,
-                                const void* wqkv_t, const void* sqkv, const void* bqkv, void* xn,
-                                void* xq, void* xs, void* qkv, void* attn, void* amax, int B,
-                                int S, int D, int g, int hdp, int causal, float scale,
-                                void* stream) {
+                                const void* wqkv_t, const void* sqkv, const void* bqkv, void* xq,
+                                void* xs, void* qkv, void* attn, void* amax, int B, int S, int D,
+                                int g, int hdp, int causal, float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, 64), DA = g * hdp, NQKV = round_up(3 * DA, SBN);
   if (g < 1 || hdp < 64 || hdp % 64) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, DK, st);
+  e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                      static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                      static_cast<float*>(xs), nullptr, M, D, DK, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
                               static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
@@ -1379,36 +1608,32 @@ int dvl_attention_block_q_heads(const void* x, const void* ln_s, const void* ln_
 }
 
 // A tensor-parallel slot's int8 MLP up to its down-projection, on mlp_plan's
-// layout of its hidden columns: LN -> quantize x -> s8 up GEMM with the
-// activation (h [M, Fp] f32, zero past the slot's Fj columns) -> the row
-// amax of h (amax [M] f32).  w1_t [Fp, DK] int8, s1 and b1 [Fp] f32 (zero
-// past Fj).  Scratch: xn [M, DK] bf16, xq [M, DK] int8, xs [M] f32.
+// layout of its hidden columns, two launches: LayerNorm and the quantize
+// pass of x in one (amax zeroed there) -> the s8 up GEMM with the activation
+// (h [M, Fp] f32, zero past the slot's Fj columns), its epilogue folding
+// each row's max |h| into amax [M] f32 (EQ_BIAS_QGELU_AMAX /
+// EQ_BIAS_GELU_AMAX).  w1_t [Fp, DK] int8, s1 and b1 [Fp] f32 (zero past
+// Fj).  Scratch: xq [M, DK] int8, xs [M] f32.
 int dvl_mlp_block_q_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
-                         const void* s1, const void* b1, void* xn, void* xq, void* xs, void* h,
-                         void* amax, int M, int D, int Fp, int act_kind, void* stream) {
+                         const void* s1, const void* b1, void* xq, void* xs, void* h, void* amax,
+                         int M, int D, int Fp, int act_kind, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int DK = round_up(D, 64);
   cudaError_t e;
-  e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
+  e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                      static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                      static_cast<float*>(xs), static_cast<float*>(amax), M, D, DK, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_quant_rows(static_cast<const bf16*>(xn), static_cast<int8_t*>(xq),
-                        static_cast<float*>(xs), M, DK, st);
-  if (e != cudaSuccess) return (int)e;
-  if (act_kind == 0)
-    e = launch_gemm_s8<EQ_BIAS_QGELU>(static_cast<const int8_t*>(xq),
-                                     static_cast<const float*>(xs),
-                                     static_cast<const int8_t*>(w1_t),
-                                     static_cast<const float*>(s1),
-                                     static_cast<const float*>(b1), nullptr, h, M, Fp, DK, st);
-  else
-    e = launch_gemm_s8<EQ_BIAS_GELU>(static_cast<const int8_t*>(xq),
-                                    static_cast<const float*>(xs),
-                                    static_cast<const int8_t*>(w1_t),
-                                    static_cast<const float*>(s1),
-                                    static_cast<const float*>(b1), nullptr, h, M, Fp, DK, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_row_amax(static_cast<const float*>(h), static_cast<float*>(amax), M, Fp, st);
+  const int8_t* ixq = static_cast<const int8_t*>(xq);
+  const float *fxs = static_cast<const float*>(xs), *fs1 = static_cast<const float*>(s1),
+              *fb1 = static_cast<const float*>(b1);
+  const int8_t* w1 = static_cast<const int8_t*>(w1_t);
+  e = act_kind == 0
+          ? launch_gemm_s8<EQ_BIAS_QGELU_AMAX>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, Fp, DK, st,
+                                               amax)
+          : launch_gemm_s8<EQ_BIAS_GELU_AMAX>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, Fp, DK, st,
+                                              amax);
+  return (int)e;
 }
 
 // The row-parallel product of one slot: a [M, K] (bf16 if a_f32 == 0, else

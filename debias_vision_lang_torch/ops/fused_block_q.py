@@ -50,7 +50,12 @@ slot's head group (``attention_block_q_heads``) or hidden columns
 ``rows_q_partial`` quantizes that input at the row's global scale (the max
 of every slot's amax: the unsharded block's scale, so its codes) into a raw
 int32 partial; ``tp_reduce_q`` sums the partials exactly (the unsharded K
-loop's int32 sum) and dequantizes once -- bit-equal to K3 / K4.
+loop's int32 sum) and dequantizes once -- bit-equal to K3 / K4.  On the
+card a slot entry normalises and quantizes x in one pass, the attention
+slot ends in a row-amax pass and the MLP slot takes its amax in the up
+GEMM's epilogue; its operands (the LayerNorm parameters and the slot's
+weight, scale and bias on its padded layout) are kept per version of each,
+so a call past the first checks, casts and copies nothing.
 
 The int8 kernel experiments of ``benchmarks/`` (KB (a) 1-4; ``KB_LAUNCHES``),
 each K3 or K4 with one change, on the same launches:
@@ -753,9 +758,9 @@ def _lib():
         lib.dvl_mlp_block_q_kb.restype = i
         lib.dvl_fused_layer_q.argtypes = [p] * 33 + [i] * 6 + [f, p]
         lib.dvl_fused_layer_q.restype = i
-        lib.dvl_attention_block_q_heads.argtypes = [p] * 12 + [i] * 6 + [f, p]
+        lib.dvl_attention_block_q_heads.argtypes = [p] * 11 + [i] * 6 + [f, p]
         lib.dvl_attention_block_q_heads.restype = i
-        lib.dvl_mlp_block_q_cols.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.dvl_mlp_block_q_cols.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block_q_cols.restype = i
         lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
         lib.dvl_rows_q_partial.restype = i
@@ -1043,17 +1048,26 @@ def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
     return out
 
 
-def _q_group_ops(qt, scale, bias, plan: AttnPlan, device):
-    """A head group's int8 q | k | v channels as the kernel reads them, on
-    ``plan``'s layout (at head dim 64 and D % 128 == 0 zero rows past the
-    group's 192 g channels up to the s8 GEMM's N tile), kept per version."""
-    d, n = plan.d, 3 * plan.heads * plan.hd
-    q, s = _qweight(qt, scale, d, n, "wqkv", device)
-    b = _operand(bias, torch.float32, (n,), "bqkv", device)
-    cols = plan.qkv_columns()
-    return planned((qt, scale, bias), ("qgroup", plan),
-                   lambda: (place(q, (plan.nqkv, plan.dk), rows=cols),
-                            place(s, (plan.nqkv,), rows=cols), place(b, (plan.nqkv,), rows=cols)))
+def _q_slot_ops(ln_s, ln_b, qt, scale, bias, name, plan, shape, rows, device):
+    """A slot's LayerNorm parameters and int8 weight as the slot kernel reads
+    them: the weight's [out, in] copy, channel scales and biases placed at
+    ``rows()`` of zeros of ``shape`` (``plan``'s padded layout; as they are
+    where that is their own shape), kept per version of every one of them:
+    a call past the first checks, casts and copies nothing."""
+    d, n, f32 = plan.d, scale.numel(), torch.float32
+
+    def build():
+        ops = (_operand(ln_s, f32, (d,), "ln_scale", device),
+               _operand(ln_b, f32, (d,), "ln_bias", device),
+               *_qweight(qt, scale, d, n, name, device),
+               _operand(bias, f32, (n,), "b" + name[1:], device))
+        if shape == (n, d):
+            return ops
+        at = rows()
+        return (*ops[:2], place(ops[2], shape, rows=at), place(ops[3], shape[:1], rows=at),
+                place(ops[4], shape[:1], rows=at))
+
+    return planned((qt, scale, bias, ln_s, ln_b), (name, plan), build)
 
 
 def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt):
@@ -1063,21 +1077,19 @@ def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt)
         raise ValueError(f"sequence length {s} < 1")
     plan = group_plan(d, wqkv_scale.numel() // (3 * g), g)
     dev = x.device
-    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    wq, ws, bq = _q_group_ops(wqkv_qt, wqkv_scale, bqkv, plan, dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = _q_slot_ops(ln_s, ln_b, wqkv_qt, wqkv_scale, bqkv, "wqkv", plan, (plan.nqkv, plan.dk),
+                      plan.qkv_columns, dev)
     m = b * s
-    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
-    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=torch.int8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     qkv = torch.empty((m, plan.nqkv), dtype=bf, device=dev)
     attn = torch.empty((b, s, plan.da), dtype=bf, device=dev)
     amax = torch.empty((b, s, 1), dtype=f32, device=dev)
     err = _lib().dvl_attention_block_q_heads(
-        x.data_ptr(), _operand(ln_s, f32, (d,), "ln_scale", dev).data_ptr(),
-        _operand(ln_b, f32, (d,), "ln_bias", dev).data_ptr(), wq.data_ptr(), ws.data_ptr(),
-        bq.data_ptr(), xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), amax.data_ptr(), b, s, d, g, plan.hdp, int(causal), plan.scale,
-        _stream_ptr(dev))
+        x.data_ptr(), *[t.data_ptr() for t in ops], xq.data_ptr(), xs.data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), amax.data_ptr(), b, s, d, g, plan.hdp, int(causal),
+        plan.scale, _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block_q_heads")
     TP_LAUNCHES["attention_block_q_heads_causal" if causal else "attention_block_q_heads"] += 1
     CORE_ROUTES[core_route(s, plan.hd)] += 1
@@ -1088,29 +1100,19 @@ def _attention_q_heads_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, g, causal, wqkv_qt)
 def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
     _check_x(x)
     b, s, d = x.shape
-    fj = w1_scale.numel()
-    plan = mlp_plan(d, fj)
+    plan = mlp_plan(d, w1_scale.numel())
     dev = x.device
-    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    wops = (*_qweight(w1_qt, w1_scale, d, fj, "w1", dev), _operand(b1, f32, (fj,), "b1", dev))
-    if not plan.identity:
-        cols = plan.hidden_columns()
-        wops = planned((w1_qt, w1_scale, b1), ("qcols", plan),
-                       lambda: (place(wops[0], (plan.fp, plan.dk), rows=cols),
-                                place(wops[1], (plan.fp,), rows=cols),
-                                place(wops[2], (plan.fp,), rows=cols)))
-    ops = [_operand(ln_s, f32, (d,), "ln_scale", dev),
-           _operand(ln_b, f32, (d,), "ln_bias", dev), *wops]
+    f32 = torch.float32
+    ops = _q_slot_ops(ln_s, ln_b, w1_qt, w1_scale, b1, "w1", plan, (plan.fp, plan.dk),
+                      plan.hidden_columns, dev)
     m = b * s
-    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
-    xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
+    xq = torch.empty((m, plan.dk), dtype=torch.int8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     h = torch.empty((b, s, plan.fp), dtype=f32, device=dev)
-    amax = torch.empty((b, s, 1), dtype=f32, device=dev)
+    amax = torch.empty((b, s, 1), dtype=f32, device=dev)  # zeroed by the kernel
     err = _lib().dvl_mlp_block_q_cols(
-        x.data_ptr(), *[t.data_ptr() for t in ops], xn.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), h.data_ptr(), amax.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind),
-        _stream_ptr(dev))
+        x.data_ptr(), *[t.data_ptr() for t in ops], xq.data_ptr(), xs.data_ptr(), h.data_ptr(),
+        amax.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind), _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_q_cols")
     TP_LAUNCHES["mlp_block_q_cols"] += 1
     check_nans("dvl_mlp_block_q_cols", h)
