@@ -377,7 +377,18 @@ Phases (any failure exits non-zero before the final line):
      likewise; one float32 adversary + prompt step (JAX's dryrun) on the
      DebiasCLIP placed under (2, 2): the token gradient within 1e-5 of the
      unsharded step's largest magnitude, losses within 1e-6; each TP
-     tower's ms beside the unsharded one's.
+     tower's ms beside the unsharded one's.  The slot entries split
+     (``tp_slot_split``, int8 and bf16: each kernel's device time, host time,
+     event wall) and held to the designs before them (every output
+     bit-identical to ``tp_slot_parent.json`` / ``tp_slot_bf16_parent.json``,
+     no parent kernel's SASS changed but those the designs replaced); the
+     bf16 slots on their routes (``fused_block.slot_route``: the out / down
+     product on the row-strip kernel or the GEMM) bit-equal to the GEMM
+     route at D = 768, 512 causal, 200, 203 and S = 785, and the towers'
+     calls counted per route; a whole NaN
+     row of x through K3, K4, the int8 MLP slots, ``rows_q_partial``,
+     ``tp_reduce_q`` and KB (a) 1's core: NaN amaxes and scales, codes 0,
+     NaN output rows, every other row bit-equal to the run without it.
  23. KB (a) 1-4, the int8 kernel experiments of ``benchmarks/``
      (``fused_block_q.attention_block_qq`` with its int8 core
      ``attention_qq_core`` in csrc/attention_qq.cuh, ``mlp_block_q_bf16h``,
@@ -683,7 +694,7 @@ def print_ptxas(lib: str, log: str) -> None:
                       r"attention_long_kernel|attention_wide_kernel|split_tf32_kernel|"
                       r"attention_qq_kernel|attention_qq_tiled_kernel|qq_quant_qk_kernel|"
                       r"qq_quant_v_kernel|cast_s8_kernel|ln_quant_rows_kernel|row_amax_kernel|"
-                      r"bcast_rows_kernel|attention_vpu_core_kernel)"
+                      r"bcast_rows_kernel|attention_vpu_core_kernel|gemm_strip_f32_kernel)"
                       r"(I(?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+E)?", line)
         if m:
             # a GEMM's bool is its ragged N edge, the v quantizer's its staging,
@@ -737,8 +748,10 @@ SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
 # the register (attention_qq_kernel<N>, 4 key buckets) and tiled
-# (attention_qq_tiled_kernel<NO>, 4 output widths) cores
-SASS_PER_KERNEL = {"fused_block_q": ("attention_qq_", ("IGMMA", "UTMALDG"), 8)}
+# (attention_qq_tiled_kernel<NO>, 4 output widths) cores; the bf16 slots'
+# row-strip kernel (gemm_strip_f32_kernel<KB>, KB = 1-6)
+SASS_PER_KERNEL = {"fused_block_q": ("attention_qq_", ("IGMMA", "UTMALDG"), 8),
+                   "fused_block": ("gemm_strip_f32_kernel", ("HGMMA", "UTMALDG"), 6)}
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -4481,22 +4494,11 @@ def compare_part(name, got, ref):
 
 
 def hgrid_operands(attn, heads):
-    """KB (a) 6's operands from a block's (ln_s, ln_b, wqkv, bqkv, wo, bo), as
-    its main() builds them: q columns pre-scaled by hd^-0.5 log2 e, per-head
-    [D, 3 hd] blocks (bf16), wo as [H hd, D]."""
-    import torch
+    """KB (a) 6's operands from a block's (ln_s, ln_b, wqkv, bqkv, wo, bo)
+    (``benchmarks_torch/tp_slot_split.py::hgrid_operands``)."""
+    from benchmarks_torch.tp_slot_split import hgrid_operands as build
 
-    ls, lb, wqkv, bqkv, wo, bo = attn
-    d = wo.shape[0]
-    hd = d // heads
-    scale = hd ** -0.5 * math.log2(math.e)
-    wq = torch.cat([wqkv[:, :d] * scale, wqkv[:, d:]], dim=1)
-    bq = torch.cat([bqkv[:d] * scale, bqkv[d:]])
-    wqkv_h = torch.stack([torch.cat([wq[:, i * d + h * hd:i * d + (h + 1) * hd]
-                                     for i in range(3)], dim=1) for h in range(heads)])
-    bqkv_h = torch.stack([torch.cat([bq[i * d + h * hd:i * d + (h + 1) * hd] for i in range(3)])
-                          for h in range(heads)])
-    return (ls, lb, wqkv_h.to(torch.bfloat16), bqkv_h, wo.to(torch.bfloat16), bo)
+    return build(attn, heads)
 
 
 def group_slice(attn, mlp, d, m, j, heads=None):
@@ -4746,6 +4748,14 @@ def tp_kernels(fb, fbq, device, card):
         lambda: fbq.tp_reduce_q_plain(pq, sc0, qa[6], qa[7], x, bias_first=False),
         tp_reduce_work(b * s, d, 2, extra=4 * b * s + 4 * d))
     tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card)
+    # each bf16 slot row names the route its calls take (fused_block.slot_route)
+    for key, r in rows.items():
+        if r["name"] == "attention_block_heads":
+            g = 6 if key == "attention_block_heads" else int(key.split("g=")[1].split()[0])
+            r["case"] += f", {fb.slot_route(fb.group_plan(d, d // heads, g).da, d)} route"
+        elif r["name"] == "mlp_block_cols":
+            route = fb.slot_route(fb.mlp_plan(d, 4 * d // (2 if key == "mlp_block_cols" else 8)).fp, d)
+            r["case"] += f", {route} route"
     del x
     torch.cuda.empty_cache()
     return rows, k1_ms
@@ -4866,49 +4876,196 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
         tp_reduce_work(b * s, d, m, extra=4 * b * s + 4 * d))
 
 
-# the slot entries' design before this one (one kernel a step: LayerNorm,
-# quantize, the GEMM, the core, a block-a-row amax), as
+# the int8 slot entries' design before their redesign (one kernel a step:
+# LayerNorm, quantize, the GEMM, the core, a block-a-row amax), as
 # ``benchmarks_torch/tp_slot_split.py --dump`` recorded it on an NVIDIA H100
 # 80GB HBM3: the digests of every slot output and of K3's and K4's on that
-# script's inputs, and of the SASS of each kernel of the int8 library
+# script's inputs, and of the SASS of each kernel of the int8 library (the
+# quantize passes' entries taken anew when their amaxes came to propagate
+# a NaN)
 TP_SLOT_PARENT = "benchmarks_torch/tp_slot_parent.json"
 # the kernels of that library this design no longer has: the amax pass it
 # rewrote (row_amax_kernel<bf16>, <float>)
 TP_SLOT_REPLACED = ("15row_amax_kernelI13__nv_bfloat16EEvPKT_Pfi", "15row_amax_kernelIfEEvPKT_Pfi")
+# the bf16 slot entries' design before theirs (LayerNorm, K1 / K2's GEMMs
+# with the f32 epilogue EPI_F32, the core), recorded the same way with
+# ``--bf16``: the slot partials, K1's, K2's and KB (a) 6's outputs, the bf16
+# library's SASS.  The redesign adds the row-strip kernel and changes no
+# other kernel.
+TP_SLOT_BF16_PARENT = "benchmarks_torch/tp_slot_bf16_parent.json"
+TP_SLOT_BF16_NEW = ("gemm_strip_f32_kernel",)
 
 
-def tp_slot_split(fbq, device, card):
-    """The int8 slot entries split (``tp_slot_split.py``'s cases: ViT-B/16
-    B=256 at m = 2 and 8, the causal text tower B=319 at m = 2 and 8): each
-    kernel's device time, the host time of a call and the event wall, and
-    the entries held to the design before them: every output bit-identical
-    to its digest there, K3's and K4's outputs too, and every kernel of the
-    int8 library compiled to the same SASS but the amax pass this design
-    rewrote.  Returns {entry and case: its split}."""
+def tp_slot_split(lib, device, card, bf16=False):
+    """The slot entries split (``tp_slot_split.py``'s cases: ViT-B/16 B=256
+    at m = 2 and 8, the causal text tower B=319 at m = 2 and 8), the int8
+    ones (``lib`` fused_block_q) or with ``bf16`` the bf16 ones (fused_block):
+    each kernel's device time, the host time of a call and the event wall,
+    and the entries held to the design before them: every output
+    bit-identical to its digest there (K3's and K4's, or K1's, K2's and KB
+    (a) 6's, too), and every kernel of the library compiled to the same SASS
+    but the amax pass the int8 design rewrote; the bf16 design only adds its
+    own kernels (TP_SLOT_BF16_NEW).  Returns {entry and case: its split}."""
     import importlib
 
     from debias_vision_lang_torch.ops import _build
 
     S = importlib.import_module("benchmarks_torch.tp_slot_split")
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), TP_SLOT_PARENT)) as fh:
+    where = TP_SLOT_BF16_PARENT if bf16 else TP_SLOT_PARENT
+    kind = "fused_block" if bf16 else "fused_block_q"
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), where)) as fh:
         parent = json.load(fh)
     splits = {}
 
     def timed(what, call):
-        splits[what] = S.time_entry(f"phase 22 split {what}", call, card)
+        splits[what] = S.time_entry(f"phase 22 split {'bf16' if bf16 else 'int8'} {what}", call,
+                                    card)
 
-    mine = {"outputs": S.output_digests(fbq, S.CASES, device, timed),
-            "sass": S.sass_digests(_build.LIB_PATHS["fused_block_q"])}
+    mine = {"outputs": S.output_digests(lib, S.CASES, device, timed, bf16=bf16),
+            "sass": S.sass_digests(_build.LIB_PATHS[kind])}
     if not mine["sass"]:
-        print("phase 22: no cuobjdump found: the int8 library's kernels are not held to the "
-              "parent design's SASS")
+        print(f"phase 22: no cuobjdump found: the {kind} library's kernels are not held to the "
+              f"parent design's SASS")
         mine["sass"] = parent["sass"]
-    bad = S.compare(mine, parent, f"the parent design ({TP_SLOT_PARENT})", "phase 22 ")
+    bad = S.compare(mine, parent, f"the parent design ({where})", "phase 22 ", kind)
     removed = set(parent["sass"]) - set(mine["sass"])
-    check(not bad, f"phase 22: {bad} slot outputs or int8 kernels differ from the parent design")
-    check(all(k.endswith(TP_SLOT_REPLACED) for k in removed),
-          f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
+    added = set(mine["sass"]) - set(parent["sass"])
+    check(not bad, f"phase 22: {bad} slot outputs or {kind} kernels differ from the parent design")
+    check(all(k.endswith(TP_SLOT_REPLACED) for k in removed) if not bf16 else not removed,
+          f"phase 22: kernels of the parent's {kind} library are gone: {sorted(removed)}")
+    if bf16 and mine["sass"] is not parent["sass"]:
+        check(added and all(any(n in k for n in TP_SLOT_BF16_NEW) for k in added),
+              f"phase 22: the bf16 library's new kernels {sorted(added)} are not the slot "
+              f"design's {TP_SLOT_BF16_NEW}")
     return splits
+
+
+def tp_route_check(fb, device):
+    """The bf16 slot entries on their routes (``fused_block.slot_route``) at
+    the shapes phase 22 holds them at: each head group's partial and each
+    hidden-column slot's equal to the GEMM route's (the parent design's
+    kernels, whose SASS ``tp_slot_split`` holds) bit for bit, at D = 768
+    (head groups of 6, 3, 2, 1; Fj = 384, 768, 256), the causal D = 512 text
+    shape, D = 200 (padded plans, a ragged N edge) and 203 (an odd one: the
+    GEMM route; its f32 rows are no whole 16-byte TMA units),
+    the long core at S = 785, both activations; each call counted on its
+    route."""
+    import torch
+    from debias_vision_lang_torch.parallel.tensor import head_columns, head_group
+
+    g_in = torch.Generator().manual_seed(26)
+    cases = ((768, 12, 8, 197, False, (2, 4, 6, 12), (8, 4, 12), "quick_gelu"),
+             (512, 8, 8, 77, True, (2, 8), (8,), "quick_gelu"),
+             (200, 2, 4, 77, False, (2,), (4,), "quick_gelu"),
+             (203, 7, 3, 33, False, (7,), (7,), "gelu"),
+             (768, 12, 2, FIT_JOINT_S, False, (2,), (), "quick_gelu"))
+    n = 0
+    for d, heads, b, s, causal, ms, fms, act in cases:
+        attn, mlp = block_params(d, device, seed=d + s)
+        x = torch.randn(b, s, d, generator=g_in).to(device, torch.bfloat16)
+        hd = d // heads
+        for m in ms:
+            j = m - 1
+            lo, hi = head_group(heads, m, j)
+            cols = head_columns(d, m, j, heads).to(device)
+            ga = (attn[0], attn[1], attn[2][:, cols], attn[3][cols], attn[4][lo * hd:hi * hd])
+            route = fb.slot_route(fb.group_plan(d, hd, hi - lo).da, d)
+            fb.reset_launches()
+            got = fb.attention_block_heads(x, *ga, heads=hi - lo, causal=causal)
+            check(fb.SLOT_ROUTES[f"attention_{route}"] == 1,
+                  f"phase 22 routes: attention D={d} g={hi - lo} counted {fb.SLOT_ROUTES}")
+            same = torch.equal(got, fb._heads_cuda(x, *ga, hi - lo, causal, strip=False))
+            check(same, f"phase 22 routes: attention_block_heads D={d} S={s} g={hi - lo}: the "
+                        f"{route} partial differs from the GEMM route's")
+            n += 1
+        f = 4 * d
+        for m in fms:
+            hid = slice((m - 1) * f // m, f)
+            gm = (mlp[0], mlp[1], mlp[2][:, hid], mlp[3][hid], mlp[4][hid])
+            route = fb.slot_route(fb.mlp_plan(d, f // m).fp, d)
+            fb.reset_launches()
+            got = fb.mlp_block_cols(x, *gm, act_kind=act)
+            check(fb.SLOT_ROUTES[f"mlp_{route}"] == 1,
+                  f"phase 22 routes: mlp D={d} Fj={f // m} counted {fb.SLOT_ROUTES}")
+            same = torch.equal(got, fb._mlp_cols_cuda(x, *gm, act, strip=False))
+            check(same, f"phase 22 routes: mlp_block_cols D={d} Fj={f // m} {act}: the {route} "
+                        f"partial differs from the GEMM route's")
+            n += 1
+        del x
+    torch.cuda.synchronize()
+    print(f"phase 22 routes: {n} slot partials on their routes bit-identical to "
+          f"the GEMM route's (D = 768, 512 causal, 200, 203, S = {FIT_JOINT_S})")
+
+
+def nan_rows_check(fbq, device):
+    """A whole row of x NaN through K3 and K4 (and the int8 MLP slots,
+    rows_q_partial, tp_reduce_q, KB (a) 1's core): JAX's _quant_rows gives
+    such a row a NaN amax, a NaN scale, codes 0 and a NaN output row; every
+    other row must stay bit-equal to the run without the NaN."""
+    import torch
+    from debias_vision_lang_torch.ops import fused_block as fb
+
+    d, heads, b, s = 768, 12, 4, 197
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=26)
+    x = torch.randn(b, s, d, generator=torch.Generator().manual_seed(26)).to(device,
+                                                                             torch.bfloat16)
+    xn = x.clone()
+    xn[1, 5] = float("nan")
+    outs = {}
+    for tag, xi in (("clean", x), ("nan", xn)):
+        k3, k4 = {}, {}
+        y3 = fbq.attention_block_q(xi, *qa, heads=heads, **qakw, scratch=k3)
+        y4 = fbq.mlp_block_q(xi, *qm, **qmkw, scratch=k4)
+        outs[tag] = (y3, y4, k3, k4)
+    (c3, c4, _, _), (y3, y4, k3, k4) = outs["clean"], outs["nan"]
+    ok = torch.ones(b, s, dtype=torch.bool, device=device)
+    ok[1, 5] = False
+    k4_ok = bool(torch.isnan(y4[1, 5]).all() and not k4["xq"][1, 5].any()
+                 and torch.isnan(k4["xs"][1, 5]).all() and not k4["hq"][1, 5].any()
+                 and torch.isnan(k4["hs"][1, 5]).all() and torch.equal(y4[ok], c4[ok]))
+    k3_ok = bool(torch.isnan(y3[1]).all() and not k3["xq"][1, 5].any()
+                 and torch.isnan(k3["xs"][1, 5]).all()
+                 and torch.equal(y3[[0, 2, 3]], c3[[0, 2, 3]]))
+    # the MLP split over 8 slots: the NaN row's amax in every slot, codes 0
+    hid = [slice(j * 4 * d // 8, (j + 1) * 4 * d // 8) for j in range(8)]
+    hs = [fbq.mlp_block_q_cols(xn, qm[0], qm[1], qm[2][:, h], qm[3][:, h], qm[4][h],
+                               w1_qt=qm[2][:, h].t().contiguous()) for h in hid]
+    amaxes = [a for _, a in hs]
+    parts, slot_ok = [], all(bool(torch.isnan(a[1, 5]).all()) for a in amaxes)
+    for (h, _), hj in zip(hs, hid):
+        acc, aq, sc = fbq.rows_q_partial(h, amaxes, qm[5][hj], w_qt=qm[5][hj].t().contiguous(),
+                                         plan=fb.mlp_plan(d, 4 * d // 8))
+        slot_ok = slot_ok and not aq[1, 5].any() and bool(torch.isnan(sc[1, 5]).all())
+        parts.append(acc)
+    red = fbq.tp_reduce_q(parts, sc, qm[6], qm[7], xn, bias_first=True)
+    slot_ok = slot_ok and torch.equal(red.isnan(), y4.isnan()) and torch.equal(red[ok], y4[ok])
+    # KB (a) 1's core: the NaN qkv row reaches every v column of its image
+    qq = torch.randn(2, s, 3 * d, generator=torch.Generator().manual_seed(27)).to(device)
+    qq_clean = fbq.attention_qq_core(qq, heads)
+    qq[1, 7] = float("nan")
+    qq_nan = fbq.attention_qq_core(qq, heads)
+    qq_ok = bool(torch.isnan(qq_nan[1]).all() and torch.equal(qq_nan[0], qq_clean[0]))
+    print(f"phase 22 NaN row (x[1, 5] all NaN, B={b} S={s} D={d}): K4 row NaN, codes 0, scales "
+          f"NaN, the rest bit-equal: {k4_ok}; K3 image 1 NaN, its x codes 0, the rest "
+          f"bit-equal: {k3_ok}; 8 int8 MLP slots + rows_q_partial + tp_reduce_q: NaN amaxes, "
+          f"codes 0, K4's rows: {slot_ok}; KB (a) 1's core: the image NaN, the other "
+          f"bit-equal: {qq_ok}")
+    check(k4_ok and k3_ok and slot_ok and qq_ok, "phase 22: a NaN row is not JAX's")
+
+
+def slot_routes_of(fb, d, heads, f, m, times):
+    """``fb.SLOT_ROUTES`` after ``times`` runs of a block split over m slots
+    (only the slots that hold a head run the attention entry)."""
+    from debias_vision_lang_torch.parallel.tensor import head_group
+
+    want = dict.fromkeys(fb.SLOT_ROUTES, 0)
+    for j in range(m):
+        lo, hi = head_group(heads, m, j)
+        if hi > lo:
+            want[f"attention_{fb.slot_route(fb.group_plan(d, d // heads, hi - lo).da, d)}"] += times
+    route = fb.slot_route(fb.mlp_plan(d, f // m).fp, d)
+    want[f"mlp_{route}"] += m * times
+    return want
 
 
 def tp_blocks_check(fb, fbq, label, d, heads, f, act, layers, shape, b, s, device, card):
@@ -5143,7 +5300,12 @@ def tp_phase(model, tokenizer, prompts, card, device):
     walls["kernels"] = time.perf_counter() - t_phase
     t = time.perf_counter()
     tp_slot_split(fbq, device, card)
+    tp_slot_split(fb, device, card, bf16=True)
     walls["slot split"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tp_route_check(fb, device)
+    nan_rows_check(fbq, device)
+    walls["routes, NaN rows"] = time.perf_counter() - t
     loader = HostLoader(SyntheticFaces(BATCH, seed=22), batch_size=BATCH, num_workers=8,
                         native_n_px=vis.image_size, native_patch=vis.patch_size)
     p8 = torch.from_numpy(next(iter(loader)).images).to(device)
@@ -5233,6 +5395,11 @@ def tp_phase(model, tokenizer, prompts, card, device):
             check({k: counts[k] for k in want} == want and sum(fb.LAUNCHES.values()) == 0,
                   f"phase 22 bf16 {shape} image tower launches {counts}, K1-K4 "
                   f"{nonzero(fb.LAUNCHES)}; expected {want} and none")
+            routes = dict(fb.SLOT_ROUTES)
+            want_routes = slot_routes_of(fb, vis.width, vis.heads, 4 * vis.width, m, LAYERS * d)
+            print(f"phase 22 bf16 {shape} image tower slot routes {nonzero(routes)}")
+            check(routes == want_routes, f"phase 22 bf16 {shape}: slot routes {routes}, expected "
+                                         f"{want_routes}")
             if shape == (1, 2):
                 for k in ("attention_block_heads", "mlp_block_cols", "tp_reduce"):
                     rows[k]["launches"] = counts[k]

@@ -58,6 +58,13 @@
 //     weights and biases in the padding, the out and down products storing
 //     only the model's D columns); the ragged M edge is zero-filled by the
 //     TMA and masked on store;
+//   * a tensor-parallel slot's f32 partial at a narrow K (at most 384: a
+//     head group's attention columns, a slot's hidden columns) on the
+//     row-strip kernel gemm_strip_f32_kernel: a persistent block keeps 128
+//     rows of the product's input in shared memory, walks every N tile of
+//     the weight on them and sends each f32 tile out by TMA stores while
+//     the next tile's products run (the GEMM's f32 epilogue stalled its
+//     block on the 64 KB store of every tile);
 //   * the LayerNorm kernel of common.cuh (one warp per row, bf16 out);
 //   * the wgmma attention core of attention_wgmma.cuh: one block per (head,
 //     image), K and V loaded once by TMA, whole f32 score rows in wgmma
@@ -67,6 +74,8 @@
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns a cudaError_t (0 on success).
+
+#include <atomic>
 
 #include "attention_wgmma.cuh"
 #include "common.cuh"
@@ -284,6 +293,266 @@ cudaError_t launch_gemm(const bf16* A, const bf16* Wt, const float* bias, const 
 }
 
 // ---------------------------------------------------------------------------
+// A tensor-parallel slot's f32 partial from a row strip held in shared
+// memory: out[M, ldc] = A[M, K] @ Wt[N, K]^T for a narrow K (K = 64 KB <=
+// 384: a head group's g hdp attention columns, or a slot's Fp hidden
+// columns; ldc % 4 == 0), no bias, no residual.
+//
+// The GEMM above gives each 128x128 output tile a block of its own: at K =
+// 64-384 that block runs one to six K steps, then stages 64 KB of f32
+// through shared memory and stores it from the threads while its products
+// wait, and the A tile is read again for each of the N / 128 tiles of its
+// rows.  Here a persistent block owns 128 rows at a time: the producer
+// thread brings the rows' whole A strip into shared memory once (KB TMA
+// boxes, the GEMM's swizzled stage layout) and streams the weight's tiles,
+// N tile after N tile, through a ring; the two consumer warpgroups (64 rows
+// each) walk every N tile on that strip.  A warpgroup's finished f32 tile
+// leaves by TMA stores, whole 128-byte lines, in two halves of 64 columns
+// through a staging buffer of its own (two [64][32] f32 boxes under the
+// 128-byte swizzle, which the accumulator layout writes two wavefronts an
+// instruction; a half is written once the previous half's stores have read
+// the buffer), so the store stream, the bound at these K, runs on while
+// the warpgroup's next products do.  The strip is released once the rows'
+// last products are done, so the next rows' strip loads while the last
+// tile stores.
+//
+// Every product is the GEMM's own: the same m64n128k16 wgmmas over the
+// same 64-wide K steps in the same order on the same operands, so the
+// partial is EPI_F32's bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int STRIP_MAX_KB = 6;                // K steps a strip holds: K <= 384
+constexpr int STRIP_STAGE_OUT = 64 * 64 * 4;   // a warpgroup's f32 staging: half a tile, 16 KB
+constexpr int STRIP_THREADS = GEMM_THREADS;
+constexpr int SMEM_MAX = 227 * 1024;
+
+// the weight ring's stages: as many as fit beside the strip and the
+// staging, at most 8
+__host__ __device__ constexpr int strip_stages(int kb) {
+  return (SMEM_MAX - kb * G_A_BYTES - 2 * STRIP_STAGE_OUT - 2048) / G_B_BYTES < 8
+             ? (SMEM_MAX - kb * G_A_BYTES - 2 * STRIP_STAGE_OUT - 2048) / G_B_BYTES
+             : 8;
+}
+constexpr int strip_smem(int kb) {
+  return kb * G_A_BYTES + strip_stages(kb) * G_B_BYTES + 2 * STRIP_STAGE_OUT + 1024 +
+         (2 * strip_stages(kb) + 2) * 8;
+}
+static_assert(strip_smem(STRIP_MAX_KB) <= SMEM_MAX, "the strip kernel fits an SM");
+static_assert(strip_stages(STRIP_MAX_KB) >= STRIP_MAX_KB, "the ring holds a tile's K steps");
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory (READ) or are done
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int KB>
+__global__ void __launch_bounds__(STRIP_THREADS, 1)
+gemm_strip_f32_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b,
+                      const __grid_constant__ CUtensorMap tm_c, int M, int N, int ldc,
+                      int groups) {
+  constexpr int RS = strip_stages(KB);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* strip = smem;                     // [KB][128][64] bf16, swizzled
+  unsigned char* ring = strip + KB * G_A_BYTES;    // [stage][128][64] weight tiles
+  unsigned char* staging = ring + RS * G_B_BYTES;  // [2][2][64][32] f32, swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * STRIP_STAGE_OUT);
+  uint64_t* empty = full + RS;
+  uint64_t* afull = empty + RS;
+  uint64_t* aempty = afull + 1;
+
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int nt = N / GBN, per = nt / groups, units = ((M + GBM - 1) / GBM) * groups;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(afull, 1);
+    mbar_init(aempty, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (c == 2) {  // the producer warp: one thread
+    if (tid != 0) return;
+    int it = 0, ua = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++ua) {
+      const int m0 = (u / groups) * GBM, n_lo = (u % groups) * per;
+      if (ua > 0) mbar_wait(aempty, (ua - 1) & 1);
+      mbar_expect_tx(afull, KB * G_A_BYTES);
+      for (int kb = 0; kb < KB; ++kb) tma_load_2d(strip + kb * G_A_BYTES, &tm_a, afull, kb * GBK, m0);
+      for (int n = n_lo; n < n_lo + per; ++n)
+        for (int kt = 0; kt < KB; ++kt, ++it) {
+          const int s = it % RS;
+          if (it >= RS) mbar_wait(&empty[s], ((it / RS) - 1) & 1);
+          mbar_expect_tx(&full[s], G_B_BYTES);
+          tma_load_2d(ring + s * G_B_BYTES, &tm_b, &full[s], kt * GBK, n * GBN);
+        }
+    }
+    return;
+  }
+
+  // consumer warpgroup c: rows 64 c .. 64 c + 63 of the strip
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  unsigned char* out_stage = staging + c * STRIP_STAGE_OUT;
+  int it = 0, ua = 0;
+  float acc[GBN / 2];
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++ua) {
+    const int m0 = (u / groups) * GBM, n_lo = (u % groups) * per;
+    mbar_wait(afull, ua & 1);
+    for (int n = n_lo; n < n_lo + per; ++n) {
+#pragma unroll
+      for (int i = 0; i < GBN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+#pragma unroll
+      for (int kt = 0; kt < KB; ++kt) {
+        const int s = it % RS;
+        mbar_wait(&full[s], (it / RS) & 1);
+        ++it;
+        const uint64_t da = desc_sw128(strip + kt * G_A_BYTES + c * 64 * 128);
+        const uint64_t db = desc_sw128(ring + s * G_B_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GBK / 16; ++kk) wgmma_ss<GBN>(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) {
+        mbar_arrive(&empty[prev]);
+        if (n == n_lo + per - 1) mbar_arrive(aempty);  // the next rows' strip may load
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // columns 64 hf .. 64 hf + 63
+        if (tid == 0) tma_store_wait<true>();  // the staging's last stores have read it
+        named_barrier(1 + c, 128);
+        // element (r, col) of the half: box col / 32, its 16-byte chunk
+        // (col % 32) / 4 of row r's 128 bytes at chunk ^ (r % 8)
+#pragma unroll
+        for (int j = 8 * hf; j < 8 * hf + 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h, cc = (j & 3) * 8 + 2 * t;
+            *reinterpret_cast<float2*>(out_stage + ((j >> 2) & 1) * (64 * 128) + r * 128 +
+                                       ((((cc >> 2) ^ r) & 7) << 4) + (cc & 3) * 4) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        fence_proxy_async();
+        named_barrier(1 + c, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {  // boxes past ldc hold only the padded N edge
+            const int col0 = n * GBN + 64 * hf + 32 * b;
+            if (col0 < ldc) tma_store_2d(&tm_c, out_stage + b * (64 * 128), col0, m0 + 64 * c);
+          }
+          tma_store_commit();
+        }
+      }
+    }
+  }
+  if (tid == 0) tma_store_wait<false>();
+}
+
+int g_sm_count = 0;
+
+// The persistent grid: one block an SM at most; units of 128 rows and
+// `groups` runs of the N tiles (more than one only where the rows alone
+// would leave SMs idle in the last round).
+template <int KB>
+cudaError_t launch_strip_kernel(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                                const CUtensorMap& tm_c, int M, int N, int ldc, cudaStream_t st) {
+  constexpr int smem = strip_smem(KB);
+  static std::atomic<unsigned> sized{0};  // the devices this instantiation's size is set on
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(sized.load(std::memory_order_relaxed) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(gemm_strip_f32_kernel<KB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized.fetch_or(1u << dev, std::memory_order_relaxed);
+  }
+  if (g_sm_count == 0) {
+    e = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int mt = (M + GBM - 1) / GBM, nt = N / GBN;
+  int groups = 1;
+  while (groups < nt && mt * groups < 2 * g_sm_count) {
+    int next = groups + 1;
+    while (nt % next) ++next;
+    groups = next;
+  }
+  const int units = mt * groups;
+  gemm_strip_f32_kernel<KB><<<units < g_sm_count ? units : g_sm_count, STRIP_THREADS, smem, st>>>(
+      tm_a, tm_b, tm_c, M, N, ldc, groups);
+  return cudaGetLastError();
+}
+
+// A K-major [rows, K] bf16 operand's map: boxes of 64 K x 128 rows.
+cudaError_t kmajor_map(CUtensorMap* tm, const void* base, int rows, int K) {
+  const uint64_t stride[1] = {(uint64_t)K * 2};
+  const uint64_t dims[2] = {(uint64_t)K, (uint64_t)rows};
+  const uint32_t box[2] = {GBK, GBM};
+  return make_tensor_map(tm, base, 2, dims, stride, box);
+}
+
+// Whether a slot's f32 partial, a product of K columns into rows of D, takes
+// the row-strip kernel: K in whole 64-wide steps the strip holds (at most
+// STRIP_MAX_KB) and rows of whole 16-byte units for the TMA stores.  The one
+// statement of the rule: ops/fused_block.py::slot_route asks it
+// (dvl_strip_fits).
+bool strip_fits(int K, int D) {
+  return K >= GBK && K % GBK == 0 && K <= STRIP_MAX_KB * GBK && D >= 1 && D % 4 == 0;
+}
+
+// out_f32 [M, ldc] = A [M, K] @ Wt [N, K]^T where strip_fits(K, ldc) (N a
+// multiple of 128, ldc <= N the columns stored).
+cudaError_t launch_strip_partial(const bf16* A, const bf16* Wt, float* out, int M, int N, int K,
+                                 int ldc, cudaStream_t st) {
+  if (M < 1 || N % GBN || !strip_fits(K, ldc) || ldc > N || ldc <= N - GBN)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b, tm_c;
+  const uint64_t stride_c[1] = {(uint64_t)ldc * 4};
+  const uint64_t dims_c[2] = {(uint64_t)ldc, (uint64_t)M};
+  const uint32_t box_c[2] = {32, 64};
+  cudaError_t e = kmajor_map(&tm_a, A, M, K);
+  if (e == cudaSuccess) e = kmajor_map(&tm_b, Wt, N, K);
+  if (e == cudaSuccess)
+    e = make_tensor_map(&tm_c, out, 2, dims_c, stride_c, box_c, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e != cudaSuccess) return e;
+  switch (K / GBK) {
+    case 1: return launch_strip_kernel<1>(tm_a, tm_b, tm_c, M, N, ldc, st);
+    case 2: return launch_strip_kernel<2>(tm_a, tm_b, tm_c, M, N, ldc, st);
+    case 3: return launch_strip_kernel<3>(tm_a, tm_b, tm_c, M, N, ldc, st);
+    case 4: return launch_strip_kernel<4>(tm_a, tm_b, tm_c, M, N, ldc, st);
+    case 5: return launch_strip_kernel<5>(tm_a, tm_b, tm_c, M, N, ldc, st);
+    default: return launch_strip_kernel<6>(tm_a, tm_b, tm_c, M, N, ldc, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The tensor-parallel reduce: out[M, N] = bf16(resid + (sum_j part_j + bias))
 // (the attention half, K1's out-projection order) or bf16((resid + bias) +
 // sum_j part_j) (the MLP half, K2's down-projection order), the f32 partials
@@ -351,13 +620,16 @@ tp_reduce_kernel(TpParts parts, int m, const float* __restrict__ bias,
 // == 0 and head dim 64 every width is the model's own.  The same launches
 // serve a head group (heads = its g heads, group_plan's layout; DA = g hdp
 // may be below D): out_f32 [B*S, D] (not null) receives the f32 partial
-// attn_g @ wo_g and no bias or residual; else out = (x + bo) + attn @ wo when
-// bias_first (KB (a) 6's order), x + (attn @ wo + bo) otherwise (K1's).
+// attn_g @ wo_g and no bias or residual (with `strip`, from the row-strip
+// kernel, which strip_fits(DA, D) must allow; else from the GEMM's EPI_F32);
+// else out =
+// (x + bo) + attn @ wo when bias_first (KB (a) 6's order), x + (attn @ wo +
+// bo) otherwise (K1's).
 int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                          const void* bqkv, const void* wo, const void* bo, void* out, void* xn,
                          void* qkv, void* attn, int B, int S, int D, int heads, int hdp,
                          int causal, float scale, int norm_after, void* stream,
-                         void* out_f32 = nullptr, int bias_first = 0) {
+                         void* out_f32 = nullptr, int bias_first = 0, int strip = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, GBK), DA = heads * hdp, NQKV = round_up(3 * DA, GBN);
   const int NO = round_up(D, GBN);
@@ -376,7 +648,9 @@ int attention_block_impl(const void* x, const void* ln_s, const void* ln_b, cons
   const bf16 *a = static_cast<const bf16*>(attn), *w = static_cast<const bf16*>(wo);
   const float* fb = static_cast<const float*>(bo);
   const bf16* r = static_cast<const bf16*>(x);
-  if (out_f32 != nullptr)
+  if (out_f32 != nullptr && strip)
+    e = launch_strip_partial(a, w, static_cast<float*>(out_f32), M, NO, DA, D, st);
+  else if (out_f32 != nullptr)
     e = launch_gemm<EPI_F32>(a, w, nullptr, nullptr, out_f32, M, NO, DA, st, D);
   else if (bias_first)
     e = launch_gemm<EPI_RESID_BIAS>(a, w, fb, r, out, M, NO, DA, st, D);
@@ -462,15 +736,19 @@ int dvl_mlp_block(const void* x, const void* ln_s, const void* ln_b, const void*
 // D and in the padded lanes); bo [D rounded up to 128] f32.  Scratch (bf16):
 // xn [B*S, DK], qkv [B*S, NQKV], attn [B*S, g hdp].  scale multiplies the
 // scores (hd^-0.5 of the true head dim, or ln 2 on KB's pre-scaled q);
-// norm_after normalises after P @ V (KB's order).
+// norm_after normalises after P @ V (KB's order).  strip (out_f32 only,
+// where strip_fits(g hdp, D)): 1 = the partial from the row-strip kernel, 0
+// = from the GEMM.
 int dvl_attention_block_heads(const void* x, const void* ln_s, const void* ln_b,
                               const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                               void* out, void* out_f32, void* xn, void* qkv, void* attn, int B,
                               int S, int D, int g, int hdp, int causal, float scale,
-                              int norm_after, void* stream) {
-  if ((out == nullptr) == (out_f32 == nullptr)) return (int)cudaErrorInvalidValue;
+                              int norm_after, int strip, void* stream) {
+  if ((out == nullptr) == (out_f32 == nullptr) ||
+      (strip && (out_f32 == nullptr || !strip_fits(g * hdp, D))))
+    return (int)cudaErrorInvalidValue;
   return attention_block_impl(x, ln_s, ln_b, wqkv, bqkv, wo, bo, out, xn, qkv, attn, B, S, D, g,
-                              hdp, causal, scale, norm_after, stream, out_f32, 1);
+                              hdp, causal, scale, norm_after, stream, out_f32, 1, strip);
 }
 
 // A tensor-parallel slot's MLP: out_f32 [M, D] = act(LN(x) @ w1_j + b1_j) @
@@ -478,12 +756,15 @@ int dvl_attention_block_heads(const void* x, const void* ln_s, const void* ln_b,
 // adds them once), on mlp_plan's layout of the slot's Fj columns: w1 [Fp,
 // DK] and w2 [D rounded up to 128, Fp] K-major bf16, b1 [Fp] f32, zero past
 // Fj (Fp = Fj rounded up to 128) and past D.  Scratch (bf16): xn [M, DK],
-// hidden [M, Fp].
+// hidden [M, Fp].  LN, the up GEMM writing the hidden, then the down
+// product: strip 1 (where strip_fits(Fp, D)) the row-strip kernel, 0 the
+// GEMM's EPI_F32.
 int dvl_mlp_block_cols(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                        const void* b1, const void* w2, void* out_f32, void* xn, void* hidden,
-                       int M, int D, int Fp, int act_kind, void* stream) {
+                       int M, int D, int Fp, int act_kind, int strip, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int DK = round_up(D, GBK), NO = round_up(D, GBN);
+  if (strip && !strip_fits(Fp, D)) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                 static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
@@ -495,10 +776,18 @@ int dvl_mlp_block_cols(const void* x, const void* ln_s, const void* ln_b, const 
     e = launch_gemm<EPI_BIAS_GELU>(static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
                                    static_cast<const float*>(b1), nullptr, hidden, M, Fp, DK, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm<EPI_F32>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2), nullptr,
-                           nullptr, out_f32, M, NO, Fp, st, D);
+  if (strip)
+    e = launch_strip_partial(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
+                             static_cast<float*>(out_f32), M, NO, Fp, D, st);
+  else
+    e = launch_gemm<EPI_F32>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
+                             nullptr, nullptr, out_f32, M, NO, Fp, st, D);
   return (int)e;
 }
+
+// 1 where a slot's f32 partial of K product columns into rows of D takes the
+// row-strip kernel (strip_fits), else 0.
+int dvl_strip_fits(int K, int D) { return strip_fits(K, D); }
 
 // out [M, N] bf16 from 1 <= m <= TP_PARTS f32 partials [M, N] (a host array
 // of device pointers), bias [N] f32 and resid [M, N] bf16; bias_first picks

@@ -146,6 +146,9 @@ namespace {
 // ---------------------------------------------------------------------------
 // Per-row int8 quantization: q [rows, n] int8 and scale [rows] f32 from x
 // [rows, n] (bf16 or f32).  One block per row; each thread holds PER values.
+// The amax and the scale's clamp propagate a NaN (fmax_nan, as jnp.max and
+// jnp.maximum), and a NaN quotient converts to 0: a row holding a NaN gets
+// a NaN scale and codes 0, as the JAX function's.
 // ---------------------------------------------------------------------------
 
 constexpr int QR_THREADS = 128;
@@ -177,22 +180,22 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __rest
         if (act_out) act_out[row * n + i] = v[j];
       }
     }
-    amax = fmaxf(amax, fabsf(v[j]));
+    amax = fmax_nan(amax, fabsf(v[j]));
   }
-  amax = warp_max(amax);
+  amax = warp_max_nan(amax);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
   __syncthreads();
   amax = red[0];
 #pragma unroll
-  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmax_nan(amax, red[w]);
+  const float s = q_scale_nan(amax);
   const float inv = __frcp_rn(s);
   int8_t* qr = q + row * n;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int i = threadIdx.x + j * QR_THREADS;
     const float y = RECIP ? __fmul_rn(v[j], inv) : __fdiv_rn(v[j], s);
-    if (i < n) qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
+    if (i < n) qr[i] = (int8_t)__float2int_rn(fmin_nan(fmax_nan(rintf(y), -127.f), 127.f));
   }
   if (threadIdx.x == 0) scale[row] = s;
 }
@@ -217,22 +220,22 @@ quant_rows_wide_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* _
       v = quick_gelu(v);
       if (act_out) act_out[row * n + i] = v;
     }
-    amax = fmaxf(amax, fabsf(v));
+    amax = fmax_nan(amax, fabsf(v));
   }
-  amax = warp_max(amax);
+  amax = warp_max_nan(amax);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
   __syncthreads();
   amax = red[0];
 #pragma unroll
-  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmax_nan(amax, red[w]);
+  const float s = q_scale_nan(amax);
   const float inv = __frcp_rn(s);
   int8_t* qr = q + row * n;
   for (int i = threadIdx.x; i < n; i += QR_THREADS) {
     float v = to_f32(xr[i]);
     if constexpr (QGELU) v = quick_gelu(v);
     const float y = RECIP ? __fmul_rn(v, inv) : __fdiv_rn(v, s);
-    qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
+    qr[i] = (int8_t)__float2int_rn(fmin_nan(fmax_nan(rintf(y), -127.f), 127.f));
   }
   if (threadIdx.x == 0) scale[row] = s;
 }
@@ -763,10 +766,12 @@ __device__ __forceinline__ float ln_one(float v, float mean, float inv,
 // is far below 1/2 either way: the code is 0), or, for a row whose amax is
 // not finite (FAST false), __fdiv_rn itself; then clamped to +-127 and
 // rounded half to even by the 1.5 2^23 add (rounding and clamping commute at
-// integer bounds; a NaN clamps to -127, as the twin's conversion gives).
+// integer bounds); a NaN quotient (a NaN row's, whose scale is NaN) gives 0,
+// XLA's conversion of NaN.
 template <bool FAST>
 __device__ __forceinline__ uint32_t q_code(float v, float s, float rs) {
   const float y = FAST ? qq_div(v, s, rs) : __fdiv_rn(v, s);
+  if (!FAST && isnan(y)) return 0u;
   const float c = fminf(fmaxf(y, -127.f), 127.f);
   return (uint32_t)(__float_as_int(__fadd_rn(c, 12582912.f)) - 0x4B400000) & 0xffu;
 }
@@ -816,11 +821,11 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale
       const int i = lane + 32 * j;
       if (FULL || i < half) {
         v[j] = ln_pair(v[j], mean, inv, scale, bias, i);
-        amax = fmaxf(amax, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
+        amax = fmax_nan(amax, fmax_nan(fabsf(v[j].x), fabsf(v[j].y)));
       }
     }
-    amax = warp_max(amax);
-    sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+    amax = warp_max_nan(amax);
+    sc = q_scale_nan(amax);
     const float rs = __frcp_rn(sc);
     if (amax < INFINITY) {  // the branch a row, not a value: the codes' chains interleave
 #pragma unroll
@@ -860,14 +865,14 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale
     if (pairs) {
       for (int i = lane; i < half; i += 32) {
         const float2 y = ln_pair(__bfloat1622float2(xr[i]), mean, inv, scale, bias, i);
-        amax = fmaxf(amax, fmaxf(fabsf(y.x), fabsf(y.y)));
+        amax = fmax_nan(amax, fmax_nan(fabsf(y.x), fabsf(y.y)));
       }
     } else {
       for (int i = lane; i < d; i += 32)
-        amax = fmaxf(amax, fabsf(ln_one(__bfloat162float(xs[i]), mean, inv, scale, bias, i)));
+        amax = fmax_nan(amax, fabsf(ln_one(__bfloat162float(xs[i]), mean, inv, scale, bias, i)));
     }
-    amax = warp_max(amax);
-    sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+    amax = warp_max_nan(amax);
+    sc = q_scale_nan(amax);
     const float rs = __frcp_rn(sc);
     const bool fast = amax < INFINITY;
     if (pairs) {
@@ -955,12 +960,12 @@ quant_rows_given_amax_kernel(const T* __restrict__ x, TpPtrs amaxes, int m,
                              int8_t* __restrict__ q, float* __restrict__ scale, int n) {
   const long long row = blockIdx.x;
   float amax = static_cast<const float*>(amaxes.p[0])[row];
-  for (int j = 1; j < m; ++j) amax = fmaxf(amax, static_cast<const float*>(amaxes.p[j])[row]);
-  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  for (int j = 1; j < m; ++j) amax = fmax_nan(amax, static_cast<const float*>(amaxes.p[j])[row]);
+  const float s = q_scale_nan(amax);
   const T* xr = x + row * n;
   int8_t* qr = q + row * n;
   for (int i = threadIdx.x; i < n; i += QR_THREADS)
-    qr[i] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(to_f32(xr[i]), s)), -127.f), 127.f));
+    qr[i] = (int8_t)__float2int_rn(fmin_nan(fmax_nan(rintf(__fdiv_rn(to_f32(xr[i]), s)), -127.f), 127.f));
   if (threadIdx.x == 0) scale[row] = s;
 }
 

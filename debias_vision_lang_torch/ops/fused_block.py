@@ -60,6 +60,18 @@ model of width D; ``mlp_plan`` of its hidden columns), the identity at head
 dim 64 and D % 128 == 0.  ``tp_reduce`` sums up to ``TP_PARTS`` partials
 in one launch, in slot order.
 
+A slot's f32 partial takes one of two routes (``slot_route``; counted in
+``SLOT_ROUTES``).  Where the product's K is narrow -- a head group's g hdp
+attention columns, or its Fp hidden columns, at most 384 -- and the
+partial's rows are whole 16-byte units (D % 4 == 0), its out / down product
+runs on the row-strip kernel (``gemm_strip_f32_kernel``: a
+persistent block keeps a 128-row strip of the product's input in shared
+memory and walks every N tile of the weight on it, each f32 tile stored
+while the next tile's products run): "strip".  Wider slots (m = 2 at
+ViT-B/16's F: Fj = 1,536) and other D keep K1 / K2's GEMM with the f32
+epilogue: "gemm".  Both routes give the same partial bit for bit (the same
+wgmma products in the same K order).
+
 KB (a) 5 (``KB_LAUNCHES``): ``attention_block_opt`` (benchmarks/
 attn_variants.py::attention_block_opt) is K1 with q pre-scaled by hd^-0.5
 log2 e (``prescale_qkv``), exp2 and the softmax normalised after P @ V,
@@ -71,6 +83,7 @@ dim).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -91,6 +104,10 @@ TP_LAUNCHES: Dict[str, int] = {"attention_block_heads": 0,
                                "mlp_block_cols": 0,
                                "tp_reduce": 0}
 KB_LAUNCHES: Dict[str, int] = {"attention_block_opt": 0}
+# the routes of the slot entries' calls (``slot_route``): the out / down
+# product on the row-strip kernel ("*_strip") or on K1 / K2's GEMM ("*_gemm")
+SLOT_ROUTES: Dict[str, int] = {"attention_strip": 0, "attention_gemm": 0,
+                               "mlp_strip": 0, "mlp_gemm": 0}
 TP_PARTS = 256  # partials one reduce launch sums (the kernels' pointer arrays)
 LOG2E = math.log2(math.e)
 ACT_KINDS = ("quick_gelu", "gelu")
@@ -101,7 +118,7 @@ GEMM_N, GEMM_K = 128, 64  # the CUDA GEMM's block width and K step: the layout's
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, SLOT_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -115,6 +132,16 @@ def core_route(s: int, hd: int = 64) -> str:
     if s < 1:
         raise ValueError(f"sequence length {s} < 1")
     return "short" if s <= MAX_SEQ and round_up(hd, 64) <= MAX_SHORT_HDP else "long"
+
+
+@functools.lru_cache(maxsize=None)
+def slot_route(k: int, d: int) -> str:
+    """The route of a slot's f32 partial on the card, a product of K columns
+    (a head group's ``group_plan`` da, a slot's ``mlp_plan`` fp) into rows of
+    D: "strip" (the out / down product on the row-strip kernel) where the
+    library's rule takes it (csrc/fused_block.cu::strip_fits: K up to 384,
+    D % 4 == 0), else "gemm" (K1 / K2's GEMM).  Needs the library."""
+    return "strip" if _lib().dvl_strip_fits(k, d) else "gemm"
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +551,12 @@ def _lib():
         lib.dvl_mlp_block.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block.restype = i
         lib.dvl_attention_block_heads.argtypes = ([p] * 12 + [i] * 6
-                                                  + [ctypes.c_float, i, p])
+                                                  + [ctypes.c_float, i, i, p])
         lib.dvl_attention_block_heads.restype = i
-        lib.dvl_mlp_block_cols.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.dvl_mlp_block_cols.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.dvl_mlp_block_cols.restype = i
+        lib.dvl_strip_fits.argtypes = [i, i]
+        lib.dvl_strip_fits.restype = i
         lib.dvl_tp_reduce.argtypes = [p, i, p, p, p, i, i, i, p]
         lib.dvl_tp_reduce.restype = i
         _LIB = lib
@@ -720,10 +749,12 @@ def _group_kernel_ops(wqkv, bqkv, wo, plan: AttnPlan, device):
                    lambda: attn_operands(wqkv, bqkv, wo, None, plan))
 
 
-def _attention_heads_cuda(x, ln_s, ln_b, ops, bo, plan: AttnPlan, causal, prescaled, counter):
+def _attention_heads_cuda(x, ln_s, ln_b, ops, bo, plan: AttnPlan, causal, prescaled, counter,
+                          strip=True):
     """``dvl_attention_block_heads`` on a head group's kernel operands
-    (``_group_kernel_ops`` on ``plan``); the f32 partial, or with ``bo`` the
-    bf16 block output."""
+    (``_group_kernel_ops`` on ``plan``); the f32 partial on its
+    ``slot_route`` (``strip=False``: on the GEMM), or with ``bo`` the bf16
+    block output."""
     _check_x(x)
     b, s, d = x.shape
     if s < 1:
@@ -738,6 +769,7 @@ def _attention_heads_cuda(x, ln_s, ln_b, ops, bo, plan: AttnPlan, causal, presca
     xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
     qkv = torch.empty((m, plan.nqkv), dtype=bf, device=dev)
     attn = torch.empty((m, plan.da), dtype=bf, device=dev)
+    route = slot_route(plan.da, d) if strip and bo is None else "gemm"
     err = _lib().dvl_attention_block_heads(
         x.data_ptr(), *[t.data_ptr() for t in ops],
         _padded_bias(bo, d, plan.no, "bo", dev).data_ptr() if bo is not None else None,
@@ -745,9 +777,10 @@ def _attention_heads_cuda(x, ln_s, ln_b, ops, bo, plan: AttnPlan, causal, presca
         part.data_ptr() if part is not None else None,
         xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), b, s, d, plan.heads, plan.hdp,
         int(causal), math.log(2.0) if prescaled else plan.scale, int(prescaled),
-        _stream_ptr(dev))
+        int(route == "strip"), _stream_ptr(dev))
     _raise_on(err, "dvl_attention_block_heads")
     TP_LAUNCHES[counter] += 1
+    SLOT_ROUTES["attention_" + route] += 1
     CORE_ROUTES[core_route(s, plan.hd)] += 1
     check_nans("dvl_attention_block_heads", part if out is None else out)
     return part if out is None else out
@@ -774,10 +807,10 @@ def _hgrid_kernel_ops(wqkv_h, bqkv_h, wo_h, h0, g, plan: AttnPlan, device):
     return cache[1][(h0, g)]
 
 
-def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind):
+def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind, strip=True):
     """``dvl_mlp_block_cols`` on ``mlp_plan``'s layout of the slot's hidden
     columns (any D and Fj; the plain K-major copies where the plan is the
-    identity)."""
+    identity), on its ``slot_route`` (``strip=False``: on the GEMM)."""
     _check_x(x)
     b, s, d = x.shape
     fj = w1.shape[-1]
@@ -796,12 +829,15 @@ def _mlp_cols_cuda(x, ln_s, ln_b, w1, b1, w2, act_kind):
     m = b * s
     part = torch.empty((b, s, d), dtype=f32, device=dev)
     xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    route = slot_route(plan.fp, d) if strip else "gemm"
     hidden = torch.empty((m, plan.fp), dtype=bf, device=dev)
     err = _lib().dvl_mlp_block_cols(
         x.data_ptr(), *[t.data_ptr() for t in ops], part.data_ptr(), xn.data_ptr(),
-        hidden.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind), _stream_ptr(dev))
+        hidden.data_ptr(), m, d, plan.fp, ACT_KINDS.index(act_kind), int(route == "strip"),
+        _stream_ptr(dev))
     _raise_on(err, "dvl_mlp_block_cols")
     TP_LAUNCHES["mlp_block_cols"] += 1
+    SLOT_ROUTES["mlp_" + route] += 1
     check_nans("dvl_mlp_block_cols", part)
     return part
 
@@ -888,11 +924,17 @@ def attention_block_heads(x, ln_s, ln_b, wqkv, bqkv, wo, *, heads: int,
     if _route(x) == "cpu":
         return attention_block_heads_plain(x, ln_s, ln_b, wqkv, bqkv, wo, heads=heads,
                                            causal=causal)
+    return _heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, heads, causal)
+
+
+def _heads_cuda(x, ln_s, ln_b, wqkv, bqkv, wo, heads, causal, strip=True):
+    """``attention_block_heads`` on the card; ``strip=False`` keeps the out
+    product on K1's GEMM (the checks that hold the routes to each other)."""
     plan = group_plan(x.shape[-1], wo.shape[0] // heads, heads)
     return _attention_heads_cuda(x, ln_s, ln_b, _group_kernel_ops(wqkv, bqkv, wo, plan, x.device),
                                  None, plan, causal, False,
                                  "attention_block_heads_causal" if causal
-                                 else "attention_block_heads")
+                                 else "attention_block_heads", strip)
 
 
 def attention_block_hgrid(x, ln_s, ln_b, wqkv_h, bqkv_h, wo_h, bo, *, heads: int,

@@ -171,14 +171,22 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def q_codes(y: torch.Tensor) -> torch.Tensor:
+    """clip(round_half_even(y), -127, 127) as int8, a NaN to 0 (XLA's
+    conversion, ``to_s8_sat``; torch's cast of a NaN is the host's)."""
+    y = torch.clamp(torch.round(y), -127, 127)
+    return torch.where(torch.isnan(y), 0.0, y).to(torch.int8)
+
+
 def quant_rows(x32: torch.Tensor):
     """Dynamic symmetric per-row int8: f32 [..., n] -> (int8 [..., n], f32
     scale [..., 1]).  scale = max(amax / 127, 1e-8) (the clamp is on the
-    scale), q = clip(round_half_even(x / scale), -127, 127)."""
+    scale), q = clip(round_half_even(x / scale), -127, 127).  A row holding
+    a NaN gets a NaN amax and scale (torch's amax and clamp propagate it, as
+    jnp.max and jnp.maximum do) and codes 0."""
     amax = x32.abs().amax(-1, keepdim=True)
     scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return q_codes(x32 / scale), scale
 
 
 def quant_rows_recip(x32: torch.Tensor):
@@ -191,8 +199,7 @@ def quant_rows_recip(x32: torch.Tensor):
     amax = x32.abs().amax(-1, keepdim=True)
     scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
     inv = torch.ones((), dtype=scale.dtype, device=scale.device) / scale
-    q = torch.clamp(torch.round(x32 * inv), -127, 127).to(torch.int8)
-    return q, scale
+    return q_codes(x32 * inv), scale
 
 
 def to_s8_sat(x: torch.Tensor) -> torch.Tensor:
@@ -419,10 +426,10 @@ def mlp_block_q_cols_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, *,
 
 
 def quant_rows_given_amax(x32: torch.Tensor, amax: torch.Tensor):
-    """``quant_rows`` at a given row amax (f32 [..., 1])."""
+    """``quant_rows`` at a given row amax (f32 [..., 1]; a NaN amax gives a
+    NaN scale and codes 0)."""
     scale = torch.clamp(true_div(amax, 127.0), min=1e-8)
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return q_codes(x32 / scale), scale
 
 
 def rows_q_partial_plain(a, amaxes, w_q):

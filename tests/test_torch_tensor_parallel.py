@@ -589,6 +589,35 @@ class TestHgrid:
         else:
             within_one_ulp(got, want)
 
+    @pytest.mark.parametrize("d,heads", [(128, 2), (768, 12), (200, 2), (64, 1)])
+    def test_hgrid_operands_are_main_s(self, attn_variants, d, heads):
+        """``benchmarks_torch/tp_slot_split.py::hgrid_operands`` (the smoke's
+        and the split's KB (a) 6 operands) builds KB (a) 6's arguments as the
+        JAX script's main() does, from its ``prescale_qkv``: bit for bit."""
+        import jax.numpy as jnp
+
+        spec = importlib.util.spec_from_file_location(
+            "tp_slot_split", REPO / "benchmarks_torch" / "tp_slot_split.py")
+        split = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(split)
+        a = _hgrid_inputs("float32", d=d, heads=heads, seed=d)
+        attn = tuple(torch.from_numpy(a[k]) for k in ("lns", "lnb", "wqkv", "bqkv", "wo_h", "bo"))
+        ls, lb, wqkv_h, bqkv_h, wo, bo = split.hgrid_operands(attn, heads)
+        hd = d // heads
+        wq, bq = attn_variants.prescale_qkv(jnp.asarray(a["wqkv"]), jnp.asarray(a["bqkv"]), d,
+                                            heads)
+        want_w = jnp.stack([jnp.concatenate([wq[:, i * d + h * hd:i * d + (h + 1) * hd]
+                                             for i in range(3)], axis=1)
+                            for h in range(heads)]).astype(jnp.bfloat16)
+        want_b = jnp.stack([jnp.concatenate([bq[i * d + h * hd:i * d + (h + 1) * hd]
+                                             for i in range(3)]) for h in range(heads)])
+        assert wqkv_h.dtype == torch.bfloat16 and wo.dtype == torch.bfloat16
+        assert torch.equal(wqkv_h.float(),
+                           torch.from_numpy(np.asarray(want_w.astype(jnp.float32))))
+        assert torch.equal(bqkv_h, torch.from_numpy(np.asarray(want_b)))
+        assert torch.equal(wo, attn[4].to(torch.bfloat16))
+        assert ls is attn[0] and lb is attn[1] and bo is attn[5]
+
     def test_hgrid_is_k1_at_float32(self):
         """Pre-scaled q with exp2 and the normalisation after P @ V is K1's
         function: the same block at float32 to f32 rounding."""
