@@ -25,13 +25,24 @@ With ``--blocks`` also the unsharded blocks on the case's x, the same way
 (int8: K3 and K4; bf16: K1, K2 and ``tp_reduce`` of m copies of the timed
 slot's partial).  With ``--bf16 --routes`` also the host work the
 row-strip route adds a call: the m = 8 slot entries on their route and on
-the GEMM route, ten pairs in turns (``route_pairs``).  With ``--towers``
+the GEMM route, ten pairs in turns (``route_pairs``); with ``--rows --routes``
+the same for ``rows_q_partial``'s strip cases (``rows_route_pairs``).
+
+With ``--rows`` the row-parallel product ``fused_block_q.rows_q_partial``
+alone (the slots' quantize at the maxed amaxes and int32 product), in place
+of the slot entries, in every case a tower runs (``ROW_CASES``: the
+attention half's bf16 rows and the MLP half's f32 hidden, each at its
+slot's K, with the m slots' real amaxes), and beside each ``torch._int_mm``
+on the same codes (a yardstick for the product alone, on no path) and the
+bytes bound; it digests the codes, row scales and partials.  With ``--towers``
 also the whole image tower (int8: ``QuantizedCLIP``'s ``encode_image``;
 bf16: ``encode_image`` at bfloat16) on 256 uint8 staged images of a
 random ViT-B/16 from seed 0, unsharded and under virtual (1, 2) and (1, 8)
-meshes of the card (CUDA events over 3 calls, as phase 22 reads them).
+meshes of the card (CUDA events over 3 calls, as phase 22 reads them, the
+median of 5 such runs), and each split tower's device time by kernel
+(``torch.profiler`` over 2 calls).
 
-    python3 benchmarks_torch/tp_slot_split.py [--bf16] [--root CHECKOUT]
+    python3 benchmarks_torch/tp_slot_split.py [--bf16 | --rows] [--root CHECKOUT]
         [--label TAG] [--blocks] [--towers] [--routes] [--dump FILE] [--against FILE]
 
 ``--root`` imports ``debias_vision_lang_torch`` from another checkout (a
@@ -43,8 +54,8 @@ outputs, whole and on each timed head group), and of the SASS of every
 kernel of the entries' library (``cuobjdump``, addresses, encodings and the
 anonymous namespace's hashes stripped); ``--against`` compares this run's
 with such a file (the designs before the slots' redesigns:
-``benchmarks_torch/tp_slot_parent.json``, int8, and
-``tp_slot_bf16_parent.json``, bf16): outputs bit for bit, and which kernels
+``benchmarks_torch/tp_slot_parent.json``, int8, ``tp_slot_bf16_parent.json``,
+bf16, and ``tp_rows_parent.json``, ``--rows``): outputs bit for bit, and which kernels
 of the library were added, removed or compiled otherwise.  Prints the card's
 nvidia-smi name and power limit.  Exits 2 without a card, 1 if an output
 or a kernel differs under ``--against``.
@@ -69,6 +80,19 @@ CASES = (("ViT-B/16 m=2", 256, 197, 768, 12, False, 2, [0], 0, 7),
          ("ViT-B/16 m=8", 256, 197, 768, 12, False, 8, [1, 0], 3, 7),
          ("text m=2", 319, 77, 512, 8, True, 2, [0], 0, 11),
          ("text m=8", 319, 77, 512, 8, True, 8, [0], 3, 11))
+# ``--rows``: (label, B, S, D, heads, m, half, slot j, input dtype, seed); the
+# attention half's input is slot j's bf16 rows (its head group's g hd
+# columns of the D-wide row), the MLP half's its f32 hidden (F / m of F)
+ROW_CASES = (("ViT-B/16 m=2 attention g=6", 256, 197, 768, 12, 2, "attention", 0, "bf16", 31),
+             ("ViT-B/16 m=2 MLP Fj=1536", 256, 197, 768, 12, 2, "mlp", 0, "f32", 32),
+             ("ViT-B/16 m=8 attention g=2", 256, 197, 768, 12, 8, "attention", 1, "bf16", 33),
+             ("ViT-B/16 m=8 attention g=1", 256, 197, 768, 12, 8, "attention", 0, "bf16", 33),
+             ("ViT-B/16 m=8 MLP Fj=384", 256, 197, 768, 12, 8, "mlp", 3, "f32", 34),
+             ("text m=2 attention g=4", 319, 77, 512, 8, 2, "attention", 0, "bf16", 35),
+             ("text m=2 MLP Fj=1024", 319, 77, 512, 8, 2, "mlp", 0, "f32", 36),
+             ("text m=8 attention g=1", 319, 77, 512, 8, 8, "attention", 0, "bf16", 37),
+             ("text m=8 MLP Fj=256", 319, 77, 512, 8, 8, "mlp", 3, "f32", 38))
+HBM_BYTES_PER_S = 3.35e12  # chip_smoke.py's memory rate of the card
 
 
 # the anonymous namespace's mangled name, which holds hashes of the
@@ -136,11 +160,11 @@ def host_ms(fn, calls=30):
     return statistics.median(ts)
 
 
-def kernel_split(fn, iters=10, tries=3):
-    """[(kernel, ms per launch)] of one call's device kernels, in launch
-    order (each launched once a call; per launch, since the profiler may
-    drop some calls' events).  Late in a long process the profiler can
-    record no kernel at all: up to ``tries`` profiles; [] if none did."""
+def profiled(fn, iters, tries=1):
+    """[(kernel, device ms summed over the calls, launches)] of ``iters``
+    calls of ``fn`` under ``torch.profiler``.  Late in a long process the
+    profiler can record no kernel at all: up to ``tries`` profiles; [] if
+    none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,10 +181,17 @@ def kernel_split(fn, iters=10, tries=3):
             if us > 0:
                 m = re.match(r"^(?:void )?(?:\(anonymous namespace\)::)?(\w+)(<[^(]*>)?", ev.key)
                 name = (m.group(1) + re.sub(r"\s+", "", m.group(2) or "")) if m else ev.key
-                out.append((name, us / max(ev.count, 1) / 1e3))
+                out.append((name, us / 1e3, max(ev.count, 1)))
         if out:
             break
     return out
+
+
+def kernel_split(fn, iters=10, tries=3):
+    """[(kernel, ms per launch)] of one call's device kernels, in launch
+    order (each launched once a call; per launch, since the profiler may
+    drop some calls' events)."""
+    return [(name, ms / n) for name, ms, n in profiled(fn, iters, tries)]
 
 
 def time_entry(what, fn, name):
@@ -175,6 +206,18 @@ def time_entry(what, fn, name):
           f"of 5 runs) "
           f"({name})", flush=True)
     return {"device": dev, "split": split, "host": host, "wall5": w5, "wall20": w20}
+
+
+def tower_ms(fn):
+    """A tower's CUDA-event wall: 3 calls, the median of 5 such runs."""
+    return statistics.median(events_ms(fn, 3) for _ in range(5))
+
+
+def tower_kernels(fn, iters=2):
+    """[(ms a call, launches a call, kernel)] of a tower's device kernels,
+    most time first."""
+    return sorted(((ms / iters, n // iters, name) for name, ms, n in profiled(fn, iters)),
+                  reverse=True)
 
 
 def towers(device, name, tag, bf16=False):
@@ -204,7 +247,7 @@ def towers(device, name, tag, bf16=False):
             q = QuantizedCLIP(model)
             enc = lambda mdl: mdl.encode_image(p8)  # noqa: E731
         one = enc(q)
-        res = {"unsharded": events_ms(lambda: enc(q), 3)}
+        res = {"unsharded": tower_ms(lambda: enc(q))}
         for shape in ((1, 2), (1, 8)):
             mesh = pmesh.create_mesh(shape, devices=[device] * (shape[0] * shape[1]))
             qt = (pmesh.shard_clip_params if bf16 else pmesh.shard_quantized_clip)(q, mesh)
@@ -214,10 +257,13 @@ def towers(device, name, tag, bf16=False):
                 same = f"at cosine min {cos.min().item():.7f} with"
             else:
                 same = "bit-equal to" if torch.equal(got, one) else "DIFFER from"
-            res[str(shape)] = events_ms(lambda: enc(qt), 3)
+            res[str(shape)] = tower_ms(lambda: enc(qt))
+            kernels = tower_kernels(lambda: enc(qt))
+            most = "; ".join(f"{k} {ms:.3f} ({n})" for ms, n, k in kernels[:6])
             print(f"{tag}{'bf16' if bf16 else 'int8'} image tower B=256 {shape}: "
                   f"{res[str(shape)]:.3f} ms, rows {same} the unsharded tower "
-                  f"({res['unsharded']:.3f} ms) ({name})", flush=True)
+                  f"({res['unsharded']:.3f} ms); device {sum(ms for ms, _, _ in kernels):.3f} ms "
+                  f"a call (most: {most}) ({name})", flush=True)
             del qt
     return res
 
@@ -407,6 +453,116 @@ def case_calls(fbq, case, t):
     return calls
 
 
+def rows_bytes(mm, k, n, m, a_bytes):
+    """rows_q_partial's bytes (chip_smoke.py::tp_rows_q_work): the input
+    [M, K] read, m amaxes, codes and scales written, the weight read, the
+    int32 [M, N] partial written."""
+    return mm * k * a_bytes + 4 * mm * m + mm * k + 4 * mm + k * n + 4 * mm * n
+
+
+def rows_inputs(case, dev):
+    """One ``--rows`` case's seeded inputs: (a, the m slots' row amaxes, the
+    weight rows w_q [K, D] int8 and their transpose w_qt).  The whole row
+    (D wide for the attention half, F for the MLP half) is drawn on the
+    card; slot j's columns are ``a``, every slot's columns give an amax."""
+    import torch
+    from debias_vision_lang_torch.parallel.tensor import head_group
+
+    _, b, s, d, heads, m, half, j, dt, seed = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hd = d // heads
+    if half == "attention":
+        whole = (torch.randn(b, s, d, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        bounds = [tuple(hd * h for h in head_group(heads, m, i)) for i in range(m)]
+    else:
+        h = torch.randn(b, s, 4 * d, generator=gen, device=dev)
+        whole = h * torch.sigmoid(1.702 * h)
+        bounds = [(i * 4 * d // m, (i + 1) * 4 * d // m) for i in range(m)]
+    amaxes = [whole[..., lo:hi].float().abs().amax(-1, keepdim=True)
+              for lo, hi in bounds if hi > lo]
+    lo, hi = bounds[j]
+    a = whole[..., lo:hi].contiguous()
+    w_q = torch.randint(-127, 128, (hi - lo, d), generator=gen, device=dev, dtype=torch.int8)
+    return a, amaxes, w_q, w_q.t().contiguous()
+
+
+def rows_calls(fbq, dev):
+    """(key, call, (a, w_qt, bytes)) of each ``--rows`` case in turn (its
+    inputs made when it comes up): each runs ``rows_q_partial`` (codes, row
+    scales, int32 partial)."""
+    for case in ROW_CASES:
+        label, b, s, d, _, m, *_ = case
+        a, amaxes, w_q, w_qt = rows_inputs(case, dev)
+        k = a.shape[-1]
+        nbytes = rows_bytes(b * s, k, d, len(amaxes), a.element_size())
+        key = f"{label} rows_q_partial K={k} {str(a.dtype)[6:]} B={b} S={s} D={d}"
+        yield (key, lambda a=a, amaxes=amaxes, w_q=w_q, w_qt=w_qt:
+               fbq.rows_q_partial(a, amaxes, w_q, w_qt=w_qt), (a, w_qt, nbytes))
+
+
+def rows_split(fbq, dev, name, tag, each=None):
+    """{key: [digest of each output]} of the ``--rows`` cases; ``each(key,
+    call)`` times each, and beside it ``torch._int_mm`` on the call's codes
+    and the bytes bound."""
+    import torch
+
+    out = {}
+    for key, call, (a, w_qt, nbytes) in rows_calls(fbq, dev):
+        got = call()
+        out[key] = [digest(o) for o in got]
+        if each is None:
+            continue
+        each(key, call)
+        aq = got[1].reshape(-1, got[1].shape[-1])
+
+        def int_mm():
+            return torch._int_mm(aq, w_qt.t())
+
+        try:
+            same = torch.equal(int_mm(), got[0].reshape(aq.shape[0], -1))
+            ms = statistics.median(events_ms(int_mm, 20) for _ in range(5))
+            lib = (f"{ms:.4f} ms (20-call wall, median of 5; "
+                   f"{'the same' if same else 'NOT the same'} int32)")
+        except RuntimeError as e:
+            lib = f"refused ({str(e).splitlines()[0][:80]})"
+        print(f"{tag}{key}: bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB); torch._int_mm on its codes {lib} ({name})", flush=True)
+        del got, aq, call, a, w_qt, int_mm
+        torch.cuda.empty_cache()
+    return out
+
+
+def rows_route_pairs(fbq, dev, name, tag, pairs=10):
+    """The host work of ``rows_q_partial``'s routes, in one process: each
+    ``--rows`` case the row-strip kernel takes, on its route and on the
+    quantize pass + GEMM route (``strip=False``) in turns, ``pairs`` times,
+    alternating which runs first; per route the median host time of a call
+    and of the 20-call event wall, and the pairs whose wall the strip won.
+    This checkout's entry only (not ``--root``)."""
+    import torch
+
+    for case in ROW_CASES:
+        a, amaxes, _, w_qt = rows_inputs(case, dev)
+        if fbq.rows_route(a.shape[-1], w_qt.shape[0]) != "strip":
+            continue
+        key = f"{case[0]} K={a.shape[-1]} {str(a.dtype)[6:]}"
+        got = {True: ([], []), False: ([], [])}
+        for p in range(pairs):
+            for strip in ((True, False) if p % 2 == 0 else (False, True)):
+                call = lambda strip=strip: fbq._rows_q_partial_cuda(  # noqa: E731
+                    a, amaxes, w_qt, None, strip=strip)
+                host, wall = got[strip]
+                host.append(host_ms(call))
+                wall.append(events_ms(call, 20))
+        won = sum(x < y for x, y in zip(got[True][1], got[False][1]))
+        med = {k: (statistics.median(h), statistics.median(w)) for k, (h, w) in got.items()}
+        print(f"{tag}routes {key}: host a call {med[True][0]:.4f} ms on the strip, "
+              f"{med[False][0]:.4f} on the quantize pass + GEMM; 20-call wall {med[True][1]:.4f} / "
+              f"{med[False][1]:.4f} ms, the strip won {won} of {pairs} pairs ({name})", flush=True)
+        del a, amaxes, w_qt
+        torch.cuda.empty_cache()
+
+
 # the unsharded blocks and KB (a) 6: digested, timed only with ``blocks``
 BLOCK_KEYS = (" K1", " K2", " K3", " K4", " KB (a) 6", " tp_reduce")
 
@@ -440,9 +596,12 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16", action="store_true", help="the bf16 slot entries (not int8)")
     ap.add_argument("--blocks", action="store_true",
                     help="also time the unsharded blocks (and bf16 tp_reduce)")
+    ap.add_argument("--rows", action="store_true",
+                    help="rows_q_partial alone in every case a tower runs (not the slot entries)")
     ap.add_argument("--towers", action="store_true", help="also time the whole towers")
     ap.add_argument("--routes", action="store_true",
-                    help="with --bf16: the m = 8 slots' host time on each route, in turns")
+                    help="with --bf16 (the m = 8 slots) or --rows (the strip cases): the host "
+                         "time on each route, in turns")
     ap.add_argument("--dump", help="write the outputs' and kernels' digests to this file")
     ap.add_argument("--against", help="compare with the digests in this file")
     args = ap.parse_args(argv)
@@ -464,13 +623,18 @@ def main(argv=None) -> int:
     lib.build()
     digests = {"sass": sass_digests(_build.LIB_PATHS[kind])}
     print(f"{tag}{kind} library: {len(digests['sass'])} kernels in its SASS ({name})")
-    digests["outputs"] = output_digests(
-        lib, CASES, dev, lambda what, call: time_entry(f"{tag}{what}", call, name),
-        bf16=args.bf16, blocks=args.blocks)
+    timed = lambda what, call: time_entry(f"{tag}{what}", call, name)  # noqa: E731
+    if args.rows and not args.bf16:
+        digests["outputs"] = rows_split(fbq, dev, name, tag, timed)
+    else:
+        digests["outputs"] = output_digests(lib, CASES, dev, timed, bf16=args.bf16,
+                                            blocks=args.blocks)
     if args.towers:
         towers(dev, name, tag, bf16=args.bf16)
     if args.routes and args.bf16:
         route_pairs(fb, dev, name, tag)
+    elif args.routes and args.rows:
+        rows_route_pairs(fbq, dev, name, tag)
     if args.dump:
         os.makedirs(os.path.dirname(os.path.abspath(args.dump)), exist_ok=True)
         with open(args.dump, "w") as fh:

@@ -740,7 +740,8 @@ def find_cuobjdump():
 # of its 3xTF32 float32 routes; and those it must not: no mma.sync (HMMA,
 # IMMA) anywhere in the int8 library, which runs on wgmma; and per kernel
 # (SASS_PER_KERNEL) every instantiation of KB (a) 1's int8 attention core,
-# both routes, holds s8 wgmma and TMA loads
+# both routes, and of the int8 row-parallel product's row-strip kernel holds
+# s8 wgmma and TMA loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
             "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\.", "IMMA": r"\bIMMA\."}
 SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
@@ -748,10 +749,12 @@ SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "attention": ("HGMMA", "HMMA.TF32")}
 SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
 # the register (attention_qq_kernel<N>, 4 key buckets) and tiled
-# (attention_qq_tiled_kernel<NO>, 4 output widths) cores; the bf16 slots'
-# row-strip kernel (gemm_strip_f32_kernel<KB>, KB = 1-6)
-SASS_PER_KERNEL = {"fused_block_q": ("attention_qq_", ("IGMMA", "UTMALDG"), 8),
-                   "fused_block": ("gemm_strip_f32_kernel", ("HGMMA", "UTMALDG"), 6)}
+# (attention_qq_tiled_kernel<NO>, 4 output widths) cores and rows_q_partial's
+# row-strip kernel (rows_strip_q_kernel<T, KB>, bf16 and f32, KB = 1-3); the
+# bf16 slots' row-strip kernel (gemm_strip_f32_kernel<KB>, KB = 1-6)
+SASS_PER_KERNEL = {"fused_block_q": (("attention_qq_", ("IGMMA", "UTMALDG"), 8),
+                                     ("rows_strip_q_kernel", ("IGMMA", "UTMALDG"), 6)),
+                   "fused_block": (("gemm_strip_f32_kernel", ("HGMMA", "UTMALDG"), 6),)}
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -846,18 +849,20 @@ def sass_check(lib, path) -> None:
 
 
 def sass_check_per_kernel(lib, path) -> None:
-    """SASS_PER_KERNEL[lib]: every instantiation whose mangled name holds
-    the kernel's name holds each of its ops, and there are as many as
-    expected; a missing one, or one without an op, fails the run."""
-    kernel, ops, want = SASS_PER_KERNEL[lib]
-    own = {name: {op: len(re.findall(SASS_OPS[op], body)) for op in ops}
-           for name, body in sass_functions(path).items() if kernel in name}
-    print(f"sass {lib}: {ops} per {kernel} instantiation "
-          f"{sorted(tuple(c.values()) for c in own.values())}")
-    check(len(own) == want, f"{len(own)} {kernel} instantiations in the {lib} SASS, "
-          f"expected {want}")
-    short = [name for name, c in own.items() if min(c.values()) == 0]
-    check(not short, f"{short} lack one of {ops} in their SASS")
+    """SASS_PER_KERNEL[lib]: for each kernel there, every instantiation whose
+    mangled name holds the kernel's name holds each of its ops, and there
+    are as many as expected; a missing one, or one without an op, fails the
+    run."""
+    funcs = sass_functions(path)
+    for kernel, ops, want in SASS_PER_KERNEL[lib]:
+        own = {name: {op: len(re.findall(SASS_OPS[op], body)) for op in ops}
+               for name, body in funcs.items() if kernel in name}
+        print(f"sass {lib}: {ops} per {kernel} instantiation "
+              f"{sorted(tuple(c.values()) for c in own.values())}")
+        check(len(own) == want, f"{len(own)} {kernel} instantiations in the {lib} SASS, "
+              f"expected {want}")
+        short = [name for name, c in own.items() if min(c.values()) == 0]
+        check(not short, f"{short} lack one of {ops} in their SASS")
 
 
 def block_params(d, device, seed):
@@ -4656,12 +4661,12 @@ def tp_kernels(fb, fbq, device, card):
     torch.cuda.synchronize()
 
     # timed at B=256 (m = 2; KB (a) 6 whole, beside K1)
-    def row(name, lib, err, kern, plain, work, iters=5):
-        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} m=2", lib, 0, err,
+    def row(name, lib, err, kern, plain, work, iters=5, key=None, what=""):
+        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} m=2{what}", lib, 0, err,
                        cuda_ms(kern, iters=iters), cuda_ms(plain, iters=2), work)
         r["replaces"] = TP_REPLACES[name]
-        rows[name] = r
-        print(f"time {name} {r['case']}: kernel {r['ms']:.4f} ms, plain twin "
+        rows[key or name] = r
+        print(f"time {key or name} {r['case']}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
               f"kernel at {r['bound_ms'] / r['ms']:.1%} of it) ({card})")
 
@@ -4733,7 +4738,21 @@ def tp_kernels(fb, fbq, device, card):
     row("rows_q_partial", "fused_block_q", rq_err,
         lambda: fbq.rows_q_partial(a0, [m0, m0], wo_q, w_qt=wo_t),
         lambda: fbq.rows_q_partial_plain(a0, [m0, m0], wo_q),
-        tp_rows_q_work(b * s, d // 2, d, 2, 2))
+        tp_rows_q_work(b * s, d // 2, d, 2, 2), what=", attention K=384 bf16")
+    # the MLP half's: slot 0's f32 hidden (Fj = 1,536) at both slots' amaxes
+    w1_q1, w1_s1 = qm[2][:, 2 * d:], qm[3][:, 2 * d:]
+    _, hm1 = fbq.mlp_block_q_cols(x, qm[0], qm[1], w1_q1, w1_s1, qm[4][2 * d:],
+                                  w1_qt=w1_q1.t().contiguous())
+    w2_q, w2_t = qm[5][:2 * d], qm[5][:2 * d].t().contiguous()
+    hams = [fbq.row_amax(h0), hm1]
+    got, want = (fbq.rows_q_partial(h0, hams, w2_q, w_qt=w2_t),
+                 fbq.rows_q_partial_plain(h0, hams, w2_q))
+    check(all(map(torch.equal, got, want)), "rows_q_partial (MLP, timed): differs from its twin")
+    row("rows_q_partial", "fused_block_q", 0.0,
+        lambda: fbq.rows_q_partial(h0, hams, w2_q, w_qt=w2_t),
+        lambda: fbq.rows_q_partial_plain(h0, hams, w2_q),
+        tp_rows_q_work(b * s, 2 * d, d, 2, 4), key="rows_q_partial mlp", what=", MLP K=1536 f32")
+    del got, want
     acc0, _, sc0 = fbq.rows_q_partial(a0, [m0], wo_q, w_qt=wo_t)
     pq = [acc0, acc0.clone()]
     got = fbq.tp_reduce_q(pq, sc0, qa[6], qa[7], x, bias_first=False)
@@ -4748,8 +4767,12 @@ def tp_kernels(fb, fbq, device, card):
         lambda: fbq.tp_reduce_q_plain(pq, sc0, qa[6], qa[7], x, bias_first=False),
         tp_reduce_work(b * s, d, 2, extra=4 * b * s + 4 * d))
     tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card)
-    # each bf16 slot row names the route its calls take (fused_block.slot_route)
+    # each bf16 slot row names the route its calls take (fused_block.slot_route),
+    # each rows_q_partial row its own (fused_block_q.rows_route)
     for key, r in rows.items():
+        if r["name"] == "rows_q_partial":
+            k = int(r["case"].split(" K=")[1].split()[0])
+            r["case"] += f", {fbq.rows_route(k, d)} route"
         if r["name"] == "attention_block_heads":
             g = 6 if key == "attention_block_heads" else int(key.split("g=")[1].split()[0])
             r["case"] += f", {fb.slot_route(fb.group_plan(d, d // heads, g).da, d)} route"
@@ -4768,7 +4791,11 @@ TP8 = (("attention_block_heads g=2 m=8", "attention_block_heads"),
        ("attention_block_q_heads g=2 m=8", "attention_block_q_heads"),
        ("attention_block_q_heads g=1 m=8", "attention_block_q_heads"),
        ("mlp_block_q_cols m=8", "mlp_block_q_cols"), ("rows_q_partial m=8", "rows_q_partial"),
-       ("tp_reduce_q m=8", "tp_reduce_q"))
+       ("rows_q_partial mlp m=8", "rows_q_partial"), ("tp_reduce_q m=8", "tp_reduce_q"))
+# the rows_q_partial rows' launches come from ``fused_block_q.ROWS_INPUTS``: the
+# attention half's bf16 rows, the MLP half's f32 hidden
+TP_ROWS_INPUT = {"rows_q_partial": "bf16", "rows_q_partial mlp": "f32",
+                 "rows_q_partial m=8": "bf16", "rows_q_partial mlp m=8": "f32"}
 
 
 def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
@@ -4783,8 +4810,9 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
     heads, m, f = 12, 8, 4 * d
     fj = f // m
 
-    def row(key, name, lib, err, kern, plain, work, iters=5):
-        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} {key[len(name) + 1:]}", lib, 0, err,
+    def row(key, name, lib, err, kern, plain, work, iters=5, what=""):
+        split = key[len(name) + 1:].replace("mlp ", "")
+        r = kernel_row(name, f"ViT-B/16 B={b} S={s} D={d} {split}{what}", lib, 0, err,
                        cuda_ms(kern, iters=iters), cuda_ms(plain, iters=2), work)
         r["replaces"] = TP_REPLACES[name]
         rows[key] = r
@@ -4865,7 +4893,19 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
     check(all(map(torch.equal, got, want)), "rows_q_partial m=8: differs from its twin")
     row("rows_q_partial m=8", "rows_q_partial", "fused_block_q", 0.0,
         lambda: fbq.rows_q_partial(a1, ams, wo_q, w_qt=wo_t),
-        lambda: fbq.rows_q_partial_plain(a1, ams, wo_q), tp_rows_q_work(b * s, 128, d, m, 2))
+        lambda: fbq.rows_q_partial_plain(a1, ams, wo_q), tp_rows_q_work(b * s, 128, d, m, 2),
+        what=", attention K=128 bf16")
+
+    ams3 = [hm3] * m
+    w2_q, w2_t = qm[5][hid], qm[5][hid].t().contiguous()
+    hgot, hwant = (fbq.rows_q_partial(h3, ams3, w2_q, w_qt=w2_t),
+                   fbq.rows_q_partial_plain(h3, ams3, w2_q))
+    check(all(map(torch.equal, hgot, hwant)), "rows_q_partial MLP m=8: differs from its twin")
+    row("rows_q_partial mlp m=8", "rows_q_partial", "fused_block_q", 0.0,
+        lambda: fbq.rows_q_partial(h3, ams3, w2_q, w_qt=w2_t),
+        lambda: fbq.rows_q_partial_plain(h3, ams3, w2_q), tp_rows_q_work(b * s, fj, d, m, 4),
+        what=", MLP K=384 f32")
+    del hgot, hwant
     pq = [got[0].clone() for _ in range(m)]  # 8 partials, each read once
     out = fbq.tp_reduce_q(pq, got[2], qa[6], qa[7], x, bias_first=False)
     check(torch.equal(out, fbq.tp_reduce_q_plain(pq, got[2], qa[6], qa[7], x, bias_first=False)),
@@ -4885,8 +4925,20 @@ def tp8_rows(fb, fbq, rows, x, attn, mlp, qa, qm, sk4, card):
 # a NaN)
 TP_SLOT_PARENT = "benchmarks_torch/tp_slot_parent.json"
 # the kernels of that library this design no longer has: the amax pass it
-# rewrote (row_amax_kernel<bf16>, <float>)
-TP_SLOT_REPLACED = ("15row_amax_kernelI13__nv_bfloat16EEvPKT_Pfi", "15row_amax_kernelIfEEvPKT_Pfi")
+# rewrote (row_amax_kernel<bf16>, <float>) and rows_q_partial's block-a-row
+# quantize pass (quant_rows_given_amax_kernel<bf16>, <float>), which became
+# a warp-a-row pass taking a row count (so another mangled name)
+TP_SLOT_REPLACED = ("15row_amax_kernelI13__nv_bfloat16EEvPKT_Pfi", "15row_amax_kernelIfEEvPKT_Pfi",
+                    "28quant_rows_given_amax_kernelI13__nv_bfloat16EEvPKT_NS_6TpPtrsEiPaPfi",
+                    "28quant_rows_given_amax_kernelIfEEvPKT_NS_6TpPtrsEiPaPfi")
+# rows_q_partial's design before its redesign (the block-a-row quantize pass,
+# then the s8 GEMM writing raw int32), recorded with ``tp_slot_split.py --rows
+# --root`` on the parent checkout: the codes, row scales and int32 partials of
+# every case a tower runs, the int8 library's SASS.  The redesign adds the
+# row-strip kernel and the warp-a-row pass and drops the block-a-row pass;
+# every other kernel keeps its SASS.
+TP_ROWS_PARENT = "benchmarks_torch/tp_rows_parent.json"
+TP_ROWS_NEW = ("rows_strip_q_kernel", "quant_rows_given_amax_kernel")
 # the bf16 slot entries' design before theirs (LayerNorm, K1 / K2's GEMMs
 # with the f32 epilogue EPI_F32, the core), recorded the same way with
 # ``--bf16``: the slot partials, K1's, K2's and KB (a) 6's outputs, the bf16
@@ -4896,16 +4948,16 @@ TP_SLOT_BF16_PARENT = "benchmarks_torch/tp_slot_bf16_parent.json"
 TP_SLOT_BF16_NEW = ("gemm_strip_f32_kernel",)
 
 
-def tp_slot_split(lib, device, card, bf16=False):
-    """The slot entries split (``tp_slot_split.py``'s cases: ViT-B/16 B=256
-    at m = 2 and 8, the causal text tower B=319 at m = 2 and 8), the int8
-    ones (``lib`` fused_block_q) or with ``bf16`` the bf16 ones (fused_block):
-    each kernel's device time, the host time of a call and the event wall,
-    and the entries held to the design before them: every output
+def tp_slot_split(lib, device, bf16=False):
+    """The slot entries held to the design before them, in ``tp_slot_split.py``'s
+    cases (ViT-B/16 B=256 at m = 2 and 8, the causal text tower B=319 at m =
+    2 and 8; their times are that script's), the int8 ones (``lib``
+    fused_block_q) or with ``bf16`` the bf16 ones (fused_block): every output
     bit-identical to its digest there (K3's and K4's, or K1's, K2's and KB
     (a) 6's, too), and every kernel of the library compiled to the same SASS
-    but the amax pass the int8 design rewrote; the bf16 design only adds its
-    own kernels (TP_SLOT_BF16_NEW).  Returns {entry and case: its split}."""
+    but the passes the int8 designs rewrote (TP_SLOT_REPLACED); the bf16
+    design only adds its own kernels (TP_SLOT_BF16_NEW).  The int8 library's
+    also holds ``rows_q_partial`` to its parent design (``tp_rows_split``)."""
     import importlib
 
     from debias_vision_lang_torch.ops import _build
@@ -4915,15 +4967,10 @@ def tp_slot_split(lib, device, card, bf16=False):
     kind = "fused_block" if bf16 else "fused_block_q"
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), where)) as fh:
         parent = json.load(fh)
-    splits = {}
-
-    def timed(what, call):
-        splits[what] = S.time_entry(f"phase 22 split {'bf16' if bf16 else 'int8'} {what}", call,
-                                    card)
-
-    mine = {"outputs": S.output_digests(lib, S.CASES, device, timed, bf16=bf16),
+    mine = {"outputs": S.output_digests(lib, S.CASES, device, bf16=bf16),
             "sass": S.sass_digests(_build.LIB_PATHS[kind])}
-    if not mine["sass"]:
+    found = bool(mine["sass"])
+    if not found:
         print(f"phase 22: no cuobjdump found: the {kind} library's kernels are not held to the "
               f"parent design's SASS")
         mine["sass"] = parent["sass"]
@@ -4937,10 +4984,36 @@ def tp_slot_split(lib, device, card, bf16=False):
         check(added and all(any(n in k for n in TP_SLOT_BF16_NEW) for k in added),
               f"phase 22: the bf16 library's new kernels {sorted(added)} are not the slot "
               f"design's {TP_SLOT_BF16_NEW}")
-    return splits
+    if not bf16:
+        tp_rows_split(S, lib, device, mine["sass"] if found else None)
 
 
-def tp_route_check(fb, device):
+def tp_rows_split(S, fbq, device, sass):
+    """``rows_q_partial`` in every case a tower runs (``tp_slot_split.py
+    --rows``'s cases; their times are that script's and the kernels line's)
+    held to TP_ROWS_PARENT: every code, row scale and int32 partial bit for
+    bit; of the int8 library's kernels only the block-a-row quantize pass
+    gone, only TP_ROWS_NEW added, none compiled otherwise."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), TP_ROWS_PARENT)) as fh:
+        parent = json.load(fh)
+    sass = parent["sass"] if sass is None else sass  # no cuobjdump: not held
+    mine = {"outputs": S.rows_split(fbq, device, "", "phase 22 split rows "), "sass": sass}
+    bad = S.compare(mine, parent, f"the parent design ({TP_ROWS_PARENT})", "phase 22 rows ",
+                    "fused_block_q")
+    removed = set(parent["sass"]) - set(sass)
+    added = set(sass) - set(parent["sass"])
+    print(f"phase 22 rows: the parent's quantize pass quant_rows_given_amax_kernel (a block a row) "
+          f"is now a warp-a-row pass with a row count, and dvl_rows_q_partial takes the route "
+          f"(the row-strip kernel where rows_strip_fits); removed {sorted(removed)}")
+    check(not bad, f"phase 22: {bad} rows_q_partial outputs or int8 kernels differ from the "
+                   f"parent design")
+    check(all("quant_rows_given_amax_kernel" in k for k in removed),
+          f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
+    check(all(any(n in k for n in TP_ROWS_NEW) for k in added),
+          f"phase 22: the int8 library's new kernels {sorted(added)} are not {TP_ROWS_NEW}")
+
+
+def tp_route_check(fb, fbq, device):
     """The bf16 slot entries on their routes (``fused_block.slot_route``) at
     the shapes phase 22 holds them at: each head group's partial and each
     hidden-column slot's equal to the GEMM route's (the parent design's
@@ -4949,7 +5022,8 @@ def tp_route_check(fb, device):
     shape, D = 200 (padded plans, a ragged N edge) and 203 (an odd one: the
     GEMM route; its f32 rows are no whole 16-byte TMA units),
     the long core at S = 785, both activations; each call counted on its
-    route."""
+    route.  Then the int8 row-parallel product's two routes
+    (``tp_rows_route_check``)."""
     import torch
     from debias_vision_lang_torch.parallel.tensor import head_columns, head_group
 
@@ -4995,6 +5069,70 @@ def tp_route_check(fb, device):
     torch.cuda.synchronize()
     print(f"phase 22 routes: {n} slot partials on their routes bit-identical to "
           f"the GEMM route's (D = 768, 512 causal, 200, 203, S = {FIT_JOINT_S})")
+    tp_rows_route_check(fb, fbq, device)
+
+
+# the int8 row-parallel product's checks on both routes: (D, heads, m, B, S)
+# of the splits the towers make (ViT-B/16 at m = 2 and 8, the text tower,
+# head dim 80 and D = 200 on padded plans, D = 203 with no whole 16-byte
+# int32 rows) and 256 slots of 3 head dims each (D = 768)
+TP_ROWS_ROUTE_CASES = ((768, 12, 2, 2, 197), (768, 12, 8, 2, 197), (512, 8, 2, 3, 77),
+                       (512, 8, 8, 3, 77), (1280, 16, 8, 2, 65), (200, 2, 4, 3, 77),
+                       (203, 7, 7, 3, 33), (768, 256, 256, 1, 50))
+
+
+def tp_rows_route_check(fb, fbq, device):
+    """``rows_q_partial`` on its route (``fused_block_q.rows_route``) against
+    the quantize pass + GEMM route (the parent design's launches) and the
+    twin (on the CPU), bit for bit, at the splits of TP_ROWS_ROUTE_CASES: each head
+    group's attention rows (bf16, in ``group_plan``'s padded layout) and each
+    hidden-column slot's f32 hidden (``mlp_plan``'s), at the m slots' amaxes;
+    each call counted on its route."""
+    import torch
+    from debias_vision_lang_torch.parallel.tensor import head_group
+
+    g_in = torch.Generator().manual_seed(27)
+    n, seen = 0, {"strip": 0, "gemm": 0}
+    for d, heads, m, b, s in TP_ROWS_ROUTE_CASES:
+        hd, f = d // heads, 4 * d
+        slots = [(fb.group_plan(d, hd, hi - lo), hi - lo) for lo, hi in
+                 (head_group(heads, m, j) for j in range(m)) if hi > lo]
+        for half, plans in (("attention", [p for p, _ in slots[:1] + slots[-1:]]),
+                            ("mlp", [fb.mlp_plan(d, f // m)])):
+            dt = torch.bfloat16 if half == "attention" else torch.float32
+            for plan in plans:
+                lanes = plan.head_lanes() if half == "attention" else plan.hidden_columns()
+                width = plan.da if half == "attention" else plan.fp
+                k = lanes.numel()
+                a = (torch.randn(b, s, k, generator=g_in) * 2).to(device, dt)
+                a_p = torch.zeros(b, s, width, dtype=dt, device=device)
+                a_p[..., lanes.to(device)] = a
+                own = fbq.row_amax(a)
+                amaxes = [own] + [own * (0.5 + torch.rand(b, s, 1, generator=g_in)).to(device)
+                                  for _ in range(m - 1)]
+                wq = torch.randint(-127, 128, (k, d), generator=g_in, dtype=torch.int8).to(device)
+                wqt = wq.t().contiguous()
+                route = fbq.rows_route(width, d)
+                fbq.reset_launches()
+                got = fbq.rows_q_partial(a_p, amaxes, wq, w_qt=wqt, plan=plan)
+                check(fbq.ROWS_ROUTES[route] == 1 and sum(fbq.ROWS_ROUTES.values()) == 1,
+                      f"phase 22 rows routes: {half} D={d} K={width} counted {fbq.ROWS_ROUTES}")
+                other = fbq._rows_q_partial_cuda(a_p, amaxes, wqt, plan, strip=False)
+                # the twin on the CPU: cuBLAS's int8 GEMM takes no N off a multiple of 8
+                acc, aq, sc = fbq.rows_q_partial_plain(a.cpu(), [t.cpu() for t in amaxes],
+                                                       wq.cpu())
+                got_c = [t.cpu() for t in got]
+                same = all(map(torch.equal, got, other)) and torch.equal(got_c[0], acc) and \
+                    torch.equal(got_c[2], sc) and torch.equal(got_c[1][..., lanes], aq)
+                check(same, f"phase 22 rows routes: rows_q_partial {half} D={d} m={m} K={width}: "
+                            f"the {route} route, the GEMM route and the twin differ")
+                seen[route] += 1
+                n += 1
+        del a, a_p
+    torch.cuda.synchronize()
+    print(f"phase 22 rows routes: {n} rows_q_partial calls ({seen['strip']} on the strip) "
+          f"bit-identical to the quantize pass + GEMM route and the twin (D = 768, 512, 1280, "
+          f"200, 203; m up to 256; bf16 attention rows, f32 hidden)")
 
 
 def nan_rows_check(fbq, device):
@@ -5051,6 +5189,21 @@ def nan_rows_check(fbq, device):
           f"codes 0, K4's rows: {slot_ok}; KB (a) 1's core: the image NaN, the other "
           f"bit-equal: {qq_ok}")
     check(k4_ok and k3_ok and slot_ok and qq_ok, "phase 22: a NaN row is not JAX's")
+
+
+def rows_routes_of(fb, fbq, d, heads, f, m, times):
+    """``fbq.ROWS_ROUTES`` after ``times`` runs of an int8 block split over m
+    slots: each slot holding a head quantizes its g hdp attention columns,
+    each its Fp hidden columns (``fbq.rows_route`` of the plans' widths)."""
+    from debias_vision_lang_torch.parallel.tensor import head_group
+
+    want = dict.fromkeys(fbq.ROWS_ROUTES, 0)
+    for j in range(m):
+        lo, hi = head_group(heads, m, j)
+        if hi > lo:
+            want[fbq.rows_route(fb.group_plan(d, d // heads, hi - lo).da, d)] += times
+    want[fbq.rows_route(fb.mlp_plan(d, f // m).fp, d)] += m * times
+    return want
 
 
 def slot_routes_of(fb, d, heads, f, m, times):
@@ -5299,11 +5452,11 @@ def tp_phase(model, tokenizer, prompts, card, device):
     rows, k1_ms = tp_kernels(fb, fbq, device, card)
     walls["kernels"] = time.perf_counter() - t_phase
     t = time.perf_counter()
-    tp_slot_split(fbq, device, card)
-    tp_slot_split(fb, device, card, bf16=True)
+    tp_slot_split(fbq, device)
+    tp_slot_split(fb, device, bf16=True)
     walls["slot split"] = time.perf_counter() - t
     t = time.perf_counter()
-    tp_route_check(fb, device)
+    tp_route_check(fb, fbq, device)
     nan_rows_check(fbq, device)
     walls["routes, NaN rows"] = time.perf_counter() - t
     loader = HostLoader(SyntheticFaces(BATCH, seed=22), batch_size=BATCH, num_workers=8,
@@ -5429,6 +5582,14 @@ def tp_phase(model, tokenizer, prompts, card, device):
                     "rows_q_partial": 2 * LAYERS * m * d, "tp_reduce_q": 2 * LAYERS * d}
             check({k: counts[k] for k in want} == want and sum(fbq.LAUNCHES.values()) == 0,
                   f"phase 22 int8 {shape} image launches {counts}; expected {want}")
+            inputs, rroutes = dict(fbq.ROWS_INPUTS), dict(fbq.ROWS_ROUTES)
+            want_rows = rows_routes_of(fb, fbq, vis.width, vis.heads, 4 * vis.width, m, LAYERS * d)
+            print(f"phase 22 int8 {shape} image tower rows_q_partial: {nonzero(inputs)} by input "
+                  f"(attention bf16, MLP f32), routes {nonzero(rroutes)}")
+            half = LAYERS * m * d  # each slot's attention rows, then its hidden
+            check(inputs == {"bf16": half, "f32": half} and rroutes == want_rows,
+                  f"phase 22 int8 {shape}: rows_q_partial inputs {inputs}, routes {rroutes}, "
+                  f"expected {want_rows}")
             if shape == (1, 2):
                 for k in want:
                     rows[k]["launches"] = counts[k]
@@ -5436,6 +5597,10 @@ def tp_phase(model, tokenizer, prompts, card, device):
                 for key, k in TP8:
                     if k in counts:
                         rows[key]["launches"] = counts[k]
+            if shape in ((1, 2), (1, 8)):  # the row-parallel product by half
+                for key, dt in TP_ROWS_INPUT.items():
+                    if ("m=8" in key) == (shape == (1, 8)):
+                        rows[key]["launches"] = inputs[dt]
             reset_all(fb, fbq)
             qt = q_tp.encode_text(tokens)
             tcount = dict(fbq.TP_LAUNCHES)
@@ -5526,7 +5691,8 @@ def tp_phase(model, tokenizer, prompts, card, device):
     wall = time.perf_counter() - t_phase
     print(f"phase 22 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
-    return [rows[k] for k in TP_REPLACES] + [rows[key] for key, _ in TP8], wall
+    return ([rows[k] for k in TP_REPLACES] + [rows["rows_q_partial mlp"]]
+            + [rows[key] for key, _ in TP8], wall)
 
 
 # ---------------------------------------------------------------------------

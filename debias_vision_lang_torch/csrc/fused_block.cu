@@ -340,25 +340,6 @@ constexpr int strip_smem(int kb) {
 static_assert(strip_smem(STRIP_MAX_KB) <= SMEM_MAX, "the strip kernel fits an SM");
 static_assert(strip_stages(STRIP_MAX_KB) >= STRIP_MAX_KB, "the ring holds a tile's K steps");
 
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(smem_u32(src)), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the committed stores have read their shared memory (READ) or are done
-template <bool READ>
-__device__ __forceinline__ void tma_store_wait() {
-  if (READ)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 template <int KB>
 __global__ void __launch_bounds__(STRIP_THREADS, 1)
 gemm_strip_f32_kernel(const __grid_constant__ CUtensorMap tm_a,

@@ -128,6 +128,11 @@
 //   * a quantize pass, one block per row with the row in registers: amax,
 //     scale and codes from a single read; past 4,096 values a row (ViT-H/14's
 //     F = 5,120) two reads of it, the amax then the codes;
+//   * a tensor-parallel slot's row-parallel product (dvl_rows_q_partial) at
+//     a narrow K on the row-strip kernel rows_strip_q_kernel: the codes
+//     made in shared memory, every N tile of the weight walked on them by
+//     s8 wgmma, the int32 tiles stored by TMA (below); wider K on a
+//     warp-a-row quantize pass and this GEMM;
 //   * the LayerNorm kernel of common.cuh.
 // K3 and K4 keep these launches; the tensor-parallel slots fuse LayerNorm
 // with the quantize pass and the MLP slot takes its row amax in the up
@@ -135,6 +140,8 @@
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
+
+#include <atomic>
 
 #include "attention_qq.cuh"
 #include "attention_wgmma.cuh"
@@ -952,21 +959,384 @@ cudaError_t launch_row_amax(const bf16* x, float* amax, int rows, int n, cudaStr
   return cudaGetLastError();
 }
 
-// q, scale from x [rows, n] at amax = max over the m slots' row amaxes:
-// quant_rows_kernel's scale and codes, the row's amax given.
+// 16 bytes of a row (8 bf16 or 4 f32 values) -> their codes at the row
+// scale s, packed in order: quant_rows_kernel's IEEE division, rint and
+// clamp, a NaN to 0 (q_code; rs = 1 / s).  Where s is finite (the row's
+// amax is), the quotient comes from the corrected reciprocal product
+// (qq_div: the IEEE quotient itself, without the division's range check
+// and slow-path branch on each value); else from __fdiv_rn.
+template <typename T, bool FAST>
+__device__ __forceinline__ uint2 q_chunk_as(uint4 raw, float s, float rs) {
+  uint32_t w[2] = {0u, 0u};
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(p[i]);
+      w[i >> 1] |= (q_code<FAST>(f.x, s, rs) | q_code<FAST>(f.y, s, rs) << 8) << (16 * (i & 1));
+    }
+  } else {
+    const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[0] |= q_code<FAST>(f[i], s, rs) << (8 * i);
+  }
+  return make_uint2(w[0], w[1]);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(QR_THREADS)
-quant_rows_given_amax_kernel(const T* __restrict__ x, TpPtrs amaxes, int m,
-                             int8_t* __restrict__ q, float* __restrict__ scale, int n) {
-  const long long row = blockIdx.x;
+__device__ __forceinline__ uint2 q_chunk(uint4 raw, float s, float rs) {
+  return s < INFINITY ? q_chunk_as<T, true>(raw, s, rs) : q_chunk_as<T, false>(raw, s, rs);
+}
+
+// The row scale max(max_j amaxes[j][row] / 127, 1e-8), a NaN amax to NaN.
+__device__ __forceinline__ float tp_row_scale(const TpPtrs& amaxes, int m, long long row) {
   float amax = static_cast<const float*>(amaxes.p[0])[row];
   for (int j = 1; j < m; ++j) amax = fmax_nan(amax, static_cast<const float*>(amaxes.p[j])[row]);
-  const float s = q_scale_nan(amax);
-  const T* xr = x + row * n;
+  return q_scale_nan(amax);
+}
+
+// q [rows, n], scale [rows] from x [rows, n] at the row scale of the m
+// slots' amaxes (tp_row_scale): quant_rows_kernel's scale and codes, the
+// row's amax given.  One warp a row, LNQ_ROWS rows a block, 16-byte loads
+// (n a multiple of 16, rows 16-byte aligned); the warp reads the m amaxes
+// once.
+template <typename T>
+__global__ void __launch_bounds__(32 * LNQ_ROWS)
+quant_rows_given_amax_kernel(const T* __restrict__ x, const __grid_constant__ TpPtrs amaxes,
+                             int m, int8_t* __restrict__ q, float* __restrict__ scale, int rows,
+                             int n) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * LNQ_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float s = tp_row_scale(amaxes, m, row), rs = __frcp_rn(s);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
   int8_t* qr = q + row * n;
-  for (int i = threadIdx.x; i < n; i += QR_THREADS)
-    qr[i] = (int8_t)__float2int_rn(fmin_nan(fmax_nan(rintf(__fdiv_rn(to_f32(xr[i]), s)), -127.f), 127.f));
-  if (threadIdx.x == 0) scale[row] = s;
+  for (int i = lane; i < n / VEC; i += 32) {
+    const uint2 c = q_chunk<T>(xr[i], s, rs);
+    if constexpr (VEC == 8)
+      *reinterpret_cast<uint2*>(qr + 8 * i) = c;
+    else
+      *reinterpret_cast<uint32_t*>(qr + 4 * i) = c.x;
+  }
+  if (lane == 0) scale[row] = s;
+}
+
+template <typename T>
+cudaError_t launch_quant_given_amax(const T* x, const TpPtrs& am, int m, int8_t* q, float* scale,
+                                    int rows, int n, cudaStream_t st) {
+  if (n % 16) return cudaErrorInvalidValue;
+  quant_rows_given_amax_kernel<T><<<(rows + LNQ_ROWS - 1) / LNQ_ROWS, 32 * LNQ_ROWS, 0, st>>>(
+      x, am, m, q, scale, rows, n);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// A tensor-parallel slot's row-parallel int8 product from a row strip
+// quantized into shared memory: aq [M, K] int8 and ascale [M] f32 (the codes
+// and scales of quant_rows_given_amax_kernel) and out [M, ldc] int32 = aq @
+// Wt[N, K]^T, for a narrow K (K % 64 == 0, K <= 384: a head group's g hdp
+// attention columns, a slot's Fp hidden columns).
+//
+// The s8 GEMM gives each 128x128 output tile a block of its own: at K =
+// 64-384 that block runs one to three K steps, then stages 64 KB of int32
+// and stores it from the threads while its products wait, and the codes
+// took a launch of their own before it.  Here a persistent block owns 128
+// rows at a time, in three roles:
+//   * two quantizer warpgroups (64 rows each) read the rows of `a` (16-byte
+//     loads, eight in flight a thread; the m amaxes read once a row into a
+//     scale in shared memory) and write their codes straight into one of
+//     two strip buffers, ceil(K / 128) tiles of [128 rows][128 B] under the
+//     128-byte swizzle that the TMA would write and the s8 wgmma descriptor
+//     reads (the codes past K zero), and the codes and scales out to aq /
+//     ascale;
+//   * a producer thread streams the weight's tiles, N tile after N tile,
+//     through a ring by TMA;
+//   * two consumer warpgroups (64 rows each) walk every N tile on their
+//     half of the strip (wgmma m64n128k32 s8) and send each finished int32
+//     tile out by TMA stores in two halves of 64 columns through a swizzled
+//     staging buffer of their own (gemm_strip_f32_kernel's, in
+//     fused_block.cu), under an L2 evict-first policy (the partial is read
+//     back only by the reduce, after every slot's).
+// Quantizer q feeds consumer q alone (an mbarrier pair per half and
+// buffer), one strip ahead: the next strip is quantized while this one is
+// multiplied and stored, so the reads of `a`, the products and the int32
+// stores (the bound at these K) run together.  The codes are q_chunk's
+// (the IEEE quotient), the int32 sums exact: codes, scales and partial are
+// the quantize pass's and the GEMM's bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int RSTRIP_MAX_KB = 3;               // 128-byte K steps a strip holds: K <= 384
+constexpr int RSTRIP_STAGE_OUT = 64 * 64 * 4;  // a warpgroup's int32 staging: half a tile, 16 KB
+constexpr int RSTRIP_THREADS = 544;  // 2 consumer and 2 quantizer warpgroups, a producer warp
+constexpr int RSMEM_MAX = 227 * 1024;
+
+// the weight ring's stages: as many as fit beside the two strips and the
+// staging, at most 8
+__host__ __device__ constexpr int rstrip_stages(int kb) {
+  return (RSMEM_MAX - 2 * kb * S_TILE - 2 * RSTRIP_STAGE_OUT - 3072) / S_TILE < 8
+             ? (RSMEM_MAX - 2 * kb * S_TILE - 2 * RSTRIP_STAGE_OUT - 3072) / S_TILE
+             : 8;
+}
+constexpr int rstrip_smem(int kb) {
+  return 2 * kb * S_TILE + rstrip_stages(kb) * S_TILE + 2 * RSTRIP_STAGE_OUT + 1024 +
+         (2 * rstrip_stages(kb) + 8) * 8 + 2 * SBM * 4;
+}
+static_assert(rstrip_smem(RSTRIP_MAX_KB) <= RSMEM_MAX, "the row-strip kernel fits an SM");
+static_assert(rstrip_stages(RSTRIP_MAX_KB) >= 2 * RSTRIP_MAX_KB,
+              "the ring holds two tiles' K steps");
+
+template <typename T, int KB>
+__global__ void __launch_bounds__(RSTRIP_THREADS, 1)
+rows_strip_q_kernel(const T* __restrict__ a, const __grid_constant__ TpPtrs amaxes, int m,
+                    const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_c, int8_t* __restrict__ aq,
+                    float* __restrict__ ascale, int M, int N, int K, int ldc, int groups) {
+  constexpr int RS = rstrip_stages(KB);
+  constexpr int STRIP = KB * S_TILE;   // one strip buffer
+  constexpr int VEC = 16 / sizeof(T);  // values a 16-byte load brings
+  constexpr int UNR = 8;               // loads a quantizer thread keeps in flight
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* strips = smem;                      // [2][KB][128][128] codes, swizzled
+  unsigned char* ring = strips + 2 * STRIP;          // [stage][128][128] weight tiles
+  unsigned char* staging = ring + RS * S_TILE;       // [2][2][64][32] int32, swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * RSTRIP_STAGE_OUT);
+  uint64_t* empty = full + RS;
+  uint64_t* sfull = empty + RS;    // [buffer][half]: the half's codes are in
+  uint64_t* sempty = sfull + 4;    // [buffer][half]: its products are done
+  float* row_scale = reinterpret_cast<float*>(sempty + 4);  // [128]: the scale
+  float* row_rcp = row_scale + SBM;                          // [128]: its reciprocal
+
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int nt = N / SBN, per = nt / groups, units = ((M + SBM - 1) / SBM) * groups;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&sfull[i], 1);
+      mbar_init(&sempty[i], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (c == 4) {  // the producer warp: one thread keeps the ring full
+    if (tid != 0) return;
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int n_lo = (u % groups) * per;
+      for (int n = n_lo; n < n_lo + per; ++n)
+        for (int kt = 0; kt < KB; ++kt, ++it) {
+          const int s = it % RS;
+          if (it >= RS) mbar_wait(&empty[s], ((it / RS) - 1) & 1);
+          mbar_expect_tx(&full[s], S_TILE);
+          tma_load_2d(ring + s * S_TILE, &tm_b, &full[s], kt * SBK, n * SBN);
+        }
+    }
+    return;
+  }
+
+  if (c >= 2) {  // quantizer warpgroup q: rows 64 q .. 64 q + 63 of the strip
+    const int q = c - 2, cpr = K / VEC;  // 16-byte loads a row
+    float* sc = row_scale + 64 * q;
+    float* rc = row_rcp + 64 * q;
+    if (K % SBK) {  // the last K step's codes past K stay zero: 64 B of each row
+      for (int i = tid; i < 2 * 64 * 4; i += 128) {
+        const int b = i / 256, r = 64 * q + (i / 4) % 64, ch = 4 + i % 4;
+        *reinterpret_cast<uint4*>(strips + b * STRIP + (KB - 1) * S_TILE + r * 128 +
+                                  ((ch ^ (r & 7)) << 4)) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    int ua = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++ua) {
+      const int b = ua & 1, r0 = (u / groups) * SBM + 64 * q, nrows = min(64, M - r0);
+      const bool writer = u % groups == 0;  // the strip's codes and scales leave once
+      unsigned char* strip = strips + b * STRIP + q * 64 * 128;
+      if (ua >= 2) mbar_wait(&sempty[2 * b + q], ((ua >> 1) - 1) & 1);  // its products are done
+      // rows past M (nrows < 64) keep stale codes: their products only
+      // reach rows the stores clip
+      if (tid < nrows) {
+        const float s = tp_row_scale(amaxes, m, r0 + tid);
+        sc[tid] = s;
+        rc[tid] = __frcp_rn(s);
+        if (writer) ascale[r0 + tid] = s;
+      }
+      named_barrier(3 + q, 128);
+      const uint4* src = reinterpret_cast<const uint4*>(a + (long long)r0 * K);
+      int8_t* dst = aq + (long long)r0 * K;
+      const int total = max(nrows, 0) * cpr;
+      for (int i0 = tid; i0 < total; i0 += 128 * UNR) {
+        uint4 raw[UNR];
+#pragma unroll
+        for (int v = 0; v < UNR; ++v)
+          if (i0 + 128 * v < total) raw[v] = src[i0 + 128 * v];
+#pragma unroll
+        for (int v = 0; v < UNR; ++v) {
+          const int i = i0 + 128 * v;
+          if (i >= total) break;
+          const int r = i / cpr, k0 = (i - r * cpr) * VEC;
+          const uint2 code = q_chunk<T>(raw[v], sc[r], rc[r]);
+          // code byte k0 of row 64 q + r: K step k0 / 128, 16-byte chunk
+          // (k0 % 128) / 16 at chunk ^ (r % 8) of the row's 128 B
+          unsigned char* at = strip + (k0 >> 7) * S_TILE + r * 128 +
+                              (((((k0 & 127) >> 4) ^ r) & 7) << 4) + (k0 & 15);
+          if constexpr (VEC == 8) {
+            *reinterpret_cast<uint2*>(at) = code;
+            if (writer) *reinterpret_cast<uint2*>(dst + (long long)r * K + k0) = code;
+          } else {
+            *reinterpret_cast<uint32_t*>(at) = code.x;
+            if (writer) *reinterpret_cast<uint32_t*>(dst + (long long)r * K + k0) = code.x;
+          }
+        }
+      }
+      fence_proxy_async();  // the codes, before consumer q's wgmma reads them
+      named_barrier(3 + q, 128);
+      if (tid == 0) mbar_arrive(&sfull[2 * b + q]);
+    }
+    return;
+  }
+
+  // consumer warpgroup c: rows 64 c .. 64 c + 63 of the strip
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  unsigned char* out_stage = staging + c * RSTRIP_STAGE_OUT;
+  uint64_t evict_first;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(evict_first));
+  int it = 0, ua = 0;
+  int acc[SBN / 2];
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++ua) {
+    const int b = ua & 1, n_lo = (u % groups) * per;
+    const int r0 = (u / groups) * SBM + 64 * c;
+    mbar_wait(&sfull[2 * b + c], (ua >> 1) & 1);
+    for (int n = n_lo; n < n_lo + per; ++n) {
+#pragma unroll
+      for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+      int prev = -1;
+#pragma unroll
+      for (int kt = 0; kt < KB; ++kt) {
+        const int s = it % RS;
+        mbar_wait(&full[s], (it / RS) & 1);
+        ++it;
+        const uint64_t da = desc_sw128(strips + b * STRIP + kt * S_TILE + c * 64 * SBK);
+        const uint64_t db = desc_sw128(ring + s * S_TILE);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SBK / 32; ++kk) wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) {
+        mbar_arrive(&empty[prev]);
+        if (n == n_lo + per - 1) mbar_arrive(&sempty[2 * b + c]);  // the half may take new rows
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // columns 64 hf .. 64 hf + 63
+        if (tid == 0) tma_store_wait<true>();  // the staging's last stores have read it
+        named_barrier(1 + c, 128);
+        // element (r, col) of the half: box col / 32, its 16-byte chunk
+        // (col % 32) / 4 of row r's 128 bytes at chunk ^ (r % 8)
+#pragma unroll
+        for (int j = 8 * hf; j < 8 * hf + 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h, cc = (j & 3) * 8 + 2 * t;
+            *reinterpret_cast<int2*>(out_stage + ((j >> 2) & 1) * (64 * 128) + r * 128 +
+                                     ((((cc >> 2) ^ r) & 7) << 4) + (cc & 3) * 4) =
+                make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        fence_proxy_async();
+        named_barrier(1 + c, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx) {  // boxes past ldc hold only the padded N edge
+            const int col0 = n * SBN + 64 * hf + 32 * bx;
+            if (col0 < ldc)
+              tma_store_2d_hint(&tm_c, out_stage + bx * (64 * 128), col0, r0, evict_first);
+          }
+          tma_store_commit();
+        }
+      }
+    }
+  }
+  if (tid == 0) tma_store_wait<false>();
+}
+
+int g_sm_count = 0;
+
+// The persistent grid: one block an SM at most; units of 128 rows and
+// `groups` runs of the N tiles (more than one only where the rows alone
+// would leave SMs idle in the last round).
+template <typename T, int KB>
+cudaError_t launch_rows_strip_kernel(const T* a, const TpPtrs& am, int m, const CUtensorMap& tm_b,
+                                     const CUtensorMap& tm_c, int8_t* aq, float* ascale, int M,
+                                     int N, int K, int ldc, cudaStream_t st) {
+  constexpr int smem = rstrip_smem(KB);
+  static std::atomic<unsigned> sized{0};  // the devices this instantiation's size is set on
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(sized.load(std::memory_order_relaxed) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(rows_strip_q_kernel<T, KB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized.fetch_or(1u << dev, std::memory_order_relaxed);
+  }
+  if (g_sm_count == 0) {
+    e = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int mt = (M + SBM - 1) / SBM, nt = N / SBN;
+  int groups = 1;
+  while (groups < nt && mt * groups < 2 * g_sm_count) {
+    int next = groups + 1;
+    while (nt % next) ++next;
+    groups = next;
+  }
+  const int units = mt * groups;
+  rows_strip_q_kernel<T, KB><<<units < g_sm_count ? units : g_sm_count, RSTRIP_THREADS, smem, st>>>(
+      a, am, m, tm_b, tm_c, aq, ascale, M, N, K, ldc, groups);
+  return cudaGetLastError();
+}
+
+// Whether a slot's row-parallel product, K columns of codes into int32 rows
+// of ldc, takes the row-strip kernel: K in whole 64-wide steps the strip
+// holds (at most RSTRIP_MAX_KB 128-byte steps) and int32 rows of whole
+// 16-byte units for the TMA stores.  The one statement of the rule:
+// ops/fused_block_q.py::rows_route asks it (dvl_rows_strip_fits).
+bool rows_strip_fits(int K, int ldc) {
+  return K >= 64 && K % 64 == 0 && K <= RSTRIP_MAX_KB * SBK && ldc >= 1 && ldc % 4 == 0;
+}
+
+template <typename T>
+cudaError_t launch_rows_strip(const T* a, const TpPtrs& am, int m, const int8_t* wt, int8_t* aq,
+                              float* ascale, int* out, int M, int N, int K, int ldc,
+                              cudaStream_t st) {
+  if (M < 1 || N % SBN || !rows_strip_fits(K, ldc) || ldc > N || ldc <= N - SBN)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_b, tm_c;
+  const uint64_t stride_b[1] = {(uint64_t)K}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t box_b[2] = {SBK, SBN};
+  const uint64_t stride_c[1] = {(uint64_t)ldc * 4}, dims_c[2] = {(uint64_t)ldc, (uint64_t)M};
+  const uint32_t box_c[2] = {32, 64};
+  cudaError_t e = make_tensor_map(&tm_b, wt, 2, dims_b, stride_b, box_b,
+                                  CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess)
+    e = make_tensor_map(&tm_c, out, 2, dims_c, stride_c, box_c, CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (e != cudaSuccess) return e;
+  const int kb = (K + SBK - 1) / SBK;
+  if (kb == 1)
+    return launch_rows_strip_kernel<T, 1>(a, am, m, tm_b, tm_c, aq, ascale, M, N, K, ldc, st);
+  if (kb == 2)
+    return launch_rows_strip_kernel<T, 2>(a, am, m, tm_b, tm_c, aq, ascale, M, N, K, ldc, st);
+  return launch_rows_strip_kernel<T, 3>(a, am, m, tm_b, tm_c, aq, ascale, M, N, K, ldc, st);
 }
 
 __device__ __forceinline__ float tp_out_q(int acc, float rs, float ws, float b, float r,
@@ -1642,32 +2012,42 @@ int dvl_mlp_block_q_cols(const void* x, const void* ln_s, const void* ln_b, cons
 }
 
 // The row-parallel product of one slot: a [M, K] (bf16 if a_f32 == 0, else
-// f32) quantized at the row scale max_j(amaxes[j]) / 127 (clamped at 1e-8)
-// into aq [M, K] int8 and ascale [M] f32, then out [M, ldc] int32 = aq @
-// wt^T, wt [N, K] int8 (the slot's input rows of the weight, transposed; N
-// a multiple of 128, its rows past ldc zero).  amaxes: a host array of 1 <=
-// m <= TP_PARTS device pointers to [M] f32.  K % 16 == 0.
+// f32; 16-byte aligned) quantized at the row scale max_j(amaxes[j]) / 127
+// (clamped at 1e-8) into aq [M, K] int8 and ascale [M] f32, then out [M,
+// ldc] int32 = aq @ wt^T, wt [N, K] int8 (the slot's input rows of the
+// weight, transposed; N a multiple of 128, its rows past ldc zero).
+// amaxes: a host array of 1 <= m <= TP_PARTS device pointers to [M] f32.
+// K % 16 == 0.  strip 1 (where rows_strip_fits(K, ldc)): one launch of the
+// row-strip kernel; 0: the warp-a-row quantize pass, then the s8 GEMM
+// writing raw int32 (EQ_I32).  Both give the same codes, scales and
+// partial.
 int dvl_rows_q_partial(const void* a, int a_f32, const void* const* amaxes, int m,
                        const void* wt, void* aq, void* ascale, void* out, int M, int N, int K,
-                       int ldc, void* stream) {
+                       int ldc, int strip, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (m < 1 || m > TP_PARTS) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > TP_PARTS || (strip && !rows_strip_fits(K, ldc)))
+    return (int)cudaErrorInvalidValue;
   TpPtrs am{};
   for (int j = 0; j < m; ++j) am.p[j] = amaxes[j];
-  if (a_f32)
-    quant_rows_given_amax_kernel<float><<<M, QR_THREADS, 0, st>>>(
-        static_cast<const float*>(a), am, m, static_cast<int8_t*>(aq), static_cast<float*>(ascale),
-        K);
-  else
-    quant_rows_given_amax_kernel<bf16><<<M, QR_THREADS, 0, st>>>(
-        static_cast<const bf16*>(a), am, m, static_cast<int8_t*>(aq), static_cast<float*>(ascale),
-        K);
-  cudaError_t e = cudaGetLastError();
+  int8_t* q = static_cast<int8_t*>(aq);
+  float* qs = static_cast<float*>(ascale);
+  const int8_t* w = static_cast<const int8_t*>(wt);
+  if (strip)
+    return (int)(a_f32 ? launch_rows_strip(static_cast<const float*>(a), am, m, w, q, qs,
+                                           static_cast<int*>(out), M, N, K, ldc, st)
+                       : launch_rows_strip(static_cast<const bf16*>(a), am, m, w, q, qs,
+                                           static_cast<int*>(out), M, N, K, ldc, st));
+  cudaError_t e =
+      a_f32 ? launch_quant_given_amax(static_cast<const float*>(a), am, m, q, qs, M, K, st)
+            : launch_quant_given_amax(static_cast<const bf16*>(a), am, m, q, qs, M, K, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_gemm_s8<EQ_I32>(static_cast<const int8_t*>(aq), nullptr,
-                                     static_cast<const int8_t*>(wt), nullptr, nullptr, nullptr, out,
-                                     M, N, K, st, nullptr, 0, ldc);
+  return (int)launch_gemm_s8<EQ_I32>(q, nullptr, w, nullptr, nullptr, nullptr, out, M, N, K, st,
+                                     nullptr, 0, ldc);
 }
+
+// 1 where a slot's row-parallel product of K columns into int32 rows of ldc
+// takes the row-strip kernel (rows_strip_fits), else 0.
+int dvl_rows_strip_fits(int K, int ldc) { return rows_strip_fits(K, ldc); }
 
 // out [M, N] bf16 from 1 <= m <= TP_PARTS int32 partials (a host array of
 // device pointers), summed exactly, dequantized with ascale [M] and w_scale

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the wgmma + TMA kernels of
 // csrc/fused_block.cu, csrc/fused_block_q.cu and csrc/attention.cu:
 // mbarriers and the ring of slots producers and consumers share, TMA tile
-// loads (cp.async.bulk.tensor), wgmma shared-memory descriptors, the wgmma
+// loads and stores (cp.async.bulk.tensor), wgmma shared-memory descriptors, the wgmma
 // instructions themselves (raw PTX, one wrapper per shape the kernels
 // issue: bf16, tf32 and s8) and the host-side tensor maps.
 // Everything has internal linkage: each csrc/*.cu is its own library.
@@ -138,6 +138,36 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// TMA tile stores (cp.async.bulk.tensor, bulk groups): one thread sends a
+// whole box from shared memory; out-of-bounds elements of the box are not
+// written.  A thread waits for its committed groups to have read their
+// shared memory (READ) or to be done.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_2d_hint(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], "
+      "%4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -55,7 +55,16 @@ card a slot entry normalises and quantizes x in one pass, the attention
 slot ends in a row-amax pass and the MLP slot takes its amax in the up
 GEMM's epilogue; its operands (the LayerNorm parameters and the slot's
 weight, scale and bias on its padded layout) are kept per version of each,
-so a call past the first checks, casts and copies nothing.
+so a call past the first checks, casts and copies nothing.  ``rows_q_partial``
+takes one of two routes (``rows_route``; counted in ``ROWS_ROUTES``, and by
+its input's dtype in ``ROWS_INPUTS``): where the product's K is narrow (a
+multiple of 64 up to 384: a head group's g hdp columns, a slot's hidden
+columns at m = 8) and the int32 rows are whole 16-byte units, one launch of
+the row-strip kernel (``rows_strip_q_kernel``:
+each 128-row strip quantized into shared memory, every N tile of the weight
+walked on it by s8 wgmma, each int32 tile stored by TMA while the next one's
+products run): "strip"; else a warp-a-row quantize pass, then the s8 GEMM
+writing raw int32: "gemm".  Both give the same codes, scales and partial.
 
 The int8 kernel experiments of ``benchmarks/`` (KB (a) 1-4; ``KB_LAUNCHES``),
 each K3 or K4 with one change, on the same launches:
@@ -100,6 +109,7 @@ launches:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -134,6 +144,11 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
                                "attention_block_q_attr_vpu": 0,
                                "mlp_block_q_attr_mxu": 0,
                                "mlp_block_q_attr_vpu": 0}
+# the routes of ``rows_q_partial``'s calls (``rows_route``): one launch of the
+# row-strip kernel ("strip") or the quantize pass and the s8 GEMM ("gemm")
+ROWS_ROUTES: Dict[str, int] = {"strip": 0, "gemm": 0}
+# and by their input: an attention slot's bf16 rows, an MLP slot's f32 hidden
+ROWS_INPUTS: Dict[str, int] = {"bf16": 0, "f32": 0}
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM's N tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core's register route holds
 # KB (a) 1's int8 core launches by route (``qq_route``)
@@ -144,7 +159,8 @@ ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES):
+    for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES, ROWS_ROUTES,
+                   ROWS_INPUTS):
         for k in counts:
             counts[k] = 0
 
@@ -769,8 +785,10 @@ def _lib():
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.dvl_mlp_block_q_cols.restype = i
-        lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
+        lib.dvl_rows_q_partial.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, p]
         lib.dvl_rows_q_partial.restype = i
+        lib.dvl_rows_strip_fits.argtypes = [i, i]
+        lib.dvl_rows_strip_fits.restype = i
         lib.dvl_tp_reduce_q.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
         lib.dvl_tp_reduce_q.restype = i
         _LIB = lib
@@ -1126,12 +1144,24 @@ def _mlp_q_cols_cuda(x, ln_s, ln_b, w1_scale, b1, act_kind, w1_qt):
     return h, amax
 
 
-def _rows_q_partial_cuda(a, amaxes, w_qt, plan):
-    """The quantize at the maxed amaxes and the s8 GEMM: ``a``'s rows in
-    ``plan``'s padded layout when wider than the weight's K rows (a slot's
-    kernel output off the identity), the weight copy laid out to match
-    (its rows at the plan's lanes, N rounded up to the GEMM's tile; the
-    store keeps the first N columns)."""
+@functools.lru_cache(maxsize=None)
+def rows_route(k: int, n: int) -> str:
+    """The route of ``rows_q_partial`` on the card for K code columns (the
+    input's width padded to 16) into int32 rows of N: "strip" (one launch
+    of the row-strip kernel) where the library's rule takes it
+    (csrc/fused_block_q.cu::rows_strip_fits: K a multiple of 64 up to 384,
+    N % 4 == 0), else "gemm" (the quantize pass, then the s8 GEMM).  Needs
+    the library."""
+    return "strip" if _lib().dvl_rows_strip_fits(k, n) else "gemm"
+
+
+def _rows_q_partial_cuda(a, amaxes, w_qt, plan, strip=True):
+    """The quantize at the maxed amaxes and the int8 product, on
+    ``rows_route`` (``strip=False``: the quantize pass and the s8 GEMM, for
+    the checks): ``a``'s rows in ``plan``'s padded layout when wider than
+    the weight's K rows (a slot's kernel output off the identity), the
+    weight copy laid out to match (its rows at the plan's lanes, N rounded
+    up to the GEMM's tile; the store keeps the first N columns)."""
     dev = a.device
     if a.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rows_q_partial takes a bf16 or f32 input, got {a.dtype}")
@@ -1146,6 +1176,8 @@ def _rows_q_partial_cuda(a, amaxes, w_qt, plan):
         lanes = plan.head_lanes() if isinstance(plan, AttnPlan) else plan.hidden_columns()
     kp = round_up(k, 16)  # the TMA's 16-byte row stride
     a = pad_cols(a, kp).contiguous()
+    if a.data_ptr() % 16:  # the kernels' 16-byte loads
+        a = a.clone()
     m = a.numel() // kp
     no = round_up(n, S8_GEMM_TILE)
     wt = _operand(w_qt, torch.int8, (n, kw), "w_qt", dev)
@@ -1156,12 +1188,16 @@ def _rows_q_partial_cuda(a, amaxes, w_qt, plan):
     aq = torch.empty(a.shape, dtype=torch.int8, device=dev)
     ascale = torch.empty((*a.shape[:-1], 1), dtype=torch.float32, device=dev)
     acc = torch.empty((*a.shape[:-1], n), dtype=torch.int32, device=dev)
+    route = rows_route(kp, n) if strip else "gemm"
     ptrs = (ctypes.c_void_p * len(amaxes))(*[t.data_ptr() for t in amaxes])
     err = _lib().dvl_rows_q_partial(a.data_ptr(), int(a.dtype == torch.float32), ptrs,
                                     len(amaxes), wt.data_ptr(), aq.data_ptr(), ascale.data_ptr(),
-                                    acc.data_ptr(), m, no, kp, n, _stream_ptr(dev))
+                                    acc.data_ptr(), m, no, kp, n, int(route == "strip"),
+                                    _stream_ptr(dev))
     _raise_on(err, "dvl_rows_q_partial")
     TP_LAUNCHES["rows_q_partial"] += 1
+    ROWS_ROUTES[route] += 1
+    ROWS_INPUTS["f32" if a.dtype == torch.float32 else "bf16"] += 1
     return acc, aq, ascale
 
 

@@ -385,6 +385,13 @@ def _qq_sass(body):
     return {name: body for name in names}
 
 
+def _rows_strip_sass(body):
+    """rows_q_partial's row-strip kernel, rows_strip_q_kernel<T, KB>: bf16
+    and f32 inputs, one to three K steps."""
+    return {f"_ZN12_GLOBAL__N_119rows_strip_q_kernelI{t}Li{kb}EEEvPKT_6TpPtrsi": body
+            for t in ("13__nv_bfloat16", "f") for kb in (1, 2, 3)}
+
+
 @pytest.mark.parametrize("broken", [None, "no IGMMA", "no UTMALDG", "missing"])
 def test_sass_check_holds_every_qq_instantiation_to_wgmma_and_tma(monkeypatch, broken):
     """chip_smoke.sass_check_per_kernel: each of the int8 core's eight
@@ -396,8 +403,9 @@ def test_sass_check_holds_every_qq_instantiation_to_wgmma_and_tma(monkeypatch, b
     import chip_smoke as C
 
     funcs = _qq_sass("IGMMA.64x64x32.S32.S8.S8 ; UTMALDG.3D ;")
-    funcs["_ZN12_GLOBAL__N_118qq_quant_qk_kernelEPKf"] = "LDG.E.128 ;"
     name = next(iter(funcs))
+    funcs["_ZN12_GLOBAL__N_118qq_quant_qk_kernelEPKf"] = "LDG.E.128 ;"
+    funcs.update(_rows_strip_sass("IGMMA.64x128x32.S32.S8.S8 ; UTMALDG.2D ;"))
     if broken == "no IGMMA":
         funcs[name] = "UTMALDG.3D ;"
     elif broken == "no UTMALDG":
@@ -405,7 +413,7 @@ def test_sass_check_holds_every_qq_instantiation_to_wgmma_and_tma(monkeypatch, b
     elif broken == "missing":
         del funcs[name]
     monkeypatch.setattr(C, "sass_functions", lambda path: dict(funcs))
-    assert C.SASS_PER_KERNEL["fused_block_q"][:2] == ("attention_qq_", ("IGMMA", "UTMALDG"))
+    assert C.SASS_PER_KERNEL["fused_block_q"][0][:2] == ("attention_qq_", ("IGMMA", "UTMALDG"))
     if broken is None:
         C.sass_check_per_kernel("fused_block_q", "lib.so")
     else:
