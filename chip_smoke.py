@@ -176,7 +176,7 @@ Phases (any failure exits non-zero before the final line):
      card against the CPU from one start: for every seed that ran, the
      pretraining's step-0 loss and gradients within 1e-5 (of each
      tensor's largest magnitude, at least 1), after 3 Adam steps the loss
-     within 1e-4 and the update's cosine >= 0.9999, 50 steps reported;
+     within 1e-4 and the update's cosine >= 0.9999, 20 steps reported;
      for the valid seed, both arms again on the CPU from the card's
      pretrained tower, every eval, before and after within 1e-3
      (the probe 1e-2).  Whether the adversarial arm's NDKL drop beats the
@@ -212,10 +212,10 @@ Phases (any failure exits non-zero before the final line):
      image tower's K1 / K2, causal K1 and K2 12 per text dispatch.
  17. SLIP-ViT-L/16 at full width and depth (D=1024, 24 layers, 16 heads,
      F=4096; DebiasCLIP with 2 prepended tokens, random init from seed 0):
-     (a) phase 4's measurement pipeline on its 1,024 images (P8 staging,
-     the 319 prompts) at bfloat16 and at int8, with the counters set to 0
-     before each: K1 and K2 24 x 4 launches each and nothing else (bf16),
-     K3 and K4 24 x 4 each and nothing else (int8); metrics equal to the
+     (a) phase 4's measurement pipeline on the first 512 of its images (P8
+     staging, the 319 prompts) at bfloat16 and at int8, with the counters
+     set to 0 before each: K1 and K2 24 x 2 launches each and nothing else
+     (bf16), K3 and K4 24 x 2 each and nothing else (int8); metrics equal to the
      numpy oracle; image embeddings of the first 256 against the float32
      plain tower: cosine >= COS_MIN at bf16; at int8 the kernel path's mean
      cosine error at most INT8_ERR_RATIO times that of the plain int8 route
@@ -244,7 +244,7 @@ Phases (any failure exits non-zero before the final line):
      [0.5, 1], a bottleneck's bn3 in [0.1, 0.3]: the init's zero bn3
      scales would leave every residual branch dead; running mean and var
      the statistics of each BatchNorm's input over 32 other seeded scenes),
-     cuDNN's TF32 flag at PyTorch's default (on); per tower, 1,024 seeded uint8 scenes at its size (a bilinear
+     cuDNN's TF32 flag at PyTorch's default (on); per tower, 256 seeded uint8 scenes at its size (a bilinear
      4 x 4 colour grid plus noise: iid noise images all embed alike through
      a pooled CNN, and their scores tie within float32 rounding) through
      HostLoader (NHWC, no patch staging), get_labels_img_embeddings,
@@ -268,9 +268,9 @@ Phases (any failure exits non-zero before the final line):
      text tower), a DebiasCLIP with 2 prompt tokens, random init from seed
      0, the temporal embedding and every temporal out-projection redrawn
      from a seeded generator (the init zeroes them: the divided tower's
-     temporal attention would be the identity); 256 written videos (128
+     temporal attention would be the identity); 64 written videos (32
      frame directories of 6 PNGs named frame_2 .. frame_12, so only a
-     natural sort orders them, and 128 GIFs of 6 palette frames, 224 px;
+     natural sort orders them, and 32 GIFs of 6 palette frames, 224 px;
      a labels.csv in FairFace's vocabulary), each subsampled to 4 frames;
      for each formulation, joint (S = 785) and divided: measure_bias(
      dataset="video", batch 32, the 319 prompts, byte tokenizer) at
@@ -279,7 +279,7 @@ Phases (any failure exits non-zero before the final line):
      numpy oracle within 1e-5; rows against float32 at cosine >= 0.999
      (bf16) and 0.99 (int8 rungs); launches: none at float32 and bf16 (the
      video towers run plain, as in JAX; the bf16 text tower, run beside
-     it, 12 causal K1 + 12 K2), 96 K3 + 96 K4 at int8 (joint: every K3 on
+     it, 12 causal K1 + 12 K2), 24 K3 + 24 K4 at int8 (joint: every K3 on
      the long core route; divided: on the short one), int8-text 12 causal
      K3 + 12 K4 more; videos/s and frames/s at B=32 per rung (CUDA events)
      and each measurement's wall; use_pallas=True on 8 videos at float32
@@ -422,7 +422,15 @@ Phases (any failure exits non-zero before the final line):
      model's resblocks (KB (a) 5 vs K1 at bf16, the split vs K4, the layer
      vs K3 then K4, the post-P V division vs K3, the FiT-shape split vs
      K4): launches 12 per entry, cosine printed, not gated, ms beside the
-     baseline's.
+     baseline's.  The layer (its QKV product on the persistent TMA-store
+     GEMM gemm_s8_tma_kernel, its down product on the epilogue-warpgroup
+     GEMM gemm_s8_epi_kernel, LayerNorm and the quantize pass in one at
+     both norms: 9 launches) held to the design before it
+     (benchmarks_torch/layer_parent.json: every output, code and scale of
+     benchmarks_torch/layer_split.py's cases and its 12-layer tower bit for
+     bit, the int8 library's kernels the same SASS but the new two), its
+     products on the s8 GEMM route the same outputs bit for bit; its
+     LayerNorm codes held to K3's / K4's LayerNorm rows of the same inputs.
  25. benchmarks/q_attribution.py's blocks (KB (c)):
      ``fused_block_q.mlp_block_q_attr`` / ``attention_block_q_attr`` at
      modes "mxu" (the products only, XLA's saturating int8 casts, the wgmma
@@ -546,6 +554,9 @@ HBM_BYTES_PER_S = 3.35e12
 # MLP activation, weight seed); SLIP-L is phase 17's tower
 IMAGE_TOWERS = (("ViT-B/16", 768, 12, "quick_gelu", 7), ("SLIP-ViT-L/16", 1024, 16, "gelu", 9))
 SLIP_ARCH, SLIP_LAYERS = "facebookresearch/SLIP/ViT-L/16", 24
+# images phase 17 measures at each rung: the first two of phase 4's batches
+# (the numpy metrics oracle's NDKL at top-n 1.0 takes ~10 s a rung at 1,024)
+SLIP_IMAGES = 2 * BATCH
 RN_TEXT = (640, 10)  # RN50x4's text tower: width and heads (phases 3, 6 and 18)
 # K1 / K3 past the register core's 320 keys (phases 3 and 6): a ragged last
 # key tile, both sides of the long route's 128-query block, and the
@@ -743,6 +754,7 @@ def find_cuobjdump():
 # both routes, and of the int8 row-parallel product's row-strip kernel holds
 # s8 wgmma and TMA loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\.", "IGMMA": r"\bIGMMA\.", "UTMALDG": r"\bUTMALDG\b",
+            "UTMASTG": r"\bUTMASTG\b",
             "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "HMMA": r"\bHMMA\.", "IMMA": r"\bIMMA\."}
 SASS_REQUIRED = {"fused_block": ("HGMMA", "UTMALDG"),
                  "fused_block_q": ("IGMMA", "UTMALDG", "HGMMA"),
@@ -755,6 +767,12 @@ SASS_FORBIDDEN = {"fused_block_q": ("HMMA", "IMMA")}
 SASS_PER_KERNEL = {"fused_block_q": (("attention_qq_", ("IGMMA", "UTMALDG"), 8),
                                      ("rows_strip_q_kernel", ("IGMMA", "UTMALDG"), 6)),
                    "fused_block": (("gemm_strip_f32_kernel", ("HGMMA", "UTMALDG"), 6),)}
+# the one-call layer's persistent GEMMs (gemm_s8_tma_kernel, its QKV
+# product, and gemm_s8_epi_kernel, its down product; one instantiation
+# each): s8 wgmma, TMA loads and TMA stores
+SASS_PER_KERNEL_STORE = {"fused_block_q": (
+    ("gemm_s8_tma_kernel", ("IGMMA", "UTMALDG", "UTMASTG"), 1),
+    ("gemm_s8_epi_kernel", ("IGMMA", "UTMALDG", "UTMASTG"), 1))}
 
 
 # per kernel of the attention library: each instantiation of the long route
@@ -846,15 +864,17 @@ def sass_check(lib, path) -> None:
     check(not present, f"the {lib} library has {present} (mma.sync) instructions in its SASS")
     if lib in SASS_PER_KERNEL:
         sass_check_per_kernel(lib, path)
+    if lib in SASS_PER_KERNEL_STORE:
+        sass_check_per_kernel(lib, path, SASS_PER_KERNEL_STORE)
 
 
-def sass_check_per_kernel(lib, path) -> None:
-    """SASS_PER_KERNEL[lib]: for each kernel there, every instantiation whose
-    mangled name holds the kernel's name holds each of its ops, and there
-    are as many as expected; a missing one, or one without an op, fails the
-    run."""
+def sass_check_per_kernel(lib, path, table=None) -> None:
+    """``table`` (SASS_PER_KERNEL by default)[lib]: for each kernel there,
+    every instantiation whose mangled name holds the kernel's name holds
+    each of its ops, and there are as many as expected; a missing one, or
+    one without an op, fails the run."""
     funcs = sass_functions(path)
-    for kernel, ops, want in SASS_PER_KERNEL[lib]:
+    for kernel, ops, want in (table or SASS_PER_KERNEL)[lib]:
         own = {name: {op: len(re.findall(SASS_OPS[op], body)) for op in ops}
                for name, body in funcs.items() if kernel in name}
         print(f"sass {lib}: {ops} per {kernel} instantiation "
@@ -889,13 +909,14 @@ SPLIT_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out 
                "gemm_s8_kernel<1>": "out GEMM", "gemm_s8_kernel<2>": "up GEMM",
                "gemm_s8_kernel<3>": "up GEMM", "gemm_s8_kernel<4>": "down GEMM",
                "gemm_s8_kernel<8>": "out GEMM", "gemm_s8_kernel<9>": "down GEMM",
-               "gemm_s8_kernel<10>": "down GEMM",
+               "gemm_s8_kernel<10>": "down GEMM", "gemm_s8_tma_kernel": "QKV GEMM",
+               "gemm_s8_epi_kernel": "down GEMM",
                "layer_norm_kernel": "LN"}
 # the int8 attention block quantizes two bf16 row sets (the LN output and
 # the attention output) with one kernel at one shape: the profiler sums them
 QUANT_X_ATTN = "quantize x + quantize attn (2 calls)"
-SPLIT_ORDER = ["LN", "quantize x", QUANT_X_ATTN, "QKV GEMM", "core", "out GEMM", "up GEMM",
-               "quantize h", "down GEMM"]
+SPLIT_ORDER = ["LN", "LN + quantize", "quantize x", QUANT_X_ATTN, "QKV GEMM", "core",
+               "quantize attn", "out GEMM", "up GEMM", "quantize h", "down GEMM"]
 
 
 def split_label(key: str) -> str:
@@ -912,6 +933,8 @@ def split_label(key: str) -> str:
         return SPLIT_NAMES[short]
     if kernel == "quant_rows_kernel":
         return "quantize x" if "bfloat16" in (args or "") else "quantize h"
+    if kernel == "ln_quant_rows_kernel":
+        return "LN + quantize"
     return "core" if kernel in ("attention_wgmma_kernel", "attention_long_kernel",
                                 "attention_wide_kernel") else short
 
@@ -1830,7 +1853,7 @@ def pretrain_witness(E, world, seed, card):
     loss and every gradient tensor within GRAD0_RTOL of its largest
     magnitude (at least 1.0); after 3 Adam steps the loss
     within STEP3_ATOL and the update's cosine at least STEP3_UPDATE_COS;
-    after 50 steps the same, reported."""
+    after 20 steps the same, reported."""
     import torch
     from debias_vision_lang_torch.models.clip import CLIP
 
@@ -1865,7 +1888,7 @@ def pretrain_witness(E, world, seed, card):
           f"max(1, that))")
     check(abs(l_card - l_cpu) <= GRAD0_RTOL * max(1.0, abs(l_cpu)) and share <= 1.0,
           f"seed {seed}: the step-0 pretraining loss or gradients differ on the card")
-    for steps in (3, 50):
+    for steps in (3, 20):
         card_p, _ = E.pretrain_tiny_clip(imgs, caps, steps=steps, seed=seed, device="cuda")
         cpu_p, _ = E.pretrain_tiny_clip(imgs, caps, steps=steps, seed=seed, device="cpu")
         card_p = {k: v.cpu() for k, v in card_p.items()}
@@ -2617,11 +2640,11 @@ def int8_vs_plain_int8(tag, qmodel, p8, got, ref32):
     check(err_k <= INT8_ERR_RATIO * err_p, f"{tag}: the kernels add error to the int8 rung's")
 
 
-def slip_phase(clip_b16, loader, prompts, card, device):
+def slip_phase(clip_b16, prompts, card, device):
     """Phase 17: SLIP-ViT-L/16 (published widths, random weights from seed 0)
     through the measurement pipeline at bf16 and int8, checkpoint loading in
     three namings, and zero-shot (function and CLI).  Returns the launch
-    counts of K1-K4 over a 1,024-image measurement."""
+    counts of K1-K4 over a SLIP_IMAGES-image measurement."""
     import torch
     from debias_vision_lang_torch.cli import FolderDataset
     from debias_vision_lang_torch.data.loader import HostLoader
@@ -2650,12 +2673,15 @@ def slip_phase(clip_b16, loader, prompts, card, device):
           f"{sum(p.numel() for p in model.parameters())} params, built in "
           f"{time.perf_counter() - t0:.2f} s")
     tok = ByteTokenizer()
+    loader = HostLoader(SyntheticFaces(SLIP_IMAGES), batch_size=BATCH, num_workers=8,
+                        native_n_px=vis.image_size, native_patch=vis.patch_size)
     p8 = torch.from_numpy(next(iter(loader)).images).to(device)
     with torch.no_grad():
         ref32 = model.encode_image(p8, dtype=torch.float32).float()
 
-    # (a) the measurement pipeline of phase 4 on its 1,024 images, bf16 and int8
-    n_batches, counts = N_IMAGES // BATCH, {}
+    # (a) the measurement pipeline of phase 4 on its first SLIP_IMAGES images,
+    # bf16 and int8
+    n_batches, counts = SLIP_IMAGES // BATCH, {}
     for rung, blocks in (("bfloat16", ("attention_block", "mlp_block")),
                          ("int8", ("attention_block_q", "mlp_block_q"))):
         m, dt = resolve_compute(model, rung)
@@ -2670,8 +2696,8 @@ def slip_phase(clip_b16, loader, prompts, card, device):
         launches = {**fb.LAUNCHES, **fbq.LAUNCHES}
         with torch.no_grad():
             tower_ms = cuda_ms(lambda: m.encode_image(p8, dtype=dt), iters=3)
-        print(f"phase 17 SLIP-L {rung}: {N_IMAGES} images + {len(prompts)} prompts in "
-              f"{wall:.3f} s ({N_IMAGES / wall:.1f} img/s, host clock, in-memory images); "
+        print(f"phase 17 SLIP-L {rung}: {SLIP_IMAGES} images + {len(prompts)} prompts in "
+              f"{wall:.3f} s ({SLIP_IMAGES / wall:.1f} img/s, host clock, in-memory images); "
               f"image tower B={BATCH} {tower_ms:.3f} ms/batch, {BATCH / tower_ms * 1e3:.1f} "
               f"img/s ({card}); launches {launches}")
         for name in blocks:
@@ -2681,7 +2707,7 @@ def slip_phase(clip_b16, loader, prompts, card, device):
             counts[name] = launches[name]
         check(all(v == 0 for k, v in launches.items() if k not in blocks),
               f"phase 17 {rung}: other kernels launched: {launches}")
-        check(embs.shape == (N_IMAGES, vis.embed_dim) and embs.is_cuda,
+        check(embs.shape == (SLIP_IMAGES, vis.embed_dim) and embs.is_cuda,
               f"phase 17 {rung}: image embeddings {tuple(embs.shape)}")
         check_metrics(f"SLIP-L {rung}", labels, embs, prompt_embs, eval_ranking)
         tag = (f"SLIP-L {rung} kernel path vs float32 plain path, image embeddings "
@@ -2803,6 +2829,10 @@ def slip_phase(clip_b16, loader, prompts, card, device):
 
 # phase 18: the ModifiedResNet family at full width and depth
 RN_ARCHS = ("RN50", "RN50x4")
+# images a ResNet rung measures: one batch (the numpy metrics oracle's NDKL
+# at top-n 1.0 takes ~10 s a rung at 1,024; the multi-batch loader runs in
+# phases 4, 17 and 19)
+RN_IMAGES = BATCH
 RN_RUNGS = ("float32", "bfloat16", "int8", "int8-text")
 RN_INT8_COS = 0.99  # int8 vs float32 image rows: the JAX package's bar for this rung
 RN_TF32_TOL = 1e-4  # card vs CPU float32 tower, of the CPU's largest magnitude
@@ -2996,7 +3026,7 @@ def resnet_arch(arch, prompts, tokens, tok, card, device, counters, rn_launches)
           f"embed {vis.embed_dim}): {sum(p.numel() for p in model.parameters())} params, "
           f"BatchNorms redrawn and calibrated on 32 other scenes, built in "
           f"{time.perf_counter() - t_arch:.2f} s")
-    loader = HostLoader(SyntheticScenes(N_IMAGES, px=px), batch_size=BATCH, num_workers=8,
+    loader = HostLoader(SyntheticScenes(RN_IMAGES, px=px), batch_size=BATCH, num_workers=8,
                         native_n_px=px)
     u8 = torch.from_numpy(next(iter(loader)).images).to(device)
     x = preprocess_batch(u8, px, mean=vis.image_mean, std=vis.image_std)
@@ -3016,7 +3046,7 @@ def resnet_arch(arch, prompts, tokens, tok, card, device, counters, rn_launches)
         txt_launches = launches_of(*counters)
         with torch.no_grad():
             tower_ms = cuda_ms(lambda: m.encode_image(x, dtype=dt), iters=3)
-        print(f"phase 18 {arch} {rung}: {N_IMAGES} images in {img_s:.3f} s (host clock, "
+        print(f"phase 18 {arch} {rung}: {RN_IMAGES} images in {img_s:.3f} s (host clock, "
               f"in-memory images); image tower B={BATCH} {tower_ms:.3f} ms/batch, "
               f"{BATCH / tower_ms * 1e3:.1f} img/s ({card}); launches: image tower "
               f"{nonzero(img_launches)}, prompts {nonzero(txt_launches)}")
@@ -3027,7 +3057,7 @@ def resnet_arch(arch, prompts, tokens, tok, card, device, counters, rn_launches)
             want.update(attention_block_q_causal=LAYERS, mlp_block_q=LAYERS)
         check(txt_launches == want, f"phase 18 {arch} {rung}: prompt launches "
               f"{txt_launches}, expected {want}")
-        check(embs.shape == (N_IMAGES, vis.embed_dim) and embs.device.type == device.type,
+        check(embs.shape == (RN_IMAGES, vis.embed_dim) and embs.device.type == device.type,
               f"phase 18 {arch} {rung}: image embeddings {tuple(embs.shape)} {embs.device}")
         check_metrics(f"{arch} {rung}", labels, embs, prompt_embs, eval_ranking)
         first[rung] = embs[:BATCH]
@@ -3172,7 +3202,7 @@ def resnet_checkpoint_and_serving(model, x, tokens, tok, card, device, counters)
 
 # phase 19: the Frozen-in-Time video family at full width and depth
 FIT_ARCH = "m-bain/frozen-in-time/base"
-FIT_VIDEOS, FIT_BATCH, FIT_FRAMES, FIT_FILE_FRAMES = 256, 32, 4, 6
+FIT_VIDEOS, FIT_BATCH, FIT_FRAMES, FIT_FILE_FRAMES = 64, 32, 4, 6
 FIT_RUNGS = ("float32", "bfloat16", "int8", "int8-text")
 FIT_COS = {"bfloat16": 0.999, "int8": 0.99, "int8-text": 0.99}  # rows vs float32
 FIT_F32_TOL = 1e-4  # card vs CPU float32 tower, of the CPU's largest magnitude
@@ -5009,8 +5039,9 @@ def tp_rows_split(S, fbq, device, sass):
                    f"parent design")
     check(all("quant_rows_given_amax_kernel" in k for k in removed),
           f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
-    check(all(any(n in k for n in TP_ROWS_NEW) for k in added),
-          f"phase 22: the int8 library's new kernels {sorted(added)} are not {TP_ROWS_NEW}")
+    check(all(any(n in k for n in TP_ROWS_NEW + LAYER_NEW) for k in added),
+          f"phase 22: the int8 library's new kernels {sorted(added)} are not "
+          f"{TP_ROWS_NEW + LAYER_NEW}")
 
 
 def tp_route_check(fb, fbq, device):
@@ -6065,6 +6096,59 @@ SPLIT_KINDS = {"k3": ("attention_block_q", True, {}), "k4": ("mlp_block_q", Fals
                "postdiv": ("attention_block_q_postdiv", True, {})}
 
 
+# the one-call layer's design before its redesign (K3's and K4's launches:
+# LayerNorm, then the quantize pass, at both norms; every product on
+# gemm_s8_kernel), recorded with ``benchmarks_torch/layer_split.py --root`` on
+# the parent checkout: the digests of its output, y, yb and every code and
+# scale set in layer_split.py's cases and of its 12-layer tower, and the SASS
+# of every kernel of the int8 library.  The redesign adds the persistent QKV
+# and down GEMMs (LAYER_NEW) and changes no other kernel.
+LAYER_PARENT = "benchmarks_torch/layer_parent.json"
+LAYER_NEW = ("gemm_s8_tma_kernel", "gemm_s8_epi_kernel")
+
+
+def layer_hold(fbq, device):
+    """``fused_layer_q`` held to LAYER_PARENT in layer_split.py's cases
+    (ViT-B/16 at B=8 and B=256, D=200 H=2 F=800, x and x/16, and the
+    12-layer tower; the times are that script's and the kernels line's):
+    every output, code and scale bit for bit, yb = bf16(y), every product
+    on the s8 GEMM route the same outputs bit for bit; of the int8
+    library's kernels none compiled otherwise or gone, only LAYER_NEW
+    added."""
+    import importlib
+
+    import torch
+    from debias_vision_lang_torch.ops import _build
+
+    L = importlib.import_module("benchmarks_torch.layer_split")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), LAYER_PARENT)) as fh:
+        parent = json.load(fh)
+    off = []
+
+    def each(case, sk):
+        other = L.layer_outputs(fbq, case, device, tma=False)
+        off.extend(f"{case[0]} {k}" for k in L.KEYS if not torch.equal(sk[k], other[k]))
+        if not torch.equal(sk["yb"], sk["y"].to(torch.bfloat16)):
+            off.append(f"{case[0]} yb")
+
+    sass = L.S.sass_digests(_build.LIB_PATHS["fused_block_q"])
+    found = bool(sass)
+    if not found:
+        print("phase 24: no cuobjdump found: the int8 library is not held to the parent's SASS")
+        sass = dict(parent["sass"], **{n: "" for n in LAYER_NEW})
+    mine = {"outputs": L.flat(L.output_digests(fbq, device, each)), "sass": sass}
+    bad = L.S.compare(mine, {"outputs": L.flat(parent["outputs"]), "sass": parent["sass"]},
+                      f"the parent design ({LAYER_PARENT})", "phase 24 layer ")
+    added, removed = set(sass) - set(parent["sass"]), set(parent["sass"]) - set(sass)
+    print(f"phase 24 layer: {len(mine['outputs'])} digests; the s8 GEMM route and yb "
+          f"{'agree' if not off else f'DIFFER: {off}'}; added {sorted(added)}")
+    check(not bad and not off, f"phase 24: the layer's outputs or the int8 library's kernels "
+                               f"differ from the parent design ({bad}; {off})")
+    check(not removed and all(any(n in k for n in LAYER_NEW) for k in added),
+          f"phase 24: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
+    torch.cuda.empty_cache()
+
+
 def layer_work(b, s, d, f):
     """The one-call int8 layer: K3's and K4's operations; x read and the
     output written once (y stays between the halves), both halves' weights,
@@ -6088,23 +6172,31 @@ def fsplit_own(fbq, x, mlp, fbv):
 
 def layer_compare(fbq, name, x, qa, qakw, qm, qmkw, heads):
     """``fused_layer_q`` against its twin: every int8 code of both halves
-    the quantization of the kernel's own rows; the attention half's codes
-    off the twin's, and the MLP half's off K4's twin's run on bf16 of the
-    kernel's own y (a flipped attention code moves its whole row of y, and
-    so that row's MLP codes), under phase 6's bars (``compare_q``'s: each
-    set's largest difference, the MLP half's x codes at the xq bar, the
-    share over each half's codes); the f32 y bit-equal to x + (deq + bo)
-    of the kernel's own attention codes; the output within 1 bf16 ulp of
-    the twin's last step on the kernel's own y and hidden codes, and of the
-    twin's own output unless some code differs from the twin's.  Returns the
-    largest output difference from the twin."""
+    the quantization of the kernel's own rows (the layer normalises and
+    quantizes in one pass and writes no LayerNorm rows: those of its codes
+    are held to K3's LayerNorm rows of x and K4's of its own bf16 y, the
+    same kernel's rows bit for bit); the attention half's codes off the
+    twin's, and the MLP half's off K4's twin's run on bf16 of the kernel's
+    own y (a flipped attention code moves its whole row of y, and so that
+    row's MLP codes), under phase 6's bars (``compare_q``'s: each set's
+    largest difference, the MLP half's x codes at the xq bar, the share over
+    each half's codes); the f32 y bit-equal to x + (deq + bo) of the
+    kernel's own attention codes, its yb bf16(y); the output within 1 bf16
+    ulp of the twin's last step on the kernel's own y and hidden codes, and
+    of the twin's own output unless some code differs from the twin's.
+    Returns the largest output difference from the twin."""
     import torch
 
-    sk, sr, sm = {}, {}, {}
+    sk, sr, sm, s3, s4 = {}, {}, {}, {}, {}
     got = fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw, scratch=sk)
     ref = fbq.fused_layer_q_plain(x, *qa, *qm, heads=heads, scratch=sr)
     fbq.mlp_block_q_plain(sk["y"].to(x.dtype), *qm, scratch=sm)
     sm = {"yq": sm["xq"], "hq": sm["hq"]}
+    if "xn" not in sk:  # the card: K3's and K4's LayerNorm rows of the same inputs
+        fbq.attention_block_q(x, *qa, heads=heads, **qakw, scratch=s3)
+        fbq.mlp_block_q(sk["y"].to(x.dtype), *qm, **qmkw, scratch=s4)
+        sk = {**sk, "xn": s3["xn"], "yn": s4["xn"]}
+        check(torch.equal(sk["yb"], sk["y"].to(x.dtype)), f"{name}: its yb is not bf16(y)")
     n_diff = 0
     for half, sets, twin in (("attention", (("xq", "xn", "xs"), ("aq", "attn", "as")), sr),
                              ("MLP", (("yq", "yn", "ys"), ("hq", "h", "hs")), sm)):
@@ -6262,7 +6354,7 @@ def split_checks(fb, fbq, device, card):
     subkernel_split(f"fused_layer_q B={b}",
                     lambda: fbq.fused_layer_q(x, *qa, *qm, heads=heads, **qakw, **qmkw),
                     {"QKV GEMM": 2 * m * d * 3 * d, "out GEMM": 2 * m * d * d, **mlp_ops}, card,
-                    kind="int8")
+                    kind="int8", rename={"quantize x": "quantize attn"})
     del x, xf
     torch.cuda.empty_cache()
     return rows
@@ -6289,6 +6381,9 @@ def split_phase(model, card, device):
     t_phase = time.perf_counter()
     rows = split_checks(fb, fbq, device, card)
     walls = {"kernels": time.perf_counter() - t_phase}
+    t = time.perf_counter()
+    layer_hold(fbq, device)
+    walls["layer hold"] = time.perf_counter() - t
     t = time.perf_counter()
     res = model.clip.visual.resblocks
     d, heads = KB_D, KB_H
@@ -6361,6 +6456,9 @@ def split_phase(model, card, device):
                   f"phase 24: {kind} tower not finite")
             check(launches[kind] == want,
                   f"phase 24: {kind} tower launches {launches[kind]}, expected {want}")
+            if kind == "layer":  # D = 768: the QKV and down products on the persistent GEMMs
+                check(fbq.LAYER_ROUTES == {"tma": LAYERS, "qkv": 0, "gemm": 0},
+                      f"phase 24: the layer tower's routes {fbq.LAYER_ROUTES}")
         print(f"phase 24 tower launches: {launches}")
         for kind, (run, x, base, _) in towers.items():
             if base is None:
@@ -7813,7 +7911,7 @@ def main() -> int:
     # 17. SLIP-ViT-L/16 at full width and depth; its launches complete the
     # SLIP-L rows of the kernels line
     t0 = time.perf_counter()
-    slip_launches = slip_phase(model.clip, loader, prompts, card, device)
+    slip_launches = slip_phase(model.clip, prompts, card, device)
     slip_s = time.perf_counter() - t0
     # 18. the ModifiedResNet family; RN50x4's launches complete the D=640 rows
     t0 = time.perf_counter()

@@ -52,7 +52,14 @@
 //   dvl_fused_layer_q          <- q_layer_fused.py::tower (layer_kernel, every
 //                                 mode): K3 then K4 with the attention half's
 //                                 x + proj kept f32 (EQ_BIAS_RESID_Y) and added
-//                                 by the down product (EQ_RESID32_BIAS);
+//                                 by the down product (EQ_RESID32_BIAS), in
+//                                 nine launches: LayerNorm and the quantize
+//                                 pass in one at both norms
+//                                 (ln_quant_rows_kernel), the QKV product on
+//                                 the persistent TMA-store GEMM
+//                                 (gemm_s8_tma_kernel), the down product on
+//                                 its epilogue-warpgroup form
+//                                 (gemm_s8_epi_kernel, below);
 //   dvl_attention_block_q_postdiv <- q_ilp4.py::make_call (the head-pair
 //                                 packed kernel): K3's quantizer, the row sum
 //                                 divided out after P V as AQ_VAR's core.
@@ -102,8 +109,8 @@
 // the f32 MLP hidden (B*S x F x 4 bytes: 620 MB at B=256, written once by the
 // up-projection and read once by its quantize pass) are bandwidth work.  The
 // design (PERF.md has the measured split):
-//   * all four products run one TMA-fed, warp-specialised s8 wgmma GEMM, the
-//     bf16 GEMM of csrc/fused_block.cu in 8-bit operands: a 128x128 block
+//   * all four products of K3 / K4 run one TMA-fed, warp-specialised s8
+//     wgmma GEMM, the bf16 GEMM of csrc/fused_block.cu in 8-bit operands: a 128x128 block
 //     tile, a K step of 128 int8 (128 B: the same 16 KB per operand tile and
 //     the same 128-byte swizzle), a 3-stage ring filled by one producer warp,
 //     two consumer warpgroups on wgmma m64n128k32 s8 with s32 accumulators,
@@ -128,15 +135,28 @@
 //   * a quantize pass, one block per row with the row in registers: amax,
 //     scale and codes from a single read; past 4,096 values a row (ViT-H/14's
 //     F = 5,120) two reads of it, the amax then the codes;
+//   * the one-call layer's QKV product on a persistent s8 wgmma GEMM
+//     (gemm_s8_tma_kernel): one block an SM walks many output tiles, a
+//     producer thread streams the next tile's K steps through a 6-stage ring
+//     while the consumers finish this one, and the epilogue stages its bf16
+//     tile in a swizzled buffer of its own, sent out by TMA stores; its down
+//     product (K = 3,072, the f32 y read) on the same walk with the epilogue
+//     on two warpgroups of its own (gemm_s8_epi_kernel), so the consumers go
+//     on to the next tile's products.  At ViT-B/16 B=256 on an NVIDIA H100
+//     80GB HBM3 at 700 W: 0.189 and 0.216 ms against this GEMM's 0.244 and
+//     0.258 (PERF.md, the one-call layer); the layer's out and up products
+//     keep this GEMM, whose two blocks an SM hid their epilogues better than
+//     either persistent design;
 //   * a tensor-parallel slot's row-parallel product (dvl_rows_q_partial) at
 //     a narrow K on the row-strip kernel rows_strip_q_kernel: the codes
 //     made in shared memory, every N tile of the weight walked on them by
 //     s8 wgmma, the int32 tiles stored by TMA (below); wider K on a
 //     warp-a-row quantize pass and this GEMM;
 //   * the LayerNorm kernel of common.cuh.
-// K3 and K4 keep these launches; the tensor-parallel slots fuse LayerNorm
-// with the quantize pass and the MLP slot takes its row amax in the up
-// GEMM's epilogue (above).  A producer quantizing on load is later work.
+// K3 and K4 keep these launches; the tensor-parallel slots and the one-call
+// layer fuse LayerNorm with the quantize pass, the MLP slot takes its row
+// amax in the up GEMM's epilogue (above).  A producer quantizing on load is
+// later work.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
@@ -1339,6 +1359,449 @@ cudaError_t launch_rows_strip(const T* a, const TpPtrs& am, int m, const int8_t*
   return launch_rows_strip_kernel<T, 3>(a, am, m, tm_b, tm_c, aq, ascale, M, N, K, ldc, st);
 }
 
+// ---------------------------------------------------------------------------
+// The one-call layer's QKV product (dvl_fused_layer_q) on a persistent s8
+// wgmma GEMM that stores by TMA: qkv[M, N] = bf16(deq(A[M, K] @ Wt[N, K]^T)
+// + bias), gemm_s8_kernel's EQ_BIAS.
+//
+// gemm_s8_kernel gives each 128x128 output tile a block of its own: at K =
+// 768 the block runs six K steps behind a cold ring, then stages its s32
+// tile in the freed ring and writes rows with plain stores before it exits.
+// Here one block an SM walks the tiles blockIdx.x, + gridDim.x, ... in
+// bands of `band` N tiles (m by m, the band's N tiles fastest: the band's
+// weight rows, the whole weight at the layer's widths, stay in L2, and the
+// tiles in flight at once share their A rows):
+//   * a producer thread streams every tile's K steps, tile after tile,
+//     through a ring of 6 stages of 32 KB by TMA, so the next tile's K steps
+//     arrive while this one's epilogue runs (a cold ring for each tile, and
+//     its epilogue's row stores, are what the s8 GEMM loses at K = 768);
+//   * two consumer warpgroups (64 rows each) run wgmma m64n128k32 s8, then
+//     dequantize their accumulators in registers with gemm_s8_kernel's
+//     epilogue arithmetic, operation for operation (the same __fmul_rn /
+//     __fadd_rn order, the same rounding: the int32 sums are exact in any K
+//     order, so every output is bit for bit that kernel's), and write the
+//     bf16 tile into a staging buffer of their own -- not the ring, which
+//     holds the next tile -- as two [64][64] boxes under the 128-byte
+//     swizzle (a warp's 4-byte writes of a column group spread over every
+//     bank), which thread 0 sends out by TMA stores; it waits for their reads
+//     only before the staging's next use, a tile later.
+// The TMA clips the ragged M edge.  Measured on the layer's four products
+// (PERF.md, the layer's designs): this design wins on the QKV product; on the out, up and
+// down products its exposed epilogue (the f32 y, the f32 hidden's
+// quick_gelu, the residual reads) lost to gemm_s8_kernel's two blocks an SM,
+// as did ping-pong consumers, two persistent blocks an SM and 128 x 256
+// tiles (the down product takes gemm_s8_epi_kernel, below).
+// ---------------------------------------------------------------------------
+
+constexpr int TG_STAGES = 6;                                   // the ring's 32 KB stages
+constexpr int TG_BOX = 64 * 128;                               // a [64 rows][128 B] staging box
+constexpr int TG_OUT = 64 * SBN * 2;                           // a warpgroup's bf16 staging
+constexpr int TG_SMEM = TG_STAGES * 2 * S_TILE + 2 * TG_OUT + 1024 + 2 * TG_STAGES * 8;
+constexpr long long TG_BAND_BYTES = 16ll << 20;  // the weight rows a band keeps in L2
+static_assert(TG_SMEM <= 227 * 1024, "the ring and the staging fit an SM");
+
+// Tile `tile` of the persistent walk: bands of `band` N tiles (the last band
+// may be narrower), each walked m by m, its N tiles fastest.
+__host__ __device__ __forceinline__ void tg_tile(int tile, int mt, int nt, int band, int& m0,
+                                                 int& n0) {
+  const int b = tile / (mt * band), first = b * band;
+  const int w = nt - first < band ? nt - first : band, r = tile - b * mt * band;
+  m0 = (r / w) * SBM;
+  n0 = (first + r % w) * SBN;
+}
+
+// The byte of bf16 element (r, col) of a warpgroup's staging: box col / 64,
+// row r at r 128 B, its 16-byte chunk (col % 64) / 8 at chunk ^ (r % 8)
+// (the TMA's 128-byte swizzle).
+__device__ __forceinline__ int tg_stage_offset(int r, int col) {
+  return (col >> 6) * TG_BOX + r * 128 + (((((col & 63) >> 3) ^ r) & 7) << 4) + (col & 7) * 2;
+}
+
+__global__ void __launch_bounds__(SGEMM_THREADS, 1)
+gemm_s8_tma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                   const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ a_scale,
+                   const float* __restrict__ w_scale, const float* __restrict__ bias, int M, int N,
+                   int K, int band) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);                       // [stage][128][128]
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + TG_STAGES * S_TILE);  // [stage][128][128]
+  unsigned char* staging = smem + 2 * TG_STAGES * S_TILE;             // [2][TG_OUT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * TG_OUT);
+  uint64_t* empty = full + TG_STAGES;
+
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int mt = (M + SBM - 1) / SBM, nt = N / SBN, tiles = mt * nt;
+  const int nk = (K + SBK - 1) / SBK;  // a ragged last K step arrives zero-filled
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (c == 2) {  // the producer warp: one thread keeps the ring full
+    if (tid != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tg_tile(tile, mt, nt, band, m0, n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % TG_STAGES;
+        if (it >= TG_STAGES) mbar_wait(&empty[s], ((it / TG_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * S_TILE);
+        tma_load_2d(sA + s * S_TILE, &tm_a, &full[s], kt * SBK, m0);
+        tma_load_2d(sB + s * S_TILE, &tm_b, &full[s], kt * SBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup c: rows 64 c .. 64 c + 63 of each tile, all columns
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int rl = warp * 16 + g;  // this thread's rows rl, rl + 8 of the warpgroup's 64
+  unsigned char* stage = staging + c * TG_OUT;
+  int acc[SBN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int m0, n0;
+    tg_tile(tile, mt, nt, band, m0, n0);
+#pragma unroll
+    for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % TG_STAGES;
+      mbar_wait(&full[s], (it / TG_STAGES) & 1);
+      const uint64_t da = desc_sw128(sA + s * S_TILE + c * 64 * SBK);
+      const uint64_t db = desc_sw128(sB + s * S_TILE);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SBK / 32; ++kk) wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: hand it back
+      fence_regs(acc);
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(&empty[prev]);
+
+    // Epilogue: thread (warp, g, t) holds rows rl, rl + 8 and columns 8 j +
+    // 2 t (+ 1), j = 0 .. 15: bf16(deq + bias) as gemm_s8_kernel's EQ_BIAS.
+    const int row0 = m0 + 64 * c;
+    const long long gm = (long long)row0 + rl;
+    const float rs[2] = {gm < M ? a_scale[gm] : 0.f, gm + 8 < M ? a_scale[gm + 8] : 0.f};
+    if (tid == 0) tma_store_wait<true>();  // the staging's last stores have read it
+    named_barrier(1 + c, 128);
+#pragma unroll
+    for (int j = 0; j < SBN / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 cs = *reinterpret_cast<const float2*>(w_scale + n0 + col);
+      const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float o0 = __fadd_rn(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), rs[h]), cs.x), bb.x);
+        const float o1 = __fadd_rn(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), rs[h]), cs.y), bb.y);
+        *reinterpret_cast<uint32_t*>(stage + tg_stage_offset(rl + 8 * h, col)) = pack_bf16(o0, o1);
+      }
+    }
+    fence_proxy_async();  // the staging, before the TMA reads it
+    named_barrier(1 + c, 128);
+    if (tid == 0) {
+      if (row0 < M) {
+        tma_store_2d(&tm_c, stage, n0, row0);
+        tma_store_2d(&tm_c, stage + TG_BOX, n0 + 64, row0);
+      }
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait<false>();
+}
+
+// A band of N tiles whose weight rows (128 K bytes a tile) fit TG_BAND_BYTES.
+int tg_band(int nt, int K) {
+  const long long b = TG_BAND_BYTES / ((long long)SBN * K);
+  return b < 1 ? 1 : (b > nt ? nt : (int)b);
+}
+
+// qkv [M, N] bf16 from A [M, K] and Wt [N, K] int8 (K % 16 == 0, N % 128
+// == 0), a_scale [M], w_scale and bias [N] f32: gemm_s8_kernel<EQ_BIAS>'s
+// output on the persistent TMA-store GEMM.
+cudaError_t launch_gemm_s8_tma(const int8_t* A, const float* a_scale, const int8_t* Wt,
+                               const float* w_scale, const float* bias, bf16* C, int M, int N,
+                               int K, cudaStream_t st) {
+  if (M < 1 || N % SBN || K % 16 || K < 16) return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b, tm_c;
+  const uint64_t stride_k[1] = {(uint64_t)K}, stride_c[1] = {(uint64_t)N * 2};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t dims_c[2] = {(uint64_t)N, (uint64_t)M};
+  const uint32_t box[2] = {SBK, SBM}, box_c[2] = {64, 64};
+  cudaError_t e = make_tensor_map(&tm_a, A, 2, dims_a, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess)
+    e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess) e = make_tensor_map(&tm_c, C, 2, dims_c, stride_c, box_c);
+  if (e != cudaSuccess) return e;
+  static std::atomic<unsigned> sized{0};  // the devices the kernel's size is set on
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(sized.load(std::memory_order_relaxed) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(gemm_s8_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             TG_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized.fetch_or(1u << dev, std::memory_order_relaxed);
+  }
+  if (g_sm_count == 0) {
+    e = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int nt = N / SBN, tiles = ((M + SBM - 1) / SBM) * nt;
+  gemm_s8_tma_kernel<<<tiles < g_sm_count ? tiles : g_sm_count, SGEMM_THREADS, TG_SMEM, st>>>(
+      tm_a, tm_b, tm_c, a_scale, w_scale, bias, M, N, K, tg_band(nt, K));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The one-call layer's down product (dvl_fused_layer_q) with its epilogue on
+// warpgroups of its own: out[M, ldc] = bf16((y + b2) + deq(hq @ W2t^T)), y
+// f32, gemm_s8_kernel's EQ_RESID32_BIAS, on the persistent tile walk above.
+// At K = 3,072 the s8 GEMM's blocks spend 24 K steps on a tile and then an
+// epilogue that reads 512 B of f32 y a row; here:
+//   * a producer thread streams the tiles' K steps through a 4-stage ring;
+//   * two consumer warpgroups (64 rows each) run wgmma m64n128k32 s8 and
+//     dump the int32 accumulators into a half-tile buffer each (the f32 TMA
+//     box layout, 32 KB), then go on to the next tile's products;
+//   * two epilogue warpgroups take each half from there (a thread 8 columns
+//     of 8 rows: the row's y in 32-byte reads, the columns' scales and
+//     biases once a tile), dequantize and apply the epilogue operation for
+//     operation as gemm_s8_kernel (the same __fmul_rn / __fadd_rn order: the
+//     int32 sums are exact in any K order, so every output is bit for bit
+//     that kernel's), stage the bf16 rows as two [64][64] boxes under the
+//     128-byte swizzle and send them out by TMA stores; the buffer is handed
+//     back once the stores have read it.
+// Measured on the layer's other products (PERF.md) the same design
+// lost: the out product's epilogue is short, the up product's quick_gelu
+// over a 128x128 tile outlasts its products on two warpgroups.  The output
+// rows must be whole 16-byte units (layer_down_fits).
+// ---------------------------------------------------------------------------
+
+constexpr int TE_THREADS = 544;        // 2 consumer + 2 epilogue warpgroups, a producer warp
+constexpr int TE_STAGES = 4;           // the ring's 32 KB stages
+constexpr int TE_HALF = 64 * SBN * 4;  // a half tile of int32: 32 KB
+constexpr int TE_SMEM = TE_STAGES * 2 * S_TILE + 2 * TE_HALF + 2 * TG_OUT + 1024 + 256;
+static_assert(TE_SMEM <= 227 * 1024, "the ring, the halves and the staging fit an SM");
+
+// The byte of int32 element (r, col) of a half-tile buffer: [64][32] boxes
+// under the 128-byte swizzle (the f32 TMA box layout).
+__device__ __forceinline__ int te_half_offset(int r, int col) {
+  return (col >> 5) * TG_BOX + r * 128 + (((((col & 31) >> 2) ^ r) & 7) << 4) + (col & 3) * 4;
+}
+
+__global__ void __launch_bounds__(TE_THREADS, 1)
+gemm_s8_epi_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                   const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ a_scale,
+                   const float* __restrict__ w_scale, const float* __restrict__ bias,
+                   const float* __restrict__ resid, int M, int N, int K, int ldc, int band) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);                       // [stage][128][128]
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + TE_STAGES * S_TILE);  // [stage][128][128]
+  unsigned char* halves = smem + 2 * TE_STAGES * S_TILE;              // [2][64][128] int32
+  unsigned char* staging = halves + 2 * TE_HALF;                      // [2][64][128] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * TG_OUT);
+  uint64_t* empty = full + TE_STAGES;
+  uint64_t* dumped = empty + TE_STAGES;  // [2]: consumer h's half is in its buffer
+  uint64_t* freed = dumped + 2;          // [2]: epilogue h's stores have read the staging
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int mt = (M + SBM - 1) / SBM, nt = N / SBN, tiles = mt * nt;
+  const int nk = (K + SBK - 1) / SBK;  // a ragged last K step arrives zero-filled
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TE_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(&dumped[h], 1);
+      mbar_init(&freed[h], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 4) {  // the producer warp: one thread keeps the ring full
+    if (tid != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tg_tile(tile, mt, nt, band, m0, n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % TE_STAGES;
+        if (it >= TE_STAGES) mbar_wait(&empty[s], ((it / TE_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * S_TILE);
+        tma_load_2d(sA + s * S_TILE, &tm_a, &full[s], kt * SBK, m0);
+        tma_load_2d(sB + s * S_TILE, &tm_b, &full[s], kt * SBK, n0);
+      }
+    }
+    return;
+  }
+
+  if (wg < 2) {  // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each tile
+    const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    unsigned char* half = halves + wg * TE_HALF;
+    int acc[SBN / 2];
+    int it = 0, ti = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+#pragma unroll
+      for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % TE_STAGES;
+        mbar_wait(&full[s], (it / TE_STAGES) & 1);
+        const uint64_t da = desc_sw128(sA + s * S_TILE + wg * 64 * SBK);
+        const uint64_t db = desc_sw128(sB + s * S_TILE);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SBK / 32; ++kk) wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        fence_regs(acc);
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+      if (ti > 0) mbar_wait(&freed[wg], (ti - 1) & 1);  // the epilogue has read the last half
+#pragma unroll
+      for (int j = 0; j < SBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<int2*>(half + te_half_offset(warp * 16 + g + 8 * h, 8 * j + 2 * t)) =
+              make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      named_barrier(1 + wg, 128);
+      if (tid == 0) mbar_arrive(&dumped[wg]);
+    }
+    return;
+  }
+
+  // epilogue warpgroup e: the half of consumer e; thread (cg, rr): columns
+  // 8 cg .. 8 cg + 7 of rows rr, rr + 8, ..., rr + 56
+  const int e = wg - 2, cg = tid & 15, rr = tid >> 4;
+  const unsigned char* half = halves + e * TE_HALF;
+  unsigned char* stage = staging + e * TG_OUT;
+  int ti = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+    int m0, n0;
+    tg_tile(tile, mt, nt, band, m0, n0);
+    const int n = n0 + 8 * cg, row0 = m0 + 64 * e;
+    float cs[8], bb[8];
+    *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(w_scale + n);
+    *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(w_scale + n + 4);
+    *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+    *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+    mbar_wait(&dumped[e], ti & 1);
+#pragma unroll 2
+    for (int k = 0; k < 8; ++k) {
+      const int r = rr + 8 * k;
+      const long long m = (long long)row0 + r;
+      const float rs = m < M ? a_scale[m] : 0.f;
+      int a[8];
+      *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(half + te_half_offset(r, 8 * cg));
+      *reinterpret_cast<int4*>(a + 4) =
+          *reinterpret_cast<const int4*>(half + te_half_offset(r, 8 * cg + 4));
+      float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (m < M && n < ldc) {  // ldc % 8 == 0: the 8 columns are in or out together
+        *reinterpret_cast<float4*>(y) = *reinterpret_cast<const float4*>(resid + m * ldc + n);
+        *reinterpret_cast<float4*>(y + 4) =
+            *reinterpret_cast<const float4*>(resid + m * ldc + n + 4);
+      }
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float o[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * i + h;
+          const float d = __fmul_rn(__fmul_rn(__int2float_rn(a[c]), rs), cs[c]);
+          o[h] = __fadd_rn(__fadd_rn(y[c], bb[c]), d);
+        }
+        pw[i] = pack_bf16(o[0], o[1]);
+      }
+      if (k == 0 && tid == 0) tma_store_wait<true>();  // the staging's last stores have read it
+      if (k == 0) named_barrier(3 + e, 128);
+      *reinterpret_cast<uint4*>(stage + tg_stage_offset(r, 8 * cg)) = packed;
+    }
+    named_barrier(3 + e, 128);  // every thread has read its half: hand it back
+    if (tid == 0) mbar_arrive(&freed[e]);
+    fence_proxy_async();  // the staging, before the TMA reads it
+    named_barrier(3 + e, 128);
+    if (tid == 0) {
+      if (row0 < M) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          if (n0 + 64 * b < ldc) tma_store_2d(&tm_c, stage + b * TG_BOX, n0 + 64 * b, row0);
+      }
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait<false>();
+}
+
+// Whether the one-call layer at model width D runs its down product on
+// gemm_s8_epi_kernel: the bf16 output rows and the f32 y rows of D must be
+// whole 16-byte units for the TMA stores and the epilogue's 8-column reads.
+// Other widths take gemm_s8_kernel.  The one statement of the rule:
+// ops/fused_block_q.py::layer_route asks it (dvl_layer_down_fits).
+bool layer_down_fits(int D) { return D >= 8 && D % 8 == 0; }
+
+// out [M, ldc] bf16 = bf16((y + bias) + deq(A @ Wt^T)) from A [M, K] and Wt
+// [N, K] int8 (K % 16 == 0, N % 128 == 0, N - 128 < ldc <= N,
+// layer_down_fits(ldc)), y [M, ldc] f32: gemm_s8_kernel<EQ_RESID32_BIAS>'s
+// output on the epilogue-warpgroup GEMM.
+cudaError_t launch_gemm_s8_epi(const int8_t* A, const float* a_scale, const int8_t* Wt,
+                               const float* w_scale, const float* bias, const float* y, bf16* C,
+                               int M, int N, int K, int ldc, cudaStream_t st) {
+  if (M < 1 || N % SBN || K % 16 || K < 16 || ldc > N || ldc <= N - SBN || !layer_down_fits(ldc))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b, tm_c;
+  const uint64_t stride_k[1] = {(uint64_t)K}, stride_c[1] = {(uint64_t)ldc * 2};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t dims_c[2] = {(uint64_t)ldc, (uint64_t)M};
+  const uint32_t box[2] = {SBK, SBM}, box_c[2] = {64, 64};
+  cudaError_t e = make_tensor_map(&tm_a, A, 2, dims_a, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess)
+    e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess) e = make_tensor_map(&tm_c, C, 2, dims_c, stride_c, box_c);
+  if (e != cudaSuccess) return e;
+  static std::atomic<unsigned> sized{0};  // the devices the kernel's size is set on
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(sized.load(std::memory_order_relaxed) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(gemm_s8_epi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             TE_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized.fetch_or(1u << dev, std::memory_order_relaxed);
+  }
+  if (g_sm_count == 0) {
+    e = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int nt = N / SBN, tiles = ((M + SBM - 1) / SBM) * nt;
+  gemm_s8_epi_kernel<<<tiles < g_sm_count ? tiles : g_sm_count, TE_THREADS, TE_SMEM, st>>>(
+      tm_a, tm_b, tm_c, a_scale, w_scale, bias, y, M, N, K, ldc, tg_band(nt, K));
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ float tp_out_q(int acc, float rs, float ws, float b, float r,
                                           int bias_first) {
   const float d = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), ws);
@@ -1600,19 +2063,16 @@ enum AttnQVariant {
 // (ascale = 1).  AQ_ATTR_VPU: K3's LayerNorm and quantize passes, the
 // products and the core's products broadcasts (bcast_rows_kernel,
 // attention_vpu_core_kernel).  None of these takes the causal mask.
-// y32 (K3 only), if not null: the out-projection writes f32 y = x + (deq +
-// bo) [B*S, D] there and bf16(y) to out (EQ_BIAS_RESID_Y: K3's output, and
-// the residual kept f32 for the layer's MLP half).
 int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
                            const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
                            int hdp, float scale, int causal, int variant, void* stream,
-                           void* y32 = nullptr, void* qq_ws = nullptr) {
+                           void* qq_ws = nullptr) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, 64), DA = heads * hdp, NQKV = round_up(3 * DA, SBN);
   const int NO = round_up(D, SBN);
-  if (variant != AQ_K3 && (causal || y32 != nullptr)) return (int)cudaErrorInvalidValue;
+  if (variant != AQ_K3 && causal) return (int)cudaErrorInvalidValue;
   if (D < 1 || heads < 1 || D % heads || hdp < 64 || hdp % 64 || DA < D)
     return (int)cudaErrorInvalidValue;
   const bool recip = variant == AQ_VAR, mxu = variant == AQ_ATTR_MXU, vpu = variant == AQ_ATTR_VPU;
@@ -1672,13 +2132,6 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
     e = launch_bcast_rows<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
                                          static_cast<const float*>(ascale), DA,
                                          static_cast<const float*>(bo), x, out, M, D, st);
-  else if (y32 != nullptr)
-    e = launch_gemm_s8<EQ_BIAS_RESID_Y>(static_cast<const int8_t*>(aq),
-                                        static_cast<const float*>(ascale),
-                                        static_cast<const int8_t*>(wo_t),
-                                        static_cast<const float*>(so),
-                                        static_cast<const float*>(bo), x, y32, M, NO, DA, st, out,
-                                        0, D);
   else
     e = launch_gemm_s8<EQ_BIAS_RESID>(static_cast<const int8_t*>(aq),
                                       static_cast<const float*>(ascale),
@@ -1714,9 +2167,7 @@ enum MlpQVariant {
 // TPU kernel's F-split does: each row of each chunk quantized on its own
 // (the quantize pass over the [M k, F / k] view of h; hs [M, k]), and the
 // down product's K loop folding each chunk's int32 sum into an f32 sum with
-// that chunk's row scales (EQ_RESID_BIAS_CHUNK).  resid32, if not null, is
-// the f32 residual [M, D] the down product adds in place of x (the layer's
-// y; x then is bf16(y), LayerNorm's input); k == 1 with it.
+// that chunk's row scales (EQ_RESID_BIAS_CHUNK).
 // Every variant runs any D and F on the padded operand layout of
 // ops/fused_block.py::mlp_plan: F here is the padded hidden width, each of
 // the k chunks of the model's F / k hidden columns rounded up to 128 with
@@ -1729,13 +2180,12 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
                      const void* s1, const void* b1, const void* w2_t, const void* s2,
                      const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                      void* hs, void* g, int M, int D, int F, int act_kind, int variant,
-                     void* stream, int k = 1, const float* resid32 = nullptr, int fv = 0) {
+                     void* stream, int k = 1, int fv = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int DK = round_up(D, 64), NO = round_up(D, SBN);
   if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
   if (k < 1 || F % k || (F / k) % SBK) return (int)cudaErrorInvalidValue;
-  if ((k > 1 || resid32 != nullptr) && variant != MQ_K4) return (int)cudaErrorInvalidValue;
-  if (k > 1 && resid32 != nullptr) return (int)cudaErrorInvalidValue;
+  if (k > 1 && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
   const bool mxu = variant == MQ_ATTR_MXU, vpu = variant == MQ_ATTR_VPU;
   const int8_t* w1 = static_cast<const int8_t*>(w1_t);
@@ -1798,9 +2248,6 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   else if (k > 1)
     e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr,
                                             F / k / SBK, D);
-  else if (resid32 != nullptr)
-    e = launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, resid32, out, M, NO, F, st,
-                                        nullptr, 0, D);
   else
     e = launch_gemm_s8<EQ_RESID_BIAS>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr, 0, D);
   return (int)e;
@@ -1836,7 +2283,7 @@ int dvl_attention_block_qq(const void* x, const void* ln_s, const void* ln_b, co
                            int heads, int hdp, int causal, float scale, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
                                 qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal, AQ_QQ,
-                                stream, nullptr, ws);
+                                stream, ws);
 }
 
 int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b, const void* wqkv_t,
@@ -1912,29 +2359,81 @@ int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const voi
                           nullptr, M, D, F, act_kind, MQ_K4, stream, k);
 }
 
-// The one-call int8 layer of benchmarks/q_layer_fused.py (layer_kernel):
-// K3's launches with the out-projection keeping y = x + (deq + bo) in f32
-// (y32 [B*S, D]) beside its bf16 rounding yb, then K4's on LN(yb) with the
-// down product adding the f32 y: out = bf16((y + b2) + deq), quick_gelu as
-// the script's.  The attention half's arguments and scratch are K3's (a_*,
-// at hdp and scale), the MLP half's K4's (m_*, F the padded hidden width),
-// both on their padded layouts.
+// The one-call int8 layer of benchmarks/q_layer_fused.py (layer_kernel),
+// nine launches: LayerNorm and the quantize pass of x in one
+// (ln_quant_rows_kernel: K3's codes and scales, its bf16 rows never
+// written) -> the s8 QKV product (EQ_BIAS) -> K3's core -> the attention
+// rows' quantize pass -> the out product keeping y = x + (deq + bo) in f32
+// (y32 [B*S, D]) beside its bf16 rounding yb (EQ_BIAS_RESID_Y) -> LayerNorm
+// of yb and its quantize pass in one -> the up product with quick_gelu (h
+// f32, EQ_BIAS_QGELU) -> the hidden's quantize pass -> the down product
+// adding the f32 y: out = bf16((y + b2) + deq) (EQ_RESID32_BIAS).  tma 1:
+// the QKV product on the persistent TMA-store GEMM gemm_s8_tma_kernel and,
+// where layer_down_fits(D), the down product on gemm_s8_epi_kernel; tma 0
+// (and the other products): gemm_s8_kernel.  The same outputs bit for bit.
+// The attention half's weights and scratch are K3's (at hdp and scale: xq
+// [B*S, DK], xs, qkv [B*S, NQKV] bf16, attn and aq [B*S, heads hdp],
+// ascale), the MLP half's K4's (yq [B*S, DK], ys, h and hq [B*S, F], hs; F
+// the padded hidden width), both on their padded layouts; DK = D rounded up
+// to 64.
 int dvl_fused_layer_q(const void* x, const void* ln1_s, const void* ln1_b, const void* wqkv_t,
                       const void* sqkv, const void* bqkv, const void* wo_t, const void* so,
                       const void* bo, const void* ln2_s, const void* ln2_b, const void* w1_t,
                       const void* s1, const void* b1, const void* w2_t, const void* s2,
-                      const void* b2, void* out, void* a_xn, void* a_xq, void* a_xs, void* qkv,
-                      void* attn, void* aq, void* ascale, void* y32, void* yb, void* m_xn,
-                      void* m_xq, void* m_xs, void* h, void* hq, void* hs, int B, int S, int D,
-                      int F, int heads, int hdp, float scale, void* stream) {
-  int e = attention_block_q_impl(x, ln1_s, ln1_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, yb, a_xn,
-                                 a_xq, a_xs, qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, 0,
-                                 AQ_K3, stream, y32);
-  if (e != 0) return e;
-  return mlp_block_q_impl(yb, ln2_s, ln2_b, w1_t, s1, b1, w2_t, s2, b2, out, m_xn, m_xq, m_xs, h,
-                          hq, hs, nullptr, B * S, D, F, 0, MQ_K4, stream, 1,
-                          static_cast<const float*>(y32));
+                      const void* b2, void* out, void* xq, void* xs, void* qkv, void* attn,
+                      void* aq, void* ascale, void* y32, void* yb, void* yq, void* ys, void* h,
+                      void* hq, void* hs, int B, int S, int D, int F, int heads, int hdp,
+                      float scale, int tma, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * S, DK = round_up(D, 64), DA = heads * hdp, NQKV = round_up(3 * DA, SBN);
+  const int NO = round_up(D, SBN);
+  if (D < 1 || heads < 1 || D % heads || hdp < 64 || hdp % 64 || DA < D || F % SBK)
+    return (int)cudaErrorInvalidValue;
+  const int8_t *ixq = static_cast<const int8_t*>(xq), *iaq = static_cast<const int8_t*>(aq),
+               *iyq = static_cast<const int8_t*>(yq), *ihq = static_cast<const int8_t*>(hq);
+  const float *fxs = static_cast<const float*>(xs), *fas = static_cast<const float*>(ascale),
+              *fys = static_cast<const float*>(ys), *fhs = static_cast<const float*>(hs);
+  const int8_t *wqkv = static_cast<const int8_t*>(wqkv_t), *wo = static_cast<const int8_t*>(wo_t),
+               *w1 = static_cast<const int8_t*>(w1_t), *w2 = static_cast<const int8_t*>(w2_t);
+  const float *fsqkv = static_cast<const float*>(sqkv), *fbqkv = static_cast<const float*>(bqkv),
+              *fso = static_cast<const float*>(so), *fbo = static_cast<const float*>(bo),
+              *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1),
+              *fs2 = static_cast<const float*>(s2), *fb2 = static_cast<const float*>(b2);
+  cudaError_t e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln1_s),
+                                  static_cast<const float*>(ln1_b), static_cast<int8_t*>(xq),
+                                  static_cast<float*>(xs), nullptr, M, D, DK, st);
+  if (e != cudaSuccess) return (int)e;
+  e = tma ? launch_gemm_s8_tma(ixq, fxs, wqkv, fsqkv, fbqkv, static_cast<bf16*>(qkv), M, NQKV, DK,
+                               st)
+          : launch_gemm_s8<EQ_BIAS>(ixq, fxs, wqkv, fsqkv, fbqkv, nullptr, qkv, M, NQKV, DK, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S, heads,
+                             hdp, 0, st, NQKV, scale, 0);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_quant_rows(static_cast<const bf16*>(attn), static_cast<int8_t*>(aq),
+                        static_cast<float*>(ascale), M, DA, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm_s8<EQ_BIAS_RESID_Y>(iaq, fas, wo, fso, fbo, x, y32, M, NO, DA, st, yb, 0, D);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_ln_quant(static_cast<const bf16*>(yb), static_cast<const float*>(ln2_s),
+                      static_cast<const float*>(ln2_b), static_cast<int8_t*>(yq),
+                      static_cast<float*>(ys), nullptr, M, D, DK, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm_s8<EQ_BIAS_QGELU>(iyq, fys, w1, fs1, fb1, nullptr, h, M, F, DK, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
+                        static_cast<float*>(hs), M, F, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)(tma && layer_down_fits(D)
+                   ? launch_gemm_s8_epi(ihq, fhs, w2, fs2, fb2, static_cast<const float*>(y32),
+                                        static_cast<bf16*>(out), M, NO, F, D, st)
+                   : launch_gemm_s8<EQ_RESID32_BIAS>(ihq, fhs, w2, fs2, fb2, y32, out, M, NO, F, st,
+                                                     nullptr, 0, D));
 }
+
+// 1 where the one-call layer at model width D runs its down product on the
+// epilogue-warpgroup GEMM (layer_down_fits), else 0.
+int dvl_layer_down_fits(int D) { return layer_down_fits(D); }
 
 // KB (a) 2 / 3 and the attribution's MLP: K4's arguments, g (MQ_BF16H's
 // f32 activation, or null) before M, and the variant (1 bf16h, 2 reciprocal
@@ -1947,7 +2446,7 @@ int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const 
                        void* hs, void* g, int M, int D, int F, int fv, int variant, void* stream) {
   if (variant < MQ_BF16H || variant > MQ_ATTR_VPU) return (int)cudaErrorInvalidValue;
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
-                          g, M, D, F, 0, variant, stream, 1, nullptr, fv);
+                          g, M, D, F, 0, variant, stream, 1, fv);
 }
 
 // A tensor-parallel slot's int8 attention up to its out-projection, on the

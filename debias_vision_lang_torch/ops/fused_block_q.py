@@ -86,7 +86,10 @@ and, beside them (``KB_LAUNCHES``):
   mlp_block_q(fb=F/k)        (q_ilp.py::make_fsplit(k), KB (a) 7) K4's F-split
   fused_layer_q              (q_layer_fused.py) K3 then K4 in one call, the
                              attention half's x + proj kept f32 for the MLP
-                             half's residual (only LayerNorm reads it in bf16)
+                             half's residual (only LayerNorm reads it in bf16);
+                             on the card LayerNorm and quantize in one pass at
+                             both norms, the QKV and down products on
+                             persistent GEMMs (``layer_route``)
   attention_block_q_postdiv  (q_ilp4.py, the head-pair packed kernel) K3 with
                              the row sum divided out after P V
 
@@ -149,6 +152,11 @@ KB_LAUNCHES: Dict[str, int] = {"attention_block_qq": 0,
 ROWS_ROUTES: Dict[str, int] = {"strip": 0, "gemm": 0}
 # and by their input: an attention slot's bf16 rows, an MLP slot's f32 hidden
 ROWS_INPUTS: Dict[str, int] = {"bf16": 0, "f32": 0}
+# the routes of ``fused_layer_q``'s calls (``layer_route``): its QKV and down
+# products on the persistent GEMMs ("tma"), the QKV product alone where the
+# down product's rows are not whole 16-byte units ("qkv"), or, for the
+# checks, neither ("gemm", ``_fused_layer_q_cuda(..., tma=False)``)
+LAYER_ROUTES: Dict[str, int] = {"tma": 0, "qkv": 0, "gemm": 0}
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM's N tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core's register route holds
 # KB (a) 1's int8 core launches by route (``qq_route``)
@@ -160,7 +168,7 @@ ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES, ROWS_ROUTES,
-                   ROWS_INPUTS):
+                   ROWS_INPUTS, LAYER_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -779,8 +787,10 @@ def _lib():
         lib.dvl_qq_ws_bytes.restype = ctypes.c_longlong
         lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 5 + [p]
         lib.dvl_mlp_block_q_kb.restype = i
-        lib.dvl_fused_layer_q.argtypes = [p] * 33 + [i] * 6 + [f, p]
+        lib.dvl_fused_layer_q.argtypes = [p] * 31 + [i] * 6 + [f, i, p]
         lib.dvl_fused_layer_q.restype = i
+        lib.dvl_layer_down_fits.argtypes = [i]
+        lib.dvl_layer_down_fits.restype = i
         lib.dvl_attention_block_q_heads.argtypes = [p] * 11 + [i] * 6 + [f, p]
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 10 + [i] * 4 + [p]
@@ -1025,10 +1035,23 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
     return out
 
 
-def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
+@functools.lru_cache(maxsize=None)
+def layer_route(d: int) -> str:
+    """The route of ``fused_layer_q`` on the card at model width ``d``: "tma"
+    (the QKV product on the persistent TMA-store GEMM, the down product on
+    the epilogue-warpgroup GEMM) where the library's rule takes the down
+    product (csrc/fused_block_q.cu::layer_down_fits: d % 8 == 0, its bf16
+    and f32 rows whole 16-byte units), else "qkv" (the QKV product alone;
+    the down product on the s8 GEMM).  Needs the library."""
+    return "tma" if _lib().dvl_layer_down_fits(d) else "qkv"
+
+
+def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch, tma=True):
     """``dvl_fused_layer_q``: ``attn_ops`` / ``mlp_ops`` are the two halves'
     parameters as K3's / K4's wrappers pass them (LN, weight copies,
-    scales, biases), on K3's and K4's padded layouts."""
+    scales, biases), on K3's and K4's padded layouts, on ``layer_route``
+    (``tma=False``: every product on the s8 GEMM, the same outputs bit for
+    bit, for the checks)."""
     _check_x(x)
     b, s, d = x.shape
     if s < 1:
@@ -1047,29 +1070,31 @@ def _fused_layer_q_cuda(x, attn_ops, mlp_ops, heads, scratch):
            *_q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, mp, dev)]
     m = b * s
     out = torch.empty_like(x)
-    t = {"xn": (m, ap.dk, bf), "xq": (m, ap.dk, i8), "xs": (m, 1, f32), "qkv": (m, ap.nqkv, bf),
+    t = {"xq": (m, ap.dk, i8), "xs": (m, 1, f32), "qkv": (m, ap.nqkv, bf),
          "attn": (m, ap.da, bf), "aq": (m, ap.da, i8), "as": (m, 1, f32), "y": (m, d, f32),
-         "yb": (m, d, bf), "yn": (m, mp.dk, bf), "yq": (m, mp.dk, i8), "ys": (m, 1, f32),
+         "yb": (m, d, bf), "yq": (m, mp.dk, i8), "ys": (m, 1, f32),
          "h": (m, mp.fp, f32), "hq": (m, mp.fp, i8), "hs": (m, 1, f32)}
     t = {k: torch.empty(v[:2], dtype=v[2], device=dev) for k, v in t.items()}
+    route = layer_route(d) if tma else "gemm"
     err = _lib().dvl_fused_layer_q(
         x.data_ptr(), *[o.data_ptr() for o in ops], out.data_ptr(),
-        *[t[k].data_ptr() for k in ("xn", "xq", "xs", "qkv", "attn", "aq", "as", "y", "yb",
-                                    "yn", "yq", "ys", "h", "hq", "hs")],
-        b, s, d, mp.fp, heads, ap.hdp, ap.scale, _stream_ptr(dev))
+        *[t[k].data_ptr() for k in ("xq", "xs", "qkv", "attn", "aq", "as", "y", "yb", "yq",
+                                    "ys", "h", "hq", "hs")],
+        b, s, d, mp.fp, heads, ap.hdp, ap.scale, int(tma),
+        _stream_ptr(dev))
     _raise_on(err, "dvl_fused_layer_q")
     KB_LAUNCHES["fused_layer_q"] += 1
+    LAYER_ROUTES[route] += 1
     CORE_ROUTES[core_route(s, ap.hd)] += 1
     check_nans("dvl_fused_layer_q", out)
     if scratch is not None:  # the twin's keys: bf16 rows as f32, codes, scales, cropped
-        crop = {"xn": lambda v: v[:, :d], "xq": lambda v: v[:, :d], "yn": lambda v: v[:, :d],
-                "yq": lambda v: v[:, :d], "attn": ap.crop_heads, "aq": ap.crop_heads,
-                "h": mp.crop_hidden, "hq": mp.crop_hidden}
+        crop = {"xq": lambda v: v[:, :d], "yq": lambda v: v[:, :d], "attn": ap.crop_heads,
+                "aq": ap.crop_heads, "h": mp.crop_hidden, "hq": mp.crop_hidden}
         for k, v in t.items():
-            if k in ("qkv", "yb"):
+            if k == "qkv":
                 continue
             v = crop.get(k, lambda r: r)(v).reshape(b, s, -1)
-            scratch[k] = v.float() if v.dtype == bf else v
+            scratch[k] = v.float() if v.dtype == bf and k != "yb" else v
     return out
 
 
@@ -1274,8 +1299,14 @@ def fused_layer_q(x, ln1_s, ln1_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale, bo,
     halves; the MLP's LayerNorm reads bf16(y), its activation is
     quick_gelu (the script's) and the output is (y + b2) + part rounded
     once (``fused_layer_q_plain``).  On a card one call of
-    ``dvl_fused_layer_q``: K3's launches, the out-projection writing y in
-    f32 and bf16, then K4's with the down product adding the f32 y."""
+    ``dvl_fused_layer_q``, nine launches: LayerNorm and the quantize pass in
+    one at both norms (no LayerNorm rows: the scratch has no ``xn`` / ``yn``,
+    and holds ``yb``, y's bf16 rounding), the QKV product on the persistent
+    TMA-store GEMM, K3's core, the attention rows' quantize pass, the out
+    product writing y in f32 and bf16, the up product and the hidden's
+    quantize pass, the down product adding the f32 y (on the
+    epilogue-warpgroup GEMM where ``layer_route`` takes it), counted in
+    ``LAYER_ROUTES``."""
     if _route(x) == "cpu":
         return fused_layer_q_plain(x, ln1_s, ln1_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_scale,
                                    bo, ln2_s, ln2_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,

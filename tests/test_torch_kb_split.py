@@ -407,6 +407,14 @@ def test_cuda_layer_matches_twin(cuda, b, s):
     got = fbq.fused_layer_q(x, *attn, *mlp, heads=H, **kw, scratch=sk)
     torch.cuda.synchronize()
     assert fbq.KB_LAUNCHES["fused_layer_q"] == 1
+    # the layer normalises and quantizes in one pass and writes no LayerNorm
+    # rows: its codes are held to K3's and K4's LayerNorm rows of x and bf16(y)
+    s3, s4 = {}, {}
+    fbq.attention_block_q(x, *attn, heads=H, wqkv_qt=kw["wqkv_qt"], wo_qt=kw["wo_qt"],
+                          scratch=s3)
+    fbq.mlp_block_q(sk["y"].to(torch.bfloat16), *mlp, w1_qt=kw["w1_qt"], w2_qt=kw["w2_qt"],
+                    scratch=s4)
+    sk.update(xn=s3["xn"], yn=s4["xn"])
     _codes_are_own(sk, [("xq", "xn", "xs"), ("aq", "attn", "as"), ("yq", "yn", "ys"),
                         ("hq", "h", "hs")])
     y = x.float() + (fbq.dot_q(sk["aq"], sk["as"], attn[5], attn[6]) + attn[7])
