@@ -910,13 +910,14 @@ SPLIT_NAMES = {"gemm_wgmma_kernel<0>": "QKV GEMM", "gemm_wgmma_kernel<1>": "out 
                "gemm_s8_kernel<3>": "up GEMM", "gemm_s8_kernel<4>": "down GEMM",
                "gemm_s8_kernel<8>": "out GEMM", "gemm_s8_kernel<9>": "down GEMM",
                "gemm_s8_kernel<10>": "down GEMM", "gemm_s8_tma_kernel": "QKV GEMM",
-               "gemm_s8_epi_kernel": "down GEMM",
+               "gemm_s8_epi_kernel": "down GEMM", "gemm_s8_epi_chunk_kernel": "down GEMM",
                "layer_norm_kernel": "LN"}
 # the int8 attention block quantizes two bf16 row sets (the LN output and
 # the attention output) with one kernel at one shape: the profiler sums them
 QUANT_X_ATTN = "quantize x + quantize attn (2 calls)"
 SPLIT_ORDER = ["LN", "LN + quantize", "quantize x", QUANT_X_ATTN, "QKV GEMM", "core",
-               "quantize attn", "out GEMM", "up GEMM", "quantize h", "down GEMM"]
+               "quantize attn", "out GEMM", "up GEMM", "quantize h", "gelu + quantize",
+               "down GEMM"]
 
 
 def split_label(key: str) -> str:
@@ -933,6 +934,10 @@ def split_label(key: str) -> str:
         return SPLIT_NAMES[short]
     if kernel == "quant_rows_kernel":
         return "quantize x" if "bfloat16" in (args or "") else "quantize h"
+    if kernel == "quant_rows_x4_kernel":
+        return "quantize h"
+    if kernel == "qgelu_quant_rows_kernel":
+        return "gelu + quantize"
     if kernel == "ln_quant_rows_kernel":
         return "LN + quantize"
     return "core" if kernel in ("attention_wgmma_kernel", "attention_long_kernel",
@@ -1167,6 +1172,21 @@ def q_block_params(d, device, seed):
              {"w1_qt": w1.qt, "w2_qt": w2.qt}))
 
 
+def k4_ln_rows(fbq, sk, x, block):
+    """An int8 MLP entry's scratch with its LayerNorm rows: where it
+    normalises and quantizes x in one pass and writes none (K4's F-split and
+    KB (a) 2 on the card), K4's own LayerNorm rows of the same x (the same
+    LayerNorm kernel's rows bit for bit, so its x codes are their
+    quantization), K4's launch left out of the counters."""
+    if "hq" not in sk or "xn" in sk:
+        return sk
+    args, qkw = block
+    s4, counts = {}, dict(fbq.LAUNCHES)
+    fbq.mlp_block_q(x, *args, **qkw, scratch=s4)
+    fbq.LAUNCHES.update(counts)
+    return {**sk, "xn": s4["xn"]}
+
+
 def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False, quant=None):
     """An int8 block kernel against its twin: the output within 1 bf16 ulp of
     the twin's largest magnitude (past 320 keys: K3's attention rows and its
@@ -1182,6 +1202,7 @@ def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False, quant=None)
     sk, sr = {}, {}
     got = kern(x, *args, **kw, **qkw, scratch=sk)
     ref = plain(x, *args, **kw, scratch=sr)
+    sk = k4_ln_rows(fbq, sk, x, block)
     err = (got.float() - ref.float()).abs().max().item()
     mag = ref.float().abs().max().item()
     own = (ref.float() - x.float()).abs().max().item()
@@ -5039,9 +5060,9 @@ def tp_rows_split(S, fbq, device, sass):
                    f"parent design")
     check(all("quant_rows_given_amax_kernel" in k for k in removed),
           f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
-    check(all(any(n in k for n in TP_ROWS_NEW + LAYER_NEW) for k in added),
+    check(all(any(n in k for n in TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW) for k in added),
           f"phase 22: the int8 library's new kernels {sorted(added)} are not "
-          f"{TP_ROWS_NEW + LAYER_NEW}")
+          f"{TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW}")
 
 
 def tp_route_check(fb, fbq, device):
@@ -5854,6 +5875,7 @@ def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars
     sk, sr = {}, {}
     got = kern(x, *args, **kw, **qkw, scratch=sk)
     ref = plain(x, *args, **kw, scratch=sr)
+    sk = k4_ln_rows(fbq, sk, x, block)
     codes_of = (("xq", "xn", "xs"), ("aq", "attn", "as") if attention else ("hq", "h", "hs"))
     n_diff = 0
     for codes, rows, scales in codes_of:
@@ -6041,6 +6063,9 @@ def kb_int8_phase(model, card, device):
             launches[kind] = nonzero({**fbq.LAUNCHES, **fbq.KB_LAUNCHES})
             check(bool(torch.isfinite(outs[kind].float()).all()), f"phase 23: {kind} tower "
                   f"not finite")
+            if kind == "bf16h":  # D = 768: every up product on the TMA-store GEMM
+                check(fbq.BF16H_ROUTES == {"tma": LAYERS, "gemm": 0},
+                      f"phase 23: the bf16h tower's routes {fbq.BF16H_ROUTES}")
         want = {"k3": {"attention_block_q": LAYERS}, "k4": {"mlp_block_q": LAYERS},
                 "qq": {"attention_block_qq": LAYERS, "attention_qq_core": LAYERS},
                 "attn_var": {"attention_block_q_var": LAYERS},
@@ -6065,6 +6090,15 @@ def kb_int8_phase(model, card, device):
     walls["towers"] = time.perf_counter() - t
     del outs, blocks, x0
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    (_, _), (qm, qmkw) = q_block_params(KB_D, device, seed=7)
+    xb = kb_inputs(BATCH, n=1)[0]
+    mlp_q_launches(fbq, 23, "mlp_block_q_bf16h", lambda: fbq.mlp_block_q_bf16h(xb, *qm, **qmkw),
+                   ("ln_quant_rows_kernel", "gemm_s8_tma_kernel", "qgelu_quant_rows_kernel",
+                    "gemm_s8_kernel"))
+    del xb
+    mlp_q_hold(fbq, device, 23, kind="bf16h")
+    walls["mlp hold"] = time.perf_counter() - t
     wall = time.perf_counter() - t_phase
     print(f"phase 23 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
@@ -6113,8 +6147,8 @@ def layer_hold(fbq, device):
     12-layer tower; the times are that script's and the kernels line's):
     every output, code and scale bit for bit, yb = bf16(y), every product
     on the s8 GEMM route the same outputs bit for bit; of the int8
-    library's kernels none compiled otherwise or gone, only LAYER_NEW
-    added."""
+    library's kernels none compiled otherwise or gone, only LAYER_NEW (and
+    the later MLP_Q_NEW) added."""
     import importlib
 
     import torch
@@ -6135,7 +6169,7 @@ def layer_hold(fbq, device):
     found = bool(sass)
     if not found:
         print("phase 24: no cuobjdump found: the int8 library is not held to the parent's SASS")
-        sass = dict(parent["sass"], **{n: "" for n in LAYER_NEW})
+        sass = dict(parent["sass"], **{n: "" for n in LAYER_NEW + MLP_Q_NEW})
     mine = {"outputs": L.flat(L.output_digests(fbq, device, each)), "sass": sass}
     bad = L.S.compare(mine, {"outputs": L.flat(parent["outputs"]), "sass": parent["sass"]},
                       f"the parent design ({LAYER_PARENT})", "phase 24 layer ")
@@ -6144,9 +6178,124 @@ def layer_hold(fbq, device):
           f"{'agree' if not off else f'DIFFER: {off}'}; added {sorted(added)}")
     check(not bad and not off, f"phase 24: the layer's outputs or the int8 library's kernels "
                                f"differ from the parent design ({bad}; {off})")
-    check(not removed and all(any(n in k for n in LAYER_NEW) for k in added),
+    check(not removed and all(any(n in k for n in LAYER_NEW + MLP_Q_NEW) for k in added),
           f"phase 24: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
     torch.cuda.empty_cache()
+
+
+# K4's F-split and KB (a) 2 before their redesign (K4's launches: LayerNorm,
+# then the quantize pass; the up product on gemm_s8_kernel; the hidden's pass
+# on quant_rows_kernel's tiers; the F-split's down product on the s8 GEMM's
+# chunked mode), recorded with ``benchmarks_torch/mlp_q_split.py --root`` on
+# the parent checkout: the digests of each entry's output, codes, scales and
+# rows in that script's cases and of its two 12-layer towers, and the SASS of
+# every kernel of the int8 library.  The redesign adds the chunked
+# epilogue-warpgroup GEMM and the two 16-byte quantize passes (MLP_Q_NEW)
+# and changes no other kernel.
+MLP_Q_PARENT = "benchmarks_torch/mlp_q_parent.json"
+MLP_Q_NEW = ("gemm_s8_epi_chunk_kernel", "quant_rows_x4_kernel", "qgelu_quant_rows_kernel")
+# the chunked down product's GEMM (one instantiation): s8 wgmma, TMA loads
+# and TMA stores
+SASS_PER_KERNEL_MLP_Q = {"fused_block_q": (
+    ("gemm_s8_epi_chunk_kernel", ("IGMMA", "UTMALDG", "UTMASTG"), 1),)}
+
+
+def sass_check_mlp_q(path) -> None:
+    """The redesign's kernels in the int8 library's SASS: the chunk GEMM
+    holds s8 wgmma, TMA loads and TMA stores (SASS_PER_KERNEL_MLP_Q), and
+    none of MLP_Q_NEW holds mma.sync (IMMA. / HMMA.)."""
+    funcs = sass_functions(path)
+    if funcs is None:
+        print("sass: no cuobjdump found: the F-split's and KB (a) 2's kernels not checked")
+        return
+    sass_check_per_kernel("fused_block_q", path, SASS_PER_KERNEL_MLP_Q)
+    mma = [name for name, body in funcs.items() if any(n in name for n in MLP_Q_NEW)
+           and (re.search(SASS_OPS["IMMA"], body) or re.search(SASS_OPS["HMMA"], body))]
+    check(not mma, f"{mma} hold mma.sync (IMMA. / HMMA.) in their SASS")
+
+
+def mlp_q_hold(fbq, device, phase, kind=None, shapes=False):
+    """``mlp_q_split.py``'s cases of one phase held to MLP_Q_PARENT (their
+    times are that script's and the kernels line's): ``kind`` ("fsplit" or
+    "bf16h") at ViT-B/16's widths and the FiT shape with its 12-layer tower
+    at B=256 (phases 24 and 23), or (``shapes``) both entries at
+    SigLIP-So400m's widths and D = 200 (phase 27).  The script's single
+    calls at B=256 (digests of 0.8 GB of rows each) are left to it: every
+    fb and width is held here at B=8 or the FiT shape, and B=256 by the
+    tower.  Every output, code, scale and row bit for
+    bit, the other route (``tma=False``: the products on the s8 GEMM) the
+    same; the F-split's routes as ``fsplit_route`` names them; in phase 24 the
+    SASS of the int8 library's kernels none compiled otherwise or gone, only
+    MLP_Q_NEW (and the one-call layer's LAYER_NEW) added, and the new GEMM's
+    instructions (``sass_check_mlp_q``)."""
+    import importlib
+
+    import torch
+    from debias_vision_lang_torch.ops import _build
+
+    M = importlib.import_module("benchmarks_torch.mlp_q_split")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), MLP_Q_PARENT)) as fh:
+        parent = json.load(fh)
+    cases = [c for c in M.CASES if (c[4] != 768) == shapes and (shapes or c[1] == kind)
+             and c[2] != M.SPLIT_B]
+    off = []
+
+    def each(case, sk):
+        other = M.case_outputs(fbq, case, device, tma=False)
+        off.extend(f"{case[0]} {k}" for k in M.KEYS[case[1]]
+                   if not torch.equal(sk[k], other[k]))
+
+    fbq.reset_launches()
+    towers = () if shapes else (kind,)
+    mine = M.output_digests(fbq, device, each, cases=cases, towers=towers)
+    # each case once on its route and once on the s8 GEMM's; a tower's 12
+    # halves at D = 768 on theirs
+    split = [c for c in cases if c[1] == "fsplit"]
+    n_b16 = len(cases) - len(split)
+    want = {"fsplit": {"epi": 0, "gemm": len(split)},
+            "bf16h": {"tma": n_b16 + M.TOWER_LAYERS * ("bf16h" in towers), "gemm": n_b16}}
+    for c in split:
+        want["fsplit"][fbq.fsplit_route(c[4], c[6])] += 1
+    if "fsplit" in towers:
+        want["fsplit"][fbq.fsplit_route(768, M.TOWER_FB)] += M.TOWER_LAYERS
+    got = {"fsplit": dict(fbq.FSPLIT_ROUTES), "bf16h": dict(fbq.BF16H_ROUTES)}
+    theirs = {k: v for k, v in parent["outputs"].items() if k in mine}
+    sass = parent["sass"]
+    if phase == 24:
+        sass = M.S.sass_digests(_build.LIB_PATHS["fused_block_q"]) or dict(
+            parent["sass"], **{n: "" for n in MLP_Q_NEW})
+    bad = M.S.compare({"outputs": M.flat(mine), "sass": sass},
+                      {"outputs": M.flat(theirs), "sass": parent["sass"]},
+                      f"the parent design ({MLP_Q_PARENT})", f"phase {phase} mlp ")
+    print(f"phase {phase} mlp: {len(M.flat(mine))} digests of {len(cases)} cases; the s8 GEMM "
+          f"route {'agrees' if not off else f'DIFFERS: {off}'}; routes {got} (expected {want})")
+    check(not bad and not off and len(theirs) == len(mine),
+          f"phase {phase}: the F-split's or KB (a) 2's outputs or the int8 library's kernels "
+          f"differ from the parent design ({bad}; {off})")
+    check(got == want, f"phase {phase}: the routes {got}, expected {want}")
+    if phase == 24:
+        added, removed = set(sass) - set(parent["sass"]), set(parent["sass"]) - set(sass)
+        check(not removed and all(any(n in k for n in MLP_Q_NEW + LAYER_NEW) for k in added),
+              f"phase 24: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
+        sass_check_mlp_q(_build.LIB_PATHS["fused_block_q"])
+    torch.cuda.empty_cache()
+
+
+def mlp_q_launches(fbq, phase, name, fn, want):
+    """One entry's device launches a call (``torch.profiler`` over 5 calls)
+    against ``want`` (the kernels' names in launch order, by prefix)."""
+    import importlib
+
+    S = importlib.import_module("benchmarks_torch.tp_slot_split")
+    prof = S.profiled(fn, 5, tries=3)
+    if not prof:
+        print(f"phase {phase} {name}: the profiler recorded no kernel; launches not checked")
+        return
+    per = {k: round(n / 5) for k, _, n in prof}
+    print(f"phase {phase} {name}: {sum(per.values())} launches a call {per}")
+    check(sum(per.values()) == len(want)
+          and all(any(k.startswith(w) for k in per) for w in want),
+          f"phase {phase} {name}: launches {per}, expected one each of {want}")
 
 
 def layer_work(b, s, d, f):
@@ -6385,6 +6534,18 @@ def split_phase(model, card, device):
     layer_hold(fbq, device)
     walls["layer hold"] = time.perf_counter() - t
     t = time.perf_counter()
+    (_, _), (qm, qmkw) = q_block_params(KB_D, device, seed=25)
+    xb = kb_inputs(BATCH, n=1)[0]
+    for fbv, quant in ((SPLIT_FB[0], "quant_rows_x4_kernel"), (SPLIT_FB[1], "quant_rows_kernel")):
+        down = ("gemm_s8_epi_chunk_kernel" if fbq.fsplit_route(KB_D, fbv) == "epi"
+                else "gemm_s8_kernel")
+        mlp_q_launches(fbq, 24, f"mlp_block_q(fb={fbv})",
+                       lambda fbv=fbv: fbq.mlp_block_q(xb, *qm, fb=fbv, **qmkw),
+                       ("ln_quant_rows_kernel", "gemm_s8_kernel", quant, down))
+    del xb
+    mlp_q_hold(fbq, device, 24, kind="fsplit")
+    walls["mlp hold"] = time.perf_counter() - t
+    t = time.perf_counter()
     res = model.clip.visual.resblocks
     d, heads = KB_D, KB_H
     opt_w = [fb.prescale_qkv(blk.attn.wqkv.detach(), blk.attn.bqkv.detach(), d, heads)
@@ -6459,6 +6620,10 @@ def split_phase(model, card, device):
             if kind == "layer":  # D = 768: the QKV and down products on the persistent GEMMs
                 check(fbq.LAYER_ROUTES == {"tma": LAYERS, "qkv": 0, "gemm": 0},
                       f"phase 24: the layer tower's routes {fbq.LAYER_ROUTES}")
+            if kind in ("fsplit2", "fsplit4", "fit_fsplit"):  # each call on fsplit_route's
+                route = fbq.fsplit_route(KB_D, SPLIT_KINDS[kind][2]["fb"])
+                check(fbq.FSPLIT_ROUTES == {"epi": 0, "gemm": 0, route: LAYERS},
+                      f"phase 24: the {kind} tower's routes {fbq.FSPLIT_ROUTES}")
         print(f"phase 24 tower launches: {launches}")
         for kind, (run, x, base, _) in towers.items():
             if base is None:
@@ -7075,6 +7240,7 @@ def shape_checks(fb, fbq, device, card):
           f"kernel at {row['bound_ms'] / row['ms']:.1%} of it) ({card})")
     del x0, qmlp
     torch.cuda.empty_cache()
+    mlp_q_hold(fbq, device, 27, shapes=True)
     padding_cost(fb, fbq, device, card)
     return rows
 

@@ -32,9 +32,13 @@
 //                                 of attention_qq.cuh (dvl_attention_qq_core
 //                                 alone): Q K^T and P V on s8 wgmma;
 //   dvl_mlp_block_q_kb         <- q_mlp_bf16h.py::tower (pipe_kernel, bf16h):
-//                                 bf16(deq + b1) (EQ_BIAS) with quick_gelu in
-//                                 the hidden's quantize pass (2 bytes read a
-//                                 value, not 4); q_kernel_variants.py::
+//                                 bf16(deq + b1) with quick_gelu in the
+//                                 hidden's quantize pass (2 bytes read a
+//                                 value, not 4), four launches: LayerNorm and
+//                                 the quantize of x in one, the up product on
+//                                 the persistent TMA-store GEMM, the
+//                                 gelu-and-quantize pass 16 bytes a load
+//                                 (qgelu_quant_rows_kernel); q_kernel_variants.py::
 //                                 make_mlp_var (mlp_q_kernel_var): the
 //                                 reciprocal quantizer, the bf16 quick_gelu in
 //                                 EQ_BIAS_QGELU_BF16;
@@ -48,7 +52,12 @@
 //                                 of the hidden quantized with its own row
 //                                 scales, the down product folding each
 //                                 chunk's int32 sum into an f32 sum
-//                                 (EQ_RESID_BIAS_CHUNK);
+//                                 (EQ_RESID_BIAS_CHUNK), four launches:
+//                                 LayerNorm and the quantize of x in one,
+//                                 chunks past 1,024 columns quantized 16
+//                                 bytes a load (quant_rows_x4_kernel), the
+//                                 fold on the epilogue warpgroups of
+//                                 gemm_s8_epi_chunk_kernel (fsplit_down_fits);
 //   dvl_fused_layer_q          <- q_layer_fused.py::tower (layer_kernel, every
 //                                 mode): K3 then K4 with the attention half's
 //                                 x + proj kept f32 (EQ_BIAS_RESID_Y) and added
@@ -1802,6 +1811,298 @@ cudaError_t launch_gemm_s8_epi(const int8_t* A, const float* a_scale, const int8
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4's F-split down product (KB (a) 7) on the epilogue-warpgroup GEMM:
+// out[M, ldc] = bf16((x + b2) + sum_c deq_c), deq_c = (acc_c * hs[m, c]) *
+// s2, acc_c the exact int32 sum of the hidden's chunk c (chunk_steps K
+// steps; each chunk quantized with its own row scales, hs [M, K / (128
+// chunk_steps)]), the deq_c summed in f32 in chunk order from 0, x bf16:
+// gemm_s8_kernel's EQ_RESID_BIAS_CHUNK, operation for operation.  That
+// kernel keeps the f32 sum beside the int32 accumulators and so runs one
+// block an SM at 168 registers, without the two blocks' overlap of one
+// tile's epilogue with another's products.  Here gemm_s8_epi_kernel's walk
+// and warps, with the sum on the epilogue warpgroups:
+//   * the consumers run the K loop and, at each chunk's last K step, wait
+//     for its products, hand the stage back, dump the chunk's int32 tile
+//     into their half buffer (once the epilogue has read the last one) and
+//     start the next chunk from zero: k hand-offs a tile, the barriers'
+//     phases counted over hand-offs, not tiles;
+//   * each epilogue thread folds each chunk into the f32 sums of its 8
+//     columns of 8 rows: columns 4-7 in registers, columns 0-3 in shared
+//     memory, in the 16-byte unit its bf16 row (r, 8 cg .. + 7) takes in
+//     the output staging (tc_sum_offset), so the shared memory is
+//     gemm_s8_epi_kernel's.  All 64 sums in registers beside the chunk's
+//     codes outgrow the 96 registers ptxas grants 544 threads (they spilled
+//     464 bytes a thread; 120 a thread do not launch: 5 of the 17 warps
+//     share a quarter of the register file; this split still spills 268),
+//     and all of them in shared memory leave room for a 3-stage ring only
+//     (0.335 ms against this design's 0.306-0.326 at fb = 1,536 on the
+//     same card, PERF.md).
+//     After the last chunk the thread adds the residual and bias and writes
+//     its bf16 row over its own sums' unit; the rows go out by TMA stores
+//     as gemm_s8_epi_kernel's.
+// Each chunk moves its int32 tile through shared memory twice (the dump,
+// the fold's read) beside the products' operand reads: with the fold taken
+// out the kernel takes 0.262 ms at fb = 1,536 and 0.289 at 768 against
+// 0.307 and 0.422 (ViT-B/16 B=256 on an NVIDIA H100 80GB HBM3 at 700 W,
+// fsplit_chunk_ablation.py), so the fold is what a chunk costs, and short
+// chunks lose (fsplit_down_fits).  The output rows must be whole 16-byte
+// units and each chunk whole K steps.
+// ---------------------------------------------------------------------------
+
+// The byte of f32 sum (r, col), col % 8 < 4, of an epilogue warpgroup's
+// shared sums: the staging's 16-byte unit of (r, col & ~7), the unit whose
+// bf16 row the same thread stages.
+__device__ __forceinline__ int tc_sum_offset(int r, int col) {
+  return tg_stage_offset(r, col & ~7) + (col & 3) * 4;
+}
+
+__global__ void __launch_bounds__(TE_THREADS, 1)
+gemm_s8_epi_chunk_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_b,
+                         const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ a_scale,
+                         const float* __restrict__ w_scale, const float* __restrict__ bias,
+                         const bf16* __restrict__ resid, int M, int N, int K, int ldc,
+                         int chunk_steps, int band) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);                       // [stage][128][128]
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + TE_STAGES * S_TILE);  // [stage][128][128]
+  unsigned char* halves = smem + 2 * TE_STAGES * S_TILE;              // [2][64][128] int32
+  unsigned char* sums = halves + 2 * TE_HALF;  // [2]: f32 columns 0-3 of each group, the staging
+  uint64_t* full = reinterpret_cast<uint64_t*>(sums + 2 * TG_OUT);
+  uint64_t* empty = full + TE_STAGES;
+  uint64_t* dumped = empty + TE_STAGES;  // [2]: consumer h's chunk is in its buffer
+  uint64_t* freed = dumped + 2;          // [2]: epilogue h has read that buffer
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int mt = (M + SBM - 1) / SBM, nt = N / SBN, tiles = mt * nt;
+  const int nk = K / SBK, nchunks = nk / chunk_steps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TE_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(&dumped[h], 1);
+      mbar_init(&freed[h], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 4) {  // the producer warp: one thread keeps the ring full
+    if (tid != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tg_tile(tile, mt, nt, band, m0, n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % TE_STAGES;
+        if (it >= TE_STAGES) mbar_wait(&empty[s], ((it / TE_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * S_TILE);
+        tma_load_2d(sA + s * S_TILE, &tm_a, &full[s], kt * SBK, m0);
+        tma_load_2d(sB + s * S_TILE, &tm_b, &full[s], kt * SBK, n0);
+      }
+    }
+    return;
+  }
+
+  if (wg < 2) {  // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each tile
+    const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    unsigned char* half = halves + wg * TE_HALF;
+    int acc[SBN / 2];
+#pragma unroll
+    for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+    int it = 0, hand = 0;  // K steps and chunk hand-offs so far
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % TE_STAGES;
+        mbar_wait(&full[s], (it / TE_STAGES) & 1);
+        const uint64_t da = desc_sw128(sA + s * S_TILE + wg * 64 * SBK);
+        const uint64_t db = desc_sw128(sB + s * S_TILE);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SBK / 32; ++kk) wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        fence_regs(acc);
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if ((kt + 1) % chunk_steps) continue;
+        // the chunk's last K step: its products done, the stage handed back,
+        // the int32 tile dumped once the epilogue has read the last one
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (tid == 0) mbar_arrive(&empty[prev]);
+        prev = -1;
+        if (hand > 0) mbar_wait(&freed[wg], (hand - 1) & 1);
+#pragma unroll
+        for (int j = 0; j < SBN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<int2*>(half + te_half_offset(warp * 16 + g + 8 * h, 8 * j + 2 * t)) =
+                make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        named_barrier(1 + wg, 128);
+        if (tid == 0) mbar_arrive(&dumped[wg]);
+        ++hand;
+#pragma unroll
+        for (int i = 0; i < SBN / 2; ++i) acc[i] = 0;
+        fence_regs(acc);
+      }
+    }
+    return;
+  }
+
+  // epilogue warpgroup e: the chunks of consumer e; thread (cg, rr): columns
+  // 8 cg .. 8 cg + 7 of rows rr, rr + 8, ..., rr + 56
+  const int e = wg - 2, cg = tid & 15, rr = tid >> 4;
+  const unsigned char* half = halves + e * TE_HALF;
+  unsigned char* stage = sums + e * TG_OUT;  // the sums of columns 0-3, then the bf16 rows
+  int hand = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int m0, n0;
+    tg_tile(tile, mt, nt, band, m0, n0);
+    const int n = n0 + 8 * cg, row0 = m0 + 64 * e;
+    float cs[8];
+    *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(w_scale + n);
+    *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(w_scale + n + 4);
+    float hi[8][4];  // the sums of columns 4-7, rows rr + 8 k: from 0, as the s8 GEMM's
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hi[k][i] = 0.f;
+    if (tid == 0) tma_store_wait<true>();  // the last tile's stores have read the staging
+    named_barrier(3 + e, 128);
+    for (int c = 0; c < nchunks; ++c, ++hand) {
+      mbar_wait(&dumped[e], hand & 1);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int r = rr + 8 * k;
+        const long long m = (long long)row0 + r;
+        const float rs = m < M ? a_scale[m * nchunks + c] : 0.f;
+        int a[8];
+        *reinterpret_cast<int4*>(a) = *reinterpret_cast<const int4*>(half + te_half_offset(r, 8 * cg));
+        *reinterpret_cast<int4*>(a + 4) =
+            *reinterpret_cast<const int4*>(half + te_half_offset(r, 8 * cg + 4));
+        float4* lo = reinterpret_cast<float4*>(stage + tc_sum_offset(r, 8 * cg));
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (c > 0) *reinterpret_cast<float4*>(v) = *lo;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = __fadd_rn(v[i], __fmul_rn(__fmul_rn(__int2float_rn(a[i]), rs), cs[i]));
+          hi[k][i] = __fadd_rn(hi[k][i],
+                               __fmul_rn(__fmul_rn(__int2float_rn(a[4 + i]), rs), cs[4 + i]));
+        }
+        *lo = *reinterpret_cast<const float4*>(v);
+      }
+      named_barrier(3 + e, 128);  // every thread has read the chunk: hand the buffer back
+      if (tid == 0) mbar_arrive(&freed[e]);
+    }
+    float bb[8];
+    *reinterpret_cast<float4*>(bb) = *reinterpret_cast<const float4*>(bias + n);
+    *reinterpret_cast<float4*>(bb + 4) = *reinterpret_cast<const float4*>(bias + n + 4);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = rr + 8 * k;
+      const long long m = (long long)row0 + r;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (m < M && n < ldc) {  // ldc % 8 == 0: the 8 columns are in or out together
+        const uint4 raw = *reinterpret_cast<const uint4*>(resid + m * ldc + n);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f2 = __bfloat1622float2(p[i]);
+          x[2 * i] = f2.x;
+          x[2 * i + 1] = f2.y;
+        }
+      }
+      uint4* lo = reinterpret_cast<uint4*>(stage + tc_sum_offset(r, 8 * cg));
+      float v[8];
+      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(lo);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 + i] = hi[k][i];
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pw[i] = pack_bf16(__fadd_rn(__fadd_rn(x[2 * i], bb[2 * i]), v[2 * i]),
+                          __fadd_rn(__fadd_rn(x[2 * i + 1], bb[2 * i + 1]), v[2 * i + 1]));
+      *lo = packed;  // the staging unit (r, 8 cg): this thread's own sums, read above
+    }
+    fence_proxy_async();  // the staging, before the TMA reads it
+    named_barrier(3 + e, 128);
+    if (tid == 0) {
+      if (row0 < M) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          if (n0 + 64 * b < ldc) tma_store_2d(&tm_c, stage + b * TG_BOX, n0 + 64 * b, row0);
+      }
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait<false>();
+}
+
+// Whether K4's F-split at model width D with hidden chunks of `chunk`
+// padded columns runs its down product on gemm_s8_epi_chunk_kernel: the
+// bf16 output and residual rows whole 16-byte units (layer_down_fits) and
+// each chunk whole K steps, at least FSPLIT_MIN_STEPS of them.  Each chunk's
+// hand-off costs the consumers a drained pipeline and a dump: at ViT-B/16
+// B=256 the kernel won over gemm_s8_kernel's chunked mode at chunks of 1,536
+// and 1,024 columns and lost at 768 (PERF.md).  Other shapes take
+// gemm_s8_kernel's EQ_RESID_BIAS_CHUNK.  The one statement of the rule:
+// ops/fused_block_q.py::fsplit_route asks it (dvl_fsplit_down_fits).
+constexpr int FSPLIT_MIN_STEPS = 8;
+
+bool fsplit_down_fits(int D, int chunk) {
+  return layer_down_fits(D) && chunk % SBK == 0 && chunk >= FSPLIT_MIN_STEPS * SBK;
+}
+
+// out [M, ldc] bf16 = bf16((x + bias) + sum_c deq_c) from A [M, K] and Wt
+// [N, K] int8 (N % 128 == 0, N - 128 < ldc <= N, K = nchunks chunk,
+// fsplit_down_fits(ldc, chunk)), a_scale [M, nchunks], x [M, ldc] bf16:
+// gemm_s8_kernel<EQ_RESID_BIAS_CHUNK>'s output on the epilogue-warpgroup
+// GEMM.
+cudaError_t launch_gemm_s8_epi_chunk(const int8_t* A, const float* a_scale, const int8_t* Wt,
+                                     const float* w_scale, const float* bias, const bf16* x,
+                                     bf16* C, int M, int N, int K, int chunk, int ldc,
+                                     cudaStream_t st) {
+  if (M < 1 || N % SBN || chunk < 1 || K % chunk || ldc > N || ldc <= N - SBN ||
+      !fsplit_down_fits(ldc, chunk))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b, tm_c;
+  const uint64_t stride_k[1] = {(uint64_t)K}, stride_c[1] = {(uint64_t)ldc * 2};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t dims_c[2] = {(uint64_t)ldc, (uint64_t)M};
+  const uint32_t box[2] = {SBK, SBM}, box_c[2] = {64, 64};
+  cudaError_t e = make_tensor_map(&tm_a, A, 2, dims_a, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess)
+    e = make_tensor_map(&tm_b, Wt, 2, dims_b, stride_k, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e == cudaSuccess) e = make_tensor_map(&tm_c, C, 2, dims_c, stride_c, box_c);
+  if (e != cudaSuccess) return e;
+  static std::atomic<unsigned> sized{0};  // the devices the kernel's size is set on
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(sized.load(std::memory_order_relaxed) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(gemm_s8_epi_chunk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, TE_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized.fetch_or(1u << dev, std::memory_order_relaxed);
+  }
+  if (g_sm_count == 0) {
+    e = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int nt = N / SBN, tiles = ((M + SBM - 1) / SBM) * nt;
+  gemm_s8_epi_chunk_kernel<<<tiles < g_sm_count ? tiles : g_sm_count, TE_THREADS, TE_SMEM, st>>>(
+      tm_a, tm_b, tm_c, a_scale, w_scale, bias, x, M, N, K, ldc, chunk / SBK, tg_band(nt, K));
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ float tp_out_q(int acc, float rs, float ws, float b, float r,
                                           int bias_first) {
   const float d = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), ws);
@@ -2141,6 +2442,160 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// The quantize passes of K4's F-split and KB (a) 2, 16 bytes a load.  One
+// block of QR_THREADS threads a row, as quant_rows_kernel, each thread PV
+// 16-byte units of the row (thread t the units t, t + 128, ...: a warp's
+// loads coalesce), held in registers from one read: the row's amax, the
+// scale q_scale_nan(amax) and the codes, written 4 (f32) or 8 (bf16) at a
+// time.  The codes are quant_rows_kernel's: the IEEE quotient (q_code:
+// qq_div's corrected reciprocal product where the row's scale is finite,
+// __fdiv_rn where it is not; one branch a row), rounded half to even,
+// clamped to +-127, a NaN quotient to 0.
+//   * quant_rows_x4_kernel: the F-split's f32 hidden chunks past 1,024
+//     columns (fb = 1,536 at ViT-B/16, SigLIP's 1,076 padded to 1,152),
+//     which quant_rows_kernel's 32-slot tier held at 12 or 9 live values a
+//     thread.  Bytes-bound: 5 bytes a value.
+//   * qgelu_quant_rows_kernel: KB (a) 2's bf16 pre-activation u, quick_gelu
+//     (common.cuh, the same expression) of each value after the load, the
+//     codes of those f32 values; act_out (if not null) receives them as f32.
+//     The element-by-element pass it replaces loaded 2 bytes at a time and
+//     divided each value by __fdiv_rn.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float block_max_nan(float amax, float* red) {
+  amax = warp_max_nan(amax);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmax_nan(amax, red[w]);
+  return amax;
+}
+
+template <int PV>
+__global__ void __launch_bounds__(QR_THREADS)
+quant_rows_x4_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ scale, int n) {
+  __shared__ float red[QR_THREADS / 32];
+  const long long row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+  const int n4 = n >> 2;
+  uint4 v[PV];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < PV; ++j) {
+    const int i = threadIdx.x + j * QR_THREADS;
+    v[j] = i < n4 ? xr[i] : make_uint4(0u, 0u, 0u, 0u);
+    const float* f = reinterpret_cast<const float*>(&v[j]);
+    amax = fmax_nan(amax, fmax_nan(fmax_nan(fabsf(f[0]), fabsf(f[1])),
+                                   fmax_nan(fabsf(f[2]), fabsf(f[3]))));
+  }
+  const float s = q_scale_nan(block_max_nan(amax, red));
+  const float rs = __frcp_rn(s);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * n);
+  if (s < INFINITY) {
+#pragma unroll
+    for (int j = 0; j < PV; ++j)
+      if (threadIdx.x + j * QR_THREADS < n4)
+        qr[threadIdx.x + j * QR_THREADS] = q_chunk_as<float, true>(v[j], s, rs).x;
+  } else {
+#pragma unroll
+    for (int j = 0; j < PV; ++j)
+      if (threadIdx.x + j * QR_THREADS < n4)
+        qr[threadIdx.x + j * QR_THREADS] = q_chunk_as<float, false>(v[j], s, rs).x;
+  }
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
+template <int PV, bool FAST>
+__device__ __forceinline__ void qgelu_codes(const float (&v)[PV][8], uint2* qr, float s, float rs,
+                                            int n8) {
+#pragma unroll
+  for (int j = 0; j < PV; ++j) {
+    const int i = threadIdx.x + j * QR_THREADS;
+    if (i >= n8) continue;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) w[c >> 2] |= q_code<FAST>(v[j][c], s, rs) << (8 * (c & 3));
+    qr[i] = make_uint2(w[0], w[1]);
+  }
+}
+
+template <int PV>
+__global__ void __launch_bounds__(QR_THREADS)
+qgelu_quant_rows_kernel(const bf16* __restrict__ u, int8_t* __restrict__ q,
+                        float* __restrict__ scale, float* __restrict__ act_out, int n) {
+  __shared__ float red[QR_THREADS / 32];
+  const long long row = blockIdx.x;
+  const uint4* ur = reinterpret_cast<const uint4*>(u + row * n);
+  const int n8 = n >> 3;
+  float v[PV][8];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < PV; ++j) {
+    const int i = threadIdx.x + j * QR_THREADS;
+    const uint4 raw = i < n8 ? ur[i] : make_uint4(0u, 0u, 0u, 0u);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float2 f = __bfloat1622float2(p[c]);
+      v[j][2 * c] = quick_gelu(f.x);  // quick_gelu(0) = 0: a unit past the row adds nothing
+      v[j][2 * c + 1] = quick_gelu(f.y);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) amax = fmax_nan(amax, fabsf(v[j][c]));
+    if (act_out != nullptr && i < n8) {
+      float4* a = reinterpret_cast<float4*>(act_out + row * n) + 2 * i;
+      a[0] = make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+      a[1] = make_float4(v[j][4], v[j][5], v[j][6], v[j][7]);
+    }
+  }
+  const float s = q_scale_nan(block_max_nan(amax, red));
+  const float rs = __frcp_rn(s);
+  uint2* qr = reinterpret_cast<uint2*>(q + row * n);
+  if (s < INFINITY)  // the branch a row, not a value
+    qgelu_codes<PV, true>(v, qr, s, rs, n8);
+  else
+    qgelu_codes<PV, false>(v, qr, s, rs, n8);
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
+// The F-split's hidden chunks: k rows of n = F / k per row of h (rows = M k).
+// Chunks past 1,024 columns (n % 4 == 0 there: chunks are multiples of 128)
+// take quant_rows_x4_kernel; the others quant_rows_kernel's tiers, K4's.
+cudaError_t launch_quant_chunks(const float* h, int8_t* q, float* scale, int rows, int n,
+                                cudaStream_t st) {
+  if (n <= 8 * QR_THREADS || n > 16 * QR_THREADS || n % 4)
+    return launch_quant_rows(h, q, scale, rows, n, st);
+  if (n <= 12 * QR_THREADS)
+    quant_rows_x4_kernel<3><<<rows, QR_THREADS, 0, st>>>(h, q, scale, n);
+  else
+    quant_rows_x4_kernel<4><<<rows, QR_THREADS, 0, st>>>(h, q, scale, n);
+  return cudaGetLastError();
+}
+
+// KB (a) 2's hidden: hq, hs from quick_gelu of u [rows, n] bf16 (n % 8 ==
+// 0), g [rows, n] f32 the activations if not null.  Rows past 5,120 values
+// (40 a thread) take quant_rows_kernel's QGELU passes.
+cudaError_t launch_qgelu_quant(const bf16* u, int8_t* q, float* scale, float* g, int rows, int n,
+                               cudaStream_t st) {
+  const int units = n / 8;
+  if (n % 8 || units > 5 * QR_THREADS)
+    return launch_quant_rows_mode<false, true>(u, q, scale, g, rows, n, st);
+  if (units <= QR_THREADS)
+    qgelu_quant_rows_kernel<1><<<rows, QR_THREADS, 0, st>>>(u, q, scale, g, n);
+  else if (units <= 2 * QR_THREADS)
+    qgelu_quant_rows_kernel<2><<<rows, QR_THREADS, 0, st>>>(u, q, scale, g, n);
+  else if (units <= 3 * QR_THREADS)
+    qgelu_quant_rows_kernel<3><<<rows, QR_THREADS, 0, st>>>(u, q, scale, g, n);
+  else if (units <= 4 * QR_THREADS)
+    qgelu_quant_rows_kernel<4><<<rows, QR_THREADS, 0, st>>>(u, q, scale, g, n);
+  else
+    qgelu_quant_rows_kernel<5><<<rows, QR_THREADS, 0, st>>>(u, q, scale, g, n);
+  return cudaGetLastError();
+}
+
 // The MLP block's variants: K4, KB (a) 2 (bf16h), KB (a) 3 (var, with or
 // without the bf16 quick_gelu) and the attribution's two stubbed blocks.
 enum MlpQVariant {
@@ -2165,9 +2620,15 @@ enum MlpQVariant {
 // quick_gelu only.
 // K4 only: k > 1 splits F into k chunks of F / k (a multiple of 128) as the
 // TPU kernel's F-split does: each row of each chunk quantized on its own
-// (the quantize pass over the [M k, F / k] view of h; hs [M, k]), and the
-// down product's K loop folding each chunk's int32 sum into an f32 sum with
-// that chunk's row scales (EQ_RESID_BIAS_CHUNK).
+// (the quantize pass over the [M k, F / k] view of h, launch_quant_chunks;
+// hs [M, k]), and the down product's K loop folding each chunk's int32 sum
+// into an f32 sum with that chunk's row scales (EQ_RESID_BIAS_CHUNK).
+// The F-split and MQ_BF16H open with one pass that normalises x and
+// quantizes it (ln_quant_rows_kernel: K4's codes and scales bit for bit;
+// xn is not written and may be null), four launches.  tma 1: the F-split's
+// down product on gemm_s8_epi_chunk_kernel where fsplit_down_fits(D, F /
+// k), MQ_BF16H's up product on gemm_s8_tma_kernel; tma 0 (the checks'
+// route): both on gemm_s8_kernel.  The same outputs bit for bit.
 // Every variant runs any D and F on the padded operand layout of
 // ops/fused_block.py::mlp_plan: F here is the padded hidden width, each of
 // the k chunks of the model's F / k hidden columns rounded up to 128 with
@@ -2180,7 +2641,7 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
                      const void* s1, const void* b1, const void* w2_t, const void* s2,
                      const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
                      void* hs, void* g, int M, int D, int F, int act_kind, int variant,
-                     void* stream, int k = 1, int fv = 0) {
+                     void* stream, int k = 1, int fv = 0, int tma = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int DK = round_up(D, 64), NO = round_up(D, SBN);
   if (variant != MQ_K4 && act_kind != 0) return (int)cudaErrorInvalidValue;
@@ -2188,6 +2649,7 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (k > 1 && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
   const bool mxu = variant == MQ_ATTR_MXU, vpu = variant == MQ_ATTR_VPU;
+  const bool ln_quant = k > 1 || variant == MQ_BF16H;
   const int8_t* w1 = static_cast<const int8_t*>(w1_t);
   const float *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1);
   const float* fxs = static_cast<const float*>(xs);
@@ -2196,6 +2658,10 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (mxu) {
     e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
                              static_cast<float*>(xs), M, D, st, DK);
+  } else if (ln_quant) {
+    e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                        static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                        static_cast<float*>(xs), nullptr, M, D, DK, st);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
@@ -2216,7 +2682,8 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
                                            fv == 0 ? F : fv);
       break;
     case MQ_BF16H:
-      e = launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
+      e = tma ? launch_gemm_s8_tma(ixq, fxs, w1, fs1, fb1, static_cast<bf16*>(h), M, F, DK, st)
+              : launch_gemm_s8<EQ_BIAS>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
       break;
     case MQ_VAR_BF16_GELU:
       e = launch_gemm_s8<EQ_BIAS_QGELU_BF16>(ixq, fxs, w1, fs1, fb1, nullptr, h, M, F, DK, st);
@@ -2229,15 +2696,17 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (mxu)
     e = cudaSuccess;  // the up GEMM wrote hq and hs
   else if (variant == MQ_BF16H)
-    e = launch_quant_rows_mode<false, true>(static_cast<const bf16*>(h), static_cast<int8_t*>(hq),
-                                            static_cast<float*>(hs), static_cast<float*>(g), M, F,
-                                            st);
+    e = launch_qgelu_quant(static_cast<const bf16*>(h), static_cast<int8_t*>(hq),
+                           static_cast<float*>(hs), static_cast<float*>(g), M, F, st);
   else if (recip)
     e = launch_quant_rows_mode<true, false>(static_cast<const float*>(h), static_cast<int8_t*>(hq),
                                             static_cast<float*>(hs), nullptr, M, F, st);
-  else  // k rows of F / k per row of h (k == 1: the whole row)
+  else if (k > 1)  // k rows of F / k per row of h
+    e = launch_quant_chunks(static_cast<const float*>(h), static_cast<int8_t*>(hq),
+                            static_cast<float*>(hs), M * k, F / k, st);
+  else
     e = launch_quant_rows(static_cast<const float*>(h), static_cast<int8_t*>(hq),
-                          static_cast<float*>(hs), M * k, F / k, st);
+                          static_cast<float*>(hs), M, F, st);
   if (e != cudaSuccess) return (int)e;
   const int8_t* ihq = static_cast<const int8_t*>(hq);
   const float *fhs = static_cast<const float*>(hs), *fs2 = static_cast<const float*>(s2),
@@ -2245,6 +2714,9 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   const int8_t* w2 = static_cast<const int8_t*>(w2_t);
   if (vpu)
     e = launch_bcast_rows<EQ_RESID_BIAS>(ihq, fhs, F, fb2, x, out, M, D, st);
+  else if (k > 1 && tma && fsplit_down_fits(D, F / k))
+    e = launch_gemm_s8_epi_chunk(ihq, fhs, w2, fs2, fb2, static_cast<const bf16*>(x),
+                                 static_cast<bf16*>(out), M, NO, F, F / k, D, st);
   else if (k > 1)
     e = launch_gemm_s8<EQ_RESID_BIAS_CHUNK>(ihq, fhs, w2, fs2, fb2, x, out, M, NO, F, st, nullptr,
                                             F / k / SBK, D);
@@ -2350,14 +2822,21 @@ long long dvl_qq_ws_bytes(int B, int S, int heads, int hdp) {
 
 // K4 (mlp_block_q_impl's MQ_K4), its hidden in k F-chunks (k = 1: the
 // whole row; k > 1: mlp_block_q(fb=F / k), KB (a) 7's make_fsplit(k); hs
-// [M, k]); F is the padded hidden width, k chunks of fb rounded up to 128.
+// [M, k]; xn unwritten, tma 1 the down product on the epilogue-warpgroup
+// GEMM where fsplit_down_fits); F is the padded hidden width, k chunks of fb
+// rounded up to 128.
 int dvl_mlp_block_q(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                     const void* s1, const void* b1, const void* w2_t, const void* s2,
                     const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
-                    void* hs, int M, int D, int F, int act_kind, int k, void* stream) {
+                    void* hs, int tma, int M, int D, int F, int act_kind, int k, void* stream) {
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
-                          nullptr, M, D, F, act_kind, MQ_K4, stream, k);
+                          nullptr, M, D, F, act_kind, MQ_K4, stream, k, 0, tma);
 }
+
+// 1 where K4's F-split at model width D with padded hidden chunks of
+// `chunk` columns runs its down product on the epilogue-warpgroup GEMM
+// (fsplit_down_fits), else 0.
+int dvl_fsplit_down_fits(int D, int chunk) { return fsplit_down_fits(D, chunk); }
 
 // The one-call int8 layer of benchmarks/q_layer_fused.py (layer_kernel),
 // nine launches: LayerNorm and the quantize pass of x in one
@@ -2439,14 +2918,16 @@ int dvl_layer_down_fits(int D) { return layer_down_fits(D); }
 // f32 activation, or null) before M, and the variant (1 bf16h, 2 reciprocal
 // quantizer, 3 reciprocal quantizer and bf16 quick_gelu, 4 q_attribution.py's
 // "mxu", 5 its "vpu") in place of act_kind; F the padded hidden width, fv
-// the model's.
+// the model's; tma (bf16h: xn unwritten, 1 the up product on the persistent
+// TMA-store GEMM).
 int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                        const void* s1, const void* b1, const void* w2_t, const void* s2,
                        const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,
-                       void* hs, void* g, int M, int D, int F, int fv, int variant, void* stream) {
+                       void* hs, void* g, int M, int D, int F, int fv, int variant, int tma,
+                       void* stream) {
   if (variant < MQ_BF16H || variant > MQ_ATTR_VPU) return (int)cudaErrorInvalidValue;
   return mlp_block_q_impl(x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, out, xn, xq, xs, h, hq, hs,
-                          g, M, D, F, 0, variant, stream, 1, fv);
+                          g, M, D, F, 0, variant, stream, 1, fv, tma);
 }
 
 // A tensor-parallel slot's int8 attention up to its out-projection, on the

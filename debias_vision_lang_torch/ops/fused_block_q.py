@@ -74,7 +74,11 @@ each K3 or K4 with one change, on the same launches:
                          p per row, v per column over the keys; any head
                          dim and S, ``qq_route``)
   mlp_block_q_bf16h      (q_mlp_bf16h.py) the up-projection's deq + b1
-                         rounded to bf16 before quick_gelu and the quantize
+                         rounded to bf16 before quick_gelu and the quantize;
+                         on the card LayerNorm and quantize in one pass, the
+                         up product on the persistent TMA-store GEMM
+                         (``BF16H_ROUTES``), the gelu-and-quantize pass 16
+                         bytes a load
   mlp_block_q_var        (q_kernel_variants.py) the reciprocal quantizer
                          (``quant_rows_recip``), optionally a bf16 quick_gelu
   attention_block_q_var  (q_kernel_variants.py) the reciprocal quantizer,
@@ -83,7 +87,11 @@ each K3 or K4 with one change, on the same launches:
 
 and, beside them (``KB_LAUNCHES``):
 
-  mlp_block_q(fb=F/k)        (q_ilp.py::make_fsplit(k), KB (a) 7) K4's F-split
+  mlp_block_q(fb=F/k)        (q_ilp.py::make_fsplit(k), KB (a) 7) K4's F-split;
+                             on the card LayerNorm and quantize in one pass,
+                             the chunked down product on the epilogue-warpgroup
+                             GEMM where ``fsplit_route`` takes it
+                             (``FSPLIT_ROUTES``)
   fused_layer_q              (q_layer_fused.py) K3 then K4 in one call, the
                              attention half's x + proj kept f32 for the MLP
                              half's residual (only LayerNorm reads it in bf16);
@@ -157,6 +165,14 @@ ROWS_INPUTS: Dict[str, int] = {"bf16": 0, "f32": 0}
 # down product's rows are not whole 16-byte units ("qkv"), or, for the
 # checks, neither ("gemm", ``_fused_layer_q_cuda(..., tma=False)``)
 LAYER_ROUTES: Dict[str, int] = {"tma": 0, "qkv": 0, "gemm": 0}
+# the routes of the F-split's calls (``fsplit_route``): its down product on
+# the epilogue-warpgroup GEMM ("epi"), or on the chunked s8 GEMM where the
+# output rows are not whole 16-byte units or for the checks ("gemm",
+# ``_mlp_block_q_cuda(..., tma=False)``)
+FSPLIT_ROUTES: Dict[str, int] = {"epi": 0, "gemm": 0}
+# and of ``mlp_block_q_bf16h``'s: its up product on the persistent TMA-store
+# GEMM ("tma"), or on the s8 GEMM for the checks ("gemm")
+BF16H_ROUTES: Dict[str, int] = {"tma": 0, "gemm": 0}
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM's N tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core's register route holds
 # KB (a) 1's int8 core launches by route (``qq_route``)
@@ -168,7 +184,7 @@ ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES, ROWS_ROUTES,
-                   ROWS_INPUTS, LAYER_ROUTES):
+                   ROWS_INPUTS, LAYER_ROUTES, FSPLIT_ROUTES, BF16H_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -772,7 +788,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvl_attention_block_q.argtypes = [p] * 17 + [i] * 6 + [ctypes.c_float, p]
         lib.dvl_attention_block_q.restype = i
-        lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 5 + [p]
+        lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 6 + [p]
         lib.dvl_mlp_block_q.restype = i
         f = ctypes.c_float
         for entry in ("dvl_attention_block_q_var", "dvl_attention_block_q_postdiv",
@@ -785,12 +801,14 @@ def _lib():
         lib.dvl_attention_qq_core.restype = i
         lib.dvl_qq_ws_bytes.argtypes = [i] * 4
         lib.dvl_qq_ws_bytes.restype = ctypes.c_longlong
-        lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 5 + [p]
+        lib.dvl_mlp_block_q_kb.argtypes = [p] * 17 + [i] * 6 + [p]
         lib.dvl_mlp_block_q_kb.restype = i
         lib.dvl_fused_layer_q.argtypes = [p] * 31 + [i] * 6 + [f, i, p]
         lib.dvl_fused_layer_q.restype = i
         lib.dvl_layer_down_fits.argtypes = [i]
         lib.dvl_layer_down_fits.restype = i
+        lib.dvl_fsplit_down_fits.argtypes = [i, i]
+        lib.dvl_fsplit_down_fits.restype = i
         lib.dvl_attention_block_q_heads.argtypes = [p] * 11 + [i] * 6 + [f, p]
         lib.dvl_attention_block_q_heads.restype = i
         lib.dvl_mlp_block_q_cols.argtypes = [p] * 10 + [i] * 4 + [p]
@@ -976,10 +994,25 @@ def _attention_qq_core_cuda(qkv32, heads, scratch):
 _MLP_Q_MODES = {"k4": 0, "bf16h": 1, "var": 2, "var_bf16_gelu": 3, "attr_mxu": 4, "attr_vpu": 5}
 
 
+@functools.lru_cache(maxsize=None)
+def fsplit_route(d: int, fb: int) -> str:
+    """The route of K4's F-split on the card at model width ``d`` and F-tile
+    ``fb``: "epi" (the down product on the epilogue-warpgroup GEMM) where
+    the library's rule takes it (csrc/fused_block_q.cu::fsplit_down_fits:
+    d % 8 == 0, its bf16 rows whole 16-byte units, and each chunk, fb
+    padded to a multiple of 128, whole K steps), else "gemm" (the chunked s8
+    GEMM).  Needs the library."""
+    return "epi" if _lib().dvl_fsplit_down_fits(d, round_up(fb, S8_GEMM_TILE)) else "gemm"
+
+
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
-                      w1_qt, w2_qt, scratch, kind="k4", fb=None):
+                      w1_qt, w2_qt, scratch, kind="k4", fb=None, tma=True):
     """K4's launch on ``mlp_plan``'s layout (any D, F and divisor fb of F),
-    or a KB variant's on the same layout (fb = F)."""
+    or a KB variant's on the same layout (fb = F).  The F-split and bf16h
+    normalise and quantize x in one pass (no LayerNorm rows in the scratch)
+    and take their routes (``fsplit_route``; bf16h's up product on the
+    persistent GEMM); ``tma=False`` puts their products on the s8 GEMM, the
+    same outputs bit for bit, for the checks."""
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
@@ -993,7 +1026,8 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
            *_q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan, dev)]
     m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    ln_quant = k > 1 or kind == "bf16h"  # LayerNorm's rows never written
+    xn = None if ln_quant else torch.empty((m, plan.dk), dtype=bf, device=dev)
     xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     # bf16h keeps the pre-activation in bf16; the quantize pass applies
@@ -1005,22 +1039,25 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
         if kind == "bf16h" and scratch is not None else None
     hq = torch.empty((m, plan.fp), dtype=i8, device=dev)
     hs = torch.empty((m, k), dtype=f32, device=dev)
-    ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), xn.data_ptr(),
-            xq.data_ptr(), xs.data_ptr(), 0 if h is None else h.data_ptr(), hq.data_ptr(),
-            hs.data_ptr()]
+    ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
+            0 if xn is None else xn.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+            0 if h is None else h.data_ptr(), hq.data_ptr(), hs.data_ptr()]
     if kind == "k4":
-        err = _lib().dvl_mlp_block_q(*ptrs, m, d, plan.fp, ACT_KINDS.index(act_kind), k,
-                                     _stream_ptr(dev))
+        err = _lib().dvl_mlp_block_q(*ptrs, int(tma), m, d, plan.fp, ACT_KINDS.index(act_kind),
+                                     k, _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q")
         if k > 1:
             KB_LAUNCHES["mlp_block_q_fsplit"] += 1
+            FSPLIT_ROUTES[fsplit_route(d, fb) if tma else "gemm"] += 1
         else:
             LAUNCHES["mlp_block_q"] += 1
     else:
         err = _lib().dvl_mlp_block_q_kb(*ptrs, 0 if g is None else g.data_ptr(), m, d, plan.fp,
-                                        f, _MLP_Q_MODES[kind], _stream_ptr(dev))
+                                        f, _MLP_Q_MODES[kind], int(tma), _stream_ptr(dev))
         _raise_on(err, "dvl_mlp_block_q_kb")
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
+        if kind == "bf16h":
+            BF16H_ROUTES["tma" if tma else "gemm"] += 1
     check_nans("dvl_mlp_block_q", out)
     if scratch is not None:  # the model's widths: the padded lanes cropped
         rows = (b, s, f) if k == 1 else (b, s, k, fb)
@@ -1028,8 +1065,9 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
         scratch.update({"xq": xq[:, :d].reshape(b, s, d), "xs": xs.view(b, s, 1),
                         "hq": crop(hq).reshape(rows), "hs": hs.view(*rows[:-1], 1)})
         if kind != "attr_mxu":  # no LayerNorm and no f32 hidden there
-            scratch.update({"xn": xn[:, :d].reshape(b, s, d).float(),
-                            "h": crop(h if g is None else g).reshape(rows)})
+            scratch["h"] = crop(h if g is None else g).reshape(rows)
+            if xn is not None:  # LayerNorm's rows, where a launch of their own wrote them
+                scratch["xn"] = xn[:, :d].reshape(b, s, d).float()
         if kind == "bf16h":
             scratch["u"] = crop(h).view(b, s, f)
     return out
@@ -1278,7 +1316,9 @@ def mlp_block_q(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
     ``fb`` (JAX's F-tile): None or F is K4; a smaller divisor of F
     quantizes each fb-wide chunk of a hidden row on its own and sums the
     chunks' products in f32 (``fsplit_down``; on the card each chunk padded
-    to a multiple of 128, counted in ``KB_LAUNCHES["mlp_block_q_fsplit"]``)."""
+    to a multiple of 128, counted in ``KB_LAUNCHES["mlp_block_q_fsplit"]``
+    and by route in ``FSPLIT_ROUTES``; its scratch has no LayerNorm rows
+    there)."""
     if act_kind not in ACT_KINDS:
         raise ValueError(f"act_kind must be one of {ACT_KINDS}, "
                          f"got {act_kind!r}")
@@ -1435,7 +1475,8 @@ def mlp_block_q_bf16h(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
                       w1_qt=None, w2_qt=None, scratch: Optional[dict] = None) -> torch.Tensor:
     """KB (a) 2 (``tower(bb, depth, bf16h=True)`` of benchmarks/q_mlp_bf16h.py;
     ``bb`` and ``depth`` are the TPU's chain schedule): K4 with the
-    pre-activation rounded to bf16."""
+    pre-activation rounded to bf16 (on the card counted in ``BF16H_ROUTES``
+    too; its scratch has no LayerNorm rows there)."""
     if _route(x) == "cpu":
         return mlp_block_q_bf16h_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
                                        scratch=scratch)

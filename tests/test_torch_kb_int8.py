@@ -555,6 +555,9 @@ def test_cuda_variants_match_twins(cuda, kind, b, s):
     elif kind == "bf16h":
         got = fbq.mlp_block_q_bf16h(x, *m, **mkw, scratch=sk)
         ref = fbq.mlp_block_q_bf16h_plain(x, *m)
+        s4 = {}  # one LayerNorm-and-quantize pass: K4's LayerNorm rows of the same x
+        fbq.mlp_block_q(x, *m, **mkw, scratch=s4)
+        sk["xn"] = s4["xn"]
         _codes_are_own(sk, fbq.quant_rows, [("xq", "xn", "xs"), ("hq", "h", "hs")])
         key = "mlp_block_q_bf16h"
     else:

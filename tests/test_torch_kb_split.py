@@ -360,6 +360,9 @@ def test_cuda_fsplit_matches_twin(cuda, b, s, fbv, act_kind):
     torch.cuda.synchronize()
     assert fbq.KB_LAUNCHES["mlp_block_q_fsplit"] == 1 and fbq.LAUNCHES["mlp_block_q"] == 0
     assert sk["hs"].shape == (b, s, F // fbv, 1)
+    s4 = {}  # one LayerNorm-and-quantize pass: K4's LayerNorm rows of the same x
+    fbq.mlp_block_q(x, *mlp, **kw, scratch=s4)
+    sk["xn"] = s4["xn"]
     _codes_are_own(sk, [("xq", "xn", "xs"), ("hq", "h", "hs")])
     own, _, _ = fbq.fsplit_down(sk["h"].reshape(b, s, F), mlp[5], mlp[6], fbv)
     within_one_ulp(got.cpu(), ((x.float() + mlp[7]) + own).to(torch.bfloat16).cpu())
