@@ -113,15 +113,17 @@ def digest(t) -> str:
     return hashlib.sha256(raw).hexdigest()[:16]
 
 
-def sass_digests(path) -> dict:
+def sass_digests(path, sass=None) -> dict:
     """{mangled kernel name: sha256 of its SASS} of one library (its
-    cuobjdump dump split at each "Function :" header), each instruction's
-    address comment and encoding stripped; {} without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return {}
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
+    cuobjdump dump, or ``sass`` where the caller has it, split at each
+    "Function :" header), each instruction's address comment and encoding
+    stripped; {} without cuobjdump."""
+    if sass is None:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if not os.path.exists(tool):
+            return {}
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = part.split("\n", 1)[0].strip(), part

@@ -406,7 +406,16 @@ Phases (any failure exits non-zero before the final line):
      route (S = 400); each timed at B=256 beside K3 / K4 with its bound; the
      scripts' towers (12 attention or MLP halves of the phase-4 model's
      quantized resblocks at B=256): launches 12 per entry, cosine against
-     the K3 / K4 tower printed, not gated, and ms beside it.
+     the K3 / K4 tower printed, not gated, and ms beside it.  KB (a) 3
+     (LayerNorm and the reciprocal quantize in one pass, then K4's
+     up GEMM, quantize pass and down GEMM: 4 launches a call by the
+     profiler, each tower call on the "ln" route) held to the design before
+     it (benchmarks_torch/kb_var_parent.json: every output, code, scale and
+     row of benchmarks_torch/kb_var_split.py's B <= 32 cases and its two
+     12-layer towers bit for bit; the launches before it the same bits;
+     the int8 library's kernels the same SASS but the new ones, the
+     divide-after core's HGMMA and UTMALDG), and a kernels-line row at the
+     text tower's D = 512.
  24. K4's F-split (``fused_block_q.mlp_block_q(fb=)``, KB (a) 7's
      ``make_fsplit``), KB (a) 5 (``fused_block.attention_block_opt``), the
      one-call int8 layer of q_layer_fused.py (``fused_layer_q``) and
@@ -431,6 +440,11 @@ Phases (any failure exits non-zero before the final line):
      bit, the int8 library's kernels the same SASS but the new two), its
      products on the s8 GEMM route the same outputs bit for bit; its
      LayerNorm codes held to K3's / K4's LayerNorm rows of the same inputs.
+     q_ilp4's attention (LayerNorm and quantize in one pass,
+     the QKV product on the TMA-store GEMM, the core's divide-after
+     instantiation: 5 launches a call, each tower call on the "tma" route)
+     held to kb_var_parent.json likewise, and a kernels-line row at the
+     FiT shape B=32 S=785 (its core on the long route).
  25. benchmarks/q_attribution.py's blocks (KB (c)):
      ``fused_block_q.mlp_block_q_attr`` / ``attention_block_q_attr`` at
      modes "mxu" (the products only, XLA's saturating int8 casts, the wgmma
@@ -784,15 +798,60 @@ SASS_OPS_LONG = {**SASS_OPS, "HGMMA.BF16": r"\bHGMMA\.[\w.]*BF16\b",
                  "HGMMA.TF32": r"\bHGMMA\.[\w.]*TF32\b"}
 
 
+# cuobjdump -sass of a library, and the split scripts' digests of it, by
+# (path, mtime, size): the phases read the int8 library's SASS a dozen times
+_SASS_DUMPS: dict = {}
+_SASS_DIGESTS: dict = {}
+
+
+def _lib_key(path):
+    """(path, mtime, size) of a library file, None where it is no file."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return os.path.realpath(path), st.st_mtime_ns, st.st_size
+
+
+def sass_dump(path):
+    """cuobjdump -sass of one library, dumped once while the file stays the
+    same (a path that is no file is dumped every time); None without
+    cuobjdump."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return None
+    key = _lib_key(path)
+    if key is None or key not in _SASS_DUMPS:
+        t = time.perf_counter()
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+        if key is None:
+            return sass
+        _SASS_DUMPS[key] = sass
+        print(f"sass: {os.path.basename(str(path))} dumped in {time.perf_counter() - t:.2f} s")
+    return _SASS_DUMPS[key]
+
+
+def split_sass_digests(split, path):
+    """``split.S.sass_digests`` (a ``benchmarks_torch`` split script's
+    per-kernel SASS digests) of one library from its one dump, computed once
+    while the file stays the same."""
+    key = _lib_key(path)
+    if key is None or key not in _SASS_DIGESTS:
+        digests = split.S.sass_digests(path, sass_dump(path))
+        if key is None:
+            return digests
+        _SASS_DIGESTS[key] = digests
+    return dict(_SASS_DIGESTS[key])
+
+
 def sass_functions(path):
     """{mangled kernel name: its SASS} from one cuobjdump -sass of a library
     (the dump, split at each "Function :" header, as -fun gives it kernel by
     kernel); None without cuobjdump."""
-    tool = find_cuobjdump()
-    if tool is None:
+    sass = sass_dump(path)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
     parts = re.split(r"\n\s*Function : ", sass)[1:]
     return {p.split("\n", 1)[0].strip(): p for p in parts}
 
@@ -852,8 +911,7 @@ def sass_check(lib, path) -> None:
         print("sass: no cuobjdump found (PATH, /usr/local/cuda/bin, triton's package): "
               "the wgmma/TMA/TF32 instruction counts are not checked")
         return
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = sass_dump(path)
     counts = {op: len(re.findall(rx, sass)) for op, rx in SASS_OPS.items()}
     forms = sorted(set(re.findall(r"\b[HI]G?MMA\.[\w.]+", sass)))
     print(f"sass {lib} ({os.path.basename(str(path))}): {counts}; forms {forms} "
@@ -1172,18 +1230,23 @@ def q_block_params(d, device, seed):
              {"w1_qt": w1.qt, "w2_qt": w2.qt}))
 
 
-def k4_ln_rows(fbq, sk, x, block):
-    """An int8 MLP entry's scratch with its LayerNorm rows: where it
-    normalises and quantizes x in one pass and writes none (K4's F-split and
-    KB (a) 2 on the card), K4's own LayerNorm rows of the same x (the same
-    LayerNorm kernel's rows bit for bit, so its x codes are their
-    quantization), K4's launch left out of the counters."""
-    if "hq" not in sk or "xn" in sk:
+def k4_ln_rows(fbq, sk, x, block, kw=None):
+    """An int8 entry's scratch with its LayerNorm rows: where it normalises
+    and quantizes x in one pass and writes none (K4's F-split, KB (a) 2 and
+    3, and q_ilp4's attention on the card), K4's (an MLP's: hq) or K3's (an
+    attention's: aq, at kw's heads) own LayerNorm rows of the same x (the
+    same LayerNorm kernel's rows bit for bit, so its x codes are their
+    quantization), K4's or K3's launch left out of the counters."""
+    if "xn" in sk or ("hq" not in sk and "aq" not in sk):
         return sk
     args, qkw = block
-    s4, counts = {}, dict(fbq.LAUNCHES)
-    fbq.mlp_block_q(x, *args, **qkw, scratch=s4)
+    s4, counts, routes = {}, dict(fbq.LAUNCHES), dict(fbq.CORE_ROUTES)
+    if "hq" in sk:
+        fbq.mlp_block_q(x, *args, **qkw, scratch=s4)
+    else:
+        fbq.attention_block_q(x, *args, heads=kw["heads"], **qkw, scratch=s4)
     fbq.LAUNCHES.update(counts)
+    fbq.CORE_ROUTES.update(routes)
     return {**sk, "xn": s4["xn"]}
 
 
@@ -1202,7 +1265,7 @@ def compare_q(fbq, name, kern, plain, x, block, kw, long_core=False, quant=None)
     sk, sr = {}, {}
     got = kern(x, *args, **kw, **qkw, scratch=sk)
     ref = plain(x, *args, **kw, scratch=sr)
-    sk = k4_ln_rows(fbq, sk, x, block)
+    sk = k4_ln_rows(fbq, sk, x, block, kw)
     err = (got.float() - ref.float()).abs().max().item()
     mag = ref.float().abs().max().item()
     own = (ref.float() - x.float()).abs().max().item()
@@ -5018,8 +5081,9 @@ def tp_slot_split(lib, device, bf16=False):
     kind = "fused_block" if bf16 else "fused_block_q"
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), where)) as fh:
         parent = json.load(fh)
+    path = _build.LIB_PATHS[kind]
     mine = {"outputs": S.output_digests(lib, S.CASES, device, bf16=bf16),
-            "sass": S.sass_digests(_build.LIB_PATHS[kind])}
+            "sass": S.sass_digests(path, sass_dump(path))}
     found = bool(mine["sass"])
     if not found:
         print(f"phase 22: no cuobjdump found: the {kind} library's kernels are not held to the "
@@ -5060,9 +5124,9 @@ def tp_rows_split(S, fbq, device, sass):
                    f"parent design")
     check(all("quant_rows_given_amax_kernel" in k for k in removed),
           f"phase 22: kernels of the parent's int8 library are gone: {sorted(removed)}")
-    check(all(any(n in k for n in TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW) for k in added),
+    check(all(any(n in k for n in TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW + VAR_NEW) for k in added),
           f"phase 22: the int8 library's new kernels {sorted(added)} are not "
-          f"{TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW}")
+          f"{TP_ROWS_NEW + LAYER_NEW + MLP_Q_NEW + VAR_NEW}")
 
 
 def tp_route_check(fb, fbq, device):
@@ -5875,7 +5939,7 @@ def kb_compare(fbq, name, kern, plain, x, block, kw, quant, attention, code_bars
     sk, sr = {}, {}
     got = kern(x, *args, **kw, **qkw, scratch=sk)
     ref = plain(x, *args, **kw, scratch=sr)
-    sk = k4_ln_rows(fbq, sk, x, block)
+    sk = k4_ln_rows(fbq, sk, x, block, kw)
     codes_of = (("xq", "xn", "xs"), ("aq", "attn", "as") if attention else ("hq", "h", "hs"))
     n_diff = 0
     for codes, rows, scales in codes_of:
@@ -6066,6 +6130,9 @@ def kb_int8_phase(model, card, device):
             if kind == "bf16h":  # D = 768: every up product on the TMA-store GEMM
                 check(fbq.BF16H_ROUTES == {"tma": LAYERS, "gemm": 0},
                       f"phase 23: the bf16h tower's routes {fbq.BF16H_ROUTES}")
+            if kind in ("mlp_var", "mlp_var_bf16_gelu"):  # LayerNorm and quantize in one pass
+                check(fbq.VAR_ROUTES == {"ln": LAYERS, "gemm": 0},
+                      f"phase 23: the {kind} tower's routes {fbq.VAR_ROUTES}")
         want = {"k3": {"attention_block_q": LAYERS}, "k4": {"mlp_block_q": LAYERS},
                 "qq": {"attention_block_qq": LAYERS, "attention_qq_core": LAYERS},
                 "attn_var": {"attention_block_q_var": LAYERS},
@@ -6099,10 +6166,15 @@ def kb_int8_phase(model, card, device):
     del xb
     mlp_q_hold(fbq, device, 23, kind="bf16h")
     walls["mlp hold"] = time.perf_counter() - t
+    t = time.perf_counter()
+    var_launches(fbq, 23, device)
+    var_hold(fbq, device, 23, ("var", "var_bf16"))
+    text_row = var_row(fbq, device, card, "var")
+    walls["kb var hold"] = time.perf_counter() - t
     wall = time.perf_counter() - t_phase
     print(f"phase 23 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
-    return [rows[k] for k in KB_REPLACES], wall
+    return [rows[k] for k in KB_REPLACES] + [text_row], wall
 
 
 # ---------------------------------------------------------------------------
@@ -6165,11 +6237,11 @@ def layer_hold(fbq, device):
         if not torch.equal(sk["yb"], sk["y"].to(torch.bfloat16)):
             off.append(f"{case[0]} yb")
 
-    sass = L.S.sass_digests(_build.LIB_PATHS["fused_block_q"])
+    sass = split_sass_digests(L, _build.LIB_PATHS["fused_block_q"])
     found = bool(sass)
     if not found:
         print("phase 24: no cuobjdump found: the int8 library is not held to the parent's SASS")
-        sass = dict(parent["sass"], **{n: "" for n in LAYER_NEW + MLP_Q_NEW})
+        sass = dict(parent["sass"], **{n: "" for n in LAYER_NEW + MLP_Q_NEW + VAR_NEW})
     mine = {"outputs": L.flat(L.output_digests(fbq, device, each)), "sass": sass}
     bad = L.S.compare(mine, {"outputs": L.flat(parent["outputs"]), "sass": parent["sass"]},
                       f"the parent design ({LAYER_PARENT})", "phase 24 layer ")
@@ -6178,7 +6250,8 @@ def layer_hold(fbq, device):
           f"{'agree' if not off else f'DIFFER: {off}'}; added {sorted(added)}")
     check(not bad and not off, f"phase 24: the layer's outputs or the int8 library's kernels "
                                f"differ from the parent design ({bad}; {off})")
-    check(not removed and all(any(n in k for n in LAYER_NEW + MLP_Q_NEW) for k in added),
+    check(not removed and all(any(n in k for n in LAYER_NEW + MLP_Q_NEW + VAR_NEW)
+                              for k in added),
           f"phase 24: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
     torch.cuda.empty_cache()
 
@@ -6262,8 +6335,8 @@ def mlp_q_hold(fbq, device, phase, kind=None, shapes=False):
     theirs = {k: v for k, v in parent["outputs"].items() if k in mine}
     sass = parent["sass"]
     if phase == 24:
-        sass = M.S.sass_digests(_build.LIB_PATHS["fused_block_q"]) or dict(
-            parent["sass"], **{n: "" for n in MLP_Q_NEW})
+        sass = split_sass_digests(M, _build.LIB_PATHS["fused_block_q"]) or dict(
+            parent["sass"], **{n: "" for n in MLP_Q_NEW + VAR_NEW})
     bad = M.S.compare({"outputs": M.flat(mine), "sass": sass},
                       {"outputs": M.flat(theirs), "sass": parent["sass"]},
                       f"the parent design ({MLP_Q_PARENT})", f"phase {phase} mlp ")
@@ -6275,27 +6348,206 @@ def mlp_q_hold(fbq, device, phase, kind=None, shapes=False):
     check(got == want, f"phase {phase}: the routes {got}, expected {want}")
     if phase == 24:
         added, removed = set(sass) - set(parent["sass"]), set(parent["sass"]) - set(sass)
-        check(not removed and all(any(n in k for n in MLP_Q_NEW + LAYER_NEW) for k in added),
+        check(not removed and all(any(n in k for n in MLP_Q_NEW + LAYER_NEW + VAR_NEW)
+                                  for k in added),
               f"phase 24: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
         sass_check_mlp_q(_build.LIB_PATHS["fused_block_q"])
     torch.cuda.empty_cache()
 
 
-def mlp_q_launches(fbq, phase, name, fn, want):
-    """One entry's device launches a call (``torch.profiler`` over 5 calls)
-    against ``want`` (the kernels' names in launch order, by prefix)."""
+def mlp_q_launches(fbq, phase, name, fn, want, iters=5, tries=6):
+    """One entry's device launches a call (``torch.profiler`` over ``iters``
+    calls) against ``want`` (the kernels' names in launch order, by prefix).
+    Late in a long process the profiler can lose a profile's events: none at
+    all, or a kernel recorded fewer times than the calls made (a run saw two
+    of four kernels, each under twice in 5 calls).  Every kernel of these
+    entries runs a whole number of times a call, so a count that is not a
+    multiple of ``iters`` is a lost event, not a launch: such a profile is
+    taken again, up to ``tries`` times, and the check holds the first whole
+    one.  A kernel missing from a whole profile fails the check."""
     import importlib
 
     S = importlib.import_module("benchmarks_torch.tp_slot_split")
-    prof = S.profiled(fn, 5, tries=3)
-    if not prof:
-        print(f"phase {phase} {name}: the profiler recorded no kernel; launches not checked")
+    prof = []
+    for attempt in range(1, tries + 1):
+        prof = S.profiled(fn, iters, tries=3)
+        lost = [f"{k} x {n}" for k, _, n in prof if n % iters]
+        if prof and not lost:
+            break
+        print(f"phase {phase} {name}: profile {attempt} of {tries} lost events "
+              f"({'; '.join(lost) or 'no kernel recorded'})")
+    else:
+        print(f"phase {phase} {name}: the profiler lost events in all {tries} profiles; "
+              f"launches not checked")
         return
-    per = {k: round(n / 5) for k, _, n in prof}
+    per = {k: n // iters for k, _, n in prof}
     print(f"phase {phase} {name}: {sum(per.values())} launches a call {per}")
     check(sum(per.values()) == len(want)
           and all(any(k.startswith(w) for k in per) for w in want),
           f"phase {phase} {name}: launches {per}, expected one each of {want}")
+
+
+# KB (a) 3 and q_ilp4's attention before their redesign (K4's / K3's
+# launches: LayerNorm, then the quantize pass of x; the up product writing
+# the f32 hidden and its reciprocal quantize pass; the QKV product on
+# gemm_s8_kernel and the core dividing by __fdiv_rn), recorded with
+# ``benchmarks_torch/kb_var_split.py --root`` on the parent checkout: the
+# digests of each entry's output, codes, scales and rows in that script's
+# cases and of its three 12-layer towers, and the SASS of every kernel of
+# the int8 library.  The redesign adds the one pass's reciprocal mode and
+# the core's divide-after instantiations (VAR_NEW) and changes no other
+# kernel.
+KB_VAR_PARENT = "benchmarks_torch/kb_var_parent.json"
+CORE_BUCKETS = (32, 80, 200, 256, 320)  # attention_wgmma.cuh's key buckets
+VAR_NEW = ("ln_quant_recip_rows_kernel",) + tuple(
+    f"attention_wgmma_kernelILi{nk}ELi0ELi2E" for nk in CORE_BUCKETS)
+# the divide-after core (each key bucket at head dims 64 and 128): bf16
+# wgmma and TMA loads
+SASS_PER_KERNEL_VAR = {"fused_block_q": tuple(
+    (f"attention_wgmma_kernelILi{nk}ELi0ELi2E", ("HGMMA", "UTMALDG"), 2) for nk in CORE_BUCKETS)}
+
+
+def sass_check_var(path) -> None:
+    """The redesign's kernels in the int8 library's SASS: each instantiation
+    of the divide-after core holds bf16 wgmma and TMA loads
+    (SASS_PER_KERNEL_VAR), and none of VAR_NEW holds mma.sync (IMMA. /
+    HMMA.)."""
+    funcs = sass_functions(path)
+    if funcs is None:
+        print("sass: no cuobjdump found: KB (a) 3's and q_ilp4's kernels not checked")
+        return
+    sass_check_per_kernel("fused_block_q", path, SASS_PER_KERNEL_VAR)
+    mma = [name for name, body in funcs.items() if any(n in name for n in VAR_NEW)
+           and (re.search(SASS_OPS["IMMA"], body) or re.search(SASS_OPS["HMMA"], body))]
+    check(not mma, f"{mma} hold mma.sync (IMMA. / HMMA.) in their SASS")
+
+
+def var_hold(fbq, device, phase, kinds):
+    """``kb_var_split.py``'s cases of ``kinds`` held to KB_VAR_PARENT (their
+    times are that script's and the kernels line's): the B <= 32 cases
+    (ViT-B/16 B=8, x and x/16, the FiT shape, SigLIP-So400m's and D = 200's
+    widths) and each kind's 12-layer tower at B=256 (the script's single
+    calls at B=256 digest 0.8 GB of rows each and are left to it).  Every
+    output, code, scale and row bit for bit, the other route (the launches
+    before the redesign) the same; each call counted on its route; the SASS
+    of the int8 library's kernels none compiled otherwise or gone, only
+    VAR_NEW (and the earlier designs' LAYER_NEW, MLP_Q_NEW) added, and the
+    new core's instructions (``sass_check_var``)."""
+    import importlib
+
+    import torch
+    from debias_vision_lang_torch.ops import _build
+
+    K = importlib.import_module("benchmarks_torch.kb_var_split")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), KB_VAR_PARENT)) as fh:
+        parent = json.load(fh)
+    cases = [c for c in K.CASES if c[1] in kinds and c[2] <= 32]
+    off = []
+
+    def each(case, sk):
+        for what, other in K.other_routes(fbq, case, device):
+            off.extend(f"{case[0]} {what} {k}" for k in K.KEYS[case[1]]
+                       if not torch.equal(sk[k], other[k]))
+
+    fbq.reset_launches()
+    mine = K.output_digests(fbq, device, each, cases=cases, towers=kinds)
+    var = [c for c in cases if c[1] != "postdiv"]
+    n_post = len(cases) - len(var)
+    want = {"var": {"ln": len(var) + K.TOWER_LAYERS * sum(k != "postdiv" for k in kinds),
+                    "gemm": len(var)},
+            "postdiv": {"tma": n_post + K.TOWER_LAYERS * ("postdiv" in kinds),
+                        "gemm": n_post}}
+    got = {"var": dict(fbq.VAR_ROUTES), "postdiv": dict(fbq.POSTDIV_ROUTES)}
+    theirs = {k: v for k, v in parent["outputs"].items() if k in mine}
+    sass = split_sass_digests(K, _build.LIB_PATHS["fused_block_q"]) or dict(
+        parent["sass"], **{n: "" for n in VAR_NEW})
+    bad = K.S.compare({"outputs": K.flat(mine), "sass": sass},
+                      {"outputs": K.flat(theirs), "sass": parent["sass"]},
+                      f"the parent design ({KB_VAR_PARENT})", f"phase {phase} kb var ")
+    added, removed = set(sass) - set(parent["sass"]), set(parent["sass"]) - set(sass)
+    print(f"phase {phase} kb var: {len(K.flat(mine))} digests of {len(cases)} cases and "
+          f"{len(kinds)} towers; the other route {'agrees' if not off else f'DIFFERS: {off}'}; "
+          f"routes {got} (expected {want})")
+    check(not bad and not off and len(theirs) == len(mine),
+          f"phase {phase}: KB (a) 3's or q_ilp4's outputs or the int8 library's kernels differ "
+          f"from the parent design ({bad}; {off})")
+    check(got == want, f"phase {phase}: the routes {got}, expected {want}")
+    check(not removed and all(any(n in k for n in VAR_NEW) for k in added),
+          f"phase {phase}: the int8 library lost {sorted(removed)} or gained {sorted(added)}")
+    sass_check_var(_build.LIB_PATHS["fused_block_q"])
+    torch.cuda.empty_cache()
+
+
+def var_launches(fbq, phase, device):
+    """The redesigned entries' device launches a call at ViT-B/16 B=256 by
+    the profiler: KB (a) 3 (both gelus) four, q_ilp4's attention five."""
+    (qa, qakw), (qm, qmkw) = q_block_params(KB_D, device, seed=25)
+    xb = kb_inputs(BATCH, n=1)[0]
+    if phase == 23:
+        for bf16_gelu in (False, True):
+            up = "gemm_s8_kernel<7" if bf16_gelu else "gemm_s8_kernel<2"
+            mlp_q_launches(fbq, 23, f"mlp_block_q_var bf16_gelu={bf16_gelu}",
+                           lambda: fbq.mlp_block_q_var(xb, *qm, bf16_gelu=bf16_gelu, **qmkw),
+                           ("ln_quant_recip_rows_kernel", up, "quant_rows_kernel",
+                            "gemm_s8_kernel<4"))
+    else:
+        mlp_q_launches(fbq, 24, "attention_block_q_postdiv",
+                       lambda: fbq.attention_block_q_postdiv(xb, *qa, heads=KB_H, **qakw),
+                       ("ln_quant_rows_kernel", "gemm_s8_tma_kernel", "attention_wgmma_kernel",
+                        "quant_rows_kernel", "gemm_s8_kernel"))
+    del xb
+
+
+def var_row(fbq, device, card, kind):
+    """A kernels-line row of a redesigned entry at a shape the towers do not
+    run: KB (a) 3 at ViT-B/16's text-tower widths (B=319 S=77 D=512 F=2,048),
+    or q_ilp4's
+    attention at the int8 joint FiT shape (B=32 S=785: its core on the long
+    route), against its twin (``kb_compare``), timed beside it; its launches
+    those of the check, on the route it is counted on."""
+    import torch
+
+    if kind == "var":
+        b, s, d, heads = 319, 77, 512, 8
+    else:
+        b, s, d, heads = FIT_B, FIT_JOINT_S, KB_D, KB_H
+    (qa, qakw), (qm, qmkw) = q_block_params(d, device, seed=31)
+    g = torch.Generator().manual_seed(33)
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(device, torch.bfloat16)
+    fbq.reset_launches()
+    if kind == "var":
+        name, case = "mlp_block_q_var", f"KB (a) 3 text-tower widths B={b} S={s} D={d} F={4 * d}"
+        err = kb_compare(fbq, f"{name} D={d} (timed)", fbq.mlp_block_q_var,
+                         fbq.mlp_block_q_var_plain, x, (qm, qmkw), {}, fbq.quant_rows_recip,
+                         False)
+        kern, plain = (lambda: fbq.mlp_block_q_var(x, *qm, **qmkw),
+                       lambda: fbq.mlp_block_q_var_plain(x, *qm))
+        work, replaces = mlp_block_work(b, s, d, 4 * d, weights="int8"), KB_REPLACES[name]
+        check(fbq.VAR_ROUTES == {"ln": 1, "gemm": 0},
+              f"phase 23: KB (a) 3 at D={d} took {fbq.VAR_ROUTES}")
+    else:
+        name, case = "attention_block_q_postdiv", f"q_ilp4 FiT joint int8 B={b} S={s} D={d}"
+        err = kb_compare(fbq, f"{name} S={s} (timed)", fbq.attention_block_q_postdiv,
+                         fbq.attention_block_q_postdiv_plain, x, (qa, qakw), {"heads": heads},
+                         fbq.quant_rows, True)
+        kern, plain = (lambda: fbq.attention_block_q_postdiv(x, *qa, heads=heads, **qakw),
+                       lambda: fbq.attention_block_q_postdiv_plain(x, *qa, heads=heads))
+        work, replaces = attention_block_work(b, s, d, weights="int8"), SPLIT_REPLACES[name]
+        check(fbq.POSTDIV_ROUTES == {"tma": 1, "gemm": 0} and fbq.CORE_ROUTES["long"] == 1,
+              f"phase 24: q_ilp4 at S={s} took {fbq.POSTDIV_ROUTES}, {fbq.CORE_ROUTES}")
+    launches = fbq.KB_LAUNCHES[name]
+    bound_ms, bound_by = bound(*work)
+    row = {"name": name, "case": case, "route": "cuda",
+           "source": "debias_vision_lang_torch/csrc/fused_block_q.cu", "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": cuda_ms(kern),
+           "plain_ms": cuda_ms(plain, iters=3), "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    print(f"time {name} {case}: kernel {row['ms']:.4f} ms, plain twin {row['plain_ms']:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at {bound_ms / row['ms']:.1%} "
+          f"of it) ({card})")
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 def layer_work(b, s, d, f):
@@ -6546,6 +6798,11 @@ def split_phase(model, card, device):
     mlp_q_hold(fbq, device, 24, kind="fsplit")
     walls["mlp hold"] = time.perf_counter() - t
     t = time.perf_counter()
+    var_launches(fbq, 24, device)
+    var_hold(fbq, device, 24, ("postdiv",))
+    fit_row = var_row(fbq, device, card, "postdiv")
+    walls["kb var hold"] = time.perf_counter() - t
+    t = time.perf_counter()
     res = model.clip.visual.resblocks
     d, heads = KB_D, KB_H
     opt_w = [fb.prescale_qkv(blk.attn.wqkv.detach(), blk.attn.bqkv.detach(), d, heads)
@@ -6620,6 +6877,9 @@ def split_phase(model, card, device):
             if kind == "layer":  # D = 768: the QKV and down products on the persistent GEMMs
                 check(fbq.LAYER_ROUTES == {"tma": LAYERS, "qkv": 0, "gemm": 0},
                       f"phase 24: the layer tower's routes {fbq.LAYER_ROUTES}")
+            if kind == "postdiv":  # the one pass, the TMA-store QKV GEMM, the divide-after core
+                check(fbq.POSTDIV_ROUTES == {"tma": LAYERS, "gemm": 0},
+                      f"phase 24: the postdiv tower's routes {fbq.POSTDIV_ROUTES}")
             if kind in ("fsplit2", "fsplit4", "fit_fsplit"):  # each call on fsplit_route's
                 route = fbq.fsplit_route(KB_D, SPLIT_KINDS[kind][2]["fb"])
                 check(fbq.FSPLIT_ROUTES == {"epi": 0, "gemm": 0, route: LAYERS},
@@ -6644,7 +6904,7 @@ def split_phase(model, card, device):
     wall = time.perf_counter() - t_phase
     print(f"phase 24 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {wall:.2f} s ({card})")
-    return list(rows.values()), wall
+    return list(rows.values()) + [fit_row], wall
 
 
 # ---------------------------------------------------------------------------

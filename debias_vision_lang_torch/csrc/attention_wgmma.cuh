@@ -25,7 +25,15 @@
 // bf16(s * scale), 0 past S and past the causal mask, straight into P @ V,
 // with no row max, exp, row sum or division.  It runs instantiations of its
 // own (SOFTMAX = 0), so the softmax kernels K1 and K3 run keep their
-// registers.
+// registers.  launch_attention_wgmma<true> (q_ilp4.py's head-pair packed
+// kernel, attention_block_q_postdiv) runs norm_after = 2's function on
+// instantiations of its own (SOFTMAX = 2): the division is the compile-time
+// path, and each quotient is qq_div's corrected reciprocal product in place
+// of __fdiv_rn's range check and slow path.  Both give the IEEE quotient: a
+// zero is kept as it is, and a thread whose outputs hold a nonzero value
+// below 2^-100, an inf or a NaN, or whose row sums are not finite, divides
+// by __fdiv_rn.  Past the register core's shapes it runs the long route's
+// norm_after = 2.  Only a library that launches it builds it.
 // The packed qkv's rows are `ld` elements apart (3D, or a tensor-parallel
 // slot's q | k | v slice padded to the GEMM's 128-column tile).
 //
@@ -261,7 +269,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l_hi = quad_sum(s_hi);
       r_lo = 1.0f / l_lo;
       r_hi = 1.0f / l_hi;
-      const float p_lo = norm_after ? 1.f : r_lo, p_hi = norm_after ? 1.f : r_hi;
+      const bool after = SOFTMAX == 2 || norm_after;
+      const float p_lo = after ? 1.f : r_lo, p_hi = after ? 1.f : r_hi;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         pa[2 * nt] = pack_bf16(sc[nt * 4] * p_lo, sc[nt * 4 + 1] * p_lo);
@@ -289,7 +298,23 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
-      if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
+      if constexpr (SOFTMAX == 2) {  // o / l, rows as below
+        bool slow = !(l_lo < INFINITY && l_hi < INFINITY);  // NaN too
+#pragma unroll
+        for (int i = 0; i < 32; ++i)  // below 2^-100, inf or NaN: qq_div's steps would not be exact
+          slow |= o[i] != 0.f && !(fabsf(o[i]) >= 0x1p-100f && fabsf(o[i]) < INFINITY);
+        if (!slow) {
+          const float rl_lo = __frcp_rn(l_lo), rl_hi = __frcp_rn(l_hi);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)  // a zero keeps its sign, as the IEEE quotient's
+            o[i] = o[i] == 0.f ? o[i]
+                   : (i & 2)   ? qq_div(o[i], l_hi, rl_hi)
+                               : qq_div(o[i], l_lo, rl_lo);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
+        }
+      } else if (norm_after == 2) {  // accumulator i holds row hi when bit 1 of i is set
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[i] = __fdiv_rn(o[i], (i & 2) ? l_hi : l_lo);
       } else if (norm_after == 1) {
@@ -327,12 +352,18 @@ cudaError_t launch_core_kernel(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 
 // The softmax-off instantiation for the packed source's NORM_OFF at head
 // dim 64 (K5's heads-first source and the wider heads have none), the
-// softmax one otherwise.
-template <int NK, int SRC, int C>
+// divide-after one where DIV (norm_after = 2 only), the softmax one
+// otherwise.
+template <int NK, int SRC, int C, bool DIV = false>
 cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                               const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
                               int da, float scale, int causal, int norm_after, dim3 grid,
                               cudaStream_t st) {
+  if constexpr (DIV) {
+    if (norm_after != 2) return cudaErrorInvalidValue;
+    return launch_core_kernel<NK, SRC, 2, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal,
+                                             norm_after, grid, st);
+  }
   if constexpr (SRC == CORE_PACKED && C == 1) {
     if (norm_after == NORM_OFF)
       return launch_core_kernel<NK, SRC, 0, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal,
@@ -343,14 +374,14 @@ cudaError_t launch_core_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                            norm_after, grid, st);
 }
 
-template <int SRC, int C>
+template <int SRC, int C, bool DIV = false>
 cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                const CUtensorMap& tm_v, bf16* out, const float* mask, int S,
                                int da, float scale, int causal, int norm_after, dim3 grid,
                                cudaStream_t st) {
-#define DVL_CORE_BUCKET(NK)                                                                 \
-  launch_core_wgmma<NK, SRC, C>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal, norm_after, \
-                                grid, st)
+#define DVL_CORE_BUCKET(NK)                                                              \
+  launch_core_wgmma<NK, SRC, C, DIV>(tm_q, tm_k, tm_v, out, mask, S, da, scale, causal, \
+                                     norm_after, grid, st)
   switch (nk) {
     case 32: return DVL_CORE_BUCKET(32);
     case 80: return DVL_CORE_BUCKET(80);
@@ -373,7 +404,9 @@ cudaError_t launch_core_bucket(int nk, const CUtensorMap& tm_q, const CUtensorMa
 // scale = ln 2 and norm_after (see the top of this file); KB (a) 4 scale =
 // 1/8 with norm_after = 2; the attribution's "mxu" core scale = hd^-0.5
 // with NORM_OFF (the register core's softmax-off instantiations are hdp
-// 64's; a wider head takes the long route, which has the mode at any hdp).
+// 64's; a wider head takes the long route, which has the mode at any hdp);
+// q_ilp4 DIV with norm_after = 2 (the divide-after instantiations).
+template <bool DIV = false>
 cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, int heads, int hdp,
                                    int causal, cudaStream_t st, int ld, float scale,
                                    int norm_after) {
@@ -392,10 +425,10 @@ cudaError_t launch_attention_wgmma(const bf16* qkv, bf16* attn, int B, int S, in
   e = make_tensor_map(&tm_kv, qkv, 3, dims, strides, box_kv);
   if (e != cudaSuccess) return e;
   if (c == 1)
-    return launch_core_bucket<CORE_PACKED, 1>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da, scale,
-                                              causal, norm_after, dim3(heads, B), st);
-  return launch_core_bucket<CORE_PACKED, 2>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da, scale,
-                                            causal, norm_after, dim3(heads, B), st);
+    return launch_core_bucket<CORE_PACKED, 1, DIV>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da,
+                                                   scale, causal, norm_after, dim3(heads, B), st);
+  return launch_core_bucket<CORE_PACKED, 2, DIV>(nk, tm_q, tm_kv, tm_kv, attn, nullptr, S, da,
+                                                 scale, causal, norm_after, dim3(heads, B), st);
 }
 
 // K5: q, k, v [BH, S, 64] -> out [BH, S, 64] with the additive f32 mask

@@ -41,7 +41,9 @@
 //                                 (qgelu_quant_rows_kernel); q_kernel_variants.py::
 //                                 make_mlp_var (mlp_q_kernel_var): the
 //                                 reciprocal quantizer, the bf16 quick_gelu in
-//                                 EQ_BIAS_QGELU_BF16;
+//                                 EQ_BIAS_QGELU_BF16; four launches:
+//                                 LayerNorm and the reciprocal quantize of x in
+//                                 one (ln_quant_recip_rows_kernel), then K4's;
 //   dvl_attention_block_q_var  <- q_kernel_variants.py::make_attn_var
 //                                 (attn_q_kernel_var, both packings): the
 //                                 reciprocal quantizer, the wgmma core at
@@ -71,7 +73,12 @@
 //                                 (gemm_s8_epi_kernel, below);
 //   dvl_attention_block_q_postdiv <- q_ilp4.py::make_call (the head-pair
 //                                 packed kernel): K3's quantizer, the row sum
-//                                 divided out after P V as AQ_VAR's core.
+//                                 divided out after P V as AQ_VAR's core; five
+//                                 launches: LayerNorm and the quantize of x in
+//                                 one, the QKV product on gemm_s8_tma_kernel,
+//                                 the core's divide-after instantiation
+//                                 (launch_attention_wgmma<true>: qq_div's IEEE
+//                                 quotient).
 // And the two blocks of benchmarks/q_attribution.py (KB (c)), which time a
 // block with one side of it stubbed out, in K3's / K4's launch sequences:
 //   dvl_attention_block_q_attr_mxu <- make_attn("mxu") (attn_kernel): the
@@ -817,12 +824,27 @@ __device__ __forceinline__ uint16_t q_pair(float2 v, float s, float rs) {
   return (uint16_t)(q_code<FAST>(v.x, s, rs) | q_code<FAST>(v.y, s, rs) << 8);
 }
 
-template <int PP, bool FULL>
-__global__ void __launch_bounds__(32 * LNQ_ROWS)
-ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ bias, int8_t* __restrict__ q,
-                     float* __restrict__ qs, float* __restrict__ amax0, int rows, int d, int ldq,
-                     float eps) {
+// KB (a) 3's reciprocal quantizer (quant_rows_kernel's RECIP): the code of v
+// at 1 / scale = inv, rint(v inv) clamped to +-127 and a NaN to 0, in that
+// kernel's own expression.
+__device__ __forceinline__ uint32_t q_code_recip(float v, float inv) {
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(
+      fmin_nan(fmax_nan(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
+}
+
+__device__ __forceinline__ uint16_t q_pair_recip(float2 v, float inv) {
+  return (uint16_t)(q_code_recip(v.x, inv) | q_code_recip(v.y, inv) << 8);
+}
+
+// The kernel's body; RECIP: quant_rows_kernel<..., RECIP>'s codes (KB (a)
+// 3: ln_quant_recip_rows_kernel), else quant_rows_kernel's.
+template <int PP, bool FULL, bool RECIP>
+__device__ __forceinline__ void ln_quant_rows(const bf16* __restrict__ x,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias,
+                                              int8_t* __restrict__ q, float* __restrict__ qs,
+                                              float* __restrict__ amax0, int rows, int d,
+                                              int ldq, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * LNQ_ROWS + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -863,7 +885,11 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale
     amax = warp_max_nan(amax);
     sc = q_scale_nan(amax);
     const float rs = __frcp_rn(sc);
-    if (amax < INFINITY) {  // the branch a row, not a value: the codes' chains interleave
+    if constexpr (RECIP) {
+#pragma unroll
+      for (int j = 0; j < PP; ++j)
+        if (FULL || lane + 32 * j < half) q2[lane + 32 * j] = q_pair_recip(v[j], rs);
+    } else if (amax < INFINITY) {  // the branch a row, not a value: the codes' chains interleave
 #pragma unroll
       for (int j = 0; j < PP; ++j)
         if (FULL || lane + 32 * j < half) q2[lane + 32 * j] = q_pair<true>(v[j], sc, rs);
@@ -914,13 +940,15 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale
     if (pairs) {
       for (int i = lane; i < half; i += 32) {
         const float2 y = ln_pair(__bfloat1622float2(xr[i]), mean, inv, scale, bias, i);
-        q2[i] = fast ? q_pair<true>(y, sc, rs) : q_pair<false>(y, sc, rs);
+        q2[i] = RECIP ? q_pair_recip(y, rs) : fast ? q_pair<true>(y, sc, rs) : q_pair<false>(y, sc, rs);
       }
     } else {
       int8_t* qr = q + row * ldq;
       for (int i = lane; i < d; i += 32) {
         const float y = ln_one(__bfloat162float(xs[i]), mean, inv, scale, bias, i);
-        qr[i] = (int8_t)(fast ? q_code<true>(y, sc, rs) : q_code<false>(y, sc, rs));
+        qr[i] = (int8_t)(RECIP  ? q_code_recip(y, rs)
+                         : fast ? q_code<true>(y, sc, rs)
+                                : q_code<false>(y, sc, rs));
       }
     }
   }
@@ -931,28 +959,56 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale
   }
 }
 
-// xq [rows, ldq], xs [rows] from x [rows, d] (ldq even, >= d).
+template <int PP, bool FULL>
+__global__ void __launch_bounds__(32 * LNQ_ROWS)
+ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, int8_t* __restrict__ q,
+                     float* __restrict__ qs, float* __restrict__ amax0, int rows, int d, int ldq,
+                     float eps) {
+  ln_quant_rows<PP, FULL, false>(x, scale, bias, q, qs, amax0, rows, d, ldq, eps);
+}
+
+template <int PP, bool FULL>
+__global__ void __launch_bounds__(32 * LNQ_ROWS)
+ln_quant_recip_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                           const float* __restrict__ bias, int8_t* __restrict__ q,
+                           float* __restrict__ qs, float* __restrict__ amax0, int rows, int d,
+                           int ldq, float eps) {
+  ln_quant_rows<PP, FULL, true>(x, scale, bias, q, qs, amax0, rows, d, ldq, eps);
+}
+
+using LnQuantFn = void (*)(const bf16*, const float*, const float*, int8_t*, float*, float*, int,
+                           int, int, float);
+
+template <int PP, bool FULL, bool RECIP>
+LnQuantFn ln_quant_fn() {
+  if constexpr (RECIP) return ln_quant_recip_rows_kernel<PP, FULL>;
+  else return ln_quant_rows_kernel<PP, FULL>;
+}
+
+// xq [rows, ldq], xs [rows] from x [rows, d] (ldq even, >= d); RECIP: the
+// reciprocal quantizer's codes.
+template <bool RECIP = false>
 cudaError_t launch_ln_quant(const bf16* x, const float* s, const float* b, int8_t* xq, float* xs,
                             float* amax0, int rows, int d, int ldq, cudaStream_t st) {
   if (d < 1 || ldq < d || (ldq & 1)) return cudaErrorInvalidValue;
   const dim3 grid((rows + LNQ_ROWS - 1) / LNQ_ROWS), block(32 * LNQ_ROWS);
   const int half = d / 2;
   // the fewest pairs a lane that hold the row; FULL where they hold it exactly
-  void (*k)(const bf16*, const float*, const float*, int8_t*, float*, float*, int, int, int,
-            float) = ln_quant_rows_kernel<0, false>;
+  LnQuantFn k = ln_quant_fn<0, false, RECIP>();
   if (!(d & 1)) {
-    if (half < 32 * 4) k = ln_quant_rows_kernel<4, false>;
-    else if (half == 32 * 4) k = ln_quant_rows_kernel<4, true>;
-    else if (half < 32 * 8) k = ln_quant_rows_kernel<8, false>;
-    else if (half == 32 * 8) k = ln_quant_rows_kernel<8, true>;
-    else if (half < 32 * 12) k = ln_quant_rows_kernel<12, false>;
-    else if (half == 32 * 12) k = ln_quant_rows_kernel<12, true>;
-    else if (half < 32 * 16) k = ln_quant_rows_kernel<16, false>;
-    else if (half == 32 * 16) k = ln_quant_rows_kernel<16, true>;
-    else if (half < 32 * 20) k = ln_quant_rows_kernel<20, false>;
-    else if (half == 32 * 20) k = ln_quant_rows_kernel<20, true>;
-    else if (half < 32 * 32) k = ln_quant_rows_kernel<32, false>;
-    else if (half == 32 * 32) k = ln_quant_rows_kernel<32, true>;
+    if (half < 32 * 4) k = ln_quant_fn<4, false, RECIP>();
+    else if (half == 32 * 4) k = ln_quant_fn<4, true, RECIP>();
+    else if (half < 32 * 8) k = ln_quant_fn<8, false, RECIP>();
+    else if (half == 32 * 8) k = ln_quant_fn<8, true, RECIP>();
+    else if (half < 32 * 12) k = ln_quant_fn<12, false, RECIP>();
+    else if (half == 32 * 12) k = ln_quant_fn<12, true, RECIP>();
+    else if (half < 32 * 16) k = ln_quant_fn<16, false, RECIP>();
+    else if (half == 32 * 16) k = ln_quant_fn<16, true, RECIP>();
+    else if (half < 32 * 20) k = ln_quant_fn<20, false, RECIP>();
+    else if (half == 32 * 20) k = ln_quant_fn<20, true, RECIP>();
+    else if (half < 32 * 32) k = ln_quant_fn<32, false, RECIP>();
+    else if (half == 32 * 32) k = ln_quant_fn<32, true, RECIP>();
   }
   k<<<grid, block, 0, st>>>(x, s, b, xq, xs, amax0, rows, d, ldq, 1e-5f);
   return cudaGetLastError();
@@ -2369,18 +2425,23 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
                            const void* bo, void* out, void* xn, void* xq, void* xs, void* qkv,
                            void* attn, void* aq, void* ascale, int B, int S, int D, int heads,
                            int hdp, float scale, int causal, int variant, void* stream,
-                           void* qq_ws = nullptr) {
+                           void* qq_ws = nullptr, int tma = 0) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, DK = round_up(D, 64), DA = heads * hdp, NQKV = round_up(3 * DA, SBN);
   const int NO = round_up(D, SBN);
   if (variant != AQ_K3 && causal) return (int)cudaErrorInvalidValue;
   if (D < 1 || heads < 1 || D % heads || hdp < 64 || hdp % 64 || DA < D)
     return (int)cudaErrorInvalidValue;
+  if (tma && variant != AQ_POSTDIV) return (int)cudaErrorInvalidValue;
   const bool recip = variant == AQ_VAR, mxu = variant == AQ_ATTR_MXU, vpu = variant == AQ_ATTR_VPU;
   cudaError_t e;
   if (mxu) {
     e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
                              static_cast<float*>(xs), M, D, st, DK);
+  } else if (tma) {  // xn not written
+    e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                        static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                        static_cast<float*>(xs), nullptr, M, D, DK, st);
   } else {
     e = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, D, st, DK);
@@ -2408,14 +2469,19 @@ int attention_block_q_impl(const void* x, const void* ln_s, const void* ln_b, co
     e = launch_attention_qq(static_cast<const float*>(qkv), static_cast<bf16*>(attn), nullptr,
                             nullptr, nullptr, qq_ws, B, S, heads, hdp, NQKV, scale, st);
   } else {
-    e = launch_gemm_s8<EQ_BIAS>(static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-                                static_cast<const int8_t*>(wqkv_t),
-                                static_cast<const float*>(sqkv), static_cast<const float*>(bqkv),
-                                nullptr, qkv, M, NQKV, DK, st);
+    const int8_t* ixq = static_cast<const int8_t*>(xq);
+    const float *fxs = static_cast<const float*>(xs), *fsqkv = static_cast<const float*>(sqkv),
+                *fbqkv = static_cast<const float*>(bqkv);
+    const int8_t* wqkv = static_cast<const int8_t*>(wqkv_t);
+    e = tma ? launch_gemm_s8_tma(ixq, fxs, wqkv, fsqkv, fbqkv, static_cast<bf16*>(qkv), M, NQKV,
+                                 DK, st)
+            : launch_gemm_s8<EQ_BIAS>(ixq, fxs, wqkv, fsqkv, fbqkv, nullptr, qkv, M, NQKV, DK, st);
     if (e != cudaSuccess) return (int)e;
-    e = launch_attention_wgmma(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, S,
-                               heads, hdp, causal, st, NQKV, scale,
-                               variant == AQ_K3 ? 0 : mxu ? NORM_OFF : 2);
+    const bf16* q3 = static_cast<const bf16*>(qkv);
+    bf16* a = static_cast<bf16*>(attn);
+    e = tma ? launch_attention_wgmma<true>(q3, a, B, S, heads, hdp, causal, st, NQKV, scale, 2)
+            : launch_attention_wgmma(q3, a, B, S, heads, hdp, causal, st, NQKV, scale,
+                                     variant == AQ_K3 ? 0 : mxu ? NORM_OFF : 2);
   }
   if (e != cudaSuccess) return (int)e;
   if (mxu)
@@ -2649,6 +2715,7 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (k > 1 && variant != MQ_K4) return (int)cudaErrorInvalidValue;
   const bool recip = variant == MQ_VAR || variant == MQ_VAR_BF16_GELU;
   const bool mxu = variant == MQ_ATTR_MXU, vpu = variant == MQ_ATTR_VPU;
+  const bool var_ln = recip && tma;  // KB (a) 3: LayerNorm and the reciprocal quantize in one
   const bool ln_quant = k > 1 || variant == MQ_BF16H;
   const int8_t* w1 = static_cast<const int8_t*>(w1_t);
   const float *fs1 = static_cast<const float*>(s1), *fb1 = static_cast<const float*>(b1);
@@ -2658,6 +2725,10 @@ int mlp_block_q_impl(const void* x, const void* ln_s, const void* ln_b, const vo
   if (mxu) {
     e = launch_cast_s8<true>(static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
                              static_cast<float*>(xs), M, D, st, DK);
+  } else if (var_ln) {  // the reciprocal codes
+    e = launch_ln_quant<true>(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+                              static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                              static_cast<float*>(xs), nullptr, M, D, DK, st);
   } else if (ln_quant) {
     e = launch_ln_quant(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
                         static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
@@ -2768,15 +2839,20 @@ int dvl_attention_block_q_var(const void* x, const void* ln_s, const void* ln_b,
                                 AQ_VAR, stream);
 }
 
+// tma 1: LayerNorm and the quantize pass of x in one (ln_quant_rows_kernel,
+// xn not written), the QKV product on the persistent TMA-store GEMM, the
+// core's divide-after instantiation (qq_div), five launches; tma 0 (the
+// checks' route): K3's six launches with norm_after = 2.  The same outputs
+// bit for bit.
 int dvl_attention_block_q_postdiv(const void* x, const void* ln_s, const void* ln_b,
                                   const void* wqkv_t, const void* sqkv, const void* bqkv,
                                   const void* wo_t, const void* so, const void* bo, void* out,
                                   void* xn, void* xq, void* xs, void* qkv, void* attn, void* aq,
                                   void* ascale, int B, int S, int D, int heads, int hdp, int causal,
-                                  float scale, void* stream) {
+                                  float scale, int tma, void* stream) {
   return attention_block_q_impl(x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, bo, out, xn, xq, xs,
                                 qkv, attn, aq, ascale, B, S, D, heads, hdp, scale, causal,
-                                AQ_POSTDIV, stream);
+                                AQ_POSTDIV, stream, nullptr, tma);
 }
 
 int dvl_attention_block_q_attr_mxu(const void* x, const void* ln_s, const void* ln_b,
@@ -2919,7 +2995,9 @@ int dvl_layer_down_fits(int D) { return layer_down_fits(D); }
 // quantizer, 3 reciprocal quantizer and bf16 quick_gelu, 4 q_attribution.py's
 // "mxu", 5 its "vpu") in place of act_kind; F the padded hidden width, fv
 // the model's; tma (bf16h: xn unwritten, 1 the up product on the persistent
-// TMA-store GEMM).
+// TMA-store GEMM; KB (a) 3: xn unwritten, 1 LayerNorm and the reciprocal
+// quantize of x in one pass, then the up product, the hidden's pass and the
+// down product, four launches).
 int dvl_mlp_block_q_kb(const void* x, const void* ln_s, const void* ln_b, const void* w1_t,
                        const void* s1, const void* b1, const void* w2_t, const void* s2,
                        const void* b2, void* out, void* xn, void* xq, void* xs, void* h, void* hq,

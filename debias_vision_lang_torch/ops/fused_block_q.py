@@ -80,7 +80,9 @@ each K3 or K4 with one change, on the same launches:
                          (``BF16H_ROUTES``), the gelu-and-quantize pass 16
                          bytes a load
   mlp_block_q_var        (q_kernel_variants.py) the reciprocal quantizer
-                         (``quant_rows_recip``), optionally a bf16 quick_gelu
+                         (``quant_rows_recip``), optionally a bf16 quick_gelu;
+                         on the card LayerNorm and quantize in one pass
+                         (``VAR_ROUTES``)
   attention_block_q_var  (q_kernel_variants.py) the reciprocal quantizer,
                          exp2 at hd^-0.5 log2 e, the row sum divided out
                          after P V
@@ -99,7 +101,10 @@ and, beside them (``KB_LAUNCHES``):
                              both norms, the QKV and down products on
                              persistent GEMMs (``layer_route``)
   attention_block_q_postdiv  (q_ilp4.py, the head-pair packed kernel) K3 with
-                             the row sum divided out after P V
+                             the row sum divided out after P V; on the card
+                             LayerNorm and quantize in one pass, the QKV
+                             product on the persistent TMA-store GEMM
+                             (``POSTDIV_ROUTES``)
 
 and the two blocks of benchmarks/q_attribution.py (KB (c)), each in three
 modes (``ATTR_MODES``): "full" is K3 / K4 itself (its launch and its
@@ -173,6 +178,15 @@ FSPLIT_ROUTES: Dict[str, int] = {"epi": 0, "gemm": 0}
 # and of ``mlp_block_q_bf16h``'s: its up product on the persistent TMA-store
 # GEMM ("tma"), or on the s8 GEMM for the checks ("gemm")
 BF16H_ROUTES: Dict[str, int] = {"tma": 0, "gemm": 0}
+# the routes of ``mlp_block_q_var``'s calls: LayerNorm and the reciprocal
+# quantize of x in one pass, then K4's up GEMM, quantize pass and down GEMM
+# ("ln", four launches), or the launches before, for the checks ("gemm",
+# ``_mlp_block_q_cuda(..., tma=False)``)
+VAR_ROUTES: Dict[str, int] = {"ln": 0, "gemm": 0}
+# and of ``attention_block_q_postdiv``'s: LayerNorm and quantize in one, the
+# QKV product on the persistent TMA-store GEMM and the core's divide-after
+# instantiation ("tma"), or K3's launches for the checks ("gemm")
+POSTDIV_ROUTES: Dict[str, int] = {"tma": 0, "gemm": 0}
 S8_GEMM_TILE = 128  # the s8 wgmma GEMM's N tile
 QQ_MAX_SEQ = 256  # keys of a score row the int8 core's register route holds
 # KB (a) 1's int8 core launches by route (``qq_route``)
@@ -184,7 +198,8 @@ ATTR_X_SCALE = 1.0 / 16.0  # the "mxu" bodies' static row scale of x
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, CORE_ROUTES, TP_LAUNCHES, KB_LAUNCHES, QQ_ROUTES, ROWS_ROUTES,
-                   ROWS_INPUTS, LAYER_ROUTES, FSPLIT_ROUTES, BF16H_ROUTES):
+                   ROWS_INPUTS, LAYER_ROUTES, FSPLIT_ROUTES, BF16H_ROUTES, VAR_ROUTES,
+                   POSTDIV_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -791,10 +806,12 @@ def _lib():
         lib.dvl_mlp_block_q.argtypes = [p] * 16 + [i] * 6 + [p]
         lib.dvl_mlp_block_q.restype = i
         f = ctypes.c_float
-        for entry in ("dvl_attention_block_q_var", "dvl_attention_block_q_postdiv",
-                      "dvl_attention_block_q_attr_mxu", "dvl_attention_block_q_attr_vpu"):
+        for entry in ("dvl_attention_block_q_var", "dvl_attention_block_q_attr_mxu",
+                      "dvl_attention_block_q_attr_vpu"):
             getattr(lib, entry).argtypes = [p] * 17 + [i] * 6 + [f, p]
             getattr(lib, entry).restype = i
+        lib.dvl_attention_block_q_postdiv.argtypes = [p] * 17 + [i] * 6 + [f, i, p]
+        lib.dvl_attention_block_q_postdiv.restype = i
         lib.dvl_attention_block_qq.argtypes = [p] * 18 + [i] * 6 + [f, p]
         lib.dvl_attention_block_qq.restype = i
         lib.dvl_attention_qq_core.argtypes = [p] * 6 + [i] * 4 + [f, p]
@@ -893,9 +910,13 @@ def _qq_workspace(b, s, heads, hdp, device):
 
 
 def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
-                            heads, causal, wqkv_qt, wo_qt, scratch, kind="k3"):
+                            heads, causal, wqkv_qt, wo_qt, scratch, kind="k3", tma=True):
     """K3's launch on ``attn_plan``'s layout (any D and head dim), or a KB
-    variant's on the same layout."""
+    variant's on the same layout.  q_ilp4's ("postdiv") normalises and
+    quantizes x in one pass (no LayerNorm rows in the scratch), runs its
+    QKV product on the persistent TMA-store GEMM and the core's
+    divide-after instantiation; ``tma=False`` runs K3's launches, the same
+    outputs bit for bit, for the checks."""
     _check_x(x)
     b, s, d = x.shape
     if s < 1:
@@ -908,7 +929,8 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
            *_q_attn_kernel_ops(wqkv_qt, wqkv_scale, bqkv, wo_qt, wo_scale, bo, plan, dev)]
     m = b * s
     out = torch.empty_like(x)
-    xn = torch.empty((m, plan.dk), dtype=bf, device=dev)
+    tma = tma and kind == "postdiv"
+    xn = None if tma else torch.empty((m, plan.dk), dtype=bf, device=dev)
     xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
     qkv = torch.empty((m, plan.nqkv), dtype=f32 if kind == "qq" else bf, device=dev)
@@ -917,13 +939,15 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
     ascale = torch.empty((m,), dtype=f32, device=dev)
     entry = _ATTN_Q_ENTRIES[kind]
     ptrs = [x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(),
-            xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
+            0 if xn is None else xn.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
             attn.data_ptr(), aq.data_ptr(), ascale.data_ptr()]
     if kind == "qq":
         ws = _qq_workspace(b, s, heads, plan.hdp, dev)
         ptrs.append(ws.data_ptr())
-    err = getattr(_lib(), entry)(*ptrs, b, s, d, heads, plan.hdp, int(causal), plan.scale,
-                                 _stream_ptr(dev))
+    dims = [b, s, d, heads, plan.hdp, int(causal), plan.scale]
+    if kind == "postdiv":
+        dims.append(int(tma))
+    err = getattr(_lib(), entry)(*ptrs, *dims, _stream_ptr(dev))
     _raise_on(err, entry)
     if kind == "k3":
         LAUNCHES["attention_block_q_causal" if causal else "attention_block_q"] += 1
@@ -933,6 +957,8 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
         if kind == "qq":  # the block's launch runs the int8 core once
             KB_LAUNCHES["attention_qq_core"] += 1
             QQ_ROUTES[qq_route(s, plan.hd)] += 1
+        if kind == "postdiv":
+            POSTDIV_ROUTES["tma" if tma else "gemm"] += 1
         if kind in ("var", "postdiv", "attr_mxu"):  # K3's wgmma core
             # the register core's softmax-off mode is hdp 64's: wider heads
             # take the long core
@@ -941,12 +967,13 @@ def _attention_block_q_cuda(x, ln_s, ln_b, wqkv_scale, bqkv, wo_scale, bo,
     check_nans(entry, out)
     if scratch is not None:  # the model's widths: the padded lanes cropped
         crop = plan.crop_heads
-        scratch.update({"xn": xn[:, :d].reshape(b, s, d).float(),
-                        "xq": xq[:, :d].reshape(b, s, d), "xs": xs.view(b, s, 1),
+        scratch.update({"xq": xq[:, :d].reshape(b, s, d), "xs": xs.view(b, s, 1),
                         "attn": crop(attn).reshape(b, s, d).float(),
                         "aq": crop(aq).reshape(b, s, d), "as": ascale.view(b, s, 1)})
-        if kind == "attr_mxu":  # no LayerNorm: x's codes are its static cast
-            del scratch["xn"]
+        # LayerNorm's rows, where a launch of their own wrote them ("mxu"
+        # has no LayerNorm: x's codes are its static cast)
+        if xn is not None and kind != "attr_mxu":
+            scratch["xn"] = xn[:, :d].reshape(b, s, d).float()
         if kind == "qq":
             scratch["qkv"] = qkv[:, plan.qkv_columns().to(dev)].view(b, s, 3 * d)
     return out
@@ -1008,11 +1035,11 @@ def fsplit_route(d: int, fb: int) -> str:
 def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
                       w1_qt, w2_qt, scratch, kind="k4", fb=None, tma=True):
     """K4's launch on ``mlp_plan``'s layout (any D, F and divisor fb of F),
-    or a KB variant's on the same layout (fb = F).  The F-split and bf16h
-    normalise and quantize x in one pass (no LayerNorm rows in the scratch)
-    and take their routes (``fsplit_route``; bf16h's up product on the
-    persistent GEMM); ``tma=False`` puts their products on the s8 GEMM, the
-    same outputs bit for bit, for the checks."""
+    or a KB variant's on the same layout (fb = F).  The F-split, bf16h and
+    KB (a) 3 normalise and quantize x in one pass (no LayerNorm rows in the
+    scratch) and take their routes (``fsplit_route``; bf16h's up product on
+    the persistent GEMM); ``tma=False`` runs the launches before those
+    designs, the same outputs bit for bit, for the checks."""
     _check_x(x)
     b, s, d = x.shape
     f = w1_scale.numel()
@@ -1026,7 +1053,8 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
            *_q_mlp_kernel_ops(w1_qt, w1_scale, b1, w2_qt, w2_scale, b2, plan, dev)]
     m = b * s
     out = torch.empty_like(x)
-    ln_quant = k > 1 or kind == "bf16h"  # LayerNorm's rows never written
+    var = kind in ("var", "var_bf16_gelu")
+    ln_quant = k > 1 or kind == "bf16h" or (var and tma)  # LayerNorm's rows never written
     xn = None if ln_quant else torch.empty((m, plan.dk), dtype=bf, device=dev)
     xq = torch.empty((m, plan.dk), dtype=i8, device=dev)
     xs = torch.empty((m,), dtype=f32, device=dev)
@@ -1058,6 +1086,8 @@ def _mlp_block_q_cuda(x, ln_s, ln_b, w1_scale, b1, w2_scale, b2, act_kind,
         KB_LAUNCHES["mlp_block_q_" + kind] += 1
         if kind == "bf16h":
             BF16H_ROUTES["tma" if tma else "gemm"] += 1
+        if var:
+            VAR_ROUTES["ln" if tma else "gemm"] += 1
     check_nans("dvl_mlp_block_q", out)
     if scratch is not None:  # the model's widths: the padded lanes cropped
         rows = (b, s, f) if k == 1 else (b, s, k, fb)
@@ -1489,7 +1519,8 @@ def mlp_block_q_var(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *,
                     scratch: Optional[dict] = None) -> torch.Tensor:
     """KB (a) 3 (``make_mlp_var(bf16_gelu)`` of benchmarks/
     q_kernel_variants.py): K4 with the reciprocal quantizer, quick_gelu in
-    f32 or bf16."""
+    f32 or bf16 (on the card counted in ``VAR_ROUTES`` too; its scratch has
+    no LayerNorm rows there)."""
     if _route(x) == "cpu":
         return mlp_block_q_var_plain(x, ln_s, ln_b, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
                                      bf16_gelu=bf16_gelu, scratch=scratch)
@@ -1543,8 +1574,10 @@ def attention_block_q_postdiv(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q, wo_
     """The head-pair packed int8 attention of benchmarks/q_ilp4.py
     (``make_call(bb)``; ``bb`` and the packing are the TPU's issue order):
     K3 with the row sum divided out after P V
-    (``attention_block_q_postdiv_plain``); on a card K3's launches with
-    KB (a) 4's core."""
+    (``attention_block_q_postdiv_plain``); on a card LayerNorm and
+    quantize in one pass, the QKV product on the persistent TMA-store GEMM
+    and the core's divide-after instantiation (counted in
+    ``POSTDIV_ROUTES``; its scratch has no LayerNorm rows)."""
     if _route(x) == "cpu":
         return attention_block_q_postdiv_plain(x, ln_s, ln_b, wqkv_q, wqkv_scale, bqkv, wo_q,
                                                wo_scale, bo, heads=heads, scratch=scratch)

@@ -197,6 +197,9 @@ def test_cuda_postdiv_matches_twin(b, s):
     got = fbq.attention_block_q_postdiv(x, *attn, heads=H, **kw, scratch=sk)
     torch.cuda.synchronize()
     assert fbq.KB_LAUNCHES["attention_block_q_postdiv"] == 1
+    s3 = {}  # one LayerNorm-and-quantize pass: K3's LayerNorm rows of the same x
+    fbq.attention_block_q(x, *attn, heads=H, **kw, scratch=s3)
+    sk["xn"] = s3["xn"]
     for codes, rows, scales in (("xq", "xn", "xs"), ("aq", "attn", "as")):
         q, sc = fbq.quant_rows(sk[rows])
         assert torch.equal(q, sk[codes]) and torch.equal(sc, sk[scales])

@@ -564,6 +564,9 @@ def test_cuda_variants_match_twins(cuda, kind, b, s):
         bf16_gelu = kind == "var_bf16_gelu"
         got = fbq.mlp_block_q_var(x, *m, bf16_gelu=bf16_gelu, **mkw, scratch=sk)
         ref = fbq.mlp_block_q_var_plain(x, *m, bf16_gelu=bf16_gelu)
+        s4 = {}  # one LayerNorm-and-quantize pass: K4's LayerNorm rows of the same x
+        fbq.mlp_block_q(x, *m, **mkw, scratch=s4)
+        sk["xn"] = s4["xn"]
         _codes_are_own(sk, fbq.quant_rows_recip, [("xq", "xn", "xs"), ("hq", "h", "hs")])
         key = "mlp_block_q_" + kind
     torch.cuda.synchronize()
